@@ -12,21 +12,32 @@ Phases, each reported on its own line; any failure exits non-zero:
                 the card, on seeded problems (both modes, reservations,
                 bound rows with quotas, group caps, conflicts, negative
                 and huge demand, a capped node axis): outputs must be
-                byte-identical.
+                byte-identical, B3's at widths 1, 8 and 16, and B3's
+                equal to B1's on the same problem.
   4. main path — `solve()` the benchmark problem (50k pods x 500
-                instance types, seed 42): one cold solve, five warm
-                ones, then 10k more pods against the first solve's
-                nodes as existing nodes. Kernel launch counts are set
-                to 0 before and read after; both kernels must have
-                run. Every pod is placed or unschedulable, and the
-                fingerprints equal those of the same calls on the CPU
-                (the plain versions, which the CPU tests hold against
-                the JAX package). The kernel inputs of every distinct
-                shape the path staged are kept, and both kernels are
-                held byte-identical to their plain versions on them.
-  5. timing   — each kernel's CUDA-event time on the warm solve's
-                inputs, its plain version's, and its bound; printed as
-                one JSON line {"kernels": [...]}.
+                instance types, seed 42) as a user would, on each of
+                the port's routes, with the kernel launch counts set to
+                0 just before each and read just after:
+                  first      one cold and five warm solves, on the
+                             route the card takes by default: the
+                             wavefront kernel B3 (168 groups >= 8);
+                  second     10k more pods against the first solve's
+                             nodes as existing nodes (the bound block);
+                  sequential five warm solves of the first request
+                             with KARPENTER_WAVEFRONT=0: B1;
+                  small      a request of fewer than 8 groups: B1.
+                Each route must launch its kernels and only those.
+                Every pod is placed or unschedulable, and every
+                fingerprint equals the CPU path's (the plain versions,
+                which the CPU tests hold against the JAX package) and
+                the other routes' of the same request. The kernel
+                inputs of every distinct shape the routes staged are
+                kept, and B1, B3 (width 16) and B2 are held
+                byte-identical to their plain versions on them.
+  5. timing   — each kernel's CUDA-event time on the warm first
+                request's inputs (B1 and B3 in turns), its plain
+                version's, and its bound; printed as one JSON line
+                {"kernels": [...]}.
 The last line is {"ok": true, "device": {...}}. The script uses one
 card: the first of CUDA_VISIBLE_DEVICES (card 0 when it is unset).
 
@@ -47,6 +58,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_PODS, N_TYPES, SEED = 50_000, 500, 42
 N_EXTRA = 10_000
 WARM_SOLVES = 5
+# groups of the request that takes the sequential route by its size
+# (the wavefront route needs WAVEFRONT_MIN_GROUPS = 8)
+SMALL_GROUPS = 5
+WIDTHS = (1, 8, 16)
+OUTPUTS = ("assign", "free_mask", "node_count", "unsched", "steps", "widths")
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_F32_OPS = 67e12
@@ -118,9 +134,10 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def hold(kernels, case, err: dict) -> str:
-    """Run B1 and B2 and their plain versions on the card on `case`;
-    fail unless every output is byte-identical. Returns a summary."""
+def hold(kernels, case, err: dict, widths=(16,)) -> str:
+    """Run B1, B3 at each of `widths`, and B2 on both routes, and their
+    plain versions, on the card on `case`; fail unless every output is
+    byte-identical and B3's outputs equal B1's. Returns a summary."""
     import torch
 
     args, kw = to_cuda(case)
@@ -128,20 +145,50 @@ def hold(kernels, case, err: dict) -> str:
     torch.cuda.synchronize()
     want = kernels.pack_split_ref(*args, max_free=case.max_free, mode=case.mode, **kw)
     torch.cuda.synchronize()
-    for label, a, b in zip(("assign", "free_mask", "node_count", "unsched"), got, want):
+    for label, a, b in zip(OUTPUTS, got, want):
         if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
             fail(f"pack_split differs from pack_split_ref on {case.name}: {label}")
         err["pack_split"] = max(err["pack_split"], max_abs_diff(a, b))
-    flat = kernels.pack_flat_words(*got)
-    flat_ref = kernels.pack_flat_words_ref(*got)
-    torch.cuda.synchronize()
-    if flat.dtype != flat_ref.dtype or not torch.equal(flat, flat_ref):
-        fail(f"pack_flat_words differs from pack_flat_words_ref on {case.name}")
-    err["pack_split_flat"] = max(err["pack_split_flat"], max_abs_diff(flat, flat_ref))
+    flats = [(got, ())]
+    rounds = []
+    for width in widths:
+        wf = kernels.pack_split_wavefront(
+            *args, max_free=case.max_free, mode=case.mode, width=width, **kw)
+        torch.cuda.synchronize()
+        wf_ref = kernels.pack_split_wavefront_ref(
+            *args, max_free=case.max_free, mode=case.mode, width=width, **kw)
+        torch.cuda.synchronize()
+        for label, a, b in zip(OUTPUTS, wf, wf_ref):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                fail(f"pack_split_wavefront (width {width}) differs from "
+                     f"pack_split_wavefront_ref on {case.name}: {label}")
+            err["pack_split_wavefront"] = max(err["pack_split_wavefront"], max_abs_diff(a, b))
+        for label, a, b in zip(OUTPUTS, wf, got):
+            if not torch.equal(a, b):
+                fail(f"pack_split_wavefront (width {width}) differs from "
+                     f"pack_split on {case.name}: {label}")
+        flats.append((wf[:4], (wf[5], wf[4])))
+        rounds.append(f"W{width}:{int(wf[4])}")
+    for outs, stats in flats:
+        flat = kernels.pack_flat_words(*outs, *stats)
+        flat_ref = kernels.pack_flat_words_ref(*outs, *stats)
+        torch.cuda.synchronize()
+        if flat.dtype != flat_ref.dtype or not torch.equal(flat, flat_ref):
+            fail(f"pack_flat_words differs from pack_flat_words_ref on {case.name}")
+        err["pack_split_flat"] = max(err["pack_split_flat"], max_abs_diff(flat, flat_ref))
     B = args[7].shape[0]
     return (f"  case {case.name} mode={case.mode} Gp={args[0].shape[0]} "
             f"Cp={args[0].shape[1]} B={B} F={case.max_free}: nodes={int(got[2])} "
-            f"bound_pods={int(got[0][:B].sum())} unsched={int(got[3].sum())} identical")
+            f"bound_pods={int(got[0][:B].sum())} unsched={int(got[3].sum())} "
+            f"rounds {' '.join(rounds)} identical")
+
+
+def histogram(widths) -> dict:
+    """Rounds per committed width, {width: rounds}."""
+    out: dict[int, int] = {}
+    for w in widths.tolist():
+        out[int(w)] = out.get(int(w), 0) + 1
+    return dict(sorted(out.items()))
 
 
 def b1_ops(kernels, args, kw, max_free: int) -> int:
@@ -223,21 +270,27 @@ def main() -> None:
 
     # ---- 3. kernels against their plain versions on the card
     t0 = time.perf_counter()
-    err = {"pack_split": 0.0, "pack_split_flat": 0.0}
+    err = {"pack_split": 0.0, "pack_split_wavefront": 0.0, "pack_split_flat": 0.0}
     cases = kernel_cases(0)
     for case in cases:
-        say(hold(kernels, case, err))
+        say(hold(kernels, case, err, widths=WIDTHS))
     say(f"phase 3 kernels: {len(cases)} seeded problems byte-identical to the "
-        f"plain versions ({time.perf_counter() - t0:.3f}s)")
+        f"plain versions, B3 at widths {WIDTHS} equal to B1 "
+        f"({time.perf_counter() - t0:.3f}s)")
 
-    # ---- 4. main path; the kernel inputs of each distinct shape it
-    # stages are kept, to hold the kernels against the plain versions
+    # ---- 4. main path, route by route; the kernel inputs of each
+    # distinct shape the routes stage are kept, to hold the kernels
+    # against the plain versions, and each solve's PackResult is kept
+    # for its rounds
     pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
     extra, _ = build_problem(N_EXTRA, N_TYPES, seed=SEED + 1, name_prefix="extra-")
+    groups = group_pods(pods)
+    small = [p for g in groups[:SMALL_GROUPS] for p in g.pods]
     staged_cases: dict[tuple, KernelCase] = {}
     label = ""
     timed: KernelCase | None = None  # the warm first request's inputs
-    real_stage = pack.stage
+    results: dict[str, list] = {}
+    real_stage, real_solve_packing = pack.stage, pack.solve_packing
 
     def recording_stage(*a, **k):
         nonlocal timed
@@ -251,49 +304,113 @@ def main() -> None:
             timed = case
         return st
 
-    pack.stage = recording_stage
-    try:
+    def recording_solve_packing(enc, *a, **k):
+        res = real_solve_packing(enc, *a, **k)
+        results.setdefault(label, []).append((enc.compat.shape[0], res))
+        return res
+
+    launches: dict[str, dict] = {}
+
+    def drive(route: str, fn):
+        """Run one route with the launch counts set to 0 just before it
+        and read just after."""
         kernels.reset_launch_counts()
-        label = "first-cold"
-        t0 = time.perf_counter()
-        sol = solve(pods, pools)
+        out = fn()
         torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        warm = []
-        label = "first-warm"
+        launches[route] = dict(kernels.LAUNCHES)
+        return out
+
+    def timed_solves(name: str, *args):
+        nonlocal label
+        label = name
+        walls, sols = [], []
         for _ in range(WARM_SOLVES):
             t0 = time.perf_counter()
-            again = solve(pods, pools)
+            sols.append(solve(*args))
             torch.cuda.synchronize()
-            warm.append(time.perf_counter() - t0)
+            walls.append(time.perf_counter() - t0)
+        return sols, walls
+
+    os.environ.pop("KARPENTER_WAVEFRONT", None)
+    os.environ.pop("KARPENTER_WAVEFRONT_WIDTH", None)
+    pack.stage, pack.solve_packing = recording_stage, recording_solve_packing
+    try:
+        def first():
+            nonlocal label
+            label = "first-cold"
+            t0 = time.perf_counter()
+            sol = solve(pods, pools)
+            torch.cuda.synchronize()
+            return sol, time.perf_counter() - t0, timed_solves("first-warm", pods, pools)
+
+        sol, cold_s, (warm_sols, warm) = drive("first", first)
         existing = existing_from_solution(sol)
-        label = "second"
-        t0 = time.perf_counter()
-        sol2 = solve(extra, pools, existing)
-        torch.cuda.synchronize()
-        second_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+
+        def second():
+            nonlocal label
+            label = "second"
+            t0 = time.perf_counter()
+            out = solve(extra, pools, existing)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        sol2, second_s = drive("second", second)
+        os.environ["KARPENTER_WAVEFRONT"] = "0"
+        try:
+            seq_sols, seq_warm = drive(
+                "sequential", lambda: timed_solves("sequential", pods, pools))
+        finally:
+            os.environ.pop("KARPENTER_WAVEFRONT", None)
+
+        def small_route():
+            nonlocal label
+            label = "small"
+            return solve(small, pools)
+
+        sol_small = drive("small", small_route)
     finally:
-        pack.stage = real_stage
-    if min(launches.values()) < 1:
-        fail(f"the main path did not launch every kernel: {launches}")
-    if fingerprint(again) != fingerprint(sol):
-        fail("warm solves are not deterministic")
-    for name, s, n in (("first", sol, N_PODS), ("second", sol2, N_EXTRA)):
+        pack.stage, pack.solve_packing = real_stage, real_solve_packing
+    groups2 = results["second"][-1][0]
+    expect = {
+        "first": ("pack_split_wavefront", "pack_split"),
+        "second": (("pack_split_wavefront", "pack_split") if groups2 >= 8
+                   else ("pack_split", "pack_split_wavefront")),
+        "sequential": ("pack_split", "pack_split_wavefront"),
+        "small": ("pack_split", "pack_split_wavefront"),
+    }
+    for route, (used, unused) in expect.items():
+        n = launches[route]
+        if n[used] < 1 or n["pack_split_flat"] < 1 or n[unused] != 0:
+            fail(f"route {route} launched {n}: expected {used} and "
+                 f"pack_split_flat, and no {unused}")
+    for name in kernels.LAUNCHES:
+        if sum(n[name] for n in launches.values()) < 1:
+            fail(f"the main path never launched {name}: {launches}")
+    first_fp = fingerprint(sol)
+    if any(fingerprint(s) != first_fp for s in warm_sols + seq_sols):
+        fail("warm solves of the first request differ between solves or routes")
+    for name, s, n in (("first", sol, N_PODS), ("second", sol2, N_EXTRA),
+                       ("small", sol_small, len(small))):
         placed = sum(len(p.pods) for p in s.new_nodes) + sum(len(e.pods) for e in s.existing)
         if placed + len(s.unschedulable) != n:
             fail(f"{name} request: {placed} placed + {len(s.unschedulable)} "
                  f"unschedulable != {n} pods")
-    cpu1 = solve(pods, pools, device="cpu")
-    cpu2 = solve(extra, pools, existing, device="cpu")
-    if fingerprint(cpu1) != fingerprint(sol):
+    if fingerprint(solve(pods, pools, device="cpu")) != first_fp:
         fail("first request: GPU fingerprint differs from the CPU path's")
-    if fingerprint(cpu2) != fingerprint(sol2):
+    if fingerprint(solve(extra, pools, existing, device="cpu")) != fingerprint(sol2):
         fail("second request: GPU fingerprint differs from the CPU path's")
+    if fingerprint(solve(small, pools, device="cpu")) != fingerprint(sol_small):
+        fail("small request: GPU fingerprint differs from the CPU path's")
     if timed is None or not any(c.args[7].shape[0] for c in staged_cases.values()):
         fail("the main path staged no warm first-request or bound-row kernel inputs")
+    rounds = {}
+    for route in ("first-warm", "second", "sequential", "small"):
+        G, res = results[route][-1]
+        rounds[route] = (G, res.device_steps, res.wavefront_widths)
+    if rounds["first-warm"][2] is None or rounds["sequential"][2] is not None:
+        fail(f"routes did not report their rounds as expected: {rounds}")
     # where a warm solve's wall goes, phase by phase (median of 3);
-    # "pack" is staging, upload, both kernels, download and unpacking
+    # "pack" is staging, upload, the kernels, download and unpacking
     phases = {"group_pods": [], "encode": [], "pack": [], "decode": []}
     for _ in range(3):
         t0 = time.perf_counter()
@@ -315,13 +432,19 @@ def main() -> None:
     bound_pods = sum(len(e.pods) for e in sol2.existing)
     say(f"phase 4 main path: {N_PODS} pods x {N_TYPES} types -> "
         f"{len(sol.new_nodes)} nodes, {len(sol.unschedulable)} unschedulable, "
-        f"${sol.total_price:.6f}/h | cold {cold_s:.6f}s, warm median "
-        f"{statistics.median(warm):.6f}s over {WARM_SOLVES} "
-        f"({', '.join(f'{w:.6f}' for w in warm)})")
+        f"${sol.total_price:.6f}/h | cold {cold_s:.6f}s | warm median, wavefront "
+        f"route {statistics.median(warm):.6f}s ({', '.join(f'{w:.6f}' for w in warm)}); "
+        f"KARPENTER_WAVEFRONT=0 {statistics.median(seq_warm):.6f}s "
+        f"({', '.join(f'{w:.6f}' for w in seq_warm)})")
+    for route, (G, steps, widths) in rounds.items():
+        hist = "sequential" if widths is None else f"widths {histogram(widths)}"
+        say(f"  {route}: G={G} groups, {steps} device steps, {hist}")
     say(f"  second request: {N_EXTRA} pods against {len(existing)} existing nodes "
         f"-> {bound_pods} on existing, {len(sol2.new_nodes)} new nodes, "
-        f"{len(sol2.unschedulable)} unschedulable, {second_s:.6f}s | "
-        f"launches {launches} | fingerprints equal to the CPU path's")
+        f"{len(sol2.unschedulable)} unschedulable, {second_s:.6f}s | small request: "
+        f"{len(small)} pods in {SMALL_GROUPS} groups -> {len(sol_small.new_nodes)} nodes")
+    say(f"  launches per route: {json.dumps(launches)} | fingerprints equal to the "
+        f"CPU path's and across routes")
     say("  warm solve breakdown (median of 3, s): "
         + ", ".join(f"{k} {v:.6f}" for k, v in breakdown.items()))
     t0 = time.perf_counter()
@@ -335,46 +458,76 @@ def main() -> None:
     args, kw = to_cuda(case)
     B = args[7].shape[0]
     F = case.max_free
+    W = pack.wavefront_width(torch.device("cuda"))
 
     def run_b1():
         return kernels.pack_split(*args, max_free=F, mode="ffd", **kw)
 
-    out = run_b1()
-    b1_ms = event_ms(run_b1, 10)
+    def run_b3():
+        return kernels.pack_split_wavefront(*args, max_free=F, mode="ffd", width=W, **kw)
+
+    out1, out3 = run_b1(), run_b3()
+    # B1 and B3 in turns on the same card: B1, B3, B3, B1
+    b1_runs, b3_runs = [event_ms(run_b1, 10)], []
+    b3_runs += [event_ms(run_b3, 10), event_ms(run_b3, 10)]
+    b1_runs.append(event_ms(run_b1, 10))
+    b1_ms, b3_ms = statistics.mean(b1_runs), statistics.mean(b3_runs)
     b1_plain_ms = event_ms(
         lambda: kernels.pack_split_ref(*args, max_free=F, mode="ffd", **kw), 2)
-    b2_ms = event_ms(lambda: kernels.pack_flat_words(*out), 50)
-    b2_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*out), 20)
+    b3_plain_ms = event_ms(
+        lambda: kernels.pack_split_wavefront_ref(*args, max_free=F, mode="ffd",
+                                                 width=W, **kw), 2)
+    # B2 as the main path runs it: on B3's outputs, stats appended
+    b2_in = (*out3[:4], out3[5], out3[4])
+    b2_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50)
+    b2_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*b2_in), 20)
 
     Gp, Cp = args[0].shape
     R = args[1].shape[1]
+    # B3 computes B1's function: the work its inputs need is B1's
     b1_op_count = b1_ops(kernels, args, kw, F)
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
-    b1_bytes = nbytes(list(args) + list(kw.values())) + nbytes(out)
-    flat = kernels.pack_flat_words(*out)
-    b2_bytes = nbytes(out) + nbytes([flat])
-    b2_op_count = out[1].numel()
+    in_bytes = nbytes(list(args) + list(kw.values()))
+    b1_bytes = in_bytes + nbytes(out1)
+    b3_bytes = in_bytes + nbytes(out3)
+    flat = kernels.pack_flat_words(*b2_in)
+    b2_bytes = nbytes(b2_in) + nbytes([flat])
+    b2_op_count = out3[1].numel()
 
     def bound(ops, nb):
         t_ops, t_bytes = ops / PEAK_F32_OPS, nb / PEAK_BYTES
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
     b1_bound, b1_by = bound(b1_op_count, b1_bytes)
+    b3_bound, b3_by = bound(b1_op_count, b3_bytes)
     b2_bound, b2_by = bound(b2_op_count, b2_bytes)
-    say(f"phase 5 timing on {case.name} (Gp={Gp} Cp={Cp} B={B} F={F} R={R}): "
-        f"B1 ops={b1_op_count} bytes={b1_bytes}; B2 ops={b2_op_count} "
+    say(f"phase 5 timing on {case.name} (Gp={Gp} Cp={Cp} B={B} F={F} R={R}, W={W}): "
+        f"B1 {', '.join(f'{x:.4f}' for x in b1_runs)} ms; B3 "
+        f"{', '.join(f'{x:.4f}' for x in b3_runs)} ms, {int(out3[4])} rounds, widths "
+        f"{histogram(out3[5][:int(out3[4])])}; B1/B3 ops={b1_op_count} "
+        f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 ops={b2_op_count} "
         f"bytes={b2_bytes} | card: {smi}")
+    route_launches = {
+        name: sum(n[name] for n in launches.values()) for name in kernels.LAUNCHES
+    }
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",
          "replaces": "karpenter_tpu/solver/pack.py:444",
-         "launches": launches["pack_split"], "max_abs_err": err["pack_split"],
+         "launches": route_launches["pack_split"], "max_abs_err": err["pack_split"],
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
          "bound_by": b1_by, "library_ms": None},
+        {"name": "pack_split_wavefront", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/pack_wavefront.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:786",
+         "launches": route_launches["pack_split_wavefront"],
+         "max_abs_err": err["pack_split_wavefront"],
+         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
+         "bound_by": b3_by, "library_ms": None},
         {"name": "pack_split_flat", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_flat.cu",
          "replaces": "karpenter_tpu/solver/pack.py:1374",
-         "launches": launches["pack_split_flat"], "max_abs_err": err["pack_split_flat"],
+         "launches": route_launches["pack_split_flat"], "max_abs_err": err["pack_split_flat"],
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None},
     ]}

@@ -10,11 +10,15 @@
 //                       column 32w+i (W = C / 32)
 //   N*G + F*W           node_count
 //   then G words        unsched
+//   then G words, 1     widths and steps, on the wavefront route only
+//                       (B3's stats, after every sequential field)
 //
-// What bounds it: bytes. It reads N*G*4 + F*C + 4 + G*4 bytes and
-// writes N*G*4 + F*C/8 + 4 + G*4; one thread per output word, so a
-// thread either packs 32 mask bytes (two 16-byte loads) or copies one
-// word, with neighbouring threads on neighbouring words.
+// What bounds it: bytes. It reads N*G*4 + F*C + 4 + G*4 bytes (plus
+// G*4 + 4 for the wavefront stats) and writes N*G*4 + F*C/8 + 4 + G*4
+// (plus the same G*4 + 4); one thread per output word, so a thread
+// either packs 32 mask bytes (two 16-byte loads) or copies one word,
+// with neighbouring threads on neighbouring words. One kernel serves
+// both routes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -25,9 +29,12 @@ __global__ void pack_flat_kernel(const int32_t* __restrict__ assign,
                                  const uint8_t* __restrict__ free_mask,
                                  const int32_t* __restrict__ node_count,
                                  const int32_t* __restrict__ unsched,
+                                 const int32_t* __restrict__ widths,
+                                 const int32_t* __restrict__ steps,
                                  int32_t* __restrict__ out,
                                  long long n_assign, long long n_words, int G) {
-  const long long total = n_assign + n_words + 1 + G;
+  const long long n_seq = n_assign + n_words + 1 + G;
+  const long long total = n_seq + (widths ? G + 1 : 0);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     if (i < n_assign) {
@@ -49,27 +56,33 @@ __global__ void pack_flat_kernel(const int32_t* __restrict__ assign,
       out[i] = (int32_t)word;
     } else if (i == n_assign + n_words) {
       out[i] = *node_count;
-    } else {
+    } else if (i < n_seq) {
       out[i] = unsched[i - n_assign - n_words - 1];
+    } else if (i < n_seq + G) {
+      out[i] = widths[i - n_seq];
+    } else {
+      out[i] = *steps;
     }
   }
 }
 
 }  // namespace
 
+// widths and steps: both null on the sequential route
 extern "C" int pack_flat_launch(const int32_t* assign, const uint8_t* free_mask,
                                 const int32_t* node_count, const int32_t* unsched,
+                                const int32_t* widths, const int32_t* steps,
                                 int32_t* out, int N, int G, int F, int C,
                                 cudaStream_t stream) {
-  if (C % 32) return (int)cudaErrorInvalidValue;
+  if (C % 32 || (widths == nullptr) != (steps == nullptr)) return (int)cudaErrorInvalidValue;
   const long long n_assign = (long long)N * G;
   const long long n_words = (long long)F * (C / 32);
-  const long long total = n_assign + n_words + 1 + G;
+  const long long total = n_assign + n_words + 1 + G + (widths ? G + 1 : 0);
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 65535) blocks = 65535;
   if (blocks < 1) blocks = 1;
   pack_flat_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      assign, free_mask, node_count, unsched, out, n_assign, n_words, G);
+      assign, free_mask, node_count, unsched, widths, steps, out, n_assign, n_words, G);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,8 @@ Each source under `csrc/` is compiled by `nvcc` into its own shared
 library with a plain C interface, loaded with ctypes. The build runs at
 first use, into `_build/` beside this file, one `nvcc` process per
 source, all started together. A library's file name carries a digest
-of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+of its source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply-add
 is contracted into an FMA (the kernels must match their plain versions
@@ -30,6 +30,7 @@ BUILD = HERE / "_build"
 # library name -> source file under csrc/
 SOURCES = {
     "pack_split": "pack_split.cu",
+    "pack_wavefront": "pack_wavefront.cu",
     "pack_flat": "pack_flat.cu",
 }
 
@@ -43,7 +44,8 @@ _I = ctypes.c_int
 # C signatures: argument types of each library's entry point
 SIGNATURES = {
     "pack_split": ("pack_split_launch", [_P] * 28 + [_I] * 8 + [_P]),
-    "pack_flat": ("pack_flat_launch", [_P] * 5 + [_I] * 4 + [_P]),
+    "pack_wavefront": ("pack_wavefront_launch", [_P] * 38 + [_I] * 9 + [_P]),
+    "pack_flat": ("pack_flat_launch", [_P] * 7 + [_I] * 4 + [_P]),
 }
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said
@@ -67,7 +69,9 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the shared headers are part of every source's digest
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"{name}-{digest}.so"
 

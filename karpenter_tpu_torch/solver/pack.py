@@ -4,10 +4,11 @@ flat-buffer decode around the packing kernels.
 Copy of the unsharded host half of `karpenter_tpu/solver/pack.py`
 (`PackResult`, the shape buckets, `_estimate_nodes`, the node-axis
 retry of `solve_packing_async` as a synchronous loop, `_run_pack`'s
-bound-block staging and the uint32 decode of its `fetch`). The kernels themselves are in
-`pack_split.py`: B1 `pack_split` and B2 `pack_flat_words`, which run
-on the tensors' device — the hand-written CUDA kernels on a GPU, their
-plain versions on the CPU.
+bound-block staging, the wavefront routing and the uint32 decode of
+its `fetch`). The kernels themselves are in `pack_split.py`: B1
+`pack_split`, B3 `pack_split_wavefront` and B2 `pack_flat_words`,
+which run on the tensors' device — the hand-written CUDA kernels on a
+GPU, their plain versions on the CPU.
 
 Determinism: every kernel choice is an index-tie-broken arg-reduction
 over a static axis, so a solve is bit-reproducible and equal to the
@@ -16,6 +17,8 @@ JAX package's on the same encoded input.
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import zlib
 from dataclasses import dataclass
@@ -35,18 +38,76 @@ class PackResult:
     node_active: np.ndarray   # [N] bool
     node_count: int
     unschedulable: np.ndarray  # [G] int32 pods that found no placement
+    # outer-loop device steps the solve executed (sequential: one per
+    # padded group; wavefront: one per committed round) and, for
+    # wavefront solves, the groups committed per round
+    device_steps: int = 0
+    wavefront_widths: np.ndarray | None = None
 
 
-def wavefront_plan(n_groups: int, shards: int = 0) -> int:
-    """Lane width of the wavefront kernel for a solve; 0 routes the
-    sequential kernel.
+# unrecognized KARPENTER_WAVEFRONT spellings already warned about
+_warned_wavefront: set[str] = set()
 
-    Always 0 in this package: the wavefront kernel
-    (`karpenter_tpu/solver/pack.py::pack_split_wavefront`, bit-identical
-    to the sequential one by contract) is not ported yet — it is item
-    B3 in ROADMAP.md. The sequential kernel is the JAX package's
-    KARPENTER_WAVEFRONT=0 route."""
-    return 0
+
+def wavefront_width(device: torch.device | str) -> int:
+    """Resolve the KARPENTER_WAVEFRONT knob into a lane width (0 =
+    sequential) for a solve on `device`.
+
+    Unset / "1" / "on" / "auto" is device-aware auto: the wavefront
+    kernel on the card, the sequential one on the CPU (the JAX
+    package's rule for its backends). "0"/"off" disables everywhere;
+    "force" (or an integer >= 2, which is the width) enables on any
+    device. KARPENTER_WAVEFRONT_WIDTH overrides the default width (16)
+    without forcing the device choice."""
+    raw = os.environ.get("KARPENTER_WAVEFRONT", "auto").strip().lower()
+    if raw in ("0", "off", "false", "no"):
+        return 0
+    width = 0
+    force = raw == "force"
+    if raw not in ("", "1", "on", "true", "yes", "auto", "force"):
+        try:
+            width = int(raw)
+            if width <= 0:
+                # a non-positive width can only mean "off"
+                return 0
+        except ValueError:
+            # unrecognized spelling: auto, said once per spelling
+            if raw not in _warned_wavefront:
+                _warned_wavefront.add(raw)
+                logging.getLogger("karpenter.solver").warning(
+                    "unrecognized KARPENTER_WAVEFRONT=%r; using auto "
+                    "(the card on, the CPU sequential — use 0/off to "
+                    "disable, force or an integer width to enable)", raw,
+                )
+            width = 0
+        force = width > 1
+    if width == 0:
+        wraw = os.environ.get("KARPENTER_WAVEFRONT_WIDTH", "").strip()
+        if wraw:
+            try:
+                width = max(0, int(wraw))
+            except ValueError:
+                width = 0
+    if width == 0:
+        width = 16
+    if not force and torch.device(device).type != "cuda":
+        return 0
+    return 0 if width <= 1 else width
+
+
+# Below this many real groups the sequential loop wins: a wavefront
+# round plans `width` lanes to commit at most the groups that remain,
+# so a tiny solve pays the fan-out without amortizing it.
+WAVEFRONT_MIN_GROUPS = 8
+
+
+def wavefront_plan(n_groups: int, device: torch.device | str) -> int:
+    """Wavefront width for a solve over `n_groups` real groups on
+    `device`; 0 routes the sequential kernel (knob off, or the solve is
+    too small to amortize the fan-out)."""
+    if n_groups < WAVEFRONT_MIN_GROUPS:
+        return 0
+    return wavefront_width(device)
 
 
 def _pad_axis(n: int, base: int = 16) -> int:
@@ -323,10 +384,13 @@ def _run_pack(
     into a PackResult."""
     staged = stage(enc, existing_mask, existing_used, max_nodes, quota)
     args, kwargs = to_device(staged, device)
-    flat_dev = pack_split_flat(
-        *args, max_free=staged.max_free, mode=mode, **kwargs
-    )
     G, C = enc.compat.shape
+    # judged on the real group count: padding groups carry no demand
+    # and are committed before the first round
+    wf = wavefront_plan(G, device)
+    flat_dev = pack_split_flat(
+        *args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs
+    )
     R = enc.group_req.shape[1]
     N, Gp, Ep, F = staged.N, staged.Gp, staged.Ep, staged.max_free
     W = staged.Cp // 32
@@ -353,6 +417,16 @@ def _run_pack(
         node_mask[Ep:] = bits[:, :C].astype(bool)
     node_count = int(flat[o1])
     unsched = flat[o1 + 1 : o1 + 1 + Gp][:G].astype(np.int32)
+    # device-step accounting: the sequential kernel runs one step per
+    # padded group; the wavefront buffer carries its per-round widths
+    # and round count after the sequential layout
+    if wf > 1:
+        o2 = o1 + 1 + Gp
+        steps = int(flat[o2 + Gp])
+        wf_widths = flat[o2 : o2 + Gp][:steps].astype(np.int32)
+    else:
+        steps = Gp
+        wf_widths = None
     # node_active / node_used are pure functions of the shipped
     # state: active = holds pods or is a live existing slot; used =
     # base (existing usage / fresh pool overhead) + the placed pods'
@@ -376,4 +450,6 @@ def _run_pack(
         node_active=node_active,
         node_count=node_count,
         unschedulable=unsched,
+        device_steps=steps,
+        wavefront_widths=wf_widths,
     )

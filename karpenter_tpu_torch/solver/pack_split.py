@@ -5,7 +5,10 @@ B1 `pack_split` replaces `karpenter_tpu/solver/pack.py::pack_split`
 (with its `capacity` and `_prefix_take`): the serial first-fit-
 decreasing walk over pod groups, with the node axis split into a bound
 block (existing and planned nodes, one config each) and a fresh block
-(nodes the solve opens, each with a config mask). B2 `pack_flat_words`
+(nodes the solve opens, each with a config mask). B3
+`pack_split_wavefront` replaces the JAX `pack_split_wavefront`: the same
+function in rounds that plan several groups against one state and
+commit the prefix of plans that commute. B2 `pack_flat_words`
 replaces the epilogue of `pack_split_flat`: it bit-packs the fresh
 masks 32 columns to a word and lays every output out in one 32-bit
 buffer, in the order the host decode reads it.
@@ -15,10 +18,11 @@ CUDA tensors it launches its hand-written kernel
 (`karpenter_tpu_torch/csrc/*.cu`) or raises; there is no fallback.
 `LAUNCHES` counts kernel launches per wrapper.
 
-The plain versions follow the JAX body step by step, with a Python
-loop over groups, in float32 and in the same order of operations, so
-their outputs are byte-identical to the JAX kernel's and to the CUDA
-kernel's. Every pick is an index-tie-broken arg-reduction.
+The plain versions follow the JAX body step by step, with Python
+loops over groups (B3: over rounds and lanes), in float32 and in the
+same order of operations, so their outputs are byte-identical to the
+JAX kernel's and to the CUDA kernel's. Every pick is an
+index-tie-broken arg-reduction.
 """
 
 from __future__ import annotations
@@ -32,11 +36,15 @@ INT_BIG = 2**31 - 1
 # per-node capacity ceiling: fits int32 exactly; every capacity is
 # clipped here before the float-to-int cast
 CAP_MAX = 2.0e9
-# the CUDA kernel keeps a group's request vector in shared memory
+# the CUDA kernels keep a group's request vector in shared memory
 MAX_RESOURCES = 16
 
+# int32 scalars per lane of the wavefront kernel's plan (LaneField in
+# csrc/pack_wavefront.cu)
+WAVEFRONT_LANE_FIELDS = 9
+
 # kernel launches per wrapper (plain-version calls never count)
-LAUNCHES = {"pack_split": 0, "pack_split_flat": 0}
+LAUNCHES = {"pack_split": 0, "pack_split_wavefront": 0, "pack_split_flat": 0}
 
 
 def reset_launch_counts() -> None:
@@ -70,6 +78,132 @@ def _prefix_take_ref(k: torch.Tensor, remaining: int) -> torch.Tensor:
     return torch.minimum(rem - prefix, kc).to(torch.int32)
 
 
+class _Problem:
+    """The inputs of one plain-version run, with what both plain
+    versions derive from them once (reservation slots, the extended
+    reservation caps, the starting reservation use)."""
+
+    def __init__(self, compat, group_req, group_count, cfg_alloc, cfg_pool,
+                 pool_overhead, bound_compat, bound_alloc, bound_used0,
+                 bound_slot, bound_live, cfg_price, max_free, mode,
+                 bound_quota, cfg_rsv, rsv_cap, group_cap, conflict):
+        dev = compat.device
+        f32, i32 = torch.float32, torch.int32
+        self.dev = dev
+        self.compat, self.group_req, self.cfg_alloc = compat, group_req, cfg_alloc
+        self.cfg_pool, self.pool_overhead, self.cfg_price = cfg_pool, pool_overhead, cfg_price
+        self.bound_compat, self.bound_alloc = bound_compat, bound_alloc
+        self.bound_used0, self.bound_live = bound_used0, bound_live
+        self.group_cap, self.conflict, self.mode = group_cap, conflict, mode
+        self.bound_quota = None if bound_quota is None else bound_quota.to(i32)
+        self.G, self.C = compat.shape
+        self.R = group_req.shape[1]
+        self.B = bound_alloc.shape[0]
+        self.F = int(max_free)
+        self.N = self.B + self.F
+        self.counts = group_count.tolist()
+        self.big = torch.tensor(BIG, dtype=f32, device=dev)
+        self.cap_max = torch.tensor(CAP_MAX, dtype=f32, device=dev)
+        if cfg_rsv is None:
+            cfg_rsv = torch.full((self.C,), -1, dtype=i32, device=dev)
+        if rsv_cap is None:
+            rsv_cap = torch.zeros((0,), dtype=f32, device=dev)
+        self.K = K = rsv_cap.shape[0]
+        self.capped = cfg_rsv >= 0
+        self.rsv_cap_ext = torch.cat([rsv_cap.to(f32), self.big[None]])
+        self.cfg_slot = torch.where(
+            self.capped, cfg_rsv, torch.full_like(cfg_rsv, K)).long()
+        # bound rows on capped columns consumed their reservation budget
+        # when they were opened or planned
+        self.rsv_used0 = torch.zeros((K + 1,), dtype=f32, device=dev)
+        self.rsv_used0.index_add_(
+            0, bound_slot.long(), ((bound_live & (bound_slot < K)).to(f32)))
+        # pool_overhead[cfg_pool] with -1 (pseudo-config) reading the
+        # last row, as JAX's negative indexing does
+        self.oh_cfg = pool_overhead[cfg_pool.long()]
+
+
+def _row_caps(p: _Problem, g, req, row, free_mask, free_used, bound_used, assign):
+    """Capacity of every row for group g on the current state, after the
+    quota, group-cap and conflict clamps (the bound and fresh blocks of
+    the JAX body). Returns (k [B+F] int32, okf [F, C], kmat [F, C])."""
+    B = p.B
+    blocked = None
+    if p.conflict is not None:
+        blocked = ((assign > 0) & p.conflict[g][None, :]).any(dim=1)
+
+    # ---- bound rows: one config each
+    kb = _caps(p.bound_alloc, bound_used, req)
+    ok_b = p.bound_compat[g] & p.bound_live & (kb >= 1)
+    kb = kb * ok_b
+    if p.bound_quota is not None:
+        kb = torch.minimum(kb, p.bound_quota[:, g])
+    if p.group_cap is not None:
+        kb = torch.minimum(kb, (p.group_cap[g] - assign[:B, g]).clamp(min=0))
+    if blocked is not None:
+        kb = torch.where(blocked[:B], torch.zeros_like(kb), kb)
+
+    # ---- fresh rows: multi-config masks, [F, C, R]
+    kmat = _caps(p.cfg_alloc[None, :, :], free_used[:, None, :], req)
+    okf = free_mask & row[None, :] & (kmat >= 1)
+    pinned = free_mask & p.capped[None, :]
+    is_pinned = pinned.any(dim=1)
+    pin_ok = (okf & pinned).any(dim=1)
+    okf = okf & torch.where(is_pinned, pin_ok, torch.ones_like(pin_ok))[:, None]
+    kmat = kmat * okf
+    kf = torch.where(is_pinned, (kmat * pinned).amax(dim=1), kmat.amax(dim=1))
+    if p.group_cap is not None:
+        kf = torch.minimum(kf, (p.group_cap[g] - assign[B:, g]).clamp(min=0))
+    if blocked is not None:
+        kf = torch.where(blocked[B:], torch.zeros_like(kf), kf)
+    return torch.cat([kb, kf]), okf, kmat
+
+
+def _fits_fresh(p: _Problem, req, row):
+    """Configs a fresh node of their pool can hold one pod of the group
+    on, after the pool's overhead."""
+    return (row & (p.oh_cfg <= p.cfg_alloc - req[None, :]).all(dim=-1)
+            & (p.cfg_pool >= 0))
+
+
+def _open_pick(p: _Problem, g, req, fresh_ok):
+    """One bulk open's choice: the lowest pool among the configs that
+    can open, then the column c* (ffd: most capacity, a reserved column
+    cheaper than every uncapped one first; cost: least price per pod).
+    Returns (mask, overhead, kfo, c_star, m_star)."""
+    chosen_pool = int(torch.where(
+        fresh_ok, p.cfg_pool, torch.full_like(p.cfg_pool, INT_BIG)).min())
+    mask = fresh_ok & (p.cfg_pool == chosen_pool)
+    overhead = p.pool_overhead[chosen_pool]
+    kfo = _caps(p.cfg_alloc, overhead[None, :], req) * mask
+    if p.mode == "cost":
+        ppp = torch.where(
+            kfo >= 1, p.cfg_price / kfo.clamp(min=1).to(torch.float32), p.big)
+        c_star = int(torch.argmin(ppp))
+    else:
+        kf_ok = kfo >= 1
+        min_uncapped = torch.where(kf_ok & ~p.capped, p.cfg_price, p.big).min()
+        res_mask = kf_ok & p.capped & (p.cfg_price < min_uncapped)
+        if bool(res_mask.any()):
+            c_star = int(torch.argmax(
+                torch.where(res_mask, kfo, torch.full_like(kfo, -1))))
+        else:
+            c_star = int(torch.argmax(kfo))
+    m_star = max(int(kfo[c_star]), 1)
+    if p.group_cap is not None:
+        m_star = min(max(int(p.group_cap[g]), 1), m_star)
+    return mask, overhead, kfo, c_star, m_star
+
+
+def _open_mask(p: _Problem, mask, kfo, c_star: int, fill: int):
+    """The config mask of a node opened with `fill` pods: the pool's
+    uncapped columns that hold the fill, plus c* itself when capped."""
+    out = mask & ~p.capped & (kfo >= fill)
+    if bool(p.capped[c_star]):
+        out[c_star] = True
+    return out
+
+
 def pack_split_ref(
     compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
     bound_compat, bound_alloc, bound_used0, bound_slot, bound_live,
@@ -84,44 +218,24 @@ def pack_split_ref(
     `on_group(g, free_mask, node_count)`, when given, is called at the
     start of each group with demand, on the state that group starts
     from; it must not modify it (it is for counting a run's work)."""
-    dev = compat.device
+    p = _Problem(compat, group_req, group_count, cfg_alloc, cfg_pool,
+                 pool_overhead, bound_compat, bound_alloc, bound_used0,
+                 bound_slot, bound_live, cfg_price, max_free, mode,
+                 bound_quota, cfg_rsv, rsv_cap, group_cap, conflict)
+    dev = p.dev
     f32, i32 = torch.float32, torch.int32
-    G, C = compat.shape
-    R = group_req.shape[1]
-    B = bound_alloc.shape[0]
-    F = int(max_free)
-    big = torch.tensor(BIG, dtype=f32, device=dev)
-    cap_max = torch.tensor(CAP_MAX, dtype=f32, device=dev)
-    if bound_quota is not None:
-        bound_quota = bound_quota.to(i32)
+    G, C, R, B, F, N = p.G, p.C, p.R, p.B, p.F, p.N
     free_mask = torch.zeros((F, C), dtype=torch.bool, device=dev)
     free_used = torch.zeros((F, R), dtype=f32, device=dev)
-    assign = torch.zeros((B + F, G), dtype=i32, device=dev)
+    assign = torch.zeros((N, G), dtype=i32, device=dev)
     unsched = torch.zeros((G,), dtype=i32, device=dev)
-    if cfg_rsv is None:
-        cfg_rsv = torch.full((C,), -1, dtype=i32, device=dev)
-    if rsv_cap is None:
-        rsv_cap = torch.zeros((0,), dtype=f32, device=dev)
-    K = rsv_cap.shape[0]
-    capped = cfg_rsv >= 0
-    rsv_cap_ext = torch.cat([rsv_cap.to(f32), big[None]])
-    cfg_slot = torch.where(capped, cfg_rsv, torch.full_like(cfg_rsv, K)).long()
-    # bound rows on capped columns consumed their reservation budget
-    # when they were opened or planned
-    rsv_used = torch.zeros((K + 1,), dtype=f32, device=dev)
-    rsv_used.index_add_(
-        0, bound_slot.long(),
-        ((bound_live & (bound_slot < K)).to(f32)),
-    )
+    rsv_used = p.rsv_used0.clone()
     bound_used = bound_used0.clone()
-    # pool_overhead[cfg_pool] with -1 (pseudo-config) reading the last
-    # row, as JAX's negative indexing does
-    oh_cfg = pool_overhead[cfg_pool.long()]
+    rsv_cap_ext, cfg_slot = p.rsv_cap_ext, p.cfg_slot
     node_count = B
-    counts = group_count.tolist()
 
     for g in range(G):
-        remaining = int(counts[g])
+        remaining = int(p.counts[g])
         if remaining <= 0:
             # no demand: every take is 0 and no node opens, so the
             # group leaves the state exactly as it found it
@@ -130,42 +244,11 @@ def pack_split_ref(
             on_group(g, free_mask, node_count)
         req = group_req[g]
         row = compat[g]
-
-        blocked = None
-        if conflict is not None:
-            blocked = ((assign > 0) & conflict[g][None, :]).any(dim=1)
-
-        # ---- bound rows: one config each
-        kb = _caps(bound_alloc, bound_used, req)
-        ok_b = bound_compat[g] & bound_live & (kb >= 1)
-        kb = kb * ok_b
-        if bound_quota is not None:
-            kb = torch.minimum(kb, bound_quota[:, g])
-        if group_cap is not None:
-            kb = torch.minimum(kb, (group_cap[g] - assign[:B, g]).clamp(min=0))
-        if blocked is not None:
-            kb = torch.where(blocked[:B], torch.zeros_like(kb), kb)
-
-        # ---- fresh rows: multi-config masks, [F, C, R]
-        kmat = _caps(cfg_alloc[None, :, :], free_used[:, None, :], req)
-        okf = free_mask & row[None, :] & (kmat >= 1)
-        pinned = free_mask & capped[None, :]
-        is_pinned = pinned.any(dim=1)
-        pin_ok = (okf & pinned).any(dim=1)
-        okf = okf & torch.where(
-            is_pinned, pin_ok, torch.ones_like(pin_ok)
-        )[:, None]
-        kmat = kmat * okf
-        kf = torch.where(
-            is_pinned, (kmat * pinned).amax(dim=1), kmat.amax(dim=1)
-        )
-        if group_cap is not None:
-            kf = torch.minimum(kf, (group_cap[g] - assign[B:, g]).clamp(min=0))
-        if blocked is not None:
-            kf = torch.where(blocked[B:], torch.zeros_like(kf), kf)
+        k, okf, kmat = _row_caps(p, g, req, row, free_mask, free_used,
+                                 bound_used, assign)
 
         # ---- unified prefix fill: bound rows precede fresh rows
-        take = _prefix_take_ref(torch.cat([kb, kf]), remaining)
+        take = _prefix_take_ref(k, remaining)
         take_b = take[:B]
         take_f = take[B:]
         touched_f = take_f > 0
@@ -179,58 +262,23 @@ def pack_split_ref(
 
         # ---- bulk open on the fresh axis
         if remaining > 0:
-            fits_fresh = (
-                row
-                & (oh_cfg <= cfg_alloc - req[None, :]).all(dim=-1)
-                & (cfg_pool >= 0)
-            )
+            fits_fresh = _fits_fresh(p, req, row)
             while True:
                 fresh_ok = fits_fresh & (rsv_used[cfg_slot] < rsv_cap_ext[cfg_slot])
-                if not (remaining > 0 and node_count < B + F
+                if not (remaining > 0 and node_count < N
                         and bool(fresh_ok.any())):
                     break
-                chosen_pool = int(torch.where(
-                    fresh_ok, cfg_pool, torch.full_like(cfg_pool, INT_BIG)
-                ).min())
-                mask = fresh_ok & (cfg_pool == chosen_pool)
-                overhead = pool_overhead[chosen_pool]
-                kfo = _caps(cfg_alloc, overhead[None, :], req) * mask
-                if mode == "cost":
-                    ppp = torch.where(
-                        kfo >= 1, cfg_price / kfo.clamp(min=1).to(f32), big
-                    )
-                    c_star = int(torch.argmin(ppp))
-                else:
-                    kf_ok = kfo >= 1
-                    min_uncapped = torch.where(
-                        kf_ok & ~capped, cfg_price, big
-                    ).min()
-                    res_mask = kf_ok & capped & (cfg_price < min_uncapped)
-                    if bool(res_mask.any()):
-                        c_star = int(torch.argmax(
-                            torch.where(res_mask, kfo, torch.full_like(kfo, -1))
-                        ))
-                    else:
-                        c_star = int(torch.argmax(kfo))
-                m_star = max(int(kfo[c_star]), 1)
-                if group_cap is not None:
-                    m_star = min(max(int(group_cap[g]), 1), m_star)
+                mask, overhead, kfo, c_star, m_star = _open_pick(p, g, req, fresh_ok)
                 slot = int(cfg_slot[c_star])
-                cap_left = torch.minimum(rsv_cap_ext[slot] - rsv_used[slot], cap_max)
-                q = min((remaining - 1) // m_star + 1, B + F - node_count)
+                cap_left = torch.minimum(rsv_cap_ext[slot] - rsv_used[slot], p.cap_max)
+                q = min((remaining - 1) // m_star + 1, N - node_count)
                 q = min(q, int(cap_left.clamp(min=0.0).to(i32)))
                 q = max(q, 1)
                 rem_last = min(max(remaining - (q - 1) * m_star, 1), m_star)
                 lo = node_count - B
                 last = lo + q - 1
-                base = mask & ~capped
-                open_full = base & (kfo >= m_star)
-                open_last = base & (kfo >= rem_last)
-                if bool(capped[c_star]):
-                    open_full[c_star] = True
-                    open_last[c_star] = True
-                free_mask[lo:last] = open_full
-                free_mask[last] = open_last
+                free_mask[lo:last] = _open_mask(p, mask, kfo, c_star, m_star)
+                free_mask[last] = _open_mask(p, mask, kfo, c_star, rem_last)
                 m_f = torch.tensor(float(m_star), dtype=f32, device=dev)
                 r_f = torch.tensor(float(rem_last), dtype=f32, device=dev)
                 free_used[lo:last] = overhead + m_f * req
@@ -246,21 +294,208 @@ def pack_split_ref(
             torch.tensor(node_count, dtype=i32, device=dev), unsched)
 
 
-def pack_flat_words_ref(assign, free_mask, node_count, unsched):
+class _Plan:
+    """One wavefront lane's plan: what group g would do on the round's
+    pre-round state, with its opens slot-relative."""
+    __slots__ = ("g", "take", "okf", "kmat", "touched", "dep", "row",
+                 "spill", "opens", "n_open", "spend", "capped_spend",
+                 "clamped", "unsched_add", "open_union", "offset")
+
+
+def _plan_lane(p: _Problem, g, free_mask, free_used, bound_used, assign,
+               rsv_used, node_count) -> _Plan:
+    """`plan_one` of the JAX wavefront kernel: the sequential body's
+    capacity, fill and open arithmetic on the pre-round state, with the
+    opens kept as (q, fill, rem_last, full mask, last mask, full used,
+    last used) runs at slot-relative positions, the reservation use of
+    the lane in `spend`, and whether the node axis ever bound an open
+    (`clamped`)."""
+    f32, i32 = torch.float32, torch.int32
+    dev, N, K = p.dev, p.N, p.K
+    req = p.group_req[g]
+    row = p.compat[g]
+    remaining = int(p.counts[g])
+    k, okf, kmat = _row_caps(p, g, req, row, free_mask, free_used, bound_used, assign)
+    take = _prefix_take_ref(k, remaining)
+    rem = remaining - int(take.sum())
+    spill = rem > 0
+
+    # ---- fresh-open plan, slot-relative
+    fits_fresh = _fits_fresh(p, req, row)
+    spend = torch.zeros((K + 1,), dtype=f32, device=dev)
+
+    def can_open():
+        return fits_fresh & ((rsv_used + spend)[p.cfg_slot] < p.rsv_cap_ext[p.cfg_slot])
+
+    opens = []
+    n_open = 0
+    clamped = False
+    open_union = torch.zeros((p.C,), dtype=torch.bool, device=dev)
+    while True:
+        fresh_ok = can_open()
+        if not (rem > 0 and bool(fresh_ok.any()) and node_count + n_open < N):
+            break
+        rsv_now = rsv_used + spend
+        mask, overhead, kfo, c_star, m_star = _open_pick(p, g, req, fresh_ok)
+        slot = int(p.cfg_slot[c_star])
+        cap_left = torch.minimum(p.rsv_cap_ext[slot] - rsv_now[slot], p.cap_max)
+        axis_left = N - (node_count + n_open)
+        # the min() terms commute: split off the axis to see whether it
+        # was ever the binding constraint (a clamped plan cannot survive
+        # an index shift)
+        q_noaxis = min((rem - 1) // m_star + 1, int(cap_left.clamp(min=0.0).to(i32)))
+        q = max(min(q_noaxis, axis_left), 1)
+        clamped = clamped or max(q_noaxis, 1) > axis_left
+        rem_last = min(max(rem - (q - 1) * m_star, 1), m_star)
+        full = _open_mask(p, mask, kfo, c_star, m_star)
+        last = _open_mask(p, mask, kfo, c_star, rem_last)
+        m_f = torch.tensor(float(m_star), dtype=f32, device=dev)
+        r_f = torch.tensor(float(rem_last), dtype=f32, device=dev)
+        opens.append((q, m_star, rem_last, full, last,
+                      overhead + m_f * req, overhead + r_f * req))
+        open_union |= last
+        if q > 1:
+            open_union |= full
+        n_open += q
+        rem -= (q - 1) * m_star + rem_last
+        spend[slot] += torch.tensor(float(q), dtype=f32, device=dev)
+    # leaving the loop with demand left and a willing config means the
+    # node axis was full: that decision too read node_count
+    clamped = clamped or (rem > 0 and bool(can_open().any()))
+
+    pl = _Plan()
+    touched = take > 0
+    hit = torch.nonzero(touched)
+    last_row = int(hit[-1]) if hit.numel() else -1
+    node_idx = torch.arange(N, device=dev)
+    pl.g, pl.take, pl.okf, pl.kmat, pl.touched, pl.row = g, take, okf, kmat, touched, row
+    pl.dep = (k > 0) & (spill | (node_idx <= last_row))
+    pl.spill, pl.opens, pl.n_open, pl.spend = spill, opens, n_open, spend
+    pl.capped_spend = bool((spend[:K] > 0).any()) if K else False
+    pl.clamped, pl.unsched_add, pl.open_union = clamped, max(rem, 0), open_union
+    return pl
+
+
+def pack_split_wavefront_ref(
+    compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
+    bound_compat, bound_alloc, bound_used0, bound_slot, bound_live,
+    cfg_price, max_free: int, mode: str = "ffd", width: int = 8,
+    bound_quota=None, cfg_rsv=None, rsv_cap=None, group_cap=None,
+    conflict=None,
+):
+    """Plain version of B3 (arguments and outputs as the JAX
+    `pack_split_wavefront`): B1's function in rounds. Each round plans
+    the next `width` uncommitted groups against the same pre-round
+    state, accepts the longest prefix of plans that commute with the
+    accepted ones before them, and commits those. Returns (assign,
+    free_mask, node_count, unsched, steps int32 scalar, widths [G]
+    int32), the first four equal to `pack_split_ref`'s.
+
+    The lanes are planned in order and the acceptance scan stops at the
+    first rejection; a lane's acceptance reads only the plans before
+    it, so the lanes after a rejection, which the JAX kernel plans and
+    discards, are not planned here."""
+    p = _Problem(compat, group_req, group_count, cfg_alloc, cfg_pool,
+                 pool_overhead, bound_compat, bound_alloc, bound_used0,
+                 bound_slot, bound_live, cfg_price, max_free, mode,
+                 bound_quota, cfg_rsv, rsv_cap, group_cap, conflict)
+    dev = p.dev
+    f32, i32 = torch.float32, torch.int32
+    G, C, R, B, F, N, W = p.G, p.C, p.R, p.B, p.F, p.N, int(width)
+    free_mask = torch.zeros((F, C), dtype=torch.bool, device=dev)
+    free_used = torch.zeros((F, R), dtype=f32, device=dev)
+    assign = torch.zeros((N, G), dtype=i32, device=dev)
+    unsched = torch.zeros((G,), dtype=i32, device=dev)
+    rsv_used = p.rsv_used0.clone()
+    bound_used = bound_used0.clone()
+    node_count = B
+    done = [c <= 0 for c in p.counts]
+    steps = 0
+    widths = [0] * G
+
+    while not all(done) and steps < G:
+        # ---- candidates: the first W uncommitted groups, index order
+        cand = [g for g in range(G) if not done[g]][:W]
+        # ---- plan and accept, lane by lane
+        accepted: list[_Plan] = []
+        acc_touched = torch.zeros((N,), dtype=torch.bool, device=dev)
+        acc_open = torch.zeros((C,), dtype=torch.bool, device=dev)
+        acc_capped = False
+        shift = 0
+        for g in cand:
+            pl = _plan_lane(p, g, free_mask, free_used, bound_used, assign,
+                            rsv_used, node_count)
+            indep = not bool((acc_touched & pl.dep).any()) and not bool(
+                (pl.row & acc_open).any())
+            spill_ok = not pl.spill or (not acc_capped and (
+                shift == 0
+                or (not pl.clamped and node_count + shift + pl.n_open <= N)))
+            if not (indep and spill_ok):
+                break
+            pl.offset = node_count + shift
+            acc_touched |= pl.touched
+            acc_open |= pl.open_union
+            acc_capped = acc_capped or pl.capped_spend
+            shift += pl.n_open
+            accepted.append(pl)
+
+        # ---- commit: accepted plans write pairwise-disjoint rows, so
+        # applying them one after another equals the JAX kernel's
+        # single scatter bit for bit
+        spend = torch.zeros((p.K + 1,), dtype=f32, device=dev)
+        for pl in accepted:
+            g = pl.g
+            req = group_req[g]
+            take_b, take_f = pl.take[:B], pl.take[B:]
+            free_mask = torch.where(
+                (take_f > 0)[:, None], pl.okf & (pl.kmat >= take_f[:, None]),
+                free_mask)
+            bound_used = bound_used + take_b[:, None].to(f32) * req[None, :]
+            free_used = free_used + take_f[:, None].to(f32) * req[None, :]
+            assign[:, g] += pl.take
+            lo = pl.offset - B
+            for q, m_star, rem_last, full, last, used_full, used_last in pl.opens:
+                end = lo + q - 1
+                free_mask[lo:end] |= full
+                free_mask[end] |= last
+                free_used[lo:end] += used_full
+                free_used[end] += used_last
+                assign[B + lo:B + end, g] += m_star
+                assign[B + end, g] += rem_last
+                lo += q
+            spend = spend + pl.spend
+            unsched[g] += pl.unsched_add
+            done[g] = True
+        node_count += shift
+        rsv_used = rsv_used + spend
+        widths[steps] = len(accepted)
+        steps += 1
+
+    return (assign, free_mask, torch.tensor(node_count, dtype=i32, device=dev),
+            unsched, torch.tensor(steps, dtype=i32, device=dev),
+            torch.tensor(widths, dtype=i32, device=dev))
+
+
+def pack_flat_words_ref(assign, free_mask, node_count, unsched,
+                        widths=None, steps=None):
     """Plain version of B2: one int32 buffer holding the uint32 words
     [assign (row-major), free_mask bit-packed (bit i of word w is
-    column 32w+i), node_count, unsched]. Read it as uint32."""
+    column 32w+i), node_count, unsched], then, for a wavefront solve,
+    [widths, steps]. Read it as uint32."""
     F, Cp = free_mask.shape
     W = Cp // 32
     shifts = torch.arange(32, dtype=torch.int64, device=free_mask.device)
     words = (free_mask.reshape(F, W, 32).to(torch.int64) << shifts).sum(dim=-1)
     words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-    return torch.cat([
+    parts = [
         assign.reshape(-1).to(torch.int32),
         words.reshape(-1),
         node_count.reshape(1).to(torch.int32),
         unsched.reshape(-1).to(torch.int32),
-    ])
+    ]
+    if widths is not None:
+        parts += [widths.reshape(-1).to(torch.int32), steps.reshape(1).to(torch.int32)]
+    return torch.cat(parts)
 
 
 def pack_split_flat_ref(*args, max_free: int, mode: str = "ffd", **kw):
@@ -297,24 +532,22 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def _pack_split_cuda(
-    compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
-    bound_compat, bound_alloc, bound_used0, bound_slot, bound_live,
-    cfg_price, max_free: int, mode: str = "ffd", bound_quota=None,
-    cfg_rsv=None, rsv_cap=None, group_cap=None, conflict=None,
-):
-    from karpenter_tpu_torch import cuda_build
-
+def _kernel_inputs(what, mode, compat, group_req, group_count, cfg_alloc,
+                  cfg_pool, pool_overhead, bound_compat, bound_alloc,
+                  bound_used0, bound_slot, bound_live, cfg_price, bound_quota,
+                  cfg_rsv, rsv_cap, group_cap, conflict):
+    """Check the packing kernels' inputs (CUDA, contiguous, of the
+    dtypes and shapes the kernels read) and return (cfg_rsv, rsv_cap)
+    with their defaults filled in."""
     dev = compat.device
     G, C = compat.shape
     R = group_req.shape[1]
     B = bound_alloc.shape[0]
-    F = int(max_free)
     P1 = pool_overhead.shape[0]
     if R > MAX_RESOURCES:
-        raise ValueError(f"pack_split: {R} resources exceed the kernel's {MAX_RESOURCES}")
+        raise ValueError(f"{what}: {R} resources exceed the kernel's {MAX_RESOURCES}")
     if mode not in ("ffd", "cost"):
-        raise ValueError(f"pack_split: unknown mode {mode!r}")
+        raise ValueError(f"{what}: unknown mode {mode!r}")
     if cfg_rsv is None:
         cfg_rsv = torch.full((C,), -1, dtype=torch.int32, device=dev)
     if rsv_cap is None:
@@ -340,6 +573,29 @@ def _pack_split_cuda(
         _check(group_cap, "group_cap", torch.int32, (G,))
     if conflict is not None:
         _check(conflict, "conflict", torch.bool, (G, G))
+    return cfg_rsv, rsv_cap
+
+
+def _pack_split_cuda(
+    compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
+    bound_compat, bound_alloc, bound_used0, bound_slot, bound_live,
+    cfg_price, max_free: int, mode: str = "ffd", bound_quota=None,
+    cfg_rsv=None, rsv_cap=None, group_cap=None, conflict=None,
+):
+    from karpenter_tpu_torch import cuda_build
+
+    dev = compat.device
+    G, C = compat.shape
+    R = group_req.shape[1]
+    B = bound_alloc.shape[0]
+    F = int(max_free)
+    P1 = pool_overhead.shape[0]
+    cfg_rsv, rsv_cap = _kernel_inputs(
+        "pack_split", mode, compat, group_req, group_count, cfg_alloc,
+        cfg_pool, pool_overhead, bound_compat, bound_alloc, bound_used0,
+        bound_slot, bound_live, cfg_price, bound_quota, cfg_rsv, rsv_cap,
+        group_cap, conflict)
+    K = rsv_cap.shape[0]
 
     i32, f32 = torch.int32, torch.float32
     assign = torch.zeros((B + F, G), dtype=i32, device=dev)
@@ -373,25 +629,101 @@ def _pack_split_cuda(
     return assign, free_mask, node_count, unsched
 
 
-def _pack_flat_words_cuda(assign, free_mask, node_count, unsched):
+def _pack_split_wavefront_cuda(
+    compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
+    bound_compat, bound_alloc, bound_used0, bound_slot, bound_live,
+    cfg_price, max_free: int, mode: str = "ffd", width: int = 8,
+    bound_quota=None, cfg_rsv=None, rsv_cap=None, group_cap=None,
+    conflict=None,
+):
+    from karpenter_tpu_torch import cuda_build
+
+    dev = compat.device
+    G, C = compat.shape
+    R = group_req.shape[1]
+    B = bound_alloc.shape[0]
+    F = int(max_free)
+    N = B + F
+    W = int(width)
+    P1 = pool_overhead.shape[0]
+    if W < 1:
+        raise ValueError(f"pack_split_wavefront: width {W} < 1")
+    cfg_rsv, rsv_cap = _kernel_inputs(
+        "pack_split_wavefront", mode, compat, group_req, group_count,
+        cfg_alloc, cfg_pool, pool_overhead, bound_compat, bound_alloc,
+        bound_used0, bound_slot, bound_live, cfg_price, bound_quota, cfg_rsv,
+        rsv_cap, group_cap, conflict)
+    K = rsv_cap.shape[0]
+
+    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    assign = torch.zeros((N, G), dtype=i32, device=dev)
+    free_mask = torch.zeros((F, C), dtype=torch.bool, device=dev)
+    node_count = torch.zeros((), dtype=i32, device=dev)
+    unsched = torch.zeros((G,), dtype=i32, device=dev)
+    steps = torch.zeros((), dtype=i32, device=dev)
+    widths = torch.zeros((G,), dtype=i32, device=dev)
+    # scratch: the shared state, then each lane's plan (row capacities
+    # and takes, open fit flags and capacities, reservation use, the
+    # slot-relative opened rows, their config union, the lane's
+    # scalars) and the pairwise conflict matrix
+    scratch = [
+        torch.empty((F, R), dtype=f32, device=dev),          # free_used
+        torch.empty((B, R), dtype=f32, device=dev),          # bound_used
+        torch.empty((K + 1,), dtype=f32, device=dev),        # rsv_used
+        torch.empty((G,), dtype=u8, device=dev),             # done
+        torch.empty((W, N), dtype=i32, device=dev),          # kcap
+        torch.empty((W, N), dtype=i32, device=dev),          # take
+        torch.empty((W, C), dtype=u8, device=dev),           # fits
+        torch.empty((W, C), dtype=i32, device=dev),          # kopen
+        torch.empty((W, K + 1), dtype=f32, device=dev),      # spend
+        torch.empty((W, F, C), dtype=u8, device=dev),        # o_mask
+        torch.empty((W, F, R), dtype=f32, device=dev),       # o_used
+        torch.empty((W, F), dtype=i32, device=dev),          # o_fill
+        torch.empty((W, C), dtype=u8, device=dev),           # o_union
+        torch.empty((W, WAVEFRONT_LANE_FIELDS), dtype=i32, device=dev),
+        torch.empty((W, W), dtype=u8, device=dev),           # conf
+    ]
+    lib = cuda_build.library("pack_wavefront")
+    err = lib.pack_wavefront_launch(
+        _ptr(compat), _ptr(group_req), _ptr(group_count), _ptr(cfg_alloc),
+        _ptr(cfg_pool), _ptr(pool_overhead), _ptr(bound_compat),
+        _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot),
+        _ptr(bound_live), _ptr(cfg_price), _ptr(bound_quota), _ptr(cfg_rsv),
+        _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
+        _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
+        _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, _stream(),
+    )
+    _raise_on(err, f"pack_split_wavefront (cooperative grid of {W} blocks)")
+    LAUNCHES["pack_split_wavefront"] += 1
+    return assign, free_mask, node_count, unsched, steps, widths
+
+
+def _pack_flat_words_cuda(assign, free_mask, node_count, unsched,
+                          widths=None, steps=None):
     from karpenter_tpu_torch import cuda_build
 
     N, G = assign.shape
     F, C = free_mask.shape
     if C % 32:
         raise ValueError(f"pack_flat_words: {C} mask columns are not a multiple of 32")
+    if (widths is None) != (steps is None):
+        raise ValueError("pack_flat_words: widths and steps come together")
     _check(assign, "assign", torch.int32, (N, G))
     _check(free_mask, "free_mask", torch.bool, (F, C))
     _check(node_count, "node_count", torch.int32, ())
     _check(unsched, "unsched", torch.int32, (G,))
+    if widths is not None:
+        _check(widths, "widths", torch.int32, (G,))
+        _check(steps, "steps", torch.int32, ())
     if free_mask.data_ptr() % 16:
         raise ValueError("pack_flat_words: free_mask must be 16-byte aligned")
-    out = torch.empty((N * G + F * (C // 32) + 1 + G,), dtype=torch.int32,
-                      device=assign.device)
+    n_out = N * G + F * (C // 32) + 1 + G + (0 if widths is None else G + 1)
+    out = torch.empty((n_out,), dtype=torch.int32, device=assign.device)
     lib = cuda_build.library("pack_flat")
     err = lib.pack_flat_launch(
         _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
-        _ptr(out), N, G, F, C, _stream(),
+        _ptr(widths), _ptr(steps), _ptr(out), N, G, F, C, _stream(),
     )
     _raise_on(err, "pack_split_flat")
     LAUNCHES["pack_split_flat"] += 1
@@ -419,15 +751,38 @@ def pack_split(*args, max_free: int, mode: str = "ffd", **kw):
     return pack_split_ref(*args, max_free=max_free, mode=mode, **kw)
 
 
-def pack_flat_words(assign, free_mask, node_count, unsched):
+def pack_split_wavefront(*args, max_free: int, mode: str = "ffd",
+                         width: int = 8, **kw):
+    """B3. Arguments and outputs as `pack_split_wavefront_ref`; CUDA
+    tensors run the kernel (one cooperative launch of `width` blocks
+    for all rounds; raises if the card cannot hold them at once)."""
+    if _route(args[0], "pack_split_wavefront"):
+        return _pack_split_wavefront_cuda(
+            *args, max_free=max_free, mode=mode, width=width, **kw)
+    return pack_split_wavefront_ref(
+        *args, max_free=max_free, mode=mode, width=width, **kw)
+
+
+def pack_flat_words(assign, free_mask, node_count, unsched, widths=None,
+                    steps=None):
     """B2. Outputs as `pack_flat_words_ref`; CUDA tensors run the
     kernel."""
     if _route(assign, "pack_split_flat"):
-        return _pack_flat_words_cuda(assign, free_mask, node_count, unsched)
-    return pack_flat_words_ref(assign, free_mask, node_count, unsched)
+        return _pack_flat_words_cuda(assign, free_mask, node_count, unsched,
+                                     widths, steps)
+    return pack_flat_words_ref(assign, free_mask, node_count, unsched,
+                               widths, steps)
 
 
-def pack_split_flat(*args, max_free: int, mode: str = "ffd", **kw):
-    """B1 then B2: the sequential `pack_split_flat` of the JAX package,
-    as one int32 buffer to be read as uint32."""
+def pack_split_flat(*args, max_free: int, mode: str = "ffd",
+                    wavefront: int = 0, **kw):
+    """The JAX package's `pack_split_flat`, as one int32 buffer to be
+    read as uint32: B1 then B2, or with `wavefront > 1` B3 at that
+    width then B2 with B3's widths and round count appended."""
+    if wavefront > 1:
+        (assign, free_mask, node_count, unsched, steps,
+         widths) = pack_split_wavefront(
+            *args, max_free=max_free, mode=mode, width=wavefront, **kw)
+        return pack_flat_words(assign, free_mask, node_count, unsched,
+                               widths, steps)
     return pack_flat_words(*pack_split(*args, max_free=max_free, mode=mode, **kw))

@@ -298,7 +298,7 @@ class TestWrappers:
         ref = kernels.pack_split_flat_ref(*[torch.from_numpy(a) for a in args],
                                           max_free=F)
         assert torch.equal(flat, ref)
-        assert kernels.LAUNCHES == {"pack_split": 0, "pack_split_flat": 0}
+        assert set(kernels.LAUNCHES.values()) == {0}
 
     def test_other_devices_raise(self):
         args, F = _zero_req_inputs(7)
