@@ -9,7 +9,8 @@ Phases, each reported on its own line; any failure exits non-zero:
                 (one nvcc per source, in parallel); print build seconds
                 and what ptxas reports (registers, shared memory).
   3. kernels  — hold each kernel against its plain PyTorch version on
-                the card, on seeded problems (both modes, reservations,
+                the card, on seeded problems (B4 and B5 on their own
+                seeded cases; the packing kernels in both modes, reservations,
                 bound rows with quotas, group caps, conflicts, negative
                 and huge demand, a capped node axis): outputs must be
                 byte-identical, B3's at widths 1, 8 and 16, and B3's
@@ -34,10 +35,31 @@ Phases, each reported on its own line; any failure exits non-zero:
                 inputs of every distinct shape the routes staged are
                 kept, and B1, B3 (width 16) and B2 are held
                 byte-identical to their plain versions on them.
-  5. timing   — each kernel's CUDA-event time on the warm first
-                request's inputs (B1 and B3 in turns), its plain
-                version's, and its bound; printed as one JSON line
-                {"kernels": [...]}.
+  5. timing   — each packing kernel's CUDA-event time on the warm
+                first request's inputs (B1 and B3 in turns), its plain
+                version's, and its bound.
+  6. cost     — the cost objective on `build_problem(50_000, 500,
+                reservations=True, zonal_frac=0.1)`, the benchmark's
+                reserved_50k: one cold solve and five warm ones with
+                the launch counts set to 0 just before and read just
+                after; the fleet price beside FFD's, the certified and
+                device bounds, the column-generation rounds and how
+                they ended, the planned nodes, the warm median and the
+                cold solve's breakdown (encode, plan with its B4 calls,
+                ascent, each arm's pack, merge/trim, decode). It must
+                launch B4, B5 and a packing kernel in cost mode, the
+                cost fleet must not cost more than FFD's and the
+                certified bound must not exceed it. B4 (first seed
+                call, first and last rounds), B5 and the cost-mode
+                packs are held against their plain versions on the
+                inputs this run recorded; the card's fingerprint equals
+                the CPU path's on two mid-size problems (column
+                generation ending by convergence or stall, its HiGHS
+                MIPs stopped after the root node on both sides, since
+                their wall-clock limits round by the machine's load).
+  7. LP timing — B4's and B5's CUDA-event times on the recorded
+                inputs, their plain versions', and their bounds. One
+                JSON line {"kernels": [...]} reports all five kernels.
 The last line is {"ok": true, "device": {...}}. The script uses one
 card: the first of CUDA_VISIBLE_DEVICES (card 0 when it is unset).
 
@@ -70,6 +92,10 @@ PEAK_BYTES = 3.35e12
 # f32 operations per (row, config, requested resource) capacity
 # term: subtract, add, divide, floor, min
 OPS_PER_CAP_TERM = 5
+# the cost phase: the benchmark's reserved_50k and two mid-size
+# problems for the card-against-CPU check
+COST_PODS, COST_TYPES, COST_ZONAL = 50_000, 500, 0.1
+ASCENT_ITERS = (8, 192)
 
 
 def fail(msg: str) -> None:
@@ -183,6 +209,77 @@ def hold(kernels, case, err: dict, widths=(16,)) -> str:
             f"rounds {' '.join(rounds)} identical")
 
 
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def hold_price(lp_plan, name: str, xs, err: dict) -> str:
+    """B4 against its plain version on the card: bit-identical q and
+    value, or fail."""
+    import torch
+
+    q, v = lp_plan.price_kernel(*xs)
+    torch.cuda.synchronize()
+    qr, vr = lp_plan.price_kernel_ref(*xs)
+    torch.cuda.synchronize()
+    if not (same_bits(q, qr) and same_bits(v, vr)):
+        fail(f"lp_price differs from price_kernel_ref on {name}")
+    err["lp_price"] = max(err["lp_price"], max_abs_diff(q, qr), max_abs_diff(v, vr))
+    return (f"  case {name} Gp={xs[0].shape[0]} Cp={xs[1].shape[1]} "
+            f"R={xs[2].shape[1]}: pods planned {int(q.sum())}, hits at price 0 "
+            f"{int((v > 0).sum())} identical")
+
+
+def hold_ascent(lp_device, name: str, a, n_iters: int, err: dict) -> str:
+    """B5 against its plain version on the card: bit-identical best,
+    duals and last improving iteration, or fail."""
+    import torch
+
+    got = lp_device.ascend(a, n_iters)
+    torch.cuda.synchronize()
+    want = lp_device.ascend_ref(a, n_iters)
+    torch.cuda.synchronize()
+    if not all(same_bits(x, y) for x, y in zip(got, want)):
+        fail(f"lp_ascend differs from ascend_ref on {name}")
+    err["lp_ascend"] = max(err["lp_ascend"], *(max_abs_diff(x, y) for x, y in zip(got, want)))
+    return (f"  case {name} Gp={a.compat.shape[0]} Cp={a.compat.shape[1]} "
+            f"Kp={a.onehot.shape[0]}: best {float(got[0]):.6f} last improving "
+            f"iteration {int(got[2])} identical")
+
+
+def price_ops(q, R: int) -> int:
+    """The f32 operations B4 must do on inputs that gave `q`: per
+    config, one round per group it took plus the round that found
+    nothing (a taken group never fits again), each testing every group:
+    per requested resource add, divide, floor and min, then the cap,
+    the k >= 1 test and the argmax compare."""
+    Gp = q.shape[1]
+    rounds = (q > 0).sum(dim=1).clamp(max=Gp - 1) + 1
+    return int(rounds.sum()) * Gp * (4 * R + 3)
+
+
+def ascent_ops(a, n_iters: int) -> int:
+    """The f32 operations B5 does for `n_iters` iterations on these
+    shapes: per iteration one bound evaluation (ratios; the max and its
+    ties over groups for every (config, resource); the value bounds,
+    theta, excess and cap duals; two dot products) and one
+    supergradient (the cap and theta ties; the (group, resource) sums
+    over configs, two operations a term; the sums over resources; the
+    step)."""
+    Gp, Cp = a.compat.shape
+    R = a.req.shape[1]
+    Kp = a.onehot.shape[0]
+    bound = Gp * R + 2 * Gp * Cp * R + 3 * Cp * R + 6 * Cp + 2 * Kp * Cp + 4 * Gp + 2 * Kp
+    grad = Kp * Cp + 3 * Gp + 12 * Cp + 6 * Cp * R + 2 * Gp * R * Cp + 2 * Gp * R + 8 * Gp
+    return (n_iters + 1) * bound + n_iters * grad
+
+
 def histogram(widths) -> dict:
     """Rounds per committed width, {width: rounds}."""
     out: dict[int, int] = {}
@@ -215,6 +312,231 @@ def b1_ops(kernels, args, kw, max_free: int) -> int:
     return terms[0] * OPS_PER_CAP_TERM
 
 
+def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
+               heterogeneous_instance_types, err: dict, launches: dict) -> dict:
+    """Phase 6: the cost objective on reserved_50k through `solve()`,
+    with its inputs recorded; returns what phase 7 times."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.testing import KernelCase, root_node_mips
+
+    pods, pools = build_problem(COST_PODS, COST_TYPES, seed=SEED,
+                                reservations=True, zonal_frac=COST_ZONAL)
+    real = {name: getattr(mod, name) for mod, name in (
+        (lp_plan, "price_kernel"), (lp_plan, "_price_patterns"), (lp_plan, "plan"),
+        (lp_device, "ascend"), (lp_device, "maybe_solve"), (pack, "stage"),
+        (pack, "pack_split_flat"), (solver, "_solve_packing"),
+        (solver, "_finish_winner"), (solver, "_build_solution_arrays"),
+        (solver, "group_pods"), (solver, "encode"))}
+    owner = {"price_kernel": lp_plan, "_price_patterns": lp_plan, "plan": lp_plan,
+             "ascend": lp_device, "maybe_solve": lp_device, "stage": pack,
+             "pack_split_flat": pack}
+    rec = {"price": [], "pp_calls": 0, "ascents": [], "plans": [], "cases": {},
+           "mode_launches": {"ffd": {}, "cost": {}}, "times": {}, "mode": "ffd",
+           "base_price": None}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                rec["times"][key] = rec["times"].get(key, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    def price_kernel(*xs):
+        rec["price"].append((rec["pp_calls"], [x.clone() for x in xs]))
+        return real["price_kernel"](*xs)
+
+    def price_patterns(*a, **k):
+        rec["pp_calls"] += 1
+        return real["_price_patterns"](*a, **k)
+
+    def plan(*a, **k):
+        out = real["plan"](*a, **k)
+        rec["plans"].append(out)
+        return out
+
+    def ascend(inputs, n_iters):
+        rec["ascents"].append((inputs, n_iters))
+        return real["ascend"](inputs, n_iters)
+
+    def stage(*a, **k):
+        st = real["stage"](*a, **k)
+        if rec["mode"] == "cost":
+            key = tuple(None if x is None else x.shape
+                        for x in (*st.args, *st.kwargs.values())) + (st.max_free,)
+            rec["cases"].setdefault(key, KernelCase(
+                f"cost-path-B{st.args[7].shape[0]}", st.args, st.kwargs,
+                st.max_free, "cost"))
+        return st
+
+    def pack_split_flat(*a, mode="ffd", **k):
+        before = dict(kernels.LAUNCHES)
+        out = real["pack_split_flat"](*a, mode=mode, **k)
+        torch.cuda.synchronize()
+        tally = rec["mode_launches"][mode]
+        for name, n in kernels.LAUNCHES.items():
+            tally[name] = tally.get(name, 0) + n - before[name]
+        return out
+
+    def solve_packing(enc, mode, device, plan=None):
+        arm = "ffd" if plan is None else (
+            "cost" if enc.cfg_price is rec["base_price"] else "rank")
+        rec["mode"] = mode
+        return timed(f"pack {arm}", real["_solve_packing"])(enc, mode, device, plan)
+
+    def encode(*a, **k):
+        enc = real["encode"](*a, **k)
+        rec["base_price"] = enc.cfg_price
+        return enc
+
+    wrapped = {
+        "price_kernel": price_kernel, "_price_patterns": price_patterns,
+        "plan": timed("plan", plan), "ascend": ascend,
+        "maybe_solve": timed("ascent", real["maybe_solve"]), "stage": stage,
+        "pack_split_flat": pack_split_flat, "_solve_packing": solve_packing,
+        "_finish_winner": timed("merge/trim", real["_finish_winner"]),
+        "_build_solution_arrays": timed("decode", real["_build_solution_arrays"]),
+        "group_pods": timed("encode", real["group_pods"]),
+        "encode": timed("encode", encode),
+    }
+
+    def install(table):
+        for name, fn in table.items():
+            setattr(owner.get(name, solver), name, fn)
+
+    def all_counts():
+        return {**kernels.LAUNCHES, **lp_plan.LAUNCHES, **lp_device.LAUNCHES}
+
+    def reset_counts():
+        kernels.reset_launch_counts()
+        for table in (lp_plan.LAUNCHES, lp_device.LAUNCHES):
+            for name in table:
+                table[name] = 0
+
+    solver.reset_caches()
+    install(wrapped)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        sol = solver.solve(pods, pools, objective="cost")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        breakdown = dict(rec["times"])
+        warm, warm_sols = [], []
+        for _ in range(WARM_SOLVES):
+            t0 = time.perf_counter()
+            warm_sols.append(solver.solve(pods, pools, objective="cost"))
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        launches["cost"] = all_counts()
+    finally:
+        install(real)
+    ffd = solver.solve(pods, pools)
+    torch.cuda.synchronize()
+    n = launches["cost"]
+    cost_mode = rec["mode_launches"]["cost"]
+    if n["lp_price"] < 1 or n["lp_ascend"] < 1:
+        fail(f"the cost path did not launch B4 and B5: {n}")
+    if cost_mode.get("pack_split", 0) + cost_mode.get("pack_split_wavefront", 0) < 1:
+        fail(f"the cost path launched no packing kernel in cost mode: {rec['mode_launches']}")
+    fleet_plan = rec["plans"][0] if rec["plans"] else None
+    if fleet_plan is None or not sol.lp or not sol.lp.get("guided"):
+        fail(f"the cost solve was not planned and guided: lp={sol.lp}")
+    fp = solver.fingerprint(sol)
+    if any(solver.fingerprint(w) != fp for w in warm_sols):
+        fail("warm cost solves differ from the cold one")
+    placed = sum(len(p.pods) for p in sol.new_nodes) + sum(len(e.pods) for e in sol.existing)
+    if placed + len(sol.unschedulable) != COST_PODS:
+        fail(f"cost solve: {placed} placed + {len(sol.unschedulable)} unschedulable "
+             f"!= {COST_PODS} pods")
+    if sol.total_price > ffd.total_price + 1e-6:
+        fail(f"cost fleet ${sol.total_price:.6f}/h costs more than FFD's "
+             f"${ffd.total_price:.6f}/h")
+    if sol.lp["lower_bound"] > sol.total_price + 1e-6:
+        fail(f"certified bound {sol.lp['lower_bound']} above the fleet price "
+             f"{sol.total_price}")
+    d = fleet_plan.debug
+    say(f"phase 6 cost: {COST_PODS} pods x {COST_TYPES} types, reservations, zonal "
+        f"{COST_ZONAL} -> {len(sol.new_nodes)} nodes "
+        f"({sum(1 for n in sol.new_nodes if n.reservation_id)} reserved), "
+        f"{len(sol.unschedulable)} unschedulable, ${sol.total_price:.6f}/h against "
+        f"FFD's ${ffd.total_price:.6f}/h ({len(ffd.new_nodes)} nodes) | certified bound "
+        f"{sol.lp['lower_bound']:.6f}, device bound {sol.lp['device_bound']:.6f} "
+        f"({sol.lp['device_iterations']} iterations, converged "
+        f"{sol.lp['device_converged']}), estimate {sol.lp['estimate']:.6f}, trim saved "
+        f"${sol.lp['trim_saved']:.6f}/h")
+    say(f"  column generation: {d['iters']} rounds, stopped by {d['stop']}, "
+        f"integer covering {d['cover']}, "
+        f"{d['patterns']} patterns, {len(fleet_plan.planned_cols)} planned nodes, "
+        f"{d['price_calls']} B4 calls in {d['price_wall_s']:.6f}s of {d['plan_wall_s']:.6f}s")
+    say(f"  cold {cold_s:.6f}s, breakdown (s): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in breakdown.items())
+        + f" | warm median {statistics.median(warm):.6f}s "
+        f"({', '.join(f'{w:.6f}' for w in warm)})")
+    say(f"  launches: {json.dumps(n)}; packing kernels by mode "
+        f"{json.dumps(rec['mode_launches'])}")
+
+    # the kernels against their plain versions on this run's inputs
+    t0 = time.perf_counter()
+    calls = rec["price"]
+    first_round = min(c for c, _ in calls if c > 1) if any(c > 1 for c, _ in calls) else None
+    picks = {"seed": next(xs for c, xs in calls if c == 1)}
+    if first_round is not None:
+        picks["first round"] = next(xs for c, xs in calls if c == first_round)
+        picks["last round"] = next(xs for c, xs in calls if c == calls[-1][0])
+    for label, xs in picks.items():
+        say(hold_price(lp_plan, f"reserved_50k {label}", xs, err))
+    inputs, n_iters = rec["ascents"][0]
+    say(hold_ascent(lp_device, "reserved_50k", inputs, n_iters, err))
+    for case in rec["cases"].values():
+        say(hold(kernels, case, err))
+    say(f"  recorded inputs: B4 ({', '.join(picks)}), B5 and "
+        f"{len(rec['cases'])} cost-mode pack shapes identical to the plain "
+        f"versions ({time.perf_counter() - t0:.3f}s)")
+
+    # the card against the CPU path on two mid-size problems
+    hpods, hpools = build_problem(2000, 80, seed=5)
+    hpools = [(hpools[0][0], heterogeneous_instance_types(80))]
+    checks = [("hetero 2000x80", hpods, hpools),
+              ("reservations 5000x100", *build_problem(5000, 100, seed=SEED,
+                                                      reservations=True))]
+    # the planner's HiGHS MIPs stop at wall-clock limits, so the same
+    # plan can round differently under another load: both runs stop
+    # them after the root node instead, the same work on both sides
+    for name, cpods, cpools in checks:
+        stops, fps = [], []
+        for device in (None, "cpu"):
+            solver.reset_caches()
+            rec["plans"].clear()
+            lp_plan.plan = plan
+            try:
+                with root_node_mips():
+                    t0 = time.perf_counter()
+                    out = solver.solve(cpods, cpools, objective="cost", device=device)
+                    wall = time.perf_counter() - t0
+            finally:
+                lp_plan.plan = real["plan"]
+            p = rec["plans"][0]
+            stops.append(p.debug["stop"] if p is not None else None)
+            fps.append(solver.fingerprint(out))
+            say(f"  {name} on {device or 'the card'}: ${out.total_price:.6f}/h, "
+                f"{len(out.new_nodes)} nodes, column generation stopped by "
+                f"{stops[-1]} after {p.debug['iters'] if p else 0} rounds, estimate "
+                f"{p.objective_estimate if p else float('nan'):.6f}, "
+                f"{len(p.planned_cols) if p else 0} planned nodes, {wall:.3f}s")
+        if any(stop not in ("converged", "stall") for stop in stops):
+            fail(f"{name}: column generation did not end by convergence or stall: {stops}")
+        if fps[0] != fps[1]:
+            fail(f"{name}: the card's cost fingerprint differs from the CPU path's")
+    solver.reset_caches()
+    say("  card and CPU fingerprints equal on both problems")
+    return {"price_inputs": picks.get("first round", picks["seed"]),
+            "ascent": rec["ascents"][0]}
+
+
 def main() -> None:
     card = one_card()
     import numpy as np
@@ -236,10 +558,16 @@ def main() -> None:
             solve,
         )
         from karpenter_tpu_torch.solver.encode import encode, group_pods
+        from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
+        from karpenter_tpu_torch.solver import lp_device, lp_plan
+        from karpenter_tpu_torch.solver import solver as solver_mod
         from karpenter_tpu_torch.testing import (
+            PRICE_CASES,
             KernelCase,
+            ascent_cases,
             existing_from_solution,
             kernel_cases,
+            price_cases,
         )
         from karpenter_tpu_torch.workloads import build_problem
     except ImportError as err:
@@ -274,9 +602,17 @@ def main() -> None:
     cases = kernel_cases(0)
     for case in cases:
         say(hold(kernels, case, err, widths=WIDTHS))
-    say(f"phase 3 kernels: {len(cases)} seeded problems byte-identical to the "
-        f"plain versions, B3 at widths {WIDTHS} equal to B1 "
-        f"({time.perf_counter() - t0:.3f}s)")
+    err.update({"lp_price": 0.0, "lp_ascend": 0.0})
+    for name, case in price_cases(0):
+        say(hold_price(lp_plan, name, [torch.from_numpy(x).cuda() for x in case], err))
+    for name, inputs in ascent_cases(0):
+        for n_iters in ASCENT_ITERS:
+            say(hold_ascent(lp_device, f"{name}-{n_iters}", inputs.to("cuda"),
+                            n_iters, err))
+    say(f"phase 3 kernels: {len(cases)} seeded packing problems byte-identical to "
+        f"the plain versions, B3 at widths {WIDTHS} equal to B1; B4 on "
+        f"{len(PRICE_CASES)} and B5 on {3 * len(ASCENT_ITERS)} seeded cases "
+        f"bit-identical ({time.perf_counter() - t0:.3f}s)")
 
     # ---- 4. main path, route by route; the kernel inputs of each
     # distinct shape the routes stage are kept, to hold the kernels
@@ -507,6 +843,34 @@ def main() -> None:
         f"{histogram(out3[5][:int(out3[4])])}; B1/B3 ops={b1_op_count} "
         f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 ops={b2_op_count} "
         f"bytes={b2_bytes} | card: {smi}")
+    # ---- 6. the cost objective on reserved_50k
+    t0 = time.perf_counter()
+    recorded = cost_phase(kernels, lp_plan, lp_device, pack, solver_mod, build_problem,
+                          heterogeneous_instance_types, err, launches)
+    say(f"  phase 6 took {time.perf_counter() - t0:.3f}s")
+
+    # ---- 7. B4 and B5 timing on the cost path's recorded inputs
+    xs = recorded["price_inputs"]
+    q, _ = lp_plan.price_kernel(*xs)
+    b4_ms = event_ms(lambda: lp_plan.price_kernel(*xs), 20)
+    b4_plain_ms = event_ms(lambda: lp_plan.price_kernel_ref(*xs), 2)
+    b4_bytes = nbytes(xs) + nbytes(lp_plan.price_kernel(*xs))
+    b4_ops = price_ops(q, xs[2].shape[1])
+    b4_bound, b4_by = bound(b4_ops, b4_bytes)
+    a, n_iters = recorded["ascent"]
+    b5_out = lp_device.ascend(a, n_iters)
+    b5_ms = event_ms(lambda: lp_device.ascend(a, n_iters), 5)
+    b5_plain_ms = event_ms(lambda: lp_device.ascend_ref(a, n_iters), 1)
+    b5_bytes = nbytes(a.tensors()) + nbytes(b5_out)
+    b5_ops = ascent_ops(a, n_iters)
+    b5_bound, b5_by = bound(b5_ops, b5_bytes)
+    say(f"phase 7 LP timing: B4 on the first column-generation round's inputs "
+        f"(Gp={xs[0].shape[0]} Cp={xs[1].shape[1]} R={xs[2].shape[1]}): {b4_ms:.6f} ms, "
+        f"plain {b4_plain_ms:.3f} ms, ops={b4_ops} bytes={b4_bytes}; B5 at {n_iters} "
+        f"iterations (Gp={a.compat.shape[0]} Cp={a.compat.shape[1]} "
+        f"Kp={a.onehot.shape[0]}): {b5_ms:.6f} ms, plain {b5_plain_ms:.3f} ms, "
+        f"ops={b5_ops} bytes={b5_bytes} | card: {smi}")
+
     route_launches = {
         name: sum(n[name] for n in launches.values()) for name in kernels.LAUNCHES
     }
@@ -530,6 +894,18 @@ def main() -> None:
          "launches": route_launches["pack_split_flat"], "max_abs_err": err["pack_split_flat"],
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None},
+        {"name": "lp_price", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/lp_price.cu",
+         "replaces": "karpenter_tpu/solver/lp_plan.py:150",
+         "launches": launches["cost"]["lp_price"], "max_abs_err": err["lp_price"],
+         "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound,
+         "bound_by": b4_by, "library_ms": None},
+        {"name": "lp_ascend", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/lp_ascend.cu",
+         "replaces": "karpenter_tpu/solver/lp_device.py:202",
+         "launches": launches["cost"]["lp_ascend"], "max_abs_err": err["lp_ascend"],
+         "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bound,
+         "bound_by": b5_by, "library_ms": None},
     ]}
     say(json.dumps(report))
     say(smi)

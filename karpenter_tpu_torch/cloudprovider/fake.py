@@ -1,8 +1,10 @@
 """Synthetic instance-type catalog.
 
 Copy of the catalog half of `karpenter_tpu/cloudprovider/fake.py`: the
-deterministic price model, `make_instance_type` and the diverse
-`instance_types(n)` generator the benchmark problem is built on.
+deterministic price model, `make_instance_type`, the diverse
+`instance_types(n)` generator the benchmark problem is built on, and
+the family-priced `heterogeneous_instance_types(n)` the cost objective
+is tested on.
 """
 
 from __future__ import annotations
@@ -157,6 +159,38 @@ def instance_types(count: int) -> list[InstanceType]:
                 pods=float(min(110, cpu * 16)),
                 arch=arch,
                 os=os,
+            )
+        )
+    return out
+
+
+def heterogeneous_instance_types(count: int) -> list[InstanceType]:
+    """Family-priced catalog: $/vCPU depends on the memory ratio the
+    way real cloud families do (compute-optimized cheapest per vCPU,
+    memory-optimized cheapest per GiB), plus a premium on the largest
+    sizes. Unlike `instance_types` (whose price is LINEAR in resources
+    — the reference's fake PriceFromResources — making greedy FFD
+    near-optimal by construction), this curve gives bin-packing choices
+    real dollar consequences: matching cpu-heavy and memory-heavy pods
+    to the right family, or sharing a node between complementary
+    shapes, measurably beats first-fit."""
+    family_rate = {2: 0.031, 4: 0.040, 8: 0.055}  # $/vCPU by GiB-per-vCPU
+    cpus = [1, 2, 4, 8, 16, 32, 48, 64, 96]
+    out = []
+    combos = itertools.cycle(
+        itertools.product(cpus, (2, 4, 8), (ARCH_AMD64, ARCH_ARM64))
+    )
+    for i in range(count):
+        cpu, ratio, arch = next(combos)
+        price = cpu * family_rate[ratio] * (1.08 if cpu >= 48 else 1.0)
+        out.append(
+            make_instance_type(
+                f"f{ratio}x-{_size_name(cpu)}-{cpu}-{arch}-{i}",
+                cpu=float(cpu),
+                memory=float(cpu * ratio * GIB),
+                pods=float(min(110, cpu * 16)),
+                arch=arch,
+                price=price,
             )
         )
     return out

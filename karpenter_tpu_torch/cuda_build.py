@@ -32,6 +32,8 @@ SOURCES = {
     "pack_split": "pack_split.cu",
     "pack_wavefront": "pack_wavefront.cu",
     "pack_flat": "pack_flat.cu",
+    "lp_price": "lp_price.cu",
+    "lp_ascend": "lp_ascend.cu",
 }
 
 NVCC_FLAGS = (
@@ -46,6 +48,8 @@ SIGNATURES = {
     "pack_split": ("pack_split_launch", [_P] * 28 + [_I] * 8 + [_P]),
     "pack_wavefront": ("pack_wavefront_launch", [_P] * 38 + [_I] * 9 + [_P]),
     "pack_flat": ("pack_flat_launch", [_P] * 7 + [_I] * 4 + [_P]),
+    "lp_price": ("lp_price_launch", [_P] * 7 + [_I] * 3 + [_P]),
+    "lp_ascend": ("lp_ascend_launch", [_P] * 26 + [_I] * 5 + [_P]),
 }
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said

@@ -1,0 +1,593 @@
+"""The config-level LP relaxation of the packing problem, solved on the
+card by dual ascent, and the duals it yields for the cost race.
+
+Copy of `karpenter_tpu/solver/lp_device.py` (the parts the cost
+objective runs): maximize
+
+    bound(lam) = lam'.count - sum_k rsv_cap[k] * mu_k(lam')
+
+where lam' = lam / theta(lam), theta(lam) = max over uncapped configs
+of Vhat_c(lam)/price_c, Vhat_c = min over valid r of
+(max_g lam_g/req[g,r]) * alloc[c,r], and mu_k buys back the reserved
+configs' excess. The ascent is the kernel B5 (`ascend`,
+`csrc/lp_ascend.cu` on the card, its plain version `ascend_ref` on the
+CPU): all iterations in one launch. The supergradient is written out by
+hand with JAX's tie rules (`_supergradient`). The certificate (bound,
+scaled duals, cap duals) is recomputed on the host in float64 from the
+best iterate, so its validity never rests on the card's arithmetic.
+
+Knobs: KARPENTER_LP_GUIDE (default on; 0 disables guidance, trim and
+the rank arm), KARPENTER_LP_ITERS (ascent iterations, default 192),
+KARPENTER_LP_RANK_BETA (reduced-cost penalty weight, default 1.0),
+KARPENTER_LP_PRIORITY_WEIGHT (priority fold strength, default 0.25).
+
+Unlike the JAX package, whose `maybe_solve` degrades any failure to the
+unguided path, this port's `maybe_solve` returns None only when
+guidance is off or the problem is degenerate: a kernel that fails to
+build or launch, and any CUDA error, propagate to the caller, so a
+fault on the card cannot hide behind an unguided result.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import threading
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from karpenter_tpu_torch.solver.encode import Encoded
+from karpenter_tpu_torch.solver.lp_plan import _pad_to, priority_weights
+
+_EPS = 1e-12
+
+# kernel launches of B5 (plain-version calls never count)
+LAUNCHES = {"lp_ascend": 0}
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def enabled() -> bool:
+    return os.environ.get("KARPENTER_LP_GUIDE", "1").strip().lower() not in (
+        "0", "off", "false", "no",
+    )
+
+
+def iters() -> int:
+    return max(8, _env_int("KARPENTER_LP_ITERS", 192))
+
+
+def rank_beta() -> float:
+    return max(0.0, _env_float("KARPENTER_LP_RANK_BETA", 1.0))
+
+
+def _cap_rows(k: int) -> int:
+    """Reservation-slot row bucket of the ascent's onehot/budget inputs:
+    1 for cap-free problems, else 64/512/... (the JAX package's
+    buckets: padded rows count in the max reductions' ties, so the
+    port pads alike)."""
+    if k <= 0:
+        return 1
+    out = 64
+    while out < k:
+        out *= 8
+    return out
+
+
+@dataclass
+class DeviceLP:
+    """One certified dual solve of the packing relaxation."""
+
+    lam: np.ndarray          # [G] float64 Farley-scaled demand duals
+    mu: np.ndarray           # [K] float64 reservation-cap duals (>= 0)
+    lower_bound: float       # float64-certified: lam.count - cap.mu
+    theta: float             # the Farley scaling actually applied
+    vhat: np.ndarray         # [C] float64 per-config value upper bound
+    lam_guide: np.ndarray    # [G] float64 priority-weighted guidance duals
+    iterations: int
+    converged: bool
+    wall_s: float
+    cache_hit: bool = False
+
+
+def device_lp_from_arrays(d: dict) -> DeviceLP:
+    """A `DeviceLP` from the numpy fields of another run's solve (for
+    example the JAX package's), so a race can be fed the same duals."""
+    return DeviceLP(
+        lam=np.asarray(d["lam"], np.float64),
+        mu=np.asarray(d["mu"], np.float64),
+        lower_bound=float(d["lower_bound"]),
+        theta=float(d["theta"]),
+        vhat=np.asarray(d["vhat"], np.float64),
+        lam_guide=np.asarray(d["lam_guide"], np.float64),
+        iterations=int(d["iterations"]),
+        converged=bool(d["converged"]),
+        wall_s=float(d.get("wall_s", 0.0)),
+        cache_hit=bool(d.get("cache_hit", False)),
+    )
+
+
+# fingerprint -> DeviceLP (LRU, oldest evicted)
+_cache: dict[bytes, DeviceLP] = {}
+_cache_lock = threading.Lock()
+_CACHE_ENTRIES = 16
+
+
+def _fingerprint(enc: Encoded) -> bytes:
+    h = hashlib.blake2b(digest_size=16)
+    for buf in (
+        enc.group_count, enc.group_req, enc.cfg_price, enc.cfg_alloc,
+        np.ascontiguousarray(enc.compat), enc.cfg_pool, enc.pool_overhead,
+    ):
+        h.update(np.ascontiguousarray(buf).tobytes())
+    for opt in (enc.cfg_rsv, enc.rsv_cap, enc.group_priority):
+        h.update(
+            b"\x00" if opt is None else np.ascontiguousarray(opt).tobytes()
+        )
+    h.update(
+        f"{iters()}|{_env_float('KARPENTER_LP_PRIORITY_WEIGHT', 0.25)}"
+        .encode()
+    )
+    return h.digest()
+
+
+# ---------------------------------------------------------------- B5
+
+
+def tree_width(n: int) -> int:
+    """Width of B5's fixed-order sums: the next power of two at or
+    above n, and at least 32 (one warp)."""
+    out = 32
+    while out < n:
+        out *= 2
+    return out
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed order: zero-pad it to
+    `tree_width` and add adjacent pairs, x[..., 0::2] + x[..., 1::2],
+    until one element is left. The CUDA kernel reduces the same way, so
+    its sums are bit-identical to this one."""
+    n = x.shape[-1]
+    pad = tree_width(n) - n
+    if pad:
+        x = torch.cat([x, x.new_zeros(*x.shape[:-1], pad)], dim=-1)
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+class AscentInputs:
+    """The padded float32 inputs of B5, as tensors on one device:
+    lam0, count, count_w [Gp]; compat [Gp, Cp] bool; req [Gp, R];
+    alloc [Cp, R]; price [Cp]; valid [Cp, R] bool; onehot [Kp, Cp]
+    bool; budget [Kp]; uncapped [Cp] bool."""
+
+    NAMES = ("lam0", "count", "count_w", "compat", "req", "alloc", "price",
+             "valid", "onehot", "budget", "uncapped")
+
+    def __init__(self, **tensors):
+        for name in self.NAMES:
+            setattr(self, name, tensors[name])
+
+    def tensors(self) -> list:
+        return [getattr(self, n) for n in self.NAMES]
+
+    def to(self, device) -> "AscentInputs":
+        return AscentInputs(**{n: getattr(self, n).to(device) for n in self.NAMES})
+
+
+class _Consts:
+    def __init__(self, dev):
+        f32 = torch.float32
+        self.zero = torch.zeros((), dtype=f32, device=dev)
+        self.one = torch.ones((), dtype=f32, device=dev)
+        self.half = torch.full((), 0.5, dtype=f32, device=dev)
+        self.inf = torch.full((), float("inf"), dtype=f32, device=dev)
+        self.eps = torch.full((), _EPS, dtype=f32, device=dev)
+        self.tiny = torch.full((), 1e-9, dtype=f32, device=dev)
+
+
+def _forward(a: AscentInputs, lam, k: _Consts):
+    """bound_w(lam) and the intermediates its supergradient reads, in
+    the JAX order of operations (lp_device.py:214-237)."""
+    req = a.req
+    rmask = (req > 0) & (a.count > 0)[:, None]
+    safe_req = torch.where(req > 0, req, k.one)
+    ratio = torch.where(rmask, lam[:, None] / safe_req, k.zero)          # [G, R]
+    X = torch.where(a.compat[:, :, None], ratio[:, None, :], k.zero)   # [G, C, R]
+    mm = X.amax(dim=0)                                                  # [C, R]
+    v = torch.where(a.valid, mm * a.alloc, k.inf)
+    vh0 = v.amin(dim=1)                                                 # [C]
+    finite = torch.isfinite(vh0)
+    vh = torch.where(finite, vh0, k.zero)
+    zsel = a.uncapped & (a.price > 0)
+    pden = torch.where(a.price > k.eps, a.price, k.eps)
+    z = torch.where(zsel, vh / pden, k.zero)
+    theta0 = z.amax()
+    theta = torch.where(theta0 > k.eps, theta0, k.eps)
+    lam_s = lam / theta
+    xe = vh / theta - a.price
+    excess = torch.where(xe > 0, xe, k.zero)
+    M = torch.where(a.onehot, excess[None, :], k.zero)                  # [K, C]
+    mu = M.amax(dim=1)
+    b = tree_sum(lam_s * a.count_w) - tree_sum(mu * a.budget)
+    return dict(safe_req=safe_req, rmask=rmask, ratio=ratio, X=X, mm=mm, v=v,
+                vh0=vh0, finite=finite, vh=vh, zsel=zsel, pden=pden, z=z,
+                theta0=theta0, theta=theta, xe=xe, M=M, mu=mu, b=b)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (the kernel's __fsqrt_rn).
+    torch.sqrt on the CPU can miss the correctly rounded result by an
+    ulp, in float32 and float64 alike, so the float64 root rounded to
+    float32 is corrected once against the exact squares of the two
+    midpoints next to it (25-bit midpoints square exactly in float64;
+    no float32 x is such a square, so there are no ties)."""
+    inf = torch.full_like(x, float("inf"))
+    r = torch.sqrt(x.double()).float()
+    up, dn = torch.nextafter(r, inf), torch.nextafter(r, -inf)
+    xd = x.double()
+    hi = (r.double() + up.double()) * 0.5
+    lo = (r.double() + dn.double()) * 0.5
+    return torch.where(hi * hi < xd, up,
+                       torch.where((lo > 0) & (lo * lo > xd), dn, r))
+
+
+def _tie_weight(x, ans, k: _Consts):
+    """JAX's cotangent share of `x` in maximum(x, c) = ans: 1 where x
+    alone attains the max, 0.5 at an exact tie with the constant, 0
+    below it (`_balanced_eq`)."""
+    return torch.where(x > ans, k.one, torch.where(x == ans, k.half, k.zero))
+
+
+def _supergradient(a: AscentInputs, lam, f: dict, k: _Consts):
+    """d bound_w / d lam, written out with JAX's tie rules: a max or
+    min reduction splits its cotangent evenly over every element equal
+    to the result (padding and masked zeros included), maximum and clip
+    give each side half at an exact tie, and where(isfinite(vh), vh, 0)
+    passes the cotangent only where vh is finite. The sums over an axis
+    are `tree_sum`s."""
+    theta = f["theta"]
+    inv_t2 = k.one / (theta * theta)
+    dlam_a = a.count_w / theta
+    dtheta_a = tree_sum((-a.count_w * lam) * inv_t2)
+    # mu = max_c where(onehot, excess, 0); d mu = -budget
+    dmu = -a.budget
+    indM = (f["M"] == f["mu"][:, None]).to(torch.float32)
+    nM = indM.sum(dim=1)
+    dM = indM * (dmu / nM)[:, None]
+    # the where's cotangent, summed over slots: a config has at most one
+    # slot, so its share is that slot's entry (+0 without one)
+    slot = a.onehot.to(torch.uint8).argmax(dim=0)
+    cols = torch.arange(a.onehot.shape[1], device=dM.device)
+    dexcess = torch.where(a.onehot.any(dim=0), dM[slot, cols], k.zero)
+    dx = dexcess * torch.where(f["xe"] > 0, k.one,
+                               torch.where(f["xe"] == 0, k.half, k.zero))
+    dvh_a = dx / theta
+    dtheta_b = tree_sum((-dx * f["vh"]) * inv_t2)
+    dtheta = dtheta_a + dtheta_b
+    dtheta0 = dtheta * _tie_weight(f["theta0"], k.eps, k)
+    indz = (f["z"] == f["theta0"]).to(torch.float32)
+    dz = indz * (dtheta0 / indz.sum())
+    dvh_b = torch.where(f["zsel"], dz / f["pden"], k.zero)
+    dvh = dvh_a + dvh_b
+    dvh0 = torch.where(f["finite"], dvh, k.zero)
+    indv = (f["v"] == f["vh0"][:, None]).to(torch.float32)
+    dv = indv * (dvh0 / indv.sum(dim=1))[:, None]
+    dmm = torch.where(a.valid, dv * a.alloc, k.zero)                    # [C, R]
+    indX = (f["X"] == f["mm"][None, :, :]).to(torch.float32)           # [G, C, R]
+    dX = indX * (dmm / indX.sum(dim=0))[None, :, :]
+    dXc = torch.where(a.compat[:, :, None], dX, k.zero)
+    dratio = tree_sum(dXc.permute(0, 2, 1))                             # [G, R]
+    dlam_b = tree_sum(torch.where(f["rmask"], dratio / f["safe_req"], k.zero))
+    return dlam_a + dlam_b
+
+
+def ascend_ref(a: AscentInputs, n_iters: int):
+    """Plain version of B5 (`_ascend`, lp_device.py:202 of the JAX
+    package): projected supergradient ascent on the priority-weighted
+    dual bound, keeping the best iterate. Returns (best [] f32,
+    best_lam [Gp] f32, last_up [] int32: the last iteration that
+    improved, -1 if none)."""
+    dev = a.lam0.device
+    k = _Consts(dev)
+    lam = a.lam0
+    f = _forward(a, lam, k)
+    best, best_lam = f["b"], lam
+    last_up = torch.full((), -1, dtype=torch.int32, device=dev)
+    for t in range(n_iters):
+        g = _supergradient(a, lam, f, k)
+        nrm = _sqrt_rn(tree_sum(g * g))
+        gn = g / torch.where(nrm > k.eps, nrm, k.eps)
+        t_f = torch.full((), float(t), dtype=torch.float32, device=dev)
+        eta = k.half / _sqrt_rn(k.one + t_f)
+        lmax = lam.amax()
+        scale = torch.where(lmax > k.tiny, lmax, k.tiny)
+        y = lam + (eta * gn) * scale
+        lam = torch.where(y > 0, y, k.zero)
+        f = _forward(a, lam, k)
+        better = f["b"] > best
+        best = torch.where(better, f["b"], best)
+        best_lam = torch.where(better, lam, best_lam)
+        last_up = torch.where(better, torch.full_like(last_up, t), last_up)
+    return best, best_lam, last_up
+
+
+def _ascend_cuda(a: AscentInputs, n_iters: int):
+    from karpenter_tpu_torch import cuda_build
+    from karpenter_tpu_torch.solver.pack_split import _check, _ptr, _raise_on, _stream
+
+    Gp, Cp = a.compat.shape
+    R = a.req.shape[1]
+    Kp = a.onehot.shape[0]
+    f32, b8 = torch.float32, torch.bool
+    shapes = dict(lam0=(f32, (Gp,)), count=(f32, (Gp,)), count_w=(f32, (Gp,)),
+                  compat=(b8, (Gp, Cp)), req=(f32, (Gp, R)), alloc=(f32, (Cp, R)),
+                  price=(f32, (Cp,)), valid=(b8, (Cp, R)), onehot=(b8, (Kp, Cp)),
+                  budget=(f32, (Kp,)), uncapped=(b8, (Cp,)))
+    for name, (dtype, shape) in shapes.items():
+        _check(getattr(a, name), name, dtype, shape)
+    if R > 16:
+        raise ValueError(f"lp_ascend: {R} resources exceed the kernel's 16")
+    dev = a.lam0.device
+    best = torch.empty((), dtype=f32, device=dev)
+    best_lam = torch.empty((Gp,), dtype=f32, device=dev)
+    last_up = torch.empty((), dtype=torch.int32, device=dev)
+    # scratch: lam, the gradient and the forward's per-config state
+    scratch = [
+        torch.empty((Gp,), dtype=f32, device=dev),          # lam
+        torch.empty((Gp,), dtype=f32, device=dev),          # grad
+        torch.empty((Gp, R), dtype=f32, device=dev),        # ratio
+        torch.empty((Gp, R), dtype=f32, device=dev),        # dratio
+        torch.empty((Cp, R), dtype=f32, device=dev),        # mm
+        torch.empty((Cp, R), dtype=f32, device=dev),        # ties of mm, then dmm / ties
+        torch.empty((Cp,), dtype=f32, device=dev),          # vh0
+        torch.empty((Cp,), dtype=f32, device=dev),          # dvh from excess
+        torch.empty((Cp,), dtype=f32, device=dev),          # excess
+        torch.empty((Cp,), dtype=f32, device=dev),          # z
+        torch.empty((Kp,), dtype=f32, device=dev),          # mu
+        torch.empty((Kp,), dtype=f32, device=dev),          # dmu / ties
+    ]
+    lib = cuda_build.library("lp_ascend")
+    err = lib.lp_ascend_launch(
+        *(_ptr(t) for t in (*a.tensors(), best, best_lam, last_up, *scratch)),
+        Gp, Cp, R, Kp, int(n_iters), _stream(),
+    )
+    _raise_on(err, "lp_ascend")
+    LAUNCHES["lp_ascend"] += 1
+    return best, best_lam, last_up
+
+
+def ascend(a: AscentInputs, n_iters: int):
+    """B5. Arguments and outputs as `ascend_ref`. CUDA tensors launch
+    the kernel (one block for all iterations); CPU tensors run the
+    plain version; any other device raises."""
+    if a.lam0.is_cuda:
+        return _ascend_cuda(a, n_iters)
+    if a.lam0.device.type == "cpu":
+        return ascend_ref(a, n_iters)
+    raise ValueError(f"lp_ascend: no kernel for device {a.lam0.device}")
+
+
+# ---------------------------------------------------------------- host
+
+
+def _certify(lam, count, compat, req, alloc, price, valid_r, cap_slot,
+             cap_budget):
+    """Host float64 re-derivation of (theta, lam', mu, bound) from a
+    candidate lam: valid by construction, whatever the ascent did."""
+    lam = np.clip(np.asarray(lam, np.float64), 0.0, None)
+    live = count > 0
+    safe_req = np.where(req > 0, req, 1.0)
+    ratio = np.where((req > 0) & live[:, None], lam[:, None] / safe_req, 0.0)
+    mm = np.max(
+        np.where(compat[:, :, None], ratio[:, None, :], 0.0), axis=0
+    )
+    with np.errstate(invalid="ignore"):
+        v = np.where(valid_r, mm * alloc, np.inf)
+    vh = np.min(v, axis=1)
+    vh = np.where(np.isfinite(vh), vh, 0.0)
+    uncapped = cap_slot < 0
+    theta = float(
+        np.max(
+            np.where(uncapped & (price > 0), vh / np.maximum(price, _EPS),
+                     0.0),
+            initial=0.0,
+        )
+    )
+    theta = max(theta, _EPS)
+    lam_s = lam / theta
+    vh_s = vh / theta
+    K = len(cap_budget)
+    mu = np.zeros(K, np.float64)
+    if K:
+        excess = np.clip(vh_s - price, 0.0, None)
+        for k in range(K):
+            sel = cap_slot == k
+            if sel.any():
+                mu[k] = float(excess[sel].max())
+    bound = float(lam_s @ count - mu @ cap_budget)
+    return lam_s, mu, vh_s, theta, max(bound, 0.0)
+
+
+def _stage(enc: Encoded):
+    """Launch-masked staging for the ascent, plus the float64 host
+    copies the certificate is computed from."""
+    G, C = enc.compat.shape
+    R = enc.group_req.shape[1]
+    launch = enc.cfg_pool >= 0
+    eff = enc.cfg_alloc - enc.pool_overhead[np.maximum(enc.cfg_pool, 0)]
+    eff = np.where(launch[:, None], np.clip(eff, 0.0, None), 0.0)
+    price = np.where(launch, enc.cfg_price, 0.0).astype(np.float64)
+    compat = enc.compat & launch[None, :]
+    cap_slot = (
+        enc.cfg_rsv.astype(np.int64)
+        if enc.cfg_rsv is not None
+        else np.full(C, -1, np.int64)
+    )
+    cap_slot = np.where(launch, cap_slot, -1)
+    cap_budget = (
+        enc.rsv_cap.astype(np.float64)
+        if enc.rsv_cap is not None
+        else np.zeros(0, np.float64)
+    )
+    # groups no launchable machine holds one pod of are left out of the
+    # priced demand (their duals would grow without bound)
+    safe = np.where(enc.group_req > 0, enc.group_req, 1.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = np.floor((eff[None, :, :] + 1e-4) / safe[:, None, :])
+    k = np.where(enc.group_req[:, None, :] > 0, k, np.inf).min(axis=2)
+    k = np.where(compat, k, 0.0)
+    plannable = np.asarray(k >= 1).any(axis=1)
+    count = np.where(plannable, enc.group_count, 0).astype(np.float64)
+    live = count > 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ppp = np.where(k >= 1, price[None, :] / np.maximum(k, 1.0), np.inf)
+    ppp = ppp.min(axis=1)
+    lam0 = np.where(np.isfinite(ppp) & live, ppp, 0.0)
+    # r is valid for c when every live compatible group consumes it
+    reqpos = enc.group_req > 0
+    bad = (compat & live[:, None])[:, :, None] & ~reqpos[:, None, :]
+    valid_r = ~bad.any(axis=0)
+    w = priority_weights(enc.group_priority, G)
+    return dict(
+        G=G, C=C, R=R, count=count, count_w=count * w, compat=compat,
+        req=enc.group_req.astype(np.float64), alloc=eff.astype(np.float64),
+        price=price, valid_r=valid_r, cap_slot=cap_slot,
+        cap_budget=cap_budget, lam0=lam0, weights=w,
+    )
+
+
+def ascent_inputs(st: dict) -> AscentInputs:
+    """Pad `_stage`'s output as the JAX package pads it (`_pad_to` for
+    groups and configs, `_cap_rows` for reservation slots: padded zeros
+    count in the ties of the max reductions) into CPU tensors."""
+    G, C, R = st["G"], st["C"], st["R"]
+    Gp, Cp = _pad_to(G), _pad_to(C)
+    K = len(st["cap_budget"])
+    Kp = _cap_rows(K)
+
+    def vec(n, src, dtype=np.float32):
+        out = np.zeros(n, dtype)
+        out[: len(src)] = src
+        return out
+
+    compat_p = np.zeros((Gp, Cp), bool)
+    compat_p[:G, :C] = st["compat"]
+    req_p = np.zeros((Gp, R), np.float32)
+    req_p[:G] = st["req"]
+    alloc_p = np.zeros((Cp, R), np.float32)
+    alloc_p[:C] = st["alloc"]
+    valid_p = np.zeros((Cp, R), bool)
+    valid_p[:C] = st["valid_r"]
+    price_p = vec(Cp, st["price"])
+    slot_p = np.full(Cp, -1, np.int64)
+    slot_p[:C] = st["cap_slot"]
+    onehot = np.zeros((Kp, Cp), bool)
+    for ki in range(K):
+        onehot[ki] = slot_p == ki
+    t = torch.from_numpy
+    return AscentInputs(
+        lam0=t(vec(Gp, st["lam0"])), count=t(vec(Gp, st["count"])),
+        count_w=t(vec(Gp, st["count_w"])), compat=t(compat_p), req=t(req_p),
+        alloc=t(alloc_p), price=t(price_p), valid=t(valid_p), onehot=t(onehot),
+        budget=t(vec(Kp, st["cap_budget"])),
+        uncapped=t((slot_p < 0) & (price_p > 0)),
+    )
+
+
+def solve(enc: Encoded, device: torch.device | str = "cuda") -> DeviceLP:
+    """Run (or reuse) the dual ascent for this encode on `device`.
+    Raises on failure."""
+    fp = _fingerprint(enc)
+    with _cache_lock:
+        hit = _cache.get(fp)
+    if hit is not None:
+        return hit
+
+    t0 = time.perf_counter()
+    st = _stage(enc)
+    G = st["G"]
+    n_iters = iters()
+    inputs = ascent_inputs(st).to(torch.device(device))
+    _, best_lam, last_up = ascend(inputs, n_iters)
+    lam_raw = best_lam.cpu().numpy().astype(np.float64)[:G]
+    converged = int(last_up) < (n_iters * 3) // 4
+    lam_s, mu, vh_s, theta, bound = _certify(
+        lam_raw, st["count"], st["compat"], st["req"], st["alloc"],
+        st["price"], st["valid_r"], st["cap_slot"], st["cap_budget"],
+    )
+    out = DeviceLP(
+        lam=lam_s,
+        mu=mu,
+        lower_bound=bound,
+        theta=theta,
+        vhat=vh_s,
+        lam_guide=lam_s * st["weights"],
+        iterations=n_iters,
+        converged=converged,
+        wall_s=time.perf_counter() - t0,
+        cache_hit=False,
+    )
+    with _cache_lock:
+        _cache.pop(fp, None)
+        while len(_cache) >= _CACHE_ENTRIES:
+            _cache.pop(next(iter(_cache)))
+        _cache[fp] = out
+    return out
+
+
+def maybe_solve(enc: Encoded, device: torch.device | str = "cuda"):
+    """None when guidance is disabled or the problem is degenerate (no
+    groups, no launchable column); otherwise `solve`. Errors of the
+    kernel and of the card propagate (the JAX package degrades them to
+    None instead; see the module docstring)."""
+    if not enabled():
+        return None
+    if enc.compat.shape[0] == 0 or not (enc.cfg_pool >= 0).any():
+        return None
+    return solve(enc, device=device)
+
+
+def rank_prices(enc: Encoded, dlp: DeviceLP,
+                beta: float | None = None) -> np.ndarray:
+    """Dual-adjusted reduced-cost ranking of the launchable configs as
+    the packer's price input: configs priced above their dual value
+    are penalized by the gap; decode still prices from enc.cfg_price."""
+    beta = rank_beta() if beta is None else beta
+    launch = enc.cfg_pool >= 0
+    price = enc.cfg_price.astype(np.float64)
+    vh = dlp.vhat
+    # priority fold: value configs by the guidance duals' scale
+    if len(dlp.lam) and np.max(dlp.lam) > 0:
+        scale = np.max(dlp.lam_guide) / np.max(dlp.lam)
+        if scale != 1.0:
+            vh = vh * max(scale, _EPS)
+    rc = np.clip(price - vh, 0.0, None)
+    out = np.where(launch, price + beta * rc, price)
+    return out.astype(np.float32)
+
+
+def reset() -> None:
+    """Test hook: drop the dual-solve cache."""
+    with _cache_lock:
+        _cache.clear()

@@ -149,39 +149,80 @@ def _estimate_nodes(enc: Encoded) -> int:
     return total
 
 
-def _axis_key(enc: Encoded, mode: str) -> tuple:
-    """Repeated solves of the same problem reuse the node axis that
-    worked last time; the key fingerprints the demand content."""
+def _bound_rows(enc: Encoded, plan=None):
+    """The bound block's rows, as the JAX `solve_packing_async` builds
+    them: the existing nodes (one-hot on their pseudo-config columns),
+    then with a `plan` (lp_plan.FleetPlan) one pre-opened row per
+    planned node on its config column, its usage the pool's overhead
+    and its per-group quota the plan's. Returns (mask [E+Np, C],
+    used [E+Np, R], quota [E+Np, G] int32 or None)."""
     G, C = enc.compat.shape
     E = enc.n_existing
+    n_planned = len(plan.planned_cols) if plan is not None else 0
+    existing_mask = np.zeros((E + n_planned, C), dtype=bool)
+    for ci, cfg in enumerate(enc.configs):
+        if cfg.existing_index >= 0:
+            existing_mask[cfg.existing_index, ci] = True
+    existing_used = enc.existing_used
+    existing_rows = (
+        enc.existing_quota.astype(np.int32)
+        if enc.existing_quota is not None
+        else np.full((E, G), np.iinfo(np.int32).max, np.int32)
+    )
+    quota = existing_rows if enc.existing_quota is not None else None
+    if plan is not None:
+        existing_mask[E + np.arange(n_planned), plan.planned_cols] = True
+        planned_used = enc.pool_overhead[enc.cfg_pool[plan.planned_cols]]
+        existing_used = np.concatenate([enc.existing_used, planned_used], axis=0)
+        quota = np.concatenate([existing_rows, plan.planned_quota], axis=0)
+    return existing_mask, existing_used, quota
+
+
+def _axis_key(enc: Encoded, mode: str, existing_used: np.ndarray,
+              reserved_p: int, plan=None) -> tuple:
+    """Repeated solves of the same problem reuse the node axis that
+    worked last time; the key fingerprints the demand content and the
+    planned rows."""
+    G, C = enc.compat.shape
     fingerprint = (
         zlib.crc32(enc.group_count.tobytes())
         ^ zlib.crc32(enc.group_req.tobytes())
-        ^ zlib.crc32(enc.existing_used.tobytes())
+        ^ zlib.crc32(existing_used.tobytes())
+        ^ (zlib.crc32(plan.planned_cols.tobytes()) if plan is not None else 0)
     )
-    return (G, C, int(enc.group_count.sum()), mode, False,
-            _pad_axis(E) if E else 0, fingerprint)
+    return (G, C, int(enc.group_count.sum()), mode, plan is not None,
+            reserved_p, fingerprint)
 
 
-def node_axis(enc: Encoded, mode: str = "ffd") -> int:
+def node_axis(enc: Encoded, mode: str = "ffd", plan=None) -> int:
     """The node axis (bound block plus fresh rows) the next solve of
     `enc` starts from: the one remembered from the last solve of the
-    same problem, else a bucketed estimate."""
+    same problem, else a bucketed estimate (with a plan, whose rows
+    cover the bulk, the fresh axis only takes the rounding spill)."""
+    _, existing_used, _ = _bound_rows(enc, plan)
+    reserved = existing_used.shape[0]
+    reserved_p = _pad_axis(reserved) if reserved else 0
     with _axis_lock:
-        remembered = _axis_memory.get(_axis_key(enc, mode))
+        remembered = _axis_memory.get(
+            _axis_key(enc, mode, existing_used, reserved_p, plan))
     if remembered is not None:
         return remembered
-    E = enc.n_existing
-    reserved_p = _pad_axis(E) if E else 0
+    estimate = _estimate_nodes(enc)
+    if plan is not None:
+        return reserved_p + _bucket(max(32, estimate // 8 + 8))
     total_pods = int(enc.group_count.sum())
     # the fresh axis is bucketed separately from the padded bound block
-    fresh = max(32, int(1.35 * _estimate_nodes(enc)) + 16)
+    fresh = max(32, int(1.35 * estimate) + 16)
     return reserved_p + _bucket(min(fresh, max(64, total_pods)))
 
 
-def solve_packing(enc: Encoded, mode: str = "ffd",
+def solve_packing(enc: Encoded, mode: str = "ffd", plan=None,
                   device: torch.device | str = "cuda") -> PackResult:
     """Host entry: run the packing kernels on the encoded problem.
+
+    With a `plan` (lp_plan.FleetPlan), the planned nodes are pre-opened
+    after the existing ones as bound rows on their config column, each
+    with the plan's per-group quotas; the fresh rows take the spill.
 
     The node axis is sized from a per-group capacity estimate (or the
     axis remembered from the last solve of the same problem), rounded
@@ -189,24 +230,15 @@ def solve_packing(enc: Encoded, mode: str = "ffd",
     the axis opened and pods are still unschedulable, the solve runs
     again on a larger axis."""
     device = torch.device(device)
-    G, C = enc.compat.shape
-    E = enc.n_existing
-    existing_mask = np.zeros((E, C), dtype=bool)
-    for ci, cfg in enumerate(enc.configs):
-        if cfg.existing_index >= 0:
-            existing_mask[cfg.existing_index, ci] = True
-    existing_used = enc.existing_used
-    quota = (
-        enc.existing_quota.astype(np.int32)
-        if enc.existing_quota is not None else None
-    )
-    # the kernel sees the existing axis padded to its shape bucket, so
+    existing_mask, existing_used, quota = _bound_rows(enc, plan)
+    reserved = existing_mask.shape[0]
+    # the kernel sees the bound block padded to its shape bucket, so
     # fresh nodes open at the padded offset
-    reserved_p = _pad_axis(E) if E else 0
+    reserved_p = _pad_axis(reserved) if reserved else 0
 
     total_pods = int(enc.group_count.sum())
-    axis_key = _axis_key(enc, mode)
-    max_nodes = node_axis(enc, mode)
+    axis_key = _axis_key(enc, mode, existing_used, reserved_p, plan)
+    max_nodes = node_axis(enc, mode, plan)
     worst_case = reserved_p + total_pods
     while True:
         result = _run_pack(

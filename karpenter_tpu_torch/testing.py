@@ -5,12 +5,19 @@ plain versions.
 `solver.pack.stage` produces them) that together cover both modes,
 capacity reservations, bound rows with per-group quotas, group caps,
 pairwise conflicts, negative and huge demand, and the node-axis cap.
+`price_cases` builds inputs of the pricing kernel B4 (exact density
+ties, exact fills, demand caps, the planner's padded shapes) and
+`ascent_cases` inputs of the dual-ascent kernel B5 (staged from encodes
+with and without reservations, on both catalogs).
 `existing_from_solution` turns a solution's new nodes into existing
 nodes for a follow-up request, which drives the bound block.
+`root_node_mips` makes column generation's HiGHS MIPs deterministic
+for comparisons between two runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,7 +31,8 @@ from karpenter_tpu_torch.apis.v1.labels import (
     TOPOLOGY_ZONE_LABEL,
 )
 from karpenter_tpu_torch.scheduling.requirements import Requirements
-from karpenter_tpu_torch.solver import pack
+from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
+from karpenter_tpu_torch.solver import lp_device, pack
 from karpenter_tpu_torch.solver.encode import ExistingNodeInput, encode, group_pods
 from karpenter_tpu_torch.utils.resources import merge, pod_requests, subtract
 from karpenter_tpu_torch.workloads import build_problem
@@ -139,3 +147,90 @@ def kernel_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60) -> list[K
     cases += [_case(f"demand-{m}", denc, m, max_nodes=256) for m in ("ffd", "cost")]
     return cases
 
+
+def price_case(seed: int, G: int, C: int, R: int, ties: bool = False):
+    """Inputs of B4 (lam, compat, group_req, eff_alloc, count) as numpy.
+    With `ties`: duplicated groups (exact density ties), a config whose
+    allocatable a group's request divides exactly (a fill to zero
+    residual) and tight demand caps."""
+    rng = np.random.default_rng(seed)
+    lam = rng.uniform(0.0, 2.0, G).astype(np.float32)
+    lam[rng.random(G) < 0.2] = 0.0
+    compat = rng.random((G, C)) < 0.6
+    req = rng.choice([0.0, 0.25, 0.5, 1.0, 2.0, 4.0], size=(G, R)).astype(np.float32)
+    alloc = rng.choice([0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 64.0], size=(C, R)).astype(np.float32)
+    count = rng.integers(0, 40, G).astype(np.int32)
+    if ties:
+        half = G // 2
+        lam[half:2 * half] = lam[:half]
+        req[half:2 * half] = req[:half]
+        compat[half:2 * half] = compat[:half]
+        req[0] = np.array([1.0] + [0.5] * (R - 1), np.float32)
+        alloc[0] = np.array([8.0] + [4.0] * (R - 1), np.float32)
+        compat[0, 0] = True
+        lam[0] = 1.5
+        count[:4] = np.array([3, 1, 0, 2], np.int32)
+    return lam, compat, req, alloc, count
+
+
+# (seed, G, C, R, ties): the planner's padded shapes (lp_plan._pad_to)
+PRICE_CASES = (
+    (0, 32, 32, 4, False),
+    (1, 32, 40, 4, True),
+    (2, 40, 50, 4, True),
+    (3, 63, 79, 3, False),
+    (4, 194, 243, 4, True),
+    (5, 304, 124, 5, False),
+)
+
+
+def price_cases(seed: int = 0) -> list[tuple[str, tuple]]:
+    """Seeded B4 inputs, named."""
+    return [
+        (f"price-G{G}-C{C}-R{R}{'-ties' if ties else ''}",
+         price_case(seed + s, G, C, R, ties))
+        for s, G, C, R, ties in PRICE_CASES
+    ]
+
+
+def ascent_cases(seed: int = 0) -> list[tuple[str, "lp_device.AscentInputs"]]:
+    """Seeded B5 inputs (CPU tensors), staged and padded from encodes
+    as `lp_device.solve` stages them."""
+    out = []
+    for name, n_pods, n_types, rsv, hetero in (
+        ("linear", 600, 30, False, False),
+        ("reservations", 1200, 60, True, False),
+        ("hetero", 800, 40, False, True),
+    ):
+        pods, pools = build_problem(n_pods, n_types, seed=seed, reservations=rsv)
+        if hetero:
+            pools = [(pools[0][0], heterogeneous_instance_types(n_types))]
+        enc = encode(group_pods(pods), pools)
+        out.append((f"ascent-{name}", lp_device.ascent_inputs(lp_device._stage(enc))))
+    return out
+
+
+@contextlib.contextmanager
+def root_node_mips():
+    """Within the block, every `scipy.optimize.milp` call (the planner's
+    integer covering and its knapsack bounds, in this package and in
+    any other that imports milp at call time) stops after the root node
+    instead of at its wall-clock limit: the incumbent a time limit
+    leaves depends on the machine's load, so two runs of the same plan
+    can round differently; a node limit is the same work every time."""
+    import scipy.optimize as so
+
+    real = so.milp
+
+    def milp(*args, options=None, **kwargs):
+        options = dict(options or {})
+        if "time_limit" in options:
+            options["time_limit"] = 1e4
+            options["node_limit"] = 1
+        return real(*args, options=options, **kwargs)
+
+    so.milp = milp
+    try:
+        yield
+    finally:
+        so.milp = real

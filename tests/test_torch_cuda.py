@@ -102,3 +102,74 @@ def test_solve_on_card_matches_cpu(cuda_kernels, monkeypatch):
     assert cuda_kernels.LAUNCHES["pack_split_wavefront"] > before
     assert res.wavefront_widths is not None
     assert res.device_steps < pack._pad_axis(enc.compat.shape[0])
+
+
+@pytest.fixture(scope="module")
+def lp_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels have no CPU mode")
+    from karpenter_tpu_torch import cuda_build
+
+    try:
+        cuda_build.nvcc_path()
+    except RuntimeError:
+        pytest.skip("no nvcc: the CUDA kernels cannot be built here")
+    cuda_build.build_all()
+    from karpenter_tpu_torch.solver import lp_device, lp_plan
+
+    return lp_plan, lp_device
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        return b.dtype == a.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_price_kernel_matches_plain_version(lp_kernels, index):
+    from karpenter_tpu_torch.testing import price_cases
+
+    lp_plan, _ = lp_kernels
+    name, case = price_cases(1)[index]
+    xs = [torch.from_numpy(x).cuda() for x in case]
+    before = lp_plan.LAUNCHES["lp_price"]
+    q, v = lp_plan.price_kernel(*xs)
+    torch.cuda.synchronize()
+    assert lp_plan.LAUNCHES["lp_price"] == before + 1
+    qr, vr = lp_plan.price_kernel_ref(*xs)
+    assert _same_bits(q, qr) and _same_bits(v, vr), name
+
+
+@pytest.mark.parametrize("n_iters", [8, 192])
+@pytest.mark.parametrize("index", range(3))
+def test_ascent_kernel_matches_plain_version(lp_kernels, index, n_iters):
+    from karpenter_tpu_torch.testing import ascent_cases
+
+    _, lp_device = lp_kernels
+    name, inputs = ascent_cases(2)[index]
+    a = inputs.to("cuda")
+    before = lp_device.LAUNCHES["lp_ascend"]
+    got = lp_device.ascend(a, n_iters)
+    torch.cuda.synchronize()
+    assert lp_device.LAUNCHES["lp_ascend"] == before + 1
+    want = lp_device.ascend_ref(a, n_iters)
+    for x, y in zip(got, want):
+        assert _same_bits(x, y), name
+
+
+def test_cost_solve_on_card_matches_cpu(lp_kernels):
+    from karpenter_tpu_torch.solver.solver import fingerprint, reset_caches, solve
+    from karpenter_tpu_torch.workloads import build_problem
+
+    lp_plan, lp_device = lp_kernels
+    pods, pools = build_problem(1500, 60, seed=3, reservations=True)
+    reset_caches()
+    before = (lp_plan.LAUNCHES["lp_price"], lp_device.LAUNCHES["lp_ascend"])
+    card = solve(pods, pools, objective="cost")
+    assert lp_plan.LAUNCHES["lp_price"] > before[0]
+    assert lp_device.LAUNCHES["lp_ascend"] > before[1]
+    reset_caches()
+    cpu = solve(pods, pools, objective="cost", device="cpu")
+    assert fingerprint(card) == fingerprint(cpu)
+    assert card.lp["guided"] and card.lp["lower_bound"] <= card.total_price + 1e-6

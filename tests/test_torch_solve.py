@@ -139,9 +139,13 @@ class TestSolve:
 
 class TestEntryPoint:
     def test_cost_objective_names_its_roadmap_item(self):
+        # the cost objective (ROADMAP queue A item 4) is served now
         pods, pools = build_problem(10, 4, seed=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve(pods, pools, objective="cost", device="cpu")
+        cost = solve(pods, pools, objective="cost", device="cpu")
+        ffd = solve(pods, pools, device="cpu")
+        assert cost.lp is not None and "lower_bound" in cost.lp
+        assert cost.total_price <= ffd.total_price + 1e-6
+        assert len(cost.unschedulable) <= len(ffd.unschedulable)
 
     def test_host_backend_names_its_roadmap_item(self):
         pods, pools = build_problem(10, 4, seed=0)
