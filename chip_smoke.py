@@ -58,8 +58,45 @@ Phases, each reported on its own line; any failure exits non-zero:
                 MIPs stopped after the root node on both sides, since
                 their wall-clock limits round by the machine's load).
   7. LP timing — B4's and B5's CUDA-event times on the recorded
-                inputs, their plain versions', and their bounds. One
-                JSON line {"kernels": [...]} reports all five kernels.
+                inputs, their plain versions', and their bounds.
+  8. consolidation — `bench.py`'s consolidation_500, uncut: the FFD
+                fleet of `build_problem(21000, 200, seed=9)` solved on
+                the card, 55% of its pods removed, then the benchmark's
+                convergence loop twice: arm (a) with one `solve()` per
+                probe (B3/B1 and B2), arm (c) with every prefix of a
+                cycle's ladder a lane of one `LaneSolver.solve_lazy`
+                (B6 wavefront and the lane epilogue). The decisions must
+                be identical and the final fleets agree within the
+                benchmark's eps. Every packing call of both arms is
+                bracketed by CUDA events: each cycle's wall is printed
+                beside its packing calls' device time and their share
+                of the wall, and arm (a)'s per-probe device time. Routes, with the launch counts set to
+                0 before each and read after: the two arms, then one
+                cycle each with KARPENTER_WAVEFRONT=0 (B6 sequential)
+                and KARPENTER_PROBE_BATCH_WIDTH=1 (solo probes, no B6);
+                each launches its kernels and only those, and the first
+                cycle decides alike on every route. B6 (both programs)
+                and the lane epilogue are held byte-identical to their
+                plain versions on seeded lane cases (both modes,
+                reservations, conflicts, padded lanes, widths 8 and 16)
+                and on the first cycle's first chunk, whose every lane
+                row also equals B1/B3 + B2 run alone on that lane. The
+                pruner: `LaneSolver.dual_certificate()` on the first
+                cycle's staging (B5 once), `ProbePruner.cannot_pay` on
+                every prefix; no feasible lane costs less than the
+                floor, and no pruned prefix has a strictly cheaper
+                solution. A mid-size fleet (3000 x 60) runs arm (c) on
+                the card and on the CPU (the plain versions, width 8):
+                equal decisions and per-lane solutions. Then B6's and
+                the epilogue's CUDA-event times on the recorded chunk,
+                per dispatch and per lane, their plain versions', their
+                bounds, the clusters the card holds at once and the
+                memory the wavefront program took.
+Kernel times are CUDA-event times taken with a spin kernel holding the
+stream while the host launches the timed calls, so they time the
+card's work alone; B2 and the lane epilogue are also timed as the host
+launches them. Plain versions are timed as the host drives them.
+One JSON line {"kernels": [...]} reports every kernel.
 The last line is {"ok": true, "device": {...}}. The script uses one
 card: the first of CUDA_VISIBLE_DEVICES (card 0 when it is unset).
 
@@ -68,6 +105,7 @@ Imports torch, numpy and karpenter_tpu_torch only.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import statistics
@@ -89,6 +127,10 @@ OUTPUTS = ("assign", "free_mask", "node_count", "unsched", "steps", "widths")
 # HBM3 bandwidth
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# cycles of the spin kernel that `event_ms` queues ahead of each timed
+# kernel call: ~0.5 ms at the H100's clock, several times what the host
+# takes to launch one call
+SPIN_CYCLES_PER_CALL = 1_000_000
 # f32 operations per (row, config, requested resource) capacity
 # term: subtract, add, divide, floor, min
 OPS_PER_CAP_TERM = 5
@@ -96,6 +138,15 @@ OPS_PER_CAP_TERM = 5
 # problems for the card-against-CPU check
 COST_PODS, COST_TYPES, COST_ZONAL = 50_000, 500, 0.1
 ASCENT_ITERS = (8, 192)
+# the consolidation phase: bench.py's consolidation_500 (its defaults
+# in workloads.consolidation_fleet), a mid-size fleet for the
+# card-against-CPU check, the cluster widths held on seeded lane cases
+# and the lane width the CPU run forces
+MID_FLEET = (3000, 60)
+PROBE_WIDTHS = (8, 16)
+CPU_PROBE_WIDTH = 8
+PROBE_KNOBS = ("KARPENTER_WAVEFRONT", "KARPENTER_WAVEFRONT_WIDTH",
+               "KARPENTER_PROBE_BATCH_WIDTH", "KARPENTER_PROBE_LANE_BUCKET")
 
 
 def fail(msg: str) -> None:
@@ -146,12 +197,19 @@ def max_abs_diff(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max()) if a.numel() else 0.0
 
 
-def event_ms(fn, reps: int) -> float:
+def event_ms(fn, reps: int, queued: bool = True) -> float:
+    """CUDA-event ms a call of `fn`, over `reps` calls. Queued (the
+    kernels), a spin kernel holds the stream while the host launches the
+    calls, so the events time the card's work alone, not the host's
+    launch path; unqueued (the plain versions), a call as the host
+    drives it."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -537,6 +595,453 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
             "ascent": rec["ascents"][0]}
 
 
+def same_outputs(got, want) -> bool:
+    return len(got) == len(want) and all(same_bits(a, b) for a, b in zip(got, want))
+
+
+def hold_lanes(kernels, name, args, kw, max_free, mode, err, widths=PROBE_WIDTHS,
+               plain=None) -> str:
+    """B6's sequential and wavefront programs and its lane epilogue
+    against their plain versions on the card (`plain` may hold the
+    plain outputs already computed, keyed "seq" and by width); fail
+    unless byte-identical and the wavefront's first four outputs equal
+    the sequential's. Returns a summary."""
+    import torch
+
+    plain = plain or {}
+    seq = kernels.pack_probe_lanes(*args, max_free=max_free, mode=mode, **kw)
+    torch.cuda.synchronize()
+    want = plain.get("seq") or kernels.pack_probe_lanes_ref(
+        *args, max_free=max_free, mode=mode, **kw)
+    if not same_outputs(seq, want):
+        fail(f"pack_probe_lanes differs from pack_probe_lanes_ref on {name} ({mode})")
+    err["pack_probe_lanes"] = max(err["pack_probe_lanes"],
+                                  *(max_abs_diff(a, b) for a, b in zip(seq, want)))
+    flats = [seq]
+    rounds = []
+    for width in widths:
+        wf = kernels.pack_probe_lanes_wavefront(
+            *args, max_free=max_free, mode=mode, width=width, **kw)
+        torch.cuda.synchronize()
+        want = plain.get(width) or kernels.pack_probe_lanes_wavefront_ref(
+            *args, max_free=max_free, mode=mode, width=width, **kw)
+        if not same_outputs(wf, want):
+            fail(f"pack_probe_lanes_wavefront (width {width}) differs from its plain "
+                 f"version on {name} ({mode})")
+        if not same_outputs(wf[:4], seq):
+            fail(f"pack_probe_lanes_wavefront (width {width}) differs from "
+                 f"pack_probe_lanes on {name} ({mode})")
+        err["pack_probe_lanes_wavefront"] = max(
+            err["pack_probe_lanes_wavefront"], *(max_abs_diff(a, b) for a, b in zip(wf, want)))
+        flats.append((*wf[:4], wf[5], wf[4]))
+        rounds.append(f"W{width}:{int(wf[4].max())}")
+    for outs in flats:
+        flat = kernels.pack_flat_lanes(*outs)
+        flat_ref = kernels.pack_flat_lanes_ref(*outs)
+        torch.cuda.synchronize()
+        if not same_outputs([flat], [flat_ref]):
+            fail(f"pack_flat_lanes differs from pack_flat_lanes_ref on {name} ({mode})")
+        err["pack_probe_lanes_flat"] = max(err["pack_probe_lanes_flat"],
+                                           max_abs_diff(flat, flat_ref))
+    lanes = args[2].shape[0]
+    return (f"  lanes {name} mode={mode} Lp={lanes} Gp={args[0].shape[0]} "
+            f"Cp={args[0].shape[1]} B={args[7].shape[0]} F={max_free}: nodes "
+            f"{int(seq[2].min())}..{int(seq[2].max())}, unschedulable "
+            f"{int(seq[3].sum())}, most rounds {' '.join(rounds)} identical")
+
+
+def timed_once(fn):
+    """(CUDA-event ms, result) of one call."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+class DeviceSpans:
+    """Brackets calls with CUDA events; `per_cycle` adds their device
+    time up by the ladder cycle each began in. A span runs from its
+    start event to its end event on the stream: the call's kernels
+    (output fills included), and any wait for the host's next launch
+    inside the call."""
+
+    def __init__(self):
+        self.spans = []  # (time.perf_counter() at the call, start, end)
+
+    def wrap(self, fn):
+        import torch
+
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.spans.append((t, start, end))
+            return out
+        return call
+
+    def per_cycle(self, ladder) -> tuple[list, list, list]:
+        """(device ms, calls) per cycle of `ladder`, and every span's
+        ms; calls before the first cycle (arm (c)'s warm staging) are
+        left out."""
+        import torch
+
+        torch.cuda.synchronize()
+        ms, calls, each = [0.0] * len(ladder.walls), [0] * len(ladder.walls), []
+        for t, start, end in self.spans:
+            c = bisect.bisect_right(ladder.begins, t) - 1
+            if c < 0:
+                continue
+            dt = start.elapsed_time(end)
+            ms[c] += dt
+            calls[c] += 1
+            each.append(dt)
+        self.spans = []
+        return ms, calls, each
+
+
+def cycle_report(name: str, ladder, ms, calls) -> str:
+    """One arm's walls beside its packing calls' device time."""
+    cells = [f"{w:.6f}s/{m:.4f}ms/{n}/{m / 1e3 / w:.6f}"
+             for w, m, n in zip(ladder.walls, ms, calls)]
+    total = sum(ms) / 1e3 / sum(ladder.walls)
+    return (f"  {name} per cycle (wall/packing device ms/calls/device share): "
+            f"{', '.join(cells)}; device share of the arm {total:.6f}")
+
+
+def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict:
+    """Phase 8: bench.py's consolidation_500 on the card, arms (a) and
+    (c), the routes, the holds, the pruner, the card against the CPU
+    and B6's timing; returns the kernels' report entries."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import pack
+    from karpenter_tpu_torch.solver.pack import probe_batch_width
+    from karpenter_tpu_torch.testing import (
+        Candidate,
+        NodeRef,
+        consolidation_ladder,
+        lane_cases,
+    )
+    from karpenter_tpu_torch.workloads import consolidation_fleet
+
+    for knob in PROBE_KNOBS:
+        os.environ.pop(knob, None)
+    err.update({"pack_probe_lanes": 0.0, "pack_probe_lanes_wavefront": 0.0,
+                "pack_probe_lanes_flat": 0.0})
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fleet = consolidation_fleet()
+    torch.cuda.synchronize()
+    pools, nodes0, prices0, pods_on0 = fleet
+    fleet_s = time.perf_counter() - t0
+
+    # the first cycle's first chunk (and every other dispatch's inputs,
+    # by staging): the lane solver's stagings are counted so the warm
+    # staging of arm (c) can be told from the first cycle's
+    rec = {"staging": 0, "calls": []}
+    real_lazy = cb.LaneSolver.solve_lazy
+    real_flat = kernels.pack_probe_lanes_flat
+
+    def solve_lazy(self, *a, **k):
+        rec["staging"] += 1
+        return real_lazy(self, *a, **k)
+
+    def pack_probe_lanes_flat(*a, **k):
+        rec["calls"].append((rec["staging"], a, k))
+        return real_flat(*a, **k)
+
+    launches: dict[str, dict] = {}
+    stats: dict[str, dict] = {}
+
+    def drive(route: str, fn):
+        kernels.reset_launch_counts()
+        cb.reset_probe_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[route] = dict(kernels.LAUNCHES)
+        stats[route] = dict(cb.PROBE_STATS)
+        return out
+
+    # arm (a)'s probes reach the packing kernels through pack.py's
+    # pack_split_flat, arm (c)'s chunks through the lane solver's
+    # pack_probe_lanes_flat (and pack_split_flat for a chunk of one)
+    spans = DeviceSpans()
+    real_pack_flat, real_split_flat = pack.pack_split_flat, kernels.pack_split_flat
+    pack.pack_split_flat = spans.wrap(real_pack_flat)
+    try:
+        arm_a = drive("arm (a)", lambda: consolidation_ladder(*fleet, batched=False,
+                                                              device="cuda"))
+    finally:
+        pack.pack_split_flat = real_pack_flat
+    a_ms, a_calls, a_each = spans.per_cycle(arm_a)
+    cb.LaneSolver.solve_lazy = solve_lazy
+    kernels.pack_probe_lanes_flat = spans.wrap(pack_probe_lanes_flat)
+    kernels.pack_split_flat = spans.wrap(real_split_flat)
+    try:
+        arm_c = drive("arm (c)", lambda: consolidation_ladder(
+            *fleet, batched=True, device="cuda", fresh=arm_a.fresh))
+    finally:
+        cb.LaneSolver.solve_lazy, kernels.pack_probe_lanes_flat = real_lazy, real_flat
+        kernels.pack_split_flat = real_split_flat
+    c_ms, c_calls, _ = spans.per_cycle(arm_c)
+    eps = 1e-6 + 1e-4 * abs(arm_a.price)
+    if arm_a.decisions != arm_c.decisions or abs(arm_a.price - arm_c.price) >= eps:
+        fail(f"consolidation_500: arm (c) decided {arm_c.decisions} (${arm_c.price:.6f}/h), "
+             f"arm (a) {arm_a.decisions} (${arm_a.price:.6f}/h)")
+    if not arm_a.decisions:
+        fail("consolidation_500: no cycle consolidated anything")
+    for route, knob, value in (("KARPENTER_WAVEFRONT=0", "KARPENTER_WAVEFRONT", "0"),
+                               ("KARPENTER_PROBE_BATCH_WIDTH=1",
+                                "KARPENTER_PROBE_BATCH_WIDTH", "1")):
+        os.environ[knob] = value
+        try:
+            one = drive(route, lambda: consolidation_ladder(*fleet, batched=True,
+                                                            device="cuda", cycles=1))
+        finally:
+            os.environ.pop(knob, None)
+        if one.decisions != arm_c.decisions[:1] or one.probes != {
+                k: v for k, v in arm_c.probes.items() if k[0] == 1}:
+            fail(f"route {route}: the first cycle decided {one.decisions} with other "
+                 f"probe solutions than the default route's {arm_c.decisions[:1]}")
+    b6 = ("pack_probe_lanes", "pack_probe_lanes_wavefront", "pack_probe_lanes_flat")
+    expect = {
+        "arm (a)": ((), b6),
+        "arm (c)": (("pack_probe_lanes_wavefront", "pack_probe_lanes_flat"),
+                    ("pack_probe_lanes",)),
+        "KARPENTER_WAVEFRONT=0": (("pack_probe_lanes", "pack_probe_lanes_flat"),
+                                  ("pack_probe_lanes_wavefront", "pack_split_wavefront")),
+        "KARPENTER_PROBE_BATCH_WIDTH=1": (("pack_split_flat",), b6),
+    }
+    for route, (used, unused) in expect.items():
+        n = launches[route]
+        if (any(n[k] < 1 for k in used) or any(n[k] for k in unused)
+                or (route == "arm (a)" and n["pack_split_flat"] < 1)):
+            fail(f"route {route} launched {n}: expected {used} and none of {unused}")
+    say(f"phase 8 consolidation_500: fleet {len(nodes0)} nodes "
+        f"${sum(prices0):.6f}/h, {sum(len(p) for p in pods_on0)} pods after the "
+        f"scale-down ({fleet_s:.3f}s to build) -> arm (a) {arm_a.nodes} nodes "
+        f"${arm_a.price:.6f}/h in {arm_a.cycles} cycles, arm (c) {arm_c.nodes} nodes "
+        f"${arm_c.price:.6f}/h in {arm_c.cycles} cycles; decisions identical "
+        f"{arm_c.decisions}")
+    say(f"  arm (a) {sum(arm_a.walls):.6f}s, per cycle "
+        f"{', '.join(f'{w:.6f}' for w in arm_a.walls)}; {len(arm_a.probes)} probe solves, "
+        f"{len(a_each)} packing calls of {min(a_each):.4f}..{max(a_each):.4f} ms "
+        f"(median {statistics.median(a_each):.4f} ms) on the card")
+    say(cycle_report("arm (a)", arm_a, a_ms, a_calls))
+    say(f"  arm (c) {sum(arm_c.walls):.6f}s, per cycle "
+        f"{', '.join(f'{w:.6f}' for w in arm_c.walls)}; {arm_c.lanes} lanes shipped, "
+        f"{len(arm_c.probes)} consulted; dispatches {json.dumps(stats['arm (c)'])}")
+    say(cycle_report("arm (c)", arm_c, c_ms, c_calls))
+    say(f"  launches per route: {json.dumps(launches)}; first cycle equal on every route")
+
+    # ---- holds: seeded lane cases, then the first cycle's first chunk
+    t0 = time.perf_counter()
+    for case in lane_cases(0):
+        cargs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in case.args]
+        ckw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+               for k, v in case.kwargs.items()}
+        for mode in ("ffd", "cost"):
+            say(hold_lanes(kernels, case.name, cargs, ckw, case.max_free, mode, err))
+    say(f"  seeded lane cases byte-identical ({time.perf_counter() - t0:.3f}s)")
+    first = [c for c in rec["calls"] if c[0] == 2]
+    if not first:
+        fail("arm (c)'s first cycle dispatched no lane chunk")
+    _, args, kwargs = first[0]
+    kw = {k: kwargs.get(k) for k in ("cfg_rsv", "rsv_cap", "conflict")}
+    F, mode, W = kwargs["max_free"], kwargs["mode"], kwargs["wavefront"]
+    if W <= 1:
+        fail(f"the first chunk took the sequential route (wavefront {W})")
+    Lp = args[2].shape[0]
+    n_real = int((args[10].any(dim=1) | (args[2] > 0).any(dim=1)).sum())
+    t0 = time.perf_counter()
+    seq_plain_ms, seq_ref = timed_once(lambda: kernels.pack_probe_lanes_ref(
+        *args, max_free=F, mode=mode, **kw))
+    wf_plain_ms, wf_ref = timed_once(lambda: kernels.pack_probe_lanes_wavefront_ref(
+        *args, max_free=F, mode=mode, width=W, **kw))
+    say(hold_lanes(kernels, "first cycle's first chunk", args, kw, F, mode, err,
+                   widths=(W,), plain={"seq": seq_ref, W: wf_ref}))
+    flat_wf = kernels.pack_probe_lanes_flat(*args, max_free=F, mode=mode, wavefront=W, **kw)
+    flat_seq = kernels.pack_probe_lanes_flat(*args, max_free=F, mode=mode, **kw)
+    for lane in range(Lp):
+        alone = list(args)
+        alone[2], alone[10] = args[2][lane].contiguous(), args[10][lane].contiguous()
+        for width, flat in ((W, flat_wf), (0, flat_seq)):
+            row = kernels.pack_split_flat(*alone, max_free=F, mode=mode, wavefront=width, **kw)
+            if not torch.equal(row, flat[lane]):
+                fail(f"lane {lane} of the first chunk differs from its solve alone "
+                     f"(wavefront {width})")
+    torch.cuda.synchronize()
+    say(f"  first chunk ({n_real} lanes padded to {Lp}): B6 and the lane epilogue "
+        f"byte-identical to the plain versions, every lane row equal to B1/B3 + B2 "
+        f"alone ({time.perf_counter() - t0:.3f}s)")
+
+    # ---- the pruner on the first cycle's staging
+    first_cycle = arm_c.first
+    solver, verdicts = first_cycle["solver"], first_cycle["verdicts"]
+    cands = first_cycle["candidates"]
+    fnodes, fprices, fpods = (first_cycle[k] for k in ("nodes", "prices", "pods_on"))
+    lp_device.reset()
+    b5_before = lp_device.LAUNCHES["lp_ascend"]
+    t0 = time.perf_counter()
+    cert = solver.dual_certificate()
+    torch.cuda.synchronize()
+    cert_s = time.perf_counter() - t0
+    if cert is None or lp_device.LAUNCHES["lp_ascend"] != b5_before + 1:
+        fail("dual_certificate did not launch B5 once and certify")
+    pruner = cb.ProbePruner(solver)
+    pruned, floors, feasible = [], [], 0
+    for n in range(1, len(cands) + 1):
+        cs = [Candidate(NodeRef(fnodes[i].name), fprices[i], fpods[i]) for i in cands[:n]]
+        is_pruned = pruner.cannot_pay(cs)
+        demand = np.zeros(solver.last_enc.compat.shape[0], np.int64)
+        for c in cs:
+            for p in c.reschedulable_pods:
+                demand[solver.last_gi_by_key[p.key]] += 1
+        floor = cert.floor(demand, cands[:n])
+        floors.append(floor)
+        sol = verdicts[n - 1]()
+        if sol.unschedulable:
+            continue
+        feasible += 1
+        added = sum(x.price for x in sol.new_nodes)
+        if added < floor - 1e-9 - 1e-9 * abs(floor):
+            fail(f"prefix {n}: a repack costing ${added:.9f}/h beats the dual floor "
+                 f"${floor:.9f}/h")
+        if is_pruned:
+            pruned.append(n)
+            if added < sum(fprices[i] for i in cands[:n]):
+                fail(f"pruned prefix {n} has a strictly cheaper solution")
+    say(f"  pruner: dual_certificate {cert_s:.6f}s (B5 once), {len(cands)} prefixes, "
+        f"{feasible} feasible, none below its floor; pruned {len(pruned)} {pruned[:10]}; "
+        f"floors ${min(floors):.6f}..${max(floors):.6f}/h, absorb total "
+        f"${cert.absorb_total:.6f}/h, margin {lp_device.prune_margin()}")
+
+    # ---- the card against the CPU on a mid-size fleet
+    t0 = time.perf_counter()
+    mid_card = consolidation_fleet(*MID_FLEET)
+    mid_cpu = consolidation_fleet(*MID_FLEET, device="cpu")
+    if (mid_card[2] != mid_cpu[2]
+            or [n.name for n in mid_card[1]] != [n.name for n in mid_cpu[1]]
+            or [[p.key for p in ps] for ps in mid_card[3]]
+            != [[p.key for p in ps] for ps in mid_cpu[3]]):
+        fail(f"consolidation_fleet{MID_FLEET}: the card's fleet differs from the CPU's")
+    card = consolidation_ladder(*mid_card, batched=True, device="cuda")
+    os.environ["KARPENTER_PROBE_BATCH_WIDTH"] = str(CPU_PROBE_WIDTH)
+    try:
+        cpu = consolidation_ladder(*mid_cpu, batched=True, device="cpu")
+    finally:
+        os.environ.pop("KARPENTER_PROBE_BATCH_WIDTH", None)
+    if card.decisions != cpu.decisions or card.probes != cpu.probes:
+        fail(f"consolidation_fleet{MID_FLEET}: the card decided {card.decisions}, the CPU "
+             f"{cpu.decisions}, or their lane solutions differ")
+    say(f"  mid-size fleet {MID_FLEET}: {len(mid_card[1])} nodes, the card (width "
+        f"{probe_batch_width('cuda')}) and the CPU (width {CPU_PROBE_WIDTH}) decide "
+        f"{card.decisions} with {len(card.probes)} equal lane solutions "
+        f"({time.perf_counter() - t0:.3f}s)")
+
+    # ---- timing on the first chunk: B6 wavefront and sequential in
+    # turns, then the lane epilogue
+    def run_wf():
+        return kernels.pack_probe_lanes_wavefront(*args, max_free=F, mode=mode, width=W, **kw)
+
+    def run_seq():
+        return kernels.pack_probe_lanes(*args, max_free=F, mode=mode, **kw)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out_wf = run_wf()
+    torch.cuda.synchronize()
+    wf_mem = torch.cuda.max_memory_allocated() - base
+    out_seq = run_seq()
+    wf_runs, seq_runs = [event_ms(run_wf, 5)], []
+    seq_runs += [event_ms(run_seq, 5), event_ms(run_seq, 5)]
+    wf_runs.append(event_ms(run_wf, 5))
+    wf_ms, seq_ms = statistics.mean(wf_runs), statistics.mean(seq_runs)
+    flat_in = (*out_wf[:4], out_wf[5], out_wf[4])
+    flat_ms = event_ms(lambda: kernels.pack_flat_lanes(*flat_in), 20)
+    flat_host_ms = event_ms(lambda: kernels.pack_flat_lanes(*flat_in), 20, queued=False)
+    flat_plain_ms = event_ms(lambda: kernels.pack_flat_lanes_ref(*flat_in), 2,
+                             queued=False)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
+    in_bytes = nbytes(list(args) + list(kw.values()))
+    ops = 0
+    for lane in range(n_real):
+        alone = list(args)
+        alone[2], alone[10] = args[2][lane], args[10][lane]
+        ops += b1_ops(kernels, alone, kw, F)
+
+    def bound(n_ops, nb):
+        t_ops, t_bytes = n_ops / PEAK_F32_OPS, nb / PEAK_BYTES
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+    wf_bound = bound(ops, in_bytes + nbytes(out_wf))
+    seq_bound = bound(ops, in_bytes + nbytes(out_seq))
+    flat_out = kernels.pack_flat_lanes(*flat_in)
+    flat_bound = bound(out_wf[1].numel(), nbytes(flat_in) + nbytes([flat_out]))
+    Gp, Cp = args[0].shape
+    R, B = args[1].shape[1], args[7].shape[0]
+    K = 0 if kw["rsv_cap"] is None else kw["rsv_cap"].shape[0]
+    N = B + F
+    # what the wavefront program's wrapper allocates, from the shapes:
+    # outputs, the state, the plan scratch (o_mask, W x F x Cp bytes a
+    # lane, is most of it)
+    shape_bytes = Lp * (
+        N * Gp * 4 + F * Cp + 4 + Gp * 4 + 4 + Gp * 4
+        + F * R * 4 + B * R * 4 + (K + 1) * 4 + Gp
+        + W * (2 * N * 4 + Cp + Cp * 4 + (K + 1) * 4 + F * Cp + F * R * 4 + F * 4
+               + Cp + kernels.WAVEFRONT_LANE_FIELDS * 4 + W))
+    ptxas = [" ".join(line.split(":", 1)[1].split())
+             for name in ("pack_wavefront", "pack_split")
+             for line in cuda_build.BUILD_INFO[name]["ptxas"].splitlines()
+             if "Used" in line or "Compiling entry" in line]
+    say(f"phase 8 timing on the first chunk ({n_real} lanes, Lp={Lp}, Gp={Gp} Cp={Cp} "
+        f"B={B} F={F} R={R}, W={W}): B6 wavefront {', '.join(f'{x:.4f}' for x in wf_runs)} "
+        f"ms ({wf_ms / n_real:.6f} ms a lane, most rounds {int(out_wf[4].max())}, "
+        f"{kernels.ACTIVE_CLUSTERS.get(W, 0)} clusters of {W} at once, {wf_mem} bytes "
+        f"allocated, {shape_bytes} by the shapes); B6 sequential "
+        f"{', '.join(f'{x:.4f}' for x in seq_runs)} ms ({seq_ms / n_real:.6f} "
+        f"ms a lane); lane epilogue {flat_ms:.6f} ms ({flat_ms / n_real:.6f} ms a lane; "
+        f"{flat_host_ms:.6f} ms a call as the host launches it) | "
+        f"plain: wavefront {wf_plain_ms:.3f} ms, sequential {seq_plain_ms:.3f} ms, "
+        f"epilogue {flat_plain_ms:.3f} ms | ops={ops} input bytes={in_bytes} | card: {smi}")
+    say("  ptxas (B6 sequential is B1's kernel over a grid of lanes): " + " | ".join(ptxas))
+    say(f"  phase 8 took {time.perf_counter() - t_phase:.3f}s")
+    n_b6 = {name: sum(n[name] for n in launches.values()) for name in b6}
+    return {"launches": launches, "entries": [
+        {"name": "pack_probe_lanes_wavefront", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/pack_wavefront.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:1227",
+         "launches": n_b6["pack_probe_lanes_wavefront"],
+         "max_abs_err": err["pack_probe_lanes_wavefront"], "ms": wf_ms,
+         "plain_ms": wf_plain_ms, "bound_ms": wf_bound[0], "bound_by": wf_bound[1],
+         "library_ms": None},
+        {"name": "pack_probe_lanes", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/pack_split.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:1227",
+         "launches": n_b6["pack_probe_lanes"], "max_abs_err": err["pack_probe_lanes"],
+         "ms": seq_ms, "plain_ms": seq_plain_ms, "bound_ms": seq_bound[0],
+         "bound_by": seq_bound[1], "library_ms": None},
+        {"name": "pack_probe_lanes_flat", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/pack_flat.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:1292",
+         "launches": n_b6["pack_probe_lanes_flat"],
+         "max_abs_err": err["pack_probe_lanes_flat"], "ms": flat_ms,
+         "plain_ms": flat_plain_ms, "bound_ms": flat_bound[0], "bound_by": flat_bound[1],
+         "library_ms": None},
+    ]}
+
+
 def main() -> None:
     card = one_card()
     import numpy as np
@@ -559,7 +1064,7 @@ def main() -> None:
         )
         from karpenter_tpu_torch.solver.encode import encode, group_pods
         from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
-        from karpenter_tpu_torch.solver import lp_device, lp_plan
+        from karpenter_tpu_torch.solver import consolidation_batch, lp_device, lp_plan
         from karpenter_tpu_torch.solver import solver as solver_mod
         from karpenter_tpu_torch.testing import (
             PRICE_CASES,
@@ -719,7 +1224,7 @@ def main() -> None:
         if n[used] < 1 or n["pack_split_flat"] < 1 or n[unused] != 0:
             fail(f"route {route} launched {n}: expected {used} and "
                  f"pack_split_flat, and no {unused}")
-    for name in kernels.LAUNCHES:
+    for name in ("pack_split", "pack_split_wavefront", "pack_split_flat"):
         if sum(n[name] for n in launches.values()) < 1:
             fail(f"the main path never launched {name}: {launches}")
     first_fp = fingerprint(sol)
@@ -809,14 +1314,17 @@ def main() -> None:
     b1_runs.append(event_ms(run_b1, 10))
     b1_ms, b3_ms = statistics.mean(b1_runs), statistics.mean(b3_runs)
     b1_plain_ms = event_ms(
-        lambda: kernels.pack_split_ref(*args, max_free=F, mode="ffd", **kw), 2)
+        lambda: kernels.pack_split_ref(*args, max_free=F, mode="ffd", **kw), 2,
+        queued=False)
     b3_plain_ms = event_ms(
         lambda: kernels.pack_split_wavefront_ref(*args, max_free=F, mode="ffd",
-                                                 width=W, **kw), 2)
+                                                 width=W, **kw), 2, queued=False)
     # B2 as the main path runs it: on B3's outputs, stats appended
     b2_in = (*out3[:4], out3[5], out3[4])
     b2_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50)
-    b2_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*b2_in), 20)
+    b2_host_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50, queued=False)
+    b2_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*b2_in), 20,
+                           queued=False)
 
     Gp, Cp = args[0].shape
     R = args[1].shape[1]
@@ -841,7 +1349,8 @@ def main() -> None:
         f"B1 {', '.join(f'{x:.4f}' for x in b1_runs)} ms; B3 "
         f"{', '.join(f'{x:.4f}' for x in b3_runs)} ms, {int(out3[4])} rounds, widths "
         f"{histogram(out3[5][:int(out3[4])])}; B1/B3 ops={b1_op_count} "
-        f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 ops={b2_op_count} "
+        f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 {b2_ms:.6f} ms on the card, "
+        f"{b2_host_ms:.6f} ms a call as the host launches it, ops={b2_op_count} "
         f"bytes={b2_bytes} | card: {smi}")
     # ---- 6. the cost objective on reserved_50k
     t0 = time.perf_counter()
@@ -853,14 +1362,14 @@ def main() -> None:
     xs = recorded["price_inputs"]
     q, _ = lp_plan.price_kernel(*xs)
     b4_ms = event_ms(lambda: lp_plan.price_kernel(*xs), 20)
-    b4_plain_ms = event_ms(lambda: lp_plan.price_kernel_ref(*xs), 2)
+    b4_plain_ms = event_ms(lambda: lp_plan.price_kernel_ref(*xs), 2, queued=False)
     b4_bytes = nbytes(xs) + nbytes(lp_plan.price_kernel(*xs))
     b4_ops = price_ops(q, xs[2].shape[1])
     b4_bound, b4_by = bound(b4_ops, b4_bytes)
     a, n_iters = recorded["ascent"]
     b5_out = lp_device.ascend(a, n_iters)
     b5_ms = event_ms(lambda: lp_device.ascend(a, n_iters), 5)
-    b5_plain_ms = event_ms(lambda: lp_device.ascend_ref(a, n_iters), 1)
+    b5_plain_ms = event_ms(lambda: lp_device.ascend_ref(a, n_iters), 1, queued=False)
     b5_bytes = nbytes(a.tensors()) + nbytes(b5_out)
     b5_ops = ascent_ops(a, n_iters)
     b5_bound, b5_by = bound(b5_ops, b5_bytes)
@@ -871,8 +1380,11 @@ def main() -> None:
         f"Kp={a.onehot.shape[0]}): {b5_ms:.6f} ms, plain {b5_plain_ms:.3f} ms, "
         f"ops={b5_ops} bytes={b5_bytes} | card: {smi}")
 
+    # ---- 8. the consolidation probe path
+    probes = probe_phase(kernels, consolidation_batch, lp_device, cuda_build, err, smi)
     route_launches = {
-        name: sum(n[name] for n in launches.values()) for name in kernels.LAUNCHES
+        name: sum(n[name] for n in (*launches.values(), *probes["launches"].values()))
+        for name in ("pack_split", "pack_split_wavefront", "pack_split_flat")
     }
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
@@ -906,6 +1418,7 @@ def main() -> None:
          "launches": launches["cost"]["lp_ascend"], "max_abs_err": err["lp_ascend"],
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bound,
          "bound_by": b5_by, "library_ms": None},
+        *probes["entries"],
     ]}
     say(json.dumps(report))
     say(smi)

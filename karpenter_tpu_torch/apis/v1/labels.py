@@ -14,6 +14,7 @@ TOPOLOGY_REGION_LABEL = "topology.kubernetes.io/region"
 INSTANCE_TYPE_LABEL = "node.kubernetes.io/instance-type"
 ARCH_LABEL = "kubernetes.io/arch"
 OS_LABEL = "kubernetes.io/os"
+HOSTNAME_LABEL = "kubernetes.io/hostname"
 WINDOWS_BUILD_LABEL = "node.kubernetes.io/windows-build"
 
 # Capacity types / architectures

@@ -19,6 +19,13 @@
 // either packs 32 mask bytes (two 16-byte loads) or copies one word,
 // with neighbouring threads on neighbouring words. One kernel serves
 // both routes.
+//
+// The lane epilogue of B6 (karpenter_tpu/solver/pack.py:1292-1307,
+// `pack_probe_lanes_flat`) is the same kernel over a lane axis: every
+// input carries a leading lane axis of L and the output is [L, row],
+// one row per lane in the layout above; one thread per output word
+// across all lanes. With L = 1 it is B2. Plain version:
+// pack_split.py::pack_flat_lanes_ref.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,15 +39,18 @@ __global__ void pack_flat_kernel(const int32_t* __restrict__ assign,
                                  const int32_t* __restrict__ widths,
                                  const int32_t* __restrict__ steps,
                                  int32_t* __restrict__ out,
-                                 long long n_assign, long long n_words, int G) {
+                                 long long n_assign, long long n_words, int G, int L) {
   const long long n_seq = n_assign + n_words + 1 + G;
-  const long long total = n_seq + (widths ? G + 1 : 0);
+  const long long n_row = n_seq + (widths ? G + 1 : 0);
+  const long long total = n_row * L;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
-    if (i < n_assign) {
-      out[i] = assign[i];
-    } else if (i < n_assign + n_words) {
-      const long long w = i - n_assign;
+    const long long l = i / n_row;
+    const long long j = i - l * n_row;
+    if (j < n_assign) {
+      out[i] = assign[l * n_assign + j];
+    } else if (j < n_assign + n_words) {
+      const long long w = l * n_words + (j - n_assign);
       // a word's 32 mask bytes are contiguous: row f, columns 32w'..
       const uint4* src = reinterpret_cast<const uint4*>(free_mask + w * 32);
       uint4 lo = src[0], hi = src[1];
@@ -54,35 +64,45 @@ __global__ void pack_flat_kernel(const int32_t* __restrict__ assign,
         }
       }
       out[i] = (int32_t)word;
-    } else if (i == n_assign + n_words) {
-      out[i] = *node_count;
-    } else if (i < n_seq) {
-      out[i] = unsched[i - n_assign - n_words - 1];
-    } else if (i < n_seq + G) {
-      out[i] = widths[i - n_seq];
+    } else if (j == n_assign + n_words) {
+      out[i] = node_count[l];
+    } else if (j < n_seq) {
+      out[i] = unsched[l * G + (j - n_assign - n_words - 1)];
+    } else if (j < n_seq + G) {
+      out[i] = widths[l * G + (j - n_seq)];
     } else {
-      out[i] = *steps;
+      out[i] = steps[l];
     }
   }
 }
 
-}  // namespace
-
-// widths and steps: both null on the sequential route
-extern "C" int pack_flat_launch(const int32_t* assign, const uint8_t* free_mask,
-                                const int32_t* node_count, const int32_t* unsched,
-                                const int32_t* widths, const int32_t* steps,
-                                int32_t* out, int N, int G, int F, int C,
-                                cudaStream_t stream) {
-  if (C % 32 || (widths == nullptr) != (steps == nullptr)) return (int)cudaErrorInvalidValue;
+int launch(const int32_t* assign, const uint8_t* free_mask, const int32_t* node_count,
+           const int32_t* unsched, const int32_t* widths, const int32_t* steps,
+           int32_t* out, int N, int G, int F, int C, int L, cudaStream_t stream) {
+  if (C % 32 || L < 1 || (widths == nullptr) != (steps == nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long n_assign = (long long)N * G;
   const long long n_words = (long long)F * (C / 32);
-  const long long total = n_assign + n_words + 1 + G + (widths ? G + 1 : 0);
+  const long long total = (n_assign + n_words + 1 + G + (widths ? G + 1 : 0)) * L;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 65535) blocks = 65535;
   if (blocks < 1) blocks = 1;
   pack_flat_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      assign, free_mask, node_count, unsched, widths, steps, out, n_assign, n_words, G);
+      assign, free_mask, node_count, unsched, widths, steps, out, n_assign, n_words, G, L);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// inputs [L, N, G], [L, F, C], [L], [L, G] (and [L, G], [L] on the
+// wavefront route; both null on the sequential route), output
+// [L, row]; B2 is L = 1
+extern "C" int pack_flat_launch(const int32_t* assign, const uint8_t* free_mask,
+                                const int32_t* node_count, const int32_t* unsched,
+                                const int32_t* widths, const int32_t* steps,
+                                int32_t* out, int N, int G, int F, int C, int L,
+                                cudaStream_t stream) {
+  return launch(assign, free_mask, node_count, unsched, widths, steps, out, N, G, F, C, L,
+                stream);
 }

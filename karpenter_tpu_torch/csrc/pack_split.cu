@@ -31,6 +31,14 @@
 // The capacity, the reduction keys and the block scan live in
 // pack_common.cuh, shared with B3 (pack_wavefront.cu).
 //
+// B6, sequential route: the same kernel over a lane axis
+// (karpenter_tpu/solver/pack.py:1227 `pack_probe_lanes_flat` with
+// wavefront 0). Lanes share the problem and differ in their demand
+// (group_count row l) and retained bound rows (bound_live row l); block
+// l runs lane l on its own slices of the outputs and the scratch
+// (`lane_view`). B1 is lane 0 of a grid of one block. Plain version:
+// pack_split.py::pack_probe_lanes_ref.
+//
 // Exactness. Every pick is an index-tie-broken arg-reduction: keys are
 // packed (ordered value, index) pairs reduced with shared-memory
 // atomicMin, so the result does not depend on the order of the
@@ -75,7 +83,29 @@ struct Args {
   int G, C, R, B, F, K, P1, cost;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args a) {
+// lane l's slice of every per-lane array: its demand and live rows,
+// its outputs and its scratch (lane 0 is the arrays themselves)
+__device__ __forceinline__ Args lane_view(Args a, int l) {
+  const size_t L = (size_t)l;
+  const size_t N = (size_t)a.B + a.F;
+  a.group_count += L * a.G;
+  a.bound_live += L * a.B;
+  a.assign += L * N * a.G;
+  a.free_mask += L * a.F * a.C;
+  a.node_count += L;
+  a.unsched += L * a.G;
+  a.free_used += L * a.F * a.R;
+  a.bound_used += L * a.B * a.R;
+  a.rsv_used += L * (a.K + 1);
+  a.kcap += L * N;
+  a.take += L * N;
+  a.kopen += L * a.C;
+  a.fits += L * a.C;
+  return a;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
+  const Args a = lane_view(lanes, blockIdx.x);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -380,6 +410,10 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args a) {
 
 }  // namespace
 
+// L lanes, one block each (B1 is L = 1; B6 sequential passes null
+// bound_quota and group_cap). group_count is [L, G] and bound_live
+// [L, B]; every output and scratch array carries a leading lane axis
+// of L.
 extern "C" int pack_split_launch(
     const uint8_t* compat, const float* group_req, const int32_t* group_count,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -390,14 +424,15 @@ extern "C" int pack_split_launch(
     int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
     float* free_used, float* bound_used, float* rsv_used, int32_t* kcap,
     int32_t* take, int32_t* kopen, uint8_t* fits,
-    int G, int C, int R, int B, int F, int K, int P1, int cost, cudaStream_t stream) {
-  if (R > kMaxR) return (int)cudaErrorInvalidValue;
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int L,
+    cudaStream_t stream) {
+  if (R > kMaxR || L < 1) return (int)cudaErrorInvalidValue;
   Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, cfg_price,
          bound_quota, cfg_rsv, rsv_cap, group_cap, conflict,
          assign, free_mask, node_count, unsched,
          free_used, bound_used, rsv_used, kcap, take, kopen, fits,
          G, C, R, B, F, K, P1, cost};
-  pack_split_kernel<<<1, kThreads, 0, stream>>>(a);
+  pack_split_kernel<<<L, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -47,6 +47,20 @@
 // Exactness as in B1 (pack_common.cuh): index-tie-broken
 // arg-reductions with order-independent atomicMin on packed keys, f32
 // intrinsics in the JAX order, -fmad=false, clipping before int casts.
+//
+// B6, wavefront route: the same rounds over a lane axis
+// (karpenter_tpu/solver/pack.py:1227 `pack_probe_lanes_flat` with
+// wavefront W > 1), each lane a probe of the consolidation search with
+// its own demand and retained bound rows. A cooperative grid cannot
+// hold W blocks per lane for tens of lanes (132 co-resident blocks of
+// 1024 threads on an H100), so each lane is one thread-block cluster of
+// W blocks: the cluster barrier replaces the grid barrier, the lane is
+// the cluster's index, and the block's rank in it is the plan lane.
+// Clusters are scheduled whole, so lanes run in waves of the clusters
+// that fit at once, and a lane's round count is its own (the JAX
+// kernel's vmapped while_loop stops changing a lane's state once its
+// condition is false). Plain version:
+// pack_split.py::pack_probe_lanes_wavefront_ref.
 
 #include <cooperative_groups.h>
 
@@ -108,12 +122,13 @@ struct Args {
   int G, C, R, B, F, K, P1, cost, W;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
+// One solve's rounds, run by the W blocks that `barrier` joins; block
+// w plans lane w. B3 joins the whole cooperative grid, B6 one cluster.
+template <class Barrier>
+__device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barrier barrier) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int w = blockIdx.x;
   const int G = a.G, C = a.C, R = a.R, B = a.B, F = a.F, K = a.K, W = a.W;
   const int N = B + F;
 
@@ -145,8 +160,8 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
 
   // ---- state init, grid-stride
   {
-    const int gt = blockIdx.x * kThreads + tid;
-    const int gs = gridDim.x * kThreads;
+    const int gt = w * kThreads + tid;
+    const int gs = W * kThreads;
     for (int i = gt; i < B * R; i += gs) a.bound_used[i] = a.bound_used0[i];
     for (int i = gt; i < F * R; i += gs) a.free_used[i] = 0.0f;
     for (int g = gt; g < G; g += gs) {
@@ -163,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
       *a.steps = 0;
     }
   }
-  grid.sync();
+  barrier();
 
   while (true) {
     // ---- round start: the state's scalars and this lane's candidate,
@@ -446,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
       mine[kCand] = G;
       mine[kValid] = 0;
     }
-    grid.sync();
+    barrier();
 
     // ================================================== 2. conflicts
     // lane i (< w) meets lane w when a row i fills is one w depends on
@@ -471,7 +486,7 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
         if (tid == 0) a.conf[(size_t)i * W + w] = (uint8_t)hit;
       }
     }
-    grid.sync();
+    barrier();
 
     // ================================================== 3. accept
     // the greedy prefix scan, redundantly in every block
@@ -564,8 +579,64 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
         a.assign[(size_t)(B + lo + i) * G + g] += o_fill[i];
       }
     }
-    grid.sync();
+    barrier();
   }
+}
+
+struct GridBarrier {
+  __device__ void operator()() const { cg::this_grid().sync(); }
+};
+
+// The lanes' state lives in global memory: as the grid barrier does for
+// B3, each block fences its writes device-wide before the barrier.
+struct ClusterBarrier {
+  __device__ void operator()() const {
+    __threadfence();
+    cg::this_cluster().sync();
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
+  wavefront_body(a, blockIdx.x, GridBarrier{});
+}
+
+// lane l's slice of every per-lane array: its demand and live rows,
+// its outputs, its state and its plan scratch
+__device__ __forceinline__ Args lane_view(Args a, int l) {
+  const size_t L = (size_t)l;
+  const size_t N = (size_t)a.B + a.F;
+  const size_t W = (size_t)a.W;
+  a.group_count += L * a.G;
+  a.bound_live += L * a.B;
+  a.assign += L * N * a.G;
+  a.free_mask += L * a.F * a.C;
+  a.node_count += L;
+  a.unsched += L * a.G;
+  a.steps += L;
+  a.widths += L * a.G;
+  a.free_used += L * a.F * a.R;
+  a.bound_used += L * a.B * a.R;
+  a.rsv_used += L * (a.K + 1);
+  a.done += L * a.G;
+  a.kcap += L * W * N;
+  a.take += L * W * N;
+  a.fits += L * W * a.C;
+  a.kopen += L * W * a.C;
+  a.spend += L * W * (a.K + 1);
+  a.o_mask += L * W * a.F * a.C;
+  a.o_used += L * W * a.F * a.R;
+  a.o_fill += L * W * a.F;
+  a.o_union += L * W * a.C;
+  a.lane += L * W * kLaneFields;
+  a.conf += L * W * W;
+  return a;
+}
+
+// B6 wavefront: one cluster of W blocks per lane; the lane is the
+// cluster's index and the block's rank in it is the plan lane.
+__global__ void __launch_bounds__(kThreads, 1) pack_probe_wavefront_kernel(Args lanes) {
+  const Args a = lane_view(lanes, blockIdx.x / lanes.W);
+  wavefront_body(a, (int)cg::this_cluster().block_rank(), ClusterBarrier{});
 }
 
 }  // namespace
@@ -600,6 +671,73 @@ extern "C" int pack_wavefront_launch(
       (const void*)pack_wavefront_kernel, dim3(W), dim3(kThreads), params, 0, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the caller raises
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// B6 wavefront: L lanes, each one thread-block cluster of W blocks
+// (grid W*L). group_count is [L, G] and bound_live [L, B]; every output,
+// state and scratch array carries a leading lane axis of L.
+// *max_clusters receives cudaOccupancyMaxActiveClusters for this launch;
+// when it is 0 the launch is not made and cudaErrorInvalidConfiguration
+// is returned. A cluster of more than 8 blocks needs the non-portable
+// size, which the H100 allows up to 16.
+extern "C" int pack_probe_wavefront_launch(
+    const uint8_t* compat, const float* group_req, const int32_t* lane_counts,
+    const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
+    const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
+    const int32_t* bound_slot, const uint8_t* lane_live, const float* cfg_price,
+    const int32_t* cfg_rsv, const float* rsv_cap, const uint8_t* conflict,
+    int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
+    int32_t* steps, int32_t* widths,
+    float* free_used, float* bound_used, float* rsv_used, uint8_t* done,
+    int32_t* kcap, int32_t* take, uint8_t* fits, int32_t* kopen, float* spend,
+    uint8_t* o_mask, float* o_used, int32_t* o_fill, uint8_t* o_union,
+    int32_t* lane, uint8_t* conf,
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int L,
+    int* max_clusters, cudaStream_t stream) {
+  *max_clusters = 0;
+  if (R > kMaxR || W < 1 || W > kMaxW || L < 1) return (int)cudaErrorInvalidValue;
+  Args a{compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
+         bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
+         nullptr, cfg_rsv, rsv_cap, nullptr, conflict,
+         assign, free_mask, node_count, unsched, steps, widths,
+         free_used, bound_used, rsv_used, done,
+         kcap, take, fits, kopen, spend, o_mask, o_used, o_fill, o_union, lane, conf,
+         G, C, R, B, F, K, P1, cost, W};
+  cudaError_t err = cudaFuncSetAttribute(
+      pack_probe_wavefront_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)W;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(W * L));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // clusters run whole and barrier only among themselves, so the lanes
+  // run in waves of the clusters that fit at once; none fitting is an
+  // error, not a reason to narrow the width
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)pack_probe_wavefront_kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  *max_clusters = n;
+  if (n < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, pack_probe_wavefront_kernel, a);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
     return (int)err;
   }
   return (int)cudaGetLastError();

@@ -43,13 +43,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: argument types of each library's entry point
+# C signatures: argument types of each library's entry points
 SIGNATURES = {
-    "pack_split": ("pack_split_launch", [_P] * 28 + [_I] * 8 + [_P]),
-    "pack_wavefront": ("pack_wavefront_launch", [_P] * 38 + [_I] * 9 + [_P]),
-    "pack_flat": ("pack_flat_launch", [_P] * 7 + [_I] * 4 + [_P]),
-    "lp_price": ("lp_price_launch", [_P] * 7 + [_I] * 3 + [_P]),
-    "lp_ascend": ("lp_ascend_launch", [_P] * 26 + [_I] * 5 + [_P]),
+    "pack_split": {"pack_split_launch": [_P] * 28 + [_I] * 9 + [_P]},
+    "pack_wavefront": {
+        "pack_wavefront_launch": [_P] * 38 + [_I] * 9 + [_P],
+        "pack_probe_wavefront_launch": [_P] * 36 + [_I] * 10 + [_P, _P],
+    },
+    "pack_flat": {"pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P]},
+    "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 3 + [_P]},
+    "lp_ascend": {"lp_ascend_launch": [_P] * 26 + [_I] * 5 + [_P]},
 }
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said
@@ -133,9 +136,9 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_target(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib

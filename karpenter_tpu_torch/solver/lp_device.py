@@ -16,8 +16,12 @@ hand with JAX's tie rules (`_supergradient`). The certificate (bound,
 scaled duals, cap duals) is recomputed on the host in float64 from the
 best iterate, so its validity never rests on the card's arithmetic.
 
-Knobs: KARPENTER_LP_GUIDE (default on; 0 disables guidance, trim and
-the rank arm), KARPENTER_LP_ITERS (ascent iterations, default 192),
+`DualCertificate` turns the duals into the weak-duality bound the
+consolidation probes' pruner asks (`consolidation_batch.ProbePruner`).
+
+Knobs: KARPENTER_LP_GUIDE (default on; 0 disables guidance, trim,
+the rank arm and pruning), KARPENTER_LP_ITERS (ascent iterations,
+default 192), KARPENTER_LP_PRUNE_MARGIN (the pruner's margin, 0.05),
 KARPENTER_LP_RANK_BETA (reduced-cost penalty weight, default 1.0),
 KARPENTER_LP_PRIORITY_WEIGHT (priority fold strength, default 0.25).
 
@@ -77,6 +81,12 @@ def iters() -> int:
 
 def rank_beta() -> float:
     return max(0.0, _env_float("KARPENTER_LP_RANK_BETA", 1.0))
+
+
+def prune_margin() -> float:
+    """Safety margin of the consolidation pruner
+    (KARPENTER_LP_PRUNE_MARGIN, default 0.05)."""
+    return max(0.0, _env_float("KARPENTER_LP_PRUNE_MARGIN", 0.05))
 
 
 def _cap_rows(k: int) -> int:
@@ -585,6 +595,100 @@ def rank_prices(enc: Encoded, dlp: DeviceLP,
     rc = np.clip(price - vh, 0.0, None)
     out = np.where(launch, price + beta * rc, price)
     return out.astype(np.float32)
+
+
+class DualCertificate:
+    """Weak-duality bound for consolidation probe pruning (the JAX
+    package's `DualCertificate`, in float64 numpy in its order of
+    operations).
+
+    Built from one encode of the probe problem (the LaneSolver's union
+    encode): `lam` is dual-feasible for every uncapped launchable
+    config, `mu` and the cap budgets buy back reserved configs' excess,
+    and `absorb[e]` bounds from above the dual value that existing node
+    e's free capacity could host. For a candidate set S with pod demand
+    d:
+
+        launch_cost(any repack of d without S)
+            >= lam.d - sum_{e not in S} absorb[e] - cap.mu
+
+    so when that bound meets the candidates' current price (plus the
+    margin), no strictly cheaper replacement exists."""
+
+    def __init__(self, enc: Encoded, dlp: DeviceLP):
+        self.lam = dlp.lam
+        self.cap_term = float(
+            dlp.mu @ (enc.rsv_cap.astype(np.float64)
+                      if enc.rsv_cap is not None and enc.rsv_cap.size
+                      else np.zeros(0))
+        ) if len(dlp.mu) else 0.0
+        live = enc.group_count > 0
+        req = enc.group_req.astype(np.float64)
+        safe_req = np.where(req > 0, req, 1.0)
+        ratio = np.where(
+            (req > 0) & live[:, None], self.lam[:, None] / safe_req, 0.0
+        )
+        # per existing column, the LP's closed-form value bound over the
+        # node's remaining allocatable, as one [G, E, R] computation
+        self.absorb: dict[int, float] = {}
+        ex_cols = np.array(
+            [ci for ci in np.flatnonzero(enc.cfg_pool < 0)
+             if enc.configs[ci].existing_index >= 0],
+            dtype=np.int64,
+        )
+        total = 0.0
+        if ex_cols.size:
+            ex_idx = np.array(
+                [enc.configs[ci].existing_index for ci in ex_cols]
+            )
+            compat_e = enc.compat[:, ex_cols] & live[:, None]   # [G, E]
+            alloc_e = np.clip(
+                enc.cfg_alloc[ex_cols].astype(np.float64), 0.0, None
+            )                                                   # [E, R]
+            reqpos = req > 0                                    # [G, R]
+            # an exhausted axis every candidate pod needs bounds the
+            # node's absorbable value at exactly 0
+            bad = np.einsum(
+                "ge,gr->er", compat_e, (~reqpos).astype(np.float64)
+            ) > 0                                               # [E, R]
+            mm = np.max(
+                np.where(compat_e[:, :, None], ratio[:, None, :], 0.0),
+                axis=0,
+            )                                                   # [E, R]
+            with np.errstate(invalid="ignore"):
+                v = np.where(~bad, mm * alloc_e, np.inf)
+            vals = np.min(v, axis=1)
+            vals = np.where(np.isfinite(vals), np.clip(vals, 0.0, None), 0.0)
+            any_compat = compat_e.any(axis=0)
+            vals = np.where(any_compat, vals, 0.0)
+            for ei, val in zip(ex_idx.tolist(), vals.tolist()):
+                self.absorb[ei] = val
+            total = float(vals.sum())
+        self.absorb_total = total
+
+    def floor(self, demand: np.ndarray, candidate_rows: list[int]) -> float:
+        """The weak-duality lower bound on any repack of `demand` [G]
+        without the candidate rows (their existing_index): lam.d minus
+        the rest of the fleet's absorbable value minus the cap term."""
+        absorb_rest = self.absorb_total - sum(
+            self.absorb.get(r, 0.0) for r in set(candidate_rows)
+        )
+        return (
+            float(self.lam @ demand.astype(np.float64))
+            - max(absorb_rest, 0.0)
+            - self.cap_term
+        )
+
+    def cannot_pay(self, demand: np.ndarray, candidate_rows: list[int],
+                   current_price: float, margin: float | None = None,
+                   floor: float | None = None) -> bool:
+        """The prune predicate: no repack of `demand` without the
+        candidates can cost less than `current_price` by the margin.
+        A caller that also reports the floor passes it back in."""
+        margin = prune_margin() if margin is None else margin
+        if floor is None:
+            floor = self.floor(demand, candidate_rows)
+        return floor >= current_price * (1.0 + margin) + 1e-9
 
 
 def reset() -> None:

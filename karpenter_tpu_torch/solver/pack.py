@@ -4,8 +4,9 @@ flat-buffer decode around the packing kernels.
 Copy of the unsharded host half of `karpenter_tpu/solver/pack.py`
 (`PackResult`, the shape buckets, `_estimate_nodes`, the node-axis
 retry of `solve_packing_async` as a synchronous loop, `_run_pack`'s
-bound-block staging, the wavefront routing and the uint32 decode of
-its `fetch`). The kernels themselves are in `pack_split.py`: B1
+bound-block staging, the wavefront routing, the uint32 decode of its
+`fetch`, and the consolidation probes' lane width and lane bucket).
+The kernels themselves are in `pack_split.py`: B1
 `pack_split`, B3 `pack_split_wavefront` and B2 `pack_flat_words`,
 which run on the tensors' device — the hand-written CUDA kernels on a
 GPU, their plain versions on the CPU.
@@ -122,6 +123,32 @@ def _pad_axis(n: int, base: int = 16) -> int:
 def _bucket(n: int) -> int:
     """Node-axis bucket: 1.25x spacing from 32."""
     return _pad_axis(n, base=32)
+
+
+def probe_batch_width(device: torch.device | str) -> int:
+    """Consolidation probe lanes per dispatch
+    (KARPENTER_PROBE_BATCH_WIDTH). Unset, the width follows the device,
+    as the JAX package's follows its backend: 64 on the card, whose
+    lane kernels run the lanes in parallel, and 1 on the CPU, whose
+    plain versions run them one after another anyway."""
+    raw = os.environ.get("KARPENTER_PROBE_BATCH_WIDTH", "").strip()
+    if raw:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            pass
+    return 64 if torch.device(device).type == "cuda" else 1
+
+
+def _lane_bucket(n: int) -> int:
+    """Lane-axis bucket (KARPENTER_PROBE_LANE_BUCKET sets the base, 8):
+    lanes pad to the same 1.25x-spaced family as the node axis; padded
+    lanes carry no demand and no live rows."""
+    try:
+        base = max(1, int(os.environ.get("KARPENTER_PROBE_LANE_BUCKET", "8")))
+    except ValueError:
+        base = 8
+    return _pad_axis(n, base=base)
 
 
 # problem-shape signature -> node-axis bucket that fit last time

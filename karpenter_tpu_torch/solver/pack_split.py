@@ -13,6 +13,13 @@ replaces the epilogue of `pack_split_flat`: it bit-packs the fresh
 masks 32 columns to a word and lays every output out in one 32-bit
 buffer, in the order the host decode reads it.
 
+B6 replaces the JAX `pack_probe_lanes_flat`: the consolidation probe
+batch, B1 (`pack_probe_lanes`) or B3 (`pack_probe_lanes_wavefront`)
+over a lane axis of candidate subsets that share one problem and
+differ in their demand and retained bound rows, then B2 over the lanes
+(`pack_flat_lanes`), one flat row per lane. `pack_probe_lanes_flat`
+composes them as the JAX function does.
+
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it launches its hand-written kernel
 (`karpenter_tpu_torch/csrc/*.cu`) or raises; there is no fallback.
@@ -44,7 +51,13 @@ MAX_RESOURCES = 16
 WAVEFRONT_LANE_FIELDS = 9
 
 # kernel launches per wrapper (plain-version calls never count)
-LAUNCHES = {"pack_split": 0, "pack_split_wavefront": 0, "pack_split_flat": 0}
+LAUNCHES = {"pack_split": 0, "pack_split_wavefront": 0, "pack_split_flat": 0,
+            "pack_probe_lanes": 0, "pack_probe_lanes_wavefront": 0,
+            "pack_probe_lanes_flat": 0}
+
+# cluster width W -> the active-cluster count the card reported at the
+# last B6 wavefront launch (cudaOccupancyMaxActiveClusters)
+ACTIVE_CLUSTERS: dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -505,6 +518,65 @@ def pack_split_flat_ref(*args, max_free: int, mode: str = "ffd", **kw):
     )
 
 
+def _over_lanes(plain, args, kw):
+    """`plain` (B1's or B3's plain version) on each lane of B6's
+    positional inputs `args`: lane l's demand `args[2][l]` and live
+    rows `args[10][l]` in the places of group_count and bound_live. The
+    outputs are stacked on a leading lane axis."""
+    counts, live = args[2], args[10]
+    outs = []
+    for lane in range(counts.shape[0]):
+        alone = list(args)
+        alone[2], alone[10] = counts[lane], live[lane]
+        outs.append(plain(*alone, **kw))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def pack_probe_lanes_ref(*args, max_free: int, mode: str = "ffd", **kw):
+    """Plain version of B6's sequential program: `pack_split_ref` on
+    each lane. Positional arguments as `pack_split_ref`'s with
+    lane_counts [L, G] and lane_live [L, B] in the places of
+    group_count and bound_live; keywords cfg_rsv, rsv_cap, conflict."""
+    return _over_lanes(pack_split_ref, args, dict(max_free=max_free, mode=mode, **kw))
+
+
+def pack_probe_lanes_wavefront_ref(*args, max_free: int, mode: str = "ffd",
+                                   width: int = 16, **kw):
+    """Plain version of B6's wavefront program: `pack_split_wavefront_ref`
+    on each lane (arguments as `pack_probe_lanes_ref`'s). Each lane's
+    `steps` is its own round count."""
+    return _over_lanes(pack_split_wavefront_ref, args,
+                       dict(max_free=max_free, mode=mode, width=width, **kw))
+
+
+def pack_flat_lanes_ref(assign, free_mask, node_count, unsched, widths=None,
+                        steps=None):
+    """Plain version of B6's lane epilogue: `pack_flat_words_ref` per
+    lane, stacked into [L, row]."""
+    return torch.stack([
+        pack_flat_words_ref(
+            assign[lane], free_mask[lane], node_count[lane], unsched[lane],
+            None if widths is None else widths[lane],
+            None if steps is None else steps[lane])
+        for lane in range(assign.shape[0])
+    ])
+
+
+def pack_probe_lanes_flat_ref(*args, max_free: int, mode: str = "ffd",
+                              wavefront: int = 0, **kw):
+    """Plain version of the JAX `pack_probe_lanes_flat`: [L, row] int32,
+    to be read as uint32, each row `pack_split_flat`'s layout for its
+    lane (with the wavefront stats appended when `wavefront > 1`)."""
+    if wavefront > 1:
+        (assign, free_mask, node_count, unsched, steps,
+         widths) = pack_probe_lanes_wavefront_ref(
+            *args, max_free=max_free, mode=mode, width=wavefront, **kw)
+        return pack_flat_lanes_ref(assign, free_mask, node_count, unsched,
+                                   widths, steps)
+    return pack_flat_lanes_ref(
+        *pack_probe_lanes_ref(*args, max_free=max_free, mode=mode, **kw))
+
+
 # ---------------------------------------------------------------- CUDA
 
 
@@ -582,51 +654,14 @@ def _pack_split_cuda(
     cfg_price, max_free: int, mode: str = "ffd", bound_quota=None,
     cfg_rsv=None, rsv_cap=None, group_cap=None, conflict=None,
 ):
-    from karpenter_tpu_torch import cuda_build
-
-    dev = compat.device
-    G, C = compat.shape
-    R = group_req.shape[1]
-    B = bound_alloc.shape[0]
-    F = int(max_free)
-    P1 = pool_overhead.shape[0]
-    cfg_rsv, rsv_cap = _kernel_inputs(
-        "pack_split", mode, compat, group_req, group_count, cfg_alloc,
-        cfg_pool, pool_overhead, bound_compat, bound_alloc, bound_used0,
-        bound_slot, bound_live, cfg_price, bound_quota, cfg_rsv, rsv_cap,
-        group_cap, conflict)
-    K = rsv_cap.shape[0]
-
-    i32, f32 = torch.int32, torch.float32
-    assign = torch.zeros((B + F, G), dtype=i32, device=dev)
-    free_mask = torch.zeros((F, C), dtype=torch.bool, device=dev)
-    node_count = torch.zeros((), dtype=i32, device=dev)
-    unsched = torch.zeros((G,), dtype=i32, device=dev)
-    # scratch: per-row usage, reservation use, per-row capacity and
-    # take, per-config open capacity and fit flags
-    free_used = torch.empty((F, R), dtype=f32, device=dev)
-    bound_used = torch.empty((B, R), dtype=f32, device=dev)
-    rsv_used = torch.empty((K + 1,), dtype=f32, device=dev)
-    kcap = torch.empty((B + F,), dtype=i32, device=dev)
-    take = torch.empty((B + F,), dtype=i32, device=dev)
-    kopen = torch.empty((C,), dtype=i32, device=dev)
-    fits = torch.empty((C,), dtype=torch.uint8, device=dev)
-
-    lib = cuda_build.library("pack_split")
-    err = lib.pack_split_launch(
-        _ptr(compat), _ptr(group_req), _ptr(group_count), _ptr(cfg_alloc),
-        _ptr(cfg_pool), _ptr(pool_overhead), _ptr(bound_compat),
-        _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot),
-        _ptr(bound_live), _ptr(cfg_price), _ptr(bound_quota), _ptr(cfg_rsv),
-        _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
-        _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
-        _ptr(free_used), _ptr(bound_used), _ptr(rsv_used), _ptr(kcap),
-        _ptr(take), _ptr(kopen), _ptr(fits),
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, _stream(),
-    )
-    _raise_on(err, "pack_split")
+    # B1 is B6 sequential's kernel with one lane
+    outs = _launch_pack_split(
+        "pack_split", compat, group_req, group_count[None], cfg_alloc, cfg_pool,
+        pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
+        bound_live[None], cfg_price, max_free, mode, cfg_rsv, rsv_cap, conflict,
+        bound_quota, group_cap)
     LAUNCHES["pack_split"] += 1
-    return assign, free_mask, node_count, unsched
+    return tuple(t[0] for t in outs)
 
 
 def _pack_split_wavefront_cuda(
@@ -701,32 +736,212 @@ def _pack_split_wavefront_cuda(
 
 def _pack_flat_words_cuda(assign, free_mask, node_count, unsched,
                           widths=None, steps=None):
+    # B2 is the lane epilogue with one lane
+    lane = [None if t is None else t[None] for t in
+            (assign, free_mask, node_count, unsched, widths, steps)]
+    out = _launch_pack_flat("pack_flat_words", *lane)
+    LAUNCHES["pack_split_flat"] += 1
+    return out[0]
+
+
+def _lane_inputs(what, mode, compat, group_req, lane_counts, cfg_alloc,
+                 cfg_pool, pool_overhead, bound_compat, bound_alloc,
+                 bound_used0, bound_slot, lane_live, cfg_price, cfg_rsv,
+                 rsv_cap, conflict, bound_quota=None, group_cap=None):
+    """`_kernel_inputs` for the lane kernels: the per-lane demand
+    [L, G] and live rows [L, B], the shared inputs as B1 takes them.
+    Returns (L, cfg_rsv, rsv_cap)."""
+    G = compat.shape[0]
+    B = bound_alloc.shape[0]
+    L = lane_counts.shape[0] if lane_counts.dim() == 2 else 0
+    if L < 1:
+        raise ValueError(f"{what}: lane_counts must be [L, G] with L >= 1, "
+                         f"got {tuple(lane_counts.shape)}")
+    _check(lane_counts, "lane_counts", torch.int32, (L, G))
+    _check(lane_live, "lane_live", torch.bool, (L, B))
+    # one lane's rows stand in for B1's group_count and bound_live
+    cfg_rsv, rsv_cap = _kernel_inputs(
+        what, mode, compat, group_req, lane_counts[0], cfg_alloc, cfg_pool,
+        pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
+        lane_live[0], cfg_price, bound_quota, cfg_rsv, rsv_cap, group_cap,
+        conflict)
+    return L, cfg_rsv, rsv_cap
+
+
+def _launch_pack_split(
+    what, compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
+    bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
+    max_free, mode, cfg_rsv, rsv_cap, conflict, bound_quota=None,
+    group_cap=None,
+):
+    """Launch pack_split.cu's kernel over L lanes, a block each, and
+    return its outputs with a leading lane axis."""
     from karpenter_tpu_torch import cuda_build
 
-    N, G = assign.shape
-    F, C = free_mask.shape
+    dev = compat.device
+    G, C = compat.shape
+    R = group_req.shape[1]
+    B = bound_alloc.shape[0]
+    F = int(max_free)
+    P1 = pool_overhead.shape[0]
+    L, cfg_rsv, rsv_cap = _lane_inputs(
+        what, mode, compat, group_req, lane_counts, cfg_alloc, cfg_pool,
+        pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
+        lane_live, cfg_price, cfg_rsv, rsv_cap, conflict, bound_quota,
+        group_cap)
+    K = rsv_cap.shape[0]
+
+    i32, f32 = torch.int32, torch.float32
+    assign = torch.zeros((L, B + F, G), dtype=i32, device=dev)
+    free_mask = torch.zeros((L, F, C), dtype=torch.bool, device=dev)
+    node_count = torch.zeros((L,), dtype=i32, device=dev)
+    unsched = torch.zeros((L, G), dtype=i32, device=dev)
+    # scratch, one slice per lane: per-row usage, reservation use,
+    # per-row capacity and take, per-config open capacity and fit flags
+    scratch = [
+        torch.empty((L, F, R), dtype=f32, device=dev),        # free_used
+        torch.empty((L, B, R), dtype=f32, device=dev),        # bound_used
+        torch.empty((L, K + 1), dtype=f32, device=dev),       # rsv_used
+        torch.empty((L, B + F), dtype=i32, device=dev),       # kcap
+        torch.empty((L, B + F), dtype=i32, device=dev),       # take
+        torch.empty((L, C), dtype=i32, device=dev),           # kopen
+        torch.empty((L, C), dtype=torch.uint8, device=dev),   # fits
+    ]
+    lib = cuda_build.library("pack_split")
+    err = lib.pack_split_launch(
+        _ptr(compat), _ptr(group_req), _ptr(lane_counts), _ptr(cfg_alloc),
+        _ptr(cfg_pool), _ptr(pool_overhead), _ptr(bound_compat),
+        _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot),
+        _ptr(lane_live), _ptr(cfg_price), _ptr(bound_quota), _ptr(cfg_rsv),
+        _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
+        _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
+        *[_ptr(t) for t in scratch],
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, _stream(),
+    )
+    _raise_on(err, f"{what} ({L} blocks, one a lane)")
+    return assign, free_mask, node_count, unsched
+
+
+def _pack_probe_lanes_cuda(
+    compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
+    bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
+    max_free: int, mode: str = "ffd", cfg_rsv=None, rsv_cap=None,
+    conflict=None,
+):
+    outs = _launch_pack_split(
+        "pack_probe_lanes", compat, group_req, lane_counts, cfg_alloc, cfg_pool,
+        pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
+        lane_live, cfg_price, max_free, mode, cfg_rsv, rsv_cap, conflict)
+    LAUNCHES["pack_probe_lanes"] += 1
+    return outs
+
+
+def _pack_probe_lanes_wavefront_cuda(
+    compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
+    bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
+    max_free: int, mode: str = "ffd", width: int = 16, cfg_rsv=None,
+    rsv_cap=None, conflict=None,
+):
+    from karpenter_tpu_torch import cuda_build
+
+    dev = compat.device
+    G, C = compat.shape
+    R = group_req.shape[1]
+    B = bound_alloc.shape[0]
+    F = int(max_free)
+    N = B + F
+    W = int(width)
+    P1 = pool_overhead.shape[0]
+    if W < 1:
+        raise ValueError(f"pack_probe_lanes_wavefront: width {W} < 1")
+    L, cfg_rsv, rsv_cap = _lane_inputs(
+        "pack_probe_lanes_wavefront", mode, compat, group_req, lane_counts,
+        cfg_alloc, cfg_pool, pool_overhead, bound_compat, bound_alloc,
+        bound_used0, bound_slot, lane_live, cfg_price, cfg_rsv, rsv_cap,
+        conflict)
+    K = rsv_cap.shape[0]
+
+    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    assign = torch.zeros((L, N, G), dtype=i32, device=dev)
+    free_mask = torch.zeros((L, F, C), dtype=torch.bool, device=dev)
+    node_count = torch.zeros((L,), dtype=i32, device=dev)
+    unsched = torch.zeros((L, G), dtype=i32, device=dev)
+    steps = torch.zeros((L,), dtype=i32, device=dev)
+    widths = torch.zeros((L, G), dtype=i32, device=dev)
+    # B3's state and plan scratch, one slice per lane
+    scratch = [
+        torch.empty((L, F, R), dtype=f32, device=dev),          # free_used
+        torch.empty((L, B, R), dtype=f32, device=dev),          # bound_used
+        torch.empty((L, K + 1), dtype=f32, device=dev),         # rsv_used
+        torch.empty((L, G), dtype=u8, device=dev),              # done
+        torch.empty((L, W, N), dtype=i32, device=dev),          # kcap
+        torch.empty((L, W, N), dtype=i32, device=dev),          # take
+        torch.empty((L, W, C), dtype=u8, device=dev),           # fits
+        torch.empty((L, W, C), dtype=i32, device=dev),          # kopen
+        torch.empty((L, W, K + 1), dtype=f32, device=dev),      # spend
+        torch.empty((L, W, F, C), dtype=u8, device=dev),        # o_mask
+        torch.empty((L, W, F, R), dtype=f32, device=dev),       # o_used
+        torch.empty((L, W, F), dtype=i32, device=dev),          # o_fill
+        torch.empty((L, W, C), dtype=u8, device=dev),           # o_union
+        torch.empty((L, W, WAVEFRONT_LANE_FIELDS), dtype=i32, device=dev),
+        torch.empty((L, W, W), dtype=u8, device=dev),           # conf
+    ]
+    clusters = ctypes.c_int(0)
+    lib = cuda_build.library("pack_wavefront")
+    err = lib.pack_probe_wavefront_launch(
+        _ptr(compat), _ptr(group_req), _ptr(lane_counts), _ptr(cfg_alloc),
+        _ptr(cfg_pool), _ptr(pool_overhead), _ptr(bound_compat),
+        _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot),
+        _ptr(lane_live), _ptr(cfg_price), _ptr(cfg_rsv), _ptr(rsv_cap),
+        _ptr(conflict), _ptr(assign), _ptr(free_mask), _ptr(node_count),
+        _ptr(unsched), _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, L,
+        ctypes.byref(clusters), _stream(),
+    )
+    ACTIVE_CLUSTERS[W] = clusters.value
+    _raise_on(err, f"pack_probe_lanes_wavefront ({L} clusters of {W} blocks; "
+                   f"the card holds {clusters.value} such clusters at once)")
+    LAUNCHES["pack_probe_lanes_wavefront"] += 1
+    return assign, free_mask, node_count, unsched, steps, widths
+
+
+def _launch_pack_flat(what, assign, free_mask, node_count, unsched,
+                      widths=None, steps=None):
+    """Launch pack_flat.cu's kernel over L lanes: inputs with a leading
+    lane axis, output [L, row]."""
+    from karpenter_tpu_torch import cuda_build
+
+    L, N, G = assign.shape
+    F, C = free_mask.shape[1:]
     if C % 32:
-        raise ValueError(f"pack_flat_words: {C} mask columns are not a multiple of 32")
+        raise ValueError(f"{what}: {C} mask columns are not a multiple of 32")
     if (widths is None) != (steps is None):
-        raise ValueError("pack_flat_words: widths and steps come together")
-    _check(assign, "assign", torch.int32, (N, G))
-    _check(free_mask, "free_mask", torch.bool, (F, C))
-    _check(node_count, "node_count", torch.int32, ())
-    _check(unsched, "unsched", torch.int32, (G,))
+        raise ValueError(f"{what}: widths and steps come together")
+    _check(assign, "assign", torch.int32, (L, N, G))
+    _check(free_mask, "free_mask", torch.bool, (L, F, C))
+    _check(node_count, "node_count", torch.int32, (L,))
+    _check(unsched, "unsched", torch.int32, (L, G))
     if widths is not None:
-        _check(widths, "widths", torch.int32, (G,))
-        _check(steps, "steps", torch.int32, ())
+        _check(widths, "widths", torch.int32, (L, G))
+        _check(steps, "steps", torch.int32, (L,))
     if free_mask.data_ptr() % 16:
-        raise ValueError("pack_flat_words: free_mask must be 16-byte aligned")
-    n_out = N * G + F * (C // 32) + 1 + G + (0 if widths is None else G + 1)
-    out = torch.empty((n_out,), dtype=torch.int32, device=assign.device)
+        raise ValueError(f"{what}: free_mask must be 16-byte aligned")
+    n_row = N * G + F * (C // 32) + 1 + G + (0 if widths is None else G + 1)
+    out = torch.empty((L, n_row), dtype=torch.int32, device=assign.device)
     lib = cuda_build.library("pack_flat")
     err = lib.pack_flat_launch(
         _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
-        _ptr(widths), _ptr(steps), _ptr(out), N, G, F, C, _stream(),
+        _ptr(widths), _ptr(steps), _ptr(out), N, G, F, C, L, _stream(),
     )
-    _raise_on(err, "pack_split_flat")
-    LAUNCHES["pack_split_flat"] += 1
+    _raise_on(err, what)
+    return out
+
+
+def _pack_flat_lanes_cuda(assign, free_mask, node_count, unsched,
+                          widths=None, steps=None):
+    out = _launch_pack_flat("pack_flat_lanes", assign, free_mask, node_count,
+                            unsched, widths, steps)
+    LAUNCHES["pack_probe_lanes_flat"] += 1
     return out
 
 
@@ -786,3 +1001,55 @@ def pack_split_flat(*args, max_free: int, mode: str = "ffd",
         return pack_flat_words(assign, free_mask, node_count, unsched,
                                widths, steps)
     return pack_flat_words(*pack_split(*args, max_free=max_free, mode=mode, **kw))
+
+
+def pack_probe_lanes(*args, max_free: int, mode: str = "ffd", **kw):
+    """B6, sequential program. Arguments and outputs as
+    `pack_probe_lanes_ref`; CUDA tensors run the kernel (one launch,
+    one block a lane)."""
+    if _route(args[0], "pack_probe_lanes"):
+        return _pack_probe_lanes_cuda(*args, max_free=max_free, mode=mode, **kw)
+    return pack_probe_lanes_ref(*args, max_free=max_free, mode=mode, **kw)
+
+
+def pack_probe_lanes_wavefront(*args, max_free: int, mode: str = "ffd",
+                               width: int = 16, **kw):
+    """B6, wavefront program. Arguments and outputs as
+    `pack_probe_lanes_wavefront_ref`; CUDA tensors run the kernel (one
+    launch, one cluster of `width` blocks a lane; raises if the card
+    can hold no such cluster)."""
+    if _route(args[0], "pack_probe_lanes_wavefront"):
+        return _pack_probe_lanes_wavefront_cuda(
+            *args, max_free=max_free, mode=mode, width=width, **kw)
+    return pack_probe_lanes_wavefront_ref(
+        *args, max_free=max_free, mode=mode, width=width, **kw)
+
+
+def pack_flat_lanes(assign, free_mask, node_count, unsched, widths=None,
+                    steps=None):
+    """B6's lane epilogue. Outputs as `pack_flat_lanes_ref`; CUDA
+    tensors run the kernel."""
+    if _route(assign, "pack_flat_lanes"):
+        return _pack_flat_lanes_cuda(assign, free_mask, node_count, unsched,
+                                     widths, steps)
+    return pack_flat_lanes_ref(assign, free_mask, node_count, unsched,
+                               widths, steps)
+
+
+def pack_probe_lanes_flat(*args, max_free: int, mode: str = "ffd",
+                          wavefront: int = 0, **kw):
+    """The JAX package's `pack_probe_lanes_flat`, as one [L, row] int32
+    buffer to be read as uint32: B6's sequential program then the lane
+    epilogue, or with `wavefront > 1` the wavefront program at that
+    width then the epilogue with each lane's widths and round count.
+    Positional arguments as `pack_split`'s, with `lane_counts` [L, G]
+    and `lane_live` [L, B] in place of group_count and bound_live;
+    keywords cfg_rsv, rsv_cap and conflict."""
+    if wavefront > 1:
+        (assign, free_mask, node_count, unsched, steps,
+         widths) = pack_probe_lanes_wavefront(
+            *args, max_free=max_free, mode=mode, width=wavefront, **kw)
+        return pack_flat_lanes(assign, free_mask, node_count, unsched,
+                               widths, steps)
+    return pack_flat_lanes(
+        *pack_probe_lanes(*args, max_free=max_free, mode=mode, **kw))

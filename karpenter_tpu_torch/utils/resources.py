@@ -1,13 +1,13 @@
 """Resource-list arithmetic over `dict[str, float]` resource maps.
 
 Trimmed copy of `karpenter_tpu/utils/resources.py`: the merge,
-subtract, clamp and pod-request aggregation that the encode and the
-instance-type model read.
+subtract, clamp and pod-request aggregation that the encode, the
+instance-type model and the consolidation workload read.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, TYPE_CHECKING
+from typing import Iterable, Mapping, TYPE_CHECKING
 
 if TYPE_CHECKING:  # pragma: no cover
     from karpenter_tpu_torch.kube.objects import Pod
@@ -85,3 +85,8 @@ def pod_requests(pod: "Pod") -> ResourceList:
         out = merge(out, pod.spec.overhead)
     out[PODS] = out.get(PODS, 0.0) + 1.0
     return out
+
+
+def requests_for_pods(pods: Iterable["Pod"]) -> ResourceList:
+    """The summed effective requests of `pods`."""
+    return merge(*(pod_requests(p) for p in pods))

@@ -6,16 +6,30 @@ an architecture, some to a zone) against the synthetic
 `instance_types(n)` catalog, optionally with capacity reservations on
 ~40 mid-size types. Same seed, same pods, same catalog as the JAX
 package's benchmark.
+
+`consolidation_fleet` is a copy of the set-up of `bench.py`'s
+`scenario_consolidation` (consolidation_500): the FFD fleet of
+`build_problem(21000, 200, seed=9)`, then a scale-down that removes 55%
+of the pods, each node kept as an existing node with what stays on it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from karpenter_tpu_torch.apis.v1.labels import TOPOLOGY_ZONE_LABEL
+from karpenter_tpu_torch.apis.v1.labels import (
+    CAPACITY_TYPE_LABEL,
+    HOSTNAME_LABEL,
+    INSTANCE_TYPE_LABEL,
+    NODEPOOL_LABEL,
+    TOPOLOGY_ZONE_LABEL,
+)
 from karpenter_tpu_torch.apis.v1.nodepool import NodePool
 from karpenter_tpu_torch.cloudprovider.fake import GIB, instance_types, make_instance_type
 from karpenter_tpu_torch.kube.objects import Container, ObjectMeta, Pod, PodSpec
+from karpenter_tpu_torch.scheduling.requirements import Requirements
+from karpenter_tpu_torch.solver.encode import ExistingNodeInput
+from karpenter_tpu_torch.utils import resources as resutil
 
 
 def build_problem(n_pods: int, n_types: int, seed: int = 42,
@@ -82,3 +96,54 @@ def build_problem(n_pods: int, n_types: int, seed: int = 42,
             )
         )
     return pods, [(pool, types)]
+
+
+def node_input(name, it, offering, pool, kept_pods) -> ExistingNodeInput:
+    """A node of instance type `it` on `offering` in `pool`, holding
+    `kept_pods`, as an existing node (the labels and the allocatable
+    left over, as the benchmark builds them)."""
+    used = resutil.requests_for_pods(kept_pods)
+    labels = {
+        NODEPOOL_LABEL: pool.metadata.name,
+        INSTANCE_TYPE_LABEL: it.name,
+        TOPOLOGY_ZONE_LABEL: offering.zone,
+        CAPACITY_TYPE_LABEL: offering.capacity_type,
+        HOSTNAME_LABEL: name,
+    }
+    avail = {
+        k: max(0.0, v - used.get(k, 0.0)) for k, v in it.allocatable.items()
+    }
+    return ExistingNodeInput(
+        name=name,
+        requirements=Requirements.from_labels(labels),
+        taints=(),
+        available=avail,
+        pool_name=pool.metadata.name,
+        pod_count=len(kept_pods),
+    )
+
+
+def consolidation_fleet(n_pods: int = 21000, n_types: int = 200, seed: int = 9,
+                        drop: float = 0.55, rng_seed: int = 7, device=None):
+    """The benchmark's consolidation_500 fleet: the FFD solve of
+    `build_problem(n_pods, n_types, seed)` on `device` (None: the card),
+    then each pod leaves with probability `drop` (drawn from
+    `default_rng(rng_seed)`). Returns (pools, nodes, prices, pods_on):
+    node i as an `ExistingNodeInput` named `n-<i>`, its price and the
+    pods left on it. The defaults are the benchmark's; tests shrink
+    them."""
+    from karpenter_tpu_torch.solver.solver import solve
+
+    rng = np.random.default_rng(rng_seed)
+    pods, pools = build_problem(n_pods, n_types, seed=seed)
+    fleet = solve(pods, pools, objective="ffd", device=device)
+    keep_mask = rng.random(len(pods)) >= drop
+    keep = {p.metadata.name for p, k in zip(pods, keep_mask) if k}
+    nodes, prices, pods_on = [], [], []
+    for ni, plan in enumerate(fleet.new_nodes):
+        kept = [p for p in plan.pods if p.metadata.name in keep]
+        nodes.append(node_input(f"n-{ni}", plan.instance_types[0],
+                                plan.offerings[0], plan.pool, kept))
+        prices.append(plan.price)
+        pods_on.append(kept)
+    return pools, nodes, prices, pods_on

@@ -6,8 +6,11 @@ no CPU mode). On a GPU host:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (`--noconftest`: the suite's conftest pins JAX to the CPU, and this
-file imports no JAX.) Tolerance: byte-identical outputs — the kernels
-use the plain versions' f32 operation order and index tie-breaks.
+file imports no JAX.) Covers B1-B5 and B6 (both lane programs, the
+wavefront one at cluster widths 8 and 16, and the lane epilogue), and
+the consolidation ladder on the card against the CPU. Tolerance:
+byte-identical outputs — the kernels use the plain versions' f32
+operation order and index tie-breaks.
 """
 
 import numpy as np
@@ -173,3 +176,58 @@ def test_cost_solve_on_card_matches_cpu(lp_kernels):
     cpu = solve(pods, pools, objective="cost", device="cpu")
     assert fingerprint(card) == fingerprint(cpu)
     assert card.lp["guided"] and card.lp["lower_bound"] <= card.total_price + 1e-6
+
+
+@pytest.fixture(scope="module")
+def probe_cases():
+    from karpenter_tpu_torch.testing import lane_cases
+
+    return lane_cases(1, n_pods=800, n_types=40)
+
+
+@pytest.mark.parametrize("mode", ["ffd", "cost"])
+@pytest.mark.parametrize("index", range(2))
+def test_probe_lane_kernels_match_plain_versions(cuda_kernels, probe_cases, index, mode):
+    k = cuda_kernels
+    case = probe_cases[index]
+    args, kw = _cuda(case)
+    before = dict(k.LAUNCHES)
+    seq = k.pack_probe_lanes(*args, max_free=case.max_free, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["pack_probe_lanes"] == before["pack_probe_lanes"] + 1
+    want = k.pack_probe_lanes_ref(*args, max_free=case.max_free, mode=mode, **kw)
+    for a, b in zip(seq, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), case.name
+    flat = k.pack_flat_lanes(*seq)
+    assert torch.equal(flat, k.pack_flat_lanes_ref(*seq)), case.name
+    for width in (8, 16):
+        wf = k.pack_probe_lanes_wavefront(
+            *args, max_free=case.max_free, mode=mode, width=width, **kw)
+        torch.cuda.synchronize()
+        assert k.ACTIVE_CLUSTERS[width] >= 1
+        want = k.pack_probe_lanes_wavefront_ref(
+            *args, max_free=case.max_free, mode=mode, width=width, **kw)
+        for a, b in zip(wf, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (case.name, width)
+        for a, b in zip(wf[:4], seq):
+            assert torch.equal(a, b), (case.name, width)
+        flat = k.pack_flat_lanes(*wf[:4], wf[5], wf[4])
+        assert torch.equal(flat, k.pack_flat_lanes_ref(*wf[:4], wf[5], wf[4]))
+    assert k.LAUNCHES["pack_probe_lanes_wavefront"] == before["pack_probe_lanes_wavefront"] + 2
+    assert k.LAUNCHES["pack_probe_lanes_flat"] == before["pack_probe_lanes_flat"] + 3
+
+
+def test_consolidation_ladder_on_card_matches_cpu(cuda_kernels, monkeypatch):
+    from karpenter_tpu_torch.testing import consolidation_ladder
+    from karpenter_tpu_torch.workloads import consolidation_fleet
+
+    monkeypatch.delenv("KARPENTER_WAVEFRONT", raising=False)
+    monkeypatch.delenv("KARPENTER_PROBE_BATCH_WIDTH", raising=False)
+    fleet = consolidation_fleet(1500, 30)
+    before = cuda_kernels.LAUNCHES["pack_probe_lanes_wavefront"]
+    card = consolidation_ladder(*fleet, batched=True)
+    assert cuda_kernels.LAUNCHES["pack_probe_lanes_wavefront"] > before
+    monkeypatch.setenv("KARPENTER_PROBE_BATCH_WIDTH", "8")
+    cpu = consolidation_ladder(*consolidation_fleet(1500, 30, device="cpu"),
+                               batched=True, device="cpu")
+    assert card.decisions == cpu.decisions and card.probes == cpu.probes
