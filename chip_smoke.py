@@ -14,7 +14,13 @@ Phases, each reported on its own line; any failure exits non-zero:
                 bound rows with quotas, group caps, conflicts, negative
                 and huge demand, a capped node axis): outputs must be
                 byte-identical, B3's at widths 1, 8 and 16, and B3's
-                equal to B1's on the same problem.
+                equal to B1's on the same problem. The dense kernel B7
+                and `pack_flat` on the same problems laid out densely
+                (bound rows as one-hot existing_mask rows, their quotas
+                as quota rows), and on LP-planned rows with quotas, in
+                both modes: byte-identical to their plain versions, and
+                B7's assignments, node counts, unschedulable pods and
+                free rows equal to B1's on the same problem.
   4. main path — `solve()` the benchmark problem (50k pods x 500
                 instance types, seed 42) as a user would, on each of
                 the port's routes, with the kernel launch counts set to
@@ -92,6 +98,25 @@ Phases, each reported on its own line; any failure exits non-zero:
                 per dispatch and per lane, their plain versions', their
                 bounds, the clusters the card holds at once and the
                 memory the wavefront program took.
+  9. dense    — the dense kernel B7 (`pack`, `pack_flat`): the port's
+                `graft_entry.entry()` on the card (the counterpart of the
+                JAX package's `__graft_entry__.entry()`: 64 pods x 8
+                types, seed 7, 128 rows), with the launch counts set to
+                0 before and read after; it must launch B7 once and
+                equal the plain version and `entry(device="cpu")`. Then
+                the dense ≡ split oracle at full width on what phases 4
+                and 6 staged: the first request (50k x 500, ffd), the
+                second (its bound rows as one-hot existing_mask rows)
+                and reserved_50k's cost arm (planned rows with quotas),
+                each on `max_nodes` = the split axis: B7 and `pack_flat`
+                (decoded as the host reads it) must equal B1 on every
+                assignment, node count, unschedulable tally and free
+                row, with the bound rows left one-hot, and B7 must equal
+                its plain version byte for byte. B7's CUDA-event times
+                on each of them in turns with B1's on the same problem,
+                on the entry problem, the epilogue's on the first
+                request's outputs, the plain versions', and their
+                bounds.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -114,6 +139,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 N_PODS, N_TYPES, SEED = 50_000, 500, 42
 N_EXTRA = 10_000
@@ -123,6 +149,8 @@ WARM_SOLVES = 5
 SMALL_GROUPS = 5
 WIDTHS = (1, 8, 16)
 OUTPUTS = ("assign", "free_mask", "node_count", "unsched", "steps", "widths")
+DENSE_OUTPUTS = ("assign", "node_mask", "node_used", "node_active", "node_count",
+                 "unsched")
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_F32_OPS = 67e12
@@ -392,7 +420,7 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
              "pack_split_flat": pack}
     rec = {"price": [], "pp_calls": 0, "ascents": [], "plans": [], "cases": {},
            "mode_launches": {"ffd": {}, "cost": {}}, "times": {}, "mode": "ffd",
-           "base_price": None}
+           "arm": None, "base_price": None}
 
     def timed(key, fn):
         def wrapper(*a, **k):
@@ -422,6 +450,8 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
 
     def stage(*a, **k):
         st = real["stage"](*a, **k)
+        if rec["arm"] == "cost":
+            rec["cost_staged"] = st  # the planned pack, for phase 9
         if rec["mode"] == "cost":
             key = tuple(None if x is None else x.shape
                         for x in (*st.args, *st.kwargs.values())) + (st.max_free,)
@@ -442,7 +472,7 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
     def solve_packing(enc, mode, device, plan=None):
         arm = "ffd" if plan is None else (
             "cost" if enc.cfg_price is rec["base_price"] else "rank")
-        rec["mode"] = mode
+        rec["mode"], rec["arm"] = mode, arm
         return timed(f"pack {arm}", real["_solve_packing"])(enc, mode, device, plan)
 
     def encode(*a, **k):
@@ -592,7 +622,235 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
     solver.reset_caches()
     say("  card and CPU fingerprints equal on both problems")
     return {"price_inputs": picks.get("first round", picks["seed"]),
-            "ascent": rec["ascents"][0]}
+            "ascent": rec["ascents"][0], "staged": rec["cost_staged"]}
+
+
+def hold_dense(pd, kernels, case, err: dict) -> str:
+    """B7 and its flat epilogue against their plain versions on the card
+    on `case` (a testing.DenseCase), byte for byte on every output, and
+    the dense ≡ split oracle against B1 on the same problem; fail
+    otherwise. Returns a summary."""
+    import torch
+
+    from karpenter_tpu_torch.testing import split_mismatch
+
+    args, kw = to_cuda(case)
+    got = pd.pack(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    torch.cuda.synchronize()
+    want = pd.pack_ref(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    torch.cuda.synchronize()
+    for label, a, b in zip(DENSE_OUTPUTS, got, want):
+        if not same_bits(a, b):
+            fail(f"pack differs from pack_ref on {case.name}: {label}")
+        err["pack"] = max(err["pack"], max_abs_diff(a, b))
+    flat = pd.pack_flat(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    torch.cuda.synchronize()
+    flat_ref = pd.pack_flat_ref(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    if not same_bits(flat, flat_ref):
+        fail(f"pack_flat differs from pack_flat_ref on {case.name}")
+    err["pack_flat"] = max(err["pack_flat"], max_abs_diff(flat, flat_ref))
+    s_args, s_kw = to_cuda(case.split)
+    split = kernels.pack_split(*s_args, max_free=case.split.max_free, mode=case.mode, **s_kw)
+    bad = split_mismatch(got, split, args[6])
+    if bad is not None:
+        fail(f"pack differs from pack_split (B1) on {case.name}: {bad}")
+    return (f"  dense case {case.name} mode={case.mode} Gp={args[0].shape[0]} "
+            f"Cp={args[0].shape[1]} N={case.max_nodes} E={case.Ep}: nodes={int(got[4])} "
+            f"unsched={int(got[5].sum())} identical, equal to B1")
+
+
+def decode_dense_flat(flat, N: int, G: int, C: int):
+    """`pack_flat`'s buffer read on the host as the JAX package's fetch
+    reads it: (assign [N, G], node_mask [N, C], None, None, node_count,
+    unsched), the places of node_used and node_active empty."""
+    import numpy as np
+
+    u = flat.cpu().numpy().view(np.uint32)
+    W = C // 32
+    o0 = N * G
+    o1 = o0 + N * W
+    words = np.ascontiguousarray(u[o0:o1].reshape(N, W))
+    bits = np.unpackbits(words.view(np.uint8).reshape(N, W * 4), axis=1,
+                         bitorder="little")
+    return (u[:o0].reshape(N, G).astype(np.int32), bits[:, :C].astype(bool),
+            None, None, np.int32(u[o1]), u[o1 + 1:o1 + 1 + G].astype(np.int32))
+
+
+def b7_ops(pd, args, kw, max_nodes: int, mode: str) -> int:
+    """The f32 operations B7 must do on these inputs: per group with
+    demand, one capacity term per requested resource for each (row below
+    node_count, config) pair still in the row's mask and compatible with
+    the group, with the masks as they stand when the group starts
+    (replayed through the plain version). The prefix scan, the usage
+    update and the open picks are left out, so the bound is a floor."""
+    compat, group_req = args[0], args[1]
+    n_req = (group_req > 0).sum(dim=1).tolist()
+    terms = [0]
+
+    def on_group(g, node_mask, node_count):
+        pairs = int((node_mask[:node_count] & compat[g][None, :]).sum())
+        terms[0] += pairs * n_req[g]
+
+    pd.pack_ref(*args, max_nodes=max_nodes, mode=mode, on_group=on_group, **kw)
+    return terms[0] * OPS_PER_CAP_TERM
+
+
+def bound(ops: int, nb: int):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for `ops` f32 operations and `nb` bytes moved."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nb / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def dense_phase(pd, kernels, graft_entry, staged: dict, err: dict, smi: str) -> dict:
+    """Phase 9: B7 on the card. The port's `graft_entry.entry()` (one
+    launch of B7), then the dense ≡ split oracle at full width on the
+    requests phases 4 and 6 staged, then B7's and its epilogue's times;
+    returns the kernels' report entries and the launches."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.testing import dense_case, split_mismatch
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # ---- the entry problem, as the JAX package's __graft_entry__ runs it
+    pd.reset_launch_counts()
+    fn, e_args = graft_entry.entry()
+    e_out = fn(*e_args)
+    torch.cuda.synchronize()
+    launches["entry"] = dict(pd.LAUNCHES)
+    if launches["entry"]["pack"] != 1:
+        fail(f"entry() launched {launches['entry']}: expected B7 once")
+    e_ref = pd.pack_ref(*e_args, max_nodes=graft_entry.MAX_NODES)
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    e_cpu = cpu_fn(*cpu_args)
+    for label, a, b, c in zip(DENSE_OUTPUTS, e_out, e_ref, e_cpu):
+        if not (same_bits(a, b) and same_bits(a.cpu(), c)):
+            fail(f"entry(): B7 differs from the plain version on the card or "
+                 f"the CPU: {label}")
+        err["pack"] = max(err["pack"], max_abs_diff(a, b))
+    say(f"phase 9 dense: entry() (Gp={e_args[0].shape[0]} Cp={e_args[0].shape[1]} "
+        f"N={graft_entry.MAX_NODES}) launched {json.dumps(launches['entry'])}: "
+        f"nodes={int(e_out[4])} unsched={int(e_out[5].sum())}, equal to the plain "
+        f"version on the card and on the CPU")
+
+    # ---- full width: each request's staged split problem laid out
+    # densely, max_nodes = Ep + max_free; B7 (and pack_flat, decoded as
+    # the host would) against B1 on the same problem
+    cases = [dense_case(st, name, mode) for name, (st, mode) in staged.items()]
+    inputs = {c.name: to_cuda(c) for c in cases}
+    pd.reset_launch_counts()
+    outs, rows = {}, []
+    for c in cases:
+        args, kw = inputs[c.name]
+        s_args, s_kw = to_cuda(c.split)
+        t0 = time.perf_counter()
+        got = pd.pack(*args, max_nodes=c.max_nodes, mode=c.mode, **kw)
+        flat = pd.pack_flat(*args, max_nodes=c.max_nodes, mode=c.mode, **kw)
+        split = kernels.pack_split(*s_args, max_free=c.split.max_free, mode=c.mode, **s_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = split_mismatch(got, split, args[6])
+        host = [x.cpu().numpy() for x in split]
+        decoded = decode_dense_flat(flat, c.max_nodes, args[0].shape[0], args[0].shape[1])
+        bad = bad or split_mismatch(decoded, host, args[6].cpu().numpy())
+        if bad is not None:
+            fail(f"full width {c.name}: B7 differs from B1 (pack_split): {bad}")
+        outs[c.name] = got
+        rows.append(f"{c.name} ({c.mode}, Gp={args[0].shape[0]} Cp={args[0].shape[1]} "
+                    f"E={c.Ep} N={c.max_nodes}): nodes={int(got[4])} "
+                    f"bound pods={int(got[0][:c.Ep].sum())} unsched={int(got[5].sum())}, "
+                    f"{wall:.3f}s for B7, pack_flat and B1")
+    torch.cuda.synchronize()
+    launches["full width"] = dict(pd.LAUNCHES)
+    n = launches["full width"]
+    if n["pack"] != 2 * len(cases) or n["pack_flat"] != len(cases):
+        fail(f"the full-width oracle launched {n}: expected B7 twice and its "
+             f"epilogue once per request")
+    say(f"  full width, B7 equal to B1 on assignments, node counts, "
+        f"unschedulable pods and free rows, bound rows one-hot, launches "
+        f"{json.dumps(n)}:")
+    for row in rows:
+        say(f"    {row}")
+
+    # ---- the plain version on each request (timed on the first), and
+    # B7's and the epilogue's CUDA-event times
+    first = cases[0]
+    for c in cases:
+        args, kw = inputs[c.name]
+        t0 = time.perf_counter()
+        want = pd.pack_ref(*args, max_nodes=c.max_nodes, mode=c.mode, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for label, a, b in zip(DENSE_OUTPUTS, outs[c.name], want):
+            if not same_bits(a, b):
+                fail(f"full width {c.name}: pack differs from pack_ref: {label}")
+            err["pack"] = max(err["pack"], max_abs_diff(a, b))
+        if c is first:
+            b7_plain_ms = plain_s * 1e3
+    # B7 and B1 on the same problem, in turns on the same card (B7, B1,
+    # B1, B7), on each request
+    times = {}
+    for c in cases:
+        args, kw = inputs[c.name]
+        s_args, s_kw = to_cuda(c.split)
+        b7 = (lambda args=args, kw=kw, c=c:
+              pd.pack(*args, max_nodes=c.max_nodes, mode=c.mode, **kw))
+        b1 = (lambda s_args=s_args, s_kw=s_kw, c=c:
+              kernels.pack_split(*s_args, max_free=c.split.max_free, mode=c.mode, **s_kw))
+        b7_runs, b1_runs = [event_ms(b7, 3)], [event_ms(b1, 3), event_ms(b1, 3)]
+        b7_runs.append(event_ms(b7, 3))
+        times[c.name] = (b7_runs, b1_runs)
+    args, kw = inputs[first.name]
+    N = first.max_nodes
+    b7_ms = statistics.mean(times[first.name][0])
+    e_ms = event_ms(lambda: fn(*e_args), 50)
+    e_plain_ms = event_ms(lambda: pd.pack_ref(*e_args, max_nodes=graft_entry.MAX_NODES),
+                          2, queued=False)
+    o = outs[first.name]
+    fw_in = (o[0], o[1], o[4], o[5])
+    flat_ms = event_ms(lambda: pd.flat_words(*fw_in), 50)
+    flat_host_ms = event_ms(lambda: pd.flat_words(*fw_in), 50, queued=False)
+    flat_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*fw_in), 20,
+                             queued=False)
+    flat = pd.flat_words(*fw_in)
+    if not same_bits(flat, kernels.pack_flat_words_ref(*fw_in)):
+        fail("pack_flat's epilogue differs from its plain version at full width")
+
+    b7_op_count = b7_ops(pd, args, kw, N, first.mode)
+    b7_bytes = nbytes(list(args) + list(kw.values())) + nbytes(o)
+    b7_bound, b7_by = bound(b7_op_count, b7_bytes)
+    flat_bound, flat_by = bound(o[1].numel(), nbytes(fw_in) + nbytes([flat]))
+    for name, (b7_runs, b1_runs) in times.items():
+        say(f"  {name}: B7 {', '.join(f'{x:.4f}' for x in b7_runs)} ms, B1 "
+            f"{', '.join(f'{x:.4f}' for x in b1_runs)} ms on the same problem")
+    say(f"  timing on {first.name} (Gp={args[0].shape[0]} Cp={args[0].shape[1]} "
+        f"N={N} R={args[1].shape[1]}): B7 {b7_ms:.4f} ms, plain "
+        f"{b7_plain_ms:.1f} ms; ops={b7_op_count} bytes={b7_bytes}; epilogue "
+        f"{flat_ms:.6f} ms on the card, {flat_host_ms:.6f} ms a call as the host "
+        f"launches it, plain {flat_plain_ms:.3f} ms | entry problem: B7 {e_ms:.6f} ms, "
+        f"plain {e_plain_ms:.3f} ms | card: {smi}")
+    say(f"  phase 9 took {time.perf_counter() - t_phase:.3f}s")
+    return {"launches": launches, "entries": [
+        {"name": "pack", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/pack_dense.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:164",
+         "launches": sum(x["pack"] for x in launches.values()),
+         "max_abs_err": err["pack"], "ms": b7_ms, "plain_ms": b7_plain_ms,
+         "bound_ms": b7_bound, "bound_by": b7_by, "library_ms": None},
+        {"name": "pack_flat", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/pack_flat.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:431",
+         "launches": sum(x["pack_flat"] for x in launches.values()),
+         "max_abs_err": err["pack_flat"], "ms": flat_ms, "plain_ms": flat_plain_ms,
+         "bound_ms": flat_bound, "bound_by": flat_by, "library_ms": None},
+    ]}
 
 
 def same_outputs(got, want) -> bool:
@@ -973,7 +1231,6 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     flat_host_ms = event_ms(lambda: kernels.pack_flat_lanes(*flat_in), 20, queued=False)
     flat_plain_ms = event_ms(lambda: kernels.pack_flat_lanes_ref(*flat_in), 2,
                              queued=False)
-    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
     in_bytes = nbytes(list(args) + list(kw.values()))
     ops = 0
     for lane in range(n_real):
@@ -1054,8 +1311,8 @@ def main() -> None:
         fail(f"expected one visible card, got {torch.cuda.device_count()}")
     sys.path.insert(0, HERE)
     try:
-        from karpenter_tpu_torch import cuda_build
-        from karpenter_tpu_torch.solver import pack, pack_split as kernels
+        from karpenter_tpu_torch import cuda_build, graft_entry
+        from karpenter_tpu_torch.solver import pack, pack_dense, pack_split as kernels
         from karpenter_tpu_torch.solver.solver import (
             _build_solution_arrays,
             fingerprint,
@@ -1070,6 +1327,7 @@ def main() -> None:
             PRICE_CASES,
             KernelCase,
             ascent_cases,
+            dense_cases,
             existing_from_solution,
             kernel_cases,
             price_cases,
@@ -1107,6 +1365,10 @@ def main() -> None:
     cases = kernel_cases(0)
     for case in cases:
         say(hold(kernels, case, err, widths=WIDTHS))
+    err.update({"pack": 0.0, "pack_flat": 0.0})
+    dcases = dense_cases(0, kernel=cases)
+    for case in dcases:
+        say(hold_dense(pack_dense, kernels, case, err))
     err.update({"lp_price": 0.0, "lp_ascend": 0.0})
     for name, case in price_cases(0):
         say(hold_price(lp_plan, name, [torch.from_numpy(x).cuda() for x in case], err))
@@ -1115,7 +1377,8 @@ def main() -> None:
             say(hold_ascent(lp_device, f"{name}-{n_iters}", inputs.to("cuda"),
                             n_iters, err))
     say(f"phase 3 kernels: {len(cases)} seeded packing problems byte-identical to "
-        f"the plain versions, B3 at widths {WIDTHS} equal to B1; B4 on "
+        f"the plain versions, B3 at widths {WIDTHS} equal to B1; B7 and pack_flat "
+        f"on {len(dcases)} dense ones byte-identical, B7 equal to B1; B4 on "
         f"{len(PRICE_CASES)} and B5 on {3 * len(ASCENT_ITERS)} seeded cases "
         f"bit-identical ({time.perf_counter() - t0:.3f}s)")
 
@@ -1130,6 +1393,7 @@ def main() -> None:
     staged_cases: dict[tuple, KernelCase] = {}
     label = ""
     timed: KernelCase | None = None  # the warm first request's inputs
+    last_staged: dict = {}  # each route's last staged problem, for phase 9
     results: dict[str, list] = {}
     real_stage, real_solve_packing = pack.stage, pack.solve_packing
 
@@ -1140,9 +1404,10 @@ def main() -> None:
             None if x is None else x.shape for x in (*st.args, *st.kwargs.values())
         ) + (st.max_free,)
         case = staged_cases.setdefault(
-            key, KernelCase(f"main-path-{label}", st.args, st.kwargs, st.max_free, "ffd"))
+            key, KernelCase(f"main-path-{label}", st.args, st.kwargs, st.max_free, "ffd", st))
         if label == "first-warm":
             timed = case
+        last_staged[label] = st
         return st
 
     def recording_solve_packing(enc, *a, **k):
@@ -1330,17 +1595,12 @@ def main() -> None:
     R = args[1].shape[1]
     # B3 computes B1's function: the work its inputs need is B1's
     b1_op_count = b1_ops(kernels, args, kw, F)
-    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
     in_bytes = nbytes(list(args) + list(kw.values()))
     b1_bytes = in_bytes + nbytes(out1)
     b3_bytes = in_bytes + nbytes(out3)
     flat = kernels.pack_flat_words(*b2_in)
     b2_bytes = nbytes(b2_in) + nbytes([flat])
     b2_op_count = out3[1].numel()
-
-    def bound(ops, nb):
-        t_ops, t_bytes = ops / PEAK_F32_OPS, nb / PEAK_BYTES
-        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
     b1_bound, b1_by = bound(b1_op_count, b1_bytes)
     b3_bound, b3_by = bound(b1_op_count, b3_bytes)
@@ -1382,6 +1642,14 @@ def main() -> None:
 
     # ---- 8. the consolidation probe path
     probes = probe_phase(kernels, consolidation_batch, lp_device, cuda_build, err, smi)
+
+    # ---- 9. the dense kernel B7: the entry problem, and the dense ≡
+    # split oracle at full width on what phases 4 and 6 staged
+    dense = dense_phase(pack_dense, kernels, graft_entry, {
+        "first request": (last_staged["first-warm"], "ffd"),
+        "second request": (last_staged["second"], "ffd"),
+        "reserved_50k cost arm": (recorded["staged"], "cost"),
+    }, err, smi)
     route_launches = {
         name: sum(n[name] for n in (*launches.values(), *probes["launches"].values()))
         for name in ("pack_split", "pack_split_wavefront", "pack_split_flat")
@@ -1419,7 +1687,9 @@ def main() -> None:
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bound,
          "bound_by": b5_by, "library_ms": None},
         *probes["entries"],
+        *dense["entries"],
     ]}
+    say(f"chip_smoke: {time.perf_counter() - T_START:.3f}s wall")
     say(json.dumps(report))
     say(smi)
     say(json.dumps({"ok": True, "device": {

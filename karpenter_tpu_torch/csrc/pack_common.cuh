@@ -1,10 +1,12 @@
-// Device code shared by the packing kernels B1 (pack_split.cu) and B3
-// (pack_wavefront.cu): the capacity of a row for a group, the
-// order-preserving (value, index) keys of the arg-reductions, the
-// block-wide scan of the prefix fill, and the reservation and conflict
-// lookups on a kernel's argument struct (both name the fields alike).
-// Both kernels run blocks of kThreads threads; block_scan needs exactly
-// 32 warps.
+// Device code shared by the packing kernels B1 (pack_split.cu), B3
+// (pack_wavefront.cu) and B7 (pack_dense.cu): the capacity of a row for
+// a group, the order-preserving (value, index) keys of the
+// arg-reductions, the block-wide scan of the prefix fill, the
+// reservation and conflict lookups on a kernel's argument struct (the
+// kernels name the fields alike), and the two phases of a group step
+// that B1 and B7 run alike, the prefix fill (`prefix_fill`) and the
+// bulk open (`bulk_open`). The kernels run blocks of kThreads threads;
+// block_scan needs exactly 32 warps.
 //
 // Float arithmetic uses explicit round-to-nearest intrinsics in the
 // JAX order of operations, so nothing depends on FMA contraction (the
@@ -106,6 +108,222 @@ __device__ __forceinline__ bool blocked(const A& a, int n, int g) {
   for (int h = 0; h < a.G; ++h)
     if (crow[h] && arow[h] > 0) return true;
   return false;
+}
+
+
+// The prefix fill of one group with demand r > 0 over rows [0, nscan)
+// in index order: take[n] = clip(r - sum_{m<n} kcap[m], 0, kcap[n]),
+// exact in 64 bits and clamped at r (equal to the JAX kernels'
+// saturating uint32 scan). The block scans chunk by chunk and stops at
+// the chunk where the demand is met. Returns the end of the rows whose
+// take was written (later rows take 0) and, in *placed, the pods the
+// fill placed. All threads of the block call it.
+__device__ int prefix_fill(const int32_t* kcap, int32_t* take, int nscan,
+                           long long r, long long* placed) {
+  __shared__ long long s_warp[kWarps];
+  __shared__ long long s_total;
+  __shared__ long long s_carry;
+  __shared__ int s_scan_end;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_carry = 0;
+    s_scan_end = nscan;
+  }
+  __syncthreads();
+  for (int base = 0; base < nscan; base += kThreads) {
+    const int n = base + tid;
+    long long kc = 0;
+    if (n < nscan) kc = min((long long)kcap[n], r);
+    long long incl = block_scan(kc, s_warp, &s_total);
+    long long prefix = s_carry + incl - kc;
+    if (prefix > r) prefix = r;
+    if (n < nscan) take[n] = (int)min(r - prefix, kc);
+    __syncthreads();
+    if (tid == 0) {
+      s_carry += s_total;
+      if (s_carry >= r) s_scan_end = min(base + kThreads, nscan);
+    }
+    __syncthreads();
+    if (s_carry >= r) break;
+  }
+  const int end = s_scan_end;
+  *placed = min(s_carry, r);
+  __syncthreads();  // the statics are rewritten by the next call
+  return end;
+}
+
+// One group's bulk open (the JAX kernels' open_cond / open_round loop):
+// while pods remain, a row is free and some config of the group fits a
+// fresh node of its pool under its reservation budget, take the lowest
+// pool among those configs, then the column c* (cost: least price per
+// pod; ffd: a reserved column cheaper than every uncapped one by
+// capacity, else the most capacity), and open q rows at once, q - 1
+// with m* pods and the last with the rest. Row n of the node axis keeps
+// its mask at mask[(n - row0) * C] and its usage at used[(n - row0) *
+// R] (B1: the fresh block after row0 = B bound rows; B7: the whole
+// axis, row0 = 0) and its assignment at a.assign[n * G]; `active`, when
+// not null, marks the opened rows. *remaining and *node_count are the
+// caller's shared state. All threads of the block call it.
+template <class A>
+__device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* req,
+                          int N, int row0, uint8_t* mask, float* used,
+                          uint8_t* active, int* remaining, int* node_count) {
+  __shared__ float s_oh[kMaxR];
+  __shared__ int s_go, s_pool, s_any;
+  __shared__ unsigned long long s_key0, s_key1, s_key2;
+  __shared__ uint32_t s_minu;
+  __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_slot, s_lo, s_capped;
+  const int tid = threadIdx.x;
+  const int C = a.C, R = a.R, G = a.G;
+  const int gcap = a.group_cap ? a.group_cap[g] : kIntBig;
+
+  // configs a fresh node of their pool holds one pod of the group on,
+  // after the pool's overhead (pseudo-configs, pool -1, never)
+  for (int c = tid; c < C; c += kThreads) {
+    int p = a.cfg_pool[c];
+    uint8_t ok = row[c] && p >= 0;
+    if (ok) {
+      const float* oh = a.pool_overhead + (size_t)p * R;
+      const float* al = a.cfg_alloc + (size_t)c * R;
+      for (int q = 0; q < R; ++q)
+        if (!(oh[q] <= __fsub_rn(al[q], req[q]))) { ok = 0; break; }
+    }
+    a.fits[c] = ok;
+  }
+  __syncthreads();
+  while (true) {
+    if (tid == 0) {
+      s_any = 0;
+      s_pool = kIntBig;
+    }
+    __syncthreads();
+    // which configs can still open, and the lowest pool among them
+    int my_pool = kIntBig;
+    int my_any = 0;
+    for (int c = tid; c < C; c += kThreads) {
+      if (!a.fits[c]) continue;
+      int s = slot_of(a, c);
+      if (a.rsv_used[s] < cap_ext(a, s)) {
+        my_any = 1;
+        my_pool = min(my_pool, a.cfg_pool[c]);
+      }
+    }
+    if (my_any) {
+      atomicOr(&s_any, 1);
+      atomicMin(&s_pool, my_pool);
+    }
+    __syncthreads();
+    if (tid == 0) s_go = (*remaining > 0 && *node_count < N && s_any) ? 1 : 0;
+    __syncthreads();
+    if (!s_go) break;
+    const int pool = s_pool;
+    if (tid < R) s_oh[tid] = a.pool_overhead[(size_t)pool * R + tid];
+    if (tid == 0) {
+      s_key0 = ~0ull;
+      s_key1 = ~0ull;
+      s_key2 = ~0ull;
+      s_minu = float_key(kBig);
+    }
+    __syncthreads();
+    // open capacity per config in the chosen pool; cost mode reduces
+    // argmin price-per-pod, ffd mode the cheapest uncapped price first
+    unsigned long long k0 = ~0ull;
+    uint32_t mu = float_key(kBig);
+    for (int c = tid; c < C; c += kThreads) {
+      int kf = 0;
+      if (a.fits[c] && a.cfg_pool[c] == pool) {
+        int s = slot_of(a, c);
+        if (a.rsv_used[s] < cap_ext(a, s))
+          kf = capacity(a.cfg_alloc + (size_t)c * R, s_oh, req, R);
+      }
+      a.kopen[c] = kf;
+      if (a.cost) {
+        float ppp = kf >= 1 ? __fdiv_rn(a.cfg_price[c], (float)max(kf, 1)) : kBig;
+        unsigned long long key = pack_key(float_key(ppp), c);
+        if (key < k0) k0 = key;
+      } else if (kf >= 1 && a.cfg_rsv[c] < 0) {
+        uint32_t pk = float_key(a.cfg_price[c]);
+        if (pk < mu) mu = pk;
+      }
+    }
+    if (a.cost) {
+      if (k0 != ~0ull) atomicMin(&s_key0, k0);
+    } else {
+      atomicMin(&s_minu, mu);
+    }
+    __syncthreads();
+    if (!a.cost) {
+      // reserved columns cheaper than every uncapped one win by
+      // capacity; else the column with the most capacity
+      unsigned long long k1 = ~0ull, k2 = ~0ull;
+      const float min_uncapped = key_float(s_minu);
+      for (int c = tid; c < C; c += kThreads) {
+        int kf = a.kopen[c];
+        unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), c);
+        if (key2 < k2) k2 = key2;
+        if (kf >= 1 && a.cfg_rsv[c] >= 0 && a.cfg_price[c] < min_uncapped) {
+          unsigned long long key1 = pack_key((uint32_t)(kIntBig - kf), c);
+          if (key1 < k1) k1 = key1;
+        }
+      }
+      if (k1 != ~0ull) atomicMin(&s_key1, k1);
+      atomicMin(&s_key2, k2);
+      __syncthreads();
+    }
+    if (tid == 0) {
+      int cs;
+      if (a.cost) cs = (int)(s_key0 & 0xffffffffull);
+      else cs = (int)(((s_key1 != ~0ull) ? s_key1 : s_key2) & 0xffffffffull);
+      int rem = *remaining;
+      int nc = *node_count;
+      int ms = max(a.kopen[cs], 1);
+      if (a.group_cap) ms = min(max(gcap, 1), ms);
+      int slot = slot_of(a, cs);
+      float cap_left = fminf(__fsub_rn(cap_ext(a, slot), a.rsv_used[slot]), kCapMax);
+      int q = min((rem - 1) / ms + 1, N - nc);
+      q = min(q, (int)fmaxf(cap_left, 0.0f));
+      q = max(q, 1);
+      int rl = min(max(rem - (q - 1) * ms, 1), ms);
+      s_cstar = cs;
+      s_mstar = ms;
+      s_q = q;
+      s_remlast = rl;
+      s_slot = slot;
+      s_lo = nc - row0;
+      s_capped = a.cfg_rsv[cs] >= 0;
+    }
+    __syncthreads();
+    // write the q new rows: full ones, then the partial last one
+    {
+      const int lo = s_lo, q = s_q, ms = s_mstar, rl = s_remlast, cs = s_cstar;
+      const int capped_star = s_capped;
+      for (int i = tid; i < q * C; i += kThreads) {
+        int f = lo + i / C;
+        int c = i % C;
+        int thr = (f == lo + q - 1) ? rl : ms;
+        int kf = a.kopen[c];
+        uint8_t m = (a.cfg_rsv[c] < 0 && kf >= 1 && kf >= thr) ? 1 : 0;
+        if (capped_star && c == cs) m = 1;
+        mask[(size_t)f * C + c] = m;
+      }
+      for (int i = tid; i < q; i += kThreads) {
+        int f = lo + i;
+        int fill = (i == q - 1) ? rl : ms;
+        float ff = (float)fill;
+        for (int x = 0; x < R; ++x)
+          used[(size_t)f * R + x] = __fadd_rn(s_oh[x], __fmul_rn(ff, req[x]));
+        a.assign[(size_t)(row0 + f) * G + g] += fill;
+        if (active) active[row0 + f] = 1;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      *node_count += s_q;
+      *remaining -= (s_q - 1) * s_mstar + s_remlast;
+      a.rsv_used[s_slot] = __fadd_rn(a.rsv_used[s_slot], (float)s_q);
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace

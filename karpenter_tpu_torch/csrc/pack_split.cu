@@ -29,7 +29,9 @@
 // work.
 //
 // The capacity, the reduction keys and the block scan live in
-// pack_common.cuh, shared with B3 (pack_wavefront.cu).
+// pack_common.cuh, shared with B3 (pack_wavefront.cu); so do the prefix
+// fill (phase 2) and the bulk open (phase 4), shared with B7
+// (pack_dense.cu).
 //
 // B6, sequential route: the same kernel over a lane axis
 // (karpenter_tpu/solver/pack.py:1227 `pack_probe_lanes_flat` with
@@ -113,19 +115,8 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
   const int N = B + F;
 
   __shared__ float s_req[kMaxR];
-  __shared__ float s_oh[kMaxR];
-  __shared__ long long s_warp[kWarps];
-  __shared__ long long s_total;
-  __shared__ long long s_carry;
   __shared__ int s_remaining;
   __shared__ int s_node_count;
-  __shared__ int s_scan_end;
-  __shared__ int s_go;
-  __shared__ int s_pool;
-  __shared__ int s_any;
-  __shared__ unsigned long long s_key0, s_key1, s_key2;
-  __shared__ uint32_t s_minu;
-  __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_slot, s_lo, s_capped;
 
   // ---- state init: usage copies and reservation use of bound rows
   for (int i = tid; i < B * R; i += kThreads) a.bound_used[i] = a.bound_used0[i];
@@ -194,32 +185,12 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
         a.kcap[B + f] = kf;
       }
     }
-    if (tid == 0) {
-      s_carry = 0;
-      s_scan_end = B + nfresh;
-    }
-    __syncthreads();
 
     // ---- 2. prefix fill over rows [0, B + nfresh) in index order
+    // (its first barrier orders the capacities before the scan)
     const long long r = (long long)remaining0;
-    const int nscan = B + nfresh;
-    for (int base = 0; base < nscan; base += kThreads) {
-      const int n = base + tid;
-      long long kc = 0;
-      if (n < nscan) kc = min((long long)a.kcap[n], r);
-      long long incl = block_scan(kc, s_warp, &s_total);
-      long long prefix = s_carry + incl - kc;
-      if (prefix > r) prefix = r;
-      if (n < nscan) a.take[n] = (int)min(r - prefix, kc);
-      __syncthreads();
-      if (tid == 0) {
-        s_carry += s_total;
-        if (s_carry >= r) s_scan_end = min(base + kThreads, nscan);
-      }
-      __syncthreads();
-      if (s_carry >= r) break;
-    }
-    const int scan_end = s_scan_end;
+    long long placed;
+    const int scan_end = prefix_fill(a.kcap, a.take, B + nfresh, r, &placed);
 
     // ---- 3. apply the takes
     for (int b = tid; b < min(B, scan_end); b += kThreads) {
@@ -250,158 +221,13 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
       float tf = (float)t;
       if (lane < R) used[lane] = __fadd_rn(used[lane], __fmul_rn(tf, s_req[lane]));
     }
-    if (tid == 0) s_remaining = remaining0 - (int)min(s_carry, r);
+    if (tid == 0) s_remaining = remaining0 - (int)placed;
     __syncthreads();
 
     // ---- 4. bulk open on the fresh axis
-    if (s_remaining > 0) {
-      for (int c = tid; c < C; c += kThreads) {
-        int p = a.cfg_pool[c];
-        uint8_t ok = row[c] && p >= 0;
-        if (ok) {
-          const float* oh = a.pool_overhead + (size_t)p * R;
-          const float* al = a.cfg_alloc + (size_t)c * R;
-          for (int q = 0; q < R; ++q)
-            if (!(oh[q] <= __fsub_rn(al[q], s_req[q]))) { ok = 0; break; }
-        }
-        a.fits[c] = ok;
-      }
-      __syncthreads();
-      while (true) {
-        if (tid == 0) {
-          s_any = 0;
-          s_pool = kIntBig;
-        }
-        __syncthreads();
-        // which configs can still open, and the lowest pool among them
-        int my_pool = kIntBig;
-        int my_any = 0;
-        for (int c = tid; c < C; c += kThreads) {
-          if (!a.fits[c]) continue;
-          int s = slot_of(a, c);
-          if (a.rsv_used[s] < cap_ext(a, s)) {
-            my_any = 1;
-            my_pool = min(my_pool, a.cfg_pool[c]);
-          }
-        }
-        if (my_any) {
-          atomicOr(&s_any, 1);
-          atomicMin(&s_pool, my_pool);
-        }
-        __syncthreads();
-        if (tid == 0)
-          s_go = (s_remaining > 0 && s_node_count < N && s_any) ? 1 : 0;
-        __syncthreads();
-        if (!s_go) break;
-        const int pool = s_pool;
-        if (tid < R) s_oh[tid] = a.pool_overhead[(size_t)pool * R + tid];
-        if (tid == 0) {
-          s_key0 = ~0ull;
-          s_key1 = ~0ull;
-          s_key2 = ~0ull;
-          s_minu = float_key(kBig);
-        }
-        __syncthreads();
-        // open capacity per config in the chosen pool; cost mode
-        // reduces argmin price-per-pod, ffd mode the cheapest
-        // uncapped price first
-        unsigned long long k0 = ~0ull;
-        uint32_t mu = float_key(kBig);
-        for (int c = tid; c < C; c += kThreads) {
-          int kf = 0;
-          if (a.fits[c] && a.cfg_pool[c] == pool) {
-            int s = slot_of(a, c);
-            if (a.rsv_used[s] < cap_ext(a, s))
-              kf = capacity(a.cfg_alloc + (size_t)c * R, s_oh, s_req, R);
-          }
-          a.kopen[c] = kf;
-          if (a.cost) {
-            float ppp = kf >= 1 ? __fdiv_rn(a.cfg_price[c], (float)max(kf, 1)) : kBig;
-            unsigned long long key = pack_key(float_key(ppp), c);
-            if (key < k0) k0 = key;
-          } else if (kf >= 1 && a.cfg_rsv[c] < 0) {
-            uint32_t pk = float_key(a.cfg_price[c]);
-            if (pk < mu) mu = pk;
-          }
-        }
-        if (a.cost) {
-          if (k0 != ~0ull) atomicMin(&s_key0, k0);
-        } else {
-          atomicMin(&s_minu, mu);
-        }
-        __syncthreads();
-        if (!a.cost) {
-          // reserved columns cheaper than every uncapped one win by
-          // capacity; else the column with the most capacity
-          unsigned long long k1 = ~0ull, k2 = ~0ull;
-          const float min_uncapped = key_float(s_minu);
-          for (int c = tid; c < C; c += kThreads) {
-            int kf = a.kopen[c];
-            unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), c);
-            if (key2 < k2) k2 = key2;
-            if (kf >= 1 && a.cfg_rsv[c] >= 0 && a.cfg_price[c] < min_uncapped) {
-              unsigned long long key1 = pack_key((uint32_t)(kIntBig - kf), c);
-              if (key1 < k1) k1 = key1;
-            }
-          }
-          if (k1 != ~0ull) atomicMin(&s_key1, k1);
-          atomicMin(&s_key2, k2);
-          __syncthreads();
-        }
-        if (tid == 0) {
-          int cs;
-          if (a.cost) cs = (int)(s_key0 & 0xffffffffull);
-          else cs = (int)(((s_key1 != ~0ull) ? s_key1 : s_key2) & 0xffffffffull);
-          int rem = s_remaining;
-          int nc = s_node_count;
-          int ms = max(a.kopen[cs], 1);
-          if (a.group_cap) ms = min(max(gcap, 1), ms);
-          int slot = slot_of(a, cs);
-          float cap_left = fminf(__fsub_rn(cap_ext(a, slot), a.rsv_used[slot]), kCapMax);
-          int q = min((rem - 1) / ms + 1, N - nc);
-          q = min(q, (int)fmaxf(cap_left, 0.0f));
-          q = max(q, 1);
-          int rl = min(max(rem - (q - 1) * ms, 1), ms);
-          s_cstar = cs;
-          s_mstar = ms;
-          s_q = q;
-          s_remlast = rl;
-          s_slot = slot;
-          s_lo = nc - B;
-          s_capped = a.cfg_rsv[cs] >= 0;
-        }
-        __syncthreads();
-        // write the q new rows: full ones, then the partial last one
-        {
-          const int lo = s_lo, q = s_q, ms = s_mstar, rl = s_remlast, cs = s_cstar;
-          const int capped_star = s_capped;
-          for (int i = tid; i < q * C; i += kThreads) {
-            int f = lo + i / C;
-            int c = i % C;
-            int thr = (f == lo + q - 1) ? rl : ms;
-            int kf = a.kopen[c];
-            uint8_t m = (a.cfg_rsv[c] < 0 && kf >= 1 && kf >= thr) ? 1 : 0;
-            if (capped_star && c == cs) m = 1;
-            a.free_mask[(size_t)f * C + c] = m;
-          }
-          for (int i = tid; i < q; i += kThreads) {
-            int f = lo + i;
-            int fill = (i == q - 1) ? rl : ms;
-            float ff = (float)fill;
-            for (int x = 0; x < R; ++x)
-              a.free_used[(size_t)f * R + x] = __fadd_rn(s_oh[x], __fmul_rn(ff, s_req[x]));
-            a.assign[(size_t)(B + f) * G + g] += fill;
-          }
-        }
-        __syncthreads();
-        if (tid == 0) {
-          s_node_count += s_q;
-          s_remaining -= (s_q - 1) * s_mstar + s_remlast;
-          a.rsv_used[s_slot] = __fadd_rn(a.rsv_used[s_slot], (float)s_q);
-        }
-        __syncthreads();
-      }
-    }
+    if (s_remaining > 0)
+      bulk_open(a, g, row, s_req, N, B, a.free_mask, a.free_used, nullptr,
+                &s_remaining, &s_node_count);
     if (tid == 0) a.unsched[g] += max(s_remaining, 0);
     __syncthreads();
   }

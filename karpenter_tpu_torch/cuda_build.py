@@ -32,6 +32,7 @@ SOURCES = {
     "pack_split": "pack_split.cu",
     "pack_wavefront": "pack_wavefront.cu",
     "pack_flat": "pack_flat.cu",
+    "pack_dense": "pack_dense.cu",
     "lp_price": "lp_price.cu",
     "lp_ascend": "lp_ascend.cu",
 }
@@ -51,6 +52,7 @@ SIGNATURES = {
         "pack_probe_wavefront_launch": [_P] * 36 + [_I] * 10 + [_P, _P],
     },
     "pack_flat": {"pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P]},
+    "pack_dense": {"pack_dense_launch": [_P] * 25 + [_I] * 8 + [_P]},
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 3 + [_P]},
     "lp_ascend": {"lp_ascend_launch": [_P] * 26 + [_I] * 5 + [_P]},
 }

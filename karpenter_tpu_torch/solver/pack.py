@@ -9,7 +9,9 @@ bound-block staging, the wavefront routing, the uint32 decode of its
 The kernels themselves are in `pack_split.py`: B1
 `pack_split`, B3 `pack_split_wavefront` and B2 `pack_flat_words`,
 which run on the tensors' device — the hand-written CUDA kernels on a
-GPU, their plain versions on the CPU.
+GPU, their plain versions on the CPU. The dense kernel B7 (`pack`,
+`pack_flat`, in `pack_dense.py`) is re-exported here, where the JAX
+package defines it.
 
 Determinism: every kernel choice is an index-tie-broken arg-reduction
 over a static axis, so a solve is bit-reproducible and equal to the
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.solver.encode import Encoded
+from karpenter_tpu_torch.solver.pack_dense import pack, pack_flat  # noqa: F401
 from karpenter_tpu_torch.solver.pack_split import pack_split_flat
 
 

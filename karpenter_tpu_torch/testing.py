@@ -5,6 +5,10 @@ plain versions.
 `solver.pack.stage` produces them) that together cover both modes,
 capacity reservations, bound rows with per-group quotas, group caps,
 pairwise conflicts, negative and huge demand, and the node-axis cap.
+`dense_cases` lays the same problems, and LP-planned rows with quotas,
+out as inputs of the dense kernel B7 (`dense_case`: the bound block as
+one-hot `existing_mask` rows), each with its B1 twin for the dense ≡
+split oracle (`split_mismatch`).
 `price_cases` builds inputs of the pricing kernel B4 (exact density
 ties, exact fills, demand caps, the planner's padded shapes) and
 `ascent_cases` inputs of the dual-ascent kernel B5 (staged from encodes
@@ -56,6 +60,65 @@ class KernelCase:
     kwargs: dict         # optional pack_split inputs (numpy or None)
     max_free: int
     mode: str
+    staged: Optional[pack.Staged] = None  # what `pack.stage` returned
+
+
+@dataclass
+class DenseCase:
+    """Inputs of the dense kernel B7 (`pack_dense.pack`) as numpy."""
+    name: str
+    args: tuple          # the nine positional inputs
+    kwargs: dict         # quota, cfg_rsv, rsv_cap, group_cap, conflict
+    max_nodes: int
+    mode: str
+    Ep: int              # pre-opened rows: the split problem's bound block
+    split: KernelCase    # the same problem as B1's inputs
+
+
+def dense_case(staged: pack.Staged, name: str, mode: str) -> DenseCase:
+    """A staged B1 problem as B7's inputs, as the dense ≡ split oracle
+    of tests/test_pack_split_equivalence.py builds them: the bound block's
+    rows become one-hot `existing_mask` rows (dead rows empty), its
+    quotas the first rows of a [N, Gp] int16 quota (32767, no cap,
+    elsewhere), and `max_nodes` is the split axis, Ep + max_free."""
+    (compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
+     _, _, bound_used, _, bound_live, cfg_price) = staged.args
+    Ep, Cp = staged.Ep, compat.shape[1]
+    existing_mask = np.zeros((Ep, Cp), bool)
+    rows = np.flatnonzero(bound_live)
+    existing_mask[rows, staged.bound_cfg[rows]] = True
+    kw = dict(staged.kwargs)
+    bound_quota = kw.pop("bound_quota")
+    quota = None
+    if bound_quota is not None:
+        quota = np.full((staged.N, compat.shape[0]), np.int16(32767), np.int16)
+        quota[:Ep] = bound_quota
+    args = (compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
+            existing_mask, bound_used, cfg_price)
+    split = KernelCase(name, staged.args, staged.kwargs, staged.max_free, mode, staged)
+    return DenseCase(name, args, {"quota": quota, **kw}, staged.N, mode, Ep, split)
+
+
+def split_mismatch(dense, split, existing_mask) -> Optional[str]:
+    """The dense ≡ split oracle: B7's outputs `dense` (assign,
+    node_mask, node_used, node_active, node_count, unsched) against B1's
+    `split` (assign, free_mask, node_count, unsched) on one problem
+    (`dense_case`, whose `existing_mask` is passed). Assignments, node
+    counts and unschedulable tallies must be equal, the dense mask rows
+    past the bound block equal the free rows, and the bound rows stay as
+    they entered (one-hot, or empty when dead). Returns the name of the
+    first output that differs, else None."""
+    assign, node_mask, _, _, node_count, unsched = dense
+    s_assign, s_free, s_count, s_unsched = split
+    Ep = existing_mask.shape[0]
+    for name, a, b in (("assign", assign, s_assign),
+                       ("node_count", node_count, s_count),
+                       ("unsched", unsched, s_unsched),
+                       ("free rows", node_mask[Ep:], s_free),
+                       ("bound rows", node_mask[:Ep], existing_mask)):
+        if tuple(a.shape) != tuple(b.shape) or not bool((a == b).all()):
+            return name
+    return None
 
 
 def existing_from_solution(solution, prefix: str = "node-",
@@ -98,7 +161,7 @@ def _case(name, enc, mode, quota=None, max_nodes=0, existing_mask=None,
         existing_used = enc.existing_used
     n = max_nodes or pack.node_axis(enc, mode)
     staged = pack.stage(enc, existing_mask, existing_used, n, quota)
-    return KernelCase(name, staged.args, staged.kwargs, staged.max_free, mode)
+    return KernelCase(name, staged.args, staged.kwargs, staged.max_free, mode, staged)
 
 
 def kernel_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60) -> list[KernelCase]:
@@ -156,6 +219,35 @@ def kernel_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60) -> list[K
     counts[2] = 2**31 - 1 - int(np.clip(counts[3:], 0, None).sum()) - 1
     denc.group_count = counts.astype(np.int32)
     cases += [_case(f"demand-{m}", denc, m, max_nodes=256) for m in ("ffd", "cost")]
+    return cases
+
+
+def dense_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60,
+                kernel: Optional[list[KernelCase]] = None) -> list[DenseCase]:
+    """`kernel_cases` (or the given `kernel`, built with the same
+    arguments) as B7's inputs (`dense_case`), plus LP-planned rows:
+    pre-opened rows on launchable columns, reserved ones among them, at
+    their pool's overhead, with per-group quotas, in both modes."""
+    if kernel is None:
+        kernel = kernel_cases(seed, n_pods, n_types)
+    cases = [dense_case(kc.staged, kc.name, kc.mode) for kc in kernel]
+    rng = np.random.default_rng(seed + 3)
+    pods, pools = build_problem(n_pods, n_types, seed=seed + 1, reservations=True)
+    enc = encode(group_pods(pods), pools)
+    G, C = enc.compat.shape
+    launchable = np.flatnonzero(enc.cfg_pool >= 0)
+    capped = np.flatnonzero(enc.cfg_rsv >= 0)
+    cols = rng.choice(launchable, size=12)
+    n_capped = min(4, len(capped))
+    cols[:n_capped] = rng.choice(capped, size=n_capped, replace=False)
+    mask = np.zeros((len(cols), C), bool)
+    mask[np.arange(len(cols)), cols] = True
+    used = enc.pool_overhead[enc.cfg_pool[cols]].astype(np.float32)
+    quota = rng.integers(0, 6, size=(len(cols), G)).astype(np.int32)
+    for mode in ("ffd", "cost"):
+        n = len(cols) + pack.node_axis(enc, mode)
+        staged = pack.stage(enc, mask, used, n, quota)
+        cases.append(dense_case(staged, f"planned-quota-{mode}", mode))
     return cases
 
 

@@ -7,8 +7,10 @@ no CPU mode). On a GPU host:
 
 (`--noconftest`: the suite's conftest pins JAX to the CPU, and this
 file imports no JAX.) Covers B1-B5 and B6 (both lane programs, the
-wavefront one at cluster widths 8 and 16, and the lane epilogue), and
-the consolidation ladder on the card against the CPU. Tolerance:
+wavefront one at cluster widths 8 and 16, and the lane epilogue), B7
+(the dense kernel and its flat epilogue, held also to B1 on the same
+problems, and the port's `graft_entry.entry()` on the card), and the
+consolidation ladder on the card against the CPU. Tolerance:
 byte-identical outputs — the kernels use the plain versions' f32
 operation order and index tie-breaks.
 """
@@ -231,3 +233,61 @@ def test_consolidation_ladder_on_card_matches_cpu(cuda_kernels, monkeypatch):
     cpu = consolidation_ladder(*consolidation_fleet(1500, 30, device="cpu"),
                                batched=True, device="cpu")
     assert card.decisions == cpu.decisions and card.probes == cpu.probes
+
+
+@pytest.fixture(scope="module")
+def dense_kernels(cuda_kernels):
+    from karpenter_tpu_torch.solver import pack_dense
+    from karpenter_tpu_torch.testing import dense_cases
+
+    return pack_dense, dense_cases(1, n_pods=800, n_types=60)
+
+
+def _cuda_dense(case):
+    def put(x):
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    return [put(a) for a in case.args], {k: put(v) for k, v in case.kwargs.items()}
+
+
+@pytest.mark.parametrize("index", range(12))
+def test_dense_kernel_matches_plain_version_and_b1(dense_kernels, index):
+    from karpenter_tpu_torch.testing import split_mismatch
+
+    pd, cases = dense_kernels
+    case = cases[index]
+    args, kw = _cuda_dense(case)
+    before = dict(pd.LAUNCHES)
+    got = pd.pack(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    torch.cuda.synchronize()
+    assert pd.LAUNCHES["pack"] == before["pack"] + 1
+    want = pd.pack_ref(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    for a, b in zip(got, want):
+        assert _same_bits(a, b), case.name
+    flat = pd.pack_flat(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    torch.cuda.synchronize()
+    assert pd.LAUNCHES["pack_flat"] == before["pack_flat"] + 1
+    flat_ref = pd.pack_flat_ref(*args, max_nodes=case.max_nodes, mode=case.mode, **kw)
+    assert torch.equal(flat, flat_ref), case.name
+    # the dense ≡ split oracle on the card: B1 on the same problem
+    s_args, s_kw = _cuda(case.split)
+    from karpenter_tpu_torch.solver import pack_split
+
+    split = pack_split.pack_split(*s_args, max_free=case.split.max_free,
+                                  mode=case.mode, **s_kw)
+    assert split_mismatch(got, split, args[6]) is None, case.name
+
+
+def test_entry_runs_the_dense_kernel_on_card(dense_kernels):
+    from karpenter_tpu_torch.graft_entry import entry
+
+    pd, _ = dense_kernels
+    fn, args = entry()
+    assert all(a.is_cuda for a in args)
+    before = pd.LAUNCHES["pack"]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert pd.LAUNCHES["pack"] == before + 1
+    cpu_fn, cpu_args = entry(device="cpu")
+    for a, b in zip(got, cpu_fn(*cpu_args)):
+        assert _same_bits(a.cpu(), b)

@@ -17,9 +17,10 @@ _EPS and clamped to it, a zero-capacity valid axis. The whole ascent
 
 Tolerances: B4 exact. The supergradient: 1e-5 relative plus 1e-9
 absolute (the two sum in different orders), and the same tie pattern
-(which components are zero). The ascent: the best bound within 1e-4
-relative, the duals within 1e-4 of the largest, the certified bound
-within 1e-4 relative (float32 duals, float64 certificate).
+(which components are zero). The ascent: the best bound within 1e-6
+relative, the duals within 1e-6 of the largest, the certified bound
+within 1e-6 relative (float32 duals summed in another order than XLA's,
+float64 certificate; the measured gap is below 3.2e-7).
 """
 
 import jax
@@ -318,7 +319,7 @@ ASCENT_FIXTURES = [
 @pytest.mark.parametrize("n_iters", [8, 192])
 @pytest.mark.parametrize("fixture", ASCENT_FIXTURES, ids=lambda f: "-".join(
     f"{k}{v}" for k, v in f.items()))
-def test_ascent_plain_version_against_jax(fixture, n_iters):
+def test_ascent_plain_version_against_jax(fixture, n_iters, request):
     enc = build_enc(**fixture)
     st = lp_device._stage(enc)
     jst = jlp_device._stage(enc)
@@ -328,10 +329,16 @@ def test_ascent_plain_version_against_jax(fixture, n_iters):
     args = [jnp.asarray(t.numpy()) for t in inp.tensors()]
     jbest, jlam, jlast = jlp_device._ascend(*args, n_iters=n_iters)
     best, lam, last = lp_device.ascend(inp, n_iters)
-    assert float(best) == pytest.approx(float(jbest), rel=1e-4)
+    # B5's plain version sums its reductions in another order than XLA
+    # on the CPU: on these fixtures the best value differs by at most
+    # 3.2e-7 relative, lambda by 2.8e-7 x max|lambda| and the certificate
+    # by 2.8e-7 relative (16-75 of 32-79 duals bit for bit; the junit
+    # report carries each case's gaps); the bounds hold that gap with
+    # ~3x headroom
+    assert float(best) == pytest.approx(float(jbest), rel=1e-6)
     jlam = np.asarray(jlam)
     scale = max(float(np.abs(jlam).max()), 1e-12)
-    np.testing.assert_allclose(lam.numpy(), jlam, rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(lam.numpy(), jlam, rtol=0, atol=1e-6 * scale)
     cert = lp_device._certify(
         lam.numpy().astype(np.float64)[: st["G"]], st["count"], st["compat"],
         st["req"], st["alloc"], st["price"], st["valid_r"], st["cap_slot"],
@@ -340,6 +347,13 @@ def test_ascent_plain_version_against_jax(fixture, n_iters):
         jlam.astype(np.float64)[: st["G"]], st["count"], st["compat"],
         st["req"], st["alloc"], st["price"], st["valid_r"], st["cap_slot"],
         st["cap_budget"])
-    assert cert[4] == pytest.approx(jcert[4], rel=1e-4)
+    # the gaps, as properties of the test in the junit report
+    request.node.user_properties += [
+        ("best_rel_gap", abs(float(best) - float(jbest)) / abs(float(jbest))),
+        ("lam_gap_over_max", float(np.abs(lam.numpy() - jlam).max()) / scale),
+        ("cert_rel_gap", abs(cert[4] - jcert[4]) / abs(jcert[4])),
+        ("lam_bit_equal", f"{int((lam.numpy() == jlam).sum())}/{jlam.size}"),
+    ]
+    assert cert[4] == pytest.approx(jcert[4], rel=1e-6)
     if fixture.get("reservations"):
         assert len(st["cap_budget"]) and inp.onehot.shape[0] == 64
