@@ -117,11 +117,42 @@ Phases, each reported on its own line; any failure exits non-zero:
                 on the entry problem, the epilogue's on the first
                 request's outputs, the plain versions', and their
                 bounds.
+  10. sharded — B8, the config axis split over S shards, on virtual
+                meshes of shard slots on the card (`force_virtual_mesh`):
+                split B1, B3 (widths 8 and 16) and B2 byte-identical to
+                their plain split versions on seeded problems and on
+                boundary-tie problems at S in (2, 3, 4, 8), every
+                replica equal and the flat buffers equal to the unsplit
+                kernels'; split B5 bit-identical to its plain version at
+                S in (2, 4). Then, each route with the launch counts set
+                to 0 just before it and read just after, launching the
+                split kernels and no unsplit packing kernel: the first
+                50k x 500 request at S in (2, 3, 4, 8) on the B3 route
+                and the KARPENTER_WAVEFRONT=0 B1 route, the second
+                request at S=4, reserved_50k's cost solve at S=4 (each
+                fingerprint equal to the unsharded card solve's); the
+                device LP under KARPENTER_LP_SHARDS=4 (split B5, held to
+                its plain version, its gap to the unsplit B5 printed);
+                bench.py's million_pod demand (1M pods, 100 types, 400
+                signatures) at S=8 with streamed staging, equal to the
+                unsharded card solve, with the staging's peak block
+                against the full matrices, the node count and the wall;
+                the port's `graft_entry.dryrun_multichip(4)`. Every
+                split B1, B3 and B2 launch of these routes is recorded
+                and held against its plain split version on the same
+                inputs, at the shapes the path gave it: byte-identical
+                outputs, masks whole, every replica equal. Last, each
+                split kernel's CUDA-event time in turns with its unsplit
+                kernel's (unsplit, split, split, unsplit) on the first
+                request's inputs at S in (2, 4, 8) (B5: reserved_50k's
+                LP at S=4), the bounds, and the plain split versions'
+                times from the runs that held the first request at S=4.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
 launches them. Plain versions are timed as the host drives them.
-One JSON line {"kernels": [...]} reports every kernel.
+One JSON line {"kernels": [...]} reports every kernel (the split ones
+at S=4).
 The last line is {"ok": true, "device": {...}}. The script uses one
 card: the first of CUDA_VISIBLE_DEVICES (card 0 when it is unset).
 
@@ -469,11 +500,11 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
             tally[name] = tally.get(name, 0) + n - before[name]
         return out
 
-    def solve_packing(enc, mode, device, plan=None):
+    def solve_packing(enc, mode, device, plan=None, shards=0):
         arm = "ffd" if plan is None else (
             "cost" if enc.cfg_price is rec["base_price"] else "rank")
         rec["mode"], rec["arm"] = mode, arm
-        return timed(f"pack {arm}", real["_solve_packing"])(enc, mode, device, plan)
+        return timed(f"pack {arm}", real["_solve_packing"])(enc, mode, device, plan, shards)
 
     def encode(*a, **k):
         enc = real["encode"](*a, **k)
@@ -1299,6 +1330,480 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     ]}
 
 
+SHARDS = (2, 3, 4, 8)
+TIMED_SHARDS = (2, 4, 8)
+LP_SHARDS = 4
+MILLION = (1_000_000, 100, 400)
+MILLION_SHARDS = 8
+
+
+SPLIT_WRAPPERS = ("pack_split_sharded", "pack_split_wavefront_sharded",
+                  "pack_flat_words_sharded")
+# the outputs of which each shard keeps its own replica (the rest: the
+# per-shard masks; split B2 returns one buffer)
+SPLIT_REPLICATED = {"pack_split_sharded": (0, 2, 3),
+                    "pack_split_wavefront_sharded": (0, 2, 3, 4, 5)}
+
+
+def flat_tensors(xs) -> list:
+    out = []
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            out += flat_tensors(x)
+        elif x is not None:
+            out.append(x)
+    return out
+
+
+def hold_split(shard, kernels, case, S: int, err: dict) -> str:
+    """Split B1, B3 (widths 8 and 16) and B2 on the card against their
+    plain split versions on `case` cut into S shards: byte-identical,
+    every replica equal, and the flat buffers equal to the unsplit
+    kernels' on the same padded problem; or fail."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.testing import split_case
+
+    def put(x):
+        if x is None:
+            return None
+        if isinstance(x, list):
+            return [torch.from_numpy(np.ascontiguousarray(b)).cuda() for b in x]
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    sa, skw, fa, fkw = split_case(case, S)
+    sa, fa = [put(a) for a in sa], [put(a) for a in fa]
+    skw, fkw = {k: put(v) for k, v in skw.items()}, {k: put(v) for k, v in fkw.items()}
+    F, mode = case.max_free, case.mode
+
+    def check(name, got, want, replicated):
+        torch.cuda.synchronize()
+        for i in replicated:
+            g = got[i]
+            if not all(torch.equal(g[0], g[r]) for r in range(S)):
+                fail(f"{name}: replicas differ on {case.name} at S={S} (output {i})")
+            if not torch.equal(g, want[i]):
+                fail(f"{name} differs from its plain version on {case.name} at S={S} "
+                     f"(output {i})")
+            err[name] = max(err[name], max_abs_diff(g, want[i]))
+        if not all(torch.equal(a, b) for a, b in zip(got[1], want[1])):
+            fail(f"{name}: masks differ from its plain version on {case.name} at S={S}")
+
+    got = shard.pack_split_sharded(*sa, max_free=F, mode=mode, **skw)
+    want = shard.pack_split_sharded_ref(*sa, max_free=F, mode=mode, **skw)
+    check("pack_split_sharded", got, want, SPLIT_REPLICATED["pack_split_sharded"])
+    flats = [(shard.pack_flat_words_sharded(*got), shard.pack_flat_words_sharded_ref(*got),
+              kernels.pack_flat_words(*kernels.pack_split(*fa, max_free=F, mode=mode, **fkw)))]
+    rounds = []
+    for width in (8, 16):
+        got = shard.pack_split_wavefront_sharded(*sa, max_free=F, mode=mode, width=width, **skw)
+        want = shard.pack_split_wavefront_sharded_ref(
+            *sa, max_free=F, mode=mode, width=width, **skw)
+        check("pack_split_wavefront_sharded", got, want,
+              SPLIT_REPLICATED["pack_split_wavefront_sharded"])
+        whole = kernels.pack_split_wavefront(*fa, max_free=F, mode=mode, width=width, **fkw)
+        stats = (got[5], got[4])
+        flats.append((shard.pack_flat_words_sharded(*got[:4], *stats),
+                      shard.pack_flat_words_sharded_ref(*got[:4], *stats),
+                      kernels.pack_flat_words(*whole[:4], whole[5], whole[4])))
+        rounds.append(f"W{width}:{int(got[4][0])}")
+    torch.cuda.synchronize()
+    for flat, ref, whole in flats:
+        if not torch.equal(flat, ref):
+            fail(f"pack_flat_words_sharded differs from its plain version on {case.name} "
+                 f"at S={S}")
+        if not torch.equal(flat, whole):
+            fail(f"the split kernels' flat buffer differs from the unsplit kernels' on "
+                 f"{case.name} at S={S}")
+        err["pack_flat_words_sharded"] = max(err["pack_flat_words_sharded"],
+                                             max_abs_diff(flat, ref))
+    Cs = sa[0][0].shape[1]
+    return (f"  S={S} {case.name} mode={mode} Cs={Cs} Gp={sa[0][0].shape[0]} "
+            f"B={fa[7].shape[0]} F={F}: rounds {' '.join(rounds)}, replicas equal, "
+            f"identical to the plain split versions and to the unsplit kernels")
+
+
+class SplitLaunches:
+    """Records every call the main path makes of the split packing
+    wrappers, with its arguments and outputs, so that each launch is
+    held against its plain split version at the shapes the main path
+    gave it. The wrappers' own launch counts are untouched."""
+
+    def __init__(self, shard):
+        self.shard, self.calls = shard, []
+        self.real = {n: getattr(shard, n) for n in SPLIT_WRAPPERS}
+        for n in SPLIT_WRAPPERS:
+            setattr(shard, n, self._wrap(n))
+
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def recorded(*a, **k):
+            out = real(*a, **k)
+            self.calls.append((name, a, k, out))
+            return out
+        return recorded
+
+    def close(self) -> None:
+        for n, fn in self.real.items():
+            setattr(self.shard, n, fn)
+
+
+def hold_launches(shard, route: str, rec: SplitLaunches, err: dict) -> tuple[dict, dict]:
+    """Hold each split launch `rec` recorded on `route` against its plain
+    split version on the same inputs: every output byte-identical (the
+    per-shard masks whole, unused bits included; the round stats) and
+    every replica equal; or fail. Returns the launches held and the
+    CUDA-event ms of each wrapper's last plain run, by wrapper."""
+    import torch
+
+    held = {n: 0 for n in SPLIT_WRAPPERS}
+    plain_ms = {}
+    for name, a, k, got in rec.calls:
+        where = f"{name} on the {route} route (launch {held[name] + 1})"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = getattr(shard, name + "_ref")(*a, **k)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[name] = start.elapsed_time(end)
+        if name == "pack_flat_words_sharded":
+            if not same_bits(got, want):
+                fail(f"{where} differs from its plain version")
+            err[name] = max(err[name], max_abs_diff(got, want))
+        else:
+            S = len(a[0])
+            for i in SPLIT_REPLICATED[name]:
+                g = got[i]
+                if g.shape[0] != S or not all(torch.equal(g[0], g[r]) for r in range(S)):
+                    fail(f"{where}: replicas differ (output {i})")
+                if not same_bits(g, want[i]):
+                    fail(f"{where} differs from its plain version (output {i})")
+                err[name] = max(err[name], max_abs_diff(g, want[i]))
+            if len(got[1]) != S or not same_outputs(got[1], want[1]):
+                fail(f"{where}: masks differ from its plain version")
+        held[name] += 1
+    return held, plain_ms
+
+
+def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
+    """Phase 10: B8 on the card, on virtual meshes of shard slots."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import graft_entry
+    from karpenter_tpu_torch.solver import lp_device, pack, pack_shard as shard
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver import stream
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+    from karpenter_tpu_torch.solver.solver import fingerprint, reset_caches, solve
+    from karpenter_tpu_torch.testing import (
+        ascent_cases, kernel_cases, root_node_mips, tie_case)
+    from karpenter_tpu_torch.utils.platform import force_virtual_mesh
+    from karpenter_tpu_torch.workloads import build_problem, build_scaled_demand
+
+    t_phase = time.perf_counter()
+    force_virtual_mesh(max(SHARDS))
+    err.update({"pack_split_sharded": 0.0, "pack_split_wavefront_sharded": 0.0,
+                "pack_flat_words_sharded": 0.0, "lp_ascend_sharded": 0.0})
+
+    # ---- 1. the split kernels against their plain split versions
+    cases = kernel_cases(0, n_pods=800, n_types=30)
+    held = 0
+    for S in SHARDS:
+        for case in [cases[i] for i in (1, 2, 4, 7)] + [
+                tie_case(21, S, "cost"), tie_case(22, S, "ffd", quota=True)]:
+            say(hold_split(shard, kernels, case, S, err))
+            held += 1
+    for S in (2, LP_SHARDS):
+        for name, inputs in ascent_cases(0, S):
+            a = lp_device.ShardedAscentInputs.split(inputs.to("cuda"), S, ["cuda"] * S)
+            got = lp_device.ascend_sharded(a, 192)
+            want = lp_device.ascend_sharded_ref(a, 192)
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                if not all(same_bits(x[0], x[r]) for r in range(S)):
+                    fail(f"lp_ascend_sharded: replicas differ on {name} at S={S}")
+                if not same_bits(x, y):
+                    fail(f"lp_ascend_sharded differs from its plain version on {name} "
+                         f"at S={S}")
+                err["lp_ascend_sharded"] = max(err["lp_ascend_sharded"], max_abs_diff(x, y))
+    say(f"phase 10 sharded: split B1, B3 (widths 8, 16) and B2 byte-identical to their "
+        f"plain split versions and to the unsplit kernels on {held // len(SHARDS)} "
+        f"problems at each S in {SHARDS}, replicas equal; split B5 on {len(ascent_cases(0))} ascent cases at "
+        f"S in (2, {LP_SHARDS}), 192 iterations, bit-identical "
+        f"({time.perf_counter() - t_phase:.3f}s)")
+
+    # ---- 2. the 50k x 500 requests, split, on both routes
+    launches: dict[str, dict] = {}
+    held_at: dict[str, dict] = {}  # split launches held, by route
+    plain_at: dict[str, dict] = {}  # their plain versions' ms, by route
+    unsplit = ("pack_split", "pack_split_wavefront", "pack_split_flat")
+
+    def hold_route(route, rec):
+        """Every split launch of `route` held against its plain version;
+        fails unless each launch the counts show was held."""
+        held_at[route], plain_at[route] = hold_launches(shard, route, rec, err)
+        for k in SPLIT_WRAPPERS:
+            if held_at[route][k] != shard.LAUNCHES[k]:
+                fail(f"{route}: {shard.LAUNCHES[k]} launches of {k}, "
+                     f"{held_at[route][k]} held")
+
+    def drive(route, fn, used):
+        kernels.reset_launch_counts()
+        shard.reset_launch_counts()
+        lp_device.LAUNCHES["lp_ascend_sharded"] = 0
+        rec = SplitLaunches(shard)
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rec.close()
+        n = {**{k: kernels.LAUNCHES[k] for k in unsplit}, **shard.LAUNCHES,
+             "lp_ascend_sharded": lp_device.LAUNCHES["lp_ascend_sharded"]}
+        launches[route] = n
+        if any(n[k] for k in unsplit):
+            fail(f"split route {route} launched an unsplit packing kernel: {n}")
+        for k in used:
+            if n[k] < 1:
+                fail(f"split route {route} did not launch {k}: {n}")
+        hold_route(route, rec)
+        return out, wall
+
+    def held_line(routes) -> str:
+        n = {k: sum(held_at[r][k] for r in routes) for k in SPLIT_WRAPPERS}
+        return (f"each split launch held against its plain split version at the path's "
+                f"shapes, byte-identical, replicas equal (B1 {n['pack_split_sharded']}, "
+                f"B3 {n['pack_split_wavefront_sharded']}, "
+                f"B2 {n['pack_flat_words_sharded']} launches)")
+
+    pods, pools, extra, existing = ctx["pods"], ctx["pools"], ctx["extra"], ctx["existing"]
+    walls = {}
+    os.environ.pop("KARPENTER_WAVEFRONT", None)
+    for S in SHARDS:
+        sol, walls[f"first-S{S}"] = drive(
+            f"first-S{S}", lambda: solve(pods, pools, shards=S),
+            ("pack_split_wavefront_sharded", "pack_flat_words_sharded"))
+        if fingerprint(sol) != ctx["first_fp"]:
+            fail(f"first request at S={S}: fingerprint differs from the unsharded solve's")
+        os.environ["KARPENTER_WAVEFRONT"] = "0"
+        try:
+            sol, walls[f"first-seq-S{S}"] = drive(
+                f"first-seq-S{S}", lambda: solve(pods, pools, shards=S),
+                ("pack_split_sharded", "pack_flat_words_sharded"))
+        finally:
+            os.environ.pop("KARPENTER_WAVEFRONT", None)
+        if fingerprint(sol) != ctx["first_fp"]:
+            fail(f"first request, KARPENTER_WAVEFRONT=0, at S={S}: fingerprint differs")
+    sol2, walls["second-S4"] = drive(
+        "second-S4", lambda: solve(extra, pools, existing, shards=4),
+        ("pack_split_wavefront_sharded", "pack_flat_words_sharded"))
+    if fingerprint(sol2) != ctx["second_fp"]:
+        fail("second request at S=4: fingerprint differs from the unsharded solve's")
+    say(f"  50k x 500: first request at S in {SHARDS} on the B3 and B1 routes, second "
+        f"request at S=4: fingerprints equal to the unsharded card solves'; "
+        f"{held_line(walls)} | walls (s) "
+        + ", ".join(f"{k} {v:.6f}" for k, v in walls.items()))
+
+    # ---- 3. reserved_50k, cost, split packs; then the split ascent
+    rpods, rpools = build_problem(COST_PODS, COST_TYPES, seed=SEED, reservations=True,
+                                  zonal_frac=COST_ZONAL)
+    with root_node_mips():
+        reset_caches()
+        t0 = time.perf_counter()
+        cost_fp = fingerprint(solve(rpods, rpools, objective="cost"))
+        cost_wall = time.perf_counter() - t0
+        reset_caches()
+        sol_c, cost_s_wall = drive(
+            "cost-S4", lambda: solve(rpods, rpools, objective="cost", shards=4),
+            ("pack_split_wavefront_sharded", "pack_flat_words_sharded"))
+    if fingerprint(sol_c) != cost_fp:
+        fail("reserved_50k cost at S=4: fingerprint differs from the unsharded cost solve's")
+    renc = encode(group_pods(rpods), rpools)
+    captured = {}
+    real_split = lp_device.ascend_sharded
+
+    def capture(a, n_iters):
+        captured["a"], captured["n"] = a, n_iters
+        return real_split(a, n_iters)
+
+    os.environ["KARPENTER_LP_SHARDS"] = str(LP_SHARDS)
+    lp_device.ascend_sharded = capture
+    try:
+        lp_device.reset()
+        dlp_split, lp_wall = drive("lp-S4", lambda: lp_device.solve(renc, device="cuda"),
+                                   ("lp_ascend_sharded",))
+    finally:
+        lp_device.ascend_sharded = real_split
+        os.environ.pop("KARPENTER_LP_SHARDS", None)
+        lp_device.reset()
+    a4, n_iters = captured["a"], captured["n"]
+    got = lp_device.ascend_sharded(a4, n_iters)
+    # the plain split version, timed as the host drives it (the timing
+    # below reads this run)
+    want = []
+    lp_plain_ms = event_ms(lambda: want.extend(lp_device.ascend_sharded_ref(a4, n_iters)),
+                           1, queued=False)
+    for x, y in zip(got, want):
+        if not same_bits(x, y):
+            fail("lp_ascend_sharded differs from its plain version on reserved_50k's LP")
+        err["lp_ascend_sharded"] = max(err["lp_ascend_sharded"], max_abs_diff(x, y))
+    a1, n1 = ctx["ascent"]
+    one = lp_device.ascend(a1, n1)
+    G = a1.compat.shape[0]
+    lam_gap = float((got[1][0][:G] - one[1][:G]).abs().max() / one[1][:G].abs().max())
+    say(f"  reserved_50k cost at S=4: fingerprint equal to the unsharded cost solve's, "
+        f"{held_line(['cost-S4'])} ({cost_s_wall:.3f}s against {cost_wall:.3f}s, both "
+        f"cold) | "
+        f"KARPENTER_LP_SHARDS=4: split B5 launched {launches['lp-S4']['lp_ascend_sharded']}x "
+        f"(Cp={a4.compat[0].shape[1] * LP_SHARDS}, Cs={a4.compat[0].shape[1]}), "
+        f"bit-identical to its plain version; against the unsplit B5: best "
+        f"{float(got[0][0]):.9g} vs {float(one[0]):.9g}, last improving iteration "
+        f"{int(got[2][0])} vs {int(one[2])}, max |d lambda|/max lambda {lam_gap:.3e}; "
+        f"certified bound {dlp_split.lower_bound:.6f}")
+
+    # ---- 4. million_pod, S=8, streamed staging
+    menc, _ = build_scaled_demand(*MILLION)
+    t0 = time.perf_counter()
+    base = pack.solve_packing(menc, device="cuda")
+    torch.cuda.synchronize()
+    base_wall = time.perf_counter() - t0
+    stream.reset_stats()
+    res, m_wall = drive(
+        "million-S8", lambda: pack.solve_packing(menc, device="cuda", shards=MILLION_SHARDS),
+        ("pack_split_wavefront_sharded", "pack_flat_words_sharded"))
+    st = stream.last_stats()
+    if not graft_entry.same_solution(base, res):
+        fail("million_pod at S=8: the split solve differs from the unsharded card solve")
+    if not st or st["peak_block_bytes"] * MILLION_SHARDS > st["full_bytes"]:
+        fail(f"million_pod: the staging did not stream per-shard blocks: {st}")
+    say(f"  million_pod: {MILLION[0]} pods, {MILLION[1]} types, {MILLION[2]} signatures "
+        f"(G={menc.compat.shape[0]}, C={menc.compat.shape[1]}) at S={MILLION_SHARDS}, "
+        f"streamed: {res.node_count} nodes, {int(res.unschedulable.sum())} unschedulable, "
+        f"equal to the unsharded card solve, {held_line(['million-S8'])} | solve wall "
+        f"{m_wall:.3f}s (unsharded "
+        f"{base_wall:.3f}s, cold) | staging {st}: peak block {st['peak_block_bytes']} B "
+        f"against {st['full_bytes']} B of full matrices")
+
+    # ---- 5. the port's dryrun_multichip(4)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    shard.reset_launch_counts()
+    rec = SplitLaunches(shard)
+    try:
+        with root_node_mips():
+            dry = graft_entry.dryrun_multichip(4)
+        torch.cuda.synchronize()
+    finally:
+        rec.close()
+    dry_wall = time.perf_counter() - t0
+    launches["dryrun"] = dict(shard.LAUNCHES)
+    if launches["dryrun"]["pack_split_wavefront_sharded"] < 2:
+        fail(f"dryrun_multichip(4) did not run the split kernels: {launches['dryrun']}")
+    hold_route("dryrun", rec)
+    say(f"  dryrun_multichip(4): {dry} passed, {held_line(['dryrun'])} ({dry_wall:.3f}s)")
+
+    # ---- 6. timing: each split kernel in turns with its unsplit kernel
+    # on the first request's inputs (the same padded problem)
+    enc = ctx["enc"]
+    mask, used, quota = pack._bound_rows(enc)
+    N = pack.node_axis(enc, "ffd")
+    W = pack.wavefront_width(torch.device("cuda"))
+    times = {}
+    bounds = {}
+    for S in TIMED_SHARDS:
+        st_ = pack.stage(enc, mask, used, N, quota, shards=S)
+        sargs, skw = pack.to_mesh(st_, enc, pack._mesh(S, "cuda"), stream=False)
+        fargs, fkw = pack.to_device(st_, torch.device("cuda"))
+        F = st_.max_free
+        runs = {
+            "pack_split": lambda: kernels.pack_split(*fargs, max_free=F, mode="ffd", **fkw),
+            "pack_split_sharded": lambda: shard.pack_split_sharded(
+                *sargs, max_free=F, mode="ffd", **skw),
+            "pack_split_wavefront": lambda: kernels.pack_split_wavefront(
+                *fargs, max_free=F, mode="ffd", width=W, **fkw),
+            "pack_split_wavefront_sharded": lambda: shard.pack_split_wavefront_sharded(
+                *sargs, max_free=F, mode="ffd", width=W, **skw),
+        }
+        outs = {k: fn() for k, fn in runs.items()}
+        so = outs["pack_split_wavefront_sharded"]
+        fo = outs["pack_split_wavefront"]
+        runs["pack_flat_words"] = lambda: kernels.pack_flat_words(*fo[:4], fo[5], fo[4])
+        runs["pack_flat_words_sharded"] = lambda: shard.pack_flat_words_sharded(
+            *so[:4], so[5], so[4])
+        for plain, split in (("pack_split", "pack_split_sharded"),
+                             ("pack_split_wavefront", "pack_split_wavefront_sharded"),
+                             ("pack_flat_words", "pack_flat_words_sharded")):
+            reps = 50 if plain == "pack_flat_words" else 10
+            seq = [event_ms(runs[plain], reps), event_ms(runs[split], reps),
+                   event_ms(runs[split], reps), event_ms(runs[plain], reps)]
+            times[(split, S)] = (seq[1], seq[2], seq[0], seq[3])
+        in_bytes = nbytes(flat_tensors(list(sargs) + list(skw.values())))
+        ops = b1_ops(kernels, fargs, fkw, F)
+        out_b = nbytes([fo[0], fo[1], fo[2], fo[3]])
+        bounds[("pack_split_sharded", S)] = bound(ops, in_bytes + out_b)
+        bounds[("pack_split_wavefront_sharded", S)] = bound(ops, in_bytes + out_b)
+        flat = runs["pack_flat_words_sharded"]()
+        bounds[("pack_flat_words_sharded", S)] = bound(
+            F * st_.Cp, nbytes([fo[0], fo[2], fo[3], fo[4], fo[5]]) + nbytes(so[1])
+            + nbytes([flat]))
+    seq = [event_ms(lambda: lp_device.ascend(a1, n1), 3),
+           event_ms(lambda: lp_device.ascend_sharded(a4, n_iters), 3),
+           event_ms(lambda: lp_device.ascend_sharded(a4, n_iters), 3),
+           event_ms(lambda: lp_device.ascend(a1, n1), 3)]
+    times[("lp_ascend_sharded", LP_SHARDS)] = (seq[1], seq[2], seq[0], seq[3])
+    dense_a4 = lp_device.AscentInputs(**{
+        n: (torch.cat(getattr(a4, n), dim=lp_device.ShardedAscentInputs.SPLIT[n])
+            if n in lp_device.ShardedAscentInputs.SPLIT else getattr(a4, n))
+        for n in lp_device.AscentInputs.NAMES})
+    bounds[("lp_ascend_sharded", LP_SHARDS)] = bound(
+        ascent_ops(dense_a4, n_iters),
+        nbytes(flat_tensors([getattr(a4, n) for n in lp_device.AscentInputs.NAMES]))
+        + nbytes([got[1][0], got[0][:1], got[2][:1]]))
+    # the plain split versions as the host drives them: the runs that
+    # held the first request's launches at S=4 (B1 on the
+    # KARPENTER_WAVEFRONT=0 route, B3 and its B2 on the default one) and
+    # reserved_50k's split ascent
+    plain_ms = {
+        "pack_split_sharded": plain_at["first-seq-S4"]["pack_split_sharded"],
+        "pack_split_wavefront_sharded": plain_at["first-S4"]["pack_split_wavefront_sharded"],
+        "pack_flat_words_sharded": plain_at["first-S4"]["pack_flat_words_sharded"],
+        "lp_ascend_sharded": lp_plain_ms}
+    for (name, S), (s1, s2, u1, u2) in times.items():
+        b, by = bounds[(name, S)]
+        say(f"  timing {name} S={S}: split {s1:.4f}, {s2:.4f} ms; unsplit {u1:.4f}, "
+            f"{u2:.4f} ms (in turns: unsplit, split, split, unsplit); bound {b:.6f} ms "
+            f"({by})")
+    total = {k: sum(n.get(k, 0) for n in launches.values())
+             for k in ("pack_split_sharded", "pack_split_wavefront_sharded",
+                       "pack_flat_words_sharded", "lp_ascend_sharded")}
+    say(f"  launches per split route: {json.dumps(launches)}")
+    say(f"  phase 10 took {time.perf_counter() - t_phase:.3f}s | card: {smi}")
+    force_virtual_mesh(0)
+    entries = []
+    for name, src, rep, S in (
+        ("pack_split_sharded", "pack_split.cu", "karpenter_tpu/solver/pack.py:1817", 4),
+        ("pack_split_wavefront_sharded", "pack_wavefront.cu",
+         "karpenter_tpu/solver/pack.py:1817", 4),
+        ("pack_flat_words_sharded", "pack_flat.cu", "karpenter_tpu/solver/pack.py:1817", 4),
+        ("lp_ascend_sharded", "lp_ascend.cu", "karpenter_tpu/solver/lp_device.py:430",
+         LP_SHARDS),
+    ):
+        s1, s2, _, _ = times[(name, S)]
+        b, by = bounds[(name, S)]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"karpenter_tpu_torch/csrc/{src}",
+            "replaces": rep, "launches": total[name], "max_abs_err": err[name],
+            "ms": (s1 + s2) / 2, "plain_ms": plain_ms[name], "bound_ms": b,
+            "bound_by": by, "library_ms": None})
+    return {"launches": launches, "entries": entries}
+
+
 def main() -> None:
     card = one_card()
     import numpy as np
@@ -1654,6 +2159,13 @@ def main() -> None:
         name: sum(n[name] for n in (*launches.values(), *probes["launches"].values()))
         for name in ("pack_split", "pack_split_wavefront", "pack_split_flat")
     }
+
+    # ---- 10. B8: the config axis split over shards, on virtual meshes
+    sharded = shard_phase({
+        "pods": pods, "pools": pools, "extra": extra, "existing": existing,
+        "first_fp": first_fp, "second_fp": fingerprint(sol2), "enc": enc,
+        "ascent": recorded["ascent"],
+    }, err, smi)
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",
@@ -1688,6 +2200,7 @@ def main() -> None:
          "bound_by": b5_by, "library_ms": None},
         *probes["entries"],
         *dense["entries"],
+        *sharded["entries"],
     ]}
     say(f"chip_smoke: {time.perf_counter() - T_START:.3f}s wall")
     say(json.dumps(report))

@@ -7,7 +7,7 @@
 //
 // Each of the n_iters iterations takes the supergradient of the dual
 // bound
-//   bound_w(lam) = tree(lam/theta * count_w) - tree(mu * budget),
+//   bound_w(lam) = dot(lam/theta, count_w) - dot(mu, budget),
 //   mm[c,r] = max_g (compat[g,c] ? ratio[g,r] : 0),
 //   ratio[g,r] = (req>0 & count>0) ? lam_g / req[g,r] : 0,
 //   vh0[c] = min_r (valid ? mm*alloc : inf), vh = finite(vh0) ? vh0 : 0,
@@ -18,21 +18,34 @@
 // padding and masked zeros included; maximum gives each side half at
 // an exact tie; where(isfinite) passes the cotangent only where vh0 is
 // finite), steps along the normalized supergradient with
-// eta = 0.5/sqrt(1+t) scaled by max(max(lam), 1e-9), projects onto
-// lam >= 0 and keeps the best iterate. The sums are fixed-order trees
-// (adjacent pairs, zero-padded to a power of two of at least 32
-// elements), as in the plain version.
+// eta = 0.5/sqrt(1+t) scaled by max(max(lam), 1e-9) (one multiply-add,
+// as XLA contracts it), projects onto lam >= 0 and keeps the best
+// iterate. Every sum is taken in the order the JAX package's XLA
+// program takes it on the CPU (lp_device.py: xla_sum, xla_dot,
+// fma_chain): up to 32 terms in order (a product fused into a multiply-
+// add chain), beyond that in windows of 32 after XLA's padding; the dot
+// of the bound as eight multiply-add lanes folded in halves.
 //
 // What bounds it: the iterations. They form one dependent chain, and
 // the work of one is small (at 50k pods x 500 types: Gp=194 groups,
 // Cp=243 configs, R=4: a few hundred thousand element operations over
 // a 47 KB compat matrix), so the design is one persistent block of
 // 1024 threads for the whole ascent, phases separated by
-// __syncthreads(), the state in global memory (it stays in L2). A
-// cooperative grid is later work.
+// __syncthreads(), the state in global memory (it stays in L2).
+//
+// B8, split B5 (lp_device.py:430-452, the ascent under
+// KARPENTER_LP_SHARDS): the same code over the config axis split into S
+// column blocks, one cooperative launch of S blocks
+// (`lp_ascend_sharded_kernel`), each with its own replica of lam and the
+// per-group state. Per iteration the shards exchange (shard_xchg.cuh):
+// theta's maximum, mu's [Kp] maxima and their tie counts, theta's tie
+// count, and the partial sums over configs — dtheta's and the [Gp, R]
+// d ratio — combined in shard order. Plain version:
+// lp_device.py::ascend_sharded_ref.
 //
 // Exactness: f32 with explicit round-to-nearest intrinsics in the
-// plain version's order of operations, -fmad=false in the build.
+// plain version's order of operations, -fmad=false in the build (the
+// multiply-adds are explicit __fmaf_rn).
 
 #include "pack_common.cuh"
 
@@ -42,6 +55,9 @@ constexpr int kAscThreads = 1024;
 constexpr int kAscWarps = kAscThreads / 32;
 constexpr float kEps = 1e-12f;
 constexpr float kInf = __builtin_huge_valf();
+// window sums a warp keeps: XLA's order for sums of up to 2048 terms
+constexpr int kMaxWin = 64;
+constexpr int kMaxTerms = 32 * kMaxWin;
 
 struct Args {
   const float* lam0;        // [Gp]
@@ -73,34 +89,101 @@ struct Args {
   int G, C, R, K, n_iters;
 };
 
-// Fixed-order tree sum of elem(0..n-1), zero-padded to tree_width(n),
-// by one warp: lane l folds its contiguous block of width/32 elements
-// with a binary counter (exactly the adjacent-pair tree over the
-// block), then the lanes combine by butterfly. Every lane returns the
-// sum.
+struct WarpBuf {
+  float a[kMaxWin];
+  float b[kMaxWin];
+};
+
+// sum_{i<n} term(i) in XLA's CPU order (lp_device.xla_sum), by one
+// warp; every lane returns it. Up to 32 terms in order from +0; beyond,
+// window w sums positions 32w - front .. 32w - front + 31 in order (out
+// of range: +0), and the window sums are reduced the same way.
 template <class F>
-__device__ float warp_tree(F elem, int n) {
-  int width = 32;
-  while (width < n) width *= 2;
-  const int per = width / 32;
+__device__ float xla_sum_warp(F term, int n, WarpBuf& wb) {
   const int lane = threadIdx.x & 31;
-  float stack[24];
-  int top = 0;
-  for (int i = 0; i < per; ++i) {
-    const int idx = lane * per + i;
-    float x = idx < n ? elem(idx) : 0.0f;
-    int j = i, lvl = 0;
-    while (j & 1) {
-      x = __fadd_rn(stack[lvl], x);
-      j >>= 1;
-      ++lvl;
-    }
-    stack[lvl] = x;
-    top = lvl;
+  float out = 0.0f;
+  if (n <= 32) {
+    if (lane == 0)
+      for (int i = 0; i < n; ++i) out = __fadd_rn(out, term(i));
+    return __shfl_sync(0xffffffffu, out, 0);
   }
-  float v = stack[top];
-  for (int o = 1; o < 32; o <<= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  int m = (n + 31) / 32;
+  int front = (m * 32 - n) / 2;
+  for (int w = lane; w < m; w += 32) {
+    float s = 0.0f;
+    for (int i = 0; i < 32; ++i) {
+      const int p = w * 32 + i - front;
+      s = __fadd_rn(s, (p >= 0 && p < n) ? term(p) : 0.0f);
+    }
+    wb.a[w] = s;
+  }
+  __syncwarp();
+  float* src = wb.a;
+  float* dst = wb.b;
+  while (m > 32) {
+    const int m2 = (m + 31) / 32;
+    const int fr = (m2 * 32 - m) / 2;
+    for (int w = lane; w < m2; w += 32) {
+      float s = 0.0f;
+      for (int i = 0; i < 32; ++i) {
+        const int p = w * 32 + i - fr;
+        s = __fadd_rn(s, (p >= 0 && p < m) ? src[p] : 0.0f);
+      }
+      dst[w] = s;
+    }
+    __syncwarp();
+    float* t = src;
+    src = dst;
+    dst = t;
+    m = m2;
+  }
+  if (lane == 0)
+    for (int i = 0; i < m; ++i) out = __fadd_rn(out, src[i]);
+  __syncwarp();  // the buffers are reused by the next call
+  return __shfl_sync(0xffffffffu, out, 0);
+}
+
+// sum_{i<n} x(i) * y(i) in XLA's order: up to 32 terms one multiply-add
+// chain in order, beyond the products rounded and summed as above
+template <class FX, class FY>
+__device__ float xla_sum_prod_warp(FX xf, FY yf, int n, WarpBuf& wb) {
+  if (n <= 32) {
+    const int lane = threadIdx.x & 31;
+    float out = 0.0f;
+    if (lane == 0)
+      for (int i = 0; i < n; ++i) out = __fmaf_rn(xf(i), yf(i), out);
+    return __shfl_sync(0xffffffffu, out, 0);
+  }
+  return xla_sum_warp([&](int i) { return __fmul_rn(xf(i), yf(i)); }, n, wb);
+}
+
+// dot(a, b) as XLA's CPU program takes lam_s @ count_w (lp_device.xla_dot):
+// eight lanes of multiply-adds over the first 8 * (n / 8) terms, folded in
+// halves, then the rest as multiply-adds in order; every lane returns it
+template <class FA, class FB>
+__device__ float xla_dot_warp(FA af, FB bf, int n) {
+  const int lane = threadIdx.x & 31;
+  const int main = (n / 8) * 8;
+  float acc = 0.0f;
+  if (lane < 8)
+    for (int t = lane; t < main; t += 8) acc = __fmaf_rn(af(t), bf(t), acc);
+  // lanes i and i + 4, then i and i + 2, then 0 and 1
+  for (int h = 4; h >= 1; h >>= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, acc, h);
+    if (lane < h) acc = __fadd_rn(acc, o);
+  }
+  if (lane == 0)
+    for (int i = main; i < n; ++i) acc = __fmaf_rn(af(i), bf(i), acc);
+  return __shfl_sync(0xffffffffu, acc, 0);
+}
+
+// dot(a, b) as one multiply-add chain in order (lp_device.fma_chain)
+template <class FA, class FB>
+__device__ float fma_chain_warp(FA af, FB bf, int n) {
+  float acc = 0.0f;
+  if ((threadIdx.x & 31) == 0)
+    for (int i = 0; i < n; ++i) acc = __fmaf_rn(af(i), bf(i), acc);
+  return __shfl_sync(0xffffffffu, acc, 0);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -137,7 +220,8 @@ __device__ int block_sum_int(int v, int* red) {
 struct Shared {
   float red[kAscWarps];
   int ired[kAscWarps];
-  float theta0, theta, b, dtheta_a, qtheta, scale, den;
+  float theta0, theta, b, dtheta_a, dtheta_b, scale, den;
+  WarpBuf wb[kAscWarps];
 };
 
 __device__ __forceinline__ float tie_weight(float x, float c) {
@@ -154,7 +238,8 @@ __device__ __forceinline__ float pden_of(float p) { return p > kEps ? p : kEps; 
 __device__ __forceinline__ float vh_of(float v0) { return isfinite(v0) ? v0 : 0.0f; }
 
 // bound_w(lam) into s.b, with the intermediates the supergradient reads
-__device__ void forward(const Args& a, Shared& s) {
+template <class X>
+__device__ void forward(const Args& a, Shared& s, X& x) {
   const int tid = threadIdx.x;
   const int G = a.G, C = a.C, R = a.R;
   for (int i = tid; i < G * R; i += kAscThreads) {
@@ -168,13 +253,13 @@ __device__ void forward(const Args& a, Shared& s) {
     const int c = i / R, r = i % R;
     float m = -kInf;
     for (int g = 0; g < G; ++g) {
-      const float x = a.compat[(size_t)g * C + c] ? a.ratio[g * R + r] : 0.0f;
-      m = fmaxf(m, x);
+      const float xv = a.compat[(size_t)g * C + c] ? a.ratio[g * R + r] : 0.0f;
+      m = fmaxf(m, xv);
     }
     int ties = 0;
     for (int g = 0; g < G; ++g) {
-      const float x = a.compat[(size_t)g * C + c] ? a.ratio[g * R + r] : 0.0f;
-      ties += x == m;
+      const float xv = a.compat[(size_t)g * C + c] ? a.ratio[g * R + r] : 0.0f;
+      ties += xv == m;
     }
     a.mm[i] = m;
     a.qx[i] = (float)ties;
@@ -191,7 +276,8 @@ __device__ void forward(const Args& a, Shared& s) {
     a.z[c] = zc;
     zmax = fmaxf(zmax, zc);
   }
-  const float theta0 = block_max(zmax, s.red);
+  float theta0 = block_max(zmax, s.red);
+  if constexpr (X::kSplit) theta0 = shard_max_f32(x, theta0);
   const float theta = theta0 > kEps ? theta0 : kEps;
   for (int c = tid; c < C; c += kAscThreads) {
     const float xe = __fsub_rn(__fdiv_rn(vh_of(a.vh0[c]), theta), a.price[c]);
@@ -203,11 +289,21 @@ __device__ void forward(const Args& a, Shared& s) {
     for (int c = 0; c < C; ++c) m = fmaxf(m, a.onehot[(size_t)k * C + c] ? a.excess[c] : 0.0f);
     a.mu[k] = m;
   }
+  if constexpr (X::kSplit) {
+    shard_vec(
+        x, a.K, [&](int k) { return (unsigned long long)__float_as_uint(a.mu[k]); },
+        [&](int k, auto get) {
+          float m = __uint_as_float((uint32_t)get(0));
+          for (int sh = 1; sh < x.S; ++sh) m = fmaxf(m, __uint_as_float((uint32_t)get(sh)));
+          a.mu[k] = m;
+        });
+  }
   __syncthreads();
   if (tid < 32) {
-    const float t1 = warp_tree(
-        [&](int g) { return __fmul_rn(__fdiv_rn(a.lam[g], theta), a.count_w[g]); }, G);
-    const float t2 = warp_tree([&](int k) { return __fmul_rn(a.mu[k], a.budget[k]); }, a.K);
+    const float t1 = xla_dot_warp([&](int g) { return __fdiv_rn(a.lam[g], theta); },
+                                  [&](int g) { return a.count_w[g]; }, G);
+    const float t2 = fma_chain_warp([&](int k) { return a.mu[k]; },
+                                    [&](int k) { return a.budget[k]; }, a.K);
     if (tid == 0) {
       s.b = __fsub_rn(t1, t2);
       s.theta0 = theta0;
@@ -218,25 +314,37 @@ __device__ void forward(const Args& a, Shared& s) {
 }
 
 // d bound_w / d lam into a.grad, from the state `forward` left
-__device__ void supergradient(const Args& a, Shared& s) {
+template <class X>
+__device__ void supergradient(const Args& a, Shared& s, X& x) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int G = a.G, C = a.C, R = a.R, K = a.K;
   const float theta = s.theta, theta0 = s.theta0;
   const float inv_t2 = __fdiv_rn(1.0f, __fmul_rn(theta, theta));
-  // lam_s = lam / theta
+  // lam_s = lam / theta: d theta gets -sum((count_w * inv_t2) * lam)
   if (warp == 0) {
-    const float d = warp_tree(
-        [&](int g) { return __fmul_rn(__fmul_rn(-a.count_w[g], a.lam[g]), inv_t2); }, G);
-    if (lane == 0) s.dtheta_a = d;
+    const float d = xla_sum_prod_warp([&](int g) { return __fmul_rn(a.count_w[g], inv_t2); },
+                                      [&](int g) { return a.lam[g]; }, G, s.wb[0]);
+    if (lane == 0) s.dtheta_a = -d;
   }
-  // mu = max_c M[k, c], d mu = -budget
+  // mu = max_c M[k, c], d mu = -budget, split evenly over the ties
   for (int k = tid; k < K; k += kAscThreads) {
     int n = 0;
     for (int c = 0; c < C; ++c)
       n += (a.onehot[(size_t)k * C + c] ? a.excess[c] : 0.0f) == a.mu[k];
-    a.qmu[k] = __fdiv_rn(-a.budget[k], (float)n);
+    a.qmu[k] = (float)n;
   }
+  if constexpr (X::kSplit) {
+    shard_vec(
+        x, K, [&](int k) { return (unsigned long long)(uint32_t)(int)a.qmu[k]; },
+        [&](int k, auto get) {
+          long long n = 0;
+          for (int sh = 0; sh < x.S; ++sh) n += (long long)get(sh);
+          a.qmu[k] = (float)n;
+        });
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += kAscThreads) a.qmu[k] = __fdiv_rn(-a.budget[k], a.qmu[k]);
   __syncthreads();
   // excess = max(vh/theta - price, 0)
   for (int c = tid; c < C; c += kAscThreads) {
@@ -254,18 +362,22 @@ __device__ void supergradient(const Args& a, Shared& s) {
     a.dvh[c] = dx;  // the theta term below reads dx; dvh_a follows
   }
   __syncthreads();
+  // vh / theta: d theta gets -sum((dx * inv_t2) * vh) over configs
   if (warp == 0) {
-    const float dtheta_b = warp_tree(
-        [&](int c) { return __fmul_rn(__fmul_rn(-a.dvh[c], vh_of(a.vh0[c])), inv_t2); }, C);
-    if (lane == 0) {
-      const float dtheta = __fadd_rn(s.dtheta_a, dtheta_b);
-      s.qtheta = __fmul_rn(dtheta, tie_weight(theta0, kEps));  // dtheta0, divided below
-    }
+    const float d = xla_sum_prod_warp([&](int c) { return __fmul_rn(a.dvh[c], inv_t2); },
+                                      [&](int c) { return vh_of(a.vh0[c]); }, C, s.wb[0]);
+    if (lane == 0) s.dtheta_b = d;
   }
   int nz = 0;
   for (int c = tid; c < C; c += kAscThreads) nz += a.z[c] == theta0;
-  nz = block_sum_int(nz, s.ired);  // syncs: s.qtheta is visible after it
-  const float qtheta = __fdiv_rn(s.qtheta, (float)nz);
+  nz = block_sum_int(nz, s.ired);  // syncs: s.dtheta_b is visible after it
+  float dtheta_b = s.dtheta_b;
+  if constexpr (X::kSplit) {
+    dtheta_b = shard_sum_f32(x, dtheta_b);
+    nz = shard_sum_int(x, nz);
+  }
+  const float dtheta = __fadd_rn(s.dtheta_a, -dtheta_b);
+  const float qtheta = __fdiv_rn(__fmul_rn(dtheta, tie_weight(theta0, kEps)), (float)nz);
   // theta0 = max_c z; vh = where(finite, vh0, 0); vh0 = min_r v
   for (int c = tid; c < C; c += kAscThreads) {
     const float dvh_a = __fdiv_rn(a.dvh[c], theta);
@@ -291,42 +403,31 @@ __device__ void supergradient(const Args& a, Shared& s) {
     const int g = row / R, r = row % R;
     const float rt = a.ratio[row];
     const uint8_t* crow = a.compat + (size_t)g * C;
-    const float d = warp_tree(
+    const float d = xla_sum_warp(
         [&](int c) {
           const int i = c * R + r;
-          const float ind = rt == a.mm[i] ? 1.0f : 0.0f;
-          return crow[c] ? __fmul_rn(ind, a.qx[i]) : 0.0f;
+          return (crow[c] && rt == a.mm[i]) ? a.qx[i] : 0.0f;
         },
-        C);
+        C, s.wb[warp]);
     if (lane == 0) a.dratio[row] = d;
   }
+  if constexpr (X::kSplit) shard_sum_ordered(x, a.dratio, G * R);
   __syncthreads();
   // ratio = where(mask, lam / req, 0): sum over r, plus the lam_s term
   for (int g = tid; g < G; g += kAscThreads) {
-    float stack[8];
-    int top = 0;
     const bool live = a.count[g] > 0.0f;
-    for (int r = 0; r < 32; ++r) {
-      float x = 0.0f;
-      if (r < R) {
-        const float rq = a.req[g * R + r];
-        x = (rq > 0.0f && live) ? __fdiv_rn(a.dratio[g * R + r], rq) : 0.0f;
-      }
-      int j = r, lvl = 0;
-      while (j & 1) {
-        x = __fadd_rn(stack[lvl], x);
-        j >>= 1;
-        ++lvl;
-      }
-      stack[lvl] = x;
-      top = lvl;
+    float acc = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const float rq = a.req[g * R + r];
+      acc = __fadd_rn(acc, (rq > 0.0f && live) ? __fdiv_rn(a.dratio[g * R + r], rq) : 0.0f);
     }
-    a.grad[g] = __fadd_rn(__fdiv_rn(a.count_w[g], theta), stack[top]);
+    a.grad[g] = __fadd_rn(__fdiv_rn(a.count_w[g], theta), acc);
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_kernel(Args a) {
+template <class X>
+__device__ void ascend_body(const Args& a, X& x) {
   __shared__ Shared s;
   const int tid = threadIdx.x;
   const int G = a.G;
@@ -335,13 +436,14 @@ __global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_kernel(Args a) {
     a.best_lam[g] = a.lam0[g];
   }
   __syncthreads();
-  forward(a, s);
+  forward(a, s, x);
   float best = s.b;
   int last = -1;
   for (int t = 0; t < a.n_iters; ++t) {
-    supergradient(a, s);
+    supergradient(a, s, x);
     if (tid < 32) {
-      const float n2 = warp_tree([&](int g) { return __fmul_rn(a.grad[g], a.grad[g]); }, G);
+      const float n2 = xla_sum_prod_warp([&](int g) { return a.grad[g]; },
+                                         [&](int g) { return a.grad[g]; }, G, s.wb[0]);
       if (tid == 0) {
         const float nrm = __fsqrt_rn(n2);
         s.den = nrm > kEps ? nrm : kEps;
@@ -355,11 +457,11 @@ __global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_kernel(Args a) {
     const float den = s.den;
     for (int g = tid; g < G; g += kAscThreads) {
       const float gn = __fdiv_rn(a.grad[g], den);
-      const float y = __fadd_rn(a.lam[g], __fmul_rn(__fmul_rn(eta, gn), scale));
+      const float y = __fmaf_rn(__fmul_rn(eta, gn), scale, a.lam[g]);
       a.lam[g] = y > 0.0f ? y : 0.0f;
     }
     __syncthreads();
-    forward(a, s);
+    forward(a, s, x);
     if (s.b > best) {  // uniform: every thread reads the same s.b
       best = s.b;
       last = t;
@@ -372,6 +474,67 @@ __global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_kernel(Args a) {
   }
 }
 
+__global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_kernel(Args a) {
+  NoSplit x;
+  ascend_body(a, x);
+}
+
+// per-shard pointers of the split ascent's config-axis arrays
+struct AscShards {
+  const uint8_t* const* compat;    // [Gp, Cs] each
+  const float* const* alloc;       // [Cs, R]
+  const float* const* price;       // [Cs]
+  const uint8_t* const* valid;     // [Cs, R]
+  const uint8_t* const* onehot;    // [Kp, Cs]
+  const uint8_t* const* uncapped;  // [Cs]
+  float* const* mm;                // [Cs, R] scratch
+  float* const* qx;                // [Cs, R]
+  float* const* vh0;               // [Cs]
+  float* const* dvh;               // [Cs]
+  float* const* excess;            // [Cs]
+  float* const* z;                 // [Cs]
+};
+
+// block s: shard s's columns and its replica of lam and the per-group
+// state (leading shard axis on best, best_lam, last_up and the scratch)
+__global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_sharded_kernel(
+    Args base, AscShards t, unsigned long long* slots, unsigned* arrive, int S, int words) {
+  const int sh = blockIdx.x;
+  Args a = base;
+  const size_t G = (size_t)a.G, GR = (size_t)a.G * a.R, K = (size_t)a.K;
+  a.best += sh;
+  a.best_lam += sh * G;
+  a.last_up += sh;
+  a.lam += sh * G;
+  a.grad += sh * G;
+  a.ratio += sh * GR;
+  a.dratio += sh * GR;
+  a.mu += sh * K;
+  a.qmu += sh * K;
+  a.compat = t.compat[sh];
+  a.alloc = t.alloc[sh];
+  a.price = t.price[sh];
+  a.valid = t.valid[sh];
+  a.onehot = t.onehot[sh];
+  a.uncapped = t.uncapped[sh];
+  a.mm = t.mm[sh];
+  a.qx = t.qx[sh];
+  a.vh0 = t.vh0[sh];
+  a.dvh = t.dvh[sh];
+  a.excess = t.excess[sh];
+  a.z = t.z[sh];
+  DeviceSplit x{slots, arrive, sh, S, words, sh * a.C, 0u};
+  ascend_body(a, x);
+}
+
+int check_sizes(int G, int C, int R, int K, int n_iters) {
+  if (R < 1 || R > kMaxR || G < 1 || C < 1 || K < 1 || n_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  // the windowed sums keep kMaxWin window sums a warp
+  if (G > kMaxTerms || C > kMaxTerms) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int lp_ascend_launch(
@@ -381,14 +544,42 @@ extern "C" int lp_ascend_launch(
     float* best_lam, int32_t* last_up, float* lam, float* grad, float* ratio, float* dratio,
     float* mm, float* qx, float* vh0, float* dvh, float* excess, float* z, float* mu,
     float* qmu, int G, int C, int R, int K, int n_iters, cudaStream_t stream) {
-  if (R < 1 || R > kMaxR || G < 1 || C < 1 || K < 1 || n_iters < 0)
-    return (int)cudaErrorInvalidValue;
-  // the warp trees keep a binary counter of 24 levels: 2^23 elements a lane
-  if ((long long)G > (1ll << 28) || (long long)C > (1ll << 28) || (long long)K > (1ll << 28))
-    return (int)cudaErrorInvalidValue;
+  if (int e = check_sizes(G, C, R, K, n_iters)) return e;
   Args a{lam0, count, count_w, compat, req, alloc, price, valid, onehot, budget, uncapped,
          best, best_lam, last_up, lam, grad, ratio, dratio, mm, qx, vh0, dvh, excess, z,
          mu, qmu, G, C, R, K, n_iters};
   lp_ascend_kernel<<<1, kAscThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Split B5 over S shards of C configs each: the twelve tables hold S
+// device pointers each (compat, alloc, price, valid, onehot, uncapped
+// and the per-config scratch mm, qx, vh0, dvh, excess, z); best,
+// best_lam, last_up and the per-group scratch carry a leading shard
+// axis; slots [2, S, words] (words >= max(Kp, Gp * R, 4)) and arrive
+// (zeroed) are the exchange's. One cooperative launch of S blocks.
+extern "C" int lp_ascend_sharded_launch(
+    const uint8_t* const* compat, const float* const* alloc, const float* const* price,
+    const uint8_t* const* valid, const uint8_t* const* onehot,
+    const uint8_t* const* uncapped, float* const* mm, float* const* qx,
+    float* const* vh0, float* const* dvh, float* const* excess, float* const* z,
+    const float* lam0, const float* count, const float* count_w, const float* req,
+    const float* budget, float* best, float* best_lam, int32_t* last_up, float* lam,
+    float* grad, float* ratio, float* dratio, float* mu, float* qmu,
+    unsigned long long* slots, unsigned* arrive,
+    int G, int C, int R, int K, int n_iters, int S, int words, cudaStream_t stream) {
+  if (int e = check_sizes(G, C, R, K, n_iters)) return e;
+  if (S < 2 || words < 4 || words < K || words < G * R) return (int)cudaErrorInvalidValue;
+  Args a{lam0, count, count_w, nullptr, req, nullptr, nullptr, nullptr, nullptr, budget,
+         nullptr, best, best_lam, last_up, lam, grad, ratio, dratio, nullptr, nullptr,
+         nullptr, nullptr, nullptr, nullptr, mu, qmu, G, C, R, K, n_iters};
+  AscShards t{compat, alloc, price, valid, onehot, uncapped, mm, qx, vh0, dvh, excess, z};
+  void* params[] = {&a, &t, &slots, &arrive, &S, &words};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)lp_ascend_sharded_kernel, dim3(S), dim3(kAscThreads), params, 0, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }

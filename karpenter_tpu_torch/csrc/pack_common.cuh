@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shard_xchg.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -152,6 +154,12 @@ __device__ int prefix_fill(const int32_t* kcap, int32_t* take, int nscan,
   return end;
 }
 
+// (kopen, reservation slot) of a column, packed as the payload of its
+// pick key (a split kernel reads c*'s values through the exchange)
+__device__ __forceinline__ unsigned long long open_payload(int kopen, int slot) {
+  return ((unsigned long long)(uint32_t)kopen << 32) | (uint32_t)slot;
+}
+
 // One group's bulk open (the JAX kernels' open_cond / open_round loop):
 // while pods remain, a row is free and some config of the group fits a
 // fresh node of its pool under its reservation budget, take the lowest
@@ -163,9 +171,13 @@ __device__ int prefix_fill(const int32_t* kcap, int32_t* take, int nscan,
 // R] (B1: the fresh block after row0 = B bound rows; B7: the whole
 // axis, row0 = 0) and its assignment at a.assign[n * G]; `active`, when
 // not null, marks the opened rows. *remaining and *node_count are the
-// caller's shared state. All threads of the block call it.
-template <class A>
-__device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* req,
+// caller's shared state. All threads of the block call it. Split (X):
+// the lowest pool, the uncapped minimum price and the pick keys are
+// exchanged with the other shards, and c*'s open capacity and slot come
+// with its key; the opened rows' usage and assignment are this shard's
+// replica, their masks its columns.
+template <class A, class X>
+__device__ void bulk_open(const A& a, X& x, int g, const uint8_t* row, const float* req,
                           int N, int row0, uint8_t* mask, float* used,
                           uint8_t* active, int* remaining, int* node_count) {
   __shared__ float s_oh[kMaxR];
@@ -173,6 +185,7 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
   __shared__ unsigned long long s_key0, s_key1, s_key2;
   __shared__ uint32_t s_minu;
   __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_slot, s_lo, s_capped;
+  __shared__ unsigned long long s_pay0, s_pay1, s_pay2;
   const int tid = threadIdx.x;
   const int C = a.C, R = a.R, G = a.G;
   const int gcap = a.group_cap ? a.group_cap[g] : kIntBig;
@@ -213,6 +226,15 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
       atomicMin(&s_pool, my_pool);
     }
     __syncthreads();
+    if constexpr (X::kSplit) {
+      // pools are >= 0: a pool below kIntBig means some shard can open
+      const int pool = shard_min_int(x, s_any ? s_pool : kIntBig);
+      if (tid == 0) {
+        s_pool = pool;
+        s_any = pool < kIntBig;
+      }
+      __syncthreads();
+    }
     if (tid == 0) s_go = (*remaining > 0 && *node_count < N && s_any) ? 1 : 0;
     __syncthreads();
     if (!s_go) break;
@@ -239,7 +261,7 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
       a.kopen[c] = kf;
       if (a.cost) {
         float ppp = kf >= 1 ? __fdiv_rn(a.cfg_price[c], (float)max(kf, 1)) : kBig;
-        unsigned long long key = pack_key(float_key(ppp), c);
+        unsigned long long key = pack_key(float_key(ppp), x.c0 + c);
         if (key < k0) k0 = key;
       } else if (kf >= 1 && a.cfg_rsv[c] < 0) {
         uint32_t pk = float_key(a.cfg_price[c]);
@@ -252,6 +274,24 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
       atomicMin(&s_minu, mu);
     }
     __syncthreads();
+    if constexpr (X::kSplit) {
+      if (a.cost) {
+        unsigned long long k[1] = {s_key0}, p[1] = {0};
+        if (tid == 0 && k[0] != ~0ull) {
+          const int c = (int)(k[0] & 0xffffffffull) - x.c0;
+          p[0] = open_payload(a.kopen[c], slot_of(a, c));
+        }
+        shard_min_keys(x, k, p);
+        if (tid == 0) {
+          s_key0 = k[0];
+          s_pay0 = p[0];
+        }
+      } else {
+        const uint32_t m = shard_min_u32(x, s_minu);
+        if (tid == 0) s_minu = m;
+      }
+      __syncthreads();
+    }
     if (!a.cost) {
       // reserved columns cheaper than every uncapped one win by
       // capacity; else the column with the most capacity
@@ -259,16 +299,34 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
       const float min_uncapped = key_float(s_minu);
       for (int c = tid; c < C; c += kThreads) {
         int kf = a.kopen[c];
-        unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), c);
+        unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), x.c0 + c);
         if (key2 < k2) k2 = key2;
         if (kf >= 1 && a.cfg_rsv[c] >= 0 && a.cfg_price[c] < min_uncapped) {
-          unsigned long long key1 = pack_key((uint32_t)(kIntBig - kf), c);
+          unsigned long long key1 = pack_key((uint32_t)(kIntBig - kf), x.c0 + c);
           if (key1 < k1) k1 = key1;
         }
       }
       if (k1 != ~0ull) atomicMin(&s_key1, k1);
       atomicMin(&s_key2, k2);
       __syncthreads();
+      if constexpr (X::kSplit) {
+        unsigned long long k[2] = {s_key1, s_key2}, p[2] = {0, 0};
+        if (tid == 0) {
+          for (int i = 0; i < 2; ++i) {
+            if (k[i] == ~0ull) continue;
+            const int c = (int)(k[i] & 0xffffffffull) - x.c0;
+            p[i] = open_payload(a.kopen[c], slot_of(a, c));
+          }
+        }
+        shard_min_keys(x, k, p);
+        if (tid == 0) {
+          s_key1 = k[0];
+          s_key2 = k[1];
+          s_pay1 = p[0];
+          s_pay2 = p[1];
+        }
+        __syncthreads();
+      }
     }
     if (tid == 0) {
       int cs;
@@ -276,9 +334,16 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
       else cs = (int)(((s_key1 != ~0ull) ? s_key1 : s_key2) & 0xffffffffull);
       int rem = *remaining;
       int nc = *node_count;
-      int ms = max(a.kopen[cs], 1);
+      // split: c*'s capacity and slot came with its key
+      unsigned long long pay = 0;
+      if constexpr (X::kSplit) pay = a.cost ? s_pay0 : (s_key1 != ~0ull ? s_pay1 : s_pay2);
+      int ms;
+      if constexpr (X::kSplit) ms = max((int)(pay >> 32), 1);
+      else ms = max(a.kopen[cs], 1);
       if (a.group_cap) ms = min(max(gcap, 1), ms);
-      int slot = slot_of(a, cs);
+      int slot;
+      if constexpr (X::kSplit) slot = (int)(pay & 0xffffffffull);
+      else slot = slot_of(a, cs);
       float cap_left = fminf(__fsub_rn(cap_ext(a, slot), a.rsv_used[slot]), kCapMax);
       int q = min((rem - 1) / ms + 1, N - nc);
       q = min(q, (int)fmaxf(cap_left, 0.0f));
@@ -290,7 +355,8 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
       s_remlast = rl;
       s_slot = slot;
       s_lo = nc - row0;
-      s_capped = a.cfg_rsv[cs] >= 0;
+      if constexpr (X::kSplit) s_capped = slot < a.K;
+      else s_capped = a.cfg_rsv[cs] >= 0;
     }
     __syncthreads();
     // write the q new rows: full ones, then the partial last one
@@ -303,7 +369,7 @@ __device__ void bulk_open(const A& a, int g, const uint8_t* row, const float* re
         int thr = (f == lo + q - 1) ? rl : ms;
         int kf = a.kopen[c];
         uint8_t m = (a.cfg_rsv[c] < 0 && kf >= 1 && kf >= thr) ? 1 : 0;
-        if (capped_star && c == cs) m = 1;
+        if (capped_star && x.c0 + c == cs) m = 1;
         mask[(size_t)f * C + c] = m;
       }
       for (int i = tid; i < q; i += kThreads) {

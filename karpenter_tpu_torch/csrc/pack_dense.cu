@@ -68,6 +68,7 @@ struct Args {
 };
 
 __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(const Args a) {
+  NoSplit nosplit;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -181,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(const Args a) {
 
     // ---- 4. bulk open onto the rows past node_count
     if (s_remaining > 0)
-      bulk_open(a, g, row, s_req, N, 0, a.node_mask, a.node_used, a.node_active,
+      bulk_open(a, nosplit, g, row, s_req, N, 0, a.node_mask, a.node_used, a.node_active,
                 &s_remaining, &s_node_count);
     if (tid == 0) a.unsched[g] += max(s_remaining, 0);
     __syncthreads();

@@ -48,6 +48,22 @@
 // intrinsics in the JAX order of operations (no FMA contraction; the
 // build also passes -fmad=false). Capacities are clipped to CAP_MAX
 // before every float-to-int cast.
+//
+// B8, split B1 (karpenter_tpu/solver/pack.py:1817-1893, `_run_pack`
+// with shards > 1): the same body over a config axis split into S column
+// blocks, one cooperative launch of S blocks (`pack_split_sharded_kernel`),
+// block s on shard s's columns (a table of per-shard pointers reaches
+// them) with its own replica of the replicated state (usage, assignment,
+// node count, reservation use, unschedulable counts). The exchange
+// points of a group step (shard_xchg.cuh): the opened fresh rows'
+// capacities, one vector exchange of per-row partial maxima a step; and
+// in the bulk open the lowest pool, the uncapped minimum price (ffd) and
+// the pick keys with c*'s capacity and slot. Bound rows carry their
+// config as an index and need no exchange; mask narrowing is local. The
+// split adds S - 1 shards' worth of redundant replicated work and an
+// exchange latency (a device-scope round trip through L2) per exchange
+// point to B1's chain of group steps. Plain version:
+// pack_shard.py::pack_split_sharded_ref.
 
 #include "pack_common.cuh"
 
@@ -106,8 +122,11 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
   return a;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
-  const Args a = lane_view(lanes, blockIdx.x);
+// The group loop of one lane (unsplit, X = NoSplit) or of one shard of
+// a split solve (X = DeviceSplit: `a` holds the shard's columns and its
+// replica).
+template <class X>
+__device__ __forceinline__ void pack_split_body(const Args& a, X& x) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -179,7 +198,32 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
       max_ok = __reduce_max_sync(0xffffffffu, max_ok);
       max_pin = __reduce_max_sync(0xffffffffu, max_pin);
       if (lane == 0) {
-        int kf = any_pin ? (any_pin_ok ? max_pin : 0) : max_ok;
+        if constexpr (X::kSplit) {
+          // this shard's partial: the largest capacity over its ok
+          // configs, and 1 + the largest over its ok pinned ones when
+          // the row holds a pinned config here (0 otherwise)
+          const uint32_t pin = any_pin ? (uint32_t)(max_pin + 1) : 0u;
+          xmine(x)[f] = ((unsigned long long)pin << 32) | (uint32_t)max_ok;
+        } else {
+          int kf = any_pin ? (any_pin_ok ? max_pin : 0) : max_ok;
+          if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
+          if (a.conflict && blocked(a, B + f, g)) kf = 0;
+          a.kcap[B + f] = kf;
+        }
+      }
+    }
+    if constexpr (X::kSplit) {
+      // one exchange for every opened row's partials, combined over the
+      // shards (maxima: any order)
+      xpublish(x);
+      for (int f = tid; f < nfresh; f += kThreads) {
+        uint32_t pin = 0, ok = 0;
+        for (int sh = 0; sh < x.S; ++sh) {
+          const unsigned long long v = __ldcg(xtheirs(x, sh) + f);
+          pin = max(pin, (uint32_t)(v >> 32));
+          ok = max(ok, (uint32_t)(v & 0xffffffffull));
+        }
+        int kf = pin > 0 ? (int)(pin - 1) : (int)ok;
         if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
         if (a.conflict && blocked(a, B + f, g)) kf = 0;
         a.kcap[B + f] = kf;
@@ -226,12 +270,57 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
 
     // ---- 4. bulk open on the fresh axis
     if (s_remaining > 0)
-      bulk_open(a, g, row, s_req, N, B, a.free_mask, a.free_used, nullptr,
+      bulk_open(a, x, g, row, s_req, N, B, a.free_mask, a.free_used, nullptr,
                 &s_remaining, &s_node_count);
     if (tid == 0) a.unsched[g] += max(s_remaining, 0);
     __syncthreads();
   }
   if (tid == 0) *a.node_count = s_node_count;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
+  const Args a = lane_view(lanes, blockIdx.x);
+  NoSplit x;
+  pack_split_body(a, x);
+}
+
+// per-shard pointers of a split solve's config-axis arrays
+struct ShardTable {
+  const uint8_t* const* compat;   // [G, Cs] each
+  const float* const* cfg_alloc;  // [Cs, R]
+  const int32_t* const* cfg_pool;  // [Cs]
+  const float* const* cfg_price;  // [Cs]
+  const int32_t* const* cfg_rsv;  // [Cs]
+  uint8_t* const* free_mask;      // [F, Cs] out
+  int32_t* const* kopen;          // [Cs] scratch
+  uint8_t* const* fits;           // [Cs] scratch
+};
+
+// block s: shard s's columns and its replica (the replicated outputs
+// and state carry a leading shard axis, as the lane axis of lane_view)
+__global__ void __launch_bounds__(kThreads, 1) pack_split_sharded_kernel(
+    Args base, ShardTable t, unsigned long long* slots, unsigned* arrive, int S, int words) {
+  const int s = blockIdx.x;
+  Args a = base;
+  const size_t N = (size_t)a.B + a.F;
+  a.assign += s * N * a.G;
+  a.node_count += s;
+  a.unsched += s * a.G;
+  a.free_used += s * a.F * a.R;
+  a.bound_used += s * a.B * a.R;
+  a.rsv_used += s * (a.K + 1);
+  a.kcap += s * N;
+  a.take += s * N;
+  a.compat = t.compat[s];
+  a.cfg_alloc = t.cfg_alloc[s];
+  a.cfg_pool = t.cfg_pool[s];
+  a.cfg_price = t.cfg_price[s];
+  a.cfg_rsv = t.cfg_rsv[s];
+  a.free_mask = t.free_mask[s];
+  a.kopen = t.kopen[s];
+  a.fits = t.fits[s];
+  DeviceSplit x{slots, arrive, s, S, words, s * a.C, 0u};
+  pack_split_body(a, x);
 }
 
 }  // namespace
@@ -260,5 +349,44 @@ extern "C" int pack_split_launch(
          free_used, bound_used, rsv_used, kcap, take, kopen, fits,
          G, C, R, B, F, K, P1, cost};
   pack_split_kernel<<<L, kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Split B1 over S shards of C columns each (C is the shard width): the
+// eight tables hold S device pointers each (compat, cfg_alloc, cfg_pool,
+// cfg_price, cfg_rsv, free_mask, kopen, fits); assign [S, B+F, G],
+// node_count [S], unsched [S, G] and the state scratch carry a leading
+// shard axis; slots [2, S, words] (words >= F and >= 4) and arrive (one
+// counter, zeroed) are the exchange's. One cooperative launch: the S
+// blocks must be co-resident, and the launch is refused otherwise.
+extern "C" int pack_split_sharded_launch(
+    const uint8_t* const* compat, const float* const* cfg_alloc,
+    const int32_t* const* cfg_pool, const float* const* cfg_price,
+    const int32_t* const* cfg_rsv, uint8_t* const* free_mask, int32_t* const* kopen,
+    uint8_t* const* fits,
+    const float* group_req, const int32_t* group_count, const float* pool_overhead,
+    const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
+    const int32_t* bound_slot, const uint8_t* bound_live, const int16_t* bound_quota,
+    const float* rsv_cap, const int32_t* group_cap, const uint8_t* conflict,
+    int32_t* assign, int32_t* node_count, int32_t* unsched,
+    float* free_used, float* bound_used, float* rsv_used, int32_t* kcap, int32_t* take,
+    unsigned long long* slots, unsigned* arrive,
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int S, int words,
+    cudaStream_t stream) {
+  if (R > kMaxR || S < 2 || words < F || words < 4) return (int)cudaErrorInvalidValue;
+  Args a{nullptr, group_req, group_count, nullptr, nullptr, pool_overhead,
+         bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, nullptr,
+         bound_quota, nullptr, rsv_cap, group_cap, conflict,
+         assign, nullptr, node_count, unsched,
+         free_used, bound_used, rsv_used, kcap, take, nullptr, nullptr,
+         G, C, R, B, F, K, P1, cost};
+  ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask, kopen, fits};
+  void* params[] = {&a, &t, &slots, &arrive, &S, &words};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)pack_split_sharded_kernel, dim3(S), dim3(kThreads), params, 0, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller raises
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }

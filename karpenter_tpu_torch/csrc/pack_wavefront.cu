@@ -123,9 +123,11 @@ struct Args {
 };
 
 // One solve's rounds, run by the W blocks that `barrier` joins; block
-// w plans lane w. B3 joins the whole cooperative grid, B6 one cluster.
-template <class Barrier>
-__device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barrier barrier) {
+// w plans lane w. B3 joins the whole cooperative grid, B6 one cluster;
+// split B3 (X = DeviceSplit) joins S x W blocks, `a` holding shard s's
+// columns and replica and `x` lane w's exchange group.
+template <class X, class Barrier>
+__device__ __forceinline__ void wavefront_body(const Args& a, const int w, X& x, Barrier barrier) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -143,6 +145,8 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
   __shared__ unsigned long long s_key0, s_key1, s_key2;
   __shared__ uint32_t s_minu;
   __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_slot, s_capped;
+  __shared__ unsigned long long s_pay0, s_pay1, s_pay2;
+  __shared__ int s_hit[kMaxW];
   __shared__ int s_accept[kMaxW];
   __shared__ int s_offset[kMaxW];
   __shared__ int s_nacc, s_shift;
@@ -251,7 +255,28 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
         max_ok = __reduce_max_sync(0xffffffffu, max_ok);
         max_pin = __reduce_max_sync(0xffffffffu, max_pin);
         if (lane == 0) {
-          int kf = any_pin ? (any_pin_ok ? max_pin : 0) : max_ok;
+          if constexpr (X::kSplit) {
+            const uint32_t pin = any_pin ? (uint32_t)(max_pin + 1) : 0u;
+            xmine(x)[f] = ((unsigned long long)pin << 32) | (uint32_t)max_ok;
+          } else {
+            int kf = any_pin ? (any_pin_ok ? max_pin : 0) : max_ok;
+            if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
+            if (a.conflict && blocked(a, B + f, g)) kf = 0;
+            kcap[B + f] = kf;
+          }
+        }
+      }
+      if constexpr (X::kSplit) {
+        // the opened rows' partials, combined over the lane's shards
+        xpublish(x);
+        for (int f = tid; f < nfresh; f += kThreads) {
+          uint32_t pin = 0, ok = 0;
+          for (int sh = 0; sh < x.S; ++sh) {
+            const unsigned long long v = __ldcg(xtheirs(x, sh) + f);
+            pin = max(pin, (uint32_t)(v >> 32));
+            ok = max(ok, (uint32_t)(v & 0xffffffffull));
+          }
+          int kf = pin > 0 ? (int)(pin - 1) : (int)ok;
           if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
           if (a.conflict && blocked(a, B + f, g)) kf = 0;
           kcap[B + f] = kf;
@@ -332,6 +357,14 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
             atomicMin(&s_pool, my_pool);
           }
           __syncthreads();
+          if constexpr (X::kSplit) {
+            const int pool = shard_min_int(x, s_any ? s_pool : kIntBig);
+            if (tid == 0) {
+              s_pool = pool;
+              s_any = pool < kIntBig;
+            }
+            __syncthreads();
+          }
           if (!(s_remaining > 0 && s_any && nc + s_nopen < N)) {
             // leaving with demand left and a willing config means the
             // node axis was full: that decision read node_count too
@@ -359,7 +392,7 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
             kopen[c] = kf;
             if (a.cost) {
               float ppp = kf >= 1 ? __fdiv_rn(a.cfg_price[c], (float)max(kf, 1)) : kBig;
-              unsigned long long key = pack_key(float_key(ppp), c);
+              unsigned long long key = pack_key(float_key(ppp), x.c0 + c);
               if (key < k0) k0 = key;
             } else if (kf >= 1 && a.cfg_rsv[c] < 0) {
               uint32_t pk = float_key(a.cfg_price[c]);
@@ -372,30 +405,73 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
             atomicMin(&s_minu, mu);
           }
           __syncthreads();
+          if constexpr (X::kSplit) {
+            if (a.cost) {
+              unsigned long long k[1] = {s_key0}, pay[1] = {0};
+              if (tid == 0 && k[0] != ~0ull) {
+                const int c = (int)(k[0] & 0xffffffffull) - x.c0;
+                pay[0] = open_payload(kopen[c], slot_of(a, c));
+              }
+              shard_min_keys(x, k, pay);
+              if (tid == 0) {
+                s_key0 = k[0];
+                s_pay0 = pay[0];
+              }
+            } else {
+              const uint32_t m = shard_min_u32(x, s_minu);
+              if (tid == 0) s_minu = m;
+            }
+            __syncthreads();
+          }
           if (!a.cost) {
             unsigned long long k1 = ~0ull, k2 = ~0ull;
             const float min_uncapped = key_float(s_minu);
             for (int c = tid; c < C; c += kThreads) {
               int kf = kopen[c];
-              unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), c);
+              unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), x.c0 + c);
               if (key2 < k2) k2 = key2;
               if (kf >= 1 && a.cfg_rsv[c] >= 0 && a.cfg_price[c] < min_uncapped) {
-                unsigned long long key1 = pack_key((uint32_t)(kIntBig - kf), c);
+                unsigned long long key1 = pack_key((uint32_t)(kIntBig - kf), x.c0 + c);
                 if (key1 < k1) k1 = key1;
               }
             }
             if (k1 != ~0ull) atomicMin(&s_key1, k1);
             atomicMin(&s_key2, k2);
             __syncthreads();
+            if constexpr (X::kSplit) {
+              unsigned long long k[2] = {s_key1, s_key2}, pay[2] = {0, 0};
+              if (tid == 0) {
+                for (int i = 0; i < 2; ++i) {
+                  if (k[i] == ~0ull) continue;
+                  const int c = (int)(k[i] & 0xffffffffull) - x.c0;
+                  pay[i] = open_payload(kopen[c], slot_of(a, c));
+                }
+              }
+              shard_min_keys(x, k, pay);
+              if (tid == 0) {
+                s_key1 = k[0];
+                s_key2 = k[1];
+                s_pay1 = pay[0];
+                s_pay2 = pay[1];
+              }
+              __syncthreads();
+            }
           }
           if (tid == 0) {
             int cs;
             if (a.cost) cs = (int)(s_key0 & 0xffffffffull);
             else cs = (int)(((s_key1 != ~0ull) ? s_key1 : s_key2) & 0xffffffffull);
             int rem = s_remaining;
-            int ms = max(kopen[cs], 1);
+            // split: c*'s capacity and slot came with its key
+            unsigned long long pay = 0;
+            if constexpr (X::kSplit) pay = a.cost ? s_pay0 : (s_key1 != ~0ull ? s_pay1 : s_pay2);
+            int ms;
+            if constexpr (X::kSplit) ms = max((int)(pay >> 32), 1);
+            else ms = max(kopen[cs], 1);
             if (a.group_cap) ms = min(max(gcap, 1), ms);
-            int slot = slot_of(a, cs);
+            int slot;
+            if constexpr (X::kSplit) slot = (int)(pay & 0xffffffffull);
+            else slot = slot_of(a, cs);
             float rsv_now = __fadd_rn(a.rsv_used[slot], spend[slot]);
             float cap_left = fminf(__fsub_rn(cap_ext(a, slot), rsv_now), kCapMax);
             int axis_left = N - (nc + s_nopen);
@@ -410,7 +486,8 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
             s_q = q;
             s_remlast = min(max(rem - (q - 1) * ms, 1), ms);
             s_slot = slot;
-            s_capped = a.cfg_rsv[cs] >= 0;
+            if constexpr (X::kSplit) s_capped = slot < a.K;
+            else s_capped = a.cfg_rsv[cs] >= 0;
           }
           __syncthreads();
           // the q new rows at slots n_open.., full ones then the last
@@ -420,8 +497,8 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
             for (int c = tid; c < C; c += kThreads) {
               int kf = kopen[c];
               bool base = a.cfg_rsv[c] < 0 && kf >= 1;
-              bool full = (base && kf >= ms) || (capped_star && c == cs);
-              bool last = (base && kf >= rl) || (capped_star && c == cs);
+              bool full = (base && kf >= ms) || (capped_star && x.c0 + c == cs);
+              bool last = (base && kf >= rl) || (capped_star && x.c0 + c == cs);
               for (int i = 0; i < q - 1; ++i) o_mask[(size_t)(lo + i) * C + c] = full;
               o_mask[(size_t)(lo + q - 1) * C + c] = last;
               if ((q > 1 && full) || last) o_union[c] = 1;
@@ -483,7 +560,22 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, Barri
             if (ou[c] && row[c]) hit = 1;
         }
         hit = __syncthreads_or(hit);
-        if (tid == 0) a.conf[(size_t)i * W + w] = (uint8_t)hit;
+        if constexpr (X::kSplit) {
+          if (tid == 0) s_hit[i] = hit;
+        } else {
+          if (tid == 0) a.conf[(size_t)i * W + w] = (uint8_t)hit;
+        }
+      }
+      if constexpr (X::kSplit) {
+        // the config part of each test is this shard's: OR over shards
+        __syncthreads();
+        shard_vec(
+            x, w, [&](int i) { return (unsigned long long)s_hit[i]; },
+            [&](int i, auto get) {
+              unsigned long long hit = 0;
+              for (int sh = 0; sh < x.S; ++sh) hit |= get(sh);
+              a.conf[(size_t)i * W + w] = (uint8_t)(hit != 0);
+            });
       }
     }
     barrier();
@@ -597,7 +689,8 @@ struct ClusterBarrier {
 };
 
 __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
-  wavefront_body(a, blockIdx.x, GridBarrier{});
+  NoSplit x;
+  wavefront_body(a, blockIdx.x, x, GridBarrier{});
 }
 
 // lane l's slice of every per-lane array: its demand and live rows,
@@ -636,7 +729,62 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
 // cluster's index and the block's rank in it is the plan lane.
 __global__ void __launch_bounds__(kThreads, 1) pack_probe_wavefront_kernel(Args lanes) {
   const Args a = lane_view(lanes, blockIdx.x / lanes.W);
-  wavefront_body(a, (int)cg::this_cluster().block_rank(), ClusterBarrier{});
+  NoSplit x;
+  wavefront_body(a, (int)cg::this_cluster().block_rank(), x, ClusterBarrier{});
+}
+
+// per-shard pointers of a split solve's config-axis arrays
+struct ShardTable {
+  const uint8_t* const* compat;    // [G, Cs] each
+  const float* const* cfg_alloc;   // [Cs, R]
+  const int32_t* const* cfg_pool;  // [Cs]
+  const float* const* cfg_price;   // [Cs]
+  const int32_t* const* cfg_rsv;   // [Cs]
+  uint8_t* const* free_mask;       // [F, Cs] out
+  uint8_t* const* fits;            // [W, Cs] scratch
+  int32_t* const* kopen;           // [W, Cs]
+  uint8_t* const* o_mask;          // [W, F, Cs]
+  uint8_t* const* o_union;         // [W, Cs]
+};
+
+// Split B3: block s * W + w plans lane w on shard s; every replicated
+// output, state and plan array carries a leading shard axis; lane w's
+// exchange group has its own slots and counter.
+__global__ void __launch_bounds__(kThreads, 1) pack_wavefront_sharded_kernel(
+    Args base, ShardTable t, unsigned long long* slots, unsigned* arrive, int S, int words) {
+  const int s = blockIdx.x / base.W;
+  const int w = blockIdx.x % base.W;
+  Args a = base;
+  const size_t N = (size_t)a.B + a.F;
+  const size_t W = (size_t)a.W;
+  a.assign += s * N * a.G;
+  a.node_count += s;
+  a.unsched += s * a.G;
+  a.steps += s;
+  a.widths += s * a.G;
+  a.free_used += s * a.F * a.R;
+  a.bound_used += s * a.B * a.R;
+  a.rsv_used += s * (a.K + 1);
+  a.done += s * a.G;
+  a.kcap += s * W * N;
+  a.take += s * W * N;
+  a.spend += s * W * (a.K + 1);
+  a.o_used += s * W * a.F * a.R;
+  a.o_fill += s * W * a.F;
+  a.lane += s * W * kLaneFields;
+  a.conf += s * W * W;
+  a.compat = t.compat[s];
+  a.cfg_alloc = t.cfg_alloc[s];
+  a.cfg_pool = t.cfg_pool[s];
+  a.cfg_price = t.cfg_price[s];
+  a.cfg_rsv = t.cfg_rsv[s];
+  a.free_mask = t.free_mask[s];
+  a.fits = t.fits[s];
+  a.kopen = t.kopen[s];
+  a.o_mask = t.o_mask[s];
+  a.o_union = t.o_union[s];
+  DeviceSplit x{slots + (size_t)w * 2 * S * words, arrive + w, s, S, words, s * a.C, 0u};
+  wavefront_body(a, w, x, GridBarrier{});
 }
 
 }  // namespace
@@ -736,6 +884,67 @@ extern "C" int pack_probe_wavefront_launch(
   *max_clusters = n;
   if (n < 1) return (int)cudaErrorInvalidConfiguration;
   err = cudaLaunchKernelEx(&cfg, pack_probe_wavefront_kernel, a);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Split B3 over S shards of C columns each, W lanes: the ten tables hold
+// S device pointers each (compat, cfg_alloc, cfg_pool, cfg_price,
+// cfg_rsv, free_mask, fits, kopen, o_mask, o_union); assign [S, B+F, G],
+// node_count, steps [S], unsched, widths [S, G] and the state and plan
+// scratch carry a leading shard axis; slots [W, 2, S, words] (words >=
+// max(F, W) and >= 4) and arrive [W] (zeroed) are the lanes' exchange
+// groups. *per_sm and *sms receive the occupancy the card reports; when
+// per_sm * sms < S * W the launch is not made (cudaErrorCooperativeLaunch
+// TooLarge) and the caller raises with the numbers.
+extern "C" int pack_wavefront_sharded_launch(
+    const uint8_t* const* compat, const float* const* cfg_alloc,
+    const int32_t* const* cfg_pool, const float* const* cfg_price,
+    const int32_t* const* cfg_rsv, uint8_t* const* free_mask, uint8_t* const* fits,
+    int32_t* const* kopen, uint8_t* const* o_mask, uint8_t* const* o_union,
+    const float* group_req, const int32_t* group_count, const float* pool_overhead,
+    const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
+    const int32_t* bound_slot, const uint8_t* bound_live, const int16_t* bound_quota,
+    const float* rsv_cap, const int32_t* group_cap, const uint8_t* conflict,
+    int32_t* assign, int32_t* node_count, int32_t* unsched, int32_t* steps,
+    int32_t* widths,
+    float* free_used, float* bound_used, float* rsv_used, uint8_t* done,
+    int32_t* kcap, int32_t* take, float* spend, float* o_used, int32_t* o_fill,
+    int32_t* lane, uint8_t* conf,
+    unsigned long long* slots, unsigned* arrive,
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int S, int words,
+    int* per_sm, int* sms, cudaStream_t stream) {
+  *per_sm = 0;
+  *sms = 0;
+  if (R > kMaxR || W < 1 || W > kMaxW || S < 2 || words < F || words < W || words < 4)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, (const void*)pack_wavefront_sharded_kernel, kThreads, 0);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  if ((long long)*per_sm * *sms < (long long)S * W) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Args a{nullptr, group_req, group_count, nullptr, nullptr, pool_overhead,
+         bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, nullptr,
+         bound_quota, nullptr, rsv_cap, group_cap, conflict,
+         assign, nullptr, node_count, unsched, steps, widths,
+         free_used, bound_used, rsv_used, done,
+         kcap, take, nullptr, nullptr, spend, nullptr, o_used, o_fill, nullptr, lane, conf,
+         G, C, R, B, F, K, P1, cost, W};
+  ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask, fits, kopen,
+               o_mask, o_union};
+  void* params[] = {&a, &t, &slots, &arrive, &S, &words};
+  err = cudaLaunchCooperativeKernel((const void*)pack_wavefront_sharded_kernel, dim3(S * W),
+                                    dim3(kThreads), params, 0, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;

@@ -4,7 +4,8 @@ Each source under `csrc/` is compiled by `nvcc` into its own shared
 library with a plain C interface, loaded with ctypes. The build runs at
 first use, into `_build/` beside this file, one `nvcc` process per
 source, all started together. A library's file name carries a digest
-of its source, the shared headers (`csrc/*.cuh`) and the flags, so an
+of its source, the shared headers (`csrc/*.cuh`: pack_common.cuh and
+the split kernels' exchange, shard_xchg.cuh) and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply-add
@@ -46,15 +47,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: argument types of each library's entry points
 SIGNATURES = {
-    "pack_split": {"pack_split_launch": [_P] * 28 + [_I] * 9 + [_P]},
+    "pack_split": {
+        "pack_split_launch": [_P] * 28 + [_I] * 9 + [_P],
+        "pack_split_sharded_launch": [_P] * 30 + [_I] * 10 + [_P],
+    },
     "pack_wavefront": {
         "pack_wavefront_launch": [_P] * 38 + [_I] * 9 + [_P],
         "pack_probe_wavefront_launch": [_P] * 36 + [_I] * 10 + [_P, _P],
+        "pack_wavefront_sharded_launch": [_P] * 40 + [_I] * 11 + [_P] * 3,
     },
-    "pack_flat": {"pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P]},
+    "pack_flat": {
+        "pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P],
+        "pack_flat_sharded_launch": [_P] * 7 + [_I] * 5 + [_P],
+    },
     "pack_dense": {"pack_dense_launch": [_P] * 25 + [_I] * 8 + [_P]},
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 3 + [_P]},
-    "lp_ascend": {"lp_ascend_launch": [_P] * 26 + [_I] * 5 + [_P]},
+    "lp_ascend": {
+        "lp_ascend_launch": [_P] * 26 + [_I] * 5 + [_P],
+        "lp_ascend_sharded_launch": [_P] * 28 + [_I] * 7 + [_P],
+    },
 }
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said

@@ -23,7 +23,9 @@ Knobs: KARPENTER_LP_GUIDE (default on; 0 disables guidance, trim,
 the rank arm and pruning), KARPENTER_LP_ITERS (ascent iterations,
 default 192), KARPENTER_LP_PRUNE_MARGIN (the pruner's margin, 0.05),
 KARPENTER_LP_RANK_BETA (reduced-cost penalty weight, default 1.0),
-KARPENTER_LP_PRIORITY_WEIGHT (priority fold strength, default 0.25).
+KARPENTER_LP_PRIORITY_WEIGHT (priority fold strength, default 0.25),
+KARPENTER_LP_SHARDS (the split ascent's shard count, default 0: B8's
+split B5, `ascend_sharded`, when that many devices are visible).
 
 Unlike the JAX package, whose `maybe_solve` degrades any failure to the
 unguided path, this port's `maybe_solve` returns None only when
@@ -44,12 +46,12 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.solver.encode import Encoded
-from karpenter_tpu_torch.solver.lp_plan import _pad_to, priority_weights
+from karpenter_tpu_torch.solver.lp_plan import _fma_f32, _pad_to, priority_weights
 
 _EPS = 1e-12
 
-# kernel launches of B5 (plain-version calls never count)
-LAUNCHES = {"lp_ascend": 0}
+# kernel launches of B5 and split B5 (plain-version calls never count)
+LAUNCHES = {"lp_ascend": 0, "lp_ascend_sharded": 0}
 
 
 def _env_int(name: str, default: int) -> int:
@@ -162,27 +164,78 @@ def _fingerprint(enc: Encoded) -> bytes:
 # ---------------------------------------------------------------- B5
 
 
-def tree_width(n: int) -> int:
-    """Width of B5's fixed-order sums: the next power of two at or
-    above n, and at least 32 (one warp)."""
-    out = 32
-    while out < n:
-        out *= 2
-    return out
+def window_pad(n: int) -> tuple[int, int]:
+    """XLA's CPU split of a sum over more than 32 elements: the axis is
+    zero-padded to a multiple of 32, `front` zeros before it and the
+    rest after, and each window of 32 is summed in order (reduce-window
+    of size and stride 32); the window sums are then reduced the same
+    way. Returns (windows, front)."""
+    nwin = -(-n // 32)
+    pad = nwin * 32 - n
+    return nwin, pad // 2
 
 
-def tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in a fixed order: zero-pad it to
-    `tree_width` and add adjacent pairs, x[..., 0::2] + x[..., 1::2],
-    until one element is left. The CUDA kernel reduces the same way, so
-    its sums are bit-identical to this one."""
+def xla_sum(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum over the last axis in the order the JAX package's XLA program
+    sums it on the CPU (float32): up to 32 elements, in index order from
+    +0; beyond, in windows of 32 (`window_pad`) whose sums are reduced
+    the same way. With `y`, the sum of the products x * y: up to 32
+    elements the product is fused into the running sum (one multiply-
+    add rounded once per step, as LLVM contracts it); beyond, each
+    product is rounded before the windows sum it. The CUDA kernel sums
+    in the same order, so the two are bit-identical."""
     n = x.shape[-1]
-    pad = tree_width(n) - n
-    if pad:
-        x = torch.cat([x, x.new_zeros(*x.shape[:-1], pad)], dim=-1)
-    while x.shape[-1] > 1:
-        x = x[..., 0::2] + x[..., 1::2]
-    return x[..., 0]
+    if y is not None:
+        x, y = torch.broadcast_tensors(x, y)
+        if n <= 32:
+            return fma_chain(x, y)
+        x = x * y
+    while x.shape[-1] > 32:
+        nwin, front = window_pad(x.shape[-1])
+        back = nwin * 32 - x.shape[-1] - front
+        x = torch.cat([x.new_zeros(*x.shape[:-1], front), x,
+                       x.new_zeros(*x.shape[:-1], back)], dim=-1)
+        x = x.reshape(*x.shape[:-1], nwin, 32)
+        w = torch.zeros_like(x[..., 0])
+        for i in range(32):
+            w = w + x[..., i]
+        x = w
+    s = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for i in range(x.shape[-1]):
+        s = s + x[..., i]
+    return s
+
+
+def xla_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over the last axis as the JAX package's program takes
+    `lam_s @ count_w` on the CPU, where LLVM vectorizes the fused dot:
+    eight lane sums, lane l a multiply-add chain over elements l, l+8,
+    ... of the first 8 * (n // 8), folded in halves (lanes i and i+4,
+    then i and i+2, then 0 and 1), then the remaining elements added
+    by multiply-adds in order. Bit for bit XLA's at Gp = 32; wider dots
+    are vectorized in ways this does not follow (see ROADMAP C2)."""
+    n = a.shape[-1]
+    main = (n // 8) * 8
+    acc = torch.zeros(8, dtype=torch.float32, device=a.device)
+    for t in range(0, main, 8):
+        acc = _fma_f32(a[t:t + 8], b[t:t + 8], acc)
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[:h] + acc[h:]
+    s = acc[0]
+    for i in range(main, n):
+        s = _fma_f32(a[i], b[i], s)
+    return s
+
+
+def fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over the last axis as one multiply-add chain in index
+    order from +0: how XLA takes `mu @ cap_budget` on the CPU (the dot
+    of a max reduction, which LLVM does not vectorize)."""
+    s = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    for i in range(a.shape[-1]):
+        s = _fma_f32(a[..., i], b[..., i], s)
+    return s
 
 
 class AscentInputs:
@@ -239,7 +292,7 @@ def _forward(a: AscentInputs, lam, k: _Consts):
     excess = torch.where(xe > 0, xe, k.zero)
     M = torch.where(a.onehot, excess[None, :], k.zero)                  # [K, C]
     mu = M.amax(dim=1)
-    b = tree_sum(lam_s * a.count_w) - tree_sum(mu * a.budget)
+    b = xla_dot(lam_s, a.count_w) - fma_chain(mu, a.budget)
     return dict(safe_req=safe_req, rmask=rmask, ratio=ratio, X=X, mm=mm, v=v,
                 vh0=vh0, finite=finite, vh=vh, zsel=zsel, pden=pden, z=z,
                 theta0=theta0, theta=theta, xe=xe, M=M, mu=mu, b=b)
@@ -275,11 +328,12 @@ def _supergradient(a: AscentInputs, lam, f: dict, k: _Consts):
     to the result (padding and masked zeros included), maximum and clip
     give each side half at an exact tie, and where(isfinite(vh), vh, 0)
     passes the cotangent only where vh is finite. The sums over an axis
-    are `tree_sum`s."""
+    are taken in XLA's order (`xla_sum`), with XLA's association of the
+    products it sums (dtheta's: (count_w * inv_t2) * lam)."""
     theta = f["theta"]
     inv_t2 = k.one / (theta * theta)
     dlam_a = a.count_w / theta
-    dtheta_a = tree_sum((-a.count_w * lam) * inv_t2)
+    dtheta_a = -xla_sum(a.count_w * inv_t2, lam)
     # mu = max_c where(onehot, excess, 0); d mu = -budget
     dmu = -a.budget
     indM = (f["M"] == f["mu"][:, None]).to(torch.float32)
@@ -293,7 +347,7 @@ def _supergradient(a: AscentInputs, lam, f: dict, k: _Consts):
     dx = dexcess * torch.where(f["xe"] > 0, k.one,
                                torch.where(f["xe"] == 0, k.half, k.zero))
     dvh_a = dx / theta
-    dtheta_b = tree_sum((-dx * f["vh"]) * inv_t2)
+    dtheta_b = -xla_sum(dx * inv_t2, f["vh"])
     dtheta = dtheta_a + dtheta_b
     dtheta0 = dtheta * _tie_weight(f["theta0"], k.eps, k)
     indz = (f["z"] == f["theta0"]).to(torch.float32)
@@ -307,8 +361,8 @@ def _supergradient(a: AscentInputs, lam, f: dict, k: _Consts):
     indX = (f["X"] == f["mm"][None, :, :]).to(torch.float32)           # [G, C, R]
     dX = indX * (dmm / indX.sum(dim=0))[None, :, :]
     dXc = torch.where(a.compat[:, :, None], dX, k.zero)
-    dratio = tree_sum(dXc.permute(0, 2, 1))                             # [G, R]
-    dlam_b = tree_sum(torch.where(f["rmask"], dratio / f["safe_req"], k.zero))
+    dratio = xla_sum(dXc.permute(0, 2, 1))                             # [G, R]
+    dlam_b = xla_sum(torch.where(f["rmask"], dratio / f["safe_req"], k.zero))
     return dlam_a + dlam_b
 
 
@@ -326,13 +380,13 @@ def ascend_ref(a: AscentInputs, n_iters: int):
     last_up = torch.full((), -1, dtype=torch.int32, device=dev)
     for t in range(n_iters):
         g = _supergradient(a, lam, f, k)
-        nrm = _sqrt_rn(tree_sum(g * g))
+        nrm = _sqrt_rn(xla_sum(g, g))
         gn = g / torch.where(nrm > k.eps, nrm, k.eps)
         t_f = torch.full((), float(t), dtype=torch.float32, device=dev)
         eta = k.half / _sqrt_rn(k.one + t_f)
         lmax = lam.amax()
         scale = torch.where(lmax > k.tiny, lmax, k.tiny)
-        y = lam + (eta * gn) * scale
+        y = _fma_f32(eta * gn, scale.expand_as(gn), lam)
         lam = torch.where(y > 0, y, k.zero)
         f = _forward(a, lam, k)
         better = f["b"] > best
@@ -396,6 +450,216 @@ def ascend(a: AscentInputs, n_iters: int):
     if a.lam0.device.type == "cpu":
         return ascend_ref(a, n_iters)
     raise ValueError(f"lp_ascend: no kernel for device {a.lam0.device}")
+
+
+# ---------------------------------------------------------------- split B5
+
+
+class ShardedAscentInputs:
+    """B5's inputs with the config axis split over S shards: lam0,
+    count, count_w [Gp], req [Gp, R] and budget [Kp] replicated; compat
+    [Gp, Cs], alloc and valid [Cs, R], price and uncapped [Cs] and
+    onehot [Kp, Cs] as lists of per-shard blocks (the JAX package's
+    specs at lp_device.py:443-447)."""
+
+    REPLICATED = ("lam0", "count", "count_w", "req", "budget")
+    SPLIT = {"compat": 1, "alloc": 0, "price": 0, "valid": 0, "onehot": 1, "uncapped": 0}
+
+    def __init__(self, **tensors):
+        for name in self.REPLICATED + tuple(self.SPLIT):
+            setattr(self, name, tensors[name])
+
+    @property
+    def shards(self) -> int:
+        return len(self.compat)
+
+    @classmethod
+    def split(cls, a: AscentInputs, shards: int, devices=None) -> "ShardedAscentInputs":
+        """`a` cut into `shards` column blocks (Cp must divide), each its
+        own allocation, on `devices` (one per shard; default: a's)."""
+        devices = devices or [a.lam0.device] * shards
+        out = {n: getattr(a, n).to(devices[0]) for n in cls.REPLICATED}
+        for n, axis in cls.SPLIT.items():
+            t = getattr(a, n)
+            if t.shape[axis] % shards:
+                raise ValueError(f"{n}: {t.shape[axis]} configs do not split {shards} ways")
+            out[n] = [b.contiguous().to(d, copy=True)
+                      for b, d in zip(torch.chunk(t, shards, dim=axis), devices)]
+        return cls(**out)
+
+
+def _forward_sharded(a: ShardedAscentInputs, lam, k: _Consts):
+    """`_forward` with every reduction over configs taken per shard and
+    combined: theta's and mu's maxima over the shards' maxima."""
+    S = a.shards
+    req = a.req
+    rmask = (req > 0) & (a.count > 0)[:, None]
+    safe_req = torch.where(req > 0, req, k.one)
+    ratio = torch.where(rmask, lam[:, None] / safe_req, k.zero)
+    sh = []
+    for s in range(S):
+        X = torch.where(a.compat[s][:, :, None], ratio[:, None, :], k.zero)
+        mm = X.amax(dim=0)
+        v = torch.where(a.valid[s], mm * a.alloc[s], k.inf)
+        vh0 = v.amin(dim=1)
+        finite = torch.isfinite(vh0)
+        vh = torch.where(finite, vh0, k.zero)
+        zsel = a.uncapped[s] & (a.price[s] > 0)
+        pden = torch.where(a.price[s] > k.eps, a.price[s], k.eps)
+        z = torch.where(zsel, vh / pden, k.zero)
+        sh.append(dict(X=X, mm=mm, v=v, vh0=vh0, finite=finite, vh=vh, zsel=zsel,
+                       pden=pden, z=z))
+    theta0 = sh[0]["z"].amax()
+    for d in sh[1:]:
+        theta0 = torch.maximum(theta0, d["z"].amax())
+    theta = torch.where(theta0 > k.eps, theta0, k.eps)
+    lam_s = lam / theta
+    mu = None
+    for s, d in enumerate(sh):
+        xe = d["vh"] / theta - a.price[s]
+        d["xe"] = xe
+        excess = torch.where(xe > 0, xe, k.zero)
+        d["M"] = torch.where(a.onehot[s], excess[None, :], k.zero)
+        m = d["M"].amax(dim=1)
+        mu = m if mu is None else torch.maximum(mu, m)
+    b = xla_dot(lam_s, a.count_w) - fma_chain(mu, a.budget)
+    return dict(sh=sh, safe_req=safe_req, rmask=rmask, ratio=ratio, theta0=theta0,
+                theta=theta, mu=mu, b=b)
+
+
+def _supergradient_sharded(a: ShardedAscentInputs, lam, f: dict, k: _Consts):
+    """`_supergradient` over the shards: tie counts over configs summed
+    over the shards, and each sum over configs (dtheta's and d ratio's)
+    taken in XLA's order on each shard's columns, the partials then
+    added in shard order."""
+    S = a.shards
+    theta = f["theta"]
+    inv_t2 = k.one / (theta * theta)
+    dlam_a = a.count_w / theta
+    dtheta_a = -xla_sum(a.count_w * inv_t2, lam)
+    dmu = -a.budget
+    nM = sum((d["M"] == f["mu"][:, None]).to(torch.float32).sum(dim=1) for d in f["sh"])
+    dtheta_b = None
+    for s, d in enumerate(f["sh"]):
+        indM = (d["M"] == f["mu"][:, None]).to(torch.float32)
+        dM = indM * (dmu / nM)[:, None]
+        slot = a.onehot[s].to(torch.uint8).argmax(dim=0)
+        cols = torch.arange(a.onehot[s].shape[1], device=dM.device)
+        dexcess = torch.where(a.onehot[s].any(dim=0), dM[slot, cols], k.zero)
+        d["dx"] = dexcess * torch.where(d["xe"] > 0, k.one,
+                                        torch.where(d["xe"] == 0, k.half, k.zero))
+        part = xla_sum(d["dx"] * inv_t2, d["vh"])
+        dtheta_b = part if dtheta_b is None else dtheta_b + part
+    dtheta = dtheta_a + -dtheta_b
+    dtheta0 = dtheta * _tie_weight(f["theta0"], k.eps, k)
+    nz = sum((d["z"] == f["theta0"]).to(torch.float32).sum() for d in f["sh"])
+    dratio = None
+    for s, d in enumerate(f["sh"]):
+        indz = (d["z"] == f["theta0"]).to(torch.float32)
+        dz = indz * (dtheta0 / nz)
+        dvh_b = torch.where(d["zsel"], dz / d["pden"], k.zero)
+        dvh = d["dx"] / theta + dvh_b
+        dvh0 = torch.where(d["finite"], dvh, k.zero)
+        indv = (d["v"] == d["vh0"][:, None]).to(torch.float32)
+        dv = indv * (dvh0 / indv.sum(dim=1))[:, None]
+        dmm = torch.where(a.valid[s], dv * a.alloc[s], k.zero)
+        indX = (d["X"] == d["mm"][None, :, :]).to(torch.float32)
+        dX = indX * (dmm / indX.sum(dim=0))[None, :, :]
+        dXc = torch.where(a.compat[s][:, :, None], dX, k.zero)
+        part = xla_sum(dXc.permute(0, 2, 1))
+        dratio = part if dratio is None else dratio + part
+    dlam_b = xla_sum(torch.where(f["rmask"], dratio / f["safe_req"], k.zero))
+    return dlam_a + dlam_b
+
+
+def ascend_sharded_ref(a: ShardedAscentInputs, n_iters: int):
+    """Plain version of split B5: `ascend_ref` with the config axis split
+    over `a.shards` shards (`_forward_sharded`, `_supergradient_sharded`).
+    Returns (best [S], best_lam [S, Gp], last_up [S]): S copies of one
+    result, as the kernel's replicas."""
+    dev = a.lam0.device
+    k = _Consts(dev)
+    lam = a.lam0
+    f = _forward_sharded(a, lam, k)
+    best, best_lam = f["b"], lam
+    last_up = torch.full((), -1, dtype=torch.int32, device=dev)
+    for t in range(n_iters):
+        g = _supergradient_sharded(a, lam, f, k)
+        nrm = _sqrt_rn(xla_sum(g, g))
+        gn = g / torch.where(nrm > k.eps, nrm, k.eps)
+        t_f = torch.full((), float(t), dtype=torch.float32, device=dev)
+        eta = k.half / _sqrt_rn(k.one + t_f)
+        lmax = lam.amax()
+        scale = torch.where(lmax > k.tiny, lmax, k.tiny)
+        y = _fma_f32(eta * gn, scale.expand_as(gn), lam)
+        lam = torch.where(y > 0, y, k.zero)
+        f = _forward_sharded(a, lam, k)
+        better = f["b"] > best
+        best = torch.where(better, f["b"], best)
+        best_lam = torch.where(better, lam, best_lam)
+        last_up = torch.where(better, torch.full_like(last_up, t), last_up)
+    S = a.shards
+    return best.expand(S).clone(), best_lam.expand(S, -1).clone(), last_up.expand(S).clone()
+
+
+def _ascend_sharded_cuda(a: ShardedAscentInputs, n_iters: int):
+    from karpenter_tpu_torch import cuda_build
+    from karpenter_tpu_torch.solver.pack_split import _check, _ptr, _raise_on, _stream
+    from karpenter_tpu_torch.solver.pack_shard import _table, _xchg_scratch
+
+    S = a.shards
+    Gp, Cs = a.compat[0].shape
+    R = a.req.shape[1]
+    Kp = a.onehot[0].shape[0]
+    f32, b8 = torch.float32, torch.bool
+    dev = a.lam0.device
+    for name, shape, dtype in (("lam0", (Gp,), f32), ("count", (Gp,), f32),
+                               ("count_w", (Gp,), f32), ("req", (Gp, R), f32),
+                               ("budget", (Kp,), f32)):
+        _check(getattr(a, name), name, dtype, shape)
+    for s in range(S):
+        for name, shape, dtype in (("compat", (Gp, Cs), b8), ("alloc", (Cs, R), f32),
+                                   ("price", (Cs,), f32), ("valid", (Cs, R), b8),
+                                   ("onehot", (Kp, Cs), b8), ("uncapped", (Cs,), b8)):
+            t = getattr(a, name)[s]
+            if t.device != dev:
+                raise ValueError(f"lp_ascend_sharded: shard {s} lies on {t.device}; the "
+                                 "launch over several cards is ROADMAP item 10")
+            _check(t, f"{name}[{s}]", dtype, shape)
+    if R > 16:
+        raise ValueError(f"lp_ascend_sharded: {R} resources exceed the kernel's 16")
+    best = torch.empty((S,), dtype=f32, device=dev)
+    best_lam = torch.empty((S, Gp), dtype=f32, device=dev)
+    last_up = torch.empty((S,), dtype=torch.int32, device=dev)
+    local = [[torch.empty(shape, dtype=f32, device=dev) for _ in range(S)]
+             for shape in ((Cs, R), (Cs, R), (Cs,), (Cs,), (Cs,), (Cs,))]
+    rep = [torch.empty((S,) + shape, dtype=f32, device=dev)
+           for shape in ((Gp,), (Gp,), (Gp, R), (Gp, R), (Kp,), (Kp,))]
+    slots, arrive = _xchg_scratch(1, S, max(Kp, Gp * R), dev)
+    tables = [_table(getattr(a, n), dev) for n in ("compat", "alloc", "price", "valid",
+                                                     "onehot", "uncapped")]
+    tables += [_table(t, dev) for t in local]
+    lib = cuda_build.library("lp_ascend")
+    err = lib.lp_ascend_sharded_launch(
+        *[_ptr(t) for t in tables],
+        *[_ptr(getattr(a, n)) for n in ("lam0", "count", "count_w", "req", "budget")],
+        _ptr(best), _ptr(best_lam), _ptr(last_up), *[_ptr(t) for t in rep],
+        _ptr(slots), _ptr(arrive), Gp, Cs, R, Kp, int(n_iters), S, slots.shape[-1],
+        _stream(),
+    )
+    _raise_on(err, f"lp_ascend_sharded (cooperative grid of {S} blocks)")
+    LAUNCHES["lp_ascend_sharded"] += 1
+    return best, best_lam, last_up
+
+
+def ascend_sharded(a: ShardedAscentInputs, n_iters: int):
+    """Split B5. Arguments and outputs as `ascend_sharded_ref`'s; CUDA
+    tensors run one cooperative launch of S blocks."""
+    if a.lam0.is_cuda:
+        return _ascend_sharded_cuda(a, n_iters)
+    if a.lam0.device.type == "cpu":
+        return ascend_sharded_ref(a, n_iters)
+    raise ValueError(f"lp_ascend_sharded: no kernel for device {a.lam0.device}")
 
 
 # ---------------------------------------------------------------- host
@@ -487,12 +751,16 @@ def _stage(enc: Encoded):
     )
 
 
-def ascent_inputs(st: dict) -> AscentInputs:
+def ascent_inputs(st: dict, shards: int = 0) -> AscentInputs:
     """Pad `_stage`'s output as the JAX package pads it (`_pad_to` for
     groups and configs, `_cap_rows` for reservation slots: padded zeros
-    count in the ties of the max reductions) into CPU tensors."""
+    count in the ties of the max reductions) into CPU tensors. With
+    `shards > 1` the config axis pads on to a multiple of the shard
+    count, as the JAX package's split ascent pads it."""
     G, C, R = st["G"], st["C"], st["R"]
     Gp, Cp = _pad_to(G), _pad_to(C)
+    if shards > 1:
+        Cp = -(-Cp // shards) * shards
     K = len(st["cap_budget"])
     Kp = _cap_rows(K)
 
@@ -525,9 +793,22 @@ def ascent_inputs(st: dict) -> AscentInputs:
     )
 
 
-def solve(enc: Encoded, device: torch.device | str = "cuda") -> DeviceLP:
+def lp_shards() -> int:
+    """KARPENTER_LP_SHARDS: the shard count of the ascent (0: unsplit)."""
+    return max(0, _env_int("KARPENTER_LP_SHARDS", 0))
+
+
+def solve(enc: Encoded, device: torch.device | str = "cuda", shards: int = 0) -> DeviceLP:
     """Run (or reuse) the dual ascent for this encode on `device`.
-    Raises on failure."""
+    Raises on failure.
+
+    `shards` (default KARPENTER_LP_SHARDS) splits the ascent's config
+    axis, padded to a multiple of the shard count (lp_device.py:430-452
+    of the JAX package), over that many shards, but only when that many
+    devices are visible (`pack.visible_devices`, which counts the shard
+    slots of `force_virtual_mesh`): the JAX package runs the split
+    ascent only under the same condition (lp_device.py:441) and the
+    unsplit one otherwise."""
     fp = _fingerprint(enc)
     with _cache_lock:
         hit = _cache.get(fp)
@@ -538,8 +819,22 @@ def solve(enc: Encoded, device: torch.device | str = "cuda") -> DeviceLP:
     st = _stage(enc)
     G = st["G"]
     n_iters = iters()
-    inputs = ascent_inputs(st).to(torch.device(device))
-    _, best_lam, last_up = ascend(inputs, n_iters)
+    shards = shards or lp_shards()
+    dev = torch.device(device)
+    split = False
+    if shards > 1:
+        from karpenter_tpu_torch.solver.pack import _mesh, visible_devices
+
+        split = shards <= visible_devices(1, dev)
+    if split:
+        mesh = _mesh(shards, str(dev))
+        inputs = ShardedAscentInputs.split(
+            ascent_inputs(st, shards), shards, list(mesh.devices))
+        _, best_lam, last_up = ascend_sharded(inputs, n_iters)
+        best_lam, last_up = best_lam[0], last_up[0]
+    else:
+        inputs = ascent_inputs(st).to(dev)
+        _, best_lam, last_up = ascend(inputs, n_iters)
     lam_raw = best_lam.cpu().numpy().astype(np.float64)[:G]
     converged = int(last_up) < (n_iters * 3) // 4
     lam_s, mu, vh_s, theta, bound = _certify(
@@ -566,7 +861,7 @@ def solve(enc: Encoded, device: torch.device | str = "cuda") -> DeviceLP:
     return out
 
 
-def maybe_solve(enc: Encoded, device: torch.device | str = "cuda"):
+def maybe_solve(enc: Encoded, device: torch.device | str = "cuda", shards: int = 0):
     """None when guidance is disabled or the problem is degenerate (no
     groups, no launchable column); otherwise `solve`. Errors of the
     kernel and of the card propagate (the JAX package degrades them to
@@ -575,7 +870,7 @@ def maybe_solve(enc: Encoded, device: torch.device | str = "cuda"):
         return None
     if enc.compat.shape[0] == 0 or not (enc.cfg_pool >= 0).any():
         return None
-    return solve(enc, device=device)
+    return solve(enc, device=device, shards=shards)
 
 
 def rank_prices(enc: Encoded, dlp: DeviceLP,

@@ -1,15 +1,26 @@
 """Host side of the provisioning pack: staging, node-axis sizing and the
 flat-buffer decode around the packing kernels.
 
-Copy of the unsharded host half of `karpenter_tpu/solver/pack.py`
+Copy of the host half of `karpenter_tpu/solver/pack.py`
 (`PackResult`, the shape buckets, `_estimate_nodes`, the node-axis
 retry of `solve_packing_async` as a synchronous loop, `_run_pack`'s
 bound-block staging, the wavefront routing, the uint32 decode of its
-`fetch`, and the consolidation probes' lane width and lane bucket).
+`fetch`, the consolidation probes' lane width and lane bucket, and the
+shard resolution and per-shard staging of a split solve).
 The kernels themselves are in `pack_split.py`: B1
 `pack_split`, B3 `pack_split_wavefront` and B2 `pack_flat_words`,
 which run on the tensors' device — the hand-written CUDA kernels on a
-GPU, their plain versions on the CPU. The dense kernel B7 (`pack`,
+GPU, their plain versions on the CPU; their split versions (B8, the
+config axis over S shards) are in `pack_shard.py`.
+
+Shards: `solve_packing(..., shards=S)` (or KARPENTER_SOLVER_SHARDS)
+splits the config axis over a mesh of S shards (`_mesh`). The visible
+devices are the real ones unless `utils.platform.force_virtual_mesh`
+asked for S shard slots on the one device of the solve, the port's
+counterpart of the JAX package's `force_cpu_mesh`. An explicit `shards`
+beyond the visible devices raises; the env default falls back to the
+unsharded solve with a warning (the JAX rule). A mesh over several real
+cards raises: that launch is ROADMAP item 10. The dense kernel B7 (`pack`,
 `pack_flat`, in `pack_dense.py`) is re-exported here, where the JAX
 package defines it.
 
@@ -21,6 +32,7 @@ JAX package's on the same encoded input.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import threading
 import zlib
@@ -31,7 +43,104 @@ import torch
 
 from karpenter_tpu_torch.solver.encode import Encoded
 from karpenter_tpu_torch.solver.pack_dense import pack, pack_flat  # noqa: F401
+from karpenter_tpu_torch.solver import stream as stream_mod
+from karpenter_tpu_torch.solver.pack_shard import pack_split_flat_sharded
 from karpenter_tpu_torch.solver.pack_split import pack_split_flat
+from karpenter_tpu_torch.utils.platform import real_devices, virtual_mesh
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The devices of a split solve, one per shard (a virtual mesh
+    repeats the one device of the solve)."""
+
+    devices: tuple
+    # True for every mesh `_mesh` builds today; the launch over several
+    # cards (ROADMAP item 10) is to read it to tell real cards from shard
+    # slots on one device
+    virtual: bool
+
+    @property
+    def shards(self) -> int:
+        return len(self.devices)
+
+
+def _mesh(shards: int, device: str = "cuda") -> Mesh:
+    """The mesh of `shards` shards for a solve on `device`: on a
+    virtual mesh (`force_virtual_mesh`) every shard is that device;
+    otherwise the visible devices of its kind. Raises when fewer are
+    visible, and for a mesh over several real cards."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    visible = visible_devices(0, dev)
+    if visible < shards:
+        raise ValueError(
+            f"{shards} solver shards requested but only {visible} devices visible"
+        )
+    if virtual_mesh():
+        return Mesh(devices=(dev,) * shards, virtual=True)
+    raise NotImplementedError(
+        f"a mesh of {shards} shards over {shards} real {dev.type} devices: the "
+        "launch over several cards is ROADMAP item 10 (peer memory at system "
+        "scope or NCCL between launches); use force_virtual_mesh for shard "
+        "slots on one device")
+
+
+def default_shards() -> int:
+    """Shard count the framework paths inherit (0 = unsharded)."""
+    try:
+        return int(os.environ.get("KARPENTER_SOLVER_SHARDS", "0") or 0)
+    except ValueError:
+        return 0
+
+
+# the last shard resolution: the shards the last solve ran with (1 =
+# unsharded) and the devices visible then (the JAX package keeps the
+# same record behind a gauge)
+_shards_observed = {"effective": 0, "devices": 0}
+
+
+def last_resolved_shards() -> dict:
+    """{"effective", "devices"} of the last solve; 0s before any."""
+    return dict(_shards_observed)
+
+
+def visible_devices(default: int = 1, device=None) -> int:
+    """The shard slots a solve on `device` may split over: the forced
+    virtual mesh, else the real devices of its kind (`default` when the
+    runtime cannot say)."""
+    n = virtual_mesh()
+    if n:
+        return n
+    try:
+        return real_devices(device)
+    except Exception:
+        return default
+
+
+def _observe_shards(effective: int, device=None) -> None:
+    _shards_observed["effective"] = effective if effective > 1 else 1
+    _shards_observed["devices"] = visible_devices(0, device)
+
+
+def resolve_shards(shards: int, device) -> int:
+    """`shards` as the JAX package resolves it (pack.py:1479-1496): 0
+    takes KARPENTER_SOLVER_SHARDS, which falls back to unsharded, with a
+    warning, when it exceeds the visible devices; an explicit count is
+    kept (and `_mesh` raises if it cannot be met)."""
+    if shards == 0:
+        shards = default_shards()
+        if shards > 1:
+            visible = visible_devices(1, device)
+            if shards > visible:
+                logging.getLogger("karpenter.solver").warning(
+                    "KARPENTER_SOLVER_SHARDS=%d exceeds %d visible devices; "
+                    "running unsharded", shards, visible,
+                )
+                shards = 0
+    _observe_shards(shards, device)
+    return shards if shards > 1 else 0
 
 
 @dataclass
@@ -247,7 +356,8 @@ def node_axis(enc: Encoded, mode: str = "ffd", plan=None) -> int:
 
 
 def solve_packing(enc: Encoded, mode: str = "ffd", plan=None,
-                  device: torch.device | str = "cuda") -> PackResult:
+                  device: torch.device | str = "cuda",
+                  shards: int = 0) -> PackResult:
     """Host entry: run the packing kernels on the encoded problem.
 
     With a `plan` (lp_plan.FleetPlan), the planned nodes are pre-opened
@@ -258,8 +368,14 @@ def solve_packing(enc: Encoded, mode: str = "ffd", plan=None,
     axis remembered from the last solve of the same problem), rounded
     to 1.25x-spaced buckets, and grown on a cap hit: when every row of
     the axis opened and pods are still unschedulable, the solve runs
-    again on a larger axis."""
+    again on a larger axis.
+
+    With `shards > 1` (or KARPENTER_SOLVER_SHARDS set) the config axis
+    is split over a mesh of that many shards (`_mesh`) and the split
+    kernels run; the result is identical to the unsharded solve's.
+    """
     device = torch.device(device)
+    shards = resolve_shards(shards, device)
     existing_mask, existing_used, quota = _bound_rows(enc, plan)
     reserved = existing_mask.shape[0]
     # the kernel sees the bound block padded to its shape bucket, so
@@ -272,7 +388,8 @@ def solve_packing(enc: Encoded, mode: str = "ffd", plan=None,
     worst_case = reserved_p + total_pods
     while True:
         result = _run_pack(
-            enc, existing_mask, existing_used, max_nodes, mode, quota, device
+            enc, existing_mask, existing_used, max_nodes, mode, quota, device,
+            shards,
         )
         capped = (
             result.node_count >= max_nodes
@@ -317,13 +434,27 @@ class Staged:
     bound_live: np.ndarray
     bound_used: np.ndarray
     cfg_pool: np.ndarray
+    cfg_rsv: np.ndarray       # [Cp] int32, -1 without a reservation
+
+
+def config_width(Cp: int, shards: int = 0) -> int:
+    """The kernels' config axis: a multiple of 32 (the mask words of
+    the flat output), and with `shards > 1` of lcm(32, shards), so that
+    it also splits evenly over the shards (pack.py:1693-1694 of the JAX
+    package)."""
+    step = math.lcm(32, shards) if shards > 1 else 32
+    return -(-Cp // step) * step
 
 
 def stage(enc: Encoded, existing_mask: np.ndarray, existing_used: np.ndarray,
-          max_nodes: int, quota: np.ndarray | None = None) -> Staged:
+          max_nodes: int, quota: np.ndarray | None = None, shards: int = 0,
+          config_axis: bool = True) -> Staged:
     """Pad the encoded problem to its shape buckets and flatten the
     one-hot existing rows into the bound block (`_run_pack`'s staging
-    in the JAX package, value for value)."""
+    in the JAX package, value for value). With `shards > 1` the config
+    axis pads to a multiple of lcm(32, shards); with `config_axis`
+    False the padded compat, cfg_alloc and cfg_price are not built (the
+    streaming staging builds them shard by shard) and stand as None."""
     # int32 width guard: the kernel state, the flat transport and the
     # decode carry pod counts in 32 bits
     total_demand = int(np.asarray(enc.group_count, np.int64).sum())
@@ -336,8 +467,7 @@ def stage(enc: Encoded, existing_mask: np.ndarray, existing_used: np.ndarray,
     R = enc.group_req.shape[1]
     E = existing_mask.shape[0]
     Gp, Cp, Ep = _pad_axis(G), _pad_axis(C), _pad_axis(E) if E else 0
-    # the config axis packs evenly into the 32-bit mask words
-    Cp = -(-Cp // 32) * 32
+    Cp = config_width(Cp, shards)
     N = max_nodes
     assert N >= Ep, (N, Ep)
     F = N - Ep
@@ -348,12 +478,14 @@ def stage(enc: Encoded, existing_mask: np.ndarray, existing_used: np.ndarray,
     group_count[:G] = enc.group_count
     cfg_pool = np.full((Cp,), -1, np.int32)
     cfg_pool[:C] = enc.cfg_pool
-    compat = np.zeros((Gp, Cp), bool)
-    compat[:G, :C] = enc.compat
-    cfg_alloc = np.zeros((Cp, R), np.float32)
-    cfg_alloc[:C] = enc.cfg_alloc
-    cfg_price = np.zeros((Cp,), np.float32)
-    cfg_price[:C] = enc.cfg_price
+    compat = cfg_alloc = cfg_price = None
+    if config_axis:
+        compat = np.zeros((Gp, Cp), bool)
+        compat[:G, :C] = enc.compat
+        cfg_alloc = np.zeros((Cp, R), np.float32)
+        cfg_alloc[:C] = enc.cfg_alloc
+        cfg_price = np.zeros((Cp,), np.float32)
+        cfg_price[:C] = enc.cfg_price
 
     # ---- bound block: one-hot rows flattened to per-row vectors
     bound_cfg = np.full((Ep,), -1, np.int32)
@@ -419,7 +551,58 @@ def stage(enc: Encoded, existing_mask: np.ndarray, existing_used: np.ndarray,
     }
     return Staged(args=args, kwargs=kwargs, max_free=F, N=N, Gp=Gp, Cp=Cp,
                   Ep=Ep, bound_cfg=bound_cfg, bound_live=bound_live,
-                  bound_used=bound_used, cfg_pool=cfg_pool)
+                  bound_used=bound_used, cfg_pool=cfg_pool, cfg_rsv=cfg_rsv)
+
+
+# positions of pack_split's config-axis inputs and the axis each splits on
+_CONFIG_ARGS = {0: 1, 3: 0, 4: 0, 11: 0}
+
+
+def to_mesh(staged: Staged, enc: Encoded, mesh: Mesh, stream: bool
+            ) -> tuple[list, dict]:
+    """The staged arrays as a split solve's inputs: each config-axis
+    input (compat, cfg_alloc, cfg_pool, cfg_price, and cfg_rsv, padded
+    with -1 for reservation-free solves too) as a list of per-shard
+    column blocks, each its own allocation on its shard's device; the
+    rest replicated on the mesh's device. `stream` builds the blocks
+    shard by shard from the encode (`stream.stage`), without the padded
+    matrices; otherwise they are cut from the staged ones."""
+    dev = mesh.devices[0]
+    S = mesh.shards
+    G, C = enc.compat.shape
+    R = enc.group_req.shape[1]
+    Gp, Cp = staged.Gp, staged.Cp
+
+    def put(x):
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    args = [None if i in _CONFIG_ARGS else put(x) for i, x in enumerate(staged.args)]
+    kwargs = {k: put(v) for k, v in staged.kwargs.items() if k != "cfg_rsv"}
+    if kwargs["rsv_cap"] is None:
+        kwargs["rsv_cap"] = torch.zeros((0,), dtype=torch.float32, device=dev)
+    devices = list(mesh.devices)
+    if stream:
+        staging = stream_mod._Staging()
+        args[0] = stream_mod.stage(devices, 1, (Gp, Cp), np.bool_, stream_mod.col_fill_2d(
+            enc.compat, Gp, G, C, np.bool_), staging)
+        args[3] = stream_mod.stage(devices, 0, (Cp, R), np.float32, stream_mod.row_fill_2d(
+            enc.cfg_alloc, R, C, np.float32), staging)
+        args[4] = stream_mod.stage(devices, 0, (Cp,), np.int32, stream_mod.vec_fill(
+            enc.cfg_pool, C, np.int32, pad_value=-1), staging)
+        args[11] = stream_mod.stage(devices, 0, (Cp,), np.float32, stream_mod.vec_fill(
+            enc.cfg_price, C, np.float32), staging)
+        rsv_src = (enc.cfg_rsv if enc.rsv_cap is not None and enc.rsv_cap.size
+                   else np.full((C,), -1, np.int32))
+        kwargs["cfg_rsv"] = stream_mod.stage(devices, 0, (Cp,), np.int32, stream_mod.vec_fill(
+            rsv_src, C, np.int32, pad_value=-1), staging)
+        staging.commit()
+    else:
+        for i, axis in _CONFIG_ARGS.items():
+            args[i] = [torch.from_numpy(np.ascontiguousarray(b)).to(d, copy=True)
+                       for b, d in zip(np.split(staged.args[i], S, axis=axis), devices)]
+        kwargs["cfg_rsv"] = [torch.from_numpy(np.ascontiguousarray(b)).to(d, copy=True)
+                             for b, d in zip(np.split(staged.cfg_rsv, S), devices)]
+    return args, kwargs
 
 
 def to_device(staged: Staged, device: torch.device) -> tuple[tuple, dict]:
@@ -441,18 +624,31 @@ def _run_pack(
     mode: str = "ffd",
     quota: np.ndarray | None = None,
     device: torch.device = torch.device("cuda"),
+    shards: int = 0,
 ) -> PackResult:
     """One kernel attempt: stage, launch, and decode the flat buffer
-    into a PackResult."""
-    staged = stage(enc, existing_mask, existing_used, max_nodes, quota)
-    args, kwargs = to_device(staged, device)
+    into a PackResult. With `shards > 1` the config axis is split over
+    `_mesh(shards)` and the split kernels run (streaming staging unless
+    KARPENTER_STREAM_ENCODE=0); the flat buffer is the same."""
     G, C = enc.compat.shape
     # judged on the real group count: padding groups carry no demand
     # and are committed before the first round
     wf = wavefront_plan(G, device)
-    flat_dev = pack_split_flat(
-        *args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs
-    )
+    if shards > 1:
+        mesh = _mesh(shards, str(device))
+        stream_on = stream_mod.enabled()
+        staged = stage(enc, existing_mask, existing_used, max_nodes, quota,
+                       shards=shards, config_axis=not stream_on)
+        args, kwargs = to_mesh(staged, enc, mesh, stream_on)
+        flat_dev = pack_split_flat_sharded(
+            *args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs
+        )
+    else:
+        staged = stage(enc, existing_mask, existing_used, max_nodes, quota)
+        args, kwargs = to_device(staged, device)
+        flat_dev = pack_split_flat(
+            *args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs
+        )
     R = enc.group_req.shape[1]
     N, Gp, Ep, F = staged.N, staged.Gp, staged.Ep, staged.max_free
     W = staged.Cp // 32

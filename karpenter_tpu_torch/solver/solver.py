@@ -156,6 +156,7 @@ def solve(
     objective: str = "ffd",
     device=None,
     backend: Optional[str] = None,
+    shards: int = 0,
 ) -> Solution:
     """Pack `pods` onto `existing` nodes and new nodes from the pools.
     `device=None` runs on the card (and raises without one)."""
@@ -163,16 +164,21 @@ def solve(
     dev = resolve_device(device)
     groups = group_pods(pods)
     enc = encode(groups, pools_with_types, existing, daemon_overhead)
-    return solve_encoded(enc, objective=objective, device=dev)
+    return solve_encoded(enc, objective=objective, device=dev, shards=shards)
 
 
 def solve_encoded(
     enc: Encoded, objective: str = "ffd", device=None,
     price_hint: Optional[np.ndarray] = None, backend: Optional[str] = None,
+    shards: int = 0,
 ) -> Solution:
     """`price_hint`: an alternative [C] price vector fed to the packing
     kernel as its type-preference ordering; decode always prices nodes
-    from the true `enc.cfg_price`."""
+    from the true `enc.cfg_price`. `shards > 1` splits every pack's
+    config axis over a mesh of that many shards (`pack.solve_packing`);
+    the result is identical to the unsharded solve's. The device LP
+    stays unsharded unless KARPENTER_LP_SHARDS is set, so the race's
+    arms see the same duals at any shard count."""
     _check_supported(objective, backend)
     dev = resolve_device(device)
     G, C = enc.compat.shape
@@ -182,26 +188,27 @@ def solve_encoded(
             existing=[],
             unschedulable=[p for g in enc.groups for p in g.pods],
         )
-    return _decode_device(enc, objective, dev, price_hint=price_hint)
+    return _decode_device(enc, objective, dev, price_hint=price_hint, shards=shards)
 
 
 def _solve_packing(enc: Encoded, mode: str, device: torch.device,
-                   plan=None) -> pack.PackResult:
+                   plan=None, shards: int = 0) -> pack.PackResult:
     """The solver seam. In this package it runs the device pack
     directly; the resilience ladder around it is a later port."""
-    return pack.solve_packing(enc, mode=mode, plan=plan, device=device)
+    return pack.solve_packing(enc, mode=mode, plan=plan, device=device,
+                              shards=shards)
 
 
 def _decode_device(
     enc: Encoded, objective: str, device: torch.device,
-    price_hint: Optional[np.ndarray] = None,
+    price_hint: Optional[np.ndarray] = None, shards: int = 0,
 ) -> Solution:
     if objective == "cost":
-        return _decode_cost(enc, device)
+        return _decode_cost(enc, device, shards)
     kernel_enc = enc
     if price_hint is not None:
         kernel_enc = replace(enc, cfg_price=np.asarray(price_hint, np.float32))
-    result = _solve_packing(kernel_enc, mode=objective, device=device)
+    result = _solve_packing(kernel_enc, mode=objective, device=device, shards=shards)
     return _build_solution_arrays(
         enc,
         np.flatnonzero(result.node_active[: result.node_count]),
@@ -234,7 +241,7 @@ def reset_caches() -> None:
     lp_device.reset()
 
 
-def _decode_cost(enc: Encoded, device: torch.device) -> Solution:
+def _decode_cost(enc: Encoded, device: torch.device, shards: int = 0) -> Solution:
     """Cost objective: the LP-planned pack raced against plain FFD; the
     cheaper fleet wins (fewer unschedulable pods first), so FFD is a
     floor. With dual guidance (KARPENTER_LP_GUIDE) the device LP adds a
@@ -262,6 +269,8 @@ def _decode_cost(enc: Encoded, device: torch.device) -> Solution:
     floor = _ffd_floor.get(fp)
     plan = None
     cost_tuple = None  # (result, masks, arm)
+    # the LP does not inherit the packs' shard count (KARPENTER_LP_SHARDS
+    # is its own opt-in), so its duals are the same at any shard count
     dlp = lp_device.maybe_solve(enc, device=device)
 
     def arm_enc(arm: str) -> Encoded:
@@ -308,7 +317,7 @@ def _decode_cost(enc: Encoded, device: torch.device) -> Solution:
         plan = _plan_for(fp, enc, device)
         if plan is not None:
             arm = _warm_arm.get(fp, "cost")
-            cost_result = _solve_packing(arm_enc(arm), "cost", device, plan)
+            cost_result = _solve_packing(arm_enc(arm), "cost", device, plan, shards)
             masks = _downsize_masks(enc, cost_result)
             cost_tuple = (cost_result, masks, arm)
             if key((cost_result, masks)) < floor:
@@ -316,7 +325,7 @@ def _decode_cost(enc: Encoded, device: torch.device) -> Solution:
         # the planned pack is missing or not strictly better than the
         # recorded floor: race, reusing the plan and the cost pack
 
-    ffd_result = _solve_packing(enc, "ffd", device)
+    ffd_result = _solve_packing(enc, "ffd", device, shards=shards)
     if plan is None:
         plan = _plan_for(fp, enc, device)
     candidates = [(ffd_result, _downsize_masks(enc, ffd_result), "ffd")]
@@ -328,7 +337,7 @@ def _decode_cost(enc: Encoded, device: torch.device) -> Solution:
             # the ranked arm joins the cold race only
             arms.append("rank")
         for arm in arms:
-            arm_result = _solve_packing(arm_enc(arm), "cost", device, plan)
+            arm_result = _solve_packing(arm_enc(arm), "cost", device, plan, shards)
             candidates.append((arm_result, _downsize_masks(enc, arm_result), arm))
 
     if len(_ffd_floor) >= 32:

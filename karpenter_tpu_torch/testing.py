@@ -13,6 +13,9 @@ split oracle (`split_mismatch`).
 ties, exact fills, demand caps, the planner's padded shapes) and
 `ascent_cases` inputs of the dual-ascent kernel B5 (staged from encodes
 with and without reservations, on both catalogs).
+`split_case` cuts a kernel case's config axis into S shards' column
+blocks (the inputs of the split kernels, B8), and `tie_case` builds
+problems whose picks tie across every shard boundary.
 `existing_from_solution` turns a solution's new nodes into existing
 nodes for a follow-up request, which drives the bound block.
 `root_node_mips` makes column generation's HiGHS MIPs deterministic
@@ -296,9 +299,11 @@ def price_cases(seed: int = 0) -> list[tuple[str, tuple]]:
     ]
 
 
-def ascent_cases(seed: int = 0) -> list[tuple[str, "lp_device.AscentInputs"]]:
+def ascent_cases(seed: int = 0, shards: int = 0) -> list[tuple[str, "lp_device.AscentInputs"]]:
     """Seeded B5 inputs (CPU tensors), staged and padded from encodes
-    as `lp_device.solve` stages them."""
+    as `lp_device.solve` stages them (with `shards`, the config axis
+    padded to a multiple of the shard count, as the split ascent
+    stages it)."""
     out = []
     for name, n_pods, n_types, rsv, hetero in (
         ("linear", 600, 30, False, False),
@@ -309,7 +314,7 @@ def ascent_cases(seed: int = 0) -> list[tuple[str, "lp_device.AscentInputs"]]:
         if hetero:
             pools = [(pools[0][0], heterogeneous_instance_types(n_types))]
         enc = encode(group_pods(pods), pools)
-        out.append((f"ascent-{name}", lp_device.ascent_inputs(lp_device._stage(enc))))
+        out.append((f"ascent-{name}", lp_device.ascent_inputs(lp_device._stage(enc), shards)))
     return out
 
 
@@ -647,3 +652,105 @@ def consolidation_ladder(pools, nodes, prices, pods_on, batched: bool,
     out.price = float(sum(prices))
     out.nodes = len(nodes)
     return out
+
+
+# ---------------------------------------------------------------- shards
+
+def split_case(case: KernelCase, S: int) -> tuple[tuple, dict, tuple, dict]:
+    """A kernel case as inputs of the split kernels: the config axis
+    padded to `pack.config_width` (compat False, alloc 0, pool -1, price 0,
+    reservation -1) and cut into S column blocks. Returns (split args,
+    split kwargs, padded unsplit args, padded unsplit kwargs), numpy."""
+    args = list(case.args)
+    kw = dict(case.kwargs)
+    Cp0 = args[0].shape[1]
+    Cp = pack.config_width(Cp0, S)
+    pad = Cp - Cp0
+    rsv = kw.get("cfg_rsv")
+    if rsv is None:
+        rsv = np.full((Cp0,), -1, np.int32)
+    if pad:
+        args[0] = np.pad(args[0], ((0, 0), (0, pad)))
+        args[3] = np.pad(args[3], ((0, pad), (0, 0)))
+        args[4] = np.pad(args[4], (0, pad), constant_values=-1)
+        args[11] = np.pad(args[11], (0, pad))
+        rsv = np.pad(rsv, (0, pad), constant_values=-1)
+    full_kw = dict(kw)
+    if kw.get("cfg_rsv") is not None:
+        full_kw["cfg_rsv"] = rsv
+    split = list(args)
+    for i, axis in pack._CONFIG_ARGS.items():
+        split[i] = [np.ascontiguousarray(b) for b in np.split(args[i], S, axis=axis)]
+    skw = dict(kw)
+    skw["cfg_rsv"] = [np.ascontiguousarray(b) for b in np.split(rsv, S)]
+    if skw.get("rsv_cap") is None:
+        skw["rsv_cap"] = np.zeros((0,), np.float32)
+    return tuple(split), skw, tuple(args), full_kw
+
+
+def tie_case(seed: int, S: int, mode: str, G: int = 12, Cp: int = 96,
+             B: int = 6, quota: bool = False) -> KernelCase:
+    """A synthetic problem whose picks tie across every shard boundary
+    of an S-way split of `Cp` columns (cost: twin columns of equal price
+    per pod and different capacity, the cheapest there are; ffd: twin
+    reserved columns of equal capacity in different reservation slots,
+    cheaper than every uncapped column). Two resources, no pool
+    overhead, a bound block of B rows."""
+    rng = np.random.default_rng(seed)
+    Cp = pack.config_width(Cp, S)
+    Cs = Cp // S
+    R = 2
+    alloc = np.zeros((Cp, R), np.float32)
+    alloc[:, 0] = rng.choice([4.0, 8.0, 16.0], size=Cp)
+    alloc[:, 1] = 110.0
+    pool = rng.integers(0, 2, size=Cp).astype(np.int32)
+    price = (alloc[:, 0] * np.float32(0.1)
+             * rng.uniform(1.0, 1.5, size=Cp).astype(np.float32)).astype(np.float32)
+    rsv = np.full((Cp,), -1, np.int32)
+    K = 0
+    twins = []
+    for s in range(1, S):
+        b = s * Cs
+        if b < 1 or b >= Cp:
+            continue
+        twins.append((b - 1, b))
+    if mode == "cost":
+        for a, b in twins:
+            pool[b] = pool[a]
+            alloc[b, 0] = 2 * alloc[a, 0]
+            price[a] = np.float32(0.05) * alloc[a, 0]
+            price[b] = np.float32(2) * price[a]
+    else:
+        for a, b in twins:
+            pool[b] = pool[a]
+            alloc[b] = alloc[a]
+            price[a] = price[b] = np.float32(0.01)
+            rsv[a], rsv[b] = K, K + 1
+            K += 2
+    req = np.zeros((G, R), np.float32)
+    req[:, 0] = rng.choice([1.0, 2.0], size=G)
+    req[:, 1] = 1.0
+    count = rng.integers(1, 40, size=G).astype(np.int32)
+    compat = rng.random((G, Cp)) < 0.6
+    for a, b in twins:
+        compat[:, a] = compat[:, b] = True
+    overhead = np.zeros((3, R), np.float32)
+    bound_cfg = rng.integers(0, Cp, size=B)
+    bound_alloc = alloc[bound_cfg].copy()
+    bound_used = np.zeros((B, R), np.float32)
+    bound_used[:, 0] = np.minimum(rng.integers(0, 3, size=B), bound_alloc[:, 0])
+    bound_live = rng.random(B) < 0.8
+    bound_compat = (rng.random((G, B)) < 0.5) & bound_live[None, :]
+    bound_slot = np.full((B,), K, np.int32)
+    kwargs = {
+        "bound_quota": (rng.integers(0, 5, size=(B, G)).astype(np.int16)
+                        if quota else None),
+        "cfg_rsv": rsv if K else None,
+        "rsv_cap": np.full((K,), 2.0, np.float32) if K else None,
+        "group_cap": None,
+        "conflict": None,
+    }
+    args = (compat, req, count, alloc, pool, overhead, bound_compat,
+            bound_alloc, bound_used, bound_slot, bound_live, price)
+    return KernelCase(f"ties-S{S}-{mode}", args, kwargs, 48, mode)
+

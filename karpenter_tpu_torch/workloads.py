@@ -147,3 +147,64 @@ def consolidation_fleet(n_pods: int = 21000, n_types: int = 200, seed: int = 9,
         prices.append(plan.price)
         pods_on.append(kept)
     return pools, nodes, prices, pods_on
+
+
+def build_scaled_demand(total_pods: int = 1_000_000, n_types: int = 100,
+                        n_signatures: int = 400, seed: int = 13):
+    """`bench.py`'s million_pod demand (`build_scaled_demand`,
+    bench.py:250-330, defaults as bench.py:355-357 reads them): one
+    representative pod per scheduling signature (shapes x arch/zone
+    selectors), encoded once, with `Encoded.group_count` rescaled to a
+    Pareto-weighted distribution summing to `total_pods`. The solve, and
+    the node axis it opens, are the million-pod problem's; only a
+    per-pod decode is out of scope. Returns (enc, pools)."""
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+
+    rng = np.random.default_rng(seed)
+    types = instance_types(n_types)
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    zones = ["test-zone-1", "test-zone-2", "test-zone-3"]
+    cpu_levels = [0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0]
+    mem_levels = [0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0]
+    reps = []
+    for i in range(n_signatures):
+        selector = {}
+        if rng.random() < 0.25:
+            selector["kubernetes.io/arch"] = str(rng.choice(["amd64", "arm64"]))
+        if rng.random() < 0.3:
+            selector[TOPOLOGY_ZONE_LABEL] = str(rng.choice(zones))
+        reps.append(Pod(
+            metadata=ObjectMeta(name=f"sig-{i}"),
+            spec=PodSpec(
+                containers=[Container(requests={
+                    "cpu": float(rng.choice(cpu_levels)),
+                    "memory": float(rng.choice(mem_levels)) * GIB,
+                })],
+                node_selector=selector,
+            ),
+        ))
+    enc = encode(group_pods(reps), [(pool, types)])
+    G = enc.compat.shape[0]
+    # Pareto weights: a heavy head of big deployments over a long tail
+    if total_pods < G:
+        raise ValueError(
+            f"total_pods={total_pods} below the {G} encoded signatures "
+            "— every group carries at least one pod")
+    weights = rng.pareto(1.5, G) + 1.0
+    counts = np.maximum(
+        1, np.floor(weights / weights.sum() * total_pods)).astype(np.int64)
+    # rebalance to the exact total without driving a group below 1
+    excess = int(counts.sum() - total_pods)
+    if excess > 0:
+        for i in np.argsort(-counts):
+            cut = min(excess, int(counts[i]) - 1)
+            counts[i] -= cut
+            excess -= cut
+            if excess == 0:
+                break
+    else:
+        counts[np.argmax(counts)] += -excess
+    assert counts.sum() == total_pods
+    assert counts.min() >= 1 and counts.max() < 2**31
+    enc.group_count = counts.astype(np.int32)
+    return enc, [(pool, types)]

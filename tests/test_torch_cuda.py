@@ -291,3 +291,130 @@ def test_entry_runs_the_dense_kernel_on_card(dense_kernels):
     cpu_fn, cpu_args = entry(device="cpu")
     for a, b in zip(got, cpu_fn(*cpu_args)):
         assert _same_bits(a.cpu(), b)
+
+
+# ---------------------------------------------------------------- B8
+
+
+@pytest.fixture(scope="module")
+def shard_kernels(cuda_kernels):
+    from karpenter_tpu_torch.solver import pack_shard
+
+    return pack_shard
+
+
+@pytest.fixture(scope="module")
+def split_cases():
+    from karpenter_tpu_torch.testing import kernel_cases
+
+    return kernel_cases(1, n_pods=600, n_types=24)
+
+
+def _cuda_split(case, S):
+    from karpenter_tpu_torch.testing import split_case
+
+    def put(x):
+        if x is None:
+            return None
+        if isinstance(x, list):
+            return [torch.from_numpy(np.ascontiguousarray(b)).cuda() for b in x]
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    sa, skw, fa, fkw = split_case(case, S)
+    return ([put(a) for a in sa], {k: put(v) for k, v in skw.items()},
+            [put(a) for a in fa], {k: put(v) for k, v in fkw.items()})
+
+
+def _replicas_equal(t):
+    return all(torch.equal(t[0], t[s]) for s in range(1, t.shape[0]))
+
+
+def _split_cases(split_cases, S):
+    from karpenter_tpu_torch.testing import tie_case
+
+    return [split_cases[i] for i in (0, 1, 2, 3, 4, 7)] + [
+        tie_case(5, S, "cost"), tie_case(6, S, "ffd", quota=True)]
+
+
+@pytest.mark.parametrize("S", [2, 3, 4, 8])
+def test_split_b1_b2_match_plain_versions_and_b1(cuda_kernels, shard_kernels, split_cases, S):
+    for case in _split_cases(split_cases, S):
+        sa, skw, fa, fkw = _cuda_split(case, S)
+        before = dict(shard_kernels.LAUNCHES)
+        got = shard_kernels.pack_split_sharded(*sa, max_free=case.max_free, mode=case.mode, **skw)
+        torch.cuda.synchronize()
+        assert shard_kernels.LAUNCHES["pack_split_sharded"] == before["pack_split_sharded"] + 1
+        want = shard_kernels.pack_split_sharded_ref(*sa, max_free=case.max_free, mode=case.mode, **skw)
+        for i in (0, 2, 3):
+            assert _replicas_equal(got[i]), (case.name, i)
+            assert torch.equal(got[i], want[i]), (case.name, i)
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), case.name
+        flat = shard_kernels.pack_flat_words_sharded(*got)
+        assert torch.equal(flat, shard_kernels.pack_flat_words_sharded_ref(*got)), case.name
+        # the unsplit kernels on the same problem
+        whole = cuda_kernels.pack_split(*fa, max_free=case.max_free, mode=case.mode, **fkw)
+        assert torch.equal(flat, cuda_kernels.pack_flat_words(*whole)), case.name
+
+
+@pytest.mark.parametrize("width", [1, 8, 16])
+@pytest.mark.parametrize("S", [2, 3, 4, 8])
+def test_split_b3_matches_plain_version_and_b3(cuda_kernels, shard_kernels, split_cases, S, width):
+    for case in _split_cases(split_cases, S):
+        sa, skw, fa, fkw = _cuda_split(case, S)
+        got = shard_kernels.pack_split_wavefront_sharded(
+            *sa, max_free=case.max_free, mode=case.mode, width=width, **skw)
+        torch.cuda.synchronize()
+        want = shard_kernels.pack_split_wavefront_sharded_ref(
+            *sa, max_free=case.max_free, mode=case.mode, width=width, **skw)
+        for i in (0, 2, 3, 4, 5):
+            assert _replicas_equal(got[i]), (case.name, i)
+            assert torch.equal(got[i], want[i]), (case.name, i)
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), case.name
+        flat = shard_kernels.pack_flat_words_sharded(got[0], got[1], got[2], got[3], got[5], got[4])
+        whole = cuda_kernels.pack_split_wavefront(
+            *fa, max_free=case.max_free, mode=case.mode, width=width, **fkw)
+        assert torch.equal(flat, cuda_kernels.pack_flat_words(
+            whole[0], whole[1], whole[2], whole[3], whole[5], whole[4])), case.name
+
+
+@pytest.mark.parametrize("n_iters", [8, 192])
+@pytest.mark.parametrize("S", [2, 4])
+def test_split_ascent_matches_plain_version(lp_kernels, S, n_iters):
+    from karpenter_tpu_torch.testing import ascent_cases
+
+    _, lp_device = lp_kernels
+    for name, inputs in ascent_cases(2, S):
+        a = lp_device.ShardedAscentInputs.split(inputs, S, ["cuda"] * S)
+        before = lp_device.LAUNCHES["lp_ascend_sharded"]
+        got = lp_device.ascend_sharded(a, n_iters)
+        torch.cuda.synchronize()
+        assert lp_device.LAUNCHES["lp_ascend_sharded"] == before + 1
+        want = lp_device.ascend_sharded_ref(a, n_iters)
+        for x, y in zip(got, want):
+            assert _replicas_equal(x), name
+            assert _same_bits(x, y), name
+
+
+def test_sharded_solves_on_card_match_unsharded(shard_kernels, lp_kernels):
+    from karpenter_tpu_torch.solver import pack
+    from karpenter_tpu_torch.solver.solver import fingerprint, reset_caches, solve
+    from karpenter_tpu_torch.utils.platform import force_virtual_mesh
+    from karpenter_tpu_torch.workloads import build_problem
+
+    pods, pools = build_problem(1500, 40, seed=4)
+    force_virtual_mesh(8)
+    try:
+        want = fingerprint(solve(pods, pools))
+        for S in (2, 3, 8):
+            before = dict(shard_kernels.LAUNCHES)
+            assert fingerprint(solve(pods, pools, shards=S)) == want, S
+            assert shard_kernels.LAUNCHES["pack_split_wavefront_sharded"] > before[
+                "pack_split_wavefront_sharded"]
+        rpods, rpools = build_problem(1200, 60, seed=3, reservations=True)
+        reset_caches()
+        cost = fingerprint(solve(rpods, rpools, objective="cost"))
+        reset_caches()
+        assert fingerprint(solve(rpods, rpools, objective="cost", shards=4)) == cost
+        assert pack.last_resolved_shards()["effective"] == 4
+    finally:
+        force_virtual_mesh(0)

@@ -72,3 +72,34 @@ def test_port_file_imports_no_jax(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "karpenter_tpu", "bench"), (path, name)
+
+
+def test_sharded_solve_loads_no_jax():
+    """(e) for the split path: a virtual mesh, a split ffd solve with
+    streamed staging, the split ascent and the dryrun's module load
+    neither `jax` nor `karpenter_tpu`."""
+    code = (
+        "import os, sys, json\n"
+        "os.environ['KARPENTER_LP_SHARDS'] = '2'\n"
+        "from karpenter_tpu_torch.utils.platform import force_virtual_mesh\n"
+        "from karpenter_tpu_torch import graft_entry\n"
+        "from karpenter_tpu_torch.solver import stream\n"
+        "from karpenter_tpu_torch.workloads import build_problem\n"
+        "from karpenter_tpu_torch.solver.solver import solve\n"
+        "force_virtual_mesh(4)\n"
+        "pods, pools = build_problem(200, 10, seed=1)\n"
+        "sol = solve(pods, pools, device='cpu', shards=4)\n"
+        "cost = solve(pods, pools, device='cpu', shards=2, objective='cost')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'karpenter_tpu'"
+        " or m.startswith('karpenter_tpu.')]\n"
+        "print(json.dumps({'bad': bad, 'nodes': len(sol.new_nodes),"
+        " 'blocks': stream.last_stats().get('blocks', 0)}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert report["nodes"] > 0 and report["blocks"] > 0
