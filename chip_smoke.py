@@ -2,19 +2,25 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --quick   # phases 1-3, the warm first request's
+                                    # hold and phase 5 alone (~1 min)
 
 Phases, each reported on its own line; any failure exits non-zero:
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile the CUDA kernels from karpenter_tpu_torch/csrc
-                (one nvcc per source, in parallel); print build seconds
-                and what ptxas reports (registers, shared memory).
+                (one nvcc per source, in parallel, B1's and B3's sources
+                a second time with their phase clocks); print build
+                seconds and what ptxas reports (registers, shared memory).
   3. kernels  — hold each kernel against its plain PyTorch version on
                 the card, on seeded problems (B4 and B5 on their own
                 seeded cases; the packing kernels in both modes, reservations,
                 bound rows with quotas, group caps, conflicts, negative
                 and huge demand, a capped node axis): outputs must be
-                byte-identical, B3's at widths 1, 8 and 16, and B3's
-                equal to B1's on the same problem. The dense kernel B7
+                byte-identical, B3's at widths 1, 8, 16 and 32, and B3's
+                equal to B1's on the same problem; two of them also at
+                config axes the staging never gives the kernels (200, not
+                a multiple of 32, and 800, past the consolidation union's
+                768). The dense kernel B7
                 and `pack_flat` on the same problems laid out densely
                 (bound rows as one-hot existing_mask rows, their quotas
                 as quota rows), and on LP-planned rows with quotas, in
@@ -43,7 +49,12 @@ Phases, each reported on its own line; any failure exits non-zero:
                 byte-identical to their plain versions on them.
   5. timing   — each packing kernel's CUDA-event time on the warm
                 first request's inputs (B1 and B3 in turns), its plain
-                version's, and its bound.
+                version's, its bound, and the dynamic shared memory a
+                block of B1 and B3 takes; then one run each of B1's and
+                B3's phase-clock builds: each phase's share of block 0's
+                cycles, the us a step (B1) or round (B3) from the
+                CUDA-event times, and the slowest thread of a step's sweep
+                and takes against the mean.
   6. cost     — the cost objective on `build_problem(50_000, 500,
                 reservations=True, zonal_frac=0.1)`, the benchmark's
                 reserved_50k: one cold solve and five warm ones with
@@ -178,7 +189,10 @@ WARM_SOLVES = 5
 # groups of the request that takes the sequential route by its size
 # (the wavefront route needs WAVEFRONT_MIN_GROUPS = 8)
 SMALL_GROUPS = 5
-WIDTHS = (1, 8, 16)
+WIDTHS = (1, 8, 16, 32)
+# config axes the staging never gives the kernels: not a multiple of 32,
+# and wider than the consolidation union's 768
+ODD_CONFIG_AXES = (200, 800)
 OUTPUTS = ("assign", "free_mask", "node_count", "unsched", "steps", "widths")
 DENSE_OUTPUTS = ("assign", "node_mask", "node_used", "node_active", "node_count",
                  "unsched")
@@ -202,6 +216,8 @@ ASCENT_ITERS = (8, 192)
 # card-against-CPU check, the cluster widths held on seeded lane cases
 # and the lane width the CPU run forces
 MID_FLEET = (3000, 60)
+# the argument that runs phases 1-3 and 5 only (`quick_timing`)
+QUICK = "--quick"
 PROBE_WIDTHS = (8, 16)
 CPU_PROBE_WIDTH = 8
 PROBE_KNOBS = ("KARPENTER_WAVEFRONT", "KARPENTER_WAVEFRONT_WIDTH",
@@ -278,9 +294,10 @@ def event_ms(fn, reps: int, queued: bool = True) -> float:
 
 
 def hold(kernels, case, err: dict, widths=(16,)) -> str:
-    """Run B1, B3 at each of `widths`, and B2 on both routes, and their
-    plain versions, on the card on `case`; fail unless every output is
-    byte-identical and B3's outputs equal B1's. Returns a summary."""
+    """Run B1, B3 at each of `widths`, and B2
+    on both routes, and their plain versions, on the card on `case`;
+    fail unless every output is byte-identical and B3's outputs equal
+    B1's. Returns a summary."""
     import torch
 
     args, kw = to_cuda(case)
@@ -312,7 +329,8 @@ def hold(kernels, case, err: dict, widths=(16,)) -> str:
                      f"pack_split on {case.name}: {label}")
         flats.append((wf[:4], (wf[5], wf[4])))
         rounds.append(f"W{width}:{int(wf[4])}")
-    for outs, stats in flats:
+    # B2 takes whole mask words: a config axis that is a multiple of 32
+    for outs, stats in flats if args[0].shape[1] % 32 == 0 else ():
         flat = kernels.pack_flat_words(*outs, *stats)
         flat_ref = kernels.pack_flat_words_ref(*outs, *stats)
         torch.cuda.synchronize()
@@ -1282,13 +1300,10 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     K = 0 if kw["rsv_cap"] is None else kw["rsv_cap"].shape[0]
     N = B + F
     # what the wavefront program's wrapper allocates, from the shapes:
-    # outputs, the state, the plan scratch (o_mask, W x F x Cp bytes a
-    # lane, is most of it)
-    shape_bytes = Lp * (
-        N * Gp * 4 + F * Cp + 4 + Gp * 4 + 4 + Gp * 4
-        + F * R * 4 + B * R * 4 + (K + 1) * 4 + Gp
-        + W * (2 * N * 4 + Cp + Cp * 4 + (K + 1) * 4 + F * Cp + F * R * 4 + F * 4
-               + Cp + kernels.WAVEFRONT_LANE_FIELDS * 4 + W))
+    # outputs, then the state and plan scratch (the lanes' opened rows'
+    # bits and usage are most of it)
+    shape_bytes = Lp * (N * Gp * 4 + F * Cp + 4 + Gp * 4 + 4 + Gp * 4) + nbytes(
+        kernels.wavefront_scratch((Lp,), W, Gp, Cp, R, B, F, K, "meta"))
     ptxas = [" ".join(line.split(":", 1)[1].split())
              for name in ("pack_wavefront", "pack_split")
              for line in cuda_build.BUILD_INFO[name]["ptxas"].splitlines()
@@ -1804,6 +1819,129 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
     return {"launches": launches, "entries": entries}
 
 
+def phase_breakdown(kernels, lib: str, run, ms: float, unit: str) -> str:
+    """One run of `run` with library `lib`'s phase-clock build swapped
+    in: each phase's share of block 0's cycles, and the time a step or
+    round from the CUDA-event time `ms` of the normal build."""
+    with kernels.phase_clocks(lib) as take:
+        run()
+        clk = take()
+    n = clk.pop("count")
+    spreads = clk.pop("spreads")
+    total = sum(clk.values())
+    if not n or not total:
+        fail(f"{lib}: the phase-clock build counted {n} {unit}s, {total} cycles")
+    shares = ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in clk.items())
+    # the slowest thread against the mean over the block's threads
+    spread = ", ".join(f"{k} {hi / n:.1f} (mean {tot / n / 1024:.1f})"
+                       for k, (hi, tot) in spreads.items())
+    return (f"{n} {unit}s, {1000 * ms / n:.3f} us a {unit} (CUDA events), "
+            f"{total / n:.0f} cycles a {unit} on block 0 | {shares} | a {unit}'s slowest "
+            f"thread: {spread}")
+
+
+def timing_phase(kernels, pack, case, smi: str) -> dict:
+    """Phase 5: B1, B3 (in turns) and B2 on the warm first request's
+    inputs, their plain versions, bounds, dynamic shared memory and the
+    phase-clock breakdowns of B1 and B3."""
+    import torch
+
+    args, kw = to_cuda(case)
+    B = args[7].shape[0]
+    F = case.max_free
+    W = pack.wavefront_width(torch.device("cuda"))
+
+    def run_b1():
+        return kernels.pack_split(*args, max_free=F, mode="ffd", **kw)
+
+    def run_b3():
+        return kernels.pack_split_wavefront(*args, max_free=F, mode="ffd", width=W, **kw)
+
+    out1, out3 = run_b1(), run_b3()
+    # B1 and B3 in turns on the same card: B1, B3, B3, B1
+    b1_runs, b3_runs = [event_ms(run_b1, 10)], []
+    b3_runs += [event_ms(run_b3, 10), event_ms(run_b3, 10)]
+    b1_runs.append(event_ms(run_b1, 10))
+    b1_ms, b3_ms = statistics.mean(b1_runs), statistics.mean(b3_runs)
+    smem = dict(kernels.DYNAMIC_SMEM)
+    b1_clocks = phase_breakdown(kernels, "pack_split", run_b1, b1_ms, "step")
+    b3_clocks = phase_breakdown(kernels, "pack_wavefront", run_b3, b3_ms, "round")
+    b1_plain_ms = event_ms(
+        lambda: kernels.pack_split_ref(*args, max_free=F, mode="ffd", **kw), 2,
+        queued=False)
+    b3_plain_ms = event_ms(
+        lambda: kernels.pack_split_wavefront_ref(*args, max_free=F, mode="ffd",
+                                                 width=W, **kw), 2, queued=False)
+    # B2 as the main path runs it: on B3's outputs, stats appended
+    b2_in = (*out3[:4], out3[5], out3[4])
+    b2_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50)
+    b2_host_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50, queued=False)
+    b2_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*b2_in), 20,
+                           queued=False)
+
+    Gp, Cp = args[0].shape
+    R = args[1].shape[1]
+    # B3 computes B1's function: the work its inputs need is B1's
+    b1_op_count = b1_ops(kernels, args, kw, F)
+    in_bytes = nbytes(list(args) + list(kw.values()))
+    b1_bytes = in_bytes + nbytes(out1)
+    b3_bytes = in_bytes + nbytes(out3)
+    flat = kernels.pack_flat_words(*b2_in)
+    b2_bytes = nbytes(b2_in) + nbytes([flat])
+    b2_op_count = out3[1].numel()
+
+    b1_bound, b1_by = bound(b1_op_count, b1_bytes)
+    b3_bound, b3_by = bound(b1_op_count, b3_bytes)
+    b2_bound, b2_by = bound(b2_op_count, b2_bytes)
+    say(f"phase 5 timing on {case.name} (Gp={Gp} Cp={Cp} B={B} F={F} R={R}, W={W}): "
+        f"B1 {', '.join(f'{x:.4f}' for x in b1_runs)} ms; B3 "
+        f"{', '.join(f'{x:.4f}' for x in b3_runs)} ms, {int(out3[4])} rounds, widths "
+        f"{histogram(out3[5][:int(out3[4])])}; B1/B3 ops={b1_op_count} "
+        f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 {b2_ms:.6f} ms on the card, "
+        f"{b2_host_ms:.6f} ms a call as the host launches it, ops={b2_op_count} "
+        f"bytes={b2_bytes} | card: {smi}")
+    say(f"  dynamic shared memory a block: B1 {smem['pack_split']} B, "
+        f"B3 {smem['pack_split_wavefront']} B")
+    say(f"  B1 phase clocks: {b1_clocks}")
+    say(f"  B3 phase clocks: {b3_clocks}")
+    return {"b1_ms": b1_ms, "b1_plain_ms": b1_plain_ms, "b1_bound": b1_bound,
+            "b1_by": b1_by, "b3_ms": b3_ms, "b3_plain_ms": b3_plain_ms,
+            "b3_bound": b3_bound, "b3_by": b3_by, "b2_ms": b2_ms,
+            "b2_plain_ms": b2_plain_ms, "b2_bound": b2_bound, "b2_by": b2_by}
+
+
+def quick_timing(kernels, pack, solve, build_problem, KernelCase, err: dict,
+                 smi: str, kind: str) -> None:
+    """`--quick`: after phases 1-3, stage the warm first request (a cold
+    and a warm solve on the card), hold B1, B3 and B2 on it, and run
+    phase 5 alone."""
+    import torch
+
+    pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
+    real_stage = pack.stage
+    staged = []
+
+    def recording_stage(*a, **k):
+        staged.append(real_stage(*a, **k))
+        return staged[-1]
+
+    pack.stage = recording_stage
+    try:
+        solve(pods, pools)
+        solve(pods, pools)
+        torch.cuda.synchronize()
+    finally:
+        pack.stage = real_stage
+    st = staged[-1]
+    case = KernelCase("main-path-first-warm", st.args, st.kwargs, st.max_free, "ffd", st)
+    say(hold(kernels, case, err))
+    timing_phase(kernels, pack, case, smi)
+    say(f"chip_smoke --quick: {time.perf_counter() - T_START:.3f}s wall")
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     card = one_card()
     import numpy as np
@@ -1832,6 +1970,7 @@ def main() -> None:
             PRICE_CASES,
             KernelCase,
             ascent_cases,
+            config_axis,
             dense_cases,
             existing_from_solution,
             kernel_cases,
@@ -1868,7 +2007,8 @@ def main() -> None:
     t0 = time.perf_counter()
     err = {"pack_split": 0.0, "pack_split_wavefront": 0.0, "pack_split_flat": 0.0}
     cases = kernel_cases(0)
-    for case in cases:
+    for case in cases + [config_axis(cases[i], C) for i, C in ((4, ODD_CONFIG_AXES[0]),
+                                                                 (2, ODD_CONFIG_AXES[1]))]:
         say(hold(kernels, case, err, widths=WIDTHS))
     err.update({"pack": 0.0, "pack_flat": 0.0})
     dcases = dense_cases(0, kernel=cases)
@@ -1881,11 +2021,16 @@ def main() -> None:
         for n_iters in ASCENT_ITERS:
             say(hold_ascent(lp_device, f"{name}-{n_iters}", inputs.to("cuda"),
                             n_iters, err))
-    say(f"phase 3 kernels: {len(cases)} seeded packing problems byte-identical to "
-        f"the plain versions, B3 at widths {WIDTHS} equal to B1; B7 and pack_flat "
+    say(f"phase 3 kernels: {len(cases)} seeded packing problems and 2 at config axes "
+        f"{ODD_CONFIG_AXES} byte-identical to the plain versions, B3 at widths "
+        f"{WIDTHS} equal to B1; B7 and pack_flat "
         f"on {len(dcases)} dense ones byte-identical, B7 equal to B1; B4 on "
         f"{len(PRICE_CASES)} and B5 on {3 * len(ASCENT_ITERS)} seeded cases "
         f"bit-identical ({time.perf_counter() - t0:.3f}s)")
+
+    if QUICK in sys.argv[1:]:
+        quick_timing(kernels, pack, solve, build_problem, KernelCase, err, smi, kind)
+        return
 
     # ---- 4. main path, route by route; the kernel inputs of each
     # distinct shape the routes stage are kept, to hold the kernels
@@ -2065,58 +2210,7 @@ def main() -> None:
         f"byte-identical to the plain versions ({time.perf_counter() - t0:.3f}s)")
 
     # ---- 5. timing on the warm first request's inputs
-    case = timed
-    args, kw = to_cuda(case)
-    B = args[7].shape[0]
-    F = case.max_free
-    W = pack.wavefront_width(torch.device("cuda"))
-
-    def run_b1():
-        return kernels.pack_split(*args, max_free=F, mode="ffd", **kw)
-
-    def run_b3():
-        return kernels.pack_split_wavefront(*args, max_free=F, mode="ffd", width=W, **kw)
-
-    out1, out3 = run_b1(), run_b3()
-    # B1 and B3 in turns on the same card: B1, B3, B3, B1
-    b1_runs, b3_runs = [event_ms(run_b1, 10)], []
-    b3_runs += [event_ms(run_b3, 10), event_ms(run_b3, 10)]
-    b1_runs.append(event_ms(run_b1, 10))
-    b1_ms, b3_ms = statistics.mean(b1_runs), statistics.mean(b3_runs)
-    b1_plain_ms = event_ms(
-        lambda: kernels.pack_split_ref(*args, max_free=F, mode="ffd", **kw), 2,
-        queued=False)
-    b3_plain_ms = event_ms(
-        lambda: kernels.pack_split_wavefront_ref(*args, max_free=F, mode="ffd",
-                                                 width=W, **kw), 2, queued=False)
-    # B2 as the main path runs it: on B3's outputs, stats appended
-    b2_in = (*out3[:4], out3[5], out3[4])
-    b2_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50)
-    b2_host_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50, queued=False)
-    b2_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*b2_in), 20,
-                           queued=False)
-
-    Gp, Cp = args[0].shape
-    R = args[1].shape[1]
-    # B3 computes B1's function: the work its inputs need is B1's
-    b1_op_count = b1_ops(kernels, args, kw, F)
-    in_bytes = nbytes(list(args) + list(kw.values()))
-    b1_bytes = in_bytes + nbytes(out1)
-    b3_bytes = in_bytes + nbytes(out3)
-    flat = kernels.pack_flat_words(*b2_in)
-    b2_bytes = nbytes(b2_in) + nbytes([flat])
-    b2_op_count = out3[1].numel()
-
-    b1_bound, b1_by = bound(b1_op_count, b1_bytes)
-    b3_bound, b3_by = bound(b1_op_count, b3_bytes)
-    b2_bound, b2_by = bound(b2_op_count, b2_bytes)
-    say(f"phase 5 timing on {case.name} (Gp={Gp} Cp={Cp} B={B} F={F} R={R}, W={W}): "
-        f"B1 {', '.join(f'{x:.4f}' for x in b1_runs)} ms; B3 "
-        f"{', '.join(f'{x:.4f}' for x in b3_runs)} ms, {int(out3[4])} rounds, widths "
-        f"{histogram(out3[5][:int(out3[4])])}; B1/B3 ops={b1_op_count} "
-        f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 {b2_ms:.6f} ms on the card, "
-        f"{b2_host_ms:.6f} ms a call as the host launches it, ops={b2_op_count} "
-        f"bytes={b2_bytes} | card: {smi}")
+    timing = timing_phase(kernels, pack, timed, smi)
     # ---- 6. the cost objective on reserved_50k
     t0 = time.perf_counter()
     recorded = cost_phase(kernels, lp_plan, lp_device, pack, solver_mod, build_problem,
@@ -2171,21 +2265,21 @@ def main() -> None:
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",
          "replaces": "karpenter_tpu/solver/pack.py:444",
          "launches": route_launches["pack_split"], "max_abs_err": err["pack_split"],
-         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
-         "bound_by": b1_by, "library_ms": None},
+         "ms": timing["b1_ms"], "plain_ms": timing["b1_plain_ms"], "bound_ms": timing["b1_bound"],
+         "bound_by": timing["b1_by"], "library_ms": None},
         {"name": "pack_split_wavefront", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_wavefront.cu",
          "replaces": "karpenter_tpu/solver/pack.py:786",
          "launches": route_launches["pack_split_wavefront"],
          "max_abs_err": err["pack_split_wavefront"],
-         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
-         "bound_by": b3_by, "library_ms": None},
+         "ms": timing["b3_ms"], "plain_ms": timing["b3_plain_ms"], "bound_ms": timing["b3_bound"],
+         "bound_by": timing["b3_by"], "library_ms": None},
         {"name": "pack_split_flat", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_flat.cu",
          "replaces": "karpenter_tpu/solver/pack.py:1374",
          "launches": route_launches["pack_split_flat"], "max_abs_err": err["pack_split_flat"],
-         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
-         "bound_by": b2_by, "library_ms": None},
+         "ms": timing["b2_ms"], "plain_ms": timing["b2_plain_ms"], "bound_ms": timing["b2_bound"],
+         "bound_by": timing["b2_by"], "library_ms": None},
         {"name": "lp_price", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/lp_price.cu",
          "replaces": "karpenter_tpu/solver/lp_plan.py:150",

@@ -37,14 +37,6 @@ namespace {
 constexpr int kPriceThreads = 256;
 constexpr int kPriceWarps = kPriceThreads / 32;
 
-__device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
-  }
-  return v;
-}
-
 // k_g: the pods of group g that fit the residual, capped at its demand
 // left (as the JAX body computes it, before the k >= 1 test)
 __device__ __forceinline__ float fit_count(const float* resid, const float* req,

@@ -59,15 +59,17 @@ struct Args {
   uint8_t* node_active;          // [N], zeroed
   int32_t* node_count;           // scalar
   int32_t* unsched;              // [G], zeroed
-  float* rsv_used;               // [K+1] scratch
   int32_t* kcap;                 // [N] scratch
   int32_t* take;                 // [N] scratch
-  int32_t* kopen;                // [C] scratch
-  uint8_t* fits;                 // [C] scratch
+  // in the block's shared memory (stage_tables)
+  float* rsv_used;               // [K+1]
+  int32_t* kopen;                // [C]
+  uint8_t* fits;                 // [C]
   int G, C, R, E, N, K, P1, cost;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   NoSplit nosplit;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -77,12 +79,13 @@ __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(const Args a) {
   __shared__ float s_req[kMaxR];
   __shared__ int s_remaining;
   __shared__ int s_node_count;
+  __shared__ OpenState s_open;
 
-  // ---- state init: the pre-opened rows, and the reservation use of
-  // those on a capped column
+  // ---- state init: the tables, the pre-opened rows, and the
+  // reservation use of those on a capped column
+  const Smem sm = stage_tables(a, smem);
   for (int i = tid; i < E * C; i += kThreads) a.node_mask[i] = a.existing_mask[i];
   for (int i = tid; i < E * R; i += kThreads) a.node_used[i] = a.existing_used[i];
-  for (int s = tid; s <= K; s += kThreads) a.rsv_used[s] = 0.0f;
   for (int e = warp; e < E; e += kWarps) {
     unsigned any = 0;
     for (int c = lane; c < C; c += 32) any |= a.existing_mask[(size_t)e * C + c];
@@ -181,10 +184,21 @@ __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(const Args a) {
     __syncthreads();
 
     // ---- 4. bulk open onto the rows past node_count
-    if (s_remaining > 0)
-      bulk_open(a, nosplit, g, row, s_req, N, 0, a.node_mask, a.node_used, a.node_active,
-                &s_remaining, &s_node_count);
-    if (tid == 0) a.unsched[g] += max(s_remaining, 0);
+    int remaining = s_remaining;
+    if (remaining > 0) {
+      if (tid == 0) s_open = OpenState{remaining, 0, 0};
+      DenseRows rows{a.node_mask, a.node_used, a.node_active, nrows, g};
+      open_loop(a, nosplit, sm.gbits + (size_t)g * words_pad(C), s_req, gcap, nrows, N, sm.spend,
+                &s_open, rows);
+      remaining = s_open.remaining;
+      // the group's reservation use (integer-valued), for the next
+      for (int s = tid; s <= K; s += kThreads) {
+        a.rsv_used[s] = __fadd_rn(a.rsv_used[s], sm.spend[s]);
+        sm.spend[s] = 0.0f;
+      }
+      if (tid == 0) s_node_count = nrows + s_open.nopen;
+    }
+    if (tid == 0) a.unsched[g] += max(remaining, 0);
     __syncthreads();
   }
   if (tid == 0) *a.node_count = s_node_count;
@@ -192,8 +206,9 @@ __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(const Args a) {
 
 }  // namespace
 
-// One block for the whole group loop. The outputs arrive zeroed;
-// quota, group_cap and conflict may be null.
+// One block for the whole group loop, its config tables in `smem` bytes
+// of dynamic shared memory. The outputs arrive zeroed; quota,
+// group_cap and conflict may be null.
 extern "C" int pack_dense_launch(
     const uint8_t* compat, const float* group_req, const int32_t* group_count,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -201,17 +216,23 @@ extern "C" int pack_dense_launch(
     const int16_t* quota, const int32_t* cfg_rsv, const float* rsv_cap,
     const int32_t* group_cap, const uint8_t* conflict,
     int32_t* assign, uint8_t* node_mask, float* node_used, uint8_t* node_active,
-    int32_t* node_count, int32_t* unsched,
-    float* rsv_used, int32_t* kcap, int32_t* take, int32_t* kopen, uint8_t* fits,
-    int G, int C, int R, int E, int N, int K, int P1, int cost,
+    int32_t* node_count, int32_t* unsched, int32_t* kcap, int32_t* take,
+    int G, int C, int R, int E, int N, int K, int P1, int cost, int smem,
     cudaStream_t stream) {
-  if (R > kMaxR || E > N) return (int)cudaErrorInvalidValue;
+  if (R > kMaxR || E > N || smem < table_layout(C, R, P1, K, G).end)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      pack_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
          existing_mask, existing_used, cfg_price, quota, cfg_rsv, rsv_cap,
          group_cap, conflict,
          assign, node_mask, node_used, node_active, node_count, unsched,
-         rsv_used, kcap, take, kopen, fits,
+         kcap, take, nullptr, nullptr, nullptr,
          G, C, R, E, N, K, P1, cost};
-  pack_dense_kernel<<<1, kThreads, 0, stream>>>(a);
+  pack_dense_kernel<<<1, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }

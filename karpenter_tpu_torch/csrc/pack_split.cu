@@ -6,32 +6,37 @@
 // byte.
 //
 // What bounds it. The group loop is serial: group g+1 reads the node
-// state group g wrote, so the Gp steps form one dependent chain. The
-// work inside a step is small (at 50k pods x 500 types: B+F ~ 1.5k
-// rows x Cp = 224 configs x R = 4 resources), far below what one
-// launch per step would cost in launch latency. So the kernel is one
-// persistent block of 1024 threads that walks every group in order,
-// with the state in global memory (it stays in L2), and
-// __syncthreads() between the phases of a step:
-//   1. capacity of each bound row (thread per row) and of each opened
-//      fresh row (warp per row, lanes over configs, warp reductions);
-//   2. the prefix fill: a block-wide chunked scan over rows in index
-//      order, exact in 64 bits and clamped at the group's demand
-//      (equal to the JAX kernel's saturating uint32 scan), stopping
-//      at the chunk where the demand is met;
-//   3. the takes applied (usage, assignment, fresh-row mask narrowing);
-//   4. the bulk-open loop: block reductions over configs for the pool
-//      and the column c*, then the q new rows written in parallel.
-// Rows past the opened prefix of the fresh axis hold no configs, so
-// their capacity is 0 without being computed. The chain of group steps
-// and the one SM it runs on are what bound it; a multi-block
-// cooperative grid and shared-memory residency of the masks are later
-// work.
+// state group g wrote, so the steps form one dependent chain, and the
+// kernel is one persistent block of 1024 threads that walks every group
+// in order. At 50k pods x 500 types (168 steps with demand, ~850 opened
+// rows a step on average and 1453 at most, Cp = 224, R = 4) a step
+// takes ~3.4k capacity terms and moves a few KB, so the bytes bound the
+// launch at 0.00045 ms while the chain takes ~15 us a step (PERF.md
+// §6). Inside a step the block is bound by issue and latency on its one
+// SM; the phase clocks give the sweep ~43% of a step, the takes ~28%
+// and the bulk open ~21%, and the sweep's slowest thread (two rows, ~14
+// candidate configs) sets its phase.
 //
-// The capacity, the reduction keys and the block scan live in
-// pack_common.cuh, shared with B3 (pack_wavefront.cu); so do the prefix
-// fill (phase 2) and the bulk open (phase 4), shared with B7
-// (pack_dense.cu).
+// What the design does about it (pack_common.cuh):
+//   - the config tables and the groups' demand, requests and compat
+//     rows (as bits) live in the block's dynamic shared memory: a step
+//     reads nothing of its group from global memory, and the tables are
+//     read from L2 once a launch;
+//   - a fresh row keeps its mask as words_pad(C) 32-bit words; its
+//     candidate configs are its words ANDed with the group's bits, and
+//     capacity is taken for those alone, an exact division-free
+//     pre-test (`capacity_below`) skipping the ones that cannot raise the
+//     row's maximum;
+//   - each thread owns a run of consecutive rows: it prefetches and
+//     sweeps them, one block scan of the threads' sums gives every take
+//     in index order (`sweep_take`), and a thread a filled row narrows
+//     its mask and adds the take (`apply_take`);
+//   - the bulk open (`open_loop`) takes three or four block barriers an
+//     open, every block reduction a warp reduction first.
+// The byte masks of the output are written from the words at the end of
+// the launch. Measured and not kept: the row state resident in shared
+// memory (no faster), and whole warps on rows with many candidates
+// (slower: a warp then walks its rows one after another).
 //
 // B6, sequential route: the same kernel over a lane axis
 // (karpenter_tpu/solver/pack.py:1227 `pack_probe_lanes_flat` with
@@ -42,11 +47,13 @@
 // pack_split.py::pack_probe_lanes_ref.
 //
 // Exactness. Every pick is an index-tie-broken arg-reduction: keys are
-// packed (ordered value, index) pairs reduced with shared-memory
-// atomicMin, so the result does not depend on the order of the
-// atomics. Float arithmetic is f32 with explicit round-to-nearest
-// intrinsics in the JAX order of operations (no FMA contraction; the
-// build also passes -fmad=false). Capacities are clipped to CAP_MAX
+// packed (ordered value, index) pairs reduced within each warp, then
+// with shared-memory atomicMin, so the result does not depend on the
+// order of the atomics. Float arithmetic is f32 with explicit
+// round-to-nearest intrinsics in the JAX order of operations (no FMA
+// contraction; the build also passes -fmad=false); the pre-test's
+// approximate quotients only decide which capacities need no exact
+// division, never a capacity's value. Capacities are clipped to CAP_MAX
 // before every float-to-int cast.
 //
 // B8, split B1 (karpenter_tpu/solver/pack.py:1817-1893, `_run_pack`
@@ -93,11 +100,12 @@ struct Args {
   int32_t* unsched;             // [G], zeroed
   float* free_used;             // [F, R] scratch
   float* bound_used;            // [B, R] scratch
-  float* rsv_used;              // [K+1] scratch
-  int32_t* kcap;                // [B+F] scratch
-  int32_t* take;                // [B+F] scratch
-  int32_t* kopen;               // [C] scratch
-  uint8_t* fits;                // [C] scratch
+  uint32_t* free_bits;          // [F, words_pad(C)] scratch: the fresh masks
+  int32_t* kcap;                // [B+F] scratch: the rows' capacities, then takes
+  // in the block's shared memory (stage_tables)
+  float* rsv_used;              // [K+1]
+  int32_t* kopen;               // [C]
+  uint8_t* fits;                // [C]
   int G, C, R, B, F, K, P1, cost;
 };
 
@@ -114,174 +122,94 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
   a.unsched += L * a.G;
   a.free_used += L * a.F * a.R;
   a.bound_used += L * a.B * a.R;
-  a.rsv_used += L * (a.K + 1);
+  a.free_bits += L * a.F * words_pad(a.C);
   a.kcap += L * N;
-  a.take += L * N;
-  a.kopen += L * a.C;
-  a.fits += L * a.C;
   return a;
 }
 
 // The group loop of one lane (unsplit, X = NoSplit) or of one shard of
 // a split solve (X = DeviceSplit: `a` holds the shard's columns and its
-// replica).
+// replica), with its config tables in the block's dynamic shared memory.
 template <class X>
-__device__ __forceinline__ void pack_split_body(const Args& a, X& x) {
+__device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* smem) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int G = a.G, C = a.C, R = a.R, B = a.B, F = a.F, K = a.K;
   const int N = B + F;
+  const int nw = words_pad(C);
 
-  __shared__ float s_req[kMaxR];
-  __shared__ int s_remaining;
+  __shared__ OpenState s_open;
   __shared__ int s_node_count;
+  PhaseClock clk;
+  clk.begin();
 
-  // ---- state init: usage copies and reservation use of bound rows
+  // ---- state init: the tables, usage copies, the fresh rows' words,
+  // and the reservation use of bound rows (integer-valued float adds,
+  // exact in any order)
+  const Smem sm = stage_tables(a, smem);
   for (int i = tid; i < B * R; i += kThreads) a.bound_used[i] = a.bound_used0[i];
   for (int i = tid; i < F * R; i += kThreads) a.free_used[i] = 0.0f;
-  if (tid == 0) {
-    for (int s = 0; s <= K; ++s) a.rsv_used[s] = 0.0f;
-    for (int b = 0; b < B; ++b) {
-      int s = a.bound_slot[b];
-      if (a.bound_live[b] && s < K) a.rsv_used[s] = __fadd_rn(a.rsv_used[s], 1.0f);
-    }
-    s_node_count = B;
+  for (int i = tid; i < F * nw; i += kThreads) a.free_bits[i] = 0u;
+  for (int b = tid; b < B; b += kThreads) {
+    const int s = a.bound_slot[b];
+    if (a.bound_live[b] && s < K) atomicAdd(&a.rsv_used[s], 1.0f);
   }
+  if (tid == 0) s_node_count = B;
   __syncthreads();
+  clk.mark(0);
 
   for (int g = 0; g < G; ++g) {
-    if (tid == 0) s_remaining = a.group_count[g];
-    if (tid < R) s_req[tid] = a.group_req[(size_t)g * R + tid];
-    __syncthreads();
-    const int remaining0 = s_remaining;
-    if (remaining0 <= 0) {
-      // no demand: the step leaves the state as it is
-      __syncthreads();
-      continue;
-    }
-    const uint8_t* row = a.compat + (size_t)g * C;
+    const int remaining0 = sm.gcount[g];
+    if (remaining0 <= 0) continue;  // no demand: the step leaves the state as it is
+    const float* req = sm.greq + (size_t)g * R;
+    const uint32_t* rowbits = sm.gbits + (size_t)g * nw;
+    clk.mark(1);
+    clk.count();
     const int gcap = a.group_cap ? a.group_cap[g] : kIntBig;
-    const int nfresh = s_node_count - B;  // opened fresh rows
+    const int nc = s_node_count;
 
-    // ---- 1a. bound-row capacity, thread per row
-    for (int b = tid; b < B; b += kThreads) {
-      int kb = capacity(a.bound_alloc + (size_t)b * R, a.bound_used + (size_t)b * R, s_req, R);
-      bool ok = a.bound_compat[(size_t)g * B + b] && a.bound_live[b] && kb >= 1;
-      kb = ok ? kb : 0;
-      if (a.bound_quota) kb = min(kb, (int)a.bound_quota[(size_t)b * G + g]);
-      if (a.group_cap) kb = min(kb, max(gcap - a.assign[(size_t)b * G + g], 0));
-      if (a.conflict && blocked(a, b, g)) kb = 0;
-      a.kcap[b] = kb;
-    }
-    // ---- 1b. fresh-row capacity, warp per opened row
-    for (int f = warp; f < nfresh; f += kWarps) {
-      const uint8_t* mrow = a.free_mask + (size_t)f * C;
-      const float* used = a.free_used + (size_t)f * R;
-      unsigned any_pin = 0, any_pin_ok = 0;
-      int max_ok = 0, max_pin = 0;
-      for (int c = lane; c < C; c += 32) {
-        if (!mrow[c]) continue;
-        bool capped = a.cfg_rsv[c] >= 0;
-        any_pin |= capped;
-        if (!row[c]) continue;
-        int k = capacity(a.cfg_alloc + (size_t)c * R, used, s_req, R);
-        if (k < 1) continue;
-        max_ok = max(max_ok, k);
-        if (capped) {
-          any_pin_ok = 1;
-          max_pin = max(max_pin, k);
-        }
-      }
-      any_pin = __reduce_or_sync(0xffffffffu, any_pin);
-      any_pin_ok = __reduce_or_sync(0xffffffffu, any_pin_ok);
-      max_ok = __reduce_max_sync(0xffffffffu, max_ok);
-      max_pin = __reduce_max_sync(0xffffffffu, max_pin);
-      if (lane == 0) {
-        if constexpr (X::kSplit) {
-          // this shard's partial: the largest capacity over its ok
-          // configs, and 1 + the largest over its ok pinned ones when
-          // the row holds a pinned config here (0 otherwise)
-          const uint32_t pin = any_pin ? (uint32_t)(max_pin + 1) : 0u;
-          xmine(x)[f] = ((unsigned long long)pin << 32) | (uint32_t)max_ok;
-        } else {
-          int kf = any_pin ? (any_pin_ok ? max_pin : 0) : max_ok;
-          if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
-          if (a.conflict && blocked(a, B + f, g)) kf = 0;
-          a.kcap[B + f] = kf;
-        }
-      }
-    }
-    if constexpr (X::kSplit) {
-      // one exchange for every opened row's partials, combined over the
-      // shards (maxima: any order)
-      xpublish(x);
-      for (int f = tid; f < nfresh; f += kThreads) {
-        uint32_t pin = 0, ok = 0;
-        for (int sh = 0; sh < x.S; ++sh) {
-          const unsigned long long v = __ldcg(xtheirs(x, sh) + f);
-          pin = max(pin, (uint32_t)(v >> 32));
-          ok = max(ok, (uint32_t)(v & 0xffffffffull));
-        }
-        int kf = pin > 0 ? (int)(pin - 1) : (int)ok;
-        if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
-        if (a.conflict && blocked(a, B + f, g)) kf = 0;
-        a.kcap[B + f] = kf;
-      }
-    }
-
-    // ---- 2. prefix fill over rows [0, B + nfresh) in index order
-    // (its first barrier orders the capacities before the scan)
+    // ---- 1-3. capacities, the prefix fill over rows [0, nc) in index
+    // order, and the takes applied, a thread a filled row
     const long long r = (long long)remaining0;
-    long long placed;
-    const int scan_end = prefix_fill(a.kcap, a.take, B + nfresh, r, &placed);
-
-    // ---- 3. apply the takes
-    for (int b = tid; b < min(B, scan_end); b += kThreads) {
-      int t = a.take[b];
-      if (t <= 0) continue;
-      a.assign[(size_t)b * G + g] += t;
-      float tf = (float)t;
-      float* used = a.bound_used + (size_t)b * R;
-      for (int q = 0; q < R; ++q) used[q] = __fadd_rn(used[q], __fmul_rn(tf, s_req[q]));
-    }
-    for (int f = warp; f < scan_end - B; f += kWarps) {
-      int t = a.take[B + f];
-      if (t <= 0) continue;  // warp-uniform
-      uint8_t* mrow = a.free_mask + (size_t)f * C;
-      float* used = a.free_used + (size_t)f * R;
-      // a touched row keeps the configs that still hold its take
-      // (pinned rows: their pin held, or the take would be 0)
-      for (int c = lane; c < C; c += 32) {
-        uint8_t keep = 0;
-        if (mrow[c] && row[c]) {
-          int k = capacity(a.cfg_alloc + (size_t)c * R, used, s_req, R);
-          keep = (k >= 1 && k >= t) ? 1 : 0;
-        }
-        mrow[c] = keep;
+    const long long placed = sweep_take(a, x, sm, a.free_bits, rowbits, g, req, gcap, nc - B, r,
+                                        a.kcap, true, [](int, int) {}, clk, 2);
+    const long long t_apply = clk.now();
+    unsigned applied = 0;
+    for (int n = tid; n < nc; n += kThreads)
+      if (a.kcap[n] > 0) {
+        apply_take(a, rowbits, a.free_bits, n, g, req, a.kcap[n]);
+        ++applied;
       }
-      __syncwarp();
-      if (lane == 0) a.assign[(size_t)(B + f) * G + g] += t;
-      float tf = (float)t;
-      if (lane < R) used[lane] = __fadd_rn(used[lane], __fmul_rn(tf, s_req[lane]));
-    }
-    if (tid == 0) s_remaining = remaining0 - (int)placed;
-    __syncthreads();
+    const unsigned apply_cycles = (unsigned)(clk.now() - t_apply);
+    clk.mark(4);
+    clk.spread(kSpreadSlot + 6, kSpreadSlot + 7, apply_cycles);
+    clk.spread(kSpreadSlot + 8, kSpreadSlot + 9, applied);
 
     // ---- 4. bulk open on the fresh axis
-    if (s_remaining > 0)
-      bulk_open(a, x, g, row, s_req, N, B, a.free_mask, a.free_used, nullptr,
-                &s_remaining, &s_node_count);
-    if (tid == 0) a.unsched[g] += max(s_remaining, 0);
+    int remaining = remaining0 - (int)placed;
+    if (remaining > 0) {
+      if (tid == 0) s_open = OpenState{remaining, 0, 0};
+      FreshRows rows{a.free_bits, nc - B, g};
+      open_loop(a, x, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
+      remaining = s_open.remaining;
+      // the group's reservation use (integer-valued), for the next
+      for (int s = tid; s <= K; s += kThreads) {
+        a.rsv_used[s] = __fadd_rn(a.rsv_used[s], sm.spend[s]);
+        sm.spend[s] = 0.0f;
+      }
+      if (tid == 0) s_node_count = nc + s_open.nopen;
+    }
+    if (tid == 0) a.unsched[g] = max(remaining, 0);  // each group's once
     __syncthreads();
+    clk.mark(5);
   }
   if (tid == 0) *a.node_count = s_node_count;
+  mask_bytes(a.free_bits, C, s_node_count - B, a.free_mask, 0, 1);
 }
 
 __global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
-  const Args a = lane_view(lanes, blockIdx.x);
+  extern __shared__ __align__(16) unsigned char smem[];
   NoSplit x;
-  pack_split_body(a, x);
+  pack_split_body(lane_view(lanes, blockIdx.x), x, smem);
 }
 
 // per-shard pointers of a split solve's config-axis arrays
@@ -292,8 +220,6 @@ struct ShardTable {
   const float* const* cfg_price;  // [Cs]
   const int32_t* const* cfg_rsv;  // [Cs]
   uint8_t* const* free_mask;      // [F, Cs] out
-  int32_t* const* kopen;          // [Cs] scratch
-  uint8_t* const* fits;           // [Cs] scratch
 };
 
 // block s: shard s's columns and its replica (the replicated outputs
@@ -301,6 +227,7 @@ struct ShardTable {
 __global__ void __launch_bounds__(kThreads, 1) pack_split_sharded_kernel(
     Args base, ShardTable t, unsigned long long* slots, unsigned* arrive, int S, int words) {
   const int s = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
   Args a = base;
   const size_t N = (size_t)a.B + a.F;
   a.assign += s * N * a.G;
@@ -308,27 +235,34 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_sharded_kernel(
   a.unsched += s * a.G;
   a.free_used += s * a.F * a.R;
   a.bound_used += s * a.B * a.R;
-  a.rsv_used += s * (a.K + 1);
+  a.free_bits += s * a.F * words_pad(a.C);
   a.kcap += s * N;
-  a.take += s * N;
   a.compat = t.compat[s];
   a.cfg_alloc = t.cfg_alloc[s];
   a.cfg_pool = t.cfg_pool[s];
   a.cfg_price = t.cfg_price[s];
   a.cfg_rsv = t.cfg_rsv[s];
   a.free_mask = t.free_mask[s];
-  a.kopen = t.kopen[s];
-  a.fits = t.fits[s];
   DeviceSplit x{slots, arrive, s, S, words, s * a.C, 0u};
-  pack_split_body(a, x);
+  pack_split_body(a, x, smem);
 }
 
 }  // namespace
 
+// The dynamic shared memory a block takes: `smem` bytes, at least the
+// tables' (table_layout); the launch is refused above the card's limit.
+static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, int G) {
+  if (smem < table_layout(C, R, P1, K, G).end) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
 // L lanes, one block each (B1 is L = 1; B6 sequential passes null
 // bound_quota and group_cap). group_count is [L, G] and bound_live
 // [L, B]; every output and scratch array carries a leading lane axis
-// of L.
+// of L. `smem`: the dynamic shared memory of a block.
 extern "C" int pack_split_launch(
     const uint8_t* compat, const float* group_req, const int32_t* group_count,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -337,53 +271,56 @@ extern "C" int pack_split_launch(
     const int16_t* bound_quota, const int32_t* cfg_rsv, const float* rsv_cap,
     const int32_t* group_cap, const uint8_t* conflict,
     int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
-    float* free_used, float* bound_used, float* rsv_used, int32_t* kcap,
-    int32_t* take, int32_t* kopen, uint8_t* fits,
-    int G, int C, int R, int B, int F, int K, int P1, int cost, int L,
+    float* free_used, float* bound_used, uint32_t* free_bits, int32_t* kcap,
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int L, int smem,
     cudaStream_t stream) {
   if (R > kMaxR || L < 1) return (int)cudaErrorInvalidValue;
+  int err = set_smem((const void*)pack_split_kernel, smem, C, R, P1, K, G);
+  if (err) return err;
   Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, cfg_price,
          bound_quota, cfg_rsv, rsv_cap, group_cap, conflict,
          assign, free_mask, node_count, unsched,
-         free_used, bound_used, rsv_used, kcap, take, kopen, fits,
+         free_used, bound_used, free_bits, kcap, nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost};
-  pack_split_kernel<<<L, kThreads, 0, stream>>>(a);
+  pack_split_kernel<<<L, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Split B1 over S shards of C columns each (C is the shard width): the
-// eight tables hold S device pointers each (compat, cfg_alloc, cfg_pool,
-// cfg_price, cfg_rsv, free_mask, kopen, fits); assign [S, B+F, G],
-// node_count [S], unsched [S, G] and the state scratch carry a leading
-// shard axis; slots [2, S, words] (words >= F and >= 4) and arrive (one
-// counter, zeroed) are the exchange's. One cooperative launch: the S
-// blocks must be co-resident, and the launch is refused otherwise.
+// six tables hold S device pointers each (compat, cfg_alloc, cfg_pool,
+// cfg_price, cfg_rsv, free_mask); assign [S, B+F, G], node_count [S],
+// unsched [S, G] and the state scratch (free_bits [S, F,
+// words_pad(C)]) carry a leading shard axis; slots [2, S, words]
+// (words >= F and >= 4) and arrive (one counter, zeroed) are the
+// exchange's. One cooperative launch: the S blocks must be co-resident,
+// and the launch is refused otherwise.
 extern "C" int pack_split_sharded_launch(
     const uint8_t* const* compat, const float* const* cfg_alloc,
     const int32_t* const* cfg_pool, const float* const* cfg_price,
-    const int32_t* const* cfg_rsv, uint8_t* const* free_mask, int32_t* const* kopen,
-    uint8_t* const* fits,
+    const int32_t* const* cfg_rsv, uint8_t* const* free_mask,
     const float* group_req, const int32_t* group_count, const float* pool_overhead,
     const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
     const int32_t* bound_slot, const uint8_t* bound_live, const int16_t* bound_quota,
     const float* rsv_cap, const int32_t* group_cap, const uint8_t* conflict,
     int32_t* assign, int32_t* node_count, int32_t* unsched,
-    float* free_used, float* bound_used, float* rsv_used, int32_t* kcap, int32_t* take,
+    float* free_used, float* bound_used, uint32_t* free_bits, int32_t* kcap,
     unsigned long long* slots, unsigned* arrive,
-    int G, int C, int R, int B, int F, int K, int P1, int cost, int S, int words,
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int S, int words, int smem,
     cudaStream_t stream) {
   if (R > kMaxR || S < 2 || words < F || words < 4) return (int)cudaErrorInvalidValue;
+  int serr = set_smem((const void*)pack_split_sharded_kernel, smem, C, R, P1, K, G);
+  if (serr) return serr;
   Args a{nullptr, group_req, group_count, nullptr, nullptr, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, nullptr,
          bound_quota, nullptr, rsv_cap, group_cap, conflict,
          assign, nullptr, node_count, unsched,
-         free_used, bound_used, rsv_used, kcap, take, nullptr, nullptr,
+         free_used, bound_used, free_bits, kcap, nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost};
-  ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask, kopen, fits};
+  ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask};
   void* params[] = {&a, &t, &slots, &arrive, &S, &words};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)pack_split_sharded_kernel, dim3(S), dim3(kThreads), params, 0, stream);
+      (const void*)pack_split_sharded_kernel, dim3(S), dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the caller raises
     return (int)err;

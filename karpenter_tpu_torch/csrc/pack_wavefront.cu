@@ -14,33 +14,47 @@
 //
 // What bounds it. Like B1, a dependent chain: each round reads the
 // state the last one wrote, and a round's plan is one B1 group step.
-// The work per round is small (at 50k pods x 500 types: ~1.5k rows x
-// Cp = 224 configs x R = 4), so bytes and operations are far below what
-// the chain of rounds costs in latency. The design shortens the chain
-// instead: one cooperative launch per solve (never one per round), a
-// grid of W blocks of 1024 threads, block w planning lane w, with the
-// state in global memory (it stays in L2) and three grid barriers a
-// round:
-//   1. plan — block w runs B1's group step for candidate cand[w] on
-//      the pre-round state: bound-row and opened-fresh-row capacities,
-//      the prefix take, and the open loop, whose opens go to the lane's
-//      own slot-relative scratch (o_mask, o_used, o_fill) with its
+// One cooperative launch per solve, a grid of W blocks of 1024 threads
+// (block w plans lane w), three grid barriers a round. At 50k pods x
+// 500 types (98 rounds, ~1.7 groups committed a round) a round takes
+// ~37 us against a byte bound of 0.00045 ms for the whole launch
+// (PERF.md §6). Block 0's phase clocks give the plan ~32% of a round
+// (its sweep ~16%, its open ~11%), the wait at the first barrier ~25%
+// (the slowest of the W plans), the other two barriers ~16%, the accept
+// ~10%, the commit ~7% and the conflicts ~6%.
+//
+// The design:
+//   1. plan — block w runs B1's group step for candidate cand[w] on the
+//      pre-round state (pack_common.cuh: the tables, the groups' data
+//      and the rows' capacities in shared memory, the sweep over mask
+//      words, one scan for the takes); the opens go to the lane's own
+//      slot-relative scratch (o_bits, o_used, o_fill) with its
 //      reservation use in `spend` and whether the node axis bound an
-//      open (`clamped`). The narrowed masks of rows the lane fills are
-//      not kept: the lane alone writes those rows if it is accepted,
-//      so the commit narrows them from the still-unchanged row;
-//   2. conflicts — block j tests each earlier lane i: does i fill a row
-//      j depends on, or open a row with a config j could use; one
-//      byte of a W x W matrix per pair, computed in parallel;
-//   3. accept and commit — one thread per block walks the W-long
-//      acceptance scan over scalars (shift, accepted reservation use,
-//      stop flag, offsets); block 0 commits the round's scalars (node
-//      count, reservation use, unschedulable counts, done flags,
-//      widths, steps); each accepted block writes its own rows. The
-//      accepted lanes write disjoint rows, so no atomics are needed
-//      and every f32 add has one nonzero addend. Opened rows land at
-//      offset - B + slot directly (the JAX kernel's roll never wraps
-//      for an accepted lane).
+//      open (`clamped`); the rows its take fills are kept as bits
+//      (`touched`). The narrowed masks of those rows are not kept: the
+//      lane alone writes them if it is accepted, so the commit narrows
+//      them from the still-unchanged row;
+//   2. conflicts — block j tests every earlier lane i in one pass: the
+//      units (lane i's filled-row words, then its config words) are
+//      spread over the block, and a hit sets bit i of the lane's
+//      conflict words: does i fill a row j depends on, or open a row
+//      with a config j could use;
+//   3. accept and commit — every block loads the lanes' conflict words
+//      next to their scalars and runs the greedy acceptance scan in
+//      shared memory; each block keeps its own copy of the round's
+//      scalars (node count, round count, reservation use, committed
+//      groups as bits) and brings it up to date from the accepted
+//      lanes; block 0 writes the outputs' tallies; each accepted block
+//      writes its own rows, a thread a filled row. The accepted lanes
+//      write disjoint rows, so no atomics are needed and every f32 add
+//      has one nonzero addend. Opened rows land at offset - B + slot
+//      directly (the JAX kernel's roll never wraps for an accepted
+//      lane).
+// A round's candidates come from a ballot and popcount rank over the
+// committed bits, 32 words a pass; no thread walks the groups. Measured
+// and not kept: one thread-block cluster with the cluster barrier in
+// place of the grid at W = 16 (slower), each block's own copy of the
+// row state in shared memory (slower).
 // Rejected lanes' planning is work the algorithm chooses, not work the
 // inputs need: B3's bound is B1's on the same inputs.
 //
@@ -74,8 +88,7 @@ constexpr int kMaxW = 256;
 
 // per-lane scalars of a plan, kLaneFields int32 each
 enum LaneField {
-  kCand, kValid, kSpill, kNOpen, kCappedSpend, kClamped, kUnschedAdd,
-  kScanEnd, kLast, kLaneFields
+  kCand, kValid, kSpill, kNOpen, kCappedSpend, kClamped, kUnschedAdd, kLast, kLaneFields
 };
 
 struct Args {
@@ -105,490 +118,324 @@ struct Args {
   // shared state
   float* free_used;             // [F, R]
   float* bound_used;            // [B, R]
-  float* rsv_used;              // [K+1]
-  uint8_t* done;                // [G]
+  uint32_t* free_bits;          // [F, words_pad(C)]: the fresh masks
   // per-lane scratch
   int32_t* kcap;                // [W, B+F]
-  int32_t* take;                // [W, B+F]
-  uint8_t* fits;                // [W, C]
-  int32_t* kopen;               // [W, C]
+  int32_t* take;                // [W, B+F] (rows in `touched` only)
+  uint32_t* touched;            // [W, words_of(B+F)]: rows the lane's take fills
   float* spend;                 // [W, K+1]
-  uint8_t* o_mask;              // [W, F, C]
+  uint32_t* o_bits;             // [W, F, words_pad(C)]: the lane's opened rows
   float* o_used;                // [W, F, R]
   int32_t* o_fill;              // [W, F]
-  uint8_t* o_union;             // [W, C]
+  uint32_t* o_union;            // [W, words_pad(C)]: their configs
   int32_t* lane;                // [W, kLaneFields]
-  uint8_t* conf;                // [W, W]: lane i's plan meets lane j's
+  uint32_t* conf;               // [W, words_of(W)]: bit i of lane j's words: i meets j
+  // in the block's shared memory (stage_tables)
+  float* rsv_used;              // [K+1]
+  int32_t* kopen;               // [C]
+  uint8_t* fits;                // [C]
   int G, C, R, B, F, K, P1, cost, W;
+};
+
+// B3's shared memory after the tables (table_layout): the W lanes'
+// scalars and conflict words, the committed groups as bits, the
+// conflict pass's unit offsets, this lane's conflict words, the
+// acceptance scan's verdicts and offsets, and the rows this lane's take
+// fills, as bits (published to `touched` after the take)
+struct WaveLayout {
+  int lanes, conf, done, uoff, mconf, accept, offset, touch, end;
+};
+
+__host__ __device__ inline WaveLayout wave_layout(int C, int R, int P1, int K, int W, int G,
+                                                  int N) {
+  WaveLayout l;
+  int o = table_layout(C, R, P1, K, G).end;
+  l.lanes = o; o += align16(4 * W * kLaneFields);
+  l.conf = o; o += align16(4 * W * words_of(W));
+  l.done = o; o += align16(4 * words_of(G));
+  l.uoff = o; o += align16(4 * (W + 1));
+  l.mconf = o; o += align16(4 * words_of(W));
+  l.accept = o; o += align16(4 * W);
+  l.offset = o; o += align16(4 * W);
+  l.touch = o; o += align16(4 * words_of(N));
+  l.end = o;
+  return l;
+}
+
+// B3: a plan's opened rows, slot-relative in the lane's scratch, with
+// their configs' union
+struct PlanRows {
+  uint32_t* o_bits;
+  float* o_used;
+  int32_t* o_fill;
+  uint32_t* o_union;
+  template <class A, class X>
+  __device__ void open_rows(const A& a, const X& x, int lo, int q, int ms, int rl, int cs,
+                            int capped_star, const float* oh, const float* req) {
+    const int lane = threadIdx.x & 31, nw = words_pad(a.C), R = a.R;
+    for (int wd = threadIdx.x >> 5; wd < nw; wd += kWarps) {
+      const int c = wd * 32 + lane;
+      const uint32_t full = __ballot_sync(0xffffffffu, open_bit(a, x, c, ms, cs, capped_star));
+      const uint32_t last = __ballot_sync(0xffffffffu, open_bit(a, x, c, rl, cs, capped_star));
+      for (int i = lane; i < q; i += 32)
+        o_bits[(size_t)(lo + i) * nw + wd] = i == q - 1 ? last : full;
+      if (lane == 0) o_union[wd] |= last | (q > 1 ? full : 0u);
+    }
+    for (int i = threadIdx.x; i < q; i += kThreads) {
+      const int fill = i == q - 1 ? rl : ms;
+      const float ff = (float)fill;
+      for (int r = 0; r < R; ++r)
+        o_used[(size_t)(lo + i) * R + r] = __fadd_rn(oh[r], __fmul_rn(ff, req[r]));
+      o_fill[lo + i] = fill;
+    }
+  }
 };
 
 // One solve's rounds, run by the W blocks that `barrier` joins; block
 // w plans lane w. B3 joins the whole cooperative grid, B6 one cluster;
 // split B3 (X = DeviceSplit) joins S x W blocks, `a` holding shard s's
-// columns and replica and `x` lane w's exchange group.
+// columns and replica and `x` lane w's exchange group. Each block keeps
+// its own copy of the round's scalars (node count, round count,
+// reservation use, committed groups) in shared memory and brings it up
+// to date from the accepted lanes alike.
 template <class X, class Barrier>
-__device__ __forceinline__ void wavefront_body(const Args& a, const int w, X& x, Barrier barrier) {
+__device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrier barrier,
+                                               unsigned char* smem) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int G = a.G, C = a.C, R = a.R, B = a.B, F = a.F, K = a.K, W = a.W;
   const int N = B + F;
+  const int nw = words_pad(C), NW = words_of(N), WW = words_of(W), GW = words_of(G);
 
-  __shared__ float s_req[kMaxR];
-  __shared__ float s_oh[kMaxR];
-  __shared__ long long s_warp[kWarps];
-  __shared__ long long s_total;
-  __shared__ long long s_carry;
-  __shared__ int s_go, s_nc, s_steps, s_cand;
-  __shared__ int s_remaining, s_scan_end, s_last, s_spill, s_nopen, s_clamped;
-  __shared__ int s_pool, s_any;
-  __shared__ unsigned long long s_key0, s_key1, s_key2;
-  __shared__ uint32_t s_minu;
-  __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_slot, s_capped;
-  __shared__ unsigned long long s_pay0, s_pay1, s_pay2;
-  __shared__ int s_hit[kMaxW];
-  __shared__ int s_accept[kMaxW];
-  __shared__ int s_offset[kMaxW];
-  __shared__ int s_nacc, s_shift;
+  __shared__ OpenState s_open;
+  __shared__ int s_go, s_nc, s_steps, s_cand, s_last, s_nacc, s_shift;
+  PhaseClock clk;
+  clk.begin();
+
+  const Smem sm = stage_tables(a, smem);
+  const WaveLayout wl = wave_layout(C, R, a.P1, K, W, G, N);
+  int32_t* s_lanes = (int32_t*)(smem + wl.lanes);
+  uint32_t* s_conf = (uint32_t*)(smem + wl.conf);
+  uint32_t* s_done = (uint32_t*)(smem + wl.done);
+  int32_t* s_uoff = (int32_t*)(smem + wl.uoff);
+  uint32_t* s_mconf = (uint32_t*)(smem + wl.mconf);
+  int32_t* s_accept = (int32_t*)(smem + wl.accept);
+  int32_t* s_offset = (int32_t*)(smem + wl.offset);
+  uint32_t* s_touch = (uint32_t*)(smem + wl.touch);
 
   int32_t* kcap = a.kcap + (size_t)w * N;
   int32_t* take = a.take + (size_t)w * N;
-  uint8_t* fits = a.fits + (size_t)w * C;
-  int32_t* kopen = a.kopen + (size_t)w * C;
+  uint32_t* touched = a.touched + (size_t)w * NW;
   float* spend = a.spend + (size_t)w * (K + 1);
-  uint8_t* o_mask = a.o_mask + (size_t)w * F * C;
+  uint32_t* o_bits = a.o_bits + (size_t)w * F * nw;
   float* o_used = a.o_used + (size_t)w * F * R;
   int32_t* o_fill = a.o_fill + (size_t)w * F;
-  uint8_t* o_union = a.o_union + (size_t)w * C;
+  uint32_t* o_union = a.o_union + (size_t)w * nw;
   int32_t* mine = a.lane + (size_t)w * kLaneFields;
 
-  // ---- state init, grid-stride
+  // ---- state init: the shared state grid-stride, each block's copy
+  // of the scalars (reservation use of bound rows: integer-valued float
+  // adds, exact in any order; groups without demand committed)
   {
     const int gt = w * kThreads + tid;
     const int gs = W * kThreads;
     for (int i = gt; i < B * R; i += gs) a.bound_used[i] = a.bound_used0[i];
     for (int i = gt; i < F * R; i += gs) a.free_used[i] = 0.0f;
-    for (int g = gt; g < G; g += gs) {
-      a.done[g] = a.group_count[g] <= 0 ? 1 : 0;
-      a.widths[g] = 0;
+    for (int i = gt; i < F * nw; i += gs) a.free_bits[i] = 0u;
+    for (int g = gt; g < G; g += gs) a.widths[g] = 0;
+    for (int b = tid; b < B; b += kThreads) {
+      const int s = a.bound_slot[b];
+      if (a.bound_live[b] && s < K) atomicAdd(&a.rsv_used[s], 1.0f);
     }
-    if (w == 0 && tid == 0) {
-      for (int s = 0; s <= K; ++s) a.rsv_used[s] = 0.0f;
-      for (int b = 0; b < B; ++b) {
-        int s = a.bound_slot[b];
-        if (a.bound_live[b] && s < K) a.rsv_used[s] = __fadd_rn(a.rsv_used[s], 1.0f);
-      }
-      *a.node_count = B;
-      *a.steps = 0;
+    for (int wd = warp; wd < GW; wd += kWarps) {
+      const int g = wd * 32 + lane;
+      const unsigned d = __ballot_sync(0xffffffffu, g >= G || a.group_count[g] <= 0);
+      if (lane == 0) s_done[wd] = d;
+    }
+    if (tid == 0) {
+      s_nc = B;
+      s_steps = 0;
     }
   }
   barrier();
+  clk.mark(0);
 
   while (true) {
-    // ---- round start: the state's scalars and this lane's candidate,
-    // the w-th uncommitted group in index order
-    if (tid == 0) {
-      int rank = 0, cand = G, any = 0;
-      for (int g = 0; g < G; ++g) {
-        if (a.done[g]) continue;
-        any = 1;
-        if (rank == w) {
-          cand = g;
-          break;
+    // ---- round start: this lane's candidate, the w-th uncommitted
+    // group in index order (a ballot and popcount rank over the
+    // committed bits, 32 words a pass)
+    if (warp == 0) {
+      int seen = 0, cand = G;
+      for (int base = 0; base < GW; base += 32) {
+        const uint32_t undone = base + lane < GW ? ~s_done[base + lane] : 0u;
+        const int cnt = __popc(undone);
+        int incl = cnt;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += y;
         }
-        ++rank;
+        const int total = __shfl_sync(0xffffffffu, incl, 31);
+        const int need = w - seen;
+        if (cand == G && need < total) {
+          const unsigned who = __ballot_sync(0xffffffffu, incl > need && incl - cnt <= need);
+          const int src = __ffs(who) - 1;
+          int c = 0;
+          if (lane == src) c = (base + lane) * 32 + (int)__fns(undone, 0, need - (incl - cnt) + 1);
+          cand = __shfl_sync(0xffffffffu, c, src);
+        }
+        seen += total;
       }
-      s_nc = *a.node_count;
-      s_steps = *a.steps;
-      s_go = any && s_steps < G;
-      s_cand = cand;
+      if (lane == 0) {
+        s_cand = cand;
+        s_go = seen > 0 && s_steps < G;
+      }
     }
     __syncthreads();
     if (!s_go) break;
+    clk.mark(1);
+    clk.count();
     const int nc = s_nc;
     const int g = s_cand;
     const bool valid = g < G;
-    const uint8_t* row = a.compat + (size_t)(valid ? g : 0) * C;
+    const float* req = sm.greq + (size_t)(valid ? g : 0) * R;
+    const uint32_t* rowbits = sm.gbits + (size_t)(valid ? g : 0) * nw;
 
     // ================================================== 1. plan
     if (valid) {
-      if (tid == 0) s_remaining = a.group_count[g];
-      if (tid < R) s_req[tid] = a.group_req[(size_t)g * R + tid];
-      for (int s = tid; s <= K; s += kThreads) spend[s] = 0.0f;
-      for (int c = tid; c < C; c += kThreads) o_union[c] = 0;
+      for (int s = tid; s <= K; s += kThreads) sm.spend[s] = 0.0f;
+      for (int wd = tid; wd < nw; wd += kThreads) o_union[wd] = 0u;
+      for (int wd = tid; wd < words_of(nc); wd += kThreads) s_touch[wd] = 0u;
+      if (tid == 0) s_last = -1;
       __syncthreads();
-      const int remaining0 = s_remaining;
+      const int remaining0 = sm.gcount[g];
       const int gcap = a.group_cap ? a.group_cap[g] : kIntBig;
-      const int nfresh = nc - B;
 
-      // ---- bound-row capacity, thread per row
-      for (int b = tid; b < B; b += kThreads) {
-        int kb = capacity(a.bound_alloc + (size_t)b * R, a.bound_used + (size_t)b * R, s_req, R);
-        bool ok = a.bound_compat[(size_t)g * B + b] && a.bound_live[b] && kb >= 1;
-        kb = ok ? kb : 0;
-        if (a.bound_quota) kb = min(kb, (int)a.bound_quota[(size_t)b * G + g]);
-        if (a.group_cap) kb = min(kb, max(gcap - a.assign[(size_t)b * G + g], 0));
-        if (a.conflict && blocked(a, b, g)) kb = 0;
-        kcap[b] = kb;
-      }
-      // ---- fresh-row capacity, warp per opened row
-      for (int f = warp; f < nfresh; f += kWarps) {
-        const uint8_t* mrow = a.free_mask + (size_t)f * C;
-        const float* used = a.free_used + (size_t)f * R;
-        unsigned any_pin = 0, any_pin_ok = 0;
-        int max_ok = 0, max_pin = 0;
-        for (int c = lane; c < C; c += 32) {
-          if (!mrow[c]) continue;
-          bool capped = a.cfg_rsv[c] >= 0;
-          any_pin |= capped;
-          if (!row[c]) continue;
-          int k = capacity(a.cfg_alloc + (size_t)c * R, used, s_req, R);
-          if (k < 1) continue;
-          max_ok = max(max_ok, k);
-          if (capped) {
-            any_pin_ok = 1;
-            max_pin = max(max_pin, k);
-          }
-        }
-        any_pin = __reduce_or_sync(0xffffffffu, any_pin);
-        any_pin_ok = __reduce_or_sync(0xffffffffu, any_pin_ok);
-        max_ok = __reduce_max_sync(0xffffffffu, max_ok);
-        max_pin = __reduce_max_sync(0xffffffffu, max_pin);
-        if (lane == 0) {
-          if constexpr (X::kSplit) {
-            const uint32_t pin = any_pin ? (uint32_t)(max_pin + 1) : 0u;
-            xmine(x)[f] = ((unsigned long long)pin << 32) | (uint32_t)max_ok;
-          } else {
-            int kf = any_pin ? (any_pin_ok ? max_pin : 0) : max_ok;
-            if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
-            if (a.conflict && blocked(a, B + f, g)) kf = 0;
-            kcap[B + f] = kf;
-          }
-        }
-      }
-      if constexpr (X::kSplit) {
-        // the opened rows' partials, combined over the lane's shards
-        xpublish(x);
-        for (int f = tid; f < nfresh; f += kThreads) {
-          uint32_t pin = 0, ok = 0;
-          for (int sh = 0; sh < x.S; ++sh) {
-            const unsigned long long v = __ldcg(xtheirs(x, sh) + f);
-            pin = max(pin, (uint32_t)(v >> 32));
-            ok = max(ok, (uint32_t)(v & 0xffffffffull));
-          }
-          int kf = pin > 0 ? (int)(pin - 1) : (int)ok;
-          if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)(B + f) * G + g], 0));
-          if (a.conflict && blocked(a, B + f, g)) kf = 0;
-          kcap[B + f] = kf;
-        }
-      }
-      if (tid == 0) {
-        s_carry = 0;
-        s_scan_end = B + nfresh;
-        s_last = -1;
-      }
-      __syncthreads();
-
-      // ---- prefix take over rows [0, nc) in index order; the last
-      // row it fills is kept for the lane's dependence rows
-      const long long r = (long long)remaining0;
-      for (int base = 0; base < nc; base += kThreads) {
-        const int n = base + tid;
-        long long kc = 0;
-        if (n < nc) kc = min((long long)kcap[n], r);
-        long long incl = block_scan(kc, s_warp, &s_total);
-        long long prefix = s_carry + incl - kc;
-        if (prefix > r) prefix = r;
-        if (n < nc) {
-          int t = (int)min(r - prefix, kc);
-          take[n] = t;
-          if (t > 0) atomicMax(&s_last, n);
-        }
-        __syncthreads();
-        if (tid == 0) {
-          s_carry += s_total;
-          if (s_carry >= r) s_scan_end = min(base + kThreads, nc);
-        }
-        __syncthreads();
-        if (s_carry >= r) break;
-      }
-      if (tid == 0) {
-        s_remaining = remaining0 - (int)min(s_carry, r);
-        s_spill = s_remaining > 0;
-        s_nopen = 0;
-        s_clamped = 0;
-      }
-      __syncthreads();
+      // ---- capacities and the prefix take over rows [0, nc); the
+      // rows it fills are kept for the commit and the conflict test
+      int my_last = -1;
+      const long long placed = sweep_take(
+          a, x, sm, a.free_bits, rowbits, g, req, gcap, nc - B, (long long)remaining0, kcap,
+          false, [&](int n, int t) {
+            take[n] = t;
+            atomicOr(&s_touch[n >> 5], 1u << (n & 31));
+            my_last = n;
+          },
+          clk, 2);
+      // sweep_take ended on a barrier: the filled rows' bits are whole
+      for (int wd = tid; wd < words_of(nc); wd += kThreads) touched[wd] = s_touch[wd];
+      my_last = __reduce_max_sync(0xffffffffu, my_last);
+      if (lane == 0 && my_last >= 0) atomicMax(&s_last, my_last);
+      const int remaining = remaining0 - (int)placed;
+      if (tid == 0) s_open = OpenState{remaining, 0, 0};
 
       // ---- the open loop, slot-relative
-      if (s_remaining > 0) {
-        for (int c = tid; c < C; c += kThreads) {
-          int p = a.cfg_pool[c];
-          uint8_t ok = row[c] && p >= 0;
-          if (ok) {
-            const float* oh = a.pool_overhead + (size_t)p * R;
-            const float* al = a.cfg_alloc + (size_t)c * R;
-            for (int q = 0; q < R; ++q)
-              if (!(oh[q] <= __fsub_rn(al[q], s_req[q]))) { ok = 0; break; }
-          }
-          fits[c] = ok;
-        }
-        __syncthreads();
-        while (true) {
-          if (tid == 0) {
-            s_any = 0;
-            s_pool = kIntBig;
-          }
-          __syncthreads();
-          // configs that can still open with this lane's reservation
-          // use on top of the round's, and their lowest pool
-          int my_pool = kIntBig;
-          int my_any = 0;
-          for (int c = tid; c < C; c += kThreads) {
-            if (!fits[c]) continue;
-            int s = slot_of(a, c);
-            if (__fadd_rn(a.rsv_used[s], spend[s]) < cap_ext(a, s)) {
-              my_any = 1;
-              my_pool = min(my_pool, a.cfg_pool[c]);
-            }
-          }
-          if (my_any) {
-            atomicOr(&s_any, 1);
-            atomicMin(&s_pool, my_pool);
-          }
-          __syncthreads();
-          if constexpr (X::kSplit) {
-            const int pool = shard_min_int(x, s_any ? s_pool : kIntBig);
-            if (tid == 0) {
-              s_pool = pool;
-              s_any = pool < kIntBig;
-            }
-            __syncthreads();
-          }
-          if (!(s_remaining > 0 && s_any && nc + s_nopen < N)) {
-            // leaving with demand left and a willing config means the
-            // node axis was full: that decision read node_count too
-            if (tid == 0 && s_remaining > 0 && s_any) s_clamped = 1;
-            break;
-          }
-          const int pool = s_pool;
-          if (tid < R) s_oh[tid] = a.pool_overhead[(size_t)pool * R + tid];
-          if (tid == 0) {
-            s_key0 = ~0ull;
-            s_key1 = ~0ull;
-            s_key2 = ~0ull;
-            s_minu = float_key(kBig);
-          }
-          __syncthreads();
-          unsigned long long k0 = ~0ull;
-          uint32_t mu = float_key(kBig);
-          for (int c = tid; c < C; c += kThreads) {
-            int kf = 0;
-            if (fits[c] && a.cfg_pool[c] == pool) {
-              int s = slot_of(a, c);
-              if (__fadd_rn(a.rsv_used[s], spend[s]) < cap_ext(a, s))
-                kf = capacity(a.cfg_alloc + (size_t)c * R, s_oh, s_req, R);
-            }
-            kopen[c] = kf;
-            if (a.cost) {
-              float ppp = kf >= 1 ? __fdiv_rn(a.cfg_price[c], (float)max(kf, 1)) : kBig;
-              unsigned long long key = pack_key(float_key(ppp), x.c0 + c);
-              if (key < k0) k0 = key;
-            } else if (kf >= 1 && a.cfg_rsv[c] < 0) {
-              uint32_t pk = float_key(a.cfg_price[c]);
-              if (pk < mu) mu = pk;
-            }
-          }
-          if (a.cost) {
-            if (k0 != ~0ull) atomicMin(&s_key0, k0);
-          } else {
-            atomicMin(&s_minu, mu);
-          }
-          __syncthreads();
-          if constexpr (X::kSplit) {
-            if (a.cost) {
-              unsigned long long k[1] = {s_key0}, pay[1] = {0};
-              if (tid == 0 && k[0] != ~0ull) {
-                const int c = (int)(k[0] & 0xffffffffull) - x.c0;
-                pay[0] = open_payload(kopen[c], slot_of(a, c));
-              }
-              shard_min_keys(x, k, pay);
-              if (tid == 0) {
-                s_key0 = k[0];
-                s_pay0 = pay[0];
-              }
-            } else {
-              const uint32_t m = shard_min_u32(x, s_minu);
-              if (tid == 0) s_minu = m;
-            }
-            __syncthreads();
-          }
-          if (!a.cost) {
-            unsigned long long k1 = ~0ull, k2 = ~0ull;
-            const float min_uncapped = key_float(s_minu);
-            for (int c = tid; c < C; c += kThreads) {
-              int kf = kopen[c];
-              unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), x.c0 + c);
-              if (key2 < k2) k2 = key2;
-              if (kf >= 1 && a.cfg_rsv[c] >= 0 && a.cfg_price[c] < min_uncapped) {
-                unsigned long long key1 = pack_key((uint32_t)(kIntBig - kf), x.c0 + c);
-                if (key1 < k1) k1 = key1;
-              }
-            }
-            if (k1 != ~0ull) atomicMin(&s_key1, k1);
-            atomicMin(&s_key2, k2);
-            __syncthreads();
-            if constexpr (X::kSplit) {
-              unsigned long long k[2] = {s_key1, s_key2}, pay[2] = {0, 0};
-              if (tid == 0) {
-                for (int i = 0; i < 2; ++i) {
-                  if (k[i] == ~0ull) continue;
-                  const int c = (int)(k[i] & 0xffffffffull) - x.c0;
-                  pay[i] = open_payload(kopen[c], slot_of(a, c));
-                }
-              }
-              shard_min_keys(x, k, pay);
-              if (tid == 0) {
-                s_key1 = k[0];
-                s_key2 = k[1];
-                s_pay1 = pay[0];
-                s_pay2 = pay[1];
-              }
-              __syncthreads();
-            }
-          }
-          if (tid == 0) {
-            int cs;
-            if (a.cost) cs = (int)(s_key0 & 0xffffffffull);
-            else cs = (int)(((s_key1 != ~0ull) ? s_key1 : s_key2) & 0xffffffffull);
-            int rem = s_remaining;
-            // split: c*'s capacity and slot came with its key
-            unsigned long long pay = 0;
-            if constexpr (X::kSplit) pay = a.cost ? s_pay0 : (s_key1 != ~0ull ? s_pay1 : s_pay2);
-            int ms;
-            if constexpr (X::kSplit) ms = max((int)(pay >> 32), 1);
-            else ms = max(kopen[cs], 1);
-            if (a.group_cap) ms = min(max(gcap, 1), ms);
-            int slot;
-            if constexpr (X::kSplit) slot = (int)(pay & 0xffffffffull);
-            else slot = slot_of(a, cs);
-            float rsv_now = __fadd_rn(a.rsv_used[slot], spend[slot]);
-            float cap_left = fminf(__fsub_rn(cap_ext(a, slot), rsv_now), kCapMax);
-            int axis_left = N - (nc + s_nopen);
-            // the min() terms commute: the axis is split off to see
-            // whether it ever bound the open (a clamped plan cannot
-            // survive an index shift)
-            int q_noaxis = min((rem - 1) / ms + 1, (int)fmaxf(cap_left, 0.0f));
-            int q = max(min(q_noaxis, axis_left), 1);
-            if (max(q_noaxis, 1) > axis_left) s_clamped = 1;
-            s_cstar = cs;
-            s_mstar = ms;
-            s_q = q;
-            s_remlast = min(max(rem - (q - 1) * ms, 1), ms);
-            s_slot = slot;
-            if constexpr (X::kSplit) s_capped = slot < a.K;
-            else s_capped = a.cfg_rsv[cs] >= 0;
-          }
-          __syncthreads();
-          // the q new rows at slots n_open.., full ones then the last
-          {
-            const int lo = s_nopen, q = s_q, ms = s_mstar, rl = s_remlast, cs = s_cstar;
-            const int capped_star = s_capped;
-            for (int c = tid; c < C; c += kThreads) {
-              int kf = kopen[c];
-              bool base = a.cfg_rsv[c] < 0 && kf >= 1;
-              bool full = (base && kf >= ms) || (capped_star && x.c0 + c == cs);
-              bool last = (base && kf >= rl) || (capped_star && x.c0 + c == cs);
-              for (int i = 0; i < q - 1; ++i) o_mask[(size_t)(lo + i) * C + c] = full;
-              o_mask[(size_t)(lo + q - 1) * C + c] = last;
-              if ((q > 1 && full) || last) o_union[c] = 1;
-            }
-            for (int i = tid; i < q; i += kThreads) {
-              int fill = (i == q - 1) ? rl : ms;
-              float ff = (float)fill;
-              for (int x = 0; x < R; ++x)
-                o_used[(size_t)(lo + i) * R + x] = __fadd_rn(s_oh[x], __fmul_rn(ff, s_req[x]));
-              o_fill[lo + i] = fill;
-            }
-          }
-          __syncthreads();
-          if (tid == 0) {
-            s_nopen += s_q;
-            s_remaining -= (s_q - 1) * s_mstar + s_remlast;
-            spend[s_slot] = __fadd_rn(spend[s_slot], (float)s_q);
-          }
-          __syncthreads();
-        }
+      if (remaining > 0) {
+        PlanRows rows{o_bits, o_used, o_fill, o_union};
+        open_loop(a, x, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
       }
+      clk.mark(5);
       int my_capped = 0;
-      for (int s = tid; s < K; s += kThreads) my_capped |= spend[s] > 0.0f;
+      for (int s = tid; s <= K; s += kThreads) {
+        spend[s] = sm.spend[s];
+        my_capped |= s < K && sm.spend[s] > 0.0f;
+      }
       my_capped = __syncthreads_or(my_capped);
       if (tid == 0) {
         mine[kCand] = g;
         mine[kValid] = 1;
-        mine[kSpill] = s_spill;
-        mine[kNOpen] = s_nopen;
+        mine[kSpill] = remaining > 0;
+        mine[kNOpen] = s_open.nopen;
         mine[kCappedSpend] = my_capped;
-        mine[kClamped] = s_clamped;
-        mine[kUnschedAdd] = max(s_remaining, 0);
-        mine[kScanEnd] = s_scan_end;
+        mine[kClamped] = s_open.clamped;
+        mine[kUnschedAdd] = max(s_open.remaining, 0);
         mine[kLast] = s_last;
       }
     } else if (tid == 0) {
       mine[kCand] = G;
       mine[kValid] = 0;
     }
+    clk.mark(6);
     barrier();
+    clk.mark(7);
 
     // ================================================== 2. conflicts
     // lane i (< w) meets lane w when a row i fills is one w depends on
     // (capacity > 0 and, unless w spills, at or before w's last fill),
-    // or a row i opens admits a config compatible with w
-    if (valid) {
-      const int spill = mine[kSpill];
-      const int last = mine[kLast];
-      for (int i = 0; i < w; ++i) {
-        const int32_t* li = a.lane + (size_t)i * kLaneFields;
-        int hit = 0;
-        if (li[kValid]) {
-          const int32_t* take_i = a.take + (size_t)i * N;
-          const int end_i = li[kScanEnd];
-          for (int n = tid; n < end_i; n += kThreads)
-            if (take_i[n] > 0 && kcap[n] > 0 && (spill || n <= last)) hit = 1;
-          const uint8_t* ou = a.o_union + (size_t)i * C;
-          for (int c = tid; c < C; c += kThreads)
-            if (ou[c] && row[c]) hit = 1;
-        }
-        hit = __syncthreads_or(hit);
-        if constexpr (X::kSplit) {
-          if (tid == 0) s_hit[i] = hit;
-        } else {
-          if (tid == 0) a.conf[(size_t)i * W + w] = (uint8_t)hit;
-        }
+    // or a row i opens admits a config compatible with w. One pass: the
+    // units (lane i's filled-row words, then its config words) spread
+    // over the block, each hit ORed into this lane's conflict words.
+    for (int i = tid; i < W * kLaneFields; i += kThreads) s_lanes[i] = __ldcg(a.lane + i);
+    for (int i = tid; i < WW; i += kThreads) s_mconf[i] = 0u;
+    __syncthreads();
+    if (tid == 0) {
+      int o = 0;
+      for (int i = 0; i < W; ++i) {
+        s_uoff[i] = o;
+        const int32_t* li = s_lanes + i * kLaneFields;
+        if (li[kValid]) o += (li[kLast] >= 0 ? (li[kLast] >> 5) + 1 : 0) + nw;
       }
+      s_uoff[W] = o;
+    }
+    __syncthreads();
+    if (valid) {
+      const int spill = s_lanes[w * kLaneFields + kSpill];
+      const int last = s_lanes[w * kLaneFields + kLast];
+      for (int u = tid; u < s_uoff[w]; u += kThreads) {
+        // the lane of unit u: the last i < w whose units start at or before it
+        int lo = 0, hi = w;
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (s_uoff[mid] <= u) lo = mid;
+          else hi = mid;
+        }
+        const int i = lo, k = u - s_uoff[i];
+        const int last_i = s_lanes[i * kLaneFields + kLast];
+        const int nwi = last_i >= 0 ? (last_i >> 5) + 1 : 0;
+        bool hit = false;
+        if (k < nwi) {
+          uint32_t t = __ldcg(a.touched + (size_t)i * NW + k);
+          while (t && !hit) {
+            const int n = k * 32 + __ffs(t) - 1;
+            t &= t - 1;
+            hit = kcap[n] > 0 && (spill || n <= last);
+          }
+        } else {
+          hit = (__ldcg(a.o_union + (size_t)i * nw + (k - nwi)) & rowbits[k - nwi]) != 0u;
+        }
+        if (hit) atomicOr(&s_mconf[i >> 5], 1u << (i & 31));
+      }
+      __syncthreads();
       if constexpr (X::kSplit) {
         // the config part of each test is this shard's: OR over shards
-        __syncthreads();
         shard_vec(
-            x, w, [&](int i) { return (unsigned long long)s_hit[i]; },
+            x, WW, [&](int i) { return (unsigned long long)s_mconf[i]; },
             [&](int i, auto get) {
               unsigned long long hit = 0;
               for (int sh = 0; sh < x.S; ++sh) hit |= get(sh);
-              a.conf[(size_t)i * W + w] = (uint8_t)(hit != 0);
+              a.conf[(size_t)w * WW + i] = (uint32_t)hit;
             });
+      } else {
+        for (int i = tid; i < WW; i += kThreads) a.conf[(size_t)w * WW + i] = s_mconf[i];
       }
     }
+    clk.mark(8);
     barrier();
+    clk.mark(9);
 
     // ================================================== 3. accept
-    // the greedy prefix scan, redundantly in every block
+    // every block: the lanes' conflict words into shared memory, the
+    // greedy prefix scan there, and the round's scalars brought up to
+    // date in each block's copy
+    for (int i = tid; i < W * WW; i += kThreads) s_conf[i] = __ldcg(a.conf + i);
+    __syncthreads();
     if (tid == 0) {
       int shift = 0, nacc = 0, acc_capped = 0, stopped = 0;
       for (int j = 0; j < W; ++j) {
-        const int32_t* lj = a.lane + (size_t)j * kLaneFields;
+        const int32_t* lj = s_lanes + j * kLaneFields;
         int accept = !stopped && lj[kValid];
-        for (int i = 0; accept && i < j; ++i)
-          if (a.conf[(size_t)i * W + j]) accept = 0;
+        for (int k = 0; accept && k < WW; ++k)
+          if (s_conf[j * WW + k]) accept = 0;
         if (accept && lj[kSpill])
           accept = !acc_capped &&
                    (shift == 0 || (!lj[kClamped] && (long long)nc + shift + lj[kNOpen] <= N));
@@ -607,72 +454,62 @@ __device__ __forceinline__ void wavefront_body(const Args& a, const int w, X& x,
     }
     __syncthreads();
     const int nacc = s_nacc;
-    if (w == 0) {
-      // the round's scalars; no block reads them before the next round
-      for (int s = tid; s <= K; s += kThreads) {
-        float tot = 0.0f;
-        for (int j = 0; j < nacc; ++j) tot = __fadd_rn(tot, a.spend[(size_t)j * (K + 1) + s]);
-        a.rsv_used[s] = __fadd_rn(a.rsv_used[s], tot);
-      }
-      for (int j = tid; j < nacc; j += kThreads) {
-        const int32_t* lj = a.lane + (size_t)j * kLaneFields;
-        a.unsched[lj[kCand]] += lj[kUnschedAdd];
-        a.done[lj[kCand]] = 1;
-      }
-      if (tid == 0) {
-        *a.node_count = nc + s_shift;
-        a.widths[s_steps] = nacc;
-        *a.steps = s_steps + 1;
-      }
+    for (int s = tid; s <= K; s += kThreads) {
+      float tot = 0.0f;
+      for (int j = 0; j < nacc; ++j)
+        tot = __fadd_rn(tot, __ldcg(a.spend + (size_t)j * (K + 1) + s));
+      a.rsv_used[s] = __fadd_rn(a.rsv_used[s], tot);
     }
+    for (int j = tid; j < nacc; j += kThreads) {
+      const int32_t* lj = s_lanes + j * kLaneFields;
+      const int cj = lj[kCand];
+      atomicOr(&s_done[cj >> 5], 1u << (cj & 31));
+      if (w == 0) a.unsched[cj] = lj[kUnschedAdd];  // a group commits once
+    }
+    if (tid == 0) {
+      if (w == 0) a.widths[s_steps] = nacc;
+      s_steps += 1;
+      s_nc = nc + s_shift;
+    }
+    clk.mark(10);
 
     // ================================================== commit
-    if (s_accept[w]) {
-      const int end = mine[kScanEnd];
-      for (int b = tid; b < min(B, end); b += kThreads) {
-        int t = take[b];
-        if (t <= 0) continue;
-        a.assign[(size_t)b * G + g] += t;
-        float tf = (float)t;
-        float* used = a.bound_used + (size_t)b * R;
-        for (int q = 0; q < R; ++q) used[q] = __fadd_rn(used[q], __fmul_rn(tf, s_req[q]));
-      }
-      for (int f = warp; f < end - B; f += kWarps) {
-        int t = take[B + f];
-        if (t <= 0) continue;  // warp-uniform
-        uint8_t* mrow = a.free_mask + (size_t)f * C;
-        float* used = a.free_used + (size_t)f * R;
-        // a filled row keeps the configs that still hold its take,
-        // judged on the row as the round found it
-        for (int c = lane; c < C; c += 32) {
-          uint8_t keep = 0;
-          if (mrow[c] && row[c]) {
-            int k = capacity(a.cfg_alloc + (size_t)c * R, used, s_req, R);
-            keep = (k >= 1 && k >= t) ? 1 : 0;
-          }
-          mrow[c] = keep;
+    // an accepted lane writes its rows: the filled ones (a thread a
+    // row; narrowed on the row as the round found it) and the opened
+    // ones at their place on the node axis. The accepted lanes write
+    // disjoint rows, so no atomics are needed and every f32 add has one
+    // nonzero addend.
+    const long long t_apply = clk.now();
+    unsigned applied = 0;
+    if (valid && s_accept[w]) {
+      const int last = s_lanes[w * kLaneFields + kLast];
+      for (int n = tid; n <= last; n += kThreads)
+        if ((s_touch[n >> 5] >> (n & 31)) & 1u) {
+          apply_take(a, rowbits, a.free_bits, n, g, req, take[n]);
+          ++applied;
         }
-        __syncwarp();
-        if (lane == 0) a.assign[(size_t)(B + f) * G + g] += t;
-        float tf = (float)t;
-        if (lane < R) used[lane] = __fadd_rn(used[lane], __fmul_rn(tf, s_req[lane]));
-      }
-      // opened rows at their place on the node axis
       const int lo = s_offset[w] - B;
-      const int n_open = mine[kNOpen];
-      for (long long i = tid; i < (long long)n_open * C; i += kThreads) {
-        const int f = (int)(i / C);
-        const int c = (int)(i % C);
-        a.free_mask[(size_t)(lo + f) * C + c] |= o_mask[(size_t)f * C + c];
-      }
+      const int n_open = s_lanes[w * kLaneFields + kNOpen];
+      for (int i = tid; i < n_open * nw; i += kThreads)
+        a.free_bits[(size_t)lo * nw + i] |= o_bits[i];
       for (int i = tid; i < n_open; i += kThreads) {
         float* used = a.free_used + (size_t)(lo + i) * R;
-        for (int x = 0; x < R; ++x) used[x] = __fadd_rn(used[x], o_used[(size_t)i * R + x]);
-        a.assign[(size_t)(B + lo + i) * G + g] += o_fill[i];
+        for (int r = 0; r < R; ++r) used[r] = __fadd_rn(used[r], o_used[(size_t)i * R + r]);
+        a.assign[(size_t)(B + lo + i) * G + g] = o_fill[i];  // opened this round
       }
     }
+    const unsigned apply_cycles = (unsigned)(clk.now() - t_apply);
+    clk.mark(11);
+    clk.spread(kSpreadSlot + 6, kSpreadSlot + 7, apply_cycles);
+    clk.spread(kSpreadSlot + 8, kSpreadSlot + 9, applied);
     barrier();
+    clk.mark(12);
   }
+  if (w == 0 && tid == 0) {
+    *a.node_count = s_nc;
+    *a.steps = s_steps;
+  }
+  mask_bytes(a.free_bits, C, s_nc - B, a.free_mask, w, W);
 }
 
 struct GridBarrier {
@@ -689,8 +526,9 @@ struct ClusterBarrier {
 };
 
 __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   NoSplit x;
-  wavefront_body(a, blockIdx.x, x, GridBarrier{});
+  wavefront_body(a, blockIdx.x, x, GridBarrier{}, smem);
 }
 
 // lane l's slice of every per-lane array: its demand and live rows,
@@ -699,6 +537,7 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
   const size_t L = (size_t)l;
   const size_t N = (size_t)a.B + a.F;
   const size_t W = (size_t)a.W;
+  const size_t nw = (size_t)words_pad(a.C);
   a.group_count += L * a.G;
   a.bound_live += L * a.B;
   a.assign += L * N * a.G;
@@ -709,28 +548,27 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
   a.widths += L * a.G;
   a.free_used += L * a.F * a.R;
   a.bound_used += L * a.B * a.R;
-  a.rsv_used += L * (a.K + 1);
-  a.done += L * a.G;
+  a.free_bits += L * a.F * nw;
   a.kcap += L * W * N;
   a.take += L * W * N;
-  a.fits += L * W * a.C;
-  a.kopen += L * W * a.C;
+  a.touched += L * W * words_of((int)N);
   a.spend += L * W * (a.K + 1);
-  a.o_mask += L * W * a.F * a.C;
+  a.o_bits += L * W * a.F * nw;
   a.o_used += L * W * a.F * a.R;
   a.o_fill += L * W * a.F;
-  a.o_union += L * W * a.C;
+  a.o_union += L * W * nw;
   a.lane += L * W * kLaneFields;
-  a.conf += L * W * W;
+  a.conf += L * W * words_of(a.W);
   return a;
 }
 
 // B6 wavefront: one cluster of W blocks per lane; the lane is the
 // cluster's index and the block's rank in it is the plan lane.
 __global__ void __launch_bounds__(kThreads, 1) pack_probe_wavefront_kernel(Args lanes) {
-  const Args a = lane_view(lanes, blockIdx.x / lanes.W);
+  extern __shared__ __align__(16) unsigned char smem[];
   NoSplit x;
-  wavefront_body(a, (int)cg::this_cluster().block_rank(), x, ClusterBarrier{});
+  wavefront_body(lane_view(lanes, blockIdx.x / lanes.W), (int)cg::this_cluster().block_rank(), x,
+                 ClusterBarrier{}, smem);
 }
 
 // per-shard pointers of a split solve's config-axis arrays
@@ -741,22 +579,21 @@ struct ShardTable {
   const float* const* cfg_price;   // [Cs]
   const int32_t* const* cfg_rsv;   // [Cs]
   uint8_t* const* free_mask;       // [F, Cs] out
-  uint8_t* const* fits;            // [W, Cs] scratch
-  int32_t* const* kopen;           // [W, Cs]
-  uint8_t* const* o_mask;          // [W, F, Cs]
-  uint8_t* const* o_union;         // [W, Cs]
 };
 
 // Split B3: block s * W + w plans lane w on shard s; every replicated
-// output, state and plan array carries a leading shard axis; lane w's
+// output, state and plan array carries a leading shard axis (the
+// shard-local bit rows too: every shard has Cs columns); lane w's
 // exchange group has its own slots and counter.
 __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_sharded_kernel(
     Args base, ShardTable t, unsigned long long* slots, unsigned* arrive, int S, int words) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x / base.W;
   const int w = blockIdx.x % base.W;
   Args a = base;
   const size_t N = (size_t)a.B + a.F;
   const size_t W = (size_t)a.W;
+  const size_t nw = (size_t)words_pad(a.C);
   a.assign += s * N * a.G;
   a.node_count += s;
   a.unsched += s * a.G;
@@ -764,96 +601,47 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_sharded_kernel(
   a.widths += s * a.G;
   a.free_used += s * a.F * a.R;
   a.bound_used += s * a.B * a.R;
-  a.rsv_used += s * (a.K + 1);
-  a.done += s * a.G;
+  a.free_bits += s * a.F * nw;
   a.kcap += s * W * N;
   a.take += s * W * N;
+  a.touched += s * W * words_of((int)N);
   a.spend += s * W * (a.K + 1);
+  a.o_bits += s * W * a.F * nw;
   a.o_used += s * W * a.F * a.R;
   a.o_fill += s * W * a.F;
+  a.o_union += s * W * nw;
   a.lane += s * W * kLaneFields;
-  a.conf += s * W * W;
+  a.conf += s * W * words_of(a.W);
   a.compat = t.compat[s];
   a.cfg_alloc = t.cfg_alloc[s];
   a.cfg_pool = t.cfg_pool[s];
   a.cfg_price = t.cfg_price[s];
   a.cfg_rsv = t.cfg_rsv[s];
   a.free_mask = t.free_mask[s];
-  a.fits = t.fits[s];
-  a.kopen = t.kopen[s];
-  a.o_mask = t.o_mask[s];
-  a.o_union = t.o_union[s];
   DeviceSplit x{slots + (size_t)w * 2 * S * words, arrive + w, s, S, words, s * a.C, 0u};
-  wavefront_body(a, w, x, GridBarrier{});
+  wavefront_body(a, w, x, GridBarrier{}, smem);
 }
 
-}  // namespace
-
-extern "C" int pack_wavefront_launch(
-    const uint8_t* compat, const float* group_req, const int32_t* group_count,
-    const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
-    const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
-    const int32_t* bound_slot, const uint8_t* bound_live, const float* cfg_price,
-    const int16_t* bound_quota, const int32_t* cfg_rsv, const float* rsv_cap,
-    const int32_t* group_cap, const uint8_t* conflict,
-    int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
-    int32_t* steps, int32_t* widths,
-    float* free_used, float* bound_used, float* rsv_used, uint8_t* done,
-    int32_t* kcap, int32_t* take, uint8_t* fits, int32_t* kopen, float* spend,
-    uint8_t* o_mask, float* o_used, int32_t* o_fill, uint8_t* o_union,
-    int32_t* lane, uint8_t* conf,
-    int G, int C, int R, int B, int F, int K, int P1, int cost, int W,
-    cudaStream_t stream) {
-  if (R > kMaxR || W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
-  Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
-         bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, cfg_price,
-         bound_quota, cfg_rsv, rsv_cap, group_cap, conflict,
-         assign, free_mask, node_count, unsched, steps, widths,
-         free_used, bound_used, rsv_used, done,
-         kcap, take, fits, kopen, spend, o_mask, o_used, o_fill, o_union, lane, conf,
-         G, C, R, B, F, K, P1, cost, W};
-  void* params[] = {&a};
-  // all W blocks must be resident at once for the grid barrier; the
-  // runtime refuses the launch otherwise
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)pack_wavefront_kernel, dim3(W), dim3(kThreads), params, 0, stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the caller raises
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
+// The dynamic shared memory a block takes: `smem` bytes, at least the
+// layout's; the launch is refused above the card's limit.
+static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, int W, int G,
+                    int N) {
+  if (smem < wave_layout(C, R, P1, K, W, G, N).end) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
 }
 
-// B6 wavefront: L lanes, each one thread-block cluster of W blocks
-// (grid W*L). group_count is [L, G] and bound_live [L, B]; every output,
-// state and scratch array carries a leading lane axis of L.
-// *max_clusters receives cudaOccupancyMaxActiveClusters for this launch;
-// when it is 0 the launch is not made and cudaErrorInvalidConfiguration
-// is returned. A cluster of more than 8 blocks needs the non-portable
-// size, which the H100 allows up to 16.
-extern "C" int pack_probe_wavefront_launch(
-    const uint8_t* compat, const float* group_req, const int32_t* lane_counts,
-    const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
-    const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
-    const int32_t* bound_slot, const uint8_t* lane_live, const float* cfg_price,
-    const int32_t* cfg_rsv, const float* rsv_cap, const uint8_t* conflict,
-    int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
-    int32_t* steps, int32_t* widths,
-    float* free_used, float* bound_used, float* rsv_used, uint8_t* done,
-    int32_t* kcap, int32_t* take, uint8_t* fits, int32_t* kopen, float* spend,
-    uint8_t* o_mask, float* o_used, int32_t* o_fill, uint8_t* o_union,
-    int32_t* lane, uint8_t* conf,
-    int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int L,
-    int* max_clusters, cudaStream_t stream) {
+// L lanes, one thread-block cluster of W blocks each (grid W * L), the
+// cluster barrier between phases. *max_clusters receives
+// cudaOccupancyMaxActiveClusters for the launch; when it is 0 the
+// launch is not made and cudaErrorInvalidConfiguration is returned. A
+// cluster of more than 8 blocks needs the non-portable size, which the
+// H100 allows up to 16.
+static int launch_clusters(const Args& a, int W, int L, int smem, int* max_clusters,
+                           cudaStream_t stream) {
   *max_clusters = 0;
-  if (R > kMaxR || W < 1 || W > kMaxW || L < 1) return (int)cudaErrorInvalidValue;
-  Args a{compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
-         bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
-         nullptr, cfg_rsv, rsv_cap, nullptr, conflict,
-         assign, free_mask, node_count, unsched, steps, widths,
-         free_used, bound_used, rsv_used, done,
-         kcap, take, fits, kopen, spend, o_mask, o_used, o_fill, o_union, lane, conf,
-         G, C, R, B, F, K, P1, cost, W};
   cudaError_t err = cudaFuncSetAttribute(
       pack_probe_wavefront_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) {
@@ -868,12 +656,12 @@ extern "C" int pack_probe_wavefront_launch(
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(W * L));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // clusters run whole and barrier only among themselves, so the lanes
-  // run in waves of the clusters that fit at once; none fitting is an
+  // clusters run whole and barrier only among themselves, so lanes run
+  // in waves of the clusters that fit at once; none fitting is an
   // error, not a reason to narrow the width
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, (const void*)pack_probe_wavefront_kernel, &cfg);
@@ -891,43 +679,124 @@ extern "C" int pack_probe_wavefront_launch(
   return (int)cudaGetLastError();
 }
 
-// Split B3 over S shards of C columns each, W lanes: the ten tables hold
+}  // namespace
+
+// The wavefront scratch, in this order: free_used, bound_used,
+// free_bits (state), kcap, take, touched, spend, o_bits, o_used,
+// o_fill, o_union, lane, conf (per lane), shapes as in Args. `smem`:
+// the dynamic shared memory of a block (wave_layout). One cooperative
+// grid, the grid barrier between phases (one thread-block cluster with
+// the cluster barrier measured slower at W = 16: PERF.md §6).
+extern "C" int pack_wavefront_launch(
+    const uint8_t* compat, const float* group_req, const int32_t* group_count,
+    const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
+    const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
+    const int32_t* bound_slot, const uint8_t* bound_live, const float* cfg_price,
+    const int16_t* bound_quota, const int32_t* cfg_rsv, const float* rsv_cap,
+    const int32_t* group_cap, const uint8_t* conflict,
+    int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
+    int32_t* steps, int32_t* widths,
+    float* free_used, float* bound_used, uint32_t* free_bits,
+    int32_t* kcap, int32_t* take, uint32_t* touched, float* spend,
+    uint32_t* o_bits, float* o_used, int32_t* o_fill, uint32_t* o_union,
+    int32_t* lane, uint32_t* conf,
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int smem,
+    cudaStream_t stream) {
+  if (R > kMaxR || W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
+  int serr = set_smem((const void*)pack_wavefront_kernel, smem, C, R, P1, K, W, G, B + F);
+  if (serr) return serr;
+  Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
+         bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, cfg_price,
+         bound_quota, cfg_rsv, rsv_cap, group_cap, conflict,
+         assign, free_mask, node_count, unsched, steps, widths,
+         free_used, bound_used, free_bits,
+         kcap, take, touched, spend, o_bits, o_used, o_fill, o_union, lane, conf,
+         nullptr, nullptr, nullptr,
+         G, C, R, B, F, K, P1, cost, W};
+  void* params[] = {&a};
+  // all W blocks must be resident at once for the grid barrier; the
+  // runtime refuses the launch otherwise
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)pack_wavefront_kernel, dim3(W), dim3(kThreads), params, smem, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller raises
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// B6 wavefront: L lanes, each one thread-block cluster of W blocks
+// (launch_clusters). group_count is [L, G] and bound_live [L, B]; every
+// output, state and scratch array carries a leading lane axis of L.
+extern "C" int pack_probe_wavefront_launch(
+    const uint8_t* compat, const float* group_req, const int32_t* lane_counts,
+    const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
+    const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
+    const int32_t* bound_slot, const uint8_t* lane_live, const float* cfg_price,
+    const int32_t* cfg_rsv, const float* rsv_cap, const uint8_t* conflict,
+    int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
+    int32_t* steps, int32_t* widths,
+    float* free_used, float* bound_used, uint32_t* free_bits,
+    int32_t* kcap, int32_t* take, uint32_t* touched, float* spend,
+    uint32_t* o_bits, float* o_used, int32_t* o_fill, uint32_t* o_union,
+    int32_t* lane, uint32_t* conf,
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int L, int smem,
+    int* max_clusters, cudaStream_t stream) {
+  *max_clusters = 0;
+  if (R > kMaxR || W < 1 || W > kMaxW || L < 1) return (int)cudaErrorInvalidValue;
+  int serr = set_smem((const void*)pack_probe_wavefront_kernel, smem, C, R, P1, K, W, G, B + F);
+  if (serr) return serr;
+  Args a{compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
+         bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
+         nullptr, cfg_rsv, rsv_cap, nullptr, conflict,
+         assign, free_mask, node_count, unsched, steps, widths,
+         free_used, bound_used, free_bits,
+         kcap, take, touched, spend, o_bits, o_used, o_fill, o_union, lane, conf,
+         nullptr, nullptr, nullptr,
+         G, C, R, B, F, K, P1, cost, W};
+  return launch_clusters(a, W, L, smem, max_clusters, stream);
+}
+
+// Split B3 over S shards of C columns each, W lanes: the six tables hold
 // S device pointers each (compat, cfg_alloc, cfg_pool, cfg_price,
-// cfg_rsv, free_mask, fits, kopen, o_mask, o_union); assign [S, B+F, G],
-// node_count, steps [S], unsched, widths [S, G] and the state and plan
-// scratch carry a leading shard axis; slots [W, 2, S, words] (words >=
-// max(F, W) and >= 4) and arrive [W] (zeroed) are the lanes' exchange
-// groups. *per_sm and *sms receive the occupancy the card reports; when
-// per_sm * sms < S * W the launch is not made (cudaErrorCooperativeLaunch
-// TooLarge) and the caller raises with the numbers.
+// cfg_rsv, free_mask); assign [S, B+F, G], node_count, steps [S],
+// unsched, widths [S, G] and the state and plan scratch carry a leading
+// shard axis; slots [W, 2, S, words] (words >= max(F, words_of(W)) and
+// >= 4) and arrive [W] (zeroed) are the lanes' exchange groups. *per_sm
+// and *sms receive the occupancy the card reports; when per_sm * sms <
+// S * W the launch is not made (cudaErrorCooperativeLaunchTooLarge) and
+// the caller raises with the numbers.
 extern "C" int pack_wavefront_sharded_launch(
     const uint8_t* const* compat, const float* const* cfg_alloc,
     const int32_t* const* cfg_pool, const float* const* cfg_price,
-    const int32_t* const* cfg_rsv, uint8_t* const* free_mask, uint8_t* const* fits,
-    int32_t* const* kopen, uint8_t* const* o_mask, uint8_t* const* o_union,
+    const int32_t* const* cfg_rsv, uint8_t* const* free_mask,
     const float* group_req, const int32_t* group_count, const float* pool_overhead,
     const uint8_t* bound_compat, const float* bound_alloc, const float* bound_used0,
     const int32_t* bound_slot, const uint8_t* bound_live, const int16_t* bound_quota,
     const float* rsv_cap, const int32_t* group_cap, const uint8_t* conflict,
     int32_t* assign, int32_t* node_count, int32_t* unsched, int32_t* steps,
     int32_t* widths,
-    float* free_used, float* bound_used, float* rsv_used, uint8_t* done,
-    int32_t* kcap, int32_t* take, float* spend, float* o_used, int32_t* o_fill,
-    int32_t* lane, uint8_t* conf,
+    float* free_used, float* bound_used, uint32_t* free_bits,
+    int32_t* kcap, int32_t* take, uint32_t* touched, float* spend,
+    uint32_t* o_bits, float* o_used, int32_t* o_fill, uint32_t* o_union,
+    int32_t* lane, uint32_t* conf,
     unsigned long long* slots, unsigned* arrive,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int S, int words,
-    int* per_sm, int* sms, cudaStream_t stream) {
+    int smem, int* per_sm, int* sms, cudaStream_t stream) {
   *per_sm = 0;
   *sms = 0;
-  if (R > kMaxR || W < 1 || W > kMaxW || S < 2 || words < F || words < W || words < 4)
+  if (R > kMaxR || W < 1 || W > kMaxW || S < 2 || words < F || words < words_of(W) ||
+      words < 4)
     return (int)cudaErrorInvalidValue;
+  int serr = set_smem((const void*)pack_wavefront_sharded_kernel, smem, C, R, P1, K, W, G, B + F);
+  if (serr) return serr;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, (const void*)pack_wavefront_sharded_kernel, kThreads, 0);
+        per_sm, (const void*)pack_wavefront_sharded_kernel, kThreads, (size_t)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -937,14 +806,14 @@ extern "C" int pack_wavefront_sharded_launch(
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, nullptr,
          bound_quota, nullptr, rsv_cap, group_cap, conflict,
          assign, nullptr, node_count, unsched, steps, widths,
-         free_used, bound_used, rsv_used, done,
-         kcap, take, nullptr, nullptr, spend, nullptr, o_used, o_fill, nullptr, lane, conf,
+         free_used, bound_used, free_bits,
+         kcap, take, touched, spend, o_bits, o_used, o_fill, o_union, lane, conf,
+         nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost, W};
-  ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask, fits, kopen,
-               o_mask, o_union};
+  ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask};
   void* params[] = {&a, &t, &slots, &arrive, &S, &words};
   err = cudaLaunchCooperativeKernel((const void*)pack_wavefront_sharded_kernel, dim3(S * W),
-                                    dim3(kThreads), params, 0, stream);
+                                    dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;

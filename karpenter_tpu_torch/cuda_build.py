@@ -11,6 +11,13 @@ edited source is rebuilt and an unchanged one is loaded as it is.
 Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply-add
 is contracted into an FMA (the kernels must match their plain versions
 bit for bit); never --use_fast_math.
+
+B1's and B3's sources are also built a second time with
+-DKARPENTER_PHASE_CLOCKS (`pack_split_clocks`, `pack_wavefront_clocks`):
+block 0 then sums clock64() cycles per phase of a group step or round
+into a device array that `phase_clocks_take` reads and clears. The
+solve never loads these; `pack_split.phase_clocks` swaps them in for a
+timed run.
 """
 
 from __future__ import annotations
@@ -36,6 +43,13 @@ SOURCES = {
     "pack_dense": "pack_dense.cu",
     "lp_price": "lp_price.cu",
     "lp_ascend": "lp_ascend.cu",
+    "pack_split_clocks": "pack_split.cu",
+    "pack_wavefront_clocks": "pack_wavefront.cu",
+}
+# extra nvcc flags of a library
+EXTRA_FLAGS = {
+    "pack_split_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
+    "pack_wavefront_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
 }
 
 NVCC_FLAGS = (
@@ -48,25 +62,27 @@ _I = ctypes.c_int
 # C signatures: argument types of each library's entry points
 SIGNATURES = {
     "pack_split": {
-        "pack_split_launch": [_P] * 28 + [_I] * 9 + [_P],
-        "pack_split_sharded_launch": [_P] * 30 + [_I] * 10 + [_P],
+        "pack_split_launch": [_P] * 25 + [_I] * 10 + [_P],
+        "pack_split_sharded_launch": [_P] * 27 + [_I] * 11 + [_P],
     },
     "pack_wavefront": {
-        "pack_wavefront_launch": [_P] * 38 + [_I] * 9 + [_P],
-        "pack_probe_wavefront_launch": [_P] * 36 + [_I] * 10 + [_P, _P],
-        "pack_wavefront_sharded_launch": [_P] * 40 + [_I] * 11 + [_P] * 3,
+        "pack_wavefront_launch": [_P] * 36 + [_I] * 10 + [_P],
+        "pack_probe_wavefront_launch": [_P] * 34 + [_I] * 11 + [_P, _P],
+        "pack_wavefront_sharded_launch": [_P] * 38 + [_I] * 12 + [_P] * 3,
     },
     "pack_flat": {
         "pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P],
         "pack_flat_sharded_launch": [_P] * 7 + [_I] * 5 + [_P],
     },
-    "pack_dense": {"pack_dense_launch": [_P] * 25 + [_I] * 8 + [_P]},
+    "pack_dense": {"pack_dense_launch": [_P] * 22 + [_I] * 9 + [_P]},
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 3 + [_P]},
     "lp_ascend": {
         "lp_ascend_launch": [_P] * 26 + [_I] * 5 + [_P],
         "lp_ascend_sharded_launch": [_P] * 28 + [_I] * 7 + [_P],
     },
 }
+for _name in ("pack_split", "pack_wavefront"):
+    SIGNATURES[f"{_name}_clocks"] = {**SIGNATURES[_name], "phase_clocks_take": [_P]}
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said
 # (kept beside the library, so a cached build reports it too),
@@ -88,11 +104,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     # the shared headers are part of every source's digest
     src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD / f"{name}-{digest}.so"
 
 
@@ -116,7 +136,7 @@ def build_all() -> dict[str, dict]:
                 })
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+            cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
             procs[name] = (
                 subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
                 time.perf_counter(), tmp, out,

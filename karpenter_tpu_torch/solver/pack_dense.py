@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from karpenter_tpu_torch.solver.pack_split import (
+    DYNAMIC_SMEM,
     MAX_RESOURCES,
     _caps,
     _check,
@@ -47,7 +48,9 @@ from karpenter_tpu_torch.solver.pack_split import (
     _raise_on,
     _route,
     _stream,
+    check_smem,
     pack_flat_words_ref,
+    table_smem_bytes,
 )
 
 # kernel launches per wrapper (plain-version calls never count); a
@@ -268,14 +271,13 @@ def _pack_cuda(
     node_active = torch.zeros((N,), dtype=torch.bool, device=dev)
     node_count = torch.zeros((), dtype=i32, device=dev)
     unsched = torch.zeros((G,), dtype=i32, device=dev)
-    # scratch: reservation use, per-row capacity and take, per-config
-    # open capacity and fit flags
+    smem = check_smem("pack", table_smem_bytes(C, R, P1, K, G),
+                      f"C={C} R={R} P1={P1} K={K} G={G}")
+    # scratch: per-row capacity and take (the config tables live in the
+    # block's shared memory)
     scratch = [
-        torch.empty((K + 1,), dtype=f32, device=dev),       # rsv_used
         torch.empty((N,), dtype=i32, device=dev),           # kcap
         torch.empty((N,), dtype=i32, device=dev),           # take
-        torch.empty((C,), dtype=i32, device=dev),           # kopen
-        torch.empty((C,), dtype=torch.uint8, device=dev),   # fits
     ]
     lib = cuda_build.library("pack_dense")
     err = lib.pack_dense_launch(
@@ -285,9 +287,10 @@ def _pack_cuda(
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(node_mask), _ptr(node_used), _ptr(node_active),
         _ptr(node_count), _ptr(unsched), *[_ptr(t) for t in scratch],
-        G, C, R, E, N, K, P1, 1 if mode == "cost" else 0, _stream(),
+        G, C, R, E, N, K, P1, 1 if mode == "cost" else 0, smem, _stream(),
     )
-    _raise_on(err, "pack (one block)")
+    _raise_on(err, f"pack (one block, {smem} bytes of shared memory)")
+    DYNAMIC_SMEM["pack"] = smem
     LAUNCHES["pack"] += 1
     return assign, node_mask, node_used, node_active, node_count, unsched
 

@@ -41,8 +41,9 @@ import ctypes
 import torch
 
 from karpenter_tpu_torch.solver.pack_split import (
-    BIG, CAP_MAX, INT_BIG, WAVEFRONT_LANE_FIELDS, _caps, _check, _kernel_inputs,
-    _prefix_take_ref, _ptr, _raise_on, _route, _stream,
+    BIG, CAP_MAX, DYNAMIC_SMEM, INT_BIG, _caps, _check, _kernel_inputs,
+    _prefix_take_ref, _ptr, _raise_on, _route, _stream, check_smem, table_smem_bytes,
+    wavefront_scratch, wavefront_smem_bytes, words_pad,
 )
 
 # kernel launches per wrapper (plain-version calls never count)
@@ -562,24 +563,23 @@ def _pack_split_sharded_cuda(
     N = B + F
     K = rsv_cap.shape[0]
     P1 = pool_overhead.shape[0]
-    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    i32, f32 = torch.int32, torch.float32
     assign = torch.zeros((S, N, G), dtype=i32, device=dev)
     free_mask = [torch.zeros((F, Cs), dtype=torch.bool, device=dev) for _ in range(S)]
     node_count = torch.zeros((S,), dtype=i32, device=dev)
     unsched = torch.zeros((S, G), dtype=i32, device=dev)
-    kopen = [torch.empty((Cs,), dtype=i32, device=dev) for _ in range(S)]
-    fits = [torch.empty((Cs,), dtype=u8, device=dev) for _ in range(S)]
-    # each replica's state, on a leading shard axis
+    smem = check_smem("pack_split_sharded", table_smem_bytes(Cs, R, P1, K, G),
+                      f"Cs={Cs} R={R} P1={P1} K={K} G={G}")
+    # each replica's state (its columns' bits too), on a leading shard axis
     scratch = [
         torch.empty((S, F, R), dtype=f32, device=dev),        # free_used
         torch.empty((S, B, R), dtype=f32, device=dev),        # bound_used
-        torch.empty((S, K + 1), dtype=f32, device=dev),       # rsv_used
+        torch.empty((S, F, words_pad(Cs)), dtype=i32, device=dev),  # free_bits
         torch.empty((S, N), dtype=i32, device=dev),           # kcap
-        torch.empty((S, N), dtype=i32, device=dev),           # take
     ]
     slots, arrive = _xchg_scratch(1, S, F, dev)
     tables = [_table(x, dev) for x in (compat, cfg_alloc, cfg_pool, cfg_price,
-                                         cfg_rsv, free_mask, kopen, fits)]
+                                         cfg_rsv, free_mask)]
     lib = cuda_build.library("pack_split")
     err = lib.pack_split_sharded_launch(
         *[_ptr(t) for t in tables],
@@ -588,10 +588,12 @@ def _pack_split_sharded_cuda(
         _ptr(bound_quota), _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(node_count), _ptr(unsched), *[_ptr(t) for t in scratch],
         _ptr(slots), _ptr(arrive),
-        G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, S, slots.shape[-1],
+        G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, S, slots.shape[-1], smem,
         _stream(),
     )
-    _raise_on(err, f"pack_split_sharded (cooperative grid of {S} blocks)")
+    _raise_on(err, f"pack_split_sharded (cooperative grid of {S} blocks, {smem} bytes of "
+                   "shared memory a block)")
+    DYNAMIC_SMEM["pack_split_sharded"] = smem
     LAUNCHES["pack_split_sharded"] += 1
     return assign, free_mask, node_count, unsched
 
@@ -621,37 +623,23 @@ def _pack_split_wavefront_sharded_cuda(
     N = B + F
     K = rsv_cap.shape[0]
     P1 = pool_overhead.shape[0]
-    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    i32 = torch.int32
     assign = torch.zeros((S, N, G), dtype=i32, device=dev)
     free_mask = [torch.zeros((F, Cs), dtype=torch.bool, device=dev) for _ in range(S)]
     node_count = torch.zeros((S,), dtype=i32, device=dev)
     unsched = torch.zeros((S, G), dtype=i32, device=dev)
     steps = torch.zeros((S,), dtype=i32, device=dev)
     widths = torch.zeros((S, G), dtype=i32, device=dev)
-    # the config-axis scratch of each shard: per-lane fit flags and open
-    # capacities, the lanes' opened rows' masks and their config union
-    fits = [torch.empty((W, Cs), dtype=u8, device=dev) for _ in range(S)]
-    kopen = [torch.empty((W, Cs), dtype=i32, device=dev) for _ in range(S)]
-    o_mask = [torch.empty((W, F, Cs), dtype=u8, device=dev) for _ in range(S)]
-    o_union = [torch.empty((W, Cs), dtype=u8, device=dev) for _ in range(S)]
-    # each replica's state and plan scratch, on a leading shard axis
-    scratch = [
-        torch.empty((S, F, R), dtype=f32, device=dev),          # free_used
-        torch.empty((S, B, R), dtype=f32, device=dev),          # bound_used
-        torch.empty((S, K + 1), dtype=f32, device=dev),         # rsv_used
-        torch.empty((S, G), dtype=u8, device=dev),              # done
-        torch.empty((S, W, N), dtype=i32, device=dev),          # kcap
-        torch.empty((S, W, N), dtype=i32, device=dev),          # take
-        torch.empty((S, W, K + 1), dtype=f32, device=dev),      # spend
-        torch.empty((S, W, F, R), dtype=f32, device=dev),       # o_used
-        torch.empty((S, W, F), dtype=i32, device=dev),          # o_fill
-        torch.empty((S, W, WAVEFRONT_LANE_FIELDS), dtype=i32, device=dev),
-        torch.empty((S, W, W), dtype=u8, device=dev),           # conf
-    ]
+    smem = check_smem("pack_split_wavefront_sharded",
+                      wavefront_smem_bytes(Cs, R, P1, K, W, G, N),
+                      f"Cs={Cs} R={R} P1={P1} K={K} W={W} G={G} N={N}")
+    # each replica's state and plan scratch (its columns' bits too), on a
+    # leading shard axis
+    scratch = wavefront_scratch((S,), W, G, Cs, R, B, F, K, dev)
     # one exchange group per plan lane: the S blocks planning it
     slots, arrive = _xchg_scratch(W, S, max(F, W), dev)
     tables = [_table(x, dev) for x in (compat, cfg_alloc, cfg_pool, cfg_price,
-                                         cfg_rsv, free_mask, fits, kopen, o_mask, o_union)]
+                                         cfg_rsv, free_mask)]
     per_sm = ctypes.c_int(0)
     sms = ctypes.c_int(0)
     lib = cuda_build.library("pack_wavefront")
@@ -662,9 +650,10 @@ def _pack_split_wavefront_sharded_cuda(
         _ptr(bound_quota), _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(node_count), _ptr(unsched), _ptr(steps), _ptr(widths),
         *[_ptr(t) for t in scratch], _ptr(slots), _ptr(arrive),
-        G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, W, S, slots.shape[-1],
+        G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, W, S, slots.shape[-1], smem,
         ctypes.byref(per_sm), ctypes.byref(sms), _stream(),
     )
+    DYNAMIC_SMEM["pack_split_wavefront_sharded"] = smem
     if per_sm.value * sms.value < S * W:
         raise RuntimeError(
             f"pack_split_wavefront_sharded: {S} shards x {W} lanes need {S * W} "

@@ -34,6 +34,7 @@ index-tie-broken arg-reduction.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -48,12 +49,21 @@ MAX_RESOURCES = 16
 
 # int32 scalars per lane of the wavefront kernel's plan (LaneField in
 # csrc/pack_wavefront.cu)
-WAVEFRONT_LANE_FIELDS = 9
+WAVEFRONT_LANE_FIELDS = 8
+# shared memory a block may have on an H100 (sm_90), the part of it the
+# packing kernels keep for their static shared variables (ptxas reports
+# under 1 KB), and the dynamic budget that leaves
+SMEM_LIMIT = 232_448
+STATIC_SMEM = 8_192
+SMEM_BUDGET = SMEM_LIMIT - STATIC_SMEM
 
 # kernel launches per wrapper (plain-version calls never count)
 LAUNCHES = {"pack_split": 0, "pack_split_wavefront": 0, "pack_split_flat": 0,
             "pack_probe_lanes": 0, "pack_probe_lanes_wavefront": 0,
             "pack_probe_lanes_flat": 0}
+
+# wrapper -> the dynamic shared memory a block of its last launch took
+DYNAMIC_SMEM: dict[str, int] = {}
 
 # cluster width W -> the active-cluster count the card reported at the
 # last B6 wavefront launch (cudaOccupancyMaxActiveClusters)
@@ -63,6 +73,111 @@ ACTIVE_CLUSTERS: dict[int, int] = {}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the phases that block 0 of a phase-clock build times, slot by slot
+# (PhaseClock in csrc/pack_common.cuh; the last slot counts the group
+# steps with demand, or the rounds)
+PHASES = {
+    "pack_split": ("init", "step start", "sweep", "prefix scan",
+                   "takes and apply", "bulk open"),
+    "pack_wavefront": ("init", "candidate pick", "plan: sweep", "plan: prefix scan",
+                       "plan: takes", "plan: open", "plan: tail", "barrier 1 wait",
+                       "conflicts", "barrier 2 wait", "accept", "commit",
+                       "barrier 3 wait"),
+}
+_CLOCK_SLOTS = 32
+# per-thread spreads (PhaseClock::spread): (largest, sum over the block's
+# threads) slot pairs, summed over steps or rounds
+SPREADS = {"sweep cycles": (16, 17), "candidate configs": (18, 19),
+           "exact capacities": (20, 21), "apply cycles": (22, 23),
+           "rows applied": (24, 25)}
+# libraries whose phase-clock builds are swapped in (`phase_clocks`)
+_clocked: set[str] = set()
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def words_of(n: int) -> int:
+    return (n + 31) // 32
+
+
+def words_pad(C: int) -> int:
+    """Words of a fresh row's config bits in the kernels' scratch: 32
+    columns a word, padded to a multiple of 4 (16-byte loads)."""
+    return (words_of(C) + 3) & ~3
+
+
+def table_smem_bytes(C: int, R: int, P1: int, K: int, G: int) -> int:
+    """The tables a packing block copies into its dynamic shared memory
+    (`table_layout` in csrc/pack_common.cuh, each segment on 16 bytes):
+    cfg_alloc and pool_overhead, cfg_price, cfg_pool, cfg_rsv, rsv_cap,
+    the reservation use and a group's spend, kopen, fits, the capped
+    columns as bits, and the G groups' demand, request and compat bits.
+    A B1, B6 sequential or B7 block takes these; B3's takes more
+    (`wavefront_smem_bytes`)."""
+    nw = words_pad(C)
+    return (_align16(4 * C * R) + _align16(4 * P1 * R) + 3 * _align16(4 * C)
+            + _align16(4 * K) + 2 * _align16(4 * (K + 1)) + _align16(4 * C)
+            + _align16(C) + 4 * nw + _align16(4 * G) + _align16(4 * G * R) + 4 * G * nw)
+
+
+def wavefront_smem_bytes(C: int, R: int, P1: int, K: int, W: int, G: int, N: int) -> int:
+    """Dynamic shared memory of a B3 or B6 wavefront block: the tables,
+    then the lanes' scalars and conflict words, the committed groups'
+    bits, the conflict pass's offsets, the lane's conflict words, the
+    acceptance scan's verdicts and offsets, and the lane's filled rows
+    as bits over the N rows (`wave_layout` in csrc/pack_wavefront.cu)."""
+    return (table_smem_bytes(C, R, P1, K, G) + _align16(4 * W * WAVEFRONT_LANE_FIELDS)
+            + _align16(4 * W * words_of(W)) + _align16(4 * words_of(G))
+            + _align16(4 * (W + 1)) + _align16(4 * words_of(W)) + 2 * _align16(4 * W)
+            + _align16(4 * words_of(N)))
+
+
+def check_smem(what: str, nbytes: int, shape: str) -> int:
+    """`nbytes` of dynamic shared memory for a launch of `what`, or a
+    ValueError naming them when a block cannot have that many."""
+    if nbytes > SMEM_BUDGET:
+        raise ValueError(
+            f"{what}: {shape} needs {nbytes} bytes of dynamic shared memory a block; "
+            f"the card allows {SMEM_LIMIT} a block, {STATIC_SMEM} of them kept for the "
+            f"kernels' static shared memory")
+    return nbytes
+
+
+def _lib(name: str):
+    from karpenter_tpu_torch import cuda_build
+
+    return cuda_build.library(f"{name}_clocks" if name in _clocked else name)
+
+
+@contextlib.contextmanager
+def phase_clocks(name: str):
+    """Within the block, the kernels of library `name` ("pack_split":
+    B1 and B6 sequential; "pack_wavefront": B3 and B6 wavefront) launch
+    from its phase-clock build. Yields `take()`, which synchronizes and
+    returns {phase: cycles} summed since the last take, with "count"
+    the steps (B1) or rounds (B3), and clears the clocks."""
+    if name not in PHASES:
+        raise ValueError(f"phase_clocks: no phase-clock build of {name!r}")
+
+    def take() -> dict:
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * _CLOCK_SLOTS)()
+        _raise_on(_lib(name).phase_clocks_take(buf), f"{name} phase clocks")
+        out = dict(zip(PHASES[name], buf))
+        out["count"] = buf[_CLOCK_SLOTS - 1]
+        out["spreads"] = {k: (buf[hi], buf[total]) for k, (hi, total) in SPREADS.items()}
+        return out
+
+    _clocked.add(name)
+    try:
+        take()
+        yield take
+    finally:
+        _clocked.discard(name)
 
 
 # ---------------------------------------------------------------- plain
@@ -671,8 +786,6 @@ def _pack_split_wavefront_cuda(
     bound_quota=None, cfg_rsv=None, rsv_cap=None, group_cap=None,
     conflict=None,
 ):
-    from karpenter_tpu_torch import cuda_build
-
     dev = compat.device
     G, C = compat.shape
     R = group_req.shape[1]
@@ -690,35 +803,17 @@ def _pack_split_wavefront_cuda(
         rsv_cap, group_cap, conflict)
     K = rsv_cap.shape[0]
 
-    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    i32 = torch.int32
     assign = torch.zeros((N, G), dtype=i32, device=dev)
     free_mask = torch.zeros((F, C), dtype=torch.bool, device=dev)
     node_count = torch.zeros((), dtype=i32, device=dev)
     unsched = torch.zeros((G,), dtype=i32, device=dev)
     steps = torch.zeros((), dtype=i32, device=dev)
     widths = torch.zeros((G,), dtype=i32, device=dev)
-    # scratch: the shared state, then each lane's plan (row capacities
-    # and takes, open fit flags and capacities, reservation use, the
-    # slot-relative opened rows, their config union, the lane's
-    # scalars) and the pairwise conflict matrix
-    scratch = [
-        torch.empty((F, R), dtype=f32, device=dev),          # free_used
-        torch.empty((B, R), dtype=f32, device=dev),          # bound_used
-        torch.empty((K + 1,), dtype=f32, device=dev),        # rsv_used
-        torch.empty((G,), dtype=u8, device=dev),             # done
-        torch.empty((W, N), dtype=i32, device=dev),          # kcap
-        torch.empty((W, N), dtype=i32, device=dev),          # take
-        torch.empty((W, C), dtype=u8, device=dev),           # fits
-        torch.empty((W, C), dtype=i32, device=dev),          # kopen
-        torch.empty((W, K + 1), dtype=f32, device=dev),      # spend
-        torch.empty((W, F, C), dtype=u8, device=dev),        # o_mask
-        torch.empty((W, F, R), dtype=f32, device=dev),       # o_used
-        torch.empty((W, F), dtype=i32, device=dev),          # o_fill
-        torch.empty((W, C), dtype=u8, device=dev),           # o_union
-        torch.empty((W, WAVEFRONT_LANE_FIELDS), dtype=i32, device=dev),
-        torch.empty((W, W), dtype=u8, device=dev),           # conf
-    ]
-    lib = cuda_build.library("pack_wavefront")
+    smem = check_smem("pack_split_wavefront", wavefront_smem_bytes(C, R, P1, K, W, G, N),
+                      f"C={C} R={R} P1={P1} K={K} W={W} G={G} N={N}")
+    scratch = wavefront_scratch((), W, G, C, R, B, F, K, dev)
+    lib = _lib("pack_wavefront")
     err = lib.pack_wavefront_launch(
         _ptr(compat), _ptr(group_req), _ptr(group_count), _ptr(cfg_alloc),
         _ptr(cfg_pool), _ptr(pool_overhead), _ptr(bound_compat),
@@ -727,11 +822,34 @@ def _pack_split_wavefront_cuda(
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
         _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, _stream(),
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, smem, _stream(),
     )
-    _raise_on(err, f"pack_split_wavefront (cooperative grid of {W} blocks)")
+    DYNAMIC_SMEM["pack_split_wavefront"] = smem
+    _raise_on(err, f"pack_split_wavefront (cooperative grid of {W} blocks, {smem} bytes of "
+                   "shared memory a block)")
     LAUNCHES["pack_split_wavefront"] += 1
     return assign, free_mask, node_count, unsched, steps, widths
+
+
+def wavefront_scratch(lead: tuple, W: int, G: int, C: int, R: int, B: int, F: int,
+                      K: int, dev) -> list:
+    """The wavefront kernel's scratch, each array with the leading axes
+    `lead` (a lane or shard axis): the shared state (usage, the fresh
+    rows' config bits), then each plan lane's row capacities and takes
+    and its filled rows as bits, its reservation use, its slot-relative
+    opened rows (bits, usage, fills) and their config union, its
+    scalars, and its conflict words."""
+    i32, f32 = torch.int32, torch.float32
+    N, nw = B + F, words_pad(C)
+    shapes = [
+        ((F, R), f32), ((B, R), f32), ((F, nw), i32),        # free_used, bound_used, free_bits
+        ((W, N), i32), ((W, N), i32), ((W, words_of(N)), i32),  # kcap, take, touched
+        ((W, K + 1), f32),                                    # spend
+        ((W, F, nw), i32), ((W, F, R), f32), ((W, F), i32),  # o_bits, o_used, o_fill
+        ((W, nw), i32),                                       # o_union
+        ((W, WAVEFRONT_LANE_FIELDS), i32), ((W, words_of(W)), i32),  # lane, conf
+    ]
+    return [torch.empty(lead + shape, dtype=dt, device=dev) for shape, dt in shapes]
 
 
 def _pack_flat_words_cuda(assign, free_mask, node_count, unsched,
@@ -776,8 +894,6 @@ def _launch_pack_split(
 ):
     """Launch pack_split.cu's kernel over L lanes, a block each, and
     return its outputs with a leading lane axis."""
-    from karpenter_tpu_torch import cuda_build
-
     dev = compat.device
     G, C = compat.shape
     R = group_req.shape[1]
@@ -796,18 +912,17 @@ def _launch_pack_split(
     free_mask = torch.zeros((L, F, C), dtype=torch.bool, device=dev)
     node_count = torch.zeros((L,), dtype=i32, device=dev)
     unsched = torch.zeros((L, G), dtype=i32, device=dev)
-    # scratch, one slice per lane: per-row usage, reservation use,
-    # per-row capacity and take, per-config open capacity and fit flags
+    smem = check_smem(what, table_smem_bytes(C, R, P1, K, G),
+                      f"C={C} R={R} P1={P1} K={K} G={G}")
+    # scratch, one slice per lane: per-row usage, the fresh rows' config
+    # bits, per-row capacity (then take)
     scratch = [
         torch.empty((L, F, R), dtype=f32, device=dev),        # free_used
         torch.empty((L, B, R), dtype=f32, device=dev),        # bound_used
-        torch.empty((L, K + 1), dtype=f32, device=dev),       # rsv_used
+        torch.empty((L, F, words_pad(C)), dtype=i32, device=dev),  # free_bits
         torch.empty((L, B + F), dtype=i32, device=dev),       # kcap
-        torch.empty((L, B + F), dtype=i32, device=dev),       # take
-        torch.empty((L, C), dtype=i32, device=dev),           # kopen
-        torch.empty((L, C), dtype=torch.uint8, device=dev),   # fits
     ]
-    lib = cuda_build.library("pack_split")
+    lib = _lib("pack_split")
     err = lib.pack_split_launch(
         _ptr(compat), _ptr(group_req), _ptr(lane_counts), _ptr(cfg_alloc),
         _ptr(cfg_pool), _ptr(pool_overhead), _ptr(bound_compat),
@@ -816,9 +931,10 @@ def _launch_pack_split(
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
         *[_ptr(t) for t in scratch],
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, _stream(),
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, smem, _stream(),
     )
-    _raise_on(err, f"{what} ({L} blocks, one a lane)")
+    _raise_on(err, f"{what} ({L} blocks, one a lane, {smem} bytes of shared memory)")
+    DYNAMIC_SMEM[what] = smem
     return assign, free_mask, node_count, unsched
 
 
@@ -842,8 +958,6 @@ def _pack_probe_lanes_wavefront_cuda(
     max_free: int, mode: str = "ffd", width: int = 16, cfg_rsv=None,
     rsv_cap=None, conflict=None,
 ):
-    from karpenter_tpu_torch import cuda_build
-
     dev = compat.device
     G, C = compat.shape
     R = group_req.shape[1]
@@ -861,33 +975,20 @@ def _pack_probe_lanes_wavefront_cuda(
         conflict)
     K = rsv_cap.shape[0]
 
-    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    i32 = torch.int32
     assign = torch.zeros((L, N, G), dtype=i32, device=dev)
     free_mask = torch.zeros((L, F, C), dtype=torch.bool, device=dev)
     node_count = torch.zeros((L,), dtype=i32, device=dev)
     unsched = torch.zeros((L, G), dtype=i32, device=dev)
     steps = torch.zeros((L,), dtype=i32, device=dev)
     widths = torch.zeros((L, G), dtype=i32, device=dev)
+    smem = check_smem("pack_probe_lanes_wavefront",
+                      wavefront_smem_bytes(C, R, P1, K, W, G, N),
+                      f"C={C} R={R} P1={P1} K={K} W={W} G={G} N={N}")
     # B3's state and plan scratch, one slice per lane
-    scratch = [
-        torch.empty((L, F, R), dtype=f32, device=dev),          # free_used
-        torch.empty((L, B, R), dtype=f32, device=dev),          # bound_used
-        torch.empty((L, K + 1), dtype=f32, device=dev),         # rsv_used
-        torch.empty((L, G), dtype=u8, device=dev),              # done
-        torch.empty((L, W, N), dtype=i32, device=dev),          # kcap
-        torch.empty((L, W, N), dtype=i32, device=dev),          # take
-        torch.empty((L, W, C), dtype=u8, device=dev),           # fits
-        torch.empty((L, W, C), dtype=i32, device=dev),          # kopen
-        torch.empty((L, W, K + 1), dtype=f32, device=dev),      # spend
-        torch.empty((L, W, F, C), dtype=u8, device=dev),        # o_mask
-        torch.empty((L, W, F, R), dtype=f32, device=dev),       # o_used
-        torch.empty((L, W, F), dtype=i32, device=dev),          # o_fill
-        torch.empty((L, W, C), dtype=u8, device=dev),           # o_union
-        torch.empty((L, W, WAVEFRONT_LANE_FIELDS), dtype=i32, device=dev),
-        torch.empty((L, W, W), dtype=u8, device=dev),           # conf
-    ]
+    scratch = wavefront_scratch((L,), W, G, C, R, B, F, K, dev)
     clusters = ctypes.c_int(0)
-    lib = cuda_build.library("pack_wavefront")
+    lib = _lib("pack_wavefront")
     err = lib.pack_probe_wavefront_launch(
         _ptr(compat), _ptr(group_req), _ptr(lane_counts), _ptr(cfg_alloc),
         _ptr(cfg_pool), _ptr(pool_overhead), _ptr(bound_compat),
@@ -895,10 +996,11 @@ def _pack_probe_lanes_wavefront_cuda(
         _ptr(lane_live), _ptr(cfg_price), _ptr(cfg_rsv), _ptr(rsv_cap),
         _ptr(conflict), _ptr(assign), _ptr(free_mask), _ptr(node_count),
         _ptr(unsched), _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, L,
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, L, smem,
         ctypes.byref(clusters), _stream(),
     )
     ACTIVE_CLUSTERS[W] = clusters.value
+    DYNAMIC_SMEM["pack_probe_lanes_wavefront"] = smem
     _raise_on(err, f"pack_probe_lanes_wavefront ({L} clusters of {W} blocks; "
                    f"the card holds {clusters.value} such clusters at once)")
     LAUNCHES["pack_probe_lanes_wavefront"] += 1

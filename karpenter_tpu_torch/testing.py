@@ -225,6 +225,31 @@ def kernel_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60) -> list[K
     return cases
 
 
+def config_axis(case: KernelCase, C: int) -> KernelCase:
+    """`case` with its config axis cut to, or padded to, C columns (the
+    padding as staging pads: pseudo-configs of pool -1 that no group is
+    compatible with). For holding the kernels at widths the staging
+    never gives them: not a multiple of 32, or wider than a shard."""
+    args = list(case.args)
+    kwargs = dict(case.kwargs)
+    Cp = args[0].shape[1]
+
+    def fit(x, axis, fill):
+        if C <= Cp:
+            return np.ascontiguousarray(np.take(x, np.arange(C), axis=axis))
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (0, C - Cp)
+        return np.pad(x, pad, constant_values=fill)
+
+    args[0] = fit(args[0], 1, False)   # compat
+    args[3] = fit(args[3], 0, 0.0)     # cfg_alloc
+    args[4] = fit(args[4], 0, -1)      # cfg_pool
+    args[11] = fit(args[11], 0, 0.0)   # cfg_price
+    if kwargs.get("cfg_rsv") is not None:
+        kwargs["cfg_rsv"] = fit(kwargs["cfg_rsv"], 0, -1)
+    return KernelCase(f"{case.name}-C{C}", tuple(args), kwargs, case.max_free, case.mode)
+
+
 def dense_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60,
                 kernel: Optional[list[KernelCase]] = None) -> list[DenseCase]:
     """`kernel_cases` (or the given `kernel`, built with the same

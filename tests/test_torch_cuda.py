@@ -89,6 +89,40 @@ def test_wavefront_matches_plain_version_and_b1(cuda_kernels, cases, index, widt
     assert torch.equal(flat, cuda_kernels.pack_flat_words_ref(*got[:4], got[5], got[4]))
 
 
+@pytest.fixture(scope="module")
+def odd_cases(cases):
+    """Config axes the staging never gives the kernels: a width that is
+    not a multiple of 32 (cut from a case with bound rows, quotas, caps
+    and conflicts), and one wider than the consolidation union's 768
+    (a reservations case padded with pseudo-configs)."""
+    from karpenter_tpu_torch.testing import config_axis
+
+    return [config_axis(cases[4], 200 if cases[4].args[0].shape[1] > 200 else 45),
+            config_axis(cases[3], 800)]
+
+
+@pytest.mark.parametrize("width", [1, 8, 16, 32])
+@pytest.mark.parametrize("index", range(2))
+def test_odd_config_axes_match_plain_versions_and_b1(cuda_kernels, odd_cases, index, width):
+    k = cuda_kernels
+    case = odd_cases[index]
+    args, kw = _cuda(case)
+    assert args[0].shape[1] % 32 != 0 or args[0].shape[1] >= 768
+    seq = k.pack_split(*args, max_free=case.max_free, mode=case.mode, **kw)
+    got = k.pack_split_wavefront(*args, max_free=case.max_free, mode=case.mode, width=width,
+                                 **kw)
+    torch.cuda.synchronize()
+    want = k.pack_split_ref(*args, max_free=case.max_free, mode=case.mode, **kw)
+    for a, b in zip(seq, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), case.name
+    want = k.pack_split_wavefront_ref(*args, max_free=case.max_free, mode=case.mode,
+                                      width=width, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), case.name
+    for a, b in zip(got[:4], seq):
+        assert torch.equal(a, b), case.name
+
+
 def test_solve_on_card_matches_cpu(cuda_kernels, monkeypatch):
     from karpenter_tpu_torch.solver import pack
     from karpenter_tpu_torch.solver.encode import encode, group_pods
