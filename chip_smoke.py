@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --quick   # phases 1-3, the warm first request's
-                                    # hold and phase 5 alone (~1 min)
+                                    # hold and phase 5 alone, then B5 on
+                                    # reserved_50k's LP (~2 min)
 
 Phases, each reported on its own line; any failure exits non-zero:
   1. device   — require CUDA; print the card's name and power limit.
@@ -13,7 +14,10 @@ Phases, each reported on its own line; any failure exits non-zero:
                 seconds and what ptxas reports (registers, shared memory).
   3. kernels  — hold each kernel against its plain PyTorch version on
                 the card, on seeded problems (B4 and B5 on their own
-                seeded cases; the packing kernels in both modes, reservations,
+                seeded cases, B5 also on edge cases: one whose arrays
+                exceed the shared memory and must take the global-memory
+                path, column maxima at 0 with tied groups, 801 configs,
+                sums of at most 32 terms; the packing kernels in both modes, reservations,
                 bound rows with quotas, group caps, conflicts, negative
                 and huge demand, a capped node axis): outputs must be
                 byte-identical, B3's at widths 1, 8, 16 and 32, and B3's
@@ -75,7 +79,10 @@ Phases, each reported on its own line; any failure exits non-zero:
                 MIPs stopped after the root node on both sides, since
                 their wall-clock limits round by the machine's load).
   7. LP timing — B4's and B5's CUDA-event times on the recorded
-                inputs, their plain versions', and their bounds.
+                inputs, their plain versions', and their bounds; B5's
+                phase clocks (each phase's share, the regions inside the
+                phases, barriers an iteration) and the floor of its chain
+                of barriers (its barriers times one barrier alone).
   8. consolidation — `bench.py`'s consolidation_500, uncut: the FFD
                 fleet of `build_problem(21000, 200, seed=9)` solved on
                 the card, 55% of its pods removed, then the benchmark's
@@ -99,7 +106,8 @@ Phases, each reported on its own line; any failure exits non-zero:
                 and on the first cycle's first chunk, whose every lane
                 row also equals B1/B3 + B2 run alone on that lane. The
                 pruner: `LaneSolver.dual_certificate()` on the first
-                cycle's staging (B5 once), `ProbePruner.cannot_pay` on
+                cycle's staging (B5 once, then timed and clocked on the
+                certificate's own inputs), `ProbePruner.cannot_pay` on
                 every prefix; no feasible lane costs less than the
                 floor, and no pruned prefix has a strictly cheaper
                 solution. A mid-size fleet (3000 x 60) runs arm (c) on
@@ -211,6 +219,13 @@ OPS_PER_CAP_TERM = 5
 # problems for the card-against-CPU check
 COST_PODS, COST_TYPES, COST_ZONAL = 50_000, 500, 0.1
 ASCENT_ITERS = (8, 192)
+# B5's edge cases (testing.ASCENT_EDGE_CASES): the one whose arrays
+# exceed the shared memory, and its iterations (its plain version is
+# slow at 192)
+GLOBAL_CASE = "ascent-global"
+EDGE_ITERS = {GLOBAL_CASE: (8, 32)}
+# block barriers in a row that time one barrier (lp_device.barrier_probe)
+BARRIER_PROBE = 20_000
 # the consolidation phase: bench.py's consolidation_500 (its defaults
 # in workloads.consolidation_fleet), a mid-size fleet for the
 # card-against-CPU check, the cluster widths held on seeded lane cases
@@ -1199,11 +1214,23 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     fnodes, fprices, fpods = (first_cycle[k] for k in ("nodes", "prices", "pods_on"))
     lp_device.reset()
     b5_before = lp_device.LAUNCHES["lp_ascend"]
-    t0 = time.perf_counter()
-    cert = solver.dual_certificate()
-    torch.cuda.synchronize()
-    cert_s = time.perf_counter() - t0
-    if cert is None or lp_device.LAUNCHES["lp_ascend"] != b5_before + 1:
+    cert_inputs = []
+    real_ascend = lp_device.ascend
+
+    def recording_ascend(a, n_iters):
+        cert_inputs.append((a, n_iters))
+        return real_ascend(a, n_iters)
+
+    lp_device.ascend = recording_ascend
+    try:
+        t0 = time.perf_counter()
+        cert = solver.dual_certificate()
+        torch.cuda.synchronize()
+        cert_s = time.perf_counter() - t0
+    finally:
+        lp_device.ascend = real_ascend
+    b5_launches = lp_device.LAUNCHES["lp_ascend"] - b5_before
+    if cert is None or b5_launches != 1 or len(cert_inputs) != 1:
         fail("dual_certificate did not launch B5 once and certify")
     pruner = cb.ProbePruner(solver)
     pruned, floors, feasible = [], [], 0
@@ -1232,6 +1259,8 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
         f"{feasible} feasible, none below its floor; pruned {len(pruned)} {pruned[:10]}; "
         f"floors ${min(floors):.6f}..${max(floors):.6f}/h, absorb total "
         f"${cert.absorb_total:.6f}/h, margin {lp_device.prune_margin()}")
+    a_cert, n_cert = cert_inputs[0]
+    ascent_timing(kernels, lp_device, "the certificate's LP", a_cert, n_cert, err, smi)
 
     # ---- the card against the CPU on a mid-size fleet
     t0 = time.perf_counter()
@@ -1304,10 +1333,10 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     # bits and usage are most of it)
     shape_bytes = Lp * (N * Gp * 4 + F * Cp + 4 + Gp * 4 + 4 + Gp * 4) + nbytes(
         kernels.wavefront_scratch((Lp,), W, Gp, Cp, R, B, F, K, "meta"))
-    ptxas = [" ".join(line.split(":", 1)[1].split())
+    ptxas = [" ".join(line.split(":", 1)[-1].split())
              for name in ("pack_wavefront", "pack_split")
              for line in cuda_build.BUILD_INFO[name]["ptxas"].splitlines()
-             if "Used" in line or "Compiling entry" in line]
+             if "Used" in line or "Compiling entry" in line or "spill" in line]
     say(f"phase 8 timing on the first chunk ({n_real} lanes, Lp={Lp}, Gp={Gp} Cp={Cp} "
         f"B={B} F={F} R={R}, W={W}): B6 wavefront {', '.join(f'{x:.4f}' for x in wf_runs)} "
         f"ms ({wf_ms / n_real:.6f} ms a lane, most rounds {int(out_wf[4].max())}, "
@@ -1321,7 +1350,7 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     say("  ptxas (B6 sequential is B1's kernel over a grid of lanes): " + " | ".join(ptxas))
     say(f"  phase 8 took {time.perf_counter() - t_phase:.3f}s")
     n_b6 = {name: sum(n[name] for n in launches.values()) for name in b6}
-    return {"launches": launches, "entries": [
+    return {"launches": launches, "b5_launches": b5_launches, "entries": [
         {"name": "pack_probe_lanes_wavefront", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_wavefront.cu",
          "replaces": "karpenter_tpu/solver/pack.py:1227",
@@ -1910,11 +1939,76 @@ def timing_phase(kernels, pack, case, smi: str) -> dict:
             "b2_plain_ms": b2_plain_ms, "b2_bound": b2_bound, "b2_by": b2_by}
 
 
+def ascent_clocks(kernels, lp_device, a, n_iters: int, ms: float) -> tuple[str, int]:
+    """One run of B5 from its phase-clock build: each phase's share of
+    block 0's cycles, the us an iteration from the CUDA-event time `ms`
+    of the normal build, and the block barriers of the launch (returned
+    with the text)."""
+    with kernels.phase_clocks("lp_ascend") as take:
+        lp_device.ascend(a, n_iters)
+        clk = take()
+    n = clk.pop("count")
+    barriers = clk.pop("barriers")
+    regions = clk.pop("regions")
+    total = sum(clk.values())
+    if not n or not total:
+        fail(f"lp_ascend: the phase-clock build counted {n} iterations, {total} cycles")
+    ranked = sorted(clk.items(), key=lambda kv: -kv[1])
+    shares = ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in ranked if v)
+    inside = ", ".join(f"{k} {v / n:.0f}" for k, v in regions.items())
+    return (f"{n} iterations, {1000 * ms / n:.3f} us an iteration (CUDA events), "
+            f"{total / n:.0f} cycles an iteration on block 0, {barriers} block barriers "
+            f"({barriers / n:.1f} an iteration) | {shares} | regions inside the phases, "
+            f"cycles an iteration on the thread that runs each: {inside}"), barriers
+
+
+def ascent_timing(kernels, lp_device, name: str, a, n_iters: int, err: dict,
+                  smi: str) -> dict:
+    """B5 on `a`: held bit for bit against its plain version, its
+    CUDA-event time (5 calls) beside the plain version's (one call as
+    the host drives it), its bound, the shared memory a launch took, its
+    phase clocks, and the floor of its chain of barriers (the launch's
+    barriers times the cost of one)."""
+    say(hold_ascent(lp_device, name, a, n_iters, err))
+    out = lp_device.ascend(a, n_iters)
+    ms = event_ms(lambda: lp_device.ascend(a, n_iters), 5)
+    plain_ms = event_ms(lambda: lp_device.ascend_ref(a, n_iters), 1, queued=False)
+    nb = nbytes(a.tensors()) + nbytes(out)
+    ops = ascent_ops(a, n_iters)
+    b_ms, by = bound(ops, nb)
+    smem = getattr(lp_device, "ASCENT_SMEM", {}).get("lp_ascend")
+    say(f"  B5 on {name} (Gp={a.compat.shape[0]} Cp={a.compat.shape[1]} "
+        f"R={a.req.shape[1]} Kp={a.onehot.shape[0]}, {n_iters} iterations): "
+        f"{ms:.6f} ms, plain {plain_ms:.3f} ms, ops={ops} bytes={nb} bound {b_ms:.6f} ms "
+        f"({by}); {smem} | card: {smi}")
+    text, barriers = ascent_clocks(kernels, lp_device, a, n_iters, ms)
+    say(f"  B5 phase clocks on {name}: {text}")
+    if hasattr(lp_device, "barrier_probe"):
+        t0 = event_ms(lambda: lp_device.barrier_probe(0), 5)
+        t1 = event_ms(lambda: lp_device.barrier_probe(BARRIER_PROBE), 5)
+        per_us = 1000 * (t1 - t0) / BARRIER_PROBE
+        say(f"  B5's chain of barriers on {name}: {barriers} barriers x {per_us:.4f} us "
+            f"(one barrier of the block alone) = {barriers * per_us / 1000:.6f} ms floor, "
+            f"against {ms:.6f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": b_ms, "by": by}
+
+
+def reserved_ascent(lp_device, build_problem, encode, group_pods):
+    """reserved_50k's B5 inputs on the card, staged from its encode by
+    `lp_device._stage` and `ascent_inputs` (no column generation), and
+    the ascent's iterations."""
+    pods, pools = build_problem(COST_PODS, COST_TYPES, seed=SEED,
+                                reservations=True, zonal_frac=COST_ZONAL)
+    st = lp_device._stage(encode(group_pods(pods), pools))
+    return lp_device.ascent_inputs(st).to("cuda"), lp_device.iters()
+
+
 def quick_timing(kernels, pack, solve, build_problem, KernelCase, err: dict,
-                 smi: str, kind: str) -> None:
+                 smi: str, kind: str, lp_device, encode, group_pods) -> None:
     """`--quick`: after phases 1-3, stage the warm first request (a cold
     and a warm solve on the card), hold B1, B3 and B2 on it, and run
-    phase 5 alone."""
+    phase 5 alone; then B5's times and phase clocks on reserved_50k's
+    LP."""
     import torch
 
     pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
@@ -1936,6 +2030,8 @@ def quick_timing(kernels, pack, solve, build_problem, KernelCase, err: dict,
     case = KernelCase("main-path-first-warm", st.args, st.kwargs, st.max_free, "ffd", st)
     say(hold(kernels, case, err))
     timing_phase(kernels, pack, case, smi)
+    a, n_iters = reserved_ascent(lp_device, build_problem, encode, group_pods)
+    ascent_timing(kernels, lp_device, "reserved_50k's LP", a, n_iters, err, smi)
     say(f"chip_smoke --quick: {time.perf_counter() - T_START:.3f}s wall")
     say(smi)
     say(json.dumps({"ok": True, "device": {
@@ -1967,9 +2063,11 @@ def main() -> None:
         from karpenter_tpu_torch.solver import consolidation_batch, lp_device, lp_plan
         from karpenter_tpu_torch.solver import solver as solver_mod
         from karpenter_tpu_torch.testing import (
+            ASCENT_EDGE_CASES,
             PRICE_CASES,
             KernelCase,
             ascent_cases,
+            ascent_edge_cases,
             config_axis,
             dense_cases,
             existing_from_solution,
@@ -1994,9 +2092,9 @@ def main() -> None:
     say(f"phase 2 build: {time.perf_counter() - t0:.3f}s wall")
     for name, rec in info.items():
         usage = [
-            " ".join(line.split(":", 1)[1].split())
+            " ".join(line.split(":", 1)[-1].split())
             for line in rec["ptxas"].splitlines()
-            if "Used" in line or "Compiling entry" in line
+            if "Used" in line or "Compiling entry" in line or "spill" in line
         ]
         if not usage:
             fail(f"{name}: no ptxas report (registers, shared memory) from its build")
@@ -2021,15 +2119,26 @@ def main() -> None:
         for n_iters in ASCENT_ITERS:
             say(hold_ascent(lp_device, f"{name}-{n_iters}", inputs.to("cuda"),
                             n_iters, err))
+    for name, inputs in ascent_edge_cases(0):
+        iters = EDGE_ITERS.get(name, ASCENT_ITERS)
+        for n_iters in iters:
+            before = dict(lp_device.LAUNCHES)
+            say(hold_ascent(lp_device, f"{name}-{n_iters}", inputs.to("cuda"), n_iters, err)
+                + f"; {lp_device.ASCENT_SMEM['lp_ascend']}")
+            global_path = lp_device.LAUNCHES["lp_ascend_global"] - before["lp_ascend_global"]
+            if global_path != (1 if name == GLOBAL_CASE else 0):
+                fail(f"lp_ascend took the global-memory path {global_path}x on {name}")
     say(f"phase 3 kernels: {len(cases)} seeded packing problems and 2 at config axes "
         f"{ODD_CONFIG_AXES} byte-identical to the plain versions, B3 at widths "
         f"{WIDTHS} equal to B1; B7 and pack_flat "
         f"on {len(dcases)} dense ones byte-identical, B7 equal to B1; B4 on "
-        f"{len(PRICE_CASES)} and B5 on {3 * len(ASCENT_ITERS)} seeded cases "
+        f"{len(PRICE_CASES)} and B5 on {3 * len(ASCENT_ITERS)} seeded cases and "
+        f"{len(ASCENT_EDGE_CASES)} edge cases (one on the global-memory path) "
         f"bit-identical ({time.perf_counter() - t0:.3f}s)")
 
     if QUICK in sys.argv[1:]:
-        quick_timing(kernels, pack, solve, build_problem, KernelCase, err, smi, kind)
+        quick_timing(kernels, pack, solve, build_problem, KernelCase, err, smi, kind,
+                     lp_device, encode, group_pods)
         return
 
     # ---- 4. main path, route by route; the kernel inputs of each
@@ -2225,19 +2334,11 @@ def main() -> None:
     b4_bytes = nbytes(xs) + nbytes(lp_plan.price_kernel(*xs))
     b4_ops = price_ops(q, xs[2].shape[1])
     b4_bound, b4_by = bound(b4_ops, b4_bytes)
-    a, n_iters = recorded["ascent"]
-    b5_out = lp_device.ascend(a, n_iters)
-    b5_ms = event_ms(lambda: lp_device.ascend(a, n_iters), 5)
-    b5_plain_ms = event_ms(lambda: lp_device.ascend_ref(a, n_iters), 1, queued=False)
-    b5_bytes = nbytes(a.tensors()) + nbytes(b5_out)
-    b5_ops = ascent_ops(a, n_iters)
-    b5_bound, b5_by = bound(b5_ops, b5_bytes)
     say(f"phase 7 LP timing: B4 on the first column-generation round's inputs "
         f"(Gp={xs[0].shape[0]} Cp={xs[1].shape[1]} R={xs[2].shape[1]}): {b4_ms:.6f} ms, "
-        f"plain {b4_plain_ms:.3f} ms, ops={b4_ops} bytes={b4_bytes}; B5 at {n_iters} "
-        f"iterations (Gp={a.compat.shape[0]} Cp={a.compat.shape[1]} "
-        f"Kp={a.onehot.shape[0]}): {b5_ms:.6f} ms, plain {b5_plain_ms:.3f} ms, "
-        f"ops={b5_ops} bytes={b5_bytes} | card: {smi}")
+        f"plain {b4_plain_ms:.3f} ms, ops={b4_ops} bytes={b4_bytes} | card: {smi}")
+    a, n_iters = recorded["ascent"]
+    b5 = ascent_timing(kernels, lp_device, "reserved_50k's LP", a, n_iters, err, smi)
 
     # ---- 8. the consolidation probe path
     probes = probe_phase(kernels, consolidation_batch, lp_device, cuda_build, err, smi)
@@ -2289,9 +2390,9 @@ def main() -> None:
         {"name": "lp_ascend", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/lp_ascend.cu",
          "replaces": "karpenter_tpu/solver/lp_device.py:202",
-         "launches": launches["cost"]["lp_ascend"], "max_abs_err": err["lp_ascend"],
-         "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bound,
-         "bound_by": b5_by, "library_ms": None},
+         "launches": launches["cost"]["lp_ascend"] + probes["b5_launches"],
+         "max_abs_err": err["lp_ascend"], "ms": b5["ms"], "plain_ms": b5["plain_ms"],
+         "bound_ms": b5["bound"], "bound_by": b5["by"], "library_ms": None},
         *probes["entries"],
         *dense["entries"],
         *sharded["entries"],

@@ -12,12 +12,12 @@ Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply-add
 is contracted into an FMA (the kernels must match their plain versions
 bit for bit); never --use_fast_math.
 
-B1's and B3's sources are also built a second time with
--DKARPENTER_PHASE_CLOCKS (`pack_split_clocks`, `pack_wavefront_clocks`):
-block 0 then sums clock64() cycles per phase of a group step or round
-into a device array that `phase_clocks_take` reads and clears. The
-solve never loads these; `pack_split.phase_clocks` swaps them in for a
-timed run.
+B1's, B3's and B5's sources are also built a second time with
+-DKARPENTER_PHASE_CLOCKS (`pack_split_clocks`, `pack_wavefront_clocks`,
+`lp_ascend_clocks`): block 0 then sums clock64() cycles per phase of a
+group step, round or ascent iteration into a device array that
+`phase_clocks_take` reads and clears. The solve never loads these;
+`pack_split.phase_clocks` swaps them in for a timed run.
 """
 
 from __future__ import annotations
@@ -45,11 +45,13 @@ SOURCES = {
     "lp_ascend": "lp_ascend.cu",
     "pack_split_clocks": "pack_split.cu",
     "pack_wavefront_clocks": "pack_wavefront.cu",
+    "lp_ascend_clocks": "lp_ascend.cu",
 }
 # extra nvcc flags of a library
 EXTRA_FLAGS = {
     "pack_split_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
     "pack_wavefront_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
+    "lp_ascend_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
 }
 
 NVCC_FLAGS = (
@@ -59,6 +61,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures: argument types of each library's entry points
 SIGNATURES = {
     "pack_split": {
@@ -77,11 +80,12 @@ SIGNATURES = {
     "pack_dense": {"pack_dense_launch": [_P] * 22 + [_I] * 9 + [_P]},
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 3 + [_P]},
     "lp_ascend": {
-        "lp_ascend_launch": [_P] * 26 + [_I] * 5 + [_P],
-        "lp_ascend_sharded_launch": [_P] * 28 + [_I] * 7 + [_P],
+        "lp_ascend_launch": [_P] * 15 + [_I, _P, _L] + [_I] * 5 + [_P],
+        "lp_ascend_sharded_launch": [_P] * 15 + [_I, _P, _L, _P, _P] + [_I] * 7 + [_P],
+        "lp_barrier_probe_launch": [_I, _P, _P],
     },
 }
-for _name in ("pack_split", "pack_wavefront"):
+for _name in ("pack_split", "pack_wavefront", "lp_ascend"):
     SIGNATURES[f"{_name}_clocks"] = {**SIGNATURES[_name], "phase_clocks_take": [_P]}
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said

@@ -50,8 +50,14 @@ from karpenter_tpu_torch.solver.lp_plan import _fma_f32, _pad_to, priority_weigh
 
 _EPS = 1e-12
 
-# kernel launches of B5 and split B5 (plain-version calls never count)
-LAUNCHES = {"lp_ascend": 0, "lp_ascend_sharded": 0}
+# kernel launches of B5 and split B5 (plain-version calls never count);
+# the "_global" counts are the launches among them whose arrays did not
+# all fit in shared memory (`ascent_layout`)
+LAUNCHES = {"lp_ascend": 0, "lp_ascend_global": 0, "lp_ascend_sharded": 0,
+            "lp_ascend_sharded_global": 0}
+# wrapper -> the placement of its last launch: shared-memory bytes,
+# global-scratch bytes, and the arrays placed in global memory
+ASCENT_SMEM: dict[str, str] = {}
 
 
 def _env_int(name: str, default: int) -> int:
@@ -206,24 +212,110 @@ def xla_sum(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
     return s
 
 
-def xla_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b over the last axis as the JAX package's program takes
-    `lam_s @ count_w` on the CPU, where LLVM vectorizes the fused dot:
-    eight lane sums, lane l a multiply-add chain over elements l, l+8,
-    ... of the first 8 * (n // 8), folded in halves (lanes i and i+4,
-    then i and i+2, then 0 and 1), then the remaining elements added
-    by multiply-adds in order. Bit for bit XLA's at Gp = 32; wider dots
-    are vectorized in ways this does not follow (see ROADMAP C2)."""
+# XLA's CPU code for the bound's dot `lam_s @ count_w` (read from the
+# machine code of the JAX package's `_ascend` at every n from 32 to 330
+# and at the padding buckets up to 2048; x86-64 with FMA and 256-bit
+# vectors). The dot outside the loop (the bound at lam0) and the one
+# fused into the loop body differ in two limits: the one outside stays
+# scalar below 50 terms, and LLVM unrolls its vector loop fully up to
+# 14 iterations where the loop body's stops at 7.
+DOT_SCALAR_BELOW = {True: 50, False: 0}
+DOT_UNROLL_MAX = {True: 14, False: 7}
+
+
+def _bit_floor(x: int) -> int:
+    x = max(1, min(x, 4))
+    return 1 << (x.bit_length() - 1)
+
+
+def dot_plan(n: int, initial: bool) -> dict:
+    """The shape of XLA's CPU code for a dot of n float32 terms
+    (`xla_dot`): `scalar` (one multiply-add chain in order), or a vector
+    loop of 8 lanes interleaved `ic` times (`ic` as LLVM picks it for a
+    known trip count: the largest power of two up to 4 with at least one
+    vector iteration, halved unless that leaves the same remainder)
+    running `iters` iterations, `unrolled` fully or not; then an
+    epilogue loop of `evf` lanes (8, 4 or 2: the fewest vector plus
+    scalar iterations, ties to the narrower) running `eiters`
+    iterations, and the last terms one by one."""
+    if n < DOT_SCALAR_BELOW[initial]:
+        return dict(scalar=True)
+    big, small = _bit_floor(n // 8), _bit_floor(n // 16)
+    ic = big if n % (8 * big) == n % (8 * small) else small
+    iters = n // (8 * ic)
+    rem = n - iters * 8 * ic
+    evf, eiters = 0, 0
+    best = None
+    for vf in (8, 4, 2):
+        if rem >= vf:
+            cost = rem // vf + rem % vf
+            if best is None or cost <= best:
+                best, evf, eiters = cost, vf, rem // vf
+    return dict(scalar=False, ic=ic, iters=iters, unrolled=iters <= DOT_UNROLL_MAX[initial],
+                evf=evf, eiters=eiters)
+
+
+def dot_lane_order(ic: int, iters: int, unrolled: bool) -> list[list[int]]:
+    """The chains of one lane of the vector loop, as 8-term chunk
+    indices (chunk c holds terms 8c .. 8c + 7; lane j takes term 8c + j).
+    Unrolled, LLVM's reassociation makes one chain: the first
+    interleave part over the iterations in order, each later part over
+    iterations 1, 0, 2, 3, ... Not unrolled, one chain a part, each over
+    the iterations in order, added part by part."""
+    if unrolled:
+        seq = []
+        for u in range(ic):
+            its = list(range(iters)) if u == 0 or iters < 2 else [1, 0, *range(2, iters)]
+            seq += [it * ic + u for it in its]
+        return [seq]
+    return [[it * ic + u for it in range(iters)] for u in range(ic)]
+
+
+def _tree(v: torch.Tensor) -> torch.Tensor:
+    """The lanes of `v` added in halves (i and i + h, h = len / 2, ...)."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[:h] + v[h:]
+    return v[0]
+
+
+def xla_dot(a: torch.Tensor, b: torch.Tensor, initial: bool = False) -> torch.Tensor:
+    """a @ b over the last axis (1-D) as the JAX package's program takes
+    `lam_s @ count_w` on the CPU (`dot_plan`, `dot_lane_order`):
+    `initial` is the bound at lam0, outside the loop. Every product is
+    fused into its add (a multiply-add); a vector lane other than lane 0
+    starts from -0.0 (its first term is the rounded product), lane 0
+    from +0.0; the lanes are added in halves; the epilogue's lane 0
+    starts from the vector loop's sum. Bit for bit XLA's where the plan
+    was read (32 <= n <= 2048; see ROADMAP C2)."""
     n = a.shape[-1]
-    main = (n // 8) * 8
-    acc = torch.zeros(8, dtype=torch.float32, device=a.device)
-    for t in range(0, main, 8):
-        acc = _fma_f32(a[t:t + 8], b[t:t + 8], acc)
-    while acc.shape[-1] > 1:
-        h = acc.shape[-1] // 2
-        acc = acc[:h] + acc[h:]
-    s = acc[0]
-    for i in range(main, n):
+    p = dot_plan(n, initial)
+    if p["scalar"]:
+        return fma_chain(a, b)
+    f32, dev = torch.float32, a.device
+    ic, iters = p["ic"], p["iters"]
+    start = torch.full((8,), -0.0, dtype=f32, device=dev)
+    start[0] = 0.0
+    parts = []
+    for k, chain in enumerate(dot_lane_order(ic, iters, p["unrolled"])):
+        acc = start if k == 0 else torch.full((8,), -0.0, dtype=f32, device=dev)
+        for c in chain:
+            acc = _fma_f32(a[8 * c:8 * c + 8], b[8 * c:8 * c + 8], acc)
+        parts.append(acc)
+    lanes = parts[0]
+    for part in parts[1:]:
+        lanes = lanes + part
+    s = _tree(lanes)
+    pos = iters * 8 * ic
+    if p["evf"]:
+        vf = p["evf"]
+        acc = torch.full((vf,), -0.0, dtype=f32, device=dev)
+        acc[0] = s
+        for _ in range(p["eiters"]):
+            acc = _fma_f32(a[pos:pos + vf], b[pos:pos + vf], acc)
+            pos += vf
+        s = _tree(acc)
+    for i in range(pos, n):
         s = _fma_f32(a[i], b[i], s)
     return s
 
@@ -236,6 +328,53 @@ def fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for i in range(a.shape[-1]):
         s = _fma_f32(a[..., i], b[..., i], s)
     return s
+
+
+# The arrays of a B5 block (`Arr` in csrc/lp_ascend.cu, in its order of
+# priority): name -> the dimensions whose product, times 4 bytes, is its
+# size. "nwc" is the windows of a sum over the C configs, "gw" the 32-bit
+# words of a column over the G groups.
+ASCENT_ARRAYS = (
+    ("lam", "G"), ("ratio", "GR"), ("mm", "CR"), ("tinfo", "CR"), ("qx", "CR"),
+    ("uidx", "C"), ("cflag", "C"), ("alloc", "CR"), ("price", "C"), ("vh0", "C"),
+    ("z", "C"), ("excess", "C"), ("dx", "C"), ("tb", "C"), ("ty", "C"),
+    ("grad", "G"), ("dratio", "GR"), ("req", "GR"), ("cnt", "G"), ("cw", "G"),
+    ("best", "G"), ("ncomp", "C"), ("mu", "K"), ("nm", "K"), ("ksize", "K"),
+    ("budget", "K"), ("tbmask", ("nwc",)), ("ulist", "C"), ("colbits", ("C", "gw")),
+    ("masks", ("G", "R", "nwc")),
+)
+
+
+def _ascent_array_bytes(dims, G: int, C: int, R: int, K: int) -> int:
+    size = {"G": G, "C": C, "R": R, "K": K, "nwc": -(-C // 32) if C > 32 else 1,
+            "gw": -(-G // 32)}
+    n = 4
+    for d in dims:
+        n *= size[d]
+    return n
+
+
+def ascent_layout(G: int, C: int, R: int, K: int) -> dict:
+    """Where a B5 block keeps each of its arrays (`Layout` in
+    csrc/lp_ascend.cu): in order of priority, each (on 16 bytes) in the
+    block's dynamic shared memory while the budget
+    (`pack_split.SMEM_BUDGET`) holds it, else in global scratch. Returns
+    {"offsets": [one per array: the shared-memory byte offset, or ~ the
+    scratch byte offset], "smem": bytes, "scratch": bytes, "global":
+    [the arrays placed in global memory]}."""
+    from karpenter_tpu_torch.solver.pack_split import SMEM_BUDGET, _align16
+
+    offsets, smem, scratch, spilled = [], 0, 0, []
+    for name, size in ASCENT_ARRAYS:
+        n = _align16(_ascent_array_bytes(size, G, C, R, K))
+        if smem + n <= SMEM_BUDGET:
+            offsets.append(smem)
+            smem += n
+        else:
+            offsets.append(~scratch)
+            scratch += n
+            spilled.append(name)
+    return {"offsets": offsets, "smem": smem, "scratch": scratch, "global": spilled}
 
 
 class AscentInputs:
@@ -269,9 +408,10 @@ class _Consts:
         self.tiny = torch.full((), 1e-9, dtype=f32, device=dev)
 
 
-def _forward(a: AscentInputs, lam, k: _Consts):
+def _forward(a: AscentInputs, lam, k: _Consts, initial: bool = False):
     """bound_w(lam) and the intermediates its supergradient reads, in
-    the JAX order of operations (lp_device.py:214-237)."""
+    the JAX order of operations (lp_device.py:214-237); `initial`: the
+    bound at lam0, whose dot XLA compiles apart from the loop's."""
     req = a.req
     rmask = (req > 0) & (a.count > 0)[:, None]
     safe_req = torch.where(req > 0, req, k.one)
@@ -292,7 +432,7 @@ def _forward(a: AscentInputs, lam, k: _Consts):
     excess = torch.where(xe > 0, xe, k.zero)
     M = torch.where(a.onehot, excess[None, :], k.zero)                  # [K, C]
     mu = M.amax(dim=1)
-    b = xla_dot(lam_s, a.count_w) - fma_chain(mu, a.budget)
+    b = xla_dot(lam_s, a.count_w, initial) - fma_chain(mu, a.budget)
     return dict(safe_req=safe_req, rmask=rmask, ratio=ratio, X=X, mm=mm, v=v,
                 vh0=vh0, finite=finite, vh=vh, zsel=zsel, pden=pden, z=z,
                 theta0=theta0, theta=theta, xe=xe, M=M, mu=mu, b=b)
@@ -375,7 +515,7 @@ def ascend_ref(a: AscentInputs, n_iters: int):
     dev = a.lam0.device
     k = _Consts(dev)
     lam = a.lam0
-    f = _forward(a, lam, k)
+    f = _forward(a, lam, k, initial=True)
     best, best_lam = f["b"], lam
     last_up = torch.full((), -1, dtype=torch.int32, device=dev)
     for t in range(n_iters):
@@ -396,9 +536,27 @@ def ascend_ref(a: AscentInputs, n_iters: int):
     return best, best_lam, last_up
 
 
+def _one_slot(onehot: torch.Tensor, what: str) -> None:
+    """The kernels keep one slot index a config, as `_supergradient`
+    reads the cap duals: refuse a config in more than one slot."""
+    if onehot.numel() and int(onehot.sum(dim=0).max()) > 1:
+        raise ValueError(f"{what}: a config belongs to more than one reservation slot")
+
+
+def _layout_args(G: int, C: int, R: int, K: int, dev, copies: int = 1):
+    """The layout of a launch as its C arguments: the offsets (a ctypes
+    array), the shared-memory bytes, the scratch tensor (`copies` blocks'
+    worth) and a block's scratch bytes."""
+    import ctypes
+
+    lay = ascent_layout(G, C, R, K)
+    offsets = (ctypes.c_longlong * len(lay["offsets"]))(*lay["offsets"])
+    scratch = torch.empty((max(16, copies * lay["scratch"]),), dtype=torch.uint8, device=dev)
+    return lay, offsets, scratch
+
+
 def _ascend_cuda(a: AscentInputs, n_iters: int):
-    from karpenter_tpu_torch import cuda_build
-    from karpenter_tpu_torch.solver.pack_split import _check, _ptr, _raise_on, _stream
+    from karpenter_tpu_torch.solver.pack_split import _check, _lib, _ptr, _raise_on, _stream
 
     Gp, Cp = a.compat.shape
     R = a.req.shape[1]
@@ -412,33 +570,41 @@ def _ascend_cuda(a: AscentInputs, n_iters: int):
         _check(getattr(a, name), name, dtype, shape)
     if R > 16:
         raise ValueError(f"lp_ascend: {R} resources exceed the kernel's 16")
+    _one_slot(a.onehot, "lp_ascend")
     dev = a.lam0.device
     best = torch.empty((), dtype=f32, device=dev)
     best_lam = torch.empty((Gp,), dtype=f32, device=dev)
     last_up = torch.empty((), dtype=torch.int32, device=dev)
-    # scratch: lam, the gradient and the forward's per-config state
-    scratch = [
-        torch.empty((Gp,), dtype=f32, device=dev),          # lam
-        torch.empty((Gp,), dtype=f32, device=dev),          # grad
-        torch.empty((Gp, R), dtype=f32, device=dev),        # ratio
-        torch.empty((Gp, R), dtype=f32, device=dev),        # dratio
-        torch.empty((Cp, R), dtype=f32, device=dev),        # mm
-        torch.empty((Cp, R), dtype=f32, device=dev),        # ties of mm, then dmm / ties
-        torch.empty((Cp,), dtype=f32, device=dev),          # vh0
-        torch.empty((Cp,), dtype=f32, device=dev),          # dvh from excess
-        torch.empty((Cp,), dtype=f32, device=dev),          # excess
-        torch.empty((Cp,), dtype=f32, device=dev),          # z
-        torch.empty((Kp,), dtype=f32, device=dev),          # mu
-        torch.empty((Kp,), dtype=f32, device=dev),          # dmu / ties
-    ]
-    lib = cuda_build.library("lp_ascend")
+    lay, offsets, scratch = _layout_args(Gp, Cp, R, Kp, dev)
+    lib = _lib("lp_ascend")
     err = lib.lp_ascend_launch(
-        *(_ptr(t) for t in (*a.tensors(), best, best_lam, last_up, *scratch)),
-        Gp, Cp, R, Kp, int(n_iters), _stream(),
+        *(_ptr(t) for t in (*a.tensors(), best, best_lam, last_up)), offsets, lay["smem"],
+        _ptr(scratch), lay["scratch"], Gp, Cp, R, Kp, int(n_iters), _stream(),
     )
-    _raise_on(err, "lp_ascend")
+    _raise_on(err, f"lp_ascend (Gp={Gp} Cp={Cp} R={R} Kp={Kp}, {lay['smem']} B of shared "
+                   f"memory)")
     LAUNCHES["lp_ascend"] += 1
+    if lay["global"]:
+        LAUNCHES["lp_ascend_global"] += 1
+    ASCENT_SMEM["lp_ascend"] = _placement(lay)
     return best, best_lam, last_up
+
+
+def _placement(lay: dict) -> str:
+    where = f"global: {', '.join(lay['global'])}" if lay["global"] else "all in shared memory"
+    return f"{lay['smem']} B shared, {lay['scratch']} B global scratch ({where})"
+
+
+def barrier_probe(n: int) -> None:
+    """Launch one block of B5's width that takes `n` block barriers in a
+    row and does nothing else: `chip_smoke.py` times it for the cost of
+    one barrier (the floor of the ascent's chain). Not counted: it is no
+    part of a solve."""
+    from karpenter_tpu_torch.solver.pack_split import _lib, _ptr, _raise_on, _stream
+
+    sink = torch.empty((1,), dtype=torch.int32, device="cuda")
+    _raise_on(_lib("lp_ascend").lp_barrier_probe_launch(int(n), _ptr(sink), _stream()),
+              "lp_barrier_probe")
 
 
 def ascend(a: AscentInputs, n_iters: int):
@@ -488,7 +654,7 @@ class ShardedAscentInputs:
         return cls(**out)
 
 
-def _forward_sharded(a: ShardedAscentInputs, lam, k: _Consts):
+def _forward_sharded(a: ShardedAscentInputs, lam, k: _Consts, initial: bool = False):
     """`_forward` with every reduction over configs taken per shard and
     combined: theta's and mu's maxima over the shards' maxima."""
     S = a.shards
@@ -522,7 +688,7 @@ def _forward_sharded(a: ShardedAscentInputs, lam, k: _Consts):
         d["M"] = torch.where(a.onehot[s], excess[None, :], k.zero)
         m = d["M"].amax(dim=1)
         mu = m if mu is None else torch.maximum(mu, m)
-    b = xla_dot(lam_s, a.count_w) - fma_chain(mu, a.budget)
+    b = xla_dot(lam_s, a.count_w, initial) - fma_chain(mu, a.budget)
     return dict(sh=sh, safe_req=safe_req, rmask=rmask, ratio=ratio, theta0=theta0,
                 theta=theta, mu=mu, b=b)
 
@@ -580,7 +746,7 @@ def ascend_sharded_ref(a: ShardedAscentInputs, n_iters: int):
     dev = a.lam0.device
     k = _Consts(dev)
     lam = a.lam0
-    f = _forward_sharded(a, lam, k)
+    f = _forward_sharded(a, lam, k, initial=True)
     best, best_lam = f["b"], lam
     last_up = torch.full((), -1, dtype=torch.int32, device=dev)
     for t in range(n_iters):
@@ -603,8 +769,7 @@ def ascend_sharded_ref(a: ShardedAscentInputs, n_iters: int):
 
 
 def _ascend_sharded_cuda(a: ShardedAscentInputs, n_iters: int):
-    from karpenter_tpu_torch import cuda_build
-    from karpenter_tpu_torch.solver.pack_split import _check, _ptr, _raise_on, _stream
+    from karpenter_tpu_torch.solver.pack_split import _check, _lib, _ptr, _raise_on, _stream
     from karpenter_tpu_torch.solver.pack_shard import _table, _xchg_scratch
 
     S = a.shards
@@ -626,29 +791,30 @@ def _ascend_sharded_cuda(a: ShardedAscentInputs, n_iters: int):
                 raise ValueError(f"lp_ascend_sharded: shard {s} lies on {t.device}; the "
                                  "launch over several cards is ROADMAP item 10")
             _check(t, f"{name}[{s}]", dtype, shape)
+        _one_slot(a.onehot[s], f"lp_ascend_sharded shard {s}")
     if R > 16:
         raise ValueError(f"lp_ascend_sharded: {R} resources exceed the kernel's 16")
     best = torch.empty((S,), dtype=f32, device=dev)
     best_lam = torch.empty((S, Gp), dtype=f32, device=dev)
     last_up = torch.empty((S,), dtype=torch.int32, device=dev)
-    local = [[torch.empty(shape, dtype=f32, device=dev) for _ in range(S)]
-             for shape in ((Cs, R), (Cs, R), (Cs,), (Cs,), (Cs,), (Cs,))]
-    rep = [torch.empty((S,) + shape, dtype=f32, device=dev)
-           for shape in ((Gp,), (Gp,), (Gp, R), (Gp, R), (Kp,), (Kp,))]
+    lay, offsets, scratch = _layout_args(Gp, Cs, R, Kp, dev, copies=S)
     slots, arrive = _xchg_scratch(1, S, max(Kp, Gp * R), dev)
     tables = [_table(getattr(a, n), dev) for n in ("compat", "alloc", "price", "valid",
                                                      "onehot", "uncapped")]
-    tables += [_table(t, dev) for t in local]
-    lib = cuda_build.library("lp_ascend")
+    lib = _lib("lp_ascend")
     err = lib.lp_ascend_sharded_launch(
         *[_ptr(t) for t in tables],
         *[_ptr(getattr(a, n)) for n in ("lam0", "count", "count_w", "req", "budget")],
-        _ptr(best), _ptr(best_lam), _ptr(last_up), *[_ptr(t) for t in rep],
-        _ptr(slots), _ptr(arrive), Gp, Cs, R, Kp, int(n_iters), S, slots.shape[-1],
-        _stream(),
+        _ptr(best), _ptr(best_lam), _ptr(last_up), offsets, lay["smem"], _ptr(scratch),
+        lay["scratch"], _ptr(slots), _ptr(arrive), Gp, Cs, R, Kp, int(n_iters), S,
+        slots.shape[-1], _stream(),
     )
-    _raise_on(err, f"lp_ascend_sharded (cooperative grid of {S} blocks)")
+    _raise_on(err, f"lp_ascend_sharded (cooperative grid of {S} blocks, {lay['smem']} B "
+                   f"of shared memory each)")
     LAUNCHES["lp_ascend_sharded"] += 1
+    if lay["global"]:
+        LAUNCHES["lp_ascend_sharded_global"] += 1
+    ASCENT_SMEM["lp_ascend_sharded"] = _placement(lay)
     return best, best_lam, last_up
 
 

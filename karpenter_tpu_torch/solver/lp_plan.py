@@ -146,7 +146,9 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     product a*b is exact in float64 (a an integer below 2^24): the sum
     in float64 with its rounding error (TwoSum), rounded to float32,
     and a float64 result that lands exactly between two float32
-    neighbours resolved toward the error."""
+    neighbours resolved toward the error. A sum that is +-inf or NaN
+    (c infinite, a product of 0 and inf) is that value, as IEEE's fma
+    gives it."""
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
@@ -156,7 +158,7 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where(s > r.double(), torch.full_like(r, float("inf")),
                          torch.full_like(r, float("-inf")))
     other = torch.nextafter(r, toward)
-    mid = ((r.double() + other.double()) * 0.5 == s) & (err != 0)
+    mid = ((r.double() + other.double()) * 0.5 == s) & (err != 0) & torch.isfinite(s)
     pick = torch.where(err > 0, torch.maximum(r, other), torch.minimum(r, other))
     return torch.where(mid, pick, r)
 

@@ -77,7 +77,7 @@ def reset_launch_counts() -> None:
 
 # the phases that block 0 of a phase-clock build times, slot by slot
 # (PhaseClock in csrc/pack_common.cuh; the last slot counts the group
-# steps with demand, or the rounds)
+# steps with demand, the rounds, or B5's iterations)
 PHASES = {
     "pack_split": ("init", "step start", "sweep", "prefix scan",
                    "takes and apply", "bulk open"),
@@ -85,13 +85,27 @@ PHASES = {
                        "plan: takes", "plan: open", "plan: tail", "barrier 1 wait",
                        "conflicts", "barrier 2 wait", "accept", "commit",
                        "barrier 3 wait"),
+    "lp_ascend": ("init", "step: norm, update, ratio", "fwd: max and ties",
+                  "fwd: vh0, z", "fwd: theta, excess, mu, dot, dtheta_a",
+                  "fwd: mu ties, bound", "keep best", "sg: dexcess, dtheta_b terms",
+                  "sg: dtheta_b, dvh, qx, d ratio's terms", "sg: d ratio, grad, lam max"),
 }
 _CLOCK_SLOTS = 32
-# per-thread spreads (PhaseClock::spread): (largest, sum over the block's
-# threads) slot pairs, summed over steps or rounds
+# per-thread spreads of the packing kernels (PhaseClock::spread):
+# (largest, sum over the block's threads) slot pairs, summed over steps
+# or rounds
 SPREADS = {"sweep cycles": (16, 17), "candidate configs": (18, 19),
            "exact capacities": (20, 21), "apply cycles": (22, 23),
            "rows applied": (24, 25)}
+# B5's slot of the block barriers its iterations took (`bar` in
+# csrc/lp_ascend.cu), and the regions inside its phases that its clock
+# build times on the thread that runs each (`Region`), from slot 16
+BARRIER_SLOT = 30
+REGIONS = {"lp_ascend": ("column maxima", "vh0, z", "excess, mu, theta ties",
+                         "dtheta_a", "the bound's dot", "mu . budget", "mu ties",
+                         "dtheta_b", "dvh, qx, d ratio's terms", "d ratio rows", "grad",
+                         "norm", "update, ratio", "zeroing")}
+REGION_SLOT = 16
 # libraries whose phase-clock builds are swapped in (`phase_clocks`)
 _clocked: set[str] = set()
 
@@ -156,10 +170,13 @@ def _lib(name: str):
 @contextlib.contextmanager
 def phase_clocks(name: str):
     """Within the block, the kernels of library `name` ("pack_split":
-    B1 and B6 sequential; "pack_wavefront": B3 and B6 wavefront) launch
-    from its phase-clock build. Yields `take()`, which synchronizes and
-    returns {phase: cycles} summed since the last take, with "count"
-    the steps (B1) or rounds (B3), and clears the clocks."""
+    B1 and B6 sequential; "pack_wavefront": B3 and B6 wavefront;
+    "lp_ascend": B5 and split B5) launch from its phase-clock build.
+    Yields `take()`, which synchronizes and returns {phase: cycles}
+    summed since the last take, with "count" the steps (B1), rounds (B3)
+    or iterations (B5), "spreads" the packing kernels' per-thread
+    spreads, "barriers" B5's block barriers and "regions" the cycles of
+    the regions inside its phases, and clears the clocks."""
     if name not in PHASES:
         raise ValueError(f"phase_clocks: no phase-clock build of {name!r}")
 
@@ -169,7 +186,11 @@ def phase_clocks(name: str):
         _raise_on(_lib(name).phase_clocks_take(buf), f"{name} phase clocks")
         out = dict(zip(PHASES[name], buf))
         out["count"] = buf[_CLOCK_SLOTS - 1]
-        out["spreads"] = {k: (buf[hi], buf[total]) for k, (hi, total) in SPREADS.items()}
+        if name == "lp_ascend":
+            out["barriers"] = buf[BARRIER_SLOT]
+            out["regions"] = {k: buf[REGION_SLOT + i] for i, k in enumerate(REGIONS[name])}
+        else:
+            out["spreads"] = {k: (buf[hi], buf[total]) for k, (hi, total) in SPREADS.items()}
         return out
 
     _clocked.add(name)

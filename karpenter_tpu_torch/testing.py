@@ -10,9 +10,12 @@ out as inputs of the dense kernel B7 (`dense_case`: the bound block as
 one-hot `existing_mask` rows), each with its B1 twin for the dense ≡
 split oracle (`split_mismatch`).
 `price_cases` builds inputs of the pricing kernel B4 (exact density
-ties, exact fills, demand caps, the planner's padded shapes) and
+ties, exact fills, demand caps, the planner's padded shapes),
 `ascent_cases` inputs of the dual-ascent kernel B5 (staged from encodes
-with and without reservations, on both catalogs).
+with and without reservations, on both catalogs) and `ascent_edge_cases`
+B5 inputs made directly (a shape over the shared-memory budget, column
+maxima at 0 and tied groups, a config axis of 801, sums of at most 32
+terms).
 `split_case` cuts a kernel case's config axis into S shards' column
 blocks (the inputs of the split kernels, B8), and `tie_case` builds
 problems whose picks tie across every shard boundary.
@@ -341,6 +344,72 @@ def ascent_cases(seed: int = 0, shards: int = 0) -> list[tuple[str, "lp_device.A
         enc = encode(group_pods(pods), pools)
         out.append((f"ascent-{name}", lp_device.ascent_inputs(lp_device._stage(enc), shards)))
     return out
+
+
+# (name, G, C, R, K, slotted configs, duplicated groups, zero-ratio
+# groups): B5's inputs at shapes and values the staging rarely gives it
+ASCENT_EDGE_CASES = (
+    # its arrays over the shared-memory budget (the global path)
+    ("global", 520, 1800, 6, 64, 40, 0, 0),
+    # many columns whose maximum is a masked or a computed 0, and groups
+    # tied on every resource
+    ("mm-zero-ties", 124, 155, 4, 64, 12, 24, 40),
+    # a config axis not a multiple of 32 and past 768
+    ("odd-configs", 79, 801, 3, 1, 0, 6, 4),
+    # sums of at most 32 terms, the bound at lam0 scalar
+    ("small", 20, 24, 2, 3, 6, 4, 2),
+)
+
+
+def ascent_edge_case(seed: int, G: int, C: int, R: int, K: int, n_slotted: int,
+                     n_dup: int, n_zero: int) -> "lp_device.AscentInputs":
+    """Seeded B5 inputs (CPU tensors) made directly: a few compat column
+    patterns (configs share columns), some of them only with groups whose
+    ratio is 0 (count 0), `n_dup` groups copied from others (equal ratios:
+    tied maxima), `n_slotted` configs in K reservation slots (at most one
+    a config), prices with zeros, invalid resources."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lam0 = rng.uniform(0.05, 2.0, G).astype(np.float32)
+    count = rng.integers(1, 40, G).astype(np.float32)
+    req = (rng.uniform(0.25, 8.0, (G, R)) * (rng.random((G, R)) < 0.9)).astype(np.float32)
+    for d in range(n_dup):
+        src, dst = rng.choice(G, 2, replace=False)
+        lam0[dst], req[dst], count[dst] = lam0[src], req[src], count[src]
+    zero = rng.choice(G, n_zero, replace=False) if n_zero else np.zeros(0, np.int64)
+    count[zero] = 0.0
+    patterns = rng.random((max(3, C // 9), G)) < rng.uniform(0.05, 0.6, (max(3, C // 9), 1))
+    if n_zero:
+        # columns of zero-ratio groups only (mm a computed 0, tied) and of
+        # no group (mm a masked 0)
+        patterns[0] = False
+        patterns[0, zero] = True
+        patterns[1] = False
+    compat = patterns[rng.integers(0, len(patterns), C)].T.copy()
+    alloc = rng.uniform(1.0, 64.0, (C, R)).astype(np.float32)
+    valid = rng.random((C, R)) < 0.92
+    price = (rng.uniform(0.05, 3.0, C) * (rng.random(C) < 0.95)).astype(np.float32)
+    slot = np.full(C, -1, np.int64)
+    if K > 1 or n_slotted:
+        chosen = rng.choice(C, min(n_slotted, C), replace=False)
+        slot[chosen] = rng.integers(0, min(K, max(1, n_slotted // 2)), len(chosen))
+    onehot = np.zeros((K, C), bool)
+    for k in range(K):
+        onehot[k] = slot == k
+    budget = np.where(onehot.any(axis=1), rng.integers(1, 9, K), 0).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, G).astype(np.float32)
+    t = torch.from_numpy
+    return lp_device.AscentInputs(
+        lam0=t(lam0), count=t(count), count_w=t((count * w).astype(np.float32)),
+        compat=t(compat), req=t(req), alloc=t(alloc), price=t(price), valid=t(valid),
+        onehot=t(onehot), budget=t(budget), uncapped=t((slot < 0) & (price > 0)))
+
+
+def ascent_edge_cases(seed: int = 0) -> list[tuple[str, "lp_device.AscentInputs"]]:
+    """`ASCENT_EDGE_CASES` as named B5 inputs."""
+    return [(f"ascent-{name}", ascent_edge_case(seed + i, *shape))
+            for i, (name, *shape) in enumerate(ASCENT_EDGE_CASES)]
 
 
 @contextlib.contextmanager

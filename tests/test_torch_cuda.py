@@ -6,7 +6,8 @@ no CPU mode). On a GPU host:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (`--noconftest`: the suite's conftest pins JAX to the CPU, and this
-file imports no JAX.) Covers B1-B5 and B6 (both lane programs, the
+file imports no JAX.) Covers B1-B5 (B5 also at edge shapes, one on its
+global-memory path, and its phase-clock build) and B6 (both lane programs, the
 wavefront one at cluster widths 8 and 16, and the lane epilogue), B7
 (the dense kernel and its flat epilogue, held also to B1 on the same
 problems, and the port's `graft_entry.entry()` on the card), and the
@@ -195,6 +196,47 @@ def test_ascent_kernel_matches_plain_version(lp_kernels, index, n_iters):
     want = lp_device.ascend_ref(a, n_iters)
     for x, y in zip(got, want):
         assert _same_bits(x, y), name
+
+
+@pytest.mark.parametrize("index", range(4))
+def test_ascent_kernel_matches_plain_version_at_edge_shapes(lp_kernels, index):
+    """B5 on `testing.ascent_edge_cases`: the shape whose arrays exceed the
+    shared memory runs the same kernel with them in global memory (counted
+    under "lp_ascend_global"), the others entirely in shared memory."""
+    from karpenter_tpu_torch.testing import ascent_edge_cases
+
+    _, lp_device = lp_kernels
+    name, inputs = ascent_edge_cases(3)[index]
+    a = inputs.to("cuda")
+    n_iters = 8 if name == "ascent-global" else 64
+    before = dict(lp_device.LAUNCHES)
+    got = lp_device.ascend(a, n_iters)
+    torch.cuda.synchronize()
+    assert lp_device.LAUNCHES["lp_ascend"] == before["lp_ascend"] + 1
+    on_global = lp_device.LAUNCHES["lp_ascend_global"] - before["lp_ascend_global"]
+    assert on_global == (1 if name == "ascent-global" else 0), name
+    want = lp_device.ascend_ref(a, n_iters)
+    for x, y in zip(got, want):
+        assert _same_bits(x, y), name
+
+
+def test_ascent_phase_clocks_build(lp_kernels):
+    """B5's phase-clock build (`lp_ascend_clocks`) gives the same result
+    and counts its iterations, its phases' cycles and its barriers."""
+    from karpenter_tpu_torch.solver import pack_split
+    from karpenter_tpu_torch.testing import ascent_cases
+
+    _, lp_device = lp_kernels
+    _, inputs = ascent_cases(2)[1]
+    a = inputs.to("cuda")
+    want = lp_device.ascend(a, 16)
+    with pack_split.phase_clocks("lp_ascend") as take:
+        got = lp_device.ascend(a, 16)
+        clk = take()
+    for x, y in zip(got, want):
+        assert _same_bits(x, y)
+    assert clk["count"] == 16 and clk["barriers"] > 16
+    assert all(clk[p] > 0 for p in pack_split.PHASES["lp_ascend"])
 
 
 def test_cost_solve_on_card_matches_cpu(lp_kernels):

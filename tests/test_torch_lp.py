@@ -20,8 +20,8 @@ inputs; `solve` under KARPENTER_LP_SHARDS.
 Tolerances: B4 exact. The supergradient: 1e-5 relative plus 1e-9
 absolute (the two sum in different orders), and the same tie pattern
 (which components are zero). The ascent, against the JAX program
-with the port's step sizes: bit for bit, but for the best value at
-Gp > 32 (4 ulps: a dot LLVM vectorizes); against the JAX `_ascend`
+with the port's step sizes: bit for bit, the best value included (the
+bound's dot in the order of XLA's machine code); against the JAX `_ascend`
 itself, whose step sizes come from the CPU's rsqrt estimate: the best
 bound within 1e-6 relative, the duals within 1e-6 of the largest, the
 certified bound within 1e-6 relative.
@@ -383,11 +383,11 @@ def test_ascent_plain_version_against_jax(fixture, n_iters, request):
     """B5's plain version takes every sum in XLA's CPU order
     (`xla_sum`, `fma_chain`, `xla_dot`) and XLA's fused multiply-adds.
     Against the JAX program with the port's step sizes
-    (`_jax_ascend_with_steps`): lambda, the last improving iteration
-    and the float64 certificate bit for bit; the best value bit for bit
-    where Gp <= 32, and within 4 ulps at Gp = 79, where LLVM vectorizes
-    the bound's dot `lam_s @ count_w` in a way `xla_dot` does not follow
-    (measured: 2 ulps at 192 iterations, equal at 8). Against the JAX
+    (`_jax_ascend_with_steps`): lambda, the last improving iteration,
+    the float64 certificate and the best value bit for bit, at Gp = 32
+    and at Gp = 79, where LLVM vectorizes the bound's dot
+    `lam_s @ count_w` (`xla_dot` follows the order read from XLA's
+    machine code: `dot_plan`, `dot_lane_order`). Against the JAX
     `_ascend` itself, whose steps come from the CPU's rsqrt estimate:
     the best value and the certificate within 1e-6 relative, lambda
     within 1e-6 of the largest (the gaps are recorded in the junit
@@ -406,10 +406,7 @@ def test_ascent_plain_version_against_jax(fixture, n_iters, request):
     assert int(last) == int(slast)
     cert, scert = _certs(lam.numpy(), slam, st)
     assert cert[4] == scert[4]
-    if inp.lam0.shape[0] <= 32:
-        assert float(best) == float(sbest)
-    else:
-        assert _ulps(float(best), float(sbest)) <= 4
+    assert _ulps(float(best), float(sbest)) == 0
 
     jbest, jlam, jlast = jlp_device._ascend(*args, n_iters=n_iters)
     assert float(best) == pytest.approx(float(jbest), rel=1e-6)
