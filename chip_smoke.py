@@ -3,8 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --quick   # phases 1-3, the warm first request's
-                                    # hold and phase 5 alone, then B5 on
-                                    # reserved_50k's LP (~2 min)
+                                    # hold and phase 5 alone, split B1 and
+                                    # B3 at S=4 on it (held, timed in turns
+                                    # with B1 and B3, phase clocks and
+                                    # exchange census; the census also in
+                                    # cost mode and on reserved_50k in both
+                                    # modes), then B5 on reserved_50k's LP
+                                    # (~2.5 min)
+    python3 chip_smoke.py --split   # phases 1-2, then split B1 and B3 at
+                                    # S = 2, 4, 8 on the first request
+                                    # alone (held, in turns with B1 and
+                                    # B3, barriers, clocks, census)
 
 Phases, each reported on its own line; any failure exits non-zero:
   1. device   — require CUDA; print the card's name and power limit.
@@ -139,8 +148,11 @@ Phases, each reported on its own line; any failure exits non-zero:
   10. sharded — B8, the config axis split over S shards, on virtual
                 meshes of shard slots on the card (`force_virtual_mesh`):
                 split B1, B3 (widths 8 and 16) and B2 byte-identical to
-                their plain split versions on seeded problems and on
-                boundary-tie problems at S in (2, 3, 4, 8), every
+                their plain split versions on seeded problems, on
+                boundary-tie problems and on the open loop's corners
+                (`testing.fold_cases`: three pools, a reserved column
+                cheaper than every uncapped one on one shard only, a
+                chosen pool of zero open capacity) at S in (2, 3, 4, 8), every
                 replica equal and the flat buffers equal to the unsplit
                 kernels'; split B5 bit-identical to its plain version at
                 S in (2, 4). Then, each route with the launch counts set
@@ -148,7 +160,10 @@ Phases, each reported on its own line; any failure exits non-zero:
                 split kernels and no unsplit packing kernel: the first
                 50k x 500 request at S in (2, 3, 4, 8) on the B3 route
                 and the KARPENTER_WAVEFRONT=0 B1 route, the second
-                request at S=4, reserved_50k's cost solve at S=4 (each
+                request at S=4, reserved_50k's cost solve at S=4 (its
+                encode's split B1 and B3 then run once each from their
+                phase-clock builds in both modes: the exchange census
+                with reserved columns), each
                 fingerprint equal to the unsharded card solve's); the
                 device LP under KARPENTER_LP_SHARDS=4 (split B5, held to
                 its plain version, its gap to the unsplit B5 printed);
@@ -164,8 +179,13 @@ Phases, each reported on its own line; any failure exits non-zero:
                 split kernel's CUDA-event time in turns with its unsplit
                 kernel's (unsplit, split, split, unsplit) on the first
                 request's inputs at S in (2, 4, 8) (B5: reserved_50k's
-                LP at S=4), the bounds, and the plain split versions'
-                times from the runs that held the first request at S=4.
+                LP at S=4), the bounds, the plain split versions'
+                times from the runs that held the first request at S=4,
+                and one run of split B1 and B3 at each timed S from their
+                phase-clock builds: the phases of shard 0's block and the
+                exchange census (each kind's exchanges a launch, the
+                cycles one took on block 0's thread 0 and its block
+                barriers; split B3's round barriers).
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -231,8 +251,10 @@ BARRIER_PROBE = 20_000
 # card-against-CPU check, the cluster widths held on seeded lane cases
 # and the lane width the CPU run forces
 MID_FLEET = (3000, 60)
-# the argument that runs phases 1-3 and 5 only (`quick_timing`)
+# the argument that runs phases 1-3 and 5 only (`quick_timing`), and
+# the one that runs phases 1-2 and the split kernels' timing alone
 QUICK = "--quick"
+SPLIT = "--split"
 PROBE_WIDTHS = (8, 16)
 CPU_PROBE_WIDTH = 8
 PROBE_KNOBS = ("KARPENTER_WAVEFRONT", "KARPENTER_WAVEFRONT_WIDTH",
@@ -1379,6 +1401,8 @@ TIMED_SHARDS = (2, 4, 8)
 LP_SHARDS = 4
 MILLION = (1_000_000, 100, 400)
 MILLION_SHARDS = 8
+# `--quick`: split B1 and B3 timed at this S on the first request
+QUICK_SHARDS = 4
 
 
 SPLIT_WRAPPERS = ("pack_split_sharded", "pack_split_wavefront_sharded",
@@ -1545,7 +1569,7 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
     from karpenter_tpu_torch.solver.encode import encode, group_pods
     from karpenter_tpu_torch.solver.solver import fingerprint, reset_caches, solve
     from karpenter_tpu_torch.testing import (
-        ascent_cases, kernel_cases, root_node_mips, tie_case)
+        ascent_cases, fold_cases, kernel_cases, root_node_mips, tie_case)
     from karpenter_tpu_torch.utils.platform import force_virtual_mesh
     from karpenter_tpu_torch.workloads import build_problem, build_scaled_demand
 
@@ -1559,7 +1583,7 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
     held = 0
     for S in SHARDS:
         for case in [cases[i] for i in (1, 2, 4, 7)] + [
-                tie_case(21, S, "cost"), tie_case(22, S, "ffd", quota=True)]:
+                tie_case(21, S, "cost"), tie_case(22, S, "ffd", quota=True)] + fold_cases(3, S):
             say(hold_split(shard, kernels, case, S, err))
             held += 1
     for S in (2, LP_SHARDS):
@@ -1669,6 +1693,8 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
     if fingerprint(sol_c) != cost_fp:
         fail("reserved_50k cost at S=4: fingerprint differs from the unsharded cost solve's")
     renc = encode(group_pods(rpods), rpools)
+    for mode in ("ffd", "cost"):
+        census_runs(kernels, pack, shard, renc, LP_SHARDS, mode, "reserved_50k")
     captured = {}
     real_split = lp_device.ascend_sharded
 
@@ -1787,6 +1813,12 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
             seq = [event_ms(runs[plain], reps), event_ms(runs[split], reps),
                    event_ms(runs[split], reps), event_ms(runs[plain], reps)]
             times[(split, S)] = (seq[1], seq[2], seq[0], seq[3])
+        # each split packing kernel's phases and exchange census
+        for lib, split, unit in (("pack_split", "pack_split_sharded", "step"),
+                                 ("pack_wavefront", "pack_split_wavefront_sharded", "round")):
+            s1, s2, _, _ = times[(split, S)]
+            say(f"  {split} S={S} phase clocks: "
+                f"{phase_breakdown(kernels, lib, runs[split], (s1 + s2) / 2, unit)}")
         in_bytes = nbytes(flat_tensors(list(sargs) + list(skw.values())))
         ops = b1_ops(kernels, fargs, fkw, F)
         out_b = nbytes([fo[0], fo[1], fo[2], fo[3]])
@@ -1857,6 +1889,8 @@ def phase_breakdown(kernels, lib: str, run, ms: float, unit: str) -> str:
         clk = take()
     n = clk.pop("count")
     spreads = clk.pop("spreads")
+    exchanges = clk.pop("exchanges")
+    ns = clk.pop("ns")
     total = sum(clk.values())
     if not n or not total:
         fail(f"{lib}: the phase-clock build counted {n} {unit}s, {total} cycles")
@@ -1864,9 +1898,114 @@ def phase_breakdown(kernels, lib: str, run, ms: float, unit: str) -> str:
     # the slowest thread against the mean over the block's threads
     spread = ", ".join(f"{k} {hi / n:.1f} (mean {tot / n / 1024:.1f})"
                        for k, (hi, tot) in spreads.items())
-    return (f"{n} {unit}s, {1000 * ms / n:.3f} us a {unit} (CUDA events), "
-            f"{total / n:.0f} cycles a {unit} on block 0 | {shares} | a {unit}'s slowest "
+    text = (f"{n} {unit}s, {1000 * ms / n:.3f} us a {unit} (CUDA events), "
+            f"{total / n:.0f} cycles a {unit} on block 0 at {1000 * total / max(ns, 1):.0f} "
+            f"MHz (its cycles over the global timer's ns) | {shares} | a {unit}'s slowest "
             f"thread: {spread}")
+    if any(c for c, _, _ in exchanges.values()):
+        text += f" | exchange census a launch: {census(exchanges, n, unit)}"
+    return text
+
+
+def census(exchanges: dict, n: int, unit: str) -> str:
+    """A split launch's exchange census (block 0's thread 0: shard 0,
+    lane 0): each kind's exchanges in the launch and per step or round,
+    the mean cycles one took (its wait for the slowest shard included)
+    and the block barriers one took; the opens made, and the exchanges
+    an open."""
+    ex = dict(exchanges)
+    opens = ex.pop("opens made", (0, 0, 0))[0]
+    parts = [f"{k} {c} ({c / n:.2f} a {unit}), {cyc / c:.0f} cycles each, "
+             f"{bars / c:.1f} block barriers each"
+             for k, (c, cyc, bars) in ex.items() if c]
+    if opens:
+        # each open takes one fold exchange (and ffd with reserved columns
+        # one reserved key); the other fold exchanges end a loop with
+        # demand left (no pool can open, or the node axis is full)
+        per_open = (opens + ex["reserved key"][0]) / opens
+        parts.append(f"opens made {opens}: {per_open:.2f} exchanges an open, "
+                     f"{ex['open'][0] - opens} more ending a loop with demand left")
+    return "; ".join(parts)
+
+
+def census_runs(kernels, pack, shard, enc, S: int, mode: str, label: str) -> None:
+    """One launch each of split B1 and split B3 from their phase-clock
+    builds on `enc` staged at S shards in `mode` (the virtual mesh must
+    hold S slots), with the reservation slots the encode carries: their
+    phases and exchange census (an open's exchanges by mode: one in cost
+    mode and in ffd without reserved columns, two in ffd with them)."""
+    import torch
+
+    mask, used, quota = pack._bound_rows(enc)
+    N = pack.node_axis(enc, mode)
+    W = pack.wavefront_width(torch.device("cuda"))
+    st = pack.stage(enc, mask, used, N, quota, shards=S)
+    sargs, skw = pack.to_mesh(st, enc, pack._mesh(S, "cuda"), stream=False)
+    F = st.max_free
+    K = 0 if skw.get("rsv_cap") is None else int(skw["rsv_cap"].shape[0])
+    b1 = lambda: shard.pack_split_sharded(*sargs, max_free=F, mode=mode, **skw)  # noqa: E731
+    b3 = lambda: shard.pack_split_wavefront_sharded(  # noqa: E731
+        *sargs, max_free=F, mode=mode, width=W, **skw)
+    for lib, run, unit, name in (("pack_split", b1, "step", "split B1"),
+                                 ("pack_wavefront", b3, "round", "split B3")):
+        ms = event_ms(run, 3)
+        say(f"  census {name} S={S} {label} ({mode}, K={K}): "
+            f"{phase_breakdown(kernels, lib, run, ms, unit)}")
+
+
+def split_timing(kernels, pack, shard, enc, S: int, err: dict, smi: str) -> dict:
+    """Split B1 and split B3 at S shards on `enc` (the first request),
+    staged as the split route stages it (the virtual mesh must hold S
+    slots): each held once against its plain split version, then timed
+    in turns with its unsplit kernel on the same padded problem
+    (unsplit, split, split, unsplit), and run once from its phase-clock
+    build (phases and exchange census). Returns {wrapper: (split ms,
+    split ms, unsplit ms, unsplit ms)}."""
+    import torch
+
+    mask, used, quota = pack._bound_rows(enc)
+    N = pack.node_axis(enc, "ffd")
+    W = pack.wavefront_width(torch.device("cuda"))
+    st = pack.stage(enc, mask, used, N, quota, shards=S)
+    sargs, skw = pack.to_mesh(st, enc, pack._mesh(S, "cuda"), stream=False)
+    fargs, fkw = pack.to_device(st, torch.device("cuda"))
+    F = st.max_free
+    runs = {
+        "pack_split": lambda: kernels.pack_split(*fargs, max_free=F, mode="ffd", **fkw),
+        "pack_split_sharded": lambda: shard.pack_split_sharded(
+            *sargs, max_free=F, mode="ffd", **skw),
+        "pack_split_wavefront": lambda: kernels.pack_split_wavefront(
+            *fargs, max_free=F, mode="ffd", width=W, **fkw),
+        "pack_split_wavefront_sharded": lambda: shard.pack_split_wavefront_sharded(
+            *sargs, max_free=F, mode="ffd", width=W, **skw),
+    }
+    for k in SPLIT_WRAPPERS:
+        err.setdefault(k, 0.0)
+    rec = SplitLaunches(shard)
+    try:
+        runs["pack_split_sharded"]()
+        runs["pack_split_wavefront_sharded"]()
+    finally:
+        rec.close()
+    hold_launches(shard, f"first request at S={S}", rec, err)
+    times = {}
+    for plain, split in (("pack_split", "pack_split_sharded"),
+                         ("pack_split_wavefront", "pack_split_wavefront_sharded")):
+        seq = [event_ms(runs[plain], 10), event_ms(runs[split], 10),
+               event_ms(runs[split], 10), event_ms(runs[plain], 10)]
+        times[split] = (seq[1], seq[2], seq[0], seq[3])
+    b1 = phase_breakdown(kernels, "pack_split", runs["pack_split_sharded"],
+                         sum(times["pack_split_sharded"][:2]) / 2, "step")
+    b3 = phase_breakdown(kernels, "pack_wavefront", runs["pack_split_wavefront_sharded"],
+                         sum(times["pack_split_wavefront_sharded"][:2]) / 2, "round")
+    for split, (s1, s2, u1, u2) in times.items():
+        say(f"  split timing {split} S={S} (Cs={sargs[0][0].shape[1]}, W={W}): split "
+            f"{s1:.4f}, {s2:.4f} ms; unsplit {u1:.4f}, {u2:.4f} ms (in turns: unsplit, "
+            f"split, split, unsplit); held byte-identical to the plain split version | "
+            f"card: {smi}")
+    say(f"  split B1 S={S} phase clocks: {b1}")
+    say(f"  split B3 S={S} phase clocks: {b3}")
+    return times
 
 
 def timing_phase(kernels, pack, case, smi: str) -> dict:
@@ -1950,6 +2089,7 @@ def ascent_clocks(kernels, lp_device, a, n_iters: int, ms: float) -> tuple[str, 
     n = clk.pop("count")
     barriers = clk.pop("barriers")
     regions = clk.pop("regions")
+    clk.pop("ns")
     total = sum(clk.values())
     if not n or not total:
         fail(f"lp_ascend: the phase-clock build counted {n} iterations, {total} cycles")
@@ -2004,19 +2144,25 @@ def reserved_ascent(lp_device, build_problem, encode, group_pods):
 
 
 def quick_timing(kernels, pack, solve, build_problem, KernelCase, err: dict,
-                 smi: str, kind: str, lp_device, encode, group_pods) -> None:
+                 smi: str, kind: str, lp_device, encode, group_pods,
+                 split_only: bool = False) -> None:
     """`--quick`: after phases 1-3, stage the warm first request (a cold
     and a warm solve on the card), hold B1, B3 and B2 on it, and run
-    phase 5 alone; then B5's times and phase clocks on reserved_50k's
-    LP."""
+    phase 5 alone; split B1 and B3 on it at S=4 (`split_timing`) and
+    their exchange census (`census_runs`, also in cost mode and on
+    reserved_50k in both modes); then B5's times and phase clocks on
+    reserved_50k's LP. `--split`: after phases 1-2, the split part alone,
+    split_timing at each S of TIMED_SHARDS."""
     import torch
 
     pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
     real_stage = pack.stage
     staged = []
+    encs = []
 
     def recording_stage(*a, **k):
         staged.append(real_stage(*a, **k))
+        encs.append(a[0])
         return staged[-1]
 
     pack.stage = recording_stage
@@ -2027,12 +2173,31 @@ def quick_timing(kernels, pack, solve, build_problem, KernelCase, err: dict,
     finally:
         pack.stage = real_stage
     st = staged[-1]
-    case = KernelCase("main-path-first-warm", st.args, st.kwargs, st.max_free, "ffd", st)
-    say(hold(kernels, case, err))
-    timing_phase(kernels, pack, case, smi)
-    a, n_iters = reserved_ascent(lp_device, build_problem, encode, group_pods)
-    ascent_timing(kernels, lp_device, "reserved_50k's LP", a, n_iters, err, smi)
-    say(f"chip_smoke --quick: {time.perf_counter() - T_START:.3f}s wall")
+    if not split_only:
+        case = KernelCase("main-path-first-warm", st.args, st.kwargs, st.max_free, "ffd", st)
+        say(hold(kernels, case, err))
+        timing_phase(kernels, pack, case, smi)
+    from karpenter_tpu_torch.solver import pack_shard
+    from karpenter_tpu_torch.utils.platform import force_virtual_mesh
+
+    rpods, rpools = build_problem(COST_PODS, COST_TYPES, seed=SEED, reservations=True,
+                                  zonal_frac=COST_ZONAL)
+    renc = encode(group_pods(rpods), rpools)
+    shards = TIMED_SHARDS if split_only else (QUICK_SHARDS,)
+    force_virtual_mesh(max(shards))
+    try:
+        for S in shards:
+            split_timing(kernels, pack, pack_shard, encs[-1], S, err, smi)
+        census_runs(kernels, pack, pack_shard, encs[-1], QUICK_SHARDS, "cost", "first request")
+        for mode in ("ffd", "cost"):
+            census_runs(kernels, pack, pack_shard, renc, QUICK_SHARDS, mode, "reserved_50k")
+    finally:
+        force_virtual_mesh(0)
+    if not split_only:
+        a, n_iters = reserved_ascent(lp_device, build_problem, encode, group_pods)
+        ascent_timing(kernels, lp_device, "reserved_50k's LP", a, n_iters, err, smi)
+    say(f"chip_smoke {SPLIT if split_only else QUICK}: "
+        f"{time.perf_counter() - T_START:.3f}s wall")
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2100,6 +2265,11 @@ def main() -> None:
             fail(f"{name}: no ptxas report (registers, shared memory) from its build")
         say(f"  {name}: nvcc {rec['seconds']:.3f}s cached={rec['cached']} | "
             + " | ".join(usage))
+
+    if SPLIT in sys.argv[1:]:
+        quick_timing(kernels, pack, solve, build_problem, KernelCase, {}, smi, kind,
+                     lp_device, encode, group_pods, split_only=True)
+        return
 
     # ---- 3. kernels against their plain versions on the card
     t0 = time.perf_counter()

@@ -1070,7 +1070,7 @@ struct AscShards {
 __global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_sharded_kernel(
     const __grid_constant__ Args base, AscShards t, const __grid_constant__ Layout L,
     unsigned char* scratch, long long scratch_bytes,
-    unsigned long long* slots, unsigned* arrive, int S, int words) {
+    unsigned long long* slots, int S, int words) {
   const int sh = blockIdx.x;
   Args a = base;
   a.best += sh;
@@ -1082,7 +1082,7 @@ __global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_sharded_kernel(
   a.valid = t.valid[sh];
   a.onehot = t.onehot[sh];
   a.uncapped = t.uncapped[sh];
-  DeviceSplit x{slots, arrive, sh, S, words, sh * a.C, 0u};
+  DeviceSplit x{slots, sh, S, words, sh * a.C, 0u, 0u};
   ascend_body(a, L, scratch + (size_t)sh * scratch_bytes, x);
 }
 
@@ -1142,8 +1142,8 @@ extern "C" int lp_ascend_launch(
 // hold S device pointers each (compat, alloc, price, valid, onehot,
 // uncapped); best, best_lam and last_up carry a leading shard axis; each
 // block takes `scratch_bytes` of `scratch` for the arrays `layout`
-// places there; slots [2, S, words] (words >= max(Kp, Gp * R, 4)) and
-// arrive (zeroed) are the exchange's. One cooperative launch of S blocks.
+// places there; slots [2, S, words] (zeroed; words >= max(Kp, Gp * R,
+// 4)) are the exchange's. One cooperative launch of S blocks.
 extern "C" int lp_ascend_sharded_launch(
     const uint8_t* const* compat, const float* const* alloc, const float* const* price,
     const uint8_t* const* valid, const uint8_t* const* onehot,
@@ -1151,8 +1151,7 @@ extern "C" int lp_ascend_sharded_launch(
     const float* count_w, const float* req, const float* budget, float* best,
     float* best_lam, int32_t* last_up, const long long* layout, int smem_bytes,
     unsigned char* scratch, long long scratch_bytes, unsigned long long* slots,
-    unsigned* arrive, int G, int C, int R, int K, int n_iters, int S, int words,
-    cudaStream_t stream) {
+    int G, int C, int R, int K, int n_iters, int S, int words, cudaStream_t stream) {
   if (int e = check_sizes(G, C, R, K, n_iters)) return e;
   if (S < 2 || words < 4 || words < K || words < G * R) return (int)cudaErrorInvalidValue;
   Layout L;
@@ -1164,7 +1163,7 @@ extern "C" int lp_ascend_sharded_launch(
   cudaError_t err = cudaFuncSetAttribute(
       lp_ascend_sharded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  void* params[] = {&a, &t, &L, &scratch, &scratch_bytes, &slots, &arrive, &S, &words};
+  void* params[] = {&a, &t, &L, &scratch, &scratch_bytes, &slots, &S, &words};
   err = cudaLaunchCooperativeKernel((const void*)lp_ascend_sharded_kernel, dim3(S),
                                     dim3(kAscThreads), params, smem_bytes, stream);
   if (err != cudaSuccess) {

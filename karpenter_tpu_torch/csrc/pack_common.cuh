@@ -17,12 +17,13 @@
 //     narrowed word by word;
 //   - `open_loop` (B1, B3 and B7 alike, rows written through a sink):
 //     the bulk open, three or four block barriers an open, every block
-//     reduction a warp reduction first;
+//     reduction a warp reduction first; a split kernel's opens take one
+//     exchange each (`open_loop_split`);
 //   - `prefix_fill`: B7's chunked scan over its byte-mask rows.
 // A fresh row keeps its mask as words_pad(C) 32-bit words; the byte
 // masks the outputs carry are written from them at the end of a launch.
-// The kernels run blocks of kThreads threads; block_scan needs exactly
-// 32 warps.
+// The kernels run blocks of kThreads threads (a multiple of 32, at most
+// 1024).
 //
 // Float arithmetic uses explicit round-to-nearest intrinsics in the
 // JAX order of operations, so nothing depends on FMA contraction (the
@@ -60,19 +61,27 @@ constexpr int kClockSlots = 32;
 constexpr int kSpreadSlot = 16;
 #ifdef KARPENTER_PHASE_CLOCKS
 __device__ unsigned long long g_phase_clk[kClockSlots];
+// the global timer's ns over the same marks (shard_xchg.cuh's xclock):
+// with the cycles, the SM clock block 0 ran at
+__device__ unsigned long long g_phase_ns;
 struct PhaseClock {
   long long t = 0;
+  unsigned long long ns = 0;
   bool on = false;
   __device__ void begin() {
     on = blockIdx.x == 0 && threadIdx.x == 0;
     t = clock64();
+    ns = xclock();
   }
   __device__ void mark(int slot) {
     __syncthreads();
     if (on) {
       const long long t1 = clock64();
+      const unsigned long long ns1 = xclock();
       g_phase_clk[slot] += (unsigned long long)(t1 - t);
+      g_phase_ns += ns1 - ns;
       t = t1;
+      ns = ns1;
     }
   }
   __device__ void count() {
@@ -154,12 +163,12 @@ __device__ long long block_scan(long long v, long long* warp_tot, long long* tot
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    long long w = warp_tot[lane];
+    long long w = lane < kWarps ? warp_tot[lane] : 0;
     for (int o = 1; o < 32; o <<= 1) {
       long long y = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += y;
     }
-    warp_tot[lane] = w;  // inclusive over warps
+    if (lane < kWarps) warp_tot[lane] = w;  // inclusive over warps
     if (lane == 31) *total = w;
   }
   __syncthreads();
@@ -231,12 +240,6 @@ __device__ int prefix_fill(const int32_t* kcap, int32_t* take, int nscan,
   *placed = min(s_carry, r);
   __syncthreads();  // the statics are rewritten by the next call
   return end;
-}
-
-// (kopen, reservation slot) of a column, packed as the payload of its
-// pick key (a split kernel reads c*'s values through the exchange)
-__device__ __forceinline__ unsigned long long open_payload(int kopen, int slot) {
-  return ((unsigned long long)(uint32_t)kopen << 32) | (uint32_t)slot;
 }
 
 // ---------------------------------------------------------------- tables
@@ -564,21 +567,23 @@ __device__ __forceinline__ int fresh_cap(const A& a, int n, int g, int gcap, int
 }
 
 __device__ __forceinline__ void prefetch_l1(const void* p) {
+#ifdef __CUDA_ARCH__
   asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+#endif
 }
 
 // The capacity sweep and the prefix take of one group step over rows
 // [0, nscan): the B bound rows, then the opened fresh rows (B1's step,
 // B3's plan). Thread t owns the `per` consecutive rows from t * per: it
 // first prefetches their state into L1 (one round trip for all of
-// them), sweeps their capacities into kcap (the block's shared memory;
-// split: its partials through one vector exchange, then the combined
-// capacities), and after one block scan of the threads' clamped sums it
-// takes its rows in order, exact in 64 bits and clamped at r (equal to
-// the JAX kernels' saturating uint32 scan), calling on_take(n, t) for
-// each row with a take t > 0; with `store_takes` the rows' takes (0 for
-// none) replace their capacities in kcap, for the caller to apply a
-// thread a row. Returns the pods placed (min(sum, r)).
+// them), sweeps their capacities into kcap (split: it sends its rows'
+// partials and polls the other shards' for the same rows, then writes
+// the combined capacities), and after one block scan of the threads'
+// clamped sums it takes its rows in order, exact in 64 bits and clamped
+// at r (equal to the JAX kernels' saturating uint32 scan), calling
+// on_take(n, t) for each row with a take t > 0; with `store_takes` the
+// rows' takes (0 for none) replace their capacities in kcap, for the
+// caller to apply a thread a row. Returns the pods placed (min(sum, r)).
 // The rows' mask words are at bits[f * words_pad(C)], their usage at
 // a.free_used[f * R]; `rowbits` is the group's compat row as bits. All
 // threads call it. The phase clocks charge the sweep, the scan and the
@@ -612,8 +617,9 @@ __device__ long long sweep_take(const A& a, X& x, const Smem& sm, uint32_t* bits
   // (a row pinned to a capped column takes the group only through it)
   auto fresh = [&](int n, unsigned any_pin, int max_ok, int max_pin) {
     if constexpr (X::kSplit) {
-      const uint32_t pin = any_pin ? (uint32_t)(max_pin + 1) : 0u;
-      xmine(x)[n - B] = ((unsigned long long)pin << 32) | (uint32_t)max_ok;
+      // two words a row, each partial below 2^31 (capacities <= kCapMax)
+      xput(x, 2 * (n - B), any_pin ? (uint32_t)(max_pin + 1) : 0u);
+      xput(x, 2 * (n - B) + 1, (uint32_t)max_ok);
     } else {
       kcap[n] = fresh_cap(a, n, g, gcap, any_pin ? max_pin : max_ok);
     }
@@ -631,18 +637,26 @@ __device__ long long sweep_take(const A& a, X& x, const Smem& sm, uint32_t* bits
     fresh(n, any_pin, max_ok, max_pin);
   }
   if constexpr (X::kSplit) {
-    // one exchange for every opened row's partials, combined over the
-    // shards (maxima: any order)
-    xpublish(x);
-    for (int n = max(lo, B); n < hi; ++n) {
-      const int f = n - B;
-      uint32_t pin = 0, ok = 0;
-      for (int sh = 0; sh < x.S; ++sh) {
-        const unsigned long long v = __ldcg(xtheirs(x, sh) + f);
-        pin = max(pin, (uint32_t)(v >> 32));
-        ok = max(ok, (uint32_t)(v & 0xffffffffull));
+    // one exchange for every opened row's partials, point to point: the
+    // thread that sent its rows' words polls the S shards' words of the
+    // same rows (the split of rows over threads is the same on every
+    // shard: nscan is replicated and kThreads fixed) and combines them
+    // (maxima: any order); no block barrier around the wait. The
+    // exchange's invariant holds: block_scan's barriers below come
+    // between these reads and the next exchange's writes. No opened row,
+    // no exchange (on every shard alike).
+    if (nscan > B) {
+      XTimer xt(tid == 0);
+      for (int n = max(lo, B); n < hi; ++n) {
+        uint32_t pin = 0, ok = 0;
+        xeach<2>(x, 2 * (n - B), [&](int, const uint32_t* d) {
+          pin = max(pin, d[0]);
+          ok = max(ok, d[1]);
+        });
+        kcap[n] = fresh_cap(a, n, g, gcap, pin > 0 ? (int)(pin - 1) : (int)ok);
       }
-      kcap[n] = fresh_cap(a, n, g, gcap, pin > 0 ? (int)(pin - 1) : (int)ok);
+      xt.stop(XK_ROWS, 0);
+      xdone(x);
     }
   }
   const unsigned sweep_cycles = (unsigned)(clk.now() - t_sweep);
@@ -789,9 +803,8 @@ struct OpenState {
 // thread 0 settles an open's scalars and resets the reductions for the
 // next one, and the rows are written on the way to the next open's
 // first reduction. Every block reduction is a warp reduction first,
-// then one shared atomic a warp. Split (X): the lowest pool, the uncapped minimum
-// price and the pick keys are exchanged with the other shards, and c*'s
-// open capacity and slot come with its key. All threads call it.
+// then one shared atomic a warp. A split kernel takes `open_loop_split`
+// instead. All threads call it.
 // the least of the warp's 32 values (B4 and the open loop)
 __device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long v) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -802,11 +815,11 @@ __device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long v)
 }
 
 template <class A, class X, class Rows>
-__device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float* req, int gcap,
-                          int nc, int N, float* spend, OpenState* st, Rows& rows) {
+__device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const float* req,
+                                int gcap, int nc, int N, float* spend, OpenState* st,
+                                Rows& rows) {
   __shared__ int s_pool, s_any;
   __shared__ unsigned long long s_key0, s_key1, s_key2;
-  __shared__ unsigned long long s_pay0, s_pay1, s_pay2;
   __shared__ uint32_t s_minu;
   __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_lo, s_capped;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -847,15 +860,6 @@ __device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float
       atomicMin(&s_pool, my_pool);
     }
     __syncthreads();
-    if constexpr (X::kSplit) {
-      // pools are >= 0: a pool below kIntBig means some shard can open
-      const int pool = shard_min_int(x, s_any ? s_pool : kIntBig);
-      if (tid == 0) {
-        s_pool = pool;
-        s_any = pool < kIntBig;
-      }
-      __syncthreads();
-    }
     const int pool = s_pool;
     const int rem = st->remaining, lo = st->nopen;
     if (!(rem > 0 && s_any && nc + lo < N)) {
@@ -894,24 +898,6 @@ __device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float
       if (lane == 0) atomicMin(&s_minu, mu);
     }
     __syncthreads();
-    if constexpr (X::kSplit) {
-      if (a.cost) {
-        unsigned long long k[1] = {s_key0}, p[1] = {0};
-        if (tid == 0 && k[0] != ~0ull) {
-          const int c = (int)(k[0] & 0xffffffffull) - x.c0;
-          p[0] = open_payload(a.kopen[c], slot_of(a, c));
-        }
-        shard_min_keys(x, k, p);
-        if (tid == 0) {
-          s_key0 = k[0];
-          s_pay0 = p[0];
-        }
-      } else {
-        const uint32_t m = shard_min_u32(x, s_minu);
-        if (tid == 0) s_minu = m;
-      }
-      __syncthreads();
-    }
     if (!a.cost) {
       // reserved columns cheaper than every uncapped one win by
       // capacity; else the column with the most capacity
@@ -933,39 +919,14 @@ __device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float
         atomicMin(&s_key2, k2);
       }
       __syncthreads();
-      if constexpr (X::kSplit) {
-        unsigned long long k[2] = {s_key1, s_key2}, p[2] = {0, 0};
-        if (tid == 0) {
-          for (int i = 0; i < 2; ++i) {
-            if (k[i] == ~0ull) continue;
-            const int c = (int)(k[i] & 0xffffffffull) - x.c0;
-            p[i] = open_payload(a.kopen[c], slot_of(a, c));
-          }
-        }
-        shard_min_keys(x, k, p);
-        if (tid == 0) {
-          s_key1 = k[0];
-          s_key2 = k[1];
-          s_pay1 = p[0];
-          s_pay2 = p[1];
-        }
-        __syncthreads();
-      }
     }
     if (tid == 0) {
       int cs;
       if (a.cost) cs = (int)(s_key0 & 0xffffffffull);
       else cs = (int)(((s_key1 != ~0ull) ? s_key1 : s_key2) & 0xffffffffull);
-      // split: c*'s capacity and slot came with its key
-      unsigned long long pay = 0;
-      if constexpr (X::kSplit) pay = a.cost ? s_pay0 : (s_key1 != ~0ull ? s_pay1 : s_pay2);
-      int ms;
-      if constexpr (X::kSplit) ms = max((int)(pay >> 32), 1);
-      else ms = max(a.kopen[cs], 1);
+      int ms = max(a.kopen[cs], 1);
       if (a.group_cap) ms = min(max(gcap, 1), ms);
-      int slot;
-      if constexpr (X::kSplit) slot = (int)(pay & 0xffffffffull);
-      else slot = slot_of(a, cs);
+      const int slot = slot_of(a, cs);
       const float rsv_now = __fadd_rn(a.rsv_used[slot], spend[slot]);
       const float cap_left = fminf(__fsub_rn(cap_ext(a, slot), rsv_now), kCapMax);
       const int axis_left = N - (nc + lo);
@@ -981,8 +942,7 @@ __device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float
       s_q = q;
       s_remlast = rl;
       s_lo = lo;
-      if constexpr (X::kSplit) s_capped = slot < a.K;
-      else s_capped = a.cfg_rsv[cs] >= 0;
+      s_capped = a.cfg_rsv[cs] >= 0;
       // the open's bookkeeping, and the reductions reset for the next
       st->nopen = lo + q;
       st->remaining = rem - ((q - 1) * ms + rl);
@@ -998,6 +958,254 @@ __device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float
   __syncthreads();  // the statics are rewritten by the next call
 }
 
+
+// The pools a split kernel's open loop takes (P1 <= kXPools: the
+// wrappers refuse more).
+constexpr int kXPools = 64;
+
+// One group's open loop in a split kernel: open_loop_whole's decisions,
+// one exchange an open. One pass over the shard's columns gives every
+// column's open capacity on a fresh node of its own pool (0 when it does
+// not fit or its reservation is spent; a column is live in its pool when
+// that is >= 1) and, for every pool p, whether some column can open and
+// the shard's least pick key under "p is chosen": cost, price per pod;
+// ffd, the most capacity (key2), with the shard's least uncapped price
+// of p. One exchange of those P1 entries (four words each: key, global
+// column, cost: the column's open capacity / ffd: the least uncapped
+// price, and slot with the pool's flag) follows, and every shard takes
+// the lowest pool that can open and that pool's least key. ffd with
+// reserved columns (K > 0, replicated) needs a second exchange, for
+// key1, whose filter needs the least uncapped price over every shard.
+// So an open costs one exchange (two in ffd with reservations); the loop
+// ends without one when no pod is left, the common case after an open.
+//
+// Exactness. open_loop_whole's keys run over every column, a column
+// outside the chosen pool keyed as one of capacity 0 (cost: kBig, ffd:
+// kIntBig - 0), ties to the lowest global column. So pool p's least key
+// on a shard is the least of its live columns' keys and the "zero" key
+// of the shard's first column that is not live in p: column 0 unless
+// column 0 is live in p (every thread takes column 0's capacity itself),
+// else the first column live elsewhere or nowhere. When the chosen pool's
+// fitting configs all have zero open capacity, the zero key wins as it
+// does there, with capacity 0 and its column's slot. After the choice
+// a.kopen holds 0 outside the chosen pool, as open_bit reads it. The
+// pass takes the capacities of every pool's openable columns, at most C
+// an open, the bound of open_loop_whole's loop over C.
+template <class A, class X, class Rows>
+__device__ void open_loop_split(const A& a, X& x, const uint32_t* rowbits, const float* req,
+                                int gcap, int nc, int N, float* spend, OpenState* st,
+                                Rows& rows) {
+  __shared__ unsigned long long s_pkey[kXPools];  // pool p's least key on this shard
+  __shared__ uint32_t s_pminu[kXPools];           // ffd: its least uncapped price (float_key)
+  __shared__ int s_pany[kXPools];                 // some column of p can open
+  __shared__ int s_zcol;                          // the first column not live in lp0's pool
+  __shared__ unsigned long long s_key1;
+  __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_lo, s_capped, s_pool;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int C = a.C, R = a.R, P1 = a.P1;
+  const uint32_t kZero = a.cost ? float_key(kBig) : (uint32_t)kIntBig;
+
+  // configs a fresh node of their pool holds one pod of the group on,
+  // after the pool's overhead (pseudo-configs, pool -1, never)
+  for (int c = tid; c < C; c += kThreads) {
+    const int p = a.cfg_pool[c];
+    uint8_t ok = ((rowbits[c >> 5] >> (c & 31)) & 1u) && p >= 0;
+    if (ok) {
+      const float* oh = a.pool_overhead + (size_t)p * R;
+      const float* al = a.cfg_alloc + (size_t)c * R;
+      for (int q = 0; q < R; ++q)
+        if (!(oh[q] <= __fsub_rn(al[q], req[q]))) { ok = 0; break; }
+    }
+    a.fits[c] = ok;
+  }
+  for (int p = tid; p < P1; p += kThreads) {
+    s_pkey[p] = ~0ull;
+    s_pminu[p] = float_key(kBig);
+    s_pany[p] = 0;
+  }
+  if (tid == 0) {
+    s_zcol = kIntBig;
+    s_key1 = ~0ull;
+  }
+  __syncthreads();
+  // a column's open capacity on a fresh node of its pool, -1 when it
+  // cannot open
+  auto open_cap = [&](int c) -> int {
+    if (!a.fits[c]) return -1;
+    const int s = slot_of(a, c);
+    if (!(__fadd_rn(a.rsv_used[s], spend[s]) < cap_ext(a, s))) return -1;
+    return capacity(a.cfg_alloc + (size_t)c * R, a.pool_overhead + (size_t)a.cfg_pool[c] * R,
+                    req, R);
+  };
+  while (true) {
+    const int rem = st->remaining, lo = st->nopen;
+    if (rem <= 0) break;  // replicated: every shard leaves alike
+    // the last open's rows read kopen: a barrier before it is rewritten
+    // (only when demand is left after an open, the rare case)
+    if (lo > 0) __syncthreads();
+    // ---- the pass: capacities, and each pool's least key on this shard
+    const int lp0 = open_cap(0) >= 1 ? a.cfg_pool[0] : -1;
+    int my_zc = kIntBig;
+    for (int c = tid; c < C; c += kThreads) {
+      const int kf = open_cap(c);
+      const int p = a.cfg_pool[c];
+      a.kopen[c] = max(kf, 0);
+      if (kf >= 0) s_pany[p] = 1;
+      if ((kf >= 1 ? p : -1) != lp0) my_zc = min(my_zc, c);
+      if (kf >= 1) {
+        const uint32_t v = a.cost ? float_key(__fdiv_rn(a.cfg_price[c], (float)kf))
+                                  : (uint32_t)(kIntBig - kf);
+        atomicMin(&s_pkey[p], pack_key(v, x.c0 + c));
+        if (!a.cost && a.cfg_rsv[c] < 0) atomicMin(&s_pminu[p], float_key(a.cfg_price[c]));
+      }
+    }
+    my_zc = __reduce_min_sync(0xffffffffu, my_zc);
+    if (lane == 0 && my_zc < kIntBig) atomicMin(&s_zcol, my_zc);
+    __syncthreads();
+    // ---- this shard's entry of each pool (a pool other than lp0's has
+    // column 0 as its zero column; lp0's has s_zcol, or none when every
+    // column is live in it)
+    for (int p = tid; p < P1; p += kThreads) {
+      const int zc = p == lp0 ? s_zcol : 0;
+      unsigned long long key = s_pkey[p];
+      if (zc < kIntBig) key = min(key, pack_key(kZero, x.c0 + zc));
+      const int col = (int)(key & 0xffffffffull) - x.c0;
+      const bool live = a.kopen[col] >= 1 && a.cfg_pool[col] == p;
+      xput(x, 4 * p, (uint32_t)(key >> 32));
+      xput(x, 4 * p + 1, (uint32_t)key);
+      xput(x, 4 * p + 2, a.cost ? (uint32_t)(live ? a.kopen[col] : 0) : s_pminu[p]);
+      xput(x, 4 * p + 3, (uint32_t)slot_of(a, col) | (s_pany[p] ? 0x80000000u : 0u));
+    }
+    // ---- the exchange: the lowest pool some shard can open, its least
+    // key over the shards with that shard's payload, and (ffd) the least
+    // uncapped price; the entries staged a chunk of pools at a time
+    XTimer xt(tid == 0);
+    const int per = max(1, kStageWords / (4 * x.S));
+    int pool = kIntBig, rounds = 0;
+    unsigned long long key = ~0ull;
+    uint32_t pay = 0, slot = 0, minu = float_key(kBig);
+    for (int p0 = 0; p0 < P1 && pool == kIntBig; p0 += per) {
+      const int m = min(per, P1 - p0);
+      const uint32_t* e = xstage(x, 4 * p0, 4 * m);
+      ++rounds;
+      for (int p = 0; p < m && pool == kIntBig; ++p) {
+        bool any = false;
+        for (int sh = 0; sh < x.S; ++sh) any |= (e[sh * 4 * m + 4 * p + 3] >> 31) != 0u;
+        if (!any) continue;
+        pool = p0 + p;
+        for (int sh = 0; sh < x.S; ++sh) {
+          const uint32_t* w = e + sh * 4 * m + 4 * p;
+          const unsigned long long k = ((unsigned long long)w[0] << 32) | w[1];
+          if (k < key) {
+            key = k;
+            pay = w[2];
+            slot = w[3] & 0x7fffffffu;
+          }
+          if (!a.cost) minu = min(minu, w[2]);
+        }
+      }
+    }
+    xdone(x);
+    xt.stop(XK_OPEN, rounds);
+    if (!(pool < kIntBig && nc + lo < N)) {
+      // leaving with demand left and a willing config means the node
+      // axis was full: that decision read the node count too
+      if (tid == 0 && pool < kIntBig) st->clamped = 1;
+      break;
+    }
+    // open capacities of the chosen pool only (this thread's columns)
+    for (int c = tid; c < C; c += kThreads)
+      if (a.cfg_pool[c] != pool) a.kopen[c] = 0;
+    // ---- ffd with reserved columns: reserved columns cheaper than every
+    // uncapped one win by capacity (key1), over every shard
+    unsigned long long k1 = ~0ull;
+    uint32_t slot1 = 0;
+    if (!a.cost && a.K > 0) {
+      XTimer xt1(tid == 0);
+      const float min_uncapped = key_float(minu);
+      unsigned long long mine = ~0ull;
+      for (int c = tid; c < C; c += kThreads) {
+        const int kf = a.kopen[c];
+        if (kf >= 1 && a.cfg_rsv[c] >= 0 && a.cfg_price[c] < min_uncapped)
+          mine = min(mine, pack_key((uint32_t)(kIntBig - kf), x.c0 + c));
+      }
+      mine = warp_min_u64(mine);
+      if (lane == 0 && mine != ~0ull) atomicMin(&s_key1, mine);
+      __syncthreads();
+      if (tid == 0) {
+        const unsigned long long k = s_key1;
+        xput(x, 0, (uint32_t)(k >> 32));
+        xput(x, 1, (uint32_t)k);
+        xput(x, 2, k != ~0ull ? (uint32_t)slot_of(a, (int)(k & 0xffffffffull) - x.c0) : 0u);
+      }
+      const uint32_t* e = xstage(x, 0, 3);
+      for (int sh = 0; sh < x.S; ++sh) {
+        const unsigned long long k = ((unsigned long long)e[3 * sh] << 32) | e[3 * sh + 1];
+        if (k < k1) {
+          k1 = k;
+          slot1 = e[3 * sh + 2];
+        }
+      }
+      xdone(x);
+      xt1.stop(XK_KEY1, 2);
+    }
+    if (tid == 0) {
+      // c*, its open capacity and its slot: from key1 when some reserved
+      // column won, else from the pool's key (ffd: its capacity is
+      // kIntBig less the key's value)
+      const bool use1 = k1 != ~0ull;
+      const unsigned long long kk = use1 ? k1 : key;
+      const int cs = (int)(kk & 0xffffffffull);
+      const int kcs = a.cost ? (int)pay : kIntBig - (int)(uint32_t)(kk >> 32);
+      const int cslot = use1 ? (int)slot1 : (int)slot;
+      int ms = max(kcs, 1);
+      if (a.group_cap) ms = min(max(gcap, 1), ms);
+      const float rsv_now = __fadd_rn(a.rsv_used[cslot], spend[cslot]);
+      const float cap_left = fminf(__fsub_rn(cap_ext(a, cslot), rsv_now), kCapMax);
+      const int axis_left = N - (nc + lo);
+      // the min() terms commute: the axis is split off to see whether
+      // it ever bound the open (a clamped plan cannot survive an index
+      // shift)
+      const int q_noaxis = min((rem - 1) / ms + 1, (int)fmaxf(cap_left, 0.0f));
+      const int q = max(min(q_noaxis, axis_left), 1);
+      if (max(q_noaxis, 1) > axis_left) st->clamped = 1;
+      const int rl = min(max(rem - (q - 1) * ms, 1), ms);
+      s_cstar = cs;
+      s_mstar = ms;
+      s_q = q;
+      s_remlast = rl;
+      s_lo = lo;
+      s_pool = pool;
+      s_capped = cslot < a.K;
+      // the open's bookkeeping, and the reductions reset for the next
+      st->nopen = lo + q;
+      st->remaining = rem - ((q - 1) * ms + rl);
+      spend[cslot] = __fadd_rn(spend[cslot], (float)q);
+      s_zcol = kIntBig;
+      s_key1 = ~0ull;
+      XTimer(true).stop(XK_OPENS, 0);
+    }
+    for (int p = tid; p < P1; p += kThreads) {
+      s_pkey[p] = ~0ull;
+      s_pminu[p] = float_key(kBig);
+      s_pany[p] = 0;
+    }
+    __syncthreads();
+    const float* oh = a.pool_overhead + (size_t)s_pool * R;
+    rows.open_rows(a, x, s_lo, s_q, s_mstar, s_remlast, s_cstar, s_capped, oh, req);
+  }
+  __syncthreads();  // the statics are rewritten by the next call
+}
+
+// One group's open loop: open_loop_whole, or open_loop_split in a split
+// kernel. All threads call it.
+template <class A, class X, class Rows>
+__device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float* req, int gcap,
+                          int nc, int N, float* spend, OpenState* st, Rows& rows) {
+  if constexpr (X::kSplit) open_loop_split(a, x, rowbits, req, gcap, nc, N, spend, st, rows);
+  else open_loop_whole(a, x, rowbits, req, gcap, nc, N, spend, st, rows);
+}
+
 }  // namespace
 
 #ifdef KARPENTER_PHASE_CLOCKS
@@ -1006,6 +1214,15 @@ extern "C" int phase_clocks_take(unsigned long long* out) {
   static const unsigned long long zero[kClockSlots] = {};
   cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clk, sizeof(zero));
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase_clk, zero, sizeof(zero));
+  return (int)err;
+}
+
+// copy the global timer's ns over the marks to host memory `out` and
+// zero it
+extern "C" int phase_ns_take(unsigned long long* out) {
+  static const unsigned long long zero = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_ns, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase_ns, &zero, sizeof(zero));
   return (int)err;
 }
 #endif

@@ -62,15 +62,18 @@
 // block s on shard s's columns (a table of per-shard pointers reaches
 // them) with its own replica of the replicated state (usage, assignment,
 // node count, reservation use, unschedulable counts). The exchange
-// points of a group step (shard_xchg.cuh): the opened fresh rows'
-// capacities, one vector exchange of per-row partial maxima a step; and
-// in the bulk open the lowest pool, the uncapped minimum price (ffd) and
-// the pick keys with c*'s capacity and slot. Bound rows carry their
-// config as an index and need no exchange; mask narrowing is local. The
-// split adds S - 1 shards' worth of redundant replicated work and an
-// exchange latency (a device-scope round trip through L2) per exchange
-// point to B1's chain of group steps. Plain version:
-// pack_shard.py::pack_split_sharded_ref.
+// points of a group step (shard_xchg.cuh: flags in the data, no fence
+// and no counter): the opened fresh rows' partial maxima, one exchange a
+// step, point to point (the thread that sends a row's words polls the
+// other shards' words of the same row, no block barrier around the
+// wait); and one exchange an open of the bulk open (`open_loop_split`:
+// every pool's entry at once, the lowest pool that can open and its
+// pick key with c*'s capacity and slot; ffd with reserved columns a
+// second one, for key1). Bound rows carry their config as an index and
+// need no exchange; mask narrowing is local. The split adds S - 1
+// shards' worth of redundant replicated work and an exchange latency (a
+// device-scope round trip through L2) per exchange to B1's chain of
+// group steps. Plain version: pack_shard.py::pack_split_sharded_ref.
 
 #include "pack_common.cuh"
 
@@ -225,7 +228,7 @@ struct ShardTable {
 // block s: shard s's columns and its replica (the replicated outputs
 // and state carry a leading shard axis, as the lane axis of lane_view)
 __global__ void __launch_bounds__(kThreads, 1) pack_split_sharded_kernel(
-    Args base, ShardTable t, unsigned long long* slots, unsigned* arrive, int S, int words) {
+    Args base, ShardTable t, unsigned long long* slots, int S, int words) {
   const int s = blockIdx.x;
   extern __shared__ __align__(16) unsigned char smem[];
   Args a = base;
@@ -243,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_sharded_kernel(
   a.cfg_price = t.cfg_price[s];
   a.cfg_rsv = t.cfg_rsv[s];
   a.free_mask = t.free_mask[s];
-  DeviceSplit x{slots, arrive, s, S, words, s * a.C, 0u};
+  DeviceSplit x{slots, s, S, words, s * a.C, 0u, 0u};
   pack_split_body(a, x, smem);
 }
 
@@ -292,9 +295,9 @@ extern "C" int pack_split_launch(
 // cfg_price, cfg_rsv, free_mask); assign [S, B+F, G], node_count [S],
 // unsched [S, G] and the state scratch (free_bits [S, F,
 // words_pad(C)]) carry a leading shard axis; slots [2, S, words]
-// (words >= F and >= 4) and arrive (one counter, zeroed) are the
-// exchange's. One cooperative launch: the S blocks must be co-resident,
-// and the launch is refused otherwise.
+// (zeroed; words >= max(2F, 4 P1) and >= 4) are the exchange's. One
+// cooperative launch: the S blocks must be co-resident, and the launch
+// is refused otherwise.
 extern "C" int pack_split_sharded_launch(
     const uint8_t* const* compat, const float* const* cfg_alloc,
     const int32_t* const* cfg_pool, const float* const* cfg_price,
@@ -305,10 +308,11 @@ extern "C" int pack_split_sharded_launch(
     const float* rsv_cap, const int32_t* group_cap, const uint8_t* conflict,
     int32_t* assign, int32_t* node_count, int32_t* unsched,
     float* free_used, float* bound_used, uint32_t* free_bits, int32_t* kcap,
-    unsigned long long* slots, unsigned* arrive,
+    unsigned long long* slots,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int S, int words, int smem,
     cudaStream_t stream) {
-  if (R > kMaxR || S < 2 || words < F || words < 4) return (int)cudaErrorInvalidValue;
+  if (R > kMaxR || S < 2 || P1 > kXPools || words < 2 * F || words < 4 * P1 || words < 4)
+    return (int)cudaErrorInvalidValue;
   int serr = set_smem((const void*)pack_split_sharded_kernel, smem, C, R, P1, K, G);
   if (serr) return serr;
   Args a{nullptr, group_req, group_count, nullptr, nullptr, pool_overhead,
@@ -318,7 +322,7 @@ extern "C" int pack_split_sharded_launch(
          free_used, bound_used, free_bits, kcap, nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost};
   ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask};
-  void* params[] = {&a, &t, &slots, &arrive, &S, &words};
+  void* params[] = {&a, &t, &slots, &S, &words};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)pack_split_sharded_kernel, dim3(S), dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) {

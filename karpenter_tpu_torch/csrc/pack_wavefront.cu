@@ -75,6 +75,15 @@
 // kernel's vmapped while_loop stops changing a lane's state once its
 // condition is false). Plain version:
 // pack_split.py::pack_probe_lanes_wavefront_ref.
+//
+// B8, split B3 (karpenter_tpu/solver/pack.py:1817-1893 with the
+// wavefront): `pack_wavefront_sharded_kernel`, S x W blocks, block
+// s * W + w planning lane w on shard s's columns with shard s's replica.
+// Lane w's S blocks exchange (shard_xchg.cuh) the plan's rows' partial
+// maxima and one exchange an open; the lanes' conflict words cross the
+// shards as flagged words read in the accept; the round's three barriers
+// join one shard's W blocks. Plain version:
+// pack_shard.py::pack_split_wavefront_sharded_ref.
 
 #include <cooperative_groups.h>
 
@@ -192,15 +201,30 @@ struct PlanRows {
 };
 
 // One solve's rounds, run by the W blocks that `barrier` joins; block
-// w plans lane w. B3 joins the whole cooperative grid, B6 one cluster;
-// split B3 (X = DeviceSplit) joins S x W blocks, `a` holding shard s's
-// columns and replica and `x` lane w's exchange group. Each block keeps
+// w plans lane w. B3 joins the whole cooperative grid, B6 one cluster,
+// split B3 (X = DeviceSplit) the W blocks of one shard, `a` holding
+// shard s's columns and replica, `x` lane w's exchange group and
+// `xconf` [2][W][S][words_of(W)] the lanes' conflict words as flagged
+// words (null unsplit). Each block keeps
 // its own copy of the round's scalars (node count, round count,
 // reservation use, committed groups) in shared memory and brings it up
 // to date from the accepted lanes alike.
+// A barrier of the rounds, timed in the census when the body is split.
+template <class X, class Barrier>
+__device__ __forceinline__ void xbarrier(const X&, Barrier& barrier) {
+  if constexpr (X::kSplit) {
+    XTimer xt(threadIdx.x == 0);
+    barrier();
+    xt.stop(XK_BARRIER, 0);
+  } else {
+    barrier();
+  }
+}
+
 template <class X, class Barrier>
 __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrier barrier,
-                                               unsigned char* smem) {
+                                               unsigned char* smem,
+                                               unsigned long long* xconf = nullptr) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -258,7 +282,7 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
       s_steps = 0;
     }
   }
-  barrier();
+  xbarrier(x, barrier);
   clk.mark(0);
 
   while (true) {
@@ -296,6 +320,7 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
     clk.mark(1);
     clk.count();
     const int nc = s_nc;
+    const int round = s_steps;
     const int g = s_cand;
     const bool valid = g < G;
     const float* req = sm.greq + (size_t)(valid ? g : 0) * R;
@@ -356,7 +381,7 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
       mine[kValid] = 0;
     }
     clk.mark(6);
-    barrier();
+    xbarrier(x, barrier);
     clk.mark(7);
 
     // ================================================== 2. conflicts
@@ -367,6 +392,8 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
     // over the block, each hit ORed into this lane's conflict words.
     for (int i = tid; i < W * kLaneFields; i += kThreads) s_lanes[i] = __ldcg(a.lane + i);
     for (int i = tid; i < WW; i += kThreads) s_mconf[i] = 0u;
+    if constexpr (X::kSplit)
+      for (int i = tid; i < W * WW; i += kThreads) s_conf[i] = 0u;
     __syncthreads();
     if (tid == 0) {
       int o = 0;
@@ -407,27 +434,43 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
       }
       __syncthreads();
       if constexpr (X::kSplit) {
-        // the config part of each test is this shard's: OR over shards
-        shard_vec(
-            x, WW, [&](int i) { return (unsigned long long)s_mconf[i]; },
-            [&](int i, auto get) {
-              unsigned long long hit = 0;
-              for (int sh = 0; sh < x.S; ++sh) hit |= get(sh);
-              a.conf[(size_t)w * WW + i] = (uint32_t)hit;
-            });
+        // the config part of each test is this shard's: its words go out
+        // as flagged words tagged by the round, and every block ORs the
+        // S shards' words of every lane in its accept, after the barrier
+        // (no exchange of their own). Reuse: a block writes the round
+        // r + 2 words of its parity only after its accept of round r + 1
+        // read every shard's round r + 1 words, which each shard wrote
+        // after its barrier 3 of round r, after all its accepts of round
+        // r had read theirs.
+        unsigned long long* mine = xconf + (((size_t)(round & 1) * W + w) * x.S + x.s) * WW;
+        for (int i = tid; i < WW; i += kThreads)
+          xstore<X::kScope>(mine + i, xword((unsigned)round + 1, s_mconf[i]));
       } else {
         for (int i = tid; i < WW; i += kThreads) a.conf[(size_t)w * WW + i] = s_mconf[i];
       }
     }
     clk.mark(8);
-    barrier();
+    xbarrier(x, barrier);
     clk.mark(9);
 
     // ================================================== 3. accept
     // every block: the lanes' conflict words into shared memory, the
     // greedy prefix scan there, and the round's scalars brought up to
     // date in each block's copy
-    for (int i = tid; i < W * WW; i += kThreads) s_conf[i] = __ldcg(a.conf + i);
+    if constexpr (X::kSplit) {
+      // every valid lane's conflict words, ORed over the S shards
+      XTimer xt(tid == 0);
+      const unsigned long long* all = xconf + (size_t)(round & 1) * W * x.S * WW;
+      for (int t = tid; t < W * x.S * WW; t += kThreads) {
+        const int j = t / (x.S * WW);
+        if (!s_lanes[j * kLaneFields + kValid]) continue;
+        const uint32_t v = xready<X>(all + t, xload<X::kScope>(all + t), (unsigned)round + 1);
+        if (v) atomicOr(&s_conf[j * WW + t % WW], v);
+      }
+      xt.stop(XK_CONF, 0);
+    } else {
+      for (int i = tid; i < W * WW; i += kThreads) s_conf[i] = __ldcg(a.conf + i);
+    }
     __syncthreads();
     if (tid == 0) {
       int shift = 0, nacc = 0, acc_capped = 0, stopped = 0;
@@ -502,7 +545,7 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
     clk.mark(11);
     clk.spread(kSpreadSlot + 6, kSpreadSlot + 7, apply_cycles);
     clk.spread(kSpreadSlot + 8, kSpreadSlot + 9, applied);
-    barrier();
+    xbarrier(x, barrier);
     clk.mark(12);
   }
   if (w == 0 && tid == 0) {
@@ -515,6 +558,7 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
 struct GridBarrier {
   __device__ void operator()() const { cg::this_grid().sync(); }
 };
+using DeviceShardBarrier = ShardBarrier<cuda::thread_scope_device>;
 
 // The lanes' state lives in global memory: as the grid barrier does for
 // B3, each block fences its writes device-wide before the barrier.
@@ -584,9 +628,24 @@ struct ShardTable {
 // Split B3: block s * W + w plans lane w on shard s; every replicated
 // output, state and plan array carries a leading shard axis (the
 // shard-local bit rows too: every shard has Cs columns); lane w's
-// exchange group has its own slots and counter.
+// exchange group has its own slots.
+//
+// The round's barriers join the W blocks of one shard, not the S x W
+// of the grid. They order only what a shard's own blocks write and
+// read: the state (usage, assignment, mask words), the plan scratch
+// (kcap, take, o_bits, o_used, o_fill), `lane`, `conf`, `touched`,
+// `o_union` and `spend` all carry the shard axis (below; the conflict
+// words cross shards as flagged words, `xconf`); rsv_used, the
+// committed groups and the round's scalars live in each block's shared
+// memory; the init and the final mask_bytes stride over the shard's W
+// blocks and its own arrays. Shards meet only in their lanes' exchanges
+// (shard_xchg.cuh), which carry their own order. A shard's barrier is a
+// counter in global memory (`ShardBarrier`: release on arrival, acquire
+// on the wait; measured faster than the grid barrier at S = 2, 4 and 8,
+// PERF.md §6); the launch stays cooperative for co-residency.
 __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_sharded_kernel(
-    Args base, ShardTable t, unsigned long long* slots, unsigned* arrive, int S, int words) {
+    Args base, ShardTable t, unsigned long long* slots, unsigned long long* xconf,
+    unsigned* bars, int S, int words) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x / base.W;
   const int w = blockIdx.x % base.W;
@@ -618,8 +677,8 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_sharded_kernel(
   a.cfg_price = t.cfg_price[s];
   a.cfg_rsv = t.cfg_rsv[s];
   a.free_mask = t.free_mask[s];
-  DeviceSplit x{slots + (size_t)w * 2 * S * words, arrive + w, s, S, words, s * a.C, 0u};
-  wavefront_body(a, w, x, GridBarrier{}, smem);
+  DeviceSplit x{slots + (size_t)w * 2 * S * words, s, S, words, s * a.C, 0u, 0u};
+  wavefront_body(a, w, x, DeviceShardBarrier{bars + s, (unsigned)a.W, 0u}, smem, xconf);
 }
 
 // The dynamic shared memory a block takes: `smem` bytes, at least the
@@ -761,11 +820,13 @@ extern "C" int pack_probe_wavefront_launch(
 // S device pointers each (compat, cfg_alloc, cfg_pool, cfg_price,
 // cfg_rsv, free_mask); assign [S, B+F, G], node_count, steps [S],
 // unsched, widths [S, G] and the state and plan scratch carry a leading
-// shard axis; slots [W, 2, S, words] (words >= max(F, words_of(W)) and
-// >= 4) and arrive [W] (zeroed) are the lanes' exchange groups. *per_sm
-// and *sms receive the occupancy the card reports; when per_sm * sms <
-// S * W the launch is not made (cudaErrorCooperativeLaunchTooLarge) and
-// the caller raises with the numbers.
+// shard axis; slots [W, 2, S, words] (zeroed; words >= max(2F,
+// 4 P1, words_of(W)) and >= 4) are the lanes' exchange groups, xconf
+// [2, W, S, words_of(W)] (zeroed) their conflict words and bars [S]
+// (zeroed) the shards' barrier counters. *per_sm and *sms receive the
+// occupancy the card reports; when per_sm * sms < S * W the launch is
+// not made (cudaErrorCooperativeLaunchTooLarge) and the caller raises
+// with the numbers.
 extern "C" int pack_wavefront_sharded_launch(
     const uint8_t* const* compat, const float* const* cfg_alloc,
     const int32_t* const* cfg_pool, const float* const* cfg_price,
@@ -780,23 +841,23 @@ extern "C" int pack_wavefront_sharded_launch(
     int32_t* kcap, int32_t* take, uint32_t* touched, float* spend,
     uint32_t* o_bits, float* o_used, int32_t* o_fill, uint32_t* o_union,
     int32_t* lane, uint32_t* conf,
-    unsigned long long* slots, unsigned* arrive,
+    unsigned long long* slots, unsigned long long* xconf, unsigned* bars,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int S, int words,
     int smem, int* per_sm, int* sms, cudaStream_t stream) {
   *per_sm = 0;
   *sms = 0;
-  if (R > kMaxR || W < 1 || W > kMaxW || S < 2 || words < F || words < words_of(W) ||
-      words < 4)
+  if (R > kMaxR || W < 1 || W > kMaxW || S < 2 || P1 > kXPools || words < 2 * F ||
+      words < 4 * P1 || words < words_of(W) || words < 4)
     return (int)cudaErrorInvalidValue;
-  int serr = set_smem((const void*)pack_wavefront_sharded_kernel, smem, C, R, P1, K, W, G, B + F);
+  const void* kernel = (const void*)pack_wavefront_sharded_kernel;
+  int serr = set_smem(kernel, smem, C, R, P1, K, W, G, B + F);
   if (serr) return serr;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, (const void*)pack_wavefront_sharded_kernel, kThreads, (size_t)smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, (size_t)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -811,9 +872,8 @@ extern "C" int pack_wavefront_sharded_launch(
          nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost, W};
   ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask};
-  void* params[] = {&a, &t, &slots, &arrive, &S, &words};
-  err = cudaLaunchCooperativeKernel((const void*)pack_wavefront_sharded_kernel, dim3(S * W),
-                                    dim3(kThreads), params, smem, stream);
+  void* params[] = {&a, &t, &slots, &xconf, &bars, &S, &words};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(S * W), dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;

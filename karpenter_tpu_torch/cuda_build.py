@@ -66,12 +66,12 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "pack_split": {
         "pack_split_launch": [_P] * 25 + [_I] * 10 + [_P],
-        "pack_split_sharded_launch": [_P] * 27 + [_I] * 11 + [_P],
+        "pack_split_sharded_launch": [_P] * 26 + [_I] * 11 + [_P],
     },
     "pack_wavefront": {
         "pack_wavefront_launch": [_P] * 36 + [_I] * 10 + [_P],
         "pack_probe_wavefront_launch": [_P] * 34 + [_I] * 11 + [_P, _P],
-        "pack_wavefront_sharded_launch": [_P] * 38 + [_I] * 12 + [_P] * 3,
+        "pack_wavefront_sharded_launch": [_P] * 39 + [_I] * 12 + [_P] * 3,
     },
     "pack_flat": {
         "pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P],
@@ -81,12 +81,13 @@ SIGNATURES = {
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 3 + [_P]},
     "lp_ascend": {
         "lp_ascend_launch": [_P] * 15 + [_I, _P, _L] + [_I] * 5 + [_P],
-        "lp_ascend_sharded_launch": [_P] * 15 + [_I, _P, _L, _P, _P] + [_I] * 7 + [_P],
+        "lp_ascend_sharded_launch": [_P] * 15 + [_I, _P, _L, _P] + [_I] * 7 + [_P],
         "lp_barrier_probe_launch": [_I, _P, _P],
     },
 }
 for _name in ("pack_split", "pack_wavefront", "lp_ascend"):
-    SIGNATURES[f"{_name}_clocks"] = {**SIGNATURES[_name], "phase_clocks_take": [_P]}
+    SIGNATURES[f"{_name}_clocks"] = {**SIGNATURES[_name], "phase_clocks_take": [_P],
+                                     "phase_ns_take": [_P], "xchg_census_take": [_P]}
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said
 # (kept beside the library, so a cached build reports it too),

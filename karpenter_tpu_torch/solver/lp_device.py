@@ -798,7 +798,7 @@ def _ascend_sharded_cuda(a: ShardedAscentInputs, n_iters: int):
     best_lam = torch.empty((S, Gp), dtype=f32, device=dev)
     last_up = torch.empty((S,), dtype=torch.int32, device=dev)
     lay, offsets, scratch = _layout_args(Gp, Cs, R, Kp, dev, copies=S)
-    slots, arrive = _xchg_scratch(1, S, max(Kp, Gp * R), dev)
+    slots = _xchg_scratch(1, S, max(Kp, Gp * R), dev)
     tables = [_table(getattr(a, n), dev) for n in ("compat", "alloc", "price", "valid",
                                                      "onehot", "uncapped")]
     lib = _lib("lp_ascend")
@@ -806,7 +806,7 @@ def _ascend_sharded_cuda(a: ShardedAscentInputs, n_iters: int):
         *[_ptr(t) for t in tables],
         *[_ptr(getattr(a, n)) for n in ("lam0", "count", "count_w", "req", "budget")],
         _ptr(best), _ptr(best_lam), _ptr(last_up), offsets, lay["smem"], _ptr(scratch),
-        lay["scratch"], _ptr(slots), _ptr(arrive), Gp, Cs, R, Kp, int(n_iters), S,
+        lay["scratch"], _ptr(slots), Gp, Cs, R, Kp, int(n_iters), S,
         slots.shape[-1], _stream(),
     )
     _raise_on(err, f"lp_ascend_sharded (cooperative grid of {S} blocks, {lay['smem']} B "

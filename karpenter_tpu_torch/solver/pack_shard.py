@@ -42,7 +42,7 @@ import torch
 
 from karpenter_tpu_torch.solver.pack_split import (
     BIG, CAP_MAX, DYNAMIC_SMEM, INT_BIG, _caps, _check, _kernel_inputs,
-    _prefix_take_ref, _ptr, _raise_on, _route, _stream, check_smem, table_smem_bytes,
+    _lib, _prefix_take_ref, _ptr, _raise_on, _route, _stream, check_smem, table_smem_bytes,
     wavefront_scratch, wavefront_smem_bytes, words_pad,
 )
 
@@ -534,12 +534,27 @@ def _shard_inputs(what, mode, compat, group_req, group_count, cfg_alloc,
     return S, Cs, cfg_rsv, rsv_cap_s
 
 
-def _xchg_scratch(groups: int, S: int, words: int, dev):
-    """The exchange's slots ([groups, 2, S, words] 64-bit words, double-
-    buffered by parity) and its arrival counters (zeroed)."""
-    slots = torch.empty((groups, 2, S, max(words, 4)), dtype=torch.int64, device=dev)
-    arrive = torch.zeros((groups,), dtype=torch.int32, device=dev)
-    return slots, arrive
+def _xchg_scratch(groups: int, S: int, words: int, dev) -> torch.Tensor:
+    """The exchange's slots: [groups, 2, S, words] flagged 64-bit words
+    (a 32-bit datum and its exchange's tag), double-buffered by parity,
+    zeroed (tag 0 is behind every exchange)."""
+    return torch.zeros((groups, 2, S, max(words, 4)), dtype=torch.int64, device=dev)
+
+
+# pools a split packing kernel's open loop takes (kXPools in
+# csrc/pack_common.cuh)
+X_POOLS = 64
+
+
+def _xchg_words(what: str, F: int, P1: int, W: int = 1) -> int:
+    """Slot words of a split packing launch: two a fresh row (its
+    partial maxima), four a pool (an open's entries), a lane's conflict
+    words; or a ValueError beyond the pools the open loop takes."""
+    if P1 > X_POOLS:
+        raise ValueError(f"{what}: {P1 - 1} node pools; the split kernels take at most "
+                         f"{X_POOLS - 1}")
+    return max(2 * F, 4 * P1, (W + 31) // 32)
+
 
 
 def _pack_split_sharded_cuda(
@@ -548,8 +563,6 @@ def _pack_split_sharded_cuda(
     cfg_price, max_free: int, mode: str = "ffd", bound_quota=None,
     cfg_rsv=None, rsv_cap=None, group_cap=None, conflict=None,
 ):
-    from karpenter_tpu_torch import cuda_build
-
     S, Cs, cfg_rsv, rsv_cap = _shard_inputs(
         "pack_split_sharded", mode, compat, group_req, group_count, cfg_alloc,
         cfg_pool, pool_overhead, bound_compat, bound_alloc, bound_used0,
@@ -577,17 +590,17 @@ def _pack_split_sharded_cuda(
         torch.empty((S, F, words_pad(Cs)), dtype=i32, device=dev),  # free_bits
         torch.empty((S, N), dtype=i32, device=dev),           # kcap
     ]
-    slots, arrive = _xchg_scratch(1, S, F, dev)
+    slots = _xchg_scratch(1, S, _xchg_words("pack_split_sharded", F, P1), dev)
     tables = [_table(x, dev) for x in (compat, cfg_alloc, cfg_pool, cfg_price,
                                          cfg_rsv, free_mask)]
-    lib = cuda_build.library("pack_split")
+    lib = _lib("pack_split")
     err = lib.pack_split_sharded_launch(
         *[_ptr(t) for t in tables],
         _ptr(group_req), _ptr(group_count), _ptr(pool_overhead), _ptr(bound_compat),
         _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot), _ptr(bound_live),
         _ptr(bound_quota), _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(node_count), _ptr(unsched), *[_ptr(t) for t in scratch],
-        _ptr(slots), _ptr(arrive),
+        _ptr(slots),
         G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, S, slots.shape[-1], smem,
         _stream(),
     )
@@ -605,8 +618,6 @@ def _pack_split_wavefront_sharded_cuda(
     bound_quota=None, cfg_rsv=None, rsv_cap=None, group_cap=None,
     conflict=None,
 ):
-    from karpenter_tpu_torch import cuda_build
-
     S, Cs, cfg_rsv, rsv_cap = _shard_inputs(
         "pack_split_wavefront_sharded", mode, compat, group_req, group_count,
         cfg_alloc, cfg_pool, pool_overhead, bound_compat, bound_alloc,
@@ -636,20 +647,24 @@ def _pack_split_wavefront_sharded_cuda(
     # each replica's state and plan scratch (its columns' bits too), on a
     # leading shard axis
     scratch = wavefront_scratch((S,), W, G, Cs, R, B, F, K, dev)
-    # one exchange group per plan lane: the S blocks planning it
-    slots, arrive = _xchg_scratch(W, S, max(F, W), dev)
+    # one exchange group per plan lane (the S blocks planning it), one
+    # barrier counter per shard
+    slots = _xchg_scratch(W, S, _xchg_words("pack_split_wavefront_sharded", F, P1, W), dev)
+    # the lanes' conflict words, flagged, by the round's parity
+    xconf = torch.zeros((2, W, S, (W + 31) // 32), dtype=torch.int64, device=dev)
+    bars = torch.zeros((S,), dtype=i32, device=dev)
     tables = [_table(x, dev) for x in (compat, cfg_alloc, cfg_pool, cfg_price,
                                          cfg_rsv, free_mask)]
     per_sm = ctypes.c_int(0)
     sms = ctypes.c_int(0)
-    lib = cuda_build.library("pack_wavefront")
+    lib = _lib("pack_wavefront")
     err = lib.pack_wavefront_sharded_launch(
         *[_ptr(t) for t in tables],
         _ptr(group_req), _ptr(group_count), _ptr(pool_overhead), _ptr(bound_compat),
         _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot), _ptr(bound_live),
         _ptr(bound_quota), _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(node_count), _ptr(unsched), _ptr(steps), _ptr(widths),
-        *[_ptr(t) for t in scratch], _ptr(slots), _ptr(arrive),
+        *[_ptr(t) for t in scratch], _ptr(slots), _ptr(xconf), _ptr(bars),
         G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, W, S, slots.shape[-1], smem,
         ctypes.byref(per_sm), ctypes.byref(sms), _stream(),
     )

@@ -106,6 +106,12 @@ REGIONS = {"lp_ascend": ("column maxima", "vh0, z", "excess, mu, theta ties",
                          "dtheta_b", "dvh, qx, d ratio's terms", "d ratio rows", "grad",
                          "norm", "update, ratio", "zeroing")}
 REGION_SLOT = 16
+# the kinds of the split kernels' exchange census (`XKind` in
+# csrc/shard_xchg.cuh): each kind's exchanges, their cycles and the block
+# barriers they took, on block 0's thread 0 (the last kind counts the
+# opens made, the census's unit, not an exchange)
+XCHG_KINDS = ("row partials", "open", "reserved key", "conflict words", "round barriers",
+              "opens made")
 # libraries whose phase-clock builds are swapped in (`phase_clocks`)
 _clocked: set[str] = set()
 
@@ -172,11 +178,15 @@ def phase_clocks(name: str):
     """Within the block, the kernels of library `name` ("pack_split":
     B1 and B6 sequential; "pack_wavefront": B3 and B6 wavefront;
     "lp_ascend": B5 and split B5) launch from its phase-clock build.
+    The split kernels (B8) of a library launch from the same build.
     Yields `take()`, which synchronizes and returns {phase: cycles}
     summed since the last take, with "count" the steps (B1), rounds (B3)
     or iterations (B5), "spreads" the packing kernels' per-thread
-    spreads, "barriers" B5's block barriers and "regions" the cycles of
-    the regions inside its phases, and clears the clocks."""
+    spreads, "barriers" B5's block barriers, "regions" the cycles of
+    the regions inside its phases, "ns" the global timer's ns over the
+    same phases (cycles / ns: the SM clock) and "exchanges" the split packing
+    kernels' census ({kind: (exchanges, cycles, block barriers)},
+    `XCHG_KINDS`), and clears the clocks."""
     if name not in PHASES:
         raise ValueError(f"phase_clocks: no phase-clock build of {name!r}")
 
@@ -186,11 +196,18 @@ def phase_clocks(name: str):
         _raise_on(_lib(name).phase_clocks_take(buf), f"{name} phase clocks")
         out = dict(zip(PHASES[name], buf))
         out["count"] = buf[_CLOCK_SLOTS - 1]
+        ns = ctypes.c_ulonglong(0)
+        _raise_on(_lib(name).phase_ns_take(ctypes.byref(ns)), f"{name} phase clocks")
+        out["ns"] = ns.value
         if name == "lp_ascend":
             out["barriers"] = buf[BARRIER_SLOT]
             out["regions"] = {k: buf[REGION_SLOT + i] for i, k in enumerate(REGIONS[name])}
         else:
             out["spreads"] = {k: (buf[hi], buf[total]) for k, (hi, total) in SPREADS.items()}
+            census = (ctypes.c_ulonglong * (3 * len(XCHG_KINDS)))()
+            _raise_on(_lib(name).xchg_census_take(census), f"{name} exchange census")
+            out["exchanges"] = {k: tuple(census[3 * i:3 * i + 3])
+                                for i, k in enumerate(XCHG_KINDS)}
         return out
 
     _clocked.add(name)

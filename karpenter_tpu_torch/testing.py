@@ -17,8 +17,11 @@ B5 inputs made directly (a shape over the shared-memory budget, column
 maxima at 0 and tied groups, a config axis of 801, sums of at most 32
 terms).
 `split_case` cuts a kernel case's config axis into S shards' column
-blocks (the inputs of the split kernels, B8), and `tie_case` builds
-problems whose picks tie across every shard boundary.
+blocks (the inputs of the split kernels, B8), `tie_case` builds
+problems whose picks tie across every shard boundary, and `fold_cases`
+problems that reach the corners of the split open loop's one exchange
+an open (several pools, a reserved column cheaper than every uncapped
+one on one shard only, a chosen pool of zero open capacity).
 `existing_from_solution` turns a solution's new nodes into existing
 nodes for a follow-up request, which drives the bound block.
 `root_node_mips` makes column generation's HiGHS MIPs deterministic
@@ -847,4 +850,130 @@ def tie_case(seed: int, S: int, mode: str, G: int = 12, Cp: int = 96,
     args = (compat, req, count, alloc, pool, overhead, bound_compat,
             bound_alloc, bound_used, bound_slot, bound_live, price)
     return KernelCase(f"ties-S{S}-{mode}", args, kwargs, 48, mode)
+
+
+def _synthetic(name: str, mode: str, alloc, pool, price, overhead, req, count, compat,
+               rsv=None, rsv_cap=None, max_free: int = 48) -> KernelCase:
+    """A kernel case from config-axis arrays and groups, no bound rows."""
+    G, R = req.shape
+    K = 0 if rsv_cap is None else rsv_cap.shape[0]
+    kwargs = {"bound_quota": None, "cfg_rsv": rsv if K else None,
+              "rsv_cap": rsv_cap if K else None, "group_cap": None, "conflict": None}
+    args = (compat, req.astype(np.float32), count.astype(np.int32), alloc.astype(np.float32),
+            pool.astype(np.int32), overhead.astype(np.float32), np.zeros((G, 0), bool),
+            np.zeros((0, R), np.float32), np.zeros((0, R), np.float32),
+            np.zeros((0,), np.int32), np.zeros((0,), bool), price.astype(np.float32))
+    return KernelCase(name, args, kwargs, max_free, mode)
+
+
+def fold_cases(seed: int, S: int) -> list[KernelCase]:
+    """Problems that reach the corners of the split open loop's one
+    exchange an open (`open_loop_split` in csrc/pack_common.cuh), for an
+    S-way split:
+      - three NodePools with different overheads and catalogs, built
+        through the encode (both modes; ffd also with reservations), so
+        that the lowest pool that can open moves from group to group;
+      - ffd with reserved columns where the one reserved column cheaper
+        than the least uncapped price lies on one shard only, and a
+        reserved decoy with more capacity on another shard is cheaper
+        than its own shard's uncapped columns but not than the least
+        over every shard (a filter on a shard's own minimum takes it);
+        reservations of two nodes, so that opens go on past them;
+      - ties of equal keys across every shard boundary with the lower
+        pool closed to the larger groups (their pool is the second);
+      - a chosen pool whose fitting configs have zero open capacity
+        (alloc and overhead 2^24 on a resource requested at 0.5: the
+        fit test's f32 difference rounds up, the capacity's does not),
+        in both modes, and in cost mode with live configs of that pool
+        priced +inf (their keys above every zero key) at each shard's
+        first column, so that the pick falls to the first column not
+        live in the pool, past a shard's first column."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    # ---- three NodePools through the encode
+    from karpenter_tpu_torch.apis.v1.nodepool import NodePool
+    from karpenter_tpu_torch.cloudprovider.fake import GIB
+    from karpenter_tpu_torch.kube.objects import ObjectMeta
+
+    for rsv in (False, True):
+        pods, pools = build_problem(240, 60, seed=seed, reservations=rsv)
+        types = list(pools[0][1])
+        n = len(types)
+        three = [(NodePool(metadata=ObjectMeta(name=name)), ts) for name, ts in (
+            ("pool-a", types[: 2 * n // 3]), ("pool-b", types[n // 3:]), ("pool-c", types))]
+        overhead = {"pool-a": {"cpu": 1.5, "memory": 2.0 * GIB}, "pool-b": {"cpu": 0.25},
+                    "pool-c": {"memory": 0.5 * GIB}}
+        enc = encode(group_pods(pods), three, daemon_overhead=overhead)
+        modes = ("ffd",) if rsv else ("ffd", "cost")
+        cases += [_case(f"three-pools{'-rsv' if rsv else ''}-{m}", enc, m) for m in modes]
+
+    # ---- the reserved column cheaper than every uncapped one, on one shard
+    Cp = pack.config_width(64, S)
+    Cs = Cp // S
+    R, G = 2, 6
+    alloc = np.zeros((Cp, R), np.float32)
+    alloc[:, 0] = rng.choice([4.0, 8.0], size=Cp)
+    alloc[:, 1] = 64.0
+    price = np.float32(2.0) + rng.uniform(0, 1, size=Cp).astype(np.float32)
+    price[Cs // 2] = 1.0  # the least uncapped price, on shard 0
+    rsv = np.full((Cp,), -1, np.int32)
+    decoy, true = (S - 1) * Cs + 1, (S - 1) * Cs + 2
+    if S > 2:
+        decoy = Cs + 1
+    rsv[decoy], rsv[true] = 0, 1
+    price[decoy], alloc[decoy, 0] = 1.5, 16.0
+    price[true], alloc[true, 0] = 0.5, 8.0
+    if decoy // Cs == true // Cs:
+        # at S = 2 both lie on the last shard: its own uncapped columns
+        # stay above the decoy
+        price[(S - 1) * Cs:] = np.maximum(price[(S - 1) * Cs:], np.float32(2.0))
+        price[decoy], price[true] = 1.5, 0.5
+    req = np.ones((G, R), np.float32)
+    req[:, 0] = rng.choice([1.0, 2.0], size=G)
+    cases.append(_synthetic(
+        f"rsv-one-shard-S{S}-ffd", "ffd", alloc, np.zeros(Cp, np.int32), price,
+        np.zeros((2, R), np.float32), req, rng.integers(8, 40, size=G),
+        np.ones((G, Cp), bool), rsv=rsv, rsv_cap=np.full((2,), 2.0, np.float32)))
+
+    # ---- ties across the boundaries, the lower pool closed to large groups
+    for mode in ("cost", "ffd"):
+        base = tie_case(seed + 1, S, mode)
+        args = list(base.args)
+        overhead = args[5].copy()
+        overhead[0, 0] = 3.0  # pool 0 holds a group requesting 2 cpu only on 16-cpu configs
+        args[5] = overhead
+        args[1] = args[1].copy()
+        args[1][::2, 0] = 2.0
+        cases.append(KernelCase(f"ties-pool1-S{S}-{mode}", tuple(args), base.kwargs,
+                                base.max_free, mode))
+
+    # ---- a chosen pool whose fitting configs have zero open capacity
+    Cp = pack.config_width(32, S)
+    Cs = Cp // S
+    alloc = np.zeros((Cp, R), np.float32)
+    alloc[:, 0] = 8.0
+    pool = np.where(np.arange(Cp) % 2 == 0, 0, 1).astype(np.int32)
+    alloc[:, 1] = np.where(pool == 0, np.float32(2.0**24), np.float32(100.0))
+    overhead = np.zeros((3, R), np.float32)
+    overhead[0, 1] = 2.0**24
+    price = (np.float32(1.0) + rng.uniform(0, 1, size=Cp)).astype(np.float32)
+    G = 5
+    req = np.zeros((G, R), np.float32)
+    req[:, 0] = rng.choice([1.0, 2.0], size=G)
+    req[:, 1] = 0.5
+    count = rng.integers(2, 9, size=G)
+    for mode in ("ffd", "cost"):
+        cases.append(_synthetic(f"zero-open-S{S}-{mode}", mode, alloc, pool, price, overhead,
+                                req, count, np.ones((G, Cp), bool), max_free=32))
+    # live configs of pool 0 at each shard's first column, priced +inf
+    alloc_inf = alloc.copy()
+    price_inf = price.copy()
+    firsts = np.arange(S) * Cs
+    pool_inf = pool.copy()
+    pool_inf[firsts] = 0
+    alloc_inf[firsts, 1] = 2.0**24 + 64.0  # fits pool 0 with room to spare
+    price_inf[firsts] = np.inf
+    cases.append(_synthetic(f"zero-open-inf-S{S}-cost", "cost", alloc_inf, pool_inf, price_inf,
+                            overhead, req, count, np.ones((G, Cp), bool), max_free=32))
+    return cases
 

@@ -1,8 +1,9 @@
 // Stand-in for karpenter_tpu_torch/csrc/pack_common.cuh in the CPU
 // emulation of lp_ascend.cu (tests/test_torch_ascent_emu.py): what the
 // kernel takes from it (kMaxR, a PhaseClock that times nothing) and the
-// split kernels' exchange, shard_xchg_emu.h, which the test writes from
-// csrc/shard_xchg.cuh with its device-only calls replaced.
+// split kernels' exchange, shard_xchg_emu.h, which the test writes as
+// xchg_host.h (the header's named device functions on the host) followed
+// by csrc/shard_xchg.cuh unchanged.
 #pragma once
 #include "cuda_emu.h"
 namespace {

@@ -3,10 +3,11 @@ CPU, held bit for bit against its plain version.
 
 The kernel's device code, at a block of 64 threads, is compiled as C++20
 with g++ against a small emulation of the CUDA calls it makes (`tests/cuda_emu/`: a std::thread a
-CUDA thread, std::barrier for block and warp barriers, per-warp buffers
+CUDA thread, a futex barrier for block and warp barriers, per-warp buffers
 for shuffles and ballots, std::atomic_ref for the atomics, IEEE single
 precision for the float intrinsics) and the split kernels' exchange
-(`csrc/shard_xchg.cuh`, its device-only calls replaced). The emulated
+(`csrc/shard_xchg.cuh` unchanged, its named device functions defined
+on the host by `tests/cuda_emu/xchg_host.h`). The emulated
 kernel runs one block (or S blocks for split B5) on seeded inputs and
 must give the plain version's best value, best duals and last improving
 iteration bit for bit: `ascend_ref` (or `ascend_sharded_ref`, every
@@ -15,7 +16,6 @@ compiler's code) is `tests/test_torch_cuda.py`'s and `chip_smoke.py`'s.
 No JAX; skips where g++ cannot build C++20.
 """
 
-import re
 import shutil
 import struct
 import subprocess
@@ -34,42 +34,10 @@ EMU = HERE / "cuda_emu"
 
 
 def _exchange_source() -> str:
-    """csrc/shard_xchg.cuh with its device-only calls replaced: the
-    scope as an enum, the atomic counter as std::atomic_ref, the global
-    timer as the steady clock, the fences as sequentially consistent
-    fences, and each block's shared variables indexed by the block."""
-    src = (CSRC / "shard_xchg.cuh").read_text()
-    src = src.replace(
-        "#include <cuda/atomic>\n#include <cuda_runtime.h>\n#include <stdint.h>\n",
-        '#include <chrono>\n#include "cuda_emu.h"\n'
-        "namespace cuda {\n"
-        "enum thread_scope { thread_scope_device, thread_scope_system };\n"
-        "enum memory_order { memory_order_relaxed };\n"
-        "template <class T, thread_scope S> struct atomic_ref {\n"
-        "  std::atomic_ref<T> r;\n"
-        "  atomic_ref(T& v) : r(v) {}\n"
-        "  T fetch_add(T v, memory_order) { return r.fetch_add(v); }\n"
-        "  T load(memory_order) const { return r.load(); }\n"
-        "};\n"
-        "}  // namespace cuda\n"
-        "inline unsigned long long __ldcg(const unsigned long long* p) {\n"
-        "  return std::atomic_ref<unsigned long long>(*const_cast<unsigned long long*>(p)).load();\n"
-        "}\n")
-    src = re.sub(r'unsigned long long t;\s*asm volatile\("mov\.u64 %0, %%globaltimer;" : "=l"\(t\)\);'
-                 r"\s*return t;",
-                 "return (unsigned long long)std::chrono::duration_cast<std::chrono::nanoseconds>("
-                 "std::chrono::steady_clock::now().time_since_epoch()).count();", src)
-    src = src.replace(
-        "if constexpr (Scope == cuda::thread_scope_system) __threadfence_system();\n"
-        "  else __threadfence();", "std::atomic_thread_fence(std::memory_order_seq_cst);")
-    src = src.replace("__trap();", "abort();")
-    src = src.replace("__shared__ unsigned long long s_out;",
-                      "static unsigned long long s_out_[64];\n"
-                      "  unsigned long long& s_out = s_out_[blockIdx.x];")
-    src = src.replace("__shared__ unsigned long long s_k[n], s_p[n];",
-                      "static unsigned long long s_k_[64][n], s_p_[64][n];\n"
-                      "    auto& s_k = s_k_[blockIdx.x];\n    auto& s_p = s_p_[blockIdx.x];")
-    return src
+    """csrc/shard_xchg.cuh as it is, after the prelude that defines its
+    named device functions on the host (tests/cuda_emu/xchg_host.h)."""
+    return ((EMU / "xchg_host.h").read_text() + "\n"
+            + (CSRC / "shard_xchg.cuh").read_text())
 
 
 def _kernel_source() -> str:

@@ -406,10 +406,10 @@ def _replicas_equal(t):
 
 
 def _split_cases(split_cases, S):
-    from karpenter_tpu_torch.testing import tie_case
+    from karpenter_tpu_torch.testing import fold_cases, tie_case
 
     return [split_cases[i] for i in (0, 1, 2, 3, 4, 7)] + [
-        tie_case(5, S, "cost"), tie_case(6, S, "ffd", quota=True)]
+        tie_case(5, S, "cost"), tie_case(6, S, "ffd", quota=True)] + fold_cases(3, S)
 
 
 @pytest.mark.parametrize("S", [2, 3, 4, 8])

@@ -159,3 +159,61 @@ def test_a_wrong_shard_offset_shows(monkeypatch):
             got, flat, want = _sequential(case, S)
             differs += int(not torch.equal(flat, want))
     assert differs == 6
+
+
+FOLD_NAMES = ("three-pools-ffd", "three-pools-cost", "three-pools-rsv-ffd", "rsv-one-shard",
+              "ties-pool1-cost", "ties-pool1-ffd", "zero-open-ffd", "zero-open-cost",
+              "zero-open-inf-cost")
+
+
+@pytest.mark.parametrize("index", range(len(FOLD_NAMES)), ids=FOLD_NAMES)
+@pytest.mark.parametrize("S", [2, 3, 8])
+def test_fold_cases_split_equal_the_unsplit(S, index):
+    """The corners of the split kernels' one exchange an open
+    (`testing.fold_cases`): several pools, a reserved column cheaper than
+    every uncapped one on one shard only, ties across the boundaries in
+    the second pool, a chosen pool of zero open capacity. The plain split
+    B1 and B3 (width 8) equal the unsplit plain versions."""
+    case = testing.fold_cases(3, S)[index]
+    got, flat, want = _sequential(case, S)
+    assert torch.equal(flat, want), case.name
+    sa, skw, fa, fkw = _inputs(case, S)
+    w3 = pack_split.pack_split_wavefront_ref(
+        *fa, max_free=case.max_free, mode=case.mode, width=8, **fkw)
+    g3 = pack_shard.pack_split_wavefront_sharded(
+        *sa, max_free=case.max_free, mode=case.mode, width=8, **skw)
+    assert torch.equal(
+        pack_shard.pack_flat_words_sharded(g3[0], g3[1], g3[2], g3[3], g3[5], g3[4]),
+        pack_split.pack_flat_words_ref(w3[0], w3[1], w3[2], w3[3], w3[5], w3[4])), case.name
+
+
+def test_fold_cases_reach_their_corners():
+    """The fold cases do what they are for: several pools open; the
+    reserved column that wins lies on one shard and the decoy on another
+    (or on the same one at S = 2); the zero-open cases choose a pool whose
+    fitting configs have zero open capacity."""
+    for S in (2, 3):
+        cases = {c.name.replace(f"-S{S}", ""): c for c in testing.fold_cases(3, S)}
+        c = cases["three-pools-ffd"]
+        out = pack_split.pack_split_ref(*[_t(a) for a in c.args], max_free=c.max_free,
+                                        mode=c.mode, **{k: _t(v) for k, v in c.kwargs.items()})
+        fm, n = out[1].numpy(), int(out[2])
+        pools = {int(p) for r in range(n) for p in np.unique(c.args[4][np.flatnonzero(fm[r])])}
+        assert len(pools) >= 2
+        c = cases["rsv-one-shard-ffd"]
+        rsv, price = c.kwargs["cfg_rsv"], c.args[11]
+        Cs = c.args[0].shape[1] // S
+        uncapped_min = price[rsv < 0].min()
+        cheap = np.flatnonzero((rsv >= 0) & (price < uncapped_min))
+        decoy = np.flatnonzero((rsv >= 0) & (price >= uncapped_min))
+        assert len(cheap) == 1 and len(decoy) == 1
+        shard_of_decoy = decoy[0] // Cs
+        own = price[shard_of_decoy * Cs:(shard_of_decoy + 1) * Cs]
+        own_rsv = rsv[shard_of_decoy * Cs:(shard_of_decoy + 1) * Cs]
+        assert price[decoy[0]] < own[own_rsv < 0].min()
+        for name in ("zero-open-ffd", "zero-open-cost"):
+            c = cases[name]
+            alloc, pool, oh, req = c.args[3], c.args[4], c.args[5], c.args[1]
+            fits = (oh[pool.clip(0)] <= (alloc - req[0]).astype(np.float32)).all(1) & (pool == 0)
+            cap = np.floor(((alloc - oh[0]).astype(np.float32) + np.float32(1e-4)) / req[0, 1])
+            assert fits.any() and (cap[fits, 1] == 0).all(), name

@@ -222,3 +222,36 @@ def test_dryrun_multichip_on_the_cpu():
     assert out["shards"] == 4 and out["unschedulable"] == 0 and out["planned_rows"] > 0
     # the caller's mesh (the module's 8 slots) is back
     assert virtual_mesh() == 8
+
+
+@pytest.mark.parametrize("name", ["three-pools-ffd", "rsv-one-shard-ffd", "ties-pool1-cost",
+                                  "zero-open-ffd", "zero-open-inf-cost"])
+def test_fold_cases_split_equal_the_jax_kernel(name):
+    """The corners of the split kernels' one exchange an open
+    (`testing.fold_cases` at S = 4): the port's plain split B1 equals the
+    JAX package's pack_split on the same padded problem."""
+    import jax.numpy as jnp
+
+    from karpenter_tpu.solver.pack import pack_split as jpack_split
+    from karpenter_tpu_torch.solver import pack_shard
+
+    S = 4
+    case = {c.name.replace(f"-S{S}", ""): c for c in testing.fold_cases(3, S)}[name]
+    sa, skw, fa, fkw = testing.split_case(case, S)
+
+    def t(x):
+        if x is None:
+            return None
+        if isinstance(x, list):
+            return [torch.from_numpy(np.ascontiguousarray(b)) for b in x]
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    got = pack_shard.pack_split_sharded(*[t(a) for a in sa], max_free=case.max_free,
+                                        mode=case.mode, **{k: t(v) for k, v in skw.items()})
+    want = [np.asarray(x) for x in jpack_split(
+        *[jnp.asarray(a) for a in fa], max_free=case.max_free, mode=case.mode,
+        **{k: (None if v is None else jnp.asarray(v)) for k, v in fkw.items()})]
+    np.testing.assert_array_equal(got[0][0].numpy(), want[0])
+    np.testing.assert_array_equal(np.concatenate([m.numpy() for m in got[1]], axis=1), want[1])
+    assert int(got[2][0]) == int(want[2])
+    np.testing.assert_array_equal(got[3][0].numpy(), want[3])
