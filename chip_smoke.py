@@ -14,6 +14,17 @@
                                     # S = 2, 4, 8 on the first request
                                     # alone (held, in turns with B1 and
                                     # B3, barriers, clocks, census)
+    python3 chip_smoke.py --catalog # phases 1-2 and 11 alone (~2 min of
+                                    # command once built)
+    python3 chip_smoke.py --against DIR
+                                    # phases 1-2, then `compare_timings`
+                                    # in the checkout DIR (e.g. the
+                                    # parent's, unpacked with git
+                                    # archive) and here, in turns (DIR,
+                                    # here, here, DIR): B1, B3, B2, split
+                                    # B1/B3/B2 at S = 2, 4, 8, split B2's
+                                    # kernel alone, B4 (its phase clocks
+                                    # where the tree has them), B6
 
 Phases, each reported on its own line; any failure exits non-zero:
   1. device   — require CUDA; print the card's name and power limit.
@@ -186,6 +197,30 @@ Phases, each reported on its own line; any failure exits non-zero:
                 exchange census (each kind's exchanges a launch, the
                 cycles one took on block 0's thread 0 and its block
                 barriers; split B3's round barriers).
+  11. catalog — the packing kernels past the shared-memory ceiling on
+                `workloads.aws_catalog_50k()`: 800 instance types of
+                distinct shapes (2,400 configs) against 50k pods of
+                bench.py's million_pod recipe (538 groups), whose tables
+                no longer fit a block. `solve()` on the B3 route and the
+                B1 route (KARPENTER_WAVEFRONT=0), the launch counts set
+                to 0 before each and read after: each must launch its
+                spilled kernel ("<wrapper>_global") and B2, and equal the
+                CPU path's fingerprint (computed once). Held byte for
+                byte against the plain versions there: B1 and B3 (widths
+                8, 16) and B2, B6 (both programs) on seeded lanes, B7 and
+                pack_flat on the problem laid out densely. The fleet
+                consolidates with a wave of 5,000 pods pending (a cycle's
+                100-prefix ladder as lanes of LaneSolver, B6 spilled, on
+                both programs; three lanes equal to solve() of the same
+                probe). The 1,600-type catalog (4,800 configs) at S=2:
+                solve() on both routes equal to the unsharded card solve
+                (the spilled split B1 and B3), then held with B2; split
+                B1/B3/B2 with 80 node pools at S=2, 4, and spilled at S=2.
+                Each spilled kernel timed beside the all-shared one on
+                the largest shape that fits both (the catalog cut to the
+                groups B3's block holds whole, spilled through
+                `forced_budget`), in turns; then each at the catalog's
+                own shape with its plain version and bound.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -243,6 +278,9 @@ ASCENT_ITERS = (8, 192)
 # exceed the shared memory, and its iterations (its plain version is
 # slow at 192)
 GLOBAL_CASE = "ascent-global"
+# B4 past its staged layout (R = 4: 6,428 groups), seeded (G, C): the walk
+# order kept, then the full argmax (past 19,280 groups)
+PRICE_PAST_CEILING = ((7_000, 64), (20_000, 64))
 EDGE_ITERS = {GLOBAL_CASE: (8, 32)}
 # block barriers in a row that time one barrier (lp_device.barrier_probe)
 BARRIER_PROBE = 20_000
@@ -391,21 +429,26 @@ def same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def hold_price(lp_plan, name: str, xs, err: dict) -> str:
-    """B4 against its plain version on the card: bit-identical q and
-    value, or fail."""
+def hold_price(lp_plan, name: str, xs, err: dict, layouts=(None,)) -> str:
+    """B4 against its plain version on the card, in each of `layouts`
+    (None: the wrapper's choice): bit-identical q and value, or fail."""
     import torch
 
-    q, v = lp_plan.price_kernel(*xs)
-    torch.cuda.synchronize()
     qr, vr = lp_plan.price_kernel_ref(*xs)
     torch.cuda.synchronize()
-    if not (same_bits(q, qr) and same_bits(v, vr)):
-        fail(f"lp_price differs from price_kernel_ref on {name}")
-    err["lp_price"] = max(err["lp_price"], max_abs_diff(q, qr), max_abs_diff(v, vr))
+    names = []
+    for layout in layouts:
+        q, v = lp_plan.price_kernel(*xs, layout=layout)
+        torch.cuda.synchronize()
+        if layout is None:
+            layout = lp_plan.price_layout(xs[0].shape[0], xs[2].shape[1])
+        names.append(lp_plan.PRICE_LAYOUTS[layout])
+        if not (same_bits(q, qr) and same_bits(v, vr)):
+            fail(f"lp_price differs from price_kernel_ref on {name} ({names[-1]} layout)")
+        err["lp_price"] = max(err["lp_price"], max_abs_diff(q, qr), max_abs_diff(v, vr))
     return (f"  case {name} Gp={xs[0].shape[0]} Cp={xs[1].shape[1]} "
             f"R={xs[2].shape[1]}: pods planned {int(q.sum())}, hits at price 0 "
-            f"{int((v > 0).sum())} identical")
+            f"{int((v > 0).sum())} identical ({', '.join(names)} layout)")
 
 
 def hold_ascent(lp_device, name: str, a, n_iters: int, err: dict) -> str:
@@ -423,6 +466,38 @@ def hold_ascent(lp_device, name: str, a, n_iters: int, err: dict) -> str:
     return (f"  case {name} Gp={a.compat.shape[0]} Cp={a.compat.shape[1]} "
             f"Kp={a.onehot.shape[0]}: best {float(got[0]):.6f} last improving "
             f"iteration {int(got[2])} identical")
+
+
+def price_clocks(kernels, lp_plan, xs) -> tuple[str, float]:
+    """One run of B4 from its phase-clock build: each phase's share of
+    the configs' chains (summed), their rounds, the least and most cycles
+    of a round (a config's rounds' cycles over its rounds), the SM clock
+    (cycles over the global timer's ns), and the chain's floor in ms: the
+    most rounds of a config times the least cycles of a round, at that
+    clock."""
+    with kernels.phase_clocks("lp_price") as take:
+        lp_plan.price_kernel(*xs)
+        c = take()
+    phases = kernels.PHASES["lp_price"]
+    total = sum(c[k] for k in phases)
+    if not total or not c["ns"] or not c["count"]:
+        fail(f"lp_price: the phase-clock build counted nothing: {c}")
+    mhz = total / c["ns"] * 1e3
+    lo, hi = c["round_cycles"]
+    floor_ms = c["max_rounds"] * lo / (mhz * 1e3)
+    text = (f"{c['count']} configs ({c['monotone']} on the monotone path), "
+            f"{c['round_count']} rounds (at most {c['max_rounds']} a config), a round "
+            f"{lo}..{hi} cycles, {mhz:.0f} MHz | "
+            + ", ".join(f"{k} {100 * c[k] / total:.1f}% ({c[k] / c['count']:.0f} cycles "
+                        f"a config)" for k in phases)
+            + " | a round's parts (cycles a round): "
+            + ", ".join(f"{k} {v / max(c['round_count'], 1):.0f}"
+                        for k, v in c["round_parts"].items())
+            + f" | walks (entries tested a round): lane 0 "
+            f"{c['walk'][0] / max(c['round_count'], 1):.2f}, the longest "
+            f"{c['walk'][1] / max(c['round_count'], 1):.2f}"
+            + f" | chain floor {floor_ms:.6f} ms")
+    return text, floor_ms
 
 
 def price_ops(q, R: int) -> int:
@@ -2068,8 +2143,7 @@ def timing_phase(kernels, pack, case, smi: str) -> dict:
         f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 {b2_ms:.6f} ms on the card, "
         f"{b2_host_ms:.6f} ms a call as the host launches it, ops={b2_op_count} "
         f"bytes={b2_bytes} | card: {smi}")
-    say(f"  dynamic shared memory a block: B1 {smem['pack_split']} B, "
-        f"B3 {smem['pack_split_wavefront']} B")
+    say(f"  placement a block: B1 {smem['pack_split']}; B3 {smem['pack_split_wavefront']}")
     say(f"  B1 phase clocks: {b1_clocks}")
     say(f"  B3 phase clocks: {b3_clocks}")
     return {"b1_ms": b1_ms, "b1_plain_ms": b1_plain_ms, "b1_bound": b1_bound,
@@ -2203,6 +2277,607 @@ def quick_timing(kernels, pack, solve, build_problem, KernelCase, err: dict,
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
+# phase 11: aws_catalog_50k (`workloads.aws_catalog_50k`): the catalog's
+# types, the split hold's (4,800 configs at S = CATALOG_S), the B6 lanes
+# on it, and the node pools of the many-pools holds; `--catalog` runs
+# phases 1-2 and 11 alone
+CATALOG_TYPES, CATALOG_SPLIT_TYPES, CATALOG_S = 800, 1600, 2
+CATALOG_LANES = 3
+# the wave of pods pending while the catalog's fleet consolidates
+CATALOG_WAVE = 5_000
+MANY_POOLS = 80
+CATALOG = "--catalog"
+# `--against DIR`: phases 1-2, then `compare_timings` in DIR (a checkout
+# of another commit, e.g. the parent) and here, in turns
+AGAINST = "--against"
+COMPARE_SHARDS = (2, 4, 8)
+
+
+def fits_groups(kernels, C: int, R: int, P1: int, K: int, G: int, W: int, N: int,
+                pools: bool = False) -> int:
+    """The most groups (at most G) whose tables B1's and B3's (width W,
+    N rows) blocks hold whole in shared memory."""
+    for g in range(G, 0, -1):
+        if not kernels.table_placement(C, R, P1, K, g, pools=pools, W=W, N=N)["spilled"]:
+            return g
+    return 0
+
+
+def spill_timing(kernels, name: str, run, lay: dict, reps: int, smi: str) -> tuple:
+    """`run` all shared and spilled (under a budget one byte short of
+    its all-shared layout: the groups' compat bits go to global memory),
+    in turns (shared, spilled, spilled, shared), after checking that the
+    two give byte-identical outputs and that the spilled launch took the
+    catalog's placement."""
+    import torch
+
+    budget = lay["smem"] - 1
+
+    def spilled():
+        with kernels.forced_budget(budget):
+            return run()
+
+    a = run()
+    b = spilled()
+    torch.cuda.synchronize()
+    flat = lambda x: flat_tensors(x if isinstance(x, (list, tuple)) else [x])  # noqa: E731
+    if not same_outputs(flat(a), flat(b)):
+        fail(f"{name}: the spilled launch differs from the all-shared one")
+    seq = (event_ms(run, reps), event_ms(spilled, reps), event_ms(spilled, reps),
+           event_ms(run, reps))
+    say(f"  spilled against all shared, {name}: shared {seq[0]:.4f}, {seq[3]:.4f} ms; "
+        f"spilled {seq[1]:.4f}, {seq[2]:.4f} ms (in turns: shared, spilled, spilled, "
+        f"shared; outputs byte-identical) | card: {smi}")
+    return seq
+
+
+def catalog_phase(err: dict, smi: str) -> dict:
+    """Phase 11: aws_catalog_50k, past the shared-memory ceiling. Returns
+    the report entries of the spilled launches."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import pack, pack_dense as pd, pack_shard as shard
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+    from karpenter_tpu_torch.solver.solver import fingerprint, solve
+    from karpenter_tpu_torch.testing import (
+        KernelCase, cut_groups, dense_case, lane_case, pools_cases, split_case)
+    from karpenter_tpu_torch.utils.platform import force_virtual_mesh
+    from karpenter_tpu_torch.workloads import aws_catalog_50k
+
+    t_phase = time.perf_counter()
+    for k in ("pack_split", "pack_split_wavefront", "pack_split_flat", "pack", "pack_flat",
+              "pack_probe_lanes", "pack_probe_lanes_wavefront", "pack_probe_lanes_flat",
+              *SPLIT_WRAPPERS):
+        err.setdefault(k, 0.0)
+    pods, pools = aws_catalog_50k(CATALOG_TYPES)
+    enc = encode(group_pods(pods), pools)
+    G, C = enc.compat.shape
+    t0 = time.perf_counter()
+    cpu_fp = fingerprint(solve(pods, pools, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+
+    # ---- 1. the main path on the card, each route with the counts set
+    # to 0 just before it and read just after
+    staged, launches, walls, placed = {}, {}, {}, {}
+    real_stage = pack.stage
+    route = ""
+
+    def recording(*a, **k):
+        out = real_stage(*a, **k)
+        staged.setdefault(route, out)
+        return out
+
+    pack.stage = recording
+    try:
+        for route, knob, want, lib in (
+                ("wavefront", None, "pack_split_wavefront_global", "pack_split_wavefront"),
+                ("sequential", "0", "pack_split_global", "pack_split")):
+            if knob is not None:
+                os.environ["KARPENTER_WAVEFRONT"] = knob
+            try:
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                sol = solve(pods, pools)
+                torch.cuda.synchronize()
+                walls[route] = time.perf_counter() - t0
+                launches[route] = dict(kernels.LAUNCHES)
+                placed[route] = kernels.DYNAMIC_SMEM[lib]
+            finally:
+                os.environ.pop("KARPENTER_WAVEFRONT", None)
+            n = launches[route]
+            if n[want] < 1 or n["pack_split_flat"] < 1:
+                fail(f"aws_catalog_50k, {route} route: launched {n}; expected {want} and "
+                     "pack_split_flat")
+            if fingerprint(sol) != cpu_fp:
+                fail(f"aws_catalog_50k, {route} route: the card's fingerprint differs from "
+                     "the CPU path's")
+    finally:
+        pack.stage = real_stage
+    st = staged["wavefront"]
+    R, P1, K = st.args[1].shape[1], st.args[5].shape[0], 0
+    say(f"phase 11 aws_catalog_50k: {len(pods)} pods x {CATALOG_TYPES} types -> G={G} "
+        f"groups, C={C} configs (staged Gp={st.Gp} Cp={st.Cp} N={st.N} R={R}), "
+        f"{len(sol.new_nodes)} nodes, {len(sol.unschedulable)} unschedulable, "
+        f"${sol.total_price:.6f}/h | B3 a block: {placed['wavefront']} | B1 a block: "
+        f"{placed['sequential']} | walls (s): B3 route {walls['wavefront']:.6f}, B1 route "
+        f"{walls['sequential']:.6f}; CPU path {cpu_s:.3f}s, fingerprints equal on both "
+        f"routes | launches: {json.dumps(launches)}")
+
+    # ---- 2. holds past the ceiling, byte-identical to the plain versions
+    t0 = time.perf_counter()
+    case = KernelCase("aws_catalog_50k", st.args, st.kwargs, st.max_free, "ffd", st)
+    kernels.reset_launch_counts()
+    say(hold(kernels, case, err, widths=(8, 16)))
+    n = dict(kernels.LAUNCHES)
+    if n["pack_split_global"] < 1 or n["pack_split_wavefront_global"] < 2:
+        fail(f"aws_catalog_50k's holds did not take the spilled B1 and B3: {n}")
+    lc = lane_case("aws_catalog_50k lanes", enc, SEED, CATALOG_LANES)
+    largs = [None if a is None else torch.from_numpy(np.ascontiguousarray(a)).cuda()
+             for a in lc.args]
+    lkw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+           for k, v in lc.kwargs.items()}
+    kernels.reset_launch_counts()
+    say(hold_lanes(kernels, lc.name, largs, lkw, lc.max_free, "ffd", err)
+        + f"; B6 wavefront a block: {kernels.DYNAMIC_SMEM['pack_probe_lanes_wavefront']}")
+    n = dict(kernels.LAUNCHES)
+    if n["pack_probe_lanes_global"] < 1 or n["pack_probe_lanes_wavefront_global"] < 2:
+        fail(f"aws_catalog_50k's lanes did not take the spilled B6 programs: {n}")
+    dc = dense_case(st, "aws_catalog_50k dense", "ffd")
+    pd.reset_launch_counts()
+    say(hold_dense(pd, kernels, dc, err) + f"; B7 a block: {kernels.DYNAMIC_SMEM['pack']}")
+    if pd.LAUNCHES["pack_global"] < 2:
+        fail(f"aws_catalog_50k's dense hold did not take the spilled B7: {pd.LAUNCHES}")
+    say(f"  holds past the ceiling: B1, B3 (widths 8, 16), B2, B6 (both programs, "
+        f"{CATALOG_LANES} lanes), B7 and pack_flat byte-identical to their plain versions "
+        f"({time.perf_counter() - t0:.3f}s)")
+    oracle = {"pack_global": pd.LAUNCHES["pack_global"]}
+
+    # ---- 2b. consolidation of the catalog's fleet with a second wave
+    # pending: one cycle's ladder (the 100 candidates with the fewest
+    # pods, consolidation_500's rule) as lanes of LaneSolver, every lane
+    # also placing the wave; the union's groups spill B6. Both programs
+    # (the default route and KARPENTER_WAVEFRONT=0), each held on three
+    # lanes against solve() of the same probe on the card
+    from karpenter_tpu_torch.solver.consolidation_batch import LaneSolver, ProbeLane
+    from karpenter_tpu_torch.testing import summarize
+    from karpenter_tpu_torch.workloads import node_input
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    keep = {p.metadata.name for p, k in zip(pods, rng.random(len(pods)) >= 0.55) if k}
+    nodes, pods_on = [], []
+    for ni, plan in enumerate(sol.new_nodes):
+        kept = [p for p in plan.pods if p.metadata.name in keep]
+        nodes.append(node_input(f"n-{ni}", plan.instance_types[0], plan.offerings[0],
+                                plan.pool, kept))
+        pods_on.append(kept)
+    wave, _ = aws_catalog_50k(CATALOG_TYPES, total_pods=CATALOG_WAVE, seed=SEED + 1)
+    for p in wave:
+        p.metadata.name = f"wave-{p.metadata.name}"
+    cands = sorted(range(len(nodes)), key=lambda i: (len(pods_on[i]), i))[:100]
+    lanes = [ProbeLane(exclude_names=tuple(nodes[i].name for i in cands[:n]),
+                       pods=[p for i in cands[:n] for p in pods_on[i]])
+             for n in range(1, len(cands) + 1)]
+    probe_launches, probe_walls = {}, {}
+    for route, knob, want in (("wavefront", None, "pack_probe_lanes_wavefront_global"),
+                              ("sequential", "0", "pack_probe_lanes_global")):
+        if knob is not None:
+            os.environ["KARPENTER_WAVEFRONT"] = knob
+        try:
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            ls = LaneSolver(pools, nodes, pending=wave)
+            lane_sols = [th() for th in ls.solve_lazy(lanes)]
+            torch.cuda.synchronize()
+            probe_walls[route] = time.perf_counter() - t1
+            probe_launches[route] = dict(kernels.LAUNCHES)
+        finally:
+            os.environ.pop("KARPENTER_WAVEFRONT", None)
+        n = probe_launches[route]
+        if n[want] < 1 or n["pack_probe_lanes_flat"] < 1:
+            fail(f"catalog consolidation, {route} route: launched {n}; expected {want} and "
+                 "pack_probe_lanes_flat")
+        for i in sorted({0, len(lanes) // 2, len(lanes) - 1}):
+            gone = set(cands[:i + 1])
+            rest = [node for j, node in enumerate(nodes) if j not in gone]
+            ref = solve(list(lanes[i].pods) + wave, pools, existing=rest)
+            if summarize(lane_sols[i], nodes) != summarize(ref, rest):
+                fail(f"catalog consolidation, {route} route: lane {i + 1} differs from "
+                     "solve() of the same probe")
+    say(f"  consolidation of the catalog's fleet ({len(nodes)} nodes, {len(lanes)} lanes, "
+        f"a wave of {len(wave)} pods pending; union Gp={ls.last_shapes.get('G')} "
+        f"Cp={ls.last_shapes.get('C')}): B6 a block "
+        f"{kernels.DYNAMIC_SMEM['pack_probe_lanes']} (sequential), "
+        f"{kernels.DYNAMIC_SMEM['pack_probe_lanes_wavefront']} (wavefront); lanes 1, "
+        f"{len(lanes) // 2 + 1}, {len(lanes)} equal to solve() of the same probe on both "
+        f"routes; walls (s) {json.dumps(probe_walls)}; launches "
+        f"{json.dumps(probe_launches)} ({time.perf_counter() - t0:.3f}s)")
+
+    # ---- 3. the split hold: 4,800 configs at S = CATALOG_S, through
+    # solve() on both routes, then held; and 80 node pools
+    t0 = time.perf_counter()
+    pods2, pools2 = aws_catalog_50k(CATALOG_SPLIT_TYPES)
+    enc2 = encode(group_pods(pods2), pools2)
+    force_virtual_mesh(max(CATALOG_S, 4))
+    split_launches = {}
+    try:
+        whole_fp = fingerprint(solve(pods2, pools2))
+        for route, knob, want in (("wavefront", None, "pack_split_wavefront_sharded_global"),
+                                  ("sequential", "0", "pack_split_sharded_global")):
+            if knob is not None:
+                os.environ["KARPENTER_WAVEFRONT"] = knob
+            try:
+                shard.reset_launch_counts()
+                sol2 = solve(pods2, pools2, shards=CATALOG_S)
+                torch.cuda.synchronize()
+                split_launches[route] = dict(shard.LAUNCHES)
+            finally:
+                os.environ.pop("KARPENTER_WAVEFRONT", None)
+            n = split_launches[route]
+            if n[want] < 1 or n["pack_flat_words_sharded"] < 1:
+                fail(f"{CATALOG_SPLIT_TYPES}-type catalog at S={CATALOG_S}, {route} route: "
+                     f"launched {n}; expected {want} and pack_flat_words_sharded")
+            if fingerprint(sol2) != whole_fp:
+                fail(f"{CATALOG_SPLIT_TYPES}-type catalog at S={CATALOG_S}, {route} route: "
+                     "fingerprint differs from the unsharded card solve's")
+        mask2 = np.zeros((0, enc2.compat.shape[1]), bool)
+        used2 = np.zeros((0, enc2.group_req.shape[1]), np.float32)
+        st2 = pack.stage(enc2, mask2, used2, pack.node_axis(enc2, "ffd"))
+        case2 = KernelCase(f"catalog-{CATALOG_SPLIT_TYPES}", st2.args, st2.kwargs,
+                           st2.max_free, "ffd", st2)
+        shard.reset_launch_counts()
+        say(hold_split(shard, kernels, case2, CATALOG_S, err)
+            + f"; a block: {kernels.DYNAMIC_SMEM['pack_split_wavefront_sharded']}")
+        if shard.LAUNCHES["pack_split_sharded_global"] < 1:
+            fail(f"the split hold did not take the spilled split B1: {shard.LAUNCHES}")
+        say(f"  {CATALOG_SPLIT_TYPES} types -> G={enc2.compat.shape[0]} "
+            f"C={enc2.compat.shape[1]} (Cs={st2.Cp // CATALOG_S} at S={CATALOG_S}): solve() "
+            f"on the B3 and B1 routes equal to the unsharded card solve; launches "
+            f"{json.dumps(split_launches)}")
+        many = pools_cases(SEED, MANY_POOLS, n_pods=3000, n_types=60, per_pool=4)
+        for pc in many:
+            for S in (2, 4):
+                say(hold_split(shard, kernels, pc, S, err) + f" (P1={pc.args[5].shape[0]})")
+            with kernels.forced_budget(0):
+                say(hold_split(shard, kernels, pc, 2, err)
+                    + f" (P1={pc.args[5].shape[0]}, every table spilled: "
+                    f"{kernels.DYNAMIC_SMEM['pack_split_sharded']})")
+        say(f"  split holds at {CATALOG_SPLIT_TYPES} types and with {MANY_POOLS} node pools "
+            f"byte-identical ({time.perf_counter() - t0:.3f}s)")
+
+        # ---- 4. each spilled kernel beside the all-shared one on the
+        # largest shape that fits both (the catalog's groups cut)
+        W = pack.wavefront_width(torch.device("cuda"))
+        N = st.N
+        g_fit = fits_groups(kernels, st.Cp, R, P1, K, st.Gp, W, N)
+        cut = cut_groups(case, g_fit)
+        cargs, ckw = to_cuda(cut)
+        F = cut.max_free
+        lay1 = kernels.table_placement(st.Cp, R, P1, K, g_fit)
+        lay3 = kernels.table_placement(st.Cp, R, P1, K, g_fit, W=W, N=N)
+        lcut = cut_groups(lc, g_fit)
+        lcargs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in lcut.args]
+        lckw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                for k, v in lcut.kwargs.items()}
+        dargs = (*cargs[:6], torch.zeros((0, st.Cp), dtype=torch.bool, device="cuda"),
+                 cargs[8], cargs[11])
+        say(f"  timing spilled against all shared on aws_catalog_50k cut to Gp={g_fit} "
+            f"(Cp={st.Cp}, the most groups whose tables B3's block holds whole)")
+        spill = {
+            "pack_split_global": spill_timing(
+                kernels, "B1", lambda: kernels.pack_split(*cargs, max_free=F, **ckw), lay1, 5,
+                smi),
+            "pack_split_wavefront_global": spill_timing(
+                kernels, f"B3 (W={W})", lambda: kernels.pack_split_wavefront(
+                    *cargs, max_free=F, width=W, **ckw), lay3, 5, smi),
+            "pack_probe_lanes_global": spill_timing(
+                kernels, "B6 sequential", lambda: kernels.pack_probe_lanes(
+                    *lcargs, max_free=lcut.max_free, **lckw), lay1, 5, smi),
+            "pack_probe_lanes_wavefront_global": spill_timing(
+                kernels, f"B6 wavefront (W={W})", lambda: kernels.pack_probe_lanes_wavefront(
+                    *lcargs, max_free=lcut.max_free, width=W, **lckw), lay3, 5, smi),
+            "pack_global": spill_timing(
+                kernels, "B7", lambda: pd.pack(*dargs, max_nodes=N, **{
+                    k: ckw[k] for k in ("cfg_rsv", "rsv_cap", "group_cap", "conflict")}),
+                lay1, 3, smi),
+        }
+        g2 = fits_groups(kernels, st2.Cp // CATALOG_S, R, P1, K, st2.Gp, W, st2.N, pools=True)
+        sa, skw, _, _ = split_case(cut_groups(case2, g2), CATALOG_S)
+        sargs = [[torch.from_numpy(np.ascontiguousarray(b)).cuda() for b in a]
+                 if isinstance(a, list) else torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in sa]
+        skw = {k: None if v is None else (
+            [torch.from_numpy(np.ascontiguousarray(b)).cuda() for b in v]
+            if isinstance(v, list) else torch.from_numpy(np.ascontiguousarray(v)).cuda())
+            for k, v in skw.items()}
+        Cs = st2.Cp // CATALOG_S
+        say(f"  timing the split kernels at S={CATALOG_S} on the {CATALOG_SPLIT_TYPES}-type "
+            f"catalog cut to Gp={g2} (Cs={Cs})")
+        spill["pack_split_sharded_global"] = spill_timing(
+            kernels, f"split B1 S={CATALOG_S}", lambda: shard.pack_split_sharded(
+                *sargs, max_free=st2.max_free, **skw),
+            kernels.table_placement(Cs, R, P1, K, g2, pools=True), 5, smi)
+        spill["pack_split_wavefront_sharded_global"] = spill_timing(
+            kernels, f"split B3 S={CATALOG_S} (W={W})",
+            lambda: shard.pack_split_wavefront_sharded(
+                *sargs, max_free=st2.max_free, width=W, **skw),
+            kernels.table_placement(Cs, R, P1, K, g2, pools=True, W=W, N=st2.N), 5, smi)
+
+        # ---- 5. the spilled kernels at the catalog's own shapes, for the
+        # report: their time, their plain versions', their bounds
+        fargs, fkw = to_cuda(case)
+        s2args, s2kw, _, _ = split_case(case2, CATALOG_S)
+        s2args = [[torch.from_numpy(np.ascontiguousarray(b)).cuda() for b in a]
+                  if isinstance(a, list) else torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                  for a in s2args]
+        s2kw = {k: None if v is None else (
+            [torch.from_numpy(np.ascontiguousarray(b)).cuda() for b in v]
+            if isinstance(v, list) else torch.from_numpy(np.ascontiguousarray(v)).cuda())
+            for k, v in s2kw.items()}
+        dfull = to_cuda(dc)
+        runs = {
+            "pack_split_global": (
+                lambda: kernels.pack_split(*fargs, max_free=st.max_free, **fkw),
+                lambda: kernels.pack_split_ref(*fargs, max_free=st.max_free, **fkw)),
+            "pack_split_wavefront_global": (
+                lambda: kernels.pack_split_wavefront(*fargs, max_free=st.max_free, width=W,
+                                                     **fkw),
+                lambda: kernels.pack_split_wavefront_ref(*fargs, max_free=st.max_free,
+                                                         width=W, **fkw)),
+            "pack_probe_lanes_global": (
+                lambda: kernels.pack_probe_lanes(*largs, max_free=lc.max_free, **lkw),
+                lambda: kernels.pack_probe_lanes_ref(*largs, max_free=lc.max_free, **lkw)),
+            "pack_probe_lanes_wavefront_global": (
+                lambda: kernels.pack_probe_lanes_wavefront(*largs, max_free=lc.max_free,
+                                                           width=W, **lkw),
+                lambda: kernels.pack_probe_lanes_wavefront_ref(*largs, max_free=lc.max_free,
+                                                               width=W, **lkw)),
+            "pack_global": (
+                lambda: pd.pack(*dfull[0], max_nodes=dc.max_nodes, **dfull[1]),
+                lambda: pd.pack_ref(*dfull[0], max_nodes=dc.max_nodes, **dfull[1])),
+            "pack_split_sharded_global": (
+                lambda: shard.pack_split_sharded(*s2args, max_free=st2.max_free, **s2kw),
+                lambda: shard.pack_split_sharded_ref(*s2args, max_free=st2.max_free,
+                                                     **s2kw)),
+            "pack_split_wavefront_sharded_global": (
+                lambda: shard.pack_split_wavefront_sharded(*s2args, max_free=st2.max_free,
+                                                           width=W, **s2kw),
+                lambda: shard.pack_split_wavefront_sharded_ref(
+                    *s2args, max_free=st2.max_free, width=W, **s2kw)),
+        }
+        ops1 = b1_ops(kernels, fargs, fkw, st.max_free)
+        ops2 = b1_ops(kernels, *to_cuda(case2), st2.max_free)
+        in1 = nbytes(list(fargs) + list(fkw.values()))
+        entries = []
+        for name, (run, plain) in runs.items():
+            out = run()
+            torch.cuda.synchronize()
+            ms = [event_ms(run, 3), event_ms(run, 3)]
+            plain_ms = event_ms(plain, 1, queued=False)
+            if name in ("pack_probe_lanes_global", "pack_probe_lanes_wavefront_global"):
+                b = bound(0, nbytes(largs + [v for v in lkw.values() if v is not None])
+                          + nbytes(flat_tensors(out)))
+            elif name == "pack_global":
+                b = bound(b7_ops(pd, dfull[0], dfull[1], dc.max_nodes, "ffd"),
+                          nbytes(flat_tensors(list(dfull[0]) + list(dfull[1].values())))
+                          + nbytes(flat_tensors(out)))
+            elif name.startswith("pack_split_sharded") or name.startswith(
+                    "pack_split_wavefront_sharded"):
+                b = bound(ops2, nbytes(flat_tensors(list(s2args) + list(s2kw.values())))
+                          + nbytes(flat_tensors(out)))
+            else:
+                b = bound(ops1, in1 + nbytes(flat_tensors(out)))
+            src, rep = GLOBAL_KERNELS[name]
+            base = name[: -len("_global")]
+            total = (sum(n.get(name, 0) for n in launches.values())
+                     + sum(n.get(name, 0) for n in split_launches.values())
+                     + sum(n.get(name, 0) for n in probe_launches.values())
+                     + oracle.get(name, 0))
+            say(f"  {name} on the catalog's shape: {ms[0]:.4f}, {ms[1]:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {b[0]:.6f} ms ({b[1]}), {total} launches on the "
+                f"phase's paths (solves, consolidation, B7's oracle) | card: {smi}")
+            entries.append({
+                "name": name, "route": "cuda", "source": f"karpenter_tpu_torch/csrc/{src}",
+                "replaces": rep, "launches": total, "max_abs_err": err[base],
+                "ms": (ms[0] + ms[1]) / 2, "plain_ms": plain_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None})
+    finally:
+        force_virtual_mesh(0)
+    say(f"  phase 11 took {time.perf_counter() - t_phase:.3f}s | card: {smi}")
+    return {"entries": entries,
+            "launches": {**launches, **{f"split-{k}": v for k, v in split_launches.items()},
+                         **{f"consolidation-{k}": v for k, v in probe_launches.items()}}}
+
+
+def compare_timings() -> None:
+    """Times, on fixed inputs through a tree's own public wrappers, the
+    kernels this slice redesigned (B4, split B2) and those whose
+    all-shared layout must not slow (B1, B3, B6, split B1 and B3), and
+    prints them as one JSON line. `against` runs it in a process of its
+    own from each tree's root, that tree's package first on sys.path:
+    B1, B3 and B2 on the first 50k x 500 request; split B1, B3 and B2 at
+    S = 2, 4, 8 on the same request; B4 on reserved_50k's first
+    column-generation round and its phase clocks; split B2's kernel alone, without the call's host work; B6's
+    two programs on `testing.lane_cases(0)`'s first case; the stack
+    frames and registers of the packing kernels and B4. The other tree
+    must have this one's wrappers (`pack_shard.flat_sharded_launcher`,
+    B4's phase clocks)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import lp_plan, pack, pack_shard as shard
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+    from karpenter_tpu_torch.testing import lane_cases
+    from karpenter_tpu_torch.utils.platform import force_virtual_mesh
+    from karpenter_tpu_torch.workloads import build_problem
+
+    out = {}
+    pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
+    enc = encode(group_pods(pods), pools)
+    mask, used, quota = pack._bound_rows(enc)
+    N = pack.node_axis(enc, "ffd")
+    W = pack.wavefront_width(torch.device("cuda"))
+    st = pack.stage(enc, mask, used, N, quota)
+    fargs, fkw = pack.to_device(st, torch.device("cuda"))
+    F = st.max_free
+    runs = {
+        "B1": lambda: kernels.pack_split(*fargs, max_free=F, mode="ffd", **fkw),
+        "B3": lambda: kernels.pack_split_wavefront(*fargs, max_free=F, mode="ffd", width=W,
+                                                   **fkw),
+    }
+    o3 = runs["B3"]()
+    runs["B2"] = lambda: kernels.pack_flat_words(*o3[:4], o3[5], o3[4])
+    force_virtual_mesh(max(COMPARE_SHARDS))
+    try:
+        for S in COMPARE_SHARDS:
+            st_ = pack.stage(enc, mask, used, N, quota, shards=S)
+            sargs, skw = pack.to_mesh(st_, enc, pack._mesh(S, "cuda"), stream=False)
+            runs[f"split B1 S={S}"] = (lambda a=sargs, k=skw: shard.pack_split_sharded(
+                *a, max_free=F, mode="ffd", **k))
+            runs[f"split B3 S={S}"] = (lambda a=sargs, k=skw: shard.pack_split_wavefront_sharded(
+                *a, max_free=F, mode="ffd", width=W, **k))
+            so = runs[f"split B3 S={S}"]()
+            runs[f"split B2 S={S}"] = (lambda o=so: shard.pack_flat_words_sharded(
+                *o[:4], o[5], o[4]))
+            runs[f"split B2 S={S} kernel alone"] = shard.flat_sharded_launcher(
+                *so[:4], so[5], so[4])
+        for name, fn in list(runs.items()):
+            rc = fn()
+            torch.cuda.synchronize()
+            if isinstance(rc, int) and rc != 0:
+                fail(f"compare_timings: {name} returned CUDA error {rc}")
+            reps = 50 if "B2" in name else 10
+            out[name] = event_ms(fn, reps)
+    finally:
+        force_virtual_mesh(0)
+
+    # B4 on reserved_50k's first column-generation round
+    rpods, rpools = build_problem(COST_PODS, COST_TYPES, seed=SEED, reservations=True,
+                                  zonal_frac=COST_ZONAL)
+    renc = encode(group_pods(rpods), rpools)
+    real_pk, real_pp = lp_plan.price_kernel, lp_plan._price_patterns
+    seen, calls = [0], []
+
+    class FirstRound(Exception):
+        pass
+
+    def price_patterns(*a, **k):
+        seen[0] += 1
+        return real_pp(*a, **k)
+
+    def price_kernel(*xs):
+        if seen[0] > 1:
+            calls.append([x.clone() for x in xs])
+            raise FirstRound
+        return real_pk(*xs)
+
+    lp_plan.price_kernel, lp_plan._price_patterns = price_kernel, price_patterns
+    try:
+        lp_plan.plan(renc, device="cuda")
+    except FirstRound:
+        pass
+    finally:
+        lp_plan.price_kernel, lp_plan._price_patterns = real_pk, real_pp
+    if not calls:
+        fail("compare_timings: reserved_50k's planner made no second round of pricing")
+    xs = calls[0]
+    lp_plan.price_kernel(*xs)
+    out["B4"] = event_ms(lambda: lp_plan.price_kernel(*xs), 50)
+    out["B4 shape"] = f"Gp={xs[0].shape[0]} Cp={xs[1].shape[1]} R={xs[2].shape[1]}"
+    out["B4 clocks"] = price_clocks(kernels, lp_plan, xs)[0]
+
+    # B6 on the first seeded lane case
+    lc = lane_cases(0)[0]
+    largs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in lc.args]
+    lkw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+           for k, v in lc.kwargs.items()}
+    for name, fn in (
+            ("B6 sequential", lambda: kernels.pack_probe_lanes(
+                *largs, max_free=lc.max_free, **lkw)),
+            ("B6 wavefront", lambda: kernels.pack_probe_lanes_wavefront(
+                *largs, max_free=lc.max_free, width=16, **lkw))):
+        fn()
+        out[name] = event_ms(fn, 10)
+    from karpenter_tpu_torch import cuda_build
+
+    info = cuda_build.build_all()
+    for lib in ("pack_split", "pack_wavefront", "lp_price"):
+        out[f"ptxas {lib}"] = ptxas_usage(info[lib]["ptxas"])
+    print(json.dumps(out), flush=True)
+
+
+def ptxas_usage(text: str) -> str:
+    """Each kernel's stack frame and registers from a build's ptxas
+    report, as "name<0|1>: s B stack, r registers" (the bool template
+    argument of a kernel's instantiation)."""
+    import re
+
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(ILb([01])E)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "")) if k else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} B stack")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and out and out[-1].startswith(name + ":"):
+            out[-1] += f", {m.group(1)} registers"
+    return " | ".join(out)
+
+
+def against(other: str, smi: str) -> None:
+    """`--against DIR`: `compare_timings` in the checkout DIR (another
+    commit, e.g. the parent, unpacked with `git archive`) and in this
+    one, in turns (DIR, here, here, DIR), each in a process of its own
+    from its tree's root; prints each kernel's four times."""
+    other = os.path.abspath(other)
+    if not os.path.isdir(os.path.join(other, "karpenter_tpu_torch")):
+        fail(f"{AGAINST} {other}: no karpenter_tpu_torch there")
+    script = os.path.join(HERE, "chip_smoke.py")
+    runs = []
+    for tree in (other, HERE, HERE, other):
+        code = (f"import runpy, sys; sys.path.insert(0, {tree!r}); "
+                f"runpy.run_path({script!r})['compare_timings']()")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                             text=True, timeout=1200)
+        if out.returncode != 0:
+            fail(f"compare_timings in {tree} exited {out.returncode}: {out.stderr[-4000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        say(f"  compare_timings in {tree}: {time.perf_counter() - t0:.3f}s")
+    say(f"{AGAINST} {other}: in turns (there, here, here, there) | card: {smi}")
+    for key in runs[1]:
+        vals = [r.get(key) for r in runs]
+        if all(isinstance(v, float) for v in vals):
+            say(f"  {key}: there {vals[0]:.6f}, {vals[3]:.6f} ms; here {vals[1]:.6f}, "
+                f"{vals[2]:.6f} ms")
+        else:
+            say(f"  {key}: there {vals[0]}; here {vals[1]}")
+    for key in runs[0]:
+        if key not in runs[1]:
+            say(f"  {key} (there only): {runs[0][key]}; {runs[3][key]}")
+
+
+# the spilled launches: their source and the JAX program each replaces
+GLOBAL_KERNELS = {
+    "pack_split_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:444"),
+    "pack_split_wavefront_global": ("pack_wavefront.cu", "karpenter_tpu/solver/pack.py:786"),
+    "pack_probe_lanes_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:1227"),
+    "pack_probe_lanes_wavefront_global": ("pack_wavefront.cu",
+                                          "karpenter_tpu/solver/pack.py:1227"),
+    "pack_global": ("pack_dense.cu", "karpenter_tpu/solver/pack.py:164"),
+    "pack_split_sharded_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:1817"),
+    "pack_split_wavefront_sharded_global": ("pack_wavefront.cu",
+                                            "karpenter_tpu/solver/pack.py:1817"),
+}
+
+
 def main() -> None:
     card = one_card()
     import numpy as np
@@ -2237,6 +2912,7 @@ def main() -> None:
             dense_cases,
             existing_from_solution,
             kernel_cases,
+            price_case,
             price_cases,
         )
         from karpenter_tpu_torch.workloads import build_problem
@@ -2270,6 +2946,17 @@ def main() -> None:
         quick_timing(kernels, pack, solve, build_problem, KernelCase, {}, smi, kind,
                      lp_device, encode, group_pods, split_only=True)
         return
+    if AGAINST in sys.argv[1:]:
+        other = sys.argv[sys.argv.index(AGAINST) + 1]
+        against(other, smi)
+        finish(kind, smi)
+        return
+    if CATALOG in sys.argv[1:]:
+        report = {"kernels": catalog_phase({}, smi)["entries"]}
+        say(f"chip_smoke {CATALOG}: {time.perf_counter() - T_START:.3f}s wall")
+        say(json.dumps(report))
+        finish(kind, smi)
+        return
 
     # ---- 3. kernels against their plain versions on the card
     t0 = time.perf_counter()
@@ -2283,8 +2970,16 @@ def main() -> None:
     for case in dcases:
         say(hold_dense(pack_dense, kernels, case, err))
     err.update({"lp_price": 0.0, "lp_ascend": 0.0})
+    before = lp_plan.LAUNCHES["lp_price_global"]
     for name, case in price_cases(0):
-        say(hold_price(lp_plan, name, [torch.from_numpy(x).cuda() for x in case], err))
+        say(hold_price(lp_plan, name, [torch.from_numpy(x).cuda() for x in case], err,
+                       layouts=(None, 1, 2)))
+    for G, C in PRICE_PAST_CEILING:
+        xs = [torch.from_numpy(x).cuda() for x in price_case(9, G, C, 4)]
+        say(hold_price(lp_plan, f"price-G{G}-C{C}-R4", xs, err))
+    global_path = lp_plan.LAUNCHES["lp_price_global"] - before
+    if global_path != 2 * len(PRICE_CASES) + len(PRICE_PAST_CEILING):
+        fail(f"lp_price read the groups' tables in place {global_path}x")
     for name, inputs in ascent_cases(0):
         for n_iters in ASCENT_ITERS:
             say(hold_ascent(lp_device, f"{name}-{n_iters}", inputs.to("cuda"),
@@ -2302,7 +2997,8 @@ def main() -> None:
         f"{ODD_CONFIG_AXES} byte-identical to the plain versions, B3 at widths "
         f"{WIDTHS} equal to B1; B7 and pack_flat "
         f"on {len(dcases)} dense ones byte-identical, B7 equal to B1; B4 on "
-        f"{len(PRICE_CASES)} and B5 on {3 * len(ASCENT_ITERS)} seeded cases and "
+        f"{len(PRICE_CASES)} (each in its three layouts) and {len(PRICE_PAST_CEILING)} past "
+        f"its staged layout and B5 on {3 * len(ASCENT_ITERS)} seeded cases and "
         f"{len(ASCENT_EDGE_CASES)} edge cases (one on the global-memory path) "
         f"bit-identical ({time.perf_counter() - t0:.3f}s)")
 
@@ -2504,9 +3200,15 @@ def main() -> None:
     b4_bytes = nbytes(xs) + nbytes(lp_plan.price_kernel(*xs))
     b4_ops = price_ops(q, xs[2].shape[1])
     b4_bound, b4_by = bound(b4_ops, b4_bytes)
+    b4_clocks, _ = price_clocks(kernels, lp_plan, xs)
     say(f"phase 7 LP timing: B4 on the first column-generation round's inputs "
         f"(Gp={xs[0].shape[0]} Cp={xs[1].shape[1]} R={xs[2].shape[1]}): {b4_ms:.6f} ms, "
         f"plain {b4_plain_ms:.3f} ms, ops={b4_ops} bytes={b4_bytes} | card: {smi}")
+    say(f"  B4 phase clocks: {b4_clocks}")
+    lay_ms = [event_ms(lambda i=i: lp_plan.price_kernel(*xs, layout=i), 20) for i in (0, 1, 2, 0)]
+    say(f"  B4 by layout on these inputs, in turns: {lp_plan.PRICE_LAYOUTS[0]} "
+        f"{lay_ms[0]:.6f}, {lay_ms[3]:.6f} ms; {lp_plan.PRICE_LAYOUTS[1]} {lay_ms[1]:.6f} ms; "
+        f"{lp_plan.PRICE_LAYOUTS[2]} {lay_ms[2]:.6f} ms | card: {smi}")
     a, n_iters = recorded["ascent"]
     b5 = ascent_timing(kernels, lp_device, "reserved_50k's LP", a, n_iters, err, smi)
 
@@ -2531,6 +3233,10 @@ def main() -> None:
         "first_fp": first_fp, "second_fp": fingerprint(sol2), "enc": enc,
         "ascent": recorded["ascent"],
     }, err, smi)
+
+    # ---- 11. aws_catalog_50k: the packing kernels past the shared-memory
+    # ceiling
+    catalog = catalog_phase(err, smi)
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",
@@ -2566,9 +3272,17 @@ def main() -> None:
         *probes["entries"],
         *dense["entries"],
         *sharded["entries"],
+        *catalog["entries"],
     ]}
     say(f"chip_smoke: {time.perf_counter() - T_START:.3f}s wall")
     say(json.dumps(report))
+    finish(kind, smi)
+
+
+def finish(kind: str, smi: str) -> None:
+    """The card's line, then the contract's last line."""
+    import torch
+
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

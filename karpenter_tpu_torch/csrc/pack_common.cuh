@@ -253,9 +253,25 @@ __device__ int prefix_fill(const int32_t* kcap, int32_t* take, int nscan,
 // [G], request [G, R] and compatibility rows as bits [G, words_pad(C)],
 // so that a group step reads nothing of its group from global memory.
 // Each segment starts on 16 bytes. The wrappers compute the same byte
-// count (solver/pack_split.py `table_smem_bytes`), set it as the
-// launch's dynamic shared memory and raise when it exceeds the card's
-// 232,448 bytes a block.
+// count (solver/pack_split.py `table_smem_bytes`) and set it as the
+// launch's dynamic shared memory.
+//
+// Past the card's budget (224,256 bytes a block) a launch is spilled:
+// the wrapper's `table_placement` walks the segments in a fixed order of
+// priority and keeps each in shared memory while the budget holds it;
+// the rest go to global memory. A spilled read-only table (cfg_alloc,
+// pool_overhead, cfg_price, cfg_pool, cfg_rsv, rsv_cap, the demand and
+// the requests) is read where its input lies; a spilled mutable or
+// derived one (the reservation use, spend, kopen, fits, the capped
+// words, the compat bits, the pool segments, B3's filled-row bits) gets
+// its place in the block's own slice of a scratch buffer. A split
+// kernel's open loop keeps each pool's least pick key, least uncapped
+// price and flag in static arrays of kXPools entries when all shared; a
+// placed layout holds them as one more segment (`pool_bytes`), and the
+// wrappers place a split launch of more pools so, with every segment in
+// shared memory when it fits. The placed layout is a second
+// instantiation of each kernel (template argument kSpilled), so an
+// all-shared launch runs code with no placement in it.
 
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 __host__ __device__ constexpr int words_of(int n) { return (n + 31) >> 5; }
@@ -266,6 +282,13 @@ struct TableLayout {
   int alloc, oh, price, pool, rsv, rsv_cap, rsv_used, spend, kopen, fits, capped, gcount, greq,
       gbits, end;
 };
+
+// a placed split kernel's pool segment: each pool's least pick key (8
+// bytes), then its least uncapped price and its flag (4 each), on 16
+// bytes each
+__host__ __device__ constexpr int pool_bytes(int P1) {
+  return align16(8 * P1) + 2 * align16(4 * P1);
+}
 
 __host__ __device__ inline TableLayout table_layout(int C, int R, int P1, int K, int G) {
   TableLayout l;
@@ -288,13 +311,105 @@ __host__ __device__ inline TableLayout table_layout(int C, int R, int P1, int K,
   return l;
 }
 
+// The segments of a spilled launch's placement, in the order the wrapper
+// passes their offsets (pack_split.py `SEGMENTS`): the tables, the pool
+// segments, then B3's (wave_layout in pack_wavefront.cu).
+enum Seg {
+  SG_ALLOC, SG_OH, SG_PRICE, SG_POOL, SG_RSV, SG_RSV_CAP, SG_RSV_USED, SG_SPEND, SG_KOPEN,
+  SG_FITS, SG_CAPPED, SG_GCOUNT, SG_GREQ, SG_GBITS, SG_POOLS, SG_LANES,
+  SG_CONF, SG_DONE, SG_UOFF, SG_MCONF, SG_ACCEPT, SG_OFFSET, SG_TOUCH, SG_COUNT
+};
+
+// A spilled launch's placement: a segment's offset >= 0 is its byte
+// offset in the block's dynamic shared memory, < 0 the complement of its
+// byte offset in the block's scratch slice (a spilled read-only table
+// ignores it: it is read in place). Block b's slice starts at scratch +
+// b * block_bytes (b = blockIdx.x: a lane, a plan lane, a shard, or a
+// shard's plan lane, every block its own).
+struct Placement {
+  int off[SG_COUNT];
+  unsigned char* scratch;
+  long long block_bytes;
+};
+
+// int32 scalars of a wavefront plan lane (LaneField in pack_wavefront.cu)
+constexpr int kWaveLaneFields = 8;
+
+// The bytes of segment s (each on 16 bytes; the pool segments only in a
+// split kernel's block, B3's only with W > 0).
+__host__ __device__ inline long long seg_bytes(int s, int C, int R, int P1, int K, int G,
+                                               bool pools, int W, int N) {
+  const int nw = words_pad(C), ww = words_of(W);
+  switch (s) {
+    case SG_ALLOC: return align16(4 * C * R);
+    case SG_OH: return align16(4 * P1 * R);
+    case SG_PRICE: case SG_POOL: case SG_RSV: case SG_KOPEN: return align16(4 * C);
+    case SG_RSV_CAP: return align16(4 * K);
+    case SG_RSV_USED: case SG_SPEND: return align16(4 * (K + 1));
+    case SG_FITS: return align16(C);
+    case SG_CAPPED: return 4LL * nw;
+    case SG_GCOUNT: return align16(4 * G);
+    case SG_GREQ: return align16(4 * G * R);
+    case SG_GBITS: return 4LL * G * nw;
+    case SG_POOLS: return pools ? pool_bytes(P1) : 0;
+    case SG_LANES: return W ? align16(4 * W * kWaveLaneFields) : 0;
+    case SG_CONF: return W ? align16(4 * W * ww) : 0;
+    case SG_DONE: return W ? align16(4 * words_of(G)) : 0;
+    case SG_UOFF: return W ? align16(4 * (W + 1)) : 0;
+    case SG_MCONF: return W ? align16(4 * ww) : 0;
+    case SG_ACCEPT: case SG_OFFSET: return W ? align16(4 * W) : 0;
+    case SG_TOUCH: return W ? align16(4 * words_of(N)) : 0;
+  }
+  return 0;
+}
+
+// read-only tables: a spilled one is read where its input lies
+__host__ __device__ constexpr bool seg_is_input(int s) {
+  return s == SG_ALLOC || s == SG_OH || s == SG_PRICE || s == SG_POOL || s == SG_RSV ||
+         s == SG_RSV_CAP || s == SG_GCOUNT || s == SG_GREQ;
+}
+
+// B3's round bookkeeping, which every placement keeps in shared memory
+__host__ __device__ constexpr bool seg_is_pinned(int s) { return s >= SG_LANES && s < SG_TOUCH; }
+
+// A spilled launch's placement from the wrapper's SG_COUNT offsets.
+static inline Placement make_placement(const int* offsets, unsigned char* scratch,
+                                       long long block_bytes) {
+  Placement p{};
+  if (offsets)
+    for (int i = 0; i < SG_COUNT; ++i) p.off[i] = offsets[i];
+  p.scratch = scratch;
+  p.block_bytes = block_bytes;
+  return p;
+}
+
+// 0 when every segment of `p` lies inside the `smem` bytes of shared
+// memory or its block's scratch slice, on 16 bytes, and B3's bookkeeping
+// in shared memory; else cudaErrorInvalidValue.
+static inline int check_placement(const Placement& p, int C, int R, int P1, int K, int G,
+                                  bool pools, int W, int N, long long smem) {
+  if (!p.scratch || p.block_bytes < 0) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < SG_COUNT; ++s) {
+    const long long n = seg_bytes(s, C, R, P1, K, G, pools, W, N), o = p.off[s];
+    if (o >= 0 ? (o % 16 != 0 || o + n > smem)
+               : (seg_is_pinned(s) && n > 0) ||
+                     (!seg_is_input(s) && (~o % 16 != 0 || ~o + n > p.block_bytes)))
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
 // Shared-memory views a packing block works on besides its Args.
 struct Smem {
-  float* spend;      // [K+1] the current group's reservation use
-  uint32_t* capped;  // [words_pad(C)] cfg_rsv >= 0
-  int32_t* gcount;   // [G] the groups' demand
-  float* greq;       // [G, R] their requests
-  uint32_t* gbits;   // [G, words_pad(C)] their compat rows as bits
+  float* spend;            // [K+1] the current group's reservation use
+  uint32_t* capped;        // [words_pad(C)] cfg_rsv >= 0
+  const int32_t* gcount;   // [G] the groups' demand
+  const float* greq;       // [G, R] their requests
+  uint32_t* gbits;         // [G, words_pad(C)] their compat rows as bits
+  // a split kernel's open loop: each pool's least pick key, least
+  // uncapped price (float_key) and whether some column of it can open
+  // (`pool_bytes`: the three arrays in a row)
+  unsigned char* pools;
 };
 
 template <class T>
@@ -303,15 +418,38 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) __pipeline_memcpy_async(dst + i, src + i, 4);
 }
 
+// The compat rows as bits, a word a thread (32 independent byte loads in
+// flight), the capped columns' words, and rsv_used and spend zeroed.
+template <class A>
+__device__ __forceinline__ void stage_derived(const A& a, const Smem& sm, float* used) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, K = a.K, G = a.G, nw = words_pad(C);
+  for (int i = tid; i < G * nw; i += kThreads) {
+    const int g = i / nw, c0 = (i % nw) * 32;
+    const uint8_t* row = a.compat + (size_t)g * C;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b)
+      if (c0 + b < C && row[c0 + b]) bits |= 1u << b;
+    sm.gbits[i] = bits;
+  }
+  for (int s = tid; s <= K; s += kThreads) {
+    used[s] = 0.0f;
+    sm.spend[s] = 0.0f;
+  }
+  for (int wd = warp; wd < words_pad(C); wd += kWarps) {
+    const int c = wd * 32 + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, c < C && a.cfg_rsv[c] >= 0);
+    if (lane == 0) sm.capped[wd] = bits;
+  }
+}
+
 // All threads: copy a's tables into `smem` and point a's table fields
 // (cfg_alloc, pool_overhead, cfg_price, cfg_pool, cfg_rsv, rsv_cap,
 // rsv_used, kopen, fits) at the copies; rsv_used and spend start at 0.
-// The compat rows become bits, a word a thread (32 independent byte
-// loads in flight).
 template <class A>
 __device__ Smem stage_tables(A& a, unsigned char* smem) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int C = a.C, R = a.R, K = a.K, G = a.G, nw = words_pad(C);
+  const int C = a.C, R = a.R, K = a.K, G = a.G;
   const TableLayout l = table_layout(C, R, a.P1, K, G);
   float* alloc = (float*)(smem + l.alloc);
   float* oh = (float*)(smem + l.oh);
@@ -326,33 +464,19 @@ __device__ Smem stage_tables(A& a, unsigned char* smem) {
   copy_async(rsv, a.cfg_rsv, C);
   copy_async(cap, a.rsv_cap, K);
   Smem sm;
-  sm.gcount = (int32_t*)(smem + l.gcount);
-  sm.greq = (float*)(smem + l.greq);
-  copy_async(sm.gcount, a.group_count, G);
-  copy_async(sm.greq, a.group_req, G * R);
+  int32_t* gcount = (int32_t*)(smem + l.gcount);
+  float* greq = (float*)(smem + l.greq);
+  copy_async(gcount, a.group_count, G);
+  copy_async(greq, a.group_req, G * R);
   __pipeline_commit();
+  sm.gcount = gcount;
+  sm.greq = greq;
   sm.spend = (float*)(smem + l.spend);
   sm.capped = (uint32_t*)(smem + l.capped);
   sm.gbits = (uint32_t*)(smem + l.gbits);
-  for (int i = tid; i < G * nw; i += kThreads) {
-    const int g = i / nw, c0 = (i % nw) * 32;
-    const uint8_t* row = a.compat + (size_t)g * C;
-    uint32_t bits = 0;
-#pragma unroll
-    for (int b = 0; b < 32; ++b)
-      if (c0 + b < C && row[c0 + b]) bits |= 1u << b;
-    sm.gbits[i] = bits;
-  }
+  sm.pools = nullptr;  // a split kernel's pool entries are static arrays
   float* used = (float*)(smem + l.rsv_used);
-  for (int s = tid; s <= K; s += kThreads) {
-    used[s] = 0.0f;
-    sm.spend[s] = 0.0f;
-  }
-  for (int wd = warp; wd < words_pad(C); wd += kWarps) {
-    const int c = wd * 32 + lane;
-    const unsigned bits = __ballot_sync(0xffffffffu, c < C && a.cfg_rsv[c] >= 0);
-    if (lane == 0) sm.capped[wd] = bits;
-  }
+  stage_derived(a, sm, used);
   __pipeline_wait_prior(0);
   __syncthreads();
   a.cfg_alloc = alloc;
@@ -365,6 +489,66 @@ __device__ Smem stage_tables(A& a, unsigned char* smem) {
   a.kopen = (int32_t*)(smem + l.kopen);
   a.fits = (uint8_t*)(smem + l.fits);
   return sm;
+}
+
+// A segment of a spilled launch: in shared memory, or in this block's
+// scratch slice.
+__device__ __forceinline__ unsigned char* seg_at(const Placement& p, int s, unsigned char* smem) {
+  const int o = p.off[s];
+  return o >= 0 ? smem + o : p.scratch + (size_t)blockIdx.x * p.block_bytes + ~o;
+}
+
+// A read-only table of a spilled launch: copied into shared memory when
+// the placement keeps it there (the field then points at the copy after
+// the staging's barrier), else read where its input lies.
+template <class T>
+__device__ __forceinline__ const T* seg_input(const Placement& p, int s, unsigned char* smem,
+                                              const T* input, int n) {
+  if (p.off[s] < 0) return input;
+  T* dst = (T*)(smem + p.off[s]);
+  copy_async(dst, input, n);
+  return dst;
+}
+
+// stage_tables for a spilled launch: every segment where `p` puts it.
+template <class A>
+__device__ Smem stage_tables_placed(A& a, unsigned char* smem, const Placement& p) {
+  const int C = a.C, R = a.R, K = a.K, G = a.G;
+  const float* alloc = seg_input(p, SG_ALLOC, smem, a.cfg_alloc, C * R);
+  const float* oh = seg_input(p, SG_OH, smem, a.pool_overhead, a.P1 * R);
+  const float* price = seg_input(p, SG_PRICE, smem, a.cfg_price, C);
+  const int32_t* pool = seg_input(p, SG_POOL, smem, a.cfg_pool, C);
+  const int32_t* rsv = seg_input(p, SG_RSV, smem, a.cfg_rsv, C);
+  const float* cap = seg_input(p, SG_RSV_CAP, smem, a.rsv_cap, K);
+  Smem sm;
+  sm.gcount = seg_input(p, SG_GCOUNT, smem, a.group_count, G);
+  sm.greq = seg_input(p, SG_GREQ, smem, a.group_req, G * R);
+  __pipeline_commit();
+  sm.spend = (float*)seg_at(p, SG_SPEND, smem);
+  sm.capped = (uint32_t*)seg_at(p, SG_CAPPED, smem);
+  sm.gbits = (uint32_t*)seg_at(p, SG_GBITS, smem);
+  sm.pools = seg_at(p, SG_POOLS, smem);
+  float* used = (float*)seg_at(p, SG_RSV_USED, smem);
+  stage_derived(a, sm, used);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  a.cfg_alloc = alloc;
+  a.pool_overhead = oh;
+  a.cfg_price = price;
+  a.cfg_pool = pool;
+  a.cfg_rsv = rsv;
+  a.rsv_cap = cap;
+  a.rsv_used = used;
+  a.kopen = (int32_t*)seg_at(p, SG_KOPEN, smem);
+  a.fits = (uint8_t*)seg_at(p, SG_FITS, smem);
+  return sm;
+}
+
+// A kernel's staging: the all-shared layout, or (kSpilled) `p`'s.
+template <bool kSpilled, class A>
+__device__ __forceinline__ Smem stage(A& a, unsigned char* smem, const Placement& p) {
+  if constexpr (kSpilled) return stage_tables_placed(a, smem, p);
+  else return stage_tables(a, smem);
 }
 
 // ---------------------------------------------------------------- rows
@@ -958,9 +1142,9 @@ __device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const
   __syncthreads();  // the statics are rewritten by the next call
 }
 
-
-// The pools a split kernel's open loop takes (P1 <= kXPools: the
-// wrappers refuse more).
+// The pools a split kernel's open loop keeps in static shared memory in
+// the all-shared layout (P1 <= kXPools; past it the wrappers take a
+// placed layout, whose pool segment is sized by P1).
 constexpr int kXPools = 64;
 
 // One group's open loop in a split kernel: open_loop_whole's decisions,
@@ -991,13 +1175,35 @@ constexpr int kXPools = 64;
 // a.kopen holds 0 outside the chosen pool, as open_bit reads it. The
 // pass takes the capacities of every pool's openable columns, at most C
 // an open, the bound of open_loop_whole's loop over C.
-template <class A, class X, class Rows>
-__device__ void open_loop_split(const A& a, X& x, const uint32_t* rowbits, const float* req,
-                                int gcap, int nc, int N, float* spend, OpenState* st,
-                                Rows& rows) {
-  __shared__ unsigned long long s_pkey[kXPools];  // pool p's least key on this shard
-  __shared__ uint32_t s_pminu[kXPools];           // ffd: its least uncapped price (float_key)
-  __shared__ int s_pany[kXPools];                 // some column of p can open
+//
+// The pools' entries (pkey, pool p's least key on this shard; pminu,
+// ffd: its least uncapped price; pany, some column of p can open) are
+// static arrays of kXPools entries in the all-shared layout, and the
+// block's pool segment (`pools`, sized by P1 like the exchange slots'
+// 4 P1 words) in a placed one (kPlaced), which the wrappers take past
+// kXPools pools: so the loop takes any number of pools. They are the
+// block's own: written in the pass, read after its barrier and reset
+// before the open's last barrier, as the exchange's invariant requires
+// of any state a later exchange's writes depend on.
+template <bool kPlaced, class A, class X, class Rows>
+__device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const uint32_t* rowbits,
+                                const float* req, int gcap, int nc, int N, float* spend,
+                                OpenState* st, Rows& rows) {
+  unsigned long long* s_pkey;  // pool p's least key on this shard
+  uint32_t* s_pminu;           // ffd: its least uncapped price (float_key)
+  int* s_pany;                 // some column of p can open
+  if constexpr (kPlaced) {
+    s_pkey = (unsigned long long*)pools;
+    s_pminu = (uint32_t*)(pools + align16(8 * a.P1));
+    s_pany = (int*)(pools + align16(8 * a.P1) + align16(4 * a.P1));
+  } else {
+    __shared__ unsigned long long pkey[kXPools];
+    __shared__ uint32_t pminu[kXPools];
+    __shared__ int pany[kXPools];
+    s_pkey = pkey;
+    s_pminu = pminu;
+    s_pany = pany;
+  }
   __shared__ int s_zcol;                          // the first column not live in lp0's pool
   __shared__ unsigned long long s_key1;
   __shared__ int s_cstar, s_mstar, s_q, s_remlast, s_lo, s_capped, s_pool;
@@ -1198,11 +1404,13 @@ __device__ void open_loop_split(const A& a, X& x, const uint32_t* rowbits, const
 }
 
 // One group's open loop: open_loop_whole, or open_loop_split in a split
-// kernel. All threads call it.
-template <class A, class X, class Rows>
-__device__ void open_loop(const A& a, X& x, const uint32_t* rowbits, const float* req, int gcap,
-                          int nc, int N, float* spend, OpenState* st, Rows& rows) {
-  if constexpr (X::kSplit) open_loop_split(a, x, rowbits, req, gcap, nc, N, spend, st, rows);
+// kernel (kPlaced: its pool entries in `pools`). All threads call it.
+template <bool kPlaced, class A, class X, class Rows>
+__device__ void open_loop(const A& a, X& x, unsigned char* pools, const uint32_t* rowbits,
+                          const float* req, int gcap, int nc, int N, float* spend, OpenState* st,
+                          Rows& rows) {
+  if constexpr (X::kSplit)
+    open_loop_split<kPlaced>(a, x, pools, rowbits, req, gcap, nc, N, spend, st, rows);
   else open_loop_whole(a, x, rowbits, req, gcap, nc, N, spend, st, rows);
 }
 

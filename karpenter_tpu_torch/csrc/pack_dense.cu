@@ -68,7 +68,9 @@ struct Args {
   int G, C, R, E, N, K, P1, cost;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(Args a) {
+// kSpilled: the tables where the placement `p` puts them (pack_common.cuh)
+template <bool kSpilled>
+__global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(Args a, Placement p) {
   extern __shared__ __align__(16) unsigned char smem[];
   NoSplit nosplit;
   const int tid = threadIdx.x;
@@ -83,7 +85,7 @@ __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(Args a) {
 
   // ---- state init: the tables, the pre-opened rows, and the
   // reservation use of those on a capped column
-  const Smem sm = stage_tables(a, smem);
+  const Smem sm = stage<kSpilled>(a, smem, p);
   for (int i = tid; i < E * C; i += kThreads) a.node_mask[i] = a.existing_mask[i];
   for (int i = tid; i < E * R; i += kThreads) a.node_used[i] = a.existing_used[i];
   for (int e = warp; e < E; e += kWarps) {
@@ -188,8 +190,8 @@ __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(Args a) {
     if (remaining > 0) {
       if (tid == 0) s_open = OpenState{remaining, 0, 0};
       DenseRows rows{a.node_mask, a.node_used, a.node_active, nrows, g};
-      open_loop(a, nosplit, sm.gbits + (size_t)g * words_pad(C), s_req, gcap, nrows, N, sm.spend,
-                &s_open, rows);
+      open_loop<kSpilled>(a, nosplit, sm.pools, sm.gbits + (size_t)g * words_pad(C), s_req,
+                          gcap, nrows, N, sm.spend, &s_open, rows);
       remaining = s_open.remaining;
       // the group's reservation use (integer-valued), for the next
       for (int s = tid; s <= K; s += kThreads) {
@@ -207,8 +209,9 @@ __global__ void __launch_bounds__(kThreads, 1) pack_dense_kernel(Args a) {
 }  // namespace
 
 // One block for the whole group loop, its config tables in `smem` bytes
-// of dynamic shared memory. The outputs arrive zeroed; quota,
-// group_cap and conflict may be null.
+// of dynamic shared memory (`placement`: null for an all-shared launch,
+// else SG_COUNT segment offsets with `tables` holding block_bytes). The
+// outputs arrive zeroed; quota, group_cap and conflict may be null.
 extern "C" int pack_dense_launch(
     const uint8_t* compat, const float* group_req, const int32_t* group_count,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -218,11 +221,16 @@ extern "C" int pack_dense_launch(
     int32_t* assign, uint8_t* node_mask, float* node_used, uint8_t* node_active,
     int32_t* node_count, int32_t* unsched, int32_t* kcap, int32_t* take,
     int G, int C, int R, int E, int N, int K, int P1, int cost, int smem,
-    cudaStream_t stream) {
-  if (R > kMaxR || E > N || smem < table_layout(C, R, P1, K, G).end)
+    const int* placement, unsigned char* tables, long long block_bytes, cudaStream_t stream) {
+  const Placement p = make_placement(placement, tables, block_bytes);
+  if (R > kMaxR || E > N ||
+      (placement ? check_placement(p, C, R, P1, K, G, false, 0, 0, smem)
+                 : smem < table_layout(C, R, P1, K, G).end))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      pack_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const void* kernel =
+      placement ? (const void*)pack_dense_kernel<true> : (const void*)pack_dense_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -233,6 +241,7 @@ extern "C" int pack_dense_launch(
          assign, node_mask, node_used, node_active, node_count, unsched,
          kcap, take, nullptr, nullptr, nullptr,
          G, C, R, E, N, K, P1, cost};
-  pack_dense_kernel<<<1, kThreads, smem, stream>>>(a);
+  if (placement) pack_dense_kernel<true><<<1, kThreads, smem, stream>>>(a, p);
+  else pack_dense_kernel<false><<<1, kThreads, smem, stream>>>(a, p);
   return (int)cudaGetLastError();
 }

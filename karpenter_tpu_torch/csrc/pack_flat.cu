@@ -29,11 +29,17 @@
 //
 // B8, split B2 (`pack_flat_sharded_kernel`): the same buffer from a
 // split solve — the replicated outputs from replica 0, the fresh rows'
-// masks from the S shards' [F, Cs] blocks (a table of per-shard
-// pointers). A mask word can straddle shards (at 50k x 500, S = 4 and 8
-// give 56 and 28 columns a shard), so each bit is read from the shard
-// that owns its global column; one thread per output word, as above.
-// Plain version: pack_shard.py::pack_flat_words_sharded_ref.
+// masks from the S shards' [F, Cs] blocks, one [S, F, Cs] buffer. A mask
+// word can straddle shards (at 50k x 500, S = 4 and 8 give 56 and 28
+// columns a shard), so each bit is read from the shard that owns its
+// global column: a warp a mask word, a lane a column, one ballot; the
+// copies one thread an output word, as above. Bound by bytes as B2; the
+// design it replaces (32 dependent byte loads a word through a per-call
+// device table of shard pointers, the table copied from pageable host
+// memory on every call) took 0.043-0.088 ms a call against 0.006 ms for
+// its kernel alone on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+// Plain version:
+// pack_shard.py::pack_flat_words_sharded_ref.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +90,56 @@ __global__ void pack_flat_kernel(const int32_t* __restrict__ assign,
   }
 }
 
+// Split B2: one thread an output word for the copies (assign, the
+// tallies and stats), and one warp a mask word: lane b reads the byte of
+// global column 32 w + b from the shard that owns it (masks [S, F, Cs],
+// one buffer: no pointer table) and a ballot makes the word. The
+// virtual index space puts the 32 n_words mask lanes first, so a warp is
+// whole on them (their end is a multiple of 32), then the copies.
+__global__ void pack_flat_sharded_kernel(const int32_t* __restrict__ assign,
+                                         const uint8_t* __restrict__ masks,
+                                         const int32_t* __restrict__ node_count,
+                                         const int32_t* __restrict__ unsched,
+                                         const int32_t* __restrict__ widths,
+                                         const int32_t* __restrict__ steps,
+                                         int32_t* __restrict__ out,
+                                         long long n_assign, int F, int Cs, int S, int G) {
+  const int Cp = Cs * S, wpr = Cp / 32;  // mask words a row
+  const long long n_words = (long long)F * wpr;
+  const long long n_seq = n_assign + n_words + 1 + G;
+  const long long n_row = n_seq + (widths ? G + 1 : 0);
+  const long long n_mask = 32 * n_words;  // the mask words' lanes
+  const long long total = n_mask + (n_row - n_words);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < total; v += stride) {
+    if (v < n_mask) {
+      // a whole warp: word v / 32, lane v % 32
+      const long long w = v >> 5;
+      const int b = (int)(v & 31);
+      const int f = (int)(w / wpr);
+      const int c = (int)(w % wpr) * 32 + b;
+      const int s = c / Cs;
+      const uint8_t byte = masks[((size_t)s * F + f) * Cs + (c - s * Cs)];
+      const uint32_t word = __ballot_sync(0xffffffffu, byte != 0);
+      if (b == 0) out[n_assign + w] = (int32_t)word;
+    } else {
+      long long i = v - n_mask;  // the copies, in output order past the mask words
+      if (i >= n_assign) i += n_words;
+      if (i < n_assign) {
+        out[i] = assign[i];
+      } else if (i == n_assign + n_words) {
+        out[i] = node_count[0];
+      } else if (i < n_seq) {
+        out[i] = unsched[i - n_assign - n_words - 1];
+      } else if (i < n_seq + G) {
+        out[i] = widths[i - n_seq];
+      } else {
+        out[i] = steps[0];
+      }
+    }
+  }
+}
+
 int launch(const int32_t* assign, const uint8_t* free_mask, const int32_t* node_count,
            const int32_t* unsched, const int32_t* widths, const int32_t* steps,
            int32_t* out, int N, int G, int F, int C, int L, cudaStream_t stream) {
@@ -101,51 +157,13 @@ int launch(const int32_t* assign, const uint8_t* free_mask, const int32_t* node_
   return (int)cudaGetLastError();
 }
 
-__global__ void pack_flat_sharded_kernel(const int32_t* __restrict__ assign,
-                                         const uint8_t* const* __restrict__ masks,
-                                         const int32_t* __restrict__ node_count,
-                                         const int32_t* __restrict__ unsched,
-                                         const int32_t* __restrict__ widths,
-                                         const int32_t* __restrict__ steps,
-                                         int32_t* __restrict__ out,
-                                         long long n_assign, int F, int Cs, int S, int G) {
-  const int Cp = Cs * S;
-  const long long n_words = (long long)F * (Cp / 32);
-  const long long n_seq = n_assign + n_words + 1 + G;
-  const long long n_row = n_seq + (widths ? G + 1 : 0);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_row;
-       i += (long long)gridDim.x * blockDim.x) {
-    if (i < n_assign) {
-      out[i] = assign[i];
-    } else if (i < n_assign + n_words) {
-      const long long w = i - n_assign;
-      const int f = (int)(w / (Cp / 32));
-      const int c0 = (int)(w % (Cp / 32)) * 32;
-      uint32_t word = 0;
-      for (int b = 0; b < 32; ++b) {
-        const int c = c0 + b;
-        if (masks[c / Cs][(size_t)f * Cs + (c % Cs)]) word |= 1u << b;
-      }
-      out[i] = (int32_t)word;
-    } else if (i == n_assign + n_words) {
-      out[i] = node_count[0];
-    } else if (i < n_seq) {
-      out[i] = unsched[i - n_assign - n_words - 1];
-    } else if (i < n_seq + G) {
-      out[i] = widths[i - n_seq];
-    } else {
-      out[i] = steps[0];
-    }
-  }
-}
-
 }  // namespace
 
 // Split B2: assign [S, N, G], node_count [S], unsched [S, G] (widths
 // [S, G] and steps [S] on the wavefront route) are replicas, of which
-// replica 0 is read; masks is a device table of S pointers to [F, Cs]
-// blocks; out is one row of pack_flat_launch's layout.
-extern "C" int pack_flat_sharded_launch(const int32_t* assign, const uint8_t* const* masks,
+// replica 0 is read; masks is one [S, F, Cs] buffer; out is one row of
+// pack_flat_launch's layout.
+extern "C" int pack_flat_sharded_launch(const int32_t* assign, const uint8_t* masks,
                                         const int32_t* node_count, const int32_t* unsched,
                                         const int32_t* widths, const int32_t* steps,
                                         int32_t* out, int N, int G, int F, int Cs, int S,
@@ -153,8 +171,9 @@ extern "C" int pack_flat_sharded_launch(const int32_t* assign, const uint8_t* co
   if ((Cs * S) % 32 || S < 1 || (widths == nullptr) != (steps == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long n_assign = (long long)N * G;
-  const long long total =
-      n_assign + (long long)F * (Cs * S / 32) + 1 + G + (widths ? G + 1 : 0);
+  const long long n_words = (long long)F * (Cs * S / 32);
+  // a warp a mask word, a thread every other word
+  const long long total = 32 * n_words + n_assign + 1 + G + (widths ? G + 1 : 0);
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 65535) blocks = 65535;

@@ -132,9 +132,11 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
 
 // The group loop of one lane (unsplit, X = NoSplit) or of one shard of
 // a split solve (X = DeviceSplit: `a` holds the shard's columns and its
-// replica), with its config tables in the block's dynamic shared memory.
-template <class X>
-__device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* smem) {
+// replica), with its config tables in the block's dynamic shared memory
+// (kSpilled: where the placement `p` puts them).
+template <bool kSpilled, class X>
+__device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* smem,
+                                                const Placement& p) {
   const int tid = threadIdx.x;
   const int G = a.G, C = a.C, R = a.R, B = a.B, F = a.F, K = a.K;
   const int N = B + F;
@@ -148,7 +150,7 @@ __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* sme
   // ---- state init: the tables, usage copies, the fresh rows' words,
   // and the reservation use of bound rows (integer-valued float adds,
   // exact in any order)
-  const Smem sm = stage_tables(a, smem);
+  const Smem sm = stage<kSpilled>(a, smem, p);
   for (int i = tid; i < B * R; i += kThreads) a.bound_used[i] = a.bound_used0[i];
   for (int i = tid; i < F * R; i += kThreads) a.free_used[i] = 0.0f;
   for (int i = tid; i < F * nw; i += kThreads) a.free_bits[i] = 0u;
@@ -192,7 +194,7 @@ __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* sme
     if (remaining > 0) {
       if (tid == 0) s_open = OpenState{remaining, 0, 0};
       FreshRows rows{a.free_bits, nc - B, g};
-      open_loop(a, x, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
+      open_loop<kSpilled>(a, x, sm.pools, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
       remaining = s_open.remaining;
       // the group's reservation use (integer-valued), for the next
       for (int s = tid; s <= K; s += kThreads) {
@@ -209,10 +211,11 @@ __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* sme
   mask_bytes(a.free_bits, C, s_node_count - B, a.free_mask, 0, 1);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes) {
+template <bool kSpilled>
+__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes, Placement p) {
   extern __shared__ __align__(16) unsigned char smem[];
   NoSplit x;
-  pack_split_body(lane_view(lanes, blockIdx.x), x, smem);
+  pack_split_body<kSpilled>(lane_view(lanes, blockIdx.x), x, smem, p);
 }
 
 // per-shard pointers of a split solve's config-axis arrays
@@ -227,8 +230,9 @@ struct ShardTable {
 
 // block s: shard s's columns and its replica (the replicated outputs
 // and state carry a leading shard axis, as the lane axis of lane_view)
+template <bool kSpilled>
 __global__ void __launch_bounds__(kThreads, 1) pack_split_sharded_kernel(
-    Args base, ShardTable t, unsigned long long* slots, int S, int words) {
+    Args base, ShardTable t, unsigned long long* slots, int S, int words, Placement p) {
   const int s = blockIdx.x;
   extern __shared__ __align__(16) unsigned char smem[];
   Args a = base;
@@ -247,15 +251,21 @@ __global__ void __launch_bounds__(kThreads, 1) pack_split_sharded_kernel(
   a.cfg_rsv = t.cfg_rsv[s];
   a.free_mask = t.free_mask[s];
   DeviceSplit x{slots, s, S, words, s * a.C, 0u, 0u};
-  pack_split_body(a, x, smem);
+  pack_split_body<kSpilled>(a, x, smem, p);
 }
 
 }  // namespace
 
 // The dynamic shared memory a block takes: `smem` bytes, at least the
-// tables' (table_layout); the launch is refused above the card's limit.
-static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, int G) {
-  if (smem < table_layout(C, R, P1, K, G).end) return (int)cudaErrorInvalidValue;
+// tables' (table_layout) when the launch is all shared (a split one of
+// at most kXPools pools), else what the placement puts there (`placed`:
+// the offsets a placed launch passes, checked by check_placement); the
+// launch is refused above the card's limit.
+static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, int G,
+                    bool pools, const Placement* placed) {
+  if (placed ? check_placement(*placed, C, R, P1, K, G, pools, 0, 0, smem)
+             : smem < table_layout(C, R, P1, K, G).end || (pools && P1 > kXPools))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) cudaGetLastError();
@@ -265,7 +275,9 @@ static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, i
 // L lanes, one block each (B1 is L = 1; B6 sequential passes null
 // bound_quota and group_cap). group_count is [L, G] and bound_live
 // [L, B]; every output and scratch array carries a leading lane axis
-// of L. `smem`: the dynamic shared memory of a block.
+// of L. `smem`: the dynamic shared memory of a block. `placement`: null
+// for an all-shared launch, else SG_COUNT segment offsets
+// (table_placement) with `tables` holding block_bytes a block.
 extern "C" int pack_split_launch(
     const uint8_t* compat, const float* group_req, const int32_t* group_count,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -276,9 +288,12 @@ extern "C" int pack_split_launch(
     int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
     float* free_used, float* bound_used, uint32_t* free_bits, int32_t* kcap,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int L, int smem,
-    cudaStream_t stream) {
+    const int* placement, unsigned char* tables, long long block_bytes, cudaStream_t stream) {
   if (R > kMaxR || L < 1) return (int)cudaErrorInvalidValue;
-  int err = set_smem((const void*)pack_split_kernel, smem, C, R, P1, K, G);
+  const Placement p = make_placement(placement, tables, block_bytes);
+  const void* kernel =
+      placement ? (const void*)pack_split_kernel<true> : (const void*)pack_split_kernel<false>;
+  int err = set_smem(kernel, smem, C, R, P1, K, G, false, placement ? &p : nullptr);
   if (err) return err;
   Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, cfg_price,
@@ -286,7 +301,8 @@ extern "C" int pack_split_launch(
          assign, free_mask, node_count, unsched,
          free_used, bound_used, free_bits, kcap, nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost};
-  pack_split_kernel<<<L, kThreads, smem, stream>>>(a);
+  if (placement) pack_split_kernel<true><<<L, kThreads, smem, stream>>>(a, p);
+  else pack_split_kernel<false><<<L, kThreads, smem, stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
@@ -295,9 +311,10 @@ extern "C" int pack_split_launch(
 // cfg_price, cfg_rsv, free_mask); assign [S, B+F, G], node_count [S],
 // unsched [S, G] and the state scratch (free_bits [S, F,
 // words_pad(C)]) carry a leading shard axis; slots [2, S, words]
-// (zeroed; words >= max(2F, 4 P1) and >= 4) are the exchange's. One
-// cooperative launch: the S blocks must be co-resident, and the launch
-// is refused otherwise.
+// (zeroed; words >= max(2F, 4 P1) and >= 4) are the exchange's; any P1.
+// `placement`, `tables`, `block_bytes` as pack_split_launch's (a block a
+// shard). One cooperative launch: the S blocks must be co-resident, and
+// the launch is refused otherwise.
 extern "C" int pack_split_sharded_launch(
     const uint8_t* const* compat, const float* const* cfg_alloc,
     const int32_t* const* cfg_pool, const float* const* cfg_price,
@@ -310,10 +327,13 @@ extern "C" int pack_split_sharded_launch(
     float* free_used, float* bound_used, uint32_t* free_bits, int32_t* kcap,
     unsigned long long* slots,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int S, int words, int smem,
-    cudaStream_t stream) {
-  if (R > kMaxR || S < 2 || P1 > kXPools || words < 2 * F || words < 4 * P1 || words < 4)
+    const int* placement, unsigned char* tables, long long block_bytes, cudaStream_t stream) {
+  if (R > kMaxR || S < 2 || words < 2 * F || words < 4 * P1 || words < 4)
     return (int)cudaErrorInvalidValue;
-  int serr = set_smem((const void*)pack_split_sharded_kernel, smem, C, R, P1, K, G);
+  Placement p = make_placement(placement, tables, block_bytes);
+  const void* kernel = placement ? (const void*)pack_split_sharded_kernel<true>
+                                 : (const void*)pack_split_sharded_kernel<false>;
+  int serr = set_smem(kernel, smem, C, R, P1, K, G, true, placement ? &p : nullptr);
   if (serr) return serr;
   Args a{nullptr, group_req, group_count, nullptr, nullptr, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, nullptr,
@@ -322,9 +342,9 @@ extern "C" int pack_split_sharded_launch(
          free_used, bound_used, free_bits, kcap, nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost};
   ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask};
-  void* params[] = {&a, &t, &slots, &S, &words};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)pack_split_sharded_kernel, dim3(S), dim3(kThreads), params, smem, stream);
+  void* params[] = {&a, &t, &slots, &S, &words, &p};
+  cudaError_t err =
+      cudaLaunchCooperativeKernel(kernel, dim3(S), dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the caller raises
     return (int)err;

@@ -99,6 +99,7 @@ constexpr int kMaxW = 256;
 enum LaneField {
   kCand, kValid, kSpill, kNOpen, kCappedSpend, kClamped, kUnschedAdd, kLast, kLaneFields
 };
+static_assert(kLaneFields == kWaveLaneFields, "the placement sizes B3's lane scalars");
 
 struct Args {
   const uint8_t* compat;        // [G, C]
@@ -221,9 +222,9 @@ __device__ __forceinline__ void xbarrier(const X&, Barrier& barrier) {
   }
 }
 
-template <class X, class Barrier>
+template <bool kSpilled, class X, class Barrier>
 __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrier barrier,
-                                               unsigned char* smem,
+                                               unsigned char* smem, const Placement& p,
                                                unsigned long long* xconf = nullptr) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -237,8 +238,16 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
   PhaseClock clk;
   clk.begin();
 
-  const Smem sm = stage_tables(a, smem);
-  const WaveLayout wl = wave_layout(C, R, a.P1, K, W, G, N);
+  const Smem sm = stage<kSpilled>(a, smem, p);
+  WaveLayout wl;
+  if constexpr (kSpilled) {
+    // the round's bookkeeping stays in shared memory; the filled rows'
+    // bits where the placement puts them
+    wl = WaveLayout{p.off[SG_LANES], p.off[SG_CONF], p.off[SG_DONE], p.off[SG_UOFF],
+                    p.off[SG_MCONF], p.off[SG_ACCEPT], p.off[SG_OFFSET], 0, 0};
+  } else {
+    wl = wave_layout(C, R, a.P1, K, W, G, N);
+  }
   int32_t* s_lanes = (int32_t*)(smem + wl.lanes);
   uint32_t* s_conf = (uint32_t*)(smem + wl.conf);
   uint32_t* s_done = (uint32_t*)(smem + wl.done);
@@ -246,7 +255,9 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
   uint32_t* s_mconf = (uint32_t*)(smem + wl.mconf);
   int32_t* s_accept = (int32_t*)(smem + wl.accept);
   int32_t* s_offset = (int32_t*)(smem + wl.offset);
-  uint32_t* s_touch = (uint32_t*)(smem + wl.touch);
+  uint32_t* s_touch;
+  if constexpr (kSpilled) s_touch = (uint32_t*)seg_at(p, SG_TOUCH, smem);
+  else s_touch = (uint32_t*)(smem + wl.touch);
 
   int32_t* kcap = a.kcap + (size_t)w * N;
   int32_t* take = a.take + (size_t)w * N;
@@ -357,7 +368,7 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
       // ---- the open loop, slot-relative
       if (remaining > 0) {
         PlanRows rows{o_bits, o_used, o_fill, o_union};
-        open_loop(a, x, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
+        open_loop<kSpilled>(a, x, sm.pools, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
       }
       clk.mark(5);
       int my_capped = 0;
@@ -569,10 +580,11 @@ struct ClusterBarrier {
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a) {
+template <bool kSpilled>
+__global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a, Placement p) {
   extern __shared__ __align__(16) unsigned char smem[];
   NoSplit x;
-  wavefront_body(a, blockIdx.x, x, GridBarrier{}, smem);
+  wavefront_body<kSpilled>(a, blockIdx.x, x, GridBarrier{}, smem, p);
 }
 
 // lane l's slice of every per-lane array: its demand and live rows,
@@ -608,11 +620,13 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
 
 // B6 wavefront: one cluster of W blocks per lane; the lane is the
 // cluster's index and the block's rank in it is the plan lane.
-__global__ void __launch_bounds__(kThreads, 1) pack_probe_wavefront_kernel(Args lanes) {
+template <bool kSpilled>
+__global__ void __launch_bounds__(kThreads, 1) pack_probe_wavefront_kernel(Args lanes,
+                                                                           Placement p) {
   extern __shared__ __align__(16) unsigned char smem[];
   NoSplit x;
-  wavefront_body(lane_view(lanes, blockIdx.x / lanes.W), (int)cg::this_cluster().block_rank(), x,
-                 ClusterBarrier{}, smem);
+  wavefront_body<kSpilled>(lane_view(lanes, blockIdx.x / lanes.W),
+                         (int)cg::this_cluster().block_rank(), x, ClusterBarrier{}, smem, p);
 }
 
 // per-shard pointers of a split solve's config-axis arrays
@@ -643,9 +657,10 @@ struct ShardTable {
 // counter in global memory (`ShardBarrier`: release on arrival, acquire
 // on the wait; measured faster than the grid barrier at S = 2, 4 and 8,
 // PERF.md §6); the launch stays cooperative for co-residency.
+template <bool kSpilled>
 __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_sharded_kernel(
     Args base, ShardTable t, unsigned long long* slots, unsigned long long* xconf,
-    unsigned* bars, int S, int words) {
+    unsigned* bars, int S, int words, Placement p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x / base.W;
   const int w = blockIdx.x % base.W;
@@ -678,14 +693,19 @@ __global__ void __launch_bounds__(kThreads, 1) pack_wavefront_sharded_kernel(
   a.cfg_rsv = t.cfg_rsv[s];
   a.free_mask = t.free_mask[s];
   DeviceSplit x{slots + (size_t)w * 2 * S * words, s, S, words, s * a.C, 0u, 0u};
-  wavefront_body(a, w, x, DeviceShardBarrier{bars + s, (unsigned)a.W, 0u}, smem, xconf);
+  wavefront_body<kSpilled>(a, w, x, DeviceShardBarrier{bars + s, (unsigned)a.W, 0u}, smem, p,
+                         xconf);
 }
 
 // The dynamic shared memory a block takes: `smem` bytes, at least the
-// layout's; the launch is refused above the card's limit.
+// layout's when the launch is all shared (a split one of at most kXPools
+// pools), else what the placement puts there (`placed`, checked by
+// check_placement); the launch is refused above the card's limit.
 static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, int W, int G,
-                    int N) {
-  if (smem < wave_layout(C, R, P1, K, W, G, N).end) return (int)cudaErrorInvalidValue;
+                    int N, bool pools, const Placement* placed) {
+  if (placed ? check_placement(*placed, C, R, P1, K, G, pools, W, N, smem)
+             : smem < wave_layout(C, R, P1, K, W, G, N).end || (pools && P1 > kXPools))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) cudaGetLastError();
@@ -698,11 +718,12 @@ static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, i
 // launch is not made and cudaErrorInvalidConfiguration is returned. A
 // cluster of more than 8 blocks needs the non-portable size, which the
 // H100 allows up to 16.
-static int launch_clusters(const Args& a, int W, int L, int smem, int* max_clusters,
-                           cudaStream_t stream) {
+template <bool kSpilled>
+static int launch_clusters(const Args& a, const Placement& p, int W, int L, int smem,
+                           int* max_clusters, cudaStream_t stream) {
   *max_clusters = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      pack_probe_wavefront_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      pack_probe_wavefront_kernel<kSpilled>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -723,14 +744,15 @@ static int launch_clusters(const Args& a, int W, int L, int smem, int* max_clust
   // in waves of the clusters that fit at once; none fitting is an
   // error, not a reason to narrow the width
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, (const void*)pack_probe_wavefront_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)pack_probe_wavefront_kernel<kSpilled>,
+                                       &cfg);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
   *max_clusters = n;
   if (n < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, pack_probe_wavefront_kernel, a);
+  err = cudaLaunchKernelEx(&cfg, pack_probe_wavefront_kernel<kSpilled>, a, p);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -743,9 +765,12 @@ static int launch_clusters(const Args& a, int W, int L, int smem, int* max_clust
 // The wavefront scratch, in this order: free_used, bound_used,
 // free_bits (state), kcap, take, touched, spend, o_bits, o_used,
 // o_fill, o_union, lane, conf (per lane), shapes as in Args. `smem`:
-// the dynamic shared memory of a block (wave_layout). One cooperative
-// grid, the grid barrier between phases (one thread-block cluster with
-// the cluster barrier measured slower at W = 16: PERF.md §6).
+// the dynamic shared memory of a block (wave_layout); `placement`: null
+// for an all-shared launch, else SG_COUNT segment offsets
+// (table_placement) with `tables` holding block_bytes a block. One
+// cooperative grid, the grid barrier between phases (one thread-block
+// cluster with the cluster barrier measured slower at W = 16: PERF.md
+// §6).
 extern "C" int pack_wavefront_launch(
     const uint8_t* compat, const float* group_req, const int32_t* group_count,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -760,9 +785,12 @@ extern "C" int pack_wavefront_launch(
     uint32_t* o_bits, float* o_used, int32_t* o_fill, uint32_t* o_union,
     int32_t* lane, uint32_t* conf,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int smem,
-    cudaStream_t stream) {
+    const int* placement, unsigned char* tables, long long block_bytes, cudaStream_t stream) {
   if (R > kMaxR || W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
-  int serr = set_smem((const void*)pack_wavefront_kernel, smem, C, R, P1, K, W, G, B + F);
+  Placement p = make_placement(placement, tables, block_bytes);
+  const void* kernel = placement ? (const void*)pack_wavefront_kernel<true>
+                                 : (const void*)pack_wavefront_kernel<false>;
+  int serr = set_smem(kernel, smem, C, R, P1, K, W, G, B + F, false, placement ? &p : nullptr);
   if (serr) return serr;
   Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, cfg_price,
@@ -772,11 +800,11 @@ extern "C" int pack_wavefront_launch(
          kcap, take, touched, spend, o_bits, o_used, o_fill, o_union, lane, conf,
          nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost, W};
-  void* params[] = {&a};
+  void* params[] = {&a, &p};
   // all W blocks must be resident at once for the grid barrier; the
   // runtime refuses the launch otherwise
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)pack_wavefront_kernel, dim3(W), dim3(kThreads), params, smem, stream);
+  cudaError_t err =
+      cudaLaunchCooperativeKernel(kernel, dim3(W), dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the caller raises
     return (int)err;
@@ -800,10 +828,14 @@ extern "C" int pack_probe_wavefront_launch(
     uint32_t* o_bits, float* o_used, int32_t* o_fill, uint32_t* o_union,
     int32_t* lane, uint32_t* conf,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int L, int smem,
-    int* max_clusters, cudaStream_t stream) {
+    const int* placement, unsigned char* tables, long long block_bytes, int* max_clusters,
+    cudaStream_t stream) {
   *max_clusters = 0;
   if (R > kMaxR || W < 1 || W > kMaxW || L < 1) return (int)cudaErrorInvalidValue;
-  int serr = set_smem((const void*)pack_probe_wavefront_kernel, smem, C, R, P1, K, W, G, B + F);
+  Placement p = make_placement(placement, tables, block_bytes);
+  const void* kernel = placement ? (const void*)pack_probe_wavefront_kernel<true>
+                                 : (const void*)pack_probe_wavefront_kernel<false>;
+  int serr = set_smem(kernel, smem, C, R, P1, K, W, G, B + F, false, placement ? &p : nullptr);
   if (serr) return serr;
   Args a{compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
@@ -813,7 +845,8 @@ extern "C" int pack_probe_wavefront_launch(
          kcap, take, touched, spend, o_bits, o_used, o_fill, o_union, lane, conf,
          nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost, W};
-  return launch_clusters(a, W, L, smem, max_clusters, stream);
+  return placement ? launch_clusters<true>(a, p, W, L, smem, max_clusters, stream)
+                   : launch_clusters<false>(a, p, W, L, smem, max_clusters, stream);
 }
 
 // Split B3 over S shards of C columns each, W lanes: the six tables hold
@@ -823,7 +856,9 @@ extern "C" int pack_probe_wavefront_launch(
 // shard axis; slots [W, 2, S, words] (zeroed; words >= max(2F,
 // 4 P1, words_of(W)) and >= 4) are the lanes' exchange groups, xconf
 // [2, W, S, words_of(W)] (zeroed) their conflict words and bars [S]
-// (zeroed) the shards' barrier counters. *per_sm and *sms receive the
+// (zeroed) the shards' barrier counters; any P1. `placement`, `tables`,
+// `block_bytes` as pack_wavefront_launch's (a block a shard's plan
+// lane). *per_sm and *sms receive the
 // occupancy the card reports; when per_sm * sms < S * W the launch is
 // not made (cudaErrorCooperativeLaunchTooLarge) and the caller raises
 // with the numbers.
@@ -843,14 +878,17 @@ extern "C" int pack_wavefront_sharded_launch(
     int32_t* lane, uint32_t* conf,
     unsigned long long* slots, unsigned long long* xconf, unsigned* bars,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int S, int words,
-    int smem, int* per_sm, int* sms, cudaStream_t stream) {
+    int smem, const int* placement, unsigned char* tables, long long block_bytes, int* per_sm,
+    int* sms, cudaStream_t stream) {
   *per_sm = 0;
   *sms = 0;
-  if (R > kMaxR || W < 1 || W > kMaxW || S < 2 || P1 > kXPools || words < 2 * F ||
-      words < 4 * P1 || words < words_of(W) || words < 4)
+  if (R > kMaxR || W < 1 || W > kMaxW || S < 2 || words < 2 * F || words < 4 * P1 ||
+      words < words_of(W) || words < 4)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)pack_wavefront_sharded_kernel;
-  int serr = set_smem(kernel, smem, C, R, P1, K, W, G, B + F);
+  Placement p = make_placement(placement, tables, block_bytes);
+  const void* kernel = placement ? (const void*)pack_wavefront_sharded_kernel<true>
+                                 : (const void*)pack_wavefront_sharded_kernel<false>;
+  int serr = set_smem(kernel, smem, C, R, P1, K, W, G, B + F, true, placement ? &p : nullptr);
   if (serr) return serr;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -872,7 +910,7 @@ extern "C" int pack_wavefront_sharded_launch(
          nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost, W};
   ShardTable t{compat, cfg_alloc, cfg_pool, cfg_price, cfg_rsv, free_mask};
-  void* params[] = {&a, &t, &slots, &xconf, &bars, &S, &words};
+  void* params[] = {&a, &t, &slots, &xconf, &bars, &S, &words, &p};
   err = cudaLaunchCooperativeKernel(kernel, dim3(S * W), dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();

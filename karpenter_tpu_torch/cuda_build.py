@@ -12,10 +12,11 @@ Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply-add
 is contracted into an FMA (the kernels must match their plain versions
 bit for bit); never --use_fast_math.
 
-B1's, B3's and B5's sources are also built a second time with
+B1's, B3's, B4's and B5's sources are also built a second time with
 -DKARPENTER_PHASE_CLOCKS (`pack_split_clocks`, `pack_wavefront_clocks`,
-`lp_ascend_clocks`): block 0 then sums clock64() cycles per phase of a
-group step, round or ascent iteration into a device array that
+`lp_price_clocks`, `lp_ascend_clocks`): block 0 (B4: every config's
+block) then sums clock64() cycles per phase of a group step, round,
+pricing chain or ascent iteration into a device array that
 `phase_clocks_take` reads and clears. The solve never loads these;
 `pack_split.phase_clocks` swaps them in for a timed run.
 """
@@ -46,12 +47,14 @@ SOURCES = {
     "pack_split_clocks": "pack_split.cu",
     "pack_wavefront_clocks": "pack_wavefront.cu",
     "lp_ascend_clocks": "lp_ascend.cu",
+    "lp_price_clocks": "lp_price.cu",
 }
 # extra nvcc flags of a library
 EXTRA_FLAGS = {
     "pack_split_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
     "pack_wavefront_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
     "lp_ascend_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
+    "lp_price_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
 }
 
 NVCC_FLAGS = (
@@ -63,29 +66,32 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures: argument types of each library's entry points
+# a packing launch's placement: its segment offsets (null: all in shared
+# memory), the spilled tables' scratch and a block's bytes of it
+_PLACE = [_P, _P, _L]
 SIGNATURES = {
     "pack_split": {
-        "pack_split_launch": [_P] * 25 + [_I] * 10 + [_P],
-        "pack_split_sharded_launch": [_P] * 26 + [_I] * 11 + [_P],
+        "pack_split_launch": [_P] * 25 + [_I] * 10 + _PLACE + [_P],
+        "pack_split_sharded_launch": [_P] * 26 + [_I] * 11 + _PLACE + [_P],
     },
     "pack_wavefront": {
-        "pack_wavefront_launch": [_P] * 36 + [_I] * 10 + [_P],
-        "pack_probe_wavefront_launch": [_P] * 34 + [_I] * 11 + [_P, _P],
-        "pack_wavefront_sharded_launch": [_P] * 39 + [_I] * 12 + [_P] * 3,
+        "pack_wavefront_launch": [_P] * 36 + [_I] * 10 + _PLACE + [_P],
+        "pack_probe_wavefront_launch": [_P] * 34 + [_I] * 11 + _PLACE + [_P, _P],
+        "pack_wavefront_sharded_launch": [_P] * 39 + [_I] * 12 + _PLACE + [_P] * 3,
     },
     "pack_flat": {
         "pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P],
         "pack_flat_sharded_launch": [_P] * 7 + [_I] * 5 + [_P],
     },
-    "pack_dense": {"pack_dense_launch": [_P] * 22 + [_I] * 9 + [_P]},
-    "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 3 + [_P]},
+    "pack_dense": {"pack_dense_launch": [_P] * 22 + [_I] * 9 + _PLACE + [_P]},
+    "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 4 + [_P]},
     "lp_ascend": {
         "lp_ascend_launch": [_P] * 15 + [_I, _P, _L] + [_I] * 5 + [_P],
         "lp_ascend_sharded_launch": [_P] * 15 + [_I, _P, _L, _P] + [_I] * 7 + [_P],
         "lp_barrier_probe_launch": [_I, _P, _P],
     },
 }
-for _name in ("pack_split", "pack_wavefront", "lp_ascend"):
+for _name in ("pack_split", "pack_wavefront", "lp_ascend", "lp_price"):
     SIGNATURES[f"{_name}_clocks"] = {**SIGNATURES[_name], "phase_clocks_take": [_P],
                                      "phase_ns_take": [_P], "xchg_census_take": [_P]}
 

@@ -62,8 +62,20 @@ _WARM_ENTRIES = 8
 _warm_patterns: dict[tuple, dict] = {}
 _warm_lock = threading.Lock()
 
-# kernel launches of B4 (plain-version calls never count)
-LAUNCHES = {"lp_price": 0}
+# kernel launches of B4 (plain-version calls never count); a launch that
+# reads the groups' tables from global memory (`price_layout` past the
+# staged layout) also counts under "lp_price_global"
+LAUNCHES = {"lp_price": 0, "lp_price_global": 0}
+
+# B4's layouts, in order of preference (`PriceLayout` in
+# csrc/lp_price.cu): the groups' requests, duals and demand staged in
+# shared memory with the densities, fills and each lane's walk order;
+# read where their inputs lie, the walk order kept; and without the walk
+# order, every round a full argmax
+PRICE_LAYOUTS = ("staged", "walk", "full")
+# B4's dynamic shared memory a block: the card's 232,448 bytes less the
+# kernel's static 1 KB (its residual)
+PRICE_BUDGET = 232_448 - 1_024
 
 
 def reset() -> None:
@@ -257,9 +269,30 @@ def price_kernel_ref(lam, compat, group_req, eff_alloc, count):
     return q, row_value(q, lam)
 
 
-def _price_kernel_cuda(lam, compat, group_req, eff_alloc, count):
-    from karpenter_tpu_torch import cuda_build
-    from karpenter_tpu_torch.solver.pack_split import _check, _ptr, _raise_on, _stream
+def price_smem(G: int, R: int, layout: int) -> int:
+    """B4's dynamic shared memory a block in layout `layout` (an index of
+    `PRICE_LAYOUTS`; `price_smem` in csrc/lp_price.cu): the staged
+    requests [G, R], duals and demand, the densities and fills [G] each,
+    and the walk order [ceil(G/32), 32], 4 bytes an entry."""
+    nwin = (G + 31) // 32
+    staged = G * (R + 2) if layout == 0 else 0
+    walk = 0 if layout == 2 else 32 * nwin
+    return 4 * (staged + 2 * G + walk)
+
+
+def price_layout(G: int, R: int, budget: int = PRICE_BUDGET) -> int:
+    """The first of B4's `PRICE_LAYOUTS` whose dynamic shared memory fits
+    `budget`, or a ValueError naming the shape past the last (8 bytes a
+    group: 28,928 groups)."""
+    for layout in range(len(PRICE_LAYOUTS)):
+        if price_smem(G, R, layout) <= budget:
+            return layout
+    raise ValueError(f"lp_price: G={G} groups need {price_smem(G, R, 2)} bytes of dynamic "
+                     f"shared memory a block at the least; the kernel has {budget}")
+
+
+def _price_kernel_cuda(lam, compat, group_req, eff_alloc, count, layout=None):
+    from karpenter_tpu_torch.solver.pack_split import _check, _lib, _ptr, _raise_on, _stream
 
     C, R = eff_alloc.shape
     G = lam.shape[0]
@@ -270,24 +303,31 @@ def _price_kernel_cuda(lam, compat, group_req, eff_alloc, count):
     _check(count, "count", torch.int32, (G,))
     if R > 16:
         raise ValueError(f"lp_price: {R} resources exceed the kernel's 16")
+    if layout is None:
+        layout = price_layout(G, R)
     q = torch.empty((C, G), dtype=torch.int32, device=lam.device)
     value = torch.empty((C,), dtype=torch.float32, device=lam.device)
-    lib = cuda_build.library("lp_price")
+    lib = _lib("lp_price")
     err = lib.lp_price_launch(
         *(_ptr(t) for t in (lam, compat, group_req, eff_alloc, count, q, value)),
-        G, C, R, _stream(),
+        G, C, R, layout, _stream(),
     )
-    _raise_on(err, "lp_price")
+    _raise_on(err, f"lp_price ({PRICE_LAYOUTS[layout]} layout, "
+                   f"{price_smem(G, R, layout)} bytes of shared memory a block)")
     LAUNCHES["lp_price"] += 1
+    if layout:
+        LAUNCHES["lp_price_global"] += 1
     return q, value
 
 
-def price_kernel(lam, compat, group_req, eff_alloc, count):
+def price_kernel(lam, compat, group_req, eff_alloc, count, layout=None):
     """B4. Arguments and outputs as `price_kernel_ref`. CUDA tensors
-    launch the kernel (`csrc/lp_price.cu`, one block per config); CPU
-    tensors run the plain version; any other device raises."""
+    launch the kernel (`csrc/lp_price.cu`, one block per config) in
+    `layout` (an index of `PRICE_LAYOUTS`; by default `price_layout`'s
+    choice); CPU tensors run the plain version; any other device
+    raises."""
     if lam.is_cuda:
-        return _price_kernel_cuda(lam, compat, group_req, eff_alloc, count)
+        return _price_kernel_cuda(lam, compat, group_req, eff_alloc, count, layout)
     if lam.device.type == "cpu":
         return price_kernel_ref(lam, compat, group_req, eff_alloc, count)
     raise ValueError(f"lp_price: no kernel for device {lam.device}")

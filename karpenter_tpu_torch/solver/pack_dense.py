@@ -44,18 +44,23 @@ from karpenter_tpu_torch.solver.pack_split import (
     _open_pick,
     _prefix_take_ref,
     _Problem,
+    _budget,
+    _count,
     _ptr,
     _raise_on,
     _route,
     _stream,
-    check_smem,
     pack_flat_words_ref,
-    table_smem_bytes,
+    placement_args,
+    placement_text,
+    table_placement,
 )
 
 # kernel launches per wrapper (plain-version calls never count); a
-# `pack_flat` call launches B7 (counted under "pack") and its epilogue
-LAUNCHES = {"pack": 0, "pack_flat": 0}
+# `pack_flat` call launches B7 (counted under "pack") and its epilogue; a
+# B7 launch whose tables spill past the shared-memory budget also counts
+# under "pack_global"
+LAUNCHES = {"pack": 0, "pack_global": 0, "pack_flat": 0}
 
 
 def reset_launch_counts() -> None:
@@ -271,8 +276,9 @@ def _pack_cuda(
     node_active = torch.zeros((N,), dtype=torch.bool, device=dev)
     node_count = torch.zeros((), dtype=i32, device=dev)
     unsched = torch.zeros((G,), dtype=i32, device=dev)
-    smem = check_smem("pack", table_smem_bytes(C, R, P1, K, G),
-                      f"C={C} R={R} P1={P1} K={K} G={G}")
+    lay = table_placement(C, R, P1, K, G, budget=_budget[0])
+    smem = lay["smem"]
+    offsets, tables, per = placement_args(lay, 1, dev)
     # scratch: per-row capacity and take (the config tables live in the
     # block's shared memory)
     scratch = [
@@ -287,11 +293,12 @@ def _pack_cuda(
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(node_mask), _ptr(node_used), _ptr(node_active),
         _ptr(node_count), _ptr(unsched), *[_ptr(t) for t in scratch],
-        G, C, R, E, N, K, P1, 1 if mode == "cost" else 0, smem, _stream(),
+        G, C, R, E, N, K, P1, 1 if mode == "cost" else 0, smem, offsets, _ptr(tables), per,
+        _stream(),
     )
-    _raise_on(err, f"pack (one block, {smem} bytes of shared memory)")
-    DYNAMIC_SMEM["pack"] = smem
-    LAUNCHES["pack"] += 1
+    _raise_on(err, f"pack (one block, {placement_text(lay)})")
+    DYNAMIC_SMEM["pack"] = placement_text(lay)
+    _count("pack", lay, LAUNCHES)
     return assign, node_mask, node_used, node_active, node_count, unsched
 
 

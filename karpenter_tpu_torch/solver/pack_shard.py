@@ -29,7 +29,10 @@ own replica of the replicated state (node usage, assignment, node
 count, reservation use, done flags, unschedulable counts), the shards
 exchanging only their partial reductions. Outputs carry a leading
 replica axis of S (assign [S, N, G], node_count [S], unsched [S, G],
-and for B3 steps [S], widths [S, G]); the masks come back per shard.
+and for B3 steps [S], widths [S, G]); the masks come back per shard, as
+views of one [S, F, Cs] buffer, which split B2 reads whole. Past the
+shared-memory budget, and at any number of node pools, the split
+kernels take the placement of `pack_split.table_placement`.
 The plain versions return S copies of their one result.
 `LAUNCHES` counts kernel launches per wrapper.
 """
@@ -41,13 +44,16 @@ import ctypes
 import torch
 
 from karpenter_tpu_torch.solver.pack_split import (
-    BIG, CAP_MAX, DYNAMIC_SMEM, INT_BIG, _caps, _check, _kernel_inputs,
-    _lib, _prefix_take_ref, _ptr, _raise_on, _route, _stream, check_smem, table_smem_bytes,
-    wavefront_scratch, wavefront_smem_bytes, words_pad,
+    BIG, CAP_MAX, DYNAMIC_SMEM, INT_BIG, _budget, _caps, _check, _count, _kernel_inputs,
+    _lib, _prefix_take_ref, _ptr, _raise_on, _route, _stream, placement_args,
+    placement_text, table_placement, wavefront_scratch, words_pad,
 )
 
-# kernel launches per wrapper (plain-version calls never count)
-LAUNCHES = {"pack_split_sharded": 0, "pack_split_wavefront_sharded": 0,
+# kernel launches per wrapper (plain-version calls never count); a split
+# B1 or B3 launch whose tables spill past the shared-memory budget also
+# counts under "<wrapper>_global"
+LAUNCHES = {"pack_split_sharded": 0, "pack_split_sharded_global": 0,
+            "pack_split_wavefront_sharded": 0, "pack_split_wavefront_sharded_global": 0,
             "pack_flat_words_sharded": 0}
 
 def reset_launch_counts() -> None:
@@ -534,6 +540,25 @@ def _shard_inputs(what, mode, compat, group_req, group_count, cfg_alloc,
     return S, Cs, cfg_rsv, rsv_cap_s
 
 
+def _shard_masks(S: int, F: int, Cs: int, dev) -> list:
+    """The S shards' fresh-row masks [F, Cs], zeroed: views of one
+    [S, F, Cs] buffer, which split B2 reads whole (`_mask_buffer`)."""
+    return list(torch.zeros((S, F, Cs), dtype=torch.bool, device=dev).unbind(0))
+
+
+def _mask_buffer(free_mask: list) -> torch.Tensor:
+    """The S masks as one [S, F, Cs] buffer: the one they are views of
+    (the split kernels' outputs), else a stacked copy."""
+    base, (F, Cs) = free_mask[0], free_mask[0].shape
+    store = base.untyped_storage()
+    whole = all(m.is_contiguous() and m.untyped_storage().data_ptr() == store.data_ptr()
+                and m.data_ptr() == base.data_ptr() + s * F * Cs
+                for s, m in enumerate(free_mask))
+    if whole and store.nbytes() >= base.storage_offset() + len(free_mask) * F * Cs:
+        return torch.as_strided(base, (len(free_mask), F, Cs), (F * Cs, Cs, 1))
+    return torch.stack(free_mask)
+
+
 def _xchg_scratch(groups: int, S: int, words: int, dev) -> torch.Tensor:
     """The exchange's slots: [groups, 2, S, words] flagged 64-bit words
     (a 32-bit datum and its exchange's tag), double-buffered by parity,
@@ -541,18 +566,10 @@ def _xchg_scratch(groups: int, S: int, words: int, dev) -> torch.Tensor:
     return torch.zeros((groups, 2, S, max(words, 4)), dtype=torch.int64, device=dev)
 
 
-# pools a split packing kernel's open loop takes (kXPools in
-# csrc/pack_common.cuh)
-X_POOLS = 64
-
-
-def _xchg_words(what: str, F: int, P1: int, W: int = 1) -> int:
+def _xchg_words(F: int, P1: int, W: int = 1) -> int:
     """Slot words of a split packing launch: two a fresh row (its
-    partial maxima), four a pool (an open's entries), a lane's conflict
-    words; or a ValueError beyond the pools the open loop takes."""
-    if P1 > X_POOLS:
-        raise ValueError(f"{what}: {P1 - 1} node pools; the split kernels take at most "
-                         f"{X_POOLS - 1}")
+    partial maxima), four a pool (an open's entries, any number of
+    pools), a lane's conflict words."""
     return max(2 * F, 4 * P1, (W + 31) // 32)
 
 
@@ -578,11 +595,12 @@ def _pack_split_sharded_cuda(
     P1 = pool_overhead.shape[0]
     i32, f32 = torch.int32, torch.float32
     assign = torch.zeros((S, N, G), dtype=i32, device=dev)
-    free_mask = [torch.zeros((F, Cs), dtype=torch.bool, device=dev) for _ in range(S)]
+    free_mask = _shard_masks(S, F, Cs, dev)
     node_count = torch.zeros((S,), dtype=i32, device=dev)
     unsched = torch.zeros((S, G), dtype=i32, device=dev)
-    smem = check_smem("pack_split_sharded", table_smem_bytes(Cs, R, P1, K, G),
-                      f"Cs={Cs} R={R} P1={P1} K={K} G={G}")
+    lay = table_placement(Cs, R, P1, K, G, pools=True, budget=_budget[0])
+    smem = lay["smem"]
+    offsets, spilled_tables, per = placement_args(lay, S, dev)
     # each replica's state (its columns' bits too), on a leading shard axis
     scratch = [
         torch.empty((S, F, R), dtype=f32, device=dev),        # free_used
@@ -590,7 +608,7 @@ def _pack_split_sharded_cuda(
         torch.empty((S, F, words_pad(Cs)), dtype=i32, device=dev),  # free_bits
         torch.empty((S, N), dtype=i32, device=dev),           # kcap
     ]
-    slots = _xchg_scratch(1, S, _xchg_words("pack_split_sharded", F, P1), dev)
+    slots = _xchg_scratch(1, S, _xchg_words(F, P1), dev)
     tables = [_table(x, dev) for x in (compat, cfg_alloc, cfg_pool, cfg_price,
                                          cfg_rsv, free_mask)]
     lib = _lib("pack_split")
@@ -602,12 +620,12 @@ def _pack_split_sharded_cuda(
         _ptr(assign), _ptr(node_count), _ptr(unsched), *[_ptr(t) for t in scratch],
         _ptr(slots),
         G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, S, slots.shape[-1], smem,
-        _stream(),
+        offsets, _ptr(spilled_tables), per, _stream(),
     )
-    _raise_on(err, f"pack_split_sharded (cooperative grid of {S} blocks, {smem} bytes of "
-                   "shared memory a block)")
-    DYNAMIC_SMEM["pack_split_sharded"] = smem
-    LAUNCHES["pack_split_sharded"] += 1
+    _raise_on(err, f"pack_split_sharded (cooperative grid of {S} blocks, "
+                   f"{placement_text(lay)} a block)")
+    DYNAMIC_SMEM["pack_split_sharded"] = placement_text(lay)
+    _count("pack_split_sharded", lay, LAUNCHES)
     return assign, free_mask, node_count, unsched
 
 
@@ -636,20 +654,20 @@ def _pack_split_wavefront_sharded_cuda(
     P1 = pool_overhead.shape[0]
     i32 = torch.int32
     assign = torch.zeros((S, N, G), dtype=i32, device=dev)
-    free_mask = [torch.zeros((F, Cs), dtype=torch.bool, device=dev) for _ in range(S)]
+    free_mask = _shard_masks(S, F, Cs, dev)
     node_count = torch.zeros((S,), dtype=i32, device=dev)
     unsched = torch.zeros((S, G), dtype=i32, device=dev)
     steps = torch.zeros((S,), dtype=i32, device=dev)
     widths = torch.zeros((S, G), dtype=i32, device=dev)
-    smem = check_smem("pack_split_wavefront_sharded",
-                      wavefront_smem_bytes(Cs, R, P1, K, W, G, N),
-                      f"Cs={Cs} R={R} P1={P1} K={K} W={W} G={G} N={N}")
+    lay = table_placement(Cs, R, P1, K, G, pools=True, W=W, N=N, budget=_budget[0])
+    smem = lay["smem"]
+    offsets, spilled_tables, per = placement_args(lay, S * W, dev)
     # each replica's state and plan scratch (its columns' bits too), on a
     # leading shard axis
     scratch = wavefront_scratch((S,), W, G, Cs, R, B, F, K, dev)
     # one exchange group per plan lane (the S blocks planning it), one
     # barrier counter per shard
-    slots = _xchg_scratch(W, S, _xchg_words("pack_split_wavefront_sharded", F, P1, W), dev)
+    slots = _xchg_scratch(W, S, _xchg_words(F, P1, W), dev)
     # the lanes' conflict words, flagged, by the round's parity
     xconf = torch.zeros((2, W, S, (W + 31) // 32), dtype=torch.int64, device=dev)
     bars = torch.zeros((S,), dtype=i32, device=dev)
@@ -666,23 +684,23 @@ def _pack_split_wavefront_sharded_cuda(
         _ptr(assign), _ptr(node_count), _ptr(unsched), _ptr(steps), _ptr(widths),
         *[_ptr(t) for t in scratch], _ptr(slots), _ptr(xconf), _ptr(bars),
         G, Cs, R, B, F, K, P1, 1 if mode == "cost" else 0, W, S, slots.shape[-1], smem,
-        ctypes.byref(per_sm), ctypes.byref(sms), _stream(),
+        offsets, _ptr(spilled_tables), per, ctypes.byref(per_sm), ctypes.byref(sms), _stream(),
     )
-    DYNAMIC_SMEM["pack_split_wavefront_sharded"] = smem
+    DYNAMIC_SMEM["pack_split_wavefront_sharded"] = placement_text(lay)
     if per_sm.value * sms.value < S * W:
         raise RuntimeError(
             f"pack_split_wavefront_sharded: {S} shards x {W} lanes need {S * W} "
             f"co-resident blocks of 1024 threads; the card holds {per_sm.value} a "
             f"multiprocessor x {sms.value} multiprocessors = {per_sm.value * sms.value}")
-    _raise_on(err, f"pack_split_wavefront_sharded (cooperative grid of {S} x {W} blocks)")
-    LAUNCHES["pack_split_wavefront_sharded"] += 1
+    _raise_on(err, f"pack_split_wavefront_sharded (cooperative grid of {S} x {W} blocks, "
+                   f"{placement_text(lay)} a block)")
+    _count("pack_split_wavefront_sharded", lay, LAUNCHES)
     return assign, free_mask, node_count, unsched, steps, widths
 
 
-def _pack_flat_words_sharded_cuda(assign, free_mask, node_count, unsched,
-                                  widths=None, steps=None):
-    from karpenter_tpu_torch import cuda_build
-
+def _flat_sharded_args(assign, free_mask, node_count, unsched, widths=None, steps=None):
+    """Check split B2's inputs; returns (masks [S, F, Cs], the output
+    row, its launch's shapes)."""
     S, N, G = assign.shape
     F, Cs = free_mask[0].shape
     Cp = Cs * len(free_mask)
@@ -694,20 +712,46 @@ def _pack_flat_words_sharded_cuda(assign, free_mask, node_count, unsched,
         raise ValueError("pack_flat_words_sharded: widths and steps come together")
     _check(assign, "assign", torch.int32, (S, N, G))
     for s, m in enumerate(free_mask):
-        _check(m, f"free_mask[{s}]", torch.bool, (F, Cs))
+        if m.device != assign.device or m.dtype != torch.bool or tuple(m.shape) != (F, Cs):
+            raise ValueError(f"free_mask[{s}]: expected a bool [{F}, {Cs}] tensor on "
+                             f"{assign.device}, got {m.dtype} {tuple(m.shape)} on {m.device}")
     _check(node_count, "node_count", torch.int32, (S,))
     _check(unsched, "unsched", torch.int32, (S, G))
     if widths is not None:
         _check(widths, "widths", torch.int32, (S, G))
         _check(steps, "steps", torch.int32, (S,))
     n_row = N * G + F * (Cp // 32) + 1 + G + (0 if widths is None else G + 1)
-    dev = assign.device
-    out = torch.empty((n_row,), dtype=torch.int32, device=dev)
-    table = _table(free_mask, dev)
+    out = torch.empty((n_row,), dtype=torch.int32, device=assign.device)
+    return _mask_buffer(free_mask), out, (N, G, F, Cs, S)
+
+
+def flat_sharded_launcher(assign, free_mask, node_count, unsched, widths=None, steps=None):
+    """A zero-argument function that launches split B2's kernel alone on
+    these inputs into one output row, allocated and checked once here:
+    the kernel's time without the call's host work (`chip_smoke.py`
+    times the two apart). Returns the launch's CUDA error code."""
+    from karpenter_tpu_torch import cuda_build
+
+    masks, out, shape = _flat_sharded_args(assign, free_mask, node_count, unsched, widths,
+                                           steps)
+    lib = cuda_build.library("pack_flat")
+    ptrs = [_ptr(t) for t in (assign, masks, node_count, unsched, widths, steps, out)]
+
+    def launch() -> int:
+        return lib.pack_flat_sharded_launch(*ptrs, *shape, _stream())
+    return launch
+
+
+def _pack_flat_words_sharded_cuda(assign, free_mask, node_count, unsched,
+                                  widths=None, steps=None):
+    from karpenter_tpu_torch import cuda_build
+
+    masks, out, shape = _flat_sharded_args(assign, free_mask, node_count, unsched, widths,
+                                           steps)
     lib = cuda_build.library("pack_flat")
     err = lib.pack_flat_sharded_launch(
-        _ptr(assign), _ptr(table), _ptr(node_count), _ptr(unsched), _ptr(widths),
-        _ptr(steps), _ptr(out), N, G, F, Cs, S, _stream(),
+        _ptr(assign), _ptr(masks), _ptr(node_count), _ptr(unsched), _ptr(widths),
+        _ptr(steps), _ptr(out), *shape, _stream(),
     )
     _raise_on(err, "pack_flat_words_sharded")
     LAUNCHES["pack_flat_words_sharded"] += 1

@@ -25,6 +25,14 @@ CUDA tensors it launches its hand-written kernel
 (`karpenter_tpu_torch/csrc/*.cu`) or raises; there is no fallback.
 `LAUNCHES` counts kernel launches per wrapper.
 
+The packing kernels keep their config and group tables in a block's
+dynamic shared memory. `table_placement` places them: the
+all-shared layout when it fits the card's budget, else each segment in
+shared memory while the budget holds it and the rest in global memory,
+which the same kernel's spilled instantiation reads (counted under
+`LAUNCHES["<wrapper>_global"]`; `DYNAMIC_SMEM` records each launch's
+placement).
+
 The plain versions follow the JAX body step by step, with Python
 loops over groups (B3: over rounds and lanes), in float32 and in the
 same order of operations, so their outputs are byte-identical to the
@@ -57,13 +65,18 @@ SMEM_LIMIT = 232_448
 STATIC_SMEM = 8_192
 SMEM_BUDGET = SMEM_LIMIT - STATIC_SMEM
 
-# kernel launches per wrapper (plain-version calls never count)
-LAUNCHES = {"pack_split": 0, "pack_split_wavefront": 0, "pack_split_flat": 0,
-            "pack_probe_lanes": 0, "pack_probe_lanes_wavefront": 0,
+# kernel launches per wrapper (plain-version calls never count); a
+# launch whose tables spill past the shared-memory budget also counts
+# under "<wrapper>_global"
+LAUNCHES = {"pack_split": 0, "pack_split_global": 0, "pack_split_wavefront": 0,
+            "pack_split_wavefront_global": 0, "pack_split_flat": 0,
+            "pack_probe_lanes": 0, "pack_probe_lanes_global": 0,
+            "pack_probe_lanes_wavefront": 0, "pack_probe_lanes_wavefront_global": 0,
             "pack_probe_lanes_flat": 0}
 
-# wrapper -> the dynamic shared memory a block of its last launch took
-DYNAMIC_SMEM: dict[str, int] = {}
+# wrapper -> the placement of its last launch's tables: "<n> B shared,
+# <m> B global scratch (all in shared memory | global: <segments>)"
+DYNAMIC_SMEM: dict[str, str] = {}
 
 # cluster width W -> the active-cluster count the card reported at the
 # last B6 wavefront launch (cudaOccupancyMaxActiveClusters)
@@ -85,6 +98,7 @@ PHASES = {
                        "plan: takes", "plan: open", "plan: tail", "barrier 1 wait",
                        "conflicts", "barrier 2 wait", "accept", "commit",
                        "barrier 3 wait"),
+    "lp_price": ("density prologue", "rounds", "value sum"),
     "lp_ascend": ("init", "step: norm, update, ratio", "fwd: max and ties",
                   "fwd: vh0, z", "fwd: theta, excess, mu, dot, dtheta_a",
                   "fwd: mu ties, bound", "keep best", "sg: dexcess, dtheta_b terms",
@@ -137,11 +151,8 @@ def table_smem_bytes(C: int, R: int, P1: int, K: int, G: int) -> int:
     the reservation use and a group's spend, kopen, fits, the capped
     columns as bits, and the G groups' demand, request and compat bits.
     A B1, B6 sequential or B7 block takes these; B3's takes more
-    (`wavefront_smem_bytes`)."""
-    nw = words_pad(C)
-    return (_align16(4 * C * R) + _align16(4 * P1 * R) + 3 * _align16(4 * C)
-            + _align16(4 * K) + 2 * _align16(4 * (K + 1)) + _align16(4 * C)
-            + _align16(C) + 4 * nw + _align16(4 * G) + _align16(4 * G * R) + 4 * G * nw)
+    (`wavefront_smem_bytes`), a split kernel's its pool segment more."""
+    return sum(segment_bytes(C, R, P1, K, G).values())
 
 
 def wavefront_smem_bytes(C: int, R: int, P1: int, K: int, W: int, G: int, N: int) -> int:
@@ -150,10 +161,148 @@ def wavefront_smem_bytes(C: int, R: int, P1: int, K: int, W: int, G: int, N: int
     bits, the conflict pass's offsets, the lane's conflict words, the
     acceptance scan's verdicts and offsets, and the lane's filled rows
     as bits over the N rows (`wave_layout` in csrc/pack_wavefront.cu)."""
-    return (table_smem_bytes(C, R, P1, K, G) + _align16(4 * W * WAVEFRONT_LANE_FIELDS)
-            + _align16(4 * W * words_of(W)) + _align16(4 * words_of(G))
-            + _align16(4 * (W + 1)) + _align16(4 * words_of(W)) + 2 * _align16(4 * W)
-            + _align16(4 * words_of(N)))
+    return sum(segment_bytes(C, R, P1, K, G, W=W, N=N).values())
+
+
+def pool_smem_bytes(P1: int) -> int:
+    """The pool segment of a placed split kernel's block (`pool_bytes` in
+    csrc/pack_common.cuh): each pool's least pick key (8 bytes), then its
+    least uncapped price and flag (4 each)."""
+    return _align16(8 * P1) + 2 * _align16(4 * P1)
+
+
+# pools an all-shared split kernel's open loop holds in static shared
+# memory (kXPools in csrc/pack_common.cuh); a split launch of more takes
+# a placed layout, whose pool segment is sized by P1
+X_POOLS = 64
+
+
+# The segments of a packing block (`Seg` in csrc/pack_common.cuh, in this
+# order): the config tables, the groups' tables, the split kernels' pool
+# segments, then B3's round bookkeeping and filled-row bits.
+SEGMENTS = ("alloc", "oh", "price", "pool", "rsv", "rsv_cap", "rsv_used", "spend", "kopen",
+            "fits", "capped", "gcount", "greq", "gbits", "pools", "lanes", "conf", "done",
+            "uoff", "mconf", "accept", "offset", "touch")
+# read-only tables: spilled, they are read where their inputs lie
+INPUT_SEGMENTS = frozenset(("alloc", "oh", "price", "pool", "rsv", "rsv_cap", "gcount", "greq"))
+# B3's round bookkeeping: always in shared memory
+PINNED_SEGMENTS = ("lanes", "conf", "done", "uoff", "mconf", "accept", "offset")
+# The order in which a placement keeps segments in shared memory, the
+# first kept first: the small per-open state, then the config tables that
+# every sweep reads (alloc, capped) and the open loop's (kopen, fits,
+# pool, rsv, price), then B3's filled-row bits, the groups' demand and
+# requests, and last the groups' compat bits (4 G words_pad(C) bytes; a
+# step reads one row of them, a round W rows), which spill first.
+KEEP_ORDER = PINNED_SEGMENTS + (
+    "rsv_used", "spend", "rsv_cap", "oh", "pools", "capped", "alloc",
+    "kopen", "fits", "pool", "rsv", "price", "touch", "gcount", "greq", "gbits")
+
+
+def segment_bytes(C: int, R: int, P1: int, K: int, G: int, pools: bool = False, W: int = 0,
+                  N: int = 0) -> dict:
+    """Each segment's bytes (`seg_bytes` in csrc/pack_common.cuh): the
+    pool segment only in a placed split kernel's block (`pools`), B3's
+    only with W > 0."""
+    nw, ww = words_pad(C), words_of(W)
+    a = _align16
+    return {
+        "alloc": a(4 * C * R), "oh": a(4 * P1 * R), "price": a(4 * C), "pool": a(4 * C),
+        "rsv": a(4 * C), "rsv_cap": a(4 * K), "rsv_used": a(4 * (K + 1)),
+        "spend": a(4 * (K + 1)), "kopen": a(4 * C), "fits": a(C), "capped": 4 * nw,
+        "gcount": a(4 * G), "greq": a(4 * G * R), "gbits": 4 * G * nw,
+        "pools": pool_smem_bytes(P1) if pools else 0,
+        "lanes": a(4 * W * WAVEFRONT_LANE_FIELDS) if W else 0,
+        "conf": a(4 * W * ww) if W else 0, "done": a(4 * words_of(G)) if W else 0,
+        "uoff": a(4 * (W + 1)) if W else 0, "mconf": a(4 * ww) if W else 0,
+        "accept": a(4 * W) if W else 0, "offset": a(4 * W) if W else 0,
+        "touch": a(4 * words_of(N)) if W else 0,
+    }
+
+
+def table_placement(C: int, R: int, P1: int, K: int, G: int, *, pools: bool = False,
+                    W: int = 0, N: int = 0, budget: int | None = None) -> dict:
+    """Where a packing block keeps each segment (`Placement` in
+    csrc/pack_common.cuh). When the whole layout fits the budget
+    (`SMEM_BUDGET` unless given) and a split kernel (`pools`) has at most
+    `X_POOLS` pools, every segment sits at its offset in the all-shared
+    layout (`table_layout`, then B3's `wave_layout`; a split kernel's
+    pool entries are static arrays), and the launch runs the all-shared
+    kernel. Else the launch is placed: in `KEEP_ORDER`, each segment (a
+    split kernel's pool segment among them) stays in shared memory (on
+    16 bytes) while the budget holds it; the rest go to global memory: a
+    read-only table is read where its input lies, a mutable or derived
+    one gets its offset in the block's scratch slice. B3's round
+    bookkeeping must stay in shared memory (`check_smem`). Returns
+    {"offsets": [one per SEGMENTS entry: the shared-memory byte offset,
+    or ~ the scratch byte offset], "smem": bytes, "scratch": bytes a
+    block, "global": [the segments in global memory], "spilled": bool,
+    true for a placed launch}."""
+    budget = SMEM_BUDGET if budget is None else budget
+    size = segment_bytes(C, R, P1, K, G, pools, W, N)
+    shared = {**size, "pools": 0}  # all shared: the pool entries are static
+    total = sum(shared.values())
+    shape = f"C={C} R={R} P1={P1} K={K} G={G}" + (f" W={W} N={N}" if W else "")
+    if total <= budget and not (pools and P1 > X_POOLS):
+        offsets, o = [], 0
+        for name in SEGMENTS:  # the all-shared layout is SEGMENTS' order
+            offsets.append(o)
+            o += shared[name]
+        return {"offsets": offsets, "smem": total, "scratch": 0, "global": [],
+                "spilled": False}
+    check_smem("a packing block's round bookkeeping",
+               sum(size[n] for n in PINNED_SEGMENTS), shape)
+    at, smem, scratch, spilled = {}, 0, 0, []
+    for name in KEEP_ORDER:
+        n = size[name]
+        if name in PINNED_SEGMENTS or smem + n <= budget:
+            at[name] = smem
+            smem += n
+        else:
+            at[name] = ~scratch
+            if name not in INPUT_SEGMENTS:
+                scratch += n
+            if n:
+                spilled.append(name)
+    return {"offsets": [at[n] for n in SEGMENTS], "smem": smem, "scratch": scratch,
+            "global": [n for n in SEGMENTS if n in spilled], "spilled": True}
+
+
+def placement_text(lay: dict) -> str:
+    """A placement as `DYNAMIC_SMEM` records it."""
+    where = f"global: {', '.join(lay['global'])}" if lay["global"] else "all in shared memory"
+    if lay["spilled"] and not lay["global"]:
+        where = "placed, " + where
+    return f"{lay['smem']} B shared, {lay['scratch']} B global scratch ({where})"
+
+
+# the budget the wrappers place their launches under (`forced_budget`)
+_budget: list[int] = [SMEM_BUDGET]
+
+
+@contextlib.contextmanager
+def forced_budget(nbytes: int):
+    """Within the block, the packing wrappers (B1, B3, B6, B7 and split
+    B1 and B3) place their tables under `nbytes` of shared memory in
+    place of `SMEM_BUDGET`: a smaller budget forces the spilled layout
+    on a shape that fits, to time both on the same problem."""
+    old = _budget[0]
+    _budget[0] = int(nbytes)
+    try:
+        yield
+    finally:
+        _budget[0] = old
+
+
+def placement_args(lay: dict, blocks: int, dev):
+    """A placement as launch arguments: the offsets (a ctypes int array,
+    or None for an all-shared launch), the scratch tensor (`blocks`
+    slices; None when all shared) and a block's scratch bytes."""
+    if not lay["spilled"]:
+        return None, None, 0
+    offsets = (ctypes.c_int * len(SEGMENTS))(*lay["offsets"])
+    per = max(lay["scratch"], 16)
+    scratch = torch.empty((blocks * per,), dtype=torch.uint8, device=dev)
+    return offsets, scratch, per
 
 
 def check_smem(what: str, nbytes: int, shape: str) -> int:
@@ -177,7 +326,8 @@ def _lib(name: str):
 def phase_clocks(name: str):
     """Within the block, the kernels of library `name` ("pack_split":
     B1 and B6 sequential; "pack_wavefront": B3 and B6 wavefront;
-    "lp_ascend": B5 and split B5) launch from its phase-clock build.
+    "lp_price": B4; "lp_ascend": B5 and split B5) launch from its
+    phase-clock build.
     The split kernels (B8) of a library launch from the same build.
     Yields `take()`, which synchronizes and returns {phase: cycles}
     summed since the last take, with "count" the steps (B1), rounds (B3)
@@ -186,7 +336,11 @@ def phase_clocks(name: str):
     the regions inside its phases, "ns" the global timer's ns over the
     same phases (cycles / ns: the SM clock) and "exchanges" the split packing
     kernels' census ({kind: (exchanges, cycles, block barriers)},
-    `XCHG_KINDS`), and clears the clocks."""
+    `XCHG_KINDS`), and clears the clocks. B4's phases are every config's
+    chain summed, "count" the configs, with "round_count" (their
+    rounds), "max_rounds", "round_cycles" (the least and the most
+    cycles of a round, a config's rounds' cycles over its rounds) and
+    "monotone" (the configs whose rounds took the monotone path)."""
     if name not in PHASES:
         raise ValueError(f"phase_clocks: no phase-clock build of {name!r}")
 
@@ -202,6 +356,13 @@ def phase_clocks(name: str):
         if name == "lp_ascend":
             out["barriers"] = buf[BARRIER_SLOT]
             out["regions"] = {k: buf[REGION_SLOT + i] for i, k in enumerate(REGIONS[name])}
+        elif name == "lp_price":
+            # "count": configs; their rounds, the most of a config, and
+            # the most and least cycles of a round over the configs
+            out["round_count"], out["max_rounds"], out["monotone"] = buf[3], buf[4], buf[7]
+            out["round_parts"] = dict(zip(("scan", "winner", "take", "update"), buf[8:12]))
+            out["walk"] = (buf[12], buf[13])  # entries tested: lane 0's, the most a round
+            out["round_cycles"] = (~buf[6] & (2**64 - 1) if buf[6] else 0, buf[5])
         else:
             out["spreads"] = {k: (buf[hi], buf[total]) for k, (hi, total) in SPREADS.items()}
             census = (ctypes.c_ulonglong * (3 * len(XCHG_KINDS)))()
@@ -757,6 +918,15 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def _count(what: str, lay: dict, launches: dict | None = None) -> None:
+    """One launch of wrapper `what`, and one of "<what>_global" when its
+    placement spilled."""
+    launches = LAUNCHES if launches is None else launches
+    launches[what] += 1
+    if lay["spilled"]:
+        launches[f"{what}_global"] += 1
+
+
 def _kernel_inputs(what, mode, compat, group_req, group_count, cfg_alloc,
                   cfg_pool, pool_overhead, bound_compat, bound_alloc,
                   bound_used0, bound_slot, bound_live, cfg_price, bound_quota,
@@ -813,7 +983,6 @@ def _pack_split_cuda(
         pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
         bound_live[None], cfg_price, max_free, mode, cfg_rsv, rsv_cap, conflict,
         bound_quota, group_cap)
-    LAUNCHES["pack_split"] += 1
     return tuple(t[0] for t in outs)
 
 
@@ -848,8 +1017,9 @@ def _pack_split_wavefront_cuda(
     unsched = torch.zeros((G,), dtype=i32, device=dev)
     steps = torch.zeros((), dtype=i32, device=dev)
     widths = torch.zeros((G,), dtype=i32, device=dev)
-    smem = check_smem("pack_split_wavefront", wavefront_smem_bytes(C, R, P1, K, W, G, N),
-                      f"C={C} R={R} P1={P1} K={K} W={W} G={G} N={N}")
+    lay = table_placement(C, R, P1, K, G, W=W, N=N, budget=_budget[0])
+    smem = lay["smem"]
+    offsets, tables, per = placement_args(lay, W, dev)
     scratch = wavefront_scratch((), W, G, C, R, B, F, K, dev)
     lib = _lib("pack_wavefront")
     err = lib.pack_wavefront_launch(
@@ -860,12 +1030,13 @@ def _pack_split_wavefront_cuda(
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
         _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, smem, _stream(),
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, smem, offsets, _ptr(tables),
+        per, _stream(),
     )
-    DYNAMIC_SMEM["pack_split_wavefront"] = smem
-    _raise_on(err, f"pack_split_wavefront (cooperative grid of {W} blocks, {smem} bytes of "
-                   "shared memory a block)")
-    LAUNCHES["pack_split_wavefront"] += 1
+    DYNAMIC_SMEM["pack_split_wavefront"] = placement_text(lay)
+    _raise_on(err, f"pack_split_wavefront (cooperative grid of {W} blocks, "
+                   f"{placement_text(lay)} a block)")
+    _count("pack_split_wavefront", lay)
     return assign, free_mask, node_count, unsched, steps, widths
 
 
@@ -950,8 +1121,9 @@ def _launch_pack_split(
     free_mask = torch.zeros((L, F, C), dtype=torch.bool, device=dev)
     node_count = torch.zeros((L,), dtype=i32, device=dev)
     unsched = torch.zeros((L, G), dtype=i32, device=dev)
-    smem = check_smem(what, table_smem_bytes(C, R, P1, K, G),
-                      f"C={C} R={R} P1={P1} K={K} G={G}")
+    lay = table_placement(C, R, P1, K, G, budget=_budget[0])
+    smem = lay["smem"]
+    offsets, tables, per = placement_args(lay, L, dev)
     # scratch, one slice per lane: per-row usage, the fresh rows' config
     # bits, per-row capacity (then take)
     scratch = [
@@ -969,10 +1141,12 @@ def _launch_pack_split(
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
         _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
         *[_ptr(t) for t in scratch],
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, smem, _stream(),
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, smem, offsets, _ptr(tables),
+        per, _stream(),
     )
-    _raise_on(err, f"{what} ({L} blocks, one a lane, {smem} bytes of shared memory)")
-    DYNAMIC_SMEM[what] = smem
+    _raise_on(err, f"{what} ({L} blocks, one a lane, {placement_text(lay)} a block)")
+    DYNAMIC_SMEM[what] = placement_text(lay)
+    _count(what, lay)
     return assign, free_mask, node_count, unsched
 
 
@@ -986,7 +1160,6 @@ def _pack_probe_lanes_cuda(
         "pack_probe_lanes", compat, group_req, lane_counts, cfg_alloc, cfg_pool,
         pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
         lane_live, cfg_price, max_free, mode, cfg_rsv, rsv_cap, conflict)
-    LAUNCHES["pack_probe_lanes"] += 1
     return outs
 
 
@@ -1020,9 +1193,9 @@ def _pack_probe_lanes_wavefront_cuda(
     unsched = torch.zeros((L, G), dtype=i32, device=dev)
     steps = torch.zeros((L,), dtype=i32, device=dev)
     widths = torch.zeros((L, G), dtype=i32, device=dev)
-    smem = check_smem("pack_probe_lanes_wavefront",
-                      wavefront_smem_bytes(C, R, P1, K, W, G, N),
-                      f"C={C} R={R} P1={P1} K={K} W={W} G={G} N={N}")
+    lay = table_placement(C, R, P1, K, G, W=W, N=N, budget=_budget[0])
+    smem = lay["smem"]
+    offsets, tables, per = placement_args(lay, L * W, dev)
     # B3's state and plan scratch, one slice per lane
     scratch = wavefront_scratch((L,), W, G, C, R, B, F, K, dev)
     clusters = ctypes.c_int(0)
@@ -1034,14 +1207,15 @@ def _pack_probe_lanes_wavefront_cuda(
         _ptr(lane_live), _ptr(cfg_price), _ptr(cfg_rsv), _ptr(rsv_cap),
         _ptr(conflict), _ptr(assign), _ptr(free_mask), _ptr(node_count),
         _ptr(unsched), _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, L, smem,
-        ctypes.byref(clusters), _stream(),
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, L, smem, offsets,
+        _ptr(tables), per, ctypes.byref(clusters), _stream(),
     )
     ACTIVE_CLUSTERS[W] = clusters.value
-    DYNAMIC_SMEM["pack_probe_lanes_wavefront"] = smem
-    _raise_on(err, f"pack_probe_lanes_wavefront ({L} clusters of {W} blocks; "
-                   f"the card holds {clusters.value} such clusters at once)")
-    LAUNCHES["pack_probe_lanes_wavefront"] += 1
+    DYNAMIC_SMEM["pack_probe_lanes_wavefront"] = placement_text(lay)
+    _raise_on(err, f"pack_probe_lanes_wavefront ({L} clusters of {W} blocks, "
+                   f"{placement_text(lay)} a block; the card holds {clusters.value} such "
+                   "clusters at once)")
+    _count("pack_probe_lanes_wavefront", lay)
     return assign, free_mask, node_count, unsched, steps, widths
 
 

@@ -285,11 +285,15 @@ def dense_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60,
     return cases
 
 
-def price_case(seed: int, G: int, C: int, R: int, ties: bool = False):
+def price_case(seed: int, G: int, C: int, R: int, kind: str = "rand"):
     """Inputs of B4 (lam, compat, group_req, eff_alloc, count) as numpy.
-    With `ties`: duplicated groups (exact density ties), a config whose
+    `kind` "ties": duplicated groups (exact density ties), a config whose
     allocatable a group's request divides exactly (a fill to zero
-    residual) and tight demand caps."""
+    residual) and tight demand caps; "negative-request": a few groups
+    with a negative request (a residual that grows: B4's kernel takes
+    every round's full argmax); "infinite-dual": group 0's dual +inf,
+    compatible with every config, its one request tiny (every config
+    takes it first; every value +inf; the full argmax too)."""
     rng = np.random.default_rng(seed)
     lam = rng.uniform(0.0, 2.0, G).astype(np.float32)
     lam[rng.random(G) < 0.2] = 0.0
@@ -297,7 +301,14 @@ def price_case(seed: int, G: int, C: int, R: int, ties: bool = False):
     req = rng.choice([0.0, 0.25, 0.5, 1.0, 2.0, 4.0], size=(G, R)).astype(np.float32)
     alloc = rng.choice([0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 64.0], size=(C, R)).astype(np.float32)
     count = rng.integers(0, 40, G).astype(np.int32)
-    if ties:
+    if kind == "negative-request":
+        neg = rng.choice(G, size=max(1, G // 10), replace=False)
+        req[neg, rng.integers(0, R, len(neg))] = -1.0
+    if kind == "infinite-dual":
+        lam[0], compat[0], count[0] = np.inf, True, 5
+        req[0] = 0.0
+        req[0, 0] = 1e-30
+    if kind == "ties":
         half = G // 2
         lam[half:2 * half] = lam[:half]
         req[half:2 * half] = req[:half]
@@ -310,23 +321,25 @@ def price_case(seed: int, G: int, C: int, R: int, ties: bool = False):
     return lam, compat, req, alloc, count
 
 
-# (seed, G, C, R, ties): the planner's padded shapes (lp_plan._pad_to)
+# (seed, G, C, R, kind): the planner's padded shapes (lp_plan._pad_to)
 PRICE_CASES = (
-    (0, 32, 32, 4, False),
-    (1, 32, 40, 4, True),
-    (2, 40, 50, 4, True),
-    (3, 63, 79, 3, False),
-    (4, 194, 243, 4, True),
-    (5, 304, 124, 5, False),
+    (0, 32, 32, 4, "rand"),
+    (1, 32, 40, 4, "ties"),
+    (2, 40, 50, 4, "ties"),
+    (3, 63, 79, 3, "rand"),
+    (4, 194, 243, 4, "ties"),
+    (5, 304, 124, 5, "rand"),
+    (6, 40, 50, 4, "negative-request"),
+    (7, 194, 243, 4, "infinite-dual"),
 )
 
 
 def price_cases(seed: int = 0) -> list[tuple[str, tuple]]:
     """Seeded B4 inputs, named."""
     return [
-        (f"price-G{G}-C{C}-R{R}{'-ties' if ties else ''}",
-         price_case(seed + s, G, C, R, ties))
-        for s, G, C, R, ties in PRICE_CASES
+        (f"price-G{G}-C{C}-R{R}{'' if kind == 'rand' else '-' + kind}",
+         price_case(seed + s, G, C, R, kind))
+        for s, G, C, R, kind in PRICE_CASES
     ]
 
 
@@ -977,3 +990,55 @@ def fold_cases(seed: int, S: int) -> list[KernelCase]:
                             overhead, req, count, np.ones((G, Cp), bool), max_free=32))
     return cases
 
+
+
+def pools_cases(seed: int, n_pools: int = 80, n_pods: int = 160, n_types: int = 24,
+                per_pool: int = 3) -> list[KernelCase]:
+    """Problems with `n_pools` NodePools (P1 = n_pools + 1 overhead rows,
+    past the 63 pools the split kernels' open loop once took), built
+    through the encode in both modes: pool p offers `per_pool` types of
+    the catalog from type p on (wrapping), with a daemon overhead that
+    grows with p, so that the lowest pool that can open a group moves
+    across the whole pool axis as groups grow."""
+    from karpenter_tpu_torch.apis.v1.nodepool import NodePool
+    from karpenter_tpu_torch.cloudprovider.fake import GIB
+    from karpenter_tpu_torch.kube.objects import ObjectMeta
+
+    pods, pools = build_problem(n_pods, n_types, seed=seed)
+    types = list(pools[0][1])
+    many = [(NodePool(metadata=ObjectMeta(name=f"pool-{p:03d}")),
+             [types[(p + i) % len(types)] for i in range(per_pool)]) for p in range(n_pools)]
+    overhead = {f"pool-{p:03d}": {"cpu": 0.05 * (p % 17), "memory": 0.125 * GIB * (p % 5)}
+                for p in range(n_pools)}
+    enc = encode(group_pods(pods), many, daemon_overhead=overhead)
+    return [_case(f"pools{n_pools}-{m}", enc, m) for m in ("ffd", "cost")]
+
+
+def lane_case(name: str, enc, seed: int, n_lanes: int) -> LaneCase:
+    """Seeded B6 lanes over `enc`'s problem (`_lane_case`): the probe
+    batch of a consolidation search on any problem, e.g. a cloud-sized
+    catalog whose tables spill past the shared-memory budget."""
+    return _lane_case(name, enc, np.random.default_rng(seed), n_lanes)
+
+
+def cut_groups(case, G: int):
+    """`case` (a KernelCase or LaneCase) with its group axis cut to the
+    first G groups: the compat and request rows, the demand (every
+    lane's), the bound rows' compatibility and quotas, the group caps and
+    the conflicts. For timing a kernel on the largest shape whose tables
+    still fit the shared-memory budget."""
+    args = list(case.args)
+    kw = dict(case.kwargs)
+    args[0] = np.ascontiguousarray(args[0][:G])
+    args[1] = np.ascontiguousarray(args[1][:G])
+    args[2] = np.ascontiguousarray(args[2][..., :G])
+    args[6] = np.ascontiguousarray(args[6][:G])
+    if kw.get("bound_quota") is not None:
+        kw["bound_quota"] = np.ascontiguousarray(kw["bound_quota"][:, :G])
+    if kw.get("group_cap") is not None:
+        kw["group_cap"] = np.ascontiguousarray(kw["group_cap"][:G])
+    if kw.get("conflict") is not None:
+        kw["conflict"] = np.ascontiguousarray(kw["conflict"][:G, :G])
+    if isinstance(case, LaneCase):
+        return LaneCase(f"{case.name}-G{G}", tuple(args), kw, case.max_free, case.n_lanes)
+    return KernelCase(f"{case.name}-G{G}", tuple(args), kw, case.max_free, case.mode)

@@ -150,19 +150,30 @@ def consolidation_fleet(n_pods: int = 21000, n_types: int = 200, seed: int = 9,
 
 
 def build_scaled_demand(total_pods: int = 1_000_000, n_types: int = 100,
-                        n_signatures: int = 400, seed: int = 13):
+                        n_signatures: int = 400, seed: int = 13, types=None):
     """`bench.py`'s million_pod demand (`build_scaled_demand`,
     bench.py:250-330, defaults as bench.py:355-357 reads them): one
     representative pod per scheduling signature (shapes x arch/zone
     selectors), encoded once, with `Encoded.group_count` rescaled to a
     Pareto-weighted distribution summing to `total_pods`. The solve, and
     the node axis it opens, are the million-pod problem's; only a
-    per-pod decode is out of scope. Returns (enc, pools)."""
+    per-pod decode is out of scope. `types`: the catalog (default
+    `instance_types(n_types)`, the benchmark's). Returns (enc, pools)."""
     from karpenter_tpu_torch.solver.encode import encode, group_pods
 
     rng = np.random.default_rng(seed)
-    types = instance_types(n_types)
     pool = NodePool(metadata=ObjectMeta(name="default"))
+    types = instance_types(n_types) if types is None else types
+    reps = _signature_pods(rng, n_signatures)
+    enc = encode(group_pods(reps), [(pool, types)])
+    enc.group_count = _pareto_counts(rng, enc.compat.shape[0], total_pods)
+    return enc, [(pool, types)]
+
+
+def _signature_pods(rng, n_signatures: int) -> list:
+    """The million_pod recipe's representative pods, one a signature:
+    cpu and memory levels, a quarter pinned to an architecture, 30% to a
+    zone (bench.py:250-300)."""
     zones = ["test-zone-1", "test-zone-2", "test-zone-3"]
     cpu_levels = [0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0]
     mem_levels = [0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0]
@@ -183,9 +194,13 @@ def build_scaled_demand(total_pods: int = 1_000_000, n_types: int = 100,
                 node_selector=selector,
             ),
         ))
-    enc = encode(group_pods(reps), [(pool, types)])
-    G = enc.compat.shape[0]
-    # Pareto weights: a heavy head of big deployments over a long tail
+    return reps
+
+
+def _pareto_counts(rng, G: int, total_pods: int) -> np.ndarray:
+    """Pareto weights over G groups (a heavy head of big deployments over
+    a long tail), floored to pod counts and rebalanced to exactly
+    `total_pods` without driving a group below 1."""
     if total_pods < G:
         raise ValueError(
             f"total_pods={total_pods} below the {G} encoded signatures "
@@ -193,7 +208,6 @@ def build_scaled_demand(total_pods: int = 1_000_000, n_types: int = 100,
     weights = rng.pareto(1.5, G) + 1.0
     counts = np.maximum(
         1, np.floor(weights / weights.sum() * total_pods)).astype(np.int64)
-    # rebalance to the exact total without driving a group below 1
     excess = int(counts.sum() - total_pods)
     if excess > 0:
         for i in np.argsort(-counts):
@@ -206,5 +220,58 @@ def build_scaled_demand(total_pods: int = 1_000_000, n_types: int = 100,
         counts[np.argmax(counts)] += -excess
     assert counts.sum() == total_pods
     assert counts.min() >= 1 and counts.max() < 2**31
-    enc.group_count = counts.astype(np.int32)
-    return enc, [(pool, types)]
+    return counts.astype(np.int32)
+
+
+# aws_catalog_50k's catalog: vCPU sizes and GiB-per-vCPU ratios of a
+# cloud's general, compute and memory families (1,600 distinct shapes;
+# the first 800 in `catalog_types` order span every size)
+CATALOG_CPUS = (1, 2, 3, 4, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32, 36, 40, 44, 48, 52,
+                56, 60, 64, 72, 80, 88, 96, 104, 112, 120, 128, 144, 160, 176, 192, 208,
+                224, 256, 288, 320, 384)
+CATALOG_RATIOS = tuple(0.5 * (i + 1) for i in range(40))  # 0.5 .. 20 GiB a vCPU
+
+
+def catalog_types(n_types: int = 800) -> list:
+    """A synthetic cloud-sized catalog: `n_types` (at most 1,600)
+    linux/amd64 instance types with distinct (cpu, memory) shapes from a
+    grid of the 40 vCPU sizes `CATALOG_CPUS` by the 40 GiB-a-vCPU ratios
+    `CATALOG_RATIOS`, at the default zones and capacity types, priced by
+    `price_from_resources`. It is no published instance list: its size,
+    not its shapes, is that of a whole EC2 catalog. Every
+    type gives three configs (one a zone: spot and on-demand collapse
+    when no pod pins the capacity type), so 800 types give 2,400
+    configs. The ratios are taken even-indexed first, so that any prefix
+    spreads over the whole range."""
+    ratios = CATALOG_RATIOS[0::2] + CATALOG_RATIOS[1::2]
+    shapes = [(c, r) for r in ratios for c in CATALOG_CPUS]
+    if not 1 <= n_types <= len(shapes):
+        raise ValueError(f"catalog_types: {n_types} types; the catalog has {len(shapes)}")
+    out = []
+    for i, (cpu, ratio) in enumerate(shapes[:n_types]):
+        out.append(make_instance_type(
+            f"c{cpu}-m{ratio:g}x-{i}", cpu=float(cpu), memory=float(cpu * ratio * GIB),
+            pods=float(min(737, max(8, cpu * 8)))))
+    return out
+
+
+def aws_catalog_50k(n_types: int = 800, total_pods: int = 50_000, n_signatures: int = 2_000,
+                    seed: int = 13):
+    """aws_catalog_50k: `build_scaled_demand`'s recipe (2,000 signatures,
+    Pareto counts summing to 50k pods) against `catalog_types(n_types)`,
+    as pods a user would submit: each encoded group's representative pod
+    repeated its count times (`<rep>-<i>`). The name says the scale it
+    stands for (a whole AWS catalog's ~2,400 configs against 50k pods);
+    the catalog itself is synthetic. Returns (pods, pools)."""
+    from karpenter_tpu_torch.solver.encode import group_pods
+
+    rng = np.random.default_rng(seed)
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    groups = group_pods(_signature_pods(rng, n_signatures))
+    counts = _pareto_counts(rng, len(groups), total_pods)
+    pods = []
+    for grp, n in zip(groups, counts):
+        rep = grp.pods[0]
+        for i in range(int(n)):
+            pods.append(Pod(metadata=ObjectMeta(name=f"{rep.metadata.name}-{i}"), spec=rep.spec))
+    return pods, [(pool, catalog_types(n_types))]

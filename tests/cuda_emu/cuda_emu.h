@@ -30,12 +30,12 @@
 #define __global__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(a, b)
+#define __launch_bounds__(...)
 #define __align__(n)
 #define __restrict__
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim;
+inline dim3 blockDim, gridDim;
 struct EmuBarrier {
   explicit EmuBarrier(int n) : n(n) {}
   void arrive_and_wait() {
@@ -100,6 +100,7 @@ inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 using std::isfinite; using std::isnan; using std::min; using std::max;
 // the packing kernels' calls (pack_common.cuh)
 template <class T> inline T warp_fold(T v, T (*f)(T, T)) {

@@ -6,12 +6,16 @@ no CPU mode). On a GPU host:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (`--noconftest`: the suite's conftest pins JAX to the CPU, and this
-file imports no JAX.) Covers B1-B5 (B5 also at edge shapes, one on its
-global-memory path, and its phase-clock build) and B6 (both lane programs, the
+file imports no JAX.) Covers B1-B5 (B4 also in its layouts that read
+the groups' tables in place, past its staged layout's ceiling; B5 also
+at edge shapes, one on its global-memory path, and its phase-clock
+build) and B6 (both lane programs, the
 wavefront one at cluster widths 8 and 16, and the lane epilogue), B7
 (the dense kernel and its flat epilogue, held also to B1 on the same
-problems, and the port's `graft_entry.entry()` on the card), and the
-consolidation ladder on the card against the CPU. Tolerance:
+problems, and the port's `graft_entry.entry()` on the card), the
+consolidation ladder on the card against the CPU, and the packing
+kernels' spilled layouts (B1, B3, B7 under a forced shared-memory
+budget) and split B1 with 80 node pools, all shared and spilled. Tolerance:
 byte-identical outputs — the kernels use the plain versions' f32
 operation order and index tie-breaks.
 """
@@ -166,7 +170,7 @@ def _same_bits(a, b):
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("index", range(6))
+@pytest.mark.parametrize("index", range(8))
 def test_price_kernel_matches_plain_version(lp_kernels, index):
     from karpenter_tpu_torch.testing import price_cases
 
@@ -179,6 +183,23 @@ def test_price_kernel_matches_plain_version(lp_kernels, index):
     assert lp_plan.LAUNCHES["lp_price"] == before + 1
     qr, vr = lp_plan.price_kernel_ref(*xs)
     assert _same_bits(q, qr) and _same_bits(v, vr), name
+
+
+@pytest.mark.parametrize("G, layout", [(194, 1), (194, 2), (7_000, None), (20_000, None)])
+def test_price_kernel_global_layouts_match_plain_version(lp_kernels, G, layout):
+    # B4 with the groups' tables read in place: forced at a staged shape,
+    # and past the staged layout's ceiling at the wrapper's choice (the
+    # walk order kept at 7,000 groups, the full argmax at 20,000)
+    from karpenter_tpu_torch.testing import price_case
+
+    lp_plan, _ = lp_kernels
+    xs = [torch.from_numpy(x).cuda() for x in price_case(9, G, 64, 4)]
+    before = dict(lp_plan.LAUNCHES)
+    q, v = lp_plan.price_kernel(*xs, layout=layout)
+    torch.cuda.synchronize()
+    assert lp_plan.LAUNCHES["lp_price_global"] == before["lp_price_global"] + 1
+    qr, vr = lp_plan.price_kernel_ref(*xs)
+    assert _same_bits(q, qr) and _same_bits(v, vr), (G, layout)
 
 
 @pytest.mark.parametrize("n_iters", [8, 192])
@@ -494,3 +515,81 @@ def test_sharded_solves_on_card_match_unsharded(shard_kernels, lp_kernels):
         assert pack.last_resolved_shards()["effective"] == 4
     finally:
         force_virtual_mesh(0)
+
+
+# ---------------------------------------------------------------- spilled tables
+
+
+@pytest.mark.parametrize("budget", [0, None])
+@pytest.mark.parametrize("index", [0, 3, 4, 7])
+def test_spilled_kernels_match_plain_versions(cuda_kernels, cases, index, budget):
+    # B1, B3 (W = 8) and B7 with their tables spilled past a forced
+    # budget (0: every table; None: the compat bits alone), counted as
+    # spilled launches and byte-identical to the plain versions
+    from karpenter_tpu_torch.solver import pack_dense
+    from karpenter_tpu_torch.testing import dense_case
+
+    case = cases[index]
+    args, kw = _cuda(case)
+    G, C = args[0].shape
+    rc = kw.get("rsv_cap")
+    size = cuda_kernels.segment_bytes(C, args[1].shape[1], args[5].shape[0],
+                                      0 if rc is None else rc.shape[0], G)
+    before = dict(cuda_kernels.LAUNCHES)
+    with cuda_kernels.forced_budget(sum(size.values()) - 1 if budget is None else budget):
+        got = cuda_kernels.pack_split(*args, max_free=case.max_free, mode=case.mode, **kw)
+        wf = cuda_kernels.pack_split_wavefront(*args, max_free=case.max_free, mode=case.mode,
+                                               width=8, **kw)
+        dc = dense_case(case.staged, case.name, case.mode)
+        dargs, dkw = _cuda(dc)
+        dense = pack_dense.pack(*dargs, max_nodes=dc.max_nodes, mode=case.mode, **dkw)
+    torch.cuda.synchronize()
+    want = cuda_kernels.pack_split_ref(*args, max_free=case.max_free, mode=case.mode, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), case.name
+    for a, b in zip(wf, cuda_kernels.pack_split_wavefront_ref(
+            *args, max_free=case.max_free, mode=case.mode, width=8, **kw)):
+        assert torch.equal(a, b), case.name
+    for a, b in zip(dense, pack_dense.pack_ref(*dargs, max_nodes=dc.max_nodes, mode=case.mode,
+                                               **dkw)):
+        assert torch.equal(a, b), case.name
+    assert cuda_kernels.LAUNCHES["pack_split_global"] == before["pack_split_global"] + 1
+    assert (cuda_kernels.LAUNCHES["pack_split_wavefront_global"]
+            == before["pack_split_wavefront_global"] + 1)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_split_kernels_take_80_node_pools(cuda_kernels, shard_kernels, S):
+    # P1 = 81: the split open loop's pool segment past the 64 entries of
+    # the all-shared kernel's static arrays, placed with every segment in
+    # shared memory and with every table spilled
+    from karpenter_tpu_torch.testing import pools_cases, split_case
+
+    for case in pools_cases(5, 80, n_pods=600, n_types=30):
+        sa, skw, _, _ = split_case(case, S)
+
+        def put(x):
+            if x is None:
+                return None
+            if isinstance(x, list):
+                return [torch.from_numpy(np.ascontiguousarray(b)).cuda() for b in x]
+            return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+        sa = [put(a) for a in sa]
+        skw = {k: put(v) for k, v in skw.items()}
+        want = shard_kernels.pack_split_sharded_ref(*sa, max_free=case.max_free,
+                                                    mode=case.mode, **skw)
+        for budget in (None, 0):
+            if budget is None:
+                got = shard_kernels.pack_split_sharded(*sa, max_free=case.max_free,
+                                                       mode=case.mode, **skw)
+            else:
+                with cuda_kernels.forced_budget(budget):
+                    got = shard_kernels.pack_split_sharded(*sa, max_free=case.max_free,
+                                                           mode=case.mode, **skw)
+            torch.cuda.synchronize()
+            for i in (0, 2, 3):
+                assert torch.equal(got[i], want[i]), (case.name, S, budget, i)
+            assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+            flat = shard_kernels.pack_flat_words_sharded(*got)
+            assert torch.equal(flat, shard_kernels.pack_flat_words_sharded_ref(*got))

@@ -77,8 +77,7 @@ def test_heterogeneous_catalog_equals_the_jax_package(count):
 # ---------------------------------------------------------------- B4
 
 
-@pytest.mark.parametrize("case", PRICE_CASES, ids=lambda c: "G%d-C%d-R%d-%s" % (
-    c[1], c[2], c[3], "ties" if c[4] else "rand"))
+@pytest.mark.parametrize("case", PRICE_CASES, ids=lambda c: "G%d-C%d-R%d-%s" % c[1:])
 def test_price_kernel_plain_equals_jax(case):
     lam, compat, req, alloc, count = price_case(*case)
     jq, jv = jlp_plan._price_kernel(*(jnp.asarray(x) for x in (lam, compat, req, alloc, count)))
@@ -90,10 +89,13 @@ def test_price_kernel_plain_equals_jax(case):
     assert np.array_equal(np.flatnonzero(v.numpy() > prices + 1e-6),
                           np.flatnonzero(jv > prices + 1e-6))
     assert q.sum() > 0
-    if case[4]:
+    if case[4] == "ties":
         # the exact-fill config took whole pods of group 0 (or a group
         # that ties it) and its residual reached zero on the cpu axis
         assert int(q[0].sum()) > 0
+    if case[4] == "infinite-dual":
+        # every config took group 0's whole demand, and is worth +inf
+        assert (q[:, 0] == 5).all() and np.isposinf(v.numpy()).all()
 
 
 @pytest.mark.parametrize("G", [32, 40, 194, 1100])

@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from karpenter_tpu_torch import testing
-from karpenter_tpu_torch.solver import pack_shard
+from karpenter_tpu_torch.solver import pack_shard, pack_split
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "karpenter_tpu_torch" / "csrc"
@@ -174,7 +174,8 @@ def _split_b1_source() -> str:
     pack_common.cuh at 64 threads a block, each block's __shared__
     variables as statics (one process a block), and the harness."""
     src = (CSRC / "pack_split.cu").read_text()
-    body = src[:src.index("__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(")]
+    body = src[:src.index("template <bool kSpilled>\n__global__ void __launch_bounds__(kThreads, 1) "
+                          "pack_split_kernel(")]
     return ('#include "xchg_host.h"\n#define __shared__ static\n' + body
             + "\n}  // namespace\n" + (EMU / "split_b1.inc").read_text())
 
@@ -191,9 +192,12 @@ def split_b1_exe(tmp_path_factory):
     return _build(out, "split_b1", _split_b1_source())
 
 
-def run_split_b1(exe: Path, case, S: int, tmp: Path):
+def run_split_b1(exe: Path, case, S: int, tmp: Path, budget: int | None = None):
     """(assign [S, N, G], node_count [S], unsched [S, G], masks [S][F, Cs])
-    of the emulated split B1 on `case` cut into S shards."""
+    of the emulated split B1 on `case` cut into S shards, on the layout
+    `pack_split.table_placement` gives it (as the wrapper takes it); with
+    `budget`, the spilled kernel's placement under that many bytes of
+    shared memory (it must spill)."""
     sa, skw, _, _ = testing.split_case(case, S)
     compat, req, count, alloc, pool, oh, bcompat, balloc, bused, bslot, blive, price = sa
     G, Cs = compat[0].shape
@@ -204,8 +208,16 @@ def run_split_b1(exe: Path, case, S: int, tmp: Path):
     K = rsv_cap.shape[0]
     P1 = oh.shape[0]
     quota, gcap, conflict = skw.get("bound_quota"), skw.get("group_cap"), skw.get("conflict")
-    buf = [struct.pack("12i", G, Cs, R, B, F, K, P1, 1 if case.mode == "cost" else 0, S,
-                       quota is not None, gcap is not None, conflict is not None)]
+    lay = pack_split.table_placement(Cs, R, P1, K, G, pools=True, budget=budget)
+    assert lay["spilled"] or budget is None, (case.name, budget)
+    if not lay["spilled"]:
+        lay = None
+    buf = [struct.pack("13i", G, Cs, R, B, F, K, P1, 1 if case.mode == "cost" else 0, S,
+                       quota is not None, gcap is not None, conflict is not None,
+                       lay is not None)]
+    if lay is not None:
+        buf.append(struct.pack(f"={len(lay['offsets'])}i2q", *lay["offsets"],
+                               lay["scratch"], lay["smem"]))
 
     def put(x, dt):
         buf.append(np.ascontiguousarray(np.asarray(x).astype(dt)).tobytes())
@@ -223,7 +235,7 @@ def run_split_b1(exe: Path, case, S: int, tmp: Path):
     for s in range(S):
         put(compat[s], np.uint8), put(alloc[s], np.float32), put(pool[s], np.int32)
         put(price[s], np.float32), put(skw["cfg_rsv"][s], np.int32)
-    path = tmp / f"b1-{case.name}-{S}.bin"
+    path = tmp / f"b1-{case.name}-{S}-{budget}.bin"
     path.write_bytes(b"".join(buf))
     subprocess.run([str(exe), str(path), str(path) + ".out"], check=True, timeout=600)
     raw = np.frombuffer(Path(str(path) + ".out").read_bytes(), np.uint8)
@@ -279,3 +291,54 @@ def test_emulated_split_b1_equals_plain_version(split_b1_exe, tmp_path, S):
         assert (unsched == want[3].numpy()).all(), case.name
         for s in range(S):
             assert (masks[s] == want[1][s].numpy()).all(), (case.name, s)
+
+
+# ---------------------------------------------------------------- split B1 spilled, many pools
+
+def _hold_split_b1(exe, case, S, tmp, budget=None):
+    assign, node_count, unsched, masks = run_split_b1(exe, case, S, tmp, budget)
+    sa, skw, _, _ = testing.split_case(case, S)
+    want = pack_shard.pack_split_sharded_ref(
+        *[_t(a) for a in sa], max_free=case.max_free, mode=case.mode,
+        **{k: _t(v) for k, v in skw.items()})
+    tag = (case.name, S, budget)
+    assert (assign == want[0].numpy()).all(), tag
+    assert (node_count == want[2].numpy()).all(), tag
+    assert (unsched == want[3].numpy()).all(), tag
+    for s in range(S):
+        assert (masks[s] == want[1][s].numpy()).all(), (tag, s)
+
+
+def _gbits_budget(case, S):
+    """The budget under which the case's placement spills the compat
+    bits alone (the catalog's placement, at a small shape)."""
+    sa, skw, _, _ = testing.split_case(case, S)
+    G, Cs = sa[0][0].shape
+    return pack_split.table_placement(Cs, sa[1].shape[1], sa[5].shape[0],
+                                      skw["rsv_cap"].shape[0], G, pools=True)["smem"] - 1
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_emulated_split_b1_spilled_equals_plain_version(split_b1_exe, tmp_path, S):
+    # the spilled instantiation (`pack_split_body<true>`): the compat bits
+    # alone in global scratch, and every segment there (budget 0: the
+    # read-only tables read in place, the rest in each block's slice)
+    kc = testing.kernel_cases(2, n_pods=300, n_types=16)
+    cases = [testing.fold_cases(3, S)[1], testing.tie_case(11, S, "ffd", G=8, quota=True),
+             kc[2], kc[5]]
+    with testing.one_core():
+        for i, case in enumerate(cases):
+            budget = 0 if i % 2 else _gbits_budget(case, S)
+            _hold_split_b1(split_b1_exe, case, S, tmp_path, budget)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_emulated_split_b1_with_80_node_pools(split_b1_exe, tmp_path, S):
+    # P1 = 81 pool rows: the open loop's pool segment and the exchange's
+    # 4 P1 slot words past the 64 pools of the all-shared kernel's static
+    # arrays; placed with every segment in shared memory (ffd) and spilled
+    # (cost)
+    with testing.one_core():
+        for case in testing.pools_cases(3):
+            budget = 0 if case.mode == "cost" else None
+            _hold_split_b1(split_b1_exe, case, S, tmp_path, budget)
