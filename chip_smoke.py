@@ -16,6 +16,9 @@
                                     # B3, barriers, clocks, census)
     python3 chip_smoke.py --catalog # phases 1-2 and 11 alone (~2 min of
                                     # command once built)
+    python3 chip_smoke.py --lanes   # phases 1-2, then B6 sequential (shared
+                                    # and spilled) and the in-place flat
+                                    # routes held alone
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -24,7 +27,13 @@
                                     # here, here, DIR): B1, B3, B2, split
                                     # B1/B3/B2 at S = 2, 4, 8, split B2's
                                     # kernel alone, B4 (its phase clocks
-                                    # where the tree has them), B6
+                                    # where the tree has them), B6 on
+                                    # lane_cases(0) at 10 and 64 lanes and
+                                    # on phase 8's first chunk, the whole
+                                    # pack_split_flat and
+                                    # pack_probe_lanes_flat calls, B2 and
+                                    # the lane epilogue as the main path
+                                    # runs them
 
 Phases, each reported on its own line; any failure exits non-zero:
   1. device   — require CUDA; print the card's name and power limit.
@@ -41,7 +50,15 @@ Phases, each reported on its own line; any failure exits non-zero:
                 bound rows with quotas, group caps, conflicts, negative
                 and huge demand, a capped node axis): outputs must be
                 byte-identical, B3's at widths 1, 8, 16 and 32, and B3's
-                equal to B1's on the same problem; two of them also at
+                equal to B1's on the same problem, and the flat routes
+                in place (`pack_split_flat` on B1 and B3 at 8, 16, 32:
+                the packing kernel writing into the buffer's regions,
+                the mask epilogue) equal to the full copy of the plain
+                outputs; B6 sequential on `lane_cases(0)` (256 threads a
+                block), all shared and spilled (compat bits alone, every
+                segment), and the lane flat routes on both programs (the
+                sequential one in place, then the mask epilogue) at
+                L = 10 and L = 1; two of them also at
                 config axes the staging never gives the kernels (200, not
                 a multiple of 32, and 800, past the consolidation union's
                 768). The dense kernel B7
@@ -74,7 +91,12 @@ Phases, each reported on its own line; any failure exits non-zero:
   5. timing   — each packing kernel's CUDA-event time on the warm
                 first request's inputs (B1 and B3 in turns), its plain
                 version's, its bound, and the dynamic shared memory a
-                block of B1 and B3 takes; then one run each of B1's and
+                block of B1 and B3 takes; the whole `pack_split_flat`
+                call on the B1 and B3 routes (the card's time and as the
+                host launches it), B2 as the main path runs it (the mask
+                epilogue on the B3 route's buffer: its kernel, its call,
+                its plain version, the host clock of the route's
+                parts) beside the full copy; then one run each of B1's and
                 B3's phase-clock builds: each phase's share of block 0's
                 cycles, the us a step (B1) or round (B3) from the
                 CUDA-event times, and the slowest thread of a step's sweep
@@ -136,7 +158,12 @@ Phases, each reported on its own line; any failure exits non-zero:
                 the epilogue's CUDA-event times on the recorded chunk,
                 per dispatch and per lane, their plain versions', their
                 bounds, the clusters the card holds at once and the
-                memory the wavefront program took.
+                memory the wavefront program took; B6 sequential's lane 0
+                and the lane with the most demand alone, and the phase
+                clocks of both; the
+                whole `pack_probe_lanes_flat` call on both programs; the
+                lane epilogue on both routes (the wavefront route's full
+                copy, the sequential route's in place).
   9. dense    — the dense kernel B7 (`pack`, `pack_flat`): the port's
                 `graft_entry.entry()` on the card (the counterpart of the
                 JAX package's `__graft_entry__.entry()`: 64 pods x 8
@@ -404,14 +431,21 @@ def hold(kernels, case, err: dict, widths=(16,)) -> str:
                      f"pack_split on {case.name}: {label}")
         flats.append((wf[:4], (wf[5], wf[4])))
         rounds.append(f"W{width}:{int(wf[4])}")
-    # B2 takes whole mask words: a config axis that is a multiple of 32
-    for outs, stats in flats if args[0].shape[1] % 32 == 0 else ():
-        flat = kernels.pack_flat_words(*outs, *stats)
+    # B2 takes whole mask words: a config axis that is a multiple of 32;
+    # the full copy on each route's outputs, and the flat route in place
+    # (B1 or B3 writing into the buffer's regions, the mask epilogue)
+    for wf, (outs, stats) in zip((0, *widths), flats) if args[0].shape[1] % 32 == 0 else ():
         flat_ref = kernels.pack_flat_words_ref(*outs, *stats)
+        rows = {"pack_flat_words": kernels.pack_flat_words(*outs, *stats)}
+        if wf != 1:  # a width of 1 takes the B1 route, without B3's stats
+            rows["pack_split_flat in place"] = kernels.pack_split_flat(
+                *args, max_free=case.max_free, mode=case.mode, wavefront=wf, **kw)
         torch.cuda.synchronize()
-        if flat.dtype != flat_ref.dtype or not torch.equal(flat, flat_ref):
-            fail(f"pack_flat_words differs from pack_flat_words_ref on {case.name}")
-        err["pack_split_flat"] = max(err["pack_split_flat"], max_abs_diff(flat, flat_ref))
+        for label, row in rows.items():
+            if row.dtype != flat_ref.dtype or not torch.equal(row, flat_ref):
+                fail(f"{label} (wavefront {wf}) differs from pack_flat_words_ref of the plain "
+                     f"outputs on {case.name}")
+            err["pack_split_flat"] = max(err["pack_split_flat"], max_abs_diff(row, flat_ref))
     B = args[7].shape[0]
     return (f"  case {case.name} mode={case.mode} Gp={args[0].shape[0]} "
             f"Cp={args[0].shape[1]} B={B} F={case.max_free}: nodes={int(got[2])} "
@@ -1018,6 +1052,68 @@ def same_outputs(got, want) -> bool:
     return len(got) == len(want) and all(same_bits(a, b) for a, b in zip(got, want))
 
 
+# the plain lane outputs phase 3 computes on `lane_cases(0)`, keyed by
+# (case, mode) and "seq" or a width: phase 8 holds the same cases
+LANE_PLAIN: dict = {}
+
+
+def lane_plain(kernels, name, args, kw, F, mode, width=None):
+    key = (name, mode, "seq" if width is None else width)
+    if key not in LANE_PLAIN:
+        LANE_PLAIN[key] = (
+            kernels.pack_probe_lanes_ref(*args, max_free=F, mode=mode, **kw) if width is None
+            else kernels.pack_probe_lanes_wavefront_ref(*args, max_free=F, mode=mode,
+                                                         width=width, **kw))
+    return LANE_PLAIN[key]
+
+
+def hold_lane_placements(kernels, name, args, kw, F, mode, err) -> str:
+    """B6's sequential program (`LANE_THREADS` threads a block) all
+    shared and spilled (the compat bits alone in global memory, and every
+    segment there), and the lane flat route on both programs (the
+    sequential one in place, then the mask epilogue) at L > 1 and L = 1
+    (lane 0 alone), against the plain versions on the card; fail unless
+    byte-identical."""
+    import torch
+
+    want = lane_plain(kernels, name, args, kw, F, mode)
+    wf_want = lane_plain(kernels, name, args, kw, F, mode, 16)
+    G, C = args[0].shape
+    K = 0 if kw.get("rsv_cap") is None else kw["rsv_cap"].shape[0]
+    lay = kernels.table_placement(C, args[1].shape[1], args[5].shape[0], K, G)
+    placements = (("shared", None), ("compat bits spilled", lay["smem"] - 1),
+                  ("all spilled", 0))
+    for label, budget in placements:
+        before = kernels.LAUNCHES["pack_probe_lanes_global"]
+        with kernels.forced_budget(kernels.SMEM_BUDGET if budget is None else budget):
+            got = kernels.pack_probe_lanes(*args, max_free=F, mode=mode, **kw)
+        torch.cuda.synchronize()
+        spilled = kernels.LAUNCHES["pack_probe_lanes_global"] - before
+        if not same_outputs(got, want) or spilled != (budget is not None):
+            fail(f"pack_probe_lanes ({label}) differs from pack_probe_lanes_ref on {name} "
+                 f"({mode}), or spilled {spilled}x")
+        err["pack_probe_lanes"] = max(err["pack_probe_lanes"],
+                                      *(max_abs_diff(a, b) for a, b in zip(got, want)))
+    # the flat routes: every lane, and lane 0 alone
+    one = list(args)
+    one[2], one[10] = args[2][:1].contiguous(), args[10][:1].contiguous()
+    rows = {0: kernels.pack_flat_lanes_ref(*want),
+            16: kernels.pack_flat_lanes_ref(*wf_want[:4], wf_want[5], wf_want[4])}
+    for a, sl in ((args, slice(None)), (one, slice(0, 1))):
+        for wf, ref in rows.items():
+            got = kernels.pack_probe_lanes_flat(*a, max_free=F, mode=mode, wavefront=wf, **kw)
+            torch.cuda.synchronize()
+            if not same_outputs([got], [ref[sl]]):
+                fail(f"pack_probe_lanes_flat (wavefront {wf}, L={a[2].shape[0]}) differs "
+                     f"from pack_flat_lanes_ref of the plain outputs on {name} ({mode})")
+            key = "pack_probe_lanes_flat" if wf else "pack_probe_lanes_flat_masks"
+            err[key] = max(err[key], max_abs_diff(got, ref[sl]))
+    return (f"  lanes {name} mode={mode} Lp={args[2].shape[0]} Gp={G} Cp={C} "
+            f"B={args[7].shape[0]} F={F}: B6 sequential at {kernels.LANE_THREADS} threads x "
+            f"{len(placements)} placements and the lane flat routes (both programs, "
+            f"L={args[2].shape[0]} and 1) identical")
+
+
 def hold_lanes(kernels, name, args, kw, max_free, mode, err, widths=PROBE_WIDTHS,
                plain=None) -> str:
     """B6's sequential and wavefront programs and its lane epilogue
@@ -1156,7 +1252,8 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     for knob in PROBE_KNOBS:
         os.environ.pop(knob, None)
     err.update({"pack_probe_lanes": 0.0, "pack_probe_lanes_wavefront": 0.0,
-                "pack_probe_lanes_flat": 0.0})
+                "pack_probe_lanes_flat": 0.0,
+                "pack_probe_lanes_flat_masks": 0.0})
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     fleet = consolidation_fleet()
@@ -1232,13 +1329,15 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
                 k: v for k, v in arm_c.probes.items() if k[0] == 1}:
             fail(f"route {route}: the first cycle decided {one.decisions} with other "
                  f"probe solutions than the default route's {arm_c.decisions[:1]}")
-    b6 = ("pack_probe_lanes", "pack_probe_lanes_wavefront", "pack_probe_lanes_flat")
+    b6 = ("pack_probe_lanes", "pack_probe_lanes_wavefront", "pack_probe_lanes_flat",
+          "pack_probe_lanes_flat_masks")
     expect = {
         "arm (a)": ((), b6),
         "arm (c)": (("pack_probe_lanes_wavefront", "pack_probe_lanes_flat"),
-                    ("pack_probe_lanes",)),
-        "KARPENTER_WAVEFRONT=0": (("pack_probe_lanes", "pack_probe_lanes_flat"),
-                                  ("pack_probe_lanes_wavefront", "pack_split_wavefront")),
+                    ("pack_probe_lanes", "pack_probe_lanes_flat_masks")),
+        "KARPENTER_WAVEFRONT=0": (("pack_probe_lanes", "pack_probe_lanes_flat_masks"),
+                                  ("pack_probe_lanes_wavefront", "pack_split_wavefront",
+                                   "pack_probe_lanes_flat")),
         "KARPENTER_PROBE_BATCH_WIDTH=1": (("pack_split_flat",), b6),
     }
     for route, (used, unused) in expect.items():
@@ -1270,7 +1369,10 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
         ckw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
                for k, v in case.kwargs.items()}
         for mode in ("ffd", "cost"):
-            say(hold_lanes(kernels, case.name, cargs, ckw, case.max_free, mode, err))
+            # the plain outputs phase 3 computed on the same case, if it did
+            plain = {w: LANE_PLAIN.get((case.name, mode, w)) for w in ("seq", *PROBE_WIDTHS)}
+            say(hold_lanes(kernels, case.name, cargs, ckw, case.max_free, mode, err,
+                           plain={w: v for w, v in plain.items() if v is not None}))
     say(f"  seeded lane cases byte-identical ({time.perf_counter() - t0:.3f}s)")
     first = [c for c in rec["calls"] if c[0] == 2]
     if not first:
@@ -1291,6 +1393,11 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
                    widths=(W,), plain={"seq": seq_ref, W: wf_ref}))
     flat_wf = kernels.pack_probe_lanes_flat(*args, max_free=F, mode=mode, wavefront=W, **kw)
     flat_seq = kernels.pack_probe_lanes_flat(*args, max_free=F, mode=mode, **kw)
+    seq_rows = kernels.pack_flat_lanes_ref(*seq_ref)
+    if not same_outputs([flat_seq], [seq_rows]):
+        fail("the first chunk's sequential flat route differs from pack_flat_lanes_ref")
+    err["pack_probe_lanes_flat_masks"] = max(err["pack_probe_lanes_flat_masks"],
+                                             max_abs_diff(flat_seq, seq_rows))
     for lane in range(Lp):
         alone = list(args)
         alone[2], alone[10] = args[2][lane].contiguous(), args[10][lane].contiguous()
@@ -1401,6 +1508,8 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     seq_runs += [event_ms(run_seq, 5), event_ms(run_seq, 5)]
     wf_runs.append(event_ms(run_wf, 5))
     wf_ms, seq_ms = statistics.mean(wf_runs), statistics.mean(seq_runs)
+    lanes = lane_route_timing(kernels, args, kw, F, mode, W, n_real, seq_ms, smi)
+    # the lane epilogue as arm (c)'s wavefront route runs it: the full copy
     flat_in = (*out_wf[:4], out_wf[5], out_wf[4])
     flat_ms = event_ms(lambda: kernels.pack_flat_lanes(*flat_in), 20)
     flat_host_ms = event_ms(lambda: kernels.pack_flat_lanes(*flat_in), 20, queued=False)
@@ -1421,6 +1530,9 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     seq_bound = bound(ops, in_bytes + nbytes(out_seq))
     flat_out = kernels.pack_flat_lanes(*flat_in)
     flat_bound = bound(out_wf[1].numel(), nbytes(flat_in) + nbytes([flat_out]))
+    # the sequential route's epilogue in place moves the mask bytes and
+    # words alone
+    masks_bound = bound(out_wf[1].numel(), lanes["epilogue_bytes"])
     Gp, Cp = args[0].shape
     R, B = args[1].shape[1], args[7].shape[0]
     K = 0 if kw["rsv_cap"] is None else kw["rsv_cap"].shape[0]
@@ -1440,10 +1552,13 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
         f"{kernels.ACTIVE_CLUSTERS.get(W, 0)} clusters of {W} at once, {wf_mem} bytes "
         f"allocated, {shape_bytes} by the shapes); B6 sequential "
         f"{', '.join(f'{x:.4f}' for x in seq_runs)} ms ({seq_ms / n_real:.6f} "
-        f"ms a lane); lane epilogue {flat_ms:.6f} ms ({flat_ms / n_real:.6f} ms a lane; "
-        f"{flat_host_ms:.6f} ms a call as the host launches it) | "
-        f"plain: wavefront {wf_plain_ms:.3f} ms, sequential {seq_plain_ms:.3f} ms, "
-        f"epilogue {flat_plain_ms:.3f} ms | ops={ops} input bytes={in_bytes} | card: {smi}")
+        f"ms a lane, {kernels.LANE_THREADS} threads a block); lane "
+        f"epilogue (the wavefront route's full copy) {flat_ms:.6f} ms ({flat_ms / n_real:.6f} "
+        f"ms a lane; {flat_host_ms:.6f} ms a call as the host launches it; bound "
+        f"{flat_bound[0]:.6f} ms), the sequential route's in place {lanes['epilogue_ms']:.6f} "
+        f"ms ({lanes['epilogue_call_ms']:.6f} ms a call; bound {masks_bound[0]:.6f} ms) | "
+        f"plain: wavefront {wf_plain_ms:.3f} ms, sequential {seq_plain_ms:.3f} ms, epilogue "
+        f"{flat_plain_ms:.3f} ms | ops={ops} input bytes={in_bytes} | card: {smi}")
     say("  ptxas (B6 sequential is B1's kernel over a grid of lanes): " + " | ".join(ptxas))
     say(f"  phase 8 took {time.perf_counter() - t_phase:.3f}s")
     n_b6 = {name: sum(n[name] for n in launches.values()) for name in b6}
@@ -1468,7 +1583,94 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
          "max_abs_err": err["pack_probe_lanes_flat"], "ms": flat_ms,
          "plain_ms": flat_plain_ms, "bound_ms": flat_bound[0], "bound_by": flat_bound[1],
          "library_ms": None},
+        {"name": "pack_probe_lanes_flat_masks", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/pack_flat.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:1292",
+         "launches": n_b6["pack_probe_lanes_flat_masks"],
+         "max_abs_err": err["pack_probe_lanes_flat_masks"], "ms": lanes["epilogue_ms"],
+         "plain_ms": lanes["epilogue_plain_ms"], "bound_ms": masks_bound[0],
+         "bound_by": masks_bound[1], "library_ms": None},
     ]}
+
+
+def flat_filled(kernels, args, kw, F: int, mode: str, width: int = 0, lanes: bool = False):
+    """A flat route's buffer filled as the route fills it, the packing
+    kernel writing into its regions (B1; B3 at `width` > 1; with `lanes`
+    B6 sequential), its mask words not yet packed: (buffer, layout)."""
+    G, C = args[0].shape
+    L = args[2].shape[0] if lanes else 1
+    buf, lay = kernels.flat_buffer(L, args[7].shape[0] + F, G, F, C, width > 1, args[0].device)
+    if lanes:
+        kernels.pack_probe_lanes(*args, max_free=F, mode=mode, flat=(buf, lay), **kw)
+    elif width > 1:
+        kernels.pack_split_wavefront(*args, max_free=F, mode=mode, width=width,
+                                     flat=(buf, lay), **kw)
+    else:
+        kernels.pack_split(*args, max_free=F, mode=mode, flat=(buf, lay), **kw)
+    return buf, lay
+
+
+def lane_route_timing(kernels, args, kw, F: int, mode: str, W: int, n_real: int,
+                      seq_ms: float, smi: str) -> dict:
+    """Phase 8's B6 sequential and lane flat routes on the first chunk:
+    lane 0 and the lane with the most demand alone, their phase clocks;
+    the whole `pack_probe_lanes_flat` call on both programs; the
+    sequential route's lane epilogue in place (its kernel, its call, its
+    plain version; the wavefront route's is the full copy, timed by the
+    caller)."""
+    import torch
+
+    C = args[0].shape[1]
+    B = args[7].shape[0]
+    L = args[2].shape[0]
+    N = B + F
+    one = list(args)
+    one[2], one[10] = args[2][:1].contiguous(), args[10][:1].contiguous()
+
+    def seq(a=args):
+        return kernels.pack_probe_lanes(*a, max_free=F, mode=mode, **kw)
+
+    seq()
+    threads = kernels.LANE_THREADS
+    placed = kernels.DYNAMIC_SMEM["pack_probe_lanes"]
+    alone_ms = event_ms(lambda: seq(one), 10)
+    # the lane with the most demand, alone: the dispatch's floor
+    heavy = int(args[2].to(torch.int64).sum(dim=1).argmax())
+    top = list(args)
+    top[2], top[10] = args[2][heavy:heavy + 1].contiguous(), args[10][heavy:heavy + 1].contiguous()
+    heavy_ms = event_ms(lambda: seq(top), 10)
+    clocks = phase_breakdown(kernels, "pack_split", seq, seq_ms, "step", threads=threads)
+    heavy_clocks = phase_breakdown(kernels, "pack_split", lambda: seq(top), heavy_ms, "step",
+                                   threads=threads)
+    whole = {}
+    for label, wf in (("sequential", 0), ("wavefront", W)):
+        fn = lambda wf=wf: kernels.pack_probe_lanes_flat(  # noqa: E731
+            *args, max_free=F, mode=mode, wavefront=wf, **kw)
+        whole[label] = (event_ms(fn, 5), event_ms(fn, 5, queued=False))
+    rows = kernels.pack_probe_lanes_flat(*args, max_free=F, mode=mode, **kw)
+    buf, lay = flat_filled(kernels, args, kw, F, mode, lanes=True)
+    ep = lambda: kernels.flat_masks(buf, lay, "pack_probe_lanes_flat_masks")  # noqa: E731
+    ep()
+    if not torch.equal(kernels.flat_views(buf, lay)[0], rows):
+        fail("the chunk's sequential buffer differs from pack_probe_lanes_flat's rows")
+    ep_ms = event_ms(ep, 50)
+    ep_call_ms = event_ms(ep, 50, queued=False)
+    ep_plain_ms = event_ms(lambda: kernels.pack_flat_masks_ref(buf, lay), 5, queued=False)
+    say(f"  B6 sequential on the first chunk (L={L}, {n_real} real, rows B+F={N}): "
+        f"{threads} threads a block ({placed}); lane 0 alone {alone_ms:.4f} ms, lane "
+        f"{heavy} (the most demand) alone {heavy_ms:.4f} ms | lane 0's phase clocks: "
+        f"{clocks} | lane {heavy} alone, its phase clocks: {heavy_clocks} | card: {smi}")
+    say(f"  lane flat routes (pack_probe_lanes_flat, whole call): sequential "
+        f"{whole['sequential'][0]:.6f} ms on the card, {whole['sequential'][1]:.6f} ms as the "
+        f"host launches it; wavefront {whole['wavefront'][0]:.6f} ms, "
+        f"{whole['wavefront'][1]:.6f} ms | the sequential route's lane epilogue in place "
+        f"({lay['L']} x {F} x {C // 32} words): {ep_ms:.6f} ms on the card, {ep_call_ms:.6f} ms "
+        f"a call as the host launches it, plain {ep_plain_ms:.6f} ms | card: {smi}")
+    return {"alone_ms": alone_ms, "heavy_ms": heavy_ms,
+            "clocks": clocks, "heavy_clocks": heavy_clocks,
+            "whole": whole, "epilogue_ms": ep_ms, "epilogue_call_ms": ep_call_ms,
+            "epilogue_plain_ms": ep_plain_ms,
+            "epilogue_bytes": L * F * C + 4 * L * F * (C // 32)}
 
 
 SHARDS = (2, 3, 4, 8)
@@ -1955,10 +2157,11 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
     return {"launches": launches, "entries": entries}
 
 
-def phase_breakdown(kernels, lib: str, run, ms: float, unit: str) -> str:
+def phase_breakdown(kernels, lib: str, run, ms: float, unit: str, threads: int = 1024) -> str:
     """One run of `run` with library `lib`'s phase-clock build swapped
     in: each phase's share of block 0's cycles, and the time a step or
-    round from the CUDA-event time `ms` of the normal build."""
+    round from the CUDA-event time `ms` of the normal build (block 0 of
+    `threads` threads)."""
     with kernels.phase_clocks(lib) as take:
         run()
         clk = take()
@@ -1971,7 +2174,7 @@ def phase_breakdown(kernels, lib: str, run, ms: float, unit: str) -> str:
         fail(f"{lib}: the phase-clock build counted {n} {unit}s, {total} cycles")
     shares = ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in clk.items())
     # the slowest thread against the mean over the block's threads
-    spread = ", ".join(f"{k} {hi / n:.1f} (mean {tot / n / 1024:.1f})"
+    spread = ", ".join(f"{k} {hi / n:.1f} (mean {tot / n / threads:.1f})"
                        for k, (hi, tot) in spreads.items())
     text = (f"{n} {unit}s, {1000 * ms / n:.3f} us a {unit} (CUDA events), "
             f"{total / n:.0f} cycles a {unit} on block 0 at {1000 * total / max(ns, 1):.0f} "
@@ -2115,12 +2318,17 @@ def timing_phase(kernels, pack, case, smi: str) -> dict:
     b3_plain_ms = event_ms(
         lambda: kernels.pack_split_wavefront_ref(*args, max_free=F, mode="ffd",
                                                  width=W, **kw), 2, queued=False)
-    # B2 as the main path runs it: on B3's outputs, stats appended
+    # B2's full copy on B3's outputs, stats appended (the standalone
+    # pack_flat_words; B7's epilogue is the same kernel)
     b2_in = (*out3[:4], out3[5], out3[4])
-    b2_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50)
-    b2_host_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50, queued=False)
-    b2_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*b2_in), 20,
-                           queued=False)
+    copy_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50)
+    copy_host_ms = event_ms(lambda: kernels.pack_flat_words(*b2_in), 50, queued=False)
+    copy_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*b2_in), 20,
+                             queued=False)
+    # the flat routes as the main path runs them: the whole call on the B1
+    # and B3 routes, and B2 as it runs there, the mask epilogue on the B3
+    # route's buffer
+    flat = flat_route_timing(kernels, args, kw, F, W, smi)
 
     Gp, Cp = args[0].shape
     R = args[1].shape[1]
@@ -2129,27 +2337,91 @@ def timing_phase(kernels, pack, case, smi: str) -> dict:
     in_bytes = nbytes(list(args) + list(kw.values()))
     b1_bytes = in_bytes + nbytes(out1)
     b3_bytes = in_bytes + nbytes(out3)
-    flat = kernels.pack_flat_words(*b2_in)
-    b2_bytes = nbytes(b2_in) + nbytes([flat])
+    copy = kernels.pack_flat_words(*b2_in)
+    copy_bytes = nbytes(b2_in) + nbytes([copy])
     b2_op_count = out3[1].numel()
 
     b1_bound, b1_by = bound(b1_op_count, b1_bytes)
     b3_bound, b3_by = bound(b1_op_count, b3_bytes)
-    b2_bound, b2_by = bound(b2_op_count, b2_bytes)
+    # B2 on the main path moves the mask bytes and words; the whole row's
+    # old work (the full copy) beside it
+    b2_bound, b2_by = bound(b2_op_count, flat["epilogue_bytes"])
+    copy_bound, _ = bound(b2_op_count, copy_bytes)
     say(f"phase 5 timing on {case.name} (Gp={Gp} Cp={Cp} B={B} F={F} R={R}, W={W}): "
         f"B1 {', '.join(f'{x:.4f}' for x in b1_runs)} ms; B3 "
         f"{', '.join(f'{x:.4f}' for x in b3_runs)} ms, {int(out3[4])} rounds, widths "
         f"{histogram(out3[5][:int(out3[4])])}; B1/B3 ops={b1_op_count} "
-        f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 {b2_ms:.6f} ms on the card, "
-        f"{b2_host_ms:.6f} ms a call as the host launches it, ops={b2_op_count} "
-        f"bytes={b2_bytes} | card: {smi}")
+        f"B1 bytes={b1_bytes} B3 bytes={b3_bytes}; B2 (the mask epilogue in place) "
+        f"{flat['epilogue_ms']:.6f} ms on the card, {flat['epilogue_call_ms']:.6f} ms a call "
+        f"as the host launches it, ops={b2_op_count} bytes={flat['epilogue_bytes']} (bound "
+        f"{b2_bound:.6f} ms), plain {flat['epilogue_plain_ms']:.6f} ms; the full copy "
+        f"{copy_ms:.6f} ms on the card, {copy_host_ms:.6f} ms a call, bytes={copy_bytes} (bound "
+        f"{copy_bound:.6f} ms), plain {copy_plain_ms:.6f} ms | card: {smi}")
     say(f"  placement a block: B1 {smem['pack_split']}; B3 {smem['pack_split_wavefront']}")
     say(f"  B1 phase clocks: {b1_clocks}")
     say(f"  B3 phase clocks: {b3_clocks}")
     return {"b1_ms": b1_ms, "b1_plain_ms": b1_plain_ms, "b1_bound": b1_bound,
             "b1_by": b1_by, "b3_ms": b3_ms, "b3_plain_ms": b3_plain_ms,
-            "b3_bound": b3_bound, "b3_by": b3_by, "b2_ms": b2_ms,
-            "b2_plain_ms": b2_plain_ms, "b2_bound": b2_bound, "b2_by": b2_by}
+            "b3_bound": b3_bound, "b3_by": b3_by, "b2_ms": flat["epilogue_ms"],
+            "b2_plain_ms": flat["epilogue_plain_ms"], "b2_bound": b2_bound, "b2_by": b2_by}
+
+
+def host_us(fn, reps: int) -> float:
+    """The host's us a call of `fn`, by the host clock, the card's queue
+    drained before and after (the calls enqueue their kernels and
+    return)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def flat_route_timing(kernels, args, kw, F: int, W: int, smi: str) -> dict:
+    """Phase 5's flat routes on the warm first request's inputs: the
+    whole `pack_split_flat` call on the B1 and B3 routes (CUDA events,
+    queued: the card's work; and as the host launches it), the B3
+    route's buffer once filled, then B2 as the main path runs it (the
+    mask epilogue in place): its kernel, its call, its plain version, and
+    the host's part of each piece of the route by the host clock."""
+    import torch
+
+    G, C = args[0].shape
+    B = args[7].shape[0]
+    N = B + F
+    routes = {
+        "B1": lambda: kernels.pack_split_flat(*args, max_free=F, mode="ffd", **kw),
+        "B3": lambda: kernels.pack_split_flat(*args, max_free=F, mode="ffd", wavefront=W, **kw),
+    }
+    whole = {k: (event_ms(fn, 10), event_ms(fn, 10, queued=False)) for k, fn in routes.items()}
+    row = routes["B3"]()
+    buf, lay = flat_filled(kernels, args, kw, F, "ffd", W)
+    ep = lambda: kernels.flat_masks(buf, lay)  # noqa: E731
+    ep()
+    if not torch.equal(kernels.flat_views(buf, lay)[0][0], row):
+        fail("the B3 route's buffer differs from pack_split_flat's row")
+    ep_ms = event_ms(ep, 50)
+    ep_call_ms = event_ms(ep, 50, queued=False)
+    ep_plain_ms = event_ms(lambda: kernels.pack_flat_masks_ref(buf, lay), 20, queued=False)
+    host = {"buffer": host_us(lambda: kernels.flat_buffer(1, N, G, F, C, True, args[0].device),
+                              200),
+            "epilogue": host_us(ep, 200),
+            "whole B3 route": host_us(routes["B3"], 10)}
+    ep_bytes = F * C + 4 * F * (C // 32)
+    say(f"  flat routes (pack_split_flat, whole call: the buffer's fill, the packing kernel "
+        f"in place, the epilogue): B1 route {whole['B1'][0]:.6f} ms on the card, "
+        f"{whole['B1'][1]:.6f} ms as the host launches it; B3 route {whole['B3'][0]:.6f} ms, "
+        f"{whole['B3'][1]:.6f} ms | B2 (mask epilogue, F={F} C={C}, {lay['F'] * C // 32} "
+        f"words): {ep_ms:.6f} ms on the card, {ep_call_ms:.6f} ms a call as the host "
+        f"launches it, plain "
+        f"{ep_plain_ms:.6f} ms | host clock, us a call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f" | card: {smi}")
+    return {"whole": whole, "epilogue_ms": ep_ms, "epilogue_call_ms": ep_call_ms,
+            "epilogue_plain_ms": ep_plain_ms, "epilogue_bytes": ep_bytes, "host_us": host}
 
 
 def ascent_clocks(kernels, lp_device, a, n_iters: int, ms: float) -> tuple[str, int]:
@@ -2287,6 +2559,9 @@ CATALOG_LANES = 3
 CATALOG_WAVE = 5_000
 MANY_POOLS = 80
 CATALOG = "--catalog"
+# `--lanes`: phases 1-2, then the holds of B6 sequential at each block
+# size and of the in-place flat routes alone
+LANES = "--lanes"
 # `--against DIR`: phases 1-2, then `compare_timings` in DIR (a checkout
 # of another commit, e.g. the parent) and here, in turns
 AGAINST = "--against"
@@ -2349,7 +2624,7 @@ def catalog_phase(err: dict, smi: str) -> dict:
     t_phase = time.perf_counter()
     for k in ("pack_split", "pack_split_wavefront", "pack_split_flat", "pack", "pack_flat",
               "pack_probe_lanes", "pack_probe_lanes_wavefront", "pack_probe_lanes_flat",
-              *SPLIT_WRAPPERS):
+              "pack_probe_lanes_flat_masks", *SPLIT_WRAPPERS):
         err.setdefault(k, 0.0)
     pods, pools = aws_catalog_50k(CATALOG_TYPES)
     enc = encode(group_pods(pods), pools)
@@ -2461,8 +2736,9 @@ def catalog_phase(err: dict, smi: str) -> dict:
                        pods=[p for i in cands[:n] for p in pods_on[i]])
              for n in range(1, len(cands) + 1)]
     probe_launches, probe_walls = {}, {}
-    for route, knob, want in (("wavefront", None, "pack_probe_lanes_wavefront_global"),
-                              ("sequential", "0", "pack_probe_lanes_global")):
+    for route, knob, want, ep in (
+            ("wavefront", None, "pack_probe_lanes_wavefront_global", "pack_probe_lanes_flat"),
+            ("sequential", "0", "pack_probe_lanes_global", "pack_probe_lanes_flat_masks")):
         if knob is not None:
             os.environ["KARPENTER_WAVEFRONT"] = knob
         try:
@@ -2476,9 +2752,9 @@ def catalog_phase(err: dict, smi: str) -> dict:
         finally:
             os.environ.pop("KARPENTER_WAVEFRONT", None)
         n = probe_launches[route]
-        if n[want] < 1 or n["pack_probe_lanes_flat"] < 1:
+        if n[want] < 1 or n[ep] < 1:
             fail(f"catalog consolidation, {route} route: launched {n}; expected {want} and "
-                 "pack_probe_lanes_flat")
+                 f"{ep}")
         for i in sorted({0, len(lanes) // 2, len(lanes) - 1}):
             gone = set(cands[:i + 1])
             rest = [node for j, node in enumerate(nodes) if j not in gone]
@@ -2693,24 +2969,29 @@ def catalog_phase(err: dict, smi: str) -> dict:
 
 def compare_timings() -> None:
     """Times, on fixed inputs through a tree's own public wrappers, the
-    kernels this slice redesigned (B4, split B2) and those whose
-    all-shared layout must not slow (B1, B3, B6, split B1 and B3), and
+    kernels the redesigns touched and those that must not slow, and
     prints them as one JSON line. `against` runs it in a process of its
     own from each tree's root, that tree's package first on sys.path:
-    B1, B3 and B2 on the first 50k x 500 request; split B1, B3 and B2 at
-    S = 2, 4, 8 on the same request; B4 on reserved_50k's first
-    column-generation round and its phase clocks; split B2's kernel alone, without the call's host work; B6's
-    two programs on `testing.lane_cases(0)`'s first case; the stack
-    frames and registers of the packing kernels and B4. The other tree
-    must have this one's wrappers (`pack_shard.flat_sharded_launcher`,
-    B4's phase clocks)."""
+    B1, B3, B2's full copy and B7 on the first 50k x 500 request; split B1,
+    B3 and B2 at S = 2, 4, 8 on the same request (split B2's kernel alone
+    too); B4 on reserved_50k's first column-generation round and its
+    phase clocks; B6's two programs on `testing.lane_cases(0)`'s first
+    case at 10 and 64 lanes; the whole `pack_split_flat` call on the B1
+    and B3 routes and B2 as the main path runs it; phase 8's first chunk
+    (staged by `first_chunk`): B6 sequential (the dispatch, lane 0 and
+    the lane with the most demand alone, their phase clocks), B6
+    wavefront, the whole `pack_probe_lanes_flat` call on both programs
+    and the lane epilogue on both routes; the stack frames and
+    registers of the packing kernels and B4. The other tree must have
+    this one's wrappers (`pack_shard.flat_sharded_launcher`, B4's phase
+    clocks)."""
     import numpy as np
     import torch
 
-    from karpenter_tpu_torch.solver import lp_plan, pack, pack_shard as shard
+    from karpenter_tpu_torch.solver import lp_plan, pack, pack_dense as pd, pack_shard as shard
     from karpenter_tpu_torch.solver import pack_split as kernels
     from karpenter_tpu_torch.solver.encode import encode, group_pods
-    from karpenter_tpu_torch.testing import lane_cases
+    from karpenter_tpu_torch.testing import dense_case, lane_cases
     from karpenter_tpu_torch.utils.platform import force_virtual_mesh
     from karpenter_tpu_torch.workloads import build_problem
 
@@ -2730,6 +3011,11 @@ def compare_timings() -> None:
     }
     o3 = runs["B3"]()
     runs["B2"] = lambda: kernels.pack_flat_words(*o3[:4], o3[5], o3[4])
+    # B7 on the same request laid out densely (its prefix fill is B6's
+    # chunked take)
+    dc = dense_case(st, "first request dense", "ffd")
+    dargs, dkw = to_cuda(dc)
+    runs["B7"] = lambda: pd.pack(*dargs, max_nodes=dc.max_nodes, **dkw)
     force_virtual_mesh(max(COMPARE_SHARDS))
     try:
         for S in COMPARE_SHARDS:
@@ -2789,24 +3075,144 @@ def compare_timings() -> None:
     out["B4 shape"] = f"Gp={xs[0].shape[0]} Cp={xs[1].shape[1]} R={xs[2].shape[1]}"
     out["B4 clocks"] = price_clocks(kernels, lp_plan, xs)[0]
 
-    # B6 on the first seeded lane case
-    lc = lane_cases(0)[0]
-    largs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in lc.args]
-    lkw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
-           for k, v in lc.kwargs.items()}
-    for name, fn in (
-            ("B6 sequential", lambda: kernels.pack_probe_lanes(
-                *largs, max_free=lc.max_free, **lkw)),
-            ("B6 wavefront", lambda: kernels.pack_probe_lanes_wavefront(
-                *largs, max_free=lc.max_free, width=16, **lkw))):
+    # B6 on the first seeded lane case, at 10 lanes and at 64
+    for suffix, n_lanes in (("", 10), (" 64 lanes", 64)):
+        lc = lane_cases(0, n_lanes=n_lanes)[0]
+        largs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in lc.args]
+        lkw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+               for k, v in lc.kwargs.items()}
+        runs = {"B6 sequential": lambda: kernels.pack_probe_lanes(
+                    *largs, max_free=lc.max_free, **lkw),
+                "B6 wavefront": lambda: kernels.pack_probe_lanes_wavefront(
+                    *largs, max_free=lc.max_free, width=16, **lkw)}
+        for name, fn in runs.items():
+            fn()
+            out[name + suffix] = event_ms(fn, 10)
+
+    # the whole flat calls on the first request (B1, B3 routes), and B2 as
+    # the main path runs it: this tree's mask epilogue on the B3 route's
+    # buffer, or the full copy of a tree that has no flat_masks
+    flat_runs = {
+        "pack_split_flat B1": lambda: kernels.pack_split_flat(*fargs, max_free=F, mode="ffd",
+                                                              **fkw),
+        "pack_split_flat B3": lambda: kernels.pack_split_flat(
+            *fargs, max_free=F, mode="ffd", wavefront=W, **fkw)}
+    for name, fn in flat_runs.items():
         fn()
         out[name] = event_ms(fn, 10)
+        out[name + " as the host launches it"] = event_ms(fn, 10, queued=False)
+    if hasattr(kernels, "flat_masks"):
+        buf, lay = flat_filled(kernels, fargs, fkw, F, "ffd", W)
+        b2 = lambda: kernels.flat_masks(buf, lay)  # noqa: E731
+    else:
+        b2 = lambda: kernels.pack_flat_words(*o3[:4], o3[5], o3[4])  # noqa: E731
+    b2()
+    out["B2 as the main path runs it"] = event_ms(b2, 50)
+    out["B2 as the main path runs it, a call as the host launches it"] = event_ms(
+        b2, 50, queued=False)
+
+    # phase 8's first chunk: B6 sequential (the dispatch, lane 0 alone,
+    # lane 0's phase clocks), B6 wavefront, the whole lane flat calls and
+    # the lane epilogue as the main path runs it
+    from karpenter_tpu_torch.solver import consolidation_batch as cb
+
+    args, kw, cF, cmode, cW, n_real = first_chunk(kernels, cb)
+    one = list(args)
+    one[2], one[10] = args[2][:1].contiguous(), args[10][:1].contiguous()
+    seq = lambda a=args: kernels.pack_probe_lanes(  # noqa: E731
+        *a, max_free=cF, mode=cmode, **kw)
+    wf = lambda: kernels.pack_probe_lanes_wavefront(  # noqa: E731
+        *args, max_free=cF, mode=cmode, width=cW, **kw)
+    heavy = int(args[2].to(torch.int64).sum(dim=1).argmax())
+    top = list(args)
+    top[2], top[10] = args[2][heavy:heavy + 1].contiguous(), args[10][heavy:heavy + 1].contiguous()
+    for name, fn in (("B6 sequential chunk", seq), ("B6 sequential chunk lane 0 alone",
+                                                    lambda: seq(one)),
+                     (f"B6 sequential chunk lane {heavy} (the most demand) alone",
+                      lambda: seq(top)),
+                     ("B6 wavefront chunk", wf)):
+        fn()
+        out[name] = event_ms(fn, 10)
+    threads = getattr(kernels, "LANE_THREADS", 1024)
+    out["B6 sequential chunk shape"] = (f"L={args[2].shape[0]} ({n_real} real) "
+                                        f"Gp={args[0].shape[0]} Cp={args[0].shape[1]} "
+                                        f"B={args[7].shape[0]} F={cF}, {threads} threads, "
+                                        f"{kernels.DYNAMIC_SMEM.get('pack_probe_lanes')}")
+    seq()
+    out["B6 sequential chunk clocks"] = phase_breakdown(
+        kernels, "pack_split", seq, out["B6 sequential chunk"], "step", threads=threads)
+    out[f"B6 sequential chunk lane {heavy} alone clocks"] = phase_breakdown(
+        kernels, "pack_split", lambda: seq(top),
+        out[f"B6 sequential chunk lane {heavy} (the most demand) alone"], "step",
+        threads=threads)
+    for label, w in (("sequential", 0), ("wavefront", cW)):
+        fn = lambda w=w: kernels.pack_probe_lanes_flat(  # noqa: E731
+            *args, max_free=cF, mode=cmode, wavefront=w, **kw)
+        fn()
+        out[f"pack_probe_lanes_flat {label} chunk"] = event_ms(fn, 5)
+        out[f"pack_probe_lanes_flat {label} chunk as the host launches it"] = event_ms(
+            fn, 5, queued=False)
+    # the lane epilogue on the wavefront route (the full copy in both
+    # trees) and on the sequential route (this tree's in place, or the
+    # full copy of a tree that has no flat_masks)
+    ow = wf()
+    if hasattr(kernels, "flat_masks"):
+        lbuf, llay = flat_filled(kernels, args, kw, cF, cmode, lanes=True)
+        seq_ep = lambda: kernels.flat_masks(  # noqa: E731
+            lbuf, llay, "pack_probe_lanes_flat_masks")
+    else:
+        os_ = seq()
+        seq_ep = lambda: kernels.pack_flat_lanes(*os_)  # noqa: E731
+    for label, ep in (("wavefront route", lambda: kernels.pack_flat_lanes(
+            *ow[:4], ow[5], ow[4])), ("sequential route", seq_ep)):
+        ep()
+        out[f"lane epilogue, {label}"] = event_ms(ep, 50)
+        out[f"lane epilogue, {label}, a call as the host launches it"] = event_ms(
+            ep, 50, queued=False)
     from karpenter_tpu_torch import cuda_build
 
     info = cuda_build.build_all()
-    for lib in ("pack_split", "pack_wavefront", "lp_price"):
+    for lib in ("pack_split", "pack_wavefront", "pack_dense", "lp_price"):
         out[f"ptxas {lib}"] = ptxas_usage(info[lib]["ptxas"])
     print(json.dumps(out), flush=True)
+
+
+def first_chunk(kernels, cb):
+    """Phase 8's first chunk, staged through a tree's own public
+    functions: consolidation_500's fleet (`workloads.consolidation_fleet`)
+    and one cycle of arm (c) (`testing.consolidation_ladder`), its first
+    `pack_probe_lanes_flat` call after the warm staging. Returns (args,
+    kwargs without max_free, mode and wavefront, max_free, mode, the
+    wavefront width, the real lanes)."""
+    from karpenter_tpu_torch.testing import consolidation_ladder
+    from karpenter_tpu_torch.workloads import consolidation_fleet
+
+    for knob in PROBE_KNOBS:
+        os.environ.pop(knob, None)
+    fleet = consolidation_fleet()
+    rec = {"staging": 0, "calls": []}
+    real_lazy, real_flat = cb.LaneSolver.solve_lazy, kernels.pack_probe_lanes_flat
+
+    def solve_lazy(self, *a, **k):
+        rec["staging"] += 1
+        return real_lazy(self, *a, **k)
+
+    def pack_probe_lanes_flat(*a, **k):
+        rec["calls"].append((rec["staging"], a, k))
+        return real_flat(*a, **k)
+
+    cb.LaneSolver.solve_lazy, kernels.pack_probe_lanes_flat = solve_lazy, pack_probe_lanes_flat
+    try:
+        consolidation_ladder(*fleet, batched=True, device="cuda", cycles=1)
+    finally:
+        cb.LaneSolver.solve_lazy, kernels.pack_probe_lanes_flat = real_lazy, real_flat
+    first = [c for c in rec["calls"] if c[0] == 2]
+    if not first:
+        fail("first_chunk: the first cycle dispatched no lane chunk")
+    _, args, k = first[0]
+    kw = {key: k.get(key) for key in ("cfg_rsv", "rsv_cap", "conflict")}
+    n_real = int((args[10].any(dim=1) | (args[2] > 0).any(dim=1)).sum())
+    return args, kw, k["max_free"], k["mode"], k["wavefront"], n_real
 
 
 def ptxas_usage(text: str) -> str:
@@ -2819,8 +3225,9 @@ def ptxas_usage(text: str) -> str:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(ILb([01])E)?", m.group(1))
-            name = (k.group(1) + (f"<{k.group(3)}>" if k.group(3) else "")) if k else m.group(1)
+            k = re.search(r"([a-z_]+_kernel)(ILb([01])E(Li(\d+)E)?)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(3)}{',' + k.group(5) if k.group(5) else ''}>"
+                                  if k.group(3) else "")) if k else m.group(1)
             continue
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and name:
@@ -2912,6 +3319,7 @@ def main() -> None:
             dense_cases,
             existing_from_solution,
             kernel_cases,
+            lane_cases,
             price_case,
             price_cases,
         )
@@ -2951,6 +3359,23 @@ def main() -> None:
         against(other, smi)
         finish(kind, smi)
         return
+    if LANES in sys.argv[1:]:
+        t0 = time.perf_counter()
+        err = {k: 0.0 for k in ("pack_split", "pack_split_wavefront", "pack_split_flat",
+                                "pack_probe_lanes", "pack_probe_lanes_flat",
+                                "pack_probe_lanes_flat_masks")}
+        for case in kernel_cases(0):
+            say(hold(kernels, case, err, widths=(8, 16)))
+        for lc in lane_cases(0):
+            largs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in lc.args]
+            lkw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                   for k, v in lc.kwargs.items()}
+            for mode in ("ffd", "cost"):
+                say(hold_lane_placements(kernels, lc.name, largs, lkw, lc.max_free, mode, err))
+        say(f"chip_smoke {LANES}: holds identical ({time.perf_counter() - t0:.3f}s), "
+            f"{time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
     if CATALOG in sys.argv[1:]:
         report = {"kernels": catalog_phase({}, smi)["entries"]}
         say(f"chip_smoke {CATALOG}: {time.perf_counter() - T_START:.3f}s wall")
@@ -2965,6 +3390,16 @@ def main() -> None:
     for case in cases + [config_axis(cases[i], C) for i, C in ((4, ODD_CONFIG_AXES[0]),
                                                                  (2, ODD_CONFIG_AXES[1]))]:
         say(hold(kernels, case, err, widths=WIDTHS))
+    err.update({"pack_probe_lanes": 0.0, "pack_probe_lanes_flat": 0.0,
+                "pack_probe_lanes_flat_masks": 0.0})
+    n_lane = 0
+    for lc in lane_cases(0):
+        largs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in lc.args]
+        lkw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+               for k, v in lc.kwargs.items()}
+        for mode in ("ffd", "cost"):
+            say(hold_lane_placements(kernels, lc.name, largs, lkw, lc.max_free, mode, err))
+            n_lane += 1
     err.update({"pack": 0.0, "pack_flat": 0.0})
     dcases = dense_cases(0, kernel=cases)
     for case in dcases:
@@ -2995,7 +3430,9 @@ def main() -> None:
                 fail(f"lp_ascend took the global-memory path {global_path}x on {name}")
     say(f"phase 3 kernels: {len(cases)} seeded packing problems and 2 at config axes "
         f"{ODD_CONFIG_AXES} byte-identical to the plain versions, B3 at widths "
-        f"{WIDTHS} equal to B1; B7 and pack_flat "
+        f"{WIDTHS} equal to B1, the in-place flat routes identical; B6 sequential at "
+        f"{kernels.LANE_THREADS} threads, shared and spilled, and the lane flat routes "
+        f"on {n_lane} seeded lane cases identical; B7 and pack_flat "
         f"on {len(dcases)} dense ones byte-identical, B7 equal to B1; B4 on "
         f"{len(PRICE_CASES)} (each in its three layouts) and {len(PRICE_PAST_CEILING)} past "
         f"its staged layout and B5 on {3 * len(ASCENT_ITERS)} seeded cases and "

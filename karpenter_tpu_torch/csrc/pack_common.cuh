@@ -19,11 +19,16 @@
 //     the bulk open, three or four block barriers an open, every block
 //     reduction a warp reduction first; a split kernel's opens take one
 //     exchange each (`open_loop_split`);
-//   - `prefix_fill`: B7's chunked scan over its byte-mask rows.
+//   - `chunked_take` (B6 sequential's `sweep_take_chunked`) and
+//     `prefix_fill` (B7): the prefix take walked in chunks of the
+//     block's rows and stopped at the chunk that meets the demand, the
+//     carry in a register of every thread and in shared memory.
 // A fresh row keeps its mask as words_pad(C) 32-bit words; the byte
 // masks the outputs carry are written from them at the end of a launch.
 // The kernels run blocks of kThreads threads (a multiple of 32, at most
-// 1024).
+// 1024). The functions a group step runs take the block size as their
+// template argument kT (kThreads unless given): B6's sequential program
+// launches B1's body at 256 threads.
 //
 // Float arithmetic uses explicit round-to-nearest intrinsics in the
 // JAX order of operations, so nothing depends on FMA contraction (the
@@ -149,10 +154,12 @@ __device__ __forceinline__ unsigned long long pack_key(uint32_t v, int idx) {
   return ((unsigned long long)v << 32) | (uint32_t)idx;
 }
 
-// block-wide inclusive scan of one int64 per thread; `warp_tot` is a
-// shared array of kWarps entries. Returns the inclusive prefix and
-// writes the block total to *total (shared).
+// block-wide inclusive scan of one int64 per thread over kT threads;
+// `warp_tot` is a shared array of kT / 32 entries. Returns the inclusive
+// prefix and writes the block total to *total (shared).
+template <int kT = kThreads>
 __device__ long long block_scan(long long v, long long* warp_tot, long long* total) {
+  constexpr int kW = kT / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   long long x = v;
@@ -163,12 +170,12 @@ __device__ long long block_scan(long long v, long long* warp_tot, long long* tot
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    long long w = lane < kWarps ? warp_tot[lane] : 0;
+    long long w = lane < kW ? warp_tot[lane] : 0;
     for (int o = 1; o < 32; o <<= 1) {
       long long y = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += y;
     }
-    if (lane < kWarps) warp_tot[lane] = w;  // inclusive over warps
+    if (lane < kW) warp_tot[lane] = w;  // inclusive over warps
     if (lane == 31) *total = w;
   }
   __syncthreads();
@@ -200,6 +207,48 @@ __device__ __forceinline__ bool blocked(const A& a, int n, int g) {
   return false;
 }
 
+
+// The prefix take of one group with demand r > 0 over rows [0, nscan)
+// in index order, walked in chunks of kT rows (a thread a row) and
+// stopped after the chunk where the demand is met: row n's take is
+// clip(r - sum_{m<n} c_m, 0, c_n), c_m = min(cap(m), r), exact in 64
+// bits and clamped at r (equal to the JAX kernels' saturating uint32
+// scan), handed to take(n, t) (t = 0 for none) by the row's thread.
+// cap(n) is called for rows below nscan alone; mark(k) after each
+// chunk's capacities (k = 0), its scan (1) and its takes (2). Returns
+// the end of the rows whose take was handed over (later rows take 0)
+// and, in *placed, the pods placed (min(sum, r)). All threads of the
+// block call it. The carry is in a register of every thread; B7's
+// `prefix_fill` below walks the same chunks with its carry in shared
+// memory, behind two more barriers a chunk. Each kernel keeps its own:
+// B7's 64-register kernel spilled on this one and ran 5% longer, and
+// B6's step ran 2-6% longer on B7's (PERF.md §6).
+template <int kT, class Cap, class Take, class Mark>
+__device__ int chunked_take(int nscan, long long r, Cap cap, Take take, Mark mark,
+                            long long* placed) {
+  __shared__ long long s_warp[kT / 32];
+  __shared__ long long s_total;
+  long long carry = 0;  // the same on every thread: the chunks' totals so far
+  int end = 0;
+  while (end < nscan) {
+    const int n = end + (int)threadIdx.x;
+    const long long c = n < nscan ? min((long long)cap(n), r) : 0;
+    mark(0);
+    const long long prefix = carry + block_scan<kT>(c, s_warp, &s_total) - c;
+    mark(1);
+    if (n < nscan) take(n, (int)min(r - min(prefix, r), c));
+    // s_total is rewritten only after the next scan's first barrier
+    carry += s_total;
+    end = min(end + kT, nscan);
+    mark(2);
+    if (carry >= r) break;
+  }
+  *placed = min(carry, r);
+  // the takes are read by other threads; s_warp and s_total are
+  // rewritten by the next call
+  __syncthreads();
+  return end;
+}
 
 // The prefix fill of one group with demand r > 0 over rows [0, nscan)
 // in index order: take[n] = clip(r - sum_{m<n} kcap[m], 0, kcap[n]),
@@ -412,19 +461,19 @@ struct Smem {
   unsigned char* pools;
 };
 
-template <class T>
+template <int kT = kThreads, class T>
 __device__ __forceinline__ void copy_async(T* dst, const T* src, int n) {
   static_assert(sizeof(T) == 4, "4-byte elements");
-  for (int i = threadIdx.x; i < n; i += kThreads) __pipeline_memcpy_async(dst + i, src + i, 4);
+  for (int i = threadIdx.x; i < n; i += kT) __pipeline_memcpy_async(dst + i, src + i, 4);
 }
 
 // The compat rows as bits, a word a thread (32 independent byte loads in
 // flight), the capped columns' words, and rsv_used and spend zeroed.
-template <class A>
+template <int kT = kThreads, class A>
 __device__ __forceinline__ void stage_derived(const A& a, const Smem& sm, float* used) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int C = a.C, K = a.K, G = a.G, nw = words_pad(C);
-  for (int i = tid; i < G * nw; i += kThreads) {
+  for (int i = tid; i < G * nw; i += kT) {
     const int g = i / nw, c0 = (i % nw) * 32;
     const uint8_t* row = a.compat + (size_t)g * C;
     uint32_t bits = 0;
@@ -433,11 +482,11 @@ __device__ __forceinline__ void stage_derived(const A& a, const Smem& sm, float*
       if (c0 + b < C && row[c0 + b]) bits |= 1u << b;
     sm.gbits[i] = bits;
   }
-  for (int s = tid; s <= K; s += kThreads) {
+  for (int s = tid; s <= K; s += kT) {
     used[s] = 0.0f;
     sm.spend[s] = 0.0f;
   }
-  for (int wd = warp; wd < words_pad(C); wd += kWarps) {
+  for (int wd = warp; wd < words_pad(C); wd += kT / 32) {
     const int c = wd * 32 + lane;
     const unsigned bits = __ballot_sync(0xffffffffu, c < C && a.cfg_rsv[c] >= 0);
     if (lane == 0) sm.capped[wd] = bits;
@@ -447,7 +496,7 @@ __device__ __forceinline__ void stage_derived(const A& a, const Smem& sm, float*
 // All threads: copy a's tables into `smem` and point a's table fields
 // (cfg_alloc, pool_overhead, cfg_price, cfg_pool, cfg_rsv, rsv_cap,
 // rsv_used, kopen, fits) at the copies; rsv_used and spend start at 0.
-template <class A>
+template <int kT = kThreads, class A>
 __device__ Smem stage_tables(A& a, unsigned char* smem) {
   const int C = a.C, R = a.R, K = a.K, G = a.G;
   const TableLayout l = table_layout(C, R, a.P1, K, G);
@@ -457,17 +506,17 @@ __device__ Smem stage_tables(A& a, unsigned char* smem) {
   int32_t* pool = (int32_t*)(smem + l.pool);
   int32_t* rsv = (int32_t*)(smem + l.rsv);
   float* cap = (float*)(smem + l.rsv_cap);
-  copy_async(alloc, a.cfg_alloc, C * R);
-  copy_async(oh, a.pool_overhead, a.P1 * R);
-  copy_async(price, a.cfg_price, C);
-  copy_async(pool, a.cfg_pool, C);
-  copy_async(rsv, a.cfg_rsv, C);
-  copy_async(cap, a.rsv_cap, K);
+  copy_async<kT>(alloc, a.cfg_alloc, C * R);
+  copy_async<kT>(oh, a.pool_overhead, a.P1 * R);
+  copy_async<kT>(price, a.cfg_price, C);
+  copy_async<kT>(pool, a.cfg_pool, C);
+  copy_async<kT>(rsv, a.cfg_rsv, C);
+  copy_async<kT>(cap, a.rsv_cap, K);
   Smem sm;
   int32_t* gcount = (int32_t*)(smem + l.gcount);
   float* greq = (float*)(smem + l.greq);
-  copy_async(gcount, a.group_count, G);
-  copy_async(greq, a.group_req, G * R);
+  copy_async<kT>(gcount, a.group_count, G);
+  copy_async<kT>(greq, a.group_req, G * R);
   __pipeline_commit();
   sm.gcount = gcount;
   sm.greq = greq;
@@ -476,7 +525,7 @@ __device__ Smem stage_tables(A& a, unsigned char* smem) {
   sm.gbits = (uint32_t*)(smem + l.gbits);
   sm.pools = nullptr;  // a split kernel's pool entries are static arrays
   float* used = (float*)(smem + l.rsv_used);
-  stage_derived(a, sm, used);
+  stage_derived<kT>(a, sm, used);
   __pipeline_wait_prior(0);
   __syncthreads();
   a.cfg_alloc = alloc;
@@ -501,35 +550,35 @@ __device__ __forceinline__ unsigned char* seg_at(const Placement& p, int s, unsi
 // A read-only table of a spilled launch: copied into shared memory when
 // the placement keeps it there (the field then points at the copy after
 // the staging's barrier), else read where its input lies.
-template <class T>
+template <int kT = kThreads, class T>
 __device__ __forceinline__ const T* seg_input(const Placement& p, int s, unsigned char* smem,
                                               const T* input, int n) {
   if (p.off[s] < 0) return input;
   T* dst = (T*)(smem + p.off[s]);
-  copy_async(dst, input, n);
+  copy_async<kT>(dst, input, n);
   return dst;
 }
 
 // stage_tables for a spilled launch: every segment where `p` puts it.
-template <class A>
+template <int kT = kThreads, class A>
 __device__ Smem stage_tables_placed(A& a, unsigned char* smem, const Placement& p) {
   const int C = a.C, R = a.R, K = a.K, G = a.G;
-  const float* alloc = seg_input(p, SG_ALLOC, smem, a.cfg_alloc, C * R);
-  const float* oh = seg_input(p, SG_OH, smem, a.pool_overhead, a.P1 * R);
-  const float* price = seg_input(p, SG_PRICE, smem, a.cfg_price, C);
-  const int32_t* pool = seg_input(p, SG_POOL, smem, a.cfg_pool, C);
-  const int32_t* rsv = seg_input(p, SG_RSV, smem, a.cfg_rsv, C);
-  const float* cap = seg_input(p, SG_RSV_CAP, smem, a.rsv_cap, K);
+  const float* alloc = seg_input<kT>(p, SG_ALLOC, smem, a.cfg_alloc, C * R);
+  const float* oh = seg_input<kT>(p, SG_OH, smem, a.pool_overhead, a.P1 * R);
+  const float* price = seg_input<kT>(p, SG_PRICE, smem, a.cfg_price, C);
+  const int32_t* pool = seg_input<kT>(p, SG_POOL, smem, a.cfg_pool, C);
+  const int32_t* rsv = seg_input<kT>(p, SG_RSV, smem, a.cfg_rsv, C);
+  const float* cap = seg_input<kT>(p, SG_RSV_CAP, smem, a.rsv_cap, K);
   Smem sm;
-  sm.gcount = seg_input(p, SG_GCOUNT, smem, a.group_count, G);
-  sm.greq = seg_input(p, SG_GREQ, smem, a.group_req, G * R);
+  sm.gcount = seg_input<kT>(p, SG_GCOUNT, smem, a.group_count, G);
+  sm.greq = seg_input<kT>(p, SG_GREQ, smem, a.group_req, G * R);
   __pipeline_commit();
   sm.spend = (float*)seg_at(p, SG_SPEND, smem);
   sm.capped = (uint32_t*)seg_at(p, SG_CAPPED, smem);
   sm.gbits = (uint32_t*)seg_at(p, SG_GBITS, smem);
   sm.pools = seg_at(p, SG_POOLS, smem);
   float* used = (float*)seg_at(p, SG_RSV_USED, smem);
-  stage_derived(a, sm, used);
+  stage_derived<kT>(a, sm, used);
   __pipeline_wait_prior(0);
   __syncthreads();
   a.cfg_alloc = alloc;
@@ -545,10 +594,10 @@ __device__ Smem stage_tables_placed(A& a, unsigned char* smem, const Placement& 
 }
 
 // A kernel's staging: the all-shared layout, or (kSpilled) `p`'s.
-template <bool kSpilled, class A>
+template <bool kSpilled, int kT = kThreads, class A>
 __device__ __forceinline__ Smem stage(A& a, unsigned char* smem, const Placement& p) {
-  if constexpr (kSpilled) return stage_tables_placed(a, smem, p);
-  else return stage_tables(a, smem);
+  if constexpr (kSpilled) return stage_tables_placed<kT>(a, smem, p);
+  else return stage_tables<kT>(a, smem);
 }
 
 // ---------------------------------------------------------------- rows
@@ -727,26 +776,48 @@ __device__ void narrow_row(const A& a, const uint32_t* rowbits, uint32_t* words,
   }
 }
 
-// capacity of bound row b for group g: one config each, then the
-// liveness, quota, group-cap and conflict clamps
+// `blocked` with group g's conflict row as bits (`cbits`, words_of(G)
+// words): only the conflicting groups' assignments are read
 template <class A>
-__device__ __forceinline__ int bound_cap(const A& a, int b, int g, const float* req, int gcap) {
+__device__ __forceinline__ bool blocked_bits(const A& a, int n, const uint32_t* cbits) {
+  const int32_t* arow = a.assign + (size_t)n * a.G;
+  for (int w = 0; w < words_of(a.G); ++w)
+    for (uint32_t m = cbits[w]; m; m &= m - 1)
+      if (arow[w * 32 + __ffs(m) - 1] > 0) return true;
+  return false;
+}
+
+// capacity of bound row b for group g: one config each, then the
+// liveness, quota, group-cap and conflict clamps (with `cbits`, the
+// group's conflict row as bits: read only for a row that could take)
+template <class A>
+__device__ __forceinline__ int bound_cap(const A& a, int b, int g, const float* req, int gcap,
+                                         const uint32_t* cbits = nullptr) {
   const int R = a.R;
   int kb = capacity(a.bound_alloc + (size_t)b * R, a.bound_used + (size_t)b * R, req, R);
   const bool ok = a.bound_compat[(size_t)g * a.B + b] && a.bound_live[b] && kb >= 1;
   kb = ok ? kb : 0;
   if (a.bound_quota) kb = min(kb, (int)a.bound_quota[(size_t)b * a.G + g]);
   if (a.group_cap) kb = min(kb, max(gcap - a.assign[(size_t)b * a.G + g], 0));
-  if (a.conflict && blocked(a, b, g)) kb = 0;
+  if (cbits) {
+    if (kb > 0 && blocked_bits(a, b, cbits)) kb = 0;
+  } else if (a.conflict && blocked(a, b, g)) {
+    kb = 0;
+  }
   return kb;
 }
 
 // a fresh row's capacity from its (combined) partials, then the
-// group-cap and conflict clamps
+// group-cap and conflict clamps (`cbits` as bound_cap's)
 template <class A>
-__device__ __forceinline__ int fresh_cap(const A& a, int n, int g, int gcap, int kf) {
+__device__ __forceinline__ int fresh_cap(const A& a, int n, int g, int gcap, int kf,
+                                         const uint32_t* cbits = nullptr) {
   if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)n * a.G + g], 0));
-  if (a.conflict && blocked(a, n, g)) kf = 0;
+  if (cbits) {
+    if (kf > 0 && blocked_bits(a, n, cbits)) kf = 0;
+  } else if (a.conflict && blocked(a, n, g)) {
+    kf = 0;
+  }
   return kf;
 }
 
@@ -772,17 +843,17 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 // a.free_used[f * R]; `rowbits` is the group's compat row as bits. All
 // threads call it. The phase clocks charge the sweep, the scan and the
 // takes to slots clk0, clk0 + 1 and clk0 + 2.
-template <class A, class X, class OnTake>
+template <int kT = kThreads, class A, class X, class OnTake>
 __device__ long long sweep_take(const A& a, X& x, const Smem& sm, uint32_t* bits,
                                 const uint32_t* rowbits, int g, const float* req, int gcap,
                                 int nfresh, long long r, int32_t* kcap, bool store_takes,
                                 OnTake on_take, PhaseClock& clk, int clk0) {
-  __shared__ long long s_warp[kWarps];
+  __shared__ long long s_warp[kT / 32];
   __shared__ long long s_total;
   const int tid = threadIdx.x;
   const int B = a.B, R = a.R, nw = words_pad(a.C);
   const int nscan = B + nfresh;
-  const int per = (nscan + kThreads - 1) / kThreads;
+  const int per = (nscan + kT - 1) / kT;
   const int lo = min(tid * per, nscan), hi = min(lo + per, nscan);
   for (int n = lo; n < hi; ++n) {
     if (n < B) {
@@ -824,7 +895,7 @@ __device__ long long sweep_take(const A& a, X& x, const Smem& sm, uint32_t* bits
     // one exchange for every opened row's partials, point to point: the
     // thread that sent its rows' words polls the S shards' words of the
     // same rows (the split of rows over threads is the same on every
-    // shard: nscan is replicated and kThreads fixed) and combines them
+    // shard: nscan is replicated and kT fixed) and combines them
     // (maxima: any order); no block barrier around the wait. The
     // exchange's invariant holds: block_scan's barriers below come
     // between these reads and the next exchange's writes. No opened row,
@@ -850,7 +921,7 @@ __device__ long long sweep_take(const A& a, X& x, const Smem& sm, uint32_t* bits
   clk.spread(kSpreadSlot + 4, kSpreadSlot + 5, n_exact);
   long long sum = 0;
   for (int n = lo; n < hi; ++n) sum += min((long long)kcap[n], r);
-  long long prefix = block_scan(sum, s_warp, &s_total) - sum;
+  long long prefix = block_scan<kT>(sum, s_warp, &s_total) - sum;
   clk.mark(clk0 + 1);
   for (int n = lo; n < hi; ++n) {
     const long long kc = min((long long)kcap[n], r);
@@ -862,6 +933,66 @@ __device__ long long sweep_take(const A& a, X& x, const Smem& sm, uint32_t* bits
   const long long placed = min(s_total, r);
   __syncthreads();  // s_total is rewritten by the next call
   clk.mark(clk0 + 2);
+  return placed;
+}
+
+// B6 sequential's step at a block of kT < kThreads threads: the capacity
+// sweep and the prefix take of sweep_take, walked in chunks of kT rows in
+// index order and stopped after the chunk where the demand is met
+// (`chunked_take`). In the consolidation lanes the
+// demand is mostly met early in the rows (PERF.md §6), so most of the
+// rows' capacities are never needed. Rows [0, *end) have their takes (0
+// for none) in kcap; later rows are not written, and the caller applies
+// takes below *end alone. Returns the pods placed (min(sum, r)).
+// Unsplit kernels only. All threads call it. The phase clocks charge
+// each chunk's sweep, scan and takes to slots clk0, clk0 + 1 and clk0 + 2.
+template <int kT, class A>
+__device__ long long sweep_take_chunked(const A& a, const Smem& sm, uint32_t* bits,
+                                        const uint32_t* rowbits, int g, const float* req,
+                                        int gcap, int nfresh, long long r, int32_t* kcap,
+                                        PhaseClock& clk, int clk0, int* end_out) {
+  // the group's conflict row as bits (G <= 32 kConfWords): a row's
+  // conflict test then reads the conflicting groups' assignments alone
+  constexpr int kConfWords = 64;
+  __shared__ uint32_t s_conf[kConfWords];
+  const int tid = threadIdx.x;
+  const int B = a.B, R = a.R, nw = words_pad(a.C);
+  const uint32_t* cbits = nullptr;
+  if (a.conflict && a.G <= 32 * kConfWords) {
+    const int lane = tid & 31;
+    const uint8_t* crow = a.conflict + (size_t)g * a.G;
+    for (int w = tid >> 5; w < words_of(a.G); w += kT / 32) {
+      const int h = w * 32 + lane;
+      const uint32_t m = __ballot_sync(0xffffffffu, h < a.G && crow[h]);
+      if (lane == 0) s_conf[w] = m;
+    }
+    __syncthreads();
+    cbits = s_conf;
+  }
+  unsigned n_cand = 0, n_exact = 0, sweep_cycles = 0;
+  auto cap = [&](int n) {
+    const long long t0 = clk.now();
+    int kc;
+    if (n < B) {
+      kc = bound_cap(a, n, g, req, gcap, cbits);
+    } else {
+      unsigned any_pin;
+      int max_ok, max_pin;
+      row_max(a, sm, rowbits, bits + (size_t)(n - B) * nw, a.free_used + (size_t)(n - B) * R,
+              req, any_pin, max_ok, max_pin, n_cand, n_exact);
+      kc = fresh_cap(a, n, g, gcap, any_pin ? max_pin : max_ok, cbits);
+    }
+    sweep_cycles += (unsigned)(clk.now() - t0);
+    return kc;
+  };
+  long long placed;
+  // s_conf is rewritten by the next call after chunked_take's last barrier
+  *end_out = chunked_take<kT>(
+      B + nfresh, r, cap, [&](int n, int t) { kcap[n] = t; },
+      [&](int k) { clk.mark(clk0 + k); }, &placed);
+  clk.spread(kSpreadSlot, kSpreadSlot + 1, sweep_cycles);
+  clk.spread(kSpreadSlot + 2, kSpreadSlot + 3, n_cand);
+  clk.spread(kSpreadSlot + 4, kSpreadSlot + 5, n_exact);
   return placed;
 }
 
@@ -886,12 +1017,14 @@ __device__ void apply_take(const A& a, const uint32_t* rowbits, uint32_t* bits, 
   for (int q = 4; q < R; ++q) used[q] = __fadd_rn(used[q], __fmul_rn(tf, req[q]));
 }
 
-// All threads of `nb` blocks (this one is block `b`): the byte masks of
-// fresh rows [0, rows) from their words (later rows stay as they are).
+// All threads of `nb` blocks of kT (this one is block `b`): the byte
+// masks of fresh rows [0, rows) from their words (later rows stay as
+// they are).
+template <int kT = kThreads>
 __device__ void mask_bytes(const uint32_t* bits, int C, int rows, uint8_t* mask, int b, int nb) {
   const int nw = words_pad(C);
   const long long n = (long long)rows * C;
-  for (long long i = (long long)b * kThreads + threadIdx.x; i < n; i += (long long)nb * kThreads) {
+  for (long long i = (long long)b * kT + threadIdx.x; i < n; i += (long long)nb * kT) {
     const int f = (int)(i / C), c = (int)(i % C);
     mask[i] = (uint8_t)((bits[(size_t)f * nw + (c >> 5)] >> (c & 31)) & 1u);
   }
@@ -920,19 +1053,19 @@ struct FreshRows {
   uint32_t* bits;
   int base;  // fresh row of the loop's first opened row
   int g;
-  template <class A, class X>
+  template <int kT = kThreads, class A, class X>
   __device__ void open_rows(const A& a, const X& x, int lo, int q, int ms, int rl, int cs,
                             int capped_star, const float* oh, const float* req) {
     const int lane = threadIdx.x & 31, nw = words_pad(a.C), R = a.R;
     const int f0 = base + lo;
-    for (int wd = threadIdx.x >> 5; wd < nw; wd += kWarps) {
+    for (int wd = threadIdx.x >> 5; wd < nw; wd += kT / 32) {
       const int c = wd * 32 + lane;
       const uint32_t full = __ballot_sync(0xffffffffu, open_bit(a, x, c, ms, cs, capped_star));
       const uint32_t last = __ballot_sync(0xffffffffu, open_bit(a, x, c, rl, cs, capped_star));
       for (int i = lane; i < q; i += 32)
         bits[(size_t)(f0 + i) * nw + wd] = i == q - 1 ? last : full;
     }
-    for (int i = threadIdx.x; i < q; i += kThreads) {
+    for (int i = threadIdx.x; i < q; i += kT) {
       const float ff = (float)(i == q - 1 ? rl : ms);
       float* used = a.free_used + (size_t)(f0 + i) * R;
       for (int r = 0; r < R; ++r) used[r] = __fadd_rn(oh[r], __fmul_rn(ff, req[r]));
@@ -949,15 +1082,15 @@ struct DenseRows {
   uint8_t* active;
   int base;
   int g;
-  template <class A, class X>
+  template <int kT = kThreads, class A, class X>
   __device__ void open_rows(const A& a, const X& x, int lo, int q, int ms, int rl, int cs,
                             int capped_star, const float* oh, const float* req) {
     const int C = a.C, R = a.R, n0 = base + lo;
-    for (int i = threadIdx.x; i < q * C; i += kThreads) {
+    for (int i = threadIdx.x; i < q * C; i += kT) {
       const int f = i / C, c = i % C;
       mask[(size_t)(n0 + f) * C + c] = open_bit(a, x, c, f == q - 1 ? rl : ms, cs, capped_star);
     }
-    for (int i = threadIdx.x; i < q; i += kThreads) {
+    for (int i = threadIdx.x; i < q; i += kT) {
       const int fill = i == q - 1 ? rl : ms;
       const float ff = (float)fill;
       for (int r = 0; r < R; ++r)
@@ -998,7 +1131,7 @@ __device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long v)
   return v;
 }
 
-template <class A, class X, class Rows>
+template <int kT = kThreads, class A, class X, class Rows>
 __device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const float* req,
                                 int gcap, int nc, int N, float* spend, OpenState* st,
                                 Rows& rows) {
@@ -1011,7 +1144,7 @@ __device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const
 
   // configs a fresh node of their pool holds one pod of the group on,
   // after the pool's overhead (pseudo-configs, pool -1, never)
-  for (int c = tid; c < C; c += kThreads) {
+  for (int c = tid; c < C; c += kT) {
     const int p = a.cfg_pool[c];
     uint8_t ok = ((rowbits[c >> 5] >> (c & 31)) & 1u) && p >= 0;
     if (ok) {
@@ -1033,7 +1166,7 @@ __device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const
     // which configs can still open, and the lowest pool among them
     // (fitting configs have pools >= 0: kIntBig means none)
     int my_pool = kIntBig;
-    for (int c = tid; c < C; c += kThreads) {
+    for (int c = tid; c < C; c += kT) {
       if (!a.fits[c]) continue;
       const int s = slot_of(a, c);
       if (__fadd_rn(a.rsv_used[s], spend[s]) < cap_ext(a, s)) my_pool = min(my_pool, a.cfg_pool[c]);
@@ -1057,7 +1190,7 @@ __device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const
     // argmin price-per-pod, ffd mode the cheapest uncapped price first
     unsigned long long k0 = ~0ull;
     uint32_t mu = float_key(kBig);
-    for (int c = tid; c < C; c += kThreads) {
+    for (int c = tid; c < C; c += kT) {
       int kf = 0;
       if (a.fits[c] && a.cfg_pool[c] == pool) {
         const int s = slot_of(a, c);
@@ -1087,7 +1220,7 @@ __device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const
       // capacity; else the column with the most capacity
       unsigned long long k1 = ~0ull, k2 = ~0ull;
       const float min_uncapped = key_float(s_minu);
-      for (int c = tid; c < C; c += kThreads) {
+      for (int c = tid; c < C; c += kT) {
         const int kf = a.kopen[c];
         const unsigned long long key2 = pack_key((uint32_t)(kIntBig - kf), x.c0 + c);
         if (key2 < k2) k2 = key2;
@@ -1137,7 +1270,7 @@ __device__ void open_loop_whole(const A& a, X& x, const uint32_t* rowbits, const
       s_minu = float_key(kBig);
     }
     __syncthreads();
-    rows.open_rows(a, x, s_lo, s_q, s_mstar, s_remlast, s_cstar, s_capped, oh, req);
+    rows.template open_rows<kT>(a, x, s_lo, s_q, s_mstar, s_remlast, s_cstar, s_capped, oh, req);
   }
   __syncthreads();  // the statics are rewritten by the next call
 }
@@ -1185,7 +1318,7 @@ constexpr int kXPools = 64;
 // block's own: written in the pass, read after its barrier and reset
 // before the open's last barrier, as the exchange's invariant requires
 // of any state a later exchange's writes depend on.
-template <bool kPlaced, class A, class X, class Rows>
+template <bool kPlaced, int kT = kThreads, class A, class X, class Rows>
 __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const uint32_t* rowbits,
                                 const float* req, int gcap, int nc, int N, float* spend,
                                 OpenState* st, Rows& rows) {
@@ -1213,7 +1346,7 @@ __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const ui
 
   // configs a fresh node of their pool holds one pod of the group on,
   // after the pool's overhead (pseudo-configs, pool -1, never)
-  for (int c = tid; c < C; c += kThreads) {
+  for (int c = tid; c < C; c += kT) {
     const int p = a.cfg_pool[c];
     uint8_t ok = ((rowbits[c >> 5] >> (c & 31)) & 1u) && p >= 0;
     if (ok) {
@@ -1224,7 +1357,7 @@ __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const ui
     }
     a.fits[c] = ok;
   }
-  for (int p = tid; p < P1; p += kThreads) {
+  for (int p = tid; p < P1; p += kT) {
     s_pkey[p] = ~0ull;
     s_pminu[p] = float_key(kBig);
     s_pany[p] = 0;
@@ -1252,7 +1385,7 @@ __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const ui
     // ---- the pass: capacities, and each pool's least key on this shard
     const int lp0 = open_cap(0) >= 1 ? a.cfg_pool[0] : -1;
     int my_zc = kIntBig;
-    for (int c = tid; c < C; c += kThreads) {
+    for (int c = tid; c < C; c += kT) {
       const int kf = open_cap(c);
       const int p = a.cfg_pool[c];
       a.kopen[c] = max(kf, 0);
@@ -1271,7 +1404,7 @@ __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const ui
     // ---- this shard's entry of each pool (a pool other than lp0's has
     // column 0 as its zero column; lp0's has s_zcol, or none when every
     // column is live in it)
-    for (int p = tid; p < P1; p += kThreads) {
+    for (int p = tid; p < P1; p += kT) {
       const int zc = p == lp0 ? s_zcol : 0;
       unsigned long long key = s_pkey[p];
       if (zc < kIntBig) key = min(key, pack_key(kZero, x.c0 + zc));
@@ -1320,7 +1453,7 @@ __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const ui
       break;
     }
     // open capacities of the chosen pool only (this thread's columns)
-    for (int c = tid; c < C; c += kThreads)
+    for (int c = tid; c < C; c += kT)
       if (a.cfg_pool[c] != pool) a.kopen[c] = 0;
     // ---- ffd with reserved columns: reserved columns cheaper than every
     // uncapped one win by capacity (key1), over every shard
@@ -1330,7 +1463,7 @@ __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const ui
       XTimer xt1(tid == 0);
       const float min_uncapped = key_float(minu);
       unsigned long long mine = ~0ull;
-      for (int c = tid; c < C; c += kThreads) {
+      for (int c = tid; c < C; c += kT) {
         const int kf = a.kopen[c];
         if (kf >= 1 && a.cfg_rsv[c] >= 0 && a.cfg_price[c] < min_uncapped)
           mine = min(mine, pack_key((uint32_t)(kIntBig - kf), x.c0 + c));
@@ -1391,27 +1524,27 @@ __device__ void open_loop_split(const A& a, X& x, unsigned char* pools, const ui
       s_key1 = ~0ull;
       XTimer(true).stop(XK_OPENS, 0);
     }
-    for (int p = tid; p < P1; p += kThreads) {
+    for (int p = tid; p < P1; p += kT) {
       s_pkey[p] = ~0ull;
       s_pminu[p] = float_key(kBig);
       s_pany[p] = 0;
     }
     __syncthreads();
     const float* oh = a.pool_overhead + (size_t)s_pool * R;
-    rows.open_rows(a, x, s_lo, s_q, s_mstar, s_remlast, s_cstar, s_capped, oh, req);
+    rows.template open_rows<kT>(a, x, s_lo, s_q, s_mstar, s_remlast, s_cstar, s_capped, oh, req);
   }
   __syncthreads();  // the statics are rewritten by the next call
 }
 
 // One group's open loop: open_loop_whole, or open_loop_split in a split
 // kernel (kPlaced: its pool entries in `pools`). All threads call it.
-template <bool kPlaced, class A, class X, class Rows>
+template <bool kPlaced, int kT = kThreads, class A, class X, class Rows>
 __device__ void open_loop(const A& a, X& x, unsigned char* pools, const uint32_t* rowbits,
                           const float* req, int gcap, int nc, int N, float* spend, OpenState* st,
                           Rows& rows) {
   if constexpr (X::kSplit)
-    open_loop_split<kPlaced>(a, x, pools, rowbits, req, gcap, nc, N, spend, st, rows);
-  else open_loop_whole(a, x, rowbits, req, gcap, nc, N, spend, st, rows);
+    open_loop_split<kPlaced, kT>(a, x, pools, rowbits, req, gcap, nc, N, spend, st, rows);
+  else open_loop_whole<kT>(a, x, rowbits, req, gcap, nc, N, spend, st, rows);
 }
 
 }  // namespace

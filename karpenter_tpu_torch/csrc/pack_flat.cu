@@ -17,15 +17,38 @@
 // G*4 + 4 for the wavefront stats) and writes N*G*4 + F*C/8 + 4 + G*4
 // (plus the same G*4 + 4); one thread per output word, so a thread
 // either packs 32 mask bytes (two 16-byte loads) or copies one word,
-// with neighbouring threads on neighbouring words. One kernel serves
-// both routes.
+// with neighbouring threads on neighbouring words, its lane found by a
+// 32-bit division while the loop's indices stay below 2^31. One kernel
+// serves both routes.
 //
 // The lane epilogue of B6 (karpenter_tpu/solver/pack.py:1292-1307,
 // `pack_probe_lanes_flat`) is the same kernel over a lane axis: every
 // input carries a leading lane axis of L and the output is [L, row],
 // one row per lane in the layout above; one thread per output word
 // across all lanes. With L = 1 it is B2. Plain version:
-// pack_split.py::pack_flat_lanes_ref.
+// pack_split.py::pack_flat_lanes_ref. This full copy stays for B7's
+// epilogue (every node row is a mask row, solver/pack_dense.py), for
+// B6's wavefront program (written in place, that kernel, at its 64
+// registers a thread, spilled more and ran longer than the copy costs,
+// PERF.md §6) and for the standalone `pack_flat_words` /
+// `pack_flat_lanes`.
+//
+// The flat routes write in place (`pack_flat_masks_kernel`). At 50k x
+// 500 most of the full copy's bytes are the N x G assignment, which the
+// packing kernel has just written: it read that block and wrote it
+// again, 4 bytes a thread, with a 64-bit division a word to find the
+// lane. The flat routes (pack_split.py `pack_split_flat`,
+// `pack_probe_lanes_flat`) now hand the packing kernel (B1, B3 or B6's
+// sequential program) the regions of one zeroed flat buffer as its
+// assign, node_count and unsched (and B3's widths and steps) outputs,
+// with the mask bytes [L, F, C] behind the rows, so that the epilogue
+// packs only the L x F x C / 32 mask words: a thread a word, its 32
+// bytes in two 16-byte loads, in 32-bit index math, on a grid of a few
+// blocks an SM. Its bound is the mask bytes read and the words written.
+// Plain version: pack_split.py::pack_flat_masks_ref. Measured on the
+// card and not kept: a warp a word with one ballot (a lane a byte), as
+// split B2 reads its straddling words; slower on both the first 50k x
+// 500 request and the consolidation chunk's lanes (PERF.md §6).
 //
 // B8, split B2 (`pack_flat_sharded_kernel`): the same buffer from a
 // split solve — the replicated outputs from replica 0, the fresh rows'
@@ -44,8 +67,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
+// I: the index type, int when every index the grid-stride loop forms
+// stays below 2^31 (`flat_index_int`: a 32-bit division a word to find
+// its lane), else long long. A mask word's byte offset (32 a word) is
+// taken in 64 bits either way.
+template <class I>
 __global__ void pack_flat_kernel(const int32_t* __restrict__ assign,
                                  const uint8_t* __restrict__ free_mask,
                                  const int32_t* __restrict__ node_count,
@@ -53,20 +83,20 @@ __global__ void pack_flat_kernel(const int32_t* __restrict__ assign,
                                  const int32_t* __restrict__ widths,
                                  const int32_t* __restrict__ steps,
                                  int32_t* __restrict__ out,
-                                 long long n_assign, long long n_words, int G, int L) {
-  const long long n_seq = n_assign + n_words + 1 + G;
-  const long long n_row = n_seq + (widths ? G + 1 : 0);
-  const long long total = n_row * L;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long l = i / n_row;
-    const long long j = i - l * n_row;
+                                 I n_assign, I n_words, int G, int L) {
+  const I n_seq = n_assign + n_words + 1 + G;
+  const I n_row = n_seq + (widths ? G + 1 : 0);
+  const I total = n_row * L;
+  for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (I)gridDim.x * blockDim.x) {
+    const I l = i / n_row;
+    const I j = i - l * n_row;
     if (j < n_assign) {
       out[i] = assign[l * n_assign + j];
     } else if (j < n_assign + n_words) {
-      const long long w = l * n_words + (j - n_assign);
+      const I w = l * n_words + (j - n_assign);
       // a word's 32 mask bytes are contiguous: row f, columns 32w'..
-      const uint4* src = reinterpret_cast<const uint4*>(free_mask + w * 32);
+      const uint4* src = reinterpret_cast<const uint4*>(free_mask + (size_t)w * 32);
       uint4 lo = src[0], hi = src[1];
       const uint32_t parts[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
       uint32_t word = 0;
@@ -140,6 +170,47 @@ __global__ void pack_flat_sharded_kernel(const int32_t* __restrict__ assign,
   }
 }
 
+// The flat routes' epilogue: mask word w (of L x F x C / 32, lane l =
+// w / wpl) of the [L, F, C] mask bytes `free_mask` into out[l * row +
+// off + w - l * wpl], wpl = F * C / 32 words a lane: a thread a word,
+// its 32 bytes in two 16-byte loads. 32-bit index math: the wrapper
+// keeps L x F x C below 2^31.
+__global__ void pack_flat_masks_kernel(const uint8_t* __restrict__ free_mask,
+                                       int32_t* __restrict__ out, int n_words, int wpl, int row,
+                                       int off) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < n_words; w += stride) {
+    const uint4* src = reinterpret_cast<const uint4*>(free_mask) + 2 * w;
+    const uint4 lo = src[0], hi = src[1];
+    const uint32_t parts[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    uint32_t word = 0;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if ((parts[p] >> (8 * b)) & 0xffu) word |= 1u << (4 * p + b);
+      }
+    }
+    const int l = w / wpl;
+    out[l * row + off + (w - l * wpl)] = (int32_t)word;
+  }
+}
+
+// The full copy's grid: a thread an output word, at most 65535 blocks
+// of kFlatBlock threads striding over the rest.
+constexpr int kFlatBlock = 256;
+
+inline long long flat_blocks(long long total) {
+  return std::min(std::max((total + kFlatBlock - 1) / kFlatBlock, 1LL), 65535LL);
+}
+
+// Whether the full copy of `total` output words indexes in 32 bits: the
+// largest index its grid-stride loop forms (the last word's plus the
+// grid's stride) stays below 2^31.
+inline bool flat_index_int(long long total) {
+  return total - 1 + flat_blocks(total) * kFlatBlock < (1LL << 31);
+}
+
 int launch(const int32_t* assign, const uint8_t* free_mask, const int32_t* node_count,
            const int32_t* unsched, const int32_t* widths, const int32_t* steps,
            int32_t* out, int N, int G, int F, int C, int L, cudaStream_t stream) {
@@ -148,12 +219,14 @@ int launch(const int32_t* assign, const uint8_t* free_mask, const int32_t* node_
   const long long n_assign = (long long)N * G;
   const long long n_words = (long long)F * (C / 32);
   const long long total = (n_assign + n_words + 1 + G + (widths ? G + 1 : 0)) * L;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 65535) blocks = 65535;
-  if (blocks < 1) blocks = 1;
-  pack_flat_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      assign, free_mask, node_count, unsched, widths, steps, out, n_assign, n_words, G, L);
+  const unsigned blocks = (unsigned)flat_blocks(total);
+  if (flat_index_int(total))
+    pack_flat_kernel<int><<<blocks, kFlatBlock, 0, stream>>>(
+        assign, free_mask, node_count, unsched, widths, steps, out, (int)n_assign,
+        (int)n_words, G, L);
+  else
+    pack_flat_kernel<long long><<<blocks, kFlatBlock, 0, stream>>>(
+        assign, free_mask, node_count, unsched, widths, steps, out, n_assign, n_words, G, L);
   return (int)cudaGetLastError();
 }
 
@@ -180,6 +253,23 @@ extern "C" int pack_flat_sharded_launch(const int32_t* assign, const uint8_t* ma
   if (blocks < 1) blocks = 1;
   pack_flat_sharded_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
       assign, masks, node_count, unsched, widths, steps, out, n_assign, F, Cs, S, G);
+  return (int)cudaGetLastError();
+}
+
+// The flat routes' epilogue: masks [L, F, C] bytes (16-byte aligned)
+// into the mask words of the rows of out [L, row] from word `off` of
+// each (C a multiple of 32, L F C < 2^31, row < 2^31 / L). The grid is
+// a few blocks an SM (132 on an H100), striding over the rest.
+extern "C" int pack_flat_masks_launch(const uint8_t* free_mask, int32_t* out, int F, int C,
+                                      int L, int row, int off, cudaStream_t stream) {
+  if (C % 32 || L < 1 || F < 0 || off < 0 || row < off ||
+      (long long)L * F * C >= (1LL << 31) || (long long)L * row >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int wpl = F * (C / 32), n_words = L * wpl;
+  if (n_words == 0) return 0;
+  const int threads = 256;
+  const int blocks = std::min((n_words + threads - 1) / threads, 4 * 132);
+  pack_flat_masks_kernel<<<blocks, threads, 0, stream>>>(free_mask, out, n_words, wpl, row, off);
   return (int)cudaGetLastError();
 }
 

@@ -43,8 +43,28 @@
 // wavefront 0). Lanes share the problem and differ in their demand
 // (group_count row l) and retained bound rows (bound_live row l); block
 // l runs lane l on its own slices of the outputs and the scratch
-// (`lane_view`). B1 is lane 0 of a grid of one block. Plain version:
-// pack_split.py::pack_probe_lanes_ref.
+// (`lane_view`; on the flat route the outputs are regions of the lane's
+// flat row). B1 is lane 0 of a grid of one block at kThreads. Plain
+// version: pack_split.py::pack_probe_lanes_ref.
+//
+// What bounds B6 sequential. A dispatch lasts as long as its slowest
+// lane, and at most 64 lanes run at once on 132 SMs, a block each: a
+// lane is B1's chain of group steps on ~700 rows (the consolidation
+// chunk: 594 bound, 99 fresh) and ~20 groups. The slowest lane's phase
+// clocks (PERF.md §6) put half of a step in the capacity sweep, whose
+// threads each own one bound row at 1024 threads and spend most of it in
+// the row's conflict test (a loop over every group's conflict byte): the
+// step is bound by the SM's issue of 22 warps' sweeps, not by memory (the
+// rows' state in shared memory was measured and not kept: a small gain).
+// Yet a step's prefix take mostly ends early in the rows. So
+// the lane program runs B1's body on 256 threads (pack_split.py
+// `LANE_THREADS`: on phase 8's first chunk faster than 512 and 1024,
+// PERF.md §6), its sweep walked chunk by chunk in index order and
+// stopped at the chunk that meets the demand (`sweep_take_chunked`), the
+// group's conflict row read once a step as bits so that a row tests
+// only the conflicting groups (`blocked_bits`).
+// The prologue is ~6% of the slowest lane's cycles, so the tables are
+// staged by each block as before.
 //
 // Exactness. Every pick is an index-tie-broken arg-reduction: keys are
 // packed (ordered value, index) pairs reduced within each warp, then
@@ -110,19 +130,25 @@ struct Args {
   int32_t* kopen;               // [C]
   uint8_t* fits;                // [C]
   int G, C, R, B, F, K, P1, cost;
+  // the lane strides (words) of assign, node_count and unsched: N G, 1
+  // and G for arrays with their own lane axis, the row's length for
+  // each when they are regions of one flat row a lane (the flat routes'
+  // buffer); set by the host, so that lane_view takes no branch
+  long long s_assign, s_count, s_unsched;
 };
 
 // lane l's slice of every per-lane array: its demand and live rows,
-// its outputs and its scratch (lane 0 is the arrays themselves)
+// its outputs (at the host's lane strides) and its scratch (lane 0 is
+// the arrays themselves)
 __device__ __forceinline__ Args lane_view(Args a, int l) {
   const size_t L = (size_t)l;
   const size_t N = (size_t)a.B + a.F;
   a.group_count += L * a.G;
   a.bound_live += L * a.B;
-  a.assign += L * N * a.G;
   a.free_mask += L * a.F * a.C;
-  a.node_count += L;
-  a.unsched += L * a.G;
+  a.assign += L * a.s_assign;
+  a.node_count += L * a.s_count;
+  a.unsched += L * a.s_unsched;
   a.free_used += L * a.F * a.R;
   a.bound_used += L * a.B * a.R;
   a.free_bits += L * a.F * words_pad(a.C);
@@ -133,8 +159,9 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
 // The group loop of one lane (unsplit, X = NoSplit) or of one shard of
 // a split solve (X = DeviceSplit: `a` holds the shard's columns and its
 // replica), with its config tables in the block's dynamic shared memory
-// (kSpilled: where the placement `p` puts them).
-template <bool kSpilled, class X>
+// (kSpilled: where the placement `p` puts them), on a block of kT
+// threads.
+template <bool kSpilled, int kT = kThreads, class X>
 __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* smem,
                                                 const Placement& p) {
   const int tid = threadIdx.x;
@@ -150,11 +177,11 @@ __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* sme
   // ---- state init: the tables, usage copies, the fresh rows' words,
   // and the reservation use of bound rows (integer-valued float adds,
   // exact in any order)
-  const Smem sm = stage<kSpilled>(a, smem, p);
-  for (int i = tid; i < B * R; i += kThreads) a.bound_used[i] = a.bound_used0[i];
-  for (int i = tid; i < F * R; i += kThreads) a.free_used[i] = 0.0f;
-  for (int i = tid; i < F * nw; i += kThreads) a.free_bits[i] = 0u;
-  for (int b = tid; b < B; b += kThreads) {
+  const Smem sm = stage<kSpilled, kT>(a, smem, p);
+  for (int i = tid; i < B * R; i += kT) a.bound_used[i] = a.bound_used0[i];
+  for (int i = tid; i < F * R; i += kT) a.free_used[i] = 0.0f;
+  for (int i = tid; i < F * nw; i += kT) a.free_bits[i] = 0u;
+  for (int b = tid; b < B; b += kT) {
     const int s = a.bound_slot[b];
     if (a.bound_live[b] && s < K) atomicAdd(&a.rsv_used[s], 1.0f);
   }
@@ -173,13 +200,21 @@ __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* sme
     const int nc = s_node_count;
 
     // ---- 1-3. capacities, the prefix fill over rows [0, nc) in index
-    // order, and the takes applied, a thread a filled row
+    // order, and the takes applied, a thread a filled row (B6 at fewer
+    // than kThreads threads: chunk by chunk, up to the chunk that meets
+    // the demand; later rows take nothing)
     const long long r = (long long)remaining0;
-    const long long placed = sweep_take(a, x, sm, a.free_bits, rowbits, g, req, gcap, nc - B, r,
-                                        a.kcap, true, [](int, int) {}, clk, 2);
+    long long placed;
+    int end = nc;
+    if constexpr (kT < kThreads && !X::kSplit)
+      placed = sweep_take_chunked<kT>(a, sm, a.free_bits, rowbits, g, req, gcap, nc - B, r,
+                                      a.kcap, clk, 2, &end);
+    else
+      placed = sweep_take<kT>(a, x, sm, a.free_bits, rowbits, g, req, gcap, nc - B, r, a.kcap,
+                              true, [](int, int) {}, clk, 2);
     const long long t_apply = clk.now();
     unsigned applied = 0;
-    for (int n = tid; n < nc; n += kThreads)
+    for (int n = tid; n < end; n += kT)
       if (a.kcap[n] > 0) {
         apply_take(a, rowbits, a.free_bits, n, g, req, a.kcap[n]);
         ++applied;
@@ -194,10 +229,11 @@ __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* sme
     if (remaining > 0) {
       if (tid == 0) s_open = OpenState{remaining, 0, 0};
       FreshRows rows{a.free_bits, nc - B, g};
-      open_loop<kSpilled>(a, x, sm.pools, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
+      open_loop<kSpilled, kT>(a, x, sm.pools, rowbits, req, gcap, nc, N, sm.spend, &s_open,
+                              rows);
       remaining = s_open.remaining;
       // the group's reservation use (integer-valued), for the next
-      for (int s = tid; s <= K; s += kThreads) {
+      for (int s = tid; s <= K; s += kT) {
         a.rsv_used[s] = __fadd_rn(a.rsv_used[s], sm.spend[s]);
         sm.spend[s] = 0.0f;
       }
@@ -208,14 +244,26 @@ __device__ __forceinline__ void pack_split_body(Args a, X& x, unsigned char* sme
     clk.mark(5);
   }
   if (tid == 0) *a.node_count = s_node_count;
-  mask_bytes(a.free_bits, C, s_node_count - B, a.free_mask, 0, 1);
+  mask_bytes<kT>(a.free_bits, C, s_node_count - B, a.free_mask, 0, 1);
 }
 
-template <bool kSpilled>
-__global__ void __launch_bounds__(kThreads, 1) pack_split_kernel(Args lanes, Placement p) {
+// L lanes, a block of kT threads each: B1 is one lane at kThreads (64
+// registers a thread), B6's sequential program runs 256 threads with
+// at most 128 registers, so that two lanes share an SM where their
+// shared memory fits (launches of more lanes than SMs).
+template <bool kSpilled, int kT>
+__global__ void __launch_bounds__(kT, kT == kThreads ? 1 : 2)
+    pack_split_kernel(Args lanes, Placement p) {
   extern __shared__ __align__(16) unsigned char smem[];
   NoSplit x;
-  pack_split_body<kSpilled>(lane_view(lanes, blockIdx.x), x, smem, p);
+  pack_split_body<kSpilled, kT>(lane_view(lanes, blockIdx.x), x, smem, p);
+}
+
+// the instantiation of a launch: placed or not, and its block size
+template <int kT>
+const void* lanes_kernel(bool placed) {
+  return placed ? (const void*)pack_split_kernel<true, kT>
+                : (const void*)pack_split_kernel<false, kT>;
 }
 
 // per-shard pointers of a split solve's config-axis arrays
@@ -272,12 +320,15 @@ static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, i
   return (int)err;
 }
 
-// L lanes, one block each (B1 is L = 1; B6 sequential passes null
-// bound_quota and group_cap). group_count is [L, G] and bound_live
-// [L, B]; every output and scratch array carries a leading lane axis
-// of L. `smem`: the dynamic shared memory of a block. `placement`: null
-// for an all-shared launch, else SG_COUNT segment offsets
-// (table_placement) with `tables` holding block_bytes a block.
+// L lanes, one block of `threads` (1024 or 256) each (B1 is L = 1 at
+// 1024, B6 sequential 256; B6 passes null bound_quota and group_cap).
+// group_count is [L, G] and bound_live [L, B]; every output and scratch
+// array carries a leading lane axis of L, except that with `row` > 0
+// assign, node_count and unsched point into lane 0's flat row and step
+// `row` words a lane (the flat routes write them in place). `smem`: the
+// dynamic shared memory of a block. `placement`: null for an all-shared
+// launch, else SG_COUNT segment offsets (table_placement) with `tables`
+// holding block_bytes a block.
 extern "C" int pack_split_launch(
     const uint8_t* compat, const float* group_req, const int32_t* group_count,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -287,13 +338,17 @@ extern "C" int pack_split_launch(
     const int32_t* group_cap, const uint8_t* conflict,
     int32_t* assign, uint8_t* free_mask, int32_t* node_count, int32_t* unsched,
     float* free_used, float* bound_used, uint32_t* free_bits, int32_t* kcap,
-    int G, int C, int R, int B, int F, int K, int P1, int cost, int L, int smem,
-    const int* placement, unsigned char* tables, long long block_bytes, cudaStream_t stream) {
-  if (R > kMaxR || L < 1) return (int)cudaErrorInvalidValue;
-  const Placement p = make_placement(placement, tables, block_bytes);
-  const void* kernel =
-      placement ? (const void*)pack_split_kernel<true> : (const void*)pack_split_kernel<false>;
-  int err = set_smem(kernel, smem, C, R, P1, K, G, false, placement ? &p : nullptr);
+    int G, int C, int R, int B, int F, int K, int P1, int cost, int L, int smem, int threads,
+    long long row, const int* placement, unsigned char* tables, long long block_bytes,
+    cudaStream_t stream) {
+  if (R > kMaxR || L < 1 || row < 0) return (int)cudaErrorInvalidValue;
+  const bool placed = placement != nullptr;
+  const void* kernel = threads == kThreads ? lanes_kernel<kThreads>(placed)
+                       : threads == 256    ? lanes_kernel<256>(placed)
+                                           : nullptr;
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  Placement p = make_placement(placement, tables, block_bytes);
+  int err = set_smem(kernel, smem, C, R, P1, K, G, false, placed ? &p : nullptr);
   if (err) return err;
   Args a{compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
          bound_compat, bound_alloc, bound_used0, bound_slot, bound_live, cfg_price,
@@ -301,8 +356,16 @@ extern "C" int pack_split_launch(
          assign, free_mask, node_count, unsched,
          free_used, bound_used, free_bits, kcap, nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost};
-  if (placement) pack_split_kernel<true><<<L, kThreads, smem, stream>>>(a, p);
-  else pack_split_kernel<false><<<L, kThreads, smem, stream>>>(a, p);
+  a.s_assign = row ? row : (long long)(B + F) * G;
+  a.s_count = row ? row : 1;
+  a.s_unsched = row ? row : G;
+  void* params[] = {&a, &p};
+  const cudaError_t lerr =
+      cudaLaunchKernel(kernel, dim3(L), dim3(threads), params, (size_t)smem, stream);
+  if (lerr != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller raises
+    return (int)lerr;
+  }
   return (int)cudaGetLastError();
 }
 

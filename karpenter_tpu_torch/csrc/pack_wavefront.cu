@@ -179,11 +179,11 @@ struct PlanRows {
   float* o_used;
   int32_t* o_fill;
   uint32_t* o_union;
-  template <class A, class X>
+  template <int kT = kThreads, class A, class X>
   __device__ void open_rows(const A& a, const X& x, int lo, int q, int ms, int rl, int cs,
                             int capped_star, const float* oh, const float* req) {
     const int lane = threadIdx.x & 31, nw = words_pad(a.C), R = a.R;
-    for (int wd = threadIdx.x >> 5; wd < nw; wd += kWarps) {
+    for (int wd = threadIdx.x >> 5; wd < nw; wd += kT / 32) {
       const int c = wd * 32 + lane;
       const uint32_t full = __ballot_sync(0xffffffffu, open_bit(a, x, c, ms, cs, capped_star));
       const uint32_t last = __ballot_sync(0xffffffffu, open_bit(a, x, c, rl, cs, capped_star));
@@ -191,7 +191,7 @@ struct PlanRows {
         o_bits[(size_t)(lo + i) * nw + wd] = i == q - 1 ? last : full;
       if (lane == 0) o_union[wd] |= last | (q > 1 ? full : 0u);
     }
-    for (int i = threadIdx.x; i < q; i += kThreads) {
+    for (int i = threadIdx.x; i < q; i += kT) {
       const int fill = i == q - 1 ? rl : ms;
       const float ff = (float)fill;
       for (int r = 0; r < R; ++r)

@@ -71,7 +71,7 @@ _L = ctypes.c_longlong
 _PLACE = [_P, _P, _L]
 SIGNATURES = {
     "pack_split": {
-        "pack_split_launch": [_P] * 25 + [_I] * 10 + _PLACE + [_P],
+        "pack_split_launch": [_P] * 25 + [_I] * 11 + [_L] + _PLACE + [_P],
         "pack_split_sharded_launch": [_P] * 26 + [_I] * 11 + _PLACE + [_P],
     },
     "pack_wavefront": {
@@ -82,6 +82,7 @@ SIGNATURES = {
     "pack_flat": {
         "pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P],
         "pack_flat_sharded_launch": [_P] * 7 + [_I] * 5 + [_P],
+        "pack_flat_masks_launch": [_P] * 2 + [_I] * 5 + [_P],
     },
     "pack_dense": {"pack_dense_launch": [_P] * 22 + [_I] * 9 + _PLACE + [_P]},
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 4 + [_P]},

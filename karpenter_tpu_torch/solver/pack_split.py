@@ -25,6 +25,20 @@ CUDA tensors it launches its hand-written kernel
 (`karpenter_tpu_torch/csrc/*.cu`) or raises; there is no fallback.
 `LAUNCHES` counts kernel launches per wrapper.
 
+The flat routes (`pack_split_flat`, and `pack_probe_lanes_flat` on
+B6's sequential program) write in place: they allocate the flat buffer
+first, zeroed in one launch, with the mask bytes behind its rows
+(`flat_layout`), hand the packing kernel its regions as the assign,
+node_count and unsched (and B3's widths and steps) outputs, and the
+epilogue packs only the mask words (`flat_masks`). The other wrappers,
+B6's wavefront program among them, return their outputs as arrays of
+their own (from one zeroed allocation).
+
+B6's sequential program runs B1's body on blocks of `LANE_THREADS`
+(256) threads, two lanes an SM where their shared memory fits; its
+sweep walks chunks of rows and stops at the chunk that meets the
+demand. B1 runs it on one block of 1024.
+
 The packing kernels keep their config and group tables in a block's
 dynamic shared memory. `table_placement` places them: the
 all-shared layout when it fits the card's budget, else each segment in
@@ -72,7 +86,7 @@ LAUNCHES = {"pack_split": 0, "pack_split_global": 0, "pack_split_wavefront": 0,
             "pack_split_wavefront_global": 0, "pack_split_flat": 0,
             "pack_probe_lanes": 0, "pack_probe_lanes_global": 0,
             "pack_probe_lanes_wavefront": 0, "pack_probe_lanes_wavefront_global": 0,
-            "pack_probe_lanes_flat": 0}
+            "pack_probe_lanes_flat": 0, "pack_probe_lanes_flat_masks": 0}
 
 # wrapper -> the placement of its last launch's tables: "<n> B shared,
 # <m> B global scratch (all in shared memory | global: <segments>)"
@@ -81,6 +95,11 @@ DYNAMIC_SMEM: dict[str, str] = {}
 # cluster width W -> the active-cluster count the card reported at the
 # last B6 wavefront launch (cudaOccupancyMaxActiveClusters)
 ACTIVE_CLUSTERS: dict[int, int] = {}
+
+# the block size of B6's sequential program (B1 and the split kernels
+# run 1024): on an NVIDIA H100 at 700 W the fastest on phase 8's first
+# chunk (PERF.md §6)
+LANE_THREADS = 256
 
 
 def reset_launch_counts() -> None:
@@ -803,17 +822,22 @@ def pack_split_wavefront_ref(
             torch.tensor(widths, dtype=i32, device=dev))
 
 
+def _mask_words(free_mask: torch.Tensor) -> torch.Tensor:
+    """Mask bytes [..., C] (C a multiple of 32) as int32 words [...,
+    C / 32]: bit i of word w is column 32w+i."""
+    lead, C = free_mask.shape[:-1], free_mask.shape[-1]
+    shifts = torch.arange(32, dtype=torch.int64, device=free_mask.device)
+    words = (free_mask.reshape(*lead, C // 32, 32).to(torch.int64) << shifts).sum(dim=-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
 def pack_flat_words_ref(assign, free_mask, node_count, unsched,
                         widths=None, steps=None):
     """Plain version of B2: one int32 buffer holding the uint32 words
     [assign (row-major), free_mask bit-packed (bit i of word w is
     column 32w+i), node_count, unsched], then, for a wavefront solve,
     [widths, steps]. Read it as uint32."""
-    F, Cp = free_mask.shape
-    W = Cp // 32
-    shifts = torch.arange(32, dtype=torch.int64, device=free_mask.device)
-    words = (free_mask.reshape(F, W, 32).to(torch.int64) << shifts).sum(dim=-1)
-    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    words = _mask_words(free_mask)
     parts = [
         assign.reshape(-1).to(torch.int32),
         words.reshape(-1),
@@ -823,6 +847,59 @@ def pack_flat_words_ref(assign, free_mask, node_count, unsched,
     if widths is not None:
         parts += [widths.reshape(-1).to(torch.int32), steps.reshape(1).to(torch.int32)]
     return torch.cat(parts)
+
+
+def flat_layout(L: int, N: int, G: int, F: int, C: int, stats: bool) -> dict:
+    """The flat routes' buffer, in int32 words: L rows of `row` words,
+    each `pack_flat_words_ref`'s layout (assign at 0, the mask words at
+    "words", node_count at "count", unsched at "unsched", then with
+    `stats` B3's widths at "widths" and its round count at "steps"),
+    then from word "masks" (on 16 bytes) the packing kernel's mask bytes
+    [L, F, C]; "total" words in all."""
+    words = N * G
+    count = words + F * (C // 32)
+    unsched = count + 1
+    widths = unsched + G
+    row = widths + (G + 1 if stats else 0)
+    masks = (L * row + 3) & ~3
+    return {"row": row, "assign": 0, "words": words, "count": count, "unsched": unsched,
+            "widths": widths, "steps": widths + G, "masks": masks,
+            "total": masks + L * F * C // 4, "L": L, "F": F, "C": C}
+
+
+def flat_views(buf: torch.Tensor, lay: dict) -> tuple:
+    """The flat rows [L, row] and the mask bytes [L, F, C] (bool) of a
+    `flat_layout` buffer."""
+    L, F, C = lay["L"], lay["F"], lay["C"]
+    flat = buf[:L * lay["row"]].view(L, lay["row"])
+    masks = buf[lay["masks"]:].view(torch.uint8).view(torch.bool).view(L, F, C)
+    return flat, masks
+
+
+def pack_flat_masks_ref(buf: torch.Tensor, lay: dict) -> None:
+    """Plain version of the flat routes' epilogue: the mask bytes of a
+    `flat_layout` buffer packed into the mask words of its rows, in
+    place."""
+    flat, masks = flat_views(buf, lay)
+    o = lay["words"]
+    flat[:, o:o + lay["F"] * (lay["C"] // 32)] = _mask_words(masks).reshape(lay["L"], -1)
+
+
+def _fill_flat_ref(buf: torch.Tensor, lay: dict, assign, free_mask, node_count, unsched,
+                   widths=None, steps=None) -> None:
+    """What a packing kernel writes into a flat buffer's regions (its
+    outputs with a leading lane axis), done by copies: the plain route
+    of the flat wrappers."""
+    flat, masks = flat_views(buf, lay)
+    L = lay["L"]
+    G = unsched.shape[-1]
+    flat[:, :lay["words"]] = assign.reshape(L, -1)
+    masks.copy_(free_mask)
+    flat[:, lay["count"]] = node_count.reshape(L)
+    flat[:, lay["unsched"]:lay["unsched"] + G] = unsched
+    if widths is not None:
+        flat[:, lay["widths"]:lay["widths"] + G] = widths
+        flat[:, lay["steps"]] = steps.reshape(L)
 
 
 def pack_split_flat_ref(*args, max_free: int, mode: str = "ffd", **kw):
@@ -913,6 +990,17 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+# the current stream of a device as an int, without building a Stream
+# object (the flat epilogue's call is a few us of host work)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_of(dev) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(dev.index if dev.index is not None else torch.cuda.current_device())
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
@@ -975,15 +1063,23 @@ def _pack_split_cuda(
     compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
     bound_compat, bound_alloc, bound_used0, bound_slot, bound_live,
     cfg_price, max_free: int, mode: str = "ffd", bound_quota=None,
-    cfg_rsv=None, rsv_cap=None, group_cap=None, conflict=None,
+    cfg_rsv=None, rsv_cap=None, group_cap=None, conflict=None, flat=None,
 ):
-    # B1 is B6 sequential's kernel with one lane
+    # B1 is B6 sequential's kernel with one lane, at 1024 threads
     outs = _launch_pack_split(
         "pack_split", compat, group_req, group_count[None], cfg_alloc, cfg_pool,
         pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
         bound_live[None], cfg_price, max_free, mode, cfg_rsv, rsv_cap, conflict,
-        bound_quota, group_cap)
-    return tuple(t[0] for t in outs)
+        bound_quota, group_cap, flat=flat)
+    return None if outs is None else tuple(t[0] for t in outs)
+
+
+def _flat_ptrs(flat, keys) -> list:
+    """The device addresses of a `flat_buffer`'s regions `keys` in lane
+    0's row (and of its mask bytes, "masks")."""
+    buf, lay = flat
+    base = buf.data_ptr()
+    return [base + 4 * lay[k] for k in keys]
 
 
 def _pack_split_wavefront_cuda(
@@ -991,8 +1087,10 @@ def _pack_split_wavefront_cuda(
     bound_compat, bound_alloc, bound_used0, bound_slot, bound_live,
     cfg_price, max_free: int, mode: str = "ffd", width: int = 8,
     bound_quota=None, cfg_rsv=None, rsv_cap=None, group_cap=None,
-    conflict=None,
+    conflict=None, flat=None,
 ):
+    """B3; with `flat` (a `flat_buffer` of one row with stats) it writes
+    its outputs into the buffer's regions and returns None."""
     dev = compat.device
     G, C = compat.shape
     R = group_req.shape[1]
@@ -1011,12 +1109,14 @@ def _pack_split_wavefront_cuda(
     K = rsv_cap.shape[0]
 
     i32 = torch.int32
-    assign = torch.zeros((N, G), dtype=i32, device=dev)
-    free_mask = torch.zeros((F, C), dtype=torch.bool, device=dev)
-    node_count = torch.zeros((), dtype=i32, device=dev)
-    unsched = torch.zeros((G,), dtype=i32, device=dev)
-    steps = torch.zeros((), dtype=i32, device=dev)
-    widths = torch.zeros((G,), dtype=i32, device=dev)
+    if flat is None:
+        assign, free_mask, node_count, unsched, steps, widths = _zeroed(dev, (
+            ((N, G), i32), ((F, C), torch.bool), ((), i32), ((G,), i32), ((), i32),
+            ((G,), i32)))
+        outs = [t.data_ptr() for t in (assign, free_mask, node_count, unsched, steps, widths)]
+    else:
+        _check_flat("pack_split_wavefront", flat, dev, 1, N, G, F, C, True)
+        outs = _flat_ptrs(flat, ("assign", "masks", "count", "unsched", "steps", "widths"))
     lay = table_placement(C, R, P1, K, G, W=W, N=N, budget=_budget[0])
     smem = lay["smem"]
     offsets, tables, per = placement_args(lay, W, dev)
@@ -1028,8 +1128,7 @@ def _pack_split_wavefront_cuda(
         _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot),
         _ptr(bound_live), _ptr(cfg_price), _ptr(bound_quota), _ptr(cfg_rsv),
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
-        _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
-        _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
+        *outs, *[_ptr(t) for t in scratch],
         G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, smem, offsets, _ptr(tables),
         per, _stream(),
     )
@@ -1037,6 +1136,8 @@ def _pack_split_wavefront_cuda(
     _raise_on(err, f"pack_split_wavefront (cooperative grid of {W} blocks, "
                    f"{placement_text(lay)} a block)")
     _count("pack_split_wavefront", lay)
+    if flat is not None:
+        return None
     return assign, free_mask, node_count, unsched, steps, widths
 
 
@@ -1095,14 +1196,56 @@ def _lane_inputs(what, mode, compat, group_req, lane_counts, cfg_alloc,
     return L, cfg_rsv, rsv_cap
 
 
+def _check_flat(what, flat, dev, L, N, G, F, C, stats) -> None:
+    """A flat buffer handed to a packing launch must be the wrappers' own
+    layout for these shapes, on the inputs' device."""
+    buf, lay = flat
+    want = flat_layout(L, N, G, F, C, stats)
+    if lay != want or buf.dtype != torch.int32 or buf.device != dev or \
+            buf.numel() != want["total"] or buf.data_ptr() % 16:
+        raise ValueError(f"{what}: the flat buffer does not hold L={L} N={N} G={G} F={F} "
+                         f"C={C} stats={stats}")
+
+
+def _zeroed(dev, specs) -> list:
+    """Zeroed output arrays ((shape, dtype) each) in one allocation, so
+    that one fill zeroes them all; each starts on 16 bytes."""
+    sizes = [torch.Size(shape).numel() * torch.empty((), dtype=dt).element_size()
+             for shape, dt in specs]
+    offs, o = [], 0
+    for n in sizes:
+        offs.append(o)
+        o += (n + 15) & ~15
+    buf = torch.zeros((max(o, 16) // 4,), dtype=torch.int32, device=dev).view(torch.uint8)
+    return [buf[a:a + n].view(dt).view(shape)
+            for a, n, (shape, dt) in zip(offs, sizes, specs)]
+
+
+def _lane_scratch(L: int, B: int, F: int, C: int, R: int, dev) -> list:
+    """B1's and B6 sequential's scratch, one slice a lane, in one
+    allocation: per-row usage (fresh, bound), the fresh rows' config
+    bits, and per-row capacity (then take); each array on 256 bytes.
+    Returns the four device addresses and the buffer that holds them."""
+    sizes = [L * F * R * 4, L * B * R * 4, L * F * words_pad(C) * 4, L * (B + F) * 4]
+    offs, o = [], 0
+    for n in sizes:
+        offs.append(o)
+        o += (n + 255) & ~255
+    buf = torch.empty((max(o, 256),), dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    return [base + x for x in offs], buf
+
+
 def _launch_pack_split(
     what, compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
     bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
     max_free, mode, cfg_rsv, rsv_cap, conflict, bound_quota=None,
-    group_cap=None,
+    group_cap=None, flat=None,
 ):
-    """Launch pack_split.cu's kernel over L lanes, a block each, and
-    return its outputs with a leading lane axis."""
+    """Launch pack_split.cu's kernel over L lanes, a block each (B1 at
+    1024 threads, B6 at `LANE_THREADS`), and return its outputs with a
+    leading lane axis; with `flat` (a `flat_buffer` of L rows without
+    stats) it writes them into the buffer's regions and returns None."""
     dev = compat.device
     G, C = compat.shape
     R = group_req.shape[1]
@@ -1115,23 +1258,22 @@ def _launch_pack_split(
         lane_live, cfg_price, cfg_rsv, rsv_cap, conflict, bound_quota,
         group_cap)
     K = rsv_cap.shape[0]
+    threads = 1024 if what == "pack_split" else LANE_THREADS
 
-    i32, f32 = torch.int32, torch.float32
-    assign = torch.zeros((L, B + F, G), dtype=i32, device=dev)
-    free_mask = torch.zeros((L, F, C), dtype=torch.bool, device=dev)
-    node_count = torch.zeros((L,), dtype=i32, device=dev)
-    unsched = torch.zeros((L, G), dtype=i32, device=dev)
+    i32 = torch.int32
+    if flat is None:
+        assign, free_mask, node_count, unsched = _zeroed(dev, (
+            ((L, B + F, G), i32), ((L, F, C), torch.bool), ((L,), i32), ((L, G), i32)))
+        outs = [t.data_ptr() for t in (assign, free_mask, node_count, unsched)]
+        row = 0
+    else:
+        _check_flat(what, flat, dev, L, B + F, G, F, C, False)
+        outs = _flat_ptrs(flat, ("assign", "masks", "count", "unsched"))
+        row = flat[1]["row"]
     lay = table_placement(C, R, P1, K, G, budget=_budget[0])
     smem = lay["smem"]
     offsets, tables, per = placement_args(lay, L, dev)
-    # scratch, one slice per lane: per-row usage, the fresh rows' config
-    # bits, per-row capacity (then take)
-    scratch = [
-        torch.empty((L, F, R), dtype=f32, device=dev),        # free_used
-        torch.empty((L, B, R), dtype=f32, device=dev),        # bound_used
-        torch.empty((L, F, words_pad(C)), dtype=i32, device=dev),  # free_bits
-        torch.empty((L, B + F), dtype=i32, device=dev),       # kcap
-    ]
+    scratch, _keep = _lane_scratch(L, B, F, C, R, dev)
     lib = _lib("pack_split")
     err = lib.pack_split_launch(
         _ptr(compat), _ptr(group_req), _ptr(lane_counts), _ptr(cfg_alloc),
@@ -1139,14 +1281,16 @@ def _launch_pack_split(
         _ptr(bound_alloc), _ptr(bound_used0), _ptr(bound_slot),
         _ptr(lane_live), _ptr(cfg_price), _ptr(bound_quota), _ptr(cfg_rsv),
         _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
-        _ptr(assign), _ptr(free_mask), _ptr(node_count), _ptr(unsched),
-        *[_ptr(t) for t in scratch],
-        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, smem, offsets, _ptr(tables),
-        per, _stream(),
+        *outs, *scratch,
+        G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, smem, threads, row,
+        offsets, _ptr(tables), per, _stream(),
     )
-    _raise_on(err, f"{what} ({L} blocks, one a lane, {placement_text(lay)} a block)")
+    _raise_on(err, f"{what} ({L} blocks of {threads} threads, one a lane, G={G} C={C} R={R} "
+                   f"B={B} F={F}, {placement_text(lay)} a block)")
     DYNAMIC_SMEM[what] = placement_text(lay)
     _count(what, lay)
+    if flat is not None:
+        return None
     return assign, free_mask, node_count, unsched
 
 
@@ -1154,13 +1298,12 @@ def _pack_probe_lanes_cuda(
     compat, group_req, lane_counts, cfg_alloc, cfg_pool, pool_overhead,
     bound_compat, bound_alloc, bound_used0, bound_slot, lane_live, cfg_price,
     max_free: int, mode: str = "ffd", cfg_rsv=None, rsv_cap=None,
-    conflict=None,
+    conflict=None, flat=None,
 ):
-    outs = _launch_pack_split(
+    return _launch_pack_split(
         "pack_probe_lanes", compat, group_req, lane_counts, cfg_alloc, cfg_pool,
         pool_overhead, bound_compat, bound_alloc, bound_used0, bound_slot,
-        lane_live, cfg_price, max_free, mode, cfg_rsv, rsv_cap, conflict)
-    return outs
+        lane_live, cfg_price, max_free, mode, cfg_rsv, rsv_cap, conflict, flat=flat)
 
 
 def _pack_probe_lanes_wavefront_cuda(
@@ -1187,12 +1330,9 @@ def _pack_probe_lanes_wavefront_cuda(
     K = rsv_cap.shape[0]
 
     i32 = torch.int32
-    assign = torch.zeros((L, N, G), dtype=i32, device=dev)
-    free_mask = torch.zeros((L, F, C), dtype=torch.bool, device=dev)
-    node_count = torch.zeros((L,), dtype=i32, device=dev)
-    unsched = torch.zeros((L, G), dtype=i32, device=dev)
-    steps = torch.zeros((L,), dtype=i32, device=dev)
-    widths = torch.zeros((L, G), dtype=i32, device=dev)
+    assign, free_mask, node_count, unsched, steps, widths = _zeroed(dev, (
+        ((L, N, G), i32), ((L, F, C), torch.bool), ((L,), i32), ((L, G), i32), ((L,), i32),
+        ((L, G), i32)))
     lay = table_placement(C, R, P1, K, G, W=W, N=N, budget=_budget[0])
     smem = lay["smem"]
     offsets, tables, per = placement_args(lay, L * W, dev)
@@ -1221,8 +1361,8 @@ def _pack_probe_lanes_wavefront_cuda(
 
 def _launch_pack_flat(what, assign, free_mask, node_count, unsched,
                       widths=None, steps=None):
-    """Launch pack_flat.cu's kernel over L lanes: inputs with a leading
-    lane axis, output [L, row]."""
+    """Launch pack_flat.cu's full-copy kernel over L lanes: inputs with a
+    leading lane axis, output [L, row]."""
     from karpenter_tpu_torch import cuda_build
 
     L, N, G = assign.shape
@@ -1257,6 +1397,73 @@ def _pack_flat_lanes_cuda(assign, free_mask, node_count, unsched,
                             unsched, widths, steps)
     LAUNCHES["pack_probe_lanes_flat"] += 1
     return out
+
+
+# ---------------------------------------------------------------- flat routes
+
+# the epilogue's entry point, looked up once (its ctypes argtypes are
+# set when the library loads)
+_masks_fn: list = []
+
+
+def flat_buffer(L: int, N: int, G: int, F: int, C: int, stats: bool, dev) -> tuple:
+    """A zeroed `flat_layout` buffer on `dev` (one fill) and its layout."""
+    lay = flat_layout(L, N, G, F, C, stats)
+    return torch.zeros((lay["total"],), dtype=torch.int32, device=dev), lay
+
+
+def flat_masks(buf: torch.Tensor, lay: dict, what: str = "pack_split_flat") -> None:
+    """The flat routes' epilogue on a `flat_buffer` whose regions a
+    packing kernel filled: the mask bytes packed into each row's mask
+    words, in place. CUDA tensors launch `pack_flat_masks_kernel`
+    (counted under LAUNCHES[what]); CPU tensors take
+    `pack_flat_masks_ref`. The buffer is a wrapper's own
+    (`flat_buffer`), so its layout needs no check here."""
+    if not buf.is_cuda:
+        if buf.device.type != "cpu":
+            raise ValueError(f"flat_masks: no kernel for device {buf.device}")
+        pack_flat_masks_ref(buf, lay)
+        return
+    if not _masks_fn:
+        from karpenter_tpu_torch import cuda_build
+
+        _masks_fn.append(cuda_build.library("pack_flat").pack_flat_masks_launch)
+    base = buf.data_ptr()
+    err = _masks_fn[0](base + 4 * lay["masks"], base, lay["F"], lay["C"], lay["L"], lay["row"],
+                       lay["words"], _stream_of(buf.device))
+    if err:
+        _raise_on(err, f"flat_masks (L={lay['L']} F={lay['F']} C={lay['C']} "
+                       f"row={lay['row']})")
+    LAUNCHES[what] += 1
+
+
+def _flat_route(what, masks, pack, lanes: bool, args, kw, max_free: int, mode: str,
+                wavefront: int):
+    """The flat routes: the buffer first (zeroed in one fill), the
+    packing kernel writing into its regions, then the mask epilogue
+    (counted under LAUNCHES[masks]); returns the rows [L, row] (a view
+    of the buffer). The plain route
+    (CPU tensors) fills the same regions from the plain outputs."""
+    compat, counts = args[0], args[2]
+    G, C = compat.shape
+    B, F = args[7].shape[0], int(max_free)
+    N = B + F
+    L = counts.shape[0] if lanes else 1
+    stats = wavefront > 1
+    if C % 32:
+        raise ValueError(f"{what}: {C} mask columns are not a multiple of 32")
+    buf, lay = flat_buffer(L, N, G, F, C, stats, compat.device)
+    if _route(compat, what):
+        pack(*args, max_free=max_free, mode=mode, flat=(buf, lay), **kw)
+    else:
+        outs = pack(*args, max_free=max_free, mode=mode, **kw)
+        if not lanes:
+            outs = [None if t is None else t[None] for t in outs]
+        if stats:
+            outs = (*outs[:4], outs[5], outs[4])
+        _fill_flat_ref(buf, lay, *outs)
+    flat_masks(buf, lay, masks)
+    return flat_views(buf, lay)[0]
 
 
 # ---------------------------------------------------------------- wrappers
@@ -1294,7 +1501,8 @@ def pack_split_wavefront(*args, max_free: int, mode: str = "ffd",
 
 def pack_flat_words(assign, free_mask, node_count, unsched, widths=None,
                     steps=None):
-    """B2. Outputs as `pack_flat_words_ref`; CUDA tensors run the
+    """B2's full copy (the standalone epilogue; the flat routes write in
+    place). Outputs as `pack_flat_words_ref`; CUDA tensors run the
     kernel."""
     if _route(assign, "pack_split_flat"):
         return _pack_flat_words_cuda(assign, free_mask, node_count, unsched,
@@ -1306,21 +1514,22 @@ def pack_flat_words(assign, free_mask, node_count, unsched, widths=None,
 def pack_split_flat(*args, max_free: int, mode: str = "ffd",
                     wavefront: int = 0, **kw):
     """The JAX package's `pack_split_flat`, as one int32 buffer to be
-    read as uint32: B1 then B2, or with `wavefront > 1` B3 at that
-    width then B2 with B3's widths and round count appended."""
+    read as uint32: B1, or with `wavefront > 1` B3 at that width (its
+    widths and round count appended), writing into the buffer's regions,
+    then B2 packing the mask words (counted under "pack_split_flat")."""
     if wavefront > 1:
-        (assign, free_mask, node_count, unsched, steps,
-         widths) = pack_split_wavefront(
-            *args, max_free=max_free, mode=mode, width=wavefront, **kw)
-        return pack_flat_words(assign, free_mask, node_count, unsched,
-                               widths, steps)
-    return pack_flat_words(*pack_split(*args, max_free=max_free, mode=mode, **kw))
+        pack = pack_split_wavefront
+        kw = dict(kw, width=wavefront)
+    else:
+        pack = pack_split
+    return _flat_route("pack_split_flat", "pack_split_flat", pack, False, args, kw, max_free,
+                       mode, wavefront)[0]
 
 
 def pack_probe_lanes(*args, max_free: int, mode: str = "ffd", **kw):
     """B6, sequential program. Arguments and outputs as
     `pack_probe_lanes_ref`; CUDA tensors run the kernel (one launch,
-    one block a lane)."""
+    one block a lane, `LANE_THREADS` threads a block)."""
     if _route(args[0], "pack_probe_lanes"):
         return _pack_probe_lanes_cuda(*args, max_free=max_free, mode=mode, **kw)
     return pack_probe_lanes_ref(*args, max_free=max_free, mode=mode, **kw)
@@ -1341,8 +1550,9 @@ def pack_probe_lanes_wavefront(*args, max_free: int, mode: str = "ffd",
 
 def pack_flat_lanes(assign, free_mask, node_count, unsched, widths=None,
                     steps=None):
-    """B6's lane epilogue. Outputs as `pack_flat_lanes_ref`; CUDA
-    tensors run the kernel."""
+    """B6's lane epilogue as a full copy (the flat route writes in
+    place). Outputs as `pack_flat_lanes_ref`; CUDA tensors run the
+    kernel."""
     if _route(assign, "pack_flat_lanes"):
         return _pack_flat_lanes_cuda(assign, free_mask, node_count, unsched,
                                      widths, steps)
@@ -1353,17 +1563,22 @@ def pack_flat_lanes(assign, free_mask, node_count, unsched, widths=None,
 def pack_probe_lanes_flat(*args, max_free: int, mode: str = "ffd",
                           wavefront: int = 0, **kw):
     """The JAX package's `pack_probe_lanes_flat`, as one [L, row] int32
-    buffer to be read as uint32: B6's sequential program then the lane
-    epilogue, or with `wavefront > 1` the wavefront program at that
-    width then the epilogue with each lane's widths and round count.
-    Positional arguments as `pack_split`'s, with `lane_counts` [L, G]
-    and `lane_live` [L, B] in place of group_count and bound_live;
-    keywords cfg_rsv, rsv_cap and conflict."""
+    buffer to be read as uint32: B6's sequential program writing into
+    each lane's row of the buffer, then the lane epilogue packing the
+    mask words; or with `wavefront > 1` the wavefront program at that
+    width into arrays of its own, then the lane epilogue's full copy
+    with each lane's widths and round count appended (written in place,
+    that kernel's 64 registers a thread spilled more and it ran longer
+    than the copy costs: PERF.md §6). The full copy counts under
+    "pack_probe_lanes_flat", the mask epilogue in place under
+    "pack_probe_lanes_flat_masks". Positional arguments as
+    `pack_split`'s, with `lane_counts` [L, G] and `lane_live` [L, B] in
+    place of group_count and bound_live; keywords cfg_rsv, rsv_cap and
+    conflict."""
     if wavefront > 1:
         (assign, free_mask, node_count, unsched, steps,
          widths) = pack_probe_lanes_wavefront(
             *args, max_free=max_free, mode=mode, width=wavefront, **kw)
-        return pack_flat_lanes(assign, free_mask, node_count, unsched,
-                               widths, steps)
-    return pack_flat_lanes(
-        *pack_probe_lanes(*args, max_free=max_free, mode=mode, **kw))
+        return pack_flat_lanes(assign, free_mask, node_count, unsched, widths, steps)
+    return _flat_route("pack_probe_lanes_flat", "pack_probe_lanes_flat_masks", pack_probe_lanes,
+                       True, args, kw, max_free, mode, 0)

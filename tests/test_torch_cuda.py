@@ -10,7 +10,10 @@ file imports no JAX.) Covers B1-B5 (B4 also in its layouts that read
 the groups' tables in place, past its staged layout's ceiling; B5 also
 at edge shapes, one on its global-memory path, and its phase-clock
 build) and B6 (both lane programs, the
-wavefront one at cluster widths 8 and 16, and the lane epilogue), B7
+wavefront one at cluster widths 8 and 16, the sequential one at each
+block size it can take, and the lane epilogue), the flat routes in place
+(B1, B3 and both B6 programs writing into the flat buffer's regions, the
+mask epilogue), B7
 (the dense kernel and its flat epilogue, held also to B1 on the same
 problems, and the port's `graft_entry.entry()` on the card), the
 consolidation ladder on the card against the CPU, and the packing
@@ -314,6 +317,58 @@ def test_probe_lane_kernels_match_plain_versions(cuda_kernels, probe_cases, inde
         assert torch.equal(flat, k.pack_flat_lanes_ref(*wf[:4], wf[5], wf[4]))
     assert k.LAUNCHES["pack_probe_lanes_wavefront"] == before["pack_probe_lanes_wavefront"] + 2
     assert k.LAUNCHES["pack_probe_lanes_flat"] == before["pack_probe_lanes_flat"] + 3
+
+
+@pytest.mark.parametrize("index", range(2))
+def test_b6_sequential_and_the_lane_flat_routes(cuda_kernels, probe_cases, index):
+    # B6 sequential (its sweep walking chunks of its block's rows), and
+    # the lane flat routes: the sequential program writing in place, then
+    # the mask epilogue (counted on its own), and the wavefront program's
+    # full copy: equal to the plain versions and the plain lane epilogue
+    k = cuda_kernels
+    case = probe_cases[index]
+    args, kw = _cuda(case)
+    mode = ("ffd", "cost")[index]
+    before = dict(k.LAUNCHES)
+    seq = k.pack_probe_lanes(*args, max_free=case.max_free, mode=mode, **kw)
+    flat = k.pack_probe_lanes_flat(*args, max_free=case.max_free, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["pack_probe_lanes"] == before["pack_probe_lanes"] + 2
+    assert k.LAUNCHES["pack_probe_lanes_flat_masks"] == before["pack_probe_lanes_flat_masks"] + 1
+    assert k.LAUNCHES["pack_probe_lanes_flat"] == before["pack_probe_lanes_flat"]
+    want = k.pack_probe_lanes_ref(*args, max_free=case.max_free, mode=mode, **kw)
+    for a, b in zip(seq, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), case.name
+    assert torch.equal(flat, k.pack_flat_lanes_ref(*want)), case.name
+    wf = k.pack_probe_lanes_flat(*args, max_free=case.max_free, mode=mode, wavefront=16, **kw)
+    plain = k.pack_probe_lanes_wavefront_ref(*args, max_free=case.max_free, mode=mode,
+                                             width=16, **kw)
+    assert torch.equal(wf, k.pack_flat_lanes_ref(*plain[:4], plain[5], plain[4]))
+    assert k.LAUNCHES["pack_probe_lanes_flat"] == before["pack_probe_lanes_flat"] + 1
+
+
+@pytest.mark.parametrize("wavefront", [0, 16])
+@pytest.mark.parametrize("index", range(10))
+def test_flat_route_in_place_matches_plain_version(cuda_kernels, cases, index, wavefront):
+    # pack_split_flat: B1 or B3 writing into the buffer's regions, then
+    # the mask epilogue, one launch of each counted
+    k = cuda_kernels
+    case = cases[index]
+    args, kw = _cuda(case)
+    before = dict(k.LAUNCHES)
+    got = k.pack_split_flat(*args, max_free=case.max_free, mode=case.mode,
+                            wavefront=wavefront, **kw)
+    torch.cuda.synchronize()
+    route = "pack_split_wavefront" if wavefront else "pack_split"
+    assert k.LAUNCHES[route] == before[route] + 1
+    assert k.LAUNCHES["pack_split_flat"] == before["pack_split_flat"] + 1
+    if wavefront:
+        o = k.pack_split_wavefront_ref(*args, max_free=case.max_free, mode=case.mode,
+                                       width=wavefront, **kw)
+        want = k.pack_flat_words_ref(*o[:4], o[5], o[4])
+    else:
+        want = k.pack_split_flat_ref(*args, max_free=case.max_free, mode=case.mode, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want), case.name
 
 
 def test_consolidation_ladder_on_card_matches_cpu(cuda_kernels, monkeypatch):

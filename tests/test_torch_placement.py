@@ -337,3 +337,61 @@ def test_split_wrappers_pass_their_placement_and_take_any_pool_count(fake_card, 
         assert call[32 if what == "pack_split_sharded" else 45] == P1 and words >= 4 * P1
         assert pack_shard.LAUNCHES[what] == 1
         assert pack_shard.LAUNCHES[f"{what}_global"] == int(spill)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_flat_routes_hand_the_kernels_their_regions(fake_card, lanes):
+    # the in-place flat routes: the packing launch gets the regions of one
+    # flat buffer as assign, free_mask, node_count and unsched (B3 also
+    # steps and widths) and, over lanes, the row as their lane stride; B6
+    # sequential takes `LANE_THREADS` threads a block, B1 1024; a buffer
+    # of another layout is refused
+    C, G, F, W = 224, 12, 40, 16
+    args = _inputs(C, G)
+    B = args[7].shape[0]
+    N = B + F
+    lane_args = list(args)
+    lane_args[2] = args[2][None].repeat(lanes, 1)
+    lane_args[10] = args[10][None].repeat(lanes, 1)
+    runs = (("pack_split_launch", k._pack_split_cuda, args, False, 1),
+            ("pack_wavefront_launch", k._pack_split_wavefront_cuda, args, True, 1),
+            ("pack_split_launch", k._pack_probe_lanes_cuda, lane_args, False, lanes))
+    for name, fn, a, stats, L in runs:
+        fake_card.calls.clear()
+        buf, lay = k.flat_buffer(L, N, G, F, C, stats, torch.device("cpu"))
+        kw = {"width": W} if "wavefront" in name else {}
+        assert fn(*a, max_free=F, flat=(buf, lay), **kw) is None
+        call = _launched(fake_card, name)[0]
+        base = buf.data_ptr()
+        at = {key: base + 4 * lay[key] for key in ("masks", "count", "unsched", "steps",
+                                                   "widths")}
+        ptrs = call[17:23] if stats else call[17:21]
+        want = [base, at["masks"], at["count"], at["unsched"]]
+        if stats:
+            want += [at["steps"], at["widths"]]
+        assert list(ptrs) == want, name
+        if name == "pack_split_launch":
+            threads, row = call[35], call[36]
+            assert threads == (1024 if fn is k._pack_split_cuda else k.LANE_THREADS)
+            assert row == lay["row"]
+        other = k.flat_layout(L, N, G, F, C, not stats)
+        with pytest.raises(ValueError, match="flat buffer"):
+            fn(*a, max_free=F, flat=(torch.zeros(other["total"], dtype=torch.int32), other),
+               **kw)
+
+
+@pytest.mark.parametrize("F", [40, 2000])
+def test_b6_sequential_takes_its_block_size_at_any_rows(fake_card, F):
+    # B6 sequential launches `LANE_THREADS` threads a block whether its
+    # rows take one chunk or many (its sweep walks them), B1 1024
+    C, G = 224, 12
+    args = _inputs(C, G)
+    lane_args = list(args)
+    lane_args[2] = args[2][None].repeat(3, 1)
+    lane_args[10] = args[10][None].repeat(3, 1)
+    for fn, a, want in ((k._pack_split_cuda, args, 1024),
+                        (k._pack_probe_lanes_cuda, lane_args, k.LANE_THREADS)):
+        fake_card.calls.clear()
+        fn(*a, max_free=F)
+        call = _launched(fake_card, "pack_split_launch")[0]
+        assert call[35] == want and call[36] == 0, fn.__name__

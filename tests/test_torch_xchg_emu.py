@@ -174,8 +174,7 @@ def _split_b1_source() -> str:
     pack_common.cuh at 64 threads a block, each block's __shared__
     variables as statics (one process a block), and the harness."""
     src = (CSRC / "pack_split.cu").read_text()
-    body = src[:src.index("template <bool kSpilled>\n__global__ void __launch_bounds__(kThreads, 1) "
-                          "pack_split_kernel(")]
+    body = src[:src.index("template <bool kSpilled, int kT>\n__global__")]
     return ('#include "xchg_host.h"\n#define __shared__ static\n' + body
             + "\n}  // namespace\n" + (EMU / "split_b1.inc").read_text())
 
