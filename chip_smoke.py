@@ -19,6 +19,9 @@
     python3 chip_smoke.py --lanes   # phases 1-2, then B6 sequential (shared
                                     # and spilled) and the in-place flat
                                     # routes held alone
+    python3 chip_smoke.py --dense   # phases 1-2, then phase 9 (B7) alone
+                                    # on the three full-width problems,
+                                    # staged by the port's solves (~3 min)
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -33,7 +36,12 @@
                                     # pack_split_flat and
                                     # pack_probe_lanes_flat calls, B2 and
                                     # the lane epilogue as the main path
-                                    # runs them
+                                    # runs them, B7 (and B1) on entry()
+                                    # and phase 9's three problems (staged
+                                    # once, by the first run) and the whole
+                                    # pack_flat call; then the machine code
+                                    # of B1, B3 and B2 in each tree compared
+                                    # kernel by kernel
 
 Phases, each reported on its own line; any failure exits non-zero:
   1. device   — require CUDA; print the card's name and power limit.
@@ -175,14 +183,18 @@ Phases, each reported on its own line; any failure exits non-zero:
                 second (its bound rows as one-hot existing_mask rows)
                 and reserved_50k's cost arm (planned rows with quotas),
                 each on `max_nodes` = the split axis: B7 and `pack_flat`
-                (decoded as the host reads it) must equal B1 on every
-                assignment, node count, unschedulable tally and free
-                row, with the bound rows left one-hot, and B7 must equal
-                its plain version byte for byte. B7's CUDA-event times
-                on each of them in turns with B1's on the same problem,
-                on the entry problem, the epilogue's on the first
-                request's outputs, the plain versions', and their
-                bounds.
+                (B7 once, writing the flat buffer in place; decoded as
+                the host reads it) must equal B1 on every assignment,
+                node count, unschedulable tally and free row, with the
+                bound rows left one-hot, and both must equal their plain
+                versions byte for byte; each launches B7 once per
+                request. B7's CUDA-event times on the entry problem and
+                on each request, at both block sizes, in turns with B1's
+                on the same problem; the whole `pack_flat` call; the
+                plain versions' times; the bounds; B7's phase clocks at
+                both sizes on the entry problem and the second and third
+                requests; and the chain floor (the steps with demand x
+                the least step's block barriers x one barrier alone).
   10. sharded — B8, the config axis split over S shards, on virtual
                 meshes of shard slots on the card (`force_virtual_mesh`):
                 split B1, B3 (widths 8 and 16) and B2 byte-identical to
@@ -821,10 +833,10 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
 
 
 def hold_dense(pd, kernels, case, err: dict) -> str:
-    """B7 and its flat epilogue against their plain versions on the card
-    on `case` (a testing.DenseCase), byte for byte on every output, and
-    the dense ≡ split oracle against B1 on the same problem; fail
-    otherwise. Returns a summary."""
+    """B7 and `pack_flat` (B7 writing the flat buffer in place) against
+    their plain versions on the card on `case` (a testing.DenseCase),
+    byte for byte on every output, and the dense ≡ split oracle against
+    B1 on the same problem; fail otherwise. Returns a summary."""
     import torch
 
     from karpenter_tpu_torch.testing import split_mismatch
@@ -890,6 +902,181 @@ def b7_ops(pd, args, kw, max_nodes: int, mode: str) -> int:
     return terms[0] * OPS_PER_CAP_TERM
 
 
+# B7's full-width problems (phase 9, `--dense`, `compare_timings`)
+DENSE_PROBLEMS = ("first request", "second request", "reserved_50k cost arm")
+# the block barriers of B7's least step with demand (one chunk of rows,
+# no open, no conflict row): the prefix scan's three, the take's one and
+# the step's end; its chain floor is these a step times one barrier
+DENSE_BARRIERS_A_STEP = 5
+
+
+def barrier_us(pd, threads: int) -> float:
+    """One block barrier of `threads` threads on its own, in us: B7's
+    barrier probe at BARRIER_PROBE barriers less the probe at none."""
+    t0 = event_ms(lambda: pd.barrier_probe(0, threads), 5)
+    t1 = event_ms(lambda: pd.barrier_probe(BARRIER_PROBE, threads), 5)
+    return 1000 * (t1 - t0) / BARRIER_PROBE
+
+
+def dense_problems(cache: str | None = None) -> list:
+    """B7's full-width problems as `testing.DenseCase`s, staged on the
+    card through the tree's own `solve()` with `pack.stage` recorded:
+    the first 50k x 500 request, the second (10k more pods against the
+    first solve's nodes) and reserved_50k's planned pack (the cost arm
+    of its cold cost solve). With `cache` (a file), the first call
+    pickles their arrays there and later calls load them, so that runs
+    in turns (other processes, other trees) time the same inputs: the
+    planner's MIPs stop on wall-clock limits."""
+    import pickle
+
+    from karpenter_tpu_torch.solver import pack, solver as solver_mod
+    from karpenter_tpu_torch.testing import (
+        DenseCase, KernelCase, dense_case, existing_from_solution)
+    from karpenter_tpu_torch.workloads import build_problem
+
+    if cache and os.path.exists(cache):
+        with open(cache, "rb") as f:
+            rows = pickle.load(f)
+    else:
+        calls, ctx = [], {"route": None, "planned": False}
+        real_stage, real_sp = pack.stage, solver_mod._solve_packing
+
+        def stage(*a, **k):
+            st = real_stage(*a, **k)
+            calls.append((ctx["route"], ctx["planned"], st))
+            return st
+
+        def solve_packing(enc, mode, device, plan=None, shards=0):
+            ctx["planned"] = plan is not None
+            try:
+                return real_sp(enc, mode, device, plan, shards)
+            finally:
+                ctx["planned"] = False
+
+        pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
+        extra, _ = build_problem(N_EXTRA, N_TYPES, seed=SEED + 1, name_prefix="extra-")
+        rpods, rpools = build_problem(COST_PODS, COST_TYPES, seed=SEED, reservations=True,
+                                      zonal_frac=COST_ZONAL)
+        pack.stage, solver_mod._solve_packing = stage, solve_packing
+        try:
+            solver_mod.reset_caches()
+            ctx["route"] = "first request"
+            sol = solver_mod.solve(pods, pools)
+            ctx["route"] = "second request"
+            solver_mod.solve(extra, pools, existing_from_solution(sol))
+            ctx["route"] = "reserved_50k cost arm"
+            solver_mod.solve(rpods, rpools, objective="cost")
+        finally:
+            pack.stage, solver_mod._solve_packing = real_stage, real_sp
+            solver_mod.reset_caches()
+        staged = {
+            "first request": [st for r, _, st in calls if r == "first request"][-1],
+            "second request": [st for r, _, st in calls if r == "second request"][-1],
+            "reserved_50k cost arm": next(
+                (st for r, planned, st in calls if r == "reserved_50k cost arm" and planned),
+                None),
+        }
+        if staged["reserved_50k cost arm"] is None:
+            fail("reserved_50k's cold cost solve staged no planned pack")
+        rows = []
+        for name in DENSE_PROBLEMS:
+            mode = "cost" if name.startswith("reserved") else "ffd"
+            c = dense_case(staged[name], name, mode)
+            rows.append((name, c.args, c.kwargs, c.max_nodes, mode, c.Ep, c.split.args,
+                         c.split.kwargs, c.split.max_free))
+        if cache:
+            with open(cache, "wb") as f:
+                pickle.dump(rows, f)
+    return [DenseCase(name, args, kw, N, mode, Ep, KernelCase(name, s_args, s_kw, F, mode))
+            for name, args, kw, N, mode, Ep, s_args, s_kw, F in rows]
+
+
+def dense_timing(pd, kernels, graft_entry, cases, smi: str | None = None,
+                 clocks: bool = True) -> dict:
+    """B7's CUDA-event ms on `graft_entry.entry()`'s problem and on each
+    full-width case (testing.DenseCase) beside B1's on the same problem,
+    in turns (B7, B1, B1, B7; at each of B7's block sizes where the tree
+    offers more than one: every size, B1 twice, the sizes in reverse),
+    "B7 <problem>" the size the tree's rule takes, and the whole
+    `pack_flat` call on the first case; with `clocks`, B7's phase clocks
+    on `entry()` and the second and third cases at each size (where the
+    tree has B7's phase-clock build). Returns {label: ms or text};
+    prints the lines when `smi` (the card's line) is given."""
+    import torch
+
+    out = {}
+    sizes = tuple(getattr(pd, "BLOCK_SIZES", (None,)))
+
+    def at(size, fn):
+        if size is None:
+            return fn
+
+        def run():
+            with pd.forced_threads(size):
+                return fn()
+        return run
+
+    def b7_label(name, size):
+        return f"B7 {name}" + ("" if size is None else f" at {size} threads")
+
+    fn, e_args = graft_entry.entry()
+    runs = {"entry()": (lambda: fn(*e_args), None, graft_entry.MAX_NODES)}
+    for c in cases:
+        args, kw = to_cuda(c)
+        s_args, s_kw = to_cuda(c.split)
+        runs[c.name] = (
+            lambda args=args, kw=kw, c=c: pd.pack(*args, max_nodes=c.max_nodes, mode=c.mode,
+                                                  **kw),
+            lambda s_args=s_args, s_kw=s_kw, c=c: kernels.pack_split(
+                *s_args, max_free=c.split.max_free, mode=c.mode, **s_kw),
+            c.max_nodes)
+    for name, (b7, b1, N) in runs.items():
+        reps = 50 if b1 is None else 3
+        seq = [(size, at(size, b7)) for size in sizes]
+        for _, f in seq:
+            f()
+        if b1 is not None:
+            b1()
+        torch.cuda.synchronize()
+        first = {size: event_ms(f, reps) for size, f in seq}
+        b1_ms = [event_ms(b1, reps), event_ms(b1, reps)] if b1 is not None else []
+        last = {size: event_ms(f, reps) for size, f in reversed(seq)}
+        for size in sizes:
+            out[b7_label(name, size)] = (first[size] + last[size]) / 2
+            out[b7_label(name, size) + " in turns"] = [first[size], last[size]]
+        chosen = pd.block_threads(N) if hasattr(pd, "block_threads") else sizes[0]
+        out[f"B7 {name}"] = out[b7_label(name, chosen)]
+        if b1_ms:
+            out[f"B1 {name}"] = sum(b1_ms) / 2
+            out[f"B1 {name} in turns"] = b1_ms
+        if smi is not None:
+            b7_text = "; ".join(
+                f"{'' if s is None else f'{s} threads '}{first[s]:.4f}, {last[s]:.4f}"
+                for s in sizes)
+            say(f"  {name} (N={N}): B7 {b7_text} ms" + (
+                f", B1 {b1_ms[0]:.4f}, {b1_ms[1]:.4f} ms on the same problem" if b1_ms else "")
+                + f" (in turns); the rule takes {chosen or 'its one size'}")
+    c = cases[0]
+    args, kw = to_cuda(c)
+    flat = lambda: pd.pack_flat(*args, max_nodes=c.max_nodes, mode=c.mode, **kw)  # noqa: E731
+    flat()
+    out[f"pack_flat {c.name}"] = event_ms(flat, 5)
+    out[f"pack_flat {c.name} as the host launches it"] = event_ms(flat, 5, queued=False)
+    if smi is not None:
+        say(f"  pack_flat's whole call on {c.name}: {out[f'pack_flat {c.name}']:.4f} ms on "
+            f"the card, {out[f'pack_flat {c.name} as the host launches it']:.4f} ms as the "
+            f"host launches it | card: {smi}")
+    if clocks and "pack_dense" in kernels.PHASES and sizes[0] is not None:
+        for name in ("entry()", *(c.name for c in cases[1:])):
+            for size in sizes:
+                text = phase_breakdown(kernels, "pack_dense", at(size, runs[name][0]),
+                                       out[b7_label(name, size)], "step", threads=size)
+                out[f"B7 {name} clocks at {size} threads"] = text
+                if smi is not None:
+                    say(f"  B7 phase clocks, {name} at {size} threads: {text}")
+    return out
+
+
 def bound(ops: int, nb: int):
     """(ms, "operations" or "bytes"): the least time the card could take
     for `ops` f32 operations and `nb` bytes moved."""
@@ -901,15 +1088,18 @@ def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def dense_phase(pd, kernels, graft_entry, staged: dict, err: dict, smi: str) -> dict:
-    """Phase 9: B7 on the card. The port's `graft_entry.entry()` (one
-    launch of B7), then the dense ≡ split oracle at full width on the
-    requests phases 4 and 6 staged, then B7's and its epilogue's times;
-    returns the kernels' report entries and the launches."""
-    import numpy as np
+def dense_phase(pd, kernels, graft_entry, cases: list, err: dict, smi: str) -> dict:
+    """Phase 9 (and `--dense`): B7 on the card. The port's
+    `graft_entry.entry()` (one launch of B7), then the dense ≡ split
+    oracle at full width on `cases` (testing.DenseCase: the requests
+    phases 4 and 6 staged), `pack` and `pack_flat` (B7 writing the flat
+    buffer in place) byte for byte against their plain versions, then
+    B7's times beside B1's on every problem, the whole `pack_flat` call
+    and B7's phase clocks (`dense_timing`); returns the kernels' report
+    entries and the launches."""
     import torch
 
-    from karpenter_tpu_torch.testing import dense_case, split_mismatch
+    from karpenter_tpu_torch.testing import split_mismatch
 
     t_phase = time.perf_counter()
     launches = {}
@@ -938,10 +1128,9 @@ def dense_phase(pd, kernels, graft_entry, staged: dict, err: dict, smi: str) -> 
     # ---- full width: each request's staged split problem laid out
     # densely, max_nodes = Ep + max_free; B7 (and pack_flat, decoded as
     # the host would) against B1 on the same problem
-    cases = [dense_case(st, name, mode) for name, (st, mode) in staged.items()]
     inputs = {c.name: to_cuda(c) for c in cases}
     pd.reset_launch_counts()
-    outs, rows = {}, []
+    outs, flats, rows = {}, {}, []
     for c in cases:
         args, kw = inputs[c.name]
         s_args, s_kw = to_cuda(c.split)
@@ -957,7 +1146,7 @@ def dense_phase(pd, kernels, graft_entry, staged: dict, err: dict, smi: str) -> 
         bad = bad or split_mismatch(decoded, host, args[6].cpu().numpy())
         if bad is not None:
             fail(f"full width {c.name}: B7 differs from B1 (pack_split): {bad}")
-        outs[c.name] = got
+        outs[c.name], flats[c.name] = got, flat
         rows.append(f"{c.name} ({c.mode}, Gp={args[0].shape[0]} Cp={args[0].shape[1]} "
                     f"E={c.Ep} N={c.max_nodes}): nodes={int(got[4])} "
                     f"bound pods={int(got[0][:c.Ep].sum())} unsched={int(got[5].sum())}, "
@@ -965,17 +1154,17 @@ def dense_phase(pd, kernels, graft_entry, staged: dict, err: dict, smi: str) -> 
     torch.cuda.synchronize()
     launches["full width"] = dict(pd.LAUNCHES)
     n = launches["full width"]
-    if n["pack"] != 2 * len(cases) or n["pack_flat"] != len(cases):
-        fail(f"the full-width oracle launched {n}: expected B7 twice and its "
-             f"epilogue once per request")
+    if n["pack"] != len(cases) or n["pack_flat"] != len(cases):
+        fail(f"the full-width oracle launched {n}: expected B7 once for pack and once "
+             f"for pack_flat (in place) per request")
     say(f"  full width, B7 equal to B1 on assignments, node counts, "
         f"unschedulable pods and free rows, bound rows one-hot, launches "
         f"{json.dumps(n)}:")
     for row in rows:
         say(f"    {row}")
 
-    # ---- the plain version on each request (timed on the first), and
-    # B7's and the epilogue's CUDA-event times
+    # ---- the plain version on each request (timed on the first): pack
+    # and pack_flat byte for byte
     first = cases[0]
     for c in cases:
         args, kw = inputs[c.name]
@@ -987,52 +1176,47 @@ def dense_phase(pd, kernels, graft_entry, staged: dict, err: dict, smi: str) -> 
             if not same_bits(a, b):
                 fail(f"full width {c.name}: pack differs from pack_ref: {label}")
             err["pack"] = max(err["pack"], max_abs_diff(a, b))
+        flat_ref = kernels.pack_flat_words_ref(want[0], want[1], want[4], want[5])
+        if not same_bits(flats[c.name], flat_ref):
+            fail(f"full width {c.name}: pack_flat differs from pack_flat_ref")
+        err["pack_flat"] = max(err["pack_flat"], max_abs_diff(flats[c.name], flat_ref))
         if c is first:
             b7_plain_ms = plain_s * 1e3
-    # B7 and B1 on the same problem, in turns on the same card (B7, B1,
-    # B1, B7), on each request
-    times = {}
-    for c in cases:
-        args, kw = inputs[c.name]
-        s_args, s_kw = to_cuda(c.split)
-        b7 = (lambda args=args, kw=kw, c=c:
-              pd.pack(*args, max_nodes=c.max_nodes, mode=c.mode, **kw))
-        b1 = (lambda s_args=s_args, s_kw=s_kw, c=c:
-              kernels.pack_split(*s_args, max_free=c.split.max_free, mode=c.mode, **s_kw))
-        b7_runs, b1_runs = [event_ms(b7, 3)], [event_ms(b1, 3), event_ms(b1, 3)]
-        b7_runs.append(event_ms(b7, 3))
-        times[c.name] = (b7_runs, b1_runs)
     args, kw = inputs[first.name]
     N = first.max_nodes
-    b7_ms = statistics.mean(times[first.name][0])
-    e_ms = event_ms(lambda: fn(*e_args), 50)
-    e_plain_ms = event_ms(lambda: pd.pack_ref(*e_args, max_nodes=graft_entry.MAX_NODES),
-                          2, queued=False)
-    o = outs[first.name]
-    fw_in = (o[0], o[1], o[4], o[5])
-    flat_ms = event_ms(lambda: pd.flat_words(*fw_in), 50)
-    flat_host_ms = event_ms(lambda: pd.flat_words(*fw_in), 50, queued=False)
-    flat_plain_ms = event_ms(lambda: kernels.pack_flat_words_ref(*fw_in), 20,
-                             queued=False)
-    flat = pd.flat_words(*fw_in)
-    if not same_bits(flat, kernels.pack_flat_words_ref(*fw_in)):
-        fail("pack_flat's epilogue differs from its plain version at full width")
+    flat_plain_ms = event_ms(lambda: pd.pack_flat_ref(*args, max_nodes=N, mode=first.mode,
+                                                      **kw), 1, queued=False)
 
+    # ---- B7's times beside B1's, the whole pack_flat call, the clocks
+    times = dense_timing(pd, kernels, graft_entry, cases, smi)
+    b7_ms = times[f"B7 {first.name}"]
+    flat_ms = times[f"pack_flat {first.name}"]
+    o = outs[first.name]
     b7_op_count = b7_ops(pd, args, kw, N, first.mode)
-    b7_bytes = nbytes(list(args) + list(kw.values())) + nbytes(o)
-    b7_bound, b7_by = bound(b7_op_count, b7_bytes)
-    flat_bound, flat_by = bound(o[1].numel(), nbytes(fw_in) + nbytes([flat]))
-    for name, (b7_runs, b1_runs) in times.items():
-        say(f"  {name}: B7 {', '.join(f'{x:.4f}' for x in b7_runs)} ms, B1 "
-            f"{', '.join(f'{x:.4f}' for x in b1_runs)} ms on the same problem")
+    in_bytes = nbytes(list(args) + list(kw.values()))
+    b7_bound, b7_by = bound(b7_op_count, in_bytes + nbytes(o))
+    flat_bound, flat_by = bound(b7_op_count, in_bytes + nbytes([flats[first.name]]))
     say(f"  timing on {first.name} (Gp={args[0].shape[0]} Cp={args[0].shape[1]} "
-        f"N={N} R={args[1].shape[1]}): B7 {b7_ms:.4f} ms, plain "
-        f"{b7_plain_ms:.1f} ms; ops={b7_op_count} bytes={b7_bytes}; epilogue "
-        f"{flat_ms:.6f} ms on the card, {flat_host_ms:.6f} ms a call as the host "
-        f"launches it, plain {flat_plain_ms:.3f} ms | entry problem: B7 {e_ms:.6f} ms, "
-        f"plain {e_plain_ms:.3f} ms | card: {smi}")
+        f"N={N} R={args[1].shape[1]}): B7 {b7_ms:.4f} ms at {pd.block_threads(N)} threads, plain "
+        f"{b7_plain_ms:.1f} ms; ops={b7_op_count} bytes={in_bytes + nbytes(o)}, bound "
+        f"{b7_bound:.6f} ms ({b7_by}); pack_flat {flat_ms:.4f} ms a call (its buffer's "
+        f"fill and B7 in place), plain {flat_plain_ms:.1f} ms | card: {smi}")
+    # the chain floor: the steps with demand x the least step's block
+    # barriers x one barrier of the block alone, at the rule's size
+    bar_us = {t: barrier_us(pd, t) for t in pd.BLOCK_SIZES}
+    floors = []
+    for name, counts, n in (("entry()", e_args[2], graft_entry.MAX_NODES),
+                            *((c.name, inputs[c.name][0][2], c.max_nodes) for c in cases)):
+        steps, t = int((counts > 0).sum()), pd.block_threads(n)
+        floor_ms = steps * DENSE_BARRIERS_A_STEP * bar_us[t] / 1e3
+        times[f"B7 {name} chain floor"] = floor_ms
+        floors.append(f"{name} {steps} steps at {t} threads, {floor_ms:.6f} ms against "
+                      f"{times[f'B7 {name}']:.6f} ms")
+    say(f"  B7's chain floor ({DENSE_BARRIERS_A_STEP} block barriers a step; one barrier "
+        f"alone {', '.join(f'{v:.4f} us at {t} threads' for t, v in bar_us.items())}): "
+        + "; ".join(floors))
     say(f"  phase 9 took {time.perf_counter() - t_phase:.3f}s")
-    return {"launches": launches, "entries": [
+    return {"launches": launches, "times": times, "entries": [
         {"name": "pack", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_dense.cu",
          "replaces": "karpenter_tpu/solver/pack.py:164",
@@ -1040,8 +1224,8 @@ def dense_phase(pd, kernels, graft_entry, staged: dict, err: dict, smi: str) -> 
          "max_abs_err": err["pack"], "ms": b7_ms, "plain_ms": b7_plain_ms,
          "bound_ms": b7_bound, "bound_by": b7_by, "library_ms": None},
         {"name": "pack_flat", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/pack_flat.cu",
-         "replaces": "karpenter_tpu/solver/pack.py:431",
+         "source": "karpenter_tpu_torch/csrc/pack_dense.cu",
+         "replaces": "karpenter_tpu/solver/pack.py:410",
          "launches": sum(x["pack_flat"] for x in launches.values()),
          "max_abs_err": err["pack_flat"], "ms": flat_ms, "plain_ms": flat_plain_ms,
          "bound_ms": flat_bound, "bound_by": flat_by, "library_ms": None},
@@ -2565,6 +2749,9 @@ LANES = "--lanes"
 # `--against DIR`: phases 1-2, then `compare_timings` in DIR (a checkout
 # of another commit, e.g. the parent) and here, in turns
 AGAINST = "--against"
+# `--dense`: phases 1-2, then phase 9 alone on the full-width problems
+# staged through `dense_problems`
+DENSE = "--dense"
 COMPARE_SHARDS = (2, 4, 8)
 
 
@@ -2967,12 +3154,12 @@ def catalog_phase(err: dict, smi: str) -> dict:
                          **{f"consolidation-{k}": v for k, v in probe_launches.items()}}}
 
 
-def compare_timings() -> None:
+def compare_timings(dense_cache: str | None = None) -> None:
     """Times, on fixed inputs through a tree's own public wrappers, the
     kernels the redesigns touched and those that must not slow, and
     prints them as one JSON line. `against` runs it in a process of its
     own from each tree's root, that tree's package first on sys.path:
-    B1, B3, B2's full copy and B7 on the first 50k x 500 request; split B1,
+    B1, B3 and B2's full copy on the first 50k x 500 request; split B1,
     B3 and B2 at S = 2, 4, 8 on the same request (split B2's kernel alone
     too); B4 on reserved_50k's first column-generation round and its
     phase clocks; B6's two programs on `testing.lane_cases(0)`'s first
@@ -2981,17 +3168,21 @@ def compare_timings() -> None:
     (staged by `first_chunk`): B6 sequential (the dispatch, lane 0 and
     the lane with the most demand alone, their phase clocks), B6
     wavefront, the whole `pack_probe_lanes_flat` call on both programs
-    and the lane epilogue on both routes; the stack frames and
-    registers of the packing kernels and B4. The other tree must have
-    this one's wrappers (`pack_shard.flat_sharded_launcher`, B4's phase
-    clocks)."""
+    and the lane epilogue on both routes; B7 on `entry()` and on phase
+    9's three problems beside B1 and the whole `pack_flat` call
+    (`dense_timing`; the problems staged by `dense_problems`, pickled at
+    `dense_cache` by the first run and loaded by the others); the stack
+    frames and registers of the packing kernels and B4. The other tree
+    must have this one's wrappers (`pack_shard.flat_sharded_launcher`,
+    B4's phase clocks)."""
     import numpy as np
     import torch
 
+    from karpenter_tpu_torch import graft_entry
     from karpenter_tpu_torch.solver import lp_plan, pack, pack_dense as pd, pack_shard as shard
     from karpenter_tpu_torch.solver import pack_split as kernels
     from karpenter_tpu_torch.solver.encode import encode, group_pods
-    from karpenter_tpu_torch.testing import dense_case, lane_cases
+    from karpenter_tpu_torch.testing import lane_cases
     from karpenter_tpu_torch.utils.platform import force_virtual_mesh
     from karpenter_tpu_torch.workloads import build_problem
 
@@ -3011,11 +3202,6 @@ def compare_timings() -> None:
     }
     o3 = runs["B3"]()
     runs["B2"] = lambda: kernels.pack_flat_words(*o3[:4], o3[5], o3[4])
-    # B7 on the same request laid out densely (its prefix fill is B6's
-    # chunked take)
-    dc = dense_case(st, "first request dense", "ffd")
-    dargs, dkw = to_cuda(dc)
-    runs["B7"] = lambda: pd.pack(*dargs, max_nodes=dc.max_nodes, **dkw)
     force_virtual_mesh(max(COMPARE_SHARDS))
     try:
         for S in COMPARE_SHARDS:
@@ -3169,6 +3355,9 @@ def compare_timings() -> None:
         out[f"lane epilogue, {label}"] = event_ms(ep, 50)
         out[f"lane epilogue, {label}, a call as the host launches it"] = event_ms(
             ep, 50, queued=False)
+    # B7 (and B1) on entry() and the three full-width problems, the whole
+    # pack_flat call, B7's phase clocks where the tree has them
+    out.update(dense_timing(pd, kernels, graft_entry, dense_problems(dense_cache)))
     from karpenter_tpu_torch import cuda_build
 
     info = cuda_build.build_all()
@@ -3215,6 +3404,45 @@ def first_chunk(kernels, cb):
     return args, kw, k["max_free"], k["mode"], k["wavefront"], n_real
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as "name<0|1[,threads]>" (its bool and int
+    template arguments)."""
+    import re
+
+    k = re.search(r"([a-z_]+_kernel)(ILb([01])E(Li(\d+)E)?)?", mangled)
+    if not k:
+        return mangled
+    return k.group(1) + (f"<{k.group(3)}{',' + k.group(5) if k.group(5) else ''}>"
+                         if k.group(3) else "")
+
+
+def sass_digests(tree: str, lib: str) -> dict:
+    """{kernel: digest of its machine code} of library `lib` as the
+    checkout `tree` built it (`cuobjdump -sass` of its `_build/` copy);
+    empty when the tree has not built it or the toolkit has no
+    cuobjdump."""
+    import glob
+    import hashlib
+    import re
+    import shutil
+
+    paths = glob.glob(os.path.join(tree, "karpenter_tpu_torch", "_build", f"{lib}-*.so"))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not paths or not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", max(paths, key=os.path.getmtime)],
+                         capture_output=True, text=True, timeout=300)
+    funcs, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            funcs[name] = hashlib.sha256()
+        elif name:
+            funcs[name].update(line.encode())
+    return {k: v.hexdigest() for k, v in funcs.items()}
+
+
 def ptxas_usage(text: str) -> str:
     """Each kernel's stack frame and registers from a build's ptxas
     report, as "name<0|1>: s B stack, r registers" (the bool template
@@ -3225,9 +3453,7 @@ def ptxas_usage(text: str) -> str:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(ILb([01])E(Li(\d+)E)?)?", m.group(1))
-            name = (k.group(1) + (f"<{k.group(3)}{',' + k.group(5) if k.group(5) else ''}>"
-                                  if k.group(3) else "")) if k else m.group(1)
+            name = kernel_name(m.group(1))
             continue
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and name:
@@ -3242,15 +3468,23 @@ def against(other: str, smi: str) -> None:
     """`--against DIR`: `compare_timings` in the checkout DIR (another
     commit, e.g. the parent, unpacked with `git archive`) and in this
     one, in turns (DIR, here, here, DIR), each in a process of its own
-    from its tree's root; prints each kernel's four times."""
+    from its tree's root; prints each kernel's four times, then whether
+    the machine code of B1, B3 and B2 is the same in both trees, kernel
+    by kernel."""
+    import shutil
+    import tempfile
+
     other = os.path.abspath(other)
     if not os.path.isdir(os.path.join(other, "karpenter_tpu_torch")):
         fail(f"{AGAINST} {other}: no karpenter_tpu_torch there")
+
     script = os.path.join(HERE, "chip_smoke.py")
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_dense_")
+    cache = os.path.join(scratch, "problems.pkl")  # the first run stages B7's problems
     runs = []
     for tree in (other, HERE, HERE, other):
         code = (f"import runpy, sys; sys.path.insert(0, {tree!r}); "
-                f"runpy.run_path({script!r})['compare_timings']()")
+                f"runpy.run_path({script!r})['compare_timings']({cache!r})")
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
                              text=True, timeout=1200)
@@ -3269,6 +3503,18 @@ def against(other: str, smi: str) -> None:
     for key in runs[0]:
         if key not in runs[1]:
             say(f"  {key} (there only): {runs[0][key]}; {runs[3][key]}")
+    shutil.rmtree(scratch, ignore_errors=True)
+    # the machine code of the kernels each tree built, kernel by kernel
+    for lib in ("pack_split", "pack_wavefront", "pack_flat"):
+        there, here = sass_digests(other, lib), sass_digests(HERE, lib)
+        if not there or not here:
+            say(f"  SASS {lib}: not compared (no build or no cuobjdump)")
+            continue
+        same = sorted(k for k in here if there.get(k) == here[k])
+        differ = sorted(k for k in here if k in there and there[k] != here[k])
+        say(f"  SASS {lib}: identical {', '.join(same) or 'none'}; differ "
+            f"{', '.join(differ) or 'none'}; here only "
+            f"{', '.join(sorted(set(here) - set(there))) or 'none'}")
 
 
 # the spilled launches: their source and the JAX program each replaces
@@ -3316,6 +3562,7 @@ def main() -> None:
             ascent_cases,
             ascent_edge_cases,
             config_axis,
+            dense_case,
             dense_cases,
             existing_from_solution,
             kernel_cases,
@@ -3374,6 +3621,13 @@ def main() -> None:
                 say(hold_lane_placements(kernels, lc.name, largs, lkw, lc.max_free, mode, err))
         say(f"chip_smoke {LANES}: holds identical ({time.perf_counter() - t0:.3f}s), "
             f"{time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
+    if DENSE in sys.argv[1:]:
+        dense = dense_phase(pack_dense, kernels, graft_entry, dense_problems(),
+                            {"pack": 0.0, "pack_flat": 0.0}, smi)
+        say(f"chip_smoke {DENSE}: {time.perf_counter() - T_START:.3f}s wall")
+        say(json.dumps({"kernels": dense["entries"]}))
         finish(kind, smi)
         return
     if CATALOG in sys.argv[1:]:
@@ -3654,11 +3908,11 @@ def main() -> None:
 
     # ---- 9. the dense kernel B7: the entry problem, and the dense ≡
     # split oracle at full width on what phases 4 and 6 staged
-    dense = dense_phase(pack_dense, kernels, graft_entry, {
-        "first request": (last_staged["first-warm"], "ffd"),
-        "second request": (last_staged["second"], "ffd"),
-        "reserved_50k cost arm": (recorded["staged"], "cost"),
-    }, err, smi)
+    dense = dense_phase(pack_dense, kernels, graft_entry, [
+        dense_case(st, name, mode) for name, st, mode in (
+            ("first request", last_staged["first-warm"], "ffd"),
+            ("second request", last_staged["second"], "ffd"),
+            ("reserved_50k cost arm", recorded["staged"], "cost"))], err, smi)
     route_launches = {
         name: sum(n[name] for n in (*launches.values(), *probes["launches"].values()))
         for name in ("pack_split", "pack_split_wavefront", "pack_split_flat")

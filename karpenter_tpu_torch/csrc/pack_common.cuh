@@ -1,6 +1,7 @@
 // Device code shared by the packing kernels B1 (pack_split.cu), B3
-// (pack_wavefront.cu) and B7 (pack_dense.cu), and by their lane (B6)
-// and split (B8) instantiations: the capacity of a row for a group, the
+// (pack_wavefront.cu) and B7 (pack_dense.cu, B1's step on one axis of
+// mask rows), and by their lane (B6) and split (B8) instantiations: the
+// capacity of a row for a group, the
 // order-preserving (value, index) keys of the arg-reductions, the
 // block-wide scan, the reservation and conflict lookups on a kernel's
 // argument struct (the kernels name the fields alike), and the phases of
@@ -8,7 +9,7 @@
 //   - `stage_tables`: the config-axis tables copied once a launch into
 //     the block's dynamic shared memory (cp.async), so that every step
 //     and every open reads them there and not from L2;
-//   - `sweep_take` (B1's step, B3's plan): each thread owns a run of
+//   - `sweep_take` (B1's and B7's step, B3's plan): each thread owns a run of
 //     consecutive rows, sweeps their capacities (a fresh row's candidate
 //     configs are its mask words ANDed with the group's compat bits,
 //     capacity taken only for the set bits), then one block scan of the
@@ -19,16 +20,15 @@
 //     the bulk open, three or four block barriers an open, every block
 //     reduction a warp reduction first; a split kernel's opens take one
 //     exchange each (`open_loop_split`);
-//   - `chunked_take` (B6 sequential's `sweep_take_chunked`) and
-//     `prefix_fill` (B7): the prefix take walked in chunks of the
-//     block's rows and stopped at the chunk that meets the demand, the
-//     carry in a register of every thread and in shared memory.
+//   - `chunked_take` (`sweep_take_chunked`, B6 sequential's and B7's
+//     step at 256 threads): the prefix take walked in chunks of the
+//     block's rows and stopped at the chunk that meets the demand.
 // A fresh row keeps its mask as words_pad(C) 32-bit words; the byte
 // masks the outputs carry are written from them at the end of a launch.
 // The kernels run blocks of kThreads threads (a multiple of 32, at most
 // 1024). The functions a group step runs take the block size as their
 // template argument kT (kThreads unless given): B6's sequential program
-// launches B1's body at 256 threads.
+// launches B1's body at 256 threads, B7 its own at 256.
 //
 // Float arithmetic uses explicit round-to-nearest intrinsics in the
 // JAX order of operations, so nothing depends on FMA contraction (the
@@ -218,11 +218,7 @@ __device__ __forceinline__ bool blocked(const A& a, int n, int g) {
 // chunk's capacities (k = 0), its scan (1) and its takes (2). Returns
 // the end of the rows whose take was handed over (later rows take 0)
 // and, in *placed, the pods placed (min(sum, r)). All threads of the
-// block call it. The carry is in a register of every thread; B7's
-// `prefix_fill` below walks the same chunks with its carry in shared
-// memory, behind two more barriers a chunk. Each kernel keeps its own:
-// B7's 64-register kernel spilled on this one and ran 5% longer, and
-// B6's step ran 2-6% longer on B7's (PERF.md §6).
+// block call it. The carry is in a register of every thread.
 template <int kT, class Cap, class Take, class Mark>
 __device__ int chunked_take(int nscan, long long r, Cap cap, Take take, Mark mark,
                             long long* placed) {
@@ -247,47 +243,6 @@ __device__ int chunked_take(int nscan, long long r, Cap cap, Take take, Mark mar
   // the takes are read by other threads; s_warp and s_total are
   // rewritten by the next call
   __syncthreads();
-  return end;
-}
-
-// The prefix fill of one group with demand r > 0 over rows [0, nscan)
-// in index order: take[n] = clip(r - sum_{m<n} kcap[m], 0, kcap[n]),
-// exact in 64 bits and clamped at r (equal to the JAX kernels'
-// saturating uint32 scan). The block scans chunk by chunk and stops at
-// the chunk where the demand is met. Returns the end of the rows whose
-// take was written (later rows take 0) and, in *placed, the pods the
-// fill placed. All threads of the block call it.
-__device__ int prefix_fill(const int32_t* kcap, int32_t* take, int nscan,
-                           long long r, long long* placed) {
-  __shared__ long long s_warp[kWarps];
-  __shared__ long long s_total;
-  __shared__ long long s_carry;
-  __shared__ int s_scan_end;
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    s_carry = 0;
-    s_scan_end = nscan;
-  }
-  __syncthreads();
-  for (int base = 0; base < nscan; base += kThreads) {
-    const int n = base + tid;
-    long long kc = 0;
-    if (n < nscan) kc = min((long long)kcap[n], r);
-    long long incl = block_scan(kc, s_warp, &s_total);
-    long long prefix = s_carry + incl - kc;
-    if (prefix > r) prefix = r;
-    if (n < nscan) take[n] = (int)min(r - prefix, kc);
-    __syncthreads();
-    if (tid == 0) {
-      s_carry += s_total;
-      if (s_carry >= r) s_scan_end = min(base + kThreads, nscan);
-    }
-    __syncthreads();
-    if (s_carry >= r) break;
-  }
-  const int end = s_scan_end;
-  *placed = min(s_carry, r);
-  __syncthreads();  // the statics are rewritten by the next call
   return end;
 }
 
@@ -607,6 +562,16 @@ __device__ __forceinline__ Smem stage(A& a, unsigned char* smem, const Placement
 // group is taken only over the set bits of mask & compat, from the
 // tables in shared memory, with the row's usage in registers.
 
+// Whether a kernel's rows are B7's (pack_dense.cu): every row carries a
+// per-row quota, `quota[n, g]` (the JAX `pack`'s), and most rows are
+// existing or planned nodes that hold one config over up to thousands
+// of columns: the sweep takes such a row's capacity from its config
+// alone (`row_cfg`, as B1 takes a bound row's), and the sweep and the
+// narrowing step over four zero words at a time. B1's fresh rows have
+// none of it; its instantiations leave it out and keep their code.
+template <class A>
+constexpr bool kDenseRows = false;
+
 // R floats (a row's usage, a group's request): the first four in
 // registers, one 16-byte load when R is 4, the rest read through the
 // pointer (R <= kMaxR)
@@ -730,11 +695,43 @@ __device__ void row_max(const A& a, const Smem& sm, const uint32_t* rowbits,
   for (int wd = 0; wd < nw; wd += 4) {
     const uint4 cur = next;
     if (wd + 4 < nw) next = load_words(words + wd + 4);
+    if constexpr (kDenseRows<A>)
+      if ((cur.x | cur.y | cur.z | cur.w) == 0u) continue;  // no config, no pin
     const uint32_t m[4] = {cur.x, cur.y, cur.z, cur.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       word_max(a, sm, rowbits, wd + j, m[j], ru, rq, any_pin, max_ok, max_pin, n_cand, n_exact);
   }
+}
+
+// A fresh row's partial maxima (row_max); B7's rows that hold one
+// config (`row_cfg[n]` >= 0: an existing or planned node, one-hot for
+// good, since a take keeps the config that holds it) from that config
+// alone, as row_max finds them for a one-bit mask.
+template <class A>
+__device__ __forceinline__ void fresh_max(const A& a, const Smem& sm, const uint32_t* rowbits,
+                                          int n, const uint32_t* words, const float* used,
+                                          const float* req, unsigned& any_pin, int& max_ok,
+                                          int& max_pin, unsigned& n_cand, unsigned& n_exact) {
+  if constexpr (kDenseRows<A>) {
+    const int c = n < a.E ? a.row_cfg[n] : -1;
+    if (c >= 0) {
+      const uint32_t bit = 1u << (c & 31);
+      any_pin = (sm.capped[c >> 5] & bit) != 0u;
+      max_ok = max_pin = 0;
+      if (rowbits[c >> 5] & bit) {
+        ++n_cand;
+        ++n_exact;
+        const int k = capacity_use(a.cfg_alloc + c * a.R, load4(used, a.R), load4(req, a.R), a.R);
+        if (k >= 1) {
+          max_ok = k;
+          max_pin = any_pin ? k : 0;
+        }
+      }
+      return;
+    }
+  }
+  row_max(a, sm, rowbits, words, used, req, any_pin, max_ok, max_pin, n_cand, n_exact);
 }
 
 // Of one mask word's compatible configs, those that still hold a take
@@ -768,6 +765,8 @@ __device__ void narrow_row(const A& a, const uint32_t* rowbits, uint32_t* words,
   for (int wd = 0; wd < nw; wd += 4) {
     const uint4 cur = next;
     if (wd + 4 < nw) next = load_words(words + wd + 4);
+    if constexpr (kDenseRows<A>)
+      if ((cur.x | cur.y | cur.z | cur.w) == 0u) continue;  // the words stay zero
     const uint4 keep = make_uint4(word_keep(a, rowbits, wd, cur.x, ru, rq, t),
                                   word_keep(a, rowbits, wd + 1, cur.y, ru, rq, t),
                                   word_keep(a, rowbits, wd + 2, cur.z, ru, rq, t),
@@ -807,11 +806,13 @@ __device__ __forceinline__ int bound_cap(const A& a, int b, int g, const float* 
   return kb;
 }
 
-// a fresh row's capacity from its (combined) partials, then the
-// group-cap and conflict clamps (`cbits` as bound_cap's)
+// a fresh row's capacity from its (combined) partials, then the quota
+// (kDenseRows), group-cap and conflict clamps (`cbits` as bound_cap's)
 template <class A>
 __device__ __forceinline__ int fresh_cap(const A& a, int n, int g, int gcap, int kf,
                                          const uint32_t* cbits = nullptr) {
+  if constexpr (kDenseRows<A>)
+    if (a.quota) kf = min(kf, (int)a.quota[(size_t)n * a.G + g]);
   if (a.group_cap) kf = min(kf, max(gcap - a.assign[(size_t)n * a.G + g], 0));
   if (cbits) {
     if (kf > 0 && blocked_bits(a, n, cbits)) kf = 0;
@@ -887,8 +888,8 @@ __device__ long long sweep_take(const A& a, X& x, const Smem& sm, uint32_t* bits
     const int f = n - B;
     unsigned any_pin;
     int max_ok, max_pin;
-    row_max(a, sm, rowbits, bits + (size_t)f * nw, a.free_used + (size_t)f * R, req, any_pin,
-            max_ok, max_pin, n_cand, n_exact);
+    fresh_max(a, sm, rowbits, n, bits + (size_t)f * nw, a.free_used + (size_t)f * R, req,
+              any_pin, max_ok, max_pin, n_cand, n_exact);
     fresh(n, any_pin, max_ok, max_pin);
   }
   if constexpr (X::kSplit) {
@@ -978,8 +979,9 @@ __device__ long long sweep_take_chunked(const A& a, const Smem& sm, uint32_t* bi
     } else {
       unsigned any_pin;
       int max_ok, max_pin;
-      row_max(a, sm, rowbits, bits + (size_t)(n - B) * nw, a.free_used + (size_t)(n - B) * R,
-              req, any_pin, max_ok, max_pin, n_cand, n_exact);
+      fresh_max(a, sm, rowbits, n, bits + (size_t)(n - B) * nw,
+                a.free_used + (size_t)(n - B) * R, req, any_pin, max_ok, max_pin, n_cand,
+                n_exact);
       kc = fresh_cap(a, n, g, gcap, any_pin ? max_pin : max_ok, cbits);
     }
     sweep_cycles += (unsigned)(clk.now() - t0);
@@ -1048,7 +1050,7 @@ __device__ __forceinline__ bool open_bit(const A& a, const X& x, int c, int fill
   return (a.cfg_rsv[c] < 0 && kf >= 1 && kf >= fill) || (capped_star && x.c0 + c == cs);
 }
 
-// B1: the fresh rows from `base` on (mask words, usage, assignment)
+// B1 and B7: the fresh rows from `base` on (mask words, usage, assignment)
 struct FreshRows {
   uint32_t* bits;
   int base;  // fresh row of the loop's first opened row
@@ -1071,32 +1073,6 @@ struct FreshRows {
       for (int r = 0; r < R; ++r) used[r] = __fadd_rn(oh[r], __fmul_rn(ff, req[r]));
       // a row opened now holds nothing yet
       a.assign[(size_t)(a.B + f0 + i) * a.G + g] = i == q - 1 ? rl : ms;
-    }
-  }
-};
-
-// B7: byte mask rows on one node axis from row `base` on, marked active
-struct DenseRows {
-  uint8_t* mask;
-  float* used;
-  uint8_t* active;
-  int base;
-  int g;
-  template <int kT = kThreads, class A, class X>
-  __device__ void open_rows(const A& a, const X& x, int lo, int q, int ms, int rl, int cs,
-                            int capped_star, const float* oh, const float* req) {
-    const int C = a.C, R = a.R, n0 = base + lo;
-    for (int i = threadIdx.x; i < q * C; i += kT) {
-      const int f = i / C, c = i % C;
-      mask[(size_t)(n0 + f) * C + c] = open_bit(a, x, c, f == q - 1 ? rl : ms, cs, capped_star);
-    }
-    for (int i = threadIdx.x; i < q; i += kT) {
-      const int fill = i == q - 1 ? rl : ms;
-      const float ff = (float)fill;
-      for (int r = 0; r < R; ++r)
-        used[(size_t)(n0 + i) * R + r] = __fadd_rn(oh[r], __fmul_rn(ff, req[r]));
-      a.assign[(size_t)(n0 + i) * a.G + g] = fill;  // a row opened now holds nothing yet
-      active[n0 + i] = 1;
     }
   }
 };

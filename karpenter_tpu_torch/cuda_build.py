@@ -12,11 +12,12 @@ Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply-add
 is contracted into an FMA (the kernels must match their plain versions
 bit for bit); never --use_fast_math.
 
-B1's, B3's, B4's and B5's sources are also built a second time with
--DKARPENTER_PHASE_CLOCKS (`pack_split_clocks`, `pack_wavefront_clocks`,
-`lp_price_clocks`, `lp_ascend_clocks`): block 0 (B4: every config's
-block) then sums clock64() cycles per phase of a group step, round,
-pricing chain or ascent iteration into a device array that
+B1's, B3's, B7's, B4's and B5's sources are also built a second time
+with -DKARPENTER_PHASE_CLOCKS (`pack_split_clocks`,
+`pack_wavefront_clocks`, `pack_dense_clocks`, `lp_price_clocks`,
+`lp_ascend_clocks`): block 0 (B4: every config's block) then sums
+clock64() cycles per phase of a group step, round, pricing chain or
+ascent iteration into a device array that
 `phase_clocks_take` reads and clears. The solve never loads these;
 `pack_split.phase_clocks` swaps them in for a timed run.
 """
@@ -46,6 +47,7 @@ SOURCES = {
     "lp_ascend": "lp_ascend.cu",
     "pack_split_clocks": "pack_split.cu",
     "pack_wavefront_clocks": "pack_wavefront.cu",
+    "pack_dense_clocks": "pack_dense.cu",
     "lp_ascend_clocks": "lp_ascend.cu",
     "lp_price_clocks": "lp_price.cu",
 }
@@ -53,6 +55,7 @@ SOURCES = {
 EXTRA_FLAGS = {
     "pack_split_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
     "pack_wavefront_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
+    "pack_dense_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
     "lp_ascend_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
     "lp_price_clocks": ("-DKARPENTER_PHASE_CLOCKS",),
 }
@@ -84,7 +87,8 @@ SIGNATURES = {
         "pack_flat_sharded_launch": [_P] * 7 + [_I] * 5 + [_P],
         "pack_flat_masks_launch": [_P] * 2 + [_I] * 5 + [_P],
     },
-    "pack_dense": {"pack_dense_launch": [_P] * 22 + [_I] * 9 + _PLACE + [_P]},
+    "pack_dense": {"pack_dense_launch": [_P] * 24 + [_I] * 10 + _PLACE + [_P],
+                   "pack_dense_barrier_probe_launch": [_I, _I, _P, _P]},
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 4 + [_P]},
     "lp_ascend": {
         "lp_ascend_launch": [_P] * 15 + [_I, _P, _L] + [_I] * 5 + [_P],
@@ -92,7 +96,7 @@ SIGNATURES = {
         "lp_barrier_probe_launch": [_I, _P, _P],
     },
 }
-for _name in ("pack_split", "pack_wavefront", "lp_ascend", "lp_price"):
+for _name in ("pack_split", "pack_wavefront", "pack_dense", "lp_ascend", "lp_price"):
     SIGNATURES[f"{_name}_clocks"] = {**SIGNATURES[_name], "phase_clocks_take": [_P],
                                      "phase_ns_take": [_P], "xchg_census_take": [_P]}
 

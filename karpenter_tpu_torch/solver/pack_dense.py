@@ -19,9 +19,14 @@ dense ≡ split oracle of tests/test_pack_split_equivalence.py).
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it launches the hand-written kernel
-(`karpenter_tpu_torch/csrc/pack_dense.cu`; `pack_flat`'s epilogue is a
-second launch, of B2's `csrc/pack_flat.cu`) or raises; there is no
-fallback. `LAUNCHES` counts kernel launches per wrapper.
+(`karpenter_tpu_torch/csrc/pack_dense.cu`: B1's group step on the one
+node axis) or raises; there is no fallback. `pack_flat` is one launch:
+it allocates the flat buffer zeroed and the kernel writes its regions in
+place (the assignment, the node count and the unschedulable tallies as
+its outputs, each row's mask words at the end). `LAUNCHES` counts
+kernel launches per wrapper. B7 runs one block, of 256 threads for a
+short node axis and 1024 for a long one (`block_threads`);
+`forced_threads` launches it at any of `BLOCK_SIZES`, for timing.
 
 The plain version follows the JAX body step by step, in float32 and in
 the same order of operations, so its outputs are byte-identical to the
@@ -31,6 +36,8 @@ index-tie-broken arg-reduction.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from karpenter_tpu_torch.solver.pack_split import (
@@ -39,28 +46,59 @@ from karpenter_tpu_torch.solver.pack_split import (
     _caps,
     _check,
     _fits_fresh,
-    _launch_pack_flat,
+    _lib,
     _open_mask,
     _open_pick,
     _prefix_take_ref,
     _Problem,
     _budget,
-    _count,
     _ptr,
     _raise_on,
     _route,
     _stream,
+    _zeroed,
+    flat_layout,
     pack_flat_words_ref,
     placement_args,
     placement_text,
     table_placement,
+    words_pad,
 )
 
-# kernel launches per wrapper (plain-version calls never count); a
-# `pack_flat` call launches B7 (counted under "pack") and its epilogue; a
-# B7 launch whose tables spill past the shared-memory budget also counts
-# under "pack_global"
+# kernel launches per wrapper (plain-version calls never count): B7
+# launched by `pack` counts under "pack", by `pack_flat` (one launch,
+# in place) under "pack_flat"; a launch whose tables spill past the
+# shared-memory budget also counts under "pack_global"
 LAUNCHES = {"pack": 0, "pack_global": 0, "pack_flat": 0}
+
+# B7's block sizes (`pack_dense_launch`): 256 threads run the chunked
+# step (`sweep_take_chunked`), 1024 B1's (`sweep_take`). A node
+# axis of at most SMALL_ROWS rows (`entry()`'s 128) takes 256, a longer
+# one 1024: on an NVIDIA H100 at 700 W each size is the faster on its
+# own side (PERF.md §6).
+BLOCK_SIZES = (256, 1024)
+SMALL_ROWS = 256
+_threads: list = [None]  # forced_threads' size, else None (the rule)
+
+
+def block_threads(N: int) -> int:
+    """The block size of a B7 launch on N rows."""
+    return _threads[0] or (256 if N <= SMALL_ROWS else 1024)
+
+
+@contextlib.contextmanager
+def forced_threads(n: int):
+    """Within the block, B7 launches at `n` threads (one of
+    `BLOCK_SIZES`) whatever the node axis: to time the sizes on one
+    problem."""
+    if n not in BLOCK_SIZES:
+        raise ValueError(f"pack: no B7 instantiation at {n} threads")
+    old = _threads[0]
+    _threads[0] = int(n)
+    try:
+        yield
+    finally:
+        _threads[0] = old
 
 
 def reset_launch_counts() -> None:
@@ -230,10 +268,11 @@ def _pack_cuda(
     compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
     existing_mask, existing_used, cfg_price, *, max_nodes: int,
     mode: str = "ffd", quota=None, cfg_rsv=None, rsv_cap=None,
-    group_cap=None, conflict=None,
+    group_cap=None, conflict=None, flat: bool = False,
 ):
-    from karpenter_tpu_torch import cuda_build
-
+    """One launch of B7. Returns `pack`'s six outputs, or with `flat`
+    `pack_flat`'s buffer, which the kernel writes in place."""
+    what = "pack_flat" if flat else "pack"
     dev = compat.device
     G, C = compat.shape
     R = group_req.shape[1]
@@ -241,11 +280,11 @@ def _pack_cuda(
     N = int(max_nodes)
     P1 = pool_overhead.shape[0]
     if R > MAX_RESOURCES:
-        raise ValueError(f"pack: {R} resources exceed the kernel's {MAX_RESOURCES}")
+        raise ValueError(f"{what}: {R} resources exceed the kernel's {MAX_RESOURCES}")
     if mode not in ("ffd", "cost"):
-        raise ValueError(f"pack: unknown mode {mode!r}")
+        raise ValueError(f"{what}: unknown mode {mode!r}")
     if N < E:
-        raise ValueError(f"pack: max_nodes {N} < {E} existing rows")
+        raise ValueError(f"{what}: max_nodes {N} < {E} existing rows")
     if cfg_rsv is None:
         cfg_rsv = torch.full((C,), -1, dtype=torch.int32, device=dev)
     if rsv_cap is None:
@@ -270,36 +309,58 @@ def _pack_cuda(
         _check(conflict, "conflict", torch.bool, (G, G))
 
     i32, f32 = torch.int32, torch.float32
-    assign = torch.zeros((N, G), dtype=i32, device=dev)
-    node_mask = torch.zeros((N, C), dtype=torch.bool, device=dev)
-    node_used = torch.zeros((N, R), dtype=f32, device=dev)
-    node_active = torch.zeros((N,), dtype=torch.bool, device=dev)
-    node_count = torch.zeros((), dtype=i32, device=dev)
-    unsched = torch.zeros((G,), dtype=i32, device=dev)
-    lay = table_placement(C, R, P1, K, G, budget=_budget[0])
-    smem = lay["smem"]
-    offsets, tables, per = placement_args(lay, 1, dev)
-    # scratch: per-row capacity and take (the config tables live in the
-    # block's shared memory)
-    scratch = [
-        torch.empty((N,), dtype=i32, device=dev),           # kcap
-        torch.empty((N,), dtype=i32, device=dev),           # take
-    ]
-    lib = cuda_build.library("pack_dense")
-    err = lib.pack_dense_launch(
+    # scratch: the rows' mask words (on 16 bytes), their usage (pack's
+    # node_used output), their capacities then takes, and the existing
+    # rows' one config; the kernel writes all of it
+    nw = words_pad(C)
+    scratch = torch.empty((N * (nw + R + 1) + E,), dtype=i32, device=dev)
+    free_bits = scratch[:N * nw]
+    node_used = scratch[N * nw:N * (nw + R)].view(f32).view(N, R)
+    kcap, row_cfg = scratch[N * (nw + R):N * (nw + R + 1)], scratch[N * (nw + R + 1):]
+    if flat:
+        # pack_flat's buffer: assign, the mask words (C / 32 a row), the
+        # node count and the unschedulable tallies, zeroed in one fill
+        lay = flat_layout(1, N, G, N, C, False)
+        buf = torch.zeros((lay["row"],), dtype=i32, device=dev)
+        base = buf.data_ptr()
+        outs = [base, 0, node_used.data_ptr(), 0, base + 4 * lay["count"],
+                base + 4 * lay["unsched"], free_bits.data_ptr(), kcap.data_ptr(),
+                row_cfg.data_ptr(), base + 4 * lay["words"]]
+    else:
+        assign, node_mask, node_active, node_count, unsched = _zeroed(dev, (
+            ((N, G), i32), ((N, C), torch.bool), ((N,), torch.bool), ((), i32), ((G,), i32)))
+        outs = [t.data_ptr() for t in (assign, node_mask, node_used, node_active, node_count,
+                                       unsched, free_bits, kcap, row_cfg)] + [0]
+    lay_t = table_placement(C, R, P1, K, G, budget=_budget[0])
+    offsets, tables, per = placement_args(lay_t, 1, dev)
+    threads = block_threads(N)
+    err = _lib("pack_dense").pack_dense_launch(
         _ptr(compat), _ptr(group_req), _ptr(group_count), _ptr(cfg_alloc),
         _ptr(cfg_pool), _ptr(pool_overhead), _ptr(existing_mask),
         _ptr(existing_used), _ptr(cfg_price), _ptr(quota), _ptr(cfg_rsv),
-        _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict),
-        _ptr(assign), _ptr(node_mask), _ptr(node_used), _ptr(node_active),
-        _ptr(node_count), _ptr(unsched), *[_ptr(t) for t in scratch],
-        G, C, R, E, N, K, P1, 1 if mode == "cost" else 0, smem, offsets, _ptr(tables), per,
-        _stream(),
+        _ptr(rsv_cap), _ptr(group_cap), _ptr(conflict), *outs,
+        G, C, R, E, N, K, P1, 1 if mode == "cost" else 0, lay_t["smem"], threads, offsets,
+        _ptr(tables), per, _stream(),
     )
-    _raise_on(err, f"pack (one block, {placement_text(lay)})")
-    DYNAMIC_SMEM["pack"] = placement_text(lay)
-    _count("pack", lay, LAUNCHES)
+    _raise_on(err, f"{what} (one block of {threads} threads, G={G} C={C} R={R} E={E} N={N}, "
+                   f"{placement_text(lay_t)})")
+    DYNAMIC_SMEM["pack"] = placement_text(lay_t)
+    LAUNCHES[what] += 1
+    if lay_t["spilled"]:
+        LAUNCHES["pack_global"] += 1
+    if flat:
+        return buf
     return assign, node_mask, node_used, node_active, node_count, unsched
+
+
+def barrier_probe(n: int, threads: int) -> None:
+    """Launch one block of `threads` (one of `BLOCK_SIZES`) that takes
+    `n` block barriers in a row and does nothing else: `chip_smoke.py`
+    times it for the cost of one barrier (the floor of B7's chain of
+    steps). Not counted: it is no part of a solve."""
+    sink = torch.empty((1,), dtype=torch.int32, device="cuda")
+    _raise_on(_lib("pack_dense").pack_dense_barrier_probe_launch(
+        int(n), int(threads), _ptr(sink), _stream()), "pack_dense_barrier_probe")
 
 
 # ---------------------------------------------------------------- wrappers
@@ -314,22 +375,10 @@ def pack(*args, max_nodes: int, mode: str = "ffd", **kw):
 
 
 def pack_flat(*args, max_nodes: int, mode: str = "ffd", **kw):
-    """The JAX `pack_flat`, as one int32 buffer to be read as uint32:
-    B7, then its epilogue (`flat_words`). The config axis must be a
-    multiple of 32."""
+    """The JAX `pack_flat`, as one int32 buffer to be read as uint32
+    (`pack_flat_ref`'s layout). CUDA tensors run B7 once, writing the
+    buffer in place. The config axis must be a multiple of 32."""
     _flat_columns(args[0].shape[1])
-    assign, node_mask, _, _, node_count, unsched = pack(
-        *args, max_nodes=max_nodes, mode=mode, **kw)
-    return flat_words(assign, node_mask, node_count, unsched)
-
-
-def flat_words(assign, node_mask, node_count, unsched):
-    """`pack_flat`'s epilogue on B7's outputs: B2's layout with every
-    row of the node axis a mask row. CUDA tensors run B2's kernel
-    (`csrc/pack_flat.cu`), counted here under "pack_flat"."""
-    if not _route(assign, "pack_flat"):
-        return pack_flat_words_ref(assign, node_mask, node_count, unsched)
-    out = _launch_pack_flat("pack_flat", assign[None], node_mask[None],
-                            node_count[None], unsched[None])
-    LAUNCHES["pack_flat"] += 1
-    return out[0]
+    if _route(args[0], "pack_flat"):
+        return _pack_cuda(*args, max_nodes=max_nodes, mode=mode, flat=True, **kw)
+    return pack_flat_ref(*args, max_nodes=max_nodes, mode=mode, **kw)

@@ -117,6 +117,8 @@ PHASES = {
                        "plan: takes", "plan: open", "plan: tail", "barrier 1 wait",
                        "conflicts", "barrier 2 wait", "accept", "commit",
                        "barrier 3 wait"),
+    "pack_dense": ("init", "step start", "sweep", "prefix scan", "takes and apply",
+                   "bulk open", "outputs"),
     "lp_price": ("density prologue", "rounds", "value sum"),
     "lp_ascend": ("init", "step: norm, update, ratio", "fwd: max and ties",
                   "fwd: vh0, z", "fwd: theta, excess, mu, dot, dtheta_a",
@@ -345,11 +347,11 @@ def _lib(name: str):
 def phase_clocks(name: str):
     """Within the block, the kernels of library `name` ("pack_split":
     B1 and B6 sequential; "pack_wavefront": B3 and B6 wavefront;
-    "lp_price": B4; "lp_ascend": B5 and split B5) launch from its
-    phase-clock build.
+    "pack_dense": B7; "lp_price": B4; "lp_ascend": B5 and split B5)
+    launch from its phase-clock build.
     The split kernels (B8) of a library launch from the same build.
     Yields `take()`, which synchronizes and returns {phase: cycles}
-    summed since the last take, with "count" the steps (B1), rounds (B3)
+    summed since the last take, with "count" the steps (B1, B7), rounds (B3)
     or iterations (B5), "spreads" the packing kernels' per-thread
     spreads, "barriers" B5's block barriers, "regions" the cycles of
     the regions inside its phases, "ns" the global timer's ns over the

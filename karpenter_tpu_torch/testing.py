@@ -285,6 +285,37 @@ def dense_cases(seed: int = 0, n_pods: int = 3000, n_types: int = 60,
     return cases
 
 
+# the signed-zero problem's node axis
+SIGNED_ZERO_ROWS = 16
+
+
+def signed_zero_problem() -> tuple:
+    """B7's nine positional inputs (numpy) for a problem whose usage pass
+    shows: the JAX `pack` adds take * req to every row at every step, and
+    on a row that takes nothing, used + 0 * req turns a -0.0 into +0.0
+    when the request is positive. Three groups over 32 configs and two
+    resources, one group without demand, positive and negative requests
+    among them; four existing rows: row 0 holds a config no group is
+    compatible with and uses -0.0 of both resources, row 1 a config the
+    groups take (-0.0 of the second resource), row 2 no config (-0.0 of
+    the first), row 3 a config at +0.0. Node axis: SIGNED_ZERO_ROWS."""
+    G, C, R, E = 3, 32, 2, 4
+    compat = np.ones((G, C), bool)
+    compat[:, 0] = False
+    group_req = np.array([[1.0, -0.5], [0.5, 0.25], [-0.25, -1.0]], np.float32)
+    group_count = np.array([5, 0, 3], np.int32)
+    cfg_alloc = np.full((C, R), 8.0, np.float32)
+    cfg_pool = np.zeros((C,), np.int32)
+    pool_overhead = np.zeros((1, R), np.float32)
+    existing_mask = np.zeros((E, C), bool)
+    existing_mask[0, 0] = existing_mask[1, 1] = existing_mask[3, 2] = True
+    existing_used = np.array([[-0.0, -0.0], [2.0, -0.0], [-0.0, 1.0], [0.0, 0.0]],
+                             np.float32)
+    cfg_price = np.linspace(1, 2, C).astype(np.float32)
+    return (compat, group_req, group_count, cfg_alloc, cfg_pool, pool_overhead,
+            existing_mask, existing_used, cfg_price)
+
+
 def price_case(seed: int, G: int, C: int, R: int, kind: str = "rand"):
     """Inputs of B4 (lam, compat, group_req, eff_alloc, count) as numpy.
     `kind` "ties": duplicated groups (exact density ties), a config whose

@@ -12,7 +12,9 @@ reservation seeds 5-6 and existing-row seeds 7-8 in both modes, its
 planned quota rows; group caps with conflicts; negative, zero and
 2^31-scale demand (tests/test_scale_dtypes.py) on the staged problems
 and on hand-built ones whose capacities are unbounded; a node axis
-capped below need. For the comparison with the JAX package the staged
+capped below need; and `testing.signed_zero_problem`, hand-built, whose
+-0.0 usage on rows that take nothing shows the JAX body's usage pass
+(used + 0 * req on every row at every step). For the comparison with the JAX package the staged
 fixtures are padded, inertly, to one set of shapes with every optional
 input present, so that the JAX package compiles `pack` and `pack_flat`
 once per mode for all of them (the hand-built ones pass no optional
@@ -40,7 +42,8 @@ from karpenter_tpu_torch.graft_entry import entry
 from karpenter_tpu_torch.solver import pack_dense, pack_split
 from karpenter_tpu_torch.solver.encode import encoded_from_arrays
 from karpenter_tpu_torch.solver.pack import stage
-from karpenter_tpu_torch.testing import dense_case, split_mismatch
+from karpenter_tpu_torch.testing import (
+    SIGNED_ZERO_ROWS, dense_case, signed_zero_problem, split_mismatch)
 from test_pack_split_equivalence import _random_problem
 
 OUTPUTS = ("assign", "node_mask", "node_used", "node_active", "node_count", "unsched")
@@ -144,9 +147,9 @@ def _demand(mode):
     return _staged(enc, mode)
 
 
-# the hand-built problems: one group, 32 configs, 2 resources, 4
-# existing rows, 16 rows in all
-RAW_E, RAW_N = 4, 16
+# the hand-built problems: one group (the signed-zero problem: three),
+# 32 configs, 2 resources, 4 existing rows, 16 rows in all
+RAW_E, RAW_N = 4, SIGNED_ZERO_ROWS
 
 
 def _zero_request(count):
@@ -193,6 +196,10 @@ RAW = {
        for n in (7, -5, 2**31 - 1) for m in ("ffd", "cost")},
     **{f"huge-fresh-{n}-{m}": (lambda n=n, m=m: (*_huge_fresh(n), m))
        for n in (2**31 - 1, 1_000_000, -3) for m in ("ffd", "cost")},
+    # -0.0 usage on rows that take nothing, positive and negative
+    # requests, a group without demand: the JAX body's usage pass
+    # (used + 0 * req on every row at every step) shows in the bits
+    **{f"signed-zero-{m}": (lambda m=m: (*signed_zero_problem(), m)) for m in ("ffd", "cost")},
 }
 
 
@@ -300,6 +307,9 @@ def test_plain_versions_equal_jax(name):
     if name.startswith("zero-request-7"):
         # first fit: all 7 pods on row 0, none fabricated
         assert int(ours[0][0, 0]) == 7 and int(ours[0][1:, 0].sum()) == 0
+    if name.startswith("signed-zero"):
+        # every -0.0 of the rows that took nothing is +0.0 now
+        assert not torch.signbit(ours[2][[0, 2]]).any()
 
 
 @pytest.mark.parametrize("name", list(STAGED))
