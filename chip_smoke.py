@@ -22,6 +22,9 @@
     python3 chip_smoke.py --dense   # phases 1-2, then phase 9 (B7) alone
                                     # on the three full-width problems,
                                     # staged by the port's solves (~3 min)
+    python3 chip_smoke.py --ladder  # phases 1-2 and 12 alone: the
+                                    # resilience ladder's script on the
+                                    # card and its walls
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -260,6 +263,35 @@ Phases, each reported on its own line; any failure exits non-zero:
                 groups B3's block holds whole, spilled through
                 `forced_budget`), in turns; then each at the catalog's
                 own shape with its plain version and bound.
+Every packing solve of phases 4-11 goes through the resilience ladder
+(`solver/resilience.py`). After phase 11 (and at the end of `--quick`)
+the run fails unless the device or sharded rung served every one of
+them: the ladder's counter holds only `ok` outcomes on those rungs,
+`resilience.pop_degraded()` was empty after each phase, and no device
+LP degraded.
+  12. ladder  — `testing.ladder_script` on the card, on
+                `build_problem(2000, 50, seed=7)` (the host oracle is a
+                Python loop a pod and a node: the benchmark's 50k pods
+                would take it minutes): healthy solves on the device
+                rung; a lost device opening the breaker (skipped while
+                it cools, half-open, closed again); an execute stall
+                past KARPENTER_SOLVE_DEADLINE_MS and a launch stall past
+                KARPENTER_COMPILE_DEADLINE_MS, served by the host; the
+                hedge winning; a lost sharded rung served by the device
+                rung; the probe site's fault charging the device
+                breaker; the device LP failing inside its own call
+                (`maybe_solve` None and counted, the cost solve equal to
+                the one without the LP, the certificate not retried
+                until the next staging). Every device-served result is
+                byte-identical to a direct `pack.solve_packing` on the
+                card, every host-served one equal to `host_pack_result`.
+                Then the walls (host clock, median of 5, in turns): the
+                warm 50k x 500 first request through
+                `resilience.shared().solve_packing` against
+                `pack.solve_packing` directly, and with
+                KARPENTER_SOLVE_DEADLINE_MS=10000 (the attempt on a
+                watchdog thread); the host rung's wall on the script's
+                problem; the deadline case's wall against its budget.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -2726,6 +2758,9 @@ def quick_timing(kernels, pack, solve, build_problem, KernelCase, err: dict,
     if not split_only:
         a, n_iters = reserved_ascent(lp_device, build_problem, encode, group_pods)
         ascent_timing(kernels, lp_device, "reserved_50k's LP", a, n_iters, err, smi)
+    served = served_by_device(SPLIT if split_only else QUICK)
+    say(f"ladder: every packing solve served by the device or sharded rung "
+        f"({json.dumps(served)} ok), none degraded, no device LP degraded")
     say(f"chip_smoke {SPLIT if split_only else QUICK}: "
         f"{time.perf_counter() - T_START:.3f}s wall")
     say(smi)
@@ -2752,6 +2787,14 @@ AGAINST = "--against"
 # `--dense`: phases 1-2, then phase 9 alone on the full-width problems
 # staged through `dense_problems`
 DENSE = "--dense"
+# `--ladder`: phases 1-2, then phase 12 alone
+LADDER = "--ladder"
+# phase 12's problem: the host oracle is a Python loop a pod and a node
+LADDER_PROBLEM = (2000, 50, 7)
+# phase 12's turns of the pack alone (direct, ladder, watchdog thread)
+# and pairs of the whole solve (seam bypassed, ladder)
+LADDER_TURNS = 25
+LADDER_WHOLE_TURNS = 10
 COMPARE_SHARDS = (2, 4, 8)
 
 
@@ -3517,6 +3560,166 @@ def against(other: str, smi: str) -> None:
             f"{', '.join(sorted(set(here) - set(there))) or 'none'}")
 
 
+def served_by_device(phase: str) -> dict:
+    """Fail unless the device or sharded rung served every packing solve
+    so far: the ladder's counter holds only `ok` outcomes on those rungs,
+    `resilience.pop_degraded()` is empty (nothing degraded since the last
+    check), and no device LP degraded. Returns the ok counts by rung."""
+    from karpenter_tpu_torch.metrics.store import SOLVER_LADDER, SOLVER_LP_SOLVES
+    from karpenter_tpu_torch.solver import resilience
+
+    degraded = resilience.pop_degraded()
+    served, other = {}, {}
+    for labels, n in SOLVER_LADDER.samples():
+        rung, outcome = dict(labels).get("rung"), dict(labels).get("outcome")
+        if rung in ("device", "sharded") and outcome == "ok":
+            served[rung] = int(n)
+        else:
+            other[f"{rung}/{outcome}"] = int(n)
+    lp = SOLVER_LP_SOLVES.value({"outcome": "degraded"})
+    if degraded or other or lp:
+        fail(f"{phase}: a solve was not served by the device: degraded {degraded}, "
+             f"ladder {other}, device LP degraded {lp:.0f}x")
+    return served
+
+
+def ladder_phase(smi: str, first_enc=None) -> None:
+    """Phase 12: `testing.ladder_script` on the card on LADDER_PROBLEM,
+    held to its expected sequence, then the ladder's walls."""
+    import torch
+
+    from karpenter_tpu_torch.metrics.store import SOLVER_LADDER
+    from karpenter_tpu_torch.solver import pack, resilience
+    from karpenter_tpu_torch.solver import solver as solver_mod
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+    from karpenter_tpu_torch.solver.solver import fingerprint
+    from karpenter_tpu_torch.testing import (
+        LADDER_DEADLINE_MS,
+        LadderPackage,
+        ladder_fleet,
+        ladder_mismatches,
+        ladder_script,
+        pack_digest,
+        scoped_env,
+    )
+    from karpenter_tpu_torch.workloads import build_problem
+
+    t0 = time.perf_counter()
+    n_pods, n_types, seed = LADDER_PROBLEM
+    pods, pools = build_problem(n_pods, n_types, seed=seed)
+    enc = encode(group_pods(pods), pools)
+    fleet = ladder_fleet(pods, pools, "cuda")
+    records, walls = ladder_script(LadderPackage(enc, fleet, "cuda"))
+    for rec in records:
+        say("  " + json.dumps(rec))
+    bad = ladder_mismatches(records, walls)
+    if bad:
+        fail("phase 12 ladder: " + "; ".join(bad))
+    served = [f"{r['stage']}-{r['step']}:{'+'.join(r['served'])}" for r in records
+              if "served" in r]
+    say(f"phase 12 ladder: build_problem{LADDER_PROBLEM} (G={enc.compat.shape[0]} "
+        f"C={enc.compat.shape[1]}), {len(fleet[1])} fleet nodes: the script's sequence "
+        f"held ({', '.join(served)}; the probe site and the LP seam as expected), every "
+        f"device-served result byte-identical to a direct card solve, every host-served one "
+        f"equal to host_pack_result ({time.perf_counter() - t0:.3f}s)")
+    budget = LADDER_DEADLINE_MS / 1000
+    say(f"  walls (host clock): host rung {walls['host_s']:.6f}s; deadline case "
+        f"{walls['deadline-0']:.6f}s against its budget {budget:.3f}s + the host solve; "
+        f"compile-deadline case {walls['compile_deadline-0']:.6f}s; hedge case "
+        f"{walls['hedge-0']:.6f}s ({walls['hedge_attempts']} attempt(s)); breaker cooldown "
+        f"{walls['cooldown_ms']} ms, slept {walls['breaker_sleep_s']:.6f}s before the "
+        f"half-open probe | card: {smi}")
+
+    # the healthy path's cost on the warm first request, in turns whose
+    # order alternates (a fixed order would bias one side): the whole
+    # solve (`solve_encoded`: pack and decode) through the ladder
+    # against the same solve with the seam calling the pack directly
+    # (LADDER_WHOLE_TURNS pairs), then the pack alone, direct, through
+    # the ladder and on its watchdog thread, the order rotated each turn
+    # (median of LADDER_TURNS: the ladder's cost is tens of us against a
+    # spread of a few hundred)
+    if first_enc is None:
+        fpods, fpools = build_problem(N_PODS, N_TYPES, seed=SEED)
+        first_enc = encode(group_pods(fpods), fpools)
+    dev = torch.device("cuda")
+    resilience.reset()
+    rs = resilience.shared()
+    seam = solver_mod._solve_packing
+
+    def bypass(enc, mode, device, plan=None, shards=0):
+        return pack.solve_packing(enc, mode=mode, plan=plan, device=device, shards=shards)
+
+    def timed(fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, out
+
+    def whole(via_ladder: bool):
+        solver_mod._solve_packing = seam if via_ladder else bypass
+        try:
+            return fingerprint(solver_mod.solve_encoded(first_enc, device=dev))
+        finally:
+            solver_mod._solve_packing = seam
+
+    fps = set()
+    solves = {"bypass": [], "ladder": []}
+    ok = {"rung": "device", "outcome": "ok"}
+    seam_before = SOLVER_LADDER.value(ok)
+    whole(True)
+    seam_calls = int(SOLVER_LADDER.value(ok) - seam_before)
+    for turn in range(LADDER_WHOLE_TURNS):
+        for name in (("bypass", "ladder") if turn % 2 == 0 else ("ladder", "bypass")):
+            wall, fp = timed(lambda: whole(name == "ladder"))
+            solves[name].append(wall)
+            fps.add(fp)
+    want = pack_digest(pack.solve_packing(first_enc, device=dev))
+    packs = {"direct": [], "ladder": [], "watchdog": []}
+    order = list(packs)
+    digests = set()
+    for turn in range(LADDER_TURNS):
+        for name in order[turn % 3:] + order[: turn % 3]:
+            if name == "direct":
+                wall, out = timed(lambda: pack.solve_packing(first_enc, device=dev))
+            elif name == "ladder":
+                wall, out = timed(lambda: rs.solve_packing(first_enc, device=dev))
+            else:
+                with scoped_env({"KARPENTER_SOLVE_DEADLINE_MS": "10000"}):
+                    wall, out = timed(lambda: rs.solve_packing(first_enc, device=dev))
+            packs[name].append(wall)
+            digests.add(pack_digest(out))
+    if len(fps) != 1 or digests != {want} or resilience.pop_degraded():
+        fail("phase 12: a healthy ladder solve of the first request differs from the "
+             "direct solve or was degraded")
+
+    def line(walls: dict, base: str) -> str:
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        return "; ".join(
+            f"{k} {med[k]:.6f}"
+            + ("" if k == base else f" ({1e6 * (med[k] - med[base]):+.1f} us, "
+                                    f"{100 * (med[k] / med[base] - 1):+.2f}%)")
+            + f" [{', '.join(f'{w:.6f}' for w in walls[k])}]"
+            for k in walls)
+
+    pairs = list(zip(solves["bypass"], solves["ladder"]))
+    wins = sum(lad < byp for byp, lad in pairs)
+    first = [lad - byp for turn, (byp, lad) in enumerate(pairs) if turn % 2 == 0]
+    second = [lad - byp for turn, (byp, lad) in enumerate(pairs) if turn % 2 == 1]
+    over = statistics.median(solves["ladder"]) / statistics.median(solves["bypass"]) - 1
+    say(f"  warm 50k x 500 first request (s, host clock, in turns of alternating order), "
+        f"the whole solve (solve_encoded, {seam_calls} seam call(s) a solve), median of "
+        f"{LADDER_WHOLE_TURNS}, the seam calling the pack directly against the ladder: "
+        f"{line(solves, 'bypass')}; the ladder faster in {wins} of {len(pairs)} pairs; "
+        f"ladder - bypass, median of the pairs with bypass first "
+        f"{1e6 * statistics.median(first):+.1f} us, ladder first "
+        f"{1e6 * statistics.median(second):+.1f} us; overhead {100 * over:+.2f}% against "
+        f"the ~1% aim: {'met' if over <= 0.01 else 'missed'} | card: {smi}")
+    say(f"  the pack alone, median of {LADDER_TURNS}: pack.solve_packing direct, through "
+        f"the ladder, and with KARPENTER_SOLVE_DEADLINE_MS=10000 (the attempt on a "
+        f"watchdog thread), the order rotated each turn: {line(packs, 'direct')}; "
+        f"results byte-identical | card: {smi}")
+
+
 # the spilled launches: their source and the JAX program each replaces
 GLOBAL_KERNELS = {
     "pack_split_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:444"),
@@ -3628,6 +3831,11 @@ def main() -> None:
                             {"pack": 0.0, "pack_flat": 0.0}, smi)
         say(f"chip_smoke {DENSE}: {time.perf_counter() - T_START:.3f}s wall")
         say(json.dumps({"kernels": dense["entries"]}))
+        finish(kind, smi)
+        return
+    if LADDER in sys.argv[1:]:
+        ladder_phase(smi)
+        say(f"chip_smoke {LADDER}: {time.perf_counter() - T_START:.3f}s wall")
         finish(kind, smi)
         return
     if CATALOG in sys.argv[1:]:
@@ -3875,6 +4083,7 @@ def main() -> None:
     say(f"  main path's kernel inputs: {len(staged_cases)} distinct shapes "
         f"byte-identical to the plain versions ({time.perf_counter() - t0:.3f}s)")
 
+    served_by_device("phase 4")
     # ---- 5. timing on the warm first request's inputs
     timing = timing_phase(kernels, pack, timed, smi)
     # ---- 6. the cost objective on reserved_50k
@@ -3882,6 +4091,7 @@ def main() -> None:
     recorded = cost_phase(kernels, lp_plan, lp_device, pack, solver_mod, build_problem,
                           heterogeneous_instance_types, err, launches)
     say(f"  phase 6 took {time.perf_counter() - t0:.3f}s")
+    served_by_device("phase 6")
 
     # ---- 7. B4 and B5 timing on the cost path's recorded inputs
     xs = recorded["price_inputs"]
@@ -3905,6 +4115,7 @@ def main() -> None:
 
     # ---- 8. the consolidation probe path
     probes = probe_phase(kernels, consolidation_batch, lp_device, cuda_build, err, smi)
+    served_by_device("phase 8")
 
     # ---- 9. the dense kernel B7: the entry problem, and the dense ≡
     # split oracle at full width on what phases 4 and 6 staged
@@ -3919,6 +4130,7 @@ def main() -> None:
     }
 
     # ---- 10. B8: the config axis split over shards, on virtual meshes
+    served_by_device("phase 9")
     sharded = shard_phase({
         "pods": pods, "pools": pools, "extra": extra, "existing": existing,
         "first_fp": first_fp, "second_fp": fingerprint(sol2), "enc": enc,
@@ -3927,7 +4139,14 @@ def main() -> None:
 
     # ---- 11. aws_catalog_50k: the packing kernels past the shared-memory
     # ceiling
+    served_by_device("phase 10")
     catalog = catalog_phase(err, smi)
+    served = served_by_device("phase 11")
+    say(f"ladder: every packing solve of phases 4-11 served by the device or sharded "
+        f"rung ({json.dumps(served)} ok), none degraded, no device LP degraded")
+
+    # ---- 12. the resilience ladder on the card
+    ladder_phase(smi, enc)
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",

@@ -33,6 +33,17 @@ import threading
 import time
 from pathlib import Path
 
+
+class KernelError(RuntimeError):
+    """A kernel of this package failed to launch (a nonzero CUDA error
+    from its launch, `pack_split._raise_on`) or to build (`nvcc`
+    missing, a source that does not compile, a library that does not
+    load). The resilience ladder classifies it as `device_lost`
+    (`solver/resilience.classify`), as the JAX package classifies its
+    XLA runtime and compile errors, and raises it to the caller on a
+    CUDA device (`resilience.may_degrade`)."""
+
+
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD = HERE / "_build"
@@ -117,7 +128,7 @@ def nvcc_path() -> str:
     candidate = Path(home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _flags(name: str) -> tuple:
@@ -170,7 +181,7 @@ def build_all() -> dict[str, dict]:
             _ptxas_log(out).write_text(text)
             os.replace(tmp, out)
         if failed:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+            raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
         return BUILD_INFO
 
 
@@ -184,7 +195,10 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_target(name)))
+            try:
+                lib = ctypes.CDLL(str(_target(name)))
+            except OSError as err:
+                raise KernelError(f"{name}: the built library does not load: {err}") from err
             for fn_name, argtypes in SIGNATURES[name].items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes

@@ -23,24 +23,36 @@ lane's Solution is the one solving its subset alone gives.
 `ProbePruner` asks the lane solver's `lp_device.DualCertificate`
 whether a subset can be replaced strictly cheaper at all.
 
+The chunk dispatch is the `probe` fault site (`solver/faults.py`) and
+opens the `disruption.probe_batch` span, as in the JAX package. A
+dispatch that fails charges the device breaker
+(`resilience.shared().breaker("device")`) when its failure classifies
+as `device_lost`, `deadline` or `compile_timeout` (a host-side staging
+error does not) and `resilience.may_degrade` lets it through (on a CUDA
+device, an injected fault only: a failing kernel must not open the
+breaker and send later solves to the host), then re-raises.
+`dual_certificate` remembers a degraded LP, or a certificate that
+failed to build, as "no certificate" until the next staging; on a CUDA
+device a build failure other than an injected fault is raised.
+
 Differences from the JAX package: the lane solver takes a `device`
 (None means the card, and raises without one); the encode has no compat
-cache; there is no fault site, breaker or metrics, and errors of the
-kernels reach the caller; the counts the metrics would hold go to
-`PROBE_STATS`; `dual_certificate` does not turn errors into "no
-certificate".
+cache; the counts the JAX package's probe metrics hold go to
+`PROBE_STATS`.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import tracing
 from karpenter_tpu_torch.kube.objects import Pod
-from karpenter_tpu_torch.solver import lp_device
+from karpenter_tpu_torch.solver import faults, lp_device, resilience
 from karpenter_tpu_torch.solver import pack_split as kernels
 from karpenter_tpu_torch.solver.encode import ExistingNodeInput, encode, group_pods
 from karpenter_tpu_torch.solver.pack import (
@@ -55,6 +67,8 @@ from karpenter_tpu_torch.solver.solver import (
     _build_solution_arrays,
     resolve_device,
 )
+
+log = logging.getLogger("karpenter.solver.consolidation_batch")
 
 # what the JAX package's probe metrics count: lanes shipped, dispatches
 # (cap-regrow retries included), cap-regrow retries, and device steps
@@ -123,17 +137,28 @@ class LaneSolver:
     def dual_certificate(self):
         """The DualCertificate over the last staged union encode (B5
         runs once per staging), or None when guidance is off, nothing
-        is staged yet, or the problem is degenerate (remembered until
-        the next staging). Errors of the ascent reach the caller."""
+        is staged yet, the problem is degenerate, or the LP degraded.
+        A degraded LP, or a certificate that failed to build, is
+        remembered as False until the next staging: a search probes its
+        certificate once per candidate subset, and re-running a failing
+        LP per probe would turn the pruning fast path into repeated
+        wasted work."""
         if self._certificate is not None:
             return self._certificate or None
         if self.last_enc is None or not lp_device.enabled():
             return None
         dlp = lp_device.maybe_solve(self.last_enc, device=self.device)
         if dlp is None:
+            self._certificate = False  # degraded: don't retry this staging
+            return None
+        try:
+            self._certificate = lp_device.DualCertificate(self.last_enc, dlp)
+        except Exception as err:
+            if not resilience.may_degrade(err, self.device):
+                raise
+            log.exception("dual certificate build failed; not pruning")
             self._certificate = False
             return None
-        self._certificate = lp_device.DualCertificate(self.last_enc, dlp)
         return self._certificate
 
     def knows(self, name: str) -> bool:
@@ -302,7 +327,12 @@ class LaneSolver:
             hit = chunk_cache.get(ci)
             if hit is not None:
                 return hit
+            with tracing.span("disruption.probe_batch", chunk=ci):
+                return _dispatch_traced(ci)
+
+        def _dispatch_traced(ci: int) -> tuple:
             chunk = list(range(ci * width, min((ci + 1) * width, L)))
+            tracing.annotate(lanes=len(chunk))
             PROBE_STATS["lane"] += len(chunk)
             solo = len(chunk) == 1
             if solo:
@@ -358,31 +388,45 @@ class LaneSolver:
                 N = Ep + F_try
                 W = Cp // 32
                 PROBE_STATS["batch"] += 1
-                # the wavefront width is judged per dispatch on the
-                # group count the kernel walks: the lane's compacted
-                # groups alone, or the union for a batch
-                if solo:
-                    wf = wavefront_plan(int(gsel.size), dev)
-                    flat_t = kernels.pack_split_flat(
-                        solo_in[0], solo_in[1], solo_in[2],
-                        shared[2], shared[3], shared[4], solo_in[3],
-                        shared[6], shared[7], shared[8], solo_in[4],
-                        shared[9], max_free=F_try, mode=mode, wavefront=wf,
-                        cfg_rsv=cfg_rsv_t, rsv_cap=rsv_cap_t,
-                        conflict=conflict_c,
-                    )[None, :]
-                else:
-                    wf = wavefront_plan(G, dev)
-                    flat_t = kernels.pack_probe_lanes_flat(
-                        shared[0], shared[1], lane_in[0],
-                        shared[2], shared[3], shared[4], shared[5],
-                        shared[6], shared[7], shared[8], lane_in[1],
-                        shared[9], max_free=F_try, mode=mode, wavefront=wf,
-                        cfg_rsv=cfg_rsv_t, rsv_cap=rsv_cap_t,
-                        conflict=conflict_t,
-                    )
-                # the one device-to-host copy of the chunk
-                flat = flat_t.cpu().numpy().view(np.uint32)
+                # the device-bound probe dispatch: the fault site chaos
+                # drives (`...@probe`), with the breaker's bookkeeping
+                # so a failing card stops attracting probe batches
+                try:
+                    faults.fire("probe")
+                    # the wavefront width is judged per dispatch on the
+                    # group count the kernel walks: the lane's compacted
+                    # groups alone, or the union for a batch
+                    if solo:
+                        wf = wavefront_plan(int(gsel.size), dev)
+                        flat_t = kernels.pack_split_flat(
+                            solo_in[0], solo_in[1], solo_in[2],
+                            shared[2], shared[3], shared[4], solo_in[3],
+                            shared[6], shared[7], shared[8], solo_in[4],
+                            shared[9], max_free=F_try, mode=mode, wavefront=wf,
+                            cfg_rsv=cfg_rsv_t, rsv_cap=rsv_cap_t,
+                            conflict=conflict_c,
+                        )[None, :]
+                    else:
+                        wf = wavefront_plan(G, dev)
+                        flat_t = kernels.pack_probe_lanes_flat(
+                            shared[0], shared[1], lane_in[0],
+                            shared[2], shared[3], shared[4], shared[5],
+                            shared[6], shared[7], shared[8], lane_in[1],
+                            shared[9], max_free=F_try, mode=mode, wavefront=wf,
+                            cfg_rsv=cfg_rsv_t, rsv_cap=rsv_cap_t,
+                            conflict=conflict_t,
+                        )
+                    # the one device-to-host copy of the chunk
+                    flat = flat_t.cpu().numpy().view(np.uint32)
+                except Exception as err:
+                    # only device-class failures charge the breaker: a
+                    # host-side staging error (deterministic) must not
+                    # open it and exile every solve to the host oracle
+                    reason = resilience.classify(err)
+                    if reason in ("device_lost", "deadline", "compile_timeout") \
+                            and resilience.may_degrade(err, dev):
+                        resilience.shared().breaker("device").record_failure(reason)
+                    raise
                 o1 = N * Gp_used + F_try * W
                 # a capped lane's truncated answer is never served: the
                 # chunk regrows the fresh axis and dispatches again

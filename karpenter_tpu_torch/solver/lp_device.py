@@ -27,16 +27,21 @@ KARPENTER_LP_PRIORITY_WEIGHT (priority fold strength, default 0.25),
 KARPENTER_LP_SHARDS (the split ascent's shard count, default 0: B8's
 split B5, `ascend_sharded`, when that many devices are visible).
 
-Unlike the JAX package, whose `maybe_solve` degrades any failure to the
-unguided path, this port's `maybe_solve` returns None only when
-guidance is off or the problem is degenerate: a kernel that fails to
-build or launch, and any CUDA error, propagate to the caller, so a
-fault on the card cannot hide behind an unguided result.
+`maybe_solve` degrades a failure of the solve to the unguided path,
+as the JAX package's does: it returns None and counts
+karpenter_solver_lp_total{outcome="degraded"}, so a failing LP never
+blocks a solve and never fails without a count (the packing solves
+underneath ride the resilience ladder). On a CUDA device it degrades
+only what the ladder degrades there (`resilience.may_degrade`: an
+injected fault, a deadline); a kernel that fails to build or launch,
+and any other error on the card, reach the caller. `solve` itself lets
+every error through.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import threading
 import time
@@ -46,7 +51,13 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.solver.encode import Encoded
+from karpenter_tpu_torch.metrics.store import SOLVER_LP_SOLVES
 from karpenter_tpu_torch.solver.lp_plan import _fma_f32, _pad_to, priority_weights
+# one copy of the env parsing, the resilience module's (as in the JAX
+# package)
+from karpenter_tpu_torch.solver.resilience import _env_int, may_degrade
+
+log = logging.getLogger("karpenter.solver.lp")
 
 _EPS = 1e-12
 
@@ -58,16 +69,6 @@ LAUNCHES = {"lp_ascend": 0, "lp_ascend_global": 0, "lp_ascend_sharded": 0,
 # wrapper -> the placement of its last launch: shared-memory bytes,
 # global-scratch bytes, and the arrays placed in global memory
 ASCENT_SMEM: dict[str, str] = {}
-
-
-def _env_int(name: str, default: int) -> int:
-    raw = os.environ.get(name, "")
-    if not raw:
-        return default
-    try:
-        return int(raw)
-    except ValueError:
-        return default
 
 
 def _env_float(name: str, default: float) -> float:
@@ -1028,15 +1029,23 @@ def solve(enc: Encoded, device: torch.device | str = "cuda", shards: int = 0) ->
 
 
 def maybe_solve(enc: Encoded, device: torch.device | str = "cuda", shards: int = 0):
-    """None when guidance is disabled or the problem is degenerate (no
-    groups, no launchable column); otherwise `solve`. Errors of the
-    kernel and of the card propagate (the JAX package degrades them to
-    None instead; see the module docstring)."""
+    """The degrading entry: None when guidance is disabled, the problem
+    is degenerate (no groups, no launchable column), or the solve failed
+    in a way `resilience.may_degrade` lets through (counted as
+    karpenter_solver_lp_total{outcome="degraded"} and logged); callers
+    then run the unguided path. Other failures are raised."""
     if not enabled():
         return None
     if enc.compat.shape[0] == 0 or not (enc.cfg_pool >= 0).any():
         return None
-    return solve(enc, device=device, shards=shards)
+    try:
+        return solve(enc, device=device, shards=shards)
+    except Exception as err:
+        if not may_degrade(err, device):
+            raise
+        SOLVER_LP_SOLVES.inc({"outcome": "degraded"})
+        log.warning("device LP degraded to unguided path: %s", err)
+        return None
 
 
 def rank_prices(enc: Encoded, dlp: DeviceLP,

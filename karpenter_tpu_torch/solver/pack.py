@@ -43,6 +43,7 @@ import torch
 
 from karpenter_tpu_torch.solver.encode import Encoded
 from karpenter_tpu_torch.solver.pack_dense import pack, pack_flat  # noqa: F401
+from karpenter_tpu_torch.solver import faults, resilience
 from karpenter_tpu_torch.solver import stream as stream_mod
 from karpenter_tpu_torch.solver.pack_shard import pack_split_flat_sharded
 from karpenter_tpu_torch.solver.pack_split import pack_split_flat
@@ -629,7 +630,15 @@ def _run_pack(
     """One kernel attempt: stage, launch, and decode the flat buffer
     into a PackResult. With `shards > 1` the config axis is split over
     `_mesh(shards)` and the split kernels run (streaming staging unless
-    KARPENTER_STREAM_ENCODE=0); the flat buffer is the same."""
+    KARPENTER_STREAM_ENCODE=0); the flat buffer is the same.
+
+    The fault sites sit where the JAX package's do, once per kernel
+    attempt so that occurrence numbers match: `solve` on entry,
+    `compile` after staging and before the launch, `execute` before the
+    one device-to-host copy; `resilience.note_dispatched()` releases the
+    watchdog's compile budget once the launch has returned (the kernel
+    libraries loaded or built, the kernels queued)."""
+    faults.fire("solve")
     G, C = enc.compat.shape
     # judged on the real group count: padding groups carry no demand
     # and are committed before the first round
@@ -640,15 +649,14 @@ def _run_pack(
         staged = stage(enc, existing_mask, existing_used, max_nodes, quota,
                        shards=shards, config_axis=not stream_on)
         args, kwargs = to_mesh(staged, enc, mesh, stream_on)
-        flat_dev = pack_split_flat_sharded(
-            *args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs
-        )
+        launch = pack_split_flat_sharded
     else:
         staged = stage(enc, existing_mask, existing_used, max_nodes, quota)
         args, kwargs = to_device(staged, device)
-        flat_dev = pack_split_flat(
-            *args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs
-        )
+        launch = pack_split_flat
+    faults.fire("compile")
+    flat_dev = launch(*args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs)
+    resilience.note_dispatched()
     R = enc.group_req.shape[1]
     N, Gp, Ep, F = staged.N, staged.Gp, staged.Ep, staged.max_free
     W = staged.Cp // 32
@@ -656,6 +664,7 @@ def _run_pack(
     pool_overhead_h = enc.pool_overhead
 
     # the one device-to-host copy; the buffer holds uint32 words
+    faults.fire("execute")
     flat = flat_dev.cpu().numpy().view(np.uint32)
     o0 = N * Gp
     o1 = o0 + F * W

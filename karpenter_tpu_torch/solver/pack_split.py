@@ -61,6 +61,8 @@ import ctypes
 
 import torch
 
+from karpenter_tpu_torch.cuda_build import KernelError
+
 BIG = 3.4e38
 INT_BIG = 2**31 - 1
 # per-node capacity ceiling: fits int32 exactly; every capacity is
@@ -1004,8 +1006,10 @@ def _stream_of(dev) -> int:
 
 
 def _raise_on(err: int, what: str) -> None:
+    """The launch check every wrapper calls: a nonzero CUDA error code
+    raises `KernelError`."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise KernelError(f"{what}: CUDA error {err} at launch")
 
 
 def _count(what: str, lay: dict, launches: dict | None = None) -> None:

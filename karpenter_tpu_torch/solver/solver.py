@@ -10,9 +10,18 @@ column-generation plan (`solver/lp_plan.py`, kernel B4) and, with dual
 guidance, ranked by the device LP's duals (`solver/lp_device.py`,
 kernel B5), then improves the cheapest fleet.
 
+Every packing solve goes through the resilience ladder
+(`solver/resilience.py`): the sharded and single-device kernels under
+circuit breakers and the optional deadlines, then the host FFD oracle,
+each degradation reported (`resilience.pop_degraded`, the ladder's
+counters and spans). `backend="host"` (or KARPENTER_SOLVER_BACKEND=host)
+asks for the host oracle alone.
+
 Entry points run on the card unless the caller asks for the CPU
-(`device="cpu"`, which runs the kernels' plain versions). With no CUDA
-device, `device=None` raises: there is no silent CPU fallback.
+(`device="cpu"`, which runs the kernels' plain versions) or for the host
+backend. With no CUDA device, `device=None` raises: there is no silent
+CPU fallback, and the ladder's host rung never stands in for a missing
+card.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch
 from karpenter_tpu_torch.apis.v1.nodepool import NodePool
 from karpenter_tpu_torch.cloudprovider.types import InstanceType, Offering
 from karpenter_tpu_torch.kube.objects import Pod
-from karpenter_tpu_torch.solver import lp_device, lp_plan, pack
+from karpenter_tpu_torch.solver import lp_device, lp_plan, pack, resilience
 from karpenter_tpu_torch.solver.encode import (
     Encoded,
     ExistingNodeInput,
@@ -136,16 +145,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def _check_supported(objective: str, backend: Optional[str]) -> None:
+def _backend() -> str:
+    """KARPENTER_SOLVER_BACKEND as the JAX package reads it: `host`
+    selects the host oracle; `jax`, `device` or unset mean the card."""
+    return os.environ.get("KARPENTER_SOLVER_BACKEND", "jax")
+
+
+def _check_supported(objective: str, backend: Optional[str]) -> str:
+    """The backend the solve runs on, "host" or "device"."""
     if objective not in ("ffd", "cost"):
         raise ValueError(f"unknown objective {objective!r}")
-    if backend == "host":
-        raise NotImplementedError(
-            "backend='host' is not ported yet (ROADMAP.md queue A, item "
-            "'resilience': the host reference_ffd rung)"
-        )
-    if backend not in (None, "device"):
+    backend = backend or _backend()
+    if backend not in ("host", "device", "jax"):
         raise ValueError(f"unknown backend {backend!r}")
+    return "host" if backend == "host" else "device"
 
 
 def solve(
@@ -159,12 +172,14 @@ def solve(
     shards: int = 0,
 ) -> Solution:
     """Pack `pods` onto `existing` nodes and new nodes from the pools.
-    `device=None` runs on the card (and raises without one)."""
-    _check_supported(objective, backend)
-    dev = resolve_device(device)
+    `device=None` runs on the card (and raises without one); the host
+    backend runs no device."""
+    if _check_supported(objective, backend) == "device":
+        device = resolve_device(device)
     groups = group_pods(pods)
     enc = encode(groups, pools_with_types, existing, daemon_overhead)
-    return solve_encoded(enc, objective=objective, device=dev, shards=shards)
+    return solve_encoded(enc, objective=objective, device=device,
+                         backend=backend, shards=shards)
 
 
 def solve_encoded(
@@ -178,9 +193,12 @@ def solve_encoded(
     config axis over a mesh of that many shards (`pack.solve_packing`);
     the result is identical to the unsharded solve's. The device LP
     stays unsharded unless KARPENTER_LP_SHARDS is set, so the race's
-    arms see the same duals at any shard count."""
-    _check_supported(objective, backend)
-    dev = resolve_device(device)
+    arms see the same duals at any shard count. The host backend
+    (`backend="host"` or KARPENTER_SOLVER_BACKEND=host) decodes the
+    host FFD oracle and ignores `objective`, `device`, `price_hint` and
+    `shards`, as the JAX package's does."""
+    host = _check_supported(objective, backend) == "host"
+    dev = None if host else resolve_device(device)
     G, C = enc.compat.shape
     if G == 0 or C == 0:
         return Solution(
@@ -188,15 +206,24 @@ def solve_encoded(
             existing=[],
             unschedulable=[p for g in enc.groups for p in g.pods],
         )
+    if host:
+        return _decode_host(enc)
     return _decode_device(enc, objective, dev, price_hint=price_hint, shards=shards)
 
 
 def _solve_packing(enc: Encoded, mode: str, device: torch.device,
                    plan=None, shards: int = 0) -> pack.PackResult:
-    """The solver seam. In this package it runs the device pack
-    directly; the resilience ladder around it is a later port."""
-    return pack.solve_packing(enc, mode=mode, plan=plan, device=device,
-                              shards=shards)
+    """The solver seam, routed through the resilience ladder
+    (`resilience.shared().solve_packing`): the sharded and single-device
+    kernels under their circuit breakers and the optional deadlines and
+    hedge, then the host FFD oracle. A rung other than the first that
+    serves a call is reported as degraded; on a CUDA device only an
+    injected fault or a deadline degrades, any other failure is raised
+    (`resilience.may_degrade`).
+    Everything stacked on this seam (the cost race's arms, the split
+    solves) inherits the ladder."""
+    return resilience.shared().solve_packing(
+        enc, mode=mode, plan=plan, shards=shards, device=device)
 
 
 def _decode_device(
@@ -832,6 +859,15 @@ def _downsize_masks(enc: Encoded, result) -> np.ndarray:
             # only configs smaller than its actual usage
             masks[ni] = wide | row
     return masks
+
+
+def _decode_host(enc: Encoded) -> Solution:
+    """The host backend: the ladder's host rung (`resilience.
+    host_pack_result`, the FFD oracle `reference_ffd.solve_ffd_host`)
+    decoded like a device result, so the two never drift apart."""
+    res = resilience.host_pack_result(enc)
+    return _build_solution_arrays(enc, np.arange(res.node_count), res.node_mask,
+                                  res.assign, res.unschedulable)
 
 
 def _node_options(enc: Encoded, mask: np.ndarray):

@@ -35,6 +35,12 @@ per probe) or arm (c) (every prefix a lane of one
 `LaneSolver.solve_lazy`); `summarize` is the order-insensitive identity
 of a probe's Solution; `Candidate` stands in for the disruption
 engine's candidates where `ProbePruner` reads them.
+
+For the resilience ladder: `ladder_script` runs its fixed sequence of
+solves, faults and seam checks through a `LadderPackage` (this
+package's on a device; the tests subclass it for the JAX package), and
+`ladder_mismatches` holds the result to the expected sequence; the CPU
+tests and `chip_smoke.py` phase 12 run the same script.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from karpenter_tpu_torch.apis.v1.labels import (
 from karpenter_tpu_torch.scheduling.requirements import Requirements
 from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
 from karpenter_tpu_torch.solver import lp_device, pack
+from karpenter_tpu_torch.solver.resilience import STATE_CLOSED, STATE_OPEN
 from karpenter_tpu_torch.solver.encode import ExistingNodeInput, encode, group_pods
 from karpenter_tpu_torch.utils.resources import merge, pod_requests, subtract
 from karpenter_tpu_torch.workloads import build_problem, node_input
@@ -1073,3 +1080,462 @@ def cut_groups(case, G: int):
     if isinstance(case, LaneCase):
         return LaneCase(f"{case.name}-G{G}", tuple(args), kw, case.max_free, case.n_lanes)
     return KernelCase(f"{case.name}-G{G}", tuple(args), kw, case.max_free, case.mode)
+
+
+# ---------------------------------------------------------------- ladder
+
+# every knob the resilience ladder, the fault injector and the device LP
+# read; `ladder_script` unsets them all before it sets its own
+LADDER_KNOBS = (
+    "KARPENTER_FAULTS", "KARPENTER_FAULT_SEED", "KARPENTER_BREAKER_THRESHOLD",
+    "KARPENTER_BREAKER_COOLDOWN_MS", "KARPENTER_BREAKER_MAX_COOLDOWN_MS",
+    "KARPENTER_SOLVE_DEADLINE_MS", "KARPENTER_COMPILE_DEADLINE_MS",
+    "KARPENTER_SOLVE_HEDGE_MS", "KARPENTER_SOLVER_SHARDS", "KARPENTER_SOLVE_LADDER",
+    "KARPENTER_SOLVER_ENDPOINT", "KARPENTER_REWARM_ON_CLOSE", "KARPENTER_SOLVER_BACKEND",
+    "KARPENTER_LP_GUIDE", "KARPENTER_LP_SHARDS",
+)
+# the injected stall of the deadline and hedge stages, and their budgets
+LADDER_DELAY = "1s"
+LADDER_DEADLINE_MS = 300
+LADDER_COMPILE_DEADLINE_MS = 200
+LADDER_HEDGE_MS = 50
+# the lane sets of the probe stage: the fleet's first nodes removed
+LADDER_LANES = ((0,), (0, 1), (0, 1, 2))
+
+
+@contextlib.contextmanager
+def scoped_env(values: dict):
+    """Within the block, each `values` key is set (None: unset); every
+    one is restored after."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pack_digest(res) -> str:
+    """Identity of a PackResult's used rows (node count, assignment,
+    masks, usage, live rows, unschedulable counts), dtype-normalized so
+    the JAX package's results and this package's compare."""
+    import hashlib
+
+    n = int(res.node_count)
+    h = hashlib.sha256(str(n).encode())
+    for arr, dt in ((res.assign[:n], np.int32), (res.node_mask[:n], np.bool_),
+                    (res.node_used[:n], np.float64), (res.node_active[:n], np.bool_),
+                    (res.unschedulable, np.int32)):
+        h.update(np.ascontiguousarray(np.asarray(arr), dtype=dt).tobytes())
+    return h.hexdigest()
+
+
+def ladder_fleet(pods, pools, device, keep: float = 0.5):
+    """A fleet for the ladder's probe stage: the nodes of `pods`' FFD
+    solve on `device` as existing nodes that kept the first `keep` share
+    of their pods. Returns (pools, existing inputs, kept pods per node)."""
+    from karpenter_tpu_torch.solver.solver import solve
+
+    sol = solve(pods, pools, device=device)
+    inputs = existing_from_solution(sol, keep=keep)
+    pods_on = [plan.pods[: int(round(len(plan.pods) * keep))] for plan in sol.new_nodes]
+    return pools, inputs, pods_on
+
+
+class LadderPackage:
+    """One package's side of `ladder_script`: its resilience, faults and
+    metrics modules, the encoded problem and the fleet of the probe
+    stage, and the calls whose signatures differ between the packages.
+    This class is this package's side on `device`; a test subclasses it
+    for the JAX package. `fleet` is (pools, existing inputs, kept pods
+    per node), as `ladder_fleet` makes it."""
+
+    def __init__(self, enc, fleet, device="cpu"):
+        import torch
+
+        from karpenter_tpu_torch.metrics import store
+        from karpenter_tpu_torch.solver import consolidation_batch, faults, resilience
+        from karpenter_tpu_torch.solver import solver as solver_mod
+
+        self.enc, self.fleet = enc, fleet
+        self.device = torch.device(device)
+        self.resilience, self.faults, self.store = resilience, faults, store
+        self.solver, self.lp_device, self.lanes = solver_mod, lp_device, consolidation_batch
+
+    def solve(self):
+        return self.resilience.shared().solve_packing(self.enc, mode="ffd", device=self.device)
+
+    def direct(self):
+        return pack.solve_packing(self.enc, mode="ffd", device=self.device, shards=1)
+
+    def host(self):
+        return self.resilience.host_pack_result(self.enc)
+
+    @contextlib.contextmanager
+    def mesh(self, n: int):
+        from karpenter_tpu_torch.utils.platform import force_virtual_mesh, virtual_mesh
+
+        before = virtual_mesh()
+        force_virtual_mesh(n)
+        try:
+            yield
+        finally:
+            force_virtual_mesh(before)
+
+    def lane_solver(self):
+        pools, inputs, pods_on = self.fleet
+        lanes = [self.lanes.ProbeLane(exclude_names=tuple(inputs[i].name for i in s),
+                                      pods=[p for i in s for p in pods_on[i]])
+                 for s in LADDER_LANES]
+        return self.lanes.LaneSolver(pools, inputs, device=self.device), lanes
+
+    @contextlib.contextmanager
+    def broken_lp(self):
+        """The device LP's solve fails within the block: on the CPU its
+        `solve` raises; on the card its kernel wrapper raises a lost
+        device, after the LP has staged its inputs there."""
+        name = "ascend" if self.device.type == "cuda" else "solve"
+        real = getattr(self.lp_device, name)
+
+        def lost(*args, **kwargs):
+            raise self.faults.DeviceLostError(f"lp_device.{name}: injected lost device")
+
+        setattr(self.lp_device, name, lost)
+        try:
+            yield
+        finally:
+            setattr(self.lp_device, name, real)
+
+    def maybe_lp(self):
+        return self.lp_device.maybe_solve(self.enc, device=self.device)
+
+    def cost(self):
+        from karpenter_tpu_torch.solver.solver import fingerprint
+
+        return fingerprint(self.solver.solve_encoded(self.enc, objective="cost",
+                                                     device=self.device))
+
+    def cost_without_lp(self):
+        """The cost solve when the device LP gives no duals: the path a
+        degraded LP serves (KARPENTER_LP_GUIDE=0 differs: it also turns
+        off the plan-guided trim)."""
+        real = self.lp_device.maybe_solve
+        self.lp_device.maybe_solve = lambda *a, **k: None
+        try:
+            return self.cost()
+        finally:
+            self.lp_device.maybe_solve = real
+
+    def reset_caches(self):
+        self.solver.reset_caches()
+
+
+def _deltas(counter, before: dict) -> dict:
+    out = {}
+    for labels, value in counter.samples():
+        d = value - before.get(labels, 0.0)
+        if d:
+            out[",".join(f"{k}={v}" for k, v in labels)] = int(d)
+    return out
+
+
+def ladder_script(pkg: LadderPackage, env: Optional[dict] = None,
+                  cooldown_ms: Optional[int] = None) -> tuple[list, dict]:
+    """The resilience ladder's fixed script, the same in the CPU tests
+    (through both packages) and on the card. Returns (records, walls):
+    per solve or seam check a record of deterministic fields (the rung
+    that served it, `pop_degraded()`, the deltas of the ladder, hedge,
+    deadline, breaker-transition and LP counters, the device breaker's
+    state before and after, the fault log, the PackResult's digest and
+    whether it equals the direct device solve and the host oracle's), and
+    the host-clock walls, which are not.
+
+    1. healthy: three solves, each served by the device rung.
+    2. a lost device and the breaker (device_lost@solve:2-3, threshold
+       2): device, host, host (the breaker opens), skipped_open then
+       host, a sleep past the cooldown, half-open then device (closes),
+       device. The cooldown is `cooldown_ms`, by default 200 ms or six
+       host solves, whichever is longer, so the fourth solve finds the
+       breaker still cooling down whatever the host oracle costs here.
+    3. deadlines: an execute stall past KARPENTER_SOLVE_DEADLINE_MS
+       (`deadline`), then a compile stall past
+       KARPENTER_COMPILE_DEADLINE_MS (`compile_timeout`), each served by
+       the host.
+    4. the hedge: the execute stall with the hedge timer set; the hedge
+       fires and its host answer is served (`win`). Up to three
+       attempts: the timer thread can be scheduled late on a loaded
+       host.
+    5. sharded: KARPENTER_SOLVER_SHARDS=4 on a mesh of 4 and
+       device_lost@solve:1: the sharded rung fails, the device rung
+       serves, reported degraded.
+    6. the probe path: device_lost@probe:1 on a LaneSolver dispatch
+       raises DeviceLostError and charges the device breaker one
+       failure; the next consult dispatches and decodes.
+    7. the LP: with the LP's solve failing, `maybe_solve` is None and
+       counts `degraded`, the cost solve equals the one without the LP,
+       and `dual_certificate` does not run the LP again until the lane
+       solver stages again (then, with the LP healthy, it certifies).
+
+    Abandoned watchdog attempts are drained at the end of each stage, so
+    no stalled attempt fires a fault site under the next stage's spec."""
+    res, flt, store = pkg.resilience, pkg.faults, pkg.store
+    counters = {"ladder": store.SOLVER_LADDER, "hedge": store.SOLVER_HEDGE,
+                "deadline": store.SOLVER_DEADLINE_EXCEEDED,
+                "transitions": store.SOLVER_BREAKER_TRANSITIONS,
+                "lp": store.SOLVER_LP_SOLVES}
+    records: list[dict] = []
+    walls: dict = {}
+
+    def fresh():
+        res._drain_watchdogs()
+        res.reset()
+        flt.reset()
+        res.pop_degraded()
+
+    def log():
+        inj = flt.get()
+        return [list(e) for e in inj.snapshot_log()] if inj is not None else []
+
+    def state(name="device"):
+        return res.shared().breaker(name).state
+
+    def snap():
+        return {k: dict(c.samples()) for k, c in counters.items()}
+
+    def deltas(before):
+        return {k: _deltas(c, before[k]) for k, c in counters.items()}
+
+    def run(stage: str, step: int) -> dict:
+        before, br0 = snap(), state()
+        t0 = time.perf_counter()
+        out = pkg.solve()
+        wall = time.perf_counter() - t0
+        d = deltas(before)
+        served = sorted(k.split("rung=")[1] for k, v in d["ladder"].items()
+                        if k.startswith("outcome=ok,"))
+        digest = pack_digest(out)
+        rec = {"stage": stage, "step": step, "served": served,
+               "degraded": res.pop_degraded(), **d, "breaker": [br0, state()],
+               "faults": log(), "pack": digest,
+               "equals": {"direct": digest == ref["direct"], "host": digest == ref["host"]}}
+        records.append(rec)
+        walls[f"{stage}-{step}"] = wall
+        return rec
+
+    clean = {k: None for k in LADDER_KNOBS}
+    with scoped_env({**clean, **(env or {})}):
+        fresh()
+        ref = {"direct": pack_digest(pkg.direct())}
+        t0 = time.perf_counter()
+        ref["host"] = pack_digest(pkg.host())
+        walls["host_s"] = host_s = time.perf_counter() - t0
+        cooldown = cooldown_ms or max(200, int(6000 * host_s) + 1)
+        walls["cooldown_ms"] = cooldown
+
+        # 1. healthy
+        for i in range(3):
+            run("healthy", i)
+
+        # 2. a lost device and the breaker
+        with scoped_env({"KARPENTER_FAULTS": "device_lost@solve:2-3",
+                         "KARPENTER_BREAKER_THRESHOLD": "2",
+                         "KARPENTER_BREAKER_COOLDOWN_MS": str(cooldown)}):
+            fresh()
+            for i in range(6):
+                if i == 4:
+                    t0 = time.perf_counter()
+                    while res.shared().breaker("device").is_open():
+                        time.sleep(0.005)
+                    walls["breaker_sleep_s"] = time.perf_counter() - t0
+                run("breaker", i)
+
+        # 3. deadlines
+        for stage, knobs in (
+            ("deadline", {"KARPENTER_FAULTS": f"exec_delay@execute:1={LADDER_DELAY}",
+                          "KARPENTER_SOLVE_DEADLINE_MS": str(LADDER_DEADLINE_MS)}),
+            ("compile_deadline", {"KARPENTER_FAULTS": f"compile_delay@compile:1={LADDER_DELAY}",
+                                  "KARPENTER_COMPILE_DEADLINE_MS": str(LADDER_COMPILE_DEADLINE_MS)}),
+        ):
+            with scoped_env(knobs):
+                fresh()
+                rec = run(stage, 0)
+                res._drain_watchdogs()
+                rec["faults"] = log()
+
+        # 4. the hedge
+        with scoped_env({"KARPENTER_FAULTS": f"exec_delay@execute:1={LADDER_DELAY}",
+                         "KARPENTER_SOLVE_DEADLINE_MS": str(LADDER_DEADLINE_MS),
+                         "KARPENTER_SOLVE_HEDGE_MS": str(LADDER_HEDGE_MS)}):
+            for attempt in range(3):
+                if attempt:
+                    records.pop()
+                fresh()
+                rec = run("hedge", 0)
+                res._drain_watchdogs()
+                rec["faults"] = log()
+                walls["hedge_attempts"] = attempt + 1
+                if rec["hedge"].get("outcome=win") == 1:
+                    break
+
+        # 5. sharded
+        with pkg.mesh(4), scoped_env({"KARPENTER_SOLVER_SHARDS": "4",
+                                      "KARPENTER_FAULTS": "device_lost@solve:1"}):
+            fresh()
+            rec = run("sharded", 0)
+            rec["breaker_sharded"] = state("sharded")
+
+        # 6. the probe path
+        with scoped_env({"KARPENTER_FAULTS": "device_lost@probe:1"}):
+            fresh()
+            ls, lanes = pkg.lane_solver()
+            thunks = ls.solve_lazy(lanes)
+            try:
+                thunks[0]()
+                raised = None
+            except Exception as err:  # noqa: BLE001 — the record names it
+                raised = type(err).__name__
+            br = res.shared().breaker("device")
+            rec = {"stage": "probe", "step": 0, "raised": raised,
+                   "failures": br._failures, "breaker": br.state,
+                   "faults": log()}
+            sol = thunks[0]()
+            rec["then"] = {"faults": log(), "decoded": sol is not None,
+                           "failures": br._failures}
+            records.append(rec)
+
+        # 7. the LP
+        fresh()
+        pkg.reset_caches()
+        lp = counters["lp"]
+        deg = {"outcome": "degraded"}
+        with root_node_mips():
+            rec = {"stage": "lp", "step": 0}
+            with pkg.broken_lp():
+                before = lp.value(deg)
+                rec["maybe_solve"] = pkg.maybe_lp() is not None
+                rec["maybe_degraded"] = int(lp.value(deg) - before)
+                before = lp.value(deg)
+                cost = pkg.cost()
+                rec["cost_degraded"] = int(lp.value(deg) - before)
+                certs = []
+                for _ in range(2):
+                    before = lp.value(deg)
+                    certs.append([ls.dual_certificate() is not None,
+                                  int(lp.value(deg) - before)])
+                rec["certificate"] = certs
+            pkg.reset_caches()
+            rec["cost_equals_without_lp"] = cost == pkg.cost_without_lp()
+            ls.solve_lazy(lanes)
+            rec["certificate_after_staging"] = ls.dual_certificate() is not None
+            records.append(rec)
+        fresh()
+    return records, walls
+
+
+def _ok(rung: str) -> str:
+    return f"outcome=ok,rung={rung}"
+
+
+def _fail(rung: str, outcome: str) -> str:
+    return f"outcome={outcome},rung={rung}"
+
+
+
+# per stage and step: (served rung, degraded report, ladder deltas,
+# device breaker state after, the result it must equal)
+LADDER_EXPECTED = {
+    ("healthy", 0): (["device"], [], {_ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("healthy", 1): (["device"], [], {_ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("healthy", 2): (["device"], [], {_ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("breaker", 0): (["device"], [], {_ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("breaker", 1): (["host"], ["host"], {_fail("device", "device_lost"): 1, _ok("host"): 1},
+                     STATE_CLOSED, "host"),
+    ("breaker", 2): (["host"], ["host"], {_fail("device", "device_lost"): 1, _ok("host"): 1},
+                     STATE_OPEN, "host"),
+    ("breaker", 3): (["host"], ["host"], {_fail("device", "skipped_open"): 1, _ok("host"): 1},
+                     STATE_OPEN, "host"),
+    ("breaker", 4): (["device"], [], {_ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("breaker", 5): (["device"], [], {_ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("deadline", 0): (["host"], ["host"], {_fail("device", "deadline"): 1, _ok("host"): 1},
+                      STATE_CLOSED, "host"),
+    ("compile_deadline", 0): (["host"], ["host"],
+                              {_fail("device", "compile_timeout"): 1, _ok("host"): 1},
+                              STATE_CLOSED, "host"),
+    ("hedge", 0): (["host"], ["host"], {_fail("device", "deadline"): 1, _ok("host"): 1},
+                   STATE_CLOSED, "host"),
+    ("sharded", 0): (["device"], ["device"],
+                     {_fail("sharded", "device_lost"): 1, _ok("device"): 1}, STATE_CLOSED, "direct"),
+}
+LADDER_FAULTS = {
+    "breaker": [["solve", 2, "device_lost"], ["solve", 3, "device_lost"]],
+    "deadline": [["execute", 1, "exec_delay"]],
+    "compile_deadline": [["compile", 1, "compile_delay"]],
+    "hedge": [["execute", 1, "exec_delay"]],
+    "sharded": [["solve", 1, "device_lost"]],
+}
+
+
+def ladder_mismatches(records: list, walls: dict) -> list[str]:
+    """What in `ladder_script`'s output differs from the script's
+    expected sequence (its docstring); empty when all holds."""
+    bad = []
+    solves = {(r["stage"], r["step"]): r for r in records if "served" in r}
+    if sorted(solves) != sorted(LADDER_EXPECTED):
+        bad.append(f"stages run {sorted(solves)}")
+    for key, (served, degraded, ladder, after, same) in LADDER_EXPECTED.items():
+        r = solves.get(key)
+        if r is None:
+            continue
+        got = (r["served"], r["degraded"], r["ladder"], r["breaker"][1], r["equals"][same])
+        if got != (served, degraded, ladder, after, True):
+            bad.append(f"{key}: served, degraded, ladder, breaker after, equal to {same} "
+                       f"= {got}; expected {(served, degraded, ladder, after, True)}")
+    for stage, want in LADDER_FAULTS.items():
+        last = max((r for k, r in solves.items() if k[0] == stage), key=lambda r: r["step"],
+                   default=None)
+        if last is not None and last["faults"] != want:
+            bad.append(f"{stage}: fault log {last['faults']}, expected {want}")
+    br = [solves.get(("breaker", i), {}).get("breaker") for i in range(6)]
+    if br[3] is not None and br[3][0] != STATE_OPEN:
+        bad.append(f"breaker: the fourth solve found the breaker {br[3][0]}, not open")
+    if br[4] is not None and (br[4][0] != STATE_OPEN or solves[("breaker", 4)]["transitions"] != {
+            "backend=device,to=half_open": 1, "backend=device,to=closed": 1}):
+        bad.append(f"breaker: the fifth solve did not half-open and close it: {br[4]}, "
+                   f"{solves[('breaker', 4)]['transitions']}")
+    for stage, phase in (("deadline", "execute"), ("compile_deadline", "compile"),
+                         ("hedge", "execute")):
+        r = solves.get((stage, 0))
+        if r is not None and r["deadline"] != {f"phase={phase}": 1}:
+            bad.append(f"{stage}: deadline counts {r['deadline']}")
+    r = solves.get(("hedge", 0))
+    if r is not None and r["hedge"] != {"outcome=fired": 1, "outcome=win": 1}:
+        bad.append(f"hedge: counts {r['hedge']} in {walls.get('hedge_attempts')} attempts")
+    for stage in ("deadline", "hedge"):
+        wall = walls.get(f"{stage}-0")
+        budget = LADDER_DEADLINE_MS / 1000 + 2 * walls.get("host_s", 0.0) + 0.5
+        if wall is not None and wall >= budget:
+            bad.append(f"{stage}: {wall:.3f}s, past the deadline plus two host solves "
+                       f"({budget:.3f}s)")
+    probe = next((r for r in records if r["stage"] == "probe"), None)
+    want = {"raised": "DeviceLostError", "failures": 1, "breaker": STATE_CLOSED,
+            "faults": [["probe", 1, "device_lost"]],
+            "then": {"faults": [["probe", 1, "device_lost"]], "decoded": True, "failures": 1}}
+    if probe is None or {k: probe.get(k) for k in want} != want:
+        bad.append(f"probe: {probe}")
+    lp = next((r for r in records if r["stage"] == "lp"), None)
+    want = {"maybe_solve": False, "maybe_degraded": 1, "cost_degraded": 1,
+            "certificate": [[False, 1], [False, 0]], "cost_equals_without_lp": True,
+            "certificate_after_staging": True}
+    if lp is None or {k: lp.get(k) for k in want} != want:
+        bad.append(f"lp: {lp}")
+    return bad

@@ -40,6 +40,7 @@ from karpenter_tpu.solver import lp_plan as jlp_plan
 from karpenter_tpu.solver import pack as jpack
 from karpenter_tpu.solver import solver as jsolver
 from karpenter_tpu.solver.encode import encode as jencode, group_pods as jgroup_pods
+from karpenter_tpu_torch.metrics.store import SOLVER_LP_SOLVES
 from karpenter_tpu_torch.solver import lp_device, lp_plan, pack, solver
 from karpenter_tpu_torch.solver.encode import encode, group_pods
 from karpenter_tpu_torch.solver.solver import fingerprint
@@ -193,10 +194,23 @@ class TestNoFallback:
         monkeypatch.setattr(lp_device, "ascend", broken)
         pods, pools = build_problem(60, 8, seed=0)
         enc = encode(group_pods(pods), pools)
+        # the ascent's error reaches `solve`'s caller; `maybe_solve`
+        # degrades it to the unguided path, as the JAX package's does
+        # (ROADMAP C3, closed), and counts it, so it never passes silently
         with pytest.raises(RuntimeError, match="lp_ascend"):
-            lp_device.maybe_solve(enc, device="cpu")
+            lp_device.solve(enc, device="cpu")
+        before = SOLVER_LP_SOLVES.value({"outcome": "degraded"})
+        assert lp_device.maybe_solve(enc, device="cpu") is None
+        sol = solver.solve(pods, pools, objective="cost", device="cpu")
+        assert SOLVER_LP_SOLVES.value({"outcome": "degraded"}) == before + 2
+        assert sol.lp is not None and sol.lp["guided"] is False
+        # on a CUDA device the ascent's error reaches `maybe_solve`'s
+        # caller as well: there only an injected fault or a deadline
+        # degrades (`resilience.may_degrade`)
+        monkeypatch.setattr(lp_device, "solve", broken)
         with pytest.raises(RuntimeError, match="lp_ascend"):
-            solver.solve(pods, pools, objective="cost", device="cpu")
+            lp_device.maybe_solve(enc, device="cuda")
+        assert SOLVER_LP_SOLVES.value({"outcome": "degraded"}) == before + 2
 
     def test_pricing_error_propagates(self, clean, monkeypatch):
         def broken(*a, **k):

@@ -148,6 +148,11 @@ class TestEntryPoint:
         assert len(cost.unschedulable) <= len(ffd.unschedulable)
 
     def test_host_backend_names_its_roadmap_item(self):
+        # the host backend (ROADMAP queue A item 4) is served now: the
+        # host FFD oracle, equal to the JAX package's host backend
         pods, pools = build_problem(10, 4, seed=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve(pods, pools, backend="host", device="cpu")
+        jpods, jpools = bench.build_problem(10, 4, seed=0)
+        host = solve(pods, pools, backend="host", device="cpu")
+        assert fingerprint(host) == fingerprint(jsolve(jpods, jpools, backend="host"))
+        placed = sum(len(n.pods) for n in host.new_nodes)
+        assert placed + len(host.unschedulable) == 10
