@@ -25,6 +25,10 @@
     python3 chip_smoke.py --ladder  # phases 1-2 and 12 alone: the
                                     # resilience ladder's script on the
                                     # card and its walls
+    python3 chip_smoke.py --provision # phases 1-2 and 13 alone: the
+                                    # provisioning path through the
+                                    # Provisioner on the card, held
+                                    # against device="cpu"
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -292,6 +296,33 @@ LP degraded.
                 KARPENTER_SOLVE_DEADLINE_MS=10000 (the attempt on a
                 watchdog thread); the host rung's wall on the script's
                 problem; the deadline case's wall against its budget.
+  13. provisioning — the port's main path, pending pods in the in-memory
+                API (`kube.client.KubeClient`, the cluster mirror
+                `state.cluster.Cluster` on its watches, a
+                `FakeCloudProvider`) to NodeClaims through
+                `Provisioner.reconcile`, on three problems, each held
+                against the same run with device="cpu" by the
+                name-insensitive decision fingerprint
+                (`testing.decision_fingerprint`, in-flight claims named
+                by creation order): the benchmark problem (50k pods x
+                500 types) in two rounds, the second after the first
+                round's claims launch (in flight, no node registered)
+                and 10k more pods arrive, so the pending pods land on
+                the in-flight claims (one warm-up environment, then
+                three fresh ones timed); bench.py's scenario_topology
+                demand (1000 pods of 20 apps, zonal spread, hostname
+                anti-affinity on every tenth, over `instance_types(100)`)
+                through `Scheduler.solve`; bench.py's scenario_mixed
+                demand (`build_problem(10_000, 400)` on the family-priced
+                catalog beside a tainted pool of weight 50 over 60 types,
+                every fifth pod tolerating it) through the Provisioner.
+                Each problem's card runs, with the launch counts set to 0
+                just before and read just after, must launch a packing
+                kernel and B2; every pod is placed or unschedulable. The
+                host-clock walls of a round (intake, the Scheduler's own
+                host work, `solve_encoded`, claim creation) and the
+                card's ms inside its packing calls. After phase 13 the
+                device rung must have served every solve of the phase.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -2795,6 +2826,15 @@ LADDER_PROBLEM = (2000, 50, 7)
 # and pairs of the whole solve (seam bypassed, ladder)
 LADDER_TURNS = 25
 LADDER_WHOLE_TURNS = 10
+# `--provision`: phases 1-2, then phase 13 alone
+PROVISION = "--provision"
+# phase 13: fresh environments timed after one warm-up (the benchmark
+# problem); bench.py's scenario_topology demand (pods, services, types)
+# and scenario_mixed's (pods, types of the default pool, of the tainted
+# one)
+PROVISION_TURNS = 3
+TOPOLOGY_PROBLEM = (1000, 20, 100)
+MIXED_PROBLEM = (10_000, 400, 60)
 COMPARE_SHARDS = (2, 4, 8)
 
 
@@ -3560,23 +3600,38 @@ def against(other: str, smi: str) -> None:
             f"{', '.join(sorted(set(here) - set(there))) or 'none'}")
 
 
-def served_by_device(phase: str) -> dict:
+def ladder_counts() -> dict:
+    """The ladder's counter by (labels), and the degraded device LPs
+    under the key "lp": what `served_by_device` counts from."""
+    from karpenter_tpu_torch.metrics.store import SOLVER_LADDER, SOLVER_LP_SOLVES
+
+    out = dict(SOLVER_LADDER.samples())
+    out["lp"] = SOLVER_LP_SOLVES.value({"outcome": "degraded"})
+    return out
+
+
+def served_by_device(phase: str, since: dict | None = None) -> dict:
     """Fail unless the device or sharded rung served every packing solve
-    so far: the ladder's counter holds only `ok` outcomes on those rungs,
+    so far (or since the `ladder_counts()` taken as `since`): the
+    ladder's counter holds only `ok` outcomes on those rungs,
     `resilience.pop_degraded()` is empty (nothing degraded since the last
     check), and no device LP degraded. Returns the ok counts by rung."""
-    from karpenter_tpu_torch.metrics.store import SOLVER_LADDER, SOLVER_LP_SOLVES
     from karpenter_tpu_torch.solver import resilience
 
     degraded = resilience.pop_degraded()
+    since = since or {}
+    counts = ladder_counts()
     served, other = {}, {}
-    for labels, n in SOLVER_LADDER.samples():
+    for labels, n in counts.items():
+        if labels == "lp" or n == since.get(labels, 0):
+            continue
+        n -= since.get(labels, 0)
         rung, outcome = dict(labels).get("rung"), dict(labels).get("outcome")
         if rung in ("device", "sharded") and outcome == "ok":
             served[rung] = int(n)
         else:
             other[f"{rung}/{outcome}"] = int(n)
-    lp = SOLVER_LP_SOLVES.value({"outcome": "degraded"})
+    lp = counts["lp"] - since.get("lp", 0)
     if degraded or other or lp:
         fail(f"{phase}: a solve was not served by the device: degraded {degraded}, "
              f"ladder {other}, device LP degraded {lp:.0f}x")
@@ -3720,6 +3775,268 @@ def ladder_phase(smi: str, first_enc=None) -> None:
         f"results byte-identical | card: {smi}")
 
 
+class HostWalls:
+    """Host-clock seconds of calls, summed by name: each wrapped in place
+    (`wrap`) until `close` puts the originals back."""
+
+    def __init__(self):
+        self.walls: dict[str, float] = {}
+        self._undo = []
+
+    def wrap(self, owner, attr: str, name: str) -> None:
+        fn = getattr(owner, attr)
+
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.walls[name] = self.walls.get(name, 0.0) + time.perf_counter() - t
+        setattr(owner, attr, call)
+        self._undo.append((owner, attr, fn))
+
+    def take(self) -> dict:
+        out, self.walls = self.walls, {}
+        return out
+
+    def close(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+
+def provision_phase(smi: str) -> dict:
+    """Phase 13: the provisioning path, pending pods in the port's
+    in-memory API to NodeClaims, on three problems, each run on the card
+    and held against the same run with device="cpu" by the
+    name-insensitive decision fingerprint. Returns the kernel launches
+    of each problem's card runs."""
+    import torch
+
+    from karpenter_tpu_torch import testing, workloads
+    from karpenter_tpu_torch.apis.v1.nodepool import NodePool
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.kube.objects import ObjectMeta
+    from karpenter_tpu_torch.provisioning import provisioner as prov_mod
+    from karpenter_tpu_torch.provisioning import scheduler as sched_mod
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver import resilience
+    from karpenter_tpu_torch.solver import solver as solver_mod
+    from karpenter_tpu_torch.solver import topo_batch
+
+    t_phase = time.perf_counter()
+    resilience.reset()
+    since = ladder_counts()
+    lowered: list = []  # what topo_batch.prepare gave the topology solves
+    real_prepare = topo_batch.prepare
+
+    def recording_prepare(*a, **k):
+        tb = real_prepare(*a, **k)
+        lowered.append(tb)
+        return tb
+
+    topo_batch.prepare = recording_prepare
+    walls = HostWalls()
+    for owner, attr, name in (
+        (topo_batch, "prepare", "topo_batch"),
+        (prov_mod.Provisioner, "get_pending_pods", "intake"),
+        (prov_mod.Provisioner, "reschedulable_pods_from_deleting_nodes", "intake"),
+        (prov_mod.Provisioner, "_make_scheduler", "scheduler"),
+        (sched_mod.Scheduler, "solve", "scheduler"),
+        (sched_mod, "solve_encoded", "solve_encoded"),
+        (prov_mod.Provisioner, "create_node_claims", "create"),
+        (prov_mod.Provisioner, "reconcile", "round"),
+    ):
+        walls.wrap(owner, attr, name)
+    # every packing call bracketed by CUDA events: the card's share of
+    # a round
+    spans: list = []
+    seam = solver_mod._solve_packing
+
+    def bracketed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = seam(*a, **k)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    def take(results) -> dict:
+        """This round's walls (s, host clock): intake, the Scheduler's
+        own host work (its construction and solve without the solves it
+        hands to solve_encoded), solve_encoded, claim creation, the whole
+        round; and the card's ms inside its packing calls."""
+        torch.cuda.synchronize()
+        w = walls.take()
+        out = {"intake": w.get("intake", 0.0),
+               "scheduler_host": w.get("scheduler", 0.0) - w.get("solve_encoded", 0.0),
+               "topo_batch": w.get("topo_batch", 0.0),
+               "solve_encoded": w.get("solve_encoded", 0.0),
+               "create": w.get("create", 0.0),
+               "round": w.get("round", w.get("scheduler", 0.0)),
+               "card_ms": sum(s.elapsed_time(e) for s, e in spans),
+               "packs": len(spans)}
+        spans.clear()
+        if results.degraded_rungs:
+            fail(f"phase 13: a solve was served degraded via {results.degraded_rungs}")
+        return out
+
+    def placed(results) -> int:
+        return (sum(len(p.pods) for p in results.new_node_plans)
+                + sum(len(v) for v in results.existing_assignments.values())
+                + len(results.errors))
+
+    def benchmark_rounds(device: str):
+        """The benchmark problem's two rounds in a fresh environment."""
+        pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=SEED)
+        extra, _ = workloads.build_problem(N_EXTRA, N_TYPES, seed=SEED + 1,
+                                           name_prefix="extra-")
+        env = testing.pods_env(pods, pools, device=device)
+        per_round = []
+        walls.take()
+        out = testing.reconcile_rounds(env, [extra],
+                                       on_round=lambda r: per_round.append(take(r)))
+        for k, (results, n) in enumerate(zip(out["results"], (N_PODS, N_PODS + N_EXTRA))):
+            if placed(results) != n:
+                fail(f"phase 13 round {k + 1} on {device}: {placed(results)} pods "
+                     f"placed or unschedulable, {n} pending")
+        return out, per_round
+
+    def topology(device: str):
+        n_pods, n_services, n_types = TOPOLOGY_PROBLEM
+        pool = NodePool(metadata=ObjectMeta(name="default"))
+        sched = sched_mod.Scheduler(pools_with_types=[(pool, instance_types(n_types))],
+                                    device=device, clock=lambda: testing.CASE_T0)
+        pods = workloads.topology_pods(n_pods, n_services)
+        walls.take()
+        results = sched.solve(pods)
+        w = take(results)
+        if placed(results) != n_pods:
+            fail(f"phase 13 topology on {device}: {placed(results)} of {n_pods} pods")
+        return testing.decision_fingerprint(results), results, w
+
+    def mixed(device: str):
+        n_pods, n_types, n_tainted = MIXED_PROBLEM
+        pods, pools = workloads.mixed_problem(n_pods, n_types, n_tainted)
+        env = testing.pods_env(pods, pools, device=device)
+        per_round = []
+        walls.take()
+        out = testing.reconcile_rounds(env, [], on_round=lambda r: per_round.append(take(r)))
+        if placed(out["results"][0]) != n_pods:
+            fail(f"phase 13 mixed on {device}: {placed(out['results'][0])} of {n_pods} pods")
+        return out, per_round[0]
+
+    def cells(rows: list, key: str) -> str:
+        vals = [r[key] for r in rows]
+        return (f"{key} {statistics.median(vals):.6f} "
+                f"[{', '.join(f'{v:.6f}' for v in vals)}]")
+
+    def line(rows: list) -> str:
+        return "; ".join(cells(rows, k) for k in (
+            "intake", "scheduler_host", "topo_batch", "solve_encoded", "create", "round",
+            "card_ms"))
+
+    def nonzero(counts: dict) -> str:
+        return json.dumps({k: v for k, v in counts.items() if v})
+
+    launches: dict[str, dict] = {}
+    solver_mod._solve_packing = bracketed
+    try:
+        # ---- 13.1 the benchmark problem through the Provisioner: one
+        # warm-up environment, then PROVISION_TURNS fresh ones timed
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        runs = [benchmark_rounds("cuda") for _ in range(1 + PROVISION_TURNS)]
+        torch.cuda.synchronize()
+        launches["provision"] = dict(kernels.LAUNCHES)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref, _ = benchmark_rounds("cpu")
+        cpu_s = time.perf_counter() - t0
+        for k, (out, _) in enumerate(runs):
+            if out["fingerprints"] != ref["fingerprints"]:
+                fail(f"phase 13 benchmark problem: card run {k} decides differently "
+                     f"from the CPU path's")
+        out, _ = runs[0]
+        r1, r2 = out["results"]
+        c1, c2 = (len(c) for c in out["claims"])
+        on_existing = sum(len(v) for v in r2.existing_assignments.values())
+        say(f"phase 13 provisioning: {N_PODS} pods x {N_TYPES} types through "
+            f"Provisioner.reconcile, then {N_EXTRA} more: round 1 -> {c1} claims, "
+            f"{len(r1.errors)} unschedulable; the claims launched (in flight), round 2 "
+            f"({N_PODS + N_EXTRA} pending) -> {on_existing} pods on "
+            f"{len(r2.existing_assignments)} in-flight claims, {c2} new claims, "
+            f"{len(r2.errors)} unschedulable; both rounds' fingerprints equal to "
+            f"device=\"cpu\"'s in all {len(runs)} card runs | card runs "
+            f"{card_s:.3f}s, CPU run {cpu_s:.3f}s")
+        for k in (0, 1):
+            rows = [per_round[k] for _, per_round in runs[1:]]
+            say(f"  round {k + 1} walls (s, host clock; card ms in the packing calls), "
+                f"median of {PROVISION_TURNS} fresh environments after one warm-up: "
+                f"{line(rows)}; packing calls {rows[0]['packs']} | card: {smi}")
+        say(f"  launches: {nonzero(launches['provision'])}")
+
+        # ---- 13.2 topology: bench.py's scenario_topology demand through
+        # a Scheduler
+        t0 = time.perf_counter()
+        lowered.clear()
+        kernels.reset_launch_counts()
+        topo = [topology("cuda") for _ in range(2)]
+        torch.cuda.synchronize()
+        launches["topology"] = dict(kernels.LAUNCHES)
+        topo_ref = topology("cpu")
+        if any(fp != topo_ref[0] for fp, _, _ in topo):
+            fail("phase 13 topology: the card decides differently from the CPU path")
+        tb = lowered[0]
+        if tb.conflict is None or not tb.assignments:
+            fail("phase 13 topology: the lowering gave no group conflicts or domain pins")
+        results = topo[0][1]
+        say(f"  topology: workloads.topology_pods{TOPOLOGY_PROBLEM[:2]} over "
+            f"instance_types({TOPOLOGY_PROBLEM[2]}) through Scheduler.solve -> "
+            f"{len(results.new_node_plans)} nodes, {len(results.errors)} unschedulable; "
+            f"equal to device=\"cpu\"'s; lowered: {len(tb.groups)} groups, conflict "
+            f"{tuple(tb.conflict.shape)} with {int(tb.conflict.sum())} set, group caps "
+            f"{'none' if tb.group_cap is None else int((tb.group_cap < tb.group_cap.max()).sum())}"
+            f" below the largest, {len(tb.assignments)} pods pinned to a domain, "
+            f"{len(tb.fallback)} to the per-pod loop; second (warm) run: "
+            f"{line([topo[1][2]])}; packing calls {topo[1][2]['packs']}; launches "
+            f"{nonzero(launches['topology'])} ({time.perf_counter() - t0:.3f}s) | card: {smi}")
+
+        # ---- 13.3 mixed pools: bench.py's scenario_mixed demand through
+        # the Provisioner
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        mix = [mixed("cuda") for _ in range(2)]
+        torch.cuda.synchronize()
+        launches["mixed"] = dict(kernels.LAUNCHES)
+        mix_ref, _ = mixed("cpu")
+        if any(out["fingerprints"] != mix_ref["fingerprints"] for out, _ in mix):
+            fail("phase 13 mixed pools: the card decides differently from the CPU path")
+        results = mix[0][0]["results"][0]
+        by_pool: dict[str, int] = {}
+        for plan in results.new_node_plans:
+            by_pool[plan.pool.metadata.name] = by_pool.get(plan.pool.metadata.name, 0) + 1
+        say(f"  mixed pools: workloads.mixed_problem{MIXED_PROBLEM} through "
+            f"Provisioner.reconcile -> claims by pool {json.dumps(by_pool)}, "
+            f"{len(results.errors)} unschedulable; equal to device=\"cpu\"'s; "
+            f"second (warm) run: {line([mix[1][1]])}; packing calls "
+            f"{mix[1][1]['packs']}; launches {nonzero(launches['mixed'])} "
+            f"({time.perf_counter() - t0:.3f}s) | card: {smi}")
+    finally:
+        solver_mod._solve_packing = seam
+        walls.close()
+        topo_batch.prepare = real_prepare
+    for name, n in launches.items():
+        if n["pack_split_flat"] < 1 or n["pack_split"] + n["pack_split_wavefront"] < 1:
+            fail(f"phase 13 {name} launched {n}: expected a packing kernel and "
+                 f"pack_split_flat")
+    served = served_by_device("phase 13", since)
+    say(f"phase 13: every packing solve served by the device rung "
+        f"({json.dumps(served)} ok, the CPU runs' included), none degraded "
+        f"({time.perf_counter() - t_phase:.3f}s)")
+    return launches
+
+
 # the spilled launches: their source and the JAX program each replaces
 GLOBAL_KERNELS = {
     "pack_split_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:444"),
@@ -3836,6 +4153,11 @@ def main() -> None:
     if LADDER in sys.argv[1:]:
         ladder_phase(smi)
         say(f"chip_smoke {LADDER}: {time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
+    if PROVISION in sys.argv[1:]:
+        provision_phase(smi)
+        say(f"chip_smoke {PROVISION}: {time.perf_counter() - T_START:.3f}s wall")
         finish(kind, smi)
         return
     if CATALOG in sys.argv[1:]:
@@ -4147,6 +4469,10 @@ def main() -> None:
 
     # ---- 12. the resilience ladder on the card
     ladder_phase(smi, enc)
+    # ---- 13. the provisioning path: pending pods to NodeClaims
+    provisioning = provision_phase(smi)
+    for name in route_launches:
+        route_launches[name] += sum(n[name] for n in provisioning.values())
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",

@@ -1,10 +1,13 @@
 """Single-key requirement as a value set with operator semantics.
 
+Copy of `karpenter_tpu/scheduling/requirement.py`, whole, with its imports pointed into
+`karpenter_tpu_torch`.
+
 Behavioral counterpart of the reference's pkg/scheduling/requirement.go
 (Requirement: complement representation, Gt/Lt bounds, minValues,
-Intersection/HasIntersection/Has). Copy of
-`karpenter_tpu/scheduling/requirement.py`; the encode turns a
-Requirement over a finite vocabulary into one boolean row.
+Intersection/HasIntersection/Has). This representation is also what the
+TPU solver encodes into dense masks (see karpenter_tpu_torch.solver.encode):
+a Requirement over a finite vocabulary is exactly a boolean row.
 """
 
 from __future__ import annotations
@@ -112,6 +115,31 @@ class Requirement:
     def value_list(self) -> list[str]:
         return sorted(self.values)
 
+    def spec_entries(self) -> list[tuple[str, tuple[str, ...], Optional[int]]]:
+        """Serialize to (operator, values, minValues) claim-spec
+        entries whose conjunction denotes exactly this requirement.
+        Gt/Lt bounds live outside the value set (complement
+        representation), so they emit as their own entries — a
+        flattening to operator()/value_list() alone would collapse a
+        bare bound into Exists and lose it (the claim-tightening path
+        in nodeclaim.go keeps Gt/Lt as separate NodeSelectorRequirement
+        entries for the same reason)."""
+        entries: list[tuple[str, tuple[str, ...], Optional[int]]] = []
+        if self.greater_than is not None:
+            entries.append((GT, (str(self.greater_than),), None))
+        if self.less_than is not None:
+            entries.append((LT, (str(self.less_than),), None))
+        op = self.operator()
+        if entries and op == EXISTS and not self.values:
+            # the bounds already imply existence; a minValues floor
+            # must still ride one of the surviving entries
+            if self.min_values is not None:
+                last_op, last_values, _ = entries[-1]
+                entries[-1] = (last_op, last_values, self.min_values)
+            return entries
+        entries.append((op, tuple(self.value_list()), self.min_values))
+        return entries
+
     def any_value(self) -> str:
         """A representative allowed value (used to label nodes)."""
         if self.operator() == IN:
@@ -172,6 +200,11 @@ class Requirement:
         )
 
     # -- misc -----------------------------------------------------------------
+
+    def copy(self) -> "Requirement":
+        return Requirement._raw(
+            self.key, self.complement, self.values, self.greater_than, self.less_than, self.min_values
+        )
 
     def __eq__(self, other: object) -> bool:
         if not isinstance(other, Requirement):

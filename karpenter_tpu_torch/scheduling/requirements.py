@@ -1,17 +1,21 @@
 """Requirements: a keyed set of Requirement with intersection algebra.
 
+Copy of `karpenter_tpu/scheduling/requirements.py`, whole, with its imports pointed into
+`karpenter_tpu_torch`.
+
 Behavioral counterpart of pkg/scheduling/requirements.go: Add tightens
 by intersection, Compatible enforces the custom-label "must be defined"
 rule (well-known labels exempt), Intersects applies the
 NotIn/DoesNotExist leniency. Pod conversion mirrors NewPodRequirements
 (heaviest preferred term treated as required; first required term
-selected). Copy of `karpenter_tpu/scheduling/requirements.py`.
+selected — the relaxation ladder peels these off on failure).
 """
 
 from __future__ import annotations
 
 from typing import Iterable, Iterator, Optional
 
+from karpenter_tpu_torch.apis.v1.labels import WELL_KNOWN_LABELS, is_restricted_node_label
 from karpenter_tpu_torch.kube.objects import NodeSelectorRequirement, Pod
 from karpenter_tpu_torch.scheduling.requirement import (
     DOES_NOT_EXIST,
@@ -122,6 +126,30 @@ class Requirements:
 
     # -- algebra --------------------------------------------------------------
 
+    def compatible(
+        self, incoming: "Requirements", allow_undefined: frozenset[str] = frozenset()
+    ) -> Optional[str]:
+        """None if `incoming` can loosely be met, else an error string.
+
+        Custom labels must be *defined* on the receiver to match
+        (undefined -> reject unless operator is NotIn/DoesNotExist);
+        labels in `allow_undefined` (typically WellKnownLabels) are
+        allowed to be undefined.
+        """
+        for key in incoming.keys():
+            if key in allow_undefined:
+                continue
+            op = incoming.get(key).operator()
+            if self.has(key) or op in (NOT_IN, DOES_NOT_EXIST):
+                continue
+            return f'label "{key}" does not have known values'
+        return self.intersects(incoming)
+
+    def is_compatible(
+        self, incoming: "Requirements", allow_undefined: frozenset[str] = frozenset()
+    ) -> bool:
+        return self.compatible(incoming, allow_undefined) is None
+
     def intersects(self, incoming: "Requirements") -> Optional[str]:
         """None if all shared keys have overlapping values.
 
@@ -143,6 +171,24 @@ class Requirements:
                 return f"key {key}, {inc!r} not in {existing!r}"
         return None
 
+    def intersection(self, incoming: "Requirements") -> "Requirements":
+        out = self.copy()
+        out.add(*incoming.values())
+        return out
+
+    # -- projections ----------------------------------------------------------
+
+    def labels(self) -> dict[str, str]:
+        """Representative labels for a node satisfying these requirements."""
+        out: dict[str, str] = {}
+        for key, req in self._reqs.items():
+            if is_restricted_node_label(key):
+                continue
+            value = req.any_value()
+            if value:
+                out[key] = value
+        return out
+
     def has_min_values(self) -> bool:
         return any(r.min_values is not None for r in self._reqs.values())
 
@@ -152,3 +198,11 @@ class Requirements:
     def signature(self) -> tuple:
         """Lossless grouping key (repr truncates long value lists)."""
         return tuple(sorted(r.signature() for r in self._reqs.values()))
+
+
+ALLOW_UNDEFINED_WELL_KNOWN = WELL_KNOWN_LABELS
+
+
+def has_preferred_node_affinity(pod: Pod) -> bool:
+    aff = pod.spec.affinity
+    return bool(aff and aff.node_affinity and aff.node_affinity.preferred)

@@ -115,6 +115,7 @@ class LaneSolver:
         daemon_overhead: Optional[dict] = None,
         reserved_in_use: Optional[dict[str, int]] = None,
         pending: Sequence[Pod] = (),
+        compat_cache=None,
         shape_floors: Optional[dict[str, int]] = None,
         device=None,
     ):
@@ -124,6 +125,9 @@ class LaneSolver:
         self.daemon_overhead = daemon_overhead
         self.reserved_in_use = dict(reserved_in_use or {})
         self.pending = list(pending)
+        # solver/incremental.EncodedCache, shared with the caller's
+        # other encodes over the same catalog
+        self.compat_cache = compat_cache
         self.shape_floors = dict(shape_floors or {})
         # the padded shapes of the last staging, for chaining floors
         self.last_shapes: dict[str, int] = {}
@@ -202,6 +206,7 @@ class LaneSolver:
             self.inputs,
             self.daemon_overhead,
             reserved_in_use=self.reserved_in_use,
+            compat_cache=self.compat_cache,
         )
         # the pruner's certificate is a function of this encode
         self.last_enc = enc

@@ -1,7 +1,7 @@
 """Dense encoding of the scheduling problem for the GPU solver.
 
 Copy of `karpenter_tpu/solver/encode.py` (numpy on the host), without
-the incremental compat cache and the tracing and metrics calls:
+its tracing span and its phase metrics:
 
 - A **config** is one launchable node variant: (NodePool, InstanceType,
   Offering). Its requirement set is the intersection of the pool
@@ -321,6 +321,7 @@ def encode(
     group_cap: Optional[np.ndarray] = None,
     conflict: Optional[np.ndarray] = None,
     existing_quota: Optional[np.ndarray] = None,
+    compat_cache=None,
 ) -> Encoded:
     """Build the dense problem. `daemon_overhead` maps pool name ->
     resource list of daemonset pods that will land on new nodes
@@ -328,8 +329,19 @@ def encode(
     reservation id -> instances already consumed by live nodes; the
     remainder caps how many nodes the solver may open against that
     reservation (ReservationManager semantics,
-    scheduling/reservationmanager.go:28-110)."""
-    configs = build_configs(pools_with_types, existing)
+    scheduling/reservationmanager.go:28-110).
+
+    `compat_cache` (solver/incremental.EncodedCache) memoizes the
+    launchable-column compat rows across solves keyed on group
+    signature: a steady-state tick whose pod shapes mostly repeat pays
+    the G x C requirement evaluation only for NEW signatures (dirty
+    rows); pseudo-config columns for existing nodes are always computed
+    fresh (their labels/usage change tick to tick)."""
+    if compat_cache is not None:
+        configs = compat_cache.configs(pools_with_types, existing)
+    else:
+        configs = build_configs(pools_with_types, existing)
+    n_launch = len(configs) - len(existing)
 
     # Resource axis: union of base + whatever appears anywhere.
     keys: list[str] = list(BASE_RESOURCES)
@@ -374,26 +386,48 @@ def encode(
             rsv_cap_list[slot] = max(rsv_cap_list[slot], remaining)
         cfg_rsv[ci] = slot
 
-    for ci, cfg in enumerate(configs):
-        if cfg.existing_index >= 0:
-            node = existing[cfg.existing_index]
+    if compat_cache is not None:
+        # launchable arrays are catalog-static per resource axis;
+        # only existing-node rows and reservation budgets (round
+        # usage) are per-call
+        la, lpr, lpo, lrids, lstatics = compat_cache.launch_arrays(
+            keys, configs, n_launch, pool_order
+        )
+        cfg_alloc[:n_launch] = la
+        cfg_price[:n_launch] = lpr
+        cfg_pool[:n_launch] = lpo
+        for ci in range(n_launch, C):
+            node = existing[configs[ci].existing_index]
             for ri, key in enumerate(keys):
                 cfg_alloc[ci, ri] = node.available.get(key, 0.0)
-            cfg_price[ci] = 0.0
-        else:
-            for ri, key in enumerate(keys):
-                cfg_alloc[ci, ri] = cfg.instance_type.allocatable.get(key, 0.0)
-            # spot offerings are priced at price x (1 + interruption
-            # penalty): the packer's cost signal accounts for the
-            # expected reclaim, while the raw price stays what the
-            # fleet pays (cloudprovider.types.effective_price)
-            cfg_price[ci] = _effective_price(cfg.offering)
-            cfg_pool[ci] = pool_order[cfg.pool.metadata.name]
-            rid = cfg.offering.reservation_id
-            if rid:
-                _reserve(ci, rid)
+        for ci, rid in lrids:
+            _reserve(ci, rid)
+    else:
+        for ci, cfg in enumerate(configs):
+            if cfg.existing_index >= 0:
+                node = existing[cfg.existing_index]
+                for ri, key in enumerate(keys):
+                    cfg_alloc[ci, ri] = node.available.get(key, 0.0)
+                cfg_price[ci] = 0.0
+            else:
+                for ri, key in enumerate(keys):
+                    cfg_alloc[ci, ri] = cfg.instance_type.allocatable.get(key, 0.0)
+                # spot offerings are priced at price x (1 + interruption
+                # penalty): the packer's cost signal accounts for the
+                # expected reclaim, while the raw price stays what the
+                # fleet pays (cloudprovider.types.effective_price)
+                cfg_price[ci] = _effective_price(cfg.offering)
+                cfg_pool[ci] = pool_order[cfg.pool.metadata.name]
+                rid = cfg.offering.reservation_id
+                if rid:
+                    _reserve(ci, rid)
 
-    compat = _full_compat(groups, configs)
+    if compat_cache is not None:
+        # catalog already synced by the configs() call above — compat
+        # consults the row cache without re-fingerprinting
+        compat = compat_cache.compat(groups, configs, n_launch)
+    else:
+        compat = _full_compat(groups, configs)
 
     # Mutual exclusion: two groups can each be compatible with a
     # config yet unable to SHARE one node — their requirements pin a
@@ -405,9 +439,23 @@ def encode(
     # the quadratic check (almost always none).
     loose_groups = np.zeros((G,), bool)
     if configs and G > 0:
-        pin_ok: dict[str, bool] = {}
-        n_have: dict[str, int] = {}
-        for cfg in configs:
+        # pinning is judged over ALL config columns, existing nodes
+        # included: a BYO node missing a well-known label leaves that
+        # key open even though every launch config pins it
+        if compat_cache is not None:
+            # launchable stats are catalog-static; fold in the
+            # per-call existing configs only
+            cached_ok, cached_have = compat_cache.pin_stats(
+                configs, n_launch
+            )
+            pin_ok = dict(cached_ok)
+            n_have = dict(cached_have)
+            scan = configs[n_launch:]
+        else:
+            pin_ok = {}
+            n_have = {}
+            scan = configs
+        for cfg in scan:
             for req in cfg.requirements:
                 single = req.operator() == IN and len(req.values) == 1
                 n_have[req.key] = n_have.get(req.key, 0) + 1
@@ -459,16 +507,9 @@ def encode(
     keep: list[int] = []
     by_key: dict[tuple, int] = {}
     alts_by_ci: dict[int, list] = {}
-    for ci, cfg in enumerate(configs):
-        if cfg.existing_index >= 0:
-            keep.append(ci)
-            continue
-        key = (
-            int(cfg_pool[ci]),
-            cfg.offering.reservation_id if cfg.offering is not None else "",
-            cfg_alloc[ci].tobytes(),
-            compat[:, ci].tobytes(),
-        )
+
+    def _dedupe_one(ci: int, key: tuple) -> None:
+        cfg = configs[ci]
         rep = by_key.get(key)
         if rep is None:
             by_key[key] = ci
@@ -478,6 +519,30 @@ def encode(
             alts_by_ci[rep].append((float(cfg_price[ci]), cfg))
             if cfg_price[ci] < cfg_price[rep]:
                 cfg_price[rep] = cfg_price[ci]
+
+    if compat_cache is not None:
+        # cached path: (pool, reservation, alloc-bytes) prefixes come
+        # from the catalog-static table; the per-solve compat columns
+        # are bit-packed in one vectorized pass (packbits is injective
+        # at fixed G, so key equality is exactly column equality)
+        col_bytes = np.ascontiguousarray(
+            np.packbits(compat[:, :n_launch], axis=0).T
+        )
+        for ci in range(n_launch):
+            _dedupe_one(ci, lstatics[ci] + (col_bytes[ci].tobytes(),))
+        keep.extend(range(n_launch, C))
+    else:
+        for ci, cfg in enumerate(configs):
+            if cfg.existing_index >= 0:
+                keep.append(ci)
+                continue
+            key = (
+                int(cfg_pool[ci]),
+                cfg.offering.reservation_id if cfg.offering is not None else "",
+                cfg_alloc[ci].tobytes(),
+                compat[:, ci].tobytes(),
+            )
+            _dedupe_one(ci, key)
     cfg_alts = [alts_by_ci.get(i, []) for i in keep]
     if len(keep) < len(configs):
         configs = [configs[i] for i in keep]
@@ -510,6 +575,15 @@ def encode(
         pool_min_values=pool_min_values,
         cfg_alts=cfg_alts,
     )
+
+
+def requirement_compat(
+    groups: Sequence[PodGroup], configs: Sequence[ConfigInfo]
+) -> np.ndarray:
+    """[G, C] requirement-only compatibility: the funnel stage the
+    explain plane (explain/funnel.py) replays from the same vocab-mask
+    machinery the encode uses. Taint tolerance is its own stage."""
+    return _compat_matrix(groups, configs)
 
 
 # the array fields a solve reads, in the order the JAX package names

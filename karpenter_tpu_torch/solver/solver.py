@@ -61,6 +61,7 @@ class NodePlan:
         offerings: Optional[list[Offering]] = None,
         pods: Optional[list[Pod]] = None,
         price: float = 0.0,
+        claim_name: str = "",
         lazy=None,
         lazy_primary=None,
     ):
@@ -71,6 +72,11 @@ class NodePlan:
         self._lazy_primary = lazy_primary
         self.pods: list[Pod] = pods if pods is not None else []
         self.price = price
+        # the NodeClaim created from this plan (provisioning/provisioner.py)
+        self.claim_name = claim_name
+        # set when the BestEffort minValues policy relaxed the floor
+        # (scheduler.go:649-658 / min-values-relaxed annotation)
+        self.min_values_relaxed = False
         # reservation id this node resolves onto (its cheapest feasible
         # offering is reserved)
         self.reservation_id = ""
@@ -89,11 +95,19 @@ class NodePlan:
             self._materialize()
         return self._instance_types if self._instance_types is not None else []
 
+    @instance_types.setter
+    def instance_types(self, value: list[InstanceType]) -> None:
+        self._instance_types = value
+
     @property
     def offerings(self) -> list[Offering]:
         if self._offerings is None and self._lazy is not None:
             self._materialize()
         return self._offerings if self._offerings is not None else []
+
+    @offerings.setter
+    def offerings(self, value: list[Offering]) -> None:
+        self._offerings = value
 
     def primary(self) -> tuple[Optional[InstanceType], Optional[Offering]]:
         """The resolved (cheapest) launch option without materializing
@@ -170,14 +184,20 @@ def solve(
     device=None,
     backend: Optional[str] = None,
     shards: int = 0,
+    required_only: bool = False,
+    compat_cache=None,
 ) -> Solution:
     """Pack `pods` onto `existing` nodes and new nodes from the pools.
     `device=None` runs on the card (and raises without one); the host
-    backend runs no device."""
+    backend runs no device. `required_only` groups pods on their
+    required terms alone (the relaxation ladder's retry);
+    `compat_cache` (solver/incremental.EncodedCache) memoizes the
+    launchable config columns and compat rows across solves."""
     if _check_supported(objective, backend) == "device":
         device = resolve_device(device)
-    groups = group_pods(pods)
-    enc = encode(groups, pools_with_types, existing, daemon_overhead)
+    groups = group_pods(pods, required_only=required_only)
+    enc = encode(groups, pools_with_types, existing, daemon_overhead,
+                 compat_cache=compat_cache)
     return solve_encoded(enc, objective=objective, device=device,
                          backend=backend, shards=shards)
 

@@ -1539,3 +1539,587 @@ def ladder_mismatches(records: list, walls: dict) -> list[str]:
     if lp is None or {k: lp.get(k) for k in want} != want:
         bad.append(f"lp: {lp}")
     return bad
+
+
+# -- provisioning rounds ------------------------------------------------------
+#
+# A `ProvisionCase` is one provisioning round as plain data (numbers,
+# strings, tuples), made from a seed with numpy, so that this package
+# and the JAX package can each build their own objects from it.
+# `case_objects(case, api)` builds the objects with the constructors of
+# the package `api` names (`package_api()` is this package's; a test
+# passes the JAX package's modules under the same names);
+# `provision_env(case, device)` builds this package's whole round: the
+# in-memory API, the cluster mirror, the fake provider and the
+# Provisioner. `decision_fingerprint`, `claim_contents` and
+# `mirror_state` read a round's outcome by attribute only, so they
+# read either package's objects.
+
+GIB = 2**30
+# the creation timestamps of every object a case builds: a decision
+# must not depend on when the test ran
+CASE_T0 = 1_700_000_000.0
+ZONES = ("test-zone-1", "test-zone-2", "test-zone-3")
+
+
+@dataclass
+class ProvisionCase:
+    """One provisioning round. Pods and nodes are dicts of plain
+    values (see `case_objects` for the keys); `catalog` is
+    ("diverse" | "hetero", n, stride): every stride-th type of
+    `instance_types(n)` or `heterogeneous_instance_types(n)`;
+    `reservations` are (type index, reservation id, zone, count)."""
+
+    name: str
+    pods: list = field(default_factory=list)
+    pools: list = field(default_factory=list)
+    catalog: tuple = ("diverse", 108, 3)
+    reservations: tuple = ()
+    nodes: list = field(default_factory=list)
+    daemonsets: list = field(default_factory=list)
+    priority_classes: tuple = ()
+    volumes: tuple = ()                 # (pvc name, zones)
+    min_values_policy: str = "Strict"
+    extra_pods: list = field(default_factory=list)   # a second round's arrivals
+
+
+def package_api():
+    """This package's modules under the names `case_objects` and
+    `build_env` read."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.apis.v1 import labels, nodeclaim, nodepool
+    from karpenter_tpu_torch.cloudprovider import fake
+    from karpenter_tpu_torch.kube import client, objects
+    from karpenter_tpu_torch.provisioning import provisioner
+    from karpenter_tpu_torch.state import cluster
+
+    return SimpleNamespace(
+        labels=labels, nodeclaim=nodeclaim, nodepool=nodepool, fake=fake,
+        objects=objects, client=client, cluster=cluster,
+        provisioner=provisioner,
+    )
+
+
+def case_types(case: ProvisionCase, api) -> list:
+    kind, n, stride = case.catalog
+    gen = api.fake.instance_types if kind == "diverse" else \
+        api.fake.heterogeneous_instance_types
+    types = list(gen(n)[::stride])
+    for ti, rid, zone, count in case.reservations:
+        it = types[ti]
+        types[ti] = api.fake.make_instance_type(
+            it.name,
+            cpu=float(it.capacity["cpu"]),
+            memory=float(it.capacity["memory"]),
+            pods=float(it.capacity["pods"]),
+            arch=it.requirements.get(ARCH_LABEL).any_value(),
+            os=it.requirements.get(OS_LABEL).any_value(),
+            price=min(o.price for o in it.offerings
+                      if o.capacity_type == "on-demand"),
+            reservations=[(rid, zone, count)],
+        )
+    return types
+
+
+def _selector(api, labels: dict):
+    return api.objects.LabelSelector.of(dict(labels))
+
+
+def case_pod(api, d: dict, ts: float):
+    o = api.objects
+    spec = o.PodSpec(
+        containers=[o.Container(
+            requests={"cpu": float(d.get("cpu", 1.0)),
+                      "memory": float(d.get("mem", 1.0) * GIB)},
+            ports=list(d.get("host_ports", ())),
+        )],
+        node_selector=dict(d.get("node_selector", {})),
+        tolerations=[
+            o.Toleration(key=k, operator=op, value=v, effect=e)
+            for k, op, v, e in d.get("tolerations", ())
+        ],
+        topology_spread_constraints=[
+            o.TopologySpreadConstraint(
+                max_skew=t[1], topology_key=t[0], when_unsatisfiable=t[2],
+                label_selector=_selector(api, t[3]),
+                min_domains=t[4] if len(t) > 4 else None,
+            )
+            for t in d.get("spread", ())
+        ],
+        priority=int(d.get("priority", 0)),
+        priority_class_name=d.get("priority_class", ""),
+        node_name=d.get("node_name", ""),
+        volumes=[o.PodVolume(name="data", pvc_name=d["pvc"])] if d.get("pvc") else [],
+    )
+    node_aff = None
+    if d.get("preferred_zones") or d.get("required_zones"):
+        node_aff = o.NodeAffinity(
+            required=(
+                (o.NodeSelectorTerm(match_expressions=(
+                    o.NodeSelectorRequirement(
+                        TOPOLOGY_ZONE_LABEL, "In", tuple(d["required_zones"])),
+                )),) if d.get("required_zones") else ()
+            ),
+            preferred=tuple(
+                o.PreferredSchedulingTerm(
+                    weight=w,
+                    preference=o.NodeSelectorTerm(match_expressions=(
+                        o.NodeSelectorRequirement(
+                            TOPOLOGY_ZONE_LABEL, "In", (zone,)),
+                    )),
+                )
+                for w, zone in d.get("preferred_zones", ())
+            ),
+        )
+    anti = tuple(
+        o.PodAffinityTerm(label_selector=_selector(api, sel), topology_key=key)
+        for key, sel in d.get("anti", ())
+    )
+    aff = tuple(
+        o.PodAffinityTerm(label_selector=_selector(api, sel), topology_key=key)
+        for key, sel in d.get("affinity", ())
+    )
+    if node_aff is not None or anti or aff:
+        spec.affinity = o.Affinity(
+            node_affinity=node_aff,
+            pod_affinity=o.PodAffinity(required=aff) if aff else None,
+            pod_anti_affinity=o.PodAffinity(required=anti) if anti else None,
+        )
+    name = d["name"]
+    refs = [o.OwnerReference(kind="ReplicaSet", name=f"{name}-owner",
+                             uid=f"uid-{name}-owner", controller=True)]
+    pod = o.Pod(
+        metadata=o.ObjectMeta(
+            name=name, uid=f"uid-{name}", labels=dict(d.get("labels", {})),
+            owner_references=refs, creation_timestamp=ts,
+        ),
+        spec=spec,
+    )
+    if pod.spec.node_name:
+        pod.status.phase = "Running"
+    return pod
+
+
+def case_pool(api, d: dict):
+    o, np_, nc = api.objects, api.nodepool, api.nodeclaim
+    pool = np_.NodePool(metadata=o.ObjectMeta(
+        name=d["name"], namespace="", uid=f"uid-pool-{d['name']}",
+        creation_timestamp=CASE_T0))
+    pool.spec.weight = int(d.get("weight", 0))
+    pool.spec.limits = dict(d.get("limits", {}))
+    pool.spec.template.labels = dict(d.get("labels", {}))
+    pool.spec.template.spec.taints = [
+        o.Taint(key=k, value=v, effect=e) for k, v, e in d.get("taints", ())
+    ]
+    pool.spec.template.spec.requirements = [
+        nc.RequirementSpec(key=k, operator=op, values=tuple(vals), min_values=mv)
+        for k, op, vals, mv in d.get("requirements", ())
+    ]
+    return pool
+
+
+def case_objects(case: ProvisionCase, api) -> dict:
+    """The objects of one case, built with `api`'s constructors, in
+    the order `build_env` creates them: priority classes, storage
+    (PVs, PVCs), pools, daemonsets, existing claims and nodes, their
+    bound pods, then the pending pods. Every uid and creation timestamp
+    is fixed by the case."""
+    o, lb, nc = api.objects, api.labels, api.nodeclaim
+    types = case_types(case, api)
+    out = {"types": types, "first": [], "pending": [], "extra": []}
+    first = out["first"]
+    for name, value in case.priority_classes:
+        first.append(o.PriorityClass(
+            metadata=o.ObjectMeta(name=name, namespace="", uid=f"uid-pc-{name}",
+                                  creation_timestamp=CASE_T0),
+            value=int(value)))
+    for name, zones in case.volumes:
+        first.append(o.PersistentVolume(
+            metadata=o.ObjectMeta(name=f"pv-{name}", namespace="",
+                                  uid=f"uid-pv-{name}", creation_timestamp=CASE_T0),
+            zones=list(zones)))
+        pvc = o.PersistentVolumeClaim(metadata=o.ObjectMeta(
+            name=name, uid=f"uid-pvc-{name}", creation_timestamp=CASE_T0))
+        pvc.spec.volume_name = f"pv-{name}"
+        pvc.phase = "Bound"
+        first.append(pvc)
+    for d in case.pools:
+        first.append(case_pool(api, d))
+    for d in case.daemonsets:
+        tmpl = case_pod(api, dict(d, name=f"{d['name']}-tmpl"), CASE_T0)
+        first.append(o.DaemonSet(
+            metadata=o.ObjectMeta(name=d["name"], uid=f"uid-ds-{d['name']}",
+                                  creation_timestamp=CASE_T0),
+            spec=o.DaemonSetSpec(
+                selector=_selector(api, {"ds": d["name"]}),
+                template=o.PodTemplateSpec(
+                    metadata=o.ObjectMeta(labels={"ds": d["name"]},
+                                          creation_timestamp=CASE_T0),
+                    spec=tmpl.spec),
+            )))
+    by_name = {it.name: it for it in types}
+    for k, d in enumerate(case.nodes):
+        it = types[d["type"]] if isinstance(d["type"], int) else by_name[d["type"]]
+        labels = {
+            lb.NODEPOOL_LABEL: d["pool"],
+            INSTANCE_TYPE_LABEL: it.name,
+            TOPOLOGY_ZONE_LABEL: d["zone"],
+            CAPACITY_TYPE_LABEL: d.get("capacity_type", "on-demand"),
+            ARCH_LABEL: it.requirements.get(ARCH_LABEL).any_value(),
+            OS_LABEL: it.requirements.get(OS_LABEL).any_value(),
+            lb.HOSTNAME_LABEL: d["name"],
+        }
+        pid = f"fake://{it.name}/existing-{k}"
+        claim = nc.NodeClaim(
+            metadata=o.ObjectMeta(name=f"existing-{k}", namespace="",
+                                  uid=f"uid-claim-existing-{k}",
+                                  labels={lb.NODEPOOL_LABEL: d["pool"]},
+                                  creation_timestamp=CASE_T0),
+        )
+        claim.status.provider_id = pid
+        claim.status.node_name = d["name"]
+        claim.status.capacity = dict(it.capacity)
+        claim.status.allocatable = dict(it.allocatable)
+        for cond in nc.LIFECYCLE_ROOT_CONDITIONS:
+            claim.status_conditions.set_true(cond, now=CASE_T0)
+        node = o.Node(
+            metadata=o.ObjectMeta(name=d["name"], namespace="",
+                                  uid=f"uid-node-{d['name']}", labels=labels,
+                                  creation_timestamp=CASE_T0),
+            spec=o.NodeSpec(provider_id=pid),
+            status=o.NodeStatus(capacity=dict(it.capacity),
+                                allocatable=dict(it.allocatable)),
+        )
+        first.extend([claim, node])
+        for i, pd in enumerate(d.get("pods", ())):
+            first.append(case_pod(api, dict(pd, node_name=d["name"]),
+                                      CASE_T0 + i))
+    for i, d in enumerate(case.pods):
+        out["pending"].append(case_pod(api, d, CASE_T0 + 1 + i))
+    for i, d in enumerate(case.extra_pods):
+        out["extra"].append(
+            case_pod(api, d, CASE_T0 + 1 + len(case.pods) + i))
+    return out
+
+
+class CaseOptions:
+    """The operator options a Provisioner reads (`operator/options.py`
+    is not ported): the minValues policy, the ReservedCapacity gate and
+    the DRA flag."""
+
+    def __init__(self, min_values_policy: str = "Strict"):
+        from types import SimpleNamespace
+
+        self.min_values_policy = min_values_policy
+        self.feature_gates = SimpleNamespace(reserved_capacity=True)
+        self.ignore_dra_requests = True
+
+
+def _env(api, cloud, objects, options, t0: float, **provisioner_kwargs):
+    """`api`'s KubeClient, Cluster (informers attached) and Provisioner
+    over `cloud`, with `objects` created in order and a clock that never
+    moves, so the Scheduler's solve bound never fires."""
+    from types import SimpleNamespace
+
+    kube = api.client.KubeClient()
+    cluster = api.cluster.Cluster(kube)
+    api.cluster.attach_informers(kube, cluster)
+    for obj in objects:
+        kube.create(obj)
+    prov = api.provisioner.Provisioner(
+        kube, cluster, cloud, options=options, clock=lambda: t0,
+        **provisioner_kwargs,
+    )
+    return SimpleNamespace(kube=kube, cluster=cluster, cloud=cloud,
+                           provisioner=prov)
+
+
+def build_env(case: ProvisionCase, api, **provisioner_kwargs):
+    """`api`'s in-memory API, cluster mirror, FakeCloudProvider and
+    Provisioner for one case (`_env`), with the case's objects created,
+    the pending pods included."""
+    objs = case_objects(case, api)
+    env = _env(api, api.fake.FakeCloudProvider(objs["types"]),
+               objs["first"] + objs["pending"],
+               CaseOptions(case.min_values_policy), CASE_T0,
+               **provisioner_kwargs)
+    env.objects = objs
+    return env
+
+
+def provision_env(case: ProvisionCase, device, **provisioner_kwargs):
+    """This package's round for `case` on `device` (see `build_env`)."""
+    return build_env(case, package_api(), device=device, **provisioner_kwargs)
+
+
+def pods_env(pods, pools_with_types, api=None, t0: float = CASE_T0,
+             **provisioner_kwargs):
+    """`api`'s (default this package's) in-memory API, cluster mirror,
+    FakeCloudProvider (each pool served its own catalog) and Provisioner
+    over `pools_with_types` (`_env`), with every pool created and then
+    `pods` created pending at t0. This package's Provisioner takes
+    `device=`."""
+    api = api or package_api()
+    catalogs = {pool.metadata.name: types for pool, types in pools_with_types}
+    cloud = api.fake.FakeCloudProvider(pools_with_types[0][1])
+    cloud.instance_types_hook = lambda pool: list(catalogs[pool.metadata.name])
+    for pod in pods:
+        pod.metadata.creation_timestamp = t0
+    return _env(api, cloud, [pool for pool, _ in pools_with_types] + list(pods),
+                CaseOptions(), t0, **provisioner_kwargs)
+
+
+def launch_claims(env, results) -> None:
+    """What the lifecycle controller's launch writes back between two
+    provisioning rounds, for each claim `results` created: a provider id,
+    and the capacity and allocatable of its plan's cheapest option
+    (`NodePlan.primary()`, the type the launch resolves). The claims
+    stay in flight (no node registers)."""
+    for plan in results.new_node_plans:
+        if not plan.claim_name:
+            continue
+        claim = env.kube.get_node_claim(plan.claim_name)
+        it, _ = plan.primary()
+        claim.status.provider_id = f"fake://{it.name}/{plan.claim_name}"
+        claim.status.capacity = dict(it.capacity)
+        claim.status.allocatable = dict(it.allocatable)
+        env.kube.update(claim)
+
+
+def reconcile_rounds(env, waves, t0: float = CASE_T0, on_round=None) -> dict:
+    """`reconcile` at t0 + 5 over the pending pods, then, for each wave
+    k of `waves` (lists of pods), the last round's claims launched
+    (`launch_claims`), the wave created at t0 + 10k and `reconcile` at
+    t0 + 10k + 5: the pods of earlier rounds are still pending, and land
+    again on the in-flight claims. Returns each round's results, the
+    claims each created, and each round's name-insensitive fingerprint
+    with in-flight claims named by creation order (`claim_names`).
+    `on_round(results)` runs after each reconcile."""
+    rounds, created, fps = [], [], []
+    for k in range(len(waves) + 1):
+        if k:
+            launch_claims(env, rounds[-1])
+        for pod in waves[k - 1] if k else ():
+            pod.metadata.creation_timestamp = t0 + 10 * k
+            env.kube.create(pod)
+        results = env.provisioner.reconcile(now=t0 + 10 * k + 5)
+        if on_round is not None:
+            on_round(results)
+        rounds.append(results)
+        created.append([env.kube.get_node_claim(p.claim_name)
+                        for p in results.new_node_plans if p.claim_name])
+        names = claim_names([c for cs in created for c in cs])
+        fps.append(decision_fingerprint(results, names))
+    return {"results": rounds, "claims": created, "fingerprints": fps}
+
+
+def decision_fingerprint(results, names: Optional[dict] = None) -> tuple:
+    """Name-insensitive identity of one scheduling decision (the JAX
+    package's `incremental_tick.decision_fingerprint`): new plans by
+    (pool, launch target, price, pod set), existing assignments by
+    (state key, pod set), failures by (pod key, reason). `names` maps
+    the state keys of in-flight claims (process-wide counter names) to
+    names fixed by their creation order (`claim_names`)."""
+    names = names or {}
+    new = []
+    for plan in results.new_node_plans:
+        it, off = plan.primary()
+        new.append((
+            plan.pool.metadata.name if plan.pool is not None else "",
+            it.name if it is not None else "",
+            (off.zone, off.capacity_type) if off is not None else ("", ""),
+            round(float(plan.price), 6),
+            tuple(sorted(p.key for p in plan.pods)),
+        ))
+    existing = sorted(
+        (names.get(key, key), tuple(sorted(p.key for p in pods)))
+        for key, pods in results.existing_assignments.items()
+    )
+    return (
+        tuple(sorted(new)),
+        tuple(existing),
+        tuple(sorted(results.errors.items())),
+    )
+
+
+def claim_names(claims) -> dict:
+    """Claim name -> `claim-<i>`, i its place in creation order."""
+    return {c.metadata.name: f"claim-{i}" for i, c in enumerate(claims)}
+
+
+def claim_contents(claims) -> list:
+    """The created claims without their names: pool, requirement
+    specs, labels, taints, requested resources, expected capacity and
+    annotations, in creation order."""
+    out = []
+    for c in claims:
+        out.append((
+            c.metadata.labels.get(NODEPOOL_LABEL, ""),
+            tuple((r.key, r.operator, tuple(r.values), r.min_values)
+                  for r in c.spec.requirements),
+            tuple(sorted(c.metadata.labels.items())),
+            tuple((t.key, t.value, t.effect) for t in c.spec.taints),
+            tuple(sorted(c.spec.resources.items())),
+            tuple(sorted(c.status.capacity.items())),
+            tuple(sorted(c.metadata.annotations.items())),
+        ))
+    return out
+
+
+def mirror_state(cluster, names: Optional[dict] = None) -> list:
+    """The cluster mirror as plain values, in its own order: per
+    state node its name (claim names mapped through `names`), claim,
+    provider id, lifecycle flags, pods, usage and available capacity;
+    then the per-pool resources."""
+    names = names or {}
+    nodes = []
+    for n in cluster.nodes():
+        claim = n.node_claim.metadata.name if n.node_claim is not None else ""
+        nodes.append((
+            n.name, names.get(claim, claim),
+            n.provider_id, n.initialized(), n.registered(), n.deleting(),
+            tuple(sorted(n.pod_keys)),
+            tuple(sorted(n.pod_usage.items())),
+            tuple(sorted(n.daemon_usage.items())),
+            tuple(sorted(n.available().items())),
+        ))
+    pools = sorted(
+        (k, tuple(sorted(v.items())))
+        for k, v in cluster.nodepool_resources().items()
+    )
+    return [nodes, pools, cluster.synced()]
+
+
+def _pod(name, cpu=1.0, mem=1.0, **kw) -> dict:
+    return dict(name=name, cpu=cpu, mem=mem, **kw)
+
+
+def provision_cases(seed: int = 0) -> list[ProvisionCase]:
+    """The seeded rounds the tests hold both packages' Provisioners
+    and Schedulers to: plain (with existing nodes, bound pods and a
+    daemonset), a tainted pool with tolerations, node selectors, zonal
+    spread with hostname anti-affinity, host ports, a PVC zone,
+    minValues Strict and BestEffort, a reserved offering, mixed
+    priorities that hit a pool limit, and a preferred affinity that
+    must relax. Each has a second round's arrivals in `extra_pods`."""
+    rng = np.random.default_rng(seed)
+    shapes = [(0.25, 0.5), (0.5, 1.0), (1.0, 2.0), (2.0, 4.0), (4.0, 8.0),
+              (1.0, 0.5), (0.5, 4.0)]
+
+    def shaped(prefix, n, **kw):
+        out = []
+        for i in range(n):
+            cpu, mem = shapes[int(rng.integers(len(shapes)))]
+            out.append(_pod(f"{prefix}{i}", cpu, mem, **kw))
+        return out
+
+    default = dict(name="default")
+    cases = []
+
+    plain = ProvisionCase(
+        "plain", pods=shaped("p-", 60), pools=[default],
+        nodes=[
+            dict(name="node-a", type=20, pool="default", zone="test-zone-1",
+                 pods=shaped("bound-a-", 3)),
+            dict(name="node-b", type=26, pool="default", zone="test-zone-2",
+                 capacity_type="spot", pods=shaped("bound-b-", 2)),
+        ],
+        daemonsets=[dict(name="logger", cpu=0.1, mem=0.125)],
+        extra_pods=shaped("q-", 20),
+    )
+    cases.append(plain)
+
+    tainted = dict(name="tainted", weight=50,
+                   taints=[("dedicated", "batch", "NoSchedule")])
+    tol = [("dedicated", "Equal", "batch", "NoSchedule")]
+    pods = shaped("t-", 50)
+    for i, d in enumerate(pods):
+        if i % 5 == 0:
+            d["tolerations"] = tol
+    cases.append(ProvisionCase(
+        "tainted-pool", pods=pods, pools=[default, tainted],
+        extra_pods=shaped("u-", 10, tolerations=tol)))
+
+    pods = shaped("s-", 50)
+    for i, d in enumerate(pods):
+        sel = {}
+        if i % 3 == 0:
+            sel["kubernetes.io/arch"] = ("amd64", "arm64")[int(rng.integers(2))]
+        if i % 4 == 0:
+            sel[TOPOLOGY_ZONE_LABEL] = ZONES[int(rng.integers(3))]
+        if i % 7 == 0:
+            sel["kubernetes.io/os"] = "linux"
+        d["node_selector"] = sel
+    cases.append(ProvisionCase(
+        "node-selectors", pods=pods, pools=[default],
+        extra_pods=shaped("sx-", 10, node_selector={TOPOLOGY_ZONE_LABEL: "test-zone-3"})))
+
+    pods = []
+    for i in range(60):
+        app = f"svc-{i % 4}"
+        d = _pod(f"z-{i}", 1.0, 2.0, labels={"app": app},
+                 spread=[(TOPOLOGY_ZONE_LABEL, 1, "DoNotSchedule", {"app": app})])
+        if i % 10 == 0:
+            d["anti"] = [("kubernetes.io/hostname", {"app": app})]
+        pods.append(d)
+    pods += shaped("zp-", 20)
+    cases.append(ProvisionCase(
+        "spread-anti", pods=pods, pools=[default],
+        nodes=[dict(name="node-z", type=24, pool="default", zone="test-zone-2",
+                    pods=[_pod("zb-0", 1.0, 2.0, labels={"app": "svc-0"})])],
+        extra_pods=[_pod(f"zx-{i}", 1.0, 2.0, labels={"app": "svc-1"},
+                         spread=[(TOPOLOGY_ZONE_LABEL, 1, "DoNotSchedule",
+                                  {"app": "svc-1"})]) for i in range(9)]))
+
+    pods = shaped("h-", 30)
+    for i in range(12):
+        pods.append(_pod(f"hp-{i}", 0.5, 1.0, host_ports=[8080 + (i % 2)]))
+    cases.append(ProvisionCase(
+        "host-ports", pods=pods, pools=[default],
+        extra_pods=[_pod(f"hq-{i}", 0.5, 1.0, host_ports=[8080]) for i in range(4)]))
+
+    pods = shaped("v-", 20)
+    for i in range(6):
+        pods.append(_pod(f"vp-{i}", 1.0, 2.0, pvc=f"claim-{i % 2}"))
+    cases.append(ProvisionCase(
+        "pvc-zone", pods=pods, pools=[default],
+        volumes=(("claim-0", ("test-zone-2",)), ("claim-1", ("test-zone-3",))),
+        extra_pods=[_pod("vx-0", 1.0, 2.0, pvc="claim-1")]))
+
+    mv_pool = dict(name="default", requirements=[
+        (INSTANCE_TYPE_LABEL, "Exists", (), 3)])
+    mv_pods = shaped("m-", 30) + [_pod("m-big-0", 40.0, 60.0),
+                                  _pod("m-big-1", 90.0, 300.0)]
+    for policy in ("Strict", "BestEffort"):
+        cases.append(ProvisionCase(
+            f"min-values-{policy.lower()}", pods=[dict(d) for d in mv_pods],
+            pools=[mv_pool], min_values_policy=policy,
+            extra_pods=[_pod("mx-big", 60.0, 400.0)] + shaped("mx-", 5)))
+
+    pods = shaped("r-", 40)
+    cases.append(ProvisionCase(
+        "reserved", pods=pods, pools=[default],
+        reservations=((14, "rsv-1", "test-zone-1", 2), (15, "rsv-2", "test-zone-2", 1)),
+        extra_pods=shaped("rx-", 15)))
+
+    pods = []
+    for i in range(40):
+        pc = ("critical", "", "batch")[i % 3]
+        pods.append(_pod(f"pr-{i}", 1.0, 1.0, priority_class=pc))
+    cases.append(ProvisionCase(
+        "priority-limit", pods=pods,
+        pools=[dict(name="default", limits={"cpu": 24.0},
+                    requirements=[("size", "In", ("medium",), None)])],
+        priority_classes=(("critical", 1000), ("batch", -10)),
+        extra_pods=[_pod(f"prx-{i}", 1.0, 1.0, priority_class="critical")
+                    for i in range(4)]))
+
+    pods = shaped("a-", 20)
+    for i in range(8):
+        pods.append(_pod(f"ap-{i}", 1.0, 2.0, required_zones=("test-zone-1", "test-zone-2"),
+                         preferred_zones=[(50, "test-zone-3")]))
+    cases.append(ProvisionCase(
+        "preferred-relax", pods=pods, pools=[default],
+        extra_pods=[_pod("ax-0", 1.0, 2.0, preferred_zones=[(10, "test-zone-9")])]))
+    return cases

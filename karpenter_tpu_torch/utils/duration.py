@@ -1,6 +1,7 @@
-"""Duration and cron-schedule helpers (copy of
-`karpenter_tpu/utils/duration.py`, trimmed to what NodePool budgets
-read).
+"""Duration and cron-schedule helpers.
+
+Copy of `karpenter_tpu/utils/duration.py`, whole, with its imports pointed into
+`karpenter_tpu_torch`.
 
 `parse_duration` accepts Go-style duration strings ("30s", "5m", "1h",
 "1h30m") plus the CRD sentinel "Never" (returns None). `CronSchedule`
@@ -39,6 +40,16 @@ def parse_duration(value: str | int | float | None) -> Optional[float]:
     if pos != len(value):
         raise ValueError(f"invalid duration {value!r}")
     return total
+
+
+def format_duration(seconds: Optional[float]) -> str:
+    if seconds is None:
+        return "Never"
+    if seconds >= 3600 and seconds % 3600 == 0:
+        return f"{int(seconds // 3600)}h"
+    if seconds >= 60 and seconds % 60 == 0:
+        return f"{int(seconds // 60)}m"
+    return f"{seconds:g}s"
 
 
 _SHORTCUTS = {

@@ -11,6 +11,11 @@ package's benchmark.
 `scenario_consolidation` (consolidation_500): the FFD fleet of
 `build_problem(21000, 200, seed=9)`, then a scale-down that removes 55%
 of the pods, each node kept as an existing node with what stays on it.
+
+`topology_pods` and `mixed_problem` are copies of the demand of
+`bench.py`'s `scenario_topology` (zonal spread, hostname anti-affinity)
+and `scenario_mixed` (a tainted pool beside the default one, on the
+family-priced catalog).
 """
 
 from __future__ import annotations
@@ -26,7 +31,20 @@ from karpenter_tpu_torch.apis.v1.labels import (
 )
 from karpenter_tpu_torch.apis.v1.nodepool import NodePool
 from karpenter_tpu_torch.cloudprovider.fake import GIB, instance_types, make_instance_type
-from karpenter_tpu_torch.kube.objects import Container, ObjectMeta, Pod, PodSpec
+from karpenter_tpu_torch.kube.objects import (
+    Affinity,
+    Container,
+    LabelSelector,
+    ObjectMeta,
+    OwnerReference,
+    Pod,
+    PodAffinity,
+    PodAffinityTerm,
+    PodSpec,
+    Taint,
+    Toleration,
+    TopologySpreadConstraint,
+)
 from karpenter_tpu_torch.scheduling.requirements import Requirements
 from karpenter_tpu_torch.solver.encode import ExistingNodeInput
 from karpenter_tpu_torch.utils import resources as resutil
@@ -96,6 +114,71 @@ def build_problem(n_pods: int, n_types: int, seed: int = 42,
             )
         )
     return pods, [(pool, types)]
+
+
+def topology_pods(n_pods: int, n_services: int) -> list[Pod]:
+    """`bench.py::_topology_pods`: 1-cpu pods of `n_services` apps, each
+    spread over zones with max skew 1, every tenth with hostname
+    anti-affinity to its own app; owned by a ReplicaSet, as the JAX
+    package's `testing.mk_pod` makes them."""
+    pods = []
+    for i in range(n_pods):
+        name, app = f"t-{i}", f"svc-{i % n_services}"
+        pod = Pod(
+            metadata=ObjectMeta(
+                name=name, labels={"app": app},
+                owner_references=[OwnerReference(
+                    kind="ReplicaSet", name=f"{name}-owner",
+                    uid=f"uid-{name}-owner", controller=True)],
+            ),
+            spec=PodSpec(containers=[
+                Container(requests={"cpu": 1.0, "memory": float(GIB)})
+            ]),
+        )
+        pod.spec.topology_spread_constraints = [
+            TopologySpreadConstraint(
+                max_skew=1,
+                topology_key=TOPOLOGY_ZONE_LABEL,
+                when_unsatisfiable="DoNotSchedule",
+                label_selector=LabelSelector.of({"app": app}),
+            )
+        ]
+        if i % 10 == 0:
+            pod.spec.affinity = Affinity(
+                pod_anti_affinity=PodAffinity(required=(
+                    PodAffinityTerm(
+                        topology_key=HOSTNAME_LABEL,
+                        label_selector=LabelSelector.of({"app": app}),
+                    ),
+                ))
+            )
+        pods.append(pod)
+    return pods
+
+
+def mixed_problem(n_pods: int = 10_000, n_types: int = 400,
+                  n_tainted_types: int = 60, seed: int = 42):
+    """`bench.py::scenario_mixed`'s demand: `build_problem(n_pods,
+    n_types)`'s pods on `heterogeneous_instance_types(n_types)`, beside a
+    pool of weight 50 tainted dedicated=batch:NoSchedule over
+    `heterogeneous_instance_types(n_tainted_types)`, every fifth pod
+    tolerating it. Returns (pods, [(pool, types), (tainted, types)])."""
+    from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
+
+    pods, pools = build_problem(n_pods, n_types, seed=seed)
+    tainted = NodePool(metadata=ObjectMeta(name="tainted"))
+    tainted.spec.weight = 50
+    tainted.spec.template.spec.taints = [
+        Taint(key="dedicated", value="batch", effect="NoSchedule")
+    ]
+    for i, pod in enumerate(pods):
+        if i % 5 == 0:
+            pod.spec.tolerations = [
+                Toleration(key="dedicated", operator="Equal", value="batch",
+                           effect="NoSchedule")
+            ]
+    return pods, [(pools[0][0], heterogeneous_instance_types(n_types)),
+                  (tainted, heterogeneous_instance_types(n_tainted_types))]
 
 
 def node_input(name, it, offering, pool, kept_pods) -> ExistingNodeInput:

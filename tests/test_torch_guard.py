@@ -1,9 +1,11 @@
 """Boundaries of the PyTorch/CUDA port.
 
 (d) `solve()` with no device runs on the card, so on a host without
-    CUDA it raises instead of moving to the CPU.
+    CUDA it raises instead of moving to the CPU; so do
+    `Scheduler(...).solve` and `Provisioner(...).reconcile`.
 (e) importing `karpenter_tpu_torch` and one CPU solve load neither
-    `jax` nor `karpenter_tpu` (checked in a fresh interpreter).
+    `jax` nor `karpenter_tpu` (checked in a fresh interpreter); nor do
+    two provisioning rounds through the port's Provisioner.
 (f) no file of the port, and not `chip_smoke.py`, imports `jax` or
     `karpenter_tpu` (AST check).
 """
@@ -31,6 +33,45 @@ def test_default_device_without_cuda_raises():
     pods, pools = build_problem(20, 5, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve(pods, pools)
+
+
+def test_scheduler_and_provisioner_default_device_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.provisioning.scheduler import Scheduler
+
+    pods, pools = build_problem(20, 5, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scheduler(pools_with_types=pools).solve(pods)
+    case = testing.provision_cases(0)[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        testing.provision_env(case, None).provisioner.reconcile(
+            now=testing.CASE_T0 + 10)
+
+
+def test_provisioning_rounds_load_no_jax():
+    code = (
+        "import sys, json\n"
+        "from karpenter_tpu_torch import testing\n"
+        "case = testing.provision_cases(0)[3]\n"
+        "env = testing.provision_env(case, 'cpu')\n"
+        "r1 = env.provisioner.reconcile(now=testing.CASE_T0 + 10)\n"
+        "for pod in env.objects['extra']:\n"
+        "    env.kube.create(pod)\n"
+        "r2 = env.provisioner.reconcile(now=testing.CASE_T0 + 20)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'karpenter_tpu'"
+        " or m.startswith('karpenter_tpu.')]\n"
+        "print(json.dumps({'bad': bad, 'claims': len(env.kube.node_claims())}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert report["claims"] > 0
 
 
 def test_import_and_cpu_solve_load_no_jax():
