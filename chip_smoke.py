@@ -29,6 +29,10 @@
                                     # provisioning path through the
                                     # Provisioner on the card, held
                                     # against device="cpu"
+    python3 chip_smoke.py --tick    # phases 1-2 and 14 alone: the
+                                    # incremental tick, the micro path
+                                    # and IncrementalPipeline on the
+                                    # card, held against device="cpu"
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -321,8 +325,38 @@ LP degraded.
                 kernel and B2; every pod is placed or unschedulable. The
                 host-clock walls of a round (intake, the Scheduler's own
                 host work, `solve_encoded`, claim creation) and the
-                card's ms inside its packing calls. After phase 13 the
-                device rung must have served every solve of the phase.
+                card's ms inside its packing calls. Phase 13 runs with
+                KARPENTER_INCREMENTAL=0: the full Scheduler path. After
+                phase 13 the device rung must have served every solve of
+                the phase.
+  14. tick    — the incremental tick (`provisioning/incremental_tick.py`),
+                the Provisioner's default path, as an event stream
+                (`testing.run_stream`): phase 13's two rounds of the
+                benchmark problem, then 8 steady rounds that register the
+                claims, bind the pods, delete 1% of the bound pods (a
+                seeded draw) and respawn their shapes (bench.py's
+                steady_state_churn), then 4 quiet rounds of 0.1%. Each
+                round's decision fingerprint and route (path, reason)
+                equal to the same stream with device="cpu"; the stream
+                with KARPENTER_INCREMENTAL=0 on the card equal decision
+                for decision; once more with audit_every=1, every shadow
+                audit clean. Per round: the route, the tick's sync, host
+                work and solve_encoded, claim creation, the whole round
+                and the card's ms beside the full path's on the same
+                round; the fallbacks by reason. Then the micro path:
+                under KARPENTER_MICRO_DUAL=1 a tick refreshes the dual
+                floor (B5), and `Provisioner.micro_solve` takes 2,000
+                arrivals; its `micro_order`, decisions and `lam_by_sig`
+                equal to device="cpu"'s. Then `IncrementalPipeline` on
+                `build_problem(50_000, 500, seed=3)`, objective cost, 1%
+                churn a tick through the delta API: the cold tick and 3
+                churn ticks equal to device="cpu"'s (fleet price,
+                unschedulable, each node's pods; the planner's MIPs
+                stopped at the root node and its time budget lifted on
+                both sides), 10 churn ticks timed against a full cost
+                solve of the same pods (the first 3). Each part launches
+                a packing kernel and B2, the micro part B5; the device
+                rung serves every solve of the phase.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -3806,6 +3840,15 @@ class HostWalls:
 
 
 def provision_phase(smi: str) -> dict:
+    """Phase 13 under KARPENTER_INCREMENTAL=0: the full Scheduler path it
+    measures (the incremental tick, the default, is phase 14's)."""
+    from karpenter_tpu_torch.testing import scoped_env
+
+    with scoped_env({"KARPENTER_INCREMENTAL": "0"}):
+        return full_path_phase(smi)
+
+
+def full_path_phase(smi: str) -> dict:
     """Phase 13: the provisioning path, pending pods in the port's
     in-memory API to NodeClaims, on three problems, each run on the card
     and held against the same run with device="cpu" by the
@@ -4037,6 +4080,378 @@ def provision_phase(smi: str) -> dict:
     return launches
 
 
+# `--tick`: phases 1-2, then phase 14 alone
+TICK = "--tick"
+# phase 14: phase 13's two rounds of the benchmark problem, then steady
+# rounds each deleting this share of the bound pods (a seeded draw) and
+# respawning their shapes (bench.py's steady_state_churn), then quiet
+# rounds of a tenth of that churn, whose dirty rows stay under the
+# tick's churn gate; rounds with a few arrivals before the micro batch
+# (under KARPENTER_MICRO_DUAL=1 the first that rides the tick refreshes
+# its dual floor); the pipeline's churn ticks held against
+# device="cpu" and timed
+TICK_STEADY = 8
+TICK_CHURN = 0.01
+TICK_QUIET = 4
+TICK_QUIET_CHURN = 0.001
+MICRO_WARM = (2, 20)
+MICRO_BATCH = 2000
+PIPELINE_HELD = 3
+PIPELINE_TIMED = 10
+PIPELINE_FULL = 3
+
+
+def tick_phase(smi: str) -> dict:
+    """Phase 14: the incremental tick, the Provisioner's default path,
+    on phase 13's problem and steady churn after it (card against
+    device="cpu", the tick against KARPENTER_INCREMENTAL=0, every
+    round audited in a third run), the micro path with its dual floor,
+    and `IncrementalPipeline` at 50k x 500 under 1% churn. Returns the
+    kernel launches of each part's card runs."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import testing, workloads
+    from karpenter_tpu_torch.kube.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.metrics.store import INCREMENTAL_AUDITS
+    from karpenter_tpu_torch.provisioning import incremental_tick as tick_mod
+    from karpenter_tpu_torch.provisioning import provisioner as prov_mod
+    from karpenter_tpu_torch.provisioning import scheduler as sched_mod
+    from karpenter_tpu_torch.solver import lp_device, lp_plan, resilience
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver import solver as solver_mod
+    from karpenter_tpu_torch.solver.incremental import IncrementalPipeline
+    from karpenter_tpu_torch.testing import StreamRound, root_node_mips, scoped_env
+
+    t_phase = time.perf_counter()
+    resilience.reset()
+    since = ladder_counts()
+    walls = HostWalls()
+    for owner, attr, name in (
+        (tick_mod.IncrementalTickScheduler, "_sync", "sync"),
+        (tick_mod.IncrementalTickScheduler, "_solve", "tick_solve"),
+        (tick_mod, "solve_encoded", "tick_solve_encoded"),
+        (tick_mod.IncrementalTickScheduler, "_audit", "audit"),
+        (prov_mod.Provisioner, "_make_scheduler", "scheduler"),
+        (sched_mod.Scheduler, "solve", "scheduler"),
+        (sched_mod, "solve_encoded", "solve_encoded"),
+        (prov_mod.Provisioner, "create_node_claims", "create"),
+        (prov_mod.Provisioner, "reconcile", "round"),
+        (prov_mod.Provisioner, "micro_solve", "round"),
+        (testing, "settle", "settle"),
+    ):
+        walls.wrap(owner, attr, name)
+    spans: list = []
+    seam = solver_mod._solve_packing
+
+    def bracketed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = seam(*a, **k)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    def take(results) -> dict:
+        """This round's walls (s, host clock): the tick's sync, its host
+        work (`_solve` less its solve_encoded calls) and solve_encoded;
+        the full path's Scheduler host work and solve_encoded (the
+        shadow audit's included); the audit; claim creation; the
+        stream's settle before the round (the harness's registrations
+        and bindings); the whole reconcile; the card's ms in the packing
+        calls."""
+        torch.cuda.synchronize()
+        w = walls.take()
+        out = {"sync": w.get("sync", 0.0),
+               "tick_host": w.get("tick_solve", 0.0) - w.get("tick_solve_encoded", 0.0),
+               "tick_solve_encoded": w.get("tick_solve_encoded", 0.0),
+               "full_host": w.get("scheduler", 0.0) - w.get("solve_encoded", 0.0),
+               "full_solve_encoded": w.get("solve_encoded", 0.0),
+               "audit": w.get("audit", 0.0), "create": w.get("create", 0.0),
+               "settle": w.get("settle", 0.0), "round": w.get("round", 0.0),
+               "card_ms": sum(s.elapsed_time(e) for s, e in spans), "packs": len(spans)}
+        spans.clear()
+        if results is not None and results.degraded_rungs:
+            fail(f"phase 14: a solve was served degraded via {results.degraded_rungs}")
+        return out
+
+    def reset_launches() -> None:
+        kernels.reset_launch_counts()
+        for table in (lp_device.LAUNCHES, lp_plan.LAUNCHES):
+            for name in table:
+                table[name] = 0
+
+    def read_launches() -> dict:
+        torch.cuda.synchronize()
+        out = dict(kernels.LAUNCHES)
+        out.update(lp_device.LAUNCHES)
+        out.update(lp_plan.LAUNCHES)
+        return out
+
+    def nonzero(counts: dict) -> str:
+        return json.dumps({k: v for k, v in counts.items() if v})
+
+    def stream(device: str, audit_every=None):
+        """Phase 13's two rounds, then TICK_STEADY steady rounds, in a
+        fresh environment."""
+        pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=SEED)
+        extra, _ = workloads.build_problem(N_EXTRA, N_TYPES, seed=SEED + 1,
+                                           name_prefix="extra-")
+        testing.reset_counters(testing.package_api())
+        env = testing.pods_env(pods, pools, device=device)
+        if audit_every is not None:
+            env.provisioner.incremental.audit_every = audit_every
+        rounds = [StreamRound(), StreamRound(settle=False, pods=extra)] + [
+            StreamRound(delete=TICK_CHURN, respawn=True, pick="seeded", seed=k)
+            for k in range(TICK_STEADY)] + [
+            StreamRound(delete=TICK_QUIET_CHURN, respawn=True, pick="seeded", seed=100 + k)
+            for k in range(TICK_QUIET)]
+        per_round: list = []
+        walls.take()
+        spans.clear()
+        out = testing.run_stream(env, rounds,
+                                 on_round=lambda k, r: per_round.append(take(r)))
+        return env, out, per_round
+
+    def route(r: list) -> str:
+        return "+".join(f"{p}/{why}" for p, why in r) or "full/disabled"
+
+    def cells(rows: list, keys) -> str:
+        return ", ".join(f"{k} {rows[k]:.6f}" if isinstance(rows[k], float)
+                         else f"{k} {rows[k]}" for k in keys)
+
+    launches: dict[str, dict] = {}
+    solver_mod._solve_packing = bracketed
+    try:
+        # ---- 14.1 the tick at 50k x 500: rounds 1-2 and steady churn
+        t0 = time.perf_counter()
+        reset_launches()
+        card_env, card, card_walls = stream("cuda")
+        launches["tick"] = read_launches()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_env, cpu, _ = stream("cpu")
+        cpu_s = time.perf_counter() - t0
+        for k in range(len(card["results"])):
+            if card["fingerprints"][k] != cpu["fingerprints"][k]:
+                fail(f"phase 14 round {k + 1}: the card decides differently from "
+                     f"device=\"cpu\"")
+            if card["routes"][k] != cpu["routes"][k]:
+                fail(f"phase 14 round {k + 1}: route {card['routes'][k]} on the card, "
+                     f"{cpu['routes'][k]} on the CPU")
+        t0 = time.perf_counter()
+        with scoped_env({"KARPENTER_INCREMENTAL": "0"}):
+            _, full, full_walls = stream("cuda")
+        full_s = time.perf_counter() - t0
+        for k in range(len(card["results"])):
+            if full["fingerprints"][k] != card["fingerprints"][k]:
+                fail(f"phase 14 round {k + 1}: the tick decides differently from the "
+                     f"full path (KARPENTER_INCREMENTAL=0) on the card")
+        t0 = time.perf_counter()
+        before = dict(INCREMENTAL_AUDITS.samples())
+        audit_env, audited, audit_walls = stream("cuda", audit_every=1)
+        audits: dict = {}
+        for labels, n in INCREMENTAL_AUDITS.samples():
+            n -= before.get(labels, 0.0)
+            if n:
+                key = f"{dict(labels)['verdict']}/{dict(labels)['trigger']}"
+                audits[key] = audits.get(key, 0) + int(n)
+        audit_s = time.perf_counter() - t0
+        st = audit_env.provisioner.incremental.status()
+        if st["divergences"] or st["quarantined"] or any(
+                not k.startswith("ok/") for k in audits):
+            fail(f"phase 14: an audit under audit_every=1 was not clean: {audits}, "
+                 f"divergences {st['divergences']}, quarantined {st['quarantined']}")
+        if audited["fingerprints"] != card["fingerprints"]:
+            fail("phase 14: the audited stream decides differently from the tick's")
+        on_tick = [any(p == "incremental" for p, _ in r) for r in card["routes"]]
+        steady = sum(on_tick[2:2 + TICK_STEADY])
+        quiet = sum(on_tick[2 + TICK_STEADY:])
+        status = card_env.provisioner.incremental.status()
+        say(f"phase 14 tick: {N_PODS} pods x {N_TYPES} types, then {N_EXTRA} more "
+            f"(claims in flight), then {TICK_STEADY} steady rounds of {TICK_CHURN:.0%} "
+            f"churn and {TICK_QUIET} quiet rounds of {TICK_QUIET_CHURN:.1%} through "
+            f"Provisioner(device=\"cuda\").reconcile with the tick on: every round's "
+            f"decisions and route equal to device=\"cpu\"'s; equal to "
+            f"KARPENTER_INCREMENTAL=0 on the card; under audit_every=1 every audit "
+            f"clean ({json.dumps(audits)}); on the incremental path: {steady} of "
+            f"{TICK_STEADY} steady rounds, {quiet} of {TICK_QUIET} quiet ones; fallbacks "
+            f"{json.dumps(status['fallbacks'])} | tick run {card_s:.3f}s, CPU "
+            f"{cpu_s:.3f}s, full path {full_s:.3f}s, audited {audit_s:.3f}s")
+        if not steady + quiet:
+            fail("phase 14: no round after the first two rode the incremental path")
+        tick_keys = ("sync", "tick_host", "tick_solve_encoded", "full_host",
+                     "full_solve_encoded", "create", "settle", "round", "card_ms", "packs")
+        full_keys = ("full_host", "full_solve_encoded", "create", "round", "card_ms")
+        for k, (tw, fw) in enumerate(zip(card_walls, full_walls)):
+            res = card["results"][k]
+            say(f"  round {k + 1} ({route(card['routes'][k])}; "
+                f"{len(card['deleted'][k])} deleted, {len(card['respawned'][k])} "
+                f"respawned; {len(res.new_node_plans)} new claims, "
+                f"{sum(len(v) for v in res.existing_assignments.values())} pods on "
+                f"existing nodes, {len(res.errors)} unschedulable): tick {cells(tw, tick_keys)}"
+                f" | full path {cells(fw, full_keys)} | audited round "
+                f"{audit_walls[k]['round']:.6f} (audit {audit_walls[k]['audit']:.6f}) "
+                f"| card: {smi}")
+        say(f"  launches (the tick's card run): {nonzero(launches['tick'])}")
+
+        # ---- 14.2 the micro path with its dual floor, continuing the
+        # card's and the CPU's streams
+        t0 = time.perf_counter()
+        micro: dict = {}
+        for device, env, out in (("cuda", card_env, card), ("cpu", cpu_env, cpu)):
+            if device == "cuda":
+                reset_launches()
+            tick = env.provisioner.incremental
+            orders: list = []
+            real_order = tick.micro_order
+
+            def recording_order(pods, _real=real_order, _orders=orders):
+                got = _real(pods)
+                _orders.append([p.key for p in got])
+                return got
+
+            tick.micro_order = recording_order
+            warm = [StreamRound(pods=workloads.build_problem(
+                        MICRO_WARM[1], N_TYPES, seed=SEED + 10 + i,
+                        name_prefix=f"warm{i}-")[0]) for i in range(MICRO_WARM[0])]
+            batch = workloads.build_problem(MICRO_BATCH, N_TYPES, seed=SEED + 20,
+                                            name_prefix="micro-")[0]
+            with scoped_env({"KARPENTER_MICRO_DUAL": "1"}):
+                testing.run_stream(env, warm, on_round=lambda k, r: take(r), resume=out)
+                dual = tick._dual
+                walls.take()
+                testing.run_stream(env, [StreamRound(pods=batch, micro=True)],
+                                   on_round=lambda k, r: micro.setdefault(
+                                       device + "_walls", take(r)), resume=out)
+            if device == "cuda":
+                launches["micro"] = read_launches()
+            micro[device] = (orders, out["fingerprints"][-1], out["routes"][-MICRO_WARM[0] - 1:],
+                             None if dual is None else
+                             {repr(k): v for k, v in dual.lam_by_sig.items()})
+        card_m, cpu_m = micro["cuda"], micro["cpu"]
+        if card_m[3] is None:
+            fail(f"phase 14 micro: no tick refreshed the dual floor (routes "
+                 f"{card_m[2]})")
+        if card_m[1] is None:
+            fail(f"phase 14 micro: the batch was deferred ({card_m[2][-1]})")
+        for i, what in enumerate(("micro_order", "decisions", "routes", "lam_by_sig")):
+            if card_m[i] != cpu_m[i]:
+                fail(f"phase 14 micro: the card's {what} differs from device=\"cpu\"'s")
+        res = card["results"][-1]
+        gap = 0
+        if card_m[0]:
+            keys = card_m[0][-1]
+            gap = sum(a != b for a, b in zip(keys, sorted(keys)))
+        mw = micro["cuda_walls"]
+        say(f"  micro: KARPENTER_MICRO_DUAL=1, {MICRO_WARM[0]} rounds of "
+            f"{MICRO_WARM[1]} arrivals ({', '.join(route(r) for r in card_m[2][:-1])}), "
+            f"the dual floor refreshed on the card ({len(card_m[3])} signatures), then "
+            f"{MICRO_BATCH} arrivals through Provisioner.micro_solve "
+            f"({route(card_m[2][-1])}): {len(res.new_node_plans)} new claims, "
+            f"{sum(len(v) for v in res.existing_assignments.values())} pods on existing "
+            f"nodes, {len(res.errors)} unschedulable; micro_order ({gap} of "
+            f"{MICRO_BATCH} moved from arrival order), decisions and lam_by_sig equal to "
+            f"device=\"cpu\"'s; walls {cells(mw, ('sync', 'tick_host', 'tick_solve_encoded', 'create', 'round', 'card_ms', 'packs'))}; "
+            f"launches {nonzero(launches['micro'])} ({time.perf_counter() - t0:.3f}s) "
+            f"| card: {smi}")
+
+        # ---- 14.3 IncrementalPipeline at 50k x 500, 1% churn, objective
+        # cost, the delta API (bench.py's steady_state_churn)
+        def pipeline(device: str, ticks: int, full: int):
+            pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=3)
+            rng = np.random.default_rng(17)
+            solver_mod.reset_caches()
+            pipe = IncrementalPipeline(full_every=0, device=device)
+            rows, inc, whole = [], [], []
+
+            def row(r) -> tuple:
+                return (r.mode, r.reason, round(r.fleet_price, 6), r.unschedulable,
+                        sorted(tuple(sorted(n.pods)) for n in pipe._fleet))
+
+            budget = lp_plan._TIME_BUDGET_S
+            lp_plan._TIME_BUDGET_S = 1e4
+            try:
+                with root_node_mips():
+                    t1 = time.perf_counter()
+                    r = pipe.solve_tick(pods, pools, objective="cost")
+                    cold = time.perf_counter() - t1
+            finally:
+                lp_plan._TIME_BUDGET_S = budget
+            rows.append(row(r))
+            for t in range(ticks):
+                k = max(1, int(len(pods) * TICK_CHURN))
+                drop = rng.choice(len(pods), size=k, replace=False).tolist()
+                dropset = set(drop)
+                born = [Pod(metadata=ObjectMeta(name=f"churn-{t}-{j}"), spec=pods[i].spec)
+                        for j, i in enumerate(drop)]
+                removed = [pods[i].key for i in drop]
+                pods = [p for i, p in enumerate(pods) if i not in dropset] + born
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                r = pipe.solve_tick(pods, pools, objective="cost", delta=(born, removed))
+                torch.cuda.synchronize()
+                inc.append(time.perf_counter() - t1)
+                if t < PIPELINE_HELD:
+                    rows.append(row(r))
+                if t < full:
+                    t1 = time.perf_counter()
+                    sol = solver_mod.solve(pods, pools, objective="cost", device=device)
+                    torch.cuda.synchronize()
+                    whole.append((time.perf_counter() - t1, float(sol.total_price),
+                                  len(sol.unschedulable), r))
+            return rows, inc, whole, cold
+
+        t0 = time.perf_counter()
+        reset_launches()
+        spans.clear()
+        rows, inc, whole, cold = pipeline("cuda", PIPELINE_TIMED, PIPELINE_FULL)
+        launches["pipeline"] = read_launches()
+        card_ms = sum(s.elapsed_time(e) for s, e in spans)
+        spans.clear()
+        card_p = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_rows, _, _, cpu_cold = pipeline("cpu", PIPELINE_HELD, 0)
+        cpu_p = time.perf_counter() - t0
+        for t, (a, b) in enumerate(zip(rows, cpu_rows)):
+            if a != b:
+                fail(f"phase 14 pipeline: tick {t} ({a[:4]}) differs from "
+                     f"device=\"cpu\"'s ({b[:4]})")
+        solver_mod.reset_caches()
+        p50 = statistics.median(inc)
+        full_p50 = statistics.median(w for w, _, _, _ in whole)
+        drift = [f"{r.fleet_price / price - 1:+.6f}" for _, price, _, r in whole]
+        say(f"  pipeline: IncrementalPipeline(full_every=0) on build_problem({N_PODS}, "
+            f"{N_TYPES}, seed=3), objective cost, {TICK_CHURN:.0%} churn a tick through "
+            f"the delta API: the cold tick ({rows[0][1]}, ${rows[0][2]:.6f}/h, "
+            f"{len(rows[0][4])} nodes, {cold:.3f}s on the card, {cpu_cold:.3f}s on the "
+            f"CPU) and {PIPELINE_HELD} churn ticks equal to device=\"cpu\"'s (fleet price, "
+            f"unschedulable, each node's pods); {PIPELINE_TIMED} churn ticks p50 "
+            f"{p50:.6f}s [{', '.join(f'{w:.6f}' for w in inc)}] against a full "
+            f"solve(objective=\"cost\") of the same pods p50 {full_p50:.6f}s "
+            f"[{', '.join(f'{w:.6f}' for w, _, _, _ in whole)}] over the first "
+            f"{PIPELINE_FULL}, the tick's fleet price against the full solve's "
+            f"{', '.join(drift)}; card ms in the packing calls {card_ms:.3f}; launches "
+            f"{nonzero(launches['pipeline'])} | card run {card_p:.3f}s, CPU {cpu_p:.3f}s "
+            f"| card: {smi}")
+    finally:
+        solver_mod._solve_packing = seam
+        walls.close()
+    for name in ("tick", "micro", "pipeline"):
+        n = launches.get(name, {})
+        if n.get("pack_split_flat", 0) < 1 or n.get("pack_split", 0) + n.get(
+                "pack_split_wavefront", 0) < 1:
+            fail(f"phase 14 {name} launched {n}: expected a packing kernel and "
+                 f"pack_split_flat")
+    if launches["micro"].get("lp_ascend", 0) < 1:
+        fail(f"phase 14 micro: the dual floor launched no B5 ({launches['micro']})")
+    served = served_by_device("phase 14", since)
+    say(f"phase 14: every packing solve served by the device rung "
+        f"({json.dumps(served)} ok, the CPU runs' included), none degraded "
+        f"({time.perf_counter() - t_phase:.3f}s)")
+    return launches
+
+
 # the spilled launches: their source and the JAX program each replaces
 GLOBAL_KERNELS = {
     "pack_split_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:444"),
@@ -4158,6 +4573,11 @@ def main() -> None:
     if PROVISION in sys.argv[1:]:
         provision_phase(smi)
         say(f"chip_smoke {PROVISION}: {time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
+    if TICK in sys.argv[1:]:
+        tick_phase(smi)
+        say(f"chip_smoke {TICK}: {time.perf_counter() - T_START:.3f}s wall")
         finish(kind, smi)
         return
     if CATALOG in sys.argv[1:]:
@@ -4473,6 +4893,12 @@ def main() -> None:
     provisioning = provision_phase(smi)
     for name in route_launches:
         route_launches[name] += sum(n[name] for n in provisioning.values())
+    # ---- 14. the incremental tick, the micro path, the pipeline
+    ticking = tick_phase(smi)
+    for name in route_launches:
+        route_launches[name] += sum(n[name] for n in ticking.values())
+    tick_lp = {name: sum(n[name] for n in ticking.values())
+               for name in ("lp_price", "lp_ascend")}
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",
@@ -4496,13 +4922,15 @@ def main() -> None:
         {"name": "lp_price", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/lp_price.cu",
          "replaces": "karpenter_tpu/solver/lp_plan.py:150",
-         "launches": launches["cost"]["lp_price"], "max_abs_err": err["lp_price"],
+         "launches": launches["cost"]["lp_price"] + tick_lp["lp_price"],
+         "max_abs_err": err["lp_price"],
          "ms": b4_ms, "plain_ms": b4_plain_ms, "bound_ms": b4_bound,
          "bound_by": b4_by, "library_ms": None},
         {"name": "lp_ascend", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/lp_ascend.cu",
          "replaces": "karpenter_tpu/solver/lp_device.py:202",
-         "launches": launches["cost"]["lp_ascend"] + probes["b5_launches"],
+         "launches": launches["cost"]["lp_ascend"] + probes["b5_launches"]
+         + tick_lp["lp_ascend"],
          "max_abs_err": err["lp_ascend"], "ms": b5["ms"], "plain_ms": b5["plain_ms"],
          "bound_ms": b5["bound"], "bound_by": b5["by"], "library_ms": None},
         *probes["entries"],

@@ -365,13 +365,18 @@ class KubeClient:
                         batch = self._pending_events[:n]
                         del self._pending_events[:n]
                     else:
-                        # the state-plane shards (state/shards.py)
-                        # come with the incremental tick
-                        raise NotImplementedError(
-                            "KubeClient.deliver(shard=) needs "
-                            "state/shards.py, which comes with ROADMAP "
-                            "item 5b (the incremental tick)"
-                        )
+                        from karpenter_tpu_torch.state.shards import shard_of_event
+
+                        batch, kept = [], []
+                        for item in self._pending_events:
+                            kind, _, obj = item
+                            if shard_of_event(kind, obj) == shard and (
+                                limit is None or len(batch) < limit
+                            ):
+                                batch.append(item)
+                            else:
+                                kept.append(item)
+                        self._pending_events = kept
                 for kind, event, obj in batch:
                     self._dispatch(kind, event, obj)
                 return len(batch)

@@ -1,13 +1,13 @@
 """Provisioner: pending pods -> NodeClaims.
 
 Copy of `karpenter_tpu/provisioning/provisioner.py`, with its imports
-pointed into `karpenter_tpu_torch`, and two differences:
-- `Provisioner(..., device=None)` hands its device to every Scheduler
-  it builds; `None` means the card, and without a CUDA device the
-  constructor raises as `solver.solve` does.
-- `schedule()` always takes the full Scheduler, as the JAX package does
-  under KARPENTER_INCREMENTAL=0. The incremental tick, and
-  `micro_solve`, which exists only for it, come with ROADMAP item 5b.
+pointed into `karpenter_tpu_torch`. The one addition is the device:
+`Provisioner(..., device=None)` hands its device to every Scheduler it
+builds and to its incremental tick
+(`provisioning/incremental_tick.py`), the default reconcile path
+(KARPENTER_INCREMENTAL=0 is its kill switch); `None` means the card,
+and without a CUDA device the constructor raises as `solver.solve`
+does.
 
 Counterpart of pkg/controllers/provisioning/provisioner.go: batch
 pending pods (batcher), gate on state sync, snapshot the cluster,
@@ -156,10 +156,28 @@ class Provisioner:
 
         self.encode_cache = EncodedCache()
         self._catalog_dirty = DirtyTracker(kube).watch("NodePool")
-        # No incremental live tick here (ROADMAP item 5b): every round
-        # takes the full Scheduler below, which is what the JAX
-        # package's provisioner does under KARPENTER_INCREMENTAL=0 and
-        # on every tick outside the incremental envelope.
+        # Incremental live tick (the default reconcile path): retained
+        # per-node solver inputs synced O(dirty) from the watch stream,
+        # with a shadow full-solve oracle audit and quarantine-on-
+        # divergence. Ineligible ticks (topology, volumes, minValues,
+        # spot budgets, reservations, churn blow-outs) fall through to
+        # the unchanged full Scheduler below. KARPENTER_INCREMENTAL=0
+        # disables it entirely.
+        from karpenter_tpu_torch.provisioning.incremental_tick import (
+            IncrementalTickScheduler,
+        )
+
+        self.incremental = IncrementalTickScheduler(
+            kube, cluster, self.encode_cache,
+            make_scheduler=self._make_scheduler,
+            options=options, clock=self.clock,
+            # the admission loop's limit simulation: a mixed-priority
+            # incremental tick whose plans would blow a pool limit
+            # must fall back to the full path (where the shed/cutoff
+            # machinery wraps the results)
+            plans_over_limits=self._plans_over_limits,
+            device=self.device,
+        )
 
     # -- pod intake (provisioner.go:172-195, utils/node) ----------------------
 
@@ -285,12 +303,21 @@ class Provisioner:
         if self._catalog_dirty.drain("NodePool"):
             self.encode_cache.invalidate()
         pools = self.ready_pools_with_types()
-        # the full path always (the incremental tick is ROADMAP item
-        # 5b); the route span says so, as the JAX package's tick does
-        # when KARPENTER_INCREMENTAL=0
+        # the incremental live tick is the default path; it returns
+        # None for ticks outside its envelope (explicit extra_pods are
+        # a caller-scripted solve, not the live reconcile). A
+        # mixed-priority tick that hits a capacity failure — the only
+        # case the admission loop below would act on — falls back to
+        # the full path inside the tick (reason "priority"), so an
+        # incremental serve never needs the shed/cutoff machinery.
+        # The route span carries the decision + reason — the
+        # incremental tick annotates it from its gates.
         if not extra_pods:
             with tracing.span("route"):
-                tracing.annotate(path="full", reason="disabled")
+                results = self.incremental.tick(pods, pools)
+                if results is not None:
+                    self.cluster.mark_pod_scheduling_decisions(pods)
+                    return results
         results = self._make_scheduler(pools).solve(pods)
         with tracing.span("admission"):
             results = self._enforce_priority_admission(pods, pools, results)
@@ -682,13 +709,43 @@ class Provisioner:
     ) -> Optional[SchedulerResults]:
         """Event-driven micro provisioning round: a debounced arrival
         batch rides the incremental tick's O(dirty) path against
-        retained inputs. It exists only for the incremental tick, which
-        comes with ROADMAP item 5b."""
-        raise NotImplementedError(
-            "Provisioner.micro_solve needs the incremental tick "
-            "(provisioning/incremental_tick.py), which comes with "
-            "ROADMAP item 5b"
+        retained inputs. Intake is the batch the reactive plane
+        resolved — never a store walk. Returns None when the
+        incremental envelope DEFERRED the batch to the next full tick
+        (ineligible shape, cold cache, churn, quarantine, priority
+        shedding); the operator re-arms the batcher in that case."""
+        from karpenter_tpu_torch import tracing
+
+        if not pods or not self.cluster.synced():
+            return None
+        reprice = getattr(self.cloud_provider, "reprice", None)
+        if reprice is not None and now is not None:
+            reprice(now)
+        pods = list(pods)
+        from karpenter_tpu_torch.scheduling.priority import (
+            resolve_pod_priorities,
         )
+
+        resolve_pod_priorities(pods, self.kube)
+        if self._catalog_dirty.drain("NodePool"):
+            self.encode_cache.invalidate()
+        pools = self.ready_pools_with_types()
+        # reduced-cost ordering from the retained dual certificate —
+        # applied BEFORE tick() so the shadow audit sees the same order
+        pods = self.incremental.micro_order(pods)
+        with tracing.span("route"):
+            results = self.incremental.tick(pods, pools, micro=True)
+        if results is None:
+            return None
+        # same crash window as reconcile(): decided, nothing written —
+        # the chaos suite kills the operator mid-micro-solve here
+        from karpenter_tpu_torch.solver import faults as _faults
+
+        _faults.fire("crash_claims")
+        self.create_node_claims(results, now=now)
+        self._record_events(results, now=now)
+        self.cluster.mark_pod_scheduling_decisions(pods)
+        return results
 
     def _record_events(self, results: SchedulerResults,
                        now: Optional[float] = None) -> None:

@@ -35,7 +35,8 @@ underneath ride the resilience ladder). On a CUDA device it degrades
 only what the ladder degrades there (`resilience.may_degrade`: an
 injected fault, a deadline); a kernel that fails to build or launch,
 and any other error on the card, reach the caller. `solve` itself lets
-every error through.
+every error through. A solve under an open explain record notes its
+`dual_summary` there, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -1039,13 +1040,58 @@ def maybe_solve(enc: Encoded, device: torch.device | str = "cuda", shards: int =
     if enc.compat.shape[0] == 0 or not (enc.cfg_pool >= 0).any():
         return None
     try:
-        return solve(enc, device=device, shards=shards)
+        dlp = solve(enc, device=device, shards=shards)
     except Exception as err:
         if not may_degrade(err, device):
             raise
         SOLVER_LP_SOLVES.inc({"outcome": "degraded"})
         log.warning("device LP degraded to unguided path: %s", err)
         return None
+    # decision explainability (karpenter_tpu_torch/explain): the duals ARE
+    # the economic reading of the tick — attach a per-solve summary to
+    # the open record (no record open / kill switch -> one global read)
+    from karpenter_tpu_torch import explain
+
+    if explain.active() is not None:
+        explain.note_lp(dual_summary(enc, dlp))
+    return dlp
+
+
+def dual_summary(enc: Encoded, dlp: DeviceLP, k: int = 3) -> dict:
+    """The per-solve dual digest the explain plane records: the top-k
+    binding demand groups (their scaled dual prices — what one more
+    pod of that shape would cost the fleet), the reservation-cap duals
+    (what one more reserved instance would be worth), and the
+    certified bound. Values are the float64 host-certified duals,
+    rounded for stable replay comparison."""
+    lam = dlp.lam
+    order = [
+        int(gi) for gi in np.argsort(-lam, kind="stable")[:k]
+        if lam[gi] > 0
+    ]
+    return {
+        "bound": round(float(dlp.lower_bound), 6),
+        "binding_groups": [
+            {
+                "group": gi,
+                "dual": round(float(lam[gi]), 6),
+                "pods": int(enc.group_count[gi]),
+                "priority": (
+                    int(enc.group_priority[gi])
+                    if enc.group_priority is not None else 0
+                ),
+            }
+            for gi in order
+        ],
+        "reservation_cap_duals": [
+            round(float(m), 6) for m in dlp.mu.tolist()
+        ],
+        "iterations": int(dlp.iterations),
+        "converged": bool(dlp.converged),
+        # NOTE: cache_hit/wall_s deliberately absent — both track
+        # process history (the LRU, machine speed), not the decision,
+        # and would break the replay byte-identity contract
+    }
 
 
 def rank_prices(enc: Encoded, dlp: DeviceLP,

@@ -1567,7 +1567,8 @@ class ProvisionCase:
     """One provisioning round. Pods and nodes are dicts of plain
     values (see `case_objects` for the keys); `catalog` is
     ("diverse" | "hetero", n, stride): every stride-th type of
-    `instance_types(n)` or `heterogeneous_instance_types(n)`;
+    `instance_types(n)` or `heterogeneous_instance_types(n)`, or
+    ("custom", ((name, cpu, memory GiB, price), ...), 1);
     `reservations` are (type index, reservation id, zone, count)."""
 
     name: str
@@ -1591,21 +1592,28 @@ def package_api():
     from karpenter_tpu_torch.apis.v1 import labels, nodeclaim, nodepool
     from karpenter_tpu_torch.cloudprovider import fake
     from karpenter_tpu_torch.kube import client, objects
+    from karpenter_tpu_torch.metrics import store
     from karpenter_tpu_torch.provisioning import provisioner
     from karpenter_tpu_torch.state import cluster
 
     return SimpleNamespace(
         labels=labels, nodeclaim=nodeclaim, nodepool=nodepool, fake=fake,
         objects=objects, client=client, cluster=cluster,
-        provisioner=provisioner,
+        provisioner=provisioner, store=store,
     )
 
 
 def case_types(case: ProvisionCase, api) -> list:
     kind, n, stride = case.catalog
-    gen = api.fake.instance_types if kind == "diverse" else \
-        api.fake.heterogeneous_instance_types
-    types = list(gen(n)[::stride])
+    if kind == "custom":
+        # n: (name, cpu, memory GiB, price) per type
+        types = [api.fake.make_instance_type(name, cpu=cpu, memory=mem * GIB,
+                                             price=price)
+                 for name, cpu, mem, price in n]
+    else:
+        gen = api.fake.instance_types if kind == "diverse" else \
+            api.fake.heterogeneous_instance_types
+        types = list(gen(n)[::stride])
     for ti, rid, zone, count in case.reservations:
         it = types[ti]
         types[ti] = api.fake.make_instance_type(
@@ -1633,6 +1641,7 @@ def case_pod(api, d: dict, ts: float):
             requests={"cpu": float(d.get("cpu", 1.0)),
                       "memory": float(d.get("mem", 1.0) * GIB)},
             ports=list(d.get("host_ports", ())),
+            resource_claims=list(d.get("resource_claims", ())),
         )],
         node_selector=dict(d.get("node_selector", {})),
         tolerations=[
@@ -1719,6 +1728,22 @@ def case_pool(api, d: dict):
     return pool
 
 
+def case_daemonset(api, d: dict, ts: float = CASE_T0):
+    """A DaemonSet whose pod template is `case_pod`'s pod for `d`."""
+    o = api.objects
+    tmpl = case_pod(api, dict(d, name=f"{d['name']}-tmpl"), ts)
+    return o.DaemonSet(
+        metadata=o.ObjectMeta(name=d["name"], uid=f"uid-ds-{d['name']}",
+                              creation_timestamp=ts),
+        spec=o.DaemonSetSpec(
+            selector=_selector(api, {"ds": d["name"]}),
+            template=o.PodTemplateSpec(
+                metadata=o.ObjectMeta(labels={"ds": d["name"]},
+                                      creation_timestamp=ts),
+                spec=tmpl.spec),
+        ))
+
+
 def case_objects(case: ProvisionCase, api) -> dict:
     """The objects of one case, built with `api`'s constructors, in
     the order `build_env` creates them: priority classes, storage
@@ -1747,17 +1772,7 @@ def case_objects(case: ProvisionCase, api) -> dict:
     for d in case.pools:
         first.append(case_pool(api, d))
     for d in case.daemonsets:
-        tmpl = case_pod(api, dict(d, name=f"{d['name']}-tmpl"), CASE_T0)
-        first.append(o.DaemonSet(
-            metadata=o.ObjectMeta(name=d["name"], uid=f"uid-ds-{d['name']}",
-                                  creation_timestamp=CASE_T0),
-            spec=o.DaemonSetSpec(
-                selector=_selector(api, {"ds": d["name"]}),
-                template=o.PodTemplateSpec(
-                    metadata=o.ObjectMeta(labels={"ds": d["name"]},
-                                          creation_timestamp=CASE_T0),
-                    spec=tmpl.spec),
-            )))
+        first.append(case_daemonset(api, d))
     by_name = {it.name: it for it in types}
     for k, d in enumerate(case.nodes):
         it = types[d["type"]] if isinstance(d["type"], int) else by_name[d["type"]]
@@ -1816,13 +1831,14 @@ class CaseOptions:
         self.ignore_dra_requests = True
 
 
-def _env(api, cloud, objects, options, t0: float, **provisioner_kwargs):
-    """`api`'s KubeClient, Cluster (informers attached) and Provisioner
-    over `cloud`, with `objects` created in order and a clock that never
-    moves, so the Scheduler's solve bound never fires."""
+def _env(api, cloud, objects, options, t0: float, kube=None,
+         **provisioner_kwargs):
+    """`api`'s KubeClient (or `kube`), Cluster (informers attached) and
+    Provisioner over `cloud`, with `objects` created in order and a
+    clock that never moves, so the Scheduler's solve bound never fires."""
     from types import SimpleNamespace
 
-    kube = api.client.KubeClient()
+    kube = kube if kube is not None else api.client.KubeClient()
     cluster = api.cluster.Cluster(kube)
     api.cluster.attach_informers(kube, cluster)
     for obj in objects:
@@ -1832,7 +1848,7 @@ def _env(api, cloud, objects, options, t0: float, **provisioner_kwargs):
         **provisioner_kwargs,
     )
     return SimpleNamespace(kube=kube, cluster=cluster, cloud=cloud,
-                           provisioner=prov)
+                           provisioner=prov, api=api)
 
 
 def build_env(case: ProvisionCase, api, **provisioner_kwargs):
@@ -1912,6 +1928,236 @@ def reconcile_rounds(env, waves, t0: float = CASE_T0, on_round=None) -> dict:
         names = claim_names([c for cs in created for c in cs])
         fps.append(decision_fingerprint(results, names))
     return {"results": rounds, "claims": created, "fingerprints": fps}
+
+
+# -- event streams: rounds of a live cluster, for the incremental tick ------
+#
+# `run_stream` drives one environment (either package's, `build_env` /
+# `pods_env`) through a list of `StreamRound`s: between two reconciles
+# the last round's claims launch (`launch_claims`) and, unless the
+# round says otherwise, register as nodes with the round's pods bound to
+# them (`settle`); then pods are deleted and created, a DaemonSet
+# appears or a watch drops, as the round says. Everything is named by
+# creation order or by the round, so the same stream decides alike in
+# both packages.
+
+
+@dataclass
+class StreamRound:
+    """What happens before one round's `reconcile`, in this order:
+    `settle` registers the claims in flight as nodes and binds the last
+    round's pods (else the last round's claims only launch, in flight);
+    `relist` drops those kinds' watches (a 410: `RelistingKubeClient`);
+    `daemonset` (`case_daemonset`'s dict) is created; `delete` of the
+    bound pods are deleted (a share, or a count when >= 1), chosen by
+    `pick` ("name": the first by name; "seeded": `seed`'s draw), and
+    with `respawn` as many pods of their shapes are created; then the
+    `add` pods (`case_pod` dicts) and the `pods` (pod objects of the
+    environment's package) arrive. A `micro` round hands its arrivals
+    to `Provisioner.micro_solve` instead of `reconcile` (its results
+    are None when the tick defers the batch)."""
+
+    settle: bool = True
+    relist: tuple = ()
+    daemonset: Optional[dict] = None
+    delete: float = 0.0
+    respawn: bool = False
+    pick: str = "name"
+    seed: int = 0
+    add: list = field(default_factory=list)
+    pods: list = field(default_factory=list)
+    micro: bool = False
+
+
+def relisting_client(api):
+    """`api`'s in-memory KubeClient whose watches can drop:
+    `drop_watch(*kinds)` is a 410 on those kinds' streams. Their relist
+    generation advances (`relist_generation`, the signal
+    `DirtyTracker.relisted` latches, which the incremental tick reads
+    as "everything dirty"); no per-shard generations, so the relist is
+    unscoped."""
+
+    class RelistingKubeClient(api.client.KubeClient):
+        def relist_generation(self, kind: str) -> int:
+            return self.relists.get(kind, 0)
+
+        def drop_watch(self, *kinds: str) -> None:
+            for kind in kinds:
+                self.relists[kind] = self.relists.get(kind, 0) + 1
+
+    kube = RelistingKubeClient()
+    kube.relists = {}
+    return kube
+
+
+def reset_counters(api) -> None:
+    """Restart `api`'s process-wide claim-name and uid counters: the
+    incremental tick's poison site corrupts the retained row with the
+    least key, and the keys of claims in flight are claim names."""
+    import itertools
+
+    api.provisioner._claim_counter = itertools.count(1)
+    api.objects._uid_counter = itertools.count(1)
+
+
+def settle(env, plans: dict, results, t: float) -> None:
+    """What the provider, the lifecycle controller and kube-scheduler
+    write back after a round: every claim launched and not yet
+    registered becomes a node (`node-<claim-i>`, `claim_names` order
+    over `plans`: claim name -> the plan that made it), with the
+    labels of its plan's cheapest option, the claim's taints and the
+    lifecycle conditions; then `results`' pods bind: a new plan's to
+    its claim's node, an existing assignment's to the node its key
+    names (an in-flight claim's node once registered)."""
+    api = env.api
+    o, lb, nc = api.objects, api.labels, api.nodeclaim
+    names = claim_names([env.kube.get_node_claim(n) for n in plans
+                         if env.kube.get_node_claim(n) is not None])
+    for claim in list(env.kube.node_claims()):
+        name = claim.metadata.name
+        if (claim.status.node_name or not claim.status.provider_id
+                or name not in plans or claim.metadata.deletion_timestamp):
+            continue
+        it, off = plans[name].primary()
+        node_name = f"node-{names[name]}"
+        labels = dict(claim.metadata.labels)
+        labels.update({
+            INSTANCE_TYPE_LABEL: it.name,
+            TOPOLOGY_ZONE_LABEL: off.zone,
+            CAPACITY_TYPE_LABEL: off.capacity_type,
+            ARCH_LABEL: it.requirements.get(ARCH_LABEL).any_value(),
+            OS_LABEL: it.requirements.get(OS_LABEL).any_value(),
+            lb.HOSTNAME_LABEL: node_name,
+        })
+        if off.reservation_id:
+            labels[lb.RESERVATION_ID_LABEL] = off.reservation_id
+        claim.status.node_name = node_name
+        for cond in nc.LIFECYCLE_ROOT_CONDITIONS:
+            claim.status_conditions.set_true(cond, now=t)
+        env.kube.update(claim)
+        env.kube.create(o.Node(
+            metadata=o.ObjectMeta(name=node_name, namespace="",
+                                  uid=f"uid-{node_name}", labels=labels,
+                                  creation_timestamp=t),
+            spec=o.NodeSpec(provider_id=claim.status.provider_id,
+                            taints=list(claim.spec.taints)),
+            status=o.NodeStatus(capacity=dict(claim.status.capacity),
+                                allocatable=dict(claim.status.allocatable)),
+        ))
+
+    def bind(pods, target: str) -> None:
+        for pod in pods:
+            live = env.kube.get_pod(pod.metadata.namespace, pod.metadata.name)
+            if live is not None and not live.spec.node_name:
+                env.kube.bind_pod(live, target)
+
+    for plan in results.new_node_plans:
+        claim = env.kube.get_node_claim(plan.claim_name) if plan.claim_name else None
+        if claim is not None and claim.status.node_name:
+            bind(plan.pods, claim.status.node_name)
+    for key, pods in results.existing_assignments.items():
+        claim = env.kube.get_node_claim(key)
+        target = claim.status.node_name if claim is not None else key
+        if target and env.kube.get_node(target) is not None:
+            bind(pods, target)
+
+
+def _stream_deletions(env, rnd: StreamRound) -> list:
+    bound = sorted((p for p in env.kube.pods() if p.spec.node_name),
+                   key=lambda p: p.metadata.name)
+    if not bound or not rnd.delete:
+        return []
+    n = int(rnd.delete) if rnd.delete >= 1 else max(1, int(len(bound) * rnd.delete))
+    n = min(n, len(bound))
+    if rnd.pick == "seeded":
+        rng = np.random.default_rng(rnd.seed)
+        return [bound[i] for i in sorted(rng.choice(len(bound), size=n, replace=False))]
+    return bound[:n]
+
+
+def _respawn(api, pod, name: str, t: float):
+    """A pending pod of `pod`'s shape: its spec, unbound."""
+    import copy
+
+    o = api.objects
+    spec = copy.deepcopy(pod.spec)
+    spec.node_name = ""
+    return o.Pod(metadata=o.ObjectMeta(
+        name=name, uid=f"uid-{name}", labels=dict(pod.metadata.labels),
+        owner_references=list(pod.metadata.owner_references),
+        creation_timestamp=t), spec=spec)
+
+
+def tick_routes(api, before: dict) -> list:
+    """The (path, reason) pairs the incremental tick counted since the
+    `INCREMENTAL_TICK` samples `before` (empty when the tick is off)."""
+    now = dict(api.store.INCREMENTAL_TICK.samples())
+    return sorted(
+        (dict(k)["path"], dict(k)["reason"])
+        for k, v in now.items() if v > before.get(k, 0.0)
+    )
+
+
+def run_stream(env, rounds, t0: float = CASE_T0, on_round=None,
+               resume: Optional[dict] = None) -> dict:
+    """Round k of `rounds` (`StreamRound`) at t0 + 10k: its events,
+    then `reconcile(now=t0 + 10k + 5)`. Returns each round's results,
+    its name-insensitive fingerprint (claims named by creation order,
+    `claim_names`), its route (`tick_routes`), the claims it created,
+    and what the stream deleted and created. `on_round(k, results)`
+    runs after each reconcile. `resume` (an earlier return of this
+    function on `env`) continues that stream: its rounds keep counting
+    and its results are extended."""
+    api = env.api
+    out = resume if resume is not None else {
+        "results": [], "fingerprints": [], "routes": [], "claims": [],
+        "deleted": [], "respawned": [], "_plans": {}, "_created": []}
+    plans, created = out["_plans"], out["_created"]
+    start = len(out["results"])
+    for k, rnd in enumerate(rounds, start):
+        t = t0 + 10 * k
+        prev = next((r for r in reversed(out["results"]) if r is not None), None)
+        if prev is not None:
+            launch_claims(env, prev)
+            if rnd.settle:
+                settle(env, plans, prev, t)
+        if rnd.relist:
+            env.kube.drop_watch(*rnd.relist)
+        if rnd.daemonset is not None:
+            env.kube.create(case_daemonset(api, rnd.daemonset, t))
+        gone = _stream_deletions(env, rnd)
+        for pod in gone:
+            env.kube.delete(pod, now=t)
+        born = [_respawn(api, pod, f"{pod.metadata.name}-r{k}", t)
+                for pod in gone] if rnd.respawn else []
+        arrivals = born + [case_pod(api, d, t + 1 + i) for i, d in enumerate(rnd.add)]
+        for pod in rnd.pods:
+            pod.metadata.creation_timestamp = t
+        arrivals += list(rnd.pods)
+        for pod in arrivals:
+            env.kube.create(pod)
+        before = dict(api.store.INCREMENTAL_TICK.samples())
+        if rnd.micro:
+            results = env.provisioner.micro_solve(arrivals, now=t + 5)
+        else:
+            results = env.provisioner.reconcile(now=t + 5)
+        if on_round is not None:
+            on_round(k, results)
+        out["routes"].append(tick_routes(api, before))
+        new = []
+        for plan in results.new_node_plans if results is not None else ():
+            if plan.claim_name:
+                plans[plan.claim_name] = plan
+                new.append(env.kube.get_node_claim(plan.claim_name))
+        created.extend(new)
+        out["results"].append(results)
+        out["claims"].append(new)
+        out["deleted"].append([p.key for p in gone])
+        out["respawned"].append([p.key for p in born])
+        out["fingerprints"].append(
+            None if results is None
+            else decision_fingerprint(results, claim_names(created)))
+    return out
 
 
 def decision_fingerprint(results, names: Optional[dict] = None) -> tuple:

@@ -2,7 +2,9 @@
 
 (d) `solve()` with no device runs on the card, so on a host without
     CUDA it raises instead of moving to the CPU; so do
-    `Scheduler(...).solve` and `Provisioner(...).reconcile`.
+    `Scheduler(...).solve`, `Provisioner(...).reconcile` and
+    `.micro_solve`, `IncrementalPipeline().solve_tick` and
+    `build_dual_floor`.
 (e) importing `karpenter_tpu_torch` and one CPU solve load neither
     `jax` nor `karpenter_tpu` (checked in a fresh interpreter); nor do
     two provisioning rounds through the port's Provisioner.
@@ -48,6 +50,27 @@ def test_scheduler_and_provisioner_default_device_without_cuda_raise():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         testing.provision_env(case, None).provisioner.reconcile(
             now=testing.CASE_T0 + 10)
+
+
+def test_incremental_entry_points_default_device_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+    from karpenter_tpu_torch.solver.incremental import (
+        IncrementalPipeline,
+        build_dual_floor,
+    )
+
+    pods, pools = build_problem(20, 5, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IncrementalPipeline().solve_tick(pods, pools)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_dual_floor(encode(group_pods(pods), pools))
+    case = testing.provision_cases(0)[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        testing.provision_env(case, None).provisioner.micro_solve(
+            pods, now=testing.CASE_T0 + 10)
 
 
 def test_provisioning_rounds_load_no_jax():

@@ -5,9 +5,10 @@ once with the port's constructors (`testing.provision_env`) and once
 with the JAX package's (`testing.build_env(case, jax_api())`). Both
 Provisioners run two `reconcile` rounds (the second after the case's
 extra pods arrive, so pods land on the first round's in-flight
-claims). The JAX package's incremental tick is switched off
-(KARPENTER_INCREMENTAL=0): the port always takes the full Scheduler,
-which is the path that switch selects. Claim names come from each
+claims). Both packages' incremental tick is switched off
+(KARPENTER_INCREMENTAL=0): these tests hold the full Scheduler path
+(the tick, the default, is held in test_torch_incremental_tick.py).
+Claim names come from each
 package's process-wide counter, so decisions are compared
 name-insensitively (`testing.decision_fingerprint`) with in-flight
 claims named by creation order. Every comparison is exact.
