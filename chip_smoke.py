@@ -33,6 +33,10 @@
                                     # incremental tick, the micro path
                                     # and IncrementalPipeline on the
                                     # card, held against device="cpu"
+    python3 chip_smoke.py --disrupt # phases 1-2 and 15 alone: the
+                                    # consolidation engine's rounds on the
+                                    # card, held against the batch off,
+                                    # the pruner off and device="cpu"
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -54,7 +58,13 @@
                                     # of B1, B3 and B2 in each tree compared
                                     # kernel by kernel
 
-Phases, each reported on its own line; any failure exits non-zero:
+Phases, each reported on its own line; any failure exits non-zero. The
+CPU references that need nothing of the card (phase 4's first and small
+requests, phase 11's catalog, phase 13's benchmark rounds, phase 14's
+stream with its micro path and its pipeline, each with device="cpu"
+from the same seeds) are computed in one worker process,
+started after the build, beside the card's phases; the process is
+stopped when the script ends.
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile the CUDA kernels from karpenter_tpu_torch/csrc
                 (one nvcc per source, in parallel, B1's and B3's sources
@@ -357,6 +367,35 @@ LP degraded.
                 solve of the same pods (the first 3). Each part launches
                 a packing kernel and B2, the micro part B5; the device
                 rung serves every solve of the phase.
+  15. disruption — the consolidation engine (`disruption/engine.py`) on
+                the card: bench.py's consolidation fleet
+                (`build_problem(21000, 200, seed=9)`) provisioned through
+                the Provisioner and settled, 55% of its pods deleted
+                (consolidation_fleet's draw), then rounds of
+                `DisruptionEngine.reconcile` and the queue
+                (`testing.disruption_rounds`: replacements registered,
+                validation, the candidates drained through
+                `KubeClient.evict`, the displaced pods placed again)
+                until a round decides nothing or stalls (the same command
+                rolled back again); per round the deciding method, its
+                command, the fleet's $/h, each method's wall (the
+                engine's own DISRUPTION_EVALUATION_DURATION), the card's
+                ms in the packing calls, B6's lanes and dispatches; then
+                the probe methods on the final fleet. Holds: round 1 of
+                fresh streams with KARPENTER_BATCH_PROBES=0 and with
+                KARPENTER_LP_PRUNE=0 decides the same, and so do the
+                probe methods on the final fleet (single-node only with
+                the pruner off: batch off it is a solve a candidate); the
+                first B6 chunk the engine dispatched is byte-identical to
+                `pack_probe_lanes_flat_ref`; with the counts zeroed
+                before the stream and read after the probe pass, the
+                engine launched B6 and the lane epilogue, B5, B4, B3 or
+                B1, and B2; the stream on MID_FLEET decides round for
+                round as device="cpu"'s; at 50k x 500 (registered, all
+                bound) one reconcile decides alike with the retained seam
+                warm and with KARPENTER_DISRUPTION_SNAPSHOT=0 (the scan
+                walls of both printed). The device rung serves every
+                solve of the phase.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -442,6 +481,130 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the references on the CPU that need nothing of the card, by name: the
+# fingerprints of phase 4's first and small requests (device="cpu"), of
+# phase 11's catalog, phase 13's benchmark rounds, and phase 14's stream
+# with its micro path and its pipeline. The whole run
+# computes them in one worker process of their own (CPU_REF_THREADS
+# threads), started after the build, so that they run beside the card's
+# phases; a phase run alone computes its own inline
+CPU_REFS_ORDER = ("first", "small", "catalog", "provision", "tick", "pipeline")
+CPU_REF_THREADS = 4
+
+
+def cpu_reference(name: str):
+    """The reference `name` computed on the CPU from its seeds: phase
+    4's and 11's a solution fingerprint; phase 13's the benchmark
+    problem's two reconcile rounds in a fresh environment (the rounds'
+    fingerprints, pods placed or unschedulable, and rungs degraded);
+    phase 14's `tick_stream` (fingerprints, routes, rungs degraded) and
+    then its `micro_continue`, and `pipeline_run`'s held rows and cold
+    tick's wall."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.solver.encode import group_pods
+    from karpenter_tpu_torch.solver.solver import fingerprint, solve
+    from karpenter_tpu_torch.workloads import aws_catalog_50k, build_problem
+
+    if name == "catalog":
+        pods, pools = aws_catalog_50k(CATALOG_TYPES)
+        return fingerprint(solve(pods, pools, device="cpu"))
+    if name == "tick":
+        degraded: list = []
+        env, out = tick_stream("cpu", on_round=lambda k, r: degraded.append(
+            [] if r is None else list(r.degraded_rungs)))
+        stream = {"fingerprints": list(out["fingerprints"]), "routes": list(out["routes"])}
+        return {"stream": stream, "degraded": degraded, "micro": micro_continue(env, out)}
+    if name == "pipeline":
+        rows, _, _, cold = pipeline_run("cpu", PIPELINE_HELD, 0)
+        return rows, cold
+    pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
+    if name == "first":
+        return fingerprint(solve(pods, pools, device="cpu"))
+    if name == "small":
+        small = [p for g in group_pods(pods)[:SMALL_GROUPS] for p in g.pods]
+        return fingerprint(solve(small, pools, device="cpu"))
+    if name != "provision":
+        raise ValueError(f"no CPU reference {name!r}")
+    extra, _ = build_problem(N_EXTRA, N_TYPES, seed=SEED + 1, name_prefix="extra-")
+    out = testing.reconcile_rounds(testing.pods_env(pods, pools, device="cpu"), [extra])
+    return {"fingerprints": out["fingerprints"],
+            "placed": [placed_pods(r) for r in out["results"]],
+            "degraded": [list(r.degraded_rungs) for r in out["results"]]}
+
+
+def placed_pods(results) -> int:
+    """Pods a provisioning round placed on new or existing nodes or left
+    unschedulable."""
+    return (sum(len(p.pods) for p in results.new_node_plans)
+            + sum(len(v) for v in results.existing_assignments.values())
+            + len(results.errors))
+
+
+def cpu_ref_worker(names, conn) -> None:
+    """A worker process's body: each reference of `names` in turn, sent
+    down `conn` as (name, "ok" or "error", value or message, seconds)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    for name in names:
+        t0 = time.perf_counter()
+        try:
+            out = ("ok", cpu_reference(name))
+        except Exception as err:  # noqa: BLE001 - the parent fails with it
+            out = ("error", f"{type(err).__name__}: {err}")
+        conn.send((name, *out, time.perf_counter() - t0))
+    conn.close()
+
+
+class CpuRefs:
+    """The CPU references: from the worker process once `start`ed, else
+    computed inline on first use."""
+
+    def __init__(self):
+        self.proc, self.conn, self.names, self.done = None, None, (), {}
+
+    def start(self, names=CPU_REFS_ORDER) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=cpu_ref_worker, args=(names, child), daemon=True)
+        self.proc.start()
+        child.close()
+        self.names = tuple(names)
+
+    def get(self, name: str):
+        """The reference and the seconds it took to compute."""
+        if name not in self.names and name not in self.done:
+            t0 = time.perf_counter()
+            self.done[name] = ("inline", cpu_reference(name), time.perf_counter() - t0)
+        while name not in self.done:
+            try:
+                got, status, value, secs = self.conn.recv()
+            except EOFError:
+                fail(f"the CPU reference worker ended before computing {name} "
+                     f"(exit code {self.proc.exitcode})")
+            if status != "ok":
+                fail(f"the CPU reference {got} failed: {value}")
+            self.done[got] = ("worker", value, secs)
+        return self.done[name][1:]
+
+    def where(self, name: str) -> str:
+        return {"worker": "in the worker process, beside the card's phases",
+                "inline": "inline"}[self.done[name][0]]
+
+    def close(self) -> None:
+        if self.proc is not None:
+            if self.proc.is_alive():
+                self.proc.terminate()
+            self.proc.join()
+            self.proc = None
+
+
+CPU_REFS = CpuRefs()
 
 
 def one_card() -> str:
@@ -2159,7 +2322,8 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
                 err["lp_ascend_sharded"] = max(err["lp_ascend_sharded"], max_abs_diff(x, y))
     say(f"phase 10 sharded: split B1, B3 (widths 8, 16) and B2 byte-identical to their "
         f"plain split versions and to the unsplit kernels on {held // len(SHARDS)} "
-        f"problems at each S in {SHARDS}, replicas equal; split B5 on {len(ascent_cases(0))} ascent cases at "
+        f"problems at each S in {SHARDS}, replicas equal; split B5 on "
+        f"{len(ascent_cases(0))} ascent cases at "
         f"S in (2, {LP_SHARDS}), 192 iterations, bit-identical "
         f"({time.perf_counter() - t_phase:.3f}s)")
 
@@ -2933,9 +3097,7 @@ def catalog_phase(err: dict, smi: str) -> dict:
     pods, pools = aws_catalog_50k(CATALOG_TYPES)
     enc = encode(group_pods(pods), pools)
     G, C = enc.compat.shape
-    t0 = time.perf_counter()
-    cpu_fp = fingerprint(solve(pods, pools, device="cpu"))
-    cpu_s = time.perf_counter() - t0
+    cpu_fp, cpu_s = CPU_REFS.get("catalog")
 
     # ---- 1. the main path on the card, each route with the counts set
     # to 0 just before it and read just after
@@ -2981,8 +3143,8 @@ def catalog_phase(err: dict, smi: str) -> dict:
         f"{len(sol.new_nodes)} nodes, {len(sol.unschedulable)} unschedulable, "
         f"${sol.total_price:.6f}/h | B3 a block: {placed['wavefront']} | B1 a block: "
         f"{placed['sequential']} | walls (s): B3 route {walls['wavefront']:.6f}, B1 route "
-        f"{walls['sequential']:.6f}; CPU path {cpu_s:.3f}s, fingerprints equal on both "
-        f"routes | launches: {json.dumps(launches)}")
+        f"{walls['sequential']:.6f}; CPU path {cpu_s:.3f}s ({CPU_REFS.where('catalog')}), "
+        f"fingerprints equal on both routes | launches: {json.dumps(launches)}")
 
     # ---- 2. holds past the ceiling, byte-identical to the plain versions
     t0 = time.perf_counter()
@@ -3924,11 +4086,6 @@ def full_path_phase(smi: str) -> dict:
             fail(f"phase 13: a solve was served degraded via {results.degraded_rungs}")
         return out
 
-    def placed(results) -> int:
-        return (sum(len(p.pods) for p in results.new_node_plans)
-                + sum(len(v) for v in results.existing_assignments.values())
-                + len(results.errors))
-
     def benchmark_rounds(device: str):
         """The benchmark problem's two rounds in a fresh environment."""
         pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=SEED)
@@ -3940,8 +4097,8 @@ def full_path_phase(smi: str) -> dict:
         out = testing.reconcile_rounds(env, [extra],
                                        on_round=lambda r: per_round.append(take(r)))
         for k, (results, n) in enumerate(zip(out["results"], (N_PODS, N_PODS + N_EXTRA))):
-            if placed(results) != n:
-                fail(f"phase 13 round {k + 1} on {device}: {placed(results)} pods "
+            if placed_pods(results) != n:
+                fail(f"phase 13 round {k + 1} on {device}: {placed_pods(results)} pods "
                      f"placed or unschedulable, {n} pending")
         return out, per_round
 
@@ -3954,8 +4111,8 @@ def full_path_phase(smi: str) -> dict:
         walls.take()
         results = sched.solve(pods)
         w = take(results)
-        if placed(results) != n_pods:
-            fail(f"phase 13 topology on {device}: {placed(results)} of {n_pods} pods")
+        if placed_pods(results) != n_pods:
+            fail(f"phase 13 topology on {device}: {placed_pods(results)} of {n_pods} pods")
         return testing.decision_fingerprint(results), results, w
 
     def mixed(device: str):
@@ -3965,8 +4122,8 @@ def full_path_phase(smi: str) -> dict:
         per_round = []
         walls.take()
         out = testing.reconcile_rounds(env, [], on_round=lambda r: per_round.append(take(r)))
-        if placed(out["results"][0]) != n_pods:
-            fail(f"phase 13 mixed on {device}: {placed(out['results'][0])} of {n_pods} pods")
+        if placed_pods(out["results"][0]) != n_pods:
+            fail(f"phase 13 mixed on {device}: {placed_pods(out['results'][0])} of {n_pods} pods")
         return out, per_round[0]
 
     def cells(rows: list, key: str) -> str:
@@ -3993,9 +4150,13 @@ def full_path_phase(smi: str) -> dict:
         torch.cuda.synchronize()
         launches["provision"] = dict(kernels.LAUNCHES)
         card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ref, _ = benchmark_rounds("cpu")
-        cpu_s = time.perf_counter() - t0
+        ref, cpu_s = CPU_REFS.get("provision")
+        for k, (n, want) in enumerate(zip(ref["placed"], (N_PODS, N_PODS + N_EXTRA))):
+            if n != want:
+                fail(f"phase 13 round {k + 1} on cpu: {n} pods placed or unschedulable, "
+                     f"{want} pending")
+        if any(ref["degraded"]):
+            fail(f"phase 13: a CPU solve was served degraded via {ref['degraded']}")
         for k, (out, _) in enumerate(runs):
             if out["fingerprints"] != ref["fingerprints"]:
                 fail(f"phase 13 benchmark problem: card run {k} decides differently "
@@ -4011,7 +4172,7 @@ def full_path_phase(smi: str) -> dict:
             f"{len(r2.existing_assignments)} in-flight claims, {c2} new claims, "
             f"{len(r2.errors)} unschedulable; both rounds' fingerprints equal to "
             f"device=\"cpu\"'s in all {len(runs)} card runs | card runs "
-            f"{card_s:.3f}s, CPU run {cpu_s:.3f}s")
+            f"{card_s:.3f}s, CPU run {cpu_s:.3f}s ({CPU_REFS.where('provision')})")
         for k in (0, 1):
             rows = [per_round[k] for _, per_round in runs[1:]]
             say(f"  round {k + 1} walls (s, host clock; card ms in the packing calls), "
@@ -4075,7 +4236,7 @@ def full_path_phase(smi: str) -> dict:
                  f"pack_split_flat")
     served = served_by_device("phase 13", since)
     say(f"phase 13: every packing solve served by the device rung "
-        f"({json.dumps(served)} ok, the CPU runs' included), none degraded "
+        f"({json.dumps(served)} ok, the topology and mixed CPU runs' included), none degraded "
         f"({time.perf_counter() - t_phase:.3f}s)")
     return launches
 
@@ -4101,6 +4262,129 @@ PIPELINE_TIMED = 10
 PIPELINE_FULL = 3
 
 
+def tick_stream(device: str, audit_every=None, on_round=None):
+    """Phase 14's stream in a fresh environment: phase 13's two rounds,
+    then TICK_STEADY steady rounds of TICK_CHURN and TICK_QUIET quiet
+    ones of TICK_QUIET_CHURN (`testing.run_stream`). Returns the
+    environment and the stream's record."""
+    from karpenter_tpu_torch import testing, workloads
+    from karpenter_tpu_torch.testing import StreamRound
+
+    pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=SEED)
+    extra, _ = workloads.build_problem(N_EXTRA, N_TYPES, seed=SEED + 1,
+                                       name_prefix="extra-")
+    testing.reset_counters(testing.package_api())
+    env = testing.pods_env(pods, pools, device=device)
+    if audit_every is not None:
+        env.provisioner.incremental.audit_every = audit_every
+    rounds = [StreamRound(), StreamRound(settle=False, pods=extra)] + [
+        StreamRound(delete=TICK_CHURN, respawn=True, pick="seeded", seed=k)
+        for k in range(TICK_STEADY)] + [
+        StreamRound(delete=TICK_QUIET_CHURN, respawn=True, pick="seeded", seed=100 + k)
+        for k in range(TICK_QUIET)]
+    return env, testing.run_stream(env, rounds, on_round=on_round)
+
+
+def micro_continue(env, out, on_warm=None, before_batch=None, on_batch=None) -> tuple:
+    """Phase 14's micro path, continuing the stream `out` on `env` under
+    KARPENTER_MICRO_DUAL=1: MICRO_WARM[0] rounds of MICRO_WARM[1]
+    arrivals, then MICRO_BATCH arrivals through `micro_solve`. Returns
+    micro_order's keys per call, the batch's fingerprint, the last
+    routes, and the dual floor's lam_by_sig (by repr of its keys)."""
+    from karpenter_tpu_torch import testing, workloads
+    from karpenter_tpu_torch.testing import StreamRound, scoped_env
+
+    tick = env.provisioner.incremental
+    orders: list = []
+    real_order = tick.micro_order
+
+    def recording_order(pods):
+        got = real_order(pods)
+        orders.append([p.key for p in got])
+        return got
+
+    tick.micro_order = recording_order
+    warm = [StreamRound(pods=workloads.build_problem(
+                MICRO_WARM[1], N_TYPES, seed=SEED + 10 + i,
+                name_prefix=f"warm{i}-")[0]) for i in range(MICRO_WARM[0])]
+    batch = workloads.build_problem(MICRO_BATCH, N_TYPES, seed=SEED + 20,
+                                    name_prefix="micro-")[0]
+    with scoped_env({"KARPENTER_MICRO_DUAL": "1"}):
+        testing.run_stream(env, warm, resume=out,
+                           on_round=None if on_warm is None else lambda k, r: on_warm(r))
+        dual = tick._dual
+        if before_batch is not None:
+            before_batch()
+        testing.run_stream(env, [StreamRound(pods=batch, micro=True)], resume=out,
+                           on_round=None if on_batch is None else lambda k, r: on_batch(r))
+    return (orders, out["fingerprints"][-1], out["routes"][-MICRO_WARM[0] - 1:],
+            None if dual is None else {repr(k): v for k, v in dual.lam_by_sig.items()})
+
+
+def pipeline_run(device: str, ticks: int, full: int):
+    """Phase 14's `IncrementalPipeline` on build_problem(N_PODS, N_TYPES,
+    seed=3), objective cost: the cold tick, then `ticks` ticks of
+    TICK_CHURN through the delta API (a seeded draw), the first `full`
+    of them also solved whole. Returns the cold tick's and the first
+    PIPELINE_HELD churn ticks' rows (mode, reason, fleet price,
+    unschedulable, each node's pods), the churn ticks' walls, the whole
+    solves (wall, price, unschedulable, the tick's result) and the cold
+    tick's wall."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.kube.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.solver import lp_plan
+    from karpenter_tpu_torch.solver import solver as solver_mod
+    from karpenter_tpu_torch.solver.incremental import IncrementalPipeline
+    from karpenter_tpu_torch.testing import root_node_mips
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=3)
+    rng = np.random.default_rng(17)
+    solver_mod.reset_caches()
+    pipe = IncrementalPipeline(full_every=0, device=device)
+    rows, inc, whole = [], [], []
+
+    def row(r) -> tuple:
+        return (r.mode, r.reason, round(r.fleet_price, 6), r.unschedulable,
+                sorted(tuple(sorted(n.pods)) for n in pipe._fleet))
+
+    budget = lp_plan._TIME_BUDGET_S
+    lp_plan._TIME_BUDGET_S = 1e4
+    try:
+        with root_node_mips():
+            t1 = time.perf_counter()
+            r = pipe.solve_tick(pods, pools, objective="cost")
+            cold = time.perf_counter() - t1
+    finally:
+        lp_plan._TIME_BUDGET_S = budget
+    rows.append(row(r))
+    for t in range(ticks):
+        k = max(1, int(len(pods) * TICK_CHURN))
+        drop = rng.choice(len(pods), size=k, replace=False).tolist()
+        dropset = set(drop)
+        born = [Pod(metadata=ObjectMeta(name=f"churn-{t}-{j}"), spec=pods[i].spec)
+                for j, i in enumerate(drop)]
+        removed = [pods[i].key for i in drop]
+        pods = [p for i, p in enumerate(pods) if i not in dropset] + born
+        sync()
+        t1 = time.perf_counter()
+        r = pipe.solve_tick(pods, pools, objective="cost", delta=(born, removed))
+        sync()
+        inc.append(time.perf_counter() - t1)
+        if t < PIPELINE_HELD:
+            rows.append(row(r))
+        if t < full:
+            t1 = time.perf_counter()
+            sol = solver_mod.solve(pods, pools, objective="cost", device=device)
+            sync()
+            whole.append((time.perf_counter() - t1, float(sol.total_price),
+                          len(sol.unschedulable), r))
+    return rows, inc, whole, cold
+
+
 def tick_phase(smi: str) -> dict:
     """Phase 14: the incremental tick, the Provisioner's default path,
     on phase 13's problem and steady churn after it (card against
@@ -4108,11 +4392,9 @@ def tick_phase(smi: str) -> dict:
     round audited in a third run), the micro path with its dual floor,
     and `IncrementalPipeline` at 50k x 500 under 1% churn. Returns the
     kernel launches of each part's card runs."""
-    import numpy as np
     import torch
 
-    from karpenter_tpu_torch import testing, workloads
-    from karpenter_tpu_torch.kube.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch import testing
     from karpenter_tpu_torch.metrics.store import INCREMENTAL_AUDITS
     from karpenter_tpu_torch.provisioning import incremental_tick as tick_mod
     from karpenter_tpu_torch.provisioning import provisioner as prov_mod
@@ -4120,8 +4402,7 @@ def tick_phase(smi: str) -> dict:
     from karpenter_tpu_torch.solver import lp_device, lp_plan, resilience
     from karpenter_tpu_torch.solver import pack_split as kernels
     from karpenter_tpu_torch.solver import solver as solver_mod
-    from karpenter_tpu_torch.solver.incremental import IncrementalPipeline
-    from karpenter_tpu_torch.testing import StreamRound, root_node_mips, scoped_env
+    from karpenter_tpu_torch.testing import scoped_env
 
     t_phase = time.perf_counter()
     resilience.reset()
@@ -4192,25 +4473,11 @@ def tick_phase(smi: str) -> dict:
         return json.dumps({k: v for k, v in counts.items() if v})
 
     def stream(device: str, audit_every=None):
-        """Phase 13's two rounds, then TICK_STEADY steady rounds, in a
-        fresh environment."""
-        pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=SEED)
-        extra, _ = workloads.build_problem(N_EXTRA, N_TYPES, seed=SEED + 1,
-                                           name_prefix="extra-")
-        testing.reset_counters(testing.package_api())
-        env = testing.pods_env(pods, pools, device=device)
-        if audit_every is not None:
-            env.provisioner.incremental.audit_every = audit_every
-        rounds = [StreamRound(), StreamRound(settle=False, pods=extra)] + [
-            StreamRound(delete=TICK_CHURN, respawn=True, pick="seeded", seed=k)
-            for k in range(TICK_STEADY)] + [
-            StreamRound(delete=TICK_QUIET_CHURN, respawn=True, pick="seeded", seed=100 + k)
-            for k in range(TICK_QUIET)]
         per_round: list = []
         walls.take()
         spans.clear()
-        out = testing.run_stream(env, rounds,
-                                 on_round=lambda k, r: per_round.append(take(r)))
+        env, out = tick_stream(device, audit_every,
+                               on_round=lambda k, r: per_round.append(take(r)))
         return env, out, per_round
 
     def route(r: list) -> str:
@@ -4229,9 +4496,10 @@ def tick_phase(smi: str) -> dict:
         card_env, card, card_walls = stream("cuda")
         launches["tick"] = read_launches()
         card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu_env, cpu, _ = stream("cpu")
-        cpu_s = time.perf_counter() - t0
+        ref, cpu_s = CPU_REFS.get("tick")
+        if any(ref["degraded"]):
+            fail(f"phase 14: a CPU solve was served degraded via {ref['degraded']}")
+        cpu = ref["stream"]
         for k in range(len(card["results"])):
             if card["fingerprints"][k] != cpu["fingerprints"][k]:
                 fail(f"phase 14 round {k + 1}: the card decides differently from "
@@ -4277,7 +4545,8 @@ def tick_phase(smi: str) -> dict:
             f"clean ({json.dumps(audits)}); on the incremental path: {steady} of "
             f"{TICK_STEADY} steady rounds, {quiet} of {TICK_QUIET} quiet ones; fallbacks "
             f"{json.dumps(status['fallbacks'])} | tick run {card_s:.3f}s, CPU "
-            f"{cpu_s:.3f}s, full path {full_s:.3f}s, audited {audit_s:.3f}s")
+            f"{cpu_s:.3f}s with the micro path ({CPU_REFS.where('tick')}), full path "
+            f"{full_s:.3f}s, audited {audit_s:.3f}s")
         if not steady + quiet:
             fail("phase 14: no round after the first two rode the incremental path")
         tick_keys = ("sync", "tick_host", "tick_solve_encoded", "full_host",
@@ -4296,40 +4565,14 @@ def tick_phase(smi: str) -> dict:
         say(f"  launches (the tick's card run): {nonzero(launches['tick'])}")
 
         # ---- 14.2 the micro path with its dual floor, continuing the
-        # card's and the CPU's streams
+        # card's stream (the CPU's continues in the CPU reference)
         t0 = time.perf_counter()
+        reset_launches()
         micro: dict = {}
-        for device, env, out in (("cuda", card_env, card), ("cpu", cpu_env, cpu)):
-            if device == "cuda":
-                reset_launches()
-            tick = env.provisioner.incremental
-            orders: list = []
-            real_order = tick.micro_order
-
-            def recording_order(pods, _real=real_order, _orders=orders):
-                got = _real(pods)
-                _orders.append([p.key for p in got])
-                return got
-
-            tick.micro_order = recording_order
-            warm = [StreamRound(pods=workloads.build_problem(
-                        MICRO_WARM[1], N_TYPES, seed=SEED + 10 + i,
-                        name_prefix=f"warm{i}-")[0]) for i in range(MICRO_WARM[0])]
-            batch = workloads.build_problem(MICRO_BATCH, N_TYPES, seed=SEED + 20,
-                                            name_prefix="micro-")[0]
-            with scoped_env({"KARPENTER_MICRO_DUAL": "1"}):
-                testing.run_stream(env, warm, on_round=lambda k, r: take(r), resume=out)
-                dual = tick._dual
-                walls.take()
-                testing.run_stream(env, [StreamRound(pods=batch, micro=True)],
-                                   on_round=lambda k, r: micro.setdefault(
-                                       device + "_walls", take(r)), resume=out)
-            if device == "cuda":
-                launches["micro"] = read_launches()
-            micro[device] = (orders, out["fingerprints"][-1], out["routes"][-MICRO_WARM[0] - 1:],
-                             None if dual is None else
-                             {repr(k): v for k, v in dual.lam_by_sig.items()})
-        card_m, cpu_m = micro["cuda"], micro["cpu"]
+        card_m = micro_continue(card_env, card, on_warm=take, before_batch=walls.take,
+                                on_batch=lambda r: micro.setdefault("walls", take(r)))
+        launches["micro"] = read_launches()
+        cpu_m = ref["micro"]
         if card_m[3] is None:
             fail(f"phase 14 micro: no tick refreshed the dual floor (routes "
                  f"{card_m[2]})")
@@ -4343,7 +4586,7 @@ def tick_phase(smi: str) -> dict:
         if card_m[0]:
             keys = card_m[0][-1]
             gap = sum(a != b for a, b in zip(keys, sorted(keys)))
-        mw = micro["cuda_walls"]
+        mw = micro["walls"]
         say(f"  micro: KARPENTER_MICRO_DUAL=1, {MICRO_WARM[0]} rounds of "
             f"{MICRO_WARM[1]} arrivals ({', '.join(route(r) for r in card_m[2][:-1])}), "
             f"the dual floor refreshed on the card ({len(card_m[3])} signatures), then "
@@ -4358,61 +4601,15 @@ def tick_phase(smi: str) -> dict:
 
         # ---- 14.3 IncrementalPipeline at 50k x 500, 1% churn, objective
         # cost, the delta API (bench.py's steady_state_churn)
-        def pipeline(device: str, ticks: int, full: int):
-            pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=3)
-            rng = np.random.default_rng(17)
-            solver_mod.reset_caches()
-            pipe = IncrementalPipeline(full_every=0, device=device)
-            rows, inc, whole = [], [], []
-
-            def row(r) -> tuple:
-                return (r.mode, r.reason, round(r.fleet_price, 6), r.unschedulable,
-                        sorted(tuple(sorted(n.pods)) for n in pipe._fleet))
-
-            budget = lp_plan._TIME_BUDGET_S
-            lp_plan._TIME_BUDGET_S = 1e4
-            try:
-                with root_node_mips():
-                    t1 = time.perf_counter()
-                    r = pipe.solve_tick(pods, pools, objective="cost")
-                    cold = time.perf_counter() - t1
-            finally:
-                lp_plan._TIME_BUDGET_S = budget
-            rows.append(row(r))
-            for t in range(ticks):
-                k = max(1, int(len(pods) * TICK_CHURN))
-                drop = rng.choice(len(pods), size=k, replace=False).tolist()
-                dropset = set(drop)
-                born = [Pod(metadata=ObjectMeta(name=f"churn-{t}-{j}"), spec=pods[i].spec)
-                        for j, i in enumerate(drop)]
-                removed = [pods[i].key for i in drop]
-                pods = [p for i, p in enumerate(pods) if i not in dropset] + born
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                r = pipe.solve_tick(pods, pools, objective="cost", delta=(born, removed))
-                torch.cuda.synchronize()
-                inc.append(time.perf_counter() - t1)
-                if t < PIPELINE_HELD:
-                    rows.append(row(r))
-                if t < full:
-                    t1 = time.perf_counter()
-                    sol = solver_mod.solve(pods, pools, objective="cost", device=device)
-                    torch.cuda.synchronize()
-                    whole.append((time.perf_counter() - t1, float(sol.total_price),
-                                  len(sol.unschedulable), r))
-            return rows, inc, whole, cold
-
         t0 = time.perf_counter()
         reset_launches()
         spans.clear()
-        rows, inc, whole, cold = pipeline("cuda", PIPELINE_TIMED, PIPELINE_FULL)
+        rows, inc, whole, cold = pipeline_run("cuda", PIPELINE_TIMED, PIPELINE_FULL)
         launches["pipeline"] = read_launches()
         card_ms = sum(s.elapsed_time(e) for s, e in spans)
         spans.clear()
         card_p = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu_rows, _, _, cpu_cold = pipeline("cpu", PIPELINE_HELD, 0)
-        cpu_p = time.perf_counter() - t0
+        (cpu_rows, cpu_cold), cpu_p = CPU_REFS.get("pipeline")
         for t, (a, b) in enumerate(zip(rows, cpu_rows)):
             if a != b:
                 fail(f"phase 14 pipeline: tick {t} ({a[:4]}) differs from "
@@ -4433,7 +4630,7 @@ def tick_phase(smi: str) -> dict:
             f"{PIPELINE_FULL}, the tick's fleet price against the full solve's "
             f"{', '.join(drift)}; card ms in the packing calls {card_ms:.3f}; launches "
             f"{nonzero(launches['pipeline'])} | card run {card_p:.3f}s, CPU {cpu_p:.3f}s "
-            f"| card: {smi}")
+            f"({CPU_REFS.where('pipeline')}) | card: {smi}")
     finally:
         solver_mod._solve_packing = seam
         walls.close()
@@ -4447,6 +4644,379 @@ def tick_phase(smi: str) -> dict:
         fail(f"phase 14 micro: the dual floor launched no B5 ({launches['micro']})")
     served = served_by_device("phase 14", since)
     say(f"phase 14: every packing solve served by the device rung "
+        f"({json.dumps(served)} ok; the CPU references run in their worker), none "
+        f"degraded ({time.perf_counter() - t_phase:.3f}s)")
+    return launches
+
+
+DISRUPT = "--disrupt"
+# phase 15: bench.py's consolidation fleet (`workloads.consolidation_fleet`'s
+# build_problem(21000, 200, seed=9)) as a live cluster: provisioned on the
+# card through Provisioner.reconcile and settled, DISRUPT_DROP of its pods
+# deleted (consolidation_fleet's own draw, default_rng(7)), then rounds of
+# DisruptionEngine.reconcile and the queue (`testing.disruption_rounds`)
+# until a round decides nothing; the same stream on MID_FLEET on the card
+# and on the CPU; one reconcile round on the registered 50k x 500 fleet
+# with the retained seam warm and with KARPENTER_DISRUPTION_SNAPSHOT=0
+DISRUPT_FLEET = (21_000, 200, 9)
+DISRUPT_DROP = 0.55
+DISRUPT_ROUNDS = 12
+ENGINE_METHODS = ("emptiness", "drift", "global_repack_consolidation",
+                  "multi_node_consolidation", "single_node_consolidation")
+B6_KERNELS = ("pack_probe_lanes", "pack_probe_lanes_wavefront")
+B6_EPILOGUES = ("pack_probe_lanes_flat", "pack_probe_lanes_flat_masks")
+
+
+def disruption_fleet(device: str, n_pods: int, n_types: int, seed: int, t0: float,
+                     drop: float = DISRUPT_DROP):
+    """`build_problem(n_pods, n_types, seed)`'s pods (each owned by a
+    ReplicaSet, so that a drained pod comes back pending) provisioned
+    through `Provisioner(device=device).reconcile` at t0 and settled
+    (`testing.place`), the disruption engine attached, then each pod
+    deleted with probability `drop` (consolidation_fleet's draw)."""
+    import numpy as np
+
+    from karpenter_tpu_torch import testing, workloads
+    from karpenter_tpu_torch.kube.objects import OwnerReference
+
+    pods, pools = workloads.build_problem(n_pods, n_types, seed=seed)
+    for pod in pods:
+        name = pod.metadata.name
+        pod.metadata.owner_references = [OwnerReference(
+            kind="ReplicaSet", name=f"{name}-rs", uid=f"uid-{name}-rs", controller=True)]
+    testing.reset_counters(testing.package_api())
+    env = testing.disruption_env(testing.pods_env(pods, pools, device=device))
+    testing.place(env, t0)
+    if drop:
+        keep = np.random.default_rng(7).random(len(pods)) >= drop
+        for pod, k in zip(pods, keep):
+            if not k:
+                env.kube.delete(pod, now=t0 + 50)
+    return env
+
+
+def disrupt_phase(smi: str, card: str = "cuda") -> dict:
+    """Phase 15: the consolidation engine (`disruption/engine.py`) on the
+    card. Holds: the stream decides round for round as with
+    KARPENTER_BATCH_PROBES=0 and with KARPENTER_LP_PRUNE=0 (round 1 of
+    fresh streams, and the probe methods on the final fleet), the first
+    B6 chunk the engine dispatches is byte-identical to its plain
+    version, the mid fleet's stream on the card equals device="cpu"'s,
+    and at 50k x 500 the retained seam decides as a fresh scan. Returns
+    the kernel launches of the main stream (counts zeroed just before
+    it, read just after)."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.disruption import engine as engine_mod
+    from karpenter_tpu_torch.metrics.store import DISRUPTION_EVALUATION_DURATION as EVALS
+    from karpenter_tpu_torch.solver import consolidation_batch as cb
+    from karpenter_tpu_torch.solver import lp_device, lp_plan, resilience
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver import solver as solver_mod
+    from karpenter_tpu_torch.testing import scoped_env
+
+    t_phase = time.perf_counter()
+    resilience.reset()
+    since = ladder_counts()
+    T = testing.DISRUPTION_T0
+    walls = HostWalls()
+
+    def evaluations() -> dict:
+        """Each method's (evaluations, seconds) so far, from the
+        engine's own DISRUPTION_EVALUATION_DURATION{method}."""
+        return {m: (EVALS.count({"method": m}), EVALS.sum({"method": m}))
+                for m in ENGINE_METHODS}
+
+    mark = [evaluations()]
+
+    def method_walls(command) -> tuple[dict, list]:
+        """Each method's seconds in `reconcile` since the last call, and
+        the method that decided `command`: reconcile stops at the first
+        method that returns one, the last evaluated."""
+        now, last = evaluations(), mark[0]
+        mark[0] = now
+        ran = [m for m in ENGINE_METHODS if now[m][0] > last[m][0]]
+        return ({m: now[m][1] - last[m][1] for m in ENGINE_METHODS},
+                ran[-1:] if command is not None else [])
+
+    for owner, attr, name in (
+        (engine_mod.DisruptionEngine, "get_candidates", "scan"),
+        (lp_plan, "plan", "plan"),
+        (lp_device, "maybe_solve", "lp"),
+        (engine_mod.OrchestrationQueue, "reconcile", "queue"),
+        (testing, "terminate", "terminate"),
+        (testing, "place", "place"),
+    ):
+        walls.wrap(owner, attr, name)
+    # the card's ms in the packing calls: the Scheduler's solves (through
+    # the ladder's seam) and the lane solver's chunk dispatches
+    spans: list = []
+    inside = [0]
+    seam = solver_mod._solve_packing
+    real_split_flat, real_lanes_flat = kernels.pack_split_flat, kernels.pack_probe_lanes_flat
+    first_chunk_rec: list = []
+
+    def bracket(fn, lane: bool):
+        """CUDA events around `fn` (a lane-solver wrapper when `lane`:
+        not bracketed again inside a bracketed Scheduler solve); the
+        first B6 chunk's inputs and output are kept."""
+        def call(*a, **k):
+            if lane and inside[0]:
+                return fn(*a, **k)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            inside[0] += 0 if lane else 1
+            start.record()
+            try:
+                out = fn(*a, **k)
+            finally:
+                inside[0] -= 0 if lane else 1
+            end.record()
+            spans.append((start, end))
+            if fn is real_lanes_flat and not first_chunk_rec:
+                first_chunk_rec.append((a, dict(k), out.clone()))
+            return out
+        return call
+
+    def take_round(k, rnd) -> dict:
+        torch.cuda.synchronize()
+        w = walls.take()
+        per_method, decided = method_walls(rnd["command"])
+        stats = dict(cb.PROBE_STATS)
+        cb.reset_probe_stats()
+        out = {"walls": {**w, **per_method},
+               "card_ms": sum(s.elapsed_time(e) for s, e in spans),
+               "packs": len(spans), "lanes": stats["lane"], "dispatches": stats["batch"],
+               "decided": decided}
+        spans.clear()
+        placed = rnd["placed"]
+        if placed is not None and placed.degraded_rungs:
+            fail(f"phase 15: a solve was served degraded via {placed.degraded_rungs}")
+        return out
+
+    def reset_launches() -> None:
+        kernels.reset_launch_counts()
+        for table in (lp_device.LAUNCHES, lp_plan.LAUNCHES):
+            for name in table:
+                table[name] = 0
+
+    def read_launches() -> dict:
+        torch.cuda.synchronize()
+        out = dict(kernels.LAUNCHES)
+        out.update(lp_device.LAUNCHES)
+        out.update(lp_plan.LAUNCHES)
+        return out
+
+    def stream(device, fleet, env=None, max_rounds=DISRUPT_ROUNDS, per=None):
+        env = env or disruption_fleet(device, *fleet, T)
+        per = [] if per is None else per
+        walls.take()
+        method_walls(None)
+        spans.clear()
+        cb.reset_probe_stats()
+        rounds = testing.disruption_rounds(
+            env, T + 100, max_rounds=max_rounds,
+            on_round=lambda k, r: per.append(take_round(k, r)))
+        return env, rounds
+
+    def summary(rnd) -> str:
+        ident = rnd["identity"]
+        if ident is None:
+            return "nothing"
+        return (f"{ident[0]}: {len(ident[1])} candidates, {len(ident[2])} replacements"
+                + (" (stalled: the same command rolled back again)" if rnd["stalled"] else ""))
+
+    def probe_pass(env, now) -> tuple[dict, dict]:
+        """The probe methods on one fleet, with the batch and the
+        pruner on (the defaults): each decision as a name-insensitive
+        identity, and each method's wall (s)."""
+        out, secs = {}, {}
+        for name in ("multi_node_consolidation", "single_node_consolidation"):
+            env.disruption._rng = random.Random(0)
+            t = time.perf_counter()
+            out[name] = testing.command_identity(getattr(env.disruption, name)(now))
+            secs[name] = time.perf_counter() - t
+        return out, secs
+
+    launches: dict = {}
+    solver_mod._solve_packing = bracket(seam, lane=False)
+    kernels.pack_split_flat = bracket(real_split_flat, lane=True)
+    kernels.pack_probe_lanes_flat = bracket(real_lanes_flat, lane=True)
+    try:
+        # ---- 15.1 the consolidation fleet on the card, to the end
+        t0 = time.perf_counter()
+        env = disruption_fleet(card, *DISRUPT_FLEET, T)
+        fleet_s = time.perf_counter() - t0
+        nodes0 = len(env.kube.nodes())
+        pods0 = sum(1 for p in env.kube.pods() if p.spec.node_name)
+        before = testing.fleet_state(env)
+        t0 = time.perf_counter()
+        per: list = []
+        reset_launches()
+        env, rounds = stream(card, DISRUPT_FLEET, env=env, per=per)
+        final_now = T + 100 * len(rounds) + 100
+        env.pod_events.reconcile_all(now=final_now)
+        env.conditions.reconcile_all(now=final_now)
+        walls.take()
+        spans.clear()
+        cb.reset_probe_stats()
+        t1 = time.perf_counter()
+        probes, probe_walls = probe_pass(env, final_now)
+        probe_s = time.perf_counter() - t1
+        probe_stats = dict(cb.PROBE_STATS)
+        walls.take()
+        torch.cuda.synchronize()
+        probe_ms = sum(s.elapsed_time(e) for s, e in spans)
+        spans.clear()
+        launches["engine"] = read_launches()
+        card_s = time.perf_counter() - t0
+        after = rounds[-1]["fleet"]
+        say(f"phase 15 disruption: build_problem{DISRUPT_FLEET} provisioned through "
+            f"Provisioner(device=\"{card}\").reconcile and settled -> {nodes0} nodes, "
+            f"${before[2]:.6f}/h; {DISRUPT_DROP:.0%} of the pods deleted -> {pods0} left "
+            f"bound ({fleet_s:.3f}s to build); {len(rounds)} rounds of "
+            f"DisruptionEngine.reconcile + the queue -> {len(after[0])} nodes, "
+            f"${after[2]:.6f}/h, {len(after[1])} pods pending ({card_s:.3f}s) | card: {smi}")
+        for k, (rnd, row) in enumerate(zip(rounds, per)):
+            w = row["walls"]
+            methods = ", ".join(f"{m.split('_')[0] if m != 'global_repack_consolidation' else 'global'}"
+                                f" {w.get(m, 0.0):.6f}" for m in ENGINE_METHODS)
+            say(f"  round {k + 1}: {'/'.join(row['decided']) or 'no method'} decided "
+                f"{summary(rnd)}; fleet {len(rnd['fleet'][0])} nodes ${rnd['fleet'][2]:.6f}/h"
+                f" | walls (s) {methods}, scan {w.get('scan', 0.0):.6f}, column generation "
+                f"{w.get('plan', 0.0):.6f}, device LP {w.get('lp', 0.0):.6f}, queue "
+                f"{w.get('queue', 0.0):.6f}, terminate {w.get('terminate', 0.0):.6f}, "
+                f"place {w.get('place', 0.0):.6f} | card {row['card_ms']:.3f} ms in "
+                f"{row['packs']} packing calls | B6 {row['lanes']} lanes, "
+                f"{row['dispatches']} dispatches")
+        say(f"  probe pass on the final fleet (batch and pruner on): "
+            f"{json.dumps({k: summary({'identity': v, 'stalled': False}) for k, v in probes.items()})}"
+            f" | walls multi {probe_walls.get('multi_node_consolidation', 0.0):.6f}s, single "
+            f"{probe_walls.get('single_node_consolidation', 0.0):.6f}s ({probe_s:.3f}s), card "
+            f"{probe_ms:.3f} ms, B6 {probe_stats['lane']} lanes, {probe_stats['batch']} "
+            f"dispatches")
+        n = launches["engine"]
+        say(f"  launches (counts zeroed before the stream, read after the probe pass): "
+            f"{json.dumps({k: v for k, v in n.items() if v})}")
+        missing = [what for what, names in (
+            ("B6", B6_KERNELS), ("the lane epilogue", B6_EPILOGUES),
+            ("B5", ("lp_ascend",)), ("B4", ("lp_price",)),
+            ("B3 or B1", ("pack_split_wavefront", "pack_split")),
+            ("B2", ("pack_split_flat",))) if not sum(n.get(x, 0) for x in names)]
+        if missing:
+            fail(f"phase 15: the engine launched no {', '.join(missing)}: {n}")
+        if not any(r["command"] is not None for r in rounds):
+            fail("phase 15: no round decided anything")
+
+        # ---- 15.2 the first B6 chunk the engine dispatched, against its
+        # plain version
+        if not first_chunk_rec:
+            fail("phase 15: the engine dispatched no B6 chunk")
+        a, kw, got = first_chunk_rec[0]
+        host = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        want = kernels.pack_probe_lanes_flat_ref(
+            *[host(x) for x in a], **{key: host(v) for key, v in kw.items()})
+        if not same_bits(got.cpu(), want):
+            fail("phase 15: the engine's first B6 chunk differs from its plain version")
+        say(f"  first B6 chunk (L={a[2].shape[0]}, Gp={a[0].shape[0]}, Cp={a[0].shape[1]}, "
+            f"wavefront {kw.get('wavefront', 0)}): byte-identical to "
+            f"pack_probe_lanes_flat_ref")
+
+        # ---- 15.3 the same stream's first round with the batch off and
+        # with the pruner off; the probe methods on the final fleet so
+        t0 = time.perf_counter()
+        holds = []
+        for knob in ("KARPENTER_BATCH_PROBES", "KARPENTER_LP_PRUNE"):
+            with scoped_env({knob: "0"}):
+                _, other = stream(card, DISRUPT_FLEET, max_rounds=1)
+                if other[0]["identity"] != rounds[0]["identity"]:
+                    fail(f"phase 15: round 1 with {knob}=0 decided "
+                         f"{summary(other[0])}, the default {summary(rounds[0])}")
+                again = {}
+                for name in probes:
+                    if knob == "KARPENTER_BATCH_PROBES" and name == "single_node_consolidation":
+                        continue  # one full scheduling solve a candidate
+                    env.disruption._rng = random.Random(0)
+                    again[name] = testing.command_identity(
+                        getattr(env.disruption, name)(final_now))
+                    if again[name] != probes[name]:
+                        fail(f"phase 15: {name} on the final fleet with {knob}=0 "
+                             f"decided otherwise")
+                holds.append(f"{knob}=0: round 1 and {', '.join(again)} equal")
+        say(f"  holds: {'; '.join(holds)} ({time.perf_counter() - t0:.3f}s)")
+
+        # ---- 15.4 the mid fleet: card against device="cpu", round for round
+        mid = (MID_FLEET[0], MID_FLEET[1], DISRUPT_FLEET[2])
+        t0 = time.perf_counter()
+        _, mid_card = stream(card, mid)
+        mid_card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, mid_cpu = stream("cpu", mid)
+        mid_cpu_s = time.perf_counter() - t0
+        for k, (x, y) in enumerate(zip(mid_card, mid_cpu)):
+            if (x["identity"], x["fleet"]) != (y["identity"], y["fleet"]):
+                fail(f"phase 15 mid fleet round {k + 1}: the card decides "
+                     f"{summary(x)}, device=\"cpu\" {summary(y)}")
+        if len(mid_card) != len(mid_cpu):
+            fail(f"phase 15 mid fleet: {len(mid_card)} rounds on the card, "
+                 f"{len(mid_cpu)} on the CPU")
+        say(f"  mid fleet build_problem{mid}: {len(mid_card)} rounds "
+            f"({'; '.join(summary(r) for r in mid_card)}) -> "
+            f"{len(mid_card[-1]['fleet'][0])} nodes ${mid_card[-1]['fleet'][2]:.6f}/h, "
+            f"decisions and fleets equal to device=\"cpu\"'s round for round | card "
+            f"{mid_card_s:.3f}s, CPU {mid_cpu_s:.3f}s")
+
+        # ---- 15.5 the registered 50k x 500 fleet: one reconcile round
+        # with the retained seam warm, and with it off, each deciding
+        # on the same fleet (the queue records the command, starts none)
+        t0 = time.perf_counter()
+        big = disruption_fleet(card, N_PODS, N_TYPES, SEED, T, drop=0.0)
+        build_s = time.perf_counter() - t0
+        now = T + 100
+        big.pod_events.reconcile_all(now=now)
+        big.conditions.reconcile_all(now=now)
+        started: list = []
+        big.disruption.queue.start_command = lambda cmd, now=None: started.append(cmd)
+        scale = {}
+        for label, knobs in (("retained", {}), ("fresh", {"KARPENTER_DISRUPTION_SNAPSHOT": "0"})):
+            with scoped_env(knobs):
+                solver_mod.reset_caches()
+                lp_device.reset()
+                warm = 0.0
+                if label == "retained":
+                    t0 = time.perf_counter()
+                    big.disruption.get_candidates("Underutilized", now)
+                    warm = time.perf_counter() - t0
+                walls.take()
+                method_walls(None)
+                t0 = time.perf_counter()
+                big.disruption._rng = random.Random(0)
+                cmd = big.disruption.reconcile(now=now)
+                wall = time.perf_counter() - t0
+                w = walls.take()
+                scale[label] = (testing.command_identity(cmd), wall, w, warm, build_s,
+                                method_walls(cmd)[1], len(big.kube.nodes()),
+                                big.disruption.fleet_seam.status())
+        del big
+        if scale["retained"][0] != scale["fresh"][0]:
+            fail("phase 15: at 50k x 500 the retained seam decides otherwise than "
+                 "KARPENTER_DISRUPTION_SNAPSHOT=0")
+        r, f = scale["retained"], scale["fresh"]
+        say(f"  50k x 500 registered fleet ({r[6]} nodes): one reconcile round decided by "
+            f"{'/'.join(r[5]) or 'no method'} "
+            f"{summary({'identity': r[0], 'stalled': False})}, equal with "
+            f"KARPENTER_DISRUPTION_SNAPSHOT=0 | scan walls (s): retained "
+            f"{r[2].get('scan', 0.0):.6f} (after a warm-up scan of {r[3]:.6f}), fresh "
+            f"{f[2].get('scan', 0.0):.6f}; round {r[1]:.6f} against {f[1]:.6f}; seam "
+            f"{json.dumps(r[7])} | the fleet built in {r[4]:.3f}s | card: {smi}")
+    finally:
+        solver_mod._solve_packing = seam
+        kernels.pack_split_flat, kernels.pack_probe_lanes_flat = real_split_flat, real_lanes_flat
+        walls.close()
+    served = served_by_device("phase 15", since)
+    say(f"phase 15: every packing solve served by the device rung "
         f"({json.dumps(served)} ok, the CPU runs' included), none degraded "
         f"({time.perf_counter() - t_phase:.3f}s)")
     return launches
@@ -4580,12 +5150,19 @@ def main() -> None:
         say(f"chip_smoke {TICK}: {time.perf_counter() - T_START:.3f}s wall")
         finish(kind, smi)
         return
+    if DISRUPT in sys.argv[1:]:
+        disrupt_phase(smi)
+        say(f"chip_smoke {DISRUPT}: {time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
     if CATALOG in sys.argv[1:]:
         report = {"kernels": catalog_phase({}, smi)["entries"]}
         say(f"chip_smoke {CATALOG}: {time.perf_counter() - T_START:.3f}s wall")
         say(json.dumps(report))
         finish(kind, smi)
         return
+
+    CPU_REFS.start()
 
     # ---- 3. kernels against their plain versions on the card
     t0 = time.perf_counter()
@@ -4767,11 +5344,11 @@ def main() -> None:
         if placed + len(s.unschedulable) != n:
             fail(f"{name} request: {placed} placed + {len(s.unschedulable)} "
                  f"unschedulable != {n} pods")
-    if fingerprint(solve(pods, pools, device="cpu")) != first_fp:
+    if CPU_REFS.get("first")[0] != first_fp:
         fail("first request: GPU fingerprint differs from the CPU path's")
     if fingerprint(solve(extra, pools, existing, device="cpu")) != fingerprint(sol2):
         fail("second request: GPU fingerprint differs from the CPU path's")
-    if fingerprint(solve(small, pools, device="cpu")) != fingerprint(sol_small):
+    if CPU_REFS.get("small")[0] != fingerprint(sol_small):
         fail("small request: GPU fingerprint differs from the CPU path's")
     if timed is None or not any(c.args[7].shape[0] for c in staged_cases.values()):
         fail("the main path staged no warm first-request or bound-row kernel inputs")
@@ -4897,8 +5474,14 @@ def main() -> None:
     ticking = tick_phase(smi)
     for name in route_launches:
         route_launches[name] += sum(n[name] for n in ticking.values())
-    tick_lp = {name: sum(n[name] for n in ticking.values())
+    # ---- 15. the consolidation engine
+    disrupting = disrupt_phase(smi)
+    for name in route_launches:
+        route_launches[name] += sum(n[name] for n in disrupting.values())
+    tick_lp = {name: sum(n[name] for n in (*ticking.values(), *disrupting.values()))
                for name in ("lp_price", "lp_ascend")}
+    for entry in probes["entries"]:
+        entry["launches"] += sum(n.get(entry["name"], 0) for n in disrupting.values())
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",
@@ -4953,4 +5536,7 @@ def finish(kind: str, smi: str) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        CPU_REFS.close()

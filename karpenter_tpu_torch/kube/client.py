@@ -251,15 +251,18 @@ class KubeClient:
         429 with EvictionBlockedError; an allowed eviction proceeds as
         a graceful delete (finalizer semantics included). Drains must
         call this, never delete() — on a real cluster only the
-        eviction subresource consults PDBs.
+        eviction subresource consults PDBs."""
+        from karpenter_tpu_torch.utils.pdb import PdbLimits
 
-        The PDB arithmetic (`utils/pdb.py`) comes with the port of the
-        consolidation engine (ROADMAP item 1b); nothing on the
-        provisioning path evicts."""
-        raise NotImplementedError(
-            "KubeClient.evict needs utils/pdb.py, which comes with "
-            "ROADMAP item 1b (the consolidation engine)"
-        )
+        # check + delete under one lock (RLock: the nested reads and
+        # the delete re-enter safely) — the real API server evaluates
+        # the budget atomically per eviction, so two racing evictions
+        # can never both pass a disruptions_allowed=1 budget
+        with self._lock:
+            blocking = PdbLimits(self).can_evict(pod, server_side=True)
+            if blocking is not None:
+                raise EvictionBlockedError(blocking)
+            self.delete(pod, now=now)
 
     def touch(self, obj) -> None:
         """Publish a MODIFIED event for an object mutated in place.

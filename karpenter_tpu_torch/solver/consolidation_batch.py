@@ -1,16 +1,15 @@
 """Batched consolidation probes: candidate subsets as lanes of one
 device solve.
 
-Copy of `karpenter_tpu/solver/consolidation_batch.py` up to the
-`LaneSolver` / `ProbePruner` boundary. A consolidation search probes
-many candidate subsets of one fleet: each probe removes its candidates'
-nodes and repacks their pods onto what remains. Every probe shares one
-fleet and one catalog, and a probe's pods are a subset of the union of
-all probes' pods, so one `group_pods` + `encode` over the union covers
-every lane: a group a lane does not use carries count 0 (a no-op in the
-packing kernel), and a lane's removed nodes are bound rows whose live
-bit is cleared (capacity 0, the other rows keep their order and
-arithmetic).
+Copy of `karpenter_tpu/solver/consolidation_batch.py`, whole. A
+consolidation search probes many candidate subsets of one fleet: each
+probe removes its candidates' nodes and repacks their pods onto what
+remains. Every probe shares one fleet and one catalog, and a probe's
+pods are a subset of the union of all probes' pods, so one `group_pods`
++ `encode` over the union covers every lane: a group a lane does not use
+carries count 0 (a no-op in the packing kernel), and a lane's removed
+nodes are bound rows whose live bit is cleared (capacity 0, the other
+rows keep their order and arithmetic).
 
 `LaneSolver.solve_lazy` stages the shared arrays once, as
 `pack._run_pack` does, and dispatches chunks of `probe_batch_width`
@@ -22,6 +21,10 @@ the lane epilogue), a chunk of one lane runs the plain split solve
 lane's Solution is the one solving its subset alone gives.
 `ProbePruner` asks the lane solver's `lp_device.DualCertificate`
 whether a subset can be replaced strictly cheaper at all.
+`BatchProbeSolver` is the disruption engine's seam: one Scheduler over
+the fleet snapshot, its probes primed as lanes, each lane decoded to
+the `(SchedulerResults, all_ok)` a sequential `simulate_scheduling`
+returns (or None where the sequential path must run).
 
 The chunk dispatch is the `probe` fault site (`solver/faults.py`) and
 opens the `disruption.probe_batch` span, as in the JAX package. A
@@ -35,10 +38,12 @@ breaker and send later solves to the host), then re-raises.
 failed to build, as "no certificate" until the next staging; on a CUDA
 device a build failure other than an injected fault is raised.
 
-Differences from the JAX package: the lane solver takes a `device`
-(None means the card, and raises without one); the encode has no compat
-cache; the counts the JAX package's probe metrics hold go to
-`PROBE_STATS`.
+Differences from the JAX package: the lane solver and the batch take a
+`device` (None means the card, and raises without one), and on a CUDA
+device a failed batch or lane decode is raised unless
+`resilience.may_degrade` admits it; the lane counts the JAX package's
+probe metrics hold go to `PROBE_STATS` (its `fallback_lane` outcome is
+recorded in `SOLVER_PROBE_BATCH` as there).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 
 from karpenter_tpu_torch import tracing
 from karpenter_tpu_torch.kube.objects import Pod
+from karpenter_tpu_torch.metrics.store import SOLVER_PROBE_BATCH
 from karpenter_tpu_torch.solver import faults, lp_device, resilience
 from karpenter_tpu_torch.solver import pack_split as kernels
 from karpenter_tpu_torch.solver.encode import ExistingNodeInput, encode, group_pods
@@ -565,3 +571,289 @@ class ProbePruner:
                 "margin": margin,
             }
         return pruned
+
+
+def _relaxable(pod: Pod) -> bool:
+    """True when preferences.relax() would strip something — the
+    sequential path retries such pods, so a batched lane that left one
+    unscheduled must be re-probed sequentially, not cached. One
+    canonical predicate (provisioning/preferences.relaxable) shared
+    with the incremental live tick's fallback gate."""
+    from karpenter_tpu_torch.provisioning.preferences import relaxable
+
+    return relaxable(pod)
+
+
+class BatchProbeSolver:
+    """simulate_scheduling-faithful probe batching for the engine.
+
+    Construction pays the per-round costs once: one deep-copied
+    snapshot becomes one Scheduler (existing inputs, daemon overhead,
+    reservation ledger, catalog filtering). `prime(lane_specs)` then
+    evaluates many candidate subsets in one kernel batch and returns,
+    per lane, either the exact `(SchedulerResults, all_ok)` tuple the
+    sequential probe would compute, or None when that lane (or the
+    whole batch) must fall back to the sequential path.
+
+    `device` is the card (None, raising without one) or the device the
+    caller asks for; the Scheduler and the LaneSolver run on it. On a
+    CUDA device a batch or lane failure reaches the caller unless
+    `resilience.may_degrade` admits it (an injected fault, a deadline);
+    off the card every failure falls back to the sequential probe, as
+    in the JAX package.
+    """
+
+    def __init__(
+        self,
+        pools_with_types,
+        snapshot,
+        daemonsets,
+        cluster_pods,
+        pending_pods,
+        options,
+        kube,
+        clock,
+        compat_cache=None,
+        existing_input_cache=None,
+        device=None,
+    ):
+        from karpenter_tpu_torch.provisioning.scheduler import Scheduler
+
+        self.device = resolve_device(device)
+        self.kube = kube
+        self.scheduler = Scheduler(
+            pools_with_types=pools_with_types,
+            state_nodes=snapshot,
+            # retained ExistingNodeInput rows from the fleet seam
+            # (state/retained.py): unchanged nodes skip the per-node
+            # input derivation
+            existing_input_cache=existing_input_cache,
+            daemonsets=daemonsets,
+            cluster_pods=cluster_pods,
+            allow_reserved=options.feature_gates.reserved_capacity,
+            min_values_policy=options.min_values_policy,
+            ignore_dra_requests=options.ignore_dra_requests,
+            metrics_controller="disruption",
+            kube=kube,
+            clock=clock,
+            objective="ffd",
+            compat_cache=compat_cache,
+            device=self.device,
+        )
+        self.pending = list(pending_pods)
+        self.lane_solver = LaneSolver(
+            self.scheduler.pools_with_types,
+            self.scheduler.existing_inputs,
+            daemon_overhead=self.scheduler.daemon_overhead,
+            reserved_in_use=dict(self.scheduler.reserved_in_use),
+            pending=self.pending,
+            compat_cache=compat_cache,
+            device=self.device,
+        )
+        # which snapshot nodes hold a reservation: masking one out
+        # frees budget the shared encode cannot express per lane
+        from karpenter_tpu_torch.apis.v1.labels import RESERVATION_ID_LABEL
+        from karpenter_tpu_torch.provisioning.scheduler import _state_node_key
+
+        self._reserved_nodes: set[str] = set()
+        for node in snapshot:
+            rid = node.labels().get(RESERVATION_ID_LABEL, "")
+            if not rid and node.node_claim is not None:
+                for spec in node.node_claim.spec.requirements:
+                    if spec.key == RESERVATION_ID_LABEL and spec.values:
+                        rid = spec.values[0]
+                        break
+            if rid:
+                self._reserved_nodes.add(_state_node_key(node))
+
+    def pruner(self) -> ProbePruner:
+        """The dual-certificate pruner over this batch's staged union
+        problem (valid once prime() has staged it)."""
+        return ProbePruner(self.lane_solver)
+
+    def usable(self) -> bool:
+        """False when the sequential path would not run the in-process
+        device kernel — matching its backend is part of the oracle
+        contract — or when the device breaker is open (a faulting
+        device must not attract whole probe batches that each burn a
+        failure before degrading; the sequential path's ladder goes
+        straight to the working rung)."""
+        import os
+
+        from karpenter_tpu_torch.solver.solver import _backend
+
+        if _backend() == "host":
+            return False
+        # a solver endpoint sends the sequential path to the remote rung
+        # (not ported: the ladder raises naming it), never to this batch
+        if os.environ.get("KARPENTER_SOLVER_ENDPOINT"):
+            return False
+        if resilience.shared().breaker("device").is_open():
+            log.warning(
+                "device breaker open; consolidation probing sequentially")
+            return False
+        return True
+
+    def _batch_eligible(self, pods: Sequence[Pod]) -> tuple[bool, set[str]]:
+        """(eligible, dra_keys): the batched path only reproduces the
+        Scheduler's FAST path. Pods that would route to the topology /
+        host-port / volume-limited machinery gate the whole batch; DRA
+        pods are permanently errored exactly as Scheduler._solve does,
+        so they just report as unscheduled per lane."""
+        from karpenter_tpu_torch.provisioning import volume_topology
+        from karpenter_tpu_torch.scheduling.hostports import pod_host_ports
+        from karpenter_tpu_torch.scheduling.volumeusage import pod_volume_drivers
+        from karpenter_tpu_torch.utils.pod import has_dra_requirements
+
+        sched = self.scheduler
+        dra: set[str] = set()
+        limited = {
+            d for usage in sched._volume_usage.values() for d in usage.limits
+        }
+        for pod in pods:
+            if sched.ignore_dra_requests and has_dra_requirements(pod):
+                dra.add(pod.key)
+                continue
+            if self.kube is not None and (
+                pod.spec.volumes or pod.spec.injected_requirements
+            ):
+                # same per-solve re-derivation the sequential probe runs
+                volume_topology.inject(pod, self.kube)
+            if (
+                limited
+                and pod.spec.volumes
+                and limited & pod_volume_drivers(pod, self.kube).keys()
+            ):
+                return False, dra
+            if sched.topology.has_constraints(pod) or pod_host_ports(pod):
+                return False, dra
+        return True, dra
+
+    def prime(self, lane_specs) -> Optional[list]:
+        """Evaluate `lane_specs` (lists of Candidates) as one batch.
+        Returns None when the WHOLE batch is unsupported, else a list
+        aligned with lane_specs holding, per lane, a zero-arg thunk
+        that decodes to `(SchedulerResults, all_ok)` — or to None when
+        that lane turns out to need the sequential path — or None for
+        lanes known-unsupported up front. The device work happens here;
+        per-lane decode cost is deferred to the probes the search
+        actually consults."""
+        lanes: list[ProbeLane] = []
+        lane_pods: list[list[Pod]] = []
+        supported = [True] * len(lane_specs)
+        for i, spec in enumerate(lane_specs):
+            names = tuple(c.state_node.name for c in spec)
+            pods = [p for c in spec for p in c.reschedulable_pods]
+            if any(not self.lane_solver.knows(n) for n in names) or (
+                self._reserved_nodes and self._reserved_nodes & set(names)
+            ):
+                supported[i] = False
+                names, pods = (), []
+            lanes.append(ProbeLane(exclude_names=names, pods=pods))
+            lane_pods.append(pods)
+        union: dict[str, Pod] = {}
+        for pods in lane_pods:
+            for p in pods:
+                union.setdefault(p.key, p)
+        for p in self.pending:
+            union.setdefault(p.key, p)
+        ok_batch, dra = self._batch_eligible(list(union.values()))
+        if not ok_batch:
+            SOLVER_PROBE_BATCH.inc(
+                {"outcome": "fallback_lane"}, value=float(len(lane_specs))
+            )
+            return None
+        # DRA pods never enter the solve (Scheduler gates them first)
+        if dra:
+            lanes = [
+                ProbeLane(
+                    exclude_names=lane.exclude_names,
+                    pods=[p for p in lane.pods if p.key not in dra],
+                )
+                for lane in lanes
+            ]
+            self.lane_solver.pending = [
+                p for p in self.pending if p.key not in dra
+            ]
+        try:
+            lazy = self.lane_solver.solve_lazy(lanes, mode="ffd")
+        except Exception as err:
+            if not resilience.may_degrade(err, self.device):
+                raise
+            log.exception("probe batch failed; falling back to sequential")
+            SOLVER_PROBE_BATCH.inc(
+                {"outcome": "fallback_lane"}, value=float(len(lane_specs))
+            )
+            return None
+
+        def make_verdict(i, decode):
+            cell: list = []
+
+            def verdict():
+                if not cell:
+                    try:
+                        cell.append(
+                            self._to_results(lane_pods[i], decode(), dra)
+                        )
+                    except Exception as err:
+                        if not resilience.may_degrade(err, self.device):
+                            raise
+                        log.exception("probe lane decode failed; "
+                                      "falling back to sequential")
+                        cell.append(None)
+                    if cell[0] is None:
+                        SOLVER_PROBE_BATCH.inc({"outcome": "fallback_lane"})
+                return cell[0]
+
+            return verdict
+
+        out = []
+        for i, decode in enumerate(lazy):
+            if not supported[i]:
+                SOLVER_PROBE_BATCH.inc({"outcome": "fallback_lane"})
+                out.append(None)
+                continue
+            out.append(make_verdict(i, decode))
+        return out
+
+    def _to_results(self, lane_pods, sol: Solution, dra: set[str]):
+        """One lane's Solution -> the (SchedulerResults, all_ok) tuple
+        `simulate_scheduling` would return — or None when sequential-
+        only machinery (eviction retries, the preference-relaxation
+        ladder) would have engaged."""
+        from karpenter_tpu_torch.provisioning.scheduler import (
+            DRA_ERROR,
+            NO_CAPACITY_ERROR,
+            SchedulerResults,
+        )
+
+        sched = self.scheduler
+        if sol.evicted:
+            return None
+        if sol.unschedulable and sched.honor_preferences and any(
+            _relaxable(p) for p in sol.unschedulable
+        ):
+            return None
+        results = SchedulerResults(new_node_plans=[], existing_assignments={})
+        kept = [
+            plan for plan in sol.new_nodes
+            if sched._enforce_min_values(plan, results)
+        ]
+        for a in sol.existing:
+            name = sched.existing_inputs[a.existing_index].name
+            results.existing_assignments.setdefault(name, []).extend(a.pods)
+        for pod in sol.unschedulable:
+            results.errors[pod.key] = NO_CAPACITY_ERROR
+        for key in dra:
+            results.errors[key] = DRA_ERROR
+        for plan in kept:
+            sched._finalize_plan(plan)
+            if sched._enforce_min_values(plan, results):
+                results.new_node_plans.append(plan)
+        scheduled = {
+            p.key for plan in results.new_node_plans for p in plan.pods
+        } | {
+            p.key for ps in results.existing_assignments.values() for p in ps
+        }
+        all_ok = all(p.key in scheduled for p in lane_pods)
+        return results, all_ok

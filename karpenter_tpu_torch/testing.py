@@ -36,6 +36,12 @@ per probe) or arm (c) (every prefix a lane of one
 of a probe's Solution; `Candidate` stands in for the disruption
 engine's candidates where `ProbePruner` reads them.
 
+For the consolidation engine: `disruption_env` gives an environment the
+engine, its queue and the conditions controllers; `place`, `register`,
+`terminate` stand in for the lifecycle and termination controllers;
+`disruption_round(s)` run its rounds; `command_identity` and
+`fleet_state` compare them across packages.
+
 For the resilience ladder: `ladder_script` runs its fixed sequence of
 solves, faults and seam checks through a `LadderPackage` (this
 package's on a device; the tests subclass it for the JAX package), and
@@ -1591,15 +1597,21 @@ def package_api():
 
     from karpenter_tpu_torch.apis.v1 import labels, nodeclaim, nodepool
     from karpenter_tpu_torch.cloudprovider import fake
+    from karpenter_tpu_torch.disruption import conditions, engine, validation
+    from karpenter_tpu_torch.events import recorder
     from karpenter_tpu_torch.kube import client, objects
     from karpenter_tpu_torch.metrics import store
+    from karpenter_tpu_torch.operator import options
     from karpenter_tpu_torch.provisioning import provisioner
-    from karpenter_tpu_torch.state import cluster
+    from karpenter_tpu_torch.state import cluster, retained
+    from karpenter_tpu_torch.utils import pdb
 
     return SimpleNamespace(
         labels=labels, nodeclaim=nodeclaim, nodepool=nodepool, fake=fake,
         objects=objects, client=client, cluster=cluster,
-        provisioner=provisioner, store=store,
+        provisioner=provisioner, store=store, engine=engine,
+        conditions=conditions, validation=validation, recorder=recorder,
+        options=options, pdb=pdb, retained=retained,
     )
 
 
@@ -1792,6 +1804,9 @@ def case_objects(case: ProvisionCase, api) -> dict:
                                   labels={lb.NODEPOOL_LABEL: d["pool"]},
                                   creation_timestamp=CASE_T0),
         )
+        if d.get("finalizer"):
+            # deleted as a launched claim is: through its finalizer
+            claim.metadata.finalizers = [lb.TERMINATION_FINALIZER]
         claim.status.provider_id = pid
         claim.status.node_name = d["name"]
         claim.status.capacity = dict(it.capacity)
@@ -1816,19 +1831,6 @@ def case_objects(case: ProvisionCase, api) -> dict:
         out["extra"].append(
             case_pod(api, d, CASE_T0 + 1 + len(case.pods) + i))
     return out
-
-
-class CaseOptions:
-    """The operator options a Provisioner reads (`operator/options.py`
-    is not ported): the minValues policy, the ReservedCapacity gate and
-    the DRA flag."""
-
-    def __init__(self, min_values_policy: str = "Strict"):
-        from types import SimpleNamespace
-
-        self.min_values_policy = min_values_policy
-        self.feature_gates = SimpleNamespace(reserved_capacity=True)
-        self.ignore_dra_requests = True
 
 
 def _env(api, cloud, objects, options, t0: float, kube=None,
@@ -1858,7 +1860,7 @@ def build_env(case: ProvisionCase, api, **provisioner_kwargs):
     objs = case_objects(case, api)
     env = _env(api, api.fake.FakeCloudProvider(objs["types"]),
                objs["first"] + objs["pending"],
-               CaseOptions(case.min_values_policy), CASE_T0,
+               api.options.Options(min_values_policy=case.min_values_policy), CASE_T0,
                **provisioner_kwargs)
     env.objects = objs
     return env
@@ -1883,7 +1885,7 @@ def pods_env(pods, pools_with_types, api=None, t0: float = CASE_T0,
     for pod in pods:
         pod.metadata.creation_timestamp = t0
     return _env(api, cloud, [pool for pool, _ in pools_with_types] + list(pods),
-                CaseOptions(), t0, **provisioner_kwargs)
+                api.options.Options(), t0, **provisioner_kwargs)
 
 
 def launch_claims(env, results) -> None:
@@ -2000,19 +2002,26 @@ def reset_counters(api) -> None:
     api.objects._uid_counter = itertools.count(1)
 
 
-def settle(env, plans: dict, results, t: float) -> None:
+def settle(env, plans: dict, results, t: float,
+           names: Optional[dict] = None) -> None:
     """What the provider, the lifecycle controller and kube-scheduler
     write back after a round: every claim launched and not yet
     registered becomes a node (`node-<claim-i>`, `claim_names` order
-    over `plans`: claim name -> the plan that made it), with the
+    over `plans`: claim name -> the plan that made it; or, with
+    `names`, the name it holds there, new claims numbered on in the
+    order of `plans`, so that a deleted claim shifts no name), with the
     labels of its plan's cheapest option, the claim's taints and the
     lifecycle conditions; then `results`' pods bind: a new plan's to
     its claim's node, an existing assignment's to the node its key
     names (an in-flight claim's node once registered)."""
     api = env.api
     o, lb, nc = api.objects, api.labels, api.nodeclaim
-    names = claim_names([env.kube.get_node_claim(n) for n in plans
-                         if env.kube.get_node_claim(n) is not None])
+    if names is None:
+        names = claim_names([env.kube.get_node_claim(n) for n in plans
+                             if env.kube.get_node_claim(n) is not None])
+    else:
+        for n in plans:
+            names.setdefault(n, f"claim-{len(names)}")
     for claim in list(env.kube.node_claims()):
         name = claim.metadata.name
         if (claim.status.node_name or not claim.status.provider_id
@@ -2158,6 +2167,225 @@ def run_stream(env, rounds, t0: float = CASE_T0, on_round=None,
             None if results is None
             else decision_fingerprint(results, claim_names(created)))
     return out
+
+
+# -- disruption: the consolidation engine over a live cluster ----------------
+#
+# `disruption_env` adds the engine (`DisruptionEngine` with its
+# `OrchestrationQueue`) and the conditions controllers to an environment
+# of `_env`; `disruption_round` runs one cycle of them and
+# `disruption_rounds` repeats it until a round decides nothing.
+# Everything is named by creation order or by the case, so one stream
+# decides alike in both packages; `command_identity` compares commands
+# without names. A stream starts at DISRUPTION_T0.
+
+
+# a disruption stream's start: pod bind times are wall clock, so every
+# round's `now` must lie ahead of them; and the Provisioner reprices spot
+# offerings on a curve of `now`, so one fixed start (2100-01-01 UTC)
+# makes a stream decide alike from run to run, in both packages
+DISRUPTION_T0 = 4_102_444_800.0
+
+
+def disruption_env(env, options=None, seed: int = 0, **engine_kwargs):
+    """Attach `env.api`'s disruption half to an environment of `_env`
+    (`build_env`, `pods_env`): an `EventRecorder` (`recorder`), the
+    conditions controllers (`conditions`, `expiration`, `pod_events`)
+    and the `DisruptionEngine` (`disruption`, its queue
+    `disruption.queue`) over the Provisioner's fixed clock, so that no
+    method's deadline fires. `options`: the JAX package's test
+    `Environment`'s (SpotToSpotConsolidation on) unless given. This
+    package's engine takes `device=` (default: the Provisioner's)."""
+    api = env.api
+    if options is None:
+        options = api.options.Options(feature_gates=api.options.FeatureGates(
+            spot_to_spot_consolidation=True))
+    env.options = options
+    env.recorder = api.recorder.EventRecorder()
+    env.conditions = api.conditions.DisruptionConditionsController(
+        env.kube, env.cluster, env.cloud)
+    env.expiration = api.conditions.ExpirationController(env.kube)
+    env.pod_events = api.conditions.PodEventsController(env.kube, env.cluster)
+    env.disruption = api.engine.DisruptionEngine(
+        env.kube, env.cluster, env.cloud, env.provisioner, seed=seed,
+        options=options, clock=env.provisioner.clock, recorder=env.recorder,
+        **engine_kwargs)
+    # claim name -> the plan that made it, and the claims' node names
+    # (`settle(..., names=)`), over the whole stream
+    env.plans, env.names = {}, {}
+    return env
+
+
+def place(env, now: float):
+    """A provisioning round at `now` over the pending pods, its claims
+    launched and registered as nodes and its pods bound (`settle` with
+    the stream's stable names). Returns its results."""
+    results = env.provisioner.reconcile(now=now)
+    register(env, results, now)
+    return results
+
+
+def register(env, results, now: float) -> None:
+    """`results`' claims launched (`launch_claims`) and registered as
+    nodes, and its pods bound (`settle`)."""
+    if results is None:
+        return
+    launch_claims(env, results)
+    for plan in results.new_node_plans:
+        if plan.claim_name:
+            env.plans[plan.claim_name] = plan
+    settle(env, env.plans, results, now, names=env.names)
+
+
+def _reborn(api, pod, now: float):
+    """A controller-owned pod's successor after its eviction: its name,
+    labels, annotations, owners and spec, unbound."""
+    import copy
+
+    o = api.objects
+    spec = copy.deepcopy(pod.spec)
+    spec.node_name = ""
+    return o.Pod(metadata=o.ObjectMeta(
+        name=pod.metadata.name, namespace=pod.metadata.namespace,
+        uid=f"{pod.metadata.uid}+", labels=dict(pod.metadata.labels),
+        annotations=dict(pod.metadata.annotations),
+        owner_references=list(pod.metadata.owner_references),
+        creation_timestamp=now), spec=spec)
+
+
+def terminate(env, now: float) -> list:
+    """What the termination controller writes back once the queue has
+    deleted candidates' claims: for each claim with a deletion
+    timestamp, in name order, its node's pods are evicted through
+    `KubeClient.evict` (the store's PDB check binds: a blocked pod
+    stays, and so do its node and claim), each evicted pod with a
+    controller owner is reborn pending under its name (its workload's
+    replica), then the node's daemonset and mirror pods and the node go
+    and the claim's finalizers are removed. Returns the keys of the pods
+    an eviction refused."""
+    api = env.api
+    kube = env.kube
+    blocked = []
+    claims = sorted((c for c in kube.node_claims()
+                     if c.metadata.deletion_timestamp is not None),
+                    key=lambda c: c.metadata.name)
+    for claim in claims:
+        node = kube.get_node(claim.status.node_name) if claim.status.node_name else None
+        held = []
+        for pod in sorted(kube.pods_on_node(node.metadata.name) if node else (),
+                          key=lambda p: p.key):
+            owner = pod.owner_kind()
+            if pod.is_terminal() or owner in ("DaemonSet", "Node"):
+                continue
+            try:
+                kube.evict(pod, now=now)
+            except api.client.EvictionBlockedError:
+                held.append(pod.key)
+                continue
+            if owner and kube.get_pod(pod.metadata.namespace, pod.metadata.name) is None:
+                kube.create(_reborn(api, pod, now))
+        if held:
+            blocked += held
+            continue
+        if node is not None:
+            for pod in list(kube.pods_on_node(node.metadata.name)):
+                kube.delete(pod, now=now)
+            for fin in list(node.metadata.finalizers):
+                kube.remove_finalizer(node, fin)
+            kube.delete(node, now=now)
+        for fin in list(claim.metadata.finalizers):
+            kube.remove_finalizer(claim, fin)
+    return blocked
+
+
+def disruption_round(env, now: float) -> dict:
+    """One disruption cycle at `now`: the pod-events and conditions
+    controllers, `DisruptionEngine.reconcile`, the command's
+    replacements launched and registered (`register`), the queue's
+    `reconcile` at now + 20 (past the validation TTL, so a consolidation
+    command is simulated again), `terminate`, and a provisioning round
+    at now + 25 that places the pods the drain displaced (`place`).
+    Returns the command, its name-insensitive identity
+    (`command_identity`), the pods an eviction refused, the queue's
+    commands still in flight and the placement's results."""
+    env.pod_events.reconcile_all(now=now)
+    env.conditions.reconcile_all(now=now)
+    command = env.disruption.reconcile(now=now)
+    ident = command_identity(command)
+    if command is not None:
+        register(env, command.results, now)
+    env.disruption.queue.reconcile(now=now + 20)
+    blocked = terminate(env, now + 20)
+    placed = place(env, now + 25) if env.provisioner.get_pending_pods() else None
+    return {"command": command, "identity": ident, "blocked": blocked,
+            "active": len(env.disruption.queue.active), "placed": placed}
+
+
+def disruption_rounds(env, t0: float, max_rounds: int = 12,
+                      on_round=None) -> list:
+    """`disruption_round` at t0 + 100k, k = 0, 1, ..., until a round
+    decides nothing, a round repeats the last round's command and
+    leaves the fleet as it found it (the command rolled back and will
+    be decided again: a fixed point, `stalled`), or `max_rounds` have
+    run. Returns the rounds' `disruption_round` dicts, each with the
+    fleet after it (`fleet_state`) and `stalled`. `on_round(k, round)`
+    runs after each."""
+    out = []
+    before = fleet_state(env)
+    for k in range(max_rounds):
+        rnd = disruption_round(env, t0 + 100 * k)
+        rnd["fleet"] = fleet_state(env)
+        rnd["stalled"] = bool(
+            out and rnd["command"] is not None
+            and rnd["identity"] == out[-1]["identity"]
+            and rnd["fleet"] == before)
+        out.append(rnd)
+        before = rnd["fleet"]
+        if on_round is not None:
+            on_round(k, rnd)
+        if rnd["command"] is None or rnd["stalled"]:
+            break
+    return out
+
+
+def command_identity(cmd) -> Optional[tuple]:
+    """A command without names (as the JAX package's oracle tests
+    compare them): its reason, its candidates' node names, and per
+    replacement plan its pool, price to 1e-6, pod keys and type
+    names."""
+    if cmd is None:
+        return None
+    plans = []
+    if cmd.results is not None:
+        plans = sorted(
+            (plan.pool.metadata.name, round(float(plan.price), 6),
+             tuple(sorted(p.key for p in plan.pods)),
+             tuple(sorted(it.name for it in plan.instance_types)))
+            for plan in cmd.results.new_node_plans)
+    return (cmd.reason, tuple(sorted(c.state_node.name for c in cmd.candidates)),
+            tuple(plans))
+
+
+def fleet_state(env) -> tuple:
+    """The fleet as plain values: per node (name order) its instance
+    type, zone, capacity type and bound pods; the pending pods; the
+    fleet's price an hour (each node's offering in the Provisioner's
+    catalog)."""
+    prices = {}
+    for pool, types in env.provisioner.ready_pools_with_types():
+        for it in types:
+            for off in it.offerings:
+                prices[(pool.metadata.name, it.name, off.zone, off.capacity_type)] = off.price
+    nodes, total = [], 0.0
+    for node in sorted(env.kube.nodes(), key=lambda n: n.metadata.name):
+        lb = node.metadata.labels
+        key = (lb.get(NODEPOOL_LABEL, ""), lb.get(INSTANCE_TYPE_LABEL, ""),
+               lb.get(TOPOLOGY_ZONE_LABEL, ""), lb.get(CAPACITY_TYPE_LABEL, ""))
+        total += prices.get(key, 0.0)
+        nodes.append(key[1:] + (tuple(sorted(
+            p.key for p in env.kube.pods_on_node(node.metadata.name))),))
+    pending = tuple(sorted(p.key for p in env.kube.pods() if not p.spec.node_name))
+    return tuple(nodes), pending, round(total, 6)
 
 
 def decision_fingerprint(results, names: Optional[dict] = None) -> tuple:

@@ -23,6 +23,16 @@ from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
 from karpenter_tpu_torch.workloads import build_problem
 
 from test_torch_cost import assert_same_cost_solve, clean  # noqa: F401
+from karpenter_tpu_torch import testing as _testing
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_core():
+    """JAX compiles and the plain versions on one core, leaving the
+    suite's other workers theirs (the JAX package's wall-clock tests
+    among them; see test_torch_provisioning.py)."""
+    with _testing.one_core():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

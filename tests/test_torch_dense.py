@@ -45,6 +45,16 @@ from karpenter_tpu_torch.solver.pack import stage
 from karpenter_tpu_torch.testing import (
     SIGNED_ZERO_ROWS, dense_case, signed_zero_problem, split_mismatch)
 from test_pack_split_equivalence import _random_problem
+from karpenter_tpu_torch import testing as _testing
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_core():
+    """JAX compiles and the plain versions on one core, leaving the
+    suite's other workers theirs (the JAX package's wall-clock tests
+    among them; see test_torch_provisioning.py)."""
+    with _testing.one_core():
+        yield
 
 OUTPUTS = ("assign", "node_mask", "node_used", "node_active", "node_count", "unsched")
 

@@ -3,11 +3,19 @@
 (d) `solve()` with no device runs on the card, so on a host without
     CUDA it raises instead of moving to the CPU; so do
     `Scheduler(...).solve`, `Provisioner(...).reconcile` and
-    `.micro_solve`, `IncrementalPipeline().solve_tick` and
-    `build_dual_floor`.
+    `.micro_solve`, `IncrementalPipeline().solve_tick`,
+    `build_dual_floor`, `DisruptionEngine(...).reconcile` and
+    `BatchProbeSolver(...)`. On a (faked) CUDA device nothing on the
+    disruption engine's path falls back on its own: a failure in the
+    probe batch's set-up, its dispatch, a lane's decode, the pruner's
+    certificate or an execution-time validation reaches the caller,
+    while an injected fault degrades as in the JAX package (and off the
+    card every failure degrades, as there). `KubeClient` raises
+    `NotImplementedError` for nothing (`evict` is ported).
 (e) importing `karpenter_tpu_torch` and one CPU solve load neither
     `jax` nor `karpenter_tpu` (checked in a fresh interpreter); nor do
-    two provisioning rounds through the port's Provisioner.
+    two provisioning rounds through the port's Provisioner, nor a
+    disruption round (engine, queue, validation, eviction).
 (f) no file of the port, and not `chip_smoke.py`, imports `jax` or
     `karpenter_tpu` (AST check).
 """
@@ -167,3 +175,209 @@ def test_sharded_solve_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     assert report["nodes"] > 0 and report["blocks"] > 0
+
+
+def test_disruption_entry_points_default_device_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.solver.consolidation_batch import BatchProbeSolver
+
+    env = testing.provision_env(testing.provision_cases(0)[0], "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        testing.disruption_env(env, device=None).disruption.reconcile(
+            now=testing.CASE_T0 + 10)
+    api = testing.package_api()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchProbeSolver(
+            pools_with_types=env.provisioner.ready_pools_with_types(),
+            snapshot=env.cluster.deep_copy_nodes(), daemonsets=[],
+            cluster_pods=[], pending_pods=[], options=api.options.Options(),
+            kube=env.kube, clock=lambda: testing.CASE_T0)
+    # an engine over a CUDA Provisioner inherits its device: the
+    # Provisioner already refuses
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        testing.provision_env(testing.provision_cases(0)[0], None)
+
+
+def test_kube_client_has_no_named_not_implemented():
+    """`KubeClient.evict` was the last part of the client left to the
+    consolidation engine's port; no method raises NotImplementedError."""
+    from karpenter_tpu_torch.kube import client
+
+    tree = ast.parse(Path(client.__file__).read_text())
+    raised = [n for n in ast.walk(tree) if isinstance(n, ast.Raise) and n.exc is not None
+              and "NotImplementedError" in ast.unparse(n.exc)]
+    assert raised == []
+
+
+def test_disruption_round_loads_no_jax():
+    code = (
+        "import sys, json\n"
+        "from karpenter_tpu_torch import testing\n"
+        "case = testing.ProvisionCase('d', pods=[testing._pod(f'w-{i}', 0.5, 1.0)"
+        " for i in range(40)], pools=[dict(name='default')], catalog=('custom',"
+        " (('c2', 2, 8, 2.0), ('c4', 4, 16, 3.0), ('c8', 8, 32, 5.0)), 1))\n"
+        "env = testing.disruption_env(testing.provision_env(case, 'cpu'))\n"
+        "t0 = testing.DISRUPTION_T0\n"
+        "testing.place(env, t0)\n"
+        "for p in sorted(env.kube.pods(), key=lambda p: p.key)[::2]:\n"
+        "    env.kube.delete(p, now=t0 + 50)\n"
+        "rounds = testing.disruption_rounds(env, t0 + 100, max_rounds=3)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'karpenter_tpu'"
+        " or m.startswith('karpenter_tpu.')]\n"
+        "print(json.dumps({'bad': bad, 'decided': sum(r['command'] is not None"
+        " for r in rounds)}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert report["decided"] > 0
+
+
+class TestEngineOnTheCard:
+    """The engine's device named "cuda" with its solves served on the
+    CPU (`pack.solve_packing` and the lane solver moved there), so no
+    card is needed: each site's non-injected failure is raised on the
+    card and degrades off it; an injected fault degrades on both."""
+
+    SITES = ("setup", "prime", "decode", "prune")
+
+    @staticmethod
+    def _engine(monkeypatch, device):
+        from karpenter_tpu_torch import testing
+        from karpenter_tpu_torch.solver import consolidation_batch, faults, pack, resilience
+
+        faults.reset()
+        resilience.reset()
+        real_pack = pack.solve_packing
+        monkeypatch.setattr(pack, "solve_packing",
+                            lambda enc, **kw: real_pack(enc, **dict(kw, device="cpu")))
+        real_init = consolidation_batch.LaneSolver.__init__
+
+        def on_cpu(self, *a, **kw):
+            real_init(self, *a, **dict(kw, device="cpu"))
+
+        monkeypatch.setattr(consolidation_batch.LaneSolver, "__init__", on_cpu)
+        nodes = [dict(name=f"m-node-{i}", type=0, pool="default", finalizer=True,
+                      zone=testing.ZONES[i % 3], pods=[testing._pod(f"m-{i}", 1.0, 2.0)])
+                 for i in range(5)]
+        case = testing.ProvisionCase(
+            "mixed", pools=[dict(name="default")], nodes=nodes,
+            catalog=("custom", (("c2", 2, 8, 2.0), ("c4", 4, 16, 3.0),
+                                ("c8", 8, 32, 5.0)), 1))
+        testing.reset_counters(testing.package_api())
+        env = testing.disruption_env(testing.provision_env(case, "cpu"), device=device)
+        t0 = testing.DISRUPTION_T0
+        env.pod_events.reconcile_all(now=t0)
+        env.conditions.reconcile_all(now=t0)
+        return env, t0
+
+    @staticmethod
+    def _break(monkeypatch, site, err):
+        from karpenter_tpu_torch.solver import consolidation_batch as cb
+
+        def raising(*a, **k):
+            raise err
+
+        target = {
+            "setup": (cb, "BatchProbeSolver"),
+            "prime": (cb.LaneSolver, "solve_lazy"),
+            "decode": (cb.BatchProbeSolver, "_to_results"),
+            "prune": (cb.ProbePruner, "cannot_pay"),
+        }[site]
+        monkeypatch.setattr(*target, raising)
+
+    def _sequential(self, monkeypatch):
+        from karpenter_tpu_torch import testing
+
+        monkeypatch.setenv("KARPENTER_BATCH_PROBES", "0")
+        env, t0 = self._engine(monkeypatch, "cpu")
+        cmd = env.disruption.multi_node_consolidation(t0)
+        monkeypatch.delenv("KARPENTER_BATCH_PROBES")
+        return testing.command_identity(cmd)
+
+    @pytest.mark.parametrize("site", SITES)
+    def test_card_failure_reaches_the_caller(self, monkeypatch, site):
+        env, t0 = self._engine(monkeypatch, "cuda")
+        err = TypeError(f"a failure in {site}")
+        self._break(monkeypatch, site, err)
+        with pytest.raises(TypeError) as info:
+            env.disruption.multi_node_consolidation(t0)
+        assert info.value is err
+
+    @pytest.mark.parametrize("device", ["cuda", "cpu"])
+    @pytest.mark.parametrize("site", SITES)
+    def test_injected_fault_degrades(self, monkeypatch, site, device):
+        from karpenter_tpu_torch import testing
+        from karpenter_tpu_torch.solver import faults
+
+        want = self._sequential(monkeypatch)
+        env, t0 = self._engine(monkeypatch, device)
+        self._break(monkeypatch, site, faults.DeviceLostError(f"injected at {site}"))
+        got = testing.command_identity(env.disruption.multi_node_consolidation(t0))
+        assert got == want and got is not None
+
+    @pytest.mark.parametrize("site", SITES)
+    def test_any_failure_degrades_off_the_card(self, monkeypatch, site):
+        from karpenter_tpu_torch import testing
+
+        want = self._sequential(monkeypatch)
+        env, t0 = self._engine(monkeypatch, "cpu")
+        self._break(monkeypatch, site, TypeError(f"a failure in {site}"))
+        got = testing.command_identity(env.disruption.multi_node_consolidation(t0))
+        assert got == want
+
+    @pytest.mark.parametrize("device", ["cuda", "cpu"])
+    def test_injected_probe_fault_degrades(self, monkeypatch, device):
+        """KARPENTER_FAULTS at the chunk dispatch (`probe`): the lane
+        falls back to its sequential probe, as in the JAX package."""
+        from karpenter_tpu_torch import testing
+        from karpenter_tpu_torch.solver import faults
+
+        want = self._sequential(monkeypatch)
+        env, t0 = self._engine(monkeypatch, device)
+        monkeypatch.setenv("KARPENTER_FAULTS", "device_lost@probe:*")
+        faults.reset()
+        try:
+            got = testing.command_identity(env.disruption.multi_node_consolidation(t0))
+            fired = [e for e in faults.get().snapshot_log() if e[0] == "probe"]
+        finally:
+            monkeypatch.delenv("KARPENTER_FAULTS")
+            faults.reset()
+        assert fired, "the probe fault never fired"
+        assert got == want and got is not None
+
+    @pytest.mark.parametrize("device", ["cuda", "cpu"])
+    def test_validation_failure(self, monkeypatch, device):
+        """A validation that fails for another reason than a verdict is
+        raised on the card; off it the command rolls back (the JAX
+        package's reading)."""
+        from karpenter_tpu_torch.disruption.validation import Validator
+
+        env, t0 = self._engine(monkeypatch, device)
+        cmd = env.disruption.multi_node_consolidation(t0)
+        env.disruption.queue.start_command(cmd, t0)
+        from karpenter_tpu_torch import testing
+
+        testing.register(env, cmd.results, t0)
+        err = TypeError("a failure in validation")
+
+        def raising(*a, **k):
+            raise err
+
+        monkeypatch.setattr(Validator, "_validate_for_execution", raising)
+        if device == "cuda":
+            with pytest.raises(TypeError):
+                env.disruption.queue.reconcile(now=t0 + 20)
+            assert len(env.disruption.queue.active) == 1
+        else:
+            env.disruption.queue.reconcile(now=t0 + 20)
+            assert env.disruption.queue.active == []
+            assert all(c.metadata.deletion_timestamp is None
+                       for c in env.kube.node_claims()
+                       if c.metadata.name.startswith("existing-"))

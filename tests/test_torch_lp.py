@@ -47,6 +47,16 @@ from karpenter_tpu_torch.cloudprovider.fake import (
 )
 from karpenter_tpu_torch.solver import lp_device, lp_plan
 from karpenter_tpu_torch.testing import PRICE_CASES, price_case
+from karpenter_tpu_torch import testing as _testing
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_core():
+    """JAX compiles and the plain versions on one core, leaving the
+    suite's other workers theirs (the JAX package's wall-clock tests
+    among them; see test_torch_provisioning.py)."""
+    with _testing.one_core():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

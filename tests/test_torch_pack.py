@@ -29,6 +29,16 @@ from karpenter_tpu.testing import mk_nodepool, mk_pod
 from karpenter_tpu_torch.solver import pack_split as kernels
 from karpenter_tpu_torch.solver.encode import encoded_from_arrays
 from karpenter_tpu_torch.solver.pack import stage
+from karpenter_tpu_torch import testing as _testing
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_core():
+    """JAX compiles and the plain versions on one core, leaving the
+    suite's other workers theirs (the JAX package's wall-clock tests
+    among them; see test_torch_provisioning.py)."""
+    with _testing.one_core():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -30,13 +30,14 @@ def jax_api():
     from karpenter_tpu.apis.v1 import labels, nodeclaim, nodepool
     from karpenter_tpu.cloudprovider import fake
     from karpenter_tpu.kube import client, objects
+    from karpenter_tpu.operator import options
     from karpenter_tpu.provisioning import provisioner
     from karpenter_tpu.state import cluster
 
     return SimpleNamespace(
         labels=labels, nodeclaim=nodeclaim, nodepool=nodepool, fake=fake,
         objects=objects, client=client, cluster=cluster,
-        provisioner=provisioner,
+        provisioner=provisioner, options=options,
     )
 
 

@@ -27,6 +27,16 @@ import torch
 
 from karpenter_tpu_torch import testing
 from karpenter_tpu_torch.solver import pack_shard, pack_split
+from karpenter_tpu_torch import testing as _testing
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_core():
+    """JAX compiles and the plain versions on one core, leaving the
+    suite's other workers theirs (the JAX package's wall-clock tests
+    among them; see test_torch_provisioning.py)."""
+    with _testing.one_core():
+        yield
 
 SHARDS = [1, 2, 3, 4, 5, 7, 8]
 

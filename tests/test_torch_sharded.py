@@ -37,6 +37,16 @@ from karpenter_tpu_torch.solver.encode import encode, encoded_from_arrays, group
 from karpenter_tpu_torch.solver.solver import fingerprint, solve
 from karpenter_tpu_torch.utils.platform import force_virtual_mesh, virtual_mesh
 from karpenter_tpu_torch.workloads import build_problem
+from karpenter_tpu_torch import testing as _testing
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_core():
+    """JAX compiles and the plain versions on one core, leaving the
+    suite's other workers theirs (the JAX package's wall-clock tests
+    among them; see test_torch_provisioning.py)."""
+    with _testing.one_core():
+        yield
 
 ARRAYS = ("compat", "group_req", "group_count", "cfg_alloc", "cfg_price",
           "cfg_pool", "pool_overhead", "existing_used", "cfg_rsv", "rsv_cap",

@@ -27,6 +27,16 @@ from karpenter_tpu_torch.scheduling.requirements import Requirements
 from karpenter_tpu_torch.solver.encode import ExistingNodeInput, encode, group_pods
 from karpenter_tpu_torch.solver.solver import fingerprint, solve
 from karpenter_tpu_torch.workloads import build_problem
+from karpenter_tpu_torch import testing as _testing
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_core():
+    """JAX compiles and the plain versions on one core, leaving the
+    suite's other workers theirs (the JAX package's wall-clock tests
+    among them; see test_torch_provisioning.py)."""
+    with _testing.one_core():
+        yield
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
