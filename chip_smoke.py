@@ -37,6 +37,11 @@
                                     # consolidation engine's rounds on the
                                     # card, held against the batch off,
                                     # the pruner off and device="cpu"
+    python3 chip_smoke.py --warm    # phases 1-2 and the warm phase alone
+    python3 chip_smoke.py --environment
+                                    # phases 1-2, the warm phase and 16:
+                                    # the simulated cluster on the card,
+                                    # held against device="cpu"
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -61,15 +66,34 @@
 Phases, each reported on its own line; any failure exits non-zero. The
 CPU references that need nothing of the card (phase 4's first and small
 requests, phase 11's catalog, phase 13's benchmark rounds, phase 14's
-stream with its micro path and its pipeline, each with device="cpu"
-from the same seeds) are computed in one worker process,
+stream with its micro path and its pipeline, phase 16's Environment
+stream, each with device="cpu" from the same seeds) are computed in one
+worker process,
 started after the build, beside the card's phases; the process is
 stopped when the script ends.
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile the CUDA kernels from karpenter_tpu_torch/csrc
                 (one nvcc per source, in parallel, B1's and B3's sources
                 a second time with their phase clocks); print build
-                seconds and what ptxas reports (registers, shared memory).
+                seconds, each library's machine tag (`cuda_build.
+                machine_tag()`: the nvcc version and the card's compute
+                capability, part of its digest) and what ptxas reports
+                (registers, shared memory).
+  warm        — `warm_pool.warm()` on the card over its default buckets
+                (`DEFAULT_SHAPES` in both modes, with and without the
+                topology inputs, the default probe buckets, the
+                dual-ascent buckets): one canary launch of each kernel a
+                bucket's route runs (B1, B3, B2, B6 and its epilogue, B5),
+                read back; `karpenter_solver_warm_compiles_total` must
+                show no `error`. Each bucket's wall, and each kernel's
+                first launch in the process (CUDA loads its module then)
+                against the same canary again. Then the resilience
+                ladder's re-warm gate (KARPENTER_REWARM_ON_CLOSE=1): two
+                injected device faults open the device breaker on
+                `build_problem(2000, 50, seed=7)`, and the half-open
+                success closes it only after `rewarm_canary()` launched
+                on the card. Later phases' device-served checks count
+                from the ladder's counts after this phase.
   3. kernels  — hold each kernel against its plain PyTorch version on
                 the card, on seeded problems (B4 and B5 on their own
                 seeded cases, B5 also on edge cases: one whose arrays
@@ -323,13 +347,16 @@ LP degraded.
                 round's claims launch (in flight, no node registered)
                 and 10k more pods arrive, so the pending pods land on
                 the in-flight claims (one warm-up environment, then
-                three fresh ones timed); bench.py's scenario_topology
+                two fresh ones timed); bench.py's scenario_topology
                 demand (1000 pods of 20 apps, zonal spread, hostname
                 anti-affinity on every tenth, over `instance_types(100)`)
                 through `Scheduler.solve`; bench.py's scenario_mixed
                 demand (`build_problem(10_000, 400)` on the family-priced
                 catalog beside a tainted pool of weight 50 over 60 types,
                 every fifth pod tolerating it) through the Provisioner.
+                Between two rounds the claims launch through the
+                lifecycle controller (`NodeClaimLifecycle` over the
+                `FakeCloudProvider`: `testing.launch`).
                 Each problem's card runs, with the launch counts set to 0
                 just before and read just after, must launch a packing
                 kernel and B2; every pod is placed or unschedulable. The
@@ -396,6 +423,32 @@ LP degraded.
                 warm and with KARPENTER_DISRUPTION_SNAPSHOT=0 (the scan
                 walls of both printed). The device rung serves every
                 solve of the phase.
+  16. environment — the simulated cluster: `testing.Environment(device=
+                "cuda")` (the in-memory API, the cluster mirror, the kwok
+                provider, the lifecycle, termination, disruption,
+                interruption and static-capacity controllers) over phase
+                13's 500-type catalog and 50k pods, through
+                `testing.environment_stream`: the pods provisioned (claims
+                launched through `KwokCloudProvider`, nodes registered,
+                pods bound), 30% of them deleted and
+                up to two `reconcile_disruption` rounds (ENV_ROUNDS; the
+                stream ends early when nothing is decided or the command
+                stalls, ROADMAP C6), the probe methods on
+                what is left, `reconcile_termination`, then three spot
+                interruptions and `reconcile_interruption` rounds. Each
+                step's name-insensitive decision and fleet equal to the
+                same stream with device="cpu" (computed in the worker);
+                per step its host wall, the card's ms in the packing
+                calls and the kernels it launched (the counts zeroed
+                before the stream, read after it); B2, B3, B4, B5 and B6
+                must launch, and the device rung serve every solve. Then
+                `metrics.exposition.render()` must carry the five phase
+                labels of `karpenter_solver_phase_duration_seconds`,
+                `karpenter_solver_probe_batch_total` and
+                `karpenter_solver_device_steps` must agree with the
+                launches of B6 and of the flat solves, and the metrics
+                controllers' gauges (pods, nodes, node pools, status
+                conditions) equal the CPU run's.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -485,12 +538,14 @@ def say(msg: str) -> None:
 
 # the references on the CPU that need nothing of the card, by name: the
 # fingerprints of phase 4's first and small requests (device="cpu"), of
-# phase 11's catalog, phase 13's benchmark rounds, and phase 14's stream
-# with its micro path and its pipeline. The whole run
+# phase 11's catalog, phase 13's benchmark rounds, phase 14's stream
+# with its micro path and its pipeline, and phase 16's Environment
+# stream. The whole run
 # computes them in one worker process of their own (CPU_REF_THREADS
 # threads), started after the build, so that they run beside the card's
 # phases; a phase run alone computes its own inline
-CPU_REFS_ORDER = ("first", "small", "catalog", "provision", "tick", "pipeline")
+CPU_REFS_ORDER = ("first", "small", "catalog", "provision", "tick", "pipeline",
+                  "environment")
 CPU_REF_THREADS = 4
 
 
@@ -500,8 +555,9 @@ def cpu_reference(name: str):
     problem's two reconcile rounds in a fresh environment (the rounds'
     fingerprints, pods placed or unschedulable, and rungs degraded);
     phase 14's `tick_stream` (fingerprints, routes, rungs degraded) and
-    then its `micro_continue`, and `pipeline_run`'s held rows and cold
-    tick's wall."""
+    then its `micro_continue`, `pipeline_run`'s held rows and cold
+    tick's wall, and phase 16's `environment_run` (its records, the
+    metrics controllers' gauges after it, the rungs degraded)."""
     from karpenter_tpu_torch import testing
     from karpenter_tpu_torch.solver.encode import group_pods
     from karpenter_tpu_torch.solver.solver import fingerprint, solve
@@ -519,6 +575,13 @@ def cpu_reference(name: str):
     if name == "pipeline":
         rows, _, _, cold = pipeline_run("cpu", PIPELINE_HELD, 0)
         return rows, cold
+    if name == "environment":
+        from karpenter_tpu_torch.solver import resilience
+
+        resilience.pop_degraded()
+        env, steps = environment_run("cpu")
+        return {"steps": steps, "gauges": controller_gauges(env),
+                "degraded": resilience.pop_degraded()}
     pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
     if name == "first":
         return fingerprint(solve(pods, pools, device="cpu"))
@@ -1725,11 +1788,11 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
 
     def drive(route: str, fn):
         kernels.reset_launch_counts()
-        cb.reset_probe_stats()
+        before = cb.probe_counts()
         out = fn()
         torch.cuda.synchronize()
         launches[route] = dict(kernels.LAUNCHES)
-        stats[route] = dict(cb.PROBE_STATS)
+        stats[route] = cb.probe_counts(since=before)
         return out
 
     # arm (a)'s probes reach the packing kernels through pack.py's
@@ -3027,10 +3090,12 @@ LADDER_WHOLE_TURNS = 10
 # `--provision`: phases 1-2, then phase 13 alone
 PROVISION = "--provision"
 # phase 13: fresh environments timed after one warm-up (the benchmark
-# problem); bench.py's scenario_topology demand (pods, services, types)
+# problem; two since the claims launch through the lifecycle controller,
+# whose provider call a claim takes the script ~10 s an environment on a
+# slow host); bench.py's scenario_topology demand (pods, services, types)
 # and scenario_mixed's (pods, types of the default pool, of the tainted
 # one)
-PROVISION_TURNS = 3
+PROVISION_TURNS = 2
 TOPOLOGY_PROBLEM = (1000, 20, 100)
 MIXED_PROBLEM = (10_000, 400, 60)
 COMPARE_SHARDS = (2, 4, 8)
@@ -3808,14 +3873,15 @@ def ladder_counts() -> dict:
 
 def served_by_device(phase: str, since: dict | None = None) -> dict:
     """Fail unless the device or sharded rung served every packing solve
-    so far (or since the `ladder_counts()` taken as `since`): the
+    since the warm phase (`LADDER_BASE`: its re-warm check injects device
+    faults), or since the `ladder_counts()` taken as `since`: the
     ladder's counter holds only `ok` outcomes on those rungs,
     `resilience.pop_degraded()` is empty (nothing degraded since the last
     check), and no device LP degraded. Returns the ok counts by rung."""
     from karpenter_tpu_torch.solver import resilience
 
     degraded = resilience.pop_degraded()
-    since = since or {}
+    since = since or LADDER_BASE
     counts = ladder_counts()
     served, other = {}, {}
     for labels, n in counts.items():
@@ -4780,12 +4846,15 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
             return out
         return call
 
+    # the probe counters when the current round began
+    probe_mark = [cb.probe_counts()]
+
     def take_round(k, rnd) -> dict:
         torch.cuda.synchronize()
         w = walls.take()
         per_method, decided = method_walls(rnd["command"])
-        stats = dict(cb.PROBE_STATS)
-        cb.reset_probe_stats()
+        stats = cb.probe_counts(since=probe_mark[0])
+        probe_mark[0] = cb.probe_counts()
         out = {"walls": {**w, **per_method},
                "card_ms": sum(s.elapsed_time(e) for s, e in spans),
                "packs": len(spans), "lanes": stats["lane"], "dispatches": stats["batch"],
@@ -4815,7 +4884,7 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
         walls.take()
         method_walls(None)
         spans.clear()
-        cb.reset_probe_stats()
+        probe_mark[0] = cb.probe_counts()
         rounds = testing.disruption_rounds(
             env, T + 100, max_rounds=max_rounds,
             on_round=lambda k, r: per.append(take_round(k, r)))
@@ -4861,11 +4930,11 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
         env.conditions.reconcile_all(now=final_now)
         walls.take()
         spans.clear()
-        cb.reset_probe_stats()
+        probe_mark[0] = cb.probe_counts()
         t1 = time.perf_counter()
         probes, probe_walls = probe_pass(env, final_now)
         probe_s = time.perf_counter() - t1
-        probe_stats = dict(cb.PROBE_STATS)
+        probe_stats = cb.probe_counts(since=probe_mark[0])
         walls.take()
         torch.cuda.synchronize()
         probe_ms = sum(s.elapsed_time(e) for s, e in spans)
@@ -5022,6 +5091,377 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
     return launches
 
 
+WARM = "--warm"
+# the warm phase's ladder check: the device breaker opened by two injected
+# device faults on this problem, then closed by a half-open success whose
+# close gate launches the warm pool's canary (KARPENTER_REWARM_ON_CLOSE=1)
+REWARM_PROBLEM = (200, 20, 7)
+# the ladder counts the warm phase's injected faults leave: later phases'
+# device-served checks count from here
+LADDER_BASE: dict = {}
+
+
+def warm_phase(smi: str) -> dict:
+    """The warm phase: `warm_pool.warm()` on the card over its default
+    buckets (DEFAULT_SHAPES in both modes, with and without the topology
+    inputs, the default probe buckets, the dual-ascent buckets): every
+    bucket must launch (`karpenter_solver_warm_compiles_total` shows no
+    `error`), and the only buckets skipped are the dual-ascent buckets
+    B5 refuses (`lp_device.ascent_refusal`); each bucket's wall and each
+    kernel's first launch in the process against its second (a second
+    `warm()` pass launches every canary again). Then
+    `rewarm_canary` as the ladder's close gate: two injected device
+    faults open the device breaker, a half-open success closes it only
+    after the canary launched on the card. Returns the warm pool's
+    launches and walls."""
+    import torch
+
+    from karpenter_tpu_torch.metrics.store import SOLVER_WARM_COMPILES
+    from karpenter_tpu_torch.solver import faults, lp_device, resilience, warm_pool
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+    from karpenter_tpu_torch.solver.resilience import STATE_CLOSED, STATE_OPEN
+    from karpenter_tpu_torch.testing import scoped_env
+    from karpenter_tpu_torch.workloads import build_problem
+
+    def outcomes() -> dict:
+        return {o: SOLVER_WARM_COMPILES.value({"outcome": o}) for o in ("ok", "error")}
+
+    def launch_counts() -> dict:
+        return {**kernels.LAUNCHES, **lp_device.LAUNCHES}
+
+    t_phase = time.perf_counter()
+    before, counts0 = outcomes(), launch_counts()
+    warm_pool.reset()
+    with scoped_env({"KARPENTER_WARM_SHAPES": None, "KARPENTER_WARM_PROBE_SHAPES": None,
+                     "KARPENTER_WARM_SHARDS": None, "KARPENTER_FAULTS": None}):
+        faults.reset()
+        # the dual-ascent buckets B5 refuses on the card (a named width
+        # limit, ROADMAP C4): the only buckets the pool may skip
+        refused = sorted(
+            lp for lp in {(s[0], s[1], s[4] if len(s) > 4 else 4)
+                          for s in warm_pool.shapes_from_env()}
+            if lp_device.enabled() and lp_device.ascent_refusal(
+                *(lp_device._pad_to(x) for x in lp[:2])))
+        t0 = time.perf_counter()
+        counts = warm_pool.warm(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = outcomes()
+        got = {o: after[o] - before[o] for o in after}
+        launched = {k: v - counts0.get(k, 0) for k, v in launch_counts().items()
+                    if v != counts0.get(k, 0)}
+        first_walls = {key: rec["seconds"] for key, rec in warm_pool.CANARIES.items()}
+        # every bucket again: each canary's second launch in the process
+        t0 = time.perf_counter()
+        again = warm_pool.warm(device="cuda")
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    if counts["error"] or got["error"] or not counts["ok"]:
+        fail(f"warm phase: the warm pool counted {counts}, SOLVER_WARM_COMPILES "
+             f"{got}: every bucket must launch")
+    if counts["skipped"] != len(refused) or again != counts:
+        fail(f"warm phase: the warm pool counted {counts}, then {again}; only the "
+             f"{len(refused)} dual-ascent buckets B5 refuses ({refused}) may be skipped")
+    if any(rec["runs"] != 2 for rec in warm_pool.CANARIES.values()) \
+            or set(first_walls) != set(warm_pool.CANARIES):
+        fail("warm phase: a canary bucket did not launch once in each pass")
+    buckets: dict = {}
+    for rec in warm_pool.CANARIES.values():
+        key = f"{rec['kernel']}[{'x'.join(str(x) for x in rec['bucket'])}]"
+        buckets[key] = buckets.get(key, 0.0) + rec["seconds"]
+    firsts = [(" + ".join(sorted(rec["launches"])), rec["seconds"], rec["last"])
+              for rec in warm_pool.CANARIES.values() if rec["first"]]
+    say(f"warm phase: warm_pool.warm() on the card -> {json.dumps(counts)} in "
+        f"{wall:.3f}s (again: {wall2:.3f}s); SOLVER_WARM_COMPILES by outcome "
+        f"{json.dumps(got)}; skipped: the B5-refused dual-ascent buckets {refused}; "
+        f"{len(warm_pool.CANARIES)} canaries, {len(warm_pool.compiled_buckets)} padded "
+        f"signatures warm; launches {json.dumps(launched)} | card: {smi}")
+    say("  bucket walls (s, host clock, launch to the copy back): "
+        + "; ".join(f"{k} {v:.6f}" for k, v in buckets.items()))
+    say("  first launch in the process against the second (s, host clock): "
+        + "; ".join(f"{name}: {a:.6f} / {b:.6f}" for name, a, b in firsts))
+    # the close gate through the ladder
+    pods, pools = build_problem(*REWARM_PROBLEM[:2], seed=REWARM_PROBLEM[2])
+    enc = encode(group_pods(pods), pools)
+    with scoped_env({"KARPENTER_REWARM_ON_CLOSE": "1", "KARPENTER_BREAKER_COOLDOWN_MS": "60000",
+                     "KARPENTER_FAULTS": "device_lost@solve:1-2",
+                     "KARPENTER_FAULT_SEED": None}):
+        faults.reset()
+        resilience.reset()
+        rs = resilience.shared()
+        for _ in range(2):
+            rs.solve_packing(enc, device="cuda")
+        br = rs.breaker("device")
+        if br.state != STATE_OPEN:
+            fail(f"warm phase: two injected device faults left the breaker at {br.state}")
+        br._retry_at = 0.0
+        ok0 = SOLVER_WARM_COMPILES.value({"outcome": "ok"})
+        runs0 = {key: rec["runs"] for key, rec in warm_pool.CANARIES.items()}
+        gate_counts = launch_counts()
+        rs.solve_packing(enc, device="cuda")
+        torch.cuda.synchronize()
+        gate_launched = {k: v - gate_counts.get(k, 0) for k, v in launch_counts().items()
+                         if v != gate_counts.get(k, 0)}
+        canary = [rec for key, rec in warm_pool.CANARIES.items()
+                  if rec["runs"] > runs0.get(key, 0)]
+        if (br.state != STATE_CLOSED or SOLVER_WARM_COMPILES.value({"outcome": "ok"}) != ok0 + 1
+                or not canary or not any(rec["launches"] for rec in canary)
+                or len(warm_pool.CANARIES) != len(runs0)):
+            fail(f"warm phase: the half-open success left the breaker at {br.state}, "
+                 f"canaries {len(canary)}")
+    faults.reset()
+    resilience.reset()
+    resilience.pop_degraded()
+    LADDER_BASE.update(ladder_counts())
+    say(f"  re-warm gate (KARPENTER_REWARM_ON_CLOSE=1): two injected device faults on "
+        f"build_problem{REWARM_PROBLEM} opened the device breaker (the host rung served "
+        f"them); the half-open solve closed it only after rewarm_canary() launched on the "
+        f"card ({len(canary)} canaries, launches with the solve {json.dumps(gate_launched)}) "
+        f"({time.perf_counter() - t_phase:.3f}s)")
+    return {"launches": launched, "wall": wall}
+
+
+ENVIRON = "--environment"
+# phase 16: testing.Environment over phase 13's catalog and pods (the
+# benchmark problem, 50k pods x 500 types, each pod owned by a ReplicaSet
+# so that a drained pod comes back pending), on one fixed deadline clock
+# (no solve bound or method budget fires, so a slow run decides as a fast
+# one), through `testing.environment_stream`
+ENV_DROP = 0.3
+# the global repack decides every round at this size without stalling
+# (the fleet grows: PERF.md §6, PR 18): two rounds hold its decisions
+ENV_ROUNDS = 2
+ENV_INTERRUPTS = 3
+ENV_STEPS = ("provision", "disruption", "probes", "termination", "interruption")
+
+
+def environment_run(device: str, on_step=None):
+    """Phase 16's stream on `device`: returns the environment and
+    `testing.environment_stream`'s records."""
+    from karpenter_tpu_torch import testing, workloads
+    from karpenter_tpu_torch.kube.objects import OwnerReference
+    from karpenter_tpu_torch.solver import faults, lp_plan
+
+    pods, pools = workloads.build_problem(N_PODS, N_TYPES, seed=SEED)
+    for pod in pods:
+        name = pod.metadata.name
+        pod.metadata.owner_references = [OwnerReference(
+            kind="ReplicaSet", name=f"{name}-rs", uid=f"uid-{name}-rs", controller=True)]
+    testing.reset_counters(testing.package_api())
+    env = testing.Environment(types=list(pools[0][1]), device=device,
+                              clock=lambda: testing.ENV_T0)
+    env.kube.create(testing.mk_nodepool("default"))
+    # the global repack's column generation stops on wall-clock limits:
+    # its MIPs stop at the root node and its time budget is lifted, so a
+    # slow run plans as a fast one
+    budget = lp_plan._TIME_BUDGET_S
+    lp_plan._TIME_BUDGET_S = 1e4
+    try:
+        with testing.root_node_mips():
+            steps = testing.environment_stream(
+                env, pods, faults, drop=ENV_DROP, seed=SEED, max_rounds=ENV_ROUNDS,
+                interrupts=ENV_INTERRUPTS, on_step=on_step)
+    finally:
+        lp_plan._TIME_BUDGET_S = budget
+    return env, steps
+
+
+def controller_gauges(env) -> dict:
+    """The metrics controllers' gauges over `env` (pod, node, node pool
+    and status-condition controllers, fresh, one pass at the stream's
+    end), as sorted samples by name."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.metrics import controllers as mc
+
+    now = testing.ENV_T0 + 10_000
+    for ctrl in (mc.PodMetricsController(env.kube, env.cluster),
+                 mc.NodeMetricsController(env.kube, env.cluster),
+                 mc.NodePoolMetricsController(env.kube, env.cluster),
+                 mc.StatusConditionMetricsController(env.kube, clock=lambda: now)):
+        ctrl.reconcile_all(now=now)
+    return {g.name: sorted(g.samples()) for g in (
+        mc.PODS_STATE, mc.NODES_ALLOCATABLE, mc.NODES_TOTAL_POD_REQUESTS,
+        mc.NODES_UTILIZATION, mc.NODEPOOL_USAGE, mc.NODEPOOL_LIMIT,
+        mc.NODEPOOL_NODE_COUNT, mc.NODEPOOL_WEIGHT, mc.STATUS_CONDITION_COUNT)}
+
+
+def first_difference(a, b, path: str = "") -> str:
+    """Where two nested tuples or lists first differ, and the two values."""
+    if isinstance(a, (tuple, list)) and isinstance(b, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_difference(x, y, f"{path}[{i}]")
+        if len(a) != len(b):
+            return f"{path}: lengths {len(a)} and {len(b)}"
+    return f"{path}: {str(a)[:300]} against {str(b)[:300]}"
+
+
+def step_text(rec) -> str:
+    """One record of the stream, without its pods."""
+    dec = rec["decision"]
+    if rec["step"] == "provision":
+        what = f"{len(dec[0])} new nodes, {len(dec[1])} existing, {len(dec[2])} errors"
+    elif rec["step"] in ("probes", "interruption"):
+        what = "[" + ", ".join("nothing" if d is None else
+                               f"{d[0]}: {len(d[1])} candidates, {len(d[2])} replacements"
+                               for d in dec) + "]"
+    elif dec is None:
+        what = "nothing"
+    else:
+        what = f"{dec[0]}: {len(dec[1])} candidates, {len(dec[2])} replacements"
+    nodes, pending, claims, instances = rec["fleet"]
+    return (f"{rec['step']} -> {what}; {len(nodes)} nodes, {claims} claims, "
+            f"{instances} instances, {len(pending)} pending")
+
+
+def environment_phase(smi: str) -> dict:
+    """Phase 16: the simulated cluster (`testing.Environment`) on the
+    card, held step for step against device="cpu"'s stream, the kernels
+    each step launched, the metrics it exposes. Returns the launches of
+    the stream (counts zeroed just before it, read just after)."""
+    import torch
+
+    from karpenter_tpu_torch.metrics import exposition
+    from karpenter_tpu_torch.metrics.store import (
+        SOLVER_DEVICE_STEPS,
+        SOLVER_PHASE_DURATION,
+        SOLVER_PROBE_BATCH,
+    )
+    from karpenter_tpu_torch.solver import lp_device, lp_plan, resilience
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver import solver as solver_mod
+
+    t_phase = time.perf_counter()
+    resilience.reset()
+    since = ladder_counts()
+    tables = (kernels.LAUNCHES, lp_device.LAUNCHES, lp_plan.LAUNCHES)
+
+    def counts() -> dict:
+        out = {}
+        for table in tables:
+            out.update(table)
+        paths = ({"path": "sequential"}, {"path": "wavefront"})
+        out["execute"] = SOLVER_PHASE_DURATION.count({"phase": "execute"})
+        out["steps_observed"] = sum(SOLVER_DEVICE_STEPS.count(p) for p in paths)
+        for outcome in ("batch", "lane", "capped_retry"):
+            out[f"probe_{outcome}"] = SOLVER_PROBE_BATCH.value({"outcome": outcome})
+        return out
+
+    kernel_names = {name for table in tables for name in table}
+
+    spans: list = []
+    inside = [0]
+    seam = solver_mod._solve_packing
+    real_split_flat, real_lanes_flat = kernels.pack_split_flat, kernels.pack_probe_lanes_flat
+
+    def bracket(fn, lane: bool):
+        """CUDA events around a packing call (a lane-solver one only when
+        not inside a bracketed Scheduler solve)."""
+        def call(*a, **k):
+            if lane and inside[0]:
+                return fn(*a, **k)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            inside[0] += 0 if lane else 1
+            start.record()
+            try:
+                return fn(*a, **k)
+            finally:
+                inside[0] -= 0 if lane else 1
+                end.record()
+                spans.append((start, end))
+        return call
+
+    per_step: list = []
+    mark = {}
+
+    def on_step(rec) -> None:
+        torch.cuda.synchronize()
+        now = counts()
+        per_step.append({
+            "text": step_text(rec), "wall": time.perf_counter() - mark["t"],
+            "card_ms": sum(s.elapsed_time(e) for s, e in spans),
+            "launches": {k: v - mark["c"].get(k, 0) for k, v in now.items()
+                         if v != mark["c"].get(k, 0)}})
+        spans.clear()
+        mark.update(t=time.perf_counter(), c=now)
+
+    for table in tables:
+        for name in table:
+            table[name] = 0
+    solver_mod._solve_packing = bracket(seam, lane=False)
+    kernels.pack_split_flat = bracket(real_split_flat, lane=True)
+    kernels.pack_probe_lanes_flat = bracket(real_lanes_flat, lane=True)
+    try:
+        start = counts()
+        mark.update(t=time.perf_counter(), c=start)
+        t0 = time.perf_counter()
+        env, steps = environment_run("cuda", on_step=on_step)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        total = {k: v - start.get(k, 0) for k, v in counts().items()}
+    finally:
+        solver_mod._solve_packing = seam
+        kernels.pack_split_flat, kernels.pack_probe_lanes_flat = real_split_flat, real_lanes_flat
+    served = served_by_device("phase 16", since)
+    gauges = controller_gauges(env)
+    text = exposition.render()
+    ref, ref_s = CPU_REFS.get("environment")
+    if ref["degraded"]:
+        fail(f"phase 16 on the CPU: solves served degraded via {ref['degraded']}")
+    if [r["step"] for r in steps] != [r["step"] for r in ref["steps"]]:
+        fail(f"phase 16: the card's steps {[r['step'] for r in steps]} differ from the "
+             f"CPU's {[r['step'] for r in ref['steps']]}")
+    for k, (mine, theirs) in enumerate(zip(steps, ref["steps"])):
+        if mine != theirs:
+            part = "decision" if mine["decision"] != theirs["decision"] else "fleet"
+            fail(f"phase 16 step {k} ({mine['step']}): the {part} differs from the "
+                 f"CPU's: the card {step_text(mine)}, the CPU {step_text(theirs)}; "
+                 f"first difference {first_difference(mine[part], theirs[part])}")
+    if gauges != ref["gauges"]:
+        diff = sorted(k for k in gauges if gauges[k] != ref["gauges"].get(k))
+        fail(f"phase 16: the metrics controllers' gauges differ from the CPU run's: {diff}")
+    missing = [p for p in ("encode", "transfer", "compile", "execute", "decode")
+               if f'karpenter_solver_phase_duration_seconds_count{{phase="{p}"}}' not in text]
+    if missing:
+        fail(f"phase 16: render() has no phase_duration series for {missing}")
+    b6 = total["pack_probe_lanes"] + total["pack_probe_lanes_wavefront"]
+    b6_epilogue = total["pack_probe_lanes_flat"] + total["pack_probe_lanes_flat_masks"]
+    solo = total["probe_batch"] - b6
+    # every dispatch that was not regrown observes its device steps once
+    observed = total["execute"] + total["probe_batch"] - total["probe_capped_retry"]
+    if (b6 != b6_epilogue or solo < 0 or total["steps_observed"] != observed
+            or total["pack_split_flat"] != total["execute"] + solo):
+        fail(f"phase 16: the counters disagree with the launches: SOLVER_PROBE_BATCH "
+             f"batch {total['probe_batch']:.0f}, SOLVER_DEVICE_STEPS observations "
+             f"{total['steps_observed']}, solves {total['execute']}; B6 {b6}, its "
+             f"epilogue {b6_epilogue}, flat solves {total['pack_split_flat']}")
+    need = {"B2": total["pack_split_flat"],
+            "B3": total["pack_split_wavefront"], "B4": total["lp_price"],
+            "B5": total["lp_ascend"], "B6": b6}
+    if not all(need.values()):
+        fail(f"phase 16: the Environment's path launched {json.dumps(need)}: each of "
+             f"B2, B3, B4, B5 and B6 must launch")
+    say(f"phase 16 environment: testing.Environment(device=\"cuda\") over "
+        f"build_problem({N_PODS}, {N_TYPES}, seed={SEED}): {len(steps)} steps in "
+        f"{card_s:.3f}s on the card, each equal to device=\"cpu\"'s (computed "
+        f"{CPU_REFS.where('environment')} in {ref_s:.3f}s) | card: {smi}")
+    for rec in per_step:
+        say(f"  {rec['text']} | {rec['wall']:.6f}s, card {rec['card_ms']:.3f} ms | "
+            f"launches {json.dumps({k: v for k, v in rec['launches'].items() if k in kernel_names})}")
+    say(f"  metrics: render() carries the five phase labels; SOLVER_PROBE_BATCH batch "
+        f"{total['probe_batch']:.0f} = B6 {b6} + solo {solo:.0f}, lanes "
+        f"{total['probe_lane']:.0f}; SOLVER_DEVICE_STEPS observations "
+        f"{total['steps_observed']} = solves {total['execute']} + probe dispatches less "
+        f"{total['probe_capped_retry']:.0f} regrown; flat launches {total['pack_split_flat']} "
+        f"= solves + solo; the controllers' "
+        f"{sum(len(v) for v in gauges.values())} gauge series equal to the CPU run's")
+    say(f"phase 16: every packing solve served by the device rung ({json.dumps(served)} ok), "
+        f"none degraded; launches {json.dumps({k: v for k, v in total.items() if v})} "
+        f"({time.perf_counter() - t_phase:.3f}s)")
+    return {"environment": {k: v for k, v in total.items() if k in kernel_names}}
+
+
 # the spilled launches: their source and the JAX program each replaces
 GLOBAL_KERNELS = {
     "pack_split_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:444"),
@@ -5099,8 +5539,8 @@ def main() -> None:
         ]
         if not usage:
             fail(f"{name}: no ptxas report (registers, shared memory) from its build")
-        say(f"  {name}: nvcc {rec['seconds']:.3f}s cached={rec['cached']} | "
-            + " | ".join(usage))
+        say(f"  {name}: nvcc {rec['seconds']:.3f}s cached={rec['cached']} "
+            f"machine_tag={rec['machine_tag']} | " + " | ".join(usage))
 
     if SPLIT in sys.argv[1:]:
         quick_timing(kernels, pack, solve, build_problem, KernelCase, {}, smi, kind,
@@ -5155,6 +5595,18 @@ def main() -> None:
         say(f"chip_smoke {DISRUPT}: {time.perf_counter() - T_START:.3f}s wall")
         finish(kind, smi)
         return
+    if WARM in sys.argv[1:]:
+        warm_phase(smi)
+        say(f"chip_smoke {WARM}: {time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
+    if ENVIRON in sys.argv[1:]:
+        CPU_REFS.start(names=("environment",))
+        warm_phase(smi)
+        environment_phase(smi)
+        say(f"chip_smoke {ENVIRON}: {time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
     if CATALOG in sys.argv[1:]:
         report = {"kernels": catalog_phase({}, smi)["entries"]}
         say(f"chip_smoke {CATALOG}: {time.perf_counter() - T_START:.3f}s wall")
@@ -5163,6 +5615,8 @@ def main() -> None:
         return
 
     CPU_REFS.start()
+    # ---- the warm phase: the warm pool's canaries, the re-warm gate
+    warm_phase(smi)
 
     # ---- 3. kernels against their plain versions on the card
     t0 = time.perf_counter()
@@ -5478,10 +5932,15 @@ def main() -> None:
     disrupting = disrupt_phase(smi)
     for name in route_launches:
         route_launches[name] += sum(n[name] for n in disrupting.values())
-    tick_lp = {name: sum(n[name] for n in (*ticking.values(), *disrupting.values()))
-               for name in ("lp_price", "lp_ascend")}
+    # ---- 16. the simulated cluster: testing.Environment on the card
+    environment = environment_phase(smi)
+    for name in route_launches:
+        route_launches[name] += sum(n[name] for n in environment.values())
+    later = (*ticking.values(), *disrupting.values(), *environment.values())
+    tick_lp = {name: sum(n[name] for n in later) for name in ("lp_price", "lp_ascend")}
     for entry in probes["entries"]:
-        entry["launches"] += sum(n.get(entry["name"], 0) for n in disrupting.values())
+        entry["launches"] += sum(n.get(entry["name"], 0)
+                                 for n in (*disrupting.values(), *environment.values()))
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",
@@ -5536,6 +5995,13 @@ def finish(kind: str, smi: str) -> None:
 
 
 if __name__ == "__main__":
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # one order of string hashes in this process and in the CPU
+        # worker it spawns: the simulated cluster's drain and rebinding
+        # iterate sets of names (in the JAX package too), so phase 16's
+        # card and CPU runs compare only under the same hash seed
+        os.environ["PYTHONHASHSEED"] = "0"
+        os.execv(sys.executable, [sys.executable, *sys.argv])
     try:
         main()
     finally:

@@ -343,12 +343,12 @@ class FakeCloudProvider(CloudProvider):
             return out
 
     def _pick_instance_type(self, reqs: Requirements, claim: NodeClaim) -> InstanceType:
-        from karpenter_tpu_torch.cloudprovider.types import order_by_price
+        from karpenter_tpu_torch.cloudprovider.types import named_by, order_by_price
         from karpenter_tpu_torch.utils.resources import fits_declared
 
         compatible = [
             it
-            for it in self.types
+            for it in named_by(self.types, reqs)
             if it.requirements.intersects(reqs) is None
             and it.offerings.available().has_compatible(reqs)
             and fits_declared(claim.spec.resources, it.allocatable)

@@ -23,9 +23,11 @@ from karpenter_tpu_torch.apis.v1.labels import (
     CAPACITY_TYPE_LABEL,
     CAPACITY_TYPE_RESERVED,
     CAPACITY_TYPE_SPOT,
+    INSTANCE_TYPE_LABEL,
     RESERVATION_ID_LABEL,
     TOPOLOGY_ZONE_LABEL,
 )
+from karpenter_tpu_torch.scheduling.requirement import DOES_NOT_EXIST, NOT_IN
 from karpenter_tpu_torch.scheduling.requirements import Requirements
 from karpenter_tpu_torch.utils import resources as resutil
 from karpenter_tpu_torch.utils.resources import ResourceList
@@ -177,6 +179,26 @@ def order_by_price(types: Sequence[InstanceType], reqs: Requirements) -> list[In
         return cheapest.price if cheapest else math.inf
 
     return sorted(types, key=lambda it: (price(it), it.name))
+
+
+def named_by(types: Iterable[InstanceType], reqs: Requirements) -> list[InstanceType]:
+    """`types` less those that `reqs`' instance-type requirement rules
+    out: the one-key part of `Requirements.intersects` (the same test,
+    the same forgiveness of two NotIn/DoesNotExist sides), run ahead of
+    the whole test, so that a claim naming a few types of a large
+    catalog skips the rest cheaply. Every type it drops fails
+    `intersects` too: a provider's choice is unchanged."""
+    if not reqs.has(INSTANCE_TYPE_LABEL):
+        return list(types)
+    inc = reqs.get(INSTANCE_TYPE_LABEL)
+    forgiving = inc.operator() in (NOT_IN, DOES_NOT_EXIST)
+    out = []
+    for it in types:
+        own = it.requirements.get(INSTANCE_TYPE_LABEL)
+        if (not it.requirements.has(INSTANCE_TYPE_LABEL) or own.has_intersection(inc)
+                or (forgiving and own.operator() in (NOT_IN, DOES_NOT_EXIST))):
+            out.append(it)
+    return out
 
 
 def compatible(types: Iterable[InstanceType], reqs: Requirements) -> list[InstanceType]:

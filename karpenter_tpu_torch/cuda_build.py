@@ -5,8 +5,13 @@ library with a plain C interface, loaded with ctypes. The build runs at
 first use, into `_build/` beside this file, one `nvcc` process per
 source, all started together. A library's file name carries a digest
 of its source, the shared headers (`csrc/*.cuh`: pack_common.cuh and
-the split kernels' exchange, shard_xchg.cuh) and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+the split kernels' exchange, shard_xchg.cuh), the flags and the
+machine (`machine_tag`: the `nvcc` version and the card's compute
+capability), so an edited source is rebuilt, an unchanged one is loaded
+as it is, and a `_build/` directory carried to another host never
+loads a library built for another toolkit or card. `_build/` is the
+port's counterpart of the JAX package's persistent compilation cache
+(`solver/warm_pool.py` builds and loads it before the first solve).
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false so that no multiply-add
 is contracted into an FMA (the kernels must match their plain versions
@@ -113,7 +118,7 @@ for _name in ("pack_split", "pack_wavefront", "pack_dense", "lp_ascend", "lp_pri
 
 # name -> {"seconds": wall of its nvcc, "ptxas": what -Xptxas -v said
 # (kept beside the library, so a cached build reports it too),
-# "cached": True when an earlier build was loaded}
+# "cached": True when an earlier build was loaded, "machine_tag"}
 BUILD_INFO: dict[str, dict] = {}
 
 _lock = threading.Lock()
@@ -135,16 +140,51 @@ def _flags(name: str) -> tuple:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+_machine: list[str] = []
+
+
+def machine_tag() -> str:
+    """A short digest of what a built library depends on besides its
+    sources and flags: the `nvcc --version` text and the compute
+    capability of the current card ("no-nvcc" / "no-card" where there
+    is none). Computed once a process."""
+    if not _machine:
+        try:
+            out = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                                 text=True, check=False).stdout
+        except (KernelError, OSError):
+            out = "no-nvcc"
+        try:
+            import torch
+
+            cap = ("sm_%d%d" % torch.cuda.get_device_capability()
+                   if torch.cuda.is_available() else "no-card")
+        except Exception:
+            cap = "no-card"
+        _machine.append(hashlib.sha256(f"{out}\n{cap}".encode()).hexdigest()[:8])
+    return _machine[0]
+
+
 def _target(name: str) -> Path:
-    # the shared headers are part of every source's digest
+    # the shared headers and the machine are part of every digest
     src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()
+                            + machine_tag().encode()).hexdigest()[:12]
     return BUILD / f"{name}-{digest}.so"
 
 
 def _ptxas_log(out: Path) -> Path:
     return out.with_suffix(".ptxas.txt")
+
+
+def _note_cached(name: str, out: Path) -> None:
+    log = _ptxas_log(out)
+    BUILD_INFO.setdefault(name, {
+        "seconds": 0.0, "cached": True,
+        "ptxas": log.read_text() if log.exists() else "",
+        "machine_tag": machine_tag(),
+    })
 
 
 def build_all() -> dict[str, dict]:
@@ -156,11 +196,7 @@ def build_all() -> dict[str, dict]:
         for name in SOURCES:
             out = _target(name)
             if out.exists():
-                log = _ptxas_log(out)
-                BUILD_INFO.setdefault(name, {
-                    "seconds": 0.0, "cached": True,
-                    "ptxas": log.read_text() if log.exists() else "",
-                })
+                _note_cached(name, out)
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -174,6 +210,7 @@ def build_all() -> dict[str, dict]:
             text = log.decode(errors="replace")
             BUILD_INFO[name] = {
                 "seconds": time.perf_counter() - t0, "ptxas": text, "cached": False,
+                "machine_tag": machine_tag(),
             }
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{text}")
@@ -195,6 +232,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            _note_cached(name, _target(name))
             try:
                 lib = ctypes.CDLL(str(_target(name)))
             except OSError as err:

@@ -1,9 +1,10 @@
 """Metrics registry: counters, gauges, histograms, and a diff-publishing
 gauge store.
 
-Copy of `karpenter_tpu/metrics/store.py`, without the device telemetry
-series (`karpenter_device_*`), which come with the port of
-`solver/telemetry.py`.
+Copy of `karpenter_tpu/metrics/store.py`. The device telemetry series
+(`karpenter_device_*`) keep their names; on the card they carry what
+`solver/telemetry.py` reads there (the kernels' launch bytes and
+shared memory, the CUDA allocator's stats).
 
 Counterpart of pkg/metrics (metrics.go core series names, store.go:33-110
 `Store` that re-publishes per-object gauge sets and deletes stale ones).
@@ -451,6 +452,29 @@ DISRUPTION_PROBE_STARVATION = REGISTRY.counter(
     "Consolidation probes attempted vs still remaining when a method's "
     "wall-clock budget expired, by method — a growing 'remaining' "
     "series means the disruption budget is starving the scan")
+# device telemetry plane (solver/telemetry.py): per kernel bucket what
+# the card states of it, live allocator stats, staging attribution
+DEVICE_COMPILED_MEMORY = REGISTRY.gauge(
+    "karpenter_device_compiled_memory_bytes",
+    "What one launch of a solver kernel bucket commits on the card, by "
+    "kernel, padded shape bucket, shard count, and component (argument/"
+    "output bytes, dynamic_smem/global_scratch of its tables)")
+DEVICE_COMPILED_COST = REGISTRY.gauge(
+    "karpenter_device_compiled_cost",
+    "XLA cost_analysis of a compiled solver program (flops / "
+    "bytes_accessed); the CUDA kernels state neither, so this package "
+    "publishes no series")
+DEVICE_MEMORY = REGISTRY.gauge(
+    "karpenter_device_memory_bytes",
+    "Live per-device allocator stats from torch.cuda.memory_stats(), "
+    "by device and stat (bytes_in_use/peak_bytes_in_use/bytes_limit/"
+    "largest_alloc_size); the CPU publishes no series")
+DEVICE_STAGING = REGISTRY.gauge(
+    "karpenter_device_staging_bytes",
+    "Host->device staging bytes of the most recent streamed solve, by "
+    "stat (peak_block: largest single host transient; full: what one "
+    "full-materialization copy would have allocated) — unified with "
+    "stream.py's per-solve stats")
 # SLO engine (metrics/slo.py): declarative SLIs over tick signals,
 # multi-window burn-rate alerting
 SLO_BURN_RATE = REGISTRY.gauge(

@@ -41,9 +41,10 @@ device a build failure other than an injected fault is raised.
 Differences from the JAX package: the lane solver and the batch take a
 `device` (None means the card, and raises without one), and on a CUDA
 device a failed batch or lane decode is raised unless
-`resilience.may_degrade` admits it; the lane counts the JAX package's
-probe metrics hold go to `PROBE_STATS` (its `fallback_lane` outcome is
-recorded in `SOLVER_PROBE_BATCH` as there).
+`resilience.may_degrade` admits it. The probe counters are the JAX
+package's: `SOLVER_PROBE_BATCH{outcome}` (lane, batch, capped_retry,
+fallback_lane) and `SOLVER_DEVICE_STEPS{path}`, one observation a
+dispatch.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ import torch
 
 from karpenter_tpu_torch import tracing
 from karpenter_tpu_torch.kube.objects import Pod
-from karpenter_tpu_torch.metrics.store import SOLVER_PROBE_BATCH
+from karpenter_tpu_torch.metrics.store import SOLVER_DEVICE_STEPS, SOLVER_PROBE_BATCH
 from karpenter_tpu_torch.solver import faults, lp_device, resilience
 from karpenter_tpu_torch.solver import pack_split as kernels
 from karpenter_tpu_torch.solver.encode import ExistingNodeInput, encode, group_pods
@@ -76,16 +77,15 @@ from karpenter_tpu_torch.solver.solver import (
 
 log = logging.getLogger("karpenter.solver.consolidation_batch")
 
-# what the JAX package's probe metrics count: lanes shipped, dispatches
-# (cap-regrow retries included), cap-regrow retries, and device steps
-# (sequential: padded groups a dispatch; wavefront: the most rounds of
-# any lane of the dispatch)
-PROBE_STATS = {"lane": 0, "batch": 0, "capped_retry": 0, "device_steps": 0}
-
-
-def reset_probe_stats() -> None:
-    for key in PROBE_STATS:
-        PROBE_STATS[key] = 0
+def probe_counts(since: Optional[dict] = None) -> dict:
+    """`SOLVER_PROBE_BATCH` by outcome (lane, batch, capped_retry,
+    fallback_lane) as plain numbers; with `since`, an earlier return,
+    the growth since then."""
+    out = {o: SOLVER_PROBE_BATCH.value({"outcome": o})
+           for o in ("lane", "batch", "capped_retry", "fallback_lane")}
+    if since is not None:
+        out = {k: v - since.get(k, 0) for k, v in out.items()}
+    return out
 
 
 def _pow2(n: int, base: int) -> int:
@@ -344,7 +344,9 @@ class LaneSolver:
         def _dispatch_traced(ci: int) -> tuple:
             chunk = list(range(ci * width, min((ci + 1) * width, L)))
             tracing.annotate(lanes=len(chunk))
-            PROBE_STATS["lane"] += len(chunk)
+            # counted once a chunk: cap-regrow retries dispatch again
+            # (batch + capped_retry) but ship no lane again
+            SOLVER_PROBE_BATCH.inc({"outcome": "lane"}, value=float(len(chunk)))
             solo = len(chunk) == 1
             if solo:
                 # one lane: the plain split kernel, no lane axis, the
@@ -398,7 +400,7 @@ class LaneSolver:
             while True:
                 N = Ep + F_try
                 W = Cp // 32
-                PROBE_STATS["batch"] += 1
+                SOLVER_PROBE_BATCH.inc({"outcome": "batch"})
                 # the device-bound probe dispatch: the fault site chaos
                 # drives (`...@probe`), with the breaker's bookkeeping
                 # so a failing card stops attracting probe batches
@@ -451,13 +453,18 @@ class LaneSolver:
                     # lane's pod count bounds any fresh axis needed
                     grown = min(max(F_try * 2, F_try + 16), worst + 1)
                     F_try = _pow2(grown, 32) if solo else _bucket(grown)
-                    PROBE_STATS["capped_retry"] += 1
+                    SOLVER_PROBE_BATCH.inc({"outcome": "capped_retry"})
                     continue
+                # device steps once a dispatch: the wavefront batch runs
+                # the most rounds of any lane, the sequential kernel one
+                # step a padded group
                 if wf > 1:
-                    PROBE_STATS["device_steps"] += max(
+                    chunk_steps = max(
                         int(flat[r, o1 + 1 + 2 * Gp_used]) for r in range(len(chunk)))
                 else:
-                    PROBE_STATS["device_steps"] += Gp_used
+                    chunk_steps = Gp_used
+                SOLVER_DEVICE_STEPS.observe(
+                    chunk_steps, {"path": "wavefront" if wf > 1 else "sequential"})
                 chunk_cache[ci] = (flat, F_try, Gp_used, gsel)
                 return chunk_cache[ci]
 

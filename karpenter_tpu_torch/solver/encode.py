@@ -28,6 +28,7 @@ and to the JAX package.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -44,6 +45,8 @@ from karpenter_tpu_torch.cloudprovider.types import (
     effective_price as _effective_price,
 )
 from karpenter_tpu_torch.kube.objects import Pod, Taint
+from karpenter_tpu_torch.metrics import sentinel
+from karpenter_tpu_torch.metrics.store import SOLVER_PHASE_DURATION
 from karpenter_tpu_torch.scheduling.requirement import (
     DOES_NOT_EXIST,
     IN,
@@ -337,6 +340,7 @@ def encode(
     the G x C requirement evaluation only for NEW signatures (dirty
     rows); pseudo-config columns for existing nodes are always computed
     fresh (their labels/usage change tick to tick)."""
+    _t_encode = time.perf_counter()
     if compat_cache is not None:
         configs = compat_cache.configs(pools_with_types, existing)
     else:
@@ -552,6 +556,9 @@ def encode(
         cfg_pool = np.ascontiguousarray(cfg_pool[keep])
         cfg_rsv = np.ascontiguousarray(cfg_rsv[keep])
 
+    _encode_wall = time.perf_counter() - _t_encode
+    SOLVER_PHASE_DURATION.observe(_encode_wall, {"phase": "encode"})
+    sentinel.observe_phase("encode", _encode_wall)
     return Encoded(
         resource_keys=keys,
         groups=list(groups),

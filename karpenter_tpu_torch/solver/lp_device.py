@@ -557,6 +557,20 @@ def _layout_args(G: int, C: int, R: int, K: int, dev, copies: int = 1):
     return lay, offsets, scratch
 
 
+# B5's widest group and config axes (`kMaxAxis` in csrc/lp_ascend.cu): a
+# named refusal on the card (ROADMAP C4); the plain version has none
+ASCENT_MAX_AXIS = 2048
+
+
+def ascent_refusal(Gp: int, Cp: int) -> str | None:
+    """Why B5 refuses padded axes of `Gp` groups and `Cp` configs (None
+    when it takes them)."""
+    if Gp > ASCENT_MAX_AXIS or Cp > ASCENT_MAX_AXIS:
+        return (f"lp_ascend: Gp={Gp} groups and Cp={Cp} configs exceed the kernel's "
+                f"{ASCENT_MAX_AXIS} (ROADMAP C4)")
+    return None
+
+
 def _ascend_cuda(a: AscentInputs, n_iters: int):
     from karpenter_tpu_torch.solver.pack_split import _check, _lib, _ptr, _raise_on, _stream
 
@@ -572,6 +586,9 @@ def _ascend_cuda(a: AscentInputs, n_iters: int):
         _check(getattr(a, name), name, dtype, shape)
     if R > 16:
         raise ValueError(f"lp_ascend: {R} resources exceed the kernel's 16")
+    refusal = ascent_refusal(Gp, Cp)
+    if refusal:
+        raise ValueError(refusal)
     _one_slot(a.onehot, "lp_ascend")
     dev = a.lam0.device
     best = torch.empty((), dtype=f32, device=dev)
@@ -1205,6 +1222,38 @@ class DualCertificate:
         if floor is None:
             floor = self.floor(demand, candidate_rows)
         return floor >= current_price * (1.0 + margin) + 1e-9
+
+
+def warm(shapes, device=None) -> int:
+    """Launch B5 once for each (G, C, R) shape bucket and each
+    reservation-row variant a real solve can take (1 row, and the first
+    bucket of `_cap_rows`), on zero inputs at the padded shape, on
+    `device` (None: the card): the warm pool's canary, so that the
+    first guided solve of a warmed bucket pays no build or module load.
+    Returns the number of launches; a failure is raised to the warm
+    pool, which counts it."""
+    from karpenter_tpu_torch.solver import telemetry
+    from karpenter_tpu_torch.solver.solver import resolve_device
+
+    dev = resolve_device(device)
+    n = 0
+    n_iters = iters()
+    for G, C, R in shapes:
+        Gp, Cp = _pad_to(G), _pad_to(C)
+        for Kp in (1, _cap_rows(1)):
+            telemetry.request_lp_capture(Gp, Cp, R, Kp, n_iters)
+            zeros = AscentInputs(
+                lam0=torch.zeros(Gp), count=torch.zeros(Gp), count_w=torch.zeros(Gp),
+                compat=torch.zeros((Gp, Cp), dtype=torch.bool),
+                req=torch.zeros((Gp, R)), alloc=torch.zeros((Cp, R)),
+                price=torch.zeros(Cp), valid=torch.zeros((Cp, R), dtype=torch.bool),
+                onehot=torch.zeros((Kp, Cp), dtype=torch.bool), budget=torch.zeros(Kp),
+                uncapped=torch.zeros(Cp, dtype=torch.bool),
+            ).to(dev)
+            out = ascend(zeros, n_iters)
+            (out[0] if isinstance(out, (tuple, list)) else out).cpu()
+            n += 1
+    return n
 
 
 def reset() -> None:

@@ -35,15 +35,23 @@ import logging
 import math
 import os
 import threading
+import time
 import zlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import tracing
+from karpenter_tpu_torch.metrics import sentinel
+from karpenter_tpu_torch.metrics.store import (
+    SOLVER_DEVICE_STEPS,
+    SOLVER_PHASE_DURATION,
+    SOLVER_WAVEFRONT_WIDTH,
+)
 from karpenter_tpu_torch.solver.encode import Encoded
 from karpenter_tpu_torch.solver.pack_dense import pack, pack_flat  # noqa: F401
-from karpenter_tpu_torch.solver import faults, resilience
+from karpenter_tpu_torch.solver import faults, resilience, telemetry, warm_pool
 from karpenter_tpu_torch.solver import stream as stream_mod
 from karpenter_tpu_torch.solver.pack_shard import pack_split_flat_sharded
 from karpenter_tpu_torch.solver.pack_split import pack_split_flat
@@ -567,11 +575,10 @@ def to_mesh(staged: Staged, enc: Encoded, mesh: Mesh, stream: bool
     column blocks, each its own allocation on its shard's device; the
     rest replicated on the mesh's device. `stream` builds the blocks
     shard by shard from the encode (`stream.stage`), without the padded
-    matrices; otherwise they are cut from the staged ones."""
+    matrices (`enc` is read only then); otherwise they are cut from the
+    staged ones."""
     dev = mesh.devices[0]
     S = mesh.shards
-    G, C = enc.compat.shape
-    R = enc.group_req.shape[1]
     Gp, Cp = staged.Gp, staged.Cp
 
     def put(x):
@@ -583,6 +590,8 @@ def to_mesh(staged: Staged, enc: Encoded, mesh: Mesh, stream: bool
         kwargs["rsv_cap"] = torch.zeros((0,), dtype=torch.float32, device=dev)
     devices = list(mesh.devices)
     if stream:
+        G, C = enc.compat.shape
+        R = enc.group_req.shape[1]
         staging = stream_mod._Staging()
         args[0] = stream_mod.stage(devices, 1, (Gp, Cp), np.bool_, stream_mod.col_fill_2d(
             enc.compat, Gp, G, C, np.bool_), staging)
@@ -637,8 +646,21 @@ def _run_pack(
     `compile` after staging and before the launch, `execute` before the
     one device-to-host copy; `resilience.note_dispatched()` releases the
     watchdog's compile budget once the launch has returned (the kernel
-    libraries loaded or built, the kernels queued)."""
+    libraries loaded or built, the kernels queued).
+
+    Phase timings (`karpenter_solver_phase_duration_seconds`, the
+    sentinel, and the `solve.*` spans), taken on the host clock with no
+    synchronization of their own: "transfer" is staging and the
+    host-to-device copies, up to the return of `to_device`/`to_mesh`;
+    "compile" is the launch call: on the card the wait in
+    `cuda_build.library` for a library to build or load, and CUDA's
+    lazy load of a kernel's module at its first launch in the process,
+    then the launches themselves (asynchronous on the card; on the CPU
+    the plain versions run inside it); "execute" runs from the launch's
+    return to the end of the one device-to-host copy, which waits for
+    the kernels."""
     faults.fire("solve")
+    _t_stage = time.perf_counter()
     G, C = enc.compat.shape
     # judged on the real group count: padding groups carry no demand
     # and are committed before the first round
@@ -654,18 +676,62 @@ def _run_pack(
         staged = stage(enc, existing_mask, existing_used, max_nodes, quota)
         args, kwargs = to_device(staged, device)
         launch = pack_split_flat
-    faults.fire("compile")
-    flat_dev = launch(*args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs)
-    resilience.note_dispatched()
     R = enc.group_req.shape[1]
     N, Gp, Ep, F = staged.N, staged.Gp, staged.Ep, staged.max_free
+    _t_dispatch = time.perf_counter()
+    SOLVER_PHASE_DURATION.observe(_t_dispatch - _t_stage, {"phase": "transfer"})
+    sentinel.observe_phase("transfer", _t_dispatch - _t_stage)
+    tracing.record("solve.transfer", _t_stage, _t_dispatch,
+                   groups=G, configs=C, shards=shards)
+    faults.fire("compile")
+    flat_dev = launch(*args, max_free=staged.max_free, mode=mode, wavefront=wf, **kwargs)
+    _t_compiled = time.perf_counter()
+    SOLVER_PHASE_DURATION.observe(_t_compiled - _t_dispatch, {"phase": "compile"})
+    sentinel.observe_phase("compile", _t_compiled - _t_dispatch)
+    _warm_hit = warm_pool.warmed(Gp, staged.Cp, Ep, F, mode, shards)
+    _tm_attrs: dict = {}
+    if telemetry.enabled():
+        K = int(enc.rsv_cap.size) if enc.rsv_cap is not None else 0
+        _rsv_k = K if K else (0 if shards > 1 else None)
+        _flags = dict(group_cap=staged.kwargs["group_cap"] is not None,
+                      conflict=staged.kwargs["conflict"] is not None,
+                      quota=staged.kwargs["bound_quota"] is not None)
+        if not _warm_hit:
+            telemetry.request_pack_capture(
+                Gp, staged.Cp, Ep, F, R, enc.pool_overhead.shape[0] - 1,
+                mode, int(wf), shards, rsv_k=_rsv_k, **_flags)
+        _entry = telemetry.compiled_entry(
+            "pack", (Gp, staged.Cp, Ep, F, mode,
+                     telemetry.variant_tag(int(wf), _rsv_k, **_flags)), shards=shards)
+        if _entry is not None:
+            for k, v in (_entry.get("memory") or {}).items():
+                _tm_attrs["tm_" + k] = v
+    tracing.record("solve.compile", _t_dispatch, _t_compiled,
+                   wavefront=int(wf), warm_hit=_warm_hit, **_tm_attrs)
+    resilience.note_dispatched()
     W = staged.Cp // 32
     group_req_h = enc.group_req.astype(np.float32)
     pool_overhead_h = enc.pool_overhead
 
     # the one device-to-host copy; the buffer holds uint32 words
     faults.fire("execute")
+    _t_exec = time.perf_counter()
     flat = flat_dev.cpu().numpy().view(np.uint32)
+    _t_fetched = time.perf_counter()
+    SOLVER_PHASE_DURATION.observe(_t_fetched - _t_exec, {"phase": "execute"})
+    sentinel.observe_phase("execute", _t_fetched - _t_exec)
+    _tm_exec: dict = {}
+    if telemetry.enabled():
+        # the allocator's stats right after the copy, while the solve's
+        # buffers are all resident (none on the CPU)
+        for _dev in telemetry.publish_device_memory():
+            _stats = _dev["stats"] or {}
+            for key, attr in (("bytes_in_use", "tm_in_use_bytes"),
+                              ("peak_bytes_in_use", "tm_peak_bytes")):
+                if key in _stats:
+                    _tm_exec[attr] = max(_tm_exec.get(attr, 0), _stats[key])
+    tracing.record("solve.execute", _t_exec, _t_fetched,
+                   shards=shards if shards > 1 else 1, **_tm_exec)
     o0 = N * Gp
     o1 = o0 + F * W
     assign = flat[:o0].reshape(N, Gp)[:, :G].astype(np.int32)
@@ -694,6 +760,10 @@ def _run_pack(
     else:
         steps = Gp
         wf_widths = None
+    SOLVER_DEVICE_STEPS.observe(steps, {"path": "wavefront" if wf > 1 else "sequential"})
+    if wf_widths is not None:
+        for wv in wf_widths.tolist():
+            SOLVER_WAVEFRONT_WIDTH.observe(wv)
     # node_active / node_used are pure functions of the shipped
     # state: active = holds pods or is a live existing slot; used =
     # base (existing usage / fresh pool overhead) + the placed pods'

@@ -52,13 +52,17 @@ breaker, and reaches the caller: the work never moves off the card
 because the card's code failed. Off the card (`device="cpu"`, the
 kernels' plain versions) every failure degrades, as in the JAX package.
 
+KARPENTER_REWARM_ON_CLOSE=1 gates a device breaker's half-open ->
+closed transition on `warm_pool.rewarm_canary` launched on the device of
+the solve that succeeded, as in the JAX package; the canary's failure
+keeps the breaker open, and on a CUDA device a failure that is not an
+injected fault is raised (`may_degrade`).
+
 What this package leaves out, each named where it would run: the
 asynchronous seam (`solve_packing_async`, which waits for the cost
-race's overlap), the `remote` rung (the solver service; a configured
+race's overlap) and the `remote` rung (the solver service; a configured
 KARPENTER_SOLVER_ENDPOINT or a ladder naming `remote` raises
-`NotImplementedError`), and the re-warm gate of
-KARPENTER_REWARM_ON_CLOSE (the compile warm pool's canary; raises
-`NotImplementedError` when a device breaker is asked for with it set).
+`NotImplementedError`).
 
 Observability: karpenter_solver_breaker_state (0 closed / 1 half-open
 / 2 open), _breaker_transitions_total, _ladder_total{rung,outcome},
@@ -101,11 +105,6 @@ _REMOTE_MISSING = (
     "the remote rung needs the solver service (service/client.py), which "
     "karpenter_tpu_torch does not have yet (ROADMAP item 8); unset "
     "KARPENTER_SOLVER_ENDPOINT and leave `remote` out of KARPENTER_SOLVE_LADDER"
-)
-_REWARM_MISSING = (
-    "KARPENTER_REWARM_ON_CLOSE gates a device breaker's close on the compile "
-    "warm pool's canary (warm_pool.rewarm_canary), which karpenter_tpu_torch "
-    "does not have yet (ROADMAP item 7); unset it"
 )
 
 
@@ -307,7 +306,10 @@ class CircuitBreaker:
         if gate is not None:
             try:
                 gate_ok = bool(gate())
-            except Exception:
+            except Exception as err:
+                # the card's code failing in the gate reaches the caller
+                if not may_degrade(err, getattr(_tlocal, "device", "cpu")):
+                    raise
                 log.exception("breaker %s close gate crashed", self.name)
                 gate_ok = False
         with self._lock:
@@ -473,11 +475,6 @@ def note_incremental_poison() -> None:
     _ladder_count("incremental_poison", "quarantined")
 
 
-def _rewarm_requested() -> bool:
-    return os.environ.get("KARPENTER_REWARM_ON_CLOSE", "").lower() in (
-        "1", "true", "on")
-
-
 class ResilientSolver:
     """The solve seam's resilience wrapper; one per process (shared())
     so breaker state survives across ticks and callers."""
@@ -489,14 +486,30 @@ class ResilientSolver:
     # -- breakers ------------------------------------------------------------
 
     def breaker(self, name: str) -> CircuitBreaker:
-        if name in ("device", "sharded") and _rewarm_requested():
-            raise NotImplementedError(_REWARM_MISSING)
         with self._breaker_lock:
             br = self._breakers.get(name)
             if br is None:
-                br = CircuitBreaker(name)
+                gate = (
+                    self._rewarm_gate
+                    if name in ("device", "sharded") else None
+                )
+                br = CircuitBreaker(name, close_gate=gate)
                 self._breakers[name] = br
             return br
+
+    def _rewarm_gate(self) -> bool:
+        """Close-transition gate of the device backends: with
+        KARPENTER_REWARM_ON_CLOSE=1, a half-open success closes the
+        breaker only after the warm pool's canary launched and read back
+        on the device of that solve (the ladder notes it before
+        `record_success`)."""
+        if os.environ.get("KARPENTER_REWARM_ON_CLOSE", "").lower() not in (
+            "1", "true", "on"
+        ):
+            return True
+        from karpenter_tpu_torch.solver.warm_pool import rewarm_canary
+
+        return rewarm_canary(getattr(_tlocal, "device", None))
 
     def reset(self) -> None:
         """Drop all breaker state (tests)."""
@@ -693,6 +706,8 @@ class ResilientSolver:
                             name, reason, err)
                         continue
                     rsp.annotate(outcome="ok")
+                # the device the close gate's canary launches on
+                _tlocal.device = device
                 br.record_success()
                 _ladder_count(name, "ok")
                 _note_rung(served, name, degraded=(name != primary))

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import time
 from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
 
@@ -36,7 +37,10 @@ import torch
 
 from karpenter_tpu_torch.apis.v1.nodepool import NodePool
 from karpenter_tpu_torch.cloudprovider.types import InstanceType, Offering
+from karpenter_tpu_torch import tracing
 from karpenter_tpu_torch.kube.objects import Pod
+from karpenter_tpu_torch.metrics import sentinel
+from karpenter_tpu_torch.metrics.store import SOLVER_PHASE_DURATION
 from karpenter_tpu_torch.solver import lp_device, lp_plan, pack, resilience
 from karpenter_tpu_torch.solver.encode import (
     Encoded,
@@ -941,7 +945,9 @@ def _build_solution_arrays(
     unsched: np.ndarray,       # [G] int
 ) -> Solution:
     """Vectorized decode: per-node price/first-config via one masked
-    reduction each; option lists stay lazy (see NodePlan)."""
+    reduction each; option lists stay lazy (see NodePlan). Its wall is
+    the solve's "decode" phase."""
+    _t_decode = time.perf_counter()
     new_nodes: list[NodePlan] = []
     existing: dict[int, ExistingAssignment] = {}
     group_cursor = np.zeros(len(enc.groups), np.int64)
@@ -1014,6 +1020,11 @@ def _build_solution_arrays(
         unschedulable.extend(tail)
         if extra_unsched[gi]:
             evicted.extend(tail[len(tail) - int(extra_unsched[gi]) :])
+    _t_done = time.perf_counter()
+    SOLVER_PHASE_DURATION.observe(_t_done - _t_decode, {"phase": "decode"})
+    sentinel.observe_phase("decode", _t_done - _t_decode)
+    tracing.record("solve.decode", _t_decode, _t_done,
+                   nodes=len(new_nodes), unschedulable=len(unschedulable))
     return Solution(
         new_nodes=new_nodes,
         existing=sorted(existing.values(), key=lambda e: e.existing_index),

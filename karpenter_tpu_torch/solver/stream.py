@@ -61,12 +61,18 @@ class _Staging:
         self.full_bytes = 0
 
     def commit(self) -> None:
+        from karpenter_tpu_torch.metrics.store import SOLVER_STREAM_BLOCKS
+        from karpenter_tpu_torch.solver import telemetry
+
+        SOLVER_STREAM_BLOCKS.inc(value=self.blocks)
         stats = dict(arrays=self.arrays, blocks=self.blocks,
                      peak_block_bytes=self.peak_block_bytes,
                      full_bytes=self.full_bytes)
         with _lock:
             _last.clear()
             _last.update(stats)
+        # the same stats on the device-telemetry gauges and snapshot
+        telemetry.note_staging(stats)
 
 
 def shard_index(shape: tuple, axis: int, shards: int) -> list[tuple]:

@@ -52,6 +52,7 @@ tests and `chip_smoke.py` phase 12 run the same script.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -1888,36 +1889,37 @@ def pods_env(pods, pools_with_types, api=None, t0: float = CASE_T0,
                 api.options.Options(), t0, **provisioner_kwargs)
 
 
-def launch_claims(env, results) -> None:
-    """What the lifecycle controller's launch writes back between two
-    provisioning rounds, for each claim `results` created: a provider id,
-    and the capacity and allocatable of its plan's cheapest option
-    (`NodePlan.primary()`, the type the launch resolves). The claims
-    stay in flight (no node registers)."""
-    for plan in results.new_node_plans:
-        if not plan.claim_name:
-            continue
-        claim = env.kube.get_node_claim(plan.claim_name)
-        it, _ = plan.primary()
-        claim.status.provider_id = f"fake://{it.name}/{plan.claim_name}"
-        claim.status.capacity = dict(it.capacity)
-        claim.status.allocatable = dict(it.allocatable)
-        env.kube.update(claim)
+def launch(env, now: float) -> None:
+    """What the lifecycle controller does between two provisioning
+    rounds: every claim not yet launched (no provider id) is launched
+    through `env.api`'s package's `NodeClaimLifecycle` (the provider's
+    `create` resolves its type and offering and writes its provider id,
+    capacity, allocatable and labels). No node registers here, so the
+    claims stay in flight until `settle` registers them."""
+    import importlib
+
+    package = env.api.provisioner.__name__.split(".")[0]
+    lifecycle = importlib.import_module(f"{package}.lifecycle.nodeclaim_lifecycle")
+    controller = lifecycle.NodeClaimLifecycle(env.kube, env.cloud)
+    for claim in list(env.kube.node_claims()):
+        if not claim.status.provider_id and claim.metadata.deletion_timestamp is None:
+            controller.reconcile(claim, now)
 
 
 def reconcile_rounds(env, waves, t0: float = CASE_T0, on_round=None) -> dict:
     """`reconcile` at t0 + 5 over the pending pods, then, for each wave
     k of `waves` (lists of pods), the last round's claims launched
-    (`launch_claims`), the wave created at t0 + 10k and `reconcile` at
-    t0 + 10k + 5: the pods of earlier rounds are still pending, and land
-    again on the in-flight claims. Returns each round's results, the
+    through the lifecycle controller (`launch`, at t0 + 10k), the wave
+    created at t0 + 10k and `reconcile` at t0 + 10k + 5: the pods of
+    earlier rounds are still pending, and land again on the in-flight
+    claims. Returns each round's results, the
     claims each created, and each round's name-insensitive fingerprint
     with in-flight claims named by creation order (`claim_names`).
     `on_round(results)` runs after each reconcile."""
     rounds, created, fps = [], [], []
     for k in range(len(waves) + 1):
         if k:
-            launch_claims(env, rounds[-1])
+            launch(env, t0 + 10 * k)
         for pod in waves[k - 1] if k else ():
             pod.metadata.creation_timestamp = t0 + 10 * k
             env.kube.create(pod)
@@ -1936,7 +1938,7 @@ def reconcile_rounds(env, waves, t0: float = CASE_T0, on_round=None) -> dict:
 #
 # `run_stream` drives one environment (either package's, `build_env` /
 # `pods_env`) through a list of `StreamRound`s: between two reconciles
-# the last round's claims launch (`launch_claims`) and, unless the
+# the last round's claims launch (`launch`) and, unless the
 # round says otherwise, register as nodes with the round's pods bound to
 # them (`settle`); then pods are deleted and created, a DaemonSet
 # appears or a watch drops, as the round says. Everything is named by
@@ -2127,7 +2129,7 @@ def run_stream(env, rounds, t0: float = CASE_T0, on_round=None,
         t = t0 + 10 * k
         prev = next((r for r in reversed(out["results"]) if r is not None), None)
         if prev is not None:
-            launch_claims(env, prev)
+            launch(env, t)
             if rnd.settle:
                 settle(env, plans, prev, t)
         if rnd.relist:
@@ -2226,11 +2228,11 @@ def place(env, now: float):
 
 
 def register(env, results, now: float) -> None:
-    """`results`' claims launched (`launch_claims`) and registered as
-    nodes, and its pods bound (`settle`)."""
+    """`results`' claims launched through the lifecycle controller
+    (`launch`) and registered as nodes, and its pods bound (`settle`)."""
     if results is None:
         return
-    launch_claims(env, results)
+    launch(env, now)
     for plan in results.new_node_plans:
         if plan.claim_name:
             env.plans[plan.claim_name] = plan
@@ -2597,3 +2599,363 @@ def provision_cases(seed: int = 0) -> list[ProvisionCase]:
         "preferred-relax", pods=pods, pools=[default],
         extra_pods=[_pod("ax-0", 1.0, 2.0, preferred_zones=[(10, "test-zone-9")])]))
     return cases
+
+
+# -- the test Environment: in-memory API, kwok cloud, every controller -------
+#
+# The JAX package's `testing.Environment` (`karpenter_tpu/testing.py`),
+# with `device=` passed to its Provisioner and DisruptionEngine (None:
+# the card, raising without one). `mk_pod` and `mk_nodepool` name their
+# objects from one process-wide counter, as there.
+
+_name_counter = itertools.count(1)
+
+
+def mk_pod(
+    name: Optional[str] = None,
+    cpu: float = 1.0,
+    memory: float = 2**30,
+    labels: Optional[dict] = None,
+    node_selector: Optional[dict] = None,
+    owner: Optional[str] = "ReplicaSet",
+    **spec_kwargs,
+):
+    """A pending pod requesting `cpu` and `memory`, owned by a
+    controller of kind `owner` (drain rebirth only applies to
+    controller-owned pods); owner=None makes a bare pod, which eviction
+    terminates for good."""
+    from karpenter_tpu_torch.kube.objects import (
+        Container,
+        ObjectMeta,
+        OwnerReference,
+        Pod,
+        PodSpec,
+    )
+
+    name = name or f"pod-{next(_name_counter):05d}"
+    refs = []
+    if owner:
+        refs = [OwnerReference(kind=owner, name=f"{name}-owner",
+                               uid=f"uid-{name}-owner", controller=True)]
+    return Pod(
+        metadata=ObjectMeta(
+            name=name, labels=labels or {}, owner_references=refs
+        ),
+        spec=PodSpec(
+            containers=[Container(requests={"cpu": cpu, "memory": memory})],
+            node_selector=node_selector or {},
+            **spec_kwargs,
+        ),
+    )
+
+
+def mk_nodepool(name: Optional[str] = None, **kwargs):
+    from karpenter_tpu_torch.apis.v1.nodepool import NodePool, NodePoolSpec
+    from karpenter_tpu_torch.kube.objects import ObjectMeta
+
+    return NodePool(
+        metadata=ObjectMeta(name=name or f"pool-{next(_name_counter):05d}", namespace=""),
+        spec=NodePoolSpec(**kwargs),
+    )
+
+
+@dataclass
+class Environment:
+    """One test cluster: in-memory API, cluster mirror, the kwok cloud
+    provider and the controllers (lifecycle, termination, disruption
+    conditions and engine, interruption, static capacity), on one
+    simulated clock. `device` is the device of every solve (None: the
+    card, raising without one; the tests pass "cpu"). `clock` is the
+    deadline clock of the Provisioner (its solve bound) and of the
+    disruption engine (its methods' time budgets); None leaves their
+    monotonic default, as in the JAX package, and a fixed clock keeps
+    every deadline from firing, so that a slow run decides as a fast
+    one."""
+
+    types: Optional[list] = None
+    registration_delay: float = 0.0
+    options: Optional[object] = None  # operator Options; the default
+                                      # enables SpotToSpotConsolidation
+    device: object = None
+    clock: Optional[object] = None
+
+    def __post_init__(self) -> None:
+        from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+        from karpenter_tpu_torch.disruption.conditions import (
+            DisruptionConditionsController,
+            ExpirationController,
+            PodEventsController,
+        )
+        from karpenter_tpu_torch.disruption.engine import DisruptionEngine
+        from karpenter_tpu_torch.disruption.interruption import InterruptionController
+        from karpenter_tpu_torch.events.recorder import EventRecorder
+        from karpenter_tpu_torch.kube.client import KubeClient
+        from karpenter_tpu_torch.lifecycle.nodeclaim_lifecycle import NodeClaimLifecycle
+        from karpenter_tpu_torch.lifecycle.termination import TerminationController
+        from karpenter_tpu_torch.operator.options import FeatureGates, Options
+        from karpenter_tpu_torch.provisioning.provisioner import Provisioner
+        from karpenter_tpu_torch.provisioning.static import StaticCapacityController
+        from karpenter_tpu_torch.state.cluster import Cluster, attach_informers
+
+        self.kube = KubeClient()
+        self.cluster = Cluster(self.kube)
+        attach_informers(self.kube, self.cluster)
+        # one simulated clock for the whole environment: every explicit
+        # `now=` advances it, and the cloud's instance timestamps use it
+        # too, so that registration delays compare like with like
+        self._sim_now: Optional[float] = None
+        self.cloud = KwokCloudProvider(
+            self.kube, types=self.types,
+            registration_delay=self.registration_delay,
+            clock=self._clock,
+        )
+        self.recorder = EventRecorder(kube=self.kube)
+        self.provisioner = Provisioner(self.kube, self.cluster, self.cloud,
+                                       recorder=self.recorder, device=self.device,
+                                       clock=self.clock)
+        self.lifecycle = NodeClaimLifecycle(self.kube, self.cloud)
+        self.termination = TerminationController(self.kube, self.cluster,
+                                                 recorder=self.recorder)
+        self.conditions = DisruptionConditionsController(
+            self.kube, self.cluster, self.cloud
+        )
+        self.expiration = ExpirationController(self.kube)
+        self.pod_events = PodEventsController(self.kube, self.cluster)
+        if self.options is None:
+            self.options = Options(
+                feature_gates=FeatureGates(spot_to_spot_consolidation=True)
+            )
+        self.disruption = DisruptionEngine(
+            self.kube, self.cluster, self.cloud, self.provisioner,
+            options=self.options, recorder=self.recorder, clock=self.clock,
+        )
+        self.interruption = InterruptionController(
+            self.kube, self.cluster, self.cloud, self.disruption,
+            recorder=self.recorder,
+        )
+        self.static = StaticCapacityController(
+            self.kube, self.cluster, self.options
+        )
+
+    def _clock(self) -> float:
+        return self._sim_now if self._sim_now is not None else time.time()
+
+    def _advance(self, now: Optional[float]) -> None:
+        if now is not None:
+            self._sim_now = (
+                now if self._sim_now is None else max(self._sim_now, now)
+            )
+
+    def reconcile_disruption(self, now: Optional[float] = None):
+        """One disruption cycle: refresh conditions, run the engine,
+        progress the orchestration queue and termination."""
+        self._advance(now)
+        self.pod_events.reconcile_all(now=now)
+        self.conditions.reconcile_all(now=now)
+        command = self.disruption.reconcile(now=now)
+        self.lifecycle.reconcile_all(now=now)
+        self.cloud.tick(now=now)
+        self.lifecycle.reconcile_all(now=now)
+        self.disruption.queue.reconcile(now=now)
+        self.reconcile_termination(now=now)
+        # evicted workload pods come back pending; rebind them
+        if self.provisioner.get_pending_pods():
+            self.provision(now=now)
+        return command
+
+    def reconcile_interruption(self, now: Optional[float] = None):
+        """One spot-interruption cycle: poll the provider for notices,
+        start drain-after-replace commands, progress the queue and
+        termination, and rebind displaced and pending pods."""
+        self._advance(now)
+        commands = self.interruption.reconcile(now=now)
+        for command in commands:
+            if command.results is not None:
+                self.bind_results(command.results)
+        self.lifecycle.reconcile_all(now=now)
+        self.cloud.tick(now=now)
+        self.lifecycle.reconcile_all(now=now)
+        self.disruption.queue.reconcile(now=now)
+        self.reconcile_termination(now=now)
+        if self.provisioner.get_pending_pods():
+            self.provision(now=now)
+        return commands
+
+    def all_pods_bound(self) -> bool:
+        return all(
+            p.spec.node_name for p in self.kube.pods() if not p.is_terminal()
+        )
+
+    def reconcile_termination(self, now: Optional[float] = None, rounds: int = 4) -> None:
+        """Drive claim finalize -> node drain -> instance delete to
+        quiescence (each controller pass handles one stage)."""
+        self._advance(now)
+        for _ in range(rounds):
+            self.lifecycle.reconcile_all(now=now)
+            self.termination.reconcile_all(now=now)
+
+    def provision(self, *pods, bind: bool = True, now: Optional[float] = None):
+        """Create `pods`, run a provisioning round, launch its claims
+        through the lifecycle controller, tick the simulated cloud,
+        register and initialize nodes, and bind pods to their planned
+        nodes."""
+        self._advance(now)
+        for pod in pods:
+            if self.kube.get_pod(pod.metadata.namespace, pod.metadata.name) is None:
+                self.kube.create(pod)
+        results = self.provisioner.reconcile(now=now)
+        self.lifecycle.reconcile_all(now=now)
+        self.cloud.tick(now=now)
+        self.lifecycle.reconcile_all(now=now)
+        if bind:
+            self.bind_results(results)
+        return results
+
+    def bind_results(self, results) -> None:
+        """What kube-scheduler does after a round: pods bind to their
+        target nodes."""
+        for plan in results.new_node_plans:
+            if not plan.claim_name:
+                continue
+            claim = self.kube.get_node_claim(plan.claim_name)
+            if claim is None or not claim.status.node_name:
+                continue
+            for pod in plan.pods:
+                live = self.kube.get_pod(pod.metadata.namespace, pod.metadata.name)
+                if live is not None and not live.spec.node_name:
+                    self.kube.bind_pod(live, claim.status.node_name)
+        for node_name, pods in results.existing_assignments.items():
+            state = self.cluster.node_for_name(node_name)
+            target = state.name if state is not None else ""
+            if not target:
+                # an in-flight assignment is keyed by claim name: bind
+                # to its node once registered, else leave the pods
+                # pending for the next round (a dead claim's key never
+                # pins pods to a name that will not materialize)
+                claim = self.kube.get_node_claim(node_name)
+                target = claim.status.node_name if claim is not None else ""
+                if not target and claim is None:
+                    if any(
+                        n.metadata.name == node_name
+                        for n in self.kube.nodes()
+                    ):
+                        target = node_name
+                if not target:
+                    continue
+            for pod in pods:
+                live = self.kube.get_pod(pod.metadata.namespace, pod.metadata.name)
+                if live is not None and not live.spec.node_name:
+                    self.kube.bind_pod(live, target)
+
+    def initialized_nodes(self) -> list:
+        return [
+            n for n in self.kube.nodes()
+            if n.metadata.labels.get("karpenter.sh/initialized") == "true"
+        ]
+
+
+# -- an Environment stream: provision, disruption, termination, interruption
+#
+# `environment_stream` drives either package's `Environment` through the
+# same steps and reads each by attribute only, without names: the kwok
+# provider names instances from a process-wide counter, so the two
+# packages (and two processes) are held by `environment_fleet` and
+# `environment_command`, never by node or claim names.
+
+# the stream's clock: pods bind on the wall clock, so every step lies
+# ahead of it, at one fixed start (see DISRUPTION_T0)
+ENV_T0 = DISRUPTION_T0
+
+
+def environment_fleet(env) -> tuple:
+    """The cluster without names: per node (sorted) its instance type,
+    zone, capacity type and bound pods; the pending pods; the claims;
+    the provider's instances."""
+    nodes = sorted(
+        (n.metadata.labels.get(INSTANCE_TYPE_LABEL, ""),
+         n.metadata.labels.get(TOPOLOGY_ZONE_LABEL, ""),
+         n.metadata.labels.get(CAPACITY_TYPE_LABEL, ""),
+         tuple(sorted(p.key for p in env.kube.pods_on_node(n.metadata.name))))
+        for n in env.kube.nodes())
+    pending = tuple(sorted(p.key for p in env.kube.pods()
+                           if not p.spec.node_name and not p.is_terminal()))
+    return tuple(nodes), pending, len(env.kube.node_claims()), len(env.cloud.list())
+
+
+def environment_command(cmd) -> Optional[tuple]:
+    """A command without names: its reason, each candidate's instance
+    type, capacity type, zone and pods, and its replacement plans
+    (`command_identity`'s)."""
+    if cmd is None:
+        return None
+    cands = sorted((c.instance_type_name, c.capacity_type, c.zone,
+                    tuple(sorted(p.key for p in c.reschedulable_pods)))
+                   for c in cmd.candidates)
+    return (cmd.reason, tuple(cands), command_identity(cmd)[2])
+
+
+def environment_stream(env, pods, faults, t0: float = ENV_T0, drop: float = 0.3,
+                       seed: int = 0, max_rounds: int = 6, interrupts: int = 3,
+                       interrupt_rounds: int = 3, on_step=None) -> list[dict]:
+    """`env` (either package's `Environment`, a node pool created)
+    through four steps, each a list of records {"step", "decision",
+    "fleet"} (`environment_fleet` after it):
+    1. "provision": `pods` provisioned at t0 (claims launched through
+       the lifecycle controller and the kwok provider, nodes
+       registered, pods bound); the decision is the round's
+       `decision_fingerprint`, claims named by creation order;
+    2. "disruption": `drop` of the bound pods deleted (a draw of
+       `seed`), then `reconcile_disruption` at t0 + 100k, k = 1, 2, ...
+       until a round decides nothing, repeats the last round's command
+       on an unchanged fleet (a stall: ROADMAP C6), or `max_rounds` ran;
+       each decision `environment_command`; then "probes": the probe
+       methods (multi-node and single-node consolidation) asked of the
+       fleet that is left, their decisions (not executed);
+    3. "termination": `reconcile_termination`;
+    4. "interruption": the first `interrupts` interruption checks fire
+       (`spot_interruption@cloud_interrupt:1-n` through `faults`, the
+       env's package's fault module), then `interrupt_rounds` rounds of
+       `reconcile_interruption`; each decision the started commands'.
+    `on_step(record)` runs after each record."""
+    out: list[dict] = []
+
+    def note(step: str, decision) -> None:
+        rec = {"step": step, "decision": decision, "fleet": environment_fleet(env)}
+        out.append(rec)
+        if on_step is not None:
+            on_step(rec)
+
+    results = env.provision(*pods, now=t0)
+    claims = [env.kube.get_node_claim(p.claim_name) for p in results.new_node_plans
+              if p.claim_name]
+    note("provision", decision_fingerprint(results, claim_names([c for c in claims if c])))
+    bound = sorted((p for p in env.kube.pods() if p.spec.node_name), key=lambda p: p.key)
+    n = int(len(bound) * drop)
+    rng = np.random.default_rng(seed)
+    for i in sorted(rng.choice(len(bound), size=n, replace=False)):
+        env.kube.delete(bound[int(i)], now=t0 + 50)
+    last, before = None, environment_fleet(env)
+    for k in range(1, max_rounds + 1):
+        ident = environment_command(env.reconcile_disruption(now=t0 + 100 * k))
+        note("disruption", ident)
+        fleet = out[-1]["fleet"]
+        if ident is None or (ident == last and fleet == before):
+            break
+        last, before = ident, fleet
+    t = t0 + 100 * (max_rounds + 1)
+    env.pod_events.reconcile_all(now=t)
+    env.conditions.reconcile_all(now=t)
+    note("probes", [environment_command(getattr(env.disruption, method)(t))
+                    for method in ("multi_node_consolidation", "single_node_consolidation")])
+    env.reconcile_termination(now=t)
+    note("termination", None)
+    try:
+        with scoped_env({"KARPENTER_FAULTS": f"spot_interruption@cloud_interrupt:1-{interrupts}",
+                         "KARPENTER_FAULT_SEED": None}):
+            faults.reset()
+            for k in range(1, interrupt_rounds + 1):
+                cmds = env.reconcile_interruption(now=t + 100 * k)
+                note("interruption", [environment_command(c) for c in cmds])
+    finally:
+        faults.reset()
+    return out

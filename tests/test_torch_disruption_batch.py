@@ -99,13 +99,13 @@ def test_batched_equals_sequential_and_jax(method, name, width, clean):
     for package in ("port", "jax"):
         env, api, now = fixture(name, package, method)
         sequential = run(env, now, method, clean, "0")
-        consolidation_batch.reset_probe_stats()
         fallbacks = BATCH[package].value({"outcome": "fallback_lane"})
+        shipped = BATCH[package].value({"outcome": "lane"})
         batched = run(env, now, method, clean, "1")
         out[package] = (sequential, batched,
                         BATCH[package].value({"outcome": "fallback_lane"}) - fallbacks)
         if package == "port":
-            lanes = consolidation_batch.PROBE_STATS["lane"]
+            lanes = BATCH[package].value({"outcome": "lane"}) - shipped
     assert out["port"][0] == out["port"][1], "batched probes changed the decision"
     assert out["port"] == out["jax"]
     assert lanes > 0, "the batch never ran: the fixture is vacuous"

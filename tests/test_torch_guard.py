@@ -12,10 +12,13 @@
     while an injected fault degrades as in the JAX package (and off the
     card every failure degrades, as there). `KubeClient` raises
     `NotImplementedError` for nothing (`evict` is ported).
+    So do `testing.Environment()`, `warm_pool.warm`, `start_background`,
+    `rewarm_canary` and `lp_device.warm`, before any bucket.
 (e) importing `karpenter_tpu_torch` and one CPU solve load neither
     `jax` nor `karpenter_tpu` (checked in a fresh interpreter); nor do
     two provisioning rounds through the port's Provisioner, nor a
-    disruption round (engine, queue, validation, eviction).
+    disruption round (engine, queue, validation, eviction), nor an
+    Environment stream with the warm pool and the exposition.
 (f) no file of the port, and not `chip_smoke.py`, imports `jax` or
     `karpenter_tpu` (AST check).
 """
@@ -381,3 +384,55 @@ class TestEngineOnTheCard:
             assert all(c.metadata.deletion_timestamp is None
                        for c in env.kube.node_claims()
                        if c.metadata.name.startswith("existing-"))
+
+
+def test_environment_and_warm_pool_default_device_without_cuda_raise():
+    """`Environment()` and the warm pool's entry points run on the card:
+    without one they raise, before any bucket is launched or counted."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from karpenter_tpu_torch.metrics.store import SOLVER_WARM_COMPILES
+    from karpenter_tpu_torch.solver import lp_device, warm_pool
+    from karpenter_tpu_torch.testing import Environment
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Environment()
+    before = SOLVER_WARM_COMPILES.samples()
+    for fn in (lambda: warm_pool.warm(shapes=[(16, 64, 0, 32)]),
+               lambda: warm_pool.start_background(shapes=[(16, 64, 0, 32)]),
+               warm_pool.rewarm_canary,
+               lambda: lp_device.warm([(16, 64, 4)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert SOLVER_WARM_COMPILES.samples() == before
+
+
+def test_environment_stream_loads_no_jax():
+    """A whole Environment stream on the CPU (provision through the kwok
+    provider and the lifecycle, disruption, termination, interruption)
+    and the warm pool load neither `jax` nor `karpenter_tpu`."""
+    code = (
+        "import sys, json\n"
+        "from karpenter_tpu_torch import testing\n"
+        "from karpenter_tpu_torch.metrics import exposition\n"
+        "from karpenter_tpu_torch.solver import faults, warm_pool\n"
+        "from karpenter_tpu_torch.cloudprovider.fake import instance_types\n"
+        "env = testing.Environment(types=instance_types(12), device='cpu')\n"
+        "env.kube.create(testing.mk_nodepool('default'))\n"
+        "pods = [testing.mk_pod(name=f'g-{i}', cpu=0.5) for i in range(20)]\n"
+        "steps = testing.environment_stream(env, pods, faults)\n"
+        "warm_pool.warm(shapes=[(16, 64, 0, 32)], probe_shapes=[], device='cpu')\n"
+        "text = exposition.render()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'karpenter_tpu'"
+        " or m.startswith('karpenter_tpu.')]\n"
+        "print(json.dumps({'bad': bad, 'steps': len(steps),"
+        " 'phases': text.count('karpenter_solver_phase_duration_seconds_count')}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert report["steps"] >= 4 and report["phases"] == 5

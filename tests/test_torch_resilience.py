@@ -8,8 +8,9 @@
     the launch check, a failed or missing `nvcc`, a library that does
     not load, CUDA errors as torch raises them.
 (c) What the port does not have raises a named NotImplementedError at
-    the seam, before any rung runs: KARPENTER_SOLVER_ENDPOINT, a ladder
-    naming `remote`, KARPENTER_REWARM_ON_CLOSE.
+    the seam, before any rung runs: KARPENTER_SOLVER_ENDPOINT and a
+    ladder naming `remote` (KARPENTER_REWARM_ON_CLOSE's gate is held in
+    tests/test_torch_warm_pool.py).
 (d) `testing.ladder_script` through both packages on the same encoded
     problem (`workloads.build_problem` against `bench.build_problem`):
     equal served rungs, counter deltas, breaker states, fault logs and
@@ -567,7 +568,6 @@ class TestNotPorted:
         ("KARPENTER_SOLVER_ENDPOINT", "localhost:50051", "item 8"),
         ("KARPENTER_SOLVE_LADDER", "remote,device,host", "item 8"),
         ("KARPENTER_SOLVE_LADDER", "device,remote", "item 8"),
-        ("KARPENTER_REWARM_ON_CLOSE", "1", "item 7"),
     ])
     def test_raises_named_not_implemented(self, monkeypatch, knob, value, item):
         enc = _enc(seed=29)
