@@ -42,6 +42,17 @@
                                     # phases 1-2, the warm phase and 16:
                                     # the simulated cluster on the card,
                                     # held against device="cpu"
+    python3 chip_smoke.py --operator # phases 1-2 and 17 alone: the
+                                    # Operator's main path, the
+                                    # real-client stack and the binary
+                                    # on the card, held against
+                                    # device="cpu"
+    python3 chip_smoke.py --b5-against DIR
+                                    # phases 1-2, then B5's 2048 layout
+                                    # here against the checkout DIR's: its
+                                    # time on reserved_50k's LP in turns
+                                    # (DIR, here, here, DIR) and each
+                                    # lp_ascend kernel's machine code
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -65,12 +76,12 @@
 
 Phases, each reported on its own line; any failure exits non-zero. The
 CPU references that need nothing of the card (phase 4's first and small
-requests, phase 11's catalog, phase 13's benchmark rounds, phase 14's
-stream with its micro path and its pipeline, phase 16's Environment
-stream, each with device="cpu" from the same seeds) are computed in one
-worker process,
-started after the build, beside the card's phases; the process is
-stopped when the script ends.
+requests, phase 11's catalog and its cost solve, phase 13's benchmark
+rounds, phase 14's stream with its micro path and its pipeline, phase
+16's Environment stream, phase 17's operator and real-client runs, each
+with device="cpu" from the same seeds) are computed in two worker
+processes, started after the build, beside the card's phases; the
+processes are stopped when the script ends.
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile the CUDA kernels from karpenter_tpu_torch/csrc
                 (one nvcc per source, in parallel, B1's and B3's sources
@@ -85,7 +96,9 @@ stopped when the script ends.
                 dual-ascent buckets): one canary launch of each kernel a
                 bucket's route runs (B1, B3, B2, B6 and its epilogue, B5),
                 read back; `karpenter_solver_warm_compiles_total` must
-                show no `error`. Each bucket's wall, and each kernel's
+                show no `error` and no bucket may be skipped (B5's wide
+                layout takes the 4096-config dual-ascent buckets).
+                Each bucket's wall, and each kernel's
                 first launch in the process (CUDA loads its module then)
                 against the same canary again. Then the resilience
                 ladder's re-warm gate (KARPENTER_REWARM_ON_CLOSE=1): two
@@ -99,7 +112,10 @@ stopped when the script ends.
                 seeded cases, B5 also on edge cases: one whose arrays
                 exceed the shared memory and must take the global-memory
                 path, column maxima at 0 with tied groups, 801 configs,
-                sums of at most 32 terms; the packing kernels in both modes, reservations,
+                sums of at most 32 terms; and past 2048 padded groups or
+                configs, its wide layout: the warm buckets' 155 x 4438
+                and 243 x 4438, 2840 and 2272 configs, 2272 and 4438
+                groups); the packing kernels in both modes, reservations,
                 bound rows with quotas, group caps, conflicts, negative
                 and huge demand, a capped node axis): outputs must be
                 byte-identical, B3's at widths 1, 8, 16 and 32, and B3's
@@ -304,7 +320,15 @@ stopped when the script ends.
                 the largest shape that fits both (the catalog cut to the
                 groups B3's block holds whole, spilled through
                 `forced_budget`), in turns; then each at the catalog's
-                own shape with its plain version and bound.
+                own shape with its plain version and bound. Last, the
+                cost objective past 2048 configs: B5's wide layout held
+                bit for bit on the catalog's LP (594 x 2840 padded) and
+                on the warm bucket's 243 x 4438 shape, timed there with
+                its bound and phase clocks; the catalog's cost solve
+                without column generation (the FFD pack, B5's duals
+                guiding the trim; the planner's MIPs stop on the host's
+                wall clock) equal to device="cpu"'s fingerprint,
+                launching B5's wide layout.
 Every packing solve of phases 4-11 goes through the resilience ladder
 (`solver/resilience.py`). After phase 11 (and at the end of `--quick`)
 the run fails unless the device or sharded rung served every one of
@@ -347,7 +371,7 @@ LP degraded.
                 round's claims launch (in flight, no node registered)
                 and 10k more pods arrive, so the pending pods land on
                 the in-flight claims (one warm-up environment, then
-                two fresh ones timed); bench.py's scenario_topology
+                one fresh one timed); bench.py's scenario_topology
                 demand (1000 pods of 20 apps, zonal spread, hostname
                 anti-affinity on every tenth, over `instance_types(100)`)
                 through `Scheduler.solve`; bench.py's scenario_mixed
@@ -369,10 +393,10 @@ LP degraded.
   14. tick    — the incremental tick (`provisioning/incremental_tick.py`),
                 the Provisioner's default path, as an event stream
                 (`testing.run_stream`): phase 13's two rounds of the
-                benchmark problem, then 8 steady rounds that register the
+                benchmark problem, then 4 steady rounds that register the
                 claims, bind the pods, delete 1% of the bound pods (a
                 seeded draw) and respawn their shapes (bench.py's
-                steady_state_churn), then 4 quiet rounds of 0.1%. Each
+                steady_state_churn), then 2 quiet rounds of 0.1%. Each
                 round's decision fingerprint and route (path, reason)
                 equal to the same stream with device="cpu"; the stream
                 with KARPENTER_INCREMENTAL=0 on the card equal decision
@@ -431,7 +455,7 @@ LP degraded.
                 `testing.environment_stream`: the pods provisioned (claims
                 launched through `KwokCloudProvider`, nodes registered,
                 pods bound), 30% of them deleted and
-                up to two `reconcile_disruption` rounds (ENV_ROUNDS; the
+                one `reconcile_disruption` round (ENV_ROUNDS; the
                 stream ends early when nothing is decided or the command
                 stalls, ROADMAP C6), the probe methods on
                 what is left, `reconcile_termination`, then three spot
@@ -449,6 +473,34 @@ LP degraded.
                 launches of B6 and of the flat solves, and the metrics
                 controllers' gauges (pods, nodes, node pools, status
                 conditions) equal the CPU run's.
+  17. operator — the system as a user starts it: (a) `Operator(device=
+                "cuda")` over the in-memory store and the kwok provider
+                (`testing.operator_run`): phase 13's 50k pods x 500 types
+                in two waves of provisioning ticks (claims launched
+                through the lifecycle, the binding queue's drain), 200
+                arrivals through `micro_step` with the reactive plane on,
+                16 pods of a PriorityClass of 1000 under the pool capped
+                at the fleet's cpu (preemption nominates victims), then
+                the pods of 20 nodes and those still pending deleted and
+                the pool consolidated when empty, and six disruption
+                scans (the emptied nodes' command, an empty-handed scan,
+                then the skip gate); every step's name-free
+                record (fleet, pending and nominated pods, claims,
+                instances, `readyz()`'s clock-free counts, the counters'
+                growth, micro digests, commands) equal to device="cpu"'s
+                (the worker, PYTHONHASHSEED=0), each step's wall and the
+                card's ms; it must launch B1 or B3 and B2. (b) the
+                real-client stack, `RealKubeClient(InMemoryApiServer())`,
+                at 5,000 pods x 500 types under
+                KARPENTER_FAULTS=operator_crash@crash_launch:1, the client
+                and the Operator rebuilt after the crash: it converges to
+                device="cpu"'s fleet with nothing leaked; OPERATOR_RECOVERY
+                and KUBE_RETRIES printed. (c) the binary, `python -m
+                karpenter_tpu_torch --demo 2000 --run-seconds 20
+                --metrics-port 0`, as a subprocess on the card: /healthz,
+                /readyz and /metrics read over HTTP while it runs, exit 0
+                with every pod bound; with CUDA_VISIBLE_DEVICES="" it
+                must exit non-zero. The device rung serves every solve.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -464,11 +516,13 @@ Imports torch, numpy and karpenter_tpu_torch only.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -510,6 +564,11 @@ GLOBAL_CASE = "ascent-global"
 # order kept, then the full argmax (past 19,280 groups)
 PRICE_PAST_CEILING = ((7_000, 64), (20_000, 64))
 EDGE_ITERS = {GLOBAL_CASE: (8, 32)}
+# B5's wide layout (past 2048 padded axes): a few iterations each (the
+# plain version of a 4438-group axis takes ~1 s an iteration on the card's
+# host); phase 11 holds the warm bucket's 243 x 4438 at the ascent's 192
+WIDE_ITERS = {"ascent-wide-g4438": (4,)}
+WIDE_ITERS_DEFAULT = 8
 # block barriers in a row that time one barrier (lp_device.barrier_probe)
 BARRIER_PROBE = 20_000
 # the consolidation phase: bench.py's consolidation_500 (its defaults
@@ -538,15 +597,18 @@ def say(msg: str) -> None:
 
 # the references on the CPU that need nothing of the card, by name: the
 # fingerprints of phase 4's first and small requests (device="cpu"), of
-# phase 11's catalog, phase 13's benchmark rounds, phase 14's stream
-# with its micro path and its pipeline, and phase 16's Environment
-# stream. The whole run
-# computes them in one worker process of their own (CPU_REF_THREADS
-# threads), started after the build, so that they run beside the card's
-# phases; a phase run alone computes its own inline
-CPU_REFS_ORDER = ("first", "small", "catalog", "provision", "tick", "pipeline",
-                  "environment")
-CPU_REF_THREADS = 4
+# phase 11's catalog (its ffd and its cost solve), phase 13's benchmark
+# rounds, phase 14's stream with its micro path and its pipeline, phase
+# 16's Environment stream, and phase 17's operator run and real-client
+# run. The whole run computes them in two worker processes of their own
+# (CPU_REF_THREADS threads each, one group of CPU_REFS_ORDER each),
+# started after the build, so that they run beside the card's phases; a
+# phase run alone computes its own inline
+CPU_REFS_ORDER = (("first", "small", "catalog", "provision", "tick", "pipeline",
+                   "environment"),
+                  ("cost hetero 2000x80", "cost reservations 5000x100", "catalog_cost",
+                   "operator", "client"))
+CPU_REF_THREADS = 2
 
 
 def cpu_reference(name: str):
@@ -556,8 +618,10 @@ def cpu_reference(name: str):
     fingerprints, pods placed or unschedulable, and rungs degraded);
     phase 14's `tick_stream` (fingerprints, routes, rungs degraded) and
     then its `micro_continue`, `pipeline_run`'s held rows and cold
-    tick's wall, and phase 16's `environment_run` (its records, the
-    metrics controllers' gauges after it, the rungs degraded)."""
+    tick's wall, phase 16's `environment_run` (its records, the
+    metrics controllers' gauges after it, the rungs degraded), phase
+    11's cost solve of the catalog (`catalog_cost`), and phase 17's
+    `operator_main_run` records and `client_main_run`."""
     from karpenter_tpu_torch import testing
     from karpenter_tpu_torch.solver.encode import group_pods
     from karpenter_tpu_torch.solver.solver import fingerprint, solve
@@ -566,6 +630,15 @@ def cpu_reference(name: str):
     if name == "catalog":
         pods, pools = aws_catalog_50k(CATALOG_TYPES)
         return fingerprint(solve(pods, pools, device="cpu"))
+    if name == "catalog_cost":
+        pods, pools = aws_catalog_50k(CATALOG_TYPES)
+        return catalog_cost(pods, pools, "cpu")
+    if name.startswith("cost "):
+        return cost_check(name[len("cost "):], "cpu")
+    if name == "operator":
+        return operator_main_run("cpu")
+    if name == "client":
+        return client_main_run("cpu")
     if name == "tick":
         degraded: list = []
         env, out = tick_stream("cpu", on_round=lambda k, r: degraded.append(
@@ -623,33 +696,40 @@ def cpu_ref_worker(names, conn) -> None:
 
 
 class CpuRefs:
-    """The CPU references: from the worker process once `start`ed, else
-    computed inline on first use."""
+    """The CPU references: from the worker processes once `start`ed (one a
+    group of names), else computed inline on first use."""
 
     def __init__(self):
-        self.proc, self.conn, self.names, self.done = None, None, (), {}
+        self.workers, self.done = [], {}
 
-    def start(self, names=CPU_REFS_ORDER) -> None:
+    @property
+    def names(self) -> tuple:
+        return tuple(n for _, _, names in self.workers for n in names)
+
+    def start(self, groups=CPU_REFS_ORDER) -> None:
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
-        self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=cpu_ref_worker, args=(names, child), daemon=True)
-        self.proc.start()
-        child.close()
-        self.names = tuple(names)
+        for names in groups:
+            conn, child = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=cpu_ref_worker, args=(names, child), daemon=True)
+            proc.start()
+            child.close()
+            self.workers.append((proc, conn, tuple(names)))
 
     def get(self, name: str):
         """The reference and the seconds it took to compute."""
         if name not in self.names and name not in self.done:
             t0 = time.perf_counter()
             self.done[name] = ("inline", cpu_reference(name), time.perf_counter() - t0)
+        proc, conn = next(((p, c) for p, c, names in self.workers if name in names),
+                          (None, None))
         while name not in self.done:
             try:
-                got, status, value, secs = self.conn.recv()
+                got, status, value, secs = conn.recv()
             except EOFError:
                 fail(f"the CPU reference worker ended before computing {name} "
-                     f"(exit code {self.proc.exitcode})")
+                     f"(exit code {proc.exitcode})")
             if status != "ok":
                 fail(f"the CPU reference {got} failed: {value}")
             self.done[got] = ("worker", value, secs)
@@ -660,11 +740,11 @@ class CpuRefs:
                 "inline": "inline"}[self.done[name][0]]
 
     def close(self) -> None:
-        if self.proc is not None:
-            if self.proc.is_alive():
-                self.proc.terminate()
-            self.proc.join()
-            self.proc = None
+        for proc, _, _ in self.workers:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        self.workers = []
 
 
 CPU_REFS = CpuRefs()
@@ -928,14 +1008,14 @@ def b1_ops(kernels, args, kw, max_free: int) -> int:
     return terms[0] * OPS_PER_CAP_TERM
 
 
-def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
-               heterogeneous_instance_types, err: dict, launches: dict) -> dict:
+def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: dict,
+               launches: dict) -> dict:
     """Phase 6: the cost objective on reserved_50k through `solve()`,
     with its inputs recorded; returns what phase 7 times."""
     import numpy as np
     import torch
 
-    from karpenter_tpu_torch.testing import KernelCase, root_node_mips
+    from karpenter_tpu_torch.testing import KernelCase
 
     pods, pools = build_problem(COST_PODS, COST_TYPES, seed=SEED,
                                 reservations=True, zonal_frac=COST_ZONAL)
@@ -1115,44 +1195,67 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem,
         f"{len(rec['cases'])} cost-mode pack shapes identical to the plain "
         f"versions ({time.perf_counter() - t0:.3f}s)")
 
-    # the card against the CPU path on two mid-size problems
-    hpods, hpools = build_problem(2000, 80, seed=5)
-    hpools = [(hpools[0][0], heterogeneous_instance_types(80))]
-    checks = [("hetero 2000x80", hpods, hpools),
-              ("reservations 5000x100", *build_problem(5000, 100, seed=SEED,
-                                                      reservations=True))]
-    # the planner's HiGHS MIPs stop at wall-clock limits, so the same
-    # plan can round differently under another load: both runs stop
-    # them after the root node instead, the same work on both sides
-    for name, cpods, cpools in checks:
-        stops, fps = [], []
-        for device in (None, "cpu"):
-            solver.reset_caches()
-            rec["plans"].clear()
-            lp_plan.plan = plan
-            try:
-                with root_node_mips():
-                    t0 = time.perf_counter()
-                    out = solver.solve(cpods, cpools, objective="cost", device=device)
-                    wall = time.perf_counter() - t0
-            finally:
-                lp_plan.plan = real["plan"]
-            p = rec["plans"][0]
-            stops.append(p.debug["stop"] if p is not None else None)
-            fps.append(solver.fingerprint(out))
-            say(f"  {name} on {device or 'the card'}: ${out.total_price:.6f}/h, "
-                f"{len(out.new_nodes)} nodes, column generation stopped by "
-                f"{stops[-1]} after {p.debug['iters'] if p else 0} rounds, estimate "
-                f"{p.objective_estimate if p else float('nan'):.6f}, "
-                f"{len(p.planned_cols) if p else 0} planned nodes, {wall:.3f}s")
-        if any(stop not in ("converged", "stall") for stop in stops):
-            fail(f"{name}: column generation did not end by convergence or stall: {stops}")
-        if fps[0] != fps[1]:
+    # the card against the CPU path (the worker's) on two mid-size problems
+    for name in COST_CHECKS:
+        runs = [("the card", cost_check(name, None)),
+                ("cpu", CPU_REFS.get(f"cost {name}")[0])]
+        for where, (fp, price, nodes, stop, iters, est, planned, wall) in runs:
+            say(f"  {name} on {where}: ${price:.6f}/h, {nodes} nodes, column generation "
+                f"stopped by {stop} after {iters} rounds, estimate {est:.6f}, {planned} "
+                f"planned nodes, {wall:.3f}s")
+        if any(r[3] not in ("converged", "stall") for _, r in runs):
+            fail(f"{name}: column generation did not end by convergence or stall: "
+                 f"{[r[3] for _, r in runs]}")
+        if runs[0][1][0] != runs[1][1][0]:
             fail(f"{name}: the card's cost fingerprint differs from the CPU path's")
     solver.reset_caches()
     say("  card and CPU fingerprints equal on both problems")
     return {"price_inputs": picks.get("first round", picks["seed"]),
             "ascent": rec["ascents"][0], "staged": rec["cost_staged"]}
+
+
+# phase 6's card-against-CPU cost solves (the CPU's in the worker)
+COST_CHECKS = ("hetero 2000x80", "reservations 5000x100")
+
+
+def cost_check(name: str, device) -> tuple:
+    """The cost solve of COST_CHECKS' problem `name` on `device`, caches
+    cleared: (fingerprint, $/h, nodes, column generation's stop reason,
+    rounds, estimate, planned nodes, wall s). The planner's HiGHS MIPs
+    stop at wall-clock limits, so the same plan can round differently
+    under another load: every run stops them after the root node
+    instead, the same work on every side."""
+    from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
+    from karpenter_tpu_torch.solver import lp_plan
+    from karpenter_tpu_torch.solver import solver as solver_mod
+    from karpenter_tpu_torch.testing import root_node_mips
+    from karpenter_tpu_torch.workloads import build_problem
+
+    if name == COST_CHECKS[0]:
+        pods, pools = build_problem(2000, 80, seed=5)
+        pools = [(pools[0][0], heterogeneous_instance_types(80))]
+    else:
+        pods, pools = build_problem(5000, 100, seed=SEED, reservations=True)
+    plans, real = [], lp_plan.plan
+
+    def plan(*a, **k):
+        plans.append(real(*a, **k))
+        return plans[-1]
+
+    solver_mod.reset_caches()
+    lp_plan.plan = plan
+    try:
+        with root_node_mips():
+            t0 = time.perf_counter()
+            out = solver_mod.solve(pods, pools, objective="cost", device=device)
+            wall = time.perf_counter() - t0
+    finally:
+        lp_plan.plan = real
+    p = plans[0] if plans else None
+    return (solver_mod.fingerprint(out), out.total_price, len(out.new_nodes),
+            p.debug["stop"] if p is not None else None, p.debug["iters"] if p else 0,
+            p.objective_estimate if p else float("nan"), len(p.planned_cols) if p else 0,
+            wall)
 
 
 def hold_dense(pd, kernels, case, err: dict) -> str:
@@ -3076,6 +3179,58 @@ LANES = "--lanes"
 # `--against DIR`: phases 1-2, then `compare_timings` in DIR (a checkout
 # of another commit, e.g. the parent) and here, in turns
 AGAINST = "--against"
+# `--b5-against DIR`: phases 1-2, then B5's 2048 layout against the
+# checkout DIR's (`b5_against`)
+B5_AGAINST = "--b5-against"
+# the B5 timing a turn of `b5_against` runs in a checkout (its own
+# package): reserved_50k's LP staged from its encode, 3 x 20 launches
+B5_TURN = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+from karpenter_tpu_torch import cuda_build
+from karpenter_tpu_torch.solver import lp_device
+from karpenter_tpu_torch.solver.encode import encode, group_pods
+from karpenter_tpu_torch.workloads import build_problem
+cuda_build.library("lp_ascend")
+pods, pools = build_problem(50000, 500, seed=42, reservations=True, zonal_frac=0.1)
+a = lp_device.ascent_inputs(lp_device._stage(encode(group_pods(pods), pools))).to("cuda")
+n = lp_device.iters()
+lp_device.ascend(a, n)
+torch.cuda.synchronize()
+ms = []
+for _ in range(3):
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(20):
+        lp_device.ascend(a, n)
+    e.record()
+    torch.cuda.synchronize()
+    ms.append(s.elapsed_time(e) / 20)
+print(json.dumps({"shape": list(a.compat.shape), "ms": ms}))
+"""
+
+
+def b5_against(other: str, smi: str) -> None:
+    """B5's 2048 layout here against the checkout `other` (the parent's,
+    unpacked with git archive): each tree's B5 time on reserved_50k's LP
+    in turns (other, here, here, other; each turn a fresh process of that
+    tree, building its libraries on first use), then the machine code of
+    each `lp_ascend` kernel in both trees, kernel by kernel."""
+    for turn, tree in enumerate((other, HERE, HERE, other)):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", B5_TURN], cwd=tree,
+                             env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
+                             text=True, timeout=900)
+        if out.returncode != 0:
+            fail(f"B5 timing in {tree} exited {out.returncode}: {out.stderr[-3000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        say(f"  B5 turn {turn} ({'this tree' if tree == HERE else other}): reserved_50k's LP "
+            f"{rec['shape']}, " + ", ".join(f"{m:.6f}" for m in rec["ms"])
+            + f" ms ({time.perf_counter() - t0:.3f}s) | card: {smi}")
+    there, here = sass_digests(other, "lp_ascend"), sass_digests(HERE, "lp_ascend")
+    say("  lp_ascend machine code: " + "; ".join(
+        f"{k} {'identical' if k in there and there[k] == here.get(k) else ('new' if k not in there else 'CHANGED')}"
+        for k in sorted(set(there) | set(here))))
 # `--dense`: phases 1-2, then phase 9 alone on the full-width problems
 # staged through `dense_problems`
 DENSE = "--dense"
@@ -3084,18 +3239,20 @@ LADDER = "--ladder"
 # phase 12's problem: the host oracle is a Python loop a pod and a node
 LADDER_PROBLEM = (2000, 50, 7)
 # phase 12's turns of the pack alone (direct, ladder, watchdog thread)
-# and pairs of the whole solve (seam bypassed, ladder)
-LADDER_TURNS = 25
-LADDER_WHOLE_TURNS = 10
+# and pairs of the whole solve (seam bypassed, ladder); 25 and 10 before
+# phase 17, cut for its time
+LADDER_TURNS = 13
+LADDER_WHOLE_TURNS = 5
 # `--provision`: phases 1-2, then phase 13 alone
 PROVISION = "--provision"
 # phase 13: fresh environments timed after one warm-up (the benchmark
-# problem; two since the claims launch through the lifecycle controller,
-# whose provider call a claim takes the script ~10 s an environment on a
-# slow host); bench.py's scenario_topology demand (pods, services, types)
+# problem; one since phase 17 (three, then two, before it): the claims
+# launch through the lifecycle controller, ~10 s an environment on a slow
+# host);
+# bench.py's scenario_topology demand (pods, services, types)
 # and scenario_mixed's (pods, types of the default pool, of the tainted
 # one)
-PROVISION_TURNS = 2
+PROVISION_TURNS = 1
 TOPOLOGY_PROBLEM = (1000, 20, 100)
 MIXED_PROBLEM = (10_000, 400, 60)
 COMPARE_SHARDS = (2, 4, 8)
@@ -3137,6 +3294,75 @@ def spill_timing(kernels, name: str, run, lay: dict, reps: int, smi: str) -> tup
         f"spilled {seq[1]:.4f}, {seq[2]:.4f} ms (in turns: shared, spilled, spilled, "
         f"shared; outputs byte-identical) | card: {smi}")
     return seq
+
+
+def catalog_cost(pods, pools, device) -> tuple:
+    """The cost solve of the catalog on `device`, caches cleared: its
+    fingerprint, fleet price, nodes and launches of B5's wide layout.
+    Column generation is left out (`lp_plan.plan` returns None): the race
+    is the FFD pack, and B5's duals guide the trim of the winner, the same
+    work under any load. With it, its HiGHS MIPs stop on the host's wall
+    clock (the card and the CPU may plan differently), and stopped at the
+    root node instead the 2,400-config covering took ~70 s of host time a
+    solve."""
+    from karpenter_tpu_torch.solver import lp_device, lp_plan
+    from karpenter_tpu_torch.solver import solver as solver_mod
+
+    solver_mod.reset_caches()
+    lp_device.reset()
+    real_plan, wide0 = lp_plan.plan, lp_device.LAUNCHES["lp_ascend_wide"]
+    lp_plan.plan = lambda enc, **kw: None
+    try:
+        sol = solver_mod.solve(pods, pools, objective="cost", device=device)
+    finally:
+        lp_plan.plan = real_plan
+    return (solver_mod.fingerprint(sol), sol.total_price, len(sol.new_nodes),
+            lp_device.LAUNCHES["lp_ascend_wide"] - wide0)
+
+
+def catalog_lp(kernels, enc, pods, pools, err: dict, smi: str) -> dict:
+    """Phase 11's cost objective on aws_catalog_50k (2,400 configs, padded
+    past 2048: B5's wide layout): B5 held bit for bit on the catalog's LP,
+    held and timed on the warm pool's 4096-config bucket shape (243 x
+    4438); the cost solve without column generation on the card against
+    device="cpu"'s fingerprint. Returns the report entry of the wide
+    layout."""
+    import torch
+
+    from karpenter_tpu_torch.solver import lp_device
+    from karpenter_tpu_torch.testing import ascent_wide_cases
+
+    t0 = time.perf_counter()
+    err.setdefault("lp_ascend", 0.0)
+    a = lp_device.ascent_inputs(lp_device._stage(enc)).to("cuda")
+    if not lp_device.ascent_wide(*a.compat.shape):
+        fail(f"aws_catalog_50k's LP is {tuple(a.compat.shape)}: not past 2048")
+    (_, bucket), = ascent_wide_cases(0, names=("wide-c4438-g243",))
+    say(hold_ascent(lp_device, "aws_catalog_50k's LP", a, lp_device.iters(), err)
+        + f"; {lp_device.ASCENT_SMEM['lp_ascend']}")
+    b5_bucket = ascent_timing(kernels, lp_device, "the warm pool's 4096-config bucket shape",
+                              bucket.to("cuda"), lp_device.iters(), err, smi)
+    t1 = time.perf_counter()
+    fp, price, nodes, launched = catalog_cost(pods, pools, None)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    (cpu_fp, cpu_price, cpu_nodes, _), cpu_s = CPU_REFS.get("catalog_cost")
+    if launched < 1:
+        fail("aws_catalog_50k's cost solve did not launch B5's wide layout")
+    if fp != cpu_fp:
+        fail(f"aws_catalog_50k's cost solve on the card (${price:.6f}/h, {nodes} nodes) "
+             f"differs from device=\"cpu\"'s (${cpu_price:.6f}/h, {cpu_nodes} nodes)")
+    say(f"  aws_catalog_50k cost, without column generation (the FFD pack, B5's duals "
+        f"guiding the trim): the card ${price:.6f}/h, {nodes} nodes in {card_s:.3f}s (B5 "
+        f"wide {launched}x), fingerprint equal to device=\"cpu\"'s (computed "
+        f"{CPU_REFS.where('catalog_cost')} in {cpu_s:.3f}s) "
+        f"({time.perf_counter() - t0:.3f}s) | card: {smi}")
+    return {"name": "lp_ascend_wide", "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/lp_ascend.cu",
+            "replaces": "karpenter_tpu/solver/lp_device.py:202",
+            "launches": launched, "max_abs_err": err["lp_ascend"],
+            "ms": b5_bucket["ms"], "plain_ms": b5_bucket["plain_ms"],
+            "bound_ms": b5_bucket["bound"], "bound_by": b5_bucket["by"], "library_ms": None}
 
 
 def catalog_phase(err: dict, smi: str) -> dict:
@@ -3492,6 +3718,7 @@ def catalog_phase(err: dict, smi: str) -> dict:
                 "bound_by": b[1], "library_ms": None})
     finally:
         force_virtual_mesh(0)
+    entries.append(catalog_lp(kernels, enc, pods, pools, err, smi))
     say(f"  phase 11 took {time.perf_counter() - t_phase:.3f}s | card: {smi}")
     return {"entries": entries,
             "launches": {**launches, **{f"split-{k}": v for k, v in split_launches.items()},
@@ -4316,16 +4543,19 @@ TICK = "--tick"
 # tick's churn gate; rounds with a few arrivals before the micro batch
 # (under KARPENTER_MICRO_DUAL=1 the first that rides the tick refreshes
 # its dual floor); the pipeline's churn ticks held against
-# device="cpu" and timed
-TICK_STEADY = 8
+# device="cpu" and timed (8 steady and 4 quiet rounds before phase 17, cut
+# for its time)
+TICK_STEADY = 4
 TICK_CHURN = 0.01
-TICK_QUIET = 4
+TICK_QUIET = 2
 TICK_QUIET_CHURN = 0.001
 MICRO_WARM = (2, 20)
 MICRO_BATCH = 2000
 PIPELINE_HELD = 3
-PIPELINE_TIMED = 10
-PIPELINE_FULL = 3
+# the pipeline's timed churn ticks and full cost solves: 10 and 3 before
+# phase 17, cut for its time
+PIPELINE_TIMED = 5
+PIPELINE_FULL = 2
 
 
 def tick_stream(device: str, audit_every=None, on_round=None):
@@ -5106,8 +5336,8 @@ def warm_phase(smi: str) -> dict:
     buckets (DEFAULT_SHAPES in both modes, with and without the topology
     inputs, the default probe buckets, the dual-ascent buckets): every
     bucket must launch (`karpenter_solver_warm_compiles_total` shows no
-    `error`), and the only buckets skipped are the dual-ascent buckets
-    B5 refuses (`lp_device.ascent_refusal`); each bucket's wall and each
+    `error`) and none may be skipped (B5's wide layout takes the two
+    4096-config dual-ascent buckets); each bucket's wall and each
     kernel's first launch in the process against its second (a second
     `warm()` pass launches every canary again). Then
     `rewarm_canary` as the ladder's close gate: two injected device
@@ -5136,8 +5366,8 @@ def warm_phase(smi: str) -> dict:
     with scoped_env({"KARPENTER_WARM_SHAPES": None, "KARPENTER_WARM_PROBE_SHAPES": None,
                      "KARPENTER_WARM_SHARDS": None, "KARPENTER_FAULTS": None}):
         faults.reset()
-        # the dual-ascent buckets B5 refuses on the card (a named width
-        # limit, ROADMAP C4): the only buckets the pool may skip
+        # the dual-ascent buckets B5 would refuse on the card: none (its
+        # wide layout takes the 4096-config buckets, ROADMAP C4)
         refused = sorted(
             lp for lp in {(s[0], s[1], s[4] if len(s) > 4 else 4)
                           for s in warm_pool.shapes_from_env()}
@@ -5160,9 +5390,12 @@ def warm_phase(smi: str) -> dict:
     if counts["error"] or got["error"] or not counts["ok"]:
         fail(f"warm phase: the warm pool counted {counts}, SOLVER_WARM_COMPILES "
              f"{got}: every bucket must launch")
-    if counts["skipped"] != len(refused) or again != counts:
-        fail(f"warm phase: the warm pool counted {counts}, then {again}; only the "
-             f"{len(refused)} dual-ascent buckets B5 refuses ({refused}) may be skipped")
+    if refused or counts["skipped"] or again != counts:
+        fail(f"warm phase: the warm pool counted {counts}, then {again}; no bucket may be "
+             f"skipped (B5 refuses {refused})")
+    if launched.get("lp_ascend_wide", 0) < 2:
+        fail(f"warm phase: B5's wide layout launched {launched.get('lp_ascend_wide', 0)}x: "
+             "the two 4096-config dual-ascent buckets must launch it")
     if any(rec["runs"] != 2 for rec in warm_pool.CANARIES.values()) \
             or set(first_walls) != set(warm_pool.CANARIES):
         fail("warm phase: a canary bucket did not launch once in each pass")
@@ -5174,7 +5407,8 @@ def warm_phase(smi: str) -> dict:
               for rec in warm_pool.CANARIES.values() if rec["first"]]
     say(f"warm phase: warm_pool.warm() on the card -> {json.dumps(counts)} in "
         f"{wall:.3f}s (again: {wall2:.3f}s); SOLVER_WARM_COMPILES by outcome "
-        f"{json.dumps(got)}; skipped: the B5-refused dual-ascent buckets {refused}; "
+        f"{json.dumps(got)}; skipped: none (B5's wide layout "
+        f"{launched.get('lp_ascend_wide', 0)}x); "
         f"{len(warm_pool.CANARIES)} canaries, {len(warm_pool.compiled_buckets)} padded "
         f"signatures warm; launches {json.dumps(launched)} | card: {smi}")
     say("  bucket walls (s, host clock, launch to the copy back): "
@@ -5230,8 +5464,9 @@ ENVIRON = "--environment"
 # one), through `testing.environment_stream`
 ENV_DROP = 0.3
 # the global repack decides every round at this size without stalling
-# (the fleet grows: PERF.md §6, PR 18): two rounds hold its decisions
-ENV_ROUNDS = 2
+# (the fleet grows: PERF.md §6); one round holds its decisions (two
+# before phase 17, cut for its time)
+ENV_ROUNDS = 1
 ENV_INTERRUPTS = 3
 ENV_STEPS = ("provision", "disruption", "probes", "termination", "interruption")
 
@@ -5315,6 +5550,47 @@ def step_text(rec) -> str:
             f"{instances} instances, {len(pending)} pending")
 
 
+@contextlib.contextmanager
+def card_spans():
+    """Within the block, CUDA events bracket every packing call of a
+    Scheduler solve (`solver._solve_packing`) and every lane-solver call
+    outside one (`pack_split_flat`, `pack_probe_lanes_flat`); yields the
+    list the (start, end) pairs are appended to."""
+    import torch
+
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver import solver as solver_mod
+
+    spans: list = []
+    inside = [0]
+    seam = solver_mod._solve_packing
+    real_split_flat, real_lanes_flat = kernels.pack_split_flat, kernels.pack_probe_lanes_flat
+
+    def bracket(fn, lane: bool):
+        def call(*a, **k):
+            if lane and inside[0]:
+                return fn(*a, **k)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            inside[0] += 0 if lane else 1
+            start.record()
+            try:
+                return fn(*a, **k)
+            finally:
+                inside[0] -= 0 if lane else 1
+                end.record()
+                spans.append((start, end))
+        return call
+
+    solver_mod._solve_packing = bracket(seam, lane=False)
+    kernels.pack_split_flat = bracket(real_split_flat, lane=True)
+    kernels.pack_probe_lanes_flat = bracket(real_lanes_flat, lane=True)
+    try:
+        yield spans
+    finally:
+        solver_mod._solve_packing = seam
+        kernels.pack_split_flat, kernels.pack_probe_lanes_flat = real_split_flat, real_lanes_flat
+
+
 def environment_phase(smi: str) -> dict:
     """Phase 16: the simulated cluster (`testing.Environment`) on the
     card, held step for step against device="cpu"'s stream, the kernels
@@ -5330,7 +5606,6 @@ def environment_phase(smi: str) -> dict:
     )
     from karpenter_tpu_torch.solver import lp_device, lp_plan, resilience
     from karpenter_tpu_torch.solver import pack_split as kernels
-    from karpenter_tpu_torch.solver import solver as solver_mod
 
     t_phase = time.perf_counter()
     resilience.reset()
@@ -5349,29 +5624,6 @@ def environment_phase(smi: str) -> dict:
         return out
 
     kernel_names = {name for table in tables for name in table}
-
-    spans: list = []
-    inside = [0]
-    seam = solver_mod._solve_packing
-    real_split_flat, real_lanes_flat = kernels.pack_split_flat, kernels.pack_probe_lanes_flat
-
-    def bracket(fn, lane: bool):
-        """CUDA events around a packing call (a lane-solver one only when
-        not inside a bracketed Scheduler solve)."""
-        def call(*a, **k):
-            if lane and inside[0]:
-                return fn(*a, **k)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            inside[0] += 0 if lane else 1
-            start.record()
-            try:
-                return fn(*a, **k)
-            finally:
-                inside[0] -= 0 if lane else 1
-                end.record()
-                spans.append((start, end))
-        return call
-
     per_step: list = []
     mark = {}
 
@@ -5389,10 +5641,7 @@ def environment_phase(smi: str) -> dict:
     for table in tables:
         for name in table:
             table[name] = 0
-    solver_mod._solve_packing = bracket(seam, lane=False)
-    kernels.pack_split_flat = bracket(real_split_flat, lane=True)
-    kernels.pack_probe_lanes_flat = bracket(real_lanes_flat, lane=True)
-    try:
+    with card_spans() as spans:
         start = counts()
         mark.update(t=time.perf_counter(), c=start)
         t0 = time.perf_counter()
@@ -5400,9 +5649,6 @@ def environment_phase(smi: str) -> dict:
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         total = {k: v - start.get(k, 0) for k, v in counts().items()}
-    finally:
-        solver_mod._solve_packing = seam
-        kernels.pack_split_flat, kernels.pack_probe_lanes_flat = real_split_flat, real_lanes_flat
     served = served_by_device("phase 16", since)
     gauges = controller_gauges(env)
     text = exposition.render()
@@ -5462,6 +5708,284 @@ def environment_phase(smi: str) -> dict:
     return {"environment": {k: v for k, v in total.items() if k in kernel_names}}
 
 
+OPERATOR = "--operator"
+# phase 17: the operator on the card. (a) its main path over phase 13's
+# 50k pods x 500 types in two waves, OP_MICRO arrivals for the micro
+# path, OP_HIGH pods of PriorityClass "critical" under the capped pool,
+# the pods of OP_EMPTY nodes deleted and the pool consolidated when empty,
+# OP_SCANS disruption scans (a command, an empty-handed scan, then the
+# skip gate); (b) the
+# real-client stack at CLIENT_PROBLEM (every write goes through
+# `kube/serialize.py`, so 5,000 pods, not 50k) with an injected crash;
+# (c) the binary as a subprocess for BINARY_SECONDS
+OP_SPLIT = 40_000
+OP_MICRO = 200
+OP_HIGH = 16
+OP_EMPTY = 20
+OP_SCANS = 6
+CLIENT_PROBLEM = (5_000, 500, SEED)
+CLIENT_FAULTS = "operator_crash@crash_launch:1"
+BINARY_DEMO = 2000
+BINARY_SECONDS = 20
+
+
+def operator_main_run(device: str, on_step=None) -> list:
+    """Phase 17 (a) on `device`: `testing.operator_run` over the benchmark
+    problem, the planners' MIPs stopped at the root node and their time
+    budget lifted, one fixed deadline clock (a slow run decides as a fast
+    one). Returns its records."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.solver import lp_plan
+    from karpenter_tpu_torch.workloads import build_problem
+
+    pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
+    extra, _ = build_problem(OP_MICRO + OP_HIGH, N_TYPES, seed=SEED + 7, name_prefix="op-")
+    # claim and node names order the retained rows: both runs name alike
+    testing.reset_counters(testing.package_api())
+    budget = lp_plan._TIME_BUDGET_S
+    lp_plan._TIME_BUDGET_S = 1e4
+    try:
+        with testing.root_node_mips():
+            return testing.operator_run(
+                testing.operator_api(), device, list(pools[0][1]), pools[0][0],
+                [pods[:OP_SPLIT], pods[OP_SPLIT:]], extra[:OP_MICRO], extra[OP_MICRO:],
+                empty=OP_EMPTY, policy="WhenEmpty", scans=OP_SCANS, seed=SEED,
+                clock=lambda: testing.DISRUPTION_T0, on_step=on_step)
+    finally:
+        lp_plan._TIME_BUDGET_S = budget
+
+
+def client_main_run(device: str) -> dict:
+    """Phase 17 (b) on `device`: `testing.client_run` over
+    `RealKubeClient(InMemoryApiServer())` with CLIENT_FAULTS (a crash in
+    the launch, the client and Operator rebuilt against the same server).
+    Returns its fleet, broken invariants, crashes, recovery actions,
+    retries and fired faults."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.workloads import build_problem
+
+    pods, pools = build_problem(CLIENT_PROBLEM[0], CLIENT_PROBLEM[1], seed=CLIENT_PROBLEM[2])
+    pool = pools[0][0]
+    pool.spec.disruption.consolidate_after = "Never"
+    testing.reset_counters(testing.package_api())
+    res = testing.client_run(testing.client_api(), device, list(pools[0][1]), pool, pods,
+                             faults_spec=CLIENT_FAULTS)
+    return {k: res[k] for k in ("fleet", "broken", "pending", "crashes", "recovery",
+                                "retries", "fault_log")}
+
+
+def operator_step_text(rec: dict) -> str:
+    """One record of `operator_run`, without its pods."""
+    extra = rec["extra"]
+    if rec["step"] == "micro" and extra:
+        what = f"; batch {len(extra['batch'])}, {extra['solved']} solved, {extra['outcome']}"
+    elif rec["step"] == "disrupt":
+        what = "; " + ", ".join(
+            "nothing" if c is None else f"{c[0]}: {len(c[1])} candidates, "
+            f"{len(c[2])} replacements" for c in extra) if extra else "; skipped"
+    else:
+        what = ""
+    grown = {k: v for k, v in rec["counters"].items() if v}
+    return (f"{rec['step']}: {len(rec['nodes'])} nodes, {rec['claims']} claims, "
+            f"{len(rec['pending'])} pending, {len(rec['nominated'])} nominated{what}; "
+            f"counters {json.dumps(grown)}")
+
+
+def operator_binary(smi: str) -> str:
+    """Phase 17 (c): `python -m karpenter_tpu_torch --demo BINARY_DEMO
+    --run-seconds BINARY_SECONDS --metrics-port 0` on the card as a
+    subprocess, /healthz, /readyz and /metrics read over HTTP while it
+    runs; it must exit 0 with every demo pod bound. Then the same command
+    with CUDA_VISIBLE_DEVICES="" must exit non-zero (no fallback)."""
+    import re
+    import urllib.request
+
+    cmd = [sys.executable, "-m", "karpenter_tpu_torch", "--demo", str(BINARY_DEMO),
+           "--run-seconds", str(BINARY_SECONDS), "--metrics-port", "0"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    try:
+        port, deadline = None, time.monotonic() + 120
+        while port is None and time.monotonic() < deadline:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"operator up: .* device=(\S+) metrics=\S+:(\d+)", line)
+            if m:
+                device, port = m.group(1), int(m.group(2))
+        if port is None:
+            fail("phase 17 (c): the binary never logged its metrics port: "
+                 + "".join(lines)[-2000:])
+        up_s = time.perf_counter() - t0
+        time.sleep(3.0)
+        base = f"http://127.0.0.1:{port}"
+        health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=30).read())
+        ready = json.loads(urllib.request.urlopen(f"{base}/readyz", timeout=30).read())
+        metrics = urllib.request.urlopen(f"{base}/metrics", timeout=30).read().decode()
+        _, rest = proc.communicate(timeout=BINARY_SECONDS + 180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log = "".join(lines) + (rest or "")
+    m = re.search(r"shutdown: (\d+) nodes, (\d+) bound pods", log)
+    if proc.returncode != 0 or m is None or int(m.group(2)) != BINARY_DEMO:
+        fail(f"phase 17 (c): the binary exited {proc.returncode}: " + log[-2000:])
+    if device != "cuda" or "karpenter_operator_tick_duration_seconds" not in metrics \
+            or "checks" not in ready or "ok" not in health:
+        fail(f"phase 17 (c): device {device}, /healthz {health}, /readyz keys {sorted(ready)}")
+    wall = time.perf_counter() - t0
+    none = subprocess.run(cmd[:-4] + ["--run-seconds", "1", "--metrics-port", "0"], cwd=HERE,
+                          env=dict(env, CUDA_VISIBLE_DEVICES=""), capture_output=True,
+                          text=True, timeout=120)
+    if none.returncode == 0 or "no CUDA device" not in none.stderr:
+        fail(f"phase 17 (c): with CUDA_VISIBLE_DEVICES=\"\" the binary exited "
+             f"{none.returncode}: {none.stderr[-1000:]}")
+    return (f"  (c) {' '.join(cmd[1:])}: up in {up_s:.3f}s (device={device}), /healthz ok="
+            f"{health.get('ok')}, /readyz ok={ready.get('ok')} with {len(ready)} keys, "
+            f"/metrics {len(metrics.splitlines())} lines; exit 0 after {wall:.3f}s, "
+            f"{m.group(1)} nodes, {m.group(2)} bound pods; with CUDA_VISIBLE_DEVICES=\"\" "
+            f"exit {none.returncode} (no CUDA device) | card: {smi}")
+
+
+def operator_phase(smi: str) -> dict:
+    """Phase 17: the operator on the card. (a) `operator_main_run("cuda")`
+    held step for step against device="cpu"'s records (computed in the
+    worker), each step's wall and the card's ms in its packing calls;
+    (b) `client_main_run("cuda")`: converged, nothing broken, one crash,
+    the fleet device="cpu"'s; (c) `operator_binary`, on a thread beside
+    (a) and (b) (its process holds the card for its own solves). Returns
+    the launches of (a) and (b) (counts zeroed just before each, read just
+    after; the binary's are its own process's)."""
+    import torch
+
+    from karpenter_tpu_torch.solver import lp_device, lp_plan, resilience
+    from karpenter_tpu_torch.solver import pack_split as kernels
+
+    t_phase = time.perf_counter()
+    resilience.reset()
+    since = ladder_counts()
+    tables = (kernels.LAUNCHES, lp_device.LAUNCHES, lp_plan.LAUNCHES)
+
+    def counts() -> dict:
+        out = {}
+        for table in tables:
+            out.update(table)
+        return out
+
+    def zero() -> dict:
+        for table in tables:
+            for name in table:
+                table[name] = 0
+        return counts()
+
+    per_step: list = []
+    mark: dict = {}
+
+    def on_step(rec, wall) -> None:
+        torch.cuda.synchronize()
+        now = counts()
+        per_step.append({"text": operator_step_text(rec), "wall": wall,
+                         "card_ms": sum(s.elapsed_time(e) for s, e in spans),
+                         "launches": {k: v - mark["c"].get(k, 0) for k, v in now.items()
+                                      if v != mark["c"].get(k, 0)}})
+        spans.clear()
+        mark["c"] = now
+
+    # ---- (c) the binary, a subprocess beside (a) and (b) (it holds the card
+    # for its solves alone; its own HTTP reads and checks)
+    binary: dict = {}
+
+    def run_binary() -> None:
+        try:
+            binary["text"] = operator_binary(smi)
+        except BaseException as err:  # noqa: BLE001 - re-raised below
+            binary["error"] = err
+
+    binary_thread = threading.Thread(target=run_binary, name="phase17-binary")
+    binary_thread.start()
+
+    # ---- (a) the main path
+    with card_spans() as spans:
+        start = zero()
+        mark["c"] = start
+        t0 = time.perf_counter()
+        recs = operator_main_run("cuda", on_step=on_step)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        total_a = {k: v - start.get(k, 0) for k, v in counts().items() if v != start.get(k, 0)}
+    ref, ref_s = CPU_REFS.get("operator")
+    if [r["step"] for r in recs] != [r["step"] for r in ref]:
+        fail(f"phase 17 (a): the card's steps {[r['step'] for r in recs]} differ from the "
+             f"CPU's {[r['step'] for r in ref]}")
+    for k, (mine, theirs) in enumerate(zip(recs, ref)):
+        if mine != theirs:
+            keys = [key for key in mine if mine[key] != theirs[key]]
+            fail(f"phase 17 (a) step {k} ({mine['step']}): {keys} differ from the CPU's: "
+                 f"the card {operator_step_text(mine)}, the CPU {operator_step_text(theirs)}; "
+                 f"first difference {first_difference(mine[keys[0]], theirs[keys[0]])}")
+    last = recs[-1]["counters"]
+    served_micro = any(r["step"] == "micro" and r["extra"] and r["extra"]["outcome"] == "served"
+                       for r in recs)
+    commands = [c for r in recs if r["step"] == "disrupt" for c in r["extra"] if c is not None]
+    need = {"B2": total_a.get("pack_split_flat", 0),
+            "B1/B3": total_a.get("pack_split", 0) + total_a.get("pack_split_wavefront", 0)}
+    if not all(need.values()) or not served_micro or not last["PREEMPTION_NOMINATIONS"] \
+            or not last["DISRUPTION_SCAN_SKIPPED"]:
+        fail(f"phase 17 (a): launches {json.dumps(need)}, a micro batch served "
+             f"{served_micro}, counters {json.dumps(last)}: the path must launch B1 or B3 "
+             f"and B2, serve a micro batch, nominate a preemption victim and skip a scan")
+    say(f"phase 17 operator (a): Operator(device=\"cuda\") over the in-memory store and "
+        f"the kwok provider, build_problem({N_PODS}, {N_TYPES}, seed={SEED}) in two "
+        f"waves, {OP_MICRO} micro arrivals, {OP_HIGH} critical pods, {OP_EMPTY} nodes emptied "
+        f"(WhenEmpty), "
+        f"{OP_SCANS} scans: {len(recs)} steps in {card_s:.3f}s, each equal to "
+        f"device=\"cpu\"'s (computed {CPU_REFS.where('operator')} in {ref_s:.3f}s); "
+        f"{len(commands)} disruption commands | card: {smi}")
+    for rec in per_step:
+        share = rec["card_ms"] / 1000 / rec["wall"] if rec["wall"] > 0 else 0.0
+        say(f"  {rec['text']} | {rec['wall']:.6f}s, card {rec['card_ms']:.3f} ms "
+            f"({share:.2%}) | launches {json.dumps(rec['launches'])}")
+    served = served_by_device("phase 17 (a)", since)
+
+    # ---- (b) the real-client stack, a crash and a restart
+    start = zero()
+    t0 = time.perf_counter()
+    res = client_main_run("cuda")
+    torch.cuda.synchronize()
+    client_s = time.perf_counter() - t0
+    total_b = {k: v - start.get(k, 0) for k, v in counts().items() if v != start.get(k, 0)}
+    cref, cref_s = CPU_REFS.get("client")
+    if res["crashes"] != 1 or res["broken"] or res["fleet"] != cref["fleet"] \
+            or res["pending"] != cref["pending"] \
+            or res["fault_log"] != cref["fault_log"] or res["recovery"] != cref["recovery"]:
+        fail(f"phase 17 (b): crashes {res['crashes']}, broken {res['broken']}, recovery "
+             f"{res['recovery']} against the CPU's {cref['recovery']}, fleets equal "
+             f"{res['fleet'] == cref['fleet']}, fault logs equal "
+             f"{res['fault_log'] == cref['fault_log']}")
+    say(f"  (b) RealKubeClient(InMemoryApiServer()) at {CLIENT_PROBLEM[0]} pods x "
+        f"{CLIENT_PROBLEM[1]} types (every write through kube/serialize.py, hence not 50k), "
+        f"KARPENTER_FAULTS={CLIENT_FAULTS}: {res['crashes']} crash, the client and Operator "
+        f"rebuilt against the same server; converged in {client_s:.3f}s to "
+        f"device=\"cpu\"'s fleet ({len(res['fleet'])} nodes, {len(res['pending'])} pending; "
+        f"computed "
+        f"{CPU_REFS.where('client')} in {cref_s:.3f}s), nothing leaked; OPERATOR_RECOVERY "
+        f"{json.dumps(res['recovery'])}, KUBE_RETRIES +{res['retries']:.0f}; launches "
+        f"{json.dumps(total_b)} | card: {smi}")
+    served_by_device("phase 17 (b)", since)
+    binary_thread.join()
+    if "error" in binary:
+        raise binary["error"]
+    say(binary["text"])
+    say(f"phase 17: every packing solve served by the device rung ({json.dumps(served)} ok), "
+        f"none degraded ({time.perf_counter() - t_phase:.3f}s)")
+    return {"operator": total_a, "client": total_b}
+
+
 # the spilled launches: their source and the JAX program each replaces
 GLOBAL_KERNELS = {
     "pack_split_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:444"),
@@ -5497,15 +6021,16 @@ def main() -> None:
             solve,
         )
         from karpenter_tpu_torch.solver.encode import encode, group_pods
-        from karpenter_tpu_torch.cloudprovider.fake import heterogeneous_instance_types
         from karpenter_tpu_torch.solver import consolidation_batch, lp_device, lp_plan
         from karpenter_tpu_torch.solver import solver as solver_mod
         from karpenter_tpu_torch.testing import (
             ASCENT_EDGE_CASES,
+            ASCENT_WIDE_CASES,
             PRICE_CASES,
             KernelCase,
             ascent_cases,
             ascent_edge_cases,
+            ascent_wide_cases,
             config_axis,
             dense_case,
             dense_cases,
@@ -5545,6 +6070,10 @@ def main() -> None:
     if SPLIT in sys.argv[1:]:
         quick_timing(kernels, pack, solve, build_problem, KernelCase, {}, smi, kind,
                      lp_device, encode, group_pods, split_only=True)
+        return
+    if B5_AGAINST in sys.argv[1:]:
+        b5_against(sys.argv[sys.argv.index(B5_AGAINST) + 1], smi)
+        finish(kind, smi)
         return
     if AGAINST in sys.argv[1:]:
         other = sys.argv[sys.argv.index(AGAINST) + 1]
@@ -5601,10 +6130,16 @@ def main() -> None:
         finish(kind, smi)
         return
     if ENVIRON in sys.argv[1:]:
-        CPU_REFS.start(names=("environment",))
+        CPU_REFS.start(groups=(("environment",),))
         warm_phase(smi)
         environment_phase(smi)
         say(f"chip_smoke {ENVIRON}: {time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
+    if OPERATOR in sys.argv[1:]:
+        CPU_REFS.start(groups=(("operator", "client"),))
+        operator_phase(smi)
+        say(f"chip_smoke {OPERATOR}: {time.perf_counter() - T_START:.3f}s wall")
         finish(kind, smi)
         return
     if CATALOG in sys.argv[1:]:
@@ -5663,6 +6198,13 @@ def main() -> None:
             global_path = lp_device.LAUNCHES["lp_ascend_global"] - before["lp_ascend_global"]
             if global_path != (1 if name == GLOBAL_CASE else 0):
                 fail(f"lp_ascend took the global-memory path {global_path}x on {name}")
+    for name, inputs in ascent_wide_cases(0):
+        for n_iters in WIDE_ITERS.get(name, (WIDE_ITERS_DEFAULT,)):
+            before = lp_device.LAUNCHES["lp_ascend_wide"]
+            say(hold_ascent(lp_device, f"{name}-{n_iters}", inputs.to("cuda"), n_iters, err)
+                + f"; {lp_device.ASCENT_SMEM['lp_ascend']}")
+            if lp_device.LAUNCHES["lp_ascend_wide"] != before + 1:
+                fail(f"lp_ascend did not take its wide layout on {name}")
     say(f"phase 3 kernels: {len(cases)} seeded packing problems and 2 at config axes "
         f"{ODD_CONFIG_AXES} byte-identical to the plain versions, B3 at widths "
         f"{WIDTHS} equal to B1, the in-place flat routes identical; B6 sequential at "
@@ -5670,8 +6212,9 @@ def main() -> None:
         f"on {n_lane} seeded lane cases identical; B7 and pack_flat "
         f"on {len(dcases)} dense ones byte-identical, B7 equal to B1; B4 on "
         f"{len(PRICE_CASES)} (each in its three layouts) and {len(PRICE_PAST_CEILING)} past "
-        f"its staged layout and B5 on {3 * len(ASCENT_ITERS)} seeded cases and "
-        f"{len(ASCENT_EDGE_CASES)} edge cases (one on the global-memory path) "
+        f"its staged layout and B5 on {3 * len(ASCENT_ITERS)} seeded cases, "
+        f"{len(ASCENT_EDGE_CASES)} edge cases (one on the global-memory path) and "
+        f"{len(ASCENT_WIDE_CASES)} past 2048 padded axes (its wide layout) "
         f"bit-identical ({time.perf_counter() - t0:.3f}s)")
 
     if QUICK in sys.argv[1:]:
@@ -5862,7 +6405,7 @@ def main() -> None:
     # ---- 6. the cost objective on reserved_50k
     t0 = time.perf_counter()
     recorded = cost_phase(kernels, lp_plan, lp_device, pack, solver_mod, build_problem,
-                          heterogeneous_instance_types, err, launches)
+                          err, launches)
     say(f"  phase 6 took {time.perf_counter() - t0:.3f}s")
     served_by_device("phase 6")
 
@@ -5936,11 +6479,17 @@ def main() -> None:
     environment = environment_phase(smi)
     for name in route_launches:
         route_launches[name] += sum(n[name] for n in environment.values())
-    later = (*ticking.values(), *disrupting.values(), *environment.values())
-    tick_lp = {name: sum(n[name] for n in later) for name in ("lp_price", "lp_ascend")}
+    # ---- 17. the operator: its main path, the real-client stack, the binary
+    operating = operator_phase(smi)
+    for name in route_launches:
+        route_launches[name] += sum(n.get(name, 0) for n in operating.values())
+    later = (*ticking.values(), *disrupting.values(), *environment.values(),
+             *operating.values())
+    tick_lp = {name: sum(n.get(name, 0) for n in later) for name in ("lp_price", "lp_ascend")}
     for entry in probes["entries"]:
         entry["launches"] += sum(n.get(entry["name"], 0)
-                                 for n in (*disrupting.values(), *environment.values()))
+                                 for n in (*disrupting.values(), *environment.values(),
+                                           *operating.values()))
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",

@@ -59,6 +59,21 @@
 // the arrays that do not fit in global scratch (`Layout`, chosen by the
 // wrapper from the bytes: lp_device.ascent_layout).
 //
+// The wide layout (`kWide`, padded group or config axis past kMaxAxis =
+// 2048; `lp_ascend_wide_kernel`, `lp_ascend_sharded_wide_kernel`): the
+// same iteration with the three fields that the 2048 layout keeps narrow
+// widened. A column maximum's first tied group and its tie count are two
+// 32-bit words (`A_TINFO` doubles) where the 2048 layout packs two 16-bit
+// halves into one; an ordered sum over more than 64 windows (a warp's
+// lanes hold two window sums each in the 2048 layout) takes its windows
+// 32 at a time, a lane a window, each window of windows summed in order
+// as it is made, up to three levels of windows (`wide_total`); a d ratio
+// row walks a third level past 1024 windows; and the bound's dot is one
+// multiply-add chain in order from 4096 terms on, where XLA emits it as
+// a kernel of its own (lp_device.DOT_SCALAR_FROM). The 2048 layout's
+// instantiations compile to the code they had (every wide branch is
+// `if constexpr`).
+//
 // B8, split B5 (lp_device.py:430-452, the ascent under
 // KARPENTER_LP_SHARDS): the same code over the config axis split into S
 // column blocks, one cooperative launch of S blocks
@@ -82,9 +97,13 @@ constexpr int kAscWarps = kAscThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-12f;
 constexpr float kInf = __builtin_huge_valf();
-// the widest group and config axes (16-bit group indices and tie
-// counts; two levels of windows for an ordered sum)
+// the widest group and config axes of the 2048 layout (16-bit group
+// indices and tie counts; a warp's lanes hold 64 window sums): past
+// them the wide layout
 constexpr int kMaxAxis = 2048;
+// the wide layout's: three levels of windows over 32-term windows
+// (32^4 terms); its arrays are indexed in 32 bits (check_sizes)
+constexpr int kMaxWideAxis = 1 << 20;
 constexpr int kMaxSlots = 32767;
 // phase-clock slot of the block barriers (PhaseClock in pack_common.cuh)
 constexpr int kBarrierSlot = 30;
@@ -161,6 +180,7 @@ enum Arr {
   A_RATIO,    // f32 [G, R]
   A_MM,       // f32 [C, R] column maxima, by distinct column (first nu rows)
   A_TINFO,    // u32 [C, R] first tied compatible group | compatible ties << 16
+              //   (wide layout: u32 [C, R, 2] the group, the ties)
   A_QX,       // f32 [C, R] dmm / ties
   A_UIDX,     // u32 [C] the distinct column of a config
   A_CFLAG,    // u32 [C] valid bits 0-15, uncapped bit 16, slot + 1 from bit 17
@@ -199,13 +219,16 @@ __host__ __device__ __forceinline__ int win_front(int n) {
   return n > 32 ? (win_count(n) * 32 - n) / 2 : 0;
 }
 
+__host__ __forceinline__ bool is_wide(int G, int C) { return G > kMaxAxis || C > kMaxAxis; }
+
 __host__ __forceinline__ long long arr_bytes(int i, int G, int C, int R, int K) {
   const long long g = G, c = C, r = R, k = K;
   const long long nw = win_count(C), gw = (G + 31) / 32;
   switch (i) {
     case A_LAM: case A_GRAD: case A_CNT: case A_CW: case A_BEST: return 4 * g;
     case A_RATIO: case A_DRATIO: case A_REQ: return 4 * g * r;
-    case A_MM: case A_TINFO: case A_QX: case A_ALLOC: return 4 * c * r;
+    case A_TINFO: return (is_wide(G, C) ? 8 : 4) * c * r;
+    case A_MM: case A_QX: case A_ALLOC: return 4 * c * r;
     case A_UIDX: case A_CFLAG: case A_PRICE: case A_VH0: case A_Z: case A_EXCESS:
     case A_DX: case A_TB: case A_TY: case A_NCOMP: case A_ULIST: return 4 * c;
     case A_MU: case A_NM: case A_KSIZE: case A_BUDGET: return 4 * k;
@@ -390,6 +413,90 @@ __device__ float warp_sum_masked(const unsigned* mask, const float* x, const flo
   return win_total(lo, hi, nw);
 }
 
+// ---- ordered sums of the wide layout, by one warp (every lane returns
+// the sum): `wsum(w)` is window w's sum (its terms in order from +0), made
+// by the lane that asks for it
+
+// the sum of level-2 window W (windows W * 32 - front2 ...) of nw window
+// sums: a lane a window, then the 32 in order
+template <class FW>
+__device__ float wide_win2(FW wsum, int nw, int W, int front2) {
+  const int lane = threadIdx.x & 31;
+  const int w = W * 32 + lane - front2;
+  const float v = (w >= 0 && w < nw) ? wsum(w) : 0.0f;
+  float s = 0.0f;
+  for (int i = 0; i < 32; ++i) {
+    const float vi = __shfl_sync(kFull, v, i);
+    const int p = W * 32 + i - front2;
+    if (p >= 0 && p < nw) s = __fadd_rn(s, vi);
+  }
+  return s;
+}
+
+// the sum of nw window sums in XLA's order (lp_device.xla_sum): up to 32
+// in order from +0, beyond in windows of 32 after XLA's padding, their
+// sums reduced the same way (up to 32^3 windows)
+template <class FW>
+__device__ float wide_total(FW wsum, int nw) {
+  const int lane = threadIdx.x & 31;
+  float tot = 0.0f;
+  if (nw <= 32) {
+    const float v = lane < nw ? wsum(lane) : 0.0f;
+    for (int w = 0; w < nw; ++w) tot = __fadd_rn(tot, __shfl_sync(kFull, v, w));
+    return tot;
+  }
+  const int nw2 = win_count(nw), front2 = win_front(nw);
+  if (nw2 <= 32) {
+    for (int W = 0; W < nw2; ++W) tot = __fadd_rn(tot, wide_win2(wsum, nw, W, front2));
+    return tot;
+  }
+  const int nw3 = win_count(nw2), front3 = win_front(nw2);
+  for (int V = 0; V < nw3; ++V) {
+    float s3 = 0.0f;
+    for (int i = 0; i < 32; ++i) {
+      const int W = V * 32 + i - front3;
+      if (W >= 0 && W < nw2) s3 = __fadd_rn(s3, wide_win2(wsum, nw, W, front2));
+    }
+    tot = __fadd_rn(tot, s3);
+  }
+  return tot;
+}
+
+// warp_sum_prod of the wide layout: the same terms, any n
+template <class FX, class FY>
+__device__ float wide_sum_prod(FX xf, FY yf, int n) {
+  if (n <= 32) return warp_sum_prod(xf, yf, n);
+  const int front = win_front(n);
+  return wide_total(
+      [&](int w) {
+        float s = 0.0f;
+        for (int i = 0; i < 32; ++i) {
+          const int p = w * 32 + i - front;
+          if (p >= 0 && p < n) s = __fadd_rn(s, __fmul_rn(xf(p), yf(p)));
+        }
+        return s;
+      },
+      win_count(n));
+}
+
+// warp_sum_masked of the wide layout: the same terms, any n
+__device__ float wide_sum_masked(const unsigned* mask, const float* x, const float* y, int n) {
+  if (n <= 32) return warp_sum_masked(mask, x, y, n);
+  const int front = win_front(n);
+  return wide_total(
+      [&](int w) {
+        unsigned m = mask[w];
+        float s = 0.0f;
+        while (m) {
+          const int i = __ffs(m) - 1;
+          m &= m - 1;
+          s = __fadd_rn(s, x[w * 32 + i - front]);
+        }
+        return s;
+      },
+      win_count(n));
+}
+
 // acc + sum of af(idx(q)) * bf(idx(q)) for q in [0, n), one multiply-add
 // after another in q's order, the operands of eight terms loaded before
 // their multiply-adds
@@ -419,12 +526,13 @@ __device__ __forceinline__ float fma_run(FA af, FB bf, FI idx, int n, float acc)
 // loop's. Scalar below DOT_SCALAR_BELOW terms; otherwise a vector loop of
 // 8 lanes interleaved ic times (lanes 0-7 of the warp), its lanes added
 // in halves, an epilogue of evf lanes started from that sum, then the
-// last terms one by one. Every lane returns it.
-template <class FA, class FB>
+// last terms one by one; from DOT_SCALAR_FROM = 4096 terms (the wide
+// layout only) one multiply-add chain in order. Every lane returns it.
+template <bool kWide, class FA, class FB>
 __device__ float xla_dot_warp(FA af, FB bf, int n, bool initial) {
   const int lane = threadIdx.x & 31;
   auto ident = [](int q) { return q; };
-  if (n < (initial ? 50 : 0)) return fma_run(af, bf, ident, n, 0.0f);
+  if (n < (initial ? 50 : 0) || (kWide && n >= 4096)) return fma_run(af, bf, ident, n, 0.0f);
   auto bit_floor4 = [](int v) { v = v < 1 ? 1 : (v > 4 ? 4 : v); return v >= 4 ? 4 : (v >= 2 ? 2 : 1); };
   const int big = bit_floor4(n / 8), small = bit_floor4(n / 16);
   const int ic = (n % (8 * big) == n % (8 * small)) ? big : small;
@@ -484,7 +592,7 @@ __device__ float xla_dot_warp(FA af, FB bf, int n, bool initial) {
 
 // ---- the ascent
 
-template <class X>
+template <class X, bool kWide>
 struct Ascent {
   const Args& a;
   const Ctx t;
@@ -500,6 +608,18 @@ struct Ascent {
         nwc(win_count(a_.C)), frontc(win_front(a_.C)) {}
 
   __device__ float mm_of(int c, int r) const { return t.mm()[t.uidx()[c] * R + r]; }
+
+  // the ordered sums, in the layout's form
+  template <class FX, class FY>
+  __device__ float sum_prod(FX xf, FY yf, int n) const {
+    if constexpr (kWide) return wide_sum_prod(xf, yf, n);
+    else return warp_sum_prod(xf, yf, n);
+  }
+  __device__ float sum_masked(const unsigned* mask, const float* x, const float* y,
+                              int n) const {
+    if constexpr (kWide) return wide_sum_masked(mask, x, y, n);
+    else return warp_sum_masked(mask, x, y, n);
+  }
 
   // the bound of the last forward pass: its two dots' difference
   __device__ float bound() const { return __fsub_rn(s.t1, s.t2); }
@@ -608,7 +728,7 @@ struct Ascent {
         const int it = base + lane;
         const int ch = it & (nch - 1);
         float m = -kInf;
-        int n = 0, first = 0xffff;
+        int n = 0, first = kWide ? 0x7fffffff : 0xffff;
         int u = 0, r = 0;
         if (it < total) {
           u = (it >> lg) / R;
@@ -653,7 +773,12 @@ struct Ascent {
           const float mm = nnc > 0 ? fmaxf(m, 0.0f) : m;
           const unsigned cties = m == mm ? (unsigned)n : 0u;
           t.mm()[u * R + r] = mm;
-          t.tinfo()[u * R + r] = (cties << 16) | (unsigned)(first & 0xffff);
+          if constexpr (kWide) {
+            t.tinfo()[2 * (u * R + r)] = (unsigned)first;
+            t.tinfo()[2 * (u * R + r) + 1] = cties;
+          } else {
+            t.tinfo()[u * R + r] = (cties << 16) | (unsigned)(first & 0xffff);
+          }
         }
       }
       rt.stop(R_COLMAX);
@@ -705,8 +830,8 @@ struct Ascent {
     if (warp == kAscWarps - 2) {
       RegionTimer rt(lane == 0);
       const float inv_t2 = div_rn(1.0f, __fmul_rn(theta, theta));
-      const float d = warp_sum_prod([&](int g) { return __fmul_rn(t.cw()[g], inv_t2); },
-                                    [&](int g) { return t.lam()[g]; }, G);
+      const float d = sum_prod([&](int g) { return __fmul_rn(t.cw()[g], inv_t2); },
+                               [&](int g) { return t.lam()[g]; }, G);
       if (lane == 0) s.dtheta_a = -d;
       rt.stop(R_DTHETA_A);
     }
@@ -733,8 +858,8 @@ struct Ascent {
     rt_ties.stop(R_MU_TIES);
     if (warp == kAscWarps - 2) {
       RegionTimer rt(lane == 0);
-      const float t1 = xla_dot_warp([&](int g) { return t.grad()[g]; },
-                                    [&](int g) { return t.cw()[g]; }, G, initial);
+      const float t1 = xla_dot_warp<kWide>([&](int g) { return t.grad()[g]; },
+                                           [&](int g) { return t.cw()[g]; }, G, initial);
       if (lane == 0) s.t1 = t1;
       rt.stop(R_DOT);
     } else if (warp == kAscWarps - 1 && lane == 0) {
@@ -805,7 +930,7 @@ struct Ascent {
     // dtheta_b (each warp), theta's share; then by config dvh, and by
     // (config, resource) dmm / ties and the scatter of d ratio's terms
     RegionTimer rt_db(tid == 0);
-    float dtheta_b = warp_sum_masked(t.tbmask(), t.tb(), t.ty(), C);
+    float dtheta_b = sum_masked(t.tbmask(), t.tb(), t.ty(), C);
     rt_db.stop(R_DTHETA_B);
     if constexpr (X::kSplit) dtheta_b = shard_sum_f32(x, dtheta_b);
     const float dtheta = __fadd_rn(s.dtheta_a, -dtheta_b);
@@ -834,15 +959,22 @@ struct Ascent {
         const float dv = __fmul_rn(v_of(c, r, f) == v0 ? 1.0f : 0.0f, qv);
         const float dmm = valid ? __fmul_rn(dv, t.alloc()[i]) : 0.0f;
         const float mm = t.mm()[u * R + r];
-        const unsigned ti = t.tinfo()[u * R + r];
-        const unsigned cties = ti >> 16;
+        unsigned cties, first;
+        if constexpr (kWide) {
+          first = t.tinfo()[2 * (u * R + r)];
+          cties = t.tinfo()[2 * (u * R + r) + 1];
+        } else {
+          const unsigned ti = t.tinfo()[u * R + r];
+          cties = ti >> 16;
+          first = ti & 0xffffu;
+        }
         const unsigned ties = cties + (mm == 0.0f ? (unsigned)nnc : 0u);
         const float q = div_rn(dmm, (float)ties);
         t.qx()[i] = q;
         if (q == 0.0f) continue;  // every term 1*q or 0*q is +-0
         unsigned* mrow = t.masks() + (size_t)r * nwc + (pos >> 5);
         if (isfinite(q) && cties == 1u) {
-          atomicOr(mrow + (size_t)(ti & 0xffffu) * R * nwc, bit);
+          atomicOr(mrow + (size_t)first * R * nwc, bit);
         } else if (!isfinite(q) || cties > 1u) {
           // a non-finite q gives every compatible group a NaN or inf term
           for (int w = 0; w < Gw; ++w) {
@@ -908,13 +1040,27 @@ struct Ascent {
           }
         } else {
           const int nw2 = win_count(nwc), front2 = win_front(nwc);
-          for (int W = 0; W < nw2; ++W) {
+          auto win2_sum = [&](int W) {
             float sw2 = 0.0f;
             for (int i = 0; i < 32; ++i) {
               const int w = W * 32 + i - front2;
               if (w >= 0 && w < nwc) sw2 = __fadd_rn(sw2, win_sum(w));
             }
-            dr = __fadd_rn(dr, sw2);
+            return sw2;
+          };
+          if (!kWide || nw2 <= 32) {
+            for (int W = 0; W < nw2; ++W) dr = __fadd_rn(dr, win2_sum(W));
+          } else {
+            // the wide layout past 1024 windows: a third level
+            const int nw3 = win_count(nw2), front3 = win_front(nw2);
+            for (int V = 0; V < nw3; ++V) {
+              float sw3 = 0.0f;
+              for (int i = 0; i < 32; ++i) {
+                const int W = V * 32 + i - front3;
+                if (W >= 0 && W < nw2) sw3 = __fadd_rn(sw3, win2_sum(W));
+              }
+              dr = __fadd_rn(dr, sw3);
+            }
           }
         }
       }
@@ -973,8 +1119,8 @@ struct Ascent {
     if (warp * 32 < G) {
       // the norm, by each warp that updates groups
       RegionTimer rt(tid == 0);
-      const float n2 = warp_sum_prod([&](int g) { return t.grad()[g]; },
-                                     [&](int g) { return t.grad()[g]; }, G);
+      const float n2 = sum_prod([&](int g) { return t.grad()[g]; },
+                                [&](int g) { return t.grad()[g]; }, G);
       rt.stop(R_NORM);
       RegionTimer rt_up(tid == 0);
       const float nrm = __fsqrt_rn(n2);
@@ -1026,7 +1172,7 @@ struct Ascent {
   }
 };
 
-template <class X>
+template <bool kWide, class X>
 __device__ void ascend_body(const Args& a, const Layout& L, unsigned char* scratch, X& x) {
   extern __shared__ __align__(16) unsigned char dsmem[];
   __shared__ Scalars s;
@@ -1037,7 +1183,7 @@ __device__ void ascend_body(const Args& a, const Layout& L, unsigned char* scrat
 #endif
   clk.begin();
   const Ctx t{L, dsmem, scratch};
-  Ascent<X> asc(a, t, s, x, clk);
+  Ascent<X, kWide> asc(a, t, s, x, clk);
   asc.run();
 #ifdef KARPENTER_PHASE_CLOCKS
   __syncthreads();
@@ -1052,7 +1198,15 @@ __global__ void __launch_bounds__(kAscThreads, 1)
     lp_ascend_kernel(const __grid_constant__ Args a, const __grid_constant__ Layout L,
                      unsigned char* scratch) {
   NoSplit x;
-  ascend_body(a, L, scratch, x);
+  ascend_body<false>(a, L, scratch, x);
+}
+
+// the wide layout (a padded axis past kMaxAxis)
+__global__ void __launch_bounds__(kAscThreads, 1)
+    lp_ascend_wide_kernel(const __grid_constant__ Args a, const __grid_constant__ Layout L,
+                          unsigned char* scratch) {
+  NoSplit x;
+  ascend_body<true>(a, L, scratch, x);
 }
 
 // per-shard pointers of the split ascent's config-axis inputs
@@ -1067,10 +1221,11 @@ struct AscShards {
 
 // block s: shard s's columns and its replica of lam and the per-group
 // state (leading shard axis on best, best_lam, last_up and the scratch)
-__global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_sharded_kernel(
-    const __grid_constant__ Args base, AscShards t, const __grid_constant__ Layout L,
-    unsigned char* scratch, long long scratch_bytes,
-    unsigned long long* slots, int S, int words) {
+template <bool kWide>
+__device__ __forceinline__ void sharded_body(const Args& base, const AscShards& t,
+                                             const Layout& L, unsigned char* scratch,
+                                             long long scratch_bytes,
+                                             unsigned long long* slots, int S, int words) {
   const int sh = blockIdx.x;
   Args a = base;
   a.best += sh;
@@ -1083,7 +1238,22 @@ __global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_sharded_kernel(
   a.onehot = t.onehot[sh];
   a.uncapped = t.uncapped[sh];
   DeviceSplit x{slots, sh, S, words, sh * a.C, 0u, 0u};
-  ascend_body(a, L, scratch + (size_t)sh * scratch_bytes, x);
+  ascend_body<kWide>(a, L, scratch + (size_t)sh * scratch_bytes, x);
+}
+
+__global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_sharded_kernel(
+    const __grid_constant__ Args base, AscShards t, const __grid_constant__ Layout L,
+    unsigned char* scratch, long long scratch_bytes,
+    unsigned long long* slots, int S, int words) {
+  sharded_body<false>(base, t, L, scratch, scratch_bytes, slots, S, words);
+}
+
+// split B5 with a shard's column block (or the group axis) past kMaxAxis
+__global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_sharded_wide_kernel(
+    const __grid_constant__ Args base, AscShards t, const __grid_constant__ Layout L,
+    unsigned char* scratch, long long scratch_bytes,
+    unsigned long long* slots, int S, int words) {
+  sharded_body<true>(base, t, L, scratch, scratch_bytes, slots, S, words);
 }
 
 // n block barriers of kAscThreads threads in a row: the cost of one
@@ -1101,7 +1271,11 @@ __global__ void __launch_bounds__(kAscThreads, 1) lp_barrier_probe_kernel(int n,
 int check_sizes(int G, int C, int R, int K, int n_iters) {
   if (R < 1 || R > kMaxR || G < 1 || C < 1 || K < 1 || n_iters < 0)
     return (int)cudaErrorInvalidValue;
-  if (G > kMaxAxis || C > kMaxAxis || K > kMaxSlots) return (int)cudaErrorInvalidValue;
+  if (G > kMaxWideAxis || C > kMaxWideAxis || K > kMaxSlots) return (int)cudaErrorInvalidValue;
+  // the block's loops index its arrays in 32 bits
+  const long long gw = (G + 31) / 32;
+  if ((long long)G * R * win_count(C) > INT32_MAX || (long long)C * gw > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -1131,10 +1305,11 @@ extern "C" int lp_ascend_launch(
   if (int e = check_layout(L, G, C, R, K, smem_bytes, scratch_bytes)) return e;
   Args a{lam0, count, count_w, compat, req, alloc, price, valid, onehot, budget, uncapped,
          best, best_lam, last_up, G, C, R, K, n_iters};
-  cudaError_t err = cudaFuncSetAttribute(
-      lp_ascend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  const auto kernel = is_wide(G, C) ? lp_ascend_wide_kernel : lp_ascend_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  lp_ascend_kernel<<<1, kAscThreads, smem_bytes, stream>>>(a, L, scratch);
+  kernel<<<1, kAscThreads, smem_bytes, stream>>>(a, L, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -1160,11 +1335,12 @@ extern "C" int lp_ascend_sharded_launch(
   Args a{lam0, count, count_w, nullptr, req, nullptr, nullptr, nullptr, nullptr, budget,
          nullptr, best, best_lam, last_up, G, C, R, K, n_iters};
   AscShards t{compat, alloc, price, valid, onehot, uncapped};
-  cudaError_t err = cudaFuncSetAttribute(
-      lp_ascend_sharded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  const auto kernel = is_wide(G, C) ? lp_ascend_sharded_wide_kernel : lp_ascend_sharded_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   void* params[] = {&a, &t, &L, &scratch, &scratch_bytes, &slots, &S, &words};
-  err = cudaLaunchCooperativeKernel((const void*)lp_ascend_sharded_kernel, dim3(S),
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(S),
                                     dim3(kAscThreads), params, smem_bytes, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();

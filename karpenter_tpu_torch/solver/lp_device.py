@@ -64,9 +64,11 @@ _EPS = 1e-12
 
 # kernel launches of B5 and split B5 (plain-version calls never count);
 # the "_global" counts are the launches among them whose arrays did not
-# all fit in shared memory (`ascent_layout`)
+# all fit in shared memory (`ascent_layout`), the "_wide" counts those
+# that ran the wide layout (`ascent_wide`)
 LAUNCHES = {"lp_ascend": 0, "lp_ascend_global": 0, "lp_ascend_sharded": 0,
-            "lp_ascend_sharded_global": 0}
+            "lp_ascend_sharded_global": 0, "lp_ascend_wide": 0,
+            "lp_ascend_sharded_wide": 0}
 # wrapper -> the placement of its last launch: shared-memory bytes,
 # global-scratch bytes, and the arrays placed in global memory
 ASCENT_SMEM: dict[str, str] = {}
@@ -220,9 +222,14 @@ def xla_sum(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
 # vectors). The dot outside the loop (the bound at lam0) and the one
 # fused into the loop body differ in two limits: the one outside stays
 # scalar below 50 terms, and LLVM unrolls its vector loop fully up to
-# 14 iterations where the loop body's stops at 7.
+# 14 iterations where the loop body's stops at 7. From 4096 terms on
+# XLA emits both dots as a kernel of their own
+# (`dot_general.*_elemental_kernel_module`): one scalar multiply-add
+# chain in order (vfmadd231ss; bisected on the bound at lam0 and after
+# one step, 4095 vectorized and 4096 scalar, and read at 4096).
 DOT_SCALAR_BELOW = {True: 50, False: 0}
 DOT_UNROLL_MAX = {True: 14, False: 7}
+DOT_SCALAR_FROM = 4096
 
 
 def _bit_floor(x: int) -> int:
@@ -240,7 +247,7 @@ def dot_plan(n: int, initial: bool) -> dict:
     epilogue loop of `evf` lanes (8, 4 or 2: the fewest vector plus
     scalar iterations, ties to the narrower) running `eiters`
     iterations, and the last terms one by one."""
-    if n < DOT_SCALAR_BELOW[initial]:
+    if n < DOT_SCALAR_BELOW[initial] or n >= DOT_SCALAR_FROM:
         return dict(scalar=True)
     big, small = _bit_floor(n // 8), _bit_floor(n // 16)
     ic = big if n % (8 * big) == n % (8 * small) else small
@@ -289,7 +296,9 @@ def xla_dot(a: torch.Tensor, b: torch.Tensor, initial: bool = False) -> torch.Te
     starts from -0.0 (its first term is the rounded product), lane 0
     from +0.0; the lanes are added in halves; the epilogue's lane 0
     starts from the vector loop's sum. Bit for bit XLA's where the plan
-    was read (32 <= n <= 2048; see ROADMAP C2)."""
+    was read (32 <= n <= 2048, and the scalar chain from 4096; the
+    buckets between, 2272 to 3550, were held through the whole ascent;
+    see ROADMAP C2)."""
     n = a.shape[-1]
     p = dot_plan(n, initial)
     if p["scalar"]:
@@ -335,9 +344,10 @@ def fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # The arrays of a B5 block (`Arr` in csrc/lp_ascend.cu, in its order of
 # priority): name -> the dimensions whose product, times 4 bytes, is its
 # size. "nwc" is the windows of a sum over the C configs, "gw" the 32-bit
-# words of a column over the G groups.
+# words of a column over the G groups, "tw" the words of a column
+# maximum's tie record (1 in the 2048 layout, 2 in the wide one).
 ASCENT_ARRAYS = (
-    ("lam", "G"), ("ratio", "GR"), ("mm", "CR"), ("tinfo", "CR"), ("qx", "CR"),
+    ("lam", "G"), ("ratio", "GR"), ("mm", "CR"), ("tinfo", ("C", "R", "tw")), ("qx", "CR"),
     ("uidx", "C"), ("cflag", "C"), ("alloc", "CR"), ("price", "C"), ("vh0", "C"),
     ("z", "C"), ("excess", "C"), ("dx", "C"), ("tb", "C"), ("ty", "C"),
     ("grad", "G"), ("dratio", "GR"), ("req", "GR"), ("cnt", "G"), ("cw", "G"),
@@ -349,11 +359,26 @@ ASCENT_ARRAYS = (
 
 def _ascent_array_bytes(dims, G: int, C: int, R: int, K: int) -> int:
     size = {"G": G, "C": C, "R": R, "K": K, "nwc": -(-C // 32) if C > 32 else 1,
-            "gw": -(-G // 32)}
+            "gw": -(-G // 32), "tw": 2 if ascent_wide(G, C) else 1}
     n = 4
     for d in dims:
         n *= size[d]
     return n
+
+
+# B5's 2048 layout takes padded group and config axes up to
+# ASCENT_NARROW_AXIS (`kMaxAxis` in csrc/lp_ascend.cu); past them the
+# wide layout (32-bit tie records, window sums a window at a time, up to
+# three levels of windows) up to ASCENT_MAX_AXIS (`kMaxWideAxis`), its
+# arrays indexed in 32 bits
+ASCENT_NARROW_AXIS = 2048
+ASCENT_MAX_AXIS = 1 << 20
+ASCENT_MAX_SLOTS = 32767
+
+
+def ascent_wide(G: int, C: int) -> bool:
+    """Whether B5 runs its wide layout on `G` groups and `C` configs."""
+    return G > ASCENT_NARROW_AXIS or C > ASCENT_NARROW_AXIS
 
 
 def ascent_layout(G: int, C: int, R: int, K: int) -> dict:
@@ -557,17 +582,21 @@ def _layout_args(G: int, C: int, R: int, K: int, dev, copies: int = 1):
     return lay, offsets, scratch
 
 
-# B5's widest group and config axes (`kMaxAxis` in csrc/lp_ascend.cu): a
-# named refusal on the card (ROADMAP C4); the plain version has none
-ASCENT_MAX_AXIS = 2048
-
-
-def ascent_refusal(Gp: int, Cp: int) -> str | None:
-    """Why B5 refuses padded axes of `Gp` groups and `Cp` configs (None
-    when it takes them)."""
-    if Gp > ASCENT_MAX_AXIS or Cp > ASCENT_MAX_AXIS:
-        return (f"lp_ascend: Gp={Gp} groups and Cp={Cp} configs exceed the kernel's "
-                f"{ASCENT_MAX_AXIS} (ROADMAP C4)")
+def ascent_refusal(Gp: int, Cp: int, R: int = 1, Kp: int = 1) -> str | None:
+    """Why B5 refuses padded axes of `Gp` groups, `Cp` configs, `R`
+    resources and `Kp` reservation slots (None when it takes them): more
+    than 16 resources (ROADMAP C4), more than `ASCENT_MAX_SLOTS` slots, or
+    an axis past the wide layout's three window levels or its 32-bit
+    indices (arrays of gigabytes before that). The plain version has no
+    limit."""
+    if R > 16:
+        return f"lp_ascend: {R} resources exceed the kernel's 16 (ROADMAP C4)"
+    if Kp > ASCENT_MAX_SLOTS:
+        return f"lp_ascend: Kp={Kp} reservation slots exceed the kernel's {ASCENT_MAX_SLOTS}"
+    if (Gp > ASCENT_MAX_AXIS or Cp > ASCENT_MAX_AXIS
+            or Gp * R * (-(-Cp // 32)) > 2 ** 31 - 1 or Cp * (-(-Gp // 32)) > 2 ** 31 - 1):
+        return (f"lp_ascend: Gp={Gp} groups and Cp={Cp} configs exceed the wide layout's "
+                f"{ASCENT_MAX_AXIS} or its 32-bit indices")
     return None
 
 
@@ -584,9 +613,7 @@ def _ascend_cuda(a: AscentInputs, n_iters: int):
                   budget=(f32, (Kp,)), uncapped=(b8, (Cp,)))
     for name, (dtype, shape) in shapes.items():
         _check(getattr(a, name), name, dtype, shape)
-    if R > 16:
-        raise ValueError(f"lp_ascend: {R} resources exceed the kernel's 16")
-    refusal = ascent_refusal(Gp, Cp)
+    refusal = ascent_refusal(Gp, Cp, R, Kp)
     if refusal:
         raise ValueError(refusal)
     _one_slot(a.onehot, "lp_ascend")
@@ -605,6 +632,8 @@ def _ascend_cuda(a: AscentInputs, n_iters: int):
     LAUNCHES["lp_ascend"] += 1
     if lay["global"]:
         LAUNCHES["lp_ascend_global"] += 1
+    if ascent_wide(Gp, Cp):
+        LAUNCHES["lp_ascend_wide"] += 1
     ASCENT_SMEM["lp_ascend"] = _placement(lay)
     return best, best_lam, last_up
 
@@ -811,8 +840,9 @@ def _ascend_sharded_cuda(a: ShardedAscentInputs, n_iters: int):
                                  "launch over several cards is ROADMAP item 10")
             _check(t, f"{name}[{s}]", dtype, shape)
         _one_slot(a.onehot[s], f"lp_ascend_sharded shard {s}")
-    if R > 16:
-        raise ValueError(f"lp_ascend_sharded: {R} resources exceed the kernel's 16")
+    refusal = ascent_refusal(Gp, Cs, R, Kp)
+    if refusal:
+        raise ValueError(refusal.replace("lp_ascend", "lp_ascend_sharded", 1))
     best = torch.empty((S,), dtype=f32, device=dev)
     best_lam = torch.empty((S, Gp), dtype=f32, device=dev)
     last_up = torch.empty((S,), dtype=torch.int32, device=dev)
@@ -833,6 +863,8 @@ def _ascend_sharded_cuda(a: ShardedAscentInputs, n_iters: int):
     LAUNCHES["lp_ascend_sharded"] += 1
     if lay["global"]:
         LAUNCHES["lp_ascend_sharded_global"] += 1
+    if ascent_wide(Gp, Cs):
+        LAUNCHES["lp_ascend_sharded_wide"] += 1
     ASCENT_SMEM["lp_ascend_sharded"] = _placement(lay)
     return best, best_lam, last_up
 

@@ -33,9 +33,10 @@ bucket here is:
    visible. CUDA loads a kernel's module lazily, at its first launch in
    the process: the canary pays it instead of the first solve.
 
-A dual-ascent bucket whose padded axes B5 refuses on the card (past
-`lp_device.ASCENT_MAX_AXIS`, a named width limit: a solve of it raises
-there) is counted `skipped` and logged, not launched.
+A dual-ascent bucket whose padded shape B5 refuses on the card
+(`lp_device.ascent_refusal`: past the wide layout's axes, a named limit
+that no default bucket reaches; a solve of it raises there) is counted
+`skipped` and logged, not launched.
 
 No fallback through the warm pool: a failed bucket is counted
 (`outcome="error"`) and logged, as in the JAX package, but it is never

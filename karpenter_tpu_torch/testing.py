@@ -473,6 +473,28 @@ def ascent_edge_cases(seed: int = 0) -> list[tuple[str, "lp_device.AscentInputs"
             for i, (name, *shape) in enumerate(ASCENT_EDGE_CASES)]
 
 
+# B5's inputs past the 2048 layout (`lp_device.ascent_wide`), as
+# ASCENT_EDGE_CASES: the padded config axis of the warm pool's two
+# 4096-config buckets at their group axes, the padding buckets 2272 and
+# 2840 (aws_catalog_50k's 2,400 configs), and padded group axes past 2048
+# (2272, and 4438, where the bound's dot is XLA's scalar chain)
+ASCENT_WIDE_CASES = (
+    ("wide-c4438", 155, 4438, 4, 64, 40, 8, 6),
+    ("wide-c4438-g243", 243, 4438, 4, 64, 40, 12, 8),
+    ("wide-c2840", 155, 2840, 4, 64, 30, 8, 6),
+    ("wide-c2272", 96, 2272, 3, 1, 0, 6, 4),
+    ("wide-g2272", 2272, 96, 4, 64, 20, 40, 12),
+    ("wide-g4438", 4438, 64, 4, 1, 0, 40, 12),
+)
+
+
+def ascent_wide_cases(seed: int = 0, names=None) -> list[tuple[str, "lp_device.AscentInputs"]]:
+    """`ASCENT_WIDE_CASES` (or those of them named) as named B5 inputs."""
+    return [(f"ascent-{name}", ascent_edge_case(seed + i, *shape))
+            for i, (name, *shape) in enumerate(ASCENT_WIDE_CASES)
+            if names is None or name in names]
+
+
 @contextlib.contextmanager
 def root_node_mips():
     """Within the block, every `scipy.optimize.milp` call (the planner's
@@ -2959,3 +2981,377 @@ def environment_stream(env, pods, faults, t0: float = ENV_T0, drop: float = 0.3,
     finally:
         faults.reset()
     return out
+
+
+# -- live-churn harness ------------------------------------------------------
+#
+# Copies of `karpenter_tpu/testing.py`'s churn fixture (a settled Operator
+# over a FULL fleet of 4x 0.9-cpu pods per 4-cpu node, allocatable 3.9
+# after kube-reserved, so a fifth pod can never fit) with `device=`: the
+# device of every solve of the Environment and the Operator.
+
+def build_churn_operator(n_pods: int, device=None):
+    """Provision `n_pods` steady pods, settle a real Operator over the
+    fleet, and return (env, operator, synthetic_now) ready for
+    `churn_tick_walls`."""
+    import time
+
+    from karpenter_tpu_torch.cloudprovider.fake import GIB, make_instance_type
+    from karpenter_tpu_torch.operator.operator import Operator
+    from karpenter_tpu_torch.operator.options import Options
+
+    types = [make_instance_type("c4", cpu=4, memory=16 * GIB, price=1.0)]
+    env = Environment(types=types, device=device)
+    pool = mk_nodepool("churn")
+    pool.spec.disruption.consolidate_after = "Never"
+    env.kube.create(pool)
+    env.provision(
+        *[mk_pod(name=f"s-{i}", cpu=0.9, memory=2 * GIB)
+          for i in range(n_pods)]
+    )
+    op = Operator(kube=env.kube, cloud_provider=env.cloud,
+                  options=Options(), device=device)
+    now = time.time()
+    for i in range(3):   # settle: recovery, cache warmup, residual dirt
+        op.step(now=now + i * 2.0)
+    return env, op, now + 10.0
+
+
+def churn_tick_walls(env, op, now: float, ticks: int, churn_pods: int):
+    """Per-tick wall of the operator step that runs the churn solve.
+    Returns (p50_wall_seconds, now)."""
+    walls, now = churn_tick_wall_series(env, op, now, ticks, churn_pods)
+    return sorted(walls)[len(walls) // 2], now
+
+
+def churn_tick_wall_series(env, op, now: float, ticks: int,
+                           churn_pods: int):
+    """Per-tick wall series of the operator step that runs the churn
+    solve: each tick deletes `churn_pods` bound pods, creates as many
+    same-shape ones, and measures the step where the batcher fires.
+    Returns (walls, now)."""
+    import time
+
+    from karpenter_tpu_torch.cloudprovider.fake import GIB
+
+    walls = []
+    counter = 0
+    for t in range(ticks):
+        bound = sorted(
+            (p for p in env.kube.pods() if p.spec.node_name),
+            key=lambda p: p.metadata.name,
+        )
+        for pod in bound[:churn_pods]:
+            env.kube.delete(pod)
+        for _ in range(churn_pods):
+            counter += 1
+            env.kube.create(mk_pod(name=f"churn-{t}-{counter}", cpu=0.9,
+                                   memory=2 * GIB))
+        # the batcher keys off wall-clock event arrival while the
+        # harness ticks synthetic time already offset past the idle
+        # window, so the FIRST step after churn runs the solve
+        now += 2.0
+        t0 = time.perf_counter()
+        op.step(now=now)
+        walls.append(time.perf_counter() - t0)
+        now += 2.0
+        op.step(now=now)   # bind/settle
+    return walls, now
+
+
+# -- the operator's main path ------------------------------------------------
+
+OPERATOR_COUNTERS = ("DISRUPTION_SCAN_SKIPPED", "PREEMPTION_NOMINATIONS",
+                     "PREEMPTION_EVICTIONS", "PRIORITY_SHED", "MICRO_SOLVE")
+OPERATOR_STEPS = ("provision", "micro", "preempt", "disrupt")
+
+
+def operator_api():
+    """This package's modules under the names `operator_run` reads (a
+    test builds the JAX package's under the same names)."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.apis.v1 import labels
+    from karpenter_tpu_torch.cloudprovider import kwok
+    from karpenter_tpu_torch.kube import client, objects
+    from karpenter_tpu_torch.metrics import store
+    from karpenter_tpu_torch.operator import operator, options
+
+    return SimpleNamespace(labels=labels, kwok=kwok, client=client, objects=objects,
+                           store=store, operator=operator, options=options)
+
+
+def operator_record(api, op, step: str, counters0: dict, extra=None) -> dict:
+    """One step of `operator_run` without names: the fleet (per node its
+    instance type, zone, capacity type and bound pods), the pending pods,
+    the nominated ones, the claims and the provider's instances, the
+    counts of `readyz()` that do not read a clock (recovery, the
+    incremental tick, the reactive plane, the retained disruption seam,
+    the explain digest), and the growth of OPERATOR_COUNTERS since the
+    run began."""
+    kube = op.kube
+    L = api.labels
+    nodes = sorted(
+        (n.metadata.labels.get(L.INSTANCE_TYPE_LABEL, ""),
+         n.metadata.labels.get(L.TOPOLOGY_ZONE_LABEL, ""),
+         n.metadata.labels.get(L.CAPACITY_TYPE_LABEL, ""),
+         tuple(sorted(p.key for p in kube.pods_on_node(n.metadata.name))))
+        for n in kube.nodes())
+    live = [p for p in kube.pods() if not p.is_terminal()]
+    pending = sorted(p.key for p in live if not p.spec.node_name)
+    nominated = sorted(p.key for p in live
+                       if not p.spec.node_name and p.status.nominated_node_name)
+    ready = op.readyz()
+    inc = ready["incremental"]
+    seam = ready["disruption_snapshot"]
+    counts = {
+        "ok": ready["ok"], "checks": ready["checks"], "recovery": ready["recovery"],
+        "incremental": {k: inc[k] for k in ("enabled", "quarantined", "retained_nodes",
+                                            "divergences", "ticks", "fallbacks", "micro")},
+        "reactive": ready["reactive"],
+        "disruption_snapshot": {k: seam[k] for k in ("enabled", "retained_rows", "serves",
+                                                     "row_hits", "row_rebuilds", "audits",
+                                                     "divergences")},
+        "explain": {k: ready["explain"][k] for k in ("pods", "nodes", "verdicts")},
+    }
+    grown = {name: getattr(api.store, name).total() - counters0[name]
+             for name in OPERATOR_COUNTERS}
+    return {"step": step, "nodes": nodes, "pending": pending, "nominated": nominated,
+            "claims": len(kube.node_claims()), "instances": len(op.cloud_provider.list()),
+            "ready": counts, "counters": grown, "extra": extra}
+
+
+def operator_run(api, device, types, pool, waves, micro_pods, high_pods,
+                 drop: float = 0.0, empty: int = 0,
+                 policy: str = "WhenEmptyOrUnderutilized",
+                 t0: float = DISRUPTION_T0, ticks: int = 4,
+                 micro_steps: int = 5, scans: int = 6, seed: int = 0,
+                 force_seconds: float = 100000.0, clock=None, on_step=None) -> list[dict]:
+    """The operator's main path on `api`'s package, step by step with
+    explicit clocks from `t0` (every record `operator_record`), `pool`
+    never consolidated before step 4:
+    1. "provision": each wave of `waves` created, then `ticks` operator
+       steps 2 s apart (provisioning ticks, the claims launched through
+       the lifecycle and the kwok provider over `types`, the binding
+       queue's drain);
+    2. "micro": `micro_pods` created, then `micro_steps` micro steps
+       60 ms apart with the reactive plane on (each record's extra is
+       the step's digest), then one step;
+    3. "preempt": `pool`'s cpu limit set to the fleet's capacity, a
+       PriorityClass "critical" (1000) created and `high_pods` given it,
+       each pod's cpu request set just past the most free cpu of any node
+       (so that it fits a node only once a victim leaves), then `ticks` +
+       2 steps: they nominate lower-priority victims
+       (PREEMPTION_NOMINATIONS);
+    4. "disrupt": `drop` of the bound pods of priority below 1000 deleted
+       (a draw of `seed`), every pod of the first `empty` nodes (in the
+       order of their instance types and pods) and every pod still
+       pending (the preemption wave retired), `pool` consolidated
+       after 0s under `policy`, then `scans` steps each past the
+       disruption poll: the engine's command (`environment_command`) is each
+       record's extra; a scan that found nothing and saw no watch
+       traffic since skips the next (DISRUPTION_SCAN_SKIPPED), the
+       forced scan's period KARPENTER_INCR_DISRUPTION_FORCE_SECONDS set
+       to `force_seconds` for the run.
+    `device` is the Operator's (None: the JAX package's, which has
+    none). `clock`, when given, is the deadline clock of the Operator's
+    Provisioner, its incremental tick and its disruption engine (a fixed
+    clock keeps every solve bound and method budget from firing, so that
+    a slow run decides as a fast one). `on_step(record, wall)` runs after
+    each step."""
+    import time as _time
+
+    t = t0
+    kube = api.client.KubeClient()
+    # the instances' timestamps and every object's creation and deletion
+    # on the run's clock: a run decides alike whatever the wall clock
+    cloud = api.kwok.KwokCloudProvider(kube, types=types, clock=lambda: t)
+    kw = {} if device is None else {"device": device}
+    op = api.operator.Operator(kube=kube, cloud_provider=cloud,
+                               options=api.options.Options(), **kw)
+    if clock is not None:
+        op.provisioner.clock = op.provisioner.incremental.clock = clock
+        op.disruption.clock = clock
+    commands: list = []
+    real_reconcile = op.disruption.reconcile
+
+    def reconcile(now=None):
+        cmd = real_reconcile(now=now)
+        commands.append(environment_command(cmd))
+        return cmd
+
+    op.disruption.reconcile = reconcile
+    counters0 = {name: getattr(api.store, name).total() for name in OPERATOR_COUNTERS}
+    pool.spec.disruption.consolidate_after = "Never"
+
+    def create(obj) -> None:
+        obj.metadata.creation_timestamp = t
+        kube.create(obj)
+
+    create(pool)
+    out: list[dict] = []
+
+    def note(step: str, wall: float, extra=None) -> None:
+        rec = operator_record(api, op, step, counters0, extra)
+        out.append(rec)
+        if on_step is not None:
+            on_step(rec, wall)
+
+    def step(kind: str, extra_of=None) -> None:
+        nonlocal t
+        t += 2.0
+        w0 = _time.perf_counter()
+        op.step(now=t)
+        wall = _time.perf_counter() - w0
+        note(kind, wall, extra_of() if extra_of else None)
+
+    for wave in waves:
+        for pod in wave:
+            create(pod)
+        for _ in range(ticks):
+            step("provision")
+    for pod in micro_pods:
+        create(pod)
+    for _ in range(micro_steps):
+        t += 0.06
+        w0 = _time.perf_counter()
+        digest = op.micro_step(now=t)
+        note("micro", _time.perf_counter() - w0, digest)
+    step("micro")
+    live = kube.get_node_pool(pool.metadata.name)
+    live.spec.limits = {"cpu": sum(float(n.status.capacity.get("cpu", 0.0))
+                                   for n in kube.nodes())}
+    kube.update(live)
+    create(api.objects.PriorityClass(
+        metadata=api.objects.ObjectMeta(name="critical", namespace=""), value=1000))
+    free, used = max(
+        (float(n.status.allocatable.get("cpu", 0.0)) - u, u)
+        for n in kube.nodes()
+        for u in [sum(float(c.requests.get("cpu", 0.0))
+                      for p in kube.pods_on_node(n.metadata.name)
+                      for c in p.spec.containers)])
+    for pod in high_pods:
+        pod.spec.priority_class_name = "critical"
+        pod.spec.containers[0].requests["cpu"] = round(free + min(0.5, used), 3)
+        create(pod)
+    for _ in range(ticks + 2):
+        step("preempt")
+    bound = sorted((p for p in kube.pods()
+                    if p.spec.node_name and (p.spec.priority or 0) < 1000),
+                   key=lambda p: p.key)
+    rng = np.random.default_rng(seed)
+    doomed = {bound[int(i)].key
+              for i in rng.choice(len(bound), size=int(len(bound) * drop), replace=False)}
+    by_node = sorted(
+        (n.metadata.labels.get(api.labels.INSTANCE_TYPE_LABEL, ""),
+         tuple(sorted(p.key for p in kube.pods_on_node(n.metadata.name))))
+        for n in kube.nodes())
+    doomed |= {key for _, keys in by_node[:empty] for key in keys}
+    for pod in kube.pods():
+        if pod.key in doomed or not pod.spec.node_name:
+            kube.delete(pod, now=t)
+    live = kube.get_node_pool(pool.metadata.name)
+    live.spec.disruption.consolidate_after = "0s"
+    live.spec.disruption.consolidation_policy = policy
+    kube.update(live)
+    poll = op.options.disruption_poll_seconds
+    with scoped_env({"KARPENTER_INCR_DISRUPTION_FORCE_SECONDS": str(force_seconds)}):
+        for _ in range(scans):
+            t += poll
+            n0 = len(commands)
+            step("disrupt", lambda: commands[n0:])
+    return out
+
+
+# -- the real-client stack ---------------------------------------------------
+
+
+def client_api():
+    """`operator_api()` with the real-client modules `client_run` reads."""
+    from karpenter_tpu_torch.kube import real
+    from karpenter_tpu_torch.solver import faults
+
+    api = operator_api()
+    api.real, api.faults = real, faults
+    return api
+
+
+def client_fleet(api, op, cloud) -> tuple:
+    """The converged state without names (tests/test_restart_chaos.py's
+    fingerprint): per node its instance type and bound pods, sorted; the
+    no-leak invariants that fail: wedged-deleting claims, claims not
+    launched, instances that are not the claims' (a leak or a double
+    launch), nodes that are not the claims', a mirror not synced, claims
+    never paired with a node; and the pods left pending."""
+    kube = op.kube
+    claims = kube.node_claims()
+    pids = sorted(c.status.provider_id for c in claims if c.status.provider_id)
+    nodes = kube.nodes()
+    live = [p for p in kube.pods() if p.metadata.deletion_timestamp is None]
+    broken = [name for name, bad in (
+        ("wedged_claim", any(c.metadata.deletion_timestamp is not None for c in claims)),
+        ("unlaunched_claim", len(pids) != len(claims)),
+        ("instances", sorted(i.status.provider_id for i in cloud.list()) != pids),
+        ("nodes", sorted(n.spec.provider_id for n in nodes) != pids),
+        ("mirror", not op.cluster.synced()),
+        ("unpaired_claim", op.cluster.unpaired_claim_names() != []),
+    ) if bad]
+    parts = sorted(
+        (n.metadata.labels.get(api.labels.INSTANCE_TYPE_LABEL, ""),
+         tuple(sorted(p.metadata.name for p in kube.pods_on_node(n.metadata.name))))
+        for n in nodes)
+    return parts, broken, sorted(p.metadata.name for p in live if not p.spec.node_name)
+
+
+def client_run(api, device, types, pool, pods, faults_spec: Optional[str] = None,
+               ticks: int = 14, tail: int = 8, t0: float = DISRUPTION_T0) -> dict:
+    """`pods` through the real-client stack of `api`'s package:
+    `RealKubeClient(InMemoryApiServer())` under an Operator (`device`:
+    the port's; None for the JAX package's), a second client as the user
+    creating `pool` and the pods, then `ticks` steps 2 s apart, and past
+    the garbage collector's interval (130 s later) `tail` more, under
+    KARPENTER_FAULTS=`faults_spec` (with the kube retry and relist
+    delays at their test settings). An OperatorCrashError rebuilds the
+    client and the Operator against the same server, the cloud's client
+    pointed at the new one (the restart recipe). Returns {"fleet",
+    "broken", "pending" (`client_fleet`), "crashes", "recovery" (the
+    growth of OPERATOR_RECOVERY by action), "retries" (of KUBE_RETRIES),
+    "fault_log", "server", "op"}."""
+    kw = {} if device is None else {"device": device}
+    store = api.store
+    actions = ("readopted_claim", "requeued_pod", "reaped_leak")
+    rec0 = {a: store.OPERATOR_RECOVERY.value({"action": a}) for a in actions}
+    retries0 = store.KUBE_RETRIES.total()
+    env = {"KARPENTER_FAULTS": faults_spec, "KARPENTER_FAULT_SEED": None,
+           "KARPENTER_KUBE_RETRY_BASE_MS": "1", "KARPENTER_KUBE_RELIST_MIN_MS": "0"}
+    with scoped_env(env):
+        api.faults.reset()
+        server = api.real.InMemoryApiServer()
+        kube = api.real.RealKubeClient(server)
+        cloud = api.kwok.KwokCloudProvider(kube, types=types)
+        op = api.operator.Operator(kube=kube, cloud_provider=cloud, **kw)
+        user = api.real.RealKubeClient(server)
+        user.create(pool)
+        for pod in pods:
+            user.create(pod)
+        crashes = 0
+        now = t0
+        for k in range(ticks + tail):
+            now += 2.0 + (130.0 if k == ticks else 0.0)
+            try:
+                op.step(now=now)
+            except api.faults.OperatorCrashError:
+                crashes += 1
+                kube = api.real.RealKubeClient(server)
+                cloud.kube = kube
+                op = api.operator.Operator(kube=kube, cloud_provider=cloud, **kw)
+        fault_log = api.faults.get().snapshot_log() if api.faults.get() is not None else []
+        api.faults.reset()
+    parts, broken, pending = client_fleet(api, op, cloud)
+    user.close()
+    return {"fleet": parts, "broken": broken, "pending": pending, "crashes": crashes,
+            "recovery": {a: store.OPERATOR_RECOVERY.value({"action": a}) - rec0[a]
+                         for a in actions},
+            "retries": store.KUBE_RETRIES.total() - retries0,
+            "fault_log": fault_log, "server": server, "op": op}
+

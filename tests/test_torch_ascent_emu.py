@@ -11,8 +11,13 @@ on the host by `tests/cuda_emu/xchg_host.h`). The emulated
 kernel runs one block (or S blocks for split B5) on seeded inputs and
 must give the plain version's best value, best duals and last improving
 iteration bit for bit: `ascend_ref` (or `ascend_sharded_ref`, every
-replica). What the card adds (timing, the real memory model, the
-compiler's code) is `tests/test_torch_cuda.py`'s and `chip_smoke.py`'s.
+replica). Past 2048 padded groups or configs the kernel runs its wide
+layout (32-bit tie records, window sums a window at a time, a third
+level of windows): the warm buckets' and aws_catalog_50k's config axes,
+group axes of 2272 and 4438, a config axis past 32 x 1024, and split B5
+with a shard's block past 2048. What the card adds (timing, the real
+memory model, the compiler's code) is `tests/test_torch_cuda.py`'s and
+`chip_smoke.py`'s.
 No JAX; skips where g++ cannot build C++20.
 """
 
@@ -26,7 +31,12 @@ import pytest
 import torch
 
 from karpenter_tpu_torch.solver import lp_device
-from karpenter_tpu_torch.testing import ascent_cases, ascent_edge_cases
+from karpenter_tpu_torch.testing import (
+    ascent_cases,
+    ascent_edge_case,
+    ascent_edge_cases,
+    ascent_wide_cases,
+)
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "karpenter_tpu_torch" / "csrc"
@@ -58,7 +68,14 @@ def _kernel_source() -> str:
     ):
         assert body.count(old) == 1, old
         body = body.replace(old, new)
-    return body + "\n}  // namespace\n" + (EMU / "harness.inc").read_text()
+    # the harness runs the layout the launch functions pick: the wide one
+    # past 2048 padded groups or configs (`is_wide`)
+    harness = (EMU / "harness.inc").read_text()
+    call = "ascend_body(args[sh], L, scratch[sh], x);"
+    assert harness.count(call) == 2, call
+    harness = harness.replace(call, "(is_wide(G, C) ? ascend_body<true>(args[sh], L, scratch[sh], x)"
+                                    " : ascend_body<false>(args[sh], L, scratch[sh], x));")
+    return body + "\n}  // namespace\n" + harness
 
 
 @pytest.fixture(scope="module")
@@ -151,6 +168,50 @@ def test_emulated_split_ascent_equals_plain_version(emulated, S):
     a = lp_device.ShardedAscentInputs.split(inputs, S)
     best, lam, last = run_emulated(emulated, a, 8, S)
     want = lp_device.ascend_sharded_ref(a, 8)
+    assert (_bits(best) == _bits(want[0].numpy())).all(), name
+    assert (_bits(lam) == _bits(want[1].numpy())).all(), name
+    assert (last == want[2].numpy()).all(), name
+
+
+# the wide layout (a padded axis past 2048, `lp_device.ascent_wide`): the
+# warm buckets' config axis at both group axes, aws_catalog_50k's padded
+# config axis, and padded group axes past 2048 (4438: the bound's dot one
+# multiply-add chain), a few iterations each
+WIDE_CASES = [("wide-c4438", 4), ("wide-c4438-g243", 3), ("wide-c2840", 4),
+              ("wide-g2272", 4), ("wide-g4438", 3)]
+
+
+@pytest.mark.parametrize("name,n_iters", WIDE_CASES)
+def test_emulated_wide_ascent_equals_plain_version(emulated, name, n_iters):
+    (case, a), = ascent_wide_cases(0, names=(name,))
+    assert lp_device.ascent_wide(*a.compat.shape)
+    best, lam, last = run_emulated(emulated, a, n_iters)
+    want = lp_device.ascend_ref(a, n_iters)
+    assert (_bits(best[0]) == _bits(want[0].numpy())).all(), case
+    assert (_bits(lam[0]) == _bits(want[1].numpy())).all(), case
+    assert int(last[0]) == int(want[2]), case
+
+
+def test_emulated_three_window_levels(emulated):
+    """A config axis past 32 x 1024 terms: the ordered sums over configs
+    (dtheta's, each d ratio row) take a third level of windows."""
+    a = ascent_edge_case(5, 12, 34000, 3, 64, 30, 2, 2)
+    assert lp_device.window_pad(lp_device.window_pad(34000)[0])[0] > 32
+    best, lam, last = run_emulated(emulated, a, 3)
+    want = lp_device.ascend_ref(a, 3)
+    assert (_bits(best[0]) == _bits(want[0].numpy())).all()
+    assert (_bits(lam[0]) == _bits(want[1].numpy())).all()
+    assert int(last[0]) == int(want[2])
+
+
+def test_emulated_wide_split_ascent_equals_plain_version(emulated):
+    """Split B5 with each shard's column block past 2048 (4438 configs
+    over 2 shards: 2219 each) runs the wide body in every block."""
+    (name, inputs), = ascent_wide_cases(0, names=("wide-c4438",))
+    a = lp_device.ShardedAscentInputs.split(inputs, 2)
+    assert lp_device.ascent_wide(*a.compat[0].shape)
+    best, lam, last = run_emulated(emulated, a, 3, 2)
+    want = lp_device.ascend_sharded_ref(a, 3)
     assert (_bits(best) == _bits(want[0].numpy())).all(), name
     assert (_bits(lam) == _bits(want[1].numpy())).all(), name
     assert (last == want[2].numpy()).all(), name

@@ -13,12 +13,18 @@
     card every failure degrades, as there). `KubeClient` raises
     `NotImplementedError` for nothing (`evict` is ported).
     So do `testing.Environment()`, `warm_pool.warm`, `start_background`,
-    `rewarm_canary` and `lp_device.warm`, before any bucket.
+    `rewarm_canary` and `lp_device.warm`, before any bucket, and the
+    `Operator`. The binary `python -m karpenter_tpu_torch` without a card
+    and without `--device cpu` exits non-zero; `--solver-endpoint`
+    raises `NotImplementedError` naming ROADMAP item 8.
 (e) importing `karpenter_tpu_torch` and one CPU solve load neither
     `jax` nor `karpenter_tpu` (checked in a fresh interpreter); nor do
     two provisioning rounds through the port's Provisioner, nor a
     disruption round (engine, queue, validation, eviction), nor an
-    Environment stream with the warm pool and the exposition.
+    Environment stream with the warm pool and the exposition, nor the
+    operator's main path and the real-client stack
+    (`testing.operator_run`, `client_run`), nor the binary
+    `python -m karpenter_tpu_torch --demo 5 --run-seconds 1 --device cpu`.
 (f) no file of the port, and not `chip_smoke.py`, imports `jax` or
     `karpenter_tpu` (AST check).
 """
@@ -436,3 +442,97 @@ def test_environment_stream_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     assert report["steps"] >= 4 and report["phases"] == 5
+
+
+def test_operator_default_device_without_cuda_raises():
+    """The Operator's controllers solve on the card: without one, building
+    it raises (its Provisioner resolves the device)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_tpu_torch.kube.client import KubeClient
+    from karpenter_tpu_torch.operator.operator import Operator
+
+    kube = KubeClient()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Operator(kube=kube, cloud_provider=KwokCloudProvider(kube))
+    Operator(kube=kube, cloud_provider=KwokCloudProvider(kube), device="cpu")
+
+
+def test_solver_endpoint_is_named_not_implemented():
+    from karpenter_tpu_torch.__main__ import main
+
+    with pytest.raises(NotImplementedError, match="item 8"):
+        main(["--solver-endpoint", "localhost:1", "--device", "cpu", "--run-seconds", "1"])
+
+
+def _binary(args, env_extra=None, timeout=180):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **(env_extra or {}))
+    return subprocess.run([sys.executable, "-m", "karpenter_tpu_torch", *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def test_binary_without_a_card_exits_non_zero():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    out = _binary(["--demo", "2", "--run-seconds", "1", "--metrics-port", "0",
+                   "--metrics-bind-host", "127.0.0.1"], {"CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_binary_loads_no_jax():
+    """`python -m karpenter_tpu_torch --demo 5 --run-seconds 1 --device
+    cpu`, run as the module's main in a fresh interpreter: it runs to its
+    shutdown and loads neither `jax` nor `karpenter_tpu`."""
+    code = (
+        "import sys, json, runpy, logging\n"
+        "sys.argv = ['karpenter_tpu_torch', '--demo', '5', '--run-seconds', '1',"
+        " '--device', 'cpu', '--metrics-port', '0', '--metrics-bind-host', '127.0.0.1']\n"
+        "try:\n"
+        "    runpy.run_module('karpenter_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'karpenter_tpu'"
+        " or m.startswith('karpenter_tpu.')]\n"
+        "print(json.dumps({'bad': bad, 'rc': rc}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"bad": [], "rc": 0}
+    assert "operator up" in out.stderr and "shutdown:" in out.stderr
+
+
+def test_operator_and_real_client_load_no_jax():
+    """The operator's main path (`testing.operator_run`) and the
+    real-client stack with a crash and restart (`testing.client_run`) on
+    the CPU load neither `jax` nor `karpenter_tpu`."""
+    code = (
+        "import sys, json\n"
+        "from karpenter_tpu_torch import testing\n"
+        "from karpenter_tpu_torch.cloudprovider.fake import GIB, make_instance_type\n"
+        "types = [make_instance_type('c2', cpu=2, memory=8 * GIB, price=2.0)]\n"
+        "pods = lambda p, n: [testing.mk_pod(name=f'{p}-{i}', cpu=1.5) for i in range(n)]\n"
+        "recs = testing.operator_run(testing.operator_api(), 'cpu', types,"
+        " testing.mk_nodepool('default'), [pods('a', 4)], pods('m', 1), pods('h', 1),"
+        " ticks=2, micro_steps=2, scans=2)\n"
+        "pool = testing.mk_nodepool('default')\n"
+        "pool.spec.disruption.consolidate_after = 'Never'\n"
+        "run = testing.client_run(testing.client_api(), 'cpu', types, pool, pods('w', 3),"
+        " faults_spec='operator_crash@crash_launch:1')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'karpenter_tpu'"
+        " or m.startswith('karpenter_tpu.')]\n"
+        "print(json.dumps({'bad': bad, 'steps': len(recs), 'crashes': run['crashes'],"
+        " 'nodes': len(run['fleet'])}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == [] and report["crashes"] == 1 and report["nodes"] == 3

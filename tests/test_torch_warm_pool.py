@@ -322,11 +322,19 @@ def test_start_background_runs_a_non_daemon_thread(monkeypatch):
 
 
 def test_b5_axis_refusal_is_named():
-    """B5's widest axes (`kMaxAxis` in csrc/lp_ascend.cu): the warm pool
-    skips a dual-ascent bucket past them on the card, and the wrapper
-    refuses it by name before a launch (ROADMAP C4)."""
+    """B5's limits (`kMaxWideAxis`, `kMaxSlots` and the 16 resources of
+    csrc/lp_ascend.cu): past 2048 padded axes the kernel runs its wide
+    layout, so the warm pool's default dual-ascent buckets (padded to
+    155 x 4438 and 243 x 4438) are refused nowhere; what the kernel
+    cannot take is refused by name before a launch (ROADMAP C4)."""
     assert lp_device.ascent_refusal(2048, 2048) is None
     assert lp_device.ascent_refusal(155, 2048) is None
-    refusal = lp_device.ascent_refusal(155, 4438)
-    assert refusal is not None and "2048" in refusal and "C4" in refusal
-    assert lp_device.ascent_refusal(2049, 64) is not None
+    assert lp_device.ascent_refusal(155, 4438) is None
+    assert lp_device.ascent_refusal(243, 4438) is None
+    assert lp_device.ascent_refusal(2049, 64) is None
+    refusal = lp_device.ascent_refusal(155, 4438, 17, 64)
+    assert refusal is not None and "16" in refusal and "C4" in refusal
+    assert lp_device.ascent_refusal(lp_device.ASCENT_MAX_AXIS + 1, 64) is not None
+    buckets = {(s[0], s[1]) for s in warm_pool.DEFAULT_SHAPES}
+    assert all(lp_device.ascent_refusal(lp_device._pad_to(g), lp_device._pad_to(c)) is None
+               for g, c in buckets)
