@@ -47,6 +47,9 @@
                                     # real-client stack and the binary
                                     # on the card, held against
                                     # device="cpu"
+    python3 chip_smoke.py --soak    # phases 1-2 and 18 alone: the
+                                    # scenario soak on the card, held
+                                    # against device="cpu"
     python3 chip_smoke.py --b5-against DIR
                                     # phases 1-2, then B5's 2048 layout
                                     # here against the checkout DIR's: its
@@ -78,8 +81,9 @@ Phases, each reported on its own line; any failure exits non-zero. The
 CPU references that need nothing of the card (phase 4's first and small
 requests, phase 11's catalog and its cost solve, phase 13's benchmark
 rounds, phase 14's stream with its micro path and its pipeline, phase
-16's Environment stream, phase 17's operator and real-client runs, each
-with device="cpu" from the same seeds) are computed in two worker
+16's Environment stream, phase 17's operator and real-client runs,
+phase 18's soaks, each with device="cpu" from the same seeds) are
+computed in two worker
 processes, started after the build, beside the card's phases; the
 processes are stopped when the script ends.
   1. device   — require CUDA; print the card's name and power limit.
@@ -103,7 +107,7 @@ processes are stopped when the script ends.
                 against the same canary again. Then the resilience
                 ladder's re-warm gate (KARPENTER_REWARM_ON_CLOSE=1): two
                 injected device faults open the device breaker on
-                `build_problem(2000, 50, seed=7)`, and the half-open
+                `build_problem(200, 20, seed=7)`, and the half-open
                 success closes it only after `rewarm_canary()` launched
                 on the card. Later phases' device-served checks count
                 from the ladder's counts after this phase.
@@ -178,7 +182,14 @@ processes are stopped when the script ends.
                 device bounds, the column-generation rounds and how
                 they ended, the planned nodes, the warm median and the
                 cold solve's breakdown (encode, plan with its B4 calls,
-                ascent, each arm's pack, merge/trim, decode). It must
+                ascent, each arm's pack, merge/trim, decode). The cold
+                race runs in the JAX package's order (FFD dispatched,
+                `_plan_for` on the host, the planned arms dispatched,
+                then FFD, cost and rank fetched), which the run holds
+                from the cold solve's `solve.*` spans and a `race.plan`
+                span; it prints how much of FFD's kernel time (CUDA
+                events, put on the host clock) lay under `_plan_for`,
+                and the cold and warm race walls. It must
                 launch B4, B5 and a packing kernel in cost mode, the
                 cost fleet must not cost more than FFD's and the
                 certified bound must not exceed it. B4 (first seed
@@ -259,14 +270,16 @@ processes are stopped when the script ends.
   10. sharded — B8, the config axis split over S shards, on virtual
                 meshes of shard slots on the card (`force_virtual_mesh`):
                 split B1, B3 (widths 8 and 16) and B2 byte-identical to
-                their plain split versions on seeded problems, on
+                their plain split versions on seeded problems (four at
+                S = 2 and 4, two at S = 3 and 8), on
                 boundary-tie problems and on the open loop's corners
                 (`testing.fold_cases`: three pools, a reserved column
                 cheaper than every uncapped one on one shard only, a
                 chosen pool of zero open capacity) at S in (2, 3, 4, 8), every
                 replica equal and the flat buffers equal to the unsplit
                 kernels'; split B5 bit-identical to its plain version at
-                S in (2, 4). Then, each route with the launch counts set
+                S in (2, 4) (64 iterations; 192 on the LP route below).
+                Then, each route with the launch counts set
                 to 0 just before it and read just after, launching the
                 split kernels and no unsplit packing kernel: the first
                 50k x 500 request at S in (2, 3, 4, 8) on the B3 route
@@ -336,9 +349,10 @@ them: the ladder's counter holds only `ok` outcomes on those rungs,
 `resilience.pop_degraded()` was empty after each phase, and no device
 LP degraded.
   12. ladder  — `testing.ladder_script` on the card, on
-                `build_problem(2000, 50, seed=7)` (the host oracle is a
+                `build_problem(1000, 50, seed=7)` (the host oracle is a
                 Python loop a pod and a node: the benchmark's 50k pods
-                would take it minutes): healthy solves on the device
+                would take it minutes; 2000 pods before phase 18 came):
+                healthy solves on the device
                 rung; a lost device opening the breaker (skipped while
                 it cools, half-open, closed again); an execute stall
                 past KARPENTER_SOLVE_DEADLINE_MS and a launch stall past
@@ -348,7 +362,13 @@ LP degraded.
                 breaker; the device LP failing inside its own call
                 (`maybe_solve` None and counted, the cost solve equal to
                 the one without the LP, the certificate not retried
-                until the next staging). Every device-served result is
+                until the next staging); the asynchronous seam
+                (`solve_packing_async`): a healthy solve served by the
+                device rung at its guarded fetch, device_lost at the
+                fetch's execute site served by the host, and a
+                deadline-mode solve whose ladder runs on an executor
+                worker, served by the host with the degradation report
+                on the calling thread. Every device-served result is
                 byte-identical to a direct `pack.solve_packing` on the
                 card, every host-served one equal to `host_pack_result`.
                 Then the walls (host clock, median of 5, in turns): the
@@ -501,6 +521,19 @@ LP degraded.
                 /readyz and /metrics read over HTTP while it runs, exit 0
                 with every pod bound; with CUDA_VISIBLE_DEVICES="" it
                 must exit non-zero. The device rung serves every solve.
+  18. soak    — the scenario flywheel (`scenarios.run_soak`, the full
+                reactive Operator over `RealKubeClient(InMemoryApiServer())`
+                and the kwok provider under injected virtual time, forced
+                oracle audits, spot storms from the composed fault spec)
+                with device="cuda": `smoke_spec()` and
+                `flywheel_spec(duration_s=600)` must pass and their
+                `report_digest` equal device="cpu"'s (the worker's, under
+                the same hash seed); then the sensitivity control,
+                `smoke_spec()` with exec_delay@crash_tick:*=2s#lag, must
+                fail on the sentinel and SLO planes, its digest equal to
+                the CPU's too. Per soak its wall, the card's ms in its
+                packing calls and the kernels it launched. The device rung
+                serves every solve.
 Kernel times are CUDA-event times taken with a spin kernel holding the
 stream while the host launches the timed calls, so they time the
 card's work alone; B2 and the lane epilogue are also timed as the host
@@ -599,15 +632,15 @@ def say(msg: str) -> None:
 # fingerprints of phase 4's first and small requests (device="cpu"), of
 # phase 11's catalog (its ffd and its cost solve), phase 13's benchmark
 # rounds, phase 14's stream with its micro path and its pipeline, phase
-# 16's Environment stream, and phase 17's operator run and real-client
-# run. The whole run computes them in two worker processes of their own
+# 16's Environment stream, phase 17's operator run and real-client
+# run, and phase 18's soaks. The whole run computes them in two worker processes of their own
 # (CPU_REF_THREADS threads each, one group of CPU_REFS_ORDER each),
 # started after the build, so that they run beside the card's phases; a
 # phase run alone computes its own inline
 CPU_REFS_ORDER = (("first", "small", "catalog", "provision", "tick", "pipeline",
                    "environment"),
                   ("cost hetero 2000x80", "cost reservations 5000x100", "catalog_cost",
-                   "operator", "client"))
+                   "operator", "client", "soak smoke", "soak flywheel", "soak lag"))
 CPU_REF_THREADS = 2
 
 
@@ -620,8 +653,9 @@ def cpu_reference(name: str):
     then its `micro_continue`, `pipeline_run`'s held rows and cold
     tick's wall, phase 16's `environment_run` (its records, the
     metrics controllers' gauges after it, the rungs degraded), phase
-    11's cost solve of the catalog (`catalog_cost`), and phase 17's
-    `operator_main_run` records and `client_main_run`."""
+    11's cost solve of the catalog (`catalog_cost`), phase 17's
+    `operator_main_run` records and `client_main_run`, and phase 18's
+    `soak_run` of each spec."""
     from karpenter_tpu_torch import testing
     from karpenter_tpu_torch.solver.encode import group_pods
     from karpenter_tpu_torch.solver.solver import fingerprint, solve
@@ -639,6 +673,8 @@ def cpu_reference(name: str):
         return operator_main_run("cpu")
     if name == "client":
         return client_main_run("cpu")
+    if name.startswith("soak "):
+        return soak_run(name[len("soak "):], "cpu")
     if name == "tick":
         degraded: list = []
         env, out = tick_stream("cpu", on_round=lambda k, r: degraded.append(
@@ -1019,10 +1055,13 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: di
 
     pods, pools = build_problem(COST_PODS, COST_TYPES, seed=SEED,
                                 reservations=True, zonal_frac=COST_ZONAL)
+    from karpenter_tpu_torch import tracing
+
     real = {name: getattr(mod, name) for mod, name in (
         (lp_plan, "price_kernel"), (lp_plan, "_price_patterns"), (lp_plan, "plan"),
         (lp_device, "ascend"), (lp_device, "maybe_solve"), (pack, "stage"),
         (pack, "pack_split_flat"), (solver, "_solve_packing"),
+        (solver, "_solve_packing_async"), (solver, "_plan_for"),
         (solver, "_finish_winner"), (solver, "_build_solution_arrays"),
         (solver, "group_pods"), (solver, "encode"))}
     owner = {"price_kernel": lp_plan, "_price_patterns": lp_plan, "plan": lp_plan,
@@ -1030,7 +1069,7 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: di
              "pack_split_flat": pack}
     rec = {"price": [], "pp_calls": 0, "ascents": [], "plans": [], "cases": {},
            "mode_launches": {"ffd": {}, "cost": {}}, "times": {}, "mode": "ffd",
-           "arm": None, "base_price": None}
+           "arm": None, "base_price": None, "ffd_events": None, "plan_for": []}
 
     def timed(key, fn):
         def wrapper(*a, **k):
@@ -1071,19 +1110,51 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: di
         return st
 
     def pack_split_flat(*a, mode="ffd", **k):
+        # no synchronization here: the race's host work overlaps the card
         before = dict(kernels.LAUNCHES)
+        events = rec["ffd_events"] if rec["arm"] == "ffd" else None
+        if events is not None and not events:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[0].record()
         out = real["pack_split_flat"](*a, mode=mode, **k)
-        torch.cuda.synchronize()
+        if events is not None and len(events) == 1:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[1].record()
         tally = rec["mode_launches"][mode]
         for name, n in kernels.LAUNCHES.items():
             tally[name] = tally.get(name, 0) + n - before[name]
         return out
 
-    def solve_packing(enc, mode, device, plan=None, shards=0):
-        arm = "ffd" if plan is None else (
+    def arm_of(enc, plan):
+        return "ffd" if plan is None else (
             "cost" if enc.cfg_price is rec["base_price"] else "rank")
-        rec["mode"], rec["arm"] = mode, arm
-        return timed(f"pack {arm}", real["_solve_packing"])(enc, mode, device, plan, shards)
+
+    def solve_packing(enc, mode, device, plan=None, shards=0):
+        rec["mode"], rec["arm"] = mode, arm_of(enc, plan)
+        return timed(f"pack {rec['arm']}", real["_solve_packing"])(enc, mode, device, plan,
+                                                                  shards)
+
+    class TimedPending:
+        """An asynchronous arm whose fetch adds to its arm's pack time."""
+
+        def __init__(self, pending, arm):
+            self.pending, self.arm = pending, arm
+
+        def result(self):
+            return timed(f"pack {self.arm}", self.pending.result)()
+
+    def solve_packing_async(enc, mode, device, plan=None, shards=0):
+        rec["mode"], rec["arm"] = mode, arm_of(enc, plan)
+        pending = timed(f"pack {rec['arm']}", real["_solve_packing_async"])(
+            enc, mode, device, plan, shards)
+        return TimedPending(pending, rec["arm"])
+
+    def plan_for(*a, **k):
+        t0 = time.perf_counter()
+        with tracing.span("race.plan"):
+            out = real["_plan_for"](*a, **k)
+        rec["plan_for"].append((t0, time.perf_counter()))
+        return out
 
     def encode(*a, **k):
         enc = real["encode"](*a, **k)
@@ -1095,6 +1166,7 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: di
         "plan": timed("plan", plan), "ascend": ascend,
         "maybe_solve": timed("ascent", real["maybe_solve"]), "stage": stage,
         "pack_split_flat": pack_split_flat, "_solve_packing": solve_packing,
+        "_solve_packing_async": solve_packing_async, "_plan_for": plan_for,
         "_finish_winner": timed("merge/trim", real["_finish_winner"]),
         "_build_solution_arrays": timed("decode", real["_build_solution_arrays"]),
         "group_pods": timed("encode", real["group_pods"]),
@@ -1118,10 +1190,20 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: di
     install(wrapped)
     try:
         reset_counts()
+        # the card idle: an event recorded now fires at this host time, so
+        # the card's clock can be read on the host's (the FFD arm's events)
+        torch.cuda.synchronize()
+        ref_event = torch.cuda.Event(enable_timing=True)
+        ref_event.record()
+        t_ref = time.perf_counter()
+        rec["ffd_events"] = []
         t0 = time.perf_counter()
-        sol = solver.solve(pods, pools, objective="cost")
+        with tracing.trace("phase6-cold"):
+            sol = solver.solve(pods, pools, objective="cost")
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
+        ffd_events, rec["ffd_events"] = rec["ffd_events"], None
+        cold_trace = tracing.last_trace()
         breakdown = dict(rec["times"])
         warm, warm_sols = [], []
         for _ in range(WARM_SOLVES):
@@ -1176,6 +1258,8 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: di
         f"({', '.join(f'{w:.6f}' for w in warm)})")
     say(f"  launches: {json.dumps(n)}; packing kernels by mode "
         f"{json.dumps(rec['mode_launches'])}")
+    say("  " + race_overlap(cold_trace, ffd_events, ref_event, t_ref, rec["plan_for"],
+                            cold_s, warm))
 
     # the kernels against their plain versions on this run's inputs
     t0 = time.perf_counter()
@@ -1212,6 +1296,51 @@ def cost_phase(kernels, lp_plan, lp_device, pack, solver, build_problem, err: di
     say("  card and CPU fingerprints equal on both problems")
     return {"price_inputs": picks.get("first round", picks["seed"]),
             "ascent": rec["ascents"][0], "staged": rec["cost_staged"]}
+
+
+def race_overlap(trace: dict, events: list, ref_event, t_ref: float, plans: list,
+                 cold_s: float, warm: list) -> str:
+    """Phase 6's cold race against the JAX package's order: FFD
+    dispatched, `_plan_for` on the host, the planned arms dispatched, then
+    the fetches. From the `solve.*` spans: FFD's launch (`solve.compile`)
+    and its execute (launch return to the end of its copy), against the
+    `race.plan` span. From CUDA events around FFD's launch, put on the
+    host's clock through an event recorded while the card was idle: FFD's
+    kernels on the card, and how much of them lay under `_plan_for`."""
+    spans = trace["spans"] if trace else []
+    by = {}
+    for sp in spans:
+        by.setdefault(sp["name"], []).append(sp)
+    need = ("solve.compile", "solve.execute", "race.plan")
+    if any(not by.get(name) for name in need) or len(events) != 2 or not plans:
+        fail(f"phase 6: the cold race recorded spans "
+             f"{ {k: len(v) for k, v in by.items()} }, {len(events)} FFD events, "
+             f"{len(plans)} _plan_for calls")
+    plan_sp = by["race.plan"][0]
+    launch, execute = by["solve.compile"][0], by["solve.execute"][0]
+    # the planned arms are launched before FFD's fetch ends
+    before_fetch = [sp for sp in by["solve.compile"] if sp["t1_s"] <= execute["t1_s"]]
+    if not (launch["t1_s"] <= plan_sp["t0_s"] and execute["t1_s"] >= plan_sp["t1_s"]
+            and len(before_fetch) >= 2):
+        fail(f"phase 6: the race did not dispatch FFD, plan, dispatch the arms and fetch "
+             f"after: FFD launch {launch['t0_s']:.6f}-{launch['t1_s']:.6f}, plan "
+             f"{plan_sp['t0_s']:.6f}-{plan_sp['t1_s']:.6f}, FFD execute "
+             f"{execute['t0_s']:.6f}-{execute['t1_s']:.6f}, launches at "
+             f"{[round(sp['t0_s'], 6) for sp in by['solve.compile']]}")
+    in_flight = plan_sp["t1_s"] - plan_sp["t0_s"]
+    k0 = t_ref + ref_event.elapsed_time(events[0]) / 1000
+    k1 = t_ref + ref_event.elapsed_time(events[1]) / 1000
+    p0, p1 = plans[0]
+    kernel_s = max(0.0, k1 - k0)
+    under = max(0.0, min(k1, p1) - max(k0, p0))
+    return (f"race overlap (cold): FFD launched {1e3 * (launch['t1_s'] - launch['t0_s']):.3f} "
+            f"ms, then _plan_for {1e3 * in_flight:.3f} ms on the host while FFD was in "
+            f"flight (its execute span {1e3 * (execute['t1_s'] - execute['t0_s']):.3f} ms, "
+            f"launch return to the end of its copy), {len(before_fetch)} launches before the "
+            f"first fetch; FFD's kernels on the card {1e3 * kernel_s:.3f} ms (CUDA events), "
+            f"{1e3 * under:.3f} ms of them under _plan_for "
+            f"({(under / kernel_s if kernel_s else 0.0):.2%}); cold race wall "
+            f"{cold_s:.6f}s, warm median {statistics.median(warm):.6f}s")
 
 
 # phase 6's card-against-CPU cost solves (the CPU's in the worker)
@@ -1366,24 +1495,30 @@ def dense_problems(cache: str | None = None) -> list:
     else:
         calls, ctx = [], {"route": None, "planned": False}
         real_stage, real_sp = pack.stage, solver_mod._solve_packing
+        real_async = solver_mod._solve_packing_async
 
         def stage(*a, **k):
             st = real_stage(*a, **k)
             calls.append((ctx["route"], ctx["planned"], st))
             return st
 
-        def solve_packing(enc, mode, device, plan=None, shards=0):
+        def solve_packing(enc, mode, device, plan=None, shards=0, seam=real_sp):
             ctx["planned"] = plan is not None
             try:
-                return real_sp(enc, mode, device, plan, shards)
+                return seam(enc, mode, device, plan, shards)
             finally:
                 ctx["planned"] = False
+
+        def solve_packing_async(enc, mode, device, plan=None, shards=0):
+            # the cold race's arms stage at their dispatch
+            return solve_packing(enc, mode, device, plan, shards, seam=real_async)
 
         pods, pools = build_problem(N_PODS, N_TYPES, seed=SEED)
         extra, _ = build_problem(N_EXTRA, N_TYPES, seed=SEED + 1, name_prefix="extra-")
         rpods, rpools = build_problem(COST_PODS, COST_TYPES, seed=SEED, reservations=True,
                                       zonal_frac=COST_ZONAL)
         pack.stage, solver_mod._solve_packing = stage, solve_packing
+        solver_mod._solve_packing_async = solve_packing_async
         try:
             solver_mod.reset_caches()
             ctx["route"] = "first request"
@@ -1394,6 +1529,7 @@ def dense_problems(cache: str | None = None) -> list:
             solver_mod.solve(rpods, rpools, objective="cost")
         finally:
             pack.stage, solver_mod._solve_packing = real_stage, real_sp
+            solver_mod._solve_packing_async = real_async
             solver_mod.reset_caches()
         staged = {
             "first request": [st for r, _, st in calls if r == "first request"][-1],
@@ -2284,8 +2420,16 @@ def lane_route_timing(kernels, args, kw, F: int, mode: str, W: int, n_real: int,
 
 
 SHARDS = (2, 3, 4, 8)
+# the seeded kernel_cases held split at each S (fresh-cost,
+# reservations-ffd, bound-quota-cap-conflict-ffd, conflict-cost); at S = 3
+# and 8 only the two ffd ones, a depth cut for phase 18's time
+SPLIT_SEEDED = {2: (1, 2, 4, 7), 4: (1, 2, 4, 7), 3: (2, 4), 8: (2, 4)}
 TIMED_SHARDS = (2, 4, 8)
 LP_SHARDS = 4
+# split B5's seeded holds: iterations (192 before phase 18 came; the
+# KARPENTER_LP_SHARDS route below holds it at the ascent's 192 on
+# reserved_50k's LP)
+SPLIT_ASCENT_ITERS = 64
 MILLION = (1_000_000, 100, 400)
 MILLION_SHARDS = 8
 # `--quick`: split B1 and B3 timed at this S on the first request
@@ -2469,15 +2613,15 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
     cases = kernel_cases(0, n_pods=800, n_types=30)
     held = 0
     for S in SHARDS:
-        for case in [cases[i] for i in (1, 2, 4, 7)] + [
+        for case in [cases[i] for i in SPLIT_SEEDED[S]] + [
                 tie_case(21, S, "cost"), tie_case(22, S, "ffd", quota=True)] + fold_cases(3, S):
             say(hold_split(shard, kernels, case, S, err))
             held += 1
     for S in (2, LP_SHARDS):
         for name, inputs in ascent_cases(0, S):
             a = lp_device.ShardedAscentInputs.split(inputs.to("cuda"), S, ["cuda"] * S)
-            got = lp_device.ascend_sharded(a, 192)
-            want = lp_device.ascend_sharded_ref(a, 192)
+            got = lp_device.ascend_sharded(a, SPLIT_ASCENT_ITERS)
+            want = lp_device.ascend_sharded_ref(a, SPLIT_ASCENT_ITERS)
             torch.cuda.synchronize()
             for x, y in zip(got, want):
                 if not all(same_bits(x[0], x[r]) for r in range(S)):
@@ -2487,10 +2631,11 @@ def shard_phase(ctx: dict, err: dict, smi: str) -> dict:
                          f"at S={S}")
                 err["lp_ascend_sharded"] = max(err["lp_ascend_sharded"], max_abs_diff(x, y))
     say(f"phase 10 sharded: split B1, B3 (widths 8, 16) and B2 byte-identical to their "
-        f"plain split versions and to the unsplit kernels on {held // len(SHARDS)} "
-        f"problems at each S in {SHARDS}, replicas equal; split B5 on "
+        f"plain split versions and to the unsplit kernels on {held} problems over S in "
+        f"{SHARDS} ({json.dumps({S: len(v) for S, v in SPLIT_SEEDED.items()})} seeded, the "
+        f"rest tie and fold cases at each S), replicas equal; split B5 on "
         f"{len(ascent_cases(0))} ascent cases at "
-        f"S in (2, {LP_SHARDS}), 192 iterations, bit-identical "
+        f"S in (2, {LP_SHARDS}), {SPLIT_ASCENT_ITERS} iterations, bit-identical "
         f"({time.perf_counter() - t_phase:.3f}s)")
 
     # ---- 2. the 50k x 500 requests, split, on both routes
@@ -3237,7 +3382,7 @@ DENSE = "--dense"
 # `--ladder`: phases 1-2, then phase 12 alone
 LADDER = "--ladder"
 # phase 12's problem: the host oracle is a Python loop a pod and a node
-LADDER_PROBLEM = (2000, 50, 7)
+LADDER_PROBLEM = (1000, 50, 7)
 # phase 12's turns of the pack alone (direct, ladder, watchdog thread)
 # and pairs of the whole solve (seam bypassed, ladder); 25 and 10 before
 # phase 17, cut for its time
@@ -4173,6 +4318,13 @@ def ladder_phase(smi: str, first_enc=None) -> None:
         f"{walls['hedge-0']:.6f}s ({walls['hedge_attempts']} attempt(s)); breaker cooldown "
         f"{walls['cooldown_ms']} ms, slept {walls['breaker_sleep_s']:.6f}s before the "
         f"half-open probe | card: {smi}")
+    pend = {r["stage"]: r.get("pending") for r in records if r["stage"].startswith("async")}
+    say(f"  asynchronous seam (solve_packing_async, result() on the caller): healthy "
+        f"{walls['async-0']:.6f}s ({pend['async']}, the device rung at its fetch); "
+        f"device_lost at the fetch's execute site {walls['async_fetch-0']:.6f}s "
+        f"({pend['async_fetch']}, the host); deadline mode {walls['async_deadline-0']:.6f}s "
+        f"({pend['async_deadline']}: the ladder on an executor worker, the host serving, the "
+        f"report on the calling thread) | card: {smi}")
 
     # the healthy path's cost on the warm first request, in turns whose
     # order alternates (a fixed order would bias one side): the whole
@@ -4434,6 +4586,8 @@ def full_path_phase(smi: str) -> dict:
 
     launches: dict[str, dict] = {}
     solver_mod._solve_packing = bracketed
+    seam_async = solver_mod._solve_packing_async
+    solver_mod._solve_packing_async = async_bracket(spans, seam_async)
     try:
         # ---- 13.1 the benchmark problem through the Provisioner: one
         # warm-up environment, then PROVISION_TURNS fresh ones timed
@@ -4521,6 +4675,7 @@ def full_path_phase(smi: str) -> dict:
             f"({time.perf_counter() - t0:.3f}s) | card: {smi}")
     finally:
         solver_mod._solve_packing = seam
+        solver_mod._solve_packing_async = seam_async
         walls.close()
         topo_batch.prepare = real_prepare
     for name, n in launches.items():
@@ -4785,6 +4940,8 @@ def tick_phase(smi: str) -> dict:
 
     launches: dict[str, dict] = {}
     solver_mod._solve_packing = bracketed
+    seam_async = solver_mod._solve_packing_async
+    solver_mod._solve_packing_async = async_bracket(spans, seam_async)
     try:
         # ---- 14.1 the tick at 50k x 500: rounds 1-2 and steady churn
         t0 = time.perf_counter()
@@ -4929,6 +5086,7 @@ def tick_phase(smi: str) -> dict:
             f"({CPU_REFS.where('pipeline')}) | card: {smi}")
     finally:
         solver_mod._solve_packing = seam
+        solver_mod._solve_packing_async = seam_async
         walls.close()
     for name in ("tick", "micro", "pipeline"):
         n = launches.get(name, {})
@@ -5141,6 +5299,8 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
 
     launches: dict = {}
     solver_mod._solve_packing = bracket(seam, lane=False)
+    seam_async = solver_mod._solve_packing_async
+    solver_mod._solve_packing_async = async_bracket(spans, seam_async)
     kernels.pack_split_flat = bracket(real_split_flat, lane=True)
     kernels.pack_probe_lanes_flat = bracket(real_lanes_flat, lane=True)
     try:
@@ -5312,6 +5472,7 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
             f"{json.dumps(r[7])} | the fleet built in {r[4]:.3f}s | card: {smi}")
     finally:
         solver_mod._solve_packing = seam
+        solver_mod._solve_packing_async = seam_async
         kernels.pack_split_flat, kernels.pack_probe_lanes_flat = real_split_flat, real_lanes_flat
         walls.close()
     served = served_by_device("phase 15", since)
@@ -5550,12 +5711,31 @@ def step_text(rec) -> str:
             f"{instances} instances, {len(pending)} pending")
 
 
+def async_bracket(spans: list, seam_async):
+    """`solver._solve_packing_async` with CUDA events around its dispatch
+    (a healthy solve queues its launches there, on this thread's stream),
+    each (start, end) pair appended to `spans`."""
+    import torch
+
+    def call(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return seam_async(*a, **k)
+        finally:
+            end.record()
+            spans.append((start, end))
+    return call
+
+
 @contextlib.contextmanager
 def card_spans():
     """Within the block, CUDA events bracket every packing call of a
-    Scheduler solve (`solver._solve_packing`) and every lane-solver call
-    outside one (`pack_split_flat`, `pack_probe_lanes_flat`); yields the
-    list the (start, end) pairs are appended to."""
+    Scheduler solve (`solver._solve_packing`, and the dispatch of
+    `solver._solve_packing_async`, the cost race's arms) and every
+    lane-solver call outside one (`pack_split_flat`,
+    `pack_probe_lanes_flat`); yields the list the (start, end) pairs are
+    appended to."""
     import torch
 
     from karpenter_tpu_torch.solver import pack_split as kernels
@@ -5582,12 +5762,15 @@ def card_spans():
         return call
 
     solver_mod._solve_packing = bracket(seam, lane=False)
+    seam_async = solver_mod._solve_packing_async
+    solver_mod._solve_packing_async = async_bracket(spans, seam_async)
     kernels.pack_split_flat = bracket(real_split_flat, lane=True)
     kernels.pack_probe_lanes_flat = bracket(real_lanes_flat, lane=True)
     try:
         yield spans
     finally:
         solver_mod._solve_packing = seam
+        solver_mod._solve_packing_async = seam_async
         kernels.pack_split_flat, kernels.pack_probe_lanes_flat = real_split_flat, real_lanes_flat
 
 
@@ -5986,6 +6169,116 @@ def operator_phase(smi: str) -> dict:
     return {"operator": total_a, "client": total_b}
 
 
+SOAK = "--soak"
+# phase 18: the scenario soak on the card, each spec's report held against
+# device="cpu"'s (the worker's): the smoke trace, the flywheel at the JAX
+# bench arm's horizon, and the sensitivity control (the smoke trace with
+# a 2 s exec delay at the always-fired crash_tick site), which must fail
+SOAK_SPECS = ("smoke", "flywheel", "lag")
+SOAK_FLYWHEEL_S = 600.0
+SOAK_LAG = "exec_delay@crash_tick:*=2s#lag"
+
+
+def soak_spec(name: str):
+    """Phase 18's spec `name` of SOAK_SPECS."""
+    import dataclasses
+
+    from karpenter_tpu_torch.scenarios import flywheel_spec, smoke_spec
+
+    if name == "smoke":
+        return smoke_spec()
+    if name == "flywheel":
+        return flywheel_spec(duration_s=SOAK_FLYWHEEL_S)
+    return dataclasses.replace(smoke_spec(), name="smoke_flywheel_injected",
+                               faults=(SOAK_LAG,))
+
+
+def soak_run(name: str, device: str) -> dict:
+    """`run_soak` of phase 18's spec `name` on `device`: the report's
+    digest, verdict, failing planes, fault log and observations, and the
+    process's hash seed (the drains iterate sets of names, ROADMAP C7)."""
+    from karpenter_tpu_torch.scenarios import run_soak
+
+    report = run_soak(soak_spec(name), device=device)
+    return {"digest": report["report_digest"], "pass": report["pass"],
+            "failures": report["failures"], "fault_log": report["fault_log"],
+            "observations": report["observations"], "planes": report["planes"],
+            "hashseed": os.environ.get("PYTHONHASHSEED")}
+
+
+def soak_phase(smi: str) -> dict:
+    """Phase 18: `run_soak` on the card (`device="cuda"`) for each spec of
+    SOAK_SPECS, its report digest held against device="cpu"'s (computed in
+    the worker, under the same hash seed); the calm specs must pass and
+    the lag control must fail on the sentinel and SLO planes. Per spec the
+    soak's wall, the card's ms in its packing calls and the kernels it
+    launched (the counts zeroed just before, read just after). Returns the
+    launches by spec."""
+    import torch
+
+    from karpenter_tpu_torch.solver import lp_device, lp_plan, resilience
+    from karpenter_tpu_torch.solver import pack_split as kernels
+
+    t_phase = time.perf_counter()
+    resilience.reset()
+    since = ladder_counts()
+    tables = (kernels.LAUNCHES, lp_device.LAUNCHES, lp_plan.LAUNCHES)
+
+    def counts() -> dict:
+        out = {}
+        for table in tables:
+            out.update(table)
+        return out
+
+    launches: dict = {}
+    for name in SOAK_SPECS:
+        with card_spans() as spans:
+            for table in tables:
+                for key in table:
+                    table[key] = 0
+            t0 = time.perf_counter()
+            got = soak_run(name, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            card_ms = sum(a.elapsed_time(b) for a, b in spans)
+            n_calls = len(spans)
+        launches[name] = {k: v for k, v in counts().items() if v}
+        ref, ref_s = CPU_REFS.get(f"soak {name}")
+        if got["hashseed"] != ref["hashseed"]:
+            fail(f"phase 18 {name}: hash seeds differ, the card's process "
+                 f"{got['hashseed']!r}, the CPU worker {ref['hashseed']!r}")
+        if got["digest"] != ref["digest"]:
+            keys = [k for k in ("failures", "fault_log", "observations", "planes")
+                    if got[k] != ref[k]]
+            fail(f"phase 18 {name}: the card's report digest {got['digest'][:16]} differs "
+                 f"from device=\"cpu\"'s {ref['digest'][:16]}: {keys} differ; first "
+                 f"difference {first_difference(got[keys[0]], ref[keys[0]]) if keys else '?'}")
+        want_fail = name == "lag"
+        if want_fail and not {"sentinel", "slo"} <= set(got["failures"]):
+            fail(f"phase 18 lag: the sensitivity control did not fail on sentinel and slo: "
+                 f"{got['failures']}")
+        if not want_fail and not got["pass"]:
+            fail(f"phase 18 {name}: the soak failed on {got['failures']}")
+        obs = got["observations"]
+        need = launches[name].get("pack_split_flat", 0)
+        if not need:
+            fail(f"phase 18 {name}: the soak launched no packing kernel: {launches[name]}")
+        share = card_ms / 1000 / wall if wall > 0 else 0.0
+        say(f"phase 18 soak {name} ({soak_spec(name).name}, {obs['virtual_seconds']} virtual "
+            f"s): {'PASS' if got['pass'] else 'FAIL on ' + ','.join(got['failures'])}, "
+            f"digest {got['digest'][:16]} equal to device=\"cpu\"'s (computed "
+            f"{CPU_REFS.where(f'soak {name}')} in {ref_s:.3f}s) | {obs['ticks']} ticks, "
+            f"{obs['micro_steps']} micro steps, {obs['crashes']} crashes, "
+            f"{obs['events_applied']['create']} creates, {obs['fault_log_len']} faults "
+            f"{obs['fault_kinds']}, fleet {json.dumps(obs['fleet'])} | wall {wall:.3f}s, card "
+            f"{card_ms:.3f} ms in {n_calls} packing calls ({share:.2%}) | launches "
+            f"{json.dumps(launches[name])} | card: {smi}")
+    served = served_by_device("phase 18", since)
+    say(f"phase 18: every packing solve served by the device rung ({json.dumps(served)} ok), "
+        f"none degraded ({time.perf_counter() - t_phase:.3f}s)")
+    return launches
+
+
 # the spilled launches: their source and the JAX program each replaces
 GLOBAL_KERNELS = {
     "pack_split_global": ("pack_split.cu", "karpenter_tpu/solver/pack.py:444"),
@@ -6140,6 +6433,12 @@ def main() -> None:
         CPU_REFS.start(groups=(("operator", "client"),))
         operator_phase(smi)
         say(f"chip_smoke {OPERATOR}: {time.perf_counter() - T_START:.3f}s wall")
+        finish(kind, smi)
+        return
+    if SOAK in sys.argv[1:]:
+        CPU_REFS.start(groups=(tuple(f"soak {n}" for n in SOAK_SPECS),))
+        soak_phase(smi)
+        say(f"chip_smoke {SOAK}: {time.perf_counter() - T_START:.3f}s wall")
         finish(kind, smi)
         return
     if CATALOG in sys.argv[1:]:
@@ -6483,13 +6782,17 @@ def main() -> None:
     operating = operator_phase(smi)
     for name in route_launches:
         route_launches[name] += sum(n.get(name, 0) for n in operating.values())
+    # ---- 18. the scenario soak on the card
+    soaking = soak_phase(smi)
+    for name in route_launches:
+        route_launches[name] += sum(n.get(name, 0) for n in soaking.values())
     later = (*ticking.values(), *disrupting.values(), *environment.values(),
-             *operating.values())
+             *operating.values(), *soaking.values())
     tick_lp = {name: sum(n.get(name, 0) for n in later) for name in ("lp_price", "lp_ascend")}
     for entry in probes["entries"]:
         entry["launches"] += sum(n.get(entry["name"], 0)
                                  for n in (*disrupting.values(), *environment.values(),
-                                           *operating.values()))
+                                           *operating.values(), *soaking.values()))
     report = {"kernels": [
         {"name": "pack_split", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/pack_split.cu",

@@ -2,10 +2,10 @@
 flat-buffer decode around the packing kernels.
 
 Copy of the host half of `karpenter_tpu/solver/pack.py`
-(`PackResult`, the shape buckets, `_estimate_nodes`, the node-axis
-retry of `solve_packing_async` as a synchronous loop, `_run_pack`'s
-bound-block staging, the wavefront routing, the uint32 decode of its
-`fetch`, the consolidation probes' lane width and lane bucket, and the
+(`PackResult`, the shape buckets, `_estimate_nodes`,
+`solve_packing_async` with its `PendingPack` and the node-axis retry at
+the fetch, `_run_pack`'s dispatch with its bound-block staging and its
+`fetch`, the wavefront routing, the uint32 decode, the consolidation probes' lane width and lane bucket, and the
 shard resolution and per-shard staging of a split solve).
 The kernels themselves are in `pack_split.py`: B1
 `pack_split`, B3 `pack_split_wavefront` and B2 `pack_flat_words`,
@@ -367,7 +367,41 @@ def node_axis(enc: Encoded, mode: str = "ffd", plan=None) -> int:
 def solve_packing(enc: Encoded, mode: str = "ffd", plan=None,
                   device: torch.device | str = "cuda",
                   shards: int = 0) -> PackResult:
-    """Host entry: run the packing kernels on the encoded problem.
+    """Host entry: run the packing kernels on the encoded problem;
+    `solve_packing_async(...).result()`."""
+    return solve_packing_async(enc, mode=mode, plan=plan, device=device,
+                               shards=shards).result()
+
+
+class PendingPack:
+    """A dispatched, not yet fetched, device solve.
+
+    `result()` makes the one device-to-host copy, decodes it and, when
+    the node axis proved too small, runs again synchronously on a larger
+    axis. Dispatching without fetching lets the caller overlap host work
+    with the kernels: the cost objective dispatches FFD, runs column
+    generation on the host while the card packs, dispatches the planned
+    arms, then fetches them in order. Every launch goes to the current
+    stream of the dispatching thread, so the card runs the solves in
+    dispatch order; the pending solve holds every tensor its launch reads
+    until its fetch returns."""
+
+    def __init__(self, fetch):
+        self._fetch = fetch
+        self._result: PackResult | None = None
+
+    def result(self) -> PackResult:
+        if self._result is None:
+            self._result = self._fetch()
+            self._fetch = None
+        return self._result
+
+
+def solve_packing_async(enc: Encoded, mode: str = "ffd", plan=None,
+                        device: torch.device | str = "cuda",
+                        shards: int = 0) -> PendingPack:
+    """`solve_packing` that returns once the first kernel attempt is
+    launched; see PendingPack.
 
     With a `plan` (lp_plan.FleetPlan), the planned nodes are pre-opened
     after the existing ones as bound rows on their config column, each
@@ -376,8 +410,8 @@ def solve_packing(enc: Encoded, mode: str = "ffd", plan=None,
     The node axis is sized from a per-group capacity estimate (or the
     axis remembered from the last solve of the same problem), rounded
     to 1.25x-spaced buckets, and grown on a cap hit: when every row of
-    the axis opened and pods are still unschedulable, the solve runs
-    again on a larger axis.
+    the axis opened and pods are still unschedulable, the fetch runs the
+    solve again on a larger axis.
 
     With `shards > 1` (or KARPENTER_SOLVER_SHARDS set) the config axis
     is split over a mesh of that many shards (`_mesh`) and the split
@@ -395,35 +429,41 @@ def solve_packing(enc: Encoded, mode: str = "ffd", plan=None,
     axis_key = _axis_key(enc, mode, existing_used, reserved_p, plan)
     max_nodes = node_axis(enc, mode, plan)
     worst_case = reserved_p + total_pods
-    while True:
-        result = _run_pack(
-            enc, existing_mask, existing_used, max_nodes, mode, quota, device,
-            shards,
-        )
-        capped = (
-            result.node_count >= max_nodes
-            and result.unschedulable.sum() > 0
-        )
-        if not capped or max_nodes > worst_case:
-            if not capped:
-                with _axis_lock:
-                    if len(_axis_memory) > 256:
-                        _axis_memory.clear()
-                    # remember a tight axis from the fresh node count
-                    # actually used
-                    fresh_used = max(0, result.node_count - reserved_p)
-                    _axis_memory[axis_key] = reserved_p + _bucket(
-                        int(fresh_used * 1.15) + 16
-                    )
-            return result
-        # grow proportionally to the observed density
-        scheduled = total_pods - int(result.unschedulable.sum())
-        if scheduled > 0:
-            needed = int(result.node_count * total_pods / scheduled * 1.2)
-        else:
-            needed = max_nodes * 2
-        needed = min(needed, worst_case + 1)
-        max_nodes = _bucket(max(needed, max_nodes + 1))
+    pending = _run_pack(enc, existing_mask, existing_used, max_nodes, mode,
+                        quota, device, shards)
+
+    def fetch() -> PackResult:
+        nonlocal pending, max_nodes
+        while True:
+            result = pending()
+            capped = (
+                result.node_count >= max_nodes
+                and result.unschedulable.sum() > 0
+            )
+            if not capped or max_nodes > worst_case:
+                if not capped:
+                    with _axis_lock:
+                        if len(_axis_memory) > 256:
+                            _axis_memory.clear()
+                        # remember a tight axis from the fresh node count
+                        # actually used
+                        fresh_used = max(0, result.node_count - reserved_p)
+                        _axis_memory[axis_key] = reserved_p + _bucket(
+                            int(fresh_used * 1.15) + 16
+                        )
+                return result
+            # grow proportionally to the observed density
+            scheduled = total_pods - int(result.unschedulable.sum())
+            if scheduled > 0:
+                needed = int(result.node_count * total_pods / scheduled * 1.2)
+            else:
+                needed = max_nodes * 2
+            needed = min(needed, worst_case + 1)
+            max_nodes = _bucket(max(needed, max_nodes + 1))
+            pending = _run_pack(enc, existing_mask, existing_used, max_nodes,
+                                mode, quota, device, shards)
+
+    return PendingPack(fetch)
 
 
 @dataclass
@@ -635,18 +675,22 @@ def _run_pack(
     quota: np.ndarray | None = None,
     device: torch.device = torch.device("cuda"),
     shards: int = 0,
-) -> PackResult:
-    """One kernel attempt: stage, launch, and decode the flat buffer
-    into a PackResult. With `shards > 1` the config axis is split over
-    `_mesh(shards)` and the split kernels run (streaming staging unless
-    KARPENTER_STREAM_ENCODE=0); the flat buffer is the same.
+):
+    """One kernel attempt, in two steps. The dispatch (this call)
+    stages, copies host to device and launches; it returns the fetch, a
+    callable that makes the one device-to-host copy and decodes the
+    flat buffer into a PackResult. The fetch holds the launch's input
+    tensors until it returns. With `shards > 1` the config axis is split
+    over `_mesh(shards)` and the split kernels run (streaming staging
+    unless KARPENTER_STREAM_ENCODE=0); the flat buffer is the same.
 
     The fault sites sit where the JAX package's do, once per kernel
     attempt so that occurrence numbers match: `solve` on entry,
-    `compile` after staging and before the launch, `execute` before the
-    one device-to-host copy; `resilience.note_dispatched()` releases the
-    watchdog's compile budget once the launch has returned (the kernel
-    libraries loaded or built, the kernels queued).
+    `compile` after staging and before the launch (both in the
+    dispatch), `execute` in the fetch, before the one device-to-host
+    copy; `resilience.note_dispatched()` releases the watchdog's compile
+    budget once the launch has returned (the kernel libraries loaded or
+    built, the kernels queued).
 
     Phase timings (`karpenter_solver_phase_duration_seconds`, the
     sentinel, and the `solve.*` spans), taken on the host clock with no
@@ -709,15 +753,32 @@ def _run_pack(
     tracing.record("solve.compile", _t_dispatch, _t_compiled,
                    wavefront=int(wf), warm_hit=_warm_hit, **_tm_attrs)
     resilience.note_dispatched()
+    # the fetch keeps the launch's inputs alive until its copy returns
+    inputs = [args, kwargs]
+
+    def fetch() -> PackResult:
+        faults.fire("execute")
+        # the one device-to-host copy; the buffer holds uint32 words
+        flat = flat_dev.cpu().numpy().view(np.uint32)
+        _t_fetched = time.perf_counter()
+        # "execute" runs from the launch's return, wherever the fetch is
+        result = _decode(enc, staged, flat, wf, shards, _t_compiled, _t_fetched)
+        inputs.clear()
+        return result
+
+    return fetch
+
+
+def _decode(enc: Encoded, staged: Staged, flat: np.ndarray, wf: int,
+            shards: int, _t_exec: float, _t_fetched: float) -> PackResult:
+    """The fetch's half after the copy: the execute phase's records and
+    the flat buffer decoded into a PackResult."""
+    G, C = enc.compat.shape
+    R = enc.group_req.shape[1]
+    N, Gp, Ep, F = staged.N, staged.Gp, staged.Ep, staged.max_free
     W = staged.Cp // 32
     group_req_h = enc.group_req.astype(np.float32)
     pool_overhead_h = enc.pool_overhead
-
-    # the one device-to-host copy; the buffer holds uint32 words
-    faults.fire("execute")
-    _t_exec = time.perf_counter()
-    flat = flat_dev.cpu().numpy().view(np.uint32)
-    _t_fetched = time.perf_counter()
     SOLVER_PHASE_DURATION.observe(_t_fetched - _t_exec, {"phase": "execute"})
     sentinel.observe_phase("execute", _t_fetched - _t_exec)
     _tm_exec: dict = {}

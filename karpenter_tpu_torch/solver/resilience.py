@@ -1,11 +1,12 @@
 """Solver resilience layer: deadlines, circuit breakers, degradation
 ladder, and an FFD hedge around every device-bound solve.
 
-Copy of `karpenter_tpu/solver/resilience.py` on this package's
-synchronous pack. `ResilientSolver` wraps the `solver._solve_packing`
-seam, so every packing solve (ffd, every arm of the cost race, each
-split solve) returns a decision past the faults the ladder exists for:
-degraded, perhaps, but never absent and never late past the deadline.
+Copy of `karpenter_tpu/solver/resilience.py`. `ResilientSolver` wraps
+the `solver._solve_packing` seam and its asynchronous twin
+`solver._solve_packing_async`, so every packing solve (ffd, every arm
+of the cost race, each split solve) returns a decision past the faults
+the ladder exists for: degraded, perhaps, but never absent and never
+late past the deadline.
 
 1. **Deadline watchdog** (`KARPENTER_SOLVE_DEADLINE_MS`,
    `KARPENTER_COMPILE_DEADLINE_MS`): with a deadline set, each rung's
@@ -58,10 +59,27 @@ the solve that succeeded, as in the JAX package; the canary's failure
 keeps the breaker open, and on a CUDA device a failure that is not an
 injected fault is raised (`may_degrade`).
 
-What this package leaves out, each named where it would run: the
-asynchronous seam (`solve_packing_async`, which waits for the cost
-race's overlap) and the `remote` rung (the solver service; a configured
-KARPENTER_SOLVER_ENDPOINT or a ladder naming `remote` raises
+**Asynchronous seam** (`solve_packing_async`, which the cost race
+uses to overlap its host work with the kernels): on the healthy path,
+a local device rung with a closed breaker and no deadline, hedge or
+`remote` rung, the solve is dispatched directly
+(`pack.solve_packing_async`) and only its fetch is guarded
+(`_GuardedPending`): a failure at the `execute` site or in the copy is
+recorded on the breaker at the fetch and falls down the rest of the
+ladder, as in the JAX package. A failure at dispatch is recorded at
+once and the rest of the ladder runs at the fetch (`_LazyPending`).
+Anything else (deadlines, the hedge, an open breaker) runs the whole
+ladder on a worker of a 4-thread executor; the caller thread's
+degradation list is captured at dispatch, so the report lands on the
+calling thread. Workers and watchdog threads launch on the stream of
+the thread they work for (`utils.platform.caller_stream`), so the card
+runs the solves in dispatch order. One difference from the JAX
+package: at the fetch, as everywhere on the card, only a failure that
+`may_degrade` lets through degrades; the JAX `_GuardedPending`
+degrades on any exception.
+
+What this package leaves out: the `remote` rung (the solver service; a
+configured KARPENTER_SOLVER_ENDPOINT or a ladder naming `remote` raises
 `NotImplementedError`).
 
 Observability: karpenter_solver_breaker_state (0 closed / 1 half-open
@@ -92,6 +110,7 @@ from karpenter_tpu_torch.metrics.store import (
 )
 from karpenter_tpu_torch.solver import faults
 from karpenter_tpu_torch.utils.backoff import capped_exponential, jitter
+from karpenter_tpu_torch.utils.platform import caller_stream, on_stream
 
 log = logging.getLogger("karpenter.solver.resilience")
 
@@ -434,9 +453,9 @@ def note_dispatched() -> None:
 
 def _served_list() -> list:
     """The CALLER thread's degradation accumulator. Captured at the
-    public solve entry point and passed through explicitly, so ladders
-    whose attempts run on watchdog threads still report into the thread
-    that will pop_degraded()."""
+    public solve entry points and passed through explicitly, so ladders
+    running on watchdog or executor threads still report into the
+    thread that will pop_degraded()."""
     stack = getattr(_tlocal, "served", None)
     if stack is None:
         stack = _tlocal.served = []
@@ -463,6 +482,63 @@ def _ladder_count(rung: str, outcome: str) -> None:
     SOLVER_LADDER.inc({"rung": rung, "outcome": outcome})
 
 
+class _LazyPending:
+    """PendingPack-compatible wrapper over a deferred resilient solve."""
+
+    def __init__(self, thunk):
+        self._thunk = thunk
+        self._result = None
+
+    def result(self):
+        if self._result is None:
+            self._result = self._thunk()
+        return self._result
+
+
+class _GuardedPending:
+    """A first-rung asynchronous dispatch whose fetch falls down the
+    ladder. The breaker and the ladder's counts are recorded at the
+    fetch, never at the dispatch, so a pending solve that is dropped
+    unfetched records nothing (a half-open admission it held expires
+    after the probe's time to live)."""
+
+    def __init__(self, solver: "ResilientSolver", rung: str, pending, device,
+                 ladder_tail: Callable):
+        self._solver = solver
+        self._rung = rung
+        self._pending = pending
+        self._device = device
+        self._tail = ladder_tail
+        self._result = None
+
+    def result(self):
+        if self._result is not None:
+            return self._result
+        br = self._solver.breaker(self._rung)
+        with tracing.span("solver.rung", rung=self._rung) as rsp:
+            try:
+                out = self._pending.result()
+            except Exception as err:
+                reason = classify(err)
+                _ladder_count(self._rung, reason)
+                rsp.annotate(outcome=reason)
+                if not may_degrade(err, self._device):
+                    raise
+                br.record_failure(reason)
+                log.warning("solver rung %s failed at fetch (%s: %s); "
+                            "degrading", self._rung, reason, err)
+                out = self._tail()
+            else:
+                # the device the close gate's canary launches on
+                _tlocal.device = self._device
+                br.record_success()
+                _ladder_count(self._rung, "ok")
+                rsp.annotate(outcome="ok")
+        self._pending = None
+        self._result = out
+        return out
+
+
 def note_incremental_poison() -> None:
     """The degradation ladder's `incremental_poison` rung: the
     provisioner's incremental live tick caught (or was told about) a
@@ -482,6 +558,8 @@ class ResilientSolver:
     def __init__(self):
         self._breakers: dict[str, CircuitBreaker] = {}
         self._breaker_lock = threading.Lock()
+        self._executor = None
+        self._executor_lock = threading.Lock()
 
     # -- breakers ------------------------------------------------------------
 
@@ -570,13 +648,15 @@ class ResilientSolver:
     # -- attempts ------------------------------------------------------------
 
     def _attempt(self, name: str, fn: Callable, budget: Optional[float],
-                 compile_budget: float):
+                 compile_budget: float, device=None):
         """One rung attempt. Without budgets: inline (no thread). With
-        budgets: on a watchdog thread, compile and execute phases
-        budgeted separately; a miss abandons the thread (daemon: the
-        wedged device call cannot hold a pool slot hostage)."""
+        budgets: on a watchdog thread that launches on the caller's
+        stream, compile and execute phases budgeted separately; a miss
+        abandons the thread (daemon: the wedged device call cannot hold
+        a pool slot hostage)."""
         if not budget and not compile_budget:
             return fn()
+        stream = caller_stream(device)
         ctx = {
             "dispatched": threading.Event(),
             "done": threading.Event(),
@@ -587,7 +667,8 @@ class ResilientSolver:
         def run():
             _tlocal.attempt = ctx
             try:
-                ctx["result"] = fn()
+                with on_stream(stream):
+                    ctx["result"] = fn()
             except BaseException as err:  # noqa: BLE001 — re-raised below
                 ctx["error"] = err
             finally:
@@ -638,12 +719,15 @@ class ResilientSolver:
                             served=_served_list())
 
     def _ladder(self, names: Sequence[str], enc, mode, plan, shards, device,
-                served: Optional[list] = None):
+                served: Optional[list] = None, primary: Optional[str] = None):
         deadline = _env_ms("KARPENTER_SOLVE_DEADLINE_MS")
         compile_budget = _env_ms("KARPENTER_COMPILE_DEADLINE_MS")
         hedge_delay = _env_ms("KARPENTER_SOLVE_HEDGE_MS")
         t_end = time.monotonic() + deadline if deadline else None
-        primary = names[0]
+        # `primary` survives ladder truncation: a tail ladder resumed
+        # after an asynchronous fetch failure still reports host as
+        # degraded relative to the original first rung
+        primary = primary or names[0]
 
         hedge: Optional[dict] = None
         timer: Optional[threading.Timer] = None
@@ -693,7 +777,7 @@ class ResilientSolver:
                     try:
                         fn = self._rung_fn(name, enc, mode, plan, shards, device)
                         result = self._attempt(
-                            name, fn, budget, compile_budget)
+                            name, fn, budget, compile_budget, device)
                     except Exception as err:
                         reason = classify(err)
                         _ladder_count(name, reason)
@@ -740,6 +824,79 @@ class ResilientSolver:
                 timer.cancel()
             if hedge is not None:
                 hedge["cancel"] = True
+
+
+    def solve_packing_async(self, enc, mode: str = "ffd", plan=None,
+                            shards: int = 0,
+                            device: torch.device | str = "cuda"):
+        """Asynchronous `solve_packing`: returns an object whose
+        `result()` is the PackResult. On the healthy path (the first
+        rung a local device rung with a closed breaker, no deadline and
+        no hedge) the kernels are dispatched here, on the caller's
+        stream, and only the fetch is guarded. Anything else (deadlines,
+        the hedge, an open breaker) runs the whole ladder on an executor
+        worker, launching on the caller's stream; the caller overlaps
+        host work with it all the same."""
+        names = self._rungs(shards)
+        served = _served_list()  # the caller thread's report sink
+        deadline_mode = (
+            _env_ms("KARPENTER_SOLVE_DEADLINE_MS")
+            or _env_ms("KARPENTER_COMPILE_DEADLINE_MS")
+            or _env_ms("KARPENTER_SOLVE_HEDGE_MS")
+        )
+        first = names[0]
+        if not deadline_mode and first in ("device", "sharded"):
+            br = self.breaker(first)
+            tail = names[1:]
+
+            def rest():
+                return self._ladder(tail, enc, mode, plan, shards, device,
+                                    served=served, primary=first)
+
+            if br.allow():
+                from karpenter_tpu_torch.solver import pack
+
+                eff = (
+                    self._effective_shards(shards)
+                    if first == "sharded"
+                    else (1 if self._effective_shards(shards) > 1 else shards)
+                )
+                try:
+                    pending = pack.solve_packing_async(
+                        enc, mode=mode, plan=plan, device=device, shards=eff)
+                except Exception as err:
+                    reason = classify(err)
+                    _ladder_count(first, reason)
+                    if not may_degrade(err, device):
+                        raise
+                    br.record_failure(reason)
+                    log.warning(
+                        "solver rung %s failed at dispatch (%s: %s); "
+                        "degrading", first, reason, err)
+                    return _LazyPending(rest)
+                return _GuardedPending(self, first, pending, device, rest)
+            _ladder_count(first, "skipped_open")
+            names = tail
+            if names == ["host"]:
+                return _LazyPending(rest)
+        stream = caller_stream(device)
+
+        def on_worker():
+            with on_stream(stream):
+                return self._ladder(names, enc, mode, plan, shards, device,
+                                    served=served, primary=first)
+
+        return self._get_executor().submit(on_worker)
+
+    def _get_executor(self):
+        with self._executor_lock:
+            if self._executor is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                # the cost race's concurrent arms plus sibling solves
+                self._executor = ThreadPoolExecutor(
+                    max_workers=4, thread_name_prefix="solver-resilient")
+            return self._executor
 
 
 # -- process-wide instance ----------------------------------------------------

@@ -250,6 +250,17 @@ def _solve_packing(enc: Encoded, mode: str, device: torch.device,
         enc, mode=mode, plan=plan, shards=shards, device=device)
 
 
+def _solve_packing_async(enc: Encoded, mode: str, device: torch.device,
+                         plan=None, shards: int = 0):
+    """Dispatch a solve without blocking, with the same ladder guarding
+    the fetch (`resilience.shared().solve_packing_async`): a healthy
+    device solve is launched here and the card computes while the host
+    keeps working; deadline-budgeted or degraded solves run on a worker.
+    Returns an object whose `result()` is the PackResult."""
+    return resilience.shared().solve_packing_async(
+        enc, mode=mode, plan=plan, shards=shards, device=device)
+
+
 def _decode_device(
     enc: Encoded, objective: str, device: torch.device,
     price_hint: Optional[np.ndarray] = None, shards: int = 0,
@@ -301,8 +312,12 @@ def _decode_cost(enc: Encoded, device: torch.device, shards: int = 0) -> Solutio
     winner. Warm solves of the same problem re-run only the winning
     arm while it strictly beats the recorded FFD floor.
 
-    The JAX package overlaps the arms (asynchronous dispatches and
-    worker threads); this port runs them one after another."""
+    The cold race is a pipeline around one card, in the JAX package's
+    order: dispatch FFD, run column generation (`_plan_for`) on the
+    host while FFD's kernels run, dispatch the cost arm and the rank
+    arm, then fetch FFD, cost and rank in that order. Every launch goes
+    to the current stream, so the card runs the arms in dispatch order
+    and only the host overlaps."""
 
     def key(item):
         # only nodes that hold pods count: pre-opened planned rows the
@@ -376,20 +391,25 @@ def _decode_cost(enc: Encoded, device: torch.device, shards: int = 0) -> Solutio
         # the planned pack is missing or not strictly better than the
         # recorded floor: race, reusing the plan and the cost pack
 
-    ffd_result = _solve_packing(enc, "ffd", device, shards=shards)
+    ffd_pending = _solve_packing_async(enc, "ffd", device, shards=shards)
     if plan is None:
         plan = _plan_for(fp, enc, device)
-    candidates = [(ffd_result, _downsize_masks(enc, ffd_result), "ffd")]
-    if cost_tuple is not None:
-        candidates.append(cost_tuple)
-    elif plan is not None:
+    pendings = []
+    if plan is not None and cost_tuple is None:
         arms = ["cost"]
         if dlp is not None and lp_device.rank_beta() > 0:
             # the ranked arm joins the cold race only
             arms.append("rank")
         for arm in arms:
-            arm_result = _solve_packing(arm_enc(arm), "cost", device, plan, shards)
-            candidates.append((arm_result, _downsize_masks(enc, arm_result), arm))
+            pendings.append(
+                (arm, _solve_packing_async(arm_enc(arm), "cost", device, plan, shards)))
+    ffd_result = ffd_pending.result()
+    candidates = [(ffd_result, _downsize_masks(enc, ffd_result), "ffd")]
+    if cost_tuple is not None:
+        candidates.append(cost_tuple)
+    for arm, pending in pendings:
+        arm_result = pending.result()
+        candidates.append((arm_result, _downsize_masks(enc, arm_result), arm))
 
     if len(_ffd_floor) >= 32:
         _ffd_floor.pop(next(iter(_ffd_floor)))

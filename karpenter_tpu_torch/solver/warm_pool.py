@@ -57,6 +57,8 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.utils.platform import caller_stream, on_stream
+
 log = logging.getLogger("karpenter.solver.warmpool")
 
 # (groups, configs, existing/bound rows, fresh node axis) per bucket,
@@ -597,10 +599,13 @@ def start_background(
 
     dev = resolve_device(device)
     stop = threading.Event()
+    # the thread launches on the stream of the thread that started it
+    stream = caller_stream(dev)
 
     def _run() -> None:
         try:
-            counts = warm(shapes, stop=stop, probe_shapes=probe_shapes, device=dev)
+            with on_stream(stream):
+                counts = warm(shapes, stop=stop, probe_shapes=probe_shapes, device=dev)
             log.info("warm pool launched %d shape buckets (%d failed, %d skipped)",
                      counts["ok"], counts["error"], counts["skipped"])
         except Exception:  # never take the operator down

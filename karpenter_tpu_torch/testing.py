@@ -1204,6 +1204,10 @@ class LadderPackage:
     def solve(self):
         return self.resilience.shared().solve_packing(self.enc, mode="ffd", device=self.device)
 
+    def solve_async(self):
+        return self.resilience.shared().solve_packing_async(self.enc, mode="ffd",
+                                                            device=self.device)
+
     def direct(self):
         return pack.solve_packing(self.enc, mode="ffd", device=self.device, shards=1)
 
@@ -1314,6 +1318,14 @@ def ladder_script(pkg: LadderPackage, env: Optional[dict] = None,
        counts `degraded`, the cost solve equals the one without the LP,
        and `dual_certificate` does not run the LP again until the lane
        solver stages again (then, with the LP healthy, it certifies).
+    8. the asynchronous seam (`solve_packing_async`, then `result()` on
+       the calling thread): a healthy solve dispatched directly and
+       served by the device rung at its guarded fetch; device_lost at
+       the fetch's `execute` site, recorded at the fetch and served by
+       the host; an execute stall past KARPENTER_SOLVE_DEADLINE_MS, the
+       whole ladder on an executor worker, served by the host with the
+       degradation report on the calling thread. Each record names the
+       pending object's type.
 
     Abandoned watchdog attempts are drained at the end of each stage, so
     no stalled attempt fires a fault site under the next stage's spec."""
@@ -1344,10 +1356,11 @@ def ladder_script(pkg: LadderPackage, env: Optional[dict] = None,
     def deltas(before):
         return {k: _deltas(c, before[k]) for k, c in counters.items()}
 
-    def run(stage: str, step: int) -> dict:
+    def run(stage: str, step: int, asynchronous: bool = False) -> dict:
         before, br0 = snap(), state()
         t0 = time.perf_counter()
-        out = pkg.solve()
+        pending = pkg.solve_async() if asynchronous else None
+        out = pending.result() if asynchronous else pkg.solve()
         wall = time.perf_counter() - t0
         d = deltas(before)
         served = sorted(k.split("rung=")[1] for k, v in d["ladder"].items()
@@ -1357,6 +1370,8 @@ def ladder_script(pkg: LadderPackage, env: Optional[dict] = None,
                "degraded": res.pop_degraded(), **d, "breaker": [br0, state()],
                "faults": log(), "pack": digest,
                "equals": {"direct": digest == ref["direct"], "host": digest == ref["host"]}}
+        if asynchronous:
+            rec["pending"] = type(pending).__name__
         records.append(rec)
         walls[f"{stage}-{step}"] = wall
         return rec
@@ -1467,6 +1482,19 @@ def ladder_script(pkg: LadderPackage, env: Optional[dict] = None,
             ls.solve_lazy(lanes)
             rec["certificate_after_staging"] = ls.dual_certificate() is not None
             records.append(rec)
+
+        # 8. the asynchronous seam
+        for stage, knobs in (
+            ("async", {}),
+            ("async_fetch", {"KARPENTER_FAULTS": "device_lost@execute:1"}),
+            ("async_deadline", {"KARPENTER_FAULTS": f"exec_delay@execute:1={LADDER_DELAY}",
+                                "KARPENTER_SOLVE_DEADLINE_MS": str(LADDER_DEADLINE_MS)}),
+        ):
+            with scoped_env(knobs):
+                fresh()
+                rec = run(stage, 0, asynchronous=True)
+                res._drain_watchdogs()
+                rec["faults"] = log()
         fresh()
     return records, walls
 
@@ -1504,6 +1532,11 @@ LADDER_EXPECTED = {
                    STATE_CLOSED, "host"),
     ("sharded", 0): (["device"], ["device"],
                      {_fail("sharded", "device_lost"): 1, _ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("async", 0): (["device"], [], {_ok("device"): 1}, STATE_CLOSED, "direct"),
+    ("async_fetch", 0): (["host"], ["host"], {_fail("device", "device_lost"): 1, _ok("host"): 1},
+                         STATE_CLOSED, "host"),
+    ("async_deadline", 0): (["host"], ["host"], {_fail("device", "deadline"): 1, _ok("host"): 1},
+                            STATE_CLOSED, "host"),
 }
 LADDER_FAULTS = {
     "breaker": [["solve", 2, "device_lost"], ["solve", 3, "device_lost"]],
@@ -1511,7 +1544,12 @@ LADDER_FAULTS = {
     "compile_deadline": [["compile", 1, "compile_delay"]],
     "hedge": [["execute", 1, "exec_delay"]],
     "sharded": [["solve", 1, "device_lost"]],
+    "async_fetch": [["execute", 1, "device_lost"]],
+    "async_deadline": [["execute", 1, "exec_delay"]],
 }
+# the pending object each asynchronous stage hands back
+LADDER_PENDING = {"async": "_GuardedPending", "async_fetch": "_GuardedPending",
+                  "async_deadline": "Future"}
 
 
 def ladder_mismatches(records: list, walls: dict) -> list[str]:
@@ -1542,14 +1580,18 @@ def ladder_mismatches(records: list, walls: dict) -> list[str]:
         bad.append(f"breaker: the fifth solve did not half-open and close it: {br[4]}, "
                    f"{solves[('breaker', 4)]['transitions']}")
     for stage, phase in (("deadline", "execute"), ("compile_deadline", "compile"),
-                         ("hedge", "execute")):
+                         ("hedge", "execute"), ("async_deadline", "execute")):
         r = solves.get((stage, 0))
         if r is not None and r["deadline"] != {f"phase={phase}": 1}:
             bad.append(f"{stage}: deadline counts {r['deadline']}")
+    for stage, kind in LADDER_PENDING.items():
+        r = solves.get((stage, 0))
+        if r is not None and r.get("pending") != kind:
+            bad.append(f"{stage}: pending {r.get('pending')}, expected {kind}")
     r = solves.get(("hedge", 0))
     if r is not None and r["hedge"] != {"outcome=fired": 1, "outcome=win": 1}:
         bad.append(f"hedge: counts {r['hedge']} in {walls.get('hedge_attempts')} attempts")
-    for stage in ("deadline", "hedge"):
+    for stage in ("deadline", "hedge", "async_deadline"):
         wall = walls.get(f"{stage}-0")
         budget = LADDER_DEADLINE_MS / 1000 + 2 * walls.get("host_s", 0.0) + 0.5
         if wall is not None and wall >= budget:

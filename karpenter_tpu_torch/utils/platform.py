@@ -10,9 +10,18 @@ state, and the slots exchange only their partial reductions.
 
 Without `force_virtual_mesh`, the visible devices are the real ones:
 `torch.cuda.device_count()` for the card, 1 for the CPU.
+
+Streams: every kernel launches on its thread's current stream, and
+torch keeps one current stream a thread. A thread that launches for
+another (the resilience ladder's workers and watchdog, the warm pool)
+takes the stream of the thread it works for (`caller_stream`,
+`on_stream`), so the card runs every solve in dispatch order and the
+caching allocator's stream-ordered reuse stays safe.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -41,3 +50,18 @@ def real_devices(device: torch.device | str | None = None) -> int:
     if kind == "cuda":
         return torch.cuda.device_count()
     return 1
+
+
+def caller_stream(device) -> "torch.cuda.Stream | None":
+    """The calling thread's current stream on `device` when it is a CUDA
+    device; None for the CPU, for no device, and where torch has no CUDA
+    runtime (no stream exists to follow)."""
+    if device is None or torch.device(device).type != "cuda" or not torch.cuda.is_available():
+        return None
+    return torch.cuda.current_stream(torch.device(device))
+
+
+def on_stream(stream):
+    """Context in which this thread's launches go to `stream` (from
+    `caller_stream`); nothing changes for None."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()

@@ -14,7 +14,7 @@
     `NotImplementedError` for nothing (`evict` is ported).
     So do `testing.Environment()`, `warm_pool.warm`, `start_background`,
     `rewarm_canary` and `lp_device.warm`, before any bucket, and the
-    `Operator`. The binary `python -m karpenter_tpu_torch` without a card
+    `Operator` and `scenarios.run_soak`. The binary `python -m karpenter_tpu_torch` without a card
     and without `--device cpu` exits non-zero; `--solver-endpoint`
     raises `NotImplementedError` naming ROADMAP item 8.
 (e) importing `karpenter_tpu_torch` and one CPU solve load neither
@@ -24,7 +24,9 @@
     Environment stream with the warm pool and the exposition, nor the
     operator's main path and the real-client stack
     (`testing.operator_run`, `client_run`), nor the binary
-    `python -m karpenter_tpu_torch --demo 5 --run-seconds 1 --device cpu`.
+    `python -m karpenter_tpu_torch --demo 5 --run-seconds 1 --device cpu`,
+    nor a soak and a cold cost race through the asynchronous seam;
+    importing `karpenter_tpu_torch.deploy` does not import `yaml`.
 (f) no file of the port, and not `chip_smoke.py`, imports `jax` or
     `karpenter_tpu` (AST check).
 """
@@ -536,3 +538,42 @@ def test_operator_and_real_client_load_no_jax():
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == [] and report["crashes"] == 1 and report["nodes"] == 3
+
+
+def test_soak_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from karpenter_tpu_torch.scenarios import run_soak, smoke_spec
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_soak(smoke_spec(duration_s=40.0))
+
+
+def test_soak_and_async_race_load_no_jax():
+    """A soak (`run_soak(smoke_spec(), device="cpu")`) and a cold cost
+    race through the asynchronous seam load neither `jax` nor
+    `karpenter_tpu`; nor does importing `karpenter_tpu_torch.deploy`
+    import `yaml`."""
+    code = (
+        "import sys, json\n"
+        "import karpenter_tpu_torch.deploy\n"
+        "no_yaml = 'yaml' not in sys.modules\n"
+        "from karpenter_tpu_torch.scenarios import run_soak, smoke_spec\n"
+        "report = run_soak(smoke_spec(duration_s=60.0), device='cpu')\n"
+        "from karpenter_tpu_torch.solver.solver import solve\n"
+        "from karpenter_tpu_torch.workloads import build_problem\n"
+        "pods, pools = build_problem(300, 12, seed=4)\n"
+        "sol = solve(pods, pools, device='cpu', objective='cost')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'karpenter_tpu'"
+        " or m.startswith('karpenter_tpu.')]\n"
+        "print(json.dumps({'bad': bad, 'no_yaml': no_yaml, 'pass': report['pass'],"
+        " 'lp': sol.lp is not None}))\n"
+    )
+    # one hash seed: a soak's verdict depends on it (ROADMAP C7)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONHASHSEED="0")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"bad": [], "no_yaml": True, "pass": True, "lp": True}

@@ -419,13 +419,18 @@ class TestLadder:
         solve(pods, pools, device="cpu")
         assert SOLVER_LADDER.value({"rung": "device", "outcome": "ok"}) == before + 1
         calls = []
-        real = resilience.ResilientSolver.solve_packing
 
-        def spy(self, enc, mode="ffd", **kw):
-            calls.append(mode)
-            return real(self, enc, mode=mode, **kw)
+        def spy(name):
+            real = getattr(resilience.ResilientSolver, name)
 
-        monkeypatch.setattr(resilience.ResilientSolver, "solve_packing", spy)
+            def entry(self, enc, mode="ffd", **kw):
+                calls.append(mode)
+                return real(self, enc, mode=mode, **kw)
+            return entry
+
+        # the cold race dispatches its arms through the asynchronous seam
+        for name in ("solve_packing", "solve_packing_async"):
+            monkeypatch.setattr(resilience.ResilientSolver, name, spy(name))
         solve(pods, pools, device="cpu", objective="cost")
         assert "ffd" in calls and "cost" in calls
 
@@ -677,6 +682,9 @@ class JaxLadder(LadderPackage):
 
     def solve(self):
         return self.resilience.shared().solve_packing(self.enc, mode="ffd")
+
+    def solve_async(self):
+        return self.resilience.shared().solve_packing_async(self.enc, mode="ffd")
 
     def direct(self):
         return jpack.solve_packing(self.enc, mode="ffd", shards=1)
