@@ -51,11 +51,22 @@
                                     # scenario soak on the card, held
                                     # against device="cpu"
     python3 chip_smoke.py --b5-against DIR
-                                    # phases 1-2, then B5's 2048 layout
-                                    # here against the checkout DIR's: its
-                                    # time on reserved_50k's LP in turns
-                                    # (DIR, here, here, DIR) and each
-                                    # lp_ascend kernel's machine code
+                                    # phases 1-2, then B5 here against the
+                                    # checkout DIR's: its time on
+                                    # reserved_50k's LP (the 2048 layout),
+                                    # the 4096-config bucket shape and
+                                    # aws_catalog_50k's LP (the wide one,
+                                    # with phase clocks and chain floor)
+                                    # in turns (DIR, here, here, DIR) and
+                                    # each lp_ascend kernel's machine code
+    python3 chip_smoke.py --b6-against DIR
+                                    # phases 1-2, then B6's wavefront
+                                    # program here against DIR's, in
+                                    # turns: phase 8's first chunk (phase
+                                    # clocks, chain floor) and
+                                    # lane_cases(0) at 10 and 64 lanes;
+                                    # each pack_wavefront kernel's
+                                    # machine code
     python3 chip_smoke.py --against DIR
                                     # phases 1-2, then `compare_timings`
                                     # in the checkout DIR (e.g. the
@@ -226,7 +237,9 @@ processes are stopped when the script ends.
                 plain versions on seeded lane cases (both modes,
                 reservations, conflicts, padded lanes, widths 8 and 16)
                 and on the first cycle's first chunk, whose every lane
-                row also equals B1/B3 + B2 run alone on that lane. The
+                row also equals B1/B3 + B2 run alone on that lane; B6
+                wavefront also on every launch shape of arm (c) (and of
+                phases 15 and 16, `hold_b6_shapes`). The
                 pruner: `LaneSolver.dual_certificate()` on the first
                 cycle's staging (B5 once, then timed and clocked on the
                 certificate's own inputs), `ProbePruner.cannot_pay` on
@@ -237,7 +250,7 @@ processes are stopped when the script ends.
                 equal decisions and per-lane solutions. Then B6's and
                 the epilogue's CUDA-event times on the recorded chunk,
                 per dispatch and per lane, their plain versions', their
-                bounds, the clusters the card holds at once and the
+                bounds, the lanes the card holds at once and the
                 memory the wavefront program took; B6 sequential's lane 0
                 and the lane with the most demand alone, and the phase
                 clocks of both; the
@@ -606,7 +619,7 @@ WIDE_ITERS_DEFAULT = 8
 BARRIER_PROBE = 20_000
 # the consolidation phase: bench.py's consolidation_500 (its defaults
 # in workloads.consolidation_fleet), a mid-size fleet for the
-# card-against-CPU check, the cluster widths held on seeded lane cases
+# card-against-CPU check, the wavefront widths held on seeded lane cases
 # and the lane width the CPU run forces
 MID_FLEET = (3000, 60)
 # the argument that runs phases 1-3 and 5 only (`quick_timing`), and
@@ -902,6 +915,57 @@ def hold(kernels, case, err: dict, widths=(16,)) -> str:
             f"Cp={args[0].shape[1]} B={B} F={case.max_free}: nodes={int(got[2])} "
             f"bound_pods={int(got[0][:B].sum())} unsched={int(got[3].sum())} "
             f"rounds {' '.join(rounds)} identical")
+
+
+@contextlib.contextmanager
+def b6_wavefront_shapes(kernels):
+    """Within the block, the first B6 wavefront launch of each distinct
+    shape (lanes, groups, configs, bound rows, free rows, mode, width) on
+    the card keeps its inputs and outputs, cloned: {shape: (args, kwargs,
+    outputs)}, for `hold_b6_shapes`."""
+    import torch
+
+    real = kernels.pack_probe_lanes_wavefront
+    rec: dict = {}
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def call(*a, **k):
+        out = real(*a, **k)
+        key = (tuple(a[2].shape), tuple(a[0].shape), a[7].shape[0], k.get("max_free"),
+               k.get("mode"), k.get("width"))
+        if a[0].is_cuda and key not in rec:
+            rec[key] = ([clone(x) for x in a], {n: clone(v) for n, v in k.items()},
+                        [clone(o) for o in out])
+        return out
+
+    kernels.pack_probe_lanes_wavefront = call
+    try:
+        yield rec
+    finally:
+        kernels.pack_probe_lanes_wavefront = real
+
+
+def hold_b6_shapes(kernels, rec: dict, label: str) -> str:
+    """Each launch `b6_wavefront_shapes` kept, against the plain version
+    on the same inputs: every output (assign, free_mask, node_count,
+    unsched, steps, widths) byte for byte."""
+    import torch
+
+    if not rec:
+        fail(f"{label}: no B6 wavefront launch to hold")
+    host = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x  # noqa: E731
+    shapes = []
+    for (lanes, (G, C), B, F, mode, W), (a, k, got) in rec.items():
+        want = kernels.pack_probe_lanes_wavefront_ref(
+            *[host(x) for x in a], **{n: host(v) for n, v in k.items()})
+        if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
+            fail(f"{label}: B6 wavefront at L={lanes[0]} Gp={G} Cp={C} B={B} F={F} {mode} "
+                 f"W={W} differs from pack_probe_lanes_wavefront_ref")
+        shapes.append(f"L={lanes[0]} Gp={G} Cp={C} B={B} F={F} {mode} W={W}")
+    return (f"  {label}: B6 wavefront byte-identical to its plain version on each of its "
+            f"{len(rec)} launch shapes ({'; '.join(shapes)})")
 
 
 def same_bits(a, b) -> bool:
@@ -2050,8 +2114,9 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     kernels.pack_probe_lanes_flat = spans.wrap(pack_probe_lanes_flat)
     kernels.pack_split_flat = spans.wrap(real_split_flat)
     try:
-        arm_c = drive("arm (c)", lambda: consolidation_ladder(
-            *fleet, batched=True, device="cuda", fresh=arm_a.fresh))
+        with b6_wavefront_shapes(kernels) as arm_c_shapes:
+            arm_c = drive("arm (c)", lambda: consolidation_ladder(
+                *fleet, batched=True, device="cuda", fresh=arm_a.fresh))
     finally:
         cb.LaneSolver.solve_lazy, kernels.pack_probe_lanes_flat = real_lazy, real_flat
         kernels.pack_split_flat = real_split_flat
@@ -2156,6 +2221,7 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     say(f"  first chunk ({n_real} lanes padded to {Lp}): B6 and the lane epilogue "
         f"byte-identical to the plain versions, every lane row equal to B1/B3 + B2 "
         f"alone ({time.perf_counter() - t0:.3f}s)")
+    say(hold_b6_shapes(kernels, arm_c_shapes, "arm (c)"))
 
     # ---- the pruner on the first cycle's staging
     first_cycle = arm_c.first
@@ -2295,7 +2361,7 @@ def probe_phase(kernels, cb, lp_device, cuda_build, err: dict, smi: str) -> dict
     say(f"phase 8 timing on the first chunk ({n_real} lanes, Lp={Lp}, Gp={Gp} Cp={Cp} "
         f"B={B} F={F} R={R}, W={W}): B6 wavefront {', '.join(f'{x:.4f}' for x in wf_runs)} "
         f"ms ({wf_ms / n_real:.6f} ms a lane, most rounds {int(out_wf[4].max())}, "
-        f"{kernels.ACTIVE_CLUSTERS.get(W, 0)} clusters of {W} at once, {wf_mem} bytes "
+        f"{kernels.ACTIVE_LANES.get('pack_probe_lanes_wavefront', 0)} lanes at once, {wf_mem} bytes "
         f"allocated, {shape_bytes} by the shapes); B6 sequential "
         f"{', '.join(f'{x:.4f}' for x in seq_runs)} ms ({seq_ms / n_real:.6f} "
         f"ms a lane, {kernels.LANE_THREADS} threads a block); lane "
@@ -3180,16 +3246,18 @@ def flat_route_timing(kernels, args, kw, F: int, W: int, smi: str) -> dict:
             "epilogue_plain_ms": ep_plain_ms, "epilogue_bytes": ep_bytes, "host_us": host}
 
 
-def ascent_clocks(kernels, lp_device, a, n_iters: int, ms: float) -> tuple[str, int]:
+def ascent_clocks(kernels, lp_device, a, n_iters: int, ms: float) -> tuple[str, int, int]:
     """One run of B5 from its phase-clock build: each phase's share of
     block 0's cycles, the us an iteration from the CUDA-event time `ms`
-    of the normal build, and the block barriers of the launch (returned
-    with the text)."""
+    of the normal build, and the block and cluster barriers of the launch
+    (block 0's; returned with the text)."""
     with kernels.phase_clocks("lp_ascend") as take:
         lp_device.ascend(a, n_iters)
         clk = take()
     n = clk.pop("count")
     barriers = clk.pop("barriers")
+    cbarriers = clk.pop("cluster barriers", 0)
+    cregions = clk.pop("cluster regions", {})
     regions = clk.pop("regions")
     clk.pop("ns")
     total = sum(clk.values())
@@ -3200,8 +3268,31 @@ def ascent_clocks(kernels, lp_device, a, n_iters: int, ms: float) -> tuple[str, 
     inside = ", ".join(f"{k} {v / n:.0f}" for k, v in regions.items())
     return (f"{n} iterations, {1000 * ms / n:.3f} us an iteration (CUDA events), "
             f"{total / n:.0f} cycles an iteration on block 0, {barriers} block barriers "
-            f"({barriers / n:.1f} an iteration) | {shares} | regions inside the phases, "
-            f"cycles an iteration on the thread that runs each: {inside}"), barriers
+            f"({barriers / n:.1f} an iteration), {cbarriers} cluster barriers "
+            f"({cbarriers / n:.1f} an iteration) | {shares} | regions inside the phases, "
+            f"cycles an iteration on the thread that runs each: {inside}"
+            + (" | the cluster's d ratio pass, cycles an iteration on block 0's thread 0: "
+               + ", ".join(f"{k} {v / n:.0f}" for k, v in cregions.items()) if cbarriers else "")
+            ), barriers, cbarriers
+
+
+def ascent_floor(lp_device, a, barriers: int, cbarriers: int) -> tuple[str, float]:
+    """The floor of B5's chain of barriers on `a`: its block barriers
+    times one block barrier alone (`lp_device.barrier_probe`), and its
+    wide layout's cluster barriers times one barrier of a cluster of its
+    size (`cluster_barrier_probe`, where the tree has it). Returns the
+    text and the ms."""
+    probe = lambda fn: 1000 * (event_ms(lambda: fn(BARRIER_PROBE), 5)  # noqa: E731
+                               - event_ms(lambda: fn(0), 5)) / BARRIER_PROBE
+    per = probe(lp_device.barrier_probe)
+    ms = barriers * per / 1000
+    text = f"{barriers} block barriers x {per:.4f} us (one barrier of the block alone)"
+    S = getattr(lp_device, "ascent_cluster", lambda G, C: 0)(*a.compat.shape)
+    if S and cbarriers:
+        cper = probe(lambda n: lp_device.cluster_barrier_probe(n, S))
+        ms += cbarriers * cper / 1000
+        text += f" + {cbarriers} cluster barriers x {cper:.4f} us (a cluster of {S} alone)"
+    return f"{text} = {ms:.6f} ms floor", ms
 
 
 def ascent_timing(kernels, lp_device, name: str, a, n_iters: int, err: dict,
@@ -3223,15 +3314,10 @@ def ascent_timing(kernels, lp_device, name: str, a, n_iters: int, err: dict,
         f"R={a.req.shape[1]} Kp={a.onehot.shape[0]}, {n_iters} iterations): "
         f"{ms:.6f} ms, plain {plain_ms:.3f} ms, ops={ops} bytes={nb} bound {b_ms:.6f} ms "
         f"({by}); {smem} | card: {smi}")
-    text, barriers = ascent_clocks(kernels, lp_device, a, n_iters, ms)
+    text, barriers, cbarriers = ascent_clocks(kernels, lp_device, a, n_iters, ms)
     say(f"  B5 phase clocks on {name}: {text}")
-    if hasattr(lp_device, "barrier_probe"):
-        t0 = event_ms(lambda: lp_device.barrier_probe(0), 5)
-        t1 = event_ms(lambda: lp_device.barrier_probe(BARRIER_PROBE), 5)
-        per_us = 1000 * (t1 - t0) / BARRIER_PROBE
-        say(f"  B5's chain of barriers on {name}: {barriers} barriers x {per_us:.4f} us "
-            f"(one barrier of the block alone) = {barriers * per_us / 1000:.6f} ms floor, "
-            f"against {ms:.6f} ms")
+    say(f"  B5's chain of barriers on {name}: "
+        f"{ascent_floor(lp_device, a, barriers, cbarriers)[0]}, against {ms:.6f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound": b_ms, "by": by}
 
 
@@ -3324,58 +3410,222 @@ LANES = "--lanes"
 # `--against DIR`: phases 1-2, then `compare_timings` in DIR (a checkout
 # of another commit, e.g. the parent) and here, in turns
 AGAINST = "--against"
-# `--b5-against DIR`: phases 1-2, then B5's 2048 layout against the
-# checkout DIR's (`b5_against`)
+# `--b5-against DIR`: phases 1-2, then `b5_timings` in the checkout DIR
+# and here, in turns (`b5_against`)
 B5_AGAINST = "--b5-against"
-# the B5 timing a turn of `b5_against` runs in a checkout (its own
-# package): reserved_50k's LP staged from its encode, 3 x 20 launches
-B5_TURN = r"""
-import json, sys, torch
-sys.path.insert(0, ".")
-from karpenter_tpu_torch import cuda_build
-from karpenter_tpu_torch.solver import lp_device
-from karpenter_tpu_torch.solver.encode import encode, group_pods
-from karpenter_tpu_torch.workloads import build_problem
-cuda_build.library("lp_ascend")
-pods, pools = build_problem(50000, 500, seed=42, reservations=True, zonal_frac=0.1)
-a = lp_device.ascent_inputs(lp_device._stage(encode(group_pods(pods), pools))).to("cuda")
-n = lp_device.iters()
-lp_device.ascend(a, n)
-torch.cuda.synchronize()
-ms = []
-for _ in range(3):
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(20):
+# `--b6-against DIR`: phases 1-2, then `b6_timings` in the checkout DIR
+# and here, in turns
+B6_AGAINST = "--b6-against"
+# the timed launches of a B5 shape in `b5_timings`: 3 x this many
+B5_TURN_REPS = {"reserved_50k's LP": 20, "the 4096-config bucket shape": 5,
+                "aws_catalog_50k's LP": 5}
+
+
+def b5_timings() -> None:
+    """B5 through a tree's own public wrappers, printed as one JSON line
+    (`b5_against` runs it in each tree in turns, each turn a fresh process
+    from that tree's root, its package first on sys.path, building its
+    libraries on first use): reserved_50k's LP staged from its encode (the
+    2048 layout), the warm pool's 4096-config bucket shape
+    (`ascent_wide_cases`' 243 x 4438) and aws_catalog_50k's LP (the wide
+    layout), the ascent's iterations each, three timings of
+    `B5_TURN_REPS` launches; the wide shapes' phase clocks and the floor
+    of their chain of barriers (`ascent_floor`)."""
+    import torch
+
+    from karpenter_tpu_torch import cuda_build
+
+    from karpenter_tpu_torch.solver import lp_device
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.solver.encode import encode, group_pods
+    from karpenter_tpu_torch.testing import ascent_wide_cases
+    from karpenter_tpu_torch.workloads import aws_catalog_50k, build_problem
+
+    cuda_build.build_all()
+    n = lp_device.iters()
+    pods, pools = build_problem(COST_PODS, COST_TYPES, seed=SEED, reservations=True,
+                                zonal_frac=COST_ZONAL)
+    (_, bucket), = ascent_wide_cases(0, names=("wide-c4438-g243",))
+    cpods, cpools = aws_catalog_50k(CATALOG_TYPES)
+    shapes = {
+        "reserved_50k's LP": lp_device.ascent_inputs(
+            lp_device._stage(encode(group_pods(pods), pools))),
+        "the 4096-config bucket shape": bucket,
+        "aws_catalog_50k's LP": lp_device.ascent_inputs(
+            lp_device._stage(encode(group_pods(cpods), cpools))),
+    }
+    out = {}
+    for name, a in shapes.items():
+        a = a.to("cuda")
         lp_device.ascend(a, n)
-    e.record()
+        torch.cuda.synchronize()
+        ms = [event_ms(lambda: lp_device.ascend(a, n), B5_TURN_REPS[name]) for _ in range(3)]
+        out[f"B5 {name}"] = ms
+        Gp, Cp = a.compat.shape
+        out[f"B5 {name} shape"] = (f"Gp={Gp} Cp={Cp} R={a.req.shape[1]} Kp={a.onehot.shape[0]}, "
+                                   f"{n} iterations; {lp_device.ASCENT_SMEM.get('lp_ascend')}")
+        if lp_device.ascent_wide(Gp, Cp):
+            text, barriers, cbarriers = ascent_clocks(kernels, lp_device, a, n,
+                                                      statistics.mean(ms))
+            out[f"B5 {name} clocks"] = text
+            out[f"B5 {name} chain floor"] = ascent_floor(lp_device, a, barriers, cbarriers)[0]
+    print(json.dumps(out), flush=True)
+
+
+def b6_timings() -> None:
+    """B6's wavefront program through a tree's own public wrappers,
+    printed as one JSON line (`--b6-against` runs it in each tree in
+    turns, as `b5_against` does): phase 8's first chunk (`first_chunk`),
+    three timings of 10 dispatches, lane 0 alone, the lanes on the card at
+    once, each phase's share of a round on block 0 (lane 0) from the
+    phase-clock build and the chain floor (the rounds' barriers x one
+    barrier of the kind they take); `lane_cases(0)`'s first case at 10 and
+    64 lanes; B6 sequential on the chunk beside it."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import cuda_build
+
+    from karpenter_tpu_torch.solver import consolidation_batch as cb
+    from karpenter_tpu_torch.solver import pack_split as kernels
+    from karpenter_tpu_torch.testing import lane_cases
+
+    cuda_build.build_all()
+    out = {}
+    args, kw, F, mode, W, n_real = first_chunk(kernels, cb)
+    one = list(args)
+    one[2], one[10] = args[2][:1].contiguous(), args[10][:1].contiguous()
+    wf = lambda a=args: kernels.pack_probe_lanes_wavefront(  # noqa: E731
+        *a, max_free=F, mode=mode, width=W, **kw)
+    seq = lambda: kernels.pack_probe_lanes(*args, max_free=F, mode=mode, **kw)  # noqa: E731
+    got = wf()
     torch.cuda.synchronize()
-    ms.append(s.elapsed_time(e) / 20)
-print(json.dumps({"shape": list(a.compat.shape), "ms": ms}))
-"""
+    out["B6 wavefront chunk"] = [event_ms(wf, 10) for _ in range(3)]
+    wf(one)
+    out["B6 wavefront chunk lane 0 alone"] = event_ms(lambda: wf(one), 10)
+    seq()
+    out["B6 sequential chunk"] = event_ms(seq, 10)
+    Gp, Cp = args[0].shape
+    out["B6 wavefront chunk shape"] = (
+        f"L={args[2].shape[0]} ({n_real} real) Gp={Gp} Cp={Cp} B={args[7].shape[0]} F={F} "
+        f"W={W}, rounds {got[4].tolist()}; {kernels.DYNAMIC_SMEM.get('pack_probe_lanes_wavefront')}"
+        f"; at once: clusters of {W} {getattr(kernels, 'ACTIVE_CLUSTERS', {}).get(W)} (a "
+        f"cluster a lane), lanes "
+        f"{getattr(kernels, 'ACTIVE_LANES', {}).get('pack_probe_lanes_wavefront')} (a block a lane)")
+    # the plans of a design that plans a round's candidates in lane order up
+    # to the first rejected, against W a round
+    plans = 0
+    for lane in range(args[2].shape[0]):
+        left = int((args[2][lane] > 0).sum())
+        for w in got[5][lane][:int(got[4][lane])].tolist():
+            plans += min(w + 1, left, W)
+            left -= w
+    out["B6 wavefront chunk plans made"] = (
+        f"{int(got[5].sum())} groups committed in {int(got[4].sum())} rounds over "
+        f"{args[2].shape[0]} lanes: {plans} plans in lane order up to the first rejected, "
+        f"against {W * int(got[4].sum())} at W={W} plans a round")
+    ms = statistics.mean(out["B6 wavefront chunk"])
+    out["B6 wavefront chunk clocks"] = phase_breakdown(kernels, "pack_wavefront", wf, ms,
+                                                       "round")
+    probe = getattr(kernels, "wave_barrier_probe", None)
+    if probe is not None:
+        # lane 0's plans: a round plans its candidates in lane order up to
+        # the first rejected (at most W, at most the groups left)
+        left, plans = int((args[2][0] > 0).sum()), 0
+        for w in got[5][0][:int(got[4][0])].tolist():
+            plans += min(w + 1, left, W)
+            left -= w
+        t0 = event_ms(lambda: probe(0), 5)
+        t1 = event_ms(lambda: probe(BARRIER_PROBE), 5)
+        per = 1000 * (t1 - t0) / BARRIER_PROBE
+        bars = 3 * int(got[4][0]) + 7 * plans
+        out["B6 wavefront chunk chain floor"] = (
+            f"lane 0: {int(got[4][0])} rounds, {plans} plans; at least {bars} block barriers "
+            f"(3 a round, 7 a plan besides its opens) x {per:.4f} us = "
+            f"{bars * per / 1000:.6f} ms")
+    for n_lanes in (10, 64):
+        lc = lane_cases(0, n_lanes=n_lanes)[0]
+        largs = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in lc.args]
+        lkw = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).cuda()
+               for k, v in lc.kwargs.items()}
+        fn = lambda: kernels.pack_probe_lanes_wavefront(  # noqa: E731
+            *largs, max_free=lc.max_free, width=16, **lkw)
+        fn()
+        out[f"B6 wavefront lane_cases(0) {n_lanes} lanes"] = event_ms(fn, 10)
+    print(json.dumps(out), flush=True)
+
+
+def in_turns(other: str, func: str, smi: str, label: str, *fargs) -> list:
+    """`func` of this script in the checkout `other` (another commit, e.g.
+    the parent, unpacked with `git archive`) and in this one, in turns
+    (other, here, here, other), each in a process of its own from its
+    tree's root, that tree's package first on sys.path; prints each key's
+    four values and returns the four JSON records."""
+    other = os.path.abspath(other)
+    if not os.path.isdir(os.path.join(other, "karpenter_tpu_torch")):
+        fail(f"{label} {other}: no karpenter_tpu_torch there")
+    script = os.path.join(HERE, "chip_smoke.py")
+    runs = []
+    for tree in (other, HERE, HERE, other):
+        call = ", ".join(repr(x) for x in fargs)
+        code = (f"import runpy, sys; sys.path.insert(0, {tree!r}); "
+                f"runpy.run_path({script!r})[{func!r}]({call})")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
+                             text=True, timeout=1200)
+        if out.returncode != 0:
+            fail(f"{func} in {tree} exited {out.returncode}: {out.stderr[-4000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        say(f"  {func} in {tree}: {time.perf_counter() - t0:.3f}s")
+    say(f"{label} {other}: in turns (there, here, here, there) | card: {smi}")
+    for key in runs[1]:
+        vals = [r.get(key) for r in runs]
+        if all(isinstance(v, float) for v in vals):
+            say(f"  {key}: there {vals[0]:.6f}, {vals[3]:.6f}; here {vals[1]:.6f}, "
+                f"{vals[2]:.6f}")
+        elif all(isinstance(v, list) for v in vals):
+            fmt = lambda v: ", ".join(f"{x:.6f}" for x in v)  # noqa: E731
+            say(f"  {key}: there {fmt(vals[0])} / {fmt(vals[3])}; here {fmt(vals[1])} / "
+                f"{fmt(vals[2])}")
+        else:
+            say(f"  {key}: there {vals[0]}; here {vals[1]}")
+    for key in runs[0]:
+        if key not in runs[1]:
+            say(f"  {key} (there only): {runs[0][key]}; {runs[3][key]}")
+    return runs
+
+
+def sass_compare(other: str, lib: str) -> None:
+    """Whether each kernel of library `lib` has the same machine code in
+    the checkout `other` as here, kernel by kernel."""
+    there, here = sass_digests(os.path.abspath(other), lib), sass_digests(HERE, lib)
+    if not there or not here:
+        say(f"  SASS {lib}: not compared (no build or no cuobjdump)")
+        return
+    same = sorted(k for k in here if there.get(k) == here[k])
+    differ = sorted(k for k in here if k in there and there[k] != here[k])
+    say(f"  SASS {lib}: identical {', '.join(same) or 'none'}; differ "
+        f"{', '.join(differ) or 'none'}; here only "
+        f"{', '.join(sorted(set(here) - set(there))) or 'none'}")
 
 
 def b5_against(other: str, smi: str) -> None:
-    """B5's 2048 layout here against the checkout `other` (the parent's,
-    unpacked with git archive): each tree's B5 time on reserved_50k's LP
-    in turns (other, here, here, other; each turn a fresh process of that
-    tree, building its libraries on first use), then the machine code of
-    each `lp_ascend` kernel in both trees, kernel by kernel."""
-    for turn, tree in enumerate((other, HERE, HERE, other)):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-c", B5_TURN], cwd=tree,
-                             env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
-                             text=True, timeout=900)
-        if out.returncode != 0:
-            fail(f"B5 timing in {tree} exited {out.returncode}: {out.stderr[-3000:]}")
-        rec = json.loads(out.stdout.strip().splitlines()[-1])
-        say(f"  B5 turn {turn} ({'this tree' if tree == HERE else other}): reserved_50k's LP "
-            f"{rec['shape']}, " + ", ".join(f"{m:.6f}" for m in rec["ms"])
-            + f" ms ({time.perf_counter() - t0:.3f}s) | card: {smi}")
-    there, here = sass_digests(other, "lp_ascend"), sass_digests(HERE, "lp_ascend")
-    say("  lp_ascend machine code: " + "; ".join(
-        f"{k} {'identical' if k in there and there[k] == here.get(k) else ('new' if k not in there else 'CHANGED')}"
-        for k in sorted(set(there) | set(here))))
+    """`--b5-against DIR`: `b5_timings` in the checkout DIR and here in
+    turns, then the machine code of each `lp_ascend` kernel in both
+    trees, kernel by kernel."""
+    in_turns(other, "b5_timings", smi, B5_AGAINST)
+    sass_compare(other, "lp_ascend")
+
+
+def b6_against(other: str, smi: str) -> None:
+    """`--b6-against DIR`: `b6_timings` in the checkout DIR and here in
+    turns, then the machine code of each `pack_wavefront` kernel in both
+    trees, kernel by kernel."""
+    in_turns(other, "b6_timings", smi, B6_AGAINST)
+    sass_compare(other, "pack_wavefront")
+
+
 # `--dense`: phases 1-2, then phase 9 alone on the full-width problems
 # staged through `dense_problems`
 DENSE = "--dense"
@@ -4155,7 +4405,9 @@ def sass_digests(tree: str, lib: str) -> dict:
             name = kernel_name(m.group(1))
             funcs[name] = hashlib.sha256()
         elif name:
-            funcs[name].update(line.encode())
+            # the dump pads its columns to its longest line: compare the
+            # instructions and encodings, not the padding
+            funcs[name].update(" ".join(line.split()).encode())
     return {k: v.hexdigest() for k, v in funcs.items()}
 
 
@@ -4183,54 +4435,19 @@ def ptxas_usage(text: str) -> str:
 def against(other: str, smi: str) -> None:
     """`--against DIR`: `compare_timings` in the checkout DIR (another
     commit, e.g. the parent, unpacked with `git archive`) and in this
-    one, in turns (DIR, here, here, DIR), each in a process of its own
-    from its tree's root; prints each kernel's four times, then whether
-    the machine code of B1, B3 and B2 is the same in both trees, kernel
-    by kernel."""
+    one, in turns (`in_turns`; B7's problems staged once, by the first
+    turn), then whether the machine code of B1, B3 and B2 is the same in
+    both trees, kernel by kernel."""
     import shutil
     import tempfile
 
-    other = os.path.abspath(other)
-    if not os.path.isdir(os.path.join(other, "karpenter_tpu_torch")):
-        fail(f"{AGAINST} {other}: no karpenter_tpu_torch there")
-
-    script = os.path.join(HERE, "chip_smoke.py")
     scratch = tempfile.mkdtemp(prefix="chip_smoke_dense_")
-    cache = os.path.join(scratch, "problems.pkl")  # the first run stages B7's problems
-    runs = []
-    for tree in (other, HERE, HERE, other):
-        code = (f"import runpy, sys; sys.path.insert(0, {tree!r}); "
-                f"runpy.run_path({script!r})['compare_timings']({cache!r})")
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
-                             text=True, timeout=1200)
-        if out.returncode != 0:
-            fail(f"compare_timings in {tree} exited {out.returncode}: {out.stderr[-4000:]}")
-        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        say(f"  compare_timings in {tree}: {time.perf_counter() - t0:.3f}s")
-    say(f"{AGAINST} {other}: in turns (there, here, here, there) | card: {smi}")
-    for key in runs[1]:
-        vals = [r.get(key) for r in runs]
-        if all(isinstance(v, float) for v in vals):
-            say(f"  {key}: there {vals[0]:.6f}, {vals[3]:.6f} ms; here {vals[1]:.6f}, "
-                f"{vals[2]:.6f} ms")
-        else:
-            say(f"  {key}: there {vals[0]}; here {vals[1]}")
-    for key in runs[0]:
-        if key not in runs[1]:
-            say(f"  {key} (there only): {runs[0][key]}; {runs[3][key]}")
-    shutil.rmtree(scratch, ignore_errors=True)
-    # the machine code of the kernels each tree built, kernel by kernel
+    try:
+        in_turns(other, "compare_timings", smi, AGAINST, os.path.join(scratch, "problems.pkl"))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     for lib in ("pack_split", "pack_wavefront", "pack_flat"):
-        there, here = sass_digests(other, lib), sass_digests(HERE, lib)
-        if not there or not here:
-            say(f"  SASS {lib}: not compared (no build or no cuobjdump)")
-            continue
-        same = sorted(k for k in here if there.get(k) == here[k])
-        differ = sorted(k for k in here if k in there and there[k] != here[k])
-        say(f"  SASS {lib}: identical {', '.join(same) or 'none'}; differ "
-            f"{', '.join(differ) or 'none'}; here only "
-            f"{', '.join(sorted(set(here) - set(there))) or 'none'}")
+        sass_compare(other, lib)
 
 
 def ladder_counts() -> dict:
@@ -5314,7 +5531,8 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
         t0 = time.perf_counter()
         per: list = []
         reset_launches()
-        env, rounds = stream(card, DISRUPT_FLEET, env=env, per=per)
+        with b6_wavefront_shapes(kernels) as engine_shapes:
+            env, rounds = stream(card, DISRUPT_FLEET, env=env, per=per)
         final_now = T + 100 * len(rounds) + 100
         env.pod_events.reconcile_all(now=final_now)
         env.conditions.reconcile_all(now=final_now)
@@ -5382,6 +5600,8 @@ def disrupt_phase(smi: str, card: str = "cuda") -> dict:
         say(f"  first B6 chunk (L={a[2].shape[0]}, Gp={a[0].shape[0]}, Cp={a[0].shape[1]}, "
             f"wavefront {kw.get('wavefront', 0)}): byte-identical to "
             f"pack_probe_lanes_flat_ref")
+        if engine_shapes:
+            say(hold_b6_shapes(kernels, engine_shapes, "phase 15's stream"))
 
         # ---- 15.3 the same stream's first round with the batch off and
         # with the pruner off; the probe methods on the final fleet so
@@ -5824,7 +6044,7 @@ def environment_phase(smi: str) -> dict:
     for table in tables:
         for name in table:
             table[name] = 0
-    with card_spans() as spans:
+    with card_spans() as spans, b6_wavefront_shapes(kernels) as env_shapes:
         start = counts()
         mark.update(t=time.perf_counter(), c=start)
         t0 = time.perf_counter()
@@ -5885,6 +6105,8 @@ def environment_phase(smi: str) -> dict:
         f"{total['probe_capped_retry']:.0f} regrown; flat launches {total['pack_split_flat']} "
         f"= solves + solo; the controllers' "
         f"{sum(len(v) for v in gauges.values())} gauge series equal to the CPU run's")
+    if env_shapes:
+        say(hold_b6_shapes(kernels, env_shapes, "phase 16's stream"))
     say(f"phase 16: every packing solve served by the device rung ({json.dumps(served)} ok), "
         f"none degraded; launches {json.dumps({k: v for k, v in total.items() if v})} "
         f"({time.perf_counter() - t_phase:.3f}s)")
@@ -6366,6 +6588,10 @@ def main() -> None:
         return
     if B5_AGAINST in sys.argv[1:]:
         b5_against(sys.argv[sys.argv.index(B5_AGAINST) + 1], smi)
+        finish(kind, smi)
+        return
+    if B6_AGAINST in sys.argv[1:]:
+        b6_against(sys.argv[sys.argv.index(B6_AGAINST) + 1], smi)
         finish(kind, smi)
         return
     if AGAINST in sys.argv[1:]:

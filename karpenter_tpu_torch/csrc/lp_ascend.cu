@@ -60,19 +60,45 @@
 // wrapper from the bytes: lp_device.ascent_layout).
 //
 // The wide layout (`kWide`, padded group or config axis past kMaxAxis =
-// 2048; `lp_ascend_wide_kernel`, `lp_ascend_sharded_wide_kernel`): the
-// same iteration with the three fields that the 2048 layout keeps narrow
-// widened. A column maximum's first tied group and its tie count are two
-// 32-bit words (`A_TINFO` doubles) where the 2048 layout packs two 16-bit
-// halves into one; an ordered sum over more than 64 windows (a warp's
-// lanes hold two window sums each in the 2048 layout) takes its windows
-// 32 at a time, a lane a window, each window of windows summed in order
-// as it is made, up to three levels of windows (`wide_total`); a d ratio
-// row walks a third level past 1024 windows; and the bound's dot is one
-// multiply-add chain in order from 4096 terms on, where XLA emits it as
-// a kernel of its own (lp_device.DOT_SCALAR_FROM). The 2048 layout's
-// instantiations compile to the code they had (every wide branch is
-// `if constexpr`).
+// 2048): the same iteration with the three fields that the 2048 layout
+// keeps narrow widened. A column maximum's first tied group and its tie
+// count are two 32-bit words (`A_TINFO` doubles) where the 2048 layout
+// packs two 16-bit halves into one; an ordered sum over more than 64
+// windows is taken up to three levels of windows (`wide_total`); the
+// bound's dot is one multiply-add chain in order from 4096 terms on, where
+// XLA emits it as a kernel of its own (lp_device.DOT_SCALAR_FROM). The
+// 2048 layout's instantiations compile to the code they had (every wide
+// and every cluster branch is `if constexpr`).
+//
+// Unsplit, the wide layout runs as one thread-block cluster of S blocks
+// (`lp_ascend_cluster_kernel`, S = lp_device.ascent_cluster: up to 16,
+// the H100's largest, a non-portable size), because one block's shared
+// memory cannot hold its tables past 2048 axes (at 243 x 4438 one block
+// kept 1 MB in global scratch) and one SM's issue rate bounded its column
+// maxima and its d ratio rows. The config axis is split on the windows of
+// the ordered sums: block b takes windows [b nw / S, (b + 1) nw / S) after
+// XLA's front padding, so each of its windows is whole and its window
+// sums are XLA's. Every block keeps lam, the per-group state and its
+// share of the config-axis tables in its own shared memory (`ClusterX`,
+// the cluster's arrays `ExtArr` after the block's); other blocks' data is
+// read through distributed shared memory (`map_shared_rank`), between
+// cluster barriers. An iteration takes six: theta's maximum, mu's maxima
+// and theta's ties, mu's ties, dtheta_b's window sums, the d ratio rows'
+// window sums, and the gradient. The maxima and integer counts are
+// order-free; the ordered sums over configs (dtheta_b and the [G, R] d
+// ratio rows) add each block's window sums in XLA's order by one reader
+// (`run32`, `thread_total`: a thread a row's window of windows, then a
+// thread a row over those, for block b's groups [b G / S, (b + 1) G / S)),
+// never by atomics; the gradient is then gathered from the blocks that
+// made it. A column shared by configs of several blocks is one: its
+// maxima are taken once, by one block (round robin over the cluster's
+// distinct columns), and read by the others. Each d ratio mask word is
+// cleared as it is read. What bounds it: the iteration's serial chains
+// (the bound's dot, dtheta_a, the norm, mu . budget, replicated in every
+// block over the group axis) and the six cluster barriers (~0.7 us each
+// on an H100, PERF.md §6), beside the column maxima's walk of compatible
+// groups. The split wide kernel (`lp_ascend_sharded_wide_kernel`) runs
+// the block's iteration as before.
 //
 // B8, split B5 (lp_device.py:430-452, the ascent under
 // KARPENTER_LP_SHARDS): the same code over the config axis split into S
@@ -89,6 +115,10 @@
 // multiply-adds are explicit __fmaf_rn).
 
 #include "pack_common.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -124,9 +154,14 @@ enum Region {
 };
 constexpr int kRegionSlot = 16;
 
+// the wide layout's cluster regions inside its d ratio pass, into slots
+// kClusterRegionSlot + region (pack_split.CLUSTER_REGIONS)
+enum ClusterRegion { CR_WS, CR_WS_WAIT, CR_ROWS, CR_GRAD_WAIT, CR_GATHER, CR_REGIONS };
+constexpr int kClusterRegionSlot = 10;
+
 #ifdef KARPENTER_PHASE_CLOCKS
 __device__ __forceinline__ unsigned long long* region_acc() {
-  __shared__ unsigned long long acc[R_REGIONS];
+  __shared__ unsigned long long acc[R_REGIONS + CR_REGIONS];
   return acc;
 }
 struct RegionTimer {
@@ -138,11 +173,20 @@ struct RegionTimer {
   __device__ void stop(int region) {
     if (on) region_acc()[region] += (unsigned long long)(clock64() - t0);
   }
+  // the cycles since the last lap into cluster region `cr`
+  __device__ void lap(int cr) {
+    if (on) {
+      const long long t1 = clock64();
+      region_acc()[R_REGIONS + cr] += (unsigned long long)(t1 - t0);
+      t0 = t1;
+    }
+  }
 };
 #else
 struct RegionTimer {
   __device__ explicit RegionTimer(bool) {}
   __device__ void stop(int) {}
+  __device__ void lap(int) {}
 };
 #endif
 
@@ -151,6 +195,26 @@ __device__ __forceinline__ void bar() {
   __syncthreads();
 #ifdef KARPENTER_PHASE_CLOCKS
   if (threadIdx.x == 0) ++bar_count();
+#endif
+}
+
+// phase-clock slot of the wide layout's cluster barriers
+constexpr int kClusterBarrierSlot = 15;
+
+#ifdef KARPENTER_PHASE_CLOCKS
+__device__ __forceinline__ unsigned& cbar_count() {
+  __shared__ unsigned n;
+  return n;
+}
+#endif
+
+// a barrier of the wide layout's cluster (every thread of its blocks),
+// counted in a phase-clock build; it orders the blocks' shared-memory
+// writes before it against their reads after it
+__device__ __forceinline__ void cbar() {
+  cg::this_cluster().sync();
+#ifdef KARPENTER_PHASE_CLOCKS
+  if (threadIdx.x == 0) ++cbar_count();
 #endif
 }
 
@@ -221,13 +285,16 @@ __host__ __device__ __forceinline__ int win_front(int n) {
 
 __host__ __forceinline__ bool is_wide(int G, int C) { return G > kMaxAxis || C > kMaxAxis; }
 
-__host__ __forceinline__ long long arr_bytes(int i, int G, int C, int R, int K) {
+// the bytes of array i of a block of G groups and C configs over nw
+// windows (`wide`: two-word tie records)
+__host__ __forceinline__ long long arr_bytes(int i, int G, int C, int R, int K, bool wide,
+                                             int nw_) {
   const long long g = G, c = C, r = R, k = K;
-  const long long nw = win_count(C), gw = (G + 31) / 32;
+  const long long nw = nw_, gw = (G + 31) / 32;
   switch (i) {
     case A_LAM: case A_GRAD: case A_CNT: case A_CW: case A_BEST: return 4 * g;
     case A_RATIO: case A_DRATIO: case A_REQ: return 4 * g * r;
-    case A_TINFO: return (is_wide(G, C) ? 8 : 4) * c * r;
+    case A_TINFO: return (wide ? 8 : 4) * c * r;
     case A_MM: case A_QX: case A_ALLOC: return 4 * c * r;
     case A_UIDX: case A_CFLAG: case A_PRICE: case A_VH0: case A_Z: case A_EXCESS:
     case A_DX: case A_TB: case A_TY: case A_NCOMP: case A_ULIST: return 4 * c;
@@ -282,6 +349,109 @@ struct Ctx {
   __device__ unsigned* colbits() const { return at<unsigned>(A_COLBITS); }
   __device__ unsigned* masks() const { return at<unsigned>(A_MASKS); }
 };
+
+// ---- the wide layout over a cluster (`lp_ascend_cluster_kernel`): the
+// config axis split into S blocks of whole windows of the ordered sums
+// (XLA's 32-term windows after its front padding), block b taking windows
+// [b * nw / S, (b + 1) * nw / S); lam and the per-group state replicated
+// in every block; the d ratio rows of groups [b * G / S, (b + 1) * G / S)
+// combined by block b. The cluster's own arrays, placed after the
+// block's (lp_device.ascent_layout):
+enum ExtArr {
+  E_MUL,   // u32 [K] this block's maxima of mu (bits, non-negative)
+  E_NML,   // u32 [K] this block's ties of mu and masked zeros
+  E_WTB,   // f32 [nwb] dtheta_b's window sums over this block's windows
+  E_WS,    // f32 [G, R, nwb] d ratio's window sums over this block's windows
+  E_SCAL,  // u32 [8] theta's block maximum (bits), the block's theta ties,
+           //   the norm (bits), the block's distinct columns, its firsts
+           //   among the cluster's, the cluster's distinct columns it takes
+  E_WMAP,  // u32 [nw] each window of the cluster's: its block << 16 | its index there
+  E_PART,  // f32 [ceil(G / S), R, min(32, nw2)] the sums of the windows of
+           //   windows of this block's d ratio rows (of dtheta_b, its first)
+  // the cluster's distinct columns: a column shared by configs of several
+  // blocks is one, its maxima taken by one block (d % S for the cluster's
+  // d-th distinct column in config order, in its slot d / S)
+  E_UHASH,  // u32 [C] a hash of each distinct column of this block
+  E_UREP,   // u32 [C] its first in the cluster (block << 20 | its index
+            //   there), then where its maxima are (block << 20 | slot)
+  E_UGIDX,  // u32 [C] a first's number in the cluster (this block's, then
+            //   the cluster's)
+  E_OBITS,  // u32 [C, Gw] the compat bits of the columns this block takes
+  E_ONC,    // u32 [C] their compatible groups
+  E_OMM,    // f32 [C, R] their maxima
+  E_OTI,    // u32 [C, R, 2] their first tied groups and tie counts
+  E_COUNT
+};
+
+__host__ __forceinline__ long long ext_bytes(int i, int G, int C, int R, int K, int nwb,
+                                             int nw, int S) {
+  switch (i) {
+    case E_MUL: case E_NML: return 4LL * K;
+    case E_WTB: return 4LL * nwb;
+    case E_WS: return 4LL * G * R * nwb;
+    case E_SCAL: return 32;
+    case E_UHASH: case E_UREP: case E_UGIDX: case E_ONC: return 4LL * C;
+    case E_OBITS: return 4LL * C * ((G + 31) / 32);
+    case E_OMM: return 4LL * C * R;
+    case E_OTI: return 8LL * C * R;
+    case E_WMAP: return 4LL * nw;
+    case E_PART: {
+      const int nw2 = nw <= 32 ? 1 : win_count(nw);
+      return 4LL * ((G + S - 1) / S) * R * (nw2 < 32 ? nw2 : 32);
+    }
+  }
+  return 0;
+}
+
+struct ClusterLayout {
+  long long off[E_COUNT];  // as Layout's
+};
+
+// a block's share of the cluster (X of the Ascent): every block of the
+// cluster computes its own from the shape alone
+struct ClusterX {
+  static constexpr bool kSplit = false;
+  ClusterLayout E;
+  unsigned char* scratch;      // the cluster's scratch, scratch_bytes a block
+  long long scratch_bytes;
+  int S, rank, C, G, nw, front, nwb, c0, g0, g1;
+
+  // (32-bit: nw <= 2^15, G <= 2^20, S <= 16)
+  __host__ __device__ static int first_window(int b, int nw, int S) { return b * nw / S; }
+  // the block of window w, and of group g's d ratio rows
+  __device__ int owner(int w) const {
+    const int b = ((w + 1) * S - 1) / nw;
+    return b < S ? b : S - 1;
+  }
+  __device__ int group_owner(int g) const {
+    const int b = ((g + 1) * S - 1) / G;
+    return b < S ? b : S - 1;
+  }
+  // array `off` (a Layout's or E's offset) of block r, in its shared
+  // memory through the cluster or in its scratch
+  template <class T>
+  __device__ T* remote(long long off, int r, unsigned char* smem) const {
+    if (off >= 0) return cg::this_cluster().map_shared_rank(reinterpret_cast<T*>(smem + off), r);
+    return reinterpret_cast<T*>(scratch + (size_t)r * scratch_bytes + ~off);
+  }
+};
+
+template <class X>
+constexpr bool kIsCluster = false;
+template <>
+constexpr bool kIsCluster<ClusterX> = true;
+
+// configs [c0, c1) and windows [w0, w1) of block b of S over C configs
+__host__ __device__ inline void cluster_range(int C, int S, int b, int& c0, int& c1, int& w0,
+                                              int& w1) {
+  const int nw = win_count(C), front = win_front(C);
+  w0 = ClusterX::first_window(b, nw, S);
+  w1 = ClusterX::first_window(b + 1, nw, S);
+  c0 = 32 * w0 - front;
+  c0 = c0 < 0 ? 0 : c0;
+  c1 = 32 * w1 - front;
+  c1 = b == S - 1 || c1 > C ? C : c1;
+}
 
 // the scalars of an iteration, shared by the block
 struct Scalars {
@@ -462,6 +632,51 @@ __device__ float wide_total(FW wsum, int nw) {
   return tot;
 }
 
+// the in-order sum, from +0, of the window sums wsum(p) at p = p0 + i, i
+// < 32, of those in [0, nw) (a window of windows after XLA's padding),
+// read eight at a time ahead of their adds; by one thread
+template <class FW>
+__device__ __forceinline__ float run32(FW wsum, int nw, int p0) {
+  float s = 0.0f;
+  for (int i0 = 0; i0 < 32; i0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = p0 + i0 + j;
+      v[j] = wsum(p < 0 ? 0 : (p < nw ? p : nw - 1));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = p0 + i0 + j;
+      if (p >= 0 && p < nw) s = __fadd_rn(s, v[j]);
+    }
+  }
+  return s;
+}
+
+// wide_total's sum by one thread of the cluster: window w's sum is
+// wsum(w) (in another block's shared memory, mostly)
+template <class FW>
+__device__ __forceinline__ float thread_total(FW wsum, int nw) {
+  if (nw <= 32) return run32(wsum, nw, 0);
+  const int nw2 = win_count(nw), front2 = win_front(nw);
+  float tot = 0.0f;
+  if (nw2 <= 32) {
+    for (int W = 0; W < nw2; ++W) tot = __fadd_rn(tot, run32(wsum, nw, W * 32 - front2));
+    return tot;
+  }
+  const int nw3 = win_count(nw2), front3 = win_front(nw2);
+  for (int V = 0; V < nw3; ++V) {
+    float s3 = 0.0f;
+    for (int i = 0; i < 32; ++i) {
+      const int W = V * 32 + i - front3;
+      if (W >= 0 && W < nw2) s3 = __fadd_rn(s3, run32(wsum, nw, W * 32 - front2));
+    }
+    tot = __fadd_rn(tot, s3);
+  }
+  return tot;
+}
+
 // warp_sum_prod of the wide layout: the same terms, any n
 template <class FX, class FY>
 __device__ float wide_sum_prod(FX xf, FY yf, int n) {
@@ -592,8 +807,22 @@ __device__ float xla_dot_warp(FA af, FB bf, int n, bool initial) {
 
 // ---- the ascent
 
+// the windows and the front padding of a block's masks: its C configs',
+// or its windows of the cluster's config axis
+template <class X>
+__device__ __forceinline__ int block_windows(const X& x, int C) {
+  if constexpr (kIsCluster<X>) return x.nwb;
+  else return win_count(C);
+}
+template <class X>
+__device__ __forceinline__ int block_front(const X& x, int C) {
+  if constexpr (kIsCluster<X>) return x.rank == 0 ? x.front : 0;
+  else return win_front(C);
+}
+
 template <class X, bool kWide>
 struct Ascent {
+  static constexpr bool kCluster = kIsCluster<X>;
   const Args& a;
   const Ctx t;
   Scalars& s;
@@ -605,7 +834,37 @@ struct Ascent {
   __device__ Ascent(const Args& a_, const Ctx t_, Scalars& s_, X& x_, PhaseClock& clk_)
       : a(a_), t(t_), s(s_), x(x_), clk(clk_), tid(threadIdx.x), lane(threadIdx.x & 31),
         warp(threadIdx.x >> 5), G(a_.G), C(a_.C), R(a_.R), K(a_.K), Gw((a_.G + 31) / 32),
-        nwc(win_count(a_.C)), frontc(win_front(a_.C)) {}
+        nwc(block_windows(x_, a_.C)), frontc(block_front(x_, a_.C)) {}
+
+  // the cluster's arrays: this block's, and block r's
+  template <class T>
+  __device__ T* ext(int e) const {
+    const long long o = x.E.off[e];
+    return reinterpret_cast<T*>(o >= 0 ? t.smem + o : t.scratch + ~o);
+  }
+  template <class T>
+  __device__ T* ext_of(int e, int r) const { return x.template remote<T>(x.E.off[e], r, t.smem); }
+  template <class T>
+  __device__ T* arr_of(int i, int r) const { return x.template remote<T>(t.L.off[i], r, t.smem); }
+  // entry k of the cluster's array e in each block (0 past the last),
+  // the loads issued together
+  template <class T>
+  struct Gathered {
+    T v[16];
+    __device__ const T& operator[](int r) const { return v[r]; }
+  };
+  template <class T>
+  __device__ Gathered<T> gather(int e, int k) const {
+    Gathered<T> g;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) g.v[r] = r < x.S ? ext_of<T>(e, r)[k] : T(0);
+    return g;
+  }
+  // the full config axis (the cluster's, else the block's)
+  __device__ int c_all() const {
+    if constexpr (kCluster) return x.C;
+    else return C;
+  }
 
   __device__ float mm_of(int c, int r) const { return t.mm()[t.uidx()[c] * R + r]; }
 
@@ -646,8 +905,10 @@ struct Ascent {
     for (int i = tid; i < C * Gw; i += kAscThreads) {
       const int c = i / Gw, w = i % Gw;
       unsigned bits = 0u;
-      for (int b = 0; b < 32 && 32 * w + b < G; ++b)
-        bits |= (a.compat[(size_t)(32 * w + b) * C + c] ? 1u : 0u) << b;
+      for (int b = 0; b < 32 && 32 * w + b < G; ++b) {
+        if constexpr (kCluster) bits |= (a.compat[(size_t)(32 * w + b) * x.C + x.c0 + c] ? 1u : 0u) << b;
+        else bits |= (a.compat[(size_t)(32 * w + b) * C + c] ? 1u : 0u) << b;
+      }
       t.colbits()[c * Gw + w] = bits;
     }
     for (int c = tid; c < C; c += kAscThreads) {
@@ -655,8 +916,13 @@ struct Ascent {
       for (int r = 0; r < R; ++r) f |= (a.valid[c * R + r] ? 1u : 0u) << r;
       if (a.uncapped[c]) f |= 1u << 16;
       int slot = -1;
-      for (int k = 0; k < K && slot < 0; ++k)
-        if (a.onehot[(size_t)k * C + c]) slot = k;
+      for (int k = 0; k < K && slot < 0; ++k) {
+        if constexpr (kCluster) {
+          if (a.onehot[(size_t)k * x.C + x.c0 + c]) slot = k;
+        } else if (a.onehot[(size_t)k * C + c]) {
+          slot = k;
+        }
+      }
       f |= (unsigned)(slot + 1) << 17;
       t.cflag()[c] = f;
       t.price()[c] = a.price[c];
@@ -686,6 +952,86 @@ struct Ascent {
     }
     bar();
     for (int c = tid; c < C; c += kAscThreads) t.uidx()[c] = t.tinfo()[t.uidx()[c]];
+    if constexpr (kCluster)
+      for (int w = tid; w < x.nw; w += kAscThreads) {
+        const int b = x.owner(w);
+        ext<unsigned>(E_WMAP)[w] = (unsigned)b << 16 | (unsigned)(w - ClusterX::first_window(b, x.nw, x.S));
+      }
+    bar();
+    if constexpr (kCluster) cluster_columns();
+  }
+
+  // ---- the cluster's distinct columns (E_UHASH ... E_OTI): each
+  // distinct column of this block is matched against the earlier blocks'
+  // (a hash, then the bits); the firsts are numbered in config order and
+  // sent, bits and compatible count, to the block that takes their maxima
+  __device__ void cluster_columns() {
+    const int nu = (int)s.nu;
+    unsigned* hash = ext<unsigned>(E_UHASH);
+    unsigned* rep = ext<unsigned>(E_UREP);
+    unsigned* gidx = ext<unsigned>(E_UGIDX);
+    unsigned* scal = ext<unsigned>(E_SCAL);
+    for (int u = tid; u < nu; u += kAscThreads) {
+      const unsigned* b = t.colbits() + t.ulist()[u] * Gw;
+      unsigned h = 2166136261u;
+      for (int w = 0; w < Gw; ++w) h = (h ^ b[w]) * 16777619u;
+      hash[u] = h;
+    }
+    if (tid == 0) scal[3] = (unsigned)nu;
+    cbar();
+    for (int u = tid; u < nu; u += kAscThreads) {
+      const unsigned h = hash[u];
+      const unsigned* mine = t.colbits() + t.ulist()[u] * Gw;
+      unsigned found = (unsigned)x.rank << 20 | (unsigned)u;
+      for (int b = 0; b < x.rank && found >> 20 == (unsigned)x.rank; ++b) {
+        const int nub = (int)ext_of<unsigned>(E_SCAL, b)[3];
+        const unsigned* hb = ext_of<unsigned>(E_UHASH, b);
+        const unsigned* lb = arr_of<unsigned>(A_ULIST, b);
+        const unsigned* cb = arr_of<unsigned>(A_COLBITS, b);
+        for (int v = 0; v < nub; ++v) {
+          if (hb[v] != h) continue;
+          const unsigned* other = cb + lb[v] * Gw;
+          bool same = true;
+          for (int w = 0; w < Gw && same; ++w) same = other[w] == mine[w];
+          if (same) {
+            found = (unsigned)b << 20 | (unsigned)v;
+            break;
+          }
+        }
+      }
+      rep[u] = found;
+    }
+    bar();
+    if (tid == 0) {
+      unsigned n = 0u;
+      for (int u = 0; u < nu; ++u)
+        if (rep[u] >> 20 == (unsigned)x.rank) gidx[u] = n++;
+      scal[4] = n;
+    }
+    cbar();
+    unsigned prefix = 0u, D = 0u;
+    for (int b = 0; b < x.S; ++b) {
+      const unsigned nb = ext_of<unsigned>(E_SCAL, b)[4];
+      prefix += b < x.rank ? nb : 0u;
+      D += nb;
+    }
+    for (int u = tid; u < nu; u += kAscThreads) {
+      if (rep[u] >> 20 != (unsigned)x.rank) continue;
+      const unsigned d = prefix + gidx[u];
+      gidx[u] = d;
+      const int o = (int)(d % (unsigned)x.S), j = (int)(d / (unsigned)x.S);
+      const unsigned* b = t.colbits() + t.ulist()[u] * Gw;
+      unsigned* ob = ext_of<unsigned>(E_OBITS, o) + (size_t)j * Gw;
+      for (int w = 0; w < Gw; ++w) ob[w] = b[w];
+      ext_of<unsigned>(E_ONC, o)[j] = t.ncomp()[u];
+    }
+    if (tid == 0) scal[5] = D > (unsigned)x.rank ? (D - x.rank + x.S - 1) / x.S : 0u;
+    cbar();
+    for (int u = tid; u < nu; u += kAscThreads) {
+      const unsigned f = rep[u];
+      const unsigned d = ext_of<unsigned>(E_UGIDX, (int)(f >> 20))[f & 0xfffffu];
+      rep[u] = d % (unsigned)x.S << 20 | d / (unsigned)x.S;
+    }
     bar();
   }
 
@@ -699,14 +1045,99 @@ struct Ascent {
     }
   }
 
-  __device__ void zero_accumulators() {
+  // (the cluster's d ratio pass clears each mask word as it reads it:
+  // its masks are cleared here before the first iteration alone)
+  __device__ void zero_accumulators(bool first = true) {
     for (int k = tid; k < K; k += kAscThreads) {
       t.mu()[k] = 0u;
       t.nm()[k] = 0u;
+      if constexpr (kCluster) ext<unsigned>(E_MUL)[k] = 0u;
     }
-    for (int i = tid; i < G * R * nwc; i += kAscThreads) t.masks()[i] = 0u;
+    if (!kCluster || first)
+      for (int i = tid; i < G * R * nwc; i += kAscThreads) t.masks()[i] = 0u;
     for (int i = tid; i < nwc; i += kAscThreads) t.tbmask()[i] = 0u;
     if (tid == 0) s.nz = 0u;
+  }
+
+  // ---- the cluster's column maxima: the columns this block takes (as
+  // `forward` takes a block's, a few lanes a column), then each distinct
+  // column of this block's from the block that took it
+  __device__ void cluster_colmax(int nu) {
+    RegionTimer rt(tid == 0);
+    const int own = (int)ext<unsigned>(E_SCAL)[5];
+    const unsigned* obits = ext<unsigned>(E_OBITS);
+    const unsigned* onc = ext<unsigned>(E_ONC);
+    float* omm = ext<float>(E_OMM);
+    unsigned* oti = ext<unsigned>(E_OTI);
+    const int items = own * R;
+    int nch = 1, lg = 0;  // lanes a column, a power of two, and its log
+    while (nch < 32 && items * nch * 2 <= kAscThreads) {
+      nch <<= 1;
+      ++lg;
+    }
+    const int gs = (G + nch - 1) >> lg;
+    const int total = items * nch;
+    for (int base = warp * 32; base < total; base += kAscThreads) {
+      const int it = base + lane;
+      const int ch = it & (nch - 1);
+      float m = -kInf;
+      int n = 0, first = 0x7fffffff;
+      int j = 0, r = 0;
+      if (it < total) {
+        j = (it >> lg) / R;
+        r = (it >> lg) - j * R;
+        const int g0 = ch * gs, g1 = min(G, g0 + gs);
+        for (int w = g0 >> 5; w < Gw && 32 * w < g1; ++w) {
+          unsigned bits = obits[(size_t)j * Gw + w];
+          const int lo = g0 - 32 * w, hi = g1 - 32 * w;
+          if (lo > 0) bits &= ~0u << lo;
+          if (hi < 32) bits &= (1u << hi) - 1u;
+          while (bits) {
+            const int g = 32 * w + __ffs(bits) - 1;
+            bits &= bits - 1;
+            const float v = t.ratio()[g * R + r];
+            if (v > m) {
+              m = v;
+              n = 1;
+              first = g;
+            } else if (v == m) {
+              ++n;
+            }
+          }
+        }
+      }
+      for (int o = 1; o < nch; o <<= 1) {
+        const float m2 = __shfl_xor_sync(kFull, m, o);
+        const int n2 = __shfl_xor_sync(kFull, n, o);
+        const int f2 = __shfl_xor_sync(kFull, first, o);
+        if (m2 > m) {
+          m = m2;
+          n = n2;
+          first = f2;
+        } else if (m2 == m) {
+          n += n2;
+          first = min(first, f2);
+        }
+      }
+      if (it < total && ch == 0) {
+        // the incompatible rows are masked zeros
+        const int nnc = G - (int)onc[j];
+        const float mm = nnc > 0 ? fmaxf(m, 0.0f) : m;
+        omm[j * R + r] = mm;
+        oti[2 * (j * R + r)] = (unsigned)first;
+        oti[2 * (j * R + r) + 1] = m == mm ? (unsigned)n : 0u;
+      }
+    }
+    rt.stop(R_COLMAX);
+    cbar();
+    const unsigned* src = ext<unsigned>(E_UREP);
+    for (int i = tid; i < nu * R; i += kAscThreads) {
+      const int u = i / R, r = i - u * R;
+      const int o = (int)(src[u] >> 20), k = (int)(src[u] & 0xfffffu) * R + r;
+      t.mm()[i] = ext_of<float>(E_OMM, o)[k];
+      t.tinfo()[2 * i] = ext_of<unsigned>(E_OTI, o)[2 * k];
+      t.tinfo()[2 * i + 1] = ext_of<unsigned>(E_OTI, o)[2 * k + 1];
+    }
   }
 
   // ---- the forward pass: bound_w(lam)'s two dots into s.t1 and s.t2
@@ -714,7 +1145,9 @@ struct Ascent {
     const int nu = (int)s.nu;
     // column maxima over groups and their ties, for each distinct column
     // (a few lanes a column, each over a run of groups, merged by shuffles)
-    {
+    if constexpr (kCluster) {
+      cluster_colmax(nu);
+    } else {
       RegionTimer rt(tid == 0);
       int items = nu * R;
       int nch = 1, lg = 0;  // lanes a column, a power of two, and its log
@@ -808,6 +1241,12 @@ struct Ascent {
     // dtheta_a, which needs only theta and lam
     float theta0 = warp_max_f(lane < kAscWarps ? s.red[lane] : -kInf);
     if constexpr (X::kSplit) theta0 = shard_max_f32(x, theta0);
+    if constexpr (kCluster) {
+      // the blocks' maxima (order-free)
+      if (tid == 0) ext<float>(E_SCAL)[0] = theta0;
+      cbar();
+      theta0 = warp_max_f(lane < x.S ? ext_of<float>(E_SCAL, lane)[0] : -kInf);
+    }
     if (tid == 0) s.theta0 = theta0;
     const float theta = theta0 > kEps ? theta0 : kEps;
     RegionTimer rt_ex(tid == 0);
@@ -820,7 +1259,11 @@ struct Ascent {
         const float ex = xe > 0.0f ? xe : 0.0f;
         t.excess()[c] = ex;
         const int k = slot_of_flag(t.cflag()[c]);
-        if (k >= 0) atomicMax(&t.mu()[k], __float_as_uint(ex));
+        if constexpr (kCluster) {
+          if (k >= 0) atomicMax(&ext<unsigned>(E_MUL)[k], __float_as_uint(ex));
+        } else {
+          if (k >= 0) atomicMax(&t.mu()[k], __float_as_uint(ex));
+        }
         tie = t.z()[c] == theta0;
       }
       const unsigned b = __ballot_sync(kFull, tie);
@@ -846,6 +1289,21 @@ struct Ascent {
             t.mu()[k] = __float_as_uint(m);
           });
       const unsigned nz = (unsigned)shard_sum_int(x, (int)s.nz);
+      if (tid == 0) s.nz = nz;
+    }
+    if constexpr (kCluster) {
+      // mu's and the theta ties' blocks combined (order-free)
+      if (tid == 0) ext<unsigned>(E_SCAL)[1] = s.nz;
+      cbar();
+      for (int k = tid; k < K; k += kAscThreads) {
+        const auto v = gather<unsigned>(E_MUL, k);
+        unsigned m = 0u;
+        for (int r = 0; r < 16; ++r) m = max(m, v[r]);
+        t.mu()[k] = m;
+      }
+      unsigned nz = lane < x.S ? ext_of<unsigned>(E_SCAL, lane)[1] : 0u;
+      for (int o = 16; o > 0; o >>= 1) nz += __shfl_xor_sync(kFull, nz, o);
+      bar();  // every thread read s.nz, and mu is whole
       if (tid == 0) s.nz = nz;
     }
     // mu's ties among the slots' configs; the bound's two dots, a warp
@@ -893,6 +1351,20 @@ struct Ascent {
             t.nm()[k] = (unsigned)n;
           });
     }
+    if constexpr (kCluster) {
+      // the blocks' ties of mu and masked zeros (integers, order-free)
+      for (int k = tid; k < K; k += kAscThreads)
+        ext<unsigned>(E_NML)[k] =
+            t.nm()[k] + (t.mu()[k] == 0u ? (unsigned)C - t.ksize()[k] : 0u);
+      cbar();
+      for (int k = tid; k < K; k += kAscThreads) {
+        const auto v = gather<unsigned>(E_NML, k);
+        unsigned n = 0u;
+        for (int r = 0; r < 16; ++r) n += v[r];
+        t.nm()[k] = n;
+      }
+      bar();
+    }
     // d excess and dtheta_b's terms, by config
     for (int c = tid; c < C; c += kAscThreads) {
       const unsigned f = t.cflag()[c];
@@ -901,7 +1373,7 @@ struct Ascent {
       if (k >= 0) {
         const float mk = __uint_as_float(t.mu()[k]);
         unsigned n = t.nm()[k];
-        if constexpr (!X::kSplit) n += mk == 0.0f ? (unsigned)C - t.ksize()[k] : 0u;
+        if constexpr (!X::kSplit && !kCluster) n += mk == 0.0f ? (unsigned)C - t.ksize()[k] : 0u;
         const float q = div_rn(-t.budget()[k], (float)n);
         dexcess = __fmul_rn(t.excess()[c] == mk ? 1.0f : 0.0f, q);
       }
@@ -911,7 +1383,7 @@ struct Ascent {
       t.dx()[c] = dx;
       const float xt = __fmul_rn(dx, inv_t2);
       bool nonzero;
-      if (C <= 32) {
+      if (c_all() <= 32) {
         t.tb()[c] = xt;
         t.ty()[c] = vh;
         nonzero = !((xt == 0.0f || vh == 0.0f) && isfinite(xt) && isfinite(vh));
@@ -930,7 +1402,43 @@ struct Ascent {
     // dtheta_b (each warp), theta's share; then by config dvh, and by
     // (config, resource) dmm / ties and the scatter of d ratio's terms
     RegionTimer rt_db(tid == 0);
-    float dtheta_b = sum_masked(t.tbmask(), t.tb(), t.ty(), C);
+    float dtheta_b;
+    if constexpr (kCluster) {
+      if (x.C <= 32) {
+        dtheta_b = sum_masked(t.tbmask(), t.tb(), t.ty(), C);  // one block
+      } else {
+        // this block's window sums, a thread a window; then every warp
+        // adds the cluster's in XLA's order
+        for (int w = tid; w < nwc; w += kAscThreads) {
+          unsigned m = t.tbmask()[w];
+          float sw = 0.0f;
+          while (m) {
+            const int i = __ffs(m) - 1;
+            m &= m - 1;
+            sw = __fadd_rn(sw, t.tb()[w * 32 + i - frontc]);
+          }
+          ext<float>(E_WTB)[w] = sw;
+        }
+        cbar();
+        // the cluster's window sums in XLA's order: up to 32 windows of
+        // windows, a lane of warp 0 each, their sums added in order by
+        // every thread; past them one thread
+        const unsigned* wmap = ext<unsigned>(E_WMAP);
+        auto wsum = [&](int w) { return ext_of<float>(E_WTB, wmap[w] >> 16)[wmap[w] & 0xffffu]; };
+        const int nw2 = x.nw <= 32 ? 1 : win_count(x.nw);
+        float* part = ext<float>(E_PART);
+        if (nw2 <= 32) {
+          if (tid < nw2) part[tid] = run32(wsum, x.nw, x.nw <= 32 ? 0 : tid * 32 - win_front(x.nw));
+        } else if (tid == 0) {
+          part[0] = thread_total(wsum, x.nw);
+        }
+        bar();
+        dtheta_b = 0.0f;
+        for (int W = 0; W < (nw2 <= 32 ? nw2 : 1); ++W) dtheta_b = __fadd_rn(dtheta_b, part[W]);
+      }
+    } else {
+      dtheta_b = sum_masked(t.tbmask(), t.tb(), t.ty(), C);
+    }
     rt_db.stop(R_DTHETA_B);
     if constexpr (X::kSplit) dtheta_b = shard_sum_f32(x, dtheta_b);
     const float dtheta = __fadd_rn(s.dtheta_a, -dtheta_b);
@@ -994,6 +1502,10 @@ struct Ascent {
     clk.mark(8);
     // d ratio[g, r]: its windows' set terms in order, the window sums in
     // XLA's order (a lane a row); then the gradient by group
+    if constexpr (kCluster) {
+      cluster_rows(theta);
+      return;
+    }
     const int rs = R <= 1 ? 0 : (R <= 2 ? 1 : (R <= 4 ? 2 : (R <= 8 ? 3 : 4)));
     const int Rp = 1 << rs;  // lanes a group: a power of two
     const int nrows = G * Rp;
@@ -1111,12 +1623,121 @@ struct Ascent {
     clk.mark(9);
   }
 
+  // ---- the cluster's d ratio rows and gradient: each block's window sums
+  // of every row (a thread a (row, window), each mask word cleared as it
+  // is read), then each row of this block's groups by a thread, the window
+  // sums added in XLA's order across the blocks (`thread_total`), the
+  // gradient of those groups, and every block's
+  // gradient gathered
+  __device__ void cluster_rows(float theta) {
+    RegionTimer rt_rows(tid == 0), lap(tid == 0);
+    // ws [nwb, G * R]: window-major, so that a window's place in its
+    // block does not depend on the block's window count
+    float* ws = ext<float>(E_WS);
+    const int GR = G * R;
+    const int items = GR * nwc;
+    for (int it = tid; it < items; it += kAscThreads) {
+      const int w = it / GR, row = it - w * GR;
+      unsigned* mw = t.masks() + (size_t)row * nwc + w;
+      unsigned m = *mw;
+      float sw = 0.0f;
+      if (m) {
+        *mw = 0u;
+        const int r = row % R;
+        const float rt = t.ratio()[row];
+        while (m) {
+          const int c = 32 * w + __ffs(m) - 1 - frontc;
+          m &= m - 1;
+          sw = __fadd_rn(sw, __fmul_rn(rt == mm_of(c, r) ? 1.0f : 0.0f, t.qx()[c * R + r]));
+        }
+      }
+      ws[it] = sw;
+    }
+    lap.lap(CR_WS);
+    cbar();
+    lap.lap(CR_WS_WAIT);
+    const unsigned* wmap = ext<unsigned>(E_WMAP);
+    auto wsum = [&](int row, int w) {
+      const unsigned o = wmap[w];
+      return ext_of<float>(E_WS, o >> 16)[(size_t)(o & 0xffffu) * GR + row];
+    };
+    // each (row, window of windows) of this block's groups by a thread,
+    // then each row's sums of its windows of windows in order (up to 32 of
+    // them; past them, a thread a row)
+    const int row0 = x.g0 * R, nrow = (x.g1 - x.g0) * R;
+    const int nw2 = x.nw <= 32 ? 1 : win_count(x.nw), front2 = x.nw <= 32 ? 0 : win_front(x.nw);
+    if (nw2 <= 32) {
+      float* part = ext<float>(E_PART);
+      for (int it = tid; it < nrow * nw2; it += kAscThreads) {
+        const int i = it / nw2, W = it - i * nw2;
+        part[it] = run32([&](int w) { return wsum(row0 + i, w); }, x.nw, W * 32 - front2);
+      }
+      bar();
+      for (int i = tid; i < nrow; i += kAscThreads) {
+        float dr = 0.0f;
+        for (int W = 0; W < nw2; ++W) dr = __fadd_rn(dr, part[i * nw2 + W]);
+        t.dratio()[row0 + i] = dr;
+      }
+    } else {
+      for (int i = tid; i < nrow; i += kAscThreads)
+        t.dratio()[row0 + i] = thread_total([&](int w) { return wsum(row0 + i, w); }, x.nw);
+    }
+    rt_rows.stop(R_DRATIO);
+    lap.lap(CR_ROWS);
+    bar();
+    RegionTimer rt(tid == 0);
+    for (int g = x.g0 + tid; g < x.g1; g += kAscThreads) {
+      const bool live = t.cnt()[g] > 0.0f;
+      float acc = 0.0f;
+      for (int r = 0; r < R; ++r) {
+        const float rq = t.req()[g * R + r];
+        acc = __fadd_rn(acc, (rq > 0.0f && live) ? div_rn(t.dratio()[g * R + r], rq) : 0.0f);
+      }
+      t.grad()[g] = __fadd_rn(div_rn(t.cw()[g], theta), acc);
+    }
+    lap.lap(CR_ROWS);
+    cbar();
+    lap.lap(CR_GRAD_WAIT);
+    for (int g = tid; g < G; g += kAscThreads)
+      if (g < x.g0 || g >= x.g1) t.grad()[g] = arr_of<float>(A_GRAD, x.group_owner(g))[g];
+    lap.lap(CR_GATHER);
+    rt.stop(R_GRAD);
+    // lam's per-warp maxima, for the step's scale
+    float lmax = -kInf;
+    for (int g = tid; g < G; g += kAscThreads) lmax = fmaxf(lmax, t.lam()[g]);
+    lmax = warp_max_f(lmax);
+    if (lane == 0) s.red[warp] = lmax;
+    bar();
+    clk.mark(9);
+  }
+
   // ---- the step of iteration `it` from the gradient; the next ratio
   __device__ void step(int it) {
     const float lmax = warp_max_f(lane < kAscWarps ? s.red[lane] : -kInf);
     const float scale = lmax > 1e-9f ? lmax : 1e-9f;
     const float eta = div_rn(0.5f, __fsqrt_rn(__fadd_rn(1.0f, (float)it)));
-    if (warp * 32 < G) {
+    if constexpr (kCluster) {
+      // the norm by warp 0 alone, handed to the block (a copy in every
+      // warp only took its issue slots)
+      RegionTimer rt(tid == 0);
+      if (warp == 0) {
+        const float n2 = sum_prod([&](int g) { return t.grad()[g]; },
+                                  [&](int g) { return t.grad()[g]; }, G);
+        if (lane == 0) ext<float>(E_SCAL)[2] = n2;
+      }
+      bar();
+      const float nrm = __fsqrt_rn(ext<float>(E_SCAL)[2]);
+      rt.stop(R_NORM);
+      RegionTimer rt_up(tid == 0);
+      const float den = nrm > kEps ? nrm : kEps;
+      for (int g = tid; g < G; g += kAscThreads) {
+        const float gn = div_rn(t.grad()[g], den);
+        const float y = __fmaf_rn(__fmul_rn(eta, gn), scale, t.lam()[g]);
+        t.lam()[g] = y > 0.0f ? y : 0.0f;
+        ratio_of(g);
+      }
+      rt_up.stop(R_UPDATE);
+    } else if (warp * 32 < G) {
       // the norm, by each warp that updates groups
       RegionTimer rt(tid == 0);
       const float n2 = sum_prod([&](int g) { return t.grad()[g]; },
@@ -1134,7 +1755,7 @@ struct Ascent {
       rt_up.stop(R_UPDATE);
     }
     RegionTimer rt_zero(tid == 0);
-    zero_accumulators();
+    zero_accumulators(false);
     rt_zero.stop(R_ZERO);
     bar();
     clk.mark(1);
@@ -1164,11 +1785,18 @@ struct Ascent {
       clk.count();
     }
     bar();
+    if constexpr (kCluster) {
+      if (x.rank != 0) {
+        cbar();  // no block leaves while another may still read its memory
+        return;
+      }
+    }
     for (int g = tid; g < G; g += kAscThreads) a.best_lam[g] = t.best()[g];
     if (tid == 0) {
       *a.best = best;
       *a.last_up = last;
     }
+    if constexpr (kCluster) cbar();
   }
 };
 
@@ -1179,7 +1807,8 @@ __device__ void ascend_body(const Args& a, const Layout& L, unsigned char* scrat
   PhaseClock clk;
 #ifdef KARPENTER_PHASE_CLOCKS
   if (threadIdx.x == 0) bar_count() = 0u;
-  if (threadIdx.x < R_REGIONS) region_acc()[threadIdx.x] = 0ull;
+  if (threadIdx.x == 0) cbar_count() = 0u;
+  if (threadIdx.x < R_REGIONS + CR_REGIONS) region_acc()[threadIdx.x] = 0ull;
 #endif
   clk.begin();
   const Ctx t{L, dsmem, scratch};
@@ -1189,9 +1818,43 @@ __device__ void ascend_body(const Args& a, const Layout& L, unsigned char* scrat
   __syncthreads();
   if (clk.on) {
     g_phase_clk[kBarrierSlot] += bar_count();
+    g_phase_clk[kClusterBarrierSlot] += cbar_count();
     for (int i = 0; i < R_REGIONS; ++i) g_phase_clk[kRegionSlot + i] += region_acc()[i];
+    if constexpr (kIsCluster<X>)
+      for (int i = 0; i < CR_REGIONS; ++i)
+        g_phase_clk[kClusterRegionSlot + i] += region_acc()[R_REGIONS + i];
   }
 #endif
+}
+
+// block `rank` of the wide layout's cluster of S: its ClusterX and its
+// view `v` of the inputs (its configs' rows of the config-axis tables;
+// compat and onehot are read at the cluster's stride)
+__device__ __forceinline__ ClusterX cluster_view(const Args& a, const ClusterLayout& E,
+                                                 unsigned char* scratch, long long scratch_bytes,
+                                                 int S, int rank, Args& v) {
+  ClusterX x;
+  x.E = E;
+  x.scratch = scratch;
+  x.scratch_bytes = scratch_bytes;
+  x.S = S;
+  x.rank = rank;
+  x.C = a.C;
+  x.G = a.G;
+  x.nw = win_count(a.C);
+  x.front = win_front(a.C);
+  int c1, w0, w1;
+  cluster_range(a.C, S, rank, x.c0, c1, w0, w1);
+  x.nwb = w1 - w0;
+  x.g0 = rank * a.G / S;
+  x.g1 = (rank + 1) * a.G / S;
+  v = a;
+  v.C = c1 - x.c0;
+  v.alloc += (size_t)x.c0 * a.R;
+  v.valid += (size_t)x.c0 * a.R;
+  v.price += x.c0;
+  v.uncapped += x.c0;
+  return x;
 }
 
 __global__ void __launch_bounds__(kAscThreads, 1)
@@ -1201,12 +1864,16 @@ __global__ void __launch_bounds__(kAscThreads, 1)
   ascend_body<false>(a, L, scratch, x);
 }
 
-// the wide layout (a padded axis past kMaxAxis)
-__global__ void __launch_bounds__(kAscThreads, 1)
-    lp_ascend_wide_kernel(const __grid_constant__ Args a, const __grid_constant__ Layout L,
-                          unsigned char* scratch) {
-  NoSplit x;
-  ascend_body<true>(a, L, scratch, x);
+// the wide layout (a padded axis past kMaxAxis): one cluster of S blocks
+// (gridDim.x), block b (its rank) taking its share of the config axis
+// and of the d ratio rows (ClusterX); `scratch` holds scratch_bytes a
+// block for the arrays the layouts place there
+__global__ void __launch_bounds__(kAscThreads, 1) lp_ascend_cluster_kernel(
+    const __grid_constant__ Args a, const __grid_constant__ Layout L,
+    const __grid_constant__ ClusterLayout E, unsigned char* scratch, long long scratch_bytes) {
+  Args v;
+  ClusterX x = cluster_view(a, E, scratch, scratch_bytes, (int)gridDim.x, (int)blockIdx.x, v);
+  ascend_body<true>(v, L, scratch + (size_t)x.rank * scratch_bytes, x);
 }
 
 // per-shard pointers of the split ascent's config-axis inputs
@@ -1268,6 +1935,61 @@ __global__ void __launch_bounds__(kAscThreads, 1) lp_barrier_probe_kernel(int n,
   if (v == -1) *sink = v;
 }
 
+// n barriers of a cluster of gridDim.x blocks of kAscThreads threads in a
+// row: the cost of one, which bounds from below the wide layout's chain
+// of cluster barriers (chip_smoke.py times it)
+__global__ void __launch_bounds__(kAscThreads, 1) lp_cluster_barrier_probe_kernel(int n,
+                                                                                  int* sink) {
+  int v = threadIdx.x;
+  for (int i = 0; i < n; ++i) {
+    cg::this_cluster().sync();
+    v ^= i;
+  }
+  if (v == -1) *sink = v;
+}
+
+// a cluster launch of `kernel` over S blocks with `smem` bytes of dynamic
+// shared memory each (non-portable sizes past 8 allowed); *at_once
+// receives cudaOccupancyMaxActiveClusters, and when it is 0 the launch is
+// not made (cudaErrorInvalidConfiguration)
+template <class... P, class... A>
+static int launch_cluster(void (*kernel)(P...), int S, int smem, int* at_once,
+                          cudaStream_t stream, A... args) {
+  *at_once = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && S > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)S);
+  cfg.blockDim = dim3(kAscThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(at_once, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  if (*at_once < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 int check_sizes(int G, int C, int R, int K, int n_iters) {
   if (R < 1 || R > kMaxR || G < 1 || C < 1 || K < 1 || n_iters < 0)
     return (int)cudaErrorInvalidValue;
@@ -1279,37 +2001,81 @@ int check_sizes(int G, int C, int R, int K, int n_iters) {
   return 0;
 }
 
+// an array of n bytes at offset o inside the shared memory or the
+// scratch it claims, on 16 bytes
+static bool placed_in(long long o, long long n, long long smem, long long scratch) {
+  return o >= 0 ? o % 16 == 0 && o + n <= smem : ~o % 16 == 0 && ~o + n <= scratch;
+}
+
 // every array of `L` inside the shared memory or the scratch it claims
 int check_layout(const Layout& L, int G, int C, int R, int K, long long smem,
                  long long scratch) {
-  for (int i = 0; i < A_COUNT; ++i) {
-    const long long n = arr_bytes(i, G, C, R, K), o = L.off[i];
-    if (o >= 0 ? (o % 16 != 0 || o + n > smem) : (~o % 16 != 0 || ~o + n > scratch))
+  for (int i = 0; i < A_COUNT; ++i)
+    if (!placed_in(L.off[i], arr_bytes(i, G, C, R, K, is_wide(G, C), win_count(C)), smem,
+                   scratch))
       return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// the same for a block of the wide layout's cluster of S blocks: its
+// arrays at the most configs and windows a block takes, and the
+// cluster's own
+int check_cluster_layout(const Layout& L, const ClusterLayout& E, int G, int C, int R, int K,
+                         int S, long long smem, long long scratch) {
+  if (S < 1 || S > 16 || S > win_count(C) || (C <= 32 && S != 1))
+    return (int)cudaErrorInvalidValue;
+  int cmax = 0, wmax = 0;
+  for (int b = 0; b < S; ++b) {
+    int c0, c1, w0, w1;
+    cluster_range(C, S, b, c0, c1, w0, w1);
+    cmax = c1 - c0 > cmax ? c1 - c0 : cmax;
+    wmax = w1 - w0 > wmax ? w1 - w0 : wmax;
   }
+  for (int i = 0; i < A_COUNT; ++i)
+    if (!placed_in(L.off[i], arr_bytes(i, G, cmax, R, K, true, wmax), smem, scratch))
+      return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < E_COUNT; ++i)
+    if (!placed_in(E.off[i], ext_bytes(i, G, cmax, R, K, wmax, win_count(C), S), smem, scratch))
+      return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
+// B5. Past kMaxAxis (the wide layout) `cluster` blocks in one cluster
+// (1 to 16, at most the config axis's windows, 1 over at most 32
+// configs), `layout` holding A_COUNT then E_COUNT offsets and `scratch`
+// scratch_bytes a block; *at_once receives the clusters the card holds
+// at once (the launch is refused when none). Else one block, `cluster`
+// 0.
 extern "C" int lp_ascend_launch(
     const float* lam0, const float* count, const float* count_w, const uint8_t* compat,
     const float* req, const float* alloc, const float* price, const uint8_t* valid,
     const uint8_t* onehot, const float* budget, const uint8_t* uncapped, float* best,
     float* best_lam, int32_t* last_up, const long long* layout, int smem_bytes,
     unsigned char* scratch, long long scratch_bytes, int G, int C, int R, int K,
-    int n_iters, cudaStream_t stream) {
+    int n_iters, int cluster, int* at_once, cudaStream_t stream) {
+  *at_once = 0;
   if (int e = check_sizes(G, C, R, K, n_iters)) return e;
   Layout L;
   for (int i = 0; i < A_COUNT; ++i) L.off[i] = layout[i];
-  if (int e = check_layout(L, G, C, R, K, smem_bytes, scratch_bytes)) return e;
   Args a{lam0, count, count_w, compat, req, alloc, price, valid, onehot, budget, uncapped,
          best, best_lam, last_up, G, C, R, K, n_iters};
-  const auto kernel = is_wide(G, C) ? lp_ascend_wide_kernel : lp_ascend_kernel;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (is_wide(G, C)) {
+    ClusterLayout E;
+    for (int i = 0; i < E_COUNT; ++i) E.off[i] = layout[A_COUNT + i];
+    if (int e = check_cluster_layout(L, E, G, C, R, K, cluster, smem_bytes, scratch_bytes))
+      return e;
+    return launch_cluster(lp_ascend_cluster_kernel, cluster, smem_bytes, at_once, stream, a, L,
+                          E, scratch, scratch_bytes);
+  }
+  if (cluster != 0) return (int)cudaErrorInvalidValue;
+  if (int e = check_layout(L, G, C, R, K, smem_bytes, scratch_bytes)) return e;
+  cudaError_t err = cudaFuncSetAttribute(lp_ascend_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<1, kAscThreads, smem_bytes, stream>>>(a, L, scratch);
+  lp_ascend_kernel<<<1, kAscThreads, smem_bytes, stream>>>(a, L, scratch);
+  *at_once = 1;
   return (int)cudaGetLastError();
 }
 
@@ -1352,4 +2118,10 @@ extern "C" int lp_ascend_sharded_launch(
 extern "C" int lp_barrier_probe_launch(int n, int* sink, cudaStream_t stream) {
   lp_barrier_probe_kernel<<<1, kAscThreads, 0, stream>>>(n, sink);
   return (int)cudaGetLastError();
+}
+
+// n barriers of one cluster of S blocks of B5's size
+extern "C" int lp_cluster_barrier_probe_launch(int n, int S, int* sink, cudaStream_t stream) {
+  int at_once = 0;
+  return launch_cluster(lp_cluster_barrier_probe_kernel, S, 0, &at_once, stream, n, sink);
 }

@@ -65,16 +65,23 @@
 // B6, wavefront route: the same rounds over a lane axis
 // (karpenter_tpu/solver/pack.py:1227 `pack_probe_lanes_flat` with
 // wavefront W > 1), each lane a probe of the consolidation search with
-// its own demand and retained bound rows. A cooperative grid cannot
-// hold W blocks per lane for tens of lanes (132 co-resident blocks of
-// 1024 threads on an H100), so each lane is one thread-block cluster of
-// W blocks: the cluster barrier replaces the grid barrier, the lane is
-// the cluster's index, and the block's rank in it is the plan lane.
-// Clusters are scheduled whole, so lanes run in waves of the clusters
-// that fit at once, and a lane's round count is its own (the JAX
-// kernel's vmapped while_loop stops changing a lane's state once its
-// condition is false). Plain version:
-// pack_split.py::pack_probe_lanes_wavefront_ref.
+// its own demand and retained bound rows, and a round count of its own
+// (the JAX kernel's vmapped while_loop stops changing a lane's state once
+// its condition is false). Plain version:
+// pack_split.py::pack_probe_lanes_wavefront_ref. A lane is one block of
+// 1024 threads (`lane_wavefront_body`), so a dispatch's lanes (64 on the
+// consolidation path) are on the card at once, and its barriers are block
+// barriers. A round's plans are made one after another in lane order,
+// and each is tested against the accepted plans before it as soon as it
+// is made: the acceptance scan keeps the longest prefix that passes, so
+// the first plan that fails ends the round, and a lane plans its
+// accepted groups plus at most one a round where B3's grid plans W. What
+// bounds it: each plan is one of B1's group steps (its sweep, scan and
+// open loop, ~7 block barriers besides the opens), in a chain; the lane
+// with the most groups sets the dispatch's time. The earlier design, a
+// thread-block cluster of W blocks a lane (B3's body, the cluster barrier
+// for the grid's), ran its lanes in waves of 7 clusters and planned W
+// groups a round (PERF.md §6).
 //
 // B8, split B3 (karpenter_tpu/solver/pack.py:1817-1893 with the
 // wavefront): `pack_wavefront_sharded_kernel`, S x W blocks, block
@@ -202,8 +209,7 @@ struct PlanRows {
 };
 
 // One solve's rounds, run by the W blocks that `barrier` joins; block
-// w plans lane w. B3 joins the whole cooperative grid, B6 one cluster,
-// split B3 (X = DeviceSplit) the W blocks of one shard, `a` holding
+// w plans lane w. B3 joins the whole cooperative grid, split B3 (X = DeviceSplit) the W blocks of one shard, `a` holding
 // shard s's columns and replica, `x` lane w's exchange group and
 // `xconf` [2][W][S][words_of(W)] the lanes' conflict words as flagged
 // words (null unsplit). Each block keeps
@@ -566,27 +572,6 @@ __device__ __forceinline__ void wavefront_body(Args a, const int w, X& x, Barrie
   mask_bytes(a.free_bits, C, s_nc - B, a.free_mask, w, W);
 }
 
-struct GridBarrier {
-  __device__ void operator()() const { cg::this_grid().sync(); }
-};
-using DeviceShardBarrier = ShardBarrier<cuda::thread_scope_device>;
-
-// The lanes' state lives in global memory: as the grid barrier does for
-// B3, each block fences its writes device-wide before the barrier.
-struct ClusterBarrier {
-  __device__ void operator()() const {
-    __threadfence();
-    cg::this_cluster().sync();
-  }
-};
-
-template <bool kSpilled>
-__global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a, Placement p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  NoSplit x;
-  wavefront_body<kSpilled>(a, blockIdx.x, x, GridBarrier{}, smem, p);
-}
-
 // lane l's slice of every per-lane array: its demand and live rows,
 // its outputs, its state and its plan scratch
 __device__ __forceinline__ Args lane_view(Args a, int l) {
@@ -618,15 +603,295 @@ __device__ __forceinline__ Args lane_view(Args a, int l) {
   return a;
 }
 
-// B6 wavefront: one cluster of W blocks per lane; the lane is the
-// cluster's index and the block's rank in it is the plan lane.
+// B6 wavefront: one lane's rounds in one block (the lane is the block's
+// index). A round's candidates are planned one after another in lane
+// order against the round's state, each as B3's block w plans lane w,
+// and each plan is tested against the accepted plans before it as soon
+// as it is made: the acceptance scan takes the longest prefix of lanes
+// that pass, so the first plan that fails ends the round's planning (the
+// plans after it would be rejected whatever they held). The accepted
+// plans are committed as B3 commits them. Outputs as the cluster of W
+// blocks gave them: the same rounds, widths and rows. Block barriers
+// only; each plan lane's scratch is the lane's slice of B3's arrays.
+template <bool kSpilled>
+__device__ void lane_wavefront_body(Args a, unsigned char* smem, const Placement& p) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int G = a.G, C = a.C, R = a.R, B = a.B, F = a.F, K = a.K, W = a.W;
+  const int N = B + F;
+  const int nw = words_pad(C), NW = words_of(N), GW = words_of(G);
+
+  __shared__ OpenState s_open;
+  __shared__ int s_go, s_nc, s_steps, s_last, s_nacc, s_shift;
+  PhaseClock clk;
+  clk.begin();
+  NoSplit x;
+
+  const Smem sm = stage<kSpilled>(a, smem, p);
+  WaveLayout wl;
+  if constexpr (kSpilled) {
+    wl = WaveLayout{p.off[SG_LANES], p.off[SG_CONF], p.off[SG_DONE], p.off[SG_UOFF],
+                    p.off[SG_MCONF], p.off[SG_ACCEPT], p.off[SG_OFFSET], 0, 0};
+  } else {
+    wl = wave_layout(C, R, a.P1, K, W, G, N);
+  }
+  int32_t* s_lanes = (int32_t*)(smem + wl.lanes);
+  uint32_t* s_done = (uint32_t*)(smem + wl.done);
+  int32_t* s_uoff = (int32_t*)(smem + wl.uoff);
+  int32_t* s_offset = (int32_t*)(smem + wl.offset);
+  uint32_t* s_touch;
+  if constexpr (kSpilled) s_touch = (uint32_t*)seg_at(p, SG_TOUCH, smem);
+  else s_touch = (uint32_t*)(smem + wl.touch);
+
+  // ---- state init (reservation use of bound rows: integer-valued
+  // float adds, exact in any order; groups without demand committed)
+  for (int i = tid; i < B * R; i += kThreads) a.bound_used[i] = a.bound_used0[i];
+  for (int i = tid; i < F * R; i += kThreads) a.free_used[i] = 0.0f;
+  for (int i = tid; i < F * nw; i += kThreads) a.free_bits[i] = 0u;
+  for (int g = tid; g < G; g += kThreads) a.widths[g] = 0;
+  for (int b = tid; b < B; b += kThreads) {
+    const int s = a.bound_slot[b];
+    if (a.bound_live[b] && s < K) atomicAdd(&a.rsv_used[s], 1.0f);
+  }
+  for (int wd = warp; wd < GW; wd += kWarps) {
+    const int g = wd * 32 + lane;
+    const unsigned d = __ballot_sync(0xffffffffu, g >= G || a.group_count[g] <= 0);
+    if (lane == 0) s_done[wd] = d;
+  }
+  if (tid == 0) {
+    s_nc = B;
+    s_steps = 0;
+  }
+  __syncthreads();
+  clk.mark(0);
+
+  while (true) {
+    // ---- round start: the candidates, the first W uncommitted groups in
+    // index order (G past the last), from a popcount rank over the
+    // committed bits, 32 words a pass
+    if (warp == 0) {
+      int seen = 0;
+      for (int base = 0; base < GW; base += 32) {
+        uint32_t undone = base + lane < GW ? ~s_done[base + lane] : 0u;
+        const int cnt = __popc(undone);
+        int incl = cnt;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += y;
+        }
+        for (int rank = seen + incl - cnt; undone && rank < W; ++rank) {
+          s_lanes[rank * kLaneFields + kCand] = (base + lane) * 32 + __ffs(undone) - 1;
+          undone &= undone - 1;
+        }
+        seen += __shfl_sync(0xffffffffu, incl, 31);
+      }
+      for (int j = seen + lane; j < W; j += 32) s_lanes[j * kLaneFields + kCand] = G;
+      if (lane == 0) {
+        s_go = seen > 0 && s_steps < G;
+        s_uoff[0] = 0;
+      }
+    }
+    __syncthreads();
+    if (!s_go) break;
+    clk.mark(1);
+    clk.count();
+    const int nc = s_nc;
+
+    // ================================================== plans, in lane order
+    int nacc = 0, shift = 0, acc_capped = 0;
+    for (int j = 0; j < W; ++j) {
+      int32_t* mine = s_lanes + j * kLaneFields;
+      const int g = mine[kCand];
+      if (g >= G) break;  // no candidate: rejected, and so every later lane
+      const float* req = sm.greq + (size_t)g * R;
+      const uint32_t* rowbits = sm.gbits + (size_t)g * nw;
+      int32_t* kcap = a.kcap + (size_t)j * N;
+      int32_t* take = a.take + (size_t)j * N;
+      uint32_t* touched = a.touched + (size_t)j * NW;
+      uint32_t* o_union = a.o_union + (size_t)j * nw;
+
+      // ---- 1. plan: B3's, on the round's state
+      for (int s = tid; s <= K; s += kThreads) sm.spend[s] = 0.0f;
+      for (int wd = tid; wd < nw; wd += kThreads) o_union[wd] = 0u;
+      for (int wd = tid; wd < words_of(nc); wd += kThreads) s_touch[wd] = 0u;
+      if (tid == 0) s_last = -1;
+      __syncthreads();
+      const int remaining0 = sm.gcount[g];
+      const int gcap = a.group_cap ? a.group_cap[g] : kIntBig;
+      int my_last = -1;
+      const long long placed = sweep_take(
+          a, x, sm, a.free_bits, rowbits, g, req, gcap, nc - B, (long long)remaining0, kcap,
+          false, [&](int n, int t) {
+            take[n] = t;
+            atomicOr(&s_touch[n >> 5], 1u << (n & 31));
+            my_last = n;
+          },
+          clk, 2);
+      // sweep_take ended on a barrier: the filled rows' bits are whole
+      for (int wd = tid; wd < words_of(nc); wd += kThreads) touched[wd] = s_touch[wd];
+      my_last = __reduce_max_sync(0xffffffffu, my_last);
+      if (lane == 0 && my_last >= 0) atomicMax(&s_last, my_last);
+      const int remaining = remaining0 - (int)placed;
+      if (tid == 0) s_open = OpenState{remaining, 0, 0};
+      if (remaining > 0) {
+        PlanRows rows{a.o_bits + (size_t)j * F * nw, a.o_used + (size_t)j * F * R,
+                      a.o_fill + (size_t)j * F, o_union};
+        open_loop<kSpilled>(a, x, sm.pools, rowbits, req, gcap, nc, N, sm.spend, &s_open, rows);
+      }
+      clk.mark(5);
+      int my_capped = 0;
+      float* spend = a.spend + (size_t)j * (K + 1);
+      for (int s = tid; s <= K; s += kThreads) {
+        spend[s] = sm.spend[s];
+        my_capped |= s < K && sm.spend[s] > 0.0f;
+      }
+      my_capped = __syncthreads_or(my_capped);
+      const int spill = remaining > 0;
+      const int last = s_last;
+      const int nopen = s_open.nopen, clamped = s_open.clamped;
+      if (tid == 0) {
+        mine[kValid] = 1;
+        mine[kSpill] = spill;
+        mine[kNOpen] = nopen;
+        mine[kCappedSpend] = my_capped;
+        mine[kClamped] = clamped;
+        mine[kUnschedAdd] = max(s_open.remaining, 0);
+        mine[kLast] = last;
+      }
+      clk.mark(6);
+
+      // ---- 2. conflicts with the accepted lanes i < j: a row i fills
+      // that j depends on (capacity > 0 and, unless j spills, at or
+      // before j's last fill), or a row i opens that admits a config
+      // compatible with j; the units (lane i's filled-row words, then its
+      // config words) spread over the block
+      bool hit = false;
+      const int units = s_uoff[j];
+      for (int u = tid; u < units && !hit; u += kThreads) {
+        int lo = 0, hi = j;
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (s_uoff[mid] <= u) lo = mid;
+          else hi = mid;
+        }
+        const int i = lo, k = u - s_uoff[i];
+        const int last_i = s_lanes[i * kLaneFields + kLast];
+        const int nwi = last_i >= 0 ? (last_i >> 5) + 1 : 0;
+        if (k < nwi) {
+          uint32_t t = a.touched[(size_t)i * NW + k];
+          while (t && !hit) {
+            const int n = k * 32 + __ffs(t) - 1;
+            t &= t - 1;
+            hit = kcap[n] > 0 && (spill || n <= last);
+          }
+        } else {
+          hit = (a.o_union[(size_t)i * nw + (k - nwi)] & rowbits[k - nwi]) != 0u;
+        }
+      }
+      const int conflicted = __syncthreads_or(hit);
+      clk.mark(8);
+
+      // ---- 3. the acceptance scan's step for lane j
+      int accept = !conflicted;
+      if (accept && spill)
+        accept = !acc_capped && (shift == 0 || (!clamped && (long long)nc + shift + nopen <= N));
+      if (!accept) break;
+      if (tid == 0) {
+        s_offset[j] = nc + shift;
+        s_uoff[j + 1] = units + (last >= 0 ? (last >> 5) + 1 : 0) + nw;
+      }
+      acc_capped |= my_capped;
+      shift += nopen;
+      ++nacc;
+      clk.mark(10);
+    }
+    __syncthreads();  // the accepted lanes' offsets and scalars are whole
+
+    // ---- the round's tallies, as B3's accept brings them up to date
+    for (int s = tid; s <= K; s += kThreads) {
+      float tot = 0.0f;
+      for (int j = 0; j < nacc; ++j) tot = __fadd_rn(tot, a.spend[(size_t)j * (K + 1) + s]);
+      a.rsv_used[s] = __fadd_rn(a.rsv_used[s], tot);
+    }
+    for (int j = tid; j < nacc; j += kThreads) {
+      const int32_t* lj = s_lanes + j * kLaneFields;
+      const int cj = lj[kCand];
+      atomicOr(&s_done[cj >> 5], 1u << (cj & 31));
+      a.unsched[cj] = lj[kUnschedAdd];  // a group commits once
+    }
+    if (tid == 0) {
+      a.widths[s_steps] = nacc;
+      s_steps += 1;
+      s_nc = nc + shift;
+    }
+
+    // ================================================== commit
+    // the accepted lanes' rows: the filled ones (narrowed on the row as
+    // the round found it) and the opened ones at their place on the node
+    // axis. The accepted lanes write disjoint rows, so no barrier between
+    // lanes and no atomics; every f32 add has one nonzero addend.
+    for (int j = 0; j < nacc; ++j) {
+      const int32_t* lj = s_lanes + j * kLaneFields;
+      const int g = lj[kCand], last = lj[kLast], n_open = lj[kNOpen];
+      const float* req = sm.greq + (size_t)g * R;
+      const uint32_t* rowbits = sm.gbits + (size_t)g * nw;
+      const uint32_t* touched = a.touched + (size_t)j * NW;
+      const int32_t* take = a.take + (size_t)j * N;
+      for (int n = tid; n <= last; n += kThreads)
+        if ((touched[n >> 5] >> (n & 31)) & 1u) apply_take(a, rowbits, a.free_bits, n, g, req, take[n]);
+      const int lo = s_offset[j] - B;
+      const uint32_t* o_bits = a.o_bits + (size_t)j * F * nw;
+      const float* o_used = a.o_used + (size_t)j * F * R;
+      const int32_t* o_fill = a.o_fill + (size_t)j * F;
+      for (int i = tid; i < n_open * nw; i += kThreads)
+        a.free_bits[(size_t)lo * nw + i] |= o_bits[i];
+      for (int i = tid; i < n_open; i += kThreads) {
+        float* used = a.free_used + (size_t)(lo + i) * R;
+        for (int r = 0; r < R; ++r) used[r] = __fadd_rn(used[r], o_used[(size_t)i * R + r]);
+        a.assign[(size_t)(B + lo + i) * G + g] = o_fill[i];  // opened this round
+      }
+    }
+    __syncthreads();
+    clk.mark(11);
+  }
+  if (tid == 0) {
+    *a.node_count = s_nc;
+    *a.steps = s_steps;
+  }
+  mask_bytes(a.free_bits, C, s_nc - B, a.free_mask, 0, 1);
+}
+
+struct GridBarrier {
+  __device__ void operator()() const { cg::this_grid().sync(); }
+};
+using DeviceShardBarrier = ShardBarrier<cuda::thread_scope_device>;
+
+template <bool kSpilled>
+__global__ void __launch_bounds__(kThreads, 1) pack_wavefront_kernel(Args a, Placement p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  NoSplit x;
+  wavefront_body<kSpilled>(a, blockIdx.x, x, GridBarrier{}, smem, p);
+}
+
+// B6 wavefront: a block a lane (lane_wavefront_body).
 template <bool kSpilled>
 __global__ void __launch_bounds__(kThreads, 1) pack_probe_wavefront_kernel(Args lanes,
                                                                            Placement p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  NoSplit x;
-  wavefront_body<kSpilled>(lane_view(lanes, blockIdx.x / lanes.W),
-                         (int)cg::this_cluster().block_rank(), x, ClusterBarrier{}, smem, p);
+  lane_wavefront_body<kSpilled>(lane_view(lanes, blockIdx.x), smem, p);
+}
+
+// n block barriers of kThreads threads in a row: the cost of one
+// barrier on its own, which bounds from below a lane's chain of
+// barriers (chip_smoke.py times it)
+__global__ void __launch_bounds__(kThreads, 1) wave_barrier_probe_kernel(int n, int* sink) {
+  int v = threadIdx.x;
+  for (int i = 0; i < n; ++i) {
+    __syncthreads();
+    v ^= i;
+  }
+  if (v == -1) *sink = v;
 }
 
 // per-shard pointers of a split solve's config-axis arrays
@@ -712,51 +977,27 @@ static int set_smem(const void* kernel, int smem, int C, int R, int P1, int K, i
   return (int)err;
 }
 
-// L lanes, one thread-block cluster of W blocks each (grid W * L), the
-// cluster barrier between phases. *max_clusters receives
-// cudaOccupancyMaxActiveClusters for the launch; when it is 0 the
-// launch is not made and cudaErrorInvalidConfiguration is returned. A
-// cluster of more than 8 blocks needs the non-portable size, which the
-// H100 allows up to 16.
+// L lanes, a block each. *lanes_at_once receives the blocks of the
+// launch the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// times the multiprocessors); when it is 0 the launch is not made and
+// cudaErrorInvalidConfiguration is returned.
 template <bool kSpilled>
-static int launch_clusters(const Args& a, const Placement& p, int W, int L, int smem,
-                           int* max_clusters, cudaStream_t stream) {
-  *max_clusters = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      pack_probe_wavefront_kernel<kSpilled>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+static int launch_lanes(const Args& a, const Placement& p, int L, int smem, int* lanes_at_once,
+                        cudaStream_t stream) {
+  *lanes_at_once = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pack_probe_wavefront_kernel<kSpilled>, kThreads, (size_t)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)W;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(W * L));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // clusters run whole and barrier only among themselves, so lanes run
-  // in waves of the clusters that fit at once; none fitting is an
-  // error, not a reason to narrow the width
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, (const void*)pack_probe_wavefront_kernel<kSpilled>,
-                                       &cfg);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
-  *max_clusters = n;
-  if (n < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, pack_probe_wavefront_kernel<kSpilled>, a, p);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
+  *lanes_at_once = per_sm * sms;
+  if (*lanes_at_once < 1) return (int)cudaErrorInvalidConfiguration;
+  pack_probe_wavefront_kernel<kSpilled><<<L, kThreads, smem, stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
@@ -812,9 +1053,11 @@ extern "C" int pack_wavefront_launch(
   return (int)cudaGetLastError();
 }
 
-// B6 wavefront: L lanes, each one thread-block cluster of W blocks
-// (launch_clusters). group_count is [L, G] and bound_live [L, B]; every
-// output, state and scratch array carries a leading lane axis of L.
+// B6 wavefront: L lanes, a block each (launch_lanes). group_count is
+// [L, G] and bound_live [L, B]; every output, state and scratch array
+// carries a leading lane axis of L (the scratch's W plan lanes a lane;
+// `lane` and `conf` are not used). A spilled placement's scratch holds
+// block_bytes a lane.
 extern "C" int pack_probe_wavefront_launch(
     const uint8_t* compat, const float* group_req, const int32_t* lane_counts,
     const float* cfg_alloc, const int32_t* cfg_pool, const float* pool_overhead,
@@ -828,9 +1071,9 @@ extern "C" int pack_probe_wavefront_launch(
     uint32_t* o_bits, float* o_used, int32_t* o_fill, uint32_t* o_union,
     int32_t* lane, uint32_t* conf,
     int G, int C, int R, int B, int F, int K, int P1, int cost, int W, int L, int smem,
-    const int* placement, unsigned char* tables, long long block_bytes, int* max_clusters,
+    const int* placement, unsigned char* tables, long long block_bytes, int* lanes_at_once,
     cudaStream_t stream) {
-  *max_clusters = 0;
+  *lanes_at_once = 0;
   if (R > kMaxR || W < 1 || W > kMaxW || L < 1) return (int)cudaErrorInvalidValue;
   Placement p = make_placement(placement, tables, block_bytes);
   const void* kernel = placement ? (const void*)pack_probe_wavefront_kernel<true>
@@ -845,8 +1088,13 @@ extern "C" int pack_probe_wavefront_launch(
          kcap, take, touched, spend, o_bits, o_used, o_fill, o_union, lane, conf,
          nullptr, nullptr, nullptr,
          G, C, R, B, F, K, P1, cost, W};
-  return placement ? launch_clusters<true>(a, p, W, L, smem, max_clusters, stream)
-                   : launch_clusters<false>(a, p, W, L, smem, max_clusters, stream);
+  return placement ? launch_lanes<true>(a, p, L, smem, lanes_at_once, stream)
+                   : launch_lanes<false>(a, p, L, smem, lanes_at_once, stream);
+}
+
+extern "C" int wave_barrier_probe_launch(int n, int* sink, cudaStream_t stream) {
+  wave_barrier_probe_kernel<<<1, kThreads, 0, stream>>>(n, sink);
+  return (int)cudaGetLastError();
 }
 
 // Split B3 over S shards of C columns each, W lanes: the six tables hold

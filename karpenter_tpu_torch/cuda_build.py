@@ -97,6 +97,7 @@ SIGNATURES = {
         "pack_wavefront_launch": [_P] * 36 + [_I] * 10 + _PLACE + [_P],
         "pack_probe_wavefront_launch": [_P] * 34 + [_I] * 11 + _PLACE + [_P, _P],
         "pack_wavefront_sharded_launch": [_P] * 39 + [_I] * 12 + _PLACE + [_P] * 3,
+        "wave_barrier_probe_launch": [_I, _P, _P],
     },
     "pack_flat": {
         "pack_flat_launch": [_P] * 7 + [_I] * 5 + [_P],
@@ -107,9 +108,10 @@ SIGNATURES = {
                    "pack_dense_barrier_probe_launch": [_I, _I, _P, _P]},
     "lp_price": {"lp_price_launch": [_P] * 7 + [_I] * 4 + [_P]},
     "lp_ascend": {
-        "lp_ascend_launch": [_P] * 15 + [_I, _P, _L] + [_I] * 5 + [_P],
+        "lp_ascend_launch": [_P] * 15 + [_I, _P, _L] + [_I] * 6 + [_P, _P],
         "lp_ascend_sharded_launch": [_P] * 15 + [_I, _P, _L, _P] + [_I] * 7 + [_P],
         "lp_barrier_probe_launch": [_I, _P, _P],
+        "lp_cluster_barrier_probe_launch": [_I, _I, _P, _P],
     },
 }
 for _name in ("pack_split", "pack_wavefront", "pack_dense", "lp_ascend", "lp_price"):

@@ -357,9 +357,31 @@ ASCENT_ARRAYS = (
 )
 
 
-def _ascent_array_bytes(dims, G: int, C: int, R: int, K: int) -> int:
-    size = {"G": G, "C": C, "R": R, "K": K, "nwc": -(-C // 32) if C > 32 else 1,
-            "gw": -(-G // 32), "tw": 2 if ascent_wide(G, C) else 1}
+# The wide layout's own arrays (`ExtArr` in csrc/lp_ascend.cu), placed
+# after a block's: each block's maxima and tie counts of mu, its window
+# sums of dtheta_b and of every d ratio row ("nwc": its windows), four
+# scalar words, each window's block and place there ("nwa": the windows
+# of the whole config axis), the sums of the windows of windows of its d
+# ratio rows ("GS": its most groups, ceil(G / S); "W2": the windows of
+# windows, at most 32); then the cluster's distinct columns: a hash of each
+# of its own, its first in the cluster and then where its maxima are, a
+# first's number, and the columns it takes (bits, compatible groups,
+# maxima, tie records; at most its configs' count).
+ASCENT_CLUSTER_ARRAYS = (
+    ("mul", "K"), ("nml", "K"), ("wtb", ("nwc",)), ("ws", ("G", "R", "nwc")), ("scal", "8"),
+    ("wmap", ("nwa",)), ("part", ("GS", "R", "W2")), ("uhash", "C"), ("urep", "C"),
+    ("ugidx", "C"), ("obits", ("C", "gw")), ("onc", "C"), ("omm", "CR"), ("oti", ("C", "R", "tw")),
+)
+
+
+def _ascent_array_bytes(dims, G: int, C: int, R: int, K: int, wide: bool | None = None,
+                        nwc: int | None = None, nwa: int = 0, gs: int = 0) -> int:
+    nw2 = 1 if nwa <= 32 else min(32, window_pad(nwa)[0])
+    size = {"G": G, "C": C, "R": R, "K": K, "8": 8, "GS": gs, "W2": nw2,
+            "nwc": nwc if nwc is not None else (-(-C // 32) if C > 32 else 1),
+            "nwa": nwa,
+            "gw": -(-G // 32),
+            "tw": 2 if (ascent_wide(G, C) if wide is None else wide) else 1}
     n = 4
     for d in dims:
         n *= size[d]
@@ -376,24 +398,63 @@ ASCENT_MAX_AXIS = 1 << 20
 ASCENT_MAX_SLOTS = 32767
 
 
+# the wide layout's most blocks a cluster (the H100's largest cluster, a
+# non-portable size)
+ASCENT_MAX_CLUSTER = 16
+
+
 def ascent_wide(G: int, C: int) -> bool:
     """Whether B5 runs its wide layout on `G` groups and `C` configs."""
     return G > ASCENT_NARROW_AXIS or C > ASCENT_NARROW_AXIS
 
 
-def ascent_layout(G: int, C: int, R: int, K: int) -> dict:
+def ascent_cluster(G: int, C: int) -> int:
+    """The blocks of the wide layout's cluster on `G` groups and `C`
+    configs (0 for the 2048 layout): one a window of the config axis's
+    ordered sums, up to `ASCENT_MAX_CLUSTER`."""
+    if not ascent_wide(G, C):
+        return 0
+    return min(ASCENT_MAX_CLUSTER, window_pad(C)[0] if C > 32 else 1)
+
+
+def cluster_ranges(C: int, S: int) -> list[tuple[int, int, int, int]]:
+    """The (first config, end, first window, end) of each block of a
+    cluster of S over C configs (`cluster_range` in csrc/lp_ascend.cu):
+    the windows of the ordered sums split evenly, each block's configs
+    those of its windows after XLA's front padding."""
+    nw, front = window_pad(C) if C > 32 else (1, 0)
+    out = []
+    for b in range(S):
+        w0, w1 = b * nw // S, (b + 1) * nw // S
+        c1 = C if b == S - 1 else min(C, 32 * w1 - front)
+        out.append((max(0, 32 * w0 - front), c1, w0, w1))
+    return out
+
+
+def ascent_layout(G: int, C: int, R: int, K: int, cluster: int = 0) -> dict:
     """Where a B5 block keeps each of its arrays (`Layout` in
     csrc/lp_ascend.cu): in order of priority, each (on 16 bytes) in the
     block's dynamic shared memory while the budget
-    (`pack_split.SMEM_BUDGET`) holds it, else in global scratch. Returns
-    {"offsets": [one per array: the shared-memory byte offset, or ~ the
-    scratch byte offset], "smem": bytes, "scratch": bytes, "global":
-    [the arrays placed in global memory]}."""
+    (`pack_split.SMEM_BUDGET`) holds it, else in global scratch. With
+    `cluster` (the wide layout's blocks), a block's arrays at the most
+    configs and windows a block of the cluster takes, then the cluster's
+    own (`ASCENT_CLUSTER_ARRAYS`). Returns {"offsets": [one per array:
+    the shared-memory byte offset, or ~ the scratch byte offset],
+    "smem": bytes, "scratch": bytes, "global": [the arrays placed in
+    global memory]}."""
     from karpenter_tpu_torch.solver.pack_split import SMEM_BUDGET, _align16
 
+    arrays, wide, nwc, Cb, nwa = ASCENT_ARRAYS, None, None, C, 0
+    if cluster:
+        ranges = cluster_ranges(C, cluster)
+        Cb = max(c1 - c0 for c0, c1, _, _ in ranges)
+        nwc = max(w1 - w0 for _, _, w0, w1 in ranges)
+        arrays, wide = ASCENT_ARRAYS + ASCENT_CLUSTER_ARRAYS, True
+        nwa = window_pad(C)[0] if C > 32 else 1
     offsets, smem, scratch, spilled = [], 0, 0, []
-    for name, size in ASCENT_ARRAYS:
-        n = _align16(_ascent_array_bytes(size, G, C, R, K))
+    for name, size in arrays:
+        n = _align16(_ascent_array_bytes(size, G, Cb, R, K, wide, nwc, nwa,
+                                         -(-G // cluster) if cluster else 0))
         if smem + n <= SMEM_BUDGET:
             offsets.append(smem)
             smem += n
@@ -570,13 +631,13 @@ def _one_slot(onehot: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: a config belongs to more than one reservation slot")
 
 
-def _layout_args(G: int, C: int, R: int, K: int, dev, copies: int = 1):
+def _layout_args(G: int, C: int, R: int, K: int, dev, copies: int = 1, cluster: int = 0):
     """The layout of a launch as its C arguments: the offsets (a ctypes
     array), the shared-memory bytes, the scratch tensor (`copies` blocks'
     worth) and a block's scratch bytes."""
     import ctypes
 
-    lay = ascent_layout(G, C, R, K)
+    lay = ascent_layout(G, C, R, K, cluster)
     offsets = (ctypes.c_longlong * len(lay["offsets"]))(*lay["offsets"])
     scratch = torch.empty((max(16, copies * lay["scratch"]),), dtype=torch.uint8, device=dev)
     return lay, offsets, scratch
@@ -601,6 +662,8 @@ def ascent_refusal(Gp: int, Cp: int, R: int = 1, Kp: int = 1) -> str | None:
 
 
 def _ascend_cuda(a: AscentInputs, n_iters: int):
+    import ctypes
+
     from karpenter_tpu_torch.solver.pack_split import _check, _lib, _ptr, _raise_on, _stream
 
     Gp, Cp = a.compat.shape
@@ -621,20 +684,24 @@ def _ascend_cuda(a: AscentInputs, n_iters: int):
     best = torch.empty((), dtype=f32, device=dev)
     best_lam = torch.empty((Gp,), dtype=f32, device=dev)
     last_up = torch.empty((), dtype=torch.int32, device=dev)
-    lay, offsets, scratch = _layout_args(Gp, Cp, R, Kp, dev)
+    S = ascent_cluster(Gp, Cp)
+    lay, offsets, scratch = _layout_args(Gp, Cp, R, Kp, dev, max(S, 1), S)
     lib = _lib("lp_ascend")
+    at_once = ctypes.c_int(0)
     err = lib.lp_ascend_launch(
         *(_ptr(t) for t in (*a.tensors(), best, best_lam, last_up)), offsets, lay["smem"],
-        _ptr(scratch), lay["scratch"], Gp, Cp, R, Kp, int(n_iters), _stream(),
+        _ptr(scratch), lay["scratch"], Gp, Cp, R, Kp, int(n_iters), S, ctypes.byref(at_once),
+        _stream(),
     )
     _raise_on(err, f"lp_ascend (Gp={Gp} Cp={Cp} R={R} Kp={Kp}, {lay['smem']} B of shared "
-                   f"memory)")
+                   f"memory" + (f" a block, one cluster of {S} blocks; the card holds "
+                                f"{at_once.value} such clusters at once" if S else "") + ")")
     LAUNCHES["lp_ascend"] += 1
     if lay["global"]:
         LAUNCHES["lp_ascend_global"] += 1
     if ascent_wide(Gp, Cp):
         LAUNCHES["lp_ascend_wide"] += 1
-    ASCENT_SMEM["lp_ascend"] = _placement(lay)
+    ASCENT_SMEM["lp_ascend"] = _placement(lay) + (f", a cluster of {S} blocks" if S else "")
     return best, best_lam, last_up
 
 
@@ -655,9 +722,23 @@ def barrier_probe(n: int) -> None:
               "lp_barrier_probe")
 
 
+def cluster_barrier_probe(n: int, S: int) -> None:
+    """Launch one cluster of `S` blocks of B5's width that takes `n`
+    cluster barriers in a row and does nothing else: `chip_smoke.py`
+    times it for the cost of one (the floor of the wide layout's chain of
+    cluster barriers). Not counted."""
+    from karpenter_tpu_torch.solver.pack_split import _lib, _ptr, _raise_on, _stream
+
+    sink = torch.empty((1,), dtype=torch.int32, device="cuda")
+    _raise_on(_lib("lp_ascend").lp_cluster_barrier_probe_launch(int(n), int(S), _ptr(sink),
+                                                                _stream()),
+              f"lp_cluster_barrier_probe (a cluster of {S})")
+
+
 def ascend(a: AscentInputs, n_iters: int):
     """B5. Arguments and outputs as `ascend_ref`. CUDA tensors launch
-    the kernel (one block for all iterations); CPU tensors run the
+    the kernel (one block for all iterations; past 2048 padded groups or
+    configs one cluster of `ascent_cluster` blocks); CPU tensors run the
     plain version; any other device raises."""
     if a.lam0.is_cuda:
         return _ascend_cuda(a, n_iters)

@@ -94,9 +94,10 @@ LAUNCHES = {"pack_split": 0, "pack_split_global": 0, "pack_split_wavefront": 0,
 # <m> B global scratch (all in shared memory | global: <segments>)"
 DYNAMIC_SMEM: dict[str, str] = {}
 
-# cluster width W -> the active-cluster count the card reported at the
-# last B6 wavefront launch (cudaOccupancyMaxActiveClusters)
-ACTIVE_CLUSTERS: dict[int, int] = {}
+# wrapper -> the blocks of its last launch the card holds at once (B6
+# wavefront: a block a lane, cudaOccupancyMaxActiveBlocksPerMultiprocessor
+# times the multiprocessors)
+ACTIVE_LANES: dict[str, int] = {}
 
 # the block size of B6's sequential program (B1 and the split kernels
 # run 1024): on an NVIDIA H100 at 700 W the fastest on phase 8's first
@@ -143,6 +144,14 @@ REGIONS = {"lp_ascend": ("column maxima", "vh0, z", "excess, mu, theta ties",
                          "dtheta_b", "dvh, qx, d ratio's terms", "d ratio rows", "grad",
                          "norm", "update, ratio", "zeroing")}
 REGION_SLOT = 16
+# B5's wide layout: the cluster barriers of block 0 (`kClusterBarrierSlot`)
+# and the regions of its d ratio pass (`ClusterRegion`: block 0's window
+# sums, its wait at the cluster barrier after them, its rows and gradient,
+# its wait before the gather, the gather)
+CLUSTER_BARRIER_SLOT = 15
+CLUSTER_REGION_SLOT = 10
+CLUSTER_REGIONS = ("d ratio window sums", "their barrier's wait", "rows and grad",
+                   "the gather's barrier wait", "grad gathered")
 # the kinds of the split kernels' exchange census (`XKind` in
 # csrc/shard_xchg.cuh): each kind's exchanges, their cycles and the block
 # barriers they took, on block 0's thread 0 (the last kind counts the
@@ -355,7 +364,8 @@ def phase_clocks(name: str):
     Yields `take()`, which synchronizes and returns {phase: cycles}
     summed since the last take, with "count" the steps (B1, B7), rounds (B3)
     or iterations (B5), "spreads" the packing kernels' per-thread
-    spreads, "barriers" B5's block barriers, "regions" the cycles of
+    spreads, "barriers" B5's block barriers ("cluster barriers" its wide
+    layout's cluster barriers), "regions" the cycles of
     the regions inside its phases, "ns" the global timer's ns over the
     same phases (cycles / ns: the SM clock) and "exchanges" the split packing
     kernels' census ({kind: (exchanges, cycles, block barriers)},
@@ -378,6 +388,9 @@ def phase_clocks(name: str):
         out["ns"] = ns.value
         if name == "lp_ascend":
             out["barriers"] = buf[BARRIER_SLOT]
+            out["cluster barriers"] = buf[CLUSTER_BARRIER_SLOT]
+            out["cluster regions"] = {k: buf[CLUSTER_REGION_SLOT + i]
+                                      for i, k in enumerate(CLUSTER_REGIONS)}
             out["regions"] = {k: buf[REGION_SLOT + i] for i, k in enumerate(REGIONS[name])}
         elif name == "lp_price":
             # "count": configs; their rounds, the most of a config, and
@@ -1341,10 +1354,10 @@ def _pack_probe_lanes_wavefront_cuda(
         ((L, G), i32)))
     lay = table_placement(C, R, P1, K, G, W=W, N=N, budget=_budget[0])
     smem = lay["smem"]
-    offsets, tables, per = placement_args(lay, L * W, dev)
+    offsets, tables, per = placement_args(lay, L, dev)
     # B3's state and plan scratch, one slice per lane
     scratch = wavefront_scratch((L,), W, G, C, R, B, F, K, dev)
-    clusters = ctypes.c_int(0)
+    at_once = ctypes.c_int(0)
     lib = _lib("pack_wavefront")
     err = lib.pack_probe_wavefront_launch(
         _ptr(compat), _ptr(group_req), _ptr(lane_counts), _ptr(cfg_alloc),
@@ -1354,15 +1367,25 @@ def _pack_probe_lanes_wavefront_cuda(
         _ptr(conflict), _ptr(assign), _ptr(free_mask), _ptr(node_count),
         _ptr(unsched), _ptr(steps), _ptr(widths), *[_ptr(t) for t in scratch],
         G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, W, L, smem, offsets,
-        _ptr(tables), per, ctypes.byref(clusters), _stream(),
+        _ptr(tables), per, ctypes.byref(at_once), _stream(),
     )
-    ACTIVE_CLUSTERS[W] = clusters.value
+    ACTIVE_LANES["pack_probe_lanes_wavefront"] = at_once.value
     DYNAMIC_SMEM["pack_probe_lanes_wavefront"] = placement_text(lay)
-    _raise_on(err, f"pack_probe_lanes_wavefront ({L} clusters of {W} blocks, "
-                   f"{placement_text(lay)} a block; the card holds {clusters.value} such "
-                   "clusters at once)")
+    _raise_on(err, f"pack_probe_lanes_wavefront ({L} lanes, a block of 1024 threads each, "
+                   f"width {W}, {placement_text(lay)} a block; the card holds "
+                   f"{at_once.value} such blocks at once)")
     _count("pack_probe_lanes_wavefront", lay)
     return assign, free_mask, node_count, unsched, steps, widths
+
+
+def wave_barrier_probe(n: int) -> None:
+    """Launch one block of B6 wavefront's size (1024 threads) that takes
+    `n` block barriers in a row and does nothing else: `chip_smoke.py`
+    times it for the cost of one barrier (the floor of a lane's chain of
+    barriers). Not counted: it is no part of a solve."""
+    sink = torch.empty((1,), dtype=torch.int32, device="cuda")
+    _raise_on(_lib("pack_wavefront").wave_barrier_probe_launch(int(n), _ptr(sink), _stream()),
+              "wave_barrier_probe")
 
 
 def _launch_pack_flat(what, assign, free_mask, node_count, unsched,
@@ -1545,8 +1568,9 @@ def pack_probe_lanes_wavefront(*args, max_free: int, mode: str = "ffd",
                                width: int = 16, **kw):
     """B6, wavefront program. Arguments and outputs as
     `pack_probe_lanes_wavefront_ref`; CUDA tensors run the kernel (one
-    launch, one cluster of `width` blocks a lane; raises if the card
-    can hold no such cluster)."""
+    launch, a block a lane, each round's `width` plans made in lane order
+    up to the first the acceptance rejects; raises if the card can hold
+    no such block)."""
     if _route(args[0], "pack_probe_lanes_wavefront"):
         return _pack_probe_lanes_wavefront_cuda(
             *args, max_free=max_free, mode=mode, width=width, **kw)

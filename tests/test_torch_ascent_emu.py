@@ -85,14 +85,14 @@ def emulated(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++: the emulated kernel cannot be built")
     out = tmp_path_factory.mktemp("ascent_emu")
-    for f in ("cuda_emu.h", "pack_common.cuh"):
+    for f in ("cuda_emu.h", "pack_common.cuh", "cooperative_groups.h"):
         shutil.copy(EMU / f, out / f)
     (out / "shard_xchg_emu.h").write_text(_exchange_source())
     (out / "lp_ascend_emu.cc").write_text(_kernel_source())
     exe = out / "lp_ascend_emu"
     build = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-pthread",
-         "-w", "-o", str(exe), str(out / "lp_ascend_emu.cc")],
+         "-w", f"-I{out}", "-o", str(exe), str(out / "lp_ascend_emu.cc")],
         capture_output=True, text=True)
     if build.returncode != 0 and "c++20" in build.stderr:
         pytest.skip(f"g++ cannot build C++20: {build.stderr[:200]}")
@@ -100,20 +100,22 @@ def emulated(tmp_path_factory):
     return exe
 
 
-def run_emulated(exe: Path, a, n_iters: int, shards: int = 1):
+def run_emulated(exe: Path, a, n_iters: int, shards: int = 1, cluster: int = 0):
     """(best [S], best_lam [S, Gp], last_up [S]) of the emulated kernel
-    on `a` (AscentInputs, or ShardedAscentInputs with `shards` > 1)."""
+    on `a` (AscentInputs, or ShardedAscentInputs with `shards` > 1); with
+    `cluster` the wide layout's cluster of that many blocks on `a`
+    (AscentInputs: best [1], best_lam [1, Gp], last_up [1])."""
     one = (lambda n: getattr(a, n)[0]) if shards > 1 else (lambda n: getattr(a, n))
     Gp, Cp = one("compat").shape
     R, Kp = a.req.shape[1], one("onehot").shape[0]
-    lay = lp_device.ascent_layout(Gp, Cp, R, Kp)
+    lay = lp_device.ascent_layout(Gp, Cp, R, Kp, cluster)
 
     def put(buf, t):
         t = t.numpy()
         buf.append(np.ascontiguousarray(
             t.astype(np.uint8) if t.dtype == bool else t.astype(np.float32)).tobytes())
 
-    buf = [struct.pack("6i", Gp, Cp, R, Kp, n_iters, shards),
+    buf = [struct.pack("7i", Gp, Cp, R, Kp, n_iters, cluster or shards, 1 if cluster else 0),
            struct.pack(f"{len(lay['offsets'])}q", *lay["offsets"]),
            struct.pack("2q", lay["smem"], lay["scratch"])]
     for n in ("lam0", "count", "count_w", "req", "budget"):
@@ -121,11 +123,11 @@ def run_emulated(exe: Path, a, n_iters: int, shards: int = 1):
     for sh in range(shards):
         for n in ("compat", "alloc", "price", "valid", "onehot", "uncapped"):
             put(buf, getattr(a, n)[sh] if shards > 1 else getattr(a, n))
-    path = exe.parent / f"in-{Gp}-{Cp}-{n_iters}-{shards}.bin"
+    path = exe.parent / f"in-{Gp}-{Cp}-{n_iters}-{shards}-{cluster}.bin"
     path.write_bytes(b"".join(buf))
     subprocess.run([str(exe), str(path), str(path) + ".out"], check=True, timeout=600)
     raw = np.frombuffer((Path(str(path) + ".out")).read_bytes(), np.uint8)
-    S = shards
+    S = 1 if cluster else shards
     best = raw[:4 * S].view(np.float32)
     lam = raw[4 * S:4 * S + 4 * S * Gp].view(np.float32).reshape(S, Gp)
     last = raw[4 * S + 4 * S * Gp:].view(np.int32)
@@ -173,35 +175,64 @@ def test_emulated_split_ascent_equals_plain_version(emulated, S):
     assert (last == want[2].numpy()).all(), name
 
 
-# the wide layout (a padded axis past 2048, `lp_device.ascent_wide`): the
-# warm buckets' config axis at both group axes, aws_catalog_50k's padded
-# config axis, and padded group axes past 2048 (4438: the bound's dot one
-# multiply-add chain), a few iterations each
-WIDE_CASES = [("wide-c4438", 4), ("wide-c4438-g243", 3), ("wide-c2840", 4),
-              ("wide-g2272", 4), ("wide-g4438", 3)]
+# the wide layout (a padded axis past 2048, `lp_device.ascent_wide`), a
+# cluster of 2 and of 4 emulated blocks (`lp_ascend_cluster_kernel`; the
+# card's has up to 16, `lp_device.ascent_cluster`): the warm buckets'
+# config axis at both group axes, aws_catalog_50k's padded config axis,
+# and padded group axes past 2048 (4438: the bound's dot one multiply-add
+# chain; its 64 configs are two windows, so two blocks), a few iterations
+# each
+WIDE_CASES = [("wide-c4438", 4, 2), ("wide-c4438", 4, 4), ("wide-c4438-g243", 3, 2),
+              ("wide-c4438-g243", 3, 4), ("wide-c2840", 4, 2), ("wide-c2840", 4, 4),
+              ("wide-g2272", 4, 2), ("wide-g2272", 4, 3), ("wide-g4438", 3, 2)]
 
 
-@pytest.mark.parametrize("name,n_iters", WIDE_CASES)
-def test_emulated_wide_ascent_equals_plain_version(emulated, name, n_iters):
-    (case, a), = ascent_wide_cases(0, names=(name,))
+def _hold_cluster(exe, a, n_iters: int, blocks: int, tag):
     assert lp_device.ascent_wide(*a.compat.shape)
-    best, lam, last = run_emulated(emulated, a, n_iters)
+    assert 2 <= blocks <= lp_device.ascent_cluster(*a.compat.shape)
+    best, lam, last = run_emulated(exe, a, n_iters, cluster=blocks)
     want = lp_device.ascend_ref(a, n_iters)
-    assert (_bits(best[0]) == _bits(want[0].numpy())).all(), case
-    assert (_bits(lam[0]) == _bits(want[1].numpy())).all(), case
-    assert int(last[0]) == int(want[2]), case
+    assert (_bits(best[0]) == _bits(want[0].numpy())).all(), tag
+    assert (_bits(lam[0]) == _bits(want[1].numpy())).all(), tag
+    assert int(last[0]) == int(want[2]), tag
+
+
+@pytest.mark.parametrize("name,n_iters,blocks", WIDE_CASES)
+def test_emulated_wide_ascent_equals_plain_version(emulated, name, n_iters, blocks):
+    (case, a), = ascent_wide_cases(0, names=(name,))
+    _hold_cluster(emulated, a, n_iters, blocks, (case, blocks))
 
 
 def test_emulated_three_window_levels(emulated):
     """A config axis past 32 x 1024 terms: the ordered sums over configs
-    (dtheta's, each d ratio row) take a third level of windows."""
+    (dtheta's, each d ratio row) take a third level of windows, here over
+    a cluster of 4 blocks."""
     a = ascent_edge_case(5, 12, 34000, 3, 64, 30, 2, 2)
     assert lp_device.window_pad(lp_device.window_pad(34000)[0])[0] > 32
-    best, lam, last = run_emulated(emulated, a, 3)
-    want = lp_device.ascend_ref(a, 3)
-    assert (_bits(best[0]) == _bits(want[0].numpy())).all()
-    assert (_bits(lam[0]) == _bits(want[1].numpy())).all()
-    assert int(last[0]) == int(want[2])
+    _hold_cluster(emulated, a, 3, 4, "34000 configs")
+
+
+# the wide layout's block boundaries against XLA's windows: 2100 configs
+# are 66 windows after 6 front zeros, grouped in level-2 windows after 15
+# front windows (0-16, 17-48, 49-65); over 4 blocks (windows from 0, 16,
+# 33, 49) the last block starts on a level-2 boundary and the second one
+# window before one; over 2 blocks (from 33) inside a level-2 window.
+# 2072 configs: 65 windows after 4 front zeros, level-2 windows 0-16,
+# 17-48, 49-64 (15 front windows); over 4 blocks (0, 16, 32, 48) the
+# boundaries fall one window before each level-2 boundary.
+BOUNDARY_CASES = [(2100, 4), (2100, 2), (2072, 4)]
+
+
+@pytest.mark.parametrize("C,blocks", BOUNDARY_CASES)
+def test_emulated_cluster_split_on_window_boundaries(emulated, C, blocks):
+    nw, front = lp_device.window_pad(C)
+    nw2, front2 = lp_device.window_pad(nw)
+    starts = [w0 for _, _, w0, _ in lp_device.cluster_ranges(C, blocks)]
+    assert front > 0 and nw2 > 1
+    if (C, blocks) == (2100, 4):
+        assert starts == [0, 16, 33, 49] and (49 + front2) % 32 == 0
+    a = ascent_edge_case(7, 12, C, 3, 4, 20, 2, 2)
+    _hold_cluster(emulated, a, 4, blocks, (C, blocks))
 
 
 def test_emulated_wide_split_ascent_equals_plain_version(emulated):

@@ -8,9 +8,9 @@ no CPU mode). On a GPU host:
 (`--noconftest`: the suite's conftest pins JAX to the CPU, and this
 file imports no JAX.) Covers B1-B5 (B4 also in its layouts that read
 the groups' tables in place, past its staged layout's ceiling; B5 also
-at edge shapes, one on its global-memory path, and its phase-clock
-build) and B6 (both lane programs, the
-wavefront one at cluster widths 8 and 16, the sequential one at each
+at edge shapes, one on its global-memory path, its wide layout's
+cluster on the wide cases, and its phase-clock build) and B6 (both lane
+programs, the wavefront one at widths 8 and 16, the sequential one at each
 block size it can take, and the lane epilogue), the flat routes in place
 (B1, B3 and both B6 programs writing into the flat buffer's regions, the
 mask epilogue), B7
@@ -244,6 +244,35 @@ def test_ascent_kernel_matches_plain_version_at_edge_shapes(lp_kernels, index):
         assert _same_bits(x, y), name
 
 
+@pytest.mark.parametrize("index", range(6))
+def test_ascent_wide_cluster_matches_plain_version(lp_kernels, index):
+    """B5's wide layout on `testing.ascent_wide_cases`: one cluster of
+    `lp_device.ascent_cluster` blocks (16 past 512 configs; the 64 and 96
+    configs of the group-wide cases are 2 and 3 windows), a few
+    iterations, and its phase-clock build, which counts its cluster
+    barriers."""
+    from karpenter_tpu_torch.solver import pack_split
+    from karpenter_tpu_torch.testing import ascent_wide_cases
+
+    _, lp_device = lp_kernels
+    name, inputs = ascent_wide_cases(0)[index]
+    a = inputs.to("cuda")
+    n_iters = 3 if a.compat.shape[0] > 4000 else 8
+    before = dict(lp_device.LAUNCHES)
+    got = lp_device.ascend(a, n_iters)
+    torch.cuda.synchronize()
+    assert lp_device.LAUNCHES["lp_ascend_wide"] == before["lp_ascend_wide"] + 1
+    want = lp_device.ascend_ref(a, n_iters)
+    for x, y in zip(got, want):
+        assert _same_bits(x, y), name
+    with pack_split.phase_clocks("lp_ascend") as take:
+        again = lp_device.ascend(a, n_iters)
+        clk = take()
+    for x, y in zip(again, want):
+        assert _same_bits(x, y), name
+    assert clk["count"] == n_iters and clk["cluster barriers"] >= 6 * n_iters, name
+
+
 def test_ascent_phase_clocks_build(lp_kernels):
     """B5's phase-clock build (`lp_ascend_clocks`) gives the same result
     and counts its iterations, its phases' cycles and its barriers."""
@@ -306,7 +335,7 @@ def test_probe_lane_kernels_match_plain_versions(cuda_kernels, probe_cases, inde
         wf = k.pack_probe_lanes_wavefront(
             *args, max_free=case.max_free, mode=mode, width=width, **kw)
         torch.cuda.synchronize()
-        assert k.ACTIVE_CLUSTERS[width] >= 1
+        assert k.ACTIVE_LANES["pack_probe_lanes_wavefront"] >= 1
         want = k.pack_probe_lanes_wavefront_ref(
             *args, max_free=case.max_free, mode=mode, width=width, **kw)
         for a, b in zip(wf, want):

@@ -1,7 +1,11 @@
 """B6's sequential program (`pack_split_kernel` in
 `karpenter_tpu_torch/csrc/pack_split.cu`, B1's body over a lane axis at
 a block size fit to the lanes) run on the CPU, held byte for byte
-against its plain version `pack_split.pack_probe_lanes_ref`.
+against its plain version `pack_split.pack_probe_lanes_ref`; and B6's
+wavefront program (`lane_wavefront_body` in `csrc/pack_wavefront.cu`, a
+block a lane, each round's plans in lane order up to the first rejected),
+held byte for byte against `pack_split.pack_probe_lanes_wavefront_ref`,
+the rounds and their widths included.
 
 The device code compiles as C++20 with g++ against the emulation in
 `tests/cuda_emu/` (a std::thread a CUDA thread, a futex barrier for block
@@ -53,6 +57,38 @@ def lanes_exe(tmp_path_factory):
     build = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-pthread", "-w",
          f"-I{out}", "-o", str(exe), str(out / "lanes.cc")],
+        capture_output=True, text=True)
+    if build.returncode != 0 and "c++20" in build.stderr:
+        pytest.skip(f"g++ cannot build C++20: {build.stderr[:200]}")
+    assert build.returncode == 0, build.stderr[-4000:]
+    return exe
+
+
+@pytest.fixture(scope="module")
+def wave_lanes_exe(tmp_path_factory):
+    """The emulated B6 wavefront program: pack_wavefront.cu up to its
+    kernels, kThreads rewritten to 64, the harness `cuda_emu/lanes_wave.inc`."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++: the emulated kernel cannot be built")
+    out = tmp_path_factory.mktemp("wave_lanes_emu")
+    for f in ("cuda_emu.h", "xchg_host.h", "cuda_runtime.h", "cuda_pipeline.h",
+              "cooperative_groups.h"):
+        shutil.copy(EMU / f, out / f)
+    shutil.copy(CSRC / "shard_xchg.cuh", out / "shard_xchg.cuh")
+    common = (CSRC / "pack_common.cuh").read_text()
+    old = "constexpr int kThreads = 1024;"
+    assert common.count(old) == 1
+    (out / "pack_common.cuh").write_text(common.replace(old, "constexpr int kThreads = 64;"))
+    src = (CSRC / "pack_wavefront.cu").read_text()
+    body = src[:src.index("struct GridBarrier {")]
+    (out / "wave_lanes.cc").write_text('#include "xchg_host.h"\n#define __shared__ static\n'
+                                       + body + "\n}  // namespace\n"
+                                       + (EMU / "lanes_wave.inc").read_text())
+    exe = out / "wave_lanes"
+    build = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-pthread", "-w",
+         f"-I{out}", "-o", str(exe), str(out / "wave_lanes.cc")],
         capture_output=True, text=True)
     if build.returncode != 0 and "c++20" in build.stderr:
         pytest.skip(f"g++ cannot build C++20: {build.stderr[:200]}")
@@ -220,3 +256,99 @@ def test_emulated_b6_sequential_in_place_equals_plain_flat_rows(lanes_exe, cases
         want = pack_split.pack_flat_lanes_ref(*_plain(case, mode))
     got = pack_split.flat_views(buf, lay)[0]
     assert got.shape == want.shape and torch.equal(got, want), case.name
+
+
+def run_wave_lanes(exe: Path, case, mode: str, width: int, tmp: Path, budget=None):
+    """The emulated B6 wavefront program on `case` at `width`: (assign [L,
+    N, G], free_mask [L, F, C], node_count [L], unsched [L, G], steps [L],
+    widths [L, G]). `budget`: the spilled placement under that many bytes
+    of shared memory (it must spill)."""
+    (compat, req, counts, alloc, pool, oh, bcompat, balloc, bused, bslot, live,
+     price) = case.args
+    kw = case.kwargs
+    G, C = compat.shape
+    R, L, B, P1 = req.shape[1], counts.shape[0], balloc.shape[0], oh.shape[0]
+    F = case.max_free
+    N = B + F
+    cfg_rsv = kw.get("cfg_rsv")
+    cfg_rsv = np.full((C,), -1, np.int32) if cfg_rsv is None else cfg_rsv
+    rsv_cap = kw.get("rsv_cap")
+    rsv_cap = np.zeros((0,), np.float32) if rsv_cap is None else rsv_cap
+    conflict = kw.get("conflict")
+    K = rsv_cap.shape[0]
+    lay = pack_split.table_placement(C, R, P1, K, G, W=width, N=N, budget=budget)
+    assert lay["spilled"] == (budget is not None), (case.name, budget)
+    buf = [struct.pack("12i", G, C, R, B, F, K, P1, 1 if mode == "cost" else 0, L, width,
+                       conflict is not None, lay["spilled"])]
+    if lay["spilled"]:
+        buf.append(struct.pack(f"={len(lay['offsets'])}i2q", *lay["offsets"],
+                               lay["scratch"], lay["smem"]))
+    for x, dt in ((compat, np.uint8), (req, np.float32), (counts, np.int32),
+                  (alloc, np.float32), (pool, np.int32), (oh, np.float32),
+                  (bcompat, np.uint8), (balloc, np.float32), (bused, np.float32),
+                  (bslot, np.int32), (live, np.uint8), (price, np.float32),
+                  (cfg_rsv, np.int32), (rsv_cap, np.float32)):
+        buf.append(_np(x, dt).tobytes())
+    if conflict is not None:
+        buf.append(_np(conflict, np.uint8).tobytes())
+    path = tmp / f"wave-{case.name}-{mode}-{width}-{budget}.bin"
+    path.write_bytes(b"".join(buf))
+    subprocess.run([str(exe), str(path), str(path) + ".out"], check=True, timeout=600)
+    raw = np.frombuffer(Path(str(path) + ".out").read_bytes(), np.uint8)
+    o = 0
+
+    def take(n, dt, shape):
+        nonlocal o
+        v = raw[o:o + n * np.dtype(dt).itemsize].view(dt).reshape(shape)
+        o += n * np.dtype(dt).itemsize
+        return v
+
+    return (take(L * N * G, np.int32, (L, N, G)), take(L * F * C, np.uint8, (L, F, C)),
+            take(L, np.int32, (L,)), take(L * G, np.int32, (L, G)), take(L, np.int32, (L,)),
+            take(L * G, np.int32, (L, G)))
+
+
+def _wave_budget(case, width: int, spill: str):
+    """The budget under which the case's wavefront placement spills the
+    compat bits alone ("compat bits") or every segment ("all")."""
+    if spill == "all":
+        return 0
+    compat, req, _, _, _, oh = case.args[:6]
+    rsv_cap = case.kwargs.get("rsv_cap")
+    K = 0 if rsv_cap is None else rsv_cap.shape[0]
+    G, C = compat.shape
+    N = case.args[7].shape[0] + case.max_free
+    return pack_split.table_placement(C, req.shape[1], oh.shape[0], K, G, W=width,
+                                      N=N)["smem"] - 1
+
+
+# (case, width, mode, placement): both cases at the card's width 16 (its
+# lanes of different round counts), the reservation case with pairwise
+# conflicts at 4, and spilled placements
+WAVE_RUNS = [
+    (0, 16, "ffd", None),
+    (1, 16, "cost", None),
+    (1, 4, "ffd", "compat bits"),
+    (0, 8, "cost", "all"),
+]
+
+
+@pytest.mark.parametrize("index, width, mode, spill", WAVE_RUNS)
+def test_emulated_b6_wavefront_equals_plain_version(wave_lanes_exe, cases, tmp_path, index,
+                                                    width, mode, spill):
+    case = cases[index]
+    budget = None if spill is None else _wave_budget(case, width, spill)
+    t = torch.from_numpy
+    args = [t(np.ascontiguousarray(a)) for a in case.args]
+    kw = {k: None if v is None else t(np.ascontiguousarray(v)) for k, v in case.kwargs.items()}
+    with testing.one_core():
+        got = run_wave_lanes(wave_lanes_exe, case, mode, width, tmp_path, budget)
+        want = pack_split.pack_probe_lanes_wavefront_ref(
+            *args, max_free=case.max_free, mode=mode, width=width, **kw)
+    tag = (case.name, mode, width, spill)
+    for g, w in zip(got, want):
+        w = w.numpy()
+        assert (g == (w.astype(np.uint8) if w.dtype == bool else w)).all(), tag
+    if width == 16:
+        # the lanes ran different numbers of rounds, more than one each
+        assert len(set(got[4].tolist())) > 1 and got[4].min() > 1, (tag, got[4])

@@ -215,7 +215,7 @@ class _FakeLib:
         def launch(*args):
             self.calls.append((name, args))
             if name == "pack_probe_wavefront_launch":
-                args[-2]._obj.value = 4  # clusters the card holds at once
+                args[-2]._obj.value = 4  # lanes (blocks) the card holds at once
             if name == "pack_wavefront_sharded_launch":
                 args[-3]._obj.value, args[-2]._obj.value = 1, 132
             return 0
